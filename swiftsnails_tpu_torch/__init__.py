@@ -1,0 +1,24 @@
+"""swiftsnails_tpu_torch — the PyTorch/CUDA port of swiftsnails, for one NVIDIA H100.
+
+A second package beside the JAX one, with the same module paths and names, so
+the counterpart of each JAX module is found at the same place:
+
+* the packed ``[capacity, S, 128]`` parameter tables and their pull/push
+  (:mod:`swiftsnails_tpu_torch.parallel.store`);
+* the row gather and row scatter-add kernels, hand-written in CUDA C++ for
+  ``sm_90a`` (``csrc/rowdma.cu``, bound in :mod:`swiftsnails_tpu_torch.ops.rowdma`);
+* the word2vec SGNS trainer on its ``packed+pool`` path
+  (:mod:`swiftsnails_tpu_torch.models.word2vec`) and the training loop
+  (:mod:`swiftsnails_tpu_torch.framework.trainer`).
+
+Entry points run on the card (``device=None`` means ``cuda``) and raise when
+there is none, unless the caller passes ``device="cpu"``: then every kernel
+wrapper runs its plain PyTorch version. The port imports neither JAX nor the
+JAX package. ``ROADMAP.md`` lists what is not ported yet.
+"""
+
+__version__ = "0.1.0"
+
+from swiftsnails_tpu_torch.utils.config import Config, load_config
+
+__all__ = ["Config", "load_config", "__version__"]
