@@ -1,6 +1,8 @@
 """Chip smoke test of the PyTorch port: builds its CUDA kernels, holds each
-against its plain PyTorch version, and trains word2vec (packed+pool) at full
-width on one NVIDIA GPU through the port's normal entry points.
+against its plain PyTorch version, and trains word2vec at full width on one
+NVIDIA GPU through the port's normal entry points, on each of its three
+paths: packed+pool, fused-hogwild (``fused: 1``) and fused-grouped
+(``fused: 1, grouped: 1``).
 
     python3 chip_smoke.py [--seed N]
 
@@ -14,23 +16,42 @@ it exits non-zero and prints no result.
 Phases:
 
 1. ``env``: the card, its power limit, TF32 off for matmul and cuDNN.
-2. ``build``: compile ``csrc/rowdma.cu`` with ``nvcc``.
-3. ``kernel``: each kernel at the main path's shapes (f32 and bf16; the
+2. ``build``: compile ``csrc/rowdma.cu`` and ``csrc/fused_sgns.cu``, one
+   ``nvcc`` each, started together; their ptxas register and spill lines.
+3. ``kernel``: each row kernel at the main path's shapes (f32 and bf16; the
    in-table pull and push of 16,384 rows, the out-table ones of 18,432),
    bit-equal to its plain version, timed beside the plain version, one
    PyTorch library call and its bound (least bytes / the card's memory
-   rate).
-4. ``slice_parity``: 4 substeps of a small config with injected negative
-   pools on the card and on the CPU; the tables agree within rtol 1e-5 /
-   atol 1e-6 (reduction order), and two runs on the card are bit-identical.
-5. ``train``: ``Word2VecTrainer`` -> ``TrainLoop.run`` at vocab 1,048,576,
-   dim 200, batch 16,384, pool 64 per 512 pairs, f32 tables, lr 100 (see
-   ``LR``); both kernels' launch counters, set to 0 just before, must read
-   2 per substep after, and the loss must be finite and falling.
-6. ``profile``: device time by kernel over 5 more train steps
-   (``torch.profiler``) and the card's busy share of their wall time.
-7. ``kernels``: one line for every ported kernel, with its launches in the
-   ``train`` run and its numbers from phase 3.
+   rate). Each fused kernel (f32 and bf16; flat: 16,384 pairs in 32 blocks
+   of 512 sharing 64 pool rows; grouped: 8,192 centers in 32 blocks of 256,
+   windows of 10 slots): on block-local ids (each block's rows drawn zipf-
+   wise from its own range) within rtol 1e-5 / atol 1e-6 of its plain
+   version in f32, one bf16 rounding in bf16, and bit-identical across two
+   runs; on zipf ids over the whole vocabulary (hogwild) finite, with a loss
+   within 1e-2 of the plain version's; timed beside the plain version and
+   the unfused packed substep on the same pairs and pool (no PyTorch call
+   computes a fused SGNS step), against its bound (the larger of least
+   bytes / memory rate and f32 flops / the f32 rate).
+4. ``slice_parity``: 4 substeps of a small config of each path with injected
+   negative pools on the card and on the CPU (one kernel block a substep on
+   the fused paths, where the card runs blocks concurrently and the CPU in
+   order); the tables agree within rtol 1e-5 / atol 1e-6 (reduction order),
+   and two runs on the card are bit-identical.
+5. ``train``, ``train_fused``, ``train_grouped``: ``Word2VecTrainer`` ->
+   ``TrainLoop.run`` at vocab 1,048,576, dim 200, window 5, negatives 5,
+   pool 64, f32 tables, 30 steps: packed+pool at batch 16,384 pairs and
+   512 pairs a pool on the zipf corpus, lr 100 (see ``LR``), one substep a
+   step; fused-hogwild at the same batch and fused-grouped at 8,192 centers
+   and 256 centers a block on the paired corpus, lr 1,600, 8 substeps a
+   step (see ``FUSED_LR``). Every kernel's launch counter
+   is set to 0 just before each run and read just after: the path's kernels
+   must read 2 (row kernels) or 1 (a fused kernel) per substep, every other
+   kernel 0; the loss must be finite and falling.
+6. ``profile``: after each train phase, device time by kernel over 5 more
+   train steps (``torch.profiler``) and the card's busy share of their wall
+   time.
+7. ``kernels``: one line for every ported kernel, with its launches in its
+   path's train run and its numbers from phase 3.
 """
 
 from __future__ import annotations
@@ -46,9 +67,11 @@ import time
 import numpy as np
 import torch
 
-# Peak device-memory rate by card (NVIDIA data sheets), bytes/s. The H100
-# SXM figure is the default for an H100 that names no other form factor.
+# Peak device-memory rate, and f32 rate without tensor cores, by card
+# (NVIDIA data sheets), bytes/s and flop/s. The H100 SXM figures are the
+# default for an H100 that names no other form factor.
 _MEM_RATE = (("H100 PCIe", 2.0e12), ("H100", 3.35e12))
+_F32_RATE = (("H100 PCIe", 51.2e12), ("H100", 67e12))
 
 # The main path's shapes (bench.py's north-star word2vec rung, packed+pool).
 VOCAB = 1 << 20
@@ -64,8 +87,22 @@ POOL_BLOCK = 512
 # math as in the port's). 100 moves it within 30 steps; word2vec.c's own
 # per-pair step (lr = 0.025 B) diverges on the merged updates of the zipf head.
 LR = 100.0
+# The fused paths are hogwild: within a kernel block the last slot's write
+# of a row wins and the blocks of a substep race, so a row keeps about one
+# update a substep where the merged push sums them all (~1,100 for the head
+# of the zipf corpus). On the zipf corpus, whose ids are drawn independently
+# and so hold nothing to learn but the head's frequency, their loss does not
+# fall at any lr (PERF.md, Findings). Their train phases use the paired corpus
+# instead (word 2p always beside 2p + 1, as in the JAX package's quality
+# probe; pairs zipf-distributed), bench.py's 8 substeps a call, and this lr
+# (a sweep on the card: it falls at 410-3200, diverges at 4,800 grouped).
+FUSED_LR = 1600.0
+FUSED_STEPS_PER_CALL = 8
 N_TOKENS = 2_000_000
 STEPS = 30
+GROUPED_BATCH = 8_192  # centers a substep (bench.py's grouped rung)
+CENTERS_PER_BLOCK = 256
+CW = 2 * WINDOW
 GATHER_ROWS = (BATCH, BATCH + (BATCH // POOL_BLOCK) * POOL_SIZE)  # in, out pulls
 TIMED_RUNS = 25
 ROW_SETS = 8  # rotated between timed runs so most rows come from HBM, not L2
@@ -75,11 +112,19 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def mem_rate(name: str) -> float:
-    for key, rate in _MEM_RATE:
+def _rate(table, name: str, what: str) -> float:
+    for key, rate in table:
         if key in name:
             return rate
-    raise RuntimeError(f"no memory rate on record for {name!r}")
+    raise RuntimeError(f"no {what} rate on record for {name!r}")
+
+
+def mem_rate(name: str) -> float:
+    return _rate(_MEM_RATE, name, "memory")
+
+
+def f32_rate(name: str) -> float:
+    return _rate(_F32_RATE, name, "f32")
 
 
 def zipf_ids(n: int, vocab: int, rng: np.random.Generator, s: float = 1.05) -> np.ndarray:
@@ -123,6 +168,7 @@ def phase_env() -> dict:
     env = {"device": name, "count": torch.cuda.device_count(),
            "nvidia_smi": smi_line, "torch": torch.__version__,
            "cuda": torch.version.cuda, "mem_rate_Bps": mem_rate(name),
+           "f32_rate_flops": f32_rate(name),
            "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
            "tf32_cudnn": torch.backends.cudnn.allow_tf32}
     emit("env", **env)
@@ -133,11 +179,13 @@ def phase_build() -> None:
     from swiftsnails_tpu_torch.ops import _build
 
     t0 = time.monotonic()
-    result = _build.build("rowdma")
-    ptxas = [ln.strip() for ln in result["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.monotonic() - t0, source="rowdma.cu",
-         cached=result["cached"], ptxas=ptxas)
+    results = _build.build_all(["rowdma", "fused_sgns"])
+    for name, result in results.items():
+        ptxas = [ln.strip() for ln in result["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit("build", seconds=result["seconds"], source=f"{name}.cu",
+             cached=result["cached"], ptxas=ptxas)
+    emit("build", seconds=time.monotonic() - t0, source="all")
 
 
 def _gather_case(table, rows_sets, rate):
@@ -233,7 +281,219 @@ def phase_kernels(seed: int, rate: float) -> dict:
     return summary
 
 
-def _small_trainer(device, seed):
+# ---------------------------------------------------------- fused kernels ---
+
+
+def _block_local(nblocks: int, per_block: int, rng) -> np.ndarray:
+    """Ids for ``nblocks`` kernel blocks, block b's drawn zipf-wise from its
+    own range of VOCAB / nblocks ids: duplicates within a block (and the
+    same head ids in its context and pool slots), none across blocks."""
+    span = VOCAB // nblocks
+    ids = zipf_ids(nblocks * per_block, span, rng).reshape(nblocks, per_block)
+    return (ids + span * np.arange(nblocks)[:, None]).reshape(-1).astype(np.int32)
+
+
+def _window_mask(n: int, rng) -> np.ndarray:
+    """Real slots of ``n`` windows as skipgram_windows draws them (b ~ U(1,
+    WINDOW), offsets -b..-1, 1..b), without the corpus edges."""
+    offsets = np.concatenate([np.arange(-WINDOW, 0), np.arange(1, WINDOW + 1)])
+    b = rng.integers(1, WINDOW + 1, size=n)
+    return np.abs(offsets)[None, :] <= b[:, None]
+
+
+def _fused_ids(kind: str, block_local: bool, rng) -> dict:
+    """One step's ids at the main path's shapes, on the card."""
+    if kind == "flat":
+        nb = BATCH // POOL_BLOCK
+        if block_local:
+            ids = dict(in_rows=_block_local(nb, POOL_BLOCK, rng),
+                       pos_rows=_block_local(nb, POOL_BLOCK, rng))
+        else:
+            ids = dict(in_rows=zipf_ids(BATCH, VOCAB, rng),
+                       pos_rows=zipf_ids(BATCH, VOCAB, rng))
+    else:
+        nb = GROUPED_BATCH // CENTERS_PER_BLOCK
+        if block_local:
+            centers = _block_local(nb, CENTERS_PER_BLOCK, rng)
+            ctxs = _block_local(nb, CENTERS_PER_BLOCK * CW, rng).reshape(-1, CW)
+        else:
+            centers = zipf_ids(GROUPED_BATCH, VOCAB, rng)
+            ctxs = zipf_ids(GROUPED_BATCH * CW, VOCAB, rng).reshape(-1, CW)
+        ctxs[~_window_mask(GROUPED_BATCH, rng)] = -1
+        ids = dict(centers=centers, ctxs=ctxs)
+    pool = (_block_local(nb, POOL_SIZE, rng) if block_local
+            else zipf_ids(nb * POOL_SIZE, VOCAB, rng))
+    ids["pool_rows"] = pool
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in ids.items()}
+
+
+def _fused_call(kind: str):
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    lam = NEGATIVES / POOL_SIZE
+    if kind == "flat":
+        kw = dict(lr=LR, lam=lam, pairs_per_block=POOL_BLOCK, pool_size=POOL_SIZE)
+        return fused_sgns.fused_sgns_step, fused_sgns.fused_sgns_step_plain, kw
+    kw = dict(lr=LR, lam=lam, window=WINDOW, centers_per_block=CENTERS_PER_BLOCK,
+              pool_size=POOL_SIZE)
+    return fused_sgns.fused_sgns_grouped_step, fused_sgns.fused_sgns_grouped_step_plain, kw
+
+
+def _fused_work(kind: str, ids: dict, row_bytes: int, d: int):
+    """Least bytes (each distinct row read once and written once, the ids
+    read once) and f32 flops of one step on these ids."""
+    if kind == "flat":
+        rows_in = ids["in_rows"]
+        rows_out = torch.cat([ids["pos_rows"], ids["pool_rows"]])
+        pairs, units = BATCH, BATCH  # units: rows that meet the pool
+    else:
+        real = ids["ctxs"] >= 0
+        rows_in = ids["centers"]
+        rows_out = torch.cat([ids["ctxs"][real], ids["pool_rows"]])
+        pairs, units = int(real.sum()), GROUPED_BATCH
+    distinct = int(torch.unique(rows_in).numel()) + int(torch.unique(rows_out).numel())
+    id_bytes = 4 * sum(v.numel() for v in ids.values())
+    nbytes = 2 * distinct * row_bytes + id_bytes
+    # scores, dV and dQ against the pool: 3 products of 2 * PN * d flops a
+    # row that meets the pool; the positive term, its two gradients and the
+    # updates: ~8 d a real pair
+    flops = 6 * units * POOL_SIZE * d + 8 * pairs * d
+    return nbytes, flops, distinct, pairs
+
+
+def _yardstick(kind: str, id_sets, tables):
+    """``_substep_packed`` (pull, autograd, merged push) on the same pairs
+    and pool: the unfused path that the fused kernel replaces. For grouped,
+    the windows' real pairs, cut to a multiple of the 32 pool blocks."""
+    from swiftsnails_tpu_torch.data.vocab import Vocab
+    from swiftsnails_tpu_torch.models.word2vec import W2VState, Word2VecTrainer
+    from swiftsnails_tpu_torch.parallel.store import PackedTableState
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    sets = []
+    for ids in id_sets:
+        pools = ids["pool_rows"].view(-1, POOL_SIZE)
+        if kind == "flat":
+            sets.append((ids["in_rows"], ids["pos_rows"], pools))
+            continue
+        real = ids["ctxs"] >= 0
+        centers = ids["centers"].repeat_interleave(real.sum(1))
+        sets.append((centers, ids["ctxs"][real], pools))
+    nb = sets[0][2].shape[0]
+    n = min(s[0].numel() for s in sets) // nb * nb
+    sets = [(c[:n].contiguous(), x[:n].contiguous(), p) for c, x, p in sets]
+    cfg = Config({"dim": str(DIM), "window": str(WINDOW), "negatives": str(NEGATIVES),
+                  "learning_rate": str(LR), "batch_size": str(n),
+                  "pool_size": str(POOL_SIZE), "pool_block": str(n // nb),
+                  "capacity": str(VOCAB), "subsample": "0"})
+    tr = Word2VecTrainer(cfg, corpus_ids=np.zeros(4, np.int32),
+                         vocab=Vocab(["a", "b"], np.array([2, 2])))
+    state = W2VState(PackedTableState(tables[0], {}), PackedTableState(tables[1], {}))
+    gen = torch.Generator(device="cuda")
+
+    def run(i):
+        c, x, p = sets[i % len(sets)]
+        tr._substep_packed(state, c, x, gen, LR, negs=p)
+
+    return time_ms(run), n
+
+
+def _kernel_only_ms(fn, id_sets, tables, kw, name: str, calls: int = 5) -> float:
+    """Device time of the CUDA kernel alone (no flag prep), by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*tables, *id_sets[i % len(id_sets)].values(), **kw)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    if not us:
+        raise AssertionError(f"the profiler saw no {name} launch")
+    return us / 1e3 / calls
+
+
+def _max_err(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+
+
+def _fused_case(kind: str, dtype, base, rng, env) -> dict:
+    fn, plain, kw = _fused_call(kind)
+    tables = [t.to(dtype, copy=True) for t in base]  # timing updates them
+    # block-local ids: the kernel equals its plain version and repeats exactly
+    ids = _fused_ids(kind, True, rng)
+    want = plain(*[t.clone() for t in tables], *ids.values(), **kw)
+    got = [fn(*[t.clone() for t in tables], *ids.values(), **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    err = _max_err(got[0], want)
+    rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (2.0**-7, 1e-6)
+    for g, w in zip(got[0], want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
+    if not all(torch.equal(a, b) for a, b in zip(got[0], got[1])):
+        raise AssertionError(f"{fn.__name__}: two runs on the card differ")
+    if any(t.reshape(t.shape[0], -1)[:, DIM:].any() for t in got[0][:2]):
+        raise AssertionError(f"{fn.__name__}: padding lanes changed")
+    del want, got
+    # zipf ids over the whole vocabulary: blocks share rows and race (hogwild)
+    id_sets = [_fused_ids(kind, False, rng) for _ in range(ROW_SETS)]
+    want = plain(*[t.clone() for t in tables], *id_sets[0].values(), **kw)
+    got = fn(*[t.clone() for t in tables], *id_sets[0].values(), **kw)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(t).all() for t in got):
+        raise AssertionError(f"{fn.__name__}: non-finite result on zipf ids")
+    loss_gap = abs(float(got[2]) - float(want[2])) / abs(float(want[2]))
+    if loss_gap > 1e-2:
+        raise AssertionError(f"{fn.__name__}: loss {float(got[2])} vs plain "
+                             f"{float(want[2])} on zipf ids")
+    zipf_err = _max_err(got[:2], want[:2])
+    del want, got
+    row_bytes = tables[0].stride(0) * tables[0].element_size()
+    nbytes, flops, distinct, pairs = _fused_work(kind, id_sets[0], row_bytes,
+                                                 tables[0].stride(0))
+    bytes_ms = nbytes / env["mem_rate_Bps"] * 1e3
+    flops_ms = flops / env["f32_rate_flops"] * 1e3
+    pick = lambda i: id_sets[i % len(id_sets)].values()  # noqa: E731
+    case = {
+        "ms": time_ms(lambda i: fn(*tables, *pick(i), **kw)),
+        "kernel_only_ms": _kernel_only_ms(
+            fn, id_sets, tables, kw,
+            "fused_sgns_kernel" if kind == "flat" else "fused_sgns_grouped_kernel"),
+        "plain_ms": time_ms(lambda i: plain(*tables, *pick(i), **kw), runs=5),
+        "max_abs_err": err, "zipf_loss_gap": loss_gap, "zipf_max_abs_diff": zipf_err,
+        "bytes": nbytes, "flops": flops, "distinct_rows": distinct, "real_pairs": pairs,
+        "bytes_ms": bytes_ms, "flops_ms": flops_ms, "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+    }
+    if dtype == torch.float32:
+        case["yardstick_ms"], case["yardstick_pairs"] = _yardstick(kind, id_sets, tables)
+    return case
+
+
+def phase_fused_kernels(seed: int, env: dict) -> dict:
+    """Each fused kernel at the main path's shapes; returns the f32 numbers
+    per kernel for the summary line."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 7)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    shape = (VOCAB, -(-DIM // 128), 128)
+    lanes = (torch.arange(shape[1] * 128, device=dev) < DIM).view(shape[1:])
+    base = [torch.randn(shape, generator=gen, device=dev).mul_(0.1).mul_(lanes)
+            for _ in range(2)]
+    summary = {}
+    for kind, name in (("flat", "fused_sgns_step"), ("grouped", "fused_sgns_grouped_step")):
+        for dtype in (torch.float32, torch.bfloat16):
+            case = _fused_case(kind, dtype, base, rng, env)
+            emit("kernel", name=name, dtype=str(dtype), **case)
+            if dtype == torch.float32:
+                summary[name] = case
+            torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _small_trainer(device, seed, **over):
     from swiftsnails_tpu_torch.data.vocab import Vocab
     from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
     from swiftsnails_tpu_torch.utils.config import Config
@@ -245,21 +505,35 @@ def _small_trainer(device, seed):
     cfg = Config({"dim": str(DIM), "window": str(WINDOW),
                   "negatives": str(NEGATIVES), "learning_rate": str(LR),
                   "batch_size": "2048", "subsample": "0", "pool_size": str(POOL_SIZE),
-                  "pool_block": str(POOL_BLOCK), "seed": str(seed)})
+                  "pool_block": str(POOL_BLOCK), "seed": str(seed),
+                  **{k: str(v) for k, v in over.items()}})
     return Word2VecTrainer(cfg, corpus_ids=ids, vocab=Vocab(
         [f"w{i}" for i in range(v)], counts), device=device)
 
 
-def phase_slice_parity(seed: int) -> None:
+# path -> (config keys, substep method). The fused paths run one kernel
+# block a substep here: the card runs blocks concurrently (hogwild), the CPU
+# in order, and the two agree only where no block races another.
+PATHS = {
+    "packed": ({}, "_substep_packed"),
+    "fused": ({"fused": 1, "batch_size": POOL_BLOCK}, "_substep_fused"),
+    "grouped": ({"fused": 1, "grouped": 1, "batch_size": CENTERS_PER_BLOCK,
+                 "centers_per_block": CENTERS_PER_BLOCK}, "_substep_grouped"),
+}
+
+
+def phase_slice_parity(seed: int, path: str) -> None:
     from swiftsnails_tpu_torch import convert
 
-    cpu = _small_trainer("cpu", seed)
-    cuda = _small_trainer("cuda", seed)
+    over, method = PATHS[path]
+    cpu = _small_trainer("cpu", seed, **over)
+    cuda = _small_trainer("cuda", seed, **over)
     init = cpu.init_state()
     tables = [t.table.numpy().copy() for t in init]
     batches = [b for _, b in zip(range(4), cpu.batches())]
     rng = np.random.default_rng(seed + 1)
-    _, nb = cpu.pool_geometry(2048)
+    n = batches[0]["centers"].shape[0]
+    nb = n // cpu._effective_pc(n) if cpu.grouped else cpu.pool_geometry(n)[1]
     pools = [rng.integers(0, 4096, (nb, POOL_SIZE)).astype(np.int32) for _ in batches]
 
     def run(tr, device):
@@ -267,7 +541,7 @@ def phase_slice_parity(seed: int) -> None:
         gen = torch.Generator(device=device)
         losses = []
         for batch, pool in zip(batches, pools):
-            state, loss = tr._substep_packed(
+            state, loss = getattr(tr, method)(
                 state, torch.from_numpy(batch["centers"]).to(device),
                 torch.from_numpy(batch["contexts"]).to(device), gen, tr.lr,
                 negs=torch.from_numpy(pool).to(device))
@@ -289,31 +563,66 @@ def phase_slice_parity(seed: int) -> None:
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5, atol=1e-6)
     if l_gpu != l_gpu2:
         raise AssertionError("losses of two runs on the card differ")
-    emit("slice_parity", substeps=len(batches), max_abs_err_vs_cpu=worst,
-         losses_cuda=l_gpu, losses_cpu=l_cpu, repeat_bit_identical=True)
+    emit("slice_parity", path=path, substeps=len(batches), batch=n, kernel_blocks=nb,
+         max_abs_err_vs_cpu=worst, losses_cuda=l_gpu, losses_cpu=l_cpu,
+         repeat_bit_identical=True)
 
 
-def phase_train(seed: int, device_name: str, smi: str):
+def _corpus(seed: int, paired: bool = False):
+    """A train phase's corpus: N_TOKENS ids over VOCAB, its vocab, and
+    skip-gram pairs per token (6.00 at window 5) counted on its first 2^20.
+    Zipf ids, or with ``paired`` zipf-distributed pairs (2p, 2p + 1)."""
     from swiftsnails_tpu_torch.data import sampler
     from swiftsnails_tpu_torch.data.vocab import Vocab
-    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
-    from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
-    from swiftsnails_tpu_torch.ops import rowdma
-    from swiftsnails_tpu_torch.utils.config import Config
-    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
 
-    t0 = time.monotonic()
     rng = np.random.default_rng(seed)
-    ids = zipf_ids(N_TOKENS, VOCAB, rng)
+    if paired:
+        p = zipf_ids(N_TOKENS // 2, VOCAB // 2, rng)
+        ids = np.stack([2 * p, 2 * p + 1], 1).reshape(-1).astype(np.int32)
+    else:
+        ids = zipf_ids(N_TOKENS, VOCAB, rng)
     counts = np.maximum(np.bincount(ids, minlength=VOCAB), 1)
     vocab = Vocab([f"w{i}" for i in range(VOCAB)], counts)
     pairs, _ = sampler.skipgram_pairs(ids[: 1 << 20], WINDOW, np.random.default_rng(seed))
-    pairs_per_token = len(pairs) / (1 << 20)
+    return ids, vocab, len(pairs) / (1 << 20)
+
+
+def _counters() -> dict:
+    from swiftsnails_tpu_torch.ops import fused_sgns, rowdma
+
+    return {f.__name__: f for f in (rowdma.gather_rows, rowdma.scatter_add_rows,
+                                     fused_sgns.fused_sgns_step,
+                                     fused_sgns.fused_sgns_grouped_step)}
+
+
+# train phase -> (config keys, launches a substep of each kernel, paired
+# corpus); every phase at vocab 2^20, dim 200, window 5, 5 negatives, pool 64
+_FUSED = {"learning_rate": FUSED_LR, "steps_per_call": FUSED_STEPS_PER_CALL,
+          "fused": 1}
+TRAIN = {
+    "train": ({"learning_rate": LR, "batch_size": BATCH},
+              {"gather_rows": 2, "scatter_add_rows": 2}, False),
+    "train_fused": ({**_FUSED, "batch_size": BATCH}, {"fused_sgns_step": 1}, True),
+    "train_grouped": ({**_FUSED, "grouped": 1, "batch_size": GROUPED_BATCH,
+                       "centers_per_block": CENTERS_PER_BLOCK},
+                      {"fused_sgns_grouped_step": 1}, True),
+}
+
+
+def phase_train(phase: str, seed: int, corpora, device_name: str, smi: str):
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+    from swiftsnails_tpu_torch.utils.config import Config
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+    over, per_substep, paired = TRAIN[phase]
+    ids, vocab, pairs_per_token = corpora[paired]
+    t0 = time.monotonic()
     cfg = Config({"dim": str(DIM), "window": str(WINDOW),
-                  "negatives": str(NEGATIVES), "learning_rate": str(LR),
-                  "batch_size": str(BATCH), "subsample": "0", "num_iters": "1",
+                  "negatives": str(NEGATIVES), "subsample": "0", "num_iters": "1",
                   "pool_size": str(POOL_SIZE), "pool_block": str(POOL_BLOCK),
-                  "table_dtype": "float32", "seed": str(seed)})
+                  "table_dtype": "float32", "seed": str(seed),
+                  **{k: str(v) for k, v in over.items()}})
     trainer = Word2VecTrainer(cfg, corpus_ids=ids, vocab=vocab)
     records = []
 
@@ -323,15 +632,16 @@ def phase_train(seed: int, device_name: str, smi: str):
 
     loop = TrainLoop(trainer, metrics=Recorder(), log_every=1)
     setup_s = time.monotonic() - t0
-    rowdma.gather_rows.launches = 0
-    rowdma.scatter_add_rows.launches = 0
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
     state = loop.run(seed=seed, max_steps=STEPS)
-    launches = {"gather_rows": rowdma.gather_rows.launches,
-                "scatter_add_rows": rowdma.scatter_add_rows.launches}
+    launches = {name: f.launches for name, f in counters.items()}
     substeps = len(records) * trainer.steps_per_call
     for name, n in launches.items():
-        if n != 2 * substeps:
-            raise AssertionError(f"{name}: {n} launches for {substeps} substeps")
+        if n != per_substep.get(name, 0) * substeps:
+            raise AssertionError(f"{phase}: {name}: {n} launches for {substeps} substeps")
     losses = [r["loss"] for r in records]
     if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses: {losses}")
@@ -344,20 +654,24 @@ def phase_train(seed: int, device_name: str, smi: str):
     items = sum(r["items"] for r in steady)
     seconds = sum(r["seconds"] for r in steady)
     step_ms = [r["seconds"] * 1e3 for r in steady]
-    out = {"steps": len(records), "substeps": substeps, "launches": launches,
-           "setup_s": setup_s, "first_step_ms": records[0]["seconds"] * 1e3,
+    # a flat batch counts pairs, a grouped one words (corpus positions)
+    words = items if trainer.grouped else items / pairs_per_token
+    out = {"steps": len(records), "substeps": substeps,
+           "batch": trainer.batch_size, "steps_per_call": trainer.steps_per_call,
+           "lr": trainer.lr, "corpus": "paired" if paired else "zipf",
+           "launches": launches, "setup_s": setup_s,
+           "first_step_ms": records[0]["seconds"] * 1e3,
            "step_ms_median": statistics.median(step_ms),
-           "pairs_per_sec": items / seconds,
-           "words_per_sec": items / seconds / pairs_per_token,
+           "items_per_sec": items / seconds, "words_per_sec": words / seconds,
            "pairs_per_token": pairs_per_token,
            "loss_first5": losses[:5], "loss_last5": losses[-5:],
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "device": device_name, "nvidia_smi": smi}
-    emit("train", **out)
+    emit(phase, **out)
     return out, trainer, state
 
 
-def phase_profile(trainer, state, seed: int, steps: int = 5) -> None:
+def phase_profile(path: str, trainer, state, seed: int, steps: int = 5) -> None:
     """Device time by kernel over ``steps`` more train steps, by
     ``torch.profiler``, and the card's busy share of their wall time."""
     from torch.autograd import DeviceType
@@ -382,7 +696,8 @@ def phase_profile(trainer, state, seed: int, steps: int = 5) -> None:
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                      key=lambda k: -k[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
-    emit("profile", steps=steps, wall_ms_per_step=wall_ms / steps,
+    emit("profile", path=path, steps=steps, substeps_per_step=trainer.steps_per_call,
+         wall_ms_per_step=wall_ms / steps,
          device_ms_per_step=busy_ms, device_busy_share=busy_ms * steps / wall_ms,
          kernels_per_step=sum(n for _, _, n in kernels),
          top=[{"kernel": k[:90], "ms_per_step": ms, "launches_per_step": n}
@@ -402,10 +717,20 @@ def main() -> int:
     env = phase_env()
     phase_build()
     summary = phase_kernels(args.seed, env["mem_rate_Bps"])
-    phase_slice_parity(args.seed)
-    train, trainer, state = phase_train(args.seed, env["device"], env["nvidia_smi"])
-    phase_profile(trainer, state, args.seed)
-    del trainer, state
+    summary.update(phase_fused_kernels(args.seed, env))
+    for path in PATHS:
+        phase_slice_parity(args.seed, path)
+    corpora = {False: _corpus(args.seed), True: _corpus(args.seed, paired=True)}
+    launches = {}
+    for phase, path in (("train", "packed"), ("train_fused", "fused"),
+                        ("train_grouped", "grouped")):
+        train, trainer, state = phase_train(phase, args.seed, corpora, env["device"],
+                                            env["nvidia_smi"])
+        launches.update({k: n for k, n in train["launches"].items()
+                         if TRAIN[phase][1].get(k)})
+        phase_profile(path, trainer, state, args.seed)
+        del trainer, state
+        torch.cuda.empty_cache()
     kernels = []
     for name, replaces in (
             ("gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
@@ -414,11 +739,28 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
-            "replaces": replaces, "launches": train["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s["library_ms"],
             "shape": s["shape"], "dtype": "float32"})
+    for name, replaces, shape in (
+            ("fused_sgns_step", "swiftsnails_tpu/ops/fused_sgns.py:1832",
+             {"pairs": BATCH, "pairs_per_block": POOL_BLOCK, "pool": POOL_SIZE}),
+            ("fused_sgns_grouped_step", "swiftsnails_tpu/ops/fused_sgns.py:347",
+             {"centers": GROUPED_BATCH, "centers_per_block": CENTERS_PER_BLOCK,
+              "window_slots": CW, "pool": POOL_SIZE})):
+        s = summary[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "swiftsnails_tpu_torch/csrc/fused_sgns.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None,
+            "kernel_only_ms": s["kernel_only_ms"], "yardstick_ms": s["yardstick_ms"],
+            "shape": {**shape, "table": [VOCAB, -(-DIM // 128), 128]},
+            "dtype": "float32"})
     emit("kernels", kernels=kernels)
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])

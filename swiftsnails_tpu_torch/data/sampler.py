@@ -1,7 +1,7 @@
 """Skip-gram pair generation and negative sampling (the JAX package's ``data/sampler.py``).
 
-Dynamic-window skip-gram pairs, frequent-word subsampling and unigram^0.75
-negative sampling. Pair generation and batching stay numpy on the host, copied
+Dynamic-window skip-gram pairs (flat, or grouped into windows by center),
+frequent-word subsampling and unigram^0.75 negative sampling. Pair generation and batching stay numpy on the host, copied
 as they are, so the same numpy seed gives the same batches in both packages.
 Negative sampling runs on the device through the alias method: the two
 O(vocab) tables are built once with numpy and moved to the device, and
@@ -114,7 +114,8 @@ def skipgram_pairs(
 
 
 def _dynamic_window_valid(ids, window, rng, dynamic):
-    """Shared dynamic-window geometry: (pos [n, 2w], valid [n, 2w])."""
+    """Shared dynamic-window geometry: (pos [n, 2w], valid [n, 2w]); the one
+    source of the draw, so pairs and windows hold the same pair set."""
     n = len(ids)
     if n < 2:
         return None, None
@@ -126,6 +127,28 @@ def _dynamic_window_valid(ids, window, rng, dynamic):
     return pos, valid
 
 
+def skipgram_windows(
+    ids: np.ndarray,
+    window: int,
+    rng: np.random.Generator,
+    dynamic: bool = True,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Center-major skip-gram: ``(centers [n], contexts [n, 2*window])``.
+
+    The same pair set as :func:`skipgram_pairs` (the same dynamic-window
+    draw), grouped by center position with ``-1`` in unused context slots:
+    the layout of word2vec.c's inner loop, and what the grouped fused kernel
+    consumes (one center row for its whole window).
+    """
+    n = len(ids)
+    cw = 2 * window
+    pos, valid = _dynamic_window_valid(ids, window, rng, dynamic)
+    if pos is None:
+        return np.empty(0, np.int32), np.empty((0, cw), np.int32)
+    ctxs = np.where(valid, ids[np.clip(pos, 0, n - 1)], -1).astype(np.int32)
+    return ids.astype(np.int32, copy=True), ctxs
+
+
 def batch_stream(
     centers: np.ndarray,
     contexts: np.ndarray,
@@ -134,7 +157,12 @@ def batch_stream(
     shuffle: bool = True,
     drop_remainder: bool = True,
 ):
-    """Yield {'centers', 'contexts'} batches of exactly ``batch_size``."""
+    """Yield {'centers', 'contexts'} batches of exactly ``batch_size``.
+
+    ``contexts`` may be 2-D (the window schema [N, 2w] from
+    :func:`skipgram_windows`): rows shuffle whole, so a window moves with its
+    center and keeps its pair order.
+    """
     n = len(centers)
     order = rng.permutation(n) if shuffle else np.arange(n)
     end = (n // batch_size) * batch_size if drop_remainder else n

@@ -4,7 +4,8 @@ The flagship trainer of the parameter server: workers pull embedding rows
 for the words of their batch, compute SGNS gradients with respect to the
 pulled rows, and push them back to the tables (SURVEY §3.3).
 
-The port runs the ``packed+pool`` path of the JAX trainer on one device:
+The port runs three single-device paths of the JAX trainer. The default,
+``packed+pool``:
 
 * two packed ``[capacity, S, 128]`` tables (input ``syn0``, output
   ``syn1neg``) held in :class:`~swiftsnails_tpu_torch.parallel.store.PackedTableState`;
@@ -18,6 +19,14 @@ The port runs the ``packed+pool`` path of the JAX trainer on one device:
   ``negatives / pool_size`` so the expected gradient matches ``negatives``
   independent draws.
 
+``fused: 1`` (``fused-hogwild``) replaces the pull, the autograd step and
+the push with one fused kernel a substep
+(:mod:`swiftsnails_tpu_torch.ops.fused_sgns`), whose
+blocks of ``pool_block`` pairs race as hogwild SGD workers do. ``fused: 1,
+grouped: 1`` (``fused-grouped``) switches the batches to the window schema
+(``centers`` [N], ``contexts`` [N, 2 * window], ``-1`` pads) and runs the
+center-major fused kernel over blocks of ``centers_per_block`` centers.
+
 Batches come from the numpy pipeline, the same code as the JAX package's
 when its C++ batch producer (``data/native``) is unavailable: the port does
 not have that producer yet, so ``use_native`` is read and has no effect.
@@ -25,7 +34,9 @@ not have that producer yet, so ``use_native`` is read and has no effect.
 Config keys: ``dim``, ``window``, ``negatives``, ``learning_rate``,
 ``lr_decay``, ``num_iters``, ``batch_size``, ``min_count``, ``max_vocab``,
 ``subsample``, ``hash_keys``, ``capacity``, ``chunk_tokens``, ``seed``,
-``data``, ``table_dtype``, ``pool_size``, ``pool_block``, ``steps_per_call``.
+``data``, ``table_dtype``, ``pool_size``, ``pool_block``, ``steps_per_call``,
+``fused``, ``grouped``, ``centers_per_block``; ``hot_rows`` and ``u_cap`` are
+read as the JAX trainer reads them, for the paths still to port.
 Keys that select a path the port does not have yet raise
 ``NotImplementedError`` (see :data:`UNPORTED`); ``ROADMAP.md`` says when
 each is ported.
@@ -44,12 +55,17 @@ from swiftsnails_tpu_torch.data.sampler import (
     batch_stream,
     build_unigram_alias,
     skipgram_pairs,
+    skipgram_windows,
     subsample_mask,
 )
 from swiftsnails_tpu_torch.data.text import encode_corpus
 from swiftsnails_tpu_torch.data.vocab import Vocab
 from swiftsnails_tpu_torch.framework.trainer import Trainer, _unported
 from swiftsnails_tpu_torch.models.registry import register_model
+from swiftsnails_tpu_torch.ops.fused_sgns import (
+    fused_sgns_grouped_step,
+    fused_sgns_step,
+)
 from swiftsnails_tpu_torch.ops.hashing import hash_row
 from swiftsnails_tpu_torch.ops.rowdma import unpack_rows
 from swiftsnails_tpu_torch.parallel.access import SgdAccess
@@ -86,8 +102,6 @@ def _truthy(cfg: Config, key: str) -> bool:
 UNPORTED = {
     "packed": lambda cfg, key: not cfg.get_bool(key, True),
     "neg_mode": lambda cfg, key: cfg.get_str(key, "pool") != "pool",
-    "fused": _truthy,
-    "grouped": _truthy,
     "resident": _truthy,
     "dedup": _truthy,
     "stream": _truthy,
@@ -160,6 +174,17 @@ class Word2VecTrainer(Trainer):
         # substeps per train_step call; TrainLoop counts calls, so substeps
         # scale throughput, not the step counter
         self.steps_per_call = max(cfg.get_int("steps_per_call", 1), 1)
+        # fused: 1 -> one hogwild kernel a substep (packed+pool tables, which
+        # the port always has); grouped: 1 -> its center-major form over the
+        # window schema
+        self.fused = cfg.get_bool("fused", False)
+        self.grouped = cfg.get_bool("grouped", False)
+        if self.grouped and not self.fused:
+            raise ValueError("grouped: 1 requires fused: 1")
+        self.hot_rows = cfg.get_int("hot_rows", 1024)
+        self.u_cap = cfg.get_int("u_cap", 512)
+        # centers per kernel block; the per-substep center count is batch_size
+        self.centers_per_block = cfg.get_int("centers_per_block", 256)
         if corpus_ids is None:
             # one process: the JAX package's shard_token_stream is the
             # identity here, so shard_data has nothing to do
@@ -205,6 +230,9 @@ class Word2VecTrainer(Trainer):
         The JAX package's numpy path, line for line, so one seed gives the
         same batches in both packages. ``progress`` is the fraction of the
         corpus consumed (raw tokens x epochs), which drives ``lr_decay``.
+        With ``grouped: 1`` a batch row is one corpus position and its
+        window (``contexts`` [N, 2 * window], ``-1`` pads), and whole
+        windows shuffle together.
         """
         rng = np.random.default_rng(self.seed)
         counts = self.vocab.counts
@@ -221,7 +249,8 @@ class Word2VecTrainer(Trainer):
                 consumed += chunk_len
                 if self.subsample > 0:
                     chunk = chunk[subsample_mask(chunk, counts, self.subsample, rng)]
-                centers, contexts = skipgram_pairs(chunk, self.window, rng)
+                pairs_of = skipgram_windows if self.grouped else skipgram_pairs
+                centers, contexts = pairs_of(chunk, self.window, rng)
                 n_batches = max(len(centers) // macro, 1)
                 for bi, b in enumerate(batch_stream(centers, contexts, macro, rng)):
                     p = (chunk_base + (bi / n_batches) * chunk_len) / total_tokens
@@ -238,6 +267,23 @@ class Word2VecTrainer(Trainer):
             pb -= 1
         return pb, b // pb
 
+    def _effective_pc(self, n: Optional[int] = None) -> int:
+        """The grouped kernel's centers per block: the largest divisor of the
+        substep's center count ``n`` (default ``batch_size``) not above
+        ``centers_per_block``."""
+        n = self.batch_size if n is None else n
+        pc = min(self.centers_per_block, n)
+        while n % pc:
+            pc -= 1
+        return pc
+
+    def _pools(self, generator: torch.Generator, nb: int,
+               negs: Optional[torch.Tensor]) -> torch.Tensor:
+        """``[nb, pool_size]`` negative word ids: ``negs``, else drawn."""
+        if negs is not None:
+            return negs
+        return alias_sample(self.neg_alias, generator, (nb, self.pool_size))
+
     def _substep_packed(self, state: W2VState, centers: torch.Tensor,
                         contexts: torch.Tensor, generator: torch.Generator,
                         lr: float, negs: Optional[torch.Tensor] = None):
@@ -253,7 +299,7 @@ class Word2VecTrainer(Trainer):
         _, nb = self.pool_geometry(b)
         pn = self.pool_size
         lam = self.negatives / pn
-        pools = alias_sample(self.neg_alias, generator, (nb, pn)) if negs is None else negs
+        pools = self._pools(generator, nb, negs)
         in_rows = self._rows(centers)
         out_rows = self._rows(torch.cat([contexts, pools.reshape(-1)]))
 
@@ -267,6 +313,40 @@ class Word2VecTrainer(Trainer):
         push_packed(state.in_table, in_rows, dv, self.access, lr)
         push_packed(state.out_table, out_rows, du, self.access, lr)
         return state, loss.detach()
+
+    def _substep_fused(self, state: W2VState, centers: torch.Tensor,
+                       contexts: torch.Tensor, generator: torch.Generator,
+                       lr: float, negs: Optional[torch.Tensor] = None):
+        """One hogwild substep in one kernel (:func:`fused_sgns_step`):
+        ``pool_block`` pairs a kernel block share a pool. ``negs`` as in
+        :meth:`_substep_packed`. Updates both tables in place and returns
+        ``(state, loss)``."""
+        pb, nb = self.pool_geometry(centers.shape[0])
+        pools = self._pools(generator, nb, negs)
+        _, _, loss = fused_sgns_step(
+            state.in_table.table, state.out_table.table, self._rows(centers),
+            self._rows(contexts), self._rows(pools.reshape(-1)), lr=lr,
+            lam=self.negatives / self.pool_size, pairs_per_block=pb,
+            pool_size=self.pool_size)
+        return state, loss
+
+    def _substep_grouped(self, state: W2VState, centers: torch.Tensor,
+                         ctxs: torch.Tensor, generator: torch.Generator,
+                         lr: float, negs: Optional[torch.Tensor] = None):
+        """One center-major hogwild substep (:func:`fused_sgns_grouped_step`)
+        over windows ``ctxs`` [N, 2 * window] (``-1`` pads); ``negs`` as in
+        :meth:`_substep_packed`. Updates both tables in place."""
+        n = centers.shape[0]
+        pc = self._effective_pc(n)
+        pools = self._pools(generator, n // pc, negs)
+        # hash real ids only; pads stay -1
+        ctx_rows = self._rows(ctxs.clamp_min(0)).masked_fill(ctxs < 0, -1)
+        _, _, loss = fused_sgns_grouped_step(
+            state.in_table.table, state.out_table.table, self._rows(centers),
+            ctx_rows, self._rows(pools.reshape(-1)), lr=lr,
+            lam=self.negatives / self.pool_size, window=self.window,
+            centers_per_block=pc, pool_size=self.pool_size)
+        return state, loss
 
     def step_lr(self, batch: Dict) -> float:
         """The call's learning rate, in float32 as the JAX step computes it:
@@ -290,11 +370,16 @@ class Word2VecTrainer(Trainer):
         t = max(n // self.batch_size, 1)
         b = n // t
         lr = self.step_lr(batch)
+        if self.grouped:
+            substep = self._substep_grouped
+        elif self.fused:
+            substep = self._substep_fused
+        else:
+            substep = self._substep_packed
         losses = []
         for i in range(t):
             sl = slice(i * b, (i + 1) * b)
-            state, loss = self._substep_packed(
-                state, centers[sl], contexts[sl], generator, lr)
+            state, loss = substep(state, centers[sl], contexts[sl], generator, lr)
             losses.append(loss)
         return state, {"loss": torch.stack(losses).mean()}
 

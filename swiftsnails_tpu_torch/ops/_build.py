@@ -64,23 +64,37 @@ def build(name: str) -> Dict:
     Returns ``{"seconds", "cached", "log"}``; ``log`` is nvcc's output
     (ptxas register and spill lines). Raises on any failure.
     """
-    lib = library_path(name)
-    if lib.is_file():
-        return {"seconds": 0.0, "cached": True, "log": ""}
+    return build_all([name])[name]
+
+
+def build_all(names) -> Dict[str, Dict]:
+    """:func:`build` for several sources at once: one ``nvcc`` for each
+    source not built yet, all started together. Returns ``{name: result}``
+    and raises on the first failure, after every compiler has ended."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
     t0 = time.monotonic()
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"kernel build failed: {name}.cu (nvcc rc={proc.returncode}):\n"
-            f"{proc.stdout}")
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
-    return {"seconds": time.monotonic() - t0, "cached": False,
-            "log": proc.stdout}
+    procs, results = {}, {}
+    for name in names:
+        lib = library_path(name)
+        if lib.is_file():
+            results[name] = {"seconds": 0.0, "cached": True, "log": ""}
+            continue
+        tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+        procs[name] = (lib, tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (lib, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}.cu (nvcc rc={proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
+        results[name] = {"seconds": time.monotonic() - t0, "cached": False, "log": log}
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return results
 
 
 @functools.lru_cache(maxsize=None)
