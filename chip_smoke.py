@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch port: builds its CUDA kernels, holds each
 against its plain PyTorch version, and trains word2vec at full width on one
-NVIDIA GPU through the port's normal entry points, on each of its three
-paths: packed+pool, fused-hogwild (``fused: 1``) and fused-grouped
-(``fused: 1, grouped: 1``).
+NVIDIA GPU through the port's normal entry points, on each of its six
+paths: packed+pool, fused-hogwild (``fused: 1``), fused-grouped
+(``fused: 1, grouped: 1``), and on top of fused-grouped fused-resident
+(``resident: 1``), fused-dedup (``dedup: 1``) and fused-dedup-res (both).
 
     python3 chip_smoke.py [--seed N]
 
@@ -16,8 +17,9 @@ it exits non-zero and prints no result.
 Phases:
 
 1. ``env``: the card, its power limit, TF32 off for matmul and cuDNN.
-2. ``build``: compile ``csrc/rowdma.cu`` and ``csrc/fused_sgns.cu``, one
-   ``nvcc`` each, started together; their ptxas register and spill lines.
+2. ``build``: compile ``csrc/rowdma.cu``, ``csrc/fused_sgns.cu`` and
+   ``csrc/fused_sgns_merged.cu``, one ``nvcc`` each, started together; their
+   ptxas register and spill lines.
 3. ``kernel``: each row kernel at the main path's shapes (f32 and bf16; the
    in-table pull and push of 16,384 rows, the out-table ones of 18,432),
    bit-equal to its plain version, timed beside the plain version, one
@@ -31,11 +33,18 @@ Phases:
    within 1e-2 of the plain version's; timed beside the plain version and
    the unfused packed substep on the same pairs and pool (no PyTorch call
    computes a fused SGNS step), against its bound (the larger of least
-   bytes / memory rate and f32 flops / the f32 rate).
+   bytes / memory rate and f32 flops / the f32 rate). Each merged kernel
+   (f32 and bf16; the grouped shape, ``hot_rows`` 2,048 resident, ``u_cap``
+   384 dedup, both 384 and 256 composed): on zipf ids over the whole
+   vocabulary within rtol 1e-5 / atol 1e-6 of its plain version in f32; in
+   bf16 within one bf16 rounding on block-local ids, and on zipf ids the
+   elements beyond it counted (see ``_merged_case``); bit-identical across
+   two runs; timed and bounded as the fused ones.
 4. ``slice_parity``: 4 substeps of a small config of each path with injected
    negative pools on the card and on the CPU (one kernel block a substep on
-   the fused paths, where the card runs blocks concurrently and the CPU in
-   order); the tables agree within rtol 1e-5 / atol 1e-6 (reduction order),
+   the hogwild fused paths, where the card runs blocks concurrently and the
+   CPU in order; 8 on the merged paths, whose blocks run in order on both);
+   the tables agree within rtol 1e-5 / atol 1e-6 (reduction order),
    and two runs on the card are bit-identical.
 5. ``train``, ``train_fused``, ``train_grouped``: ``Word2VecTrainer`` ->
    ``TrainLoop.run`` at vocab 1,048,576, dim 200, window 5, negatives 5,
@@ -43,7 +52,10 @@ Phases:
    512 pairs a pool on the zipf corpus, lr 100 (see ``LR``), one substep a
    step; fused-hogwild at the same batch and fused-grouped at 8,192 centers
    and 256 centers a block on the paired corpus, lr 1,600, 8 substeps a
-   step (see ``FUSED_LR``). Every kernel's launch counter
+   step (see ``FUSED_LR``); ``train_resident``, ``train_dedup``,
+   ``train_dedup_res`` as fused-grouped with their keys, at ``MERGED_LR``
+   (410, 100, 410).
+   Every kernel's launch counter
    is set to 0 just before each run and read just after: the path's kernels
    must read 2 (row kernels) or 1 (a fused kernel) per substep, every other
    kernel 0; the loss must be finite and falling.
@@ -98,6 +110,20 @@ LR = 100.0
 # (a sweep on the card: it falls at 410-3200, diverges at 4,800 grouped).
 FUSED_LR = 1600.0
 FUSED_STEPS_PER_CALL = 8
+# The merged paths sum a hot or unique row's updates in a block, as the
+# packed push does, so they take a smaller lr than the hogwild paths.
+# train_sweep.py on the card (PERF.md, Findings) chose, on the paired corpus
+# with 8 substeps a step: fused-resident and fused-dedup-res fall at 100-1,600
+# and diverge at 1,600 on the zipf corpus, so 410; fused-dedup falls at
+# 100-410, barely at 410, and rises at 1,600, so 100.
+MERGED_LR = {"train_resident": 410.0, "train_dedup": 100.0, "train_dedup_res": 410.0}
+HOT_ROWS = 2048  # fused-resident (bench.py:70-72)
+U_CAP = 384  # fused-dedup (bench.py:73-75), and fused-dedup-res
+COMPOSED_HOT_ROWS = 256  # fused-dedup-res (examples/word2vec_fast.conf)
+# merged kernel -> its keys
+MERGED = {"fused_sgns_resident_step": {"hot_rows": HOT_ROWS},
+          "fused_sgns_dedup_step": {"u_cap": U_CAP},
+          "fused_sgns_dedup_resident_step": {"u_cap": U_CAP, "hot_rows": COMPOSED_HOT_ROWS}}
 N_TOKENS = 2_000_000
 STEPS = 30
 GROUPED_BATCH = 8_192  # centers a substep (bench.py's grouped rung)
@@ -179,7 +205,7 @@ def phase_build() -> None:
     from swiftsnails_tpu_torch.ops import _build
 
     t0 = time.monotonic()
-    results = _build.build_all(["rowdma", "fused_sgns"])
+    results = _build.build_all(["rowdma", "fused_sgns", "fused_sgns_merged"])
     for name, result in results.items():
         ptxas = [ln.strip() for ln in result["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -398,6 +424,19 @@ def _yardstick(kind: str, id_sets, tables):
     return time_ms(run), n
 
 
+def _host_ms(fn, runs: int = 10) -> float:
+    """Median host time of ``fn(i)``: the enqueue, without waiting for the
+    card (which is synchronised between runs)."""
+    times = []
+    for i in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(i)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _kernel_only_ms(fn, id_sets, tables, kw, name: str, calls: int = 5) -> float:
     """Device time of the CUDA kernel alone (no flag prep), by torch.profiler."""
     from torch.autograd import DeviceType
@@ -470,6 +509,78 @@ def _fused_case(kind: str, dtype, base, rng, env) -> dict:
     return case
 
 
+def _merged_run(fn, plain, tables, ids, kw, rtol, atol):
+    """Two kernel runs and the plain version on ``ids``: raises unless the
+    runs are bit-identical and keep the padding lanes zero; returns the
+    largest difference from the plain version, the count of elements
+    outside ``rtol`` / ``atol`` of it, and the two losses."""
+    want = plain(*[t.clone() for t in tables], *ids.values(), **kw)
+    got = [fn(*[t.clone() for t in tables], *ids.values(), **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    name = fn.__name__
+    if not all(torch.equal(a, b) for a, b in zip(got[0], got[1])):
+        raise AssertionError(f"{name}: two runs on the card differ")
+    if any(t.reshape(t.shape[0], -1)[:, DIM:].any() for t in got[0][:2]):
+        raise AssertionError(f"{name}: padding lanes changed")
+    if not all(torch.isfinite(t).all() for t in got[0]):
+        raise AssertionError(f"{name}: non-finite result")
+    outside = sum(int((g.float() - w.float()).abs().gt(atol + rtol * w.float().abs()).sum())
+                  for g, w in zip(got[0][:2], want[:2]))
+    return _max_err(got[0], want), outside, float(got[0][2]), float(want[2])
+
+
+def _merged_case(name: str, dtype, base, rng, env) -> dict:
+    """A merged kernel at the main shape. Its blocks run in order, so on zipf
+    ids over the whole vocabulary it equals its plain version in f32 within
+    rtol 1e-5 / atol 1e-6 and repeats bit for bit. In bf16 a row that several
+    blocks write passes through one bf16 rounding a block, and the kernel's
+    f32 values differ from the plain version's in the last bits, so a
+    rounding can flip and the flip carries into the next block: one bf16
+    rounding is held on block-local ids (each row written by one block), and
+    on zipf ids the elements beyond it are counted."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    fn, plain = getattr(fused_sgns, name), getattr(fused_sgns, name + "_plain")
+    kw = {**_fused_call("grouped")[2], **MERGED[name]}
+    tables = [t.to(dtype, copy=True) for t in base]  # timing updates them
+    id_sets = [_fused_ids("grouped", False, rng) for _ in range(ROW_SETS)]
+    f32 = dtype == torch.float32
+    rtol, atol = (1e-5, 1e-6) if f32 else (2.0**-7, 1e-6)
+    exact_ids = id_sets[0] if f32 else _fused_ids("grouped", True, rng)
+    err, outside, _, _ = _merged_run(fn, plain, tables, exact_ids, kw, rtol, atol)
+    if outside:
+        raise AssertionError(f"{name} ({dtype}): {outside} elements outside rtol {rtol} / "
+                             f"atol {atol} of the plain version (largest {err})")
+    case = {"max_abs_err": err, "exact_ids": "zipf" if f32 else "block-local"}
+    if not f32:
+        zerr, zout, loss, want_loss = _merged_run(fn, plain, tables, id_sets[0], kw, rtol, atol)
+        case.update(zipf_max_abs_diff=zerr, zipf_beyond_one_rounding=zout,
+                    zipf_loss_gap=abs(loss - want_loss) / abs(want_loss))
+    row_bytes = tables[0].stride(0) * tables[0].element_size()
+    nbytes, flops, distinct, pairs = _fused_work("grouped", id_sets[0], row_bytes,
+                                                 tables[0].stride(0))
+    bytes_ms = nbytes / env["mem_rate_Bps"] * 1e3
+    flops_ms = flops / env["f32_rate_flops"] * 1e3
+    pick = lambda i: id_sets[i % len(id_sets)].values()  # noqa: E731
+    hot_n = fused_sgns.effective_hot_rows(kw.get("hot_rows", 0), VOCAB)[0]
+    prep = lambda i: fused_sgns.merged_prep(  # noqa: E731
+        *pick(i), CENTERS_PER_BLOCK, POOL_SIZE, hot_n, kw.get("u_cap", 0), VOCAB)
+    case.update({
+        "ms": time_ms(lambda i: fn(*tables, *pick(i), **kw)),
+        "kernel_only_ms": _kernel_only_ms(fn, id_sets, tables, kw, "merged_"),
+        "prep_ms": time_ms(prep),
+        "host_ms": _host_ms(lambda i: fn(*tables, *pick(i), **kw)),
+        "plain_ms": time_ms(lambda i: plain(*tables, *pick(i), **kw), runs=5),
+        "bytes": nbytes, "flops": flops, "distinct_rows": distinct,
+        "real_pairs": pairs, "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations", **MERGED[name],
+    })
+    if f32:
+        case["yardstick_ms"], case["yardstick_pairs"] = _yardstick("grouped", id_sets, tables)
+    return case
+
+
 def phase_fused_kernels(seed: int, env: dict) -> dict:
     """Each fused kernel at the main path's shapes; returns the f32 numbers
     per kernel for the summary line."""
@@ -484,6 +595,13 @@ def phase_fused_kernels(seed: int, env: dict) -> dict:
     for kind, name in (("flat", "fused_sgns_step"), ("grouped", "fused_sgns_grouped_step")):
         for dtype in (torch.float32, torch.bfloat16):
             case = _fused_case(kind, dtype, base, rng, env)
+            emit("kernel", name=name, dtype=str(dtype), **case)
+            if dtype == torch.float32:
+                summary[name] = case
+            torch.cuda.empty_cache()
+    for name in MERGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            case = _merged_case(name, dtype, base, rng, env)
             emit("kernel", name=name, dtype=str(dtype), **case)
             if dtype == torch.float32:
                 summary[name] = case
@@ -511,14 +629,20 @@ def _small_trainer(device, seed, **over):
         [f"w{i}" for i in range(v)], counts), device=device)
 
 
-# path -> (config keys, substep method). The fused paths run one kernel
-# block a substep here: the card runs blocks concurrently (hogwild), the CPU
-# in order, and the two agree only where no block races another.
+# path -> (config keys, substep method). The hogwild paths run one kernel
+# block a substep here: the card runs their blocks concurrently, the CPU in
+# order, and the two agree only where no block races another. The merged
+# paths run their blocks in order on both: 8 kernel blocks a substep.
+_GROUPED = {"fused": 1, "grouped": 1, "centers_per_block": CENTERS_PER_BLOCK}
 PATHS = {
     "packed": ({}, "_substep_packed"),
     "fused": ({"fused": 1, "batch_size": POOL_BLOCK}, "_substep_fused"),
-    "grouped": ({"fused": 1, "grouped": 1, "batch_size": CENTERS_PER_BLOCK,
-                 "centers_per_block": CENTERS_PER_BLOCK}, "_substep_grouped"),
+    "grouped": ({**_GROUPED, "batch_size": CENTERS_PER_BLOCK}, "_substep_grouped"),
+    "resident": ({**_GROUPED, "resident": 1, "hot_rows": COMPOSED_HOT_ROWS},
+                 "_substep_grouped"),
+    "dedup": ({**_GROUPED, "dedup": 1, "u_cap": U_CAP}, "_substep_grouped"),
+    "dedup_res": ({**_GROUPED, "dedup": 1, "u_cap": U_CAP, "resident": 1,
+                   "hot_rows": COMPOSED_HOT_ROWS}, "_substep_grouped"),
 }
 
 
@@ -592,7 +716,8 @@ def _counters() -> dict:
 
     return {f.__name__: f for f in (rowdma.gather_rows, rowdma.scatter_add_rows,
                                      fused_sgns.fused_sgns_step,
-                                     fused_sgns.fused_sgns_grouped_step)}
+                                     fused_sgns.fused_sgns_grouped_step,
+                                     *(getattr(fused_sgns, name) for name in MERGED))}
 
 
 # train phase -> (config keys, launches a substep of each kernel, paired
@@ -607,6 +732,15 @@ TRAIN = {
                        "centers_per_block": CENTERS_PER_BLOCK},
                       {"fused_sgns_grouped_step": 1}, True),
 }
+_MERGED_TRAIN = {**_FUSED, "grouped": 1, "batch_size": GROUPED_BATCH,
+                 "centers_per_block": CENTERS_PER_BLOCK}
+for _phase, _keys, _kernel in (
+        ("train_resident", {"resident": 1, "hot_rows": HOT_ROWS}, "fused_sgns_resident_step"),
+        ("train_dedup", {"dedup": 1, "u_cap": U_CAP}, "fused_sgns_dedup_step"),
+        ("train_dedup_res", {"dedup": 1, "u_cap": U_CAP, "resident": 1,
+                             "hot_rows": COMPOSED_HOT_ROWS}, "fused_sgns_dedup_resident_step")):
+    TRAIN[_phase] = ({**_MERGED_TRAIN, **_keys, "learning_rate": MERGED_LR[_phase]},
+                     {_kernel: 1}, True)
 
 
 def phase_train(phase: str, seed: int, corpora, device_name: str, smi: str):
@@ -723,7 +857,8 @@ def main() -> int:
     corpora = {False: _corpus(args.seed), True: _corpus(args.seed, paired=True)}
     launches = {}
     for phase, path in (("train", "packed"), ("train_fused", "fused"),
-                        ("train_grouped", "grouped")):
+                        ("train_grouped", "grouped"), ("train_resident", "resident"),
+                        ("train_dedup", "dedup"), ("train_dedup_res", "dedup_res")):
         train, trainer, state = phase_train(phase, args.seed, corpora, env["device"],
                                             env["nvidia_smi"])
         launches.update({k: n for k, n in train["launches"].items()
@@ -744,16 +879,24 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s["library_ms"],
             "shape": s["shape"], "dtype": "float32"})
-    for name, replaces, shape in (
-            ("fused_sgns_step", "swiftsnails_tpu/ops/fused_sgns.py:1832",
+    grouped_shape = {"centers": GROUPED_BATCH, "centers_per_block": CENTERS_PER_BLOCK,
+                     "window_slots": CW, "pool": POOL_SIZE}
+    for name, replaces, source, shape in (
+            ("fused_sgns_step", "swiftsnails_tpu/ops/fused_sgns.py:1832", "fused_sgns.cu",
              {"pairs": BATCH, "pairs_per_block": POOL_BLOCK, "pool": POOL_SIZE}),
             ("fused_sgns_grouped_step", "swiftsnails_tpu/ops/fused_sgns.py:347",
-             {"centers": GROUPED_BATCH, "centers_per_block": CENTERS_PER_BLOCK,
-              "window_slots": CW, "pool": POOL_SIZE})):
+             "fused_sgns.cu", grouped_shape),
+            ("fused_sgns_resident_step", "swiftsnails_tpu/ops/fused_sgns.py:1002",
+             "fused_sgns_merged.cu", {**grouped_shape, **MERGED["fused_sgns_resident_step"]}),
+            ("fused_sgns_dedup_step", "swiftsnails_tpu/ops/fused_sgns.py:1315",
+             "fused_sgns_merged.cu", {**grouped_shape, **MERGED["fused_sgns_dedup_step"]}),
+            ("fused_sgns_dedup_resident_step", "swiftsnails_tpu/ops/fused_sgns.py:1681",
+             "fused_sgns_merged.cu",
+             {**grouped_shape, **MERGED["fused_sgns_dedup_resident_step"]})):
         s = summary[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "swiftsnails_tpu_torch/csrc/fused_sgns.cu",
+            "source": f"swiftsnails_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

@@ -64,11 +64,7 @@
 // cudaErrorInvalidValue, launching nothing, for shapes whose tile does not
 // fit in shared memory (ssn_fused_sgns_tile says so beforehand).
 
-#include <cstddef>
-#include <cstdint>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sgns_device.cuh"
 
 namespace {
 
@@ -79,70 +75,6 @@ constexpr int kCenterTile = 4;  // grouped: most centers per tile
 // Dynamic shared memory a block may use on Hopper (227 KB), less the static
 // per-warp loss partials.
 constexpr size_t kMaxDynamicSmem = 232448 - kWarps * sizeof(float);
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ bool in_range(int32_t r, int64_t capacity) {
-  return r >= 0 && int64_t(r) < capacity;
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
-}
-
-// Sum over the warp's lanes in a fixed butterfly order; every lane gets it.
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
-
-// dst[j * d + i] = table[rows[j]][i] in f32 for j < n, zeros for a row id
-// outside [0, capacity). The whole block cooperates.
-template <typename T>
-__device__ void load_rows(float* dst, const T* table, const int32_t* rows, int n,
-                          int64_t capacity, int d) {
-  for (int e = threadIdx.x; e < n * d; e += kThreads) {
-    const int j = e / d;
-    const int32_t r = rows[j];
-    dst[e] = in_range(r, capacity) ? ld(table + int64_t(r) * d + (e - j * d)) : 0.f;
-  }
-}
-
-// out[k] = a_k . b_k for k < n, one warp per product (lanes over the row).
-// a_k, b_k are given by the functor; the result is the same on every run.
-template <typename Rows>
-__device__ void dots(float* out, int n, int d, Rows rows) {
-  const int lane = threadIdx.x & 31;
-  for (int k = threadIdx.x >> 5; k < n; k += kWarps) {
-    const float* a;
-    const float* b;
-    rows(k, a, b);
-    float s = 0.f;
-    for (int i = lane; i < d; i += 32) s = fmaf(a[i], b[i], s);
-    s = warp_sum(s);
-    if (lane == 0) out[k] = s;
-  }
-}
-
-// The block's loss partial: -inv_b * (sum of every thread's terms), summed
-// per warp and then over the warps in order.
-__device__ void store_loss(float* loss_parts, float mine, float inv_b) {
-  __shared__ float warp_loss[kWarps];
-  mine = warp_sum(mine);
-  if ((threadIdx.x & 31) == 0) warp_loss[threadIdx.x >> 5] = mine;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += warp_loss[w];
-    loss_parts[blockIdx.x] = -s * inv_b;
-  }
-}
 
 // --------------------------------------------------------------- flat ---
 
@@ -170,17 +102,17 @@ fused_sgns_kernel(T* in_table, T* out_table, const int32_t* __restrict__ in_rows
   const int64_t base = int64_t(blockIdx.x) * pairs;
   const int32_t* my_pool = pool_rows + int64_t(blockIdx.x) * pool;
 
-  load_rows(q, out_table, my_pool, pool, capacity, d);
+  load_rows<kThreads>(q, out_table, my_pool, pool, capacity, d);
   for (int e = threadIdx.x; e < pool * d; e += kThreads) dq[e] = 0.f;
   float loss = 0.f;
 
   for (int j0 = 0; j0 < pairs; j0 += tile) {
     const int t = min(tile, pairs - j0);
     __syncthreads();  // the last tile's readers are done; q is loaded
-    load_rows(v, in_table, in_rows + base + j0, t, capacity, d);
-    load_rows(u, out_table, pos_rows + base + j0, t, capacity, d);
+    load_rows<kThreads>(v, in_table, in_rows + base + j0, t, capacity, d);
+    load_rows<kThreads>(u, out_table, pos_rows + base + j0, t, capacity, d);
     __syncthreads();
-    dots(g, t * stride, d, [&](int k, const float*& a, const float*& b) {
+    dots<kThreads>(g, t * stride, d, [&](int k, const float*& a, const float*& b) {
       const int j = k / stride, c = k - j * stride;
       a = v + j * d;
       b = c == pool ? u + j * d : q + c * d;
@@ -225,7 +157,7 @@ fused_sgns_kernel(T* in_table, T* out_table, const int32_t* __restrict__ in_rows
     if (q_last[int64_t(blockIdx.x) * pool + c] && in_range(r, capacity))
       st(out_table + int64_t(r) * d + (e - c * d), q[e] - lr * dq[e]);
   }
-  store_loss(loss_parts, loss, inv_b);
+  store_loss<kThreads>(loss_parts + blockIdx.x, loss, inv_b);
 }
 
 // ------------------------------------------------------------ grouped ---
@@ -261,7 +193,7 @@ fused_sgns_grouped_kernel(T* in_table, T* out_table,
   const int64_t cbase = int64_t(blockIdx.x) * pc;  // first center of the block
   const int32_t* my_pool = pool_rows + int64_t(blockIdx.x) * pool;
 
-  load_rows(q, out_table, my_pool, pool, capacity, d);
+  load_rows<kThreads>(q, out_table, my_pool, pool, capacity, d);
   for (int e = threadIdx.x; e < pool * d; e += kThreads) dq[e] = 0.f;
   float loss = 0.f;
 
@@ -270,16 +202,16 @@ fused_sgns_grouped_kernel(T* in_table, T* out_table,
     const int64_t slot0 = (cbase + p0) * cw;  // first context slot of the tile
     __syncthreads();
     for (int s = threadIdx.x; s < t * cw; s += kThreads) xrow[s] = ctxs[slot0 + s];
-    load_rows(v, in_table, centers + cbase + p0, t, capacity, d);
+    load_rows<kThreads>(v, in_table, centers + cbase + p0, t, capacity, d);
     // pads are never read: load_rows gives them zeros
-    load_rows(u, out_table, ctxs + slot0, t * cw, capacity, d);
+    load_rows<kThreads>(u, out_table, ctxs + slot0, t * cw, capacity, d);
     __syncthreads();
     if (threadIdx.x < t) {
       float n = 0.f;
       for (int c = 0; c < cw; ++c) n += in_range(xrow[threadIdx.x * cw + c], capacity);
       n_real[threadIdx.x] = n;
     }
-    dots(g, t * stride, d, [&](int k, const float*& a, const float*& b) {
+    dots<kThreads>(g, t * stride, d, [&](int k, const float*& a, const float*& b) {
       const int j = k / stride, c = k - j * stride;
       a = v + j * d;
       b = c < cw ? u + (j * cw + c) * d : q + (c - cw) * d;
@@ -346,7 +278,7 @@ fused_sgns_grouped_kernel(T* in_table, T* out_table,
     if (q_last[int64_t(blockIdx.x) * pool + c] && in_range(r, capacity))
       st(out_table + int64_t(r) * d + (e - c * d), q[e] - lr * dq[e]);
   }
-  store_loss(loss_parts, loss, inv_b);
+  store_loss<kThreads>(loss_parts + blockIdx.x, loss, inv_b);
 }
 
 // The largest tile whose shared memory fits, or 0.
@@ -359,12 +291,6 @@ int plan_tile(bool grouped, int cw, int pool, int d, size_t* bytes) {
     }
   }
   return 0;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              int(bytes));
 }
 
 }  // namespace

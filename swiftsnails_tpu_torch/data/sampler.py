@@ -169,3 +169,33 @@ def batch_stream(
     for start in range(0, end, batch_size):
         sel = order[start : start + batch_size]
         yield {"centers": centers[sel], "contexts": contexts[sel]}
+
+
+def batch_stream_blocks(
+    centers: np.ndarray,
+    contexts: np.ndarray,
+    batch_size: int,
+    rng: np.random.Generator,
+    block: int,
+):
+    """:func:`batch_stream` shuffling blocks of ``block`` consecutive windows
+    instead of single windows.
+
+    Within a block the corpus order stays, so a kernel block of ``block``
+    centers spans ``block`` consecutive tokens and its windows overlap: few
+    distinct context rows, the locality the dedup forms merge. A
+    ``batch_size`` that is not a multiple of ``block`` shrinks the block to
+    its largest divisor not above ``block``, so every batch holds exactly
+    ``batch_size`` windows.
+    """
+    if batch_size % block:
+        block = next(d for d in range(min(block, batch_size), 0, -1)
+                     if batch_size % d == 0)
+    nblocks = len(centers) // block
+    order = rng.permutation(nblocks)
+    blocks_per_batch = batch_size // block
+    end = (nblocks // blocks_per_batch) * blocks_per_batch
+    for start in range(0, end, blocks_per_batch):
+        sel = (order[start : start + blocks_per_batch, None] * block
+               + np.arange(block)[None, :]).reshape(-1)
+        yield {"centers": centers[sel], "contexts": contexts[sel]}

@@ -4,7 +4,7 @@ The flagship trainer of the parameter server: workers pull embedding rows
 for the words of their batch, compute SGNS gradients with respect to the
 pulled rows, and push them back to the tables (SURVEY §3.3).
 
-The port runs three single-device paths of the JAX trainer. The default,
+The port runs the single-device paths of the JAX trainer. The default,
 ``packed+pool``:
 
 * two packed ``[capacity, S, 128]`` tables (input ``syn0``, output
@@ -26,6 +26,12 @@ blocks of ``pool_block`` pairs race as hogwild SGD workers do. ``fused: 1,
 grouped: 1`` (``fused-grouped``) switches the batches to the window schema
 (``centers`` [N], ``contexts`` [N, 2 * window], ``-1`` pads) and runs the
 center-major fused kernel over blocks of ``centers_per_block`` centers.
+On top of ``grouped: 1``, ``resident: 1`` (``fused-resident``) merges the
+updates of the head rows (ids below ``hot_rows``), ``dedup: 1``
+(``fused-dedup``) those of each block's first ``u_cap`` distinct context
+rows and switches the batches to shuffled blocks of consecutive windows, and
+both together (``fused-dedup-res``, ``examples/word2vec_fast.conf``) compose
+the two; a substep's kernel blocks then run in order.
 
 Batches come from the numpy pipeline, the same code as the JAX package's
 when its C++ batch producer (``data/native``) is unavailable: the port does
@@ -35,15 +41,15 @@ Config keys: ``dim``, ``window``, ``negatives``, ``learning_rate``,
 ``lr_decay``, ``num_iters``, ``batch_size``, ``min_count``, ``max_vocab``,
 ``subsample``, ``hash_keys``, ``capacity``, ``chunk_tokens``, ``seed``,
 ``data``, ``table_dtype``, ``pool_size``, ``pool_block``, ``steps_per_call``,
-``fused``, ``grouped``, ``centers_per_block``; ``hot_rows`` and ``u_cap`` are
-read as the JAX trainer reads them, for the paths still to port.
-Keys that select a path the port does not have yet raise
+``fused``, ``grouped``, ``centers_per_block``, ``resident``, ``hot_rows``,
+``dedup``, ``u_cap``. Keys that select a path the port does not have yet raise
 ``NotImplementedError`` (see :data:`UNPORTED`); ``ROADMAP.md`` says when
 each is ported.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -53,6 +59,7 @@ import torch.nn.functional as F
 from swiftsnails_tpu_torch.data.sampler import (
     alias_sample,
     batch_stream,
+    batch_stream_blocks,
     build_unigram_alias,
     skipgram_pairs,
     skipgram_windows,
@@ -63,7 +70,11 @@ from swiftsnails_tpu_torch.data.vocab import Vocab
 from swiftsnails_tpu_torch.framework.trainer import Trainer, _unported
 from swiftsnails_tpu_torch.models.registry import register_model
 from swiftsnails_tpu_torch.ops.fused_sgns import (
+    effective_hot_rows,
+    fused_sgns_dedup_resident_step,
+    fused_sgns_dedup_step,
     fused_sgns_grouped_step,
+    fused_sgns_resident_step,
     fused_sgns_step,
 )
 from swiftsnails_tpu_torch.ops.hashing import hash_row
@@ -102,8 +113,6 @@ def _truthy(cfg: Config, key: str) -> bool:
 UNPORTED = {
     "packed": lambda cfg, key: not cfg.get_bool(key, True),
     "neg_mode": lambda cfg, key: cfg.get_str(key, "pool") != "pool",
-    "resident": _truthy,
-    "dedup": _truthy,
     "stream": _truthy,
     "table_tier": lambda cfg, key: cfg.get_str(key, "device") != "device",
     "comm_dtype": lambda cfg, key: cfg.get_str(key, "float32") not in (
@@ -181,6 +190,15 @@ class Word2VecTrainer(Trainer):
         self.grouped = cfg.get_bool("grouped", False)
         if self.grouped and not self.fused:
             raise ValueError("grouped: 1 requires fused: 1")
+        # resident: 1 -> the head rows (ids < hot_rows, frequency-ranked by
+        # the vocabulary) get merged updates; dedup: 1 -> so do each kernel
+        # block's first u_cap distinct context rows, over block-ordered
+        # batches. Both compose (fused_sgns_dedup_resident_step).
+        for key in ("resident", "dedup"):
+            if cfg.get_bool(key, False) and not self.grouped:
+                raise ValueError(f"{key}: 1 requires grouped: 1")
+        self.resident = cfg.get_bool("resident", False)
+        self.dedup = cfg.get_bool("dedup", False)
         self.hot_rows = cfg.get_int("hot_rows", 1024)
         self.u_cap = cfg.get_int("u_cap", 512)
         # centers per kernel block; the per-substep center count is batch_size
@@ -204,6 +222,22 @@ class Word2VecTrainer(Trainer):
                 f"vocab {len(vocab)} exceeds capacity {cap}; set hash_keys: 1")
         self.access = SgdAccess()
         self.neg_alias = build_unigram_alias(vocab.counts, self.device)
+        if self.resident:
+            # say what runs: hot_rows clips to capacity and rounds down, and
+            # fewer than 8 rows fall back to the kernel without a head
+            eff, _ = effective_hot_rows(self.hot_rows, self.capacity)
+            log = logging.getLogger(__name__)
+            if eff < 8:
+                log.warning(
+                    "resident: 1 with hot_rows=%d (capacity %d) leaves <8 "
+                    "resident rows; falling back to the grouped kernel",
+                    self.hot_rows, self.capacity)
+            elif eff != self.hot_rows:
+                log.info(
+                    "resident hot_rows=%d rounds to %d effective resident "
+                    "rows (clipped to capacity, rounded down to a multiple of "
+                    "256, or of 8 below 256)", self.hot_rows, eff)
+        self.grouped_step = self._grouped_step_fn() if self.grouped else None
 
     # -- state -------------------------------------------------------------
 
@@ -232,7 +266,8 @@ class Word2VecTrainer(Trainer):
         corpus consumed (raw tokens x epochs), which drives ``lr_decay``.
         With ``grouped: 1`` a batch row is one corpus position and its
         window (``contexts`` [N, 2 * window], ``-1`` pads), and whole
-        windows shuffle together.
+        windows shuffle together; with ``dedup: 1`` blocks of
+        ``_effective_pc()`` consecutive windows do.
         """
         rng = np.random.default_rng(self.seed)
         counts = self.vocab.counts
@@ -252,7 +287,14 @@ class Word2VecTrainer(Trainer):
                 pairs_of = skipgram_windows if self.grouped else skipgram_pairs
                 centers, contexts = pairs_of(chunk, self.window, rng)
                 n_batches = max(len(centers) // macro, 1)
-                for bi, b in enumerate(batch_stream(centers, contexts, macro, rng)):
+                # dedup shuffles blocks of consecutive windows, one kernel
+                # block each, so that a block's windows overlap
+                block = self._effective_pc() if self.dedup else 1
+                if block > 1:
+                    stream = batch_stream_blocks(centers, contexts, macro, rng, block=block)
+                else:
+                    stream = batch_stream(centers, contexts, macro, rng)
+                for bi, b in enumerate(stream):
                     p = (chunk_base + (bi / n_batches) * chunk_len) / total_tokens
                     yield {**b, "progress": np.float32(min(p, 1.0))}
 
@@ -330,22 +372,49 @@ class Word2VecTrainer(Trainer):
             pool_size=self.pool_size)
         return state, loss
 
+    def _grouped_step_fn(self):
+        """The kernel of a grouped substep and its extra arguments
+        (:attr:`grouped_step`), as the JAX trainer picks them: the composed form where ``dedup`` and
+        ``resident`` are both set (its head clamped to ``u_cap``), else the
+        dedup or resident form, else the plain grouped one; a head of fewer
+        than 8 rows drops the resident part."""
+        hot_n = min(self.hot_rows, self.capacity)
+        if self.dedup and self.resident and hot_n >= 8:
+            # the composed form needs u_cap >= the effective head: clamp the
+            # head to what the unique list holds instead of raising
+            eff, _ = effective_hot_rows(hot_n, self.capacity)
+            if self.u_cap < eff:
+                clamped, _ = effective_hot_rows(min(hot_n, self.u_cap), self.capacity)
+                logging.getLogger(__name__).warning(
+                    "dedup+resident with u_cap=%d < effective hot_rows=%d: "
+                    "clamping the resident head to %d rows (raise u_cap to "
+                    "keep the full head)", self.u_cap, eff, clamped)
+                hot_n = clamped
+        if self.dedup and self.resident and hot_n >= 8:
+            return fused_sgns_dedup_resident_step, {"u_cap": self.u_cap, "hot_rows": hot_n}
+        if self.dedup:
+            return fused_sgns_dedup_step, {"u_cap": self.u_cap}
+        if self.resident and hot_n >= 8:
+            return fused_sgns_resident_step, {"hot_rows": hot_n}
+        return fused_sgns_grouped_step, {}
+
     def _substep_grouped(self, state: W2VState, centers: torch.Tensor,
                          ctxs: torch.Tensor, generator: torch.Generator,
                          lr: float, negs: Optional[torch.Tensor] = None):
-        """One center-major hogwild substep (:func:`fused_sgns_grouped_step`)
-        over windows ``ctxs`` [N, 2 * window] (``-1`` pads); ``negs`` as in
-        :meth:`_substep_packed`. Updates both tables in place."""
+        """One center-major substep over windows ``ctxs`` [N, 2 * window]
+        (``-1`` pads) in the kernel of :attr:`grouped_step`; ``negs``
+        as in :meth:`_substep_packed`. Updates both tables in place."""
         n = centers.shape[0]
         pc = self._effective_pc(n)
         pools = self._pools(generator, n // pc, negs)
         # hash real ids only; pads stay -1
         ctx_rows = self._rows(ctxs.clamp_min(0)).masked_fill(ctxs < 0, -1)
-        _, _, loss = fused_sgns_grouped_step(
+        step_fn, extra = self.grouped_step
+        _, _, loss = step_fn(
             state.in_table.table, state.out_table.table, self._rows(centers),
             ctx_rows, self._rows(pools.reshape(-1)), lr=lr,
             lam=self.negatives / self.pool_size, window=self.window,
-            centers_per_block=pc, pool_size=self.pool_size)
+            centers_per_block=pc, pool_size=self.pool_size, **extra)
         return state, loss
 
     def step_lr(self, batch: Dict) -> float:

@@ -1,10 +1,11 @@
 """Build the port's CUDA C++ kernels at first use, from the package's sources.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, loaded with ``ctypes``. The library lives in
+with a plain C interface, loaded with ``ctypes``; the sources may include the
+shared headers ``csrc/*.cuh``. The library lives in
 ``swiftsnails_tpu_torch/build/`` under a name that carries a hash of the
-source and the flags, so an edited source builds anew and an unchanged one
-is reused. A missing ``nvcc`` or a failed build raises: there is no
+source, the headers and the flags, so an edited source or header builds anew
+and an unchanged one is reused. A missing ``nvcc`` or a failed build raises: there is no
 fallback.
 
 Nothing here runs at import time; the tests on a CPU-only machine import
@@ -54,6 +55,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,7 +1,8 @@
 """Fused SGNS substeps: gather -> pooled-SGNS gradient -> SGD write, one kernel.
 
-Counterpart of the JAX package's ``ops/fused_sgns.py`` for its two plain
-fused forms:
+Counterpart of the JAX package's ``ops/fused_sgns.py``: its two hogwild
+fused forms, and (section "merged" below) the three whose kernel blocks run
+in order with some rows' updates merged.
 
 * :func:`fused_sgns_step` (the ``fused-hogwild`` path) replaces the TPU
   kernel ``fused_sgns_step`` / ``_kernel``: blocks of ``pairs_per_block``
@@ -10,9 +11,15 @@ fused forms:
   ``fused_sgns_grouped_step`` / ``_grouped_kernel``: blocks of
   ``centers_per_block`` centers, each with ``2 * window`` context slots
   (``-1`` = pad) and a shared pool.
+* :func:`fused_sgns_resident_step` (``fused-resident``),
+  :func:`fused_sgns_dedup_step` (``fused-dedup``) and
+  :func:`fused_sgns_dedup_resident_step` (``fused-dedup-res``) replace
+  ``_resident_kernel``, ``_dedup_kernel`` and ``_dedup_resident_kernel``
+  with one CUDA C++ kernel (``csrc/fused_sgns_merged.cu``).
 
-**Semantics: hogwild.** Rows duplicated within a block, shared between pool
-and context slots, or touched by two blocks in flight race. The
+**Semantics of the two hogwild forms.** Rows duplicated within a block,
+shared between pool and context slots, or touched by two blocks in flight
+race. The
 deterministic meaning, the one the JAX package's interpret mode gives and its
 tests pin down, is this:
 
@@ -38,19 +45,19 @@ within f32 reduction order and is bit-identical from run to run.
 
 Each kernel has, as in :mod:`.rowdma`, a wrapper that checks its inputs and
 raises on what the kernel does not take, runs the plain version for tables
-on the CPU and launches the CUDA C++ kernel (``csrc/fused_sgns.cu``) for
-tables on the card, with no fallback; a launch counter on the wrapper
-(``fused_sgns_step.launches``); and the plain version. Both kernels are
-bound by f32 arithmetic (the pair x pool products) at the main path's
-shapes; ``csrc/fused_sgns.cu`` says what the design does about that. Tables
-are updated in place (the JAX package donated them).
+on the CPU and launches the CUDA C++ kernel for tables on the card, with no
+fallback; a launch counter on the wrapper (``fused_sgns_step.launches``);
+and the plain version. The kernels are bound by f32 arithmetic (the pair x
+pool products) at the main path's shapes; each source says what its design
+does about that. Tables are updated in place (the JAX package donated
+them).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,13 +96,21 @@ def flat_flags(in_rows: torch.Tensor, pos_rows: torch.Tensor,
     return tuple(last_occurrence(r, _all(r)) for r in blocks)
 
 
-def context_flags(ctxs: torch.Tensor, pc: int) -> torch.Tensor:
+def _c_major(x: torch.Tensor, pc: int) -> torch.Tensor:
+    """``[N, CW]`` slots as ``[N / PC, CW * PC]`` rows, ranked c-major
+    (``k = c * PC + p``, as the TPU kernels' copy lists)."""
+    n, cw = x.shape
+    return x.view(n // pc, pc, cw).transpose(1, 2).reshape(n // pc, cw * pc)
+
+
+def context_flags(ctxs: torch.Tensor, pc: int,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Write flags of the grouped step's context slots, ``[N, CW]`` like
-    ``ctxs``: the last valid occurrence of each row within its block, slots
-    ranked c-major (``k = c * PC + p``, as the TPU kernel's copy list)."""
+    ``ctxs``: the last occurrence of each row among its block's ``valid``
+    slots (default: the real ones, ``ctxs >= 0``), slots ranked c-major."""
     n, cw = ctxs.shape
-    cmajor = ctxs.view(n // pc, pc, cw).transpose(1, 2).reshape(n // pc, cw * pc)
-    last = last_occurrence(cmajor, cmajor >= 0)
+    valid = ctxs >= 0 if valid is None else valid
+    last = last_occurrence(_c_major(ctxs, pc), _c_major(valid, pc))
     return last.view(n // pc, cw, pc).transpose(1, 2).reshape(n, cw).contiguous()
 
 
@@ -134,7 +149,7 @@ def _apply_writes(writes) -> None:
 
 
 def _rows_f32(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    return table.index_select(0, rows).reshape(rows.shape[0], -1).float()
+    return table.index_select(0, rows).reshape(rows.shape[0], table.stride(0)).float()
 
 
 # --------------------------------------------------------------- checks ---
@@ -159,6 +174,26 @@ def _check_tables(name: str, in_table: torch.Tensor, out_table: torch.Tensor) ->
         raise ValueError("in/out tables must share capacity and device")
     if in_table.shape[0] > _INT32_MAX:
         raise ValueError("table capacity exceeds int32 row ids")
+
+
+def _check_grouped(name: str, in_table, out_table, centers, ctxs, pool_rows,
+                   pc: int, pn: int) -> Tuple[int, int, int]:
+    """The grouped forms' input checks; returns ``(N, CW, blocks)``."""
+    if ctxs.dim() != 2:
+        raise ValueError(f"ctxs must be [N, CW], got {tuple(ctxs.shape)}")
+    n, cw = ctxs.shape
+    if n % pc:
+        raise ValueError(f"centers {n} not a multiple of centers_per_block {pc}")
+    nblocks = n // pc
+    if pool_rows.shape[0] != nblocks * pn:
+        raise ValueError(f"pool_rows {pool_rows.shape[0]} != {nblocks * pn}")
+    _check_tables(name, in_table, out_table)
+    _check_ids(name, centers, 1, in_table)
+    _check_ids(name, ctxs, 2, in_table)
+    _check_ids(name, pool_rows, 1, in_table)
+    if centers.shape[0] != n:
+        raise ValueError(f"centers {centers.shape[0]} != ctxs rows {n}")
+    return n, cw, nblocks
 
 
 @functools.lru_cache(maxsize=None)
@@ -347,21 +382,9 @@ def fused_sgns_grouped_step(in_table: torch.Tensor, out_table: torch.Tensor,
     (a dynamic window b ~ U(1, window) gives 2 E[b] = window + 1 pairs a
     center). Both tables are updated in place.
     """
-    if ctxs.dim() != 2:
-        raise ValueError(f"ctxs must be [N, CW], got {tuple(ctxs.shape)}")
-    n, cw = ctxs.shape
     pc, pn = centers_per_block, pool_size
-    if n % pc:
-        raise ValueError(f"centers {n} not a multiple of centers_per_block {pc}")
-    nblocks = n // pc
-    if pool_rows.shape[0] != nblocks * pn:
-        raise ValueError(f"pool_rows {pool_rows.shape[0]} != {nblocks * pn}")
-    _check_tables("fused_sgns_grouped_step", in_table, out_table)
-    _check_ids("fused_sgns_grouped_step", centers, 1, in_table)
-    _check_ids("fused_sgns_grouped_step", ctxs, 2, in_table)
-    _check_ids("fused_sgns_grouped_step", pool_rows, 1, in_table)
-    if centers.shape[0] != n:
-        raise ValueError(f"centers {centers.shape[0]} != ctxs rows {n}")
+    n, cw, nblocks = _check_grouped("fused_sgns_grouped_step", in_table, out_table,
+                                    centers, ctxs, pool_rows, pc, pn)
     if in_table.device.type == "cpu":
         return fused_sgns_grouped_step_plain(in_table, out_table, centers, ctxs,
                                              pool_rows, lr, lam, window, pc, pn)
@@ -383,3 +406,371 @@ def fused_sgns_grouped_step(in_table: torch.Tensor, out_table: torch.Tensor,
 
 
 fused_sgns_grouped_step.launches = 0
+
+
+# -------------------------------------------------------------- merged ---
+#
+# The grouped step with some rows' updates merged, its kernel blocks in
+# order (rule 1 as the TPU's sequential grid gives it, on the card too):
+#
+# * hot rows (id < hot_n, both tables) are read as blocks <= b - 1 left
+#   them, and each gets its base less lr times the sum of the gradients of
+#   all its slots in the block: centers for the in-table; contexts and pool
+#   for the out-table;
+# * a context row in its block's unique list (the block's distinct real
+#   context rows ranked ascending, which puts hot rows first; the first
+#   u_cap of them) is merged too: base as read (cold: blocks <= b - 2) less
+#   lr times its context slots' gradients, written after the pool's writes,
+#   so it overwrites them;
+# * cold centers, cold pool rows and the other ("direct") context slots keep
+#   the grouped step's last-write-wins (rules 1-2 above).
+#
+# fused_sgns_resident_step merges the hot rows (no unique list),
+# fused_sgns_dedup_step the unique lists (no hot rows), and
+# fused_sgns_dedup_resident_step both.
+
+
+def effective_hot_rows(hot_rows: int, *capacities: int) -> Tuple[int, int]:
+    """``(hot_n, ch)``: the head rows the resident forms merge. ``hot_rows``
+    is clipped to the capacities and rounded down to a multiple of 256 (or
+    of 8 below 256), the JAX kernel's one-hot chunk ``ch``; ``(0, 0)`` where
+    no row is left. The rounding decides which rows are hot, so it is part
+    of the result."""
+    hot_n = min(hot_rows, *capacities)
+    if hot_n >= 256:
+        hot_n -= hot_n % 256
+        ch = 256
+    else:
+        hot_n -= hot_n % 8
+        ch = hot_n
+    return (hot_n, ch) if hot_n > 0 else (0, 0)
+
+
+def merge_runs(keys: torch.Tensor, codes: torch.Tensor, is_ctx: torch.Tensor,
+               hot_n: int, u_cap: int) -> Tuple[torch.Tensor, ...]:
+    """The writes of a merged step, one run a written row.
+
+    ``keys`` [NB, K] int32: each block's slots in write-rank order (a later
+    slot wins a last-write-wins row), one key a table row (``2 * row`` in
+    the out-table, ``2 * row + 1`` in the in-table), ``_INT32_MAX`` where a
+    slot writes nothing; context slots (``is_ctx`` [K]) rank before the pool
+    slots; ``codes`` [K] int32 names each slot to the kernel. Returns
+    ``(ent [NB, K], run_start [NB, K + 1], n_runs [NB])``, int32: run ``j``
+    of block ``b`` is the slots ``ent[b, run_start[b, j]:run_start[b, j +
+    1]]`` of one row, sorted by key: every slot of a hot row, the context
+    slots of a row in the unique list, or the last slot of any other row.
+    """
+    nb, k = keys.shape
+    srt, order = torch.sort(keys, dim=1, stable=True)
+    ok = srt != _INT32_MAX
+    head = torch.ones_like(ok)
+    head[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    last = torch.ones_like(ok)
+    last[:, :-1] = head[:, 1:]
+    ctx = is_ctx[order]
+    pos = _positions(k, keys.device).expand(nb, k)
+    # a row's slots keep their rank order, context slots first: the row has a
+    # context slot iff its first slot is one, and counting such first slots
+    # ranks the distinct context rows ascending
+    first = torch.cummax(torch.where(head, pos, 0), dim=1).values.long()
+    rank = torch.cumsum(head & ctx & ok, dim=1) - 1
+    listed = ctx.gather(1, first) & (rank < u_cap)
+    keep = ok & (((srt >> 1) < hot_n) | (listed & ctx) | (~listed & last))
+    dest = torch.where(keep, torch.cumsum(keep, 1) - 1, k)
+
+    def compact(values):
+        out = torch.full((nb, k + 1), -1, dtype=torch.int32, device=keys.device)
+        return out.scatter_(1, dest, values)[:, :k]
+
+    ent, ckey = compact(codes[order]), compact(srt)
+    chead = ckey >= 0
+    chead[:, 1:] &= ckey[:, 1:] != ckey[:, :-1]
+    run_start = keep.sum(1, dtype=torch.int32)[:, None].expand(nb, k + 2).clone()
+    run_start.scatter_(1, torch.where(chead, torch.cumsum(chead, 1) - 1, k + 1), pos)
+    return (ent.contiguous(), run_start[:, : k + 1].contiguous(),
+            chead.sum(1, dtype=torch.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _positions(k: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(k, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_codes(pc: int, cw: int, pn: int, device: torch.device):
+    """A block's write list, in rank order: context slots c-major (code
+    ``p * CW + c``), pool slots (``PC * CW + c``), centers (``PC * CW + PN +
+    p``). Returns ``(codes, is_ctx, in_table)``: int32, bool, int32 [K]."""
+    cap = pc * cw
+    k = torch.arange(cap, dtype=torch.int32)
+    codes = torch.cat([(k % pc) * cw + k // pc, cap + torch.arange(pn + pc, dtype=torch.int32)])
+    slot = torch.arange(cap + pn + pc)
+    return codes.to(device), (slot < cap).to(device), (slot >= cap + pn).int().to(device)
+
+
+def merged_prep(centers: torch.Tensor, ctxs: torch.Tensor, pool_rows: torch.Tensor,
+                pc: int, pn: int, hot_n: int, u_cap: int,
+                capacity: int) -> Tuple[torch.Tensor, ...]:
+    """:func:`merge_runs` of a step's context, pool and center slots (codes
+    of :func:`_slot_codes`). Ids outside ``[0, capacity)`` are written by no
+    run."""
+    n, cw = ctxs.shape
+    codes, is_ctx, in_table = _slot_codes(pc, cw, pn, ctxs.device)
+    rows = torch.cat([_c_major(ctxs, pc), pool_rows.view(-1, pn), centers.view(-1, pc)], 1)
+    keys = torch.where((rows >= 0) & (rows < capacity), rows * 2 + in_table, _INT32_MAX)
+    return merge_runs(keys, codes, is_ctx, hot_n, u_cap)
+
+
+class _BlockRead(NamedTuple):
+    v: torch.Tensor  # [PC, D] f32 center rows
+    u: torch.Tensor  # [PC, CW, D] context rows, zeros on pads
+    q: torch.Tensor  # [PN, D] pool rows
+    uniq: torch.Tensor  # [U, D] the block's cold unique rows
+
+
+def _live_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Hot rows as the writes of blocks <= b - 1 left them: the table now."""
+    return _rows_f32(table, rows)
+
+
+def _hot_sums(parts) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rows, sums)``: the distinct hot rows among ``parts``, a list of
+    ``(rows [K], grads [K, D])``, and the sum of each one's gradients."""
+    rows = torch.cat([r for r, _ in parts])
+    grads = torch.cat([g for _, g in parts])
+    uniq, inv = torch.unique(rows, return_inverse=True)
+    return uniq, grads.new_zeros(uniq.shape[0], grads.shape[1]).index_add_(0, inv, grads)
+
+
+def _merged_plain(in_table, out_table, centers, ctxs, pool_rows, lr: float,
+                  lam: float, window: int, pc: int, pn: int, hot_n: int, u_cap: int):
+    """The plain version of the merged forms (in place): rules 1-3 of the
+    grouped step for cold rows, merged updates for hot and unique rows."""
+    n, cw = ctxs.shape
+    nb = n // pc
+    inv_b = 1.0 / (n * (window + 1))
+    d = in_table.stride(0)
+    cr, xr, qr = centers.view(-1, pc), ctxs.view(-1, pc, cw), pool_rows.view(-1, pn)
+    valid = xr >= 0
+    hot_c, hot_x, hot_q = cr < hot_n, valid & (xr < hot_n), qr < hot_n
+    listed = torch.zeros_like(valid)
+    uniq = []
+    for b in range(nb):
+        rows = torch.unique(xr[b][valid[b]])[:u_cap]  # ascending: hot rows first
+        listed[b] = valid[b] & torch.isin(xr[b], rows)
+        uniq.append(rows[rows >= hot_n])
+    cold_listed = listed & ~hot_x
+    c_last = last_occurrence(cr, ~hot_c)
+    x_last = context_flags(ctxs, pc, (valid & ~listed & ~hot_x).view(n, cw)).view(-1, pc, cw)
+    q_last = last_occurrence(qr, ~hot_q)
+    losses = []
+
+    def read(b):
+        u = torch.zeros(pc, cw, d, dtype=torch.float32, device=in_table.device)
+        u[valid[b]] = _rows_f32(out_table, xr[b][valid[b]])
+        return _BlockRead(_rows_f32(in_table, cr[b]), u, _rows_f32(out_table, qr[b]),
+                          _rows_f32(out_table, uniq[b]))
+
+    def update(b, r: _BlockRead):
+        v, u, q = r.v, r.u, r.q
+        hc, hx, hq = hot_c[b], hot_x[b], hot_q[b]
+        v[hc] = _live_rows(in_table, cr[b][hc])
+        u[hx] = _live_rows(out_table, xr[b][hx])
+        q[hq] = _live_rows(out_table, qr[b][hq])
+        mask = valid[b].float()
+        pos = (u * v[:, None, :]).sum(-1)
+        n_real = mask.sum(1)
+        neg = v @ q.T
+        g_pos = (torch.sigmoid(pos) - 1.0) * inv_b * mask
+        g_neg = (lam * inv_b) * torch.sigmoid(neg) * n_real[:, None]
+        dv = (g_pos[:, :, None] * u).sum(1) + g_neg @ q
+        du = g_pos[:, :, None] * v[:, None, :]
+        dq = g_neg.T @ v
+        cl = cold_listed[b]
+        du_uniq = torch.zeros_like(r.uniq).index_add_(
+            0, torch.searchsorted(uniq[b], xr[b][cl]), du[cl])
+        writes = [(in_table, cr[b], v - lr * dv, c_last[b]),
+                  (out_table, xr[b].reshape(-1), (u - lr * du).view(pc * cw, -1),
+                   x_last[b].reshape(-1)),
+                  (out_table, qr[b], q - lr * dq, q_last[b]),
+                  (out_table, uniq[b], r.uniq - lr * du_uniq, _all(uniq[b]))]
+        for table, (rows, sums) in (
+                (in_table, _hot_sums([(cr[b][hc], dv[hc])])),
+                (out_table, _hot_sums([(xr[b][hx], du[hx]), (qr[b][hq], dq[hq])]))):
+            writes.append((table, rows, _live_rows(table, rows) - lr * sums, _all(rows)))
+        _apply_writes(writes)
+        losses.append(-((F.logsigmoid(pos) * mask).sum()
+                        + lam * (F.logsigmoid(-neg) * n_real[:, None]).sum()) * inv_b)
+
+    _double_buffered(nb, read, update)
+    return in_table, out_table, _total(losses, in_table)
+
+
+@functools.lru_cache(maxsize=None)
+def _merged_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_sgns_merged")
+    vp, ll, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.ssn_fused_sgns_merged_tiles.argtypes = [i32] * 4
+    lib.ssn_fused_sgns_merged_tiles.restype = i32
+    lib.ssn_fused_sgns_merged_workspace.argtypes = [i32] * 5
+    lib.ssn_fused_sgns_merged_workspace.restype = ll
+    lib.ssn_fused_sgns_merged_step.argtypes = (
+        [vp] * 10 + [ll, i32, i32, i32, ll, i32, i32, i32, f32, f32, f32, i32, vp])
+    lib.ssn_fused_sgns_merged_step.restype = i32
+    lib.ssn_fused_sgns_merged_error_string.argtypes = [i32]
+    lib.ssn_fused_sgns_merged_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _merged_step(fn, in_table, out_table, centers, ctxs, pool_rows, lr, lam, window,
+                 pc: int, pn: int, hot_n: int, u_cap: int):
+    """Run the plain version for CPU tables, or launch the merged kernel
+    (``csrc/fused_sgns_merged.cu``) and count it on ``fn``."""
+    if in_table.device.type == "cpu":
+        return _merged_plain(in_table, out_table, centers, ctxs, pool_rows, lr, lam,
+                             window, pc, pn, hot_n, u_cap)
+    n, cw = ctxs.shape
+    nblocks = n // pc
+    row_elems = in_table.stride(0)
+    if in_table.shape[0] >= 2**30:
+        raise ValueError("table capacity exceeds 2^30 rows (the prep's row keys)")
+    lib = _merged_lib()
+    ntiles = lib.ssn_fused_sgns_merged_tiles(pc, cw, pn, row_elems)
+    if ntiles == 0:
+        raise ValueError(
+            f"{fn.__name__}: a pool of {pn} rows of {row_elems} lanes does not fit in "
+            "the kernel's shared memory (or rows exceed its 512 lanes)")
+    runs = merged_prep(centers, ctxs, pool_rows, pc, pn, hot_n, u_cap, in_table.shape[0])
+    work = torch.empty(lib.ssn_fused_sgns_merged_workspace(
+        pc, cw, pn, row_elems, in_table.element_size()), dtype=torch.uint8,
+        device=in_table.device)
+    loss_parts = torch.zeros(nblocks * ntiles, dtype=torch.float32, device=in_table.device)
+    rc = lib.ssn_fused_sgns_merged_step(
+        *_ptrs(in_table, out_table, centers, ctxs, pool_rows, *runs, work, loss_parts),
+        nblocks, pc, cw, pn, in_table.shape[0], row_elems, in_table.element_size(), hot_n,
+        float(lr), float(lam), 1.0 / (n * (window + 1)), *_device_args(in_table))
+    if rc != 0:
+        msg = lib.ssn_fused_sgns_merged_error_string(rc).decode()
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc} ({msg})")
+    if nblocks:
+        fn.launches += 1
+    return in_table, out_table, loss_parts.sum()
+
+
+def _hot_n(hot_rows: int, in_table, out_table, instead: str) -> int:
+    hot_n, _ = effective_hot_rows(hot_rows, in_table.shape[0], out_table.shape[0])
+    if hot_n <= 0:
+        raise ValueError(f"hot_rows too small; use {instead}")
+    return hot_n
+
+
+def _check_u_cap(u_cap: int) -> None:
+    if u_cap % 8 or u_cap <= 0:
+        raise ValueError(f"u_cap must be a positive multiple of 8, got {u_cap}")
+
+
+def _composed_hot_n(hot_rows: int, u_cap: int, in_table, out_table) -> int:
+    hot_n = _hot_n(hot_rows, in_table, out_table, "fused_sgns_dedup_step")
+    if u_cap < hot_n:
+        raise ValueError(
+            f"composed kernel requires u_cap ({u_cap}) >= effective hot_rows "
+            f"({hot_n}); raise u_cap or lower hot_rows")
+    return hot_n
+
+
+def fused_sgns_resident_step(in_table: torch.Tensor, out_table: torch.Tensor,
+                             centers: torch.Tensor, ctxs: torch.Tensor,
+                             pool_rows: torch.Tensor, lr: float, lam: float, window: int,
+                             centers_per_block: int = 256, pool_size: int = 64,
+                             hot_rows: int = 1024):
+    """The grouped substep with the head merged (``fused-resident``); returns
+    ``(in_table, out_table, loss)``, tables updated in place.
+
+    Rows below ``effective_hot_rows(hot_rows, C)`` of both tables are read
+    as the blocks before left them and get merged updates; every other row
+    is as in :func:`fused_sgns_grouped_step`. The win needs frequency-ranked
+    ids (the vocabulary's order); the result never does.
+    """
+    pc, pn = centers_per_block, pool_size
+    _check_grouped("fused_sgns_resident_step", in_table, out_table, centers, ctxs,
+                   pool_rows, pc, pn)
+    hot_n = _hot_n(hot_rows, in_table, out_table, "fused_sgns_grouped_step")
+    return _merged_step(fused_sgns_resident_step, in_table, out_table, centers, ctxs,
+                        pool_rows, lr, lam, window, pc, pn, hot_n, 0)
+
+
+def fused_sgns_resident_step_plain(in_table, out_table, centers, ctxs, pool_rows,
+                                   lr: float, lam: float, window: int,
+                                   centers_per_block: int = 256, pool_size: int = 64,
+                                   hot_rows: int = 1024):
+    """The plain version of :func:`fused_sgns_resident_step`."""
+    hot_n = _hot_n(hot_rows, in_table, out_table, "fused_sgns_grouped_step")
+    return _merged_plain(in_table, out_table, centers, ctxs, pool_rows, lr, lam, window,
+                         centers_per_block, pool_size, hot_n, 0)
+
+
+fused_sgns_resident_step.launches = 0
+
+
+def fused_sgns_dedup_step(in_table: torch.Tensor, out_table: torch.Tensor,
+                          centers: torch.Tensor, ctxs: torch.Tensor,
+                          pool_rows: torch.Tensor, lr: float, lam: float, window: int,
+                          centers_per_block: int = 256, pool_size: int = 64,
+                          u_cap: int = 512):
+    """The grouped substep with each block's first ``u_cap`` distinct context
+    rows merged (``fused-dedup``); returns ``(in_table, out_table, loss)``,
+    tables updated in place. Made for block-ordered batches
+    (:func:`~swiftsnails_tpu_torch.data.sampler.batch_stream_blocks`), whose
+    overlapping windows give a block few distinct context rows."""
+    pc, pn = centers_per_block, pool_size
+    _check_grouped("fused_sgns_dedup_step", in_table, out_table, centers, ctxs,
+                   pool_rows, pc, pn)
+    _check_u_cap(u_cap)
+    return _merged_step(fused_sgns_dedup_step, in_table, out_table, centers, ctxs,
+                        pool_rows, lr, lam, window, pc, pn, 0, u_cap)
+
+
+def fused_sgns_dedup_step_plain(in_table, out_table, centers, ctxs, pool_rows,
+                                lr: float, lam: float, window: int,
+                                centers_per_block: int = 256, pool_size: int = 64,
+                                u_cap: int = 512):
+    """The plain version of :func:`fused_sgns_dedup_step`."""
+    _check_u_cap(u_cap)
+    return _merged_plain(in_table, out_table, centers, ctxs, pool_rows, lr, lam, window,
+                         centers_per_block, pool_size, 0, u_cap)
+
+
+fused_sgns_dedup_step.launches = 0
+
+
+def fused_sgns_dedup_resident_step(in_table: torch.Tensor, out_table: torch.Tensor,
+                                   centers: torch.Tensor, ctxs: torch.Tensor,
+                                   pool_rows: torch.Tensor, lr: float, lam: float,
+                                   window: int, centers_per_block: int = 256,
+                                   pool_size: int = 64, u_cap: int = 512,
+                                   hot_rows: int = 512):
+    """Both merges composed (``fused-dedup-res``); returns ``(in_table,
+    out_table, loss)``, tables updated in place. Needs ``u_cap`` >= the
+    effective hot rows, so that every hot context row is in its block's
+    unique list."""
+    pc, pn = centers_per_block, pool_size
+    _check_grouped("fused_sgns_dedup_resident_step", in_table, out_table, centers, ctxs,
+                   pool_rows, pc, pn)
+    _check_u_cap(u_cap)
+    hot_n = _composed_hot_n(hot_rows, u_cap, in_table, out_table)
+    return _merged_step(fused_sgns_dedup_resident_step, in_table, out_table, centers,
+                        ctxs, pool_rows, lr, lam, window, pc, pn, hot_n, u_cap)
+
+
+def fused_sgns_dedup_resident_step_plain(in_table, out_table, centers, ctxs, pool_rows,
+                                         lr: float, lam: float, window: int,
+                                         centers_per_block: int = 256, pool_size: int = 64,
+                                         u_cap: int = 512, hot_rows: int = 512):
+    """The plain version of :func:`fused_sgns_dedup_resident_step`."""
+    _check_u_cap(u_cap)
+    hot_n = _composed_hot_n(hot_rows, u_cap, in_table, out_table)
+    return _merged_plain(in_table, out_table, centers, ctxs, pool_rows, lr, lam, window,
+                         centers_per_block, pool_size, hot_n, u_cap)
+
+
+fused_sgns_dedup_resident_step.launches = 0

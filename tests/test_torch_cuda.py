@@ -191,3 +191,112 @@ def test_train_loop_launches_the_fused_kernel(cuda_device, grouped):
     state = TrainLoop(trainer, log_every=0).run(max_steps=3)
     assert [f.launches - b for f, b in zip(counters, before)] == [6, 0, 0]
     assert all(torch.isfinite(t.table).all() for t in state)
+
+
+# ------------------------------------------------- merged fused SGNS ---
+
+_MERGED = {"resident": ("fused_sgns_resident_step", dict(hot_rows=256)),
+           "dedup": ("fused_sgns_dedup_step", dict(u_cap=64)),
+           "dedup_resident": ("fused_sgns_dedup_resident_step", dict(u_cap=64, hot_rows=64))}
+
+
+def _zipf(rng, n, v):
+    w = 1.0 / np.arange(1, v + 1) ** 1.05
+    cdf = np.cumsum(w) / w.sum()
+    return np.minimum(np.searchsorted(cdf, rng.random(n)), v - 1).astype(np.int32)
+
+
+def _merged_case(kind, dev, dtype, seed=0, nblocks=6, cap=4096, local=False):
+    """Tables and ids for one merged step, zipf over the whole table (rows
+    shared within and across blocks, by contexts and pools) or with
+    ``local`` block-local (no row in two blocks); pads in the windows."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    rng = np.random.default_rng(seed)
+    pc, window, pool = 32, 3, 16
+    lanes = np.arange(256).reshape(2, 128) < 200
+    tables = [torch.from_numpy((rng.normal(size=(cap, 2, 128)) * 0.1 * lanes)
+                               .astype(np.float32)).to(dev, dtype) for _ in range(2)]
+    span = cap // nblocks
+
+    def ids(per_block):
+        if local:
+            return _block_local(rng, nblocks, per_block, span)
+        return _zipf(rng, nblocks * per_block, cap)
+
+    ctxs = ids(pc * 2 * window).reshape(-1, 2 * window)
+    ctxs[rng.random(ctxs.shape) < 0.3] = -1
+    ctxs[5] = -1
+    args = dict(centers=ids(pc), ctxs=ctxs, pool_rows=ids(pool))
+    args = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in args.items()}
+    name, extra = _MERGED[kind]
+    kw = dict(lr=0.05 * pc * nblocks * (window + 1), lam=0.3, window=window,
+              centers_per_block=pc, pool_size=pool, **extra)
+    return getattr(fused_sgns, name), tables, args, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", list(_MERGED))
+def test_merged_kernels_match_plain(cuda_device, kind, dtype):
+    """The blocks of a substep run in order on the card too, so the kernel
+    equals its plain version on zipf ids in f32 and repeats bit for bit. In
+    bf16 a row written by several blocks passes through several roundings,
+    where a last-bit difference can flip one and carry on, so one bf16
+    rounding is held where each row is written by one block."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    fn, tables, args, kw = _merged_case(kind, cuda_device, dtype,
+                                        local=dtype == torch.bfloat16)
+    plain = getattr(fused_sgns, fn.__name__ + "_plain")
+    want = plain(*[t.clone() for t in tables], *args.values(), **kw)
+    n0 = fn.launches
+    got = [fn(*[t.clone() for t in tables], *args.values(), **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 2
+    rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (2.0**-7, 1e-6)
+    for g, w in zip(got[0], want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], got[1]))  # bit-identical
+    for t in got[0][:2]:
+        assert not t.reshape(t.shape[0], -1)[:, 200:].any()
+
+
+@pytest.mark.parametrize("kind", list(_MERGED))
+def test_merged_kernel_never_reads_a_pad(cuda_device, kind):
+    """Row 0 of the out-table is NaN and only the pads (-1) would reach it."""
+    fn, tables, args, kw = _merged_case(kind, cuda_device, torch.float32)
+    for ids in args.values():
+        ids[ids == 0] = 1
+    tables[1][0] = float("nan")
+    a, b, loss = fn(*tables, *args.values(), **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all() and torch.isfinite(b[1:]).all()
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("kind,keys", [
+    ("resident", {"resident": "1", "hot_rows": "64"}),
+    ("dedup", {"dedup": "1", "u_cap": "128"}),
+    ("dedup_resident", {"dedup": "1", "u_cap": "128", "resident": "1", "hot_rows": "64"})])
+def test_train_loop_launches_the_merged_kernel(cuda_device, kind, keys):
+    from swiftsnails_tpu_torch.data.vocab import Vocab
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+    from swiftsnails_tpu_torch.ops import fused_sgns
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 300, 20_000).astype(np.int32)
+    vocab = Vocab([f"w{i}" for i in range(300)], np.bincount(ids, minlength=300) + 1)
+    cfg = Config({"dim": "200", "window": "3", "negatives": "5",
+                  "batch_size": "1024", "subsample": "0", "steps_per_call": "2",
+                  "pool_size": "16", "centers_per_block": "128", "fused": "1",
+                  "grouped": "1", **keys})
+    trainer = Word2VecTrainer(cfg, corpus_ids=ids, vocab=vocab)
+    counters = [getattr(fused_sgns, _MERGED[k][0]) for k in _MERGED] + [
+        fused_sgns.fused_sgns_grouped_step, fused_sgns.fused_sgns_step]
+    before = [f.launches for f in counters]
+    state = TrainLoop(trainer, log_every=0).run(max_steps=3)
+    want = [6 if f.__name__ == _MERGED[kind][0] else 0 for f in counters]
+    assert [f.launches - b for f, b in zip(counters, before)] == want
+    assert all(torch.isfinite(t.table).all() for t in state)

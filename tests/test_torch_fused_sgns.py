@@ -13,6 +13,8 @@ largest change, and within one bf16 rounding in bf16.
 when the port breaks a rule.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -294,17 +296,16 @@ def _trainers(n=2000, **over):
 
 
 def _jax_substep(jt, tables, batch, pool, lr):
-    """The JAX substep's kernel call as ``_substep_fused`` /
-    ``_substep_grouped`` make it, with the pool given."""
+    """One JAX substep with the pool given: the trainer's own
+    ``_substep_grouped`` (its choice of kernel included) for the window
+    schema, else the kernel call as ``_substep_fused`` makes it."""
     centers, ctxs = jnp.asarray(batch["centers"]), jnp.asarray(batch["contexts"])
     if jt.grouped:
-        pc = jt._effective_pc(centers.shape[0])
-        return jax_fused.fused_sgns_grouped_step(
-            *tables, jt._rows(centers),
-            jnp.where(ctxs >= 0, jt._rows(jnp.maximum(ctxs, 0)), -1),
-            jt._rows(jnp.asarray(pool).reshape(-1)), lr=lr,
-            lam=jt.negatives / jt.pool_size, window=jt.window,
-            centers_per_block=pc, pool_size=jt.pool_size, interpret=True)
+        state = jax_w2v.W2VState(*(t._replace(table=x)
+                                   for t, x in zip(jt.init_state(), tables)))
+        with mock.patch.object(jax_w2v, "alias_sample", lambda *_: jnp.asarray(pool)):
+            state, loss, _ = jt._substep_grouped(state, centers, ctxs, None, lr)
+        return state.in_table.table, state.out_table.table, loss
     b = centers.shape[0]
     pb = min(jt.pool_block, b)
     while b % pb:
@@ -399,12 +400,14 @@ def test_keys_read_as_the_jax_trainer_reads_them():
     assert not plain.fused and not plain.grouped and plain.centers_per_block == G_PC
 
 
-@pytest.mark.parametrize("key", ["resident", "dedup"])
-def test_remaining_fused_forms_are_unported(key):
+@pytest.mark.parametrize("key,kernel", [
+    ("resident", fused_sgns.fused_sgns_resident_step),
+    ("dedup", fused_sgns.fused_sgns_dedup_step)])
+def test_resident_and_dedup_dispatch_to_their_kernels(key, kernel):
     words, counts, ids = _corpus(200)
-    with pytest.raises(NotImplementedError, match=key):
-        word2vec.Word2VecTrainer(Config(_conf(grouped=1, **{key: 1})), corpus_ids=ids,
-                                 vocab=Vocab(words, counts), device="cpu")
+    tr = word2vec.Word2VecTrainer(Config(_conf(grouped=1, **{key: 1})), corpus_ids=ids,
+                                  vocab=Vocab(words, counts), device="cpu")
+    assert tr.grouped_step[0] is kernel
 
 
 @pytest.mark.parametrize("grouped", [0, 1])

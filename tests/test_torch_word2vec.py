@@ -295,13 +295,15 @@ def test_packed_pool_loss_decreases():
     assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
 
 
-# (key, value, other keys of the case). ``fused`` and ``grouped`` are ported;
-# their cases ask for the fused forms still to port on top of them.
+# (key, value, other keys of the case). ``fused``, ``grouped``, ``resident``
+# and ``dedup`` are ported; their cases ask for a path still to port on top.
 _UNPORTED_CASES = [
     ("packed", 0, {}), ("neg_mode", "per_pair", {}),
-    ("fused", 1, {"grouped": 1, "resident": 1}),
-    ("grouped", 1, {"fused": 1, "dedup": 1}),
-    ("resident", 1, {}), ("dedup", 1, {}), ("table_tier", "host", {}),
+    ("fused", 1, {"grouped": 1, "resident": 1, "stream": 1}),
+    ("grouped", 1, {"fused": 1, "dedup": 1, "stream": 1}),
+    ("resident", 1, {"fused": 1, "grouped": 1, "table_tier": "host"}),
+    ("dedup", 1, {"fused": 1, "grouped": 1, "placement": "hybrid"}),
+    ("table_tier", "host", {}),
     ("comm_dtype", "bfloat16", {}), ("placement", "hybrid", {}), ("overlap", 1, {}),
     ("push_mode", "bucketed", {}), ("stream", 1, {}),
     ("optimizer_sharding", "zero", {}),

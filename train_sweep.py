@@ -1,11 +1,11 @@
-"""Learning-rate sweep of the port's three word2vec paths on one NVIDIA GPU.
+"""Learning-rate sweep of the port's word2vec paths on one NVIDIA GPU.
 
-    python3 train_sweep.py [--seed N] [--steps 30]
+    python3 train_sweep.py [--seed N] [--steps 30] [--paths resident,dedup,...]
 
 Trains each path through ``Word2VecTrainer`` -> ``TrainLoop.run`` at the
 shapes of ``chip_smoke.py`` (vocab 1,048,576, dim 200, window 5, 5
 negatives, pool 64; packed+pool and fused-hogwild at 16,384 pairs a
-substep, fused-grouped at 8,192 centers) on each of its two corpora (zipf
+substep, fused-grouped and the merged paths at 8,192 centers) on each of its two corpora (zipf
 ids, and zipf-distributed word pairs (2p, 2p + 1)), over a grid of learning
 rates and substeps a step, and prints one JSON line a run: the mean loss of
 the first and of the last 5 steps, and for fused-grouped the same for the
@@ -14,7 +14,8 @@ N * (window + 1), so each batch's real pair count moves it by ~1%). The
 ``sequential`` rows run fused-hogwild with its kernel replaced by the plain
 version, whose blocks run in order as the TPU kernel's do. Run from the
 root of the repository on a machine with a card; it is what chose
-``chip_smoke.py``'s ``FUSED_LR`` and corpus for the fused paths.
+``chip_smoke.py``'s ``FUSED_LR``, ``MERGED_LR`` and corpus for the fused
+paths.
 """
 
 from __future__ import annotations
@@ -33,13 +34,20 @@ GRID = {
     "fused": [(lr, spc) for lr in (100.0, 410.0, 1600.0, 3200.0) for spc in (1, 8)],
     "grouped": [(lr, spc) for lr in (100.0, 410.0, 1600.0, 4800.0) for spc in (1, 8)],
     "sequential": [(100.0, 1), (410.0, 1)],
+    **{path: [(lr, 8) for lr in (100.0, 410.0, 1600.0)]
+       for path in ("resident", "dedup", "dedup_res")},
 }
+_GROUPED = {"fused": 1, "grouped": 1, "batch_size": cs.GROUPED_BATCH,
+            "centers_per_block": cs.CENTERS_PER_BLOCK}
 CONFIG = {
     "packed": {"batch_size": cs.BATCH},
     "fused": {"fused": 1, "batch_size": cs.BATCH},
     "sequential": {"fused": 1, "batch_size": cs.BATCH},
-    "grouped": {"fused": 1, "grouped": 1, "batch_size": cs.GROUPED_BATCH,
-                "centers_per_block": cs.CENTERS_PER_BLOCK},
+    "grouped": _GROUPED,
+    "resident": {**_GROUPED, "resident": 1, "hot_rows": cs.HOT_ROWS},
+    "dedup": {**_GROUPED, "dedup": 1, "u_cap": cs.U_CAP},
+    "dedup_res": {**_GROUPED, "dedup": 1, "u_cap": cs.U_CAP, "resident": 1,
+                  "hot_rows": cs.COMPOSED_HOT_ROWS},
 }
 
 
@@ -86,13 +94,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=cs.STEPS)
+    ap.add_argument("--paths", default=",".join(GRID),
+                    help="comma-separated paths to sweep (default: all)")
     args = ap.parse_args()
+    paths = args.paths.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("train_sweep: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     for paired in (False, True):
         corpus = cs._corpus(args.seed, paired=paired)
-        for path, grid in GRID.items():
+        for path in paths:
+            grid = GRID[path]
             if path == "sequential" and paired:
                 continue
             for lr, spc in grid:
