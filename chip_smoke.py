@@ -3,7 +3,9 @@ against its plain PyTorch version, and trains word2vec at full width on one
 NVIDIA GPU through the port's normal entry points, on each of its six
 paths: packed+pool, fused-hogwild (``fused: 1``), fused-grouped
 (``fused: 1, grouped: 1``), and on top of fused-grouped fused-resident
-(``resident: 1``), fused-dedup (``dedup: 1``) and fused-dedup-res (both).
+(``resident: 1``), fused-dedup (``dedup: 1``) and fused-dedup-res (both);
+then the CTR families on the small-row plane with AdaGrad, and Wide & Deep
+at ``examples/widedeep.conf``'s full width.
 
     python3 chip_smoke.py [--seed N]
 
@@ -62,8 +64,35 @@ Phases:
 6. ``profile``: after each train phase, device time by kernel over 5 more
    train steps (``torch.profiler``) and the card's busy share of their wall
    time.
-7. ``kernels``: one line for every ported kernel, with its launches in its
-   path's train run and its numbers from phase 3.
+7. ``kernel`` (CTR): the pull's ``gather_rows`` of a batch's 212,992 tile
+   ids from the slot-fused ``[262,144, 2, 128]`` table, then
+   ``scatter_adagrad_fused_rows`` on that table, ``scatter_adagrad_rows``
+   and ``scatter_write_rows`` on ``[262,144, 1, 128]`` and its accumulator,
+   at the Wide & Deep push shape (the same ids merged by tile, the tail
+   padding kept; ~136,700 unique tiles), f32 and bf16: bit-equal to the
+   plain version and bit-identical across two runs, timed beside the plain
+   version and, for the gather and the write, ``index_select`` and
+   ``index_copy_``, against the bound (unique tiles' bytes read and
+   written, the gradients and ids read, over the memory rate).
+8. ``ctr_parity``: 4 steps of ``logreg`` (SGD, and AdaGrad), ``fm``, ``ffm``
+   (8 fields, table dim 33) and ``widedeep`` at capacity 16,384 on the card
+   against the port on the CPU from one state: losses within rtol 1e-5,
+   each array's change within 1e-4 of the CPU's largest change, and a step
+   launching one ``gather_rows`` and one ``scatter_adagrad_fused_rows``
+   (AdaGrad) or ``scatter_add_rows`` (SGD), nothing else. Then one push of
+   each store route no family takes, within rtol 1e-5 / atol 1e-6 of the
+   CPU: ``push_packed`` with AdaGrad (2 ``gather_rows``, 2
+   ``scatter_write_rows``), ``push_packed_small`` with a split accumulator
+   (1 ``scatter_adagrad_rows``) and with bf16 slots (2 and 2).
+9. ``train_widedeep``: ``examples/widedeep.conf`` through ``get_model`` ->
+   ``TrainLoop.run`` for 30 steps of 8,192 ``synth_ctr`` records (26
+   fields, 40,000 ids a field, from ``--seed``): one ``gather_rows`` and
+   one ``scatter_adagrad_fused_rows`` a step and nothing else, a finite
+   loss whose last 5 steps average below its first 5, examples/sec over
+   steps 6–30, and ``eval_auc`` on 20,000 held-out records; then its
+   ``profile`` line.
+10. ``kernels``: one line for every ported kernel, with its launches in the
+    run of its path (``path``) and its f32 numbers from phases 3 and 7.
 """
 
 from __future__ import annotations
@@ -75,6 +104,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -132,6 +162,27 @@ CW = 2 * WINDOW
 GATHER_ROWS = (BATCH, BATCH + (BATCH // POOL_BLOCK) * POOL_SIZE)  # in, out pulls
 TIMED_RUNS = 25
 ROW_SETS = 8  # rotated between timed runs so most rows come from HBM, not L2
+
+# Wide & Deep at examples/widedeep.conf's full width (26 fields, capacity
+# 2^20, embed_dim 16 so table dim 17, hidden 256,128, AdaGrad at lr 0.05,
+# batch 8,192): the small-row table is [262,144, 2, 128] f32, its accumulator
+# fused in, and a step pulls and pushes 212,992 ids. The data: synth_ctr
+# with 40,000 ids a field, 30 batches to train on and 20,000 records held
+# out for eval_auc.
+WIDEDEEP_CONF = "examples/widedeep.conf"  # from the root of the repository
+CTR_IDS_PER_FIELD = 40_000
+CTR_STEPS = 30
+CTR_EVAL = 20_000
+CTR_ROW_SETS = 4  # push id sets rotated between timed runs (~150k tiles each)
+# ctr_parity: each family at small capacity, card against CPU. ffm at 8
+# fields and factor_dim 4 has table dim 33.
+CTR_PARITY = {
+    "logreg_sgd": ("logreg", {"optimizer": "sgd"}),
+    "logreg_adagrad": ("logreg", {}),
+    "fm": ("fm", {"factor_dim": 8}),
+    "ffm": ("ffm", {"factor_dim": 4}),
+    "widedeep": ("widedeep", {"embed_dim": 16, "hidden_dims": "64,32"}),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -715,6 +766,8 @@ def _counters() -> dict:
     from swiftsnails_tpu_torch.ops import fused_sgns, rowdma
 
     return {f.__name__: f for f in (rowdma.gather_rows, rowdma.scatter_add_rows,
+                                     rowdma.scatter_write_rows, rowdma.scatter_adagrad_rows,
+                                     rowdma.scatter_adagrad_fused_rows,
                                      fused_sgns.fused_sgns_step,
                                      fused_sgns.fused_sgns_grouped_step,
                                      *(getattr(fused_sgns, name) for name in MERGED))}
@@ -766,16 +819,10 @@ def phase_train(phase: str, seed: int, corpora, device_name: str, smi: str):
 
     loop = TrainLoop(trainer, metrics=Recorder(), log_every=1)
     setup_s = time.monotonic() - t0
-    counters = _counters()
     torch.cuda.reset_peak_memory_stats()
-    for f in counters.values():
-        f.launches = 0
-    state = loop.run(seed=seed, max_steps=STEPS)
-    launches = {name: f.launches for name, f in counters.items()}
+    state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=STEPS))
     substeps = len(records) * trainer.steps_per_call
-    for name, n in launches.items():
-        if n != per_substep.get(name, 0) * substeps:
-            raise AssertionError(f"{phase}: {name}: {n} launches for {substeps} substeps")
+    _check_launches(phase, launches, {k: n * substeps for k, n in per_substep.items()})
     losses = [r["loss"] for r in records]
     if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses: {losses}")
@@ -830,12 +877,345 @@ def phase_profile(path: str, trainer, state, seed: int, steps: int = 5) -> None:
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                      key=lambda k: -k[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
-    emit("profile", path=path, steps=steps, substeps_per_step=trainer.steps_per_call,
+    emit("profile", path=path, steps=steps,
+         substeps_per_step=getattr(trainer, "steps_per_call", 1),
          wall_ms_per_step=wall_ms / steps,
          device_ms_per_step=busy_ms, device_busy_share=busy_ms * steps / wall_ms,
          kernels_per_step=sum(n for _, _, n in kernels),
          top=[{"kernel": k[:90], "ms_per_step": ms, "launches_per_step": n}
               for k, ms, n in kernels[:14]])
+
+
+# ------------------------------------------------------------------ CTR ---
+
+
+def _widedeep_config(seed: int):
+    from swiftsnails_tpu_torch.utils.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent / WIDEDEEP_CONF)
+    cfg.set("seed", str(seed))
+    return cfg
+
+
+def _ctr_data(seed: int):
+    """synth_ctr records at Wide & Deep's width: ``CTR_STEPS`` batches to
+    train on, then ``CTR_EVAL`` held out (the same planted weights)."""
+    from swiftsnails_tpu_torch.data.ctr import synth_ctr
+
+    cfg = _widedeep_config(seed)
+    n = CTR_STEPS * cfg.get_int("batch_size")
+    labels, feats, _ = synth_ctr(n + CTR_EVAL, cfg.get_int("num_fields"),
+                                 CTR_IDS_PER_FIELD, seed=seed)
+    return (labels[:n], feats[:n]), (labels[n:], feats[n:])
+
+
+def _push_case(kernel, plain, buffers, sets, library, nbytes, n_valid, rate):
+    """``kernel`` and ``plain`` (each ``(buffers, uniq, values) -> updated
+    buffers``) on the first id set: bit-equal, and two kernel runs
+    bit-identical; then both timed on the sets in rotation, beside
+    ``library`` where one torch call computes the same function."""
+    uniq, vals = sets[0][:2]
+    want = plain([b.clone() for b in buffers], uniq, vals)
+    got = [kernel([b.clone() for b in buffers], uniq, vals) for _ in range(2)]
+    torch.cuda.synchronize()
+    err = _max_err(got[0], want)
+    for g, w in zip(got[0], want):
+        if not torch.equal(g, w):
+            ulps = float(((g.float() - w.float()).abs()
+                          / (w.float().abs() * torch.finfo(w.dtype).eps)).nan_to_num().max())
+            raise AssertionError(f"differs from its plain version: {err} ({ulps} ulps)")
+    if not all(torch.equal(a, b) for a, b in zip(*got)):
+        raise AssertionError("two runs on the card differ")
+    del want, got
+    pick = lambda i: sets[i % len(sets)]  # noqa: E731
+    return {
+        "ms": time_ms(lambda i: kernel(buffers, *pick(i)[:2])),
+        "plain_ms": time_ms(lambda i: plain(buffers, *pick(i)[:2])),
+        "library_ms": time_ms(lambda i: library(buffers, pick(i))) if library else None,
+        "bytes": nbytes, "unique_rows": n_valid, "ids": int(uniq.numel()),
+        "bound_ms": nbytes / rate * 1e3, "max_abs_err": err,
+    }
+
+
+def phase_ctr_kernels(seed: int, rate: float) -> dict:
+    """The Wide & Deep step's row kernels at its shapes, from the trainer's
+    first batches (212,992 ids each, hashed): the pull's ``gather_rows`` of
+    every id's tile from the ``[262,144, 2, 128]`` slot-fused table, and the
+    three push kernels on the same ids merged by tile (the tail padding
+    kept) with merged random gradients, on the slot-fused table
+    (``scatter_adagrad_fused_rows``) and on ``[262,144, 1, 128]`` and its
+    accumulator (``scatter_adagrad_rows``, ``scatter_write_rows``), in f32
+    and bf16. Returns the f32 numbers per kernel for the summary line, the
+    pull's under ``gather_rows_widedeep``."""
+    from swiftsnails_tpu_torch.data.ctr import ctr_batches
+    from swiftsnails_tpu_torch.ops import rowdma
+    from swiftsnails_tpu_torch.ops.hashing import hash_row
+    from swiftsnails_tpu_torch.parallel.store import merge_small_rows, small_group
+
+    dev = torch.device("cuda")
+    cfg = _widedeep_config(seed)
+    dim, cap = 1 + cfg.get_int("embed_dim"), cfg.get_int("capacity")
+    lr = cfg.get_float("learning_rate")
+    g = small_group(dim)
+    tiles = cap // g
+    (labels, feats), _ = _ctr_data(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    batches = ctr_batches(labels, feats, cfg.get_int("batch_size"),
+                          np.random.default_rng(seed))  # the trainer's first batches
+    merged_sets, tile_sets = [], []
+    for _, b in zip(range(CTR_ROW_SETS), batches):
+        rows = hash_row(torch.from_numpy(b["feats"]).to(dev).clamp_min(0), cap).reshape(-1)
+        tile_sets.append(rows // g)  # the pull's ids, as pull_packed_small makes them
+        grads = torch.randn(rows.shape[0], dim, generator=gen, device=dev).mul_(0.01)
+        uniq, merged = merge_small_rows(rows, grads, dim, tiles)
+        n_valid = int((uniq < tiles).sum())
+        merged_sets.append((uniq, merged, uniq[:n_valid].long(), n_valid))
+    live = (torch.arange(128, device=dev) % (128 // g)) < dim
+    param = torch.randn(tiles, 1, 128, generator=gen, device=dev).mul_(0.01).mul_(live)
+    accum = torch.rand(tiles, 1, 128, generator=gen, device=dev).mul_(0.1).mul_(live)
+    n_valid, n_ids = merged_sets[0][3], merged_sets[0][0].numel()
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        half = 128 * torch.finfo(dtype).bits // 8  # bytes of one sublane
+        sets = [(u, m.to(dtype), idx, nv) for u, m, idx, nv in merged_sets]
+        # param and accum read and written, the gradient read: 5 sublanes a
+        # unique tile; the write: a value read and a row written
+        adagrad_bytes = n_valid * 5 * half + n_ids * 4
+        write_bytes = n_valid * 2 * half + n_ids * 4
+        fused = torch.cat([param, accum], dim=1).to(dtype)
+        pull = _gather_case(fused, tile_sets, rate)
+        if not torch.equal(*(rowdma.gather_rows(fused, tile_sets[0]) for _ in range(2))):
+            raise AssertionError("gather_rows: two runs on the card differ")
+        emit("kernel", name="gather_rows", dtype=str(dtype), path="train_widedeep",
+             rows=int(tile_sets[0].numel()), **pull)
+        if dtype == torch.float32:
+            summary["gather_rows_widedeep"] = {"shape": [int(tile_sets[0].numel()),
+                                                         *fused.shape[1:]], **pull}
+        cases = {
+            "scatter_adagrad_fused_rows": (
+                lambda b, u, v: (rowdma.scatter_adagrad_fused_rows(b[0], u, v, lr),),
+                lambda b, u, v: (rowdma.scatter_adagrad_fused_rows_plain(b[0], u, v, lr),),
+                [fused], None, adagrad_bytes),
+            "scatter_adagrad_rows": (
+                lambda b, u, v: rowdma.scatter_adagrad_rows(b[0], b[1], u, v, lr),
+                lambda b, u, v: rowdma.scatter_adagrad_rows_plain(b[0], b[1], u, v, lr),
+                [param.to(dtype), accum.to(dtype)], None, adagrad_bytes),
+            "scatter_write_rows": (
+                lambda b, u, v: (rowdma.scatter_write_rows(b[0], u, v),),
+                lambda b, u, v: (rowdma.scatter_write_rows_plain(b[0], u, v),),
+                [param.to(dtype)],
+                lambda b, st: b[0].index_copy_(0, st[2], st[1][: st[3]]), write_bytes),
+        }
+        for name, (kernel, plain, buffers, library, nbytes) in cases.items():
+            case = _push_case(kernel, plain, buffers, sets, library, nbytes, n_valid, rate)
+            emit("kernel", name=name, dtype=str(dtype), **case)
+            if dtype == torch.float32:
+                summary[name] = {"shape": list(buffers[0].shape), **case}
+            del buffers
+        del fused, sets
+        torch.cuda.empty_cache()
+    return summary
+
+
+def _ctr_trainer(case: str, device: str, seed: int):
+    from swiftsnails_tpu_torch.data.ctr import PAD, synth_ctr
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    name, over = CTR_PARITY[case]
+    labels, feats, _ = synth_ctr(4 * 1024, 8, 1000, seed=seed)
+    feats[::5, 3] = PAD  # padding fields, masked out of forward and push
+    conf = {"num_fields": "8", "capacity": str(1 << 14), "learning_rate": "0.2",
+            "optimizer": "adagrad", "batch_size": "1024", "seed": str(seed),
+            **{k: str(v) for k, v in over.items()}}
+    return get_model(name)(Config(conf), data=(labels, feats), device=device)
+
+
+def _assert_moves_close(start: dict, got: dict, want: dict) -> float:
+    """Each array's change on the card within 1e-4 of the largest change of
+    the CPU's (the CPU tests' tolerance); returns the largest gap."""
+    worst = 0.0
+    for k, w in want.items():
+        moved = w - start[k]
+        scale = float(np.abs(moved).max())
+        if not scale > 1e-4:
+            raise AssertionError(f"{k} barely moved: {scale}")
+        np.testing.assert_allclose(got[k] - start[k], moved, rtol=0, atol=1e-4 * scale,
+                                   err_msg=k)
+        worst = max(worst, float(np.abs(got[k] - w).max()))
+    return worst
+
+
+def _run_counted(fn) -> tuple:
+    """``fn()`` with every launch counter set to 0 just before and read just
+    after; returns its result and the counts."""
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: f.launches for name, f in counters.items()}
+
+
+def _check_launches(what: str, launches: dict, want: dict) -> None:
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{what}: {name}: {n} launches, want {want.get(name, 0)}")
+
+
+def phase_ctr_parity(seed: int) -> None:
+    """4 steps of each CTR family on the card against the port on the CPU
+    from one state."""
+    from swiftsnails_tpu_torch import convert
+
+    for case in CTR_PARITY:
+        cpu = _ctr_trainer(case, "cpu", seed)
+        gpu = _ctr_trainer(case, "cuda", seed)
+        init = cpu.init_state()
+        table = init.table.table.numpy().copy()
+        dense = {k: v.numpy().copy() for k, v in init.dense.items()}
+        sums = ({k: v.numpy().copy() for k, v in init.opt["sum_of_squares"].items()}
+                if init.opt else None)
+        batches = [b for _, b in zip(range(4), cpu.batches())]
+
+        def run(tr, device):
+            state = convert.ctr_state_from_numpy(table, dense, sums, device=device)
+            losses = []
+            for b in batches:
+                state, m = tr.train_step(state, {k: torch.from_numpy(v).to(device)
+                                                 for k, v in b.items()})
+                losses.append(float(m["loss"]))
+            return state, losses
+
+        s_cpu, l_cpu = run(cpu, "cpu")
+        (s_gpu, l_gpu), launches = _run_counted(lambda: run(gpu, "cuda"))
+        push = ("scatter_adagrad_fused_rows" if sums is not None else "scatter_add_rows")
+        _check_launches(case, launches, {"gather_rows": 4, push: 4})
+        np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+        start = {"table": table, **{f"dense.{k}": v for k, v in dense.items()}}
+
+        def arrays(state):
+            return {"table": state.table.table.cpu().numpy(),
+                    **{f"dense.{k}": v.cpu().numpy() for k, v in state.dense.items()}}
+
+        worst = _assert_moves_close(start, arrays(s_gpu), arrays(s_cpu))
+        emit("ctr_parity", case=case, table=list(table.shape), table_dim=cpu.table_dim,
+             steps=len(batches), launches={k: n for k, n in launches.items() if n},
+             losses_cuda=l_gpu, losses_cpu=l_cpu, max_abs_diff_vs_cpu=worst)
+
+
+def phase_store_routes(seed: int) -> dict:
+    """One push of each store route that no CTR family takes, on the card
+    against the CPU: ``push_packed`` with AdaGrad on word2vec-width rows
+    (gather, apply, ``scatter_write_rows``), and ``push_packed_small`` with a
+    split accumulator of the table's dtype (``scatter_adagrad_rows``) and
+    with bf16 slots on an f32 table (gather, apply, ``scatter_write_rows``).
+    Returns the launches of each route's push kernel (its ``ctr_parity``
+    line)."""
+    from swiftsnails_tpu_torch.ops.rowdma import pack_rows
+    from swiftsnails_tpu_torch.parallel import store
+    from swiftsnails_tpu_torch.parallel.access import AdaGradAccess, SgdAccess
+
+    rng = np.random.default_rng(seed + 3)
+    rows = rng.integers(0, 4096, 3000).astype(np.int32)
+    rows[:600] = rows[0]  # a hot row
+    split = store.create_packed_small_table(4096, 17, SgdAccess(), seed=seed,
+                                            device="cpu")
+    split = split._replace(slots={"accum": torch.zeros_like(split.table)})
+    bf16 = AdaGradAccess(slot_dtype=torch.bfloat16)
+    routes = {
+        "push_packed_adagrad": (
+            store.create_packed_table(4096, DIM, AdaGradAccess(), seed=seed, device="cpu"),
+            lambda st, r, g: store.push_packed(st, r, pack_rows(g), AdaGradAccess(), 0.05),
+            DIM, {"gather_rows": 2, "scatter_write_rows": 2}),
+        "push_packed_small_split": (
+            split, lambda st, r, g: store.push_packed_small(st, r, g, AdaGradAccess(), 0.05, 17),
+            17, {"scatter_adagrad_rows": 1}),
+        "push_packed_small_bf16_slots": (
+            store.create_packed_small_table(4096, 17, bf16, seed=seed, device="cpu"),
+            lambda st, r, g: store.push_packed_small(st, r, g, bf16, 0.05, 17),
+            17, {"gather_rows": 2, "scatter_write_rows": 2}),
+    }
+    launches = {}
+    for route, (state, push, dim, want) in routes.items():
+        grads = torch.from_numpy(rng.normal(size=(rows.shape[0], dim)).astype(np.float32))
+
+        def on(device, st=state):
+            return store.PackedTableState(
+                st.table.clone().to(device), {k: v.clone().to(device) for k, v in st.slots.items()})
+
+        want_state = push(on("cpu"), torch.from_numpy(rows), grads)
+        got, counts = _run_counted(lambda: push(on("cuda"), torch.from_numpy(rows).cuda(),
+                                                 grads.cuda()))
+        _check_launches(route, counts, want)
+        worst = 0.0
+        for w, g in zip((want_state.table, *want_state.slots.values()),
+                        (got.table, *got.slots.values())):
+            g = g.cpu()
+            np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+            worst = max(worst, float((g.float() - w.float()).abs().max()))
+        emit("ctr_parity", route=route, ids=int(rows.shape[0]),
+             launches={k: n for k, n in counts.items() if n}, max_abs_diff_vs_cpu=worst)
+        for name, n in counts.items():
+            if n and name != "gather_rows":
+                launches.setdefault(name, n)
+    return launches
+
+
+def phase_train_widedeep(seed: int, env: dict):
+    """``examples/widedeep.conf`` at full width through ``get_model`` ->
+    ``TrainLoop.run`` for ``CTR_STEPS`` steps on synth_ctr data, then
+    ``eval_auc`` on the held-out records."""
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+    t0 = time.monotonic()
+    cfg = _widedeep_config(seed)
+    (labels, feats), (eval_labels, eval_feats) = _ctr_data(seed)
+    trainer = get_model(cfg.get_str("model"))(cfg, data=(labels, feats))
+    records = []
+
+    class Recorder(MetricsLogger):
+        def log(self, record):
+            records.append(record)
+
+    loop = TrainLoop(trainer, metrics=Recorder(), log_every=1)
+    setup_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=CTR_STEPS))
+    _check_launches("train_widedeep", launches,
+                    {"gather_rows": CTR_STEPS, "scatter_adagrad_fused_rows": CTR_STEPS})
+    losses = [r["loss"] for r in records]
+    if len(losses) != CTR_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses: {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"loss did not fall: {losses}")
+    if not torch.isfinite(state.table.table).all():
+        raise AssertionError("non-finite table")
+    steady = records[5:]
+    seconds = sum(r["seconds"] for r in steady)
+    step_ms = [r["seconds"] * 1e3 for r in steady]
+    t_eval = time.perf_counter()
+    auc = trainer.eval_auc(state, labels=eval_labels, feats=eval_feats)
+    eval_s = time.perf_counter() - t_eval
+    out = {"config": WIDEDEEP_CONF, "steps": len(records), "batch": trainer.batch_size,
+           "num_fields": trainer.num_fields, "capacity": trainer.capacity,
+           "table": list(state.table.table.shape), "table_dim": trainer.table_dim,
+           "hidden_dims": trainer.hidden_dims, "lr": trainer.lr,
+           "ids_per_field": CTR_IDS_PER_FIELD, "launches": launches, "setup_s": setup_s,
+           "first_step_ms": records[0]["seconds"] * 1e3,
+           "step_ms_median": statistics.median(step_ms),
+           "examples_per_sec": sum(r["items"] for r in steady) / seconds,
+           "loss_first5": losses[:5], "loss_last5": losses[-5:],
+           "loss_first5_mean": float(np.mean(losses[:5])),
+           "loss_last5_mean": float(np.mean(losses[-5:])),
+           "eval_auc": auc, "eval_records": len(eval_labels), "eval_s": eval_s,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+    emit("train_widedeep", **out)
+    return out, trainer, state
 
 
 def main() -> int:
@@ -866,19 +1246,47 @@ def main() -> int:
         phase_profile(path, trainer, state, args.seed)
         del trainer, state
         torch.cuda.empty_cache()
+    summary.update(phase_ctr_kernels(args.seed, env["mem_rate_Bps"]))
+    paths = {name: "train" for name in ("gather_rows", "scatter_add_rows")}
+    phase_ctr_parity(args.seed)
+    for name, n in phase_store_routes(args.seed).items():
+        launches[name], paths[name] = n, "ctr_parity store route"
+    train, trainer, state = phase_train_widedeep(args.seed, env)
+    launches["scatter_adagrad_fused_rows"] = train["launches"]["scatter_adagrad_fused_rows"]
+    paths["scatter_adagrad_fused_rows"] = "train_widedeep"
+    phase_profile("widedeep", trainer, state, args.seed)
+    del trainer, state
+    torch.cuda.empty_cache()
+    launches["gather_rows_widedeep"] = train["launches"]["gather_rows"]
+    paths["gather_rows_widedeep"] = "train_widedeep"
     kernels = []
+    for key, name, replaces in (
+            ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+            ("gather_rows_widedeep", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+            ("scatter_add_rows", "scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213")):
+        s = summary[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": "bytes", "library_ms": s["library_ms"],
+            "shape": s["shape"], "dtype": "float32", "path": paths[key]})
     for name, replaces in (
-            ("gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
-            ("scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213")):
+            ("scatter_write_rows", "swiftsnails_tpu/ops/rowdma.py:289"),
+            ("scatter_adagrad_rows", "swiftsnails_tpu/ops/rowdma.py:418"),
+            ("scatter_adagrad_fused_rows", "swiftsnails_tpu/ops/rowdma.py:552")):
         s = summary[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s["library_ms"],
-            "shape": s["shape"], "dtype": "float32"})
+            "shape": s["shape"], "ids": s["ids"], "unique_rows": s["unique_rows"],
+            "dtype": "float32", "path": paths[name]})
     grouped_shape = {"centers": GROUPED_BATCH, "centers_per_block": CENTERS_PER_BLOCK,
                      "window_slots": CW, "pool": POOL_SIZE}
     for name, replaces, source, shape in (

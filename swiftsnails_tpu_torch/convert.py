@@ -1,17 +1,20 @@
-"""Carry word2vec tables from the JAX package into the port.
+"""Carry word2vec and CTR states from the JAX package into the port.
 
-Both packages keep the packed ``[C, S, 128]`` layout, so weights carry over
-by a plain copy. The JAX package's tables arrive as numpy arrays
+Both packages keep the packed ``[C, S, 128]`` layout (and the small-row
+``[T, S, 128]`` one), so tables carry over by a plain copy; the dense
+tensors of the CTR models keep the JAX layout (``w{i}`` is ``[d_in,
+d_out]``). The JAX package's arrays arrive as numpy arrays
 (``np.asarray(state.in_table.table)``); nothing here imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
+from swiftsnails_tpu_torch.models.sparse_base import CTRState
 from swiftsnails_tpu_torch.models.word2vec import W2VState
 from swiftsnails_tpu_torch.ops.rowdma import ROW_LANES
 from swiftsnails_tpu_torch.parallel.store import PackedTableState
@@ -51,3 +54,25 @@ def w2v_state_from_numpy(in_table: np.ndarray, out_table: np.ndarray, *,
         in_table=packed_table_from_numpy(in_table, device=device, dtype=dtype),
         out_table=packed_table_from_numpy(out_table, device=device, dtype=dtype),
     )
+
+
+def ctr_state_from_numpy(table: np.ndarray, dense: Mapping[str, np.ndarray],
+                         opt_sum_of_squares: Optional[Mapping[str, np.ndarray]] = None,
+                         *, device: DeviceLike,
+                         dtype: Optional[torch.dtype] = None) -> CTRState:
+    """The port's CTR state holding copies of a JAX ``CTRState``'s arrays.
+
+    ``table`` is ``np.asarray(state.table.table)`` (``[T, 2, 128]`` with
+    AdaGrad's accumulator fused in, else ``[T, 1, 128]``; ``dtype`` casts
+    it), ``dense`` the dense dict, and for AdaGrad ``opt_sum_of_squares``
+    the optax state's ``sum_of_squares`` dict; ``None`` gives SGD's empty
+    state.
+    """
+    dev = resolve_device(device)
+
+    def carry(arrays):
+        return {k: _tensor_from_numpy(np.asarray(v)).to(dev) for k, v in arrays.items()}
+
+    opt = {} if opt_sum_of_squares is None else {"sum_of_squares": carry(opt_sum_of_squares)}
+    return CTRState(table=packed_table_from_numpy(table, device=dev, dtype=dtype),
+                    dense=carry(dense), opt=opt)

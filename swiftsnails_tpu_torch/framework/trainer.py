@@ -151,6 +151,30 @@ class _Prefetcher:
         self._thread.join(timeout=2.0)
 
 
+def raise_unported(cfg: Config, keys: Dict[str, Any]) -> None:
+    """Raise ``NotImplementedError`` for the first key of ``keys`` (key ->
+    "is it asked for") that ``cfg`` asks for."""
+    for key, asked in keys.items():
+        if key in cfg and asked(cfg, key):
+            _unported(key, cfg.get_str(key))
+
+
+def truthy(cfg: Config, key: str) -> bool:
+    return cfg.get_bool(key, False)
+
+
+# Table-plane keys that the JAX package's trainers read and the port does not
+# have yet, read as the JAX trainers read them: key -> "is it asked for".
+UNPORTED_PLANE_KEYS = {
+    "packed": lambda cfg, key: not cfg.get_bool(key, True),
+    "stream": truthy,
+    "table_tier": lambda cfg, key: cfg.get_str(key, "device") != "device",
+    "comm_dtype": lambda cfg, key: cfg.get_str(key, "float32") not in (
+        "float32", "f32", "fp32"),
+    "placement": lambda cfg, key: cfg.get_str(key, "uniform") != "uniform",
+}
+
+
 def _positive(cfg: Config, key: str) -> bool:
     return cfg.get_int(key, 0) > 0
 
@@ -165,8 +189,8 @@ UNPORTED_LOOP_KEYS = {
     "param_backup_period": _positive,
     "resume": lambda cfg, key: cfg.get_str(key, "0").strip().lower() in (
         "auto", "1", "true", "yes", "on"),
-    "guardrail": lambda cfg, key: cfg.get_bool(key, False),
-    "telemetry": lambda cfg, key: cfg.get_bool(key, False),
+    "guardrail": truthy,
+    "telemetry": truthy,
     "chaos_spec": _non_empty,
     "trace_path": _non_empty,
     "ledger_path": _non_empty,
@@ -198,10 +222,7 @@ class TrainLoop:
     ):
         """``device=None`` feeds the trainer's device (itself the card unless
         the trainer was asked for the CPU); a device of another type raises."""
-        cfg = trainer.config
-        for key, asked in UNPORTED_LOOP_KEYS.items():
-            if key in cfg and asked(cfg, key):
-                _unported(key, cfg.get_str(key))
+        raise_unported(trainer.config, UNPORTED_LOOP_KEYS)
         if device is not None and resolve_device(device).type != trainer.device.type:
             raise ValueError(f"TrainLoop on {device}, trainer on {trainer.device}")
         self.trainer = trainer

@@ -1,3 +1,3 @@
 """Trainers of the port; importing this package registers them."""
 
-from swiftsnails_tpu_torch.models import word2vec  # noqa: F401
+from swiftsnails_tpu_torch.models import fm, logreg, widedeep, word2vec  # noqa: F401

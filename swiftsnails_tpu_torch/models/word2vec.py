@@ -67,7 +67,12 @@ from swiftsnails_tpu_torch.data.sampler import (
 )
 from swiftsnails_tpu_torch.data.text import encode_corpus
 from swiftsnails_tpu_torch.data.vocab import Vocab
-from swiftsnails_tpu_torch.framework.trainer import Trainer, _unported
+from swiftsnails_tpu_torch.framework.trainer import (
+    UNPORTED_PLANE_KEYS,
+    Trainer,
+    _unported,
+    raise_unported,
+)
 from swiftsnails_tpu_torch.models.registry import register_model
 from swiftsnails_tpu_torch.ops.fused_sgns import (
     effective_hot_rows,
@@ -104,20 +109,11 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def _truthy(cfg: Config, key: str) -> bool:
-    return cfg.get_bool(key, False)
-
-
 # Keys of the JAX trainer that select a path the port does not have yet:
 # key -> "is it asked for". Each raises NotImplementedError when asked for.
 UNPORTED = {
-    "packed": lambda cfg, key: not cfg.get_bool(key, True),
+    **UNPORTED_PLANE_KEYS,
     "neg_mode": lambda cfg, key: cfg.get_str(key, "pool") != "pool",
-    "stream": _truthy,
-    "table_tier": lambda cfg, key: cfg.get_str(key, "device") != "device",
-    "comm_dtype": lambda cfg, key: cfg.get_str(key, "float32") not in (
-        "float32", "f32", "fp32"),
-    "placement": lambda cfg, key: cfg.get_str(key, "uniform") != "uniform",
     "push_mode": lambda cfg, key: cfg.get_str(key, "gather") != "gather",
     "overlap": lambda cfg, key: cfg.get_str(key, "0").strip().lower() not in (
         "0", "false", "no", "off", ""),
@@ -161,9 +157,7 @@ class Word2VecTrainer(Trainer):
         cfg = config
         if mesh is not None:
             _unported("mesh", mesh)
-        for key, asked in UNPORTED.items():
-            if key in cfg and asked(cfg, key):
-                _unported(key, cfg.get_str(key))
+        raise_unported(cfg, UNPORTED)
         self.dim = cfg.get_int("dim", 100)
         self.window = cfg.get_int("window", 5)
         self.negatives = cfg.get_int("negatives", 5)

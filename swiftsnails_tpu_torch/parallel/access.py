@@ -2,9 +2,12 @@
 
 Counterpart of the reference's ``PullAccessMethod`` /
 ``PushAccessMethod`` interfaces (``src/core/parameter/sparse_access_method.h:10-48``):
-``init_param`` (eager, whole table) and ``init_slots``. Only plain SGD is on
-the port's path so far, and the store applies it; AdaGrad and the
-``apply_push_value`` rule come with the CTR slice (``ROADMAP.md``).
+``init_param`` (eager, whole table), ``init_slots`` and ``apply_push_value``
+(the update of a batch of merged, unique rows). Two rules: plain SGD and
+AdaGrad. The stores push each through a row kernel where one fits
+(:mod:`swiftsnails_tpu_torch.parallel.store`), else through gather ->
+``apply_push_value`` -> write. ``scatter_update`` (the 2-D plane's sort-free
+push) is not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from swiftsnails_tpu_torch.ops.rowdma import adagrad_step
 
 Slots = Dict[str, torch.Tensor]
 
@@ -43,7 +48,47 @@ class AccessMethod:
         """Zero-initialized optimizer slot tensors, row-aligned with the table."""
         return {}
 
+    def apply_push_value(self, param: torch.Tensor, slots: Slots, grad: torch.Tensor,
+                         lr) -> Tuple[torch.Tensor, Slots]:
+        """Apply merged gradients to a batch of rows; returns new tensors.
+
+        ``grad`` follows the reference's push convention: workers push raw
+        gradients and the server's access method owns the update rule
+        (``server/init.h:115-135``). The stores call it on gathered rows and
+        write the result back with ``scatter_write_rows``.
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} has no apply_push_value, which the "
+            "gather -> apply -> scatter_write_rows push needs")
+
 
 class SgdAccess(AccessMethod):
-    """Plain SGD, ``param -= lr * grad``: :func:`store.push_packed` applies
-    it as one row scatter-add of ``-lr * grad``."""
+    """Plain SGD, ``param -= lr * grad``: the stores apply it as one row
+    scatter-add of ``-lr * grad`` where the table has no slots."""
+
+    def apply_push_value(self, param, slots, grad, lr):
+        return param - lr * grad.to(param.dtype), slots
+
+
+class AdaGradAccess(AccessMethod):
+    """AdaGrad: ``accum += grad**2; param -= lr * grad / sqrt(accum + eps)``.
+
+    The Wide & Deep / CTR update rule. ``accum`` doubles table memory;
+    ``slot_dtype`` stores it in another dtype (bf16 for the largest tables).
+    The rule runs in float32, in the JAX package's order:
+    ``lr * g * rsqrt(accum + eps)``: ``ops.rowdma.adagrad_step``, the rule
+    that the row kernels' plain versions share.
+    """
+
+    def __init__(self, eps: float = 1e-8, slot_dtype: Optional[torch.dtype] = None):
+        self.eps = eps
+        self.slot_dtype = slot_dtype
+
+    def init_slots(self, shape, dtype, device):
+        return {"accum": torch.zeros(shape, dtype=self.slot_dtype or dtype,
+                                     device=device)}
+
+    def apply_push_value(self, param, slots, grad, lr):
+        step, accum = adagrad_step(slots["accum"].float(), grad.float(), lr, self.eps)
+        new_param = param - step.to(param.dtype)
+        return new_param, {"accum": accum.to(slots["accum"].dtype)}

@@ -300,3 +300,121 @@ def test_train_loop_launches_the_merged_kernel(cuda_device, kind, keys):
     want = [6 if f.__name__ == _MERGED[kind][0] else 0 for f in counters]
     assert [f.launches - b for f, b in zip(counters, before)] == want
     assert all(torch.isfinite(t.table).all() for t in state)
+
+
+# ------------------------------------------- scatter-write and AdaGrad ---
+
+
+def _push_case(dev, dtype, s, seed=0, c=4096, n=1501):
+    """A table and accumulator of ``s`` sublanes, unique rows with padding
+    ids (at and past capacity, and -1) mixed in, and f32 gradients."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn(c, s, 128, generator=gen, device=dev).to(dtype)
+    accum = torch.rand(c, s, 128, generator=gen, device=dev).mul_(0.1).to(dtype)
+    uniq = torch.randperm(c, generator=gen, device=dev)[:n].to(torch.int32)
+    pad = torch.tensor([c, c + 5, -1] * 13, dtype=torch.int32, device=dev)
+    rows = torch.cat([uniq, pad])[torch.randperm(n + 39, generator=gen, device=dev)]
+    grads = torch.randn(rows.shape[0], s, 128, generator=gen, device=dev)
+    return table, accum, rows.contiguous(), grads
+
+
+def _ulps(got, want):
+    """Largest distance in units in the last place of ``want``'s dtype."""
+    eps = torch.finfo(want.dtype).eps
+    scale = want.float().abs().clamp_min(torch.finfo(want.dtype).tiny)
+    return float(((got.float() - want.float()).abs() / (scale * eps)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 2])
+def test_scatter_write_and_adagrad_bit_equal_to_plain(cuda_device, dtype, s):
+    table, accum, rows, grads = _push_case(cuda_device, dtype, s)
+    values = grads.to(dtype)
+    want = rowdma.scatter_write_rows_plain(table.clone(), rows, values)
+    n0 = rowdma.scatter_write_rows.launches
+    got = rowdma.scatter_write_rows(table.clone(), rows, values)
+    torch.cuda.synchronize()
+    assert rowdma.scatter_write_rows.launches == n0 + 1
+    assert torch.equal(got, want)
+
+    want_t, want_a = rowdma.scatter_adagrad_rows_plain(
+        table.clone(), accum.clone(), rows, grads, 0.05)
+    n0 = rowdma.scatter_adagrad_rows.launches
+    runs = [rowdma.scatter_adagrad_rows(table.clone(), accum.clone(), rows, grads, 0.05)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert rowdma.scatter_adagrad_rows.launches == n0 + 2
+    for got, want in zip(runs[0], (want_t, want_a)):
+        assert torch.equal(got, want), _ulps(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_adagrad_fused_bit_equal_to_plain(cuda_device, dtype):
+    param, accum, rows, grads = _push_case(cuda_device, dtype, 1, seed=1)
+    table = torch.cat([param, accum], dim=1)  # sublane 0 param, 1 accum
+    want = rowdma.scatter_adagrad_fused_rows_plain(table.clone(), rows, grads, 0.05)
+    n0 = rowdma.scatter_adagrad_fused_rows.launches
+    runs = [rowdma.scatter_adagrad_fused_rows(table.clone(), rows, grads, 0.05)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert rowdma.scatter_adagrad_fused_rows.launches == n0 + 2
+    assert torch.equal(runs[0], want), _ulps(runs[0], want)
+    assert torch.equal(runs[0], runs[1])
+    # the accumulator sublane moved where a row was pushed, and only there
+    valid = rows[(rows >= 0) & (rows < table.shape[0])].long()
+    assert not torch.equal(runs[0][valid, 1], table[valid, 1])
+
+
+def test_pushes_never_touch_padding_ids(cuda_device):
+    """Ids at or past capacity, and negative ones, are skipped: every row
+    that no valid id names is left as it was, and the gradients, values of
+    the padding slots (NaN here) are never read."""
+    table, accum, rows, grads = _push_case(cuda_device, torch.float32, 2, seed=2)
+    is_pad = (rows < 0) | (rows >= table.shape[0])
+    grads[is_pad] = float("nan")
+    untouched = torch.ones(table.shape[0], dtype=torch.bool, device=cuda_device)
+    untouched[rows[~is_pad].long()] = False
+    fused = torch.cat([table[:, :1], accum[:, :1]], dim=1)
+    t, a = rowdma.scatter_adagrad_rows(table.clone(), accum.clone(), rows, grads, 0.05)
+    f = rowdma.scatter_adagrad_fused_rows(fused.clone(), rows, grads[:, :1].contiguous(), 0.05)
+    w = rowdma.scatter_write_rows(table.clone(), rows, grads)
+    torch.cuda.synchronize()
+    for got, start in ((t, table), (a, accum), (f, fused), (w, table)):
+        assert torch.equal(got[untouched], start[untouched])
+        assert torch.isfinite(got).all()
+
+
+def test_push_wrappers_refuse_cpu_ids_and_a_mismatched_accumulator(cuda_device):
+    table, accum, rows, grads = _push_case(cuda_device, torch.float32, 1)
+    with pytest.raises(ValueError, match="rows on cpu"):
+        rowdma.scatter_adagrad_rows(table, accum, rows.cpu(), grads, 0.1)
+    with pytest.raises(ValueError, match="rows on cpu"):
+        rowdma.scatter_write_rows(table, rows.cpu(), grads)
+    fused = torch.cat([table, accum], dim=1)
+    with pytest.raises(ValueError, match="rows on cpu"):
+        rowdma.scatter_adagrad_fused_rows(fused, rows.cpu(), grads, 0.1)
+    with pytest.raises(TypeError, match="accum"):
+        rowdma.scatter_adagrad_rows(table, accum.to(torch.bfloat16), rows, grads, 0.1)
+
+
+def test_widedeep_train_loop_launches_the_fused_adagrad_kernel(cuda_device):
+    from swiftsnails_tpu_torch.data.ctr import synth_ctr
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    labels, feats, _ = synth_ctr(4096, 8, 500, seed=0)
+    cfg = Config({"num_fields": "8", "capacity": str(1 << 14), "embed_dim": "16",
+                  "hidden_dims": "64,32", "optimizer": "adagrad",
+                  "learning_rate": "0.05", "batch_size": "512", "seed": "0"})
+    trainer = get_model("widedeep")(cfg, data=(labels, feats))
+    assert trainer.device.type == "cuda"
+    counters = [rowdma.gather_rows, rowdma.scatter_adagrad_fused_rows,
+                rowdma.scatter_add_rows, rowdma.scatter_adagrad_rows,
+                rowdma.scatter_write_rows]
+    before = [f.launches for f in counters]
+    state = TrainLoop(trainer, log_every=0).run(max_steps=5)
+    assert [f.launches - b for f, b in zip(counters, before)] == [5, 5, 0, 0, 0]
+    assert torch.isfinite(state.table.table).all()
+    assert 0.0 <= trainer.eval_auc(state, limit=2048) <= 1.0
