@@ -5,7 +5,8 @@ paths: packed+pool, fused-hogwild (``fused: 1``), fused-grouped
 (``fused: 1, grouped: 1``), and on top of fused-grouped fused-resident
 (``resident: 1``), fused-dedup (``dedup: 1``) and fused-dedup-res (both);
 then the CTR families on the small-row plane with AdaGrad, and Wide & Deep
-at ``examples/widedeep.conf``'s full width.
+at ``examples/widedeep.conf``'s full width; then the bulk-copy completion
+probes through ``python -m swiftsnails_tpu_torch.tools.sem_probe``'s ``main``.
 
     python3 chip_smoke.py [--seed N]
 
@@ -19,9 +20,9 @@ it exits non-zero and prints no result.
 Phases:
 
 1. ``env``: the card, its power limit, TF32 off for matmul and cuDNN.
-2. ``build``: compile ``csrc/rowdma.cu``, ``csrc/fused_sgns.cu`` and
-   ``csrc/fused_sgns_merged.cu``, one ``nvcc`` each, started together; their
-   ptxas register and spill lines.
+2. ``build``: compile ``csrc/rowdma.cu``, ``csrc/fused_sgns.cu``,
+   ``csrc/fused_sgns_merged.cu`` and ``csrc/sem_probe.cu``, one ``nvcc``
+   each, started together; their ptxas register and spill lines.
 3. ``kernel``: each row kernel at the main path's shapes (f32 and bf16; the
    in-table pull and push of 16,384 rows, the out-table ones of 18,432),
    bit-equal to its plain version, timed beside the plain version, one
@@ -91,8 +92,19 @@ Phases:
    loss whose last 5 steps average below its first 5, examples/sec over
    steps 6–30, and ``eval_auc`` on 20,000 held-out records; then its
    ``profile`` line.
-10. ``kernels``: one line for every ported kernel, with its launches in the
-    run of its path (``path``) and its f32 numbers from phases 3 and 7.
+10. ``sem_probe``: the probe tool's ``main`` at ``--dim 200`` (not
+    ``--quick``), its three kernels' counters set to 0 just before and read
+    just after. Unit: each of the five tags accounts exactly its copy's
+    bytes, exact arming completes, arming 16 bytes above stays pending
+    within the poll bound, and for ``f32[8,2,128]`` eight single-row copies
+    complete one 8-row phase and seven do not. Chunk: the 64 gathered rows
+    bit-equal to ``x[rows]`` (``max_abs_err`` 0) and the flag 65,536. Pipe
+    (64 blocks of 1,856 ids into ``[100,000, 2, 128]`` f32): per-copy and
+    chunked both bit-equal to the plain version and bit-identical across
+    two runs; ms a call, µs a block and ns a copy of each, the speedup, and
+    beside them ``index_select``, ``gather_rows`` and the byte bound.
+11. ``kernels``: one line for every ported kernel, with its launches in the
+    run of its path (``path``) and its f32 numbers from phases 3, 7 and 10.
 """
 
 from __future__ import annotations
@@ -160,7 +172,6 @@ GROUPED_BATCH = 8_192  # centers a substep (bench.py's grouped rung)
 CENTERS_PER_BLOCK = 256
 CW = 2 * WINDOW
 GATHER_ROWS = (BATCH, BATCH + (BATCH // POOL_BLOCK) * POOL_SIZE)  # in, out pulls
-TIMED_RUNS = 25
 ROW_SETS = 8  # rotated between timed runs so most rows come from HBM, not L2
 
 # Wide & Deep at examples/widedeep.conf's full width (26 fields, capacity
@@ -211,26 +222,6 @@ def zipf_ids(n: int, vocab: int, rng: np.random.Generator, s: float = 1.05) -> n
     return np.minimum(np.searchsorted(cdf, rng.random(n)), vocab - 1).astype(np.int32)
 
 
-def time_ms(fn, runs: int = TIMED_RUNS) -> float:
-    """Median device time of ``fn(i)`` over ``runs`` runs after a warm-up,
-    by CUDA events. A sleep kernel ahead of each run keeps the card busy
-    while the host enqueues, so host launch latency is not counted."""
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    times = []
-    for i in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(1_000_000)
-        start.record()
-        fn(i)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 # ---------------------------------------------------------------- phases ---
 
 
@@ -256,7 +247,7 @@ def phase_build() -> None:
     from swiftsnails_tpu_torch.ops import _build
 
     t0 = time.monotonic()
-    results = _build.build_all(["rowdma", "fused_sgns", "fused_sgns_merged"])
+    results = _build.build_all(["rowdma", "fused_sgns", "fused_sgns_merged", "sem_probe"])
     for name, result in results.items():
         ptxas = [ln.strip() for ln in result["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -267,6 +258,7 @@ def phase_build() -> None:
 
 def _gather_case(table, rows_sets, rate):
     from swiftsnails_tpu_torch.ops import rowdma
+    from swiftsnails_tpu_torch.utils.metrics import time_ms
 
     rows = rows_sets[0]
     got = rowdma.gather_rows(table, rows)
@@ -290,6 +282,7 @@ def _gather_case(table, rows_sets, rate):
 
 def _scatter_case(table, rows_sets, deltas_sets, n_valid, rate):
     from swiftsnails_tpu_torch.ops import rowdma
+    from swiftsnails_tpu_torch.utils.metrics import time_ms
 
     rows, deltas = rows_sets[0], deltas_sets[0]
     want = rowdma.scatter_add_rows_plain(table.clone(), rows, deltas)
@@ -446,6 +439,7 @@ def _yardstick(kind: str, id_sets, tables):
     from swiftsnails_tpu_torch.models.word2vec import W2VState, Word2VecTrainer
     from swiftsnails_tpu_torch.parallel.store import PackedTableState
     from swiftsnails_tpu_torch.utils.config import Config
+    from swiftsnails_tpu_torch.utils.metrics import time_ms
 
     sets = []
     for ids in id_sets:
@@ -509,6 +503,8 @@ def _max_err(got, want) -> float:
 
 
 def _fused_case(kind: str, dtype, base, rng, env) -> dict:
+    from swiftsnails_tpu_torch.utils.metrics import time_ms
+
     fn, plain, kw = _fused_call(kind)
     tables = [t.to(dtype, copy=True) for t in base]  # timing updates them
     # block-local ids: the kernel equals its plain version and repeats exactly
@@ -590,6 +586,7 @@ def _merged_case(name: str, dtype, base, rng, env) -> dict:
     rounding is held on block-local ids (each row written by one block), and
     on zipf ids the elements beyond it are counted."""
     from swiftsnails_tpu_torch.ops import fused_sgns
+    from swiftsnails_tpu_torch.utils.metrics import time_ms
 
     fn, plain = getattr(fused_sgns, name), getattr(fused_sgns, name + "_plain")
     kw = {**_fused_call("grouped")[2], **MERGED[name]}
@@ -763,14 +760,16 @@ def _corpus(seed: int, paired: bool = False):
 
 
 def _counters() -> dict:
-    from swiftsnails_tpu_torch.ops import fused_sgns, rowdma
+    from swiftsnails_tpu_torch.ops import fused_sgns, rowdma, sem_probe
 
     return {f.__name__: f for f in (rowdma.gather_rows, rowdma.scatter_add_rows,
                                      rowdma.scatter_write_rows, rowdma.scatter_adagrad_rows,
                                      rowdma.scatter_adagrad_fused_rows,
                                      fused_sgns.fused_sgns_step,
                                      fused_sgns.fused_sgns_grouped_step,
-                                     *(getattr(fused_sgns, name) for name in MERGED))}
+                                     *(getattr(fused_sgns, name) for name in MERGED),
+                                     sem_probe.unit_probe, sem_probe.chunk_probe,
+                                     sem_probe.pipe_probe)}
 
 
 # train phase -> (config keys, launches a substep of each kernel, paired
@@ -914,6 +913,8 @@ def _push_case(kernel, plain, buffers, sets, library, nbytes, n_valid, rate):
     buffers``) on the first id set: bit-equal, and two kernel runs
     bit-identical; then both timed on the sets in rotation, beside
     ``library`` where one torch call computes the same function."""
+    from swiftsnails_tpu_torch.utils.metrics import time_ms
+
     uniq, vals = sets[0][:2]
     want = plain([b.clone() for b in buffers], uniq, vals)
     got = [kernel([b.clone() for b in buffers], uniq, vals) for _ in range(2)]
@@ -1218,6 +1219,68 @@ def phase_train_widedeep(seed: int, env: dict):
     return out, trainer, state
 
 
+SEM_PROBE_DIM = 200  # a row of [2, 128] f32: 1,024 B
+SEM_PROBES = ("unit_probe", "chunk_probe", "pipe_probe")
+
+
+def phase_sem_probe(rate: float) -> dict:
+    """The probe tool's ``main`` at ``--dim 200``, held to what each probe
+    must observe; returns the kernels line's entries of its three kernels."""
+    from swiftsnails_tpu_torch.tools import sem_probe as tool
+
+    res, launches = _run_counted(lambda: tool.main(["--dim", str(SEM_PROBE_DIM)]))
+    unit, chunk, pipe = res["unit"], res.get("chunk"), res.get("pipe")
+    for tag, f in unit["tags"].items():
+        # held: every verdict as the plain version states it (the unit its
+        # bytes, exact arming complete, over-arming pending, additivity)
+        if not f["held"]:
+            raise AssertionError(f"unit probe {tag}: {f}")
+    if not unit["linear"] or chunk is None:
+        raise AssertionError(f"unit probe: not row-additive: {unit}")
+    row_bytes = unit["row_unit"]
+    if not (chunk["bit_equal"] and chunk["max_abs_err"] == 0.0
+            and chunk["flag"] == 64 * row_bytes == 65_536):
+        raise AssertionError(f"chunk probe: {chunk}")
+    if pipe is None or not pipe["ok"]:
+        raise AssertionError(f"pipe probe: {pipe}")
+    for name in SEM_PROBES:
+        if not launches[name]:
+            raise AssertionError(f"sem_probe: {name} was not launched")
+    row = unit["tags"][unit["row_tag"]]
+    bound = lambda nbytes: nbytes / rate * 1e3  # noqa: E731
+    # The unit and chunk probes move a few KB: their bytes bound is far below
+    # one copy's issue-to-complete latency, which limits them (bound_by).
+    out = {
+        "unit_probe": {
+            "launches": launches["unit_probe"], "ms": unit["ms"],
+            "plain_ms": unit["plain_ms"], "bound_ms": bound(unit["bytes"]),
+            "bound_by": "latency", "library_ms": None,
+            "max_abs_err": max(abs(f["unit"] - f["plain_unit"])
+                               for f in unit["tags"].values()),
+            "shape": [8, 2, 128], "copy_ns": row["exact_ns"],
+            "copy_cycles": row["exact_cycles"], "copy_polls": row["exact_polls"]},
+        "chunk_probe": {
+            "launches": launches["chunk_probe"], "ms": chunk["ms"],
+            "plain_ms": chunk["plain_ms"], "bound_ms": bound(chunk["bytes"]),
+            "bound_by": "latency", "library_ms": chunk["library_ms"],
+            "max_abs_err": chunk["max_abs_err"],
+            "shape": chunk["shape"], "ids": chunk["rows"], "flag": chunk["flag"],
+            "issue_to_complete_ns": chunk["ns"],
+            "issue_to_complete_cycles": chunk["cycles"]},
+        "pipe_probe": {
+            "launches": launches["pipe_probe"], "ms": pipe["chunked"]["ms"],
+            "per_copy_ms": pipe["per_copy"]["ms"], "speedup": pipe["speedup"],
+            "plain_ms": pipe["plain_ms"], "bound_ms": bound(pipe["bytes"]),
+            "bound_by": "bytes", "copy_bound_ms": bound(pipe["copy_bytes"]),
+            "library_ms": pipe["index_select_ms"],
+            "gather_rows_ms": pipe["gather_rows_ms"], "max_abs_err": pipe["max_abs_err"],
+            "shape": pipe["shape"], "ids": pipe["blocks"] * pipe["copies"],
+            "stages": pipe["stages"]},
+    }
+    emit("sem_probe", launches={k: launches[k] for k in SEM_PROBES}, **out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1259,6 +1322,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["gather_rows_widedeep"] = train["launches"]["gather_rows"]
     paths["gather_rows_widedeep"] = "train_widedeep"
+    probes = phase_sem_probe(env["mem_rate_Bps"])
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
@@ -1312,6 +1376,13 @@ def main() -> int:
             "kernel_only_ms": s["kernel_only_ms"], "yardstick_ms": s["yardstick_ms"],
             "shape": {**shape, "table": [VOCAB, -(-DIM // 128), 128]},
             "dtype": "float32"})
+    for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),
+                           ("chunk_probe", "tools/sem_probe.py:164"),
+                           ("pipe_probe", "tools/sem_probe.py:233")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "swiftsnails_tpu_torch/csrc/sem_probe.cu",
+                        "replaces": replaces, **probes[name],
+                        "dtype": "float32", "path": "sem_probe"})
     emit("kernels", kernels=kernels)
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])

@@ -8,9 +8,12 @@ stdout, with per-window throughput derived from monotonic time.
 from __future__ import annotations
 
 import json
+import statistics
 import sys
 import time
-from typing import Dict, IO, Optional
+from typing import Callable, Dict, IO, Optional
+
+import torch
 
 
 class MetricsLogger:
@@ -72,3 +75,32 @@ class MetricsLogger:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def time_ms(fn: Callable[[int], object], runs: int = 25, device="cuda") -> float:
+    """Median time in ms of ``fn(i)`` for ``i`` in ``range(runs)``, after
+    three warm-up runs. On a card (``device`` of type cuda): device time by CUDA
+    events, a sleep kernel ahead of each run keeping the card busy while the
+    host enqueues, so host launch latency is not counted. On the CPU: host
+    time, which is no device number."""
+    cuda = torch.device(device).type == "cuda"
+    for i in range(3):
+        fn(i)
+    if cuda:
+        torch.cuda.synchronize()
+    times = []
+    for i in range(runs):
+        if not cuda:
+            t0 = time.perf_counter()
+            fn(i)
+            times.append((time.perf_counter() - t0) * 1e3)
+            continue
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

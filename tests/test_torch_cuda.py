@@ -418,3 +418,83 @@ def test_widedeep_train_loop_launches_the_fused_adagrad_kernel(cuda_device):
     assert [f.launches - b for f, b in zip(counters, before)] == [5, 5, 0, 0, 0]
     assert torch.isfinite(state.table.table).all()
     assert 0.0 <= trainer.eval_auc(state, limit=2048) <= 1.0
+
+
+# ----------------------------------------------------- bulk-copy probes ---
+
+_UNIT_TAGS = [(1, 1, torch.float32), (1, 2, torch.float32), (1, 4, torch.float32),
+              (8, 2, torch.float32), (1, 2, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("rows,s,dtype", _UNIT_TAGS)
+def test_unit_probe_accounts_bytes_and_over_arming_stays_pending(cuda_device, rows, s,
+                                                                 dtype):
+    from swiftsnails_tpu_torch.ops import sem_probe
+
+    x = torch.ones((max(rows, 8), s, 128), dtype=dtype, device=cuda_device)
+    n0 = sem_probe.unit_probe.launches
+    got = sem_probe.unit_fields(sem_probe.unit_probe(x, rows))
+    assert sem_probe.unit_probe.launches == n0 + 1
+    want = sem_probe.unit_fields(sem_probe.unit_probe_plain(x, rows))
+    assert got["unit"] == rows * s * 128 * x.element_size()
+    assert got["over_done"] == 0  # 16 B above the copy: pending within the bound
+    assert {k: v for k, v in got.items() if k not in sem_probe.UNIT_TIMES} == \
+        {k: v for k, v in want.items() if k not in sem_probe.UNIT_TIMES}
+    assert 0 < got["exact_polls"] < sem_probe.UNIT_POLLS and got["exact_cycles"] > 0
+
+
+@pytest.mark.parametrize("s", [1, 2])
+def test_chunk_probe_bit_equal_to_plain(cuda_device, s):
+    from swiftsnails_tpu_torch.ops import sem_probe
+
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+    x = torch.randn(4096, s, 128, generator=gen, device=cuda_device)
+    ids = torch.randint(0, 4096, (64,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    got, stats = sem_probe.chunk_probe(x, ids)
+    want, want_stats = sem_probe.chunk_probe_plain(x, ids)
+    assert torch.equal(got, want)
+    assert int(stats[0]) == int(want_stats[0]) == 64 * s * 512
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_pipe_probe_bit_equal_and_repeatable(cuda_device, chunked, s):
+    from swiftsnails_tpu_torch.ops import sem_probe
+
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+    x = torch.randn(20_000, s, 128, generator=gen, device=cuda_device)
+    ids = torch.randint(0, 20_000, (8 * 640,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    n0 = sem_probe.pipe_probe.launches
+    got = [sem_probe.pipe_probe(x, ids, 8, chunked) for _ in range(2)]
+    assert sem_probe.pipe_probe.launches == n0 + 2
+    assert torch.equal(got[0], sem_probe.pipe_probe_plain(x, ids, 8))
+    assert torch.equal(got[0], got[1])
+
+
+_DEADLINE = """
+import torch
+from swiftsnails_tpu_torch.ops import sem_probe
+x = torch.ones(64, 2, 128, device="cuda")
+ids = torch.arange(8, dtype=torch.int32, device="cuda")
+try:
+    sem_probe.chunk_probe(x, ids, arm_extra=16)  # a phase that never completes
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("launch failed:", e)
+print("status", sem_probe.deadline_status())
+"""
+
+
+def test_a_wait_past_its_deadline_traps_instead_of_hanging(cuda_device):
+    """In a subprocess: the trap leaves the CUDA context unusable."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _DEADLINE], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert "launch failed:" in out.stdout, out.stdout + out.stderr
+    assert "status 5" in out.stdout, out.stdout + out.stderr
