@@ -27,22 +27,26 @@ Phases:
    in-table pull and push of 16,384 rows, the out-table ones of 18,432),
    bit-equal to its plain version, timed beside the plain version, one
    PyTorch library call and its bound (least bytes / the card's memory
-   rate). Each fused kernel (f32 and bf16; flat: 16,384 pairs in 32 blocks
-   of 512 sharing 64 pool rows; grouped: 8,192 centers in 32 blocks of 256,
-   windows of 10 slots): on block-local ids (each block's rows drawn zipf-
-   wise from its own range) within rtol 1e-5 / atol 1e-6 of its plain
-   version in f32, one bf16 rounding in bf16, and bit-identical across two
-   runs; on zipf ids over the whole vocabulary (hogwild) finite, with a loss
-   within 1e-2 of the plain version's; timed beside the plain version and
-   the unfused packed substep on the same pairs and pool (no PyTorch call
-   computes a fused SGNS step), against its bound (the larger of least
-   bytes / memory rate and f32 flops / the f32 rate). Each merged kernel
+   rate); ``gather_rows`` and ``index_select`` timed in turns (kernel,
+   library, library, kernel). Each fused kernel (f32 and bf16; flat: 16,384
+   pairs in 32 blocks of 512 sharing 64 pool rows; grouped: 8,192 centers
+   in 32 blocks of 256, windows of 10 slots): on block-local ids (each
+   block's rows drawn zipf-wise from its own range) within rtol 1e-5 /
+   atol 1e-6 of its plain version in f32, one bf16 rounding in bf16, and
+   bit-identical across two runs; on zipf ids over the whole vocabulary
+   (hogwild) finite, with a loss within 1e-2 of the plain version's; timed
+   beside the plain version and the unfused packed substep on the same
+   pairs and pool (no PyTorch call computes a fused SGNS step), against its
+   bound (the larger of least bytes / memory rate and f32 flops / the f32
+   rate). Each merged kernel
    (f32 and bf16; the grouped shape, ``hot_rows`` 2,048 resident, ``u_cap``
    384 dedup, both 384 and 256 composed): on zipf ids over the whole
    vocabulary within rtol 1e-5 / atol 1e-6 of its plain version in f32; in
    bf16 within one bf16 rounding on block-local ids, and on zipf ids the
    elements beyond it counted (see ``_merged_case``); bit-identical across
-   two runs; timed and bounded as the fused ones.
+   two runs; timed and bounded as the fused ones; one launch a substep on
+   the card (the profiler's count, held), its time alone put beside the
+   grouped kernel's alone from the same call.
 4. ``slice_parity``: 4 substeps of a small config of each path with injected
    negative pools on the card and on the CPU (one kernel block a substep on
    the hogwild fused paths, where the card runs blocks concurrently and the
@@ -271,10 +275,16 @@ def _gather_case(table, rows_sets, rate):
     distinct = int(torch.unique(rows).numel())
     nbytes = distinct * row_bytes + rows.numel() * (row_bytes + 4)
     pick = lambda i: rows_sets[i % len(rows_sets)]  # noqa: E731
+    kernel = lambda: time_ms(lambda i: rowdma.gather_rows(table, pick(i)))  # noqa: E731
+    library = lambda: time_ms(lambda i: torch.index_select(table, 0, pick(i)))  # noqa: E731
+    # in turns (kernel, index_select, index_select, kernel): the two are close
+    turns = [kernel(), library(), library(), kernel()]
+    kernel_ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     return {
-        "kernel_ms": time_ms(lambda i: rowdma.gather_rows(table, pick(i))),
+        "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda i: rowdma.gather_rows_plain(table, pick(i))),
-        "library_ms": time_ms(lambda i: torch.index_select(table, 0, pick(i))),
+        "library_ms": library_ms, "turns_ms": turns,
+        "over_index_select": kernel_ms / library_ms,
         "bytes": nbytes, "distinct_rows": distinct,
         "bound_ms": nbytes / rate * 1e3, "max_abs_err": err,
     }
@@ -482,8 +492,10 @@ def _host_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
-def _kernel_only_ms(fn, id_sets, tables, kw, name: str, calls: int = 5) -> float:
-    """Device time of the CUDA kernel alone (no flag prep), by torch.profiler."""
+def _kernel_only(fn, id_sets, tables, kw, name: str, calls: int = 5) -> tuple:
+    """Device time of the CUDA kernel alone (no prep) a call, by
+    torch.profiler, and its launches on the card a call (events named
+    ``name``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -491,11 +503,12 @@ def _kernel_only_ms(fn, id_sets, tables, kw, name: str, calls: int = 5) -> float
         for i in range(calls):
             fn(*tables, *id_sets[i % len(id_sets)].values(), **kw)
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+    us = sum(e.self_device_time_total for e in events)
     if not us:
         raise AssertionError(f"the profiler saw no {name} launch")
-    return us / 1e3 / calls
+    return us / 1e3 / calls, sum(e.count for e in events) / calls
 
 
 def _max_err(got, want) -> float:
@@ -542,9 +555,9 @@ def _fused_case(kind: str, dtype, base, rng, env) -> dict:
     pick = lambda i: id_sets[i % len(id_sets)].values()  # noqa: E731
     case = {
         "ms": time_ms(lambda i: fn(*tables, *pick(i), **kw)),
-        "kernel_only_ms": _kernel_only_ms(
+        **dict(zip(("kernel_only_ms", "card_launches_per_substep"), _kernel_only(
             fn, id_sets, tables, kw,
-            "fused_sgns_kernel" if kind == "flat" else "fused_sgns_grouped_kernel"),
+            "fused_sgns_kernel" if kind == "flat" else "fused_sgns_grouped_kernel"))),
         "plain_ms": time_ms(lambda i: plain(*tables, *pick(i), **kw), runs=5),
         "max_abs_err": err, "zipf_loss_gap": loss_gap, "zipf_max_abs_diff": zipf_err,
         "bytes": nbytes, "flops": flops, "distinct_rows": distinct, "real_pairs": pairs,
@@ -576,7 +589,7 @@ def _merged_run(fn, plain, tables, ids, kw, rtol, atol):
     return _max_err(got[0], want), outside, float(got[0][2]), float(want[2])
 
 
-def _merged_case(name: str, dtype, base, rng, env) -> dict:
+def _merged_case(name: str, dtype, base, rng, env, grouped: dict) -> dict:
     """A merged kernel at the main shape. Its blocks run in order, so on zipf
     ids over the whole vocabulary it equals its plain version in f32 within
     rtol 1e-5 / atol 1e-6 and repeats bit for bit. In bf16 a row that several
@@ -584,7 +597,9 @@ def _merged_case(name: str, dtype, base, rng, env) -> dict:
     f32 values differ from the plain version's in the last bits, so a
     rounding can flip and the flip carries into the next block: one bf16
     rounding is held on block-local ids (each row written by one block), and
-    on zipf ids the elements beyond it are counted."""
+    on zipf ids the elements beyond it are counted. One launch a substep on
+    the card (the profiler's count); its time alone is put beside the
+    grouped kernel's alone, ``grouped`` (this call, same dtype)."""
     from swiftsnails_tpu_torch.ops import fused_sgns
     from swiftsnails_tpu_torch.utils.metrics import time_ms
 
@@ -615,7 +630,8 @@ def _merged_case(name: str, dtype, base, rng, env) -> dict:
         *pick(i), CENTERS_PER_BLOCK, POOL_SIZE, hot_n, kw.get("u_cap", 0), VOCAB)
     case.update({
         "ms": time_ms(lambda i: fn(*tables, *pick(i), **kw)),
-        "kernel_only_ms": _kernel_only_ms(fn, id_sets, tables, kw, "merged_"),
+        **dict(zip(("kernel_only_ms", "card_launches_per_substep"),
+                   _kernel_only(fn, id_sets, tables, kw, "merged_"))),
         "prep_ms": time_ms(prep),
         "host_ms": _host_ms(lambda i: fn(*tables, *pick(i), **kw)),
         "plain_ms": time_ms(lambda i: plain(*tables, *pick(i), **kw), runs=5),
@@ -624,6 +640,11 @@ def _merged_case(name: str, dtype, base, rng, env) -> dict:
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations", **MERGED[name],
     })
+    if case["card_launches_per_substep"] != 1:
+        raise AssertionError(f"{name}: {case['card_launches_per_substep']} launches a "
+                             "substep on the card, want 1")
+    case["grouped_kernel_only_ms"] = grouped["kernel_only_ms"]
+    case["kernel_only_over_grouped"] = case["kernel_only_ms"] / grouped["kernel_only_ms"]
     if f32:
         case["yardstick_ms"], case["yardstick_pairs"] = _yardstick("grouped", id_sets, tables)
     return case
@@ -639,17 +660,19 @@ def phase_fused_kernels(seed: int, env: dict) -> dict:
     lanes = (torch.arange(shape[1] * 128, device=dev) < DIM).view(shape[1:])
     base = [torch.randn(shape, generator=gen, device=dev).mul_(0.1).mul_(lanes)
             for _ in range(2)]
-    summary = {}
+    summary, grouped = {}, {}
     for kind, name in (("flat", "fused_sgns_step"), ("grouped", "fused_sgns_grouped_step")):
         for dtype in (torch.float32, torch.bfloat16):
             case = _fused_case(kind, dtype, base, rng, env)
             emit("kernel", name=name, dtype=str(dtype), **case)
             if dtype == torch.float32:
                 summary[name] = case
+            if kind == "grouped":
+                grouped[dtype] = case
             torch.cuda.empty_cache()
     for name in MERGED:
         for dtype in (torch.float32, torch.bfloat16):
-            case = _merged_case(name, dtype, base, rng, env)
+            case = _merged_case(name, dtype, base, rng, env, grouped[dtype])
             emit("kernel", name=name, dtype=str(dtype), **case)
             if dtype == torch.float32:
                 summary[name] = case
@@ -1374,6 +1397,7 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
             "kernel_only_ms": s["kernel_only_ms"], "yardstick_ms": s["yardstick_ms"],
+            "card_launches_per_substep": s["card_launches_per_substep"],
             "shape": {**shape, "table": [VOCAB, -(-DIM // 128), 128]},
             "dtype": "float32"})
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),

@@ -42,9 +42,12 @@
 // argument (128 is not assumed); it and every base address must be
 // multiples of 16 bytes, which the Python wrapper checks. 8 warps a block,
 // a grid of ceil(N / 8) blocks, any N (no block multiple, no padding of N).
-// The TPU's double buffering and shared DMA semaphores existed to hide DMA
-// issue latency on one sequential core; here the many resident warps of
-// 132 SMs hide the latency instead.
+// The gather differs: each warp moves 4 rows, all their loads issued before
+// their stores, the table's rows kept in L2 and the output streamed past it
+// (gather_rows_kernel says why). The TPU's double buffering and shared DMA
+// semaphores existed to hide DMA issue latency on one sequential core; here
+// the many resident warps of 132 SMs, and the rows in flight in each, hide
+// the latency instead.
 //
 // The gather and the write copy bytes, so f32 and bf16 share them. An id
 // outside [0, C) reads nothing: the gather writes a row of zeros for it, the
@@ -89,22 +92,64 @@ __device__ __forceinline__ int32_t row_id(const int32_t* __restrict__ rows,
 
 // ---------------------------------------------------------------- gather ---
 
+// Each warp moves kGatherRows rows: the lanes first load the rows' ids, one
+// a lane; then every load of the rows is issued (up to kGatherWords 16-byte
+// words a lane a row a pass) before any store, so a warp keeps kGatherRows
+// * kGatherWords loads in flight where one row a warp kept 2 (a 1 KB row).
+// The table is read-only for the launch, so its loads take the
+// non-coherent path, with an L2 evict-last policy; the output is written
+// with streaming stores (st.global.cs, evict-first): it is not read again
+// here, and evicting it first keeps the table's repeated rows in L2 (at the
+// Wide & Deep pull 76,303 of 212,992 ids repeat a tile). The grid covers N
+// in one turn a warp: a grid of the CTAs resident at once walking the rows
+// in a grid-stride loop read slower at that pull.
+constexpr int kGatherRows = 4;
+constexpr int kGatherWords = 2;
+
+__device__ __forceinline__ uint4 ld_keep(const uint4* p, uint64_t policy) {
+  uint4 v;
+  asm volatile("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
+}
+
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const uint4* __restrict__ table, const int32_t* __restrict__ rows,
                    uint4* __restrict__ out, int64_t n, int64_t capacity,
                    int64_t row_words) {
-  const int64_t j = warp_index();
-  if (j >= n) return;  // whole warps leave together: j is warp-uniform
-  const int32_t r = row_id(rows, j);
   const int lane = threadIdx.x % kWarp;
-  uint4* dst = out + j * row_words;
-  if (r < 0 || int64_t(r) >= capacity) {
-    for (int64_t i = lane; i < row_words; i += kWarp) dst[i] = make_uint4(0u, 0u, 0u, 0u);
-    return;
+  const int64_t j0 = warp_index() * kGatherRows;
+  if (j0 >= n) return;  // whole warps leave together
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  const int32_t mine = lane < kGatherRows && j0 + lane < n ? __ldg(rows + j0 + lane) : -1;
+  int32_t r[kGatherRows];
+#pragma unroll
+  for (int u = 0; u < kGatherRows; ++u) {
+    r[u] = __shfl_sync(0xffffffffu, mine, u);
+    if (r[u] >= 0 && int64_t(r[u]) >= capacity) r[u] = -1;  // reads nothing: zeros
   }
-  const uint4* src = table + int64_t(r) * row_words;
-#pragma unroll 4
-  for (int64_t i = lane; i < row_words; i += kWarp) dst[i] = __ldg(src + i);
+  const int64_t rows_here = n - j0;  // kGatherRows, or fewer in the last warp
+  for (int64_t w0 = lane; w0 < row_words; w0 += kWarp * kGatherWords) {
+    uint4 v[kGatherRows][kGatherWords];
+#pragma unroll
+    for (int u = 0; u < kGatherRows; ++u)
+#pragma unroll
+      for (int m = 0; m < kGatherWords; ++m) {
+        const int64_t i = w0 + m * kWarp;
+        v[u][m] = r[u] >= 0 && i < row_words
+                      ? ld_keep(table + int64_t(r[u]) * row_words + i, policy)
+                      : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+    for (int u = 0; u < kGatherRows; ++u)
+#pragma unroll
+      for (int m = 0; m < kGatherWords; ++m) {
+        const int64_t i = w0 + m * kWarp;
+        if (u < rows_here && i < row_words) __stcs(out + (j0 + u) * row_words + i, v[u][m]);
+      }
+  }
 }
 
 // ------------------------------------------------------------ scatter-add ---
@@ -293,7 +338,9 @@ int ssn_gather_rows(const void* table, const void* rows, void* out, long long n,
   if (err != cudaSuccess) return int(err);
   if (!aligned(row_bytes, table, out)) return int(cudaErrorMisalignedAddress);
   if (n <= 0) return int(cudaSuccess);
-  gather_rows_kernel<<<grid(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int64_t warps = (n + kGatherRows - 1) / kGatherRows;
+  gather_rows_kernel<<<unsigned((warps + kRowsPerBlock - 1) / kRowsPerBlock), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(table), static_cast<const int32_t*>(rows),
       static_cast<uint4*>(out), n, capacity, row_bytes / int64_t(sizeof(uint4)));
   return int(cudaGetLastError());

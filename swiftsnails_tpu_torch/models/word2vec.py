@@ -426,12 +426,17 @@ class Word2VecTrainer(Trainer):
         The JAX package scans the substeps under one dispatch; here they run
         as a Python loop, each drawing its pool from ``generator``. Returns
         ``(state, {"loss": mean substep loss})``, the loss as a device
-        tensor (no host sync).
+        tensor (no host sync). Raises ``ValueError`` for a batch of more than
+        one substep whose length is not a multiple of the substeps.
         """
         centers, contexts = batch["centers"], batch["contexts"]
         n = centers.shape[0]
         t = max(n // self.batch_size, 1)
         b = n // t
+        if t > 1 and t * b != n:
+            # the JAX package's reshape to (t, b) refuses such a batch too
+            raise ValueError(f"a batch of {n} items does not split into {t} substeps "
+                             f"of {b} (batch_size {self.batch_size})")
         lr = self.step_lr(batch)
         if self.grouped:
             substep = self._substep_grouped

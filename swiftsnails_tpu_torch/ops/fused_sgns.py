@@ -446,6 +446,13 @@ def effective_hot_rows(hot_rows: int, *capacities: int) -> Tuple[int, int]:
     return (hot_n, ch) if hot_n > 0 else (0, 0)
 
 
+# The merged kernel's split of its writes (csrc/fused_sgns_merged.cu): a run
+# of at most RUN_CHUNK slots is summed by one warp, a longer one by the
+# MERGED_CTA_WARPS warps of one CTA, in as many contiguous pieces.
+RUN_CHUNK = 8
+MERGED_CTA_WARPS = 16
+
+
 def merge_runs(keys: torch.Tensor, codes: torch.Tensor, is_ctx: torch.Tensor,
                hot_n: int, u_cap: int) -> Tuple[torch.Tensor, ...]:
     """The writes of a merged step, one run a written row.
@@ -455,10 +462,12 @@ def merge_runs(keys: torch.Tensor, codes: torch.Tensor, is_ctx: torch.Tensor,
     the out-table, ``2 * row + 1`` in the in-table), ``_INT32_MAX`` where a
     slot writes nothing; context slots (``is_ctx`` [K]) rank before the pool
     slots; ``codes`` [K] int32 names each slot to the kernel. Returns
-    ``(ent [NB, K], run_start [NB, K + 1], n_runs [NB])``, int32: run ``j``
-    of block ``b`` is the slots ``ent[b, run_start[b, j]:run_start[b, j +
-    1]]`` of one row, sorted by key: every slot of a hot row, the context
-    slots of a row in the unique list, or the last slot of any other row.
+    ``(ent [NB, K], run_start [NB, K + 1], n_runs [NB], long_runs [NB, K],
+    n_long [NB])``, int32: run ``j`` of block ``b`` is the slots ``ent[b,
+    run_start[b, j]:run_start[b, j + 1]]`` of one row, sorted by key: every
+    slot of a hot row, the context slots of a row in the unique list, or the
+    last slot of any other row. ``long_runs[b, :n_long[b]]`` are the runs of
+    more than :data:`RUN_CHUNK` slots, in order, ``-1`` after them.
     """
     nb, k = keys.shape
     srt, order = torch.sort(keys, dim=1, stable=True)
@@ -476,19 +485,23 @@ def merge_runs(keys: torch.Tensor, codes: torch.Tensor, is_ctx: torch.Tensor,
     rank = torch.cumsum(head & ctx & ok, dim=1) - 1
     listed = ctx.gather(1, first) & (rank < u_cap)
     keep = ok & (((srt >> 1) < hot_n) | (listed & ctx) | (~listed & last))
-    dest = torch.where(keep, torch.cumsum(keep, 1) - 1, k)
 
-    def compact(values):
+    def compact(values, mask):
+        """``values[b][mask[b]]`` first in each row, -1 after them."""
+        dest = torch.where(mask, torch.cumsum(mask, 1) - 1, k)
         out = torch.full((nb, k + 1), -1, dtype=torch.int32, device=keys.device)
         return out.scatter_(1, dest, values)[:, :k]
 
-    ent, ckey = compact(codes[order]), compact(srt)
+    ent, ckey = compact(codes[order], keep), compact(srt, keep)
     chead = ckey >= 0
     chead[:, 1:] &= ckey[:, 1:] != ckey[:, :-1]
     run_start = keep.sum(1, dtype=torch.int32)[:, None].expand(nb, k + 2).clone()
     run_start.scatter_(1, torch.where(chead, torch.cumsum(chead, 1) - 1, k + 1), pos)
-    return (ent.contiguous(), run_start[:, : k + 1].contiguous(),
-            chead.sum(1, dtype=torch.int32))
+    run_start = run_start[:, : k + 1]
+    # runs past n_runs start at the count of kept slots: length 0
+    is_long = (run_start[:, 1:] - run_start[:, :-1]) > RUN_CHUNK
+    return (ent.contiguous(), run_start.contiguous(), chead.sum(1, dtype=torch.int32),
+            compact(pos, is_long).contiguous(), is_long.sum(1, dtype=torch.int32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -610,22 +623,47 @@ def _merged_plain(in_table, out_table, centers, ctxs, pool_rows, lr: float,
 def _merged_lib() -> ctypes.CDLL:
     lib = _build.load("fused_sgns_merged")
     vp, ll, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.ssn_fused_sgns_merged_tiles.argtypes = [i32] * 4
-    lib.ssn_fused_sgns_merged_tiles.restype = i32
+    lib.ssn_fused_sgns_merged_grid.argtypes = [i32] * 5
+    lib.ssn_fused_sgns_merged_grid.restype = i32
     lib.ssn_fused_sgns_merged_workspace.argtypes = [i32] * 5
     lib.ssn_fused_sgns_merged_workspace.restype = ll
     lib.ssn_fused_sgns_merged_step.argtypes = (
-        [vp] * 10 + [ll, i32, i32, i32, ll, i32, i32, i32, f32, f32, f32, i32, vp])
+        [vp] * 12 + [i32, ll, i32, i32, i32, ll, i32, i32, i32, i32, f32, f32, f32, i32,
+                     i32, vp])
     lib.ssn_fused_sgns_merged_step.restype = i32
+    lib.ssn_fused_sgns_merged_status.argtypes = []
+    lib.ssn_fused_sgns_merged_status.restype = i32
     lib.ssn_fused_sgns_merged_error_string.argtypes = [i32]
     lib.ssn_fused_sgns_merged_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _merged_grid(cw: int, pn: int, row_elems: int, elem_bytes: int, device: int) -> int:
+    """CTAs of the merged kernel's persistent grid on this card, or 0 where
+    a center's rows and the pool do not fit in its shared memory."""
+    lib = _merged_lib()
+    grid = lib.ssn_fused_sgns_merged_grid(cw, pn, row_elems, elem_bytes, device)
+    if grid < 0:
+        raise RuntimeError(f"merged kernel: the card's occupancy query failed: CUDA error "
+                           f"{-grid} ({lib.ssn_fused_sgns_merged_error_string(-grid).decode()})")
+    return grid
+
+
+def merged_deadline_status() -> int:
+    """The code of the merged kernel's grid barrier that passed its deadline
+    in the last launch: 0 none, 1 the one after staging block 0, 2, 3 and 4
+    those after C(b), dQ(b) and W(b). Kept in host memory, so it can be read
+    after the trap has ended the CUDA context."""
+    return int(_merged_lib().ssn_fused_sgns_merged_status())
+
+
 def _merged_step(fn, in_table, out_table, centers, ctxs, pool_rows, lr, lam, window,
-                 pc: int, pn: int, hot_n: int, u_cap: int):
+                 pc: int, pn: int, hot_n: int, u_cap: int, miss_barrier: int = -1):
     """Run the plain version for CPU tables, or launch the merged kernel
-    (``csrc/fused_sgns_merged.cu``) and count it on ``fn``."""
+    (``csrc/fused_sgns_merged.cu``) and count it on ``fn``.
+    ``miss_barrier`` (k >= 1) makes the kernel's first CTA skip its k-th grid
+    barrier, which then traps at its deadline: a test of the deadline."""
     if in_table.device.type == "cpu":
         return _merged_plain(in_table, out_table, centers, ctxs, pool_rows, lr, lam,
                              window, pc, pn, hot_n, u_cap)
@@ -634,27 +672,30 @@ def _merged_step(fn, in_table, out_table, centers, ctxs, pool_rows, lr, lam, win
     row_elems = in_table.stride(0)
     if in_table.shape[0] >= 2**30:
         raise ValueError("table capacity exceeds 2^30 rows (the prep's row keys)")
-    lib = _merged_lib()
-    ntiles = lib.ssn_fused_sgns_merged_tiles(pc, cw, pn, row_elems)
-    if ntiles == 0:
+    device, stream = _device_args(in_table)
+    grid = _merged_grid(cw, pn, row_elems, in_table.element_size(), device)
+    if grid == 0:
         raise ValueError(
             f"{fn.__name__}: a pool of {pn} rows of {row_elems} lanes does not fit in "
             "the kernel's shared memory (or rows exceed its 512 lanes)")
+    lib = _merged_lib()
     runs = merged_prep(centers, ctxs, pool_rows, pc, pn, hot_n, u_cap, in_table.shape[0])
     work = torch.empty(lib.ssn_fused_sgns_merged_workspace(
         pc, cw, pn, row_elems, in_table.element_size()), dtype=torch.uint8,
         device=in_table.device)
-    loss_parts = torch.zeros(nblocks * ntiles, dtype=torch.float32, device=in_table.device)
+    # each CTA's loss terms, then the grid barrier's counter (0 bits)
+    state = torch.zeros(grid + 1, dtype=torch.float32, device=in_table.device)
     rc = lib.ssn_fused_sgns_merged_step(
-        *_ptrs(in_table, out_table, centers, ctxs, pool_rows, *runs, work, loss_parts),
-        nblocks, pc, cw, pn, in_table.shape[0], row_elems, in_table.element_size(), hot_n,
-        float(lr), float(lam), 1.0 / (n * (window + 1)), *_device_args(in_table))
+        *_ptrs(in_table, out_table, centers, ctxs, pool_rows, *runs, work, state),
+        grid, nblocks, pc, cw, pn, in_table.shape[0], row_elems, in_table.element_size(),
+        hot_n, RUN_CHUNK, float(lr), float(lam), 1.0 / (n * (window + 1)), miss_barrier,
+        device, stream)
     if rc != 0:
         msg = lib.ssn_fused_sgns_merged_error_string(rc).decode()
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc} ({msg})")
     if nblocks:
         fn.launches += 1
-    return in_table, out_table, loss_parts.sum()
+    return in_table, out_table, state[:grid].sum()
 
 
 def _hot_n(hot_rows: int, in_table, out_table, instead: str) -> int:

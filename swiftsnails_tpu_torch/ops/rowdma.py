@@ -28,9 +28,9 @@ double-buffered across blocks. :func:`scatter_add_rows` replaces
 ``scatter_add_rows`` / ``_scatter_kernel`` there: a read-modify-write of each
 row, two blocks deep, in place on the donated table. Both are bound by
 device-memory bytes on the H100 (a row read and written, or read, added and
-written, with no arithmetic to speak of); the kernels put one warp on each
-row and move it in 16-byte words so that many independent random rows are in
-flight at once. ``csrc/rowdma.cu`` says more.
+written, with no arithmetic to speak of); the kernels move rows in 16-byte
+words, four rows a warp in the gather and one in the scatter, so that many
+independent random rows are in flight at once. ``csrc/rowdma.cu`` says more.
 
 The pushes of the other access rules: :func:`scatter_write_rows` replaces
 ``scatter_write_rows`` / ``_write_kernel`` (the write half of gather ->

@@ -50,6 +50,29 @@ def test_kernels_bit_equal_to_plain(cuda_device, dtype, s):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row_bytes", [16, 272, 1024, 2048])
+def test_gather_rows_bit_equal_to_index_select(cuda_device, dtype, row_bytes):
+    """Any row width in 16-byte words, an N that is no multiple of the
+    kernel's rows a warp, duplicates, and pads (-1 and ids at or past C) that
+    read as zero rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(row_bytes)
+    c, n = 3000, 4 * 2503 + 3
+    width = row_bytes * 8 // torch.finfo(dtype).bits
+    table = torch.randn(c, width, generator=gen, device=cuda_device).to(dtype)
+    rows = torch.randint(0, c, (n,), generator=gen, device=cuda_device, dtype=torch.int32)
+    rows[::7] = rows[0]  # duplicates
+    rows[5::11] = -1
+    rows[9::13] = c
+    pads = (rows < 0) | (rows >= c)
+    want = table.index_select(0, rows.clamp(0, c - 1)).masked_fill_(pads[:, None], 0)
+    got = rowdma.gather_rows(table, rows)
+    torch.cuda.synchronize()
+    assert got.shape == (n, width)
+    assert torch.equal(got, want)
+    assert torch.equal(rowdma.gather_rows(table, rows[:1]), want[:1])
+
+
 def test_gather_out_of_range_ids_read_nothing(cuda_device):
     table = torch.ones(16, 1, 128, device=cuda_device)
     rows = torch.tensor([0, 16, -1, 15], dtype=torch.int32, device=cuda_device)
@@ -206,14 +229,16 @@ def _zipf(rng, n, v):
     return np.minimum(np.searchsorted(cdf, rng.random(n)), v - 1).astype(np.int32)
 
 
-def _merged_case(kind, dev, dtype, seed=0, nblocks=6, cap=4096, local=False):
+def _merged_case(kind, dev, dtype, seed=0, nblocks=6, cap=4096, local=False, pc=32,
+                 step=0.05):
     """Tables and ids for one merged step, zipf over the whole table (rows
     shared within and across blocks, by contexts and pools) or with
-    ``local`` block-local (no row in two blocks); pads in the windows."""
+    ``local`` block-local (no row in two blocks); pads in the windows; a
+    step of ``step`` a pair."""
     from swiftsnails_tpu_torch.ops import fused_sgns
 
     rng = np.random.default_rng(seed)
-    pc, window, pool = 32, 3, 16
+    window, pool = 3, 16
     lanes = np.arange(256).reshape(2, 128) < 200
     tables = [torch.from_numpy((rng.normal(size=(cap, 2, 128)) * 0.1 * lanes)
                                .astype(np.float32)).to(dev, dtype) for _ in range(2)]
@@ -230,7 +255,7 @@ def _merged_case(kind, dev, dtype, seed=0, nblocks=6, cap=4096, local=False):
     args = dict(centers=ids(pc), ctxs=ctxs, pool_rows=ids(pool))
     args = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in args.items()}
     name, extra = _MERGED[kind]
-    kw = dict(lr=0.05 * pc * nblocks * (window + 1), lam=0.3, window=window,
+    kw = dict(lr=step * pc * nblocks * (window + 1), lam=0.3, window=window,
               centers_per_block=pc, pool_size=pool, **extra)
     return getattr(fused_sgns, name), tables, args, kw
 
@@ -259,6 +284,138 @@ def test_merged_kernels_match_plain(cuda_device, kind, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got[0], got[1]))  # bit-identical
     for t in got[0][:2]:
         assert not t.reshape(t.shape[0], -1)[:, 200:].any()
+
+
+_MAIN = {"resident": dict(hot_rows=2048), "dedup": dict(u_cap=384),
+         "dedup_resident": dict(u_cap=384, hot_rows=256)}
+
+
+def _zipf_ids(rng, shape, v):
+    """Zipf ids over [0, v), drawn by inverse cdf."""
+    cdf = np.cumsum(1.0 / np.arange(1, v + 1) ** 1.05)
+    cdf /= cdf[-1]
+    return np.minimum(np.searchsorted(cdf, rng.random(shape)), v - 1).astype(np.int32)
+
+
+def _assert_merged_runs_like_plain(fn, tables, args, kw):
+    """Two kernel runs bit-identical, within rtol 1e-5 / atol 1e-6 of the
+    plain version (f32), padding lanes untouched, one launch each."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    plain = getattr(fused_sgns, fn.__name__ + "_plain")
+    want = plain(*[t.clone() for t in tables], *args.values(), **kw)
+    n0 = fn.launches
+    got = [fn(*[t.clone() for t in tables], *args.values(), **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 2
+    for g, w in zip(got[0], want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], got[1]))
+    for t in got[0][:2]:
+        assert not t.reshape(t.shape[0], -1)[:, 200:].any()
+
+
+@pytest.mark.parametrize("kind", list(_MAIN))
+def test_merged_kernel_at_the_main_shape(cuda_device, kind):
+    """32 kernel blocks of 256 centers, windows of 10 slots, pools of 64, f32
+    rows of 256 lanes (dim 200) over 2^20 rows, ids zipf over all of them:
+    the persistent launch walks the blocks as the plain version does."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    rng = np.random.default_rng(11)
+    cap, pc, window, pool, nb = 1 << 20, 256, 5, 64, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    lanes = (torch.arange(256, device=cuda_device) < 200).view(2, 128)
+    tables = [torch.randn(cap, 2, 128, generator=gen, device=cuda_device).mul_(0.1)
+              .mul_(lanes) for _ in range(2)]
+    ctxs = _zipf_ids(rng, (pc * nb, 2 * window), cap)
+    ctxs[rng.random(ctxs.shape) < 0.3] = -1
+    args = {k: torch.from_numpy(v).to(cuda_device) for k, v in (
+        ("centers", _zipf_ids(rng, pc * nb, cap)), ("ctxs", ctxs),
+        ("pool_rows", _zipf_ids(rng, pool * nb, cap)))}
+    fn = getattr(fused_sgns, _MERGED[kind][0])
+    kw = dict(lr=100.0, lam=5 / pool, window=window, centers_per_block=pc, pool_size=pool,
+              **_MAIN[kind])
+    _assert_merged_runs_like_plain(fn, tables, args, kw)
+
+
+@pytest.mark.parametrize("kind", list(_MERGED))
+def test_merged_kernel_splits_a_run_longer_than_a_cta_of_chunks(cuda_device, kind):
+    """Block 1 names row 0 in every slot: its run (hot, or listed) has more
+    slots than the chunks of all the warps of a CTA, so the CTA's warps sum
+    it in pieces."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    fn, tables, args, kw = _merged_case(kind, cuda_device, torch.float32, seed=3,
+                                        nblocks=3, local=False, pc=96, step=0.005)
+    pc = kw["centers_per_block"]
+    for name, per in (("centers", pc), ("ctxs", pc), ("pool_rows", kw["pool_size"])):
+        args[name][per:2 * per] = 0
+    cap = tables[0].shape[0]
+    hot_n = fused_sgns.effective_hot_rows(kw.get("hot_rows", 0), cap)[0]
+    runs = fused_sgns.merged_prep(*args.values(), pc, kw["pool_size"], hot_n,
+                                  kw.get("u_cap", 0), cap)
+    longest = int((runs[1][:, 1:] - runs[1][:, :-1]).max())
+    assert longest > fused_sgns.RUN_CHUNK * fused_sgns.MERGED_CTA_WARPS
+    _assert_merged_runs_like_plain(fn, tables, args, kw)
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 6), (torch.float32, 200),
+                                         (torch.float32, 512), (torch.bfloat16, 12),
+                                         (torch.bfloat16, 136)])
+@pytest.mark.parametrize("kind", list(_MERGED))
+def test_merged_kernel_at_other_row_widths(cuda_device, kind, dtype, width):
+    """Rows the kernel moves element by element (24 B), in 16-byte words
+    (800 B, 272 B) and at its widest (512 lanes): within rtol 1e-5 / atol
+    1e-6 of the plain version in f32, one bf16 rounding on block-local ids
+    in bf16, and bit-identical run to run."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    fn, tables, args, kw = _merged_case(kind, cuda_device, dtype,
+                                        local=dtype == torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(width)
+    tables = [torch.randn(t.shape[0], width, generator=gen, device=cuda_device).mul_(0.1)
+              .to(dtype) for t in tables]
+    plain = getattr(fused_sgns, fn.__name__ + "_plain")
+    want = plain(*[t.clone() for t in tables], *args.values(), **kw)
+    got = [fn(*[t.clone() for t in tables], *args.values(), **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (2.0**-7, 1e-6)
+    for g, w in zip(got[0], want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], got[1]))
+
+
+_BARRIER_MISSED = """
+import torch
+from swiftsnails_tpu_torch.ops import fused_sgns
+tables = [torch.zeros(4096, 2, 128, device="cuda") for _ in range(2)]
+centers = torch.arange(64, dtype=torch.int32, device="cuda")
+ctxs = torch.arange(64 * 6, dtype=torch.int32, device="cuda").view(64, 6)
+pool = torch.arange(2 * 16, dtype=torch.int32, device="cuda")
+try:
+    fused_sgns._merged_step(fused_sgns.fused_sgns_resident_step, *tables, centers, ctxs,
+                            pool, 0.1, 0.3, 3, 32, 16, 64, 0, miss_barrier=2)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("launch failed:", e)
+print("status", fused_sgns.merged_deadline_status())
+"""
+
+
+def test_a_merged_barrier_past_its_deadline_traps(cuda_device):
+    """In a subprocess (the trap leaves the CUDA context unusable): the first
+    CTA skips the grid barrier after C(0), the others wait out the deadline,
+    and the kernel traps with that barrier's code instead of hanging."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _BARRIER_MISSED], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert "launch failed:" in out.stdout, out.stdout + out.stderr
+    assert "status 2" in out.stdout, out.stdout + out.stderr
 
 
 @pytest.mark.parametrize("kind", list(_MERGED))

@@ -251,16 +251,38 @@ def _zipf(n, v, rng):
     return np.minimum(np.searchsorted(cdf, rng.random(n)), v - 1).astype(np.int32)
 
 
+def _sum_in_order(rows):
+    """The rows of ``rows`` [K, D] added one after the other from zero, as a
+    warp or the combine of a CTA adds them."""
+    acc = torch.zeros(rows.shape[1:], dtype=torch.float32)
+    for r in rows:
+        acc = acc + r
+    return acc
+
+
 def emulate_kernel(in_t, out_t, centers, ctxs, pool, lr, lam, window, pc, pn, hot_n, u_cap):
-    """``csrc/fused_sgns_merged.cu``'s schedule in torch: block b + 1's cold
-    rows are staged after W(b - 1); C(b) reads them, and hot rows live; W(b)
-    writes each run of :func:`merged_prep` once, base less lr times the sum
-    of its slots' gradients."""
+    """``csrc/fused_sgns_merged.cu``'s schedule in torch, a kernel block at a
+    time, as its persistent launch walks them between grid barriers:
+
+    * C(b): block b + 1's cold rows are staged after W(b - 1); block b reads
+      them, and hot rows live, and scores each center.
+    * dQ(b), output-stationary: ``MERGED_CTA_WARPS`` warps each sum g_neg^T V
+      over a contiguous span of the block's centers, and the spans' partials
+      are added in warp order.
+    * W(b): each run of :func:`merged_prep` is written once, base less lr
+      times its slots' gradients: a run of at most ``RUN_CHUNK`` slots summed
+      in slot order by one warp, a longer one (the prep's ``long_runs``) cut
+      into ``MERGED_CTA_WARPS`` contiguous pieces whose sums are added in
+      warp order.
+
+    Returns ``(in_t, out_t, loss, longest)``, ``longest`` the most slots of
+    one run."""
     n, cw = ctxs.shape
     nb, cap, c, d = n // pc, pc * cw, in_t.shape[0], in_t.stride(0)
+    warps, chunk = fused_sgns.MERGED_CTA_WARPS, fused_sgns.RUN_CHUNK
     it, ot = in_t.view(c, d), out_t.view(c, d)
-    ent, run_start, n_runs = fused_sgns.merged_prep(centers, ctxs, pool, pc, pn, hot_n,
-                                                    u_cap, c)
+    ent, run_start, n_runs, long_runs, n_long = fused_sgns.merged_prep(
+        centers, ctxs, pool, pc, pn, hot_n, u_cap, c)
     cb, xb, qb = centers.view(nb, pc), ctxs.view(nb, cap), pool.view(nb, pn)
 
     def stage(b):
@@ -277,7 +299,15 @@ def emulate_kernel(in_t, out_t, centers, ctxs, pool, lr, lam, window, pc, pn, ho
         out[hot] = t[r[hot].long()].float()
         return out
 
-    staged, loss, inv_b = stage(0), 0.0, 1.0 / (n * (window + 1))
+    def split_sum(parts):
+        """A CTA's sum of a long run's slot gradients [K, D]."""
+        piece = -(-len(parts) // warps)
+        return _sum_in_order(torch.stack([_sum_in_order(parts[w * piece:(w + 1) * piece])
+                                          if w * piece < len(parts) else
+                                          torch.zeros(d) for w in range(warps)]))
+
+    staged, loss, inv_b, longest = stage(0), 0.0, 1.0 / (n * (window + 1)), 0
+    span = -(-pc // warps)
     for b in range(nb):
         sv, su, sq = staged
         v, q = value(it, cb[b], sv), value(ot, qb[b], sq)
@@ -286,27 +316,51 @@ def emulate_kernel(in_t, out_t, centers, ctxs, pool, lr, lam, window, pc, pn, ho
         pos, n_real, neg = (u * v[:, None]).sum(-1), mask.sum(1), v @ q.T
         g_pos = (torch.sigmoid(pos) - 1) * inv_b * mask
         g_neg = lam * inv_b * torch.sigmoid(neg) * n_real[:, None]
-        dv, dq = (g_pos[:, :, None] * u).sum(1) + g_neg @ q, g_neg.T @ v
+        dv = (g_pos[:, :, None] * u).sum(1) + g_neg @ q
+        dq = _sum_in_order(torch.stack([g_neg[w * span:(w + 1) * span].T @ v[w * span:(w + 1) * span]
+                                        for w in range(warps)]))
         loss += float(-((F.logsigmoid(pos) * mask).sum()
                         + lam * (F.logsigmoid(-neg) * n_real[:, None]).sum()) * inv_b)
         if b + 1 < nb:
             staged = stage(b + 1)
+        lengths = run_start[b, 1:] - run_start[b, :-1]
+        assert long_runs[b, :n_long[b]].tolist() == torch.nonzero(lengths > chunk).view(-1).tolist()
+        assert (long_runs[b, n_long[b]:] == -1).all()
         writes = []
         for j in range(int(n_runs[b])):
             e = ent[b, run_start[b, j]:run_start[b, j + 1]].tolist()
+            longest = max(longest, len(e))
+            total = split_sum if len(e) > chunk else _sum_in_order
             if e[0] >= cap + pn:  # centers: the in-table
                 p = [k - cap - pn for k in e]
-                writes.append((it, int(cb[b, p[0]]), v[p[0]] - lr * dv[p].sum(0)))
+                writes.append((it, int(cb[b, p[0]]), v[p[0]] - lr * total(dv[p])))
                 continue
             r = int(xb[b, e[0]]) if e[0] < cap else int(qb[b, e[0] - cap])
             base = (ot[r] if r < hot_n else su[e[0]] if e[0] < cap else sq[e[0] - cap]).float()
-            acc = sum(g_pos.view(-1)[k] * v[k // cw] if k < cap else dq[k - cap] for k in e)
-            writes.append((ot, r, base - lr * acc))
+            grads = torch.stack([g_pos.view(-1)[k] * v[k // cw] if k < cap else dq[k - cap]
+                                 for k in e])
+            writes.append((ot, r, base - lr * total(grads)))
         rows = [(id(t), r) for t, r, _ in writes]
         assert len(set(rows)) == len(rows), "two runs write one row"
         for t, r, val in writes:
             t[r] = val.to(t.dtype)
-    return in_t, out_t, loss
+    return in_t, out_t, loss, longest
+
+
+def _schedule_case(rng, c, pc, pn, window, nb, hot_n, u_cap, ids, step=0.05):
+    """The plain version and the kernel's schedule on one step, at ``step`` a
+    pair; returns the longest run."""
+    n = pc * nb
+    tables = [torch.from_numpy((rng.normal(size=(c, S, L)) * 0.1).astype(np.float32))
+              for _ in range(2)]
+    lr = step * n * (window + 1)
+    want = fused_sgns._merged_plain(*[t.clone() for t in tables], *ids, lr, 0.3, window,
+                                    pc, pn, hot_n, u_cap)
+    got = emulate_kernel(*[t.clone() for t in tables], *ids, lr, 0.3, window, pc, pn,
+                         hot_n, u_cap)
+    tfs._assert_same_step([t.numpy() for t in tables], ([t.numpy() for t in got[:2]], got[2]),
+                          ([t.numpy() for t in want[:2]], float(want[2])), "float32")
+    return got[3]
 
 
 @pytest.mark.parametrize("hot_n,u_cap", [(64, 0), (0, 24), (32, 40), (512, 512)])
@@ -315,32 +369,63 @@ def test_kernel_schedule_matches_the_plain_version_on_zipf_ids(hot_n, u_cap):
     rng = np.random.default_rng(hot_n + u_cap)
     c, pc, pn, window, nb = 512, 16, 8, 3, 6
     n, cw = pc * nb, 2 * window
-    tables = [torch.from_numpy((rng.normal(size=(c, S, L)) * 0.1).astype(np.float32))
-              for _ in range(2)]
     ctxs = _zipf(n * cw, c, rng).reshape(n, cw)
     ctxs[rng.random((n, cw)) < 0.3] = -1
     ids = [torch.from_numpy(x) for x in (_zipf(n, c, rng), ctxs, _zipf(nb * pn, c, rng))]
-    lr = 0.05 * n * (window + 1)
-    want = fused_sgns._merged_plain(*[t.clone() for t in tables], *ids, lr, 0.3, window,
-                                    pc, pn, hot_n, u_cap)
-    got = emulate_kernel(*[t.clone() for t in tables], *ids, lr, 0.3, window, pc, pn,
-                         hot_n, u_cap)
-    tfs._assert_same_step([t.numpy() for t in tables], ([t.numpy() for t in got[:2]], got[2]),
-                          ([t.numpy() for t in want[:2]], float(want[2])), "float32")
+    _schedule_case(rng, c, pc, pn, window, nb, hot_n, u_cap, ids)
+
+
+@pytest.mark.parametrize("hot_n,u_cap", [(64, 0), (0, 24), (64, 64)])
+def test_kernel_schedule_with_a_hot_row_in_every_slot(hot_n, u_cap):
+    """Block 1 names row 0 in every center, context and pool slot: one run
+    of hundreds of slots, more than a chunk for each warp of a CTA, split
+    across the CTA's warps (hot or listed; a cold center row keeps its last
+    slot). Blocks 0 and 2 are zipf ids around it. The step a pair is 0.005:
+    at 0.05 the row's hundreds of merged slots move it to ~10, and block 2's
+    scores of it amplify f32 rounding past the tolerance."""
+    rng = np.random.default_rng(7 + hot_n + u_cap)
+    c, pc, pn, window, nb = 512, 64, 8, 3, 3
+    n, cw = pc * nb, 2 * window
+    centers, pool = _zipf(n, c, rng), _zipf(nb * pn, c, rng)
+    ctxs = _zipf(n * cw, c, rng).reshape(n, cw)
+    ctxs[rng.random((n, cw)) < 0.3] = -1
+    centers[pc:2 * pc] = ctxs[pc:2 * pc] = pool[pn:2 * pn] = 0
+    ids = [torch.from_numpy(x) for x in (centers, ctxs, pool)]
+    longest = _schedule_case(rng, c, pc, pn, window, nb, hot_n, u_cap, ids, step=0.005)
+    assert longest > fused_sgns.RUN_CHUNK * fused_sgns.MERGED_CTA_WARPS
 
 
 def test_merge_runs_on_a_small_case():
     """One block, slots in rank order: row 5 (hot) twice and in the pool, row
     7 (cold, listed) twice, row 9 (cold, past u_cap) twice and in the pool,
-    whose slot wins."""
+    whose slot wins. Then row 5 in ten slots: a run longer than a warp's
+    chunk, listed for a CTA."""
     rows = torch.tensor([[5, 9, 7, 5, 9, 7, -1, 9, 5]], dtype=torch.int32)
     keys = torch.where(rows >= 0, rows * 2, fused_sgns._INT32_MAX)  # out-table keys
     codes = torch.arange(9, dtype=torch.int32)
     is_ctx = torch.arange(9) < 7
-    ent, run_start, n_runs = fused_sgns.merge_runs(keys, codes, is_ctx, hot_n=6, u_cap=2)
+    ent, run_start, n_runs, long_runs, n_long = fused_sgns.merge_runs(
+        keys, codes, is_ctx, hot_n=6, u_cap=2)
     assert n_runs.tolist() == [3]
     runs = [ent[0, run_start[0, j]:run_start[0, j + 1]].tolist() for j in range(3)]
     assert runs == [[0, 3, 8], [2, 5], [7]]
+    assert n_long.tolist() == [0] and (long_runs == -1).all()
+
+    rows = torch.tensor([[5, 9, 7, 5, 9, 7, -1, 5, 5, 5, 5, 5, 5, 9, 5, 5]], dtype=torch.int32)
+    keys = torch.where(rows >= 0, rows * 2, fused_sgns._INT32_MAX).repeat(2, 1)
+    codes = torch.arange(16, dtype=torch.int32)
+    is_ctx = torch.arange(16) < 13
+    out = fused_sgns.merge_runs(keys, codes, is_ctx, hot_n=6, u_cap=2)
+    ent, run_start, n_runs, long_runs, n_long = out
+    assert fused_sgns.RUN_CHUNK < 10
+    for b in range(2):
+        runs = [ent[b, run_start[b, j]:run_start[b, j + 1]].tolist() for j in range(3)]
+        assert runs == [[0, 3, 7, 8, 9, 10, 11, 12, 14, 15], [2, 5], [13]]
+    assert n_long.tolist() == [1, 1] and long_runs[:, 0].tolist() == [0, 0]
+    assert (long_runs[:, 1:] == -1).all()
+    # the kernel reads them through raw pointers, rows of K (+ 1) entries
+    assert all(t.is_contiguous() for t in out)
+    assert [tuple(t.shape) for t in out] == [(2, 16), (2, 17), (2,), (2, 16), (2,)]
 
 
 # ------------------------------------------------------------ the slice ---

@@ -229,6 +229,31 @@ def test_train_step_two_substeps_with_lr_decay_matches_jax(monkeypatch):
     assert tt.step_lr(batch) < tt.lr
 
 
+@pytest.mark.parametrize("extra", [1, 127])
+def test_train_step_refuses_a_batch_that_does_not_split_as_jax_does(extra):
+    """``steps_per_call: 2`` at batch 128: a batch of 256 + ``extra`` items
+    is 2 substeps of 128 and a tail. The JAX package's reshape to (2, 128)
+    refuses it, and so does the port, instead of dropping the tail; the
+    whole batch runs in both."""
+    jt, tt = _trainers(steps_per_call=2, dim=16)
+    batch = next(iter(tt.batches()))
+    assert batch["centers"].shape == (2 * BATCH,)
+    ragged = {k: np.concatenate([v, v[:extra]]) if np.ndim(v) else v
+              for k, v in batch.items()}
+    for b, want_ok in ((ragged, False), (batch, True)):
+        jb = {k: jnp.asarray(v) for k, v in b.items()}
+        tb = {k: torch.from_numpy(v) if np.ndim(v) else v for k, v in b.items()}
+        if want_ok:
+            _, jm = jt.train_step(jt.init_state(), jb, jax.random.PRNGKey(0))
+            _, tm = tt.train_step(tt.init_state(), tb, torch.Generator())
+            assert np.isfinite(float(jm["loss"])) and np.isfinite(float(tm["loss"]))
+            continue
+        with pytest.raises(TypeError, match="cannot reshape"):
+            jt.train_step(jt.init_state(), jb, jax.random.PRNGKey(0))
+        with pytest.raises(ValueError, match="does not split into 2 substeps"):
+            tt.train_step(tt.init_state(), tb, torch.Generator())
+
+
 @pytest.mark.parametrize("hash_keys", [0, 1])
 def test_export_text_matches_jax(tmp_path, hash_keys):
     jt, tt = _trainers(dim=16, hash_keys=hash_keys)
