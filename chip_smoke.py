@@ -38,7 +38,10 @@ Phases:
    beside the plain version and the unfused packed substep on the same
    pairs and pool (no PyTorch call computes a fused SGNS step), against its
    bound (the larger of least bytes / memory rate and f32 flops / the f32
-   rate). Each merged kernel
+   rate); one launch a substep on the card (the profiler's count, held),
+   its host time a call, its cluster size, CTAs, and the clusters of each
+   size 1..8 that the card holds at once, from which its rule picked the
+   size. Each merged kernel
    (f32 and bf16; the grouped shape, ``hot_rows`` 2,048 resident, ``u_cap``
    384 dedup, both 384 and 256 composed): on zipf ids over the whole
    vocabulary within rtol 1e-5 / atol 1e-6 of its plain version in f32; in
@@ -59,7 +62,9 @@ Phases:
    512 pairs a pool on the zipf corpus, lr 100 (see ``LR``), one substep a
    step; fused-hogwild at the same batch and fused-grouped at 8,192 centers
    and 256 centers a block on the paired corpus, lr 1,600, 8 substeps a
-   step (see ``FUSED_LR``); ``train_resident``, ``train_dedup``,
+   step (see ``FUSED_LR``), each held to the plain version's blocks run in
+   order at the same lr (``HOGWILD_FALL_SHARE``); ``train_resident``,
+   ``train_dedup``,
    ``train_dedup_res`` as fused-grouped with their keys, at ``MERGED_LR``
    (410, 100, 410).
    Every kernel's launch counter
@@ -153,9 +158,17 @@ LR = 100.0
 # fall at any lr (PERF.md, Findings). Their train phases use the paired corpus
 # instead (word 2p always beside 2p + 1, as in the JAX package's quality
 # probe; pairs zipf-distributed), bench.py's 8 substeps a call, and this lr
-# (a sweep on the card: it falls at 410-3200, diverges at 4,800 grouped).
+# (a sweep on the card, train_sweep.py: it falls at 410-3200, diverges at
+# 4,800 grouped).
 FUSED_LR = 1600.0
 FUSED_STEPS_PER_CALL = 8
+# The hogwild kernels race where blocks share a row; the plain version runs
+# the blocks in order, as the TPU kernel does. Over the 30 steps the
+# kernel's loss must fall (mean of the first 5 steps less the mean of the
+# last 5) by at least this share of the plain version's fall at the same
+# lr, seed and batches: a schedule that keeps fewer of the blocks' steps of
+# a shared row learns less a step, and fails it.
+HOGWILD_FALL_SHARE = 0.75
 # The merged paths sum a hot or unique row's updates in a block, as the
 # packed push does, so they take a smaller lr than the hogwild paths.
 # train_sweep.py on the card (PERF.md, Findings) chose, on the paired corpus
@@ -495,20 +508,31 @@ def _host_ms(fn, runs: int = 10) -> float:
 def _kernel_only(fn, id_sets, tables, kw, name: str, calls: int = 5) -> tuple:
     """Device time of the CUDA kernel alone (no prep) a call, by
     torch.profiler, and its launches on the card a call (events named
-    ``name``)."""
+    ``name``). The profiler must see every launch the wrapper's counter
+    made, each of which returned success: a window with records lost fails
+    the run, since its time would be short too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    made = fn.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # ~1 ms of spinning first, so that no measured launch starts at the
+        # window's edge (the profiler now and then lost the first record of
+        # a window that began with one)
+        torch.cuda._sleep(2_000_000)
         for i in range(calls):
             fn(*tables, *id_sets[i % len(id_sets)].values(), **kw)
         torch.cuda.synchronize()
+    made = fn.launches - made
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and name in e.key]
+    seen = sum(e.count for e in events)
+    if seen < made:
+        raise AssertionError(f"the profiler saw {seen} {name} launches of the {made} that "
+                             f"{fn.__name__} made: records lost")
     us = sum(e.self_device_time_total for e in events)
-    if not us:
-        raise AssertionError(f"the profiler saw no {name} launch")
-    return us / 1e3 / calls, sum(e.count for e in events) / calls
+    return us / 1e3 / calls, seen / calls
 
 
 def _max_err(got, want) -> float:
@@ -516,6 +540,7 @@ def _max_err(got, want) -> float:
 
 
 def _fused_case(kind: str, dtype, base, rng, env) -> dict:
+    from swiftsnails_tpu_torch.ops import fused_sgns
     from swiftsnails_tpu_torch.utils.metrics import time_ms
 
     fn, plain, kw = _fused_call(kind)
@@ -553,17 +578,29 @@ def _fused_case(kind: str, dtype, base, rng, env) -> dict:
     bytes_ms = nbytes / env["mem_rate_Bps"] * 1e3
     flops_ms = flops / env["f32_rate_flops"] * 1e3
     pick = lambda i: id_sets[i % len(id_sets)].values()  # noqa: E731
+    kernel = "fused_sgns_kernel" if kind == "flat" else "fused_sgns_grouped_kernel"
+    grouped = kind == "grouped"
+    nb = (GROUPED_BATCH // CENTERS_PER_BLOCK) if grouped else BATCH // POOL_BLOCK
+    plan = fused_sgns.cluster_plan(grouped, nb, CENTERS_PER_BLOCK if grouped else POOL_BLOCK,
+                                   CW if grouped else 0, POOL_SIZE, tables[0])
     case = {
         "ms": time_ms(lambda i: fn(*tables, *pick(i), **kw)),
         **dict(zip(("kernel_only_ms", "card_launches_per_substep"), _kernel_only(
-            fn, id_sets, tables, kw,
-            "fused_sgns_kernel" if kind == "flat" else "fused_sgns_grouped_kernel"))),
+            fn, id_sets, tables, kw, kernel))),
+        "host_ms": _host_ms(lambda i: fn(*tables, *pick(i), **kw)),
         "plain_ms": time_ms(lambda i: plain(*tables, *pick(i), **kw), runs=5),
+        "cluster": plan["cluster"], "ctas": plan["ctas"],
+        "max_active_clusters": plan["max_active_clusters"],
+        "active_by_cluster": plan["active_by_cluster"], "tile": plan["tile"],
+        "ring": plan["ring"], "smem_bytes": plan["smem_bytes"],
         "max_abs_err": err, "zipf_loss_gap": loss_gap, "zipf_max_abs_diff": zipf_err,
         "bytes": nbytes, "flops": flops, "distinct_rows": distinct, "real_pairs": pairs,
         "bytes_ms": bytes_ms, "flops_ms": flops_ms, "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
     }
+    if case["card_launches_per_substep"] != 1:
+        raise AssertionError(f"{fn.__name__}: {case['card_launches_per_substep']} launches "
+                             "a substep on the card, want 1")
     if dtype == torch.float32:
         case["yardstick_ms"], case["yardstick_pairs"] = _yardstick(kind, id_sets, tables)
     return case
@@ -799,6 +836,7 @@ def _counters() -> dict:
 # corpus); every phase at vocab 2^20, dim 200, window 5, 5 negatives, pool 64
 _FUSED = {"learning_rate": FUSED_LR, "steps_per_call": FUSED_STEPS_PER_CALL,
           "fused": 1}
+HOGWILD_TRAIN = ("train_fused", "train_grouped")
 TRAIN = {
     "train": ({"learning_rate": LR, "batch_size": BATCH},
               {"gather_rows": 2, "scatter_add_rows": 2}, False),
@@ -818,15 +856,15 @@ for _phase, _keys, _kernel in (
                      {_kernel: 1}, True)
 
 
-def phase_train(phase: str, seed: int, corpora, device_name: str, smi: str):
+def _train_loop(phase: str, seed: int, corpora):
+    """A train phase's trainer and loop, and the list its records go to."""
     from swiftsnails_tpu_torch.framework.trainer import TrainLoop
     from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
     from swiftsnails_tpu_torch.utils.config import Config
     from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
 
-    over, per_substep, paired = TRAIN[phase]
-    ids, vocab, pairs_per_token = corpora[paired]
-    t0 = time.monotonic()
+    over, _, paired = TRAIN[phase]
+    ids, vocab, _ = corpora[paired]
     cfg = Config({"dim": str(DIM), "window": str(WINDOW),
                   "negatives": str(NEGATIVES), "subsample": "0", "num_iters": "1",
                   "pool_size": str(POOL_SIZE), "pool_block": str(POOL_BLOCK),
@@ -839,7 +877,37 @@ def phase_train(phase: str, seed: int, corpora, device_name: str, smi: str):
         def log(self, record):
             records.append(record)
 
-    loop = TrainLoop(trainer, metrics=Recorder(), log_every=1)
+    return trainer, TrainLoop(trainer, metrics=Recorder(), log_every=1), records
+
+
+def _plain_in_order_losses(phase: str, seed: int, corpora) -> list:
+    """The losses of ``phase`` (fused-hogwild or fused-grouped) with its
+    kernel replaced by the plain version, whose blocks run in order as the
+    TPU kernel's do: the same seed, batches and lr."""
+    from swiftsnails_tpu_torch.models import word2vec
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    trainer, loop, records = _train_loop(phase, seed, corpora)
+    kernel = word2vec.fused_sgns_step
+    word2vec.fused_sgns_step = fused_sgns.fused_sgns_step_plain
+    if trainer.grouped:
+        trainer.grouped_step = (fused_sgns.fused_sgns_grouped_step_plain, {})
+    try:
+        loop.run(seed=seed, max_steps=STEPS)
+    finally:
+        word2vec.fused_sgns_step = kernel
+    return [r["loss"] for r in records]
+
+
+def _fall(losses) -> float:
+    return float(np.mean(losses[:5]) - np.mean(losses[-5:]))
+
+
+def phase_train(phase: str, seed: int, corpora, device_name: str, smi: str):
+    _, per_substep, paired = TRAIN[phase]
+    pairs_per_token = corpora[paired][2]
+    t0 = time.monotonic()
+    trainer, loop, records = _train_loop(phase, seed, corpora)
     setup_s = time.monotonic() - t0
     torch.cuda.reset_peak_memory_stats()
     state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=STEPS))
@@ -870,7 +938,20 @@ def phase_train(phase: str, seed: int, corpora, device_name: str, smi: str):
            "loss_first5": losses[:5], "loss_last5": losses[-5:],
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "device": device_name, "nvidia_smi": smi}
+    if phase in HOGWILD_TRAIN:
+        plain = _plain_in_order_losses(phase, seed, corpora)
+        fall, plain_fall = _fall(losses), _fall(plain)
+        out["plain_in_order"] = {"loss_first5": plain[:5], "loss_last5": plain[-5:],
+                                 "fall": plain_fall, "kernel_fall": fall,
+                                 "fall_share": fall / plain_fall if plain_fall else None,
+                                 "limit": HOGWILD_FALL_SHARE}
     emit(phase, **out)
+    if phase in HOGWILD_TRAIN:
+        ref = out["plain_in_order"]
+        if not ref["fall"] > 0 or ref["fall_share"] < HOGWILD_FALL_SHARE:
+            raise AssertionError(f"{phase}: the loss fell {ref['kernel_fall']}, "
+                                 f"{ref['fall_share']} of the plain version's {ref['fall']} "
+                                 f"(blocks in order), below {HOGWILD_FALL_SHARE}")
     return out, trainer, state
 
 
@@ -1398,6 +1479,8 @@ def main() -> int:
             "bound_by": s["bound_by"], "library_ms": None,
             "kernel_only_ms": s["kernel_only_ms"], "yardstick_ms": s["yardstick_ms"],
             "card_launches_per_substep": s["card_launches_per_substep"],
+            **{k: s[k] for k in ("host_ms", "cluster", "ctas", "max_active_clusters")
+               if k in s},
             "shape": {**shape, "table": [VOCAB, -(-DIM // 128), 128]},
             "dtype": "float32"})
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),

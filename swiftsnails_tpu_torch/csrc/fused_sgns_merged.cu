@@ -160,12 +160,6 @@ struct Params {
   int miss;  // the barrier CTA 0 does not arrive at (-1: none), to test the deadline
 };
 
-// Loads of data written inside the launch: L2 only (ld.global.cg).
-__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ldcg(const __nv_bfloat16* p) {
-  return __uint_as_float(uint32_t(__ldcg(reinterpret_cast<const unsigned short*>(p))) << 16);
-}
-
 __device__ __forceinline__ void copy_cg(float* dst, const float* src) { *dst = __ldcg(src); }
 __device__ __forceinline__ void copy_cg(__nv_bfloat16* dst, const __nv_bfloat16* src) {
   *reinterpret_cast<unsigned short*>(dst) =
@@ -189,21 +183,6 @@ __device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
   w.x = *reinterpret_cast<const uint32_t*>(&a);
   w.y = *reinterpret_cast<const uint32_t*>(&b);
   *reinterpret_cast<uint2*>(p) = w;
-}
-
-// A 16-byte word of T (4 f32 or 8 bf16) widened into f32 at dst (16-byte
-// aligned shared memory).
-__device__ __forceinline__ void widen(float* dst, uint4 w, const float*) {
-  *reinterpret_cast<float4*>(dst) = make_float4(__uint_as_float(w.x), __uint_as_float(w.y),
-                                                __uint_as_float(w.z), __uint_as_float(w.w));
-}
-__device__ __forceinline__ void widen(float* dst, uint4 w, const __nv_bfloat16*) {
-  reinterpret_cast<float4*>(dst)[0] =
-      make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
-                  __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
-  reinterpret_cast<float4*>(dst)[1] =
-      make_float4(__uint_as_float(w.z << 16), __uint_as_float(w.z & 0xffff0000u),
-                  __uint_as_float(w.w << 16), __uint_as_float(w.w & 0xffff0000u));
 }
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {

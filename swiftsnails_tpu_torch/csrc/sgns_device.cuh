@@ -1,8 +1,8 @@
 // Device helpers shared by the fused SGNS kernels (fused_sgns.cu and
-// fused_sgns_merged.cu): typed loads and stores in f32, the sigmoid terms,
-// fixed-order warp and block sums, row loads and warp dot products. Every
-// sum here runs in a fixed order, so a kernel built from them repeats bit
-// for bit.
+// fused_sgns_merged.cu): typed L2 loads and stores in f32, 16-byte words
+// widened to f32, the sigmoid terms, a fixed-order warp sum and warp dot
+// products. Every sum here runs in a fixed order, so a kernel built from
+// them repeats bit for bit.
 
 #pragma once
 
@@ -14,10 +14,30 @@
 
 namespace {
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Loads of data that another CTA may write inside the launch: L2 only
+// (ld.global.cg), never a stale L1 line or the non-coherent path.
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg(const __nv_bfloat16* p) {
+  return __uint_as_float(uint32_t(__ldcg(reinterpret_cast<const unsigned short*>(p))) << 16);
+}
+
+// A 16-byte word of T (4 f32 or 8 bf16) widened into f32 at dst (16-byte
+// aligned shared memory).
+__device__ __forceinline__ void widen(float* dst, uint4 w, const float*) {
+  *reinterpret_cast<float4*>(dst) = make_float4(__uint_as_float(w.x), __uint_as_float(w.y),
+                                                __uint_as_float(w.z), __uint_as_float(w.w));
+}
+__device__ __forceinline__ void widen(float* dst, uint4 w, const __nv_bfloat16*) {
+  reinterpret_cast<float4*>(dst)[0] =
+      make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                  __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+  reinterpret_cast<float4*>(dst)[1] =
+      make_float4(__uint_as_float(w.z << 16), __uint_as_float(w.z & 0xffff0000u),
+                  __uint_as_float(w.w << 16), __uint_as_float(w.w & 0xffff0000u));
+}
 
 __device__ __forceinline__ bool in_range(int32_t r, int64_t capacity) {
   return r >= 0 && int64_t(r) < capacity;
@@ -36,18 +56,6 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// dst[j * d + i] = table[rows[j]][i] in f32 for j < n, zeros for a row id
-// outside [0, capacity). The whole block (kThreads threads) cooperates.
-template <int kThreads, typename T>
-__device__ void load_rows(float* dst, const T* table, const int32_t* rows, int n,
-                          int64_t capacity, int d) {
-  for (int e = threadIdx.x; e < n * d; e += kThreads) {
-    const int j = e / d;
-    const int32_t r = rows[j];
-    dst[e] = in_range(r, capacity) ? ld(table + int64_t(r) * d + (e - j * d)) : 0.f;
-  }
-}
-
 // out[k] = a_k . b_k for k < n, one warp per product (lanes over the row).
 // a_k, b_k are given by the functor; the result is the same on every run.
 template <int kThreads, typename Rows>
@@ -61,22 +69,6 @@ __device__ void dots(float* out, int n, int d, Rows rows) {
     for (int i = lane; i < d; i += 32) s = fmaf(a[i], b[i], s);
     s = warp_sum(s);
     if (lane == 0) out[k] = s;
-  }
-}
-
-// *loss_part = -inv_b * (sum of every thread's terms), summed per warp and
-// then over the warps in order.
-template <int kThreads>
-__device__ void store_loss(float* loss_part, float mine, float inv_b) {
-  constexpr int kWarps = kThreads / 32;
-  __shared__ float warp_loss[kWarps];
-  mine = warp_sum(mine);
-  if ((threadIdx.x & 31) == 0) warp_loss[threadIdx.x >> 5] = mine;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += warp_loss[w];
-    *loss_part = -s * inv_b;
   }
 }
 

@@ -39,9 +39,17 @@ tests pin down, is this:
 The plain versions (``*_plain``) implement 1-3 as a loop over blocks. On the
 card the kernel keeps rule 2 exactly, through last-occurrence flags computed
 here before the launch (:func:`last_occurrence`), and runs the blocks
-concurrently, so rule 1 becomes true hogwild there, as on the TPU. On inputs
-whose rows are disjoint between blocks the kernel equals its plain version
-within f32 reduction order and is bit-identical from run to run.
+concurrently, so rule 1 becomes true hogwild there, as on the TPU. A center
+or context write on the card applies its block's step to the row as it
+then stands (the kernel reads the row again at the write), so the steps of
+concurrent blocks that share the row add up unless two writes of it race;
+a pool write stores the block's snapshot of the row less its pool step (a
+sum over all the block's pairs). The grouped kernel writes the pool before
+its context rows and skips a context slot whose row is one of its block's
+pool rows: the same result within the block (rule 2), while other blocks'
+steps of such a row land after the pool's write, mostly, and are kept. On
+inputs whose rows are disjoint between blocks the kernel equals its plain
+version within f32 reduction order and is bit-identical from run to run.
 
 Each kernel has, as in :mod:`.rowdma`, a wrapper that checks its inputs and
 raises on what the kernel does not take, runs the plain version for tables
@@ -208,6 +216,9 @@ def _lib() -> ctypes.CDLL:
     lib.ssn_fused_sgns_grouped_step.argtypes = (
         [vp] * 10 + [ll, i32, i32, i32, ll, i32, i32, f32, f32, f32, i32, vp])
     lib.ssn_fused_sgns_grouped_step.restype = i32
+    lib.ssn_fused_sgns_plan.argtypes = [i32, ll, i32, i32, i32, i32, i32, i32,
+                                        ctypes.POINTER(ll)]
+    lib.ssn_fused_sgns_plan.restype = i32
     lib.ssn_fused_sgns_error_string.argtypes = [i32]
     lib.ssn_fused_sgns_error_string.restype = ctypes.c_char_p
     return lib
@@ -218,6 +229,31 @@ def _tile(name: str, grouped: bool, cw: int, pn: int, row_elems: int) -> None:
         raise ValueError(
             f"{name}: a pool of {pn} rows of {row_elems} lanes does not fit in "
             "the kernel's shared memory")
+
+
+_PLAN_KEYS = ("tile", "ring", "cluster", "ctas", "max_active_clusters", "smem_bytes",
+              "dq_in_smem")
+_MAX_CLUSTER = 8  # the kernels' cluster sizes are 1..8
+
+
+def cluster_plan(grouped: bool, nblocks: int, per_block: int, cw: int, pool_size: int,
+                 table: torch.Tensor) -> dict:
+    """How the hogwild kernel launches a substep of ``nblocks`` kernel
+    blocks of ``per_block`` pairs (flat) or centers (grouped) on ``table``'s
+    card: its tile, the grouped form's ring of context rows, the cluster
+    size K (CTAs a kernel block), the CTAs of the grid, the clusters of K
+    the card holds at once, the shared memory a CTA and whether the dQ
+    partial lives there (else in registers); and ``active_by_cluster``,
+    the clusters of each size 1..8 the card holds at once, from which the
+    rule picked K. Raises for a shape the kernel refuses."""
+    out = (ctypes.c_longlong * (len(_PLAN_KEYS) + _MAX_CLUSTER))()
+    rc = _lib().ssn_fused_sgns_plan(int(grouped), nblocks, per_block, cw, pool_size,
+                                    table.stride(0), table.element_size(),
+                                    table.device.index or 0, out)
+    _raise_on("cluster_plan", rc)
+    plan = dict(zip(_PLAN_KEYS, out))
+    plan["active_by_cluster"] = {k + 1: out[len(_PLAN_KEYS) + k] for k in range(_MAX_CLUSTER)}
+    return plan
 
 
 def _raise_on(name: str, rc: int) -> None:
@@ -391,7 +427,8 @@ def fused_sgns_grouped_step(in_table: torch.Tensor, out_table: torch.Tensor,
     row_elems = in_table.stride(0)
     _tile("fused_sgns_grouped_step", True, cw, pn, row_elems)
     flags = grouped_flags(centers, ctxs, pool_rows, pc, pn)
-    scratch = torch.empty((n * cw, row_elems), dtype=out_table.dtype,
+    # each flagged context slot's step, in f32 whatever the tables' type
+    scratch = torch.empty((n * cw, -(-row_elems // 4) * 4), dtype=torch.float32,
                           device=out_table.device)
     loss_parts = torch.zeros(nblocks, dtype=torch.float32, device=in_table.device)
     rc = _lib().ssn_fused_sgns_grouped_step(

@@ -129,42 +129,50 @@ def _block_local(rng, nblocks, per_block, span):
     return ids.reshape(-1).astype(np.int32)
 
 
-def _fused_case(kind, dev, dtype, seed=0, nblocks=6, span=48):
+def _fused_case(kind, dev, dtype, seed=0, nblocks=6, span=48, per_block=None, pool=16,
+                width=256):
     """Tables and block-local ids for one step of ``kind`` (flat or grouped),
-    with contexts sharing rows with the pool and pads in the windows."""
+    with contexts sharing rows with the pool and pads in the windows.
+    ``per_block``: pairs (flat, default 64) or centers (grouped, default 32)
+    a kernel block; rows of ``width`` lanes, the last 7/32 of them padding
+    (dim 200 at 256). Block 0's last context slot names its first pool row,
+    so the pool write must win over a context write from another tile."""
     from swiftsnails_tpu_torch.ops import fused_sgns
 
     rng = np.random.default_rng(seed)
     cap = nblocks * span
-    lanes = np.arange(256).reshape(2, 128) < 200  # dim 200: zero padding lanes
-    tables = [torch.from_numpy((rng.normal(size=(cap, 2, 128)) * 0.1 * lanes)
+    lanes = (np.arange(width) < width * 25 // 32).reshape(-1, 128)
+    tables = [torch.from_numpy((rng.normal(size=(cap, width // 128, 128)) * 0.1 * lanes)
                                .astype(np.float32)).to(dev, dtype) for _ in range(2)]
-    pool = _block_local(rng, nblocks, 16, span)
+    pool_rows = _block_local(rng, nblocks, pool, span)
     if kind == "flat":
-        p = 64
+        p = per_block or 64
         ids = [_block_local(rng, nblocks, p, span) for _ in range(2)]
-        args = dict(in_rows=ids[0], pos_rows=ids[1], pool_rows=pool)
+        ids[1][p - 1] = pool_rows[0]
+        args = dict(in_rows=ids[0], pos_rows=ids[1], pool_rows=pool_rows)
         fn, kw = fused_sgns.fused_sgns_step, dict(lr=0.05 * p * nblocks, lam=0.3,
-                                                   pairs_per_block=p, pool_size=16)
+                                                   pairs_per_block=p, pool_size=pool)
     else:
-        pc, window = 32, 3
+        pc, window = per_block or 32, 3
         ctxs = _block_local(rng, nblocks, pc * 2 * window, span).reshape(-1, 2 * window)
         ctxs[rng.random(ctxs.shape) < 0.3] = -1
         ctxs[5] = -1
-        args = dict(centers=_block_local(rng, nblocks, pc, span), ctxs=ctxs, pool_rows=pool)
+        ctxs[pc - 1, 0] = pool_rows[0]
+        args = dict(centers=_block_local(rng, nblocks, pc, span), ctxs=ctxs,
+                    pool_rows=pool_rows)
         fn, kw = fused_sgns.fused_sgns_grouped_step, dict(
             lr=0.05 * pc * nblocks * (window + 1), lam=0.3, window=window,
-            centers_per_block=pc, pool_size=16)
+            centers_per_block=pc, pool_size=pool)
     args = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in args.items()}
     return fn, tables, args, kw
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["flat", "grouped"])
-def test_fused_kernels_match_plain_on_block_local_inputs(cuda_device, kind, dtype):
+def _assert_fused_like_plain(fn, tables, args, kw, dtype, dim):
+    """Two kernel runs (one launch each) within rtol 1e-5 / atol 1e-6 of the
+    plain version in f32, one bf16 rounding in bf16, bit-identical, with the
+    padding lanes (from ``dim``) still zero."""
     from swiftsnails_tpu_torch.ops import fused_sgns
 
-    fn, tables, args, kw = _fused_case(kind, cuda_device, dtype)
     plain = getattr(fused_sgns, fn.__name__ + "_plain")
     want = plain(*[t.clone() for t in tables], *args.values(), **kw)
     n0 = fn.launches
@@ -176,7 +184,142 @@ def test_fused_kernels_match_plain_on_block_local_inputs(cuda_device, kind, dtyp
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
     assert all(torch.equal(a, b) for a, b in zip(got[0], got[1]))  # bit-identical
     for t in got[0][:2]:
-        assert not t.reshape(t.shape[0], -1)[:, 200:].any()
+        assert not t.reshape(t.shape[0], -1)[:, dim:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["flat", "grouped"])
+def test_fused_kernels_match_plain_on_block_local_inputs(cuda_device, kind, dtype):
+    fn, tables, args, kw = _fused_case(kind, cuda_device, dtype)
+    _assert_fused_like_plain(fn, tables, args, kw, dtype, 200)
+
+
+def _balanced_tile(per_block, k, largest=32):
+    """The kernels' tile at cluster size k: the smallest that keeps the
+    rounds of tiles of the largest that fits, ceil(ntiles / k)."""
+    rounds = -(-(-(-per_block // largest)) // k)
+    return min(largest, -(-per_block // (rounds * k)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_block", ["full", "ragged"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("kind", ["flat", "grouped"])
+def test_fused_kernels_at_each_cluster_size(cuda_device, kind, k, per_block, dtype):
+    """Clusters of K CTAs a kernel block, reached through the shape: 6
+    kernel blocks (one wave at every K) of K tiles of 32 pairs (flat) or
+    centers (grouped) take K, one tile a CTA; ragged: 5 fewer, so the last
+    CTA's tile is short. The pool row that a context slot of the block's
+    last tile names is written by the pool."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    grouped = kind == "grouped"
+    n = 32 * k - (5 if per_block == "ragged" else 0)
+    fn, tables, args, kw = _fused_case(kind, cuda_device, dtype, seed=k, per_block=n)
+    plan = fused_sgns.cluster_plan(grouped, 6, n, 6 if grouped else 0, 16, tables[0])
+    assert (plan["cluster"], plan["ctas"], plan["tile"]) == (k, 6 * k, _balanced_tile(n, k))
+    _assert_fused_like_plain(fn, tables, args, kw, dtype, 200)
+
+
+@pytest.mark.parametrize("nblocks", [200, 66, 33, 6])
+@pytest.mark.parametrize("kind", ["flat", "grouped"])
+def test_cluster_rule_minimises_rounds_times_waves(cuda_device, kind, nblocks):
+    """The rule's K is the size with the fewest rounds a CTA times waves of
+    clusters (the smaller K on a tie), from the clusters the card holds at
+    once at each size; the step at that K equals its plain version."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    grouped = kind == "grouped"
+    per_block = 64 if grouped else 128
+    fn, tables, args, kw = _fused_case(kind, cuda_device, torch.float32, nblocks=nblocks,
+                                       span=32, per_block=per_block)
+    rule = fused_sgns.cluster_plan(grouped, nblocks, per_block, 6 if grouped else 0, 16,
+                                   tables[0])
+    ntiles = -(-per_block // 32)  # at the largest tile, before balancing
+    costs = {k: -(-ntiles // k) * -(-nblocks // active)
+             for k, active in rule["active_by_cluster"].items() if active > 0}
+    assert rule["cluster"] == min(costs, key=lambda k: (costs[k], k)), (rule, costs)
+    assert rule["max_active_clusters"] == rule["active_by_cluster"][rule["cluster"]]
+    assert rule["ctas"] == nblocks * rule["cluster"]
+    assert rule["tile"] == _balanced_tile(per_block, rule["cluster"])
+    _assert_fused_like_plain(fn, tables, args, kw, torch.float32, 200)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["flat", "grouped"])
+def test_fused_kernel_at_the_main_shape(cuda_device, kind, dtype):
+    """32 kernel blocks (512 pairs, or 256 centers of 10 slots), pools of 64,
+    rows of 256 lanes (dim 200) over 2^20 rows, block-local ids."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    rng = np.random.default_rng(5)
+    cap, nb, pool = 1 << 20, 32, 64
+    span = cap // nb
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    lanes = (torch.arange(256, device=cuda_device) < 200).view(2, 128)
+    tables = [torch.randn(cap, 2, 128, generator=gen, device=cuda_device).mul_(0.1)
+              .mul_(lanes).to(dtype) for _ in range(2)]
+
+    def local(per_block):
+        return _block_local(rng, nb, per_block, span)
+
+    if kind == "flat":
+        p = 512
+        args = dict(in_rows=local(p), pos_rows=local(p), pool_rows=local(pool))
+        fn, kw = fused_sgns.fused_sgns_step, dict(lr=100.0, lam=5 / pool, pairs_per_block=p,
+                                                   pool_size=pool)
+    else:
+        pc, window = 256, 5
+        ctxs = local(pc * 2 * window).reshape(-1, 2 * window)
+        ctxs[rng.random(ctxs.shape) < 0.3] = -1
+        args = dict(centers=local(pc), ctxs=ctxs, pool_rows=local(pool))
+        fn, kw = fused_sgns.fused_sgns_grouped_step, dict(
+            lr=100.0, lam=5 / pool, window=window, centers_per_block=pc, pool_size=pool)
+    args = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda_device)
+            for k, v in args.items()}
+    _assert_fused_like_plain(fn, tables, args, kw, dtype, 200)
+
+
+@pytest.mark.parametrize("width,pool", [(128, 16), (256, 16), (512, 16), (512, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["flat", "grouped"])
+def test_fused_kernels_at_other_row_widths(cuda_device, kind, dtype, width, pool):
+    """Rows of 128, 256 and 512 lanes (dims 100, 200, 400), pools of 16; and
+    a pool of 40 rows of 512 lanes, whose dQ partial (5 x 128 micro-tiles)
+    does not fit in the registers of 512 threads and lives in shared
+    memory."""
+    from swiftsnails_tpu_torch.ops import fused_sgns
+
+    fn, tables, args, kw = _fused_case(kind, cuda_device, dtype, width=width, pool=pool)
+    grouped = kind == "grouped"
+    plan = fused_sgns.cluster_plan(grouped, 6, 32 if grouped else 64, 6 if grouped else 0,
+                                   pool, tables[0])
+    assert plan["dq_in_smem"] == (pool == 40)
+    _assert_fused_like_plain(fn, tables, args, kw, dtype, width * 25 // 32)
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 6), (torch.bfloat16, 12),
+                                         (torch.float32, 200)])
+@pytest.mark.parametrize("kind", ["flat", "grouped"])
+def test_fused_kernels_on_rows_not_in_16_byte_words(cuda_device, kind, dtype, width):
+    """Rows the kernels move element by element (24 B), or in words (800 B)."""
+    fn, tables, args, kw = _fused_case(kind, cuda_device, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(width)
+    tables = [torch.randn(t.shape[0], width, generator=gen, device=cuda_device).mul_(0.1)
+              .to(dtype) for t in tables]
+    _assert_fused_like_plain(fn, tables, args, kw, dtype, width)
+
+
+@pytest.mark.parametrize("kind", ["flat", "grouped"])
+def test_fused_kernels_refuse_a_pool_too_large_before_any_launch(cuda_device, kind):
+    """64 pool rows of 512 f32 lanes do not fit in shared memory beside the
+    pool gradient: the wrapper raises and launches nothing."""
+    fn, tables, args, kw = _fused_case(kind, cuda_device, torch.float32, pool=64,
+                                       width=512)
+    n0 = fn.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        fn(*tables, *args.values(), **kw)
+    assert fn.launches == n0
 
 
 def test_grouped_kernel_never_reads_a_pad(cuda_device):

@@ -18,6 +18,7 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -442,3 +443,374 @@ def test_fused_loss_decreases_and_launches_no_kernel_on_the_cpu(grouped):
     assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
     if grouped:  # a grouped batch counts words (corpus positions)
         assert records[0]["items"] == 2 * 64
+
+
+# ------------------------------------------------ the kernels' schedule ---
+#
+# csrc/fused_sgns.cu runs a kernel block as a cluster of K CTAs: tile T (of
+# pairs, or centers) goes to CTA T mod K, in rounds of K tiles; in a round
+# every CTA reads its tile and computes, the cluster syncs, and every CTA
+# writes its flagged center and context rows, each the row as it then
+# stands less its step; dQ is summed per CTA and then over the CTAs in rank
+# order, and the pool (its snapshot less its step) is written after the
+# last round; the grouped form's context steps go to scratch and are
+# applied after the pool's write, but for the block's pool rows (the pool's
+# write wins). The emulation below runs a block's schedule as a generator
+# that yields at each round's barrier, with its CTAs in the worst order the
+# barriers allow (the last CTA's writes of round r landing after the other
+# CTAs' reads of round r + 1). Run one block after another on ids whose
+# rows are disjoint between blocks, it must equal the plain version; run in
+# lockstep on center and context rows that blocks share, every block's
+# step of a shared row must survive. A planted fault must fail it: a round
+# without its barrier, or a context write of a pool row landing after the
+# pool's.
+
+SCHED_SPAN, SCHED_NB = 32, 2  # C = 64 rows
+SCHED_P, SCHED_PC, SCHED_PN, SCHED_TILE = 14, 10, 4, 2  # 7 and 5 tiles a block
+
+
+def _rounds(ntiles, k, compute, apply, fault, before_last_writes):
+    """Tile T read by CTA T mod K in round T // K; ``compute(cta, T)`` reads
+    the tables and returns that tile's writes, ``apply`` lands them. Yields
+    at each round's barrier, after its reads; ``before_last_writes()`` runs
+    at the last round's barrier, ahead of its writes. ``fault="no_barrier"``:
+    a CTA writes as soon as it has computed, the last CTA first."""
+    rounds = -(-ntiles // k)
+    late = None  # the last CTA's writes, landing after the others' next reads
+    for r in range(rounds):
+        mine = {cta: r * k + cta for cta in range(k) if r * k + cta < ntiles}
+        if fault == "no_barrier":
+            for cta in sorted(mine, reverse=True):
+                apply(compute(cta, mine[cta]))
+            if r == rounds - 1:
+                before_last_writes()
+            yield
+            continue
+        writes = {}
+        for cta in sorted(mine):
+            if cta == k - 1 and late is not None:  # its own earlier writes first
+                apply(late)
+                late = None
+            writes[cta] = compute(cta, mine[cta])
+        if late is not None:  # the barrier: every CTA's writes of round r - 1 landed
+            apply(late)
+            late = None
+        if r == rounds - 1:
+            before_last_writes()
+        yield
+        for cta in sorted(writes):
+            if cta == k - 1 and r < rounds - 1:
+                late = writes[cta]
+            else:
+                apply(writes[cta])
+
+
+def _rank_sum(parts):
+    acc = torch.zeros_like(parts[0])
+    for part in parts:
+        acc = acc + part
+    return acc
+
+
+def _stepper(fault):
+    """Lands ``(table, rows, snapshot [K, D], steps [K, D], flags)`` center
+    and context writes: each flagged row becomes the row as it stands less
+    its step (one rounding); ``fault="stale_write"``: the snapshot less the
+    step."""
+    def apply(writes):
+        for table, rows, snap, steps, flags in writes:
+            idx = rows[flags].long()
+            base = snap[flags] if fault == "stale_write" else table[idx].float()
+            table[idx] = (base - steps[flags]).to(table.dtype)
+    return apply
+
+
+def _pool_write(ot, prow, q, step, keep):
+    """The pool's write: its flagged rows become the snapshot less the step."""
+    ot[prow[keep]] = (q - step)[keep].to(ot.dtype)
+
+
+def _block_flat(it, ot, b, in_rows, pos_rows, pool_rows, flags, lr, lam, p, pn, k, tile,
+                inv_b, losses, fault):
+    """``fused_sgns_kernel``'s schedule for kernel block ``b`` (a generator)."""
+    v_last, u_last, q_last = flags
+    d = it.shape[1]
+    prow = pool_rows[b * pn:(b + 1) * pn].long()
+    q = ot[prow].float()  # every CTA loads the pool before its first barrier
+    parts, loss = [torch.zeros(pn, d) for _ in range(k)], [0.0] * k
+    apply = _stepper(fault)
+
+    def compute(cta, tix):
+        slots = torch.arange(b * p + tix * tile, b * p + min((tix + 1) * tile, p))
+        vr, ur = in_rows[slots].long(), pos_rows[slots].long()
+        v, u = it[vr].float(), ot[ur].float()
+        pos, neg = (v * u).sum(1), v @ q.T
+        g_pos = (torch.sigmoid(pos) - 1) * inv_b
+        g_neg = lam * inv_b * torch.sigmoid(neg)
+        parts[cta] += g_neg.T @ v
+        loss[cta] += float(F.logsigmoid(pos).sum() + lam * F.logsigmoid(-neg).sum())
+        return [(it, vr, v, lr * (g_pos[:, None] * u + g_neg @ q), v_last[slots]),
+                (ot, ur, u, lr * g_pos[:, None] * v, u_last[slots])]
+
+    keep = q_last[b * pn:(b + 1) * pn]
+
+    def pool_write():
+        _pool_write(ot, prow, q, lr * _rank_sum(parts), keep)
+
+    yield from _rounds(-(-p // tile), k, compute, apply, fault,
+                       pool_write if fault == "context_over_pool" else lambda: None)
+    if fault != "context_over_pool":
+        pool_write()
+    losses.append(-sum(loss) * inv_b)
+
+
+def _block_grouped(it, ot, b, centers, ctxs, pool_rows, flags, lr, lam, pc, pn, k, tile,
+                   inv_b, losses, fault):
+    """``fused_sgns_grouped_kernel``'s schedule for kernel block ``b`` (a
+    generator)."""
+    c_last, x_last, q_last = flags
+    d, cw = it.shape[1], ctxs.shape[1]
+    prow = pool_rows[b * pn:(b + 1) * pn].long()
+    q = ot[prow].float()
+    parts, loss, scratch = [torch.zeros(pn, d) for _ in range(k)], [0.0] * k, {}
+    apply = _stepper(fault)
+    flat_ctx = ctxs.reshape(-1)
+
+    def compute(cta, tix):
+        cs = torch.arange(b * pc + tix * tile, b * pc + min((tix + 1) * tile, pc))
+        v = it[centers[cs].long()].float()
+        x = ctxs[cs]  # [t, cw]
+        real = x >= 0
+        u = torch.zeros(len(cs), cw, d)
+        u[real] = ot[x[real].long()].float()  # pads are never read
+        mask, n_real = real.float(), real.float().sum(1)
+        pos, neg = (u * v[:, None]).sum(-1), v @ q.T
+        g_pos = (torch.sigmoid(pos) - 1) * inv_b * mask
+        g_neg = lam * inv_b * torch.sigmoid(neg) * n_real[:, None]
+        parts[cta] += g_neg.T @ v
+        loss[cta] += float((F.logsigmoid(pos) * mask).sum()
+                           + lam * (F.logsigmoid(-neg) * n_real[:, None]).sum())
+        steps = lr * g_pos[:, :, None] * v[:, None]
+        for j, cj in enumerate(cs.tolist()):
+            for s in range(cw):
+                slot = cj * cw + s
+                if x_last[slot]:
+                    scratch[slot] = (u[j, s], steps[j, s])
+        dv = (g_pos[:, :, None] * u).sum(1) + g_neg @ q
+        return [(it, centers[cs].long(), v, lr * dv, c_last[cs])]
+
+    yield from _rounds(-(-pc // tile), k, compute, apply, fault, lambda: None)
+    keep = q_last[b * pn:(b + 1) * pn]
+    _pool_write(ot, prow, q, lr * _rank_sum(parts), keep)
+    for slot, (snap, step) in scratch.items():  # the deferred context writes
+        row = flat_ctx[slot:slot + 1]
+        if fault == "context_over_pool" or not torch.isin(row.long(), prow)[0]:
+            apply([(ot, row, snap[None], step[None], torch.ones(1, dtype=bool))])
+    losses.append(-sum(loss) * inv_b)
+
+
+def _drive(blocks, lockstep):
+    """Run the blocks' schedules one after another, or in lockstep: each
+    block to its next barrier in turn, so that every block's reads of a
+    round come before any block's writes of it."""
+    if not lockstep:
+        for g in blocks:
+            for _ in g:
+                pass
+        return
+    live = list(blocks)
+    while live:
+        for g in list(live):
+            try:
+                next(g)
+            except StopIteration:
+                live.remove(g)
+
+
+def emulate_flat(in_t, out_t, in_rows, pos_rows, pool_rows, lr, lam, p, pn, k, tile,
+                 fault=None, lockstep=False):
+    """``fused_sgns_kernel``'s schedule; returns ``(in_t, out_t, loss)``."""
+    c, d = in_t.shape[0], in_t.stride(0)
+    it, ot = in_t.view(c, d), out_t.view(c, d)
+    flags = [f.reshape(-1) for f in fused_sgns.flat_flags(in_rows, pos_rows, pool_rows, p, pn)]
+    losses = []
+    _drive([_block_flat(it, ot, b, in_rows, pos_rows, pool_rows, flags, lr, lam, p, pn, k,
+                        tile, 1.0 / in_rows.numel(), losses, fault)
+            for b in range(in_rows.numel() // p)], lockstep)
+    return in_t, out_t, sum(losses)
+
+
+def emulate_grouped(in_t, out_t, centers, ctxs, pool_rows, lr, lam, window, pc, pn, k,
+                    tile, fault=None, lockstep=False):
+    """``fused_sgns_grouped_kernel``'s schedule; returns ``(in_t, out_t,
+    loss)``."""
+    c, d = in_t.shape[0], in_t.stride(0)
+    it, ot = in_t.view(c, d), out_t.view(c, d)
+    n = ctxs.shape[0]
+    flags = [f.reshape(-1) for f in fused_sgns.grouped_flags(centers, ctxs, pool_rows, pc, pn)]
+    losses = []
+    _drive([_block_grouped(it, ot, b, centers, ctxs, pool_rows, flags, lr, lam, pc, pn, k,
+                           tile, 1.0 / (n * (window + 1)), losses, fault)
+            for b in range(n // pc)], lockstep)
+    return in_t, out_t, sum(losses)
+
+
+def _sched_ids(rng, per_block, shared=False, pool=False):
+    """Block-local ids, block b's drawn from [b * SPAN, b * SPAN + 24):
+    duplicates within a block; the 8 ids above are left for planted rows.
+    ``shared``: every block's from [0, 24), so blocks share rows, except
+    the pool's (block b's from [SPAN + 12 b, SPAN + 12 b + 12))."""
+    if shared and pool:
+        return rng.integers(0, 12, (SCHED_NB, per_block)) + SCHED_SPAN + 12 * np.arange(
+            SCHED_NB)[:, None]
+    ids = rng.integers(0, SCHED_SPAN - 8, (SCHED_NB, per_block))
+    return ids if shared else ids + SCHED_SPAN * np.arange(SCHED_NB)[:, None]
+
+
+def _sched_flat(seed, shared=False):
+    """Flat inputs, with in block 0: a V row at slots 1 and TILE + 1 (its
+    last slot in CTA 1's first tile, read by CTA 0 in the same round), and
+    the last U slot's row also its first pool row (the pool write wins)."""
+    rng = np.random.default_rng(seed)
+    in_t, out_t = _tables(rng)  # C = SCHED_NB * SCHED_SPAN rows
+    in_rows = _sched_ids(rng, SCHED_P, shared)
+    pos_rows = _sched_ids(rng, SCHED_P, shared)
+    pool = _sched_ids(rng, SCHED_PN, shared, pool=True)
+    y = SCHED_SPAN - 1
+    in_rows[0, 1] = in_rows[0, SCHED_TILE + 1] = y
+    pos_rows[0, -1] = pool[0, 0] = y - 1
+    return (in_t, out_t, *(a.reshape(-1).astype(np.int32) for a in (in_rows, pos_rows, pool)))
+
+
+def _sched_grouped(seed, shared=False):
+    """Grouped inputs (pads, a fully padded center), with in block 0: a
+    center row at centers 1 and TILE + 1, and a context row that is also the
+    first pool row (its only context slot, in the block's last tile)."""
+    rng = np.random.default_rng(seed)
+    in_t, out_t = _tables(rng)  # C = SCHED_NB * SCHED_SPAN rows
+    centers = _sched_ids(rng, SCHED_PC, shared)
+    ctxs = _sched_ids(rng, SCHED_PC * CW, shared).reshape(SCHED_NB * SCHED_PC, CW)
+    ctxs[rng.random(ctxs.shape) < 0.3] = -1
+    ctxs[6] = -1
+    pool = _sched_ids(rng, SCHED_PN, shared, pool=True)
+    y = SCHED_SPAN - 1
+    centers[0, 1] = centers[0, SCHED_TILE + 1] = y
+    ctxs[SCHED_PC - 1, 2] = pool[0, 0] = y - 1
+    return (in_t, out_t, centers.reshape(-1).astype(np.int32), ctxs.astype(np.int32),
+            pool.reshape(-1).astype(np.int32))
+
+
+def _sched_case(kind, shared=False, seed=0):
+    """(tables as numpy, ids as numpy, lr, emulate(tables, ids, lr, k, ...),
+    plain(tables, ids, lr)) for one step of ``kind``."""
+    if kind == "flat":
+        in_t, out_t, *ids = _sched_flat(seed, shared)
+        lr = 0.05 * SCHED_P * SCHED_NB
+
+        def emulate(tabs, tids, lr, k, fault=None, lockstep=False):
+            return emulate_flat(*tabs, *tids, lr, LAM, SCHED_P, SCHED_PN, k, SCHED_TILE,
+                                fault, lockstep)
+
+        def plain(tabs, tids, lr):
+            return fused_sgns.fused_sgns_step_plain(*tabs, *tids, lr, LAM, SCHED_P, SCHED_PN)
+    else:
+        in_t, out_t, *ids = _sched_grouped(seed, shared)
+        lr = 0.05 * SCHED_PC * SCHED_NB * (W + 1)
+
+        def emulate(tabs, tids, lr, k, fault=None, lockstep=False):
+            return emulate_grouped(*tabs, *tids, lr, LAM, W, SCHED_PC, SCHED_PN, k,
+                                   SCHED_TILE, fault, lockstep)
+
+        def plain(tabs, tids, lr):
+            return fused_sgns.fused_sgns_grouped_step_plain(*tabs, *tids, lr, LAM, W,
+                                                            SCHED_PC, SCHED_PN)
+    return [in_t, out_t], ids, lr, emulate, plain
+
+
+def _sched_run(kind, k, fault=None, seed=0):
+    """(before, emulated, plain, jax) for one step: tables as numpy, losses."""
+    before, ids, lr, emulate, plain = _sched_case(kind, seed=seed)
+    tids = [torch.from_numpy(a) for a in ids]
+    tabs = lambda: [torch.from_numpy(t.copy()) for t in before]  # noqa: E731
+    got, want = emulate(tabs(), tids, lr, k, fault), plain(tabs(), tids, lr)
+    jtabs = [jnp.asarray(t) for t in before]
+    jids = [jnp.asarray(a) for a in ids]
+    if kind == "flat":
+        jgot = jax_fused.fused_sgns_step(*jtabs, *jids, lr=lr, lam=LAM,
+                                         pairs_per_block=SCHED_P, pool_size=SCHED_PN,
+                                         interpret=True)
+    else:
+        jgot = jax_fused.fused_sgns_grouped_step(*jtabs, *jids, lr=lr, lam=LAM, window=W,
+                                                 centers_per_block=SCHED_PC,
+                                                 pool_size=SCHED_PN, interpret=True)
+    as_np = lambda r: ([t.numpy() for t in r[:2]], float(r[2]))  # noqa: E731
+    jax_np = ([np.asarray(x) for x in jgot[:2]], float(jgot[2]))
+    return before, as_np(got), as_np(want), jax_np
+
+
+def _assert_schedule_equal(before, got, want):
+    for name, start, g, w in zip(("in_table", "out_table"), before, got[0], want[0]):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6, err_msg=name)
+        assert float(np.abs(w - start).max()) > 100 * 1e-6, name  # the step moved rows
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["flat", "grouped"])
+def test_cluster_schedule_matches_plain_and_jax(kind, k):
+    """K CTAs a kernel block, 7 (flat) or 5 (grouped) tiles of 2: a round
+    that K does not fill, duplicates within a block, a row read by one CTA
+    and last written by another in the same round, a context row that is
+    also a pool row."""
+    before, got, want, jax_want = _sched_run(kind, k)
+    _assert_schedule_equal(before, got, want)
+    _assert_schedule_equal(before, got, jax_want)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("fault", ["no_barrier", "context_over_pool"])
+@pytest.mark.parametrize("kind", ["flat", "grouped"])
+def test_cluster_schedule_planted_faults_fail(kind, fault, k):
+    before, got, want, _ = _sched_run(kind, k, fault)
+    with pytest.raises(AssertionError):
+        _assert_schedule_equal(before, got, want)
+
+
+def _blocks_alone(kind):
+    """Both blocks in lockstep, one round each (K = 8), on center and
+    context rows they share (their pools apart), against the start tables
+    plus each block's own step, the plain version run on that block alone
+    from the start tables: (before, emulated, summed)."""
+    before, ids, lr, emulate, plain = _sched_case(kind, shared=True)
+    tabs = lambda: [torch.from_numpy(t.copy()) for t in before]  # noqa: E731
+    per = (SCHED_P if kind == "flat" else SCHED_PC)
+    summed = [torch.from_numpy(t.copy()) for t in before]
+    loss = 0.0
+    for b in range(SCHED_NB):
+        mine = [a.reshape(SCHED_NB, -1, *a.shape[1:])[b].copy() for a in ids]
+        if kind == "grouped":
+            mine[1] = mine[1].reshape(per, CW)
+        # a block alone is a batch of 1 / SCHED_NB of the pairs: the same step
+        # at lr / SCHED_NB
+        got = plain(tabs(), [torch.from_numpy(a) for a in mine], lr / SCHED_NB)
+        for acc, start, new in zip(summed, before, got[:2]):
+            acc += new - torch.from_numpy(start)
+        loss += float(got[2]) / SCHED_NB
+    tids = [torch.from_numpy(a) for a in ids]
+    return before, tabs, tids, lr, emulate, ([t.numpy() for t in summed], loss)
+
+
+@pytest.mark.parametrize("kind", ["flat", "grouped"])
+def test_cluster_schedule_keeps_every_blocks_step_of_a_shared_row(kind):
+    """Blocks that share center and context rows and read them all before
+    any writes them, as concurrent clusters do: each row ends as the start
+    less every block's step, since such a write applies its step to the row
+    as it stands. A write of the snapshot less the step (the planted fault)
+    keeps one block's."""
+    before, tabs, tids, lr, emulate, summed = _blocks_alone(kind)
+    got = emulate(tabs(), tids, lr, 8, lockstep=True)
+    _assert_schedule_equal(before, ([t.numpy() for t in got[:2]], float(got[2])), summed)
+    stale = emulate(tabs(), tids, lr, 8, fault="stale_write", lockstep=True)
+    with pytest.raises(AssertionError):
+        _assert_schedule_equal(before, ([t.numpy() for t in stale[:2]], float(stale[2])),
+                               summed)

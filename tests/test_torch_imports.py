@@ -42,7 +42,8 @@ _FORBIDDEN = re.compile(
 
 
 @pytest.mark.parametrize("path", sorted(
-    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py", "phase_clocks.py", "train_sweep.py"]))
 def test_source_names_no_jax(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.findall(text), path
