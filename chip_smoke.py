@@ -6,7 +6,10 @@ paths: packed+pool, fused-hogwild (``fused: 1``), fused-grouped
 (``resident: 1``), fused-dedup (``dedup: 1``) and fused-dedup-res (both);
 then the CTR families on the small-row plane with AdaGrad, and Wide & Deep
 at ``examples/widedeep.conf``'s full width; then the bulk-copy completion
-probes through ``python -m swiftsnails_tpu_torch.tools.sem_probe``'s ``main``.
+probes through ``python -m swiftsnails_tpu_torch.tools.sem_probe``'s ``main``;
+then ``python -m swiftsnails_tpu_torch train`` on ``examples/word2vec.conf``
+and ``examples/word2vec_fast.conf``, stopped by a real SIGTERM and resumed,
+the training fault drill, and the guardrail's cost.
 
     python3 chip_smoke.py [--seed N]
 
@@ -112,18 +115,70 @@ Phases:
     chunked both bit-equal to the plain version and bit-identical across
     two runs; ms a call, µs a block and ns a copy of each, the speedup, and
     beside them ``index_select``, ``gather_rows`` and the byte bound.
-11. ``kernels``: one line for every ported kernel, with its launches in the
-    run of its path (``path``) and its f32 numbers from phases 3, 7 and 10.
+11. ``cli_resume``: ``examples/word2vec.conf`` as it stands (dim 200,
+    window 5, 5 negatives, batch 16,384, ``guardrail: 1``, ``resume:
+    auto``) over a zipf text corpus from ``--seed`` (300,000 tokens over
+    65,536 ids), with ``-capacity 1048576`` (two 1 GiB tables),
+    ``-num_iters 1``, ``-min_count 1``, ``-param_backup_period 8``,
+    ``-param_backup_root``/``-output`` in a temporary directory, ``-log_every
+    1`` and ``-seed``, each listed in the phase's line. First an
+    uninterrupted control through ``cli.main`` in this process, every launch
+    counter set to 0 just before and read just after (``gather_rows`` and
+    ``scatter_add_rows`` 2 a substep, every other kernel 0). Then
+    ``python -m swiftsnails_tpu_torch train`` in a subprocess, sent a real
+    SIGTERM after its second periodic manifest, mid-period: it must exit 0,
+    say it was preempted and leave a final step past the last periodic one.
+    Then the same command again: it must say it restored that step and run
+    to the end of the data. Every step both runs committed must carry the
+    control's CRCs and data cursor (bit-equal tables; every kernel of the
+    path is bit-identical run to run), and ``vectors.txt`` must be the
+    control's byte for byte. The line gives each run's save time split into
+    the enqueue, the wait for the copy to the host, the CRC and the write,
+    their GB/s, the restore time, the bytes of a step on disk and the
+    words/sec of each run. Needs ``CLI_DISK_BYTES`` free; deletes its files.
+12. ``cli_fast``: the same with ``examples/word2vec_fast.conf``
+    (fused-dedup-res: 8 substeps a step), a paired corpus (5,000,000 tokens
+    over 32,768 pairs), ``-param_backup_period 3`` and ``-learning_rate
+    410`` (``MERGED_LR``; the conf's 0.025 moves no loss in 19 steps);
+    ``fused_sgns_dedup_resident_step`` launches 1 a substep, every other
+    kernel 0.
+13. ``chaos``: ``examples/word2vec.conf`` in this process at its width with
+    a 65,536-row table, ``chaos_spec: nan_grad@5-6,row_poison@9,
+    ckpt_corrupt@12,preempt@17``, ``guard_max_consecutive: 3``,
+    ``param_backup_period: 4``: trips rolled back and reported at steps 5,
+    6 and 9, every table finite, the run preempted and drained at step 18,
+    step 12 rejected by ``restore_checkpoint``; then the drain's save is
+    corrupted and a run with ``resume: auto`` must reject it, report it,
+    restore the newest step that verifies and finish; then
+    ``chaos_spec: nan_grad@1-6`` with ``guard_max_consecutive: 2`` must
+    raise ``GuardrailExhausted``.
+14. ``guardrail_cost``: packed+pool at ``cli_resume``'s shape, 30 steps with
+    ``guardrail: 1`` and without: step ms (median of steps 6-30), the
+    overhead in ms and percent, the tables of the two runs bit-equal (no
+    fault, so trust stays 1.0), and the guardrail's own device time a step
+    by ``torch.profiler`` (snapshot copy, norm).
+15. ``kernels``: one line for every ported kernel, with its launches in the
+    run of its path (``path``) and its f32 numbers from phases 3, 7 and 10;
+    then ``total``, the script's seconds.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
+import io
 import json
 import math
+import os
+import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1385,6 +1440,474 @@ def phase_sem_probe(rate: float) -> dict:
     return out
 
 
+# ------------------------------------------ the CLI, checkpoints, chaos ---
+
+REPO = Path(__file__).resolve().parent
+W2V_CONF = "examples/word2vec.conf"  # from the root of the repository
+W2V_FAST_CONF = "examples/word2vec_fast.conf"
+CLI_CAPACITY = 1 << 20  # bench.py's table size: two [1,048,576, 2, 128] f32 tables, 1 GiB each
+# Free space a CLI phase needs under the temporary directory: one root at a
+# time (the control's is deleted before the interrupted run), up to 5 step
+# directories of 2 GiB (3 kept, the protected one, the one being written).
+CLI_DISK_BYTES = 12 << 30
+# phase -> its config, corpus (tokens, zipf id range, paired), backup period,
+# overrides beyond the common ones, and launches a substep of each kernel.
+# The id ranges keep the vocabularies at ~31k and ~65k words, so that the
+# text export of `output` takes seconds; the tables stay at CLI_CAPACITY.
+CLI = {
+    "cli_resume": {"conf": W2V_CONF, "tokens": 300_000, "ids": 1 << 16, "paired": False,
+                   "period": 8, "over": {},
+                   "per_substep": {"gather_rows": 2, "scatter_add_rows": 2}},
+    # word2vec_fast.conf's lr 0.025 moves no loss in 19 steps: the merged
+    # phases' lr and a paired corpus, as train_dedup_res
+    "cli_fast": {"conf": W2V_FAST_CONF, "tokens": 5_000_000, "ids": 1 << 15, "paired": True,
+                 "period": 3, "over": {"learning_rate": MERGED_LR["train_dedup_res"]},
+                 "per_substep": {"fused_sgns_dedup_resident_step": 1}},
+}
+CHAOS_SPEC = "nan_grad@5-6,row_poison@9,ckpt_corrupt@12,preempt@17"
+# the chaos drill's table rows: the corpus's ~31k words, at 128 MiB a save
+# instead of the 2 GiB of CLI_CAPACITY (whose saves cli_resume times)
+CHAOS_CAPACITY = 1 << 16
+GUARD_STEPS = 30
+_COMMIT_RE = re.compile(r"checkpoint: committed step_(\d+) \((\d+) bytes: snapshot ([\d.]+) s, "
+                        r"d2h wait ([\d.]+) s, crc ([\d.]+) s, write ([\d.]+) s\)")
+_RESTORE_RE = re.compile(r"resume: restored step (\d+) from \S+ in ([\d.]+) s")
+_DRAIN_RE = re.compile(r"preemption \((.*)\): drained at step (\d+)")
+
+
+def _write_text_corpus(path: str, tokens: int, ids: int, paired: bool, seed: int) -> int:
+    """A whitespace-separated corpus of zipf ids as words ``w<id>``, or with
+    ``paired`` zipf-distributed pairs (``w<2p> w<2p+1>``); returns its length."""
+    rng = np.random.default_rng(seed)
+    if paired:
+        p = zipf_ids(tokens // 2, ids, rng)
+        x = np.stack([2 * p, 2 * p + 1], 1).reshape(-1)
+    else:
+        x = zipf_ids(tokens, ids, rng)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(" ".join(np.char.add("w", x.astype(str)).tolist()))
+    return len(x)
+
+
+class _ManifestWatch:
+    """Every manifest committed under ``root`` while it runs, by step, read
+    as it appears: retention prunes older steps before a run ends."""
+
+    def __init__(self, root: str):
+        self.root, self.manifests = root, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _scan(self) -> None:
+        from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+
+        for s in ckpt.all_steps(self.root):
+            if s not in self.manifests:
+                m = ckpt.read_manifest(self.root, s)
+                if m is not None:
+                    self.manifests[s] = m
+
+    def _poll(self) -> None:
+        while not self._stop.wait(0.02):
+            self._scan()
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+        self._scan()
+        return self.manifests
+
+
+def _crcs(manifest: dict) -> dict:
+    return {k: (v["crc"], v["algo"]) for k, v in manifest["arrays"].items()}
+
+
+def _metric_records(text: str) -> list:
+    out = []
+    for line in text.splitlines():
+        if line.startswith("{") and '"items"' in line:
+            out.append(json.loads(line))
+    return out
+
+
+def _last_logged_step(path: str):
+    """The step of the last metrics line a run has written to ``path``."""
+    with open(path) as f:
+        records = _metric_records(f.read().rsplit("\n", 1)[0])
+    return records[-1]["step"] if records else None
+
+
+def _rates(records: list, words_per_item: float) -> dict:
+    """Items/sec, words/sec and step ms over the records past the first 5."""
+    steady = records[5:] or records
+    items = sum(r["items"] for r in steady)
+    seconds = sum(r["seconds"] for r in steady)
+    return {"steps": len(records), "items_per_sec": items / seconds,
+            "words_per_sec": items * words_per_item / seconds,
+            "step_ms_median": statistics.median(r["seconds"] * 1e3 for r in steady)}
+
+
+def _save_stats(stderr: str) -> dict:
+    saves = [tuple(float(x) for x in m) for m in _COMMIT_RE.findall(stderr)]
+    if not saves:
+        return {"saves": 0}
+    nbytes = saves[0][1]
+    med = {name: statistics.median(s[i] for s in saves)
+           for i, name in ((2, "snapshot_s"), (3, "d2h_wait_s"), (4, "crc_s"), (5, "write_s"))}
+    busy = med["d2h_wait_s"] + med["crc_s"] + med["write_s"]
+    return {"saves": len(saves), "bytes": int(nbytes), **med,
+            "writer_s": busy, "writer_GBps": nbytes / busy / 1e9,
+            "crc_GBps": nbytes / med["crc_s"] / 1e9, "write_GBps": nbytes / med["write_s"] / 1e9}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _cli_args(spec: dict, corpus: str, root: str, out: str, seed: int) -> list:
+    over = {"data": corpus, "capacity": CLI_CAPACITY, "num_iters": 1, "min_count": 1,
+            "param_backup_period": spec["period"], "param_backup_root": root,
+            "output": out, "log_every": 1, "seed": seed, **spec["over"]}
+    return ["train", "-config", str(REPO / spec["conf"]),
+            *(x for k, v in over.items() for x in (f"-{k}", str(v)))]
+
+
+def _in_process_cli(args: list) -> tuple:
+    """``cli.main(args)`` in this process, its output captured, every launch
+    counter set to 0 just before and read just after."""
+    from swiftsnails_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc, launches = _run_counted(lambda: cli.main(args))
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if rc != 0:
+        raise AssertionError(f"cli {args[0]} exited {rc}: {err.getvalue()[-3000:]}")
+    return out.getvalue(), err.getvalue(), launches, seconds
+
+
+def _subprocess_cli(args: list, workdir: str, tag: str, until=None) -> tuple:
+    """``python -m swiftsnails_tpu_torch`` with ``args``; with ``until``, a
+    SIGTERM once ``until()`` holds. Returns its exit code, stdout, stderr
+    and seconds; never leaves the process behind."""
+    paths = [os.path.join(workdir, f"{tag}.{s}") for s in ("out", "err")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH", "")) if p))
+    t0 = time.perf_counter()
+    with open(paths[0], "w") as fo, open(paths[1], "w") as fe:
+        proc = subprocess.Popen([sys.executable, "-m", "swiftsnails_tpu_torch", *args],
+                                stdout=fo, stderr=fe, cwd=str(REPO), env=env)
+        try:
+            if until is not None:
+                deadline = time.monotonic() + 600
+                while not until():
+                    if proc.poll() is not None or time.monotonic() > deadline:
+                        raise AssertionError(f"{tag}: exited ({proc.returncode}) or timed out "
+                                             "before the SIGTERM was due")
+                    time.sleep(0.02)
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out, err = (Path(p).read_text() for p in paths)
+    return rc, out, err, time.perf_counter() - t0
+
+
+def phase_cli(name: str, seed: int, env: dict) -> dict:
+    """``python -m swiftsnails_tpu_torch train`` at full width: an
+    uninterrupted control in this process, then a run in a subprocess
+    stopped by a real SIGTERM after its second periodic manifest, then the
+    same command again, which resumes. The resumed run's periodic
+    checkpoints must carry the control's CRCs (bit-equal tables) and its
+    ``vectors.txt`` must be the control's, byte for byte."""
+    from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+    from swiftsnails_tpu_torch.utils.config import load_config
+
+    spec = CLI[name]
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < CLI_DISK_BYTES:
+            raise AssertionError(f"{name}: {free} bytes free under {tmp}, need {CLI_DISK_BYTES}")
+        corpus = os.path.join(tmp, "corpus.txt")
+        n_tokens = _write_text_corpus(corpus, spec["tokens"], spec["ids"], spec["paired"], seed)
+        period = spec["period"]
+
+        # the control, in process: its launches and every manifest it commits
+        ctl_root, ctl_out = os.path.join(tmp, "control"), os.path.join(tmp, "control.txt")
+        watch = _ManifestWatch(ctl_root)
+        out, err, launches, ctl_s = _in_process_cli(_cli_args(spec, corpus, ctl_root, ctl_out, seed))
+        control = watch.stop()
+        records = _metric_records(out)
+        steps = records[-1]["step"]
+        spc = load_config(REPO / spec["conf"]).get_int("steps_per_call", 1)
+        _check_launches(name, launches, {k: n * steps * spc for k, n in spec["per_substep"].items()})
+        words_per_item = n_tokens / sum(r["items"] for r in records)
+        ctl_rates = _rates(records, words_per_item)
+        ctl_saves = _save_stats(err)
+        ctl_sha = _sha256(ctl_out)
+        periodic = sorted(s for s in control if s % period == 0)
+        if periodic != list(range(period, steps + 1, period)):
+            raise AssertionError(f"{name}: control committed {sorted(control)} in {steps} steps")
+        shutil.rmtree(ctl_root)
+
+        # the run a real SIGTERM stops after its second periodic manifest
+        root, vec = os.path.join(tmp, "run"), os.path.join(tmp, "run.txt")
+        args = _cli_args(spec, corpus, root, vec, seed)
+        watch = _ManifestWatch(root)
+        log = os.path.join(tmp, "first.out")
+
+        def sigterm_due() -> bool:
+            # after two periodic manifests, and mid-period: a step logged
+            # at k*P - 1 or k*P means the loop is about to wait, or waits,
+            # for the writer at a periodic save, and would drain there
+            last = _last_logged_step(log)
+            return len(watch.manifests) >= 2 and last is not None and 0 < last % period < period - 1
+
+        rc, out1, err1, first_s = _subprocess_cli(args, tmp, "first", until=sigterm_due)
+        if rc != 0 or "preempted (SIGTERM)" not in err1:
+            raise AssertionError(f"{name}: SIGTERM run exited {rc}: {err1[-3000:]}")
+        drain = _DRAIN_RE.findall(err1)
+        if len(drain) != 1:
+            raise AssertionError(f"{name}: drain lines {drain}: {err1[-3000:]}")
+        final = int(drain[0][1])
+        before = sorted(s for s in ckpt.intact_steps(root) if s % period == 0)
+        if ckpt.intact_steps(root)[0] != final or final <= before[-1] or final <= 2 * period:
+            raise AssertionError(f"{name}: drained at {final}, intact {ckpt.intact_steps(root)}")
+
+        # the same command again: it resumes from the drain's save
+        rc, out2, err2, resumed_s = _subprocess_cli(args, tmp, "resumed")
+        run = watch.stop()
+        restored = _RESTORE_RE.findall(err2)
+        if rc != 0 or not restored or int(restored[0][0]) != final or "preempted" in err2:
+            raise AssertionError(f"{name}: resumed run exited {rc}, restored {restored}: "
+                                 f"{err2[-3000:]}")
+        after = sorted(s for s in run if s > final and s % period == 0)
+        if len(after) < 2 or after[-1] != periodic[-1]:
+            raise AssertionError(f"{name}: periodic saves after the resume {after}, "
+                                 f"control {periodic}")
+        # bit-equal: every kernel of the path is bit-identical run to run
+        differ = [s for s in sorted(run) if s in control and (
+            _crcs(run[s]) != _crcs(control[s])
+            or run[s]["data_cursor"] != control[s]["data_cursor"])]
+        vectors_equal = _sha256(vec) == ctl_sha
+        out = {"config": spec["conf"],
+               "overrides": {k: v for k, v in zip(args[3::2], args[4::2])},
+               "corpus": {"tokens": n_tokens, "zipf_ids": spec["ids"], "paired": spec["paired"]},
+               "steps": steps, "substeps_per_step": spc, "launches": launches,
+               "control": {"s": ctl_s, **ctl_rates, "save": ctl_saves},
+               "sigterm_after": sorted(watch.manifests)[:2], "drained_at": final,
+               "periodic_before": before, "periodic_after_resume": after,
+               "compared_steps": sorted(s for s in run if s in control),
+               "differing_steps": differ, "vectors_equal": vectors_equal,
+               "first": {"s": first_s, **_rates(_metric_records(out1), words_per_item),
+                         "save": _save_stats(err1)},
+               "resumed": {"s": resumed_s, **_rates(_metric_records(out2), words_per_item),
+                           "save": _save_stats(err2), "restore_s": float(restored[0][1])},
+               "step_dir_bytes": _dir_bytes(os.path.join(root, f"step_{after[-1]}")),
+               "disk_free_bytes": free, "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+        emit(name, **out)
+        if differ or not vectors_equal:
+            raise AssertionError(f"{name}: the resumed run differs from the control at steps "
+                                 f"{differ}; vectors.txt equal: {vectors_equal}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _chaos_loop(args: list, **over):
+    """A trainer and loop of ``python -m swiftsnails_tpu_torch train args``,
+    built in this process, with ``over`` set after the command line."""
+    from swiftsnails_tpu_torch import cli
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.utils.flags import parse_role_argv
+
+    cfg = parse_role_argv(args[1:])
+    for k, v in over.items():
+        cfg.set(k, str(v))
+    trainer = cli._build_trainer(cfg)
+    return trainer, TrainLoop(trainer, log_every=0)
+
+
+def _finite(state) -> bool:
+    from swiftsnails_tpu_torch.utils.tree import tensor_items
+
+    return all(bool(torch.isfinite(t).all()) for _, t in tensor_items(state))
+
+
+def phase_chaos(seed: int, env: dict) -> dict:
+    """The training drill at ``examples/word2vec.conf``'s width, in process:
+    NaN updates and a poisoned row rolled back, a corrupted checkpoint
+    rejected, a preemption drained; then a resumed run that walks back past
+    a corrupted final save; then a run that gives up."""
+    from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+    from swiftsnails_tpu_torch.resilience import GuardrailExhausted, corrupt_checkpoint_dir
+
+    spec = CLI["cli_resume"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    try:
+        corpus = os.path.join(tmp, "corpus.txt")
+        _write_text_corpus(corpus, spec["tokens"], spec["ids"], spec["paired"], seed)
+        root = os.path.join(tmp, "ck")
+        args = _cli_args({**spec, "period": 4}, corpus, root, os.path.join(tmp, "v.txt"), seed)
+        args[args.index("-capacity") + 1] = str(CHAOS_CAPACITY)
+        trainer, loop = _chaos_loop(args, chaos_spec=CHAOS_SPEC, guard_max_consecutive=3,
+                                    chaos_seed=seed)
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            state = loop.run(seed=seed)
+        run_s = time.perf_counter() - t0
+        err = err.getvalue()
+        trips = [int(s) for s in re.findall(r"guardrail: step (\d+) rolled back", err)]
+        finite = _finite(state)
+        events = loop.chaos.events
+        corrupted = [e["step"] for e in events if e["fault"] == "ckpt_corrupt"]
+        intact = ckpt.intact_steps(root)
+        final = intact[0]
+        try:
+            ckpt.restore_checkpoint(root, trainer.init_state(), step=12)
+            hit_rejected = False
+        except ckpt.CheckpointError:
+            hit_rejected = True
+        ckpt.restore_checkpoint(root, trainer.init_state(), step=final)  # the drain's save verifies
+        preempted = loop.preempted
+        del state, trainer, loop
+        torch.cuda.empty_cache()
+        corrupt_checkpoint_dir(root, step=final, rng=np.random.default_rng(seed))
+
+        trainer2, loop2 = _chaos_loop(args, resume="auto")
+        err2 = io.StringIO()
+        with contextlib.redirect_stderr(err2):
+            state2 = loop2.run(seed=seed, max_steps=final + 8)
+        err2 = err2.getvalue()
+        rejected = [int(s) for s in re.findall(r"resume: rejected step (\d+)", err2)]
+        finite2 = _finite(state2)
+        want_restored = max(s for s in intact if s not in (12, final))
+        restored, preempted2 = loop2._restored_step, loop2.preempted
+        del state2, trainer2, loop2
+        torch.cuda.empty_cache()
+
+        trainer3, loop3 = _chaos_loop(args, chaos_spec="nan_grad@1-6", guard_max_consecutive=2,
+                                      param_backup_root="", chaos_seed=seed)
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                loop3.run(seed=seed, max_steps=8)
+            gave_up = None
+        except GuardrailExhausted as e:
+            gave_up = str(e)
+        del trainer3, loop3
+        torch.cuda.empty_cache()
+        out = {"config": W2V_CONF, "chaos_spec": CHAOS_SPEC, "param_backup_period": 4,
+               "guard_max_consecutive": 3, "capacity": CHAOS_CAPACITY, "run_s": run_s,
+               "trips": trips, "finite": finite, "preempted": preempted,
+               "corrupted_by_chaos": corrupted, "intact_after_run": intact,
+               "corrupt_step_rejected": hit_rejected, "drained_at": final,
+               "second_run": {"rejected": rejected, "restored": restored,
+                              "want_restored": want_restored, "finite": finite2},
+               "give_up": gave_up, "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+        emit("chaos", **out)
+        problems = []
+        if trips != [5, 6, 9]:
+            problems.append(f"trips {trips}, want [5, 6, 9]")
+        if not (finite and finite2):
+            problems.append("a non-finite table")
+        if not preempted or final != 18:
+            problems.append(f"preempted {preempted}, drained at {final}")
+        if corrupted != [12] or not hit_rejected:
+            problems.append(f"ckpt_corrupt at {corrupted}, rejected on restore: {hit_rejected}")
+        if rejected != [final] or restored != want_restored or preempted2:
+            problems.append(f"second run rejected {rejected}, restored {restored}")
+        if gave_up is None:
+            problems.append("nan_grad@1-6 with guard_max_consecutive 2 did not give up")
+        if problems:
+            raise AssertionError("chaos: " + "; ".join(problems))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_guardrail_cost(seed: int, env: dict) -> dict:
+    """Step ms of packed+pool at the ``cli_resume`` shape with
+    ``guardrail: 1`` and without (median of steps 6-30), the tables of the
+    two runs bit-equal (trust stays 1.0), and the guardrail's own device time
+    a step by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+    spec = CLI["cli_resume"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_guard_")
+    runs = {}
+    try:
+        corpus = os.path.join(tmp, "corpus.txt")
+        _write_text_corpus(corpus, spec["tokens"], spec["ids"], spec["paired"], seed)
+        args = _cli_args({**spec, "period": 0}, corpus, "", os.path.join(tmp, "v.txt"), seed)
+        for guard in (0, 1):
+            _, loop = _chaos_loop(args, guardrail=guard, resume=0, param_backup_root="")
+            records = []
+
+            class Recorder(MetricsLogger):
+                def log(self, record):
+                    records.append(record)
+
+            loop.metrics, loop.log_every = Recorder(), 1
+            state = loop.run(seed=seed, max_steps=GUARD_STEPS)
+            runs[guard] = (statistics.median(r["seconds"] * 1e3 for r in records[5:]),
+                           state, loop)
+        equal = all(torch.equal(a.table, b.table) for a, b in zip(runs[0][1], runs[1][1]))
+        g = runs[1][2].guardrail
+        state = runs[1][1]
+        dev = state.in_table.table.device
+        metrics = {"loss": torch.tensor(0.5, device=dev)}
+        g.commit(g.snapshot(state), state, metrics)  # warm
+        calls = 5
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                g.commit(g.snapshot(state), state, metrics)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        kernels = sorted(((e.key, e.self_device_time_total / 1e3 / calls)
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                         key=lambda k: -k[1])
+        off, on = runs[0][0], runs[1][0]
+        state_bytes = sum(t.table.numel() * t.table.element_size() for t in state)
+        out = {"path": "packed+pool", "config": W2V_CONF, "capacity": CLI_CAPACITY,
+               "steps": GUARD_STEPS, "step_ms_median_off": off, "step_ms_median_on": on,
+               "overhead_ms": on - off, "overhead_pct": 100.0 * (on - off) / off,
+               "tables_bit_equal": equal, "trips": g.trips_total,
+               "guard_device_ms": sum(ms for _, ms in kernels), "guard_wall_ms": wall_ms,
+               "state_bytes": state_bytes,
+               "top": [{"kernel": k[:90], "ms": ms} for k, ms in kernels[:6]],
+               "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+        emit("guardrail_cost", **out)
+        if not equal or g.trips_total:
+            raise AssertionError("guardrail_cost: the guarded run's tables differ from the "
+                                 f"unguarded run's (trips {g.trips_total})")
+        return out
+    finally:
+        del runs
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1395,6 +1918,7 @@ def main() -> int:
         return 2
     import swiftsnails_tpu_torch  # noqa: F401  fails outside the repository
 
+    t_start = time.monotonic()
     env = phase_env()
     phase_build()
     summary = phase_kernels(args.seed, env["mem_rate_Bps"])
@@ -1427,6 +1951,10 @@ def main() -> int:
     launches["gather_rows_widedeep"] = train["launches"]["gather_rows"]
     paths["gather_rows_widedeep"] = "train_widedeep"
     probes = phase_sem_probe(env["mem_rate_Bps"])
+    for name in CLI:
+        phase_cli(name, args.seed, env)
+    phase_chaos(args.seed, env)
+    phase_guardrail_cost(args.seed, env)
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
@@ -1491,6 +2019,7 @@ def main() -> int:
                         "replaces": replaces, **probes[name],
                         "dtype": "float32", "path": "sem_probe"})
     emit("kernels", kernels=kernels)
+    emit("total", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,136 @@
+"""Command-line entry points of the port — the JAX package's ``cli.py``.
+
+Reference contract (survey §2.7): per-app ``master``/``server``/``worker``
+binaries taking ``-config <file>`` (``src/tools/run_master.sh``) and workers
+additionally ``-data <file>`` (``run_worker.sh``). Here the three roles are
+one ``train`` role on one card: the parameter tables live on the card that
+computes.
+
+Usage::
+
+    python -m swiftsnails_tpu_torch train  -config train.conf [-data corpus.txt]
+    python -m swiftsnails_tpu_torch export -config train.conf -checkpoint ROOT -out vec.txt
+    python -m swiftsnails_tpu_torch models
+    python -m swiftsnails_tpu_torch worker -config ...   # alias of train (parity)
+
+Every ``-key value`` flag overrides the config key ``key``. The runs go on
+the card (``cuda``) and fail without one, unless ``-device cpu`` asks for the
+CPU, where every kernel wrapper runs its plain PyTorch version.
+
+Checkpoints: with ``param_backup_root`` set, ``train`` saves
+``step_<n>/`` there every ``param_backup_period`` steps (one raw-bytes file
+a tensor and a ``manifest.json`` with the step, config hash, a CRC of every
+tensor and the data cursor; see ``framework/checkpoint.py``), keeping the
+newest ``param_backup_keep``. ``resume: auto`` continues an interrupted run
+from the newest verified checkpoint (tables and data cursor); a SIGTERM
+drains with a final save; ``guardrail: 1`` arms the NaN/rollback step
+guardrail; ``chaos_spec`` injects faults. ``export`` writes the text
+vectors of the newest checkpoint, verified.
+
+``master`` / ``server`` are accepted for parity and explain the collapse.
+``serve``, ``net-serve``, ``trace-summary``, ``ledger-report``,
+``supervisor-status`` and ``ops`` belong to planes the port does not have
+yet (``ROADMAP.md``): they say so and exit 2.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import List, Optional
+
+from swiftsnails_tpu_torch.utils.config import Config, ConfigError
+from swiftsnails_tpu_torch.utils.flags import parse_role_argv
+from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+
+def _build_trainer(cfg: Config):
+    """The ``model`` key's trainer on the ``device`` key's device (default:
+    the card). One card: no mesh."""
+    from swiftsnails_tpu_torch.models.registry import get_model
+
+    trainer_cls = get_model(cfg.get_str("model", "word2vec"))
+    return trainer_cls(cfg, device=cfg.get_str("device", "") or None)
+
+
+def cmd_train(argv: List[str]) -> int:
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+
+    cfg = parse_role_argv(argv)
+    trainer = _build_trainer(cfg)
+    metrics = MetricsLogger(path=cfg.get_str("metrics_path", "") or None, echo=True)
+    loop = TrainLoop(trainer, metrics=metrics, log_every=cfg.get_int("log_every", 100))
+    state = loop.run(seed=cfg.get_int("seed", 0))
+    if loop.preempted:
+        print(
+            "preempted (SIGTERM): drained with a final checkpoint; "
+            "restart with `resume: auto` to continue this run",
+            file=sys.stderr,
+        )
+    out = cfg.get_str("output", "")
+    if out:
+        trainer.export_text(state, out)
+        print(f"exported parameters to {out}", file=sys.stderr)
+    return 0
+
+
+def cmd_export(argv: List[str]) -> int:
+    from swiftsnails_tpu_torch.framework.checkpoint import restore_checkpoint
+
+    cfg = parse_role_argv(argv)
+    trainer = _build_trainer(cfg)
+    root = cfg.get_str("checkpoint")
+    out = cfg.get_str("out")
+    state = restore_checkpoint(root, trainer.init_state())
+    trainer.export_text(state, out)
+    print(f"exported {root} -> {out}", file=sys.stderr)
+    return 0
+
+
+def cmd_models(argv: List[str]) -> int:
+    from swiftsnails_tpu_torch.models.registry import available_models
+
+    for name in available_models():
+        print(name)
+    return 0
+
+
+_ROLE_NOTE = (
+    "swiftsnails_tpu_torch has no separate {role} role: the parameter tables\n"
+    "live on the card that trains. Run\n"
+    "  python -m swiftsnails_tpu_torch train -config <file>"
+)
+
+_UNPORTED = ("serve", "net-serve", "trace-summary", "ledger-report",
+             "supervisor-status", "ops")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        print(__doc__)
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    try:
+        if cmd in ("train", "worker"):
+            return cmd_train(rest)
+        if cmd == "export":
+            return cmd_export(rest)
+        if cmd == "models":
+            return cmd_models(rest)
+        if cmd in ("master", "server"):
+            print(_ROLE_NOTE.format(role=cmd), file=sys.stderr)
+            return 0
+        if cmd in _UNPORTED:
+            print(f"command {cmd!r} is not ported to the PyTorch port yet; "
+                  "see ROADMAP.md for when it is", file=sys.stderr)
+            return 2
+        print(f"unknown command {cmd!r}; try: train, export, models",
+              file=sys.stderr)
+        return 2
+    except ConfigError as e:
+        print(f"config error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

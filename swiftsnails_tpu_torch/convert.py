@@ -5,6 +5,11 @@ Both packages keep the packed ``[C, S, 128]`` layout (and the small-row
 tensors of the CTR models keep the JAX layout (``w{i}`` is ``[d_in,
 d_out]``). The JAX package's arrays arrive as numpy arrays
 (``np.asarray(state.in_table.table)``); nothing here imports JAX.
+
+Checkpoints carry over too: both packages record a tensor under its
+canonical key and CRC its row-major bytes (``framework/checkpoint.py``).
+The keys agree but for the CTR dense optimizer's state, which the JAX
+package keeps in optax's tuple (:func:`port_checkpoint_key`).
 """
 
 from __future__ import annotations
@@ -22,10 +27,10 @@ from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+    arr = np.array(arr, order="C")  # a copy; keeps a 0-d array 0-d
     if arr.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: move the bits
-        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(arr.copy())
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def packed_table_from_numpy(table: np.ndarray, *, device: DeviceLike,
@@ -76,3 +81,26 @@ def ctr_state_from_numpy(table: np.ndarray, dense: Mapping[str, np.ndarray],
     opt = {} if opt_sum_of_squares is None else {"sum_of_squares": carry(opt_sum_of_squares)}
     return CTRState(table=packed_table_from_numpy(table, device=dev, dtype=dtype),
                     dense=carry(dense), opt=opt)
+
+
+# The JAX CTRState's optax AdaGrad state, ``(ScaleByRssState(sum_of_squares),
+# EmptyState())``, records its accumulators under ``opt/0/sum_of_squares/``;
+# the port's dict under ``opt/sum_of_squares/``.
+_CHECKPOINT_KEY_PREFIXES = (("opt/0/sum_of_squares/", "opt/sum_of_squares/"),)
+
+
+def port_checkpoint_key(jax_key: str) -> str:
+    """A canonical checkpoint key of the JAX package -> the port's key of
+    the same tensor."""
+    for jax_prefix, port_prefix in _CHECKPOINT_KEY_PREFIXES:
+        if jax_key.startswith(jax_prefix):
+            return port_prefix + jax_key[len(jax_prefix):]
+    return jax_key
+
+
+def jax_checkpoint_key(port_key: str) -> str:
+    """The inverse of :func:`port_checkpoint_key`."""
+    for jax_prefix, port_prefix in _CHECKPOINT_KEY_PREFIXES:
+        if port_key.startswith(port_prefix):
+            return jax_prefix + port_key[len(port_prefix):]
+    return port_key

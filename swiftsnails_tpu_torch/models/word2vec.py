@@ -460,12 +460,12 @@ class Word2VecTrainer(Trainer):
         return vals.float().cpu().numpy()
 
     def export_text(self, state: W2VState, path: str) -> None:
-        rows = self._all_vocab_rows(state)
+        rows = self._all_vocab_rows(state).astype(np.float64).tolist()
+        fmt = " ".join(["%.6f"] * self.dim)  # one format a row: f"{x:.6f}" each
         with open(path, "w", encoding="utf-8") as f:
             f.write(f"{len(self.vocab)} {self.dim}\n")
-            for i, word in enumerate(self.vocab.words):
-                vec = " ".join(f"{x:.6f}" for x in rows[i])
-                f.write(f"{word} {vec}\n")
+            for word, row in zip(self.vocab.words, rows):
+                f.write(f"{word} {fmt % tuple(row)}\n")
 
     # -- eval: nearest neighbors for sanity checks --------------------------
 

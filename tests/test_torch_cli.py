@@ -1,0 +1,150 @@
+"""``python -m swiftsnails_tpu_torch`` end to end in subprocesses, on the CPU
+(``-device cpu``): the cases of ``tests/test_cli.py`` for the port, plus a
+real SIGTERM to a training process, which drains with a committed final
+checkpoint, and the run without ``-device`` on a machine without a card,
+which fails and names the missing card. ``models`` lists the families the
+port has; the JAX package's ``seqlm`` is not ported (``ROADMAP.md``).
+"""
+
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from swiftsnails_tpu_torch import cli
+from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def _run_cli(args, cwd):
+    return subprocess.run([sys.executable, "-m", "swiftsnails_tpu_torch", *args],
+                          capture_output=True, text=True, env=_env(), cwd=cwd, timeout=120)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    path = tmp_path_factory.mktemp("cli") / "corpus.txt"
+    rng = np.random.default_rng(0)
+    words = [f"tok{i}" for i in range(30)]
+    path.write_text(" ".join(rng.choice(words, 3000)))
+    return path
+
+
+def _conf(tmp_path, corpus, **over):
+    keys = {"model": "word2vec", "data": corpus, "dim": 8, "window": 2, "negatives": 2,
+            "learning_rate": 0.1, "batch_size": 128, "num_iters": 2, "min_count": 1,
+            "subsample": 0, "param_backup_root": tmp_path / "ckpt",
+            "param_backup_period": 3, "output": tmp_path / "vec.txt", "log_every": 0}
+    keys.update(over)
+    conf = tmp_path / "train.conf"
+    conf.write_text("# word2vec training config (reference key: value syntax)\n"
+                    + "".join(f"{k}: {v}\n" for k, v in keys.items()))
+    return conf
+
+
+def test_cli_train_export_resume(tmp_path, corpus):
+    conf = _conf(tmp_path, corpus)
+    ckpt_root, out = tmp_path / "ckpt", tmp_path / "vec.txt"
+    proc = _run_cli(["train", "-config", str(conf), "-device", "cpu"], cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    header = out.read_text().split("\n", 1)[0].split()
+    assert header == ["30", "8"]  # vocab size, dim
+    steps = ckpt.intact_steps(str(ckpt_root))
+    assert len(steps) == 3 and steps[0] % 3 == 0  # param_backup_keep's default
+
+    # export reads the newest checkpoint back, verified
+    out2 = tmp_path / "vec2.txt"
+    proc = _run_cli(["export", "-config", str(conf), "-device", "cpu",
+                     "-checkpoint", str(ckpt_root), "-out", str(out2)], cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert out2.read_text().split("\n", 1)[0] == "30 8"
+
+    # resume: 1 continues the counter from the newest checkpoint
+    proc = _run_cli(["train", "-config", str(conf), "-device", "cpu", "-resume", "1"],
+                    cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert f"resume: restored step {steps[0]}" in proc.stderr
+    assert ckpt.intact_steps(str(ckpt_root))[0] > steps[0]
+
+    # a corrupt newest checkpoint is never exported
+    from swiftsnails_tpu_torch.resilience import corrupt_checkpoint_dir
+
+    corrupt_checkpoint_dir(str(ckpt_root))
+    proc = _run_cli(["export", "-config", str(conf), "-device", "cpu",
+                     "-checkpoint", str(ckpt_root), "-out", str(tmp_path / "bad.txt")],
+                    cwd=tmp_path)
+    assert proc.returncode != 0 and "CheckpointError" in proc.stderr
+
+
+def test_cli_models_and_role_notes(tmp_path):
+    proc = _run_cli(["models"], cwd=tmp_path)
+    assert proc.returncode == 0
+    assert proc.stdout.split() == ["ffm", "fm", "logreg", "widedeep", "word2vec"]
+    proc = _run_cli(["master"], cwd=tmp_path)
+    assert proc.returncode == 0
+    assert "no separate master role" in proc.stderr
+
+
+def test_cli_bad_config_is_fatal(tmp_path):
+    conf = tmp_path / "bad.conf"
+    conf.write_text("model word2vec\n")  # missing colon -> parse error
+    proc = _run_cli(["train", "-config", str(conf), "-device", "cpu"], cwd=tmp_path)
+    assert proc.returncode != 0 and "config error" in proc.stderr
+
+
+@pytest.mark.parametrize("cmd", ["serve", "net-serve", "trace-summary", "ledger-report",
+                                 "supervisor-status", "ops", "bogus"])
+def test_cli_unported_commands_exit_2(cmd, capsys):
+    assert cli.main([cmd]) == 2
+    err = capsys.readouterr().err
+    assert ("ROADMAP.md" in err) == (cmd != "bogus")
+
+
+def test_cli_sigterm_drains_with_a_final_checkpoint(tmp_path, corpus):
+    conf = _conf(tmp_path, corpus, num_iters=400, param_backup_period=20)
+    root = str(tmp_path / "ckpt")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "swiftsnails_tpu_torch", "train", "-config", str(conf),
+         "-device", "cpu"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env(), cwd=tmp_path)
+    try:
+        deadline = time.monotonic() + 60
+        while not ckpt.intact_steps(root) and time.monotonic() < deadline:
+            assert proc.poll() is None, proc.communicate()[1][-2000:]
+            time.sleep(0.05)
+        periodic = ckpt.intact_steps(root)
+        assert periodic, "no checkpoint within 60 s"
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-2000:]
+    assert "preempted (SIGTERM): drained with a final checkpoint" in err
+    final = ckpt.intact_steps(root)[0]
+    assert final > periodic[0] and final % 20 != 0  # the drain's own save
+    man = ckpt.read_manifest(root, final)
+    assert man["data_cursor"]["step"] == final
+
+
+def test_cli_train_without_a_card_names_it(tmp_path, corpus):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the default device is then valid")
+    proc = _run_cli(["train", "-config", str(_conf(tmp_path, corpus))], cwd=tmp_path)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not (tmp_path / "ckpt").exists()  # nothing ran on the CPU instead

@@ -798,3 +798,65 @@ def test_a_wait_past_its_deadline_traps_instead_of_hanging(cuda_device):
                          capture_output=True, text=True, timeout=300)
     assert "launch failed:" in out.stdout, out.stdout + out.stderr
     assert "status 5" in out.stdout, out.stdout + out.stderr
+
+
+# ------------------------------------------ checkpoints and the guardrail ---
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_table_checkpoint_round_trip_on_the_card(cuda_device, dtype, tmp_path):
+    """A packed table saved from the card and restored onto it: bit-equal,
+    with the CRC the same state has on the CPU."""
+    from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    state = {"table": torch.randn(50_000, 2, 128, generator=gen, device=cuda_device).to(dtype),
+             "count": torch.arange(7, dtype=torch.int32, device=cuda_device)}
+    root = str(tmp_path / "ck")
+    ckpt.save_checkpoint(root, state, 4)
+    on_cpu = ckpt.build_manifest({k: v.cpu() for k, v in state.items()}, 4)["arrays"]
+    assert ckpt.read_manifest(root, 4)["arrays"] == on_cpu
+    template = {k: torch.zeros_like(v) for k, v in state.items()}
+    got = ckpt.restore_checkpoint(root, template)
+    assert got["table"].device.type == "cuda"
+    for k in state:
+        assert torch.equal(got[k], state[k]), k
+
+
+def test_guardrail_rolls_back_a_nan_written_by_scatter_add_rows(cuda_device):
+    from swiftsnails_tpu_torch.resilience.guardrail import StepGuardrail
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    state = {"table": torch.randn(4096, 2, 128, generator=gen, device=cuda_device)}
+    before = state["table"].clone()
+    g = StepGuardrail()
+    snap = g.snapshot(state)
+    rows = torch.tensor([3, 17, 4000], dtype=torch.int32, device=cuda_device)
+    deltas = torch.zeros(3, 2, 128, device=cuda_device)
+    deltas[1, 0, 5] = float("nan")
+    n0 = rowdma.scatter_add_rows.launches
+    rowdma.scatter_add_rows(state["table"], rows, deltas)  # in place, on the card
+    assert rowdma.scatter_add_rows.launches == n0 + 1
+    assert not torch.isfinite(state["table"]).all()
+    got, _, tripped, _ = g.commit(snap, state, {"loss": torch.tensor(0.5, device=cuda_device)})
+    assert tripped and "non-finite update" in g.last_trip_reason
+    assert torch.equal(got["table"], before)
+
+
+def test_async_save_is_not_torn_by_the_next_steps_write(cuda_device, tmp_path):
+    """The step right after an async save writes the table in place with
+    ``scatter_add_rows``; the save still holds the bytes from before it."""
+    from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    table = torch.randn(262_144, 2, 128, generator=gen, device=cuda_device)  # 256 MiB
+    want = ckpt.build_manifest({"table": table}, 1)["arrays"]
+    root = str(tmp_path / "ck")
+    ckpt.save_checkpoint(root, {"table": table}, 1, wait=False)
+    rows = torch.arange(0, 262_144, 7, dtype=torch.int32, device=cuda_device)
+    rowdma.scatter_add_rows(table, rows, torch.ones(rows.shape[0], 2, 128, device=cuda_device))
+    assert ckpt.wait_for_checkpoints() == []
+    assert ckpt.read_manifest(root, 1)["arrays"] == want
+    got = ckpt.restore_checkpoint(root, {"table": torch.zeros_like(table)})
+    assert not torch.equal(got["table"], table)
+    assert ckpt.verify_state(got, ckpt.read_manifest(root, 1)) == []

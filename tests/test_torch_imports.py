@@ -34,6 +34,37 @@ def test_port_imports_without_jax():
     assert len(_PORT_MODULES) >= 15
 
 
+@pytest.mark.parametrize("module", [
+    "swiftsnails_tpu_torch.__main__", "swiftsnails_tpu_torch.cli",
+    "swiftsnails_tpu_torch.framework.checkpoint", "swiftsnails_tpu_torch.resilience",
+    "swiftsnails_tpu_torch.resilience.chaos", "swiftsnails_tpu_torch.resilience.guardrail",
+    "swiftsnails_tpu_torch.resilience.resume", "swiftsnails_tpu_torch.resilience.retry",
+    "swiftsnails_tpu_torch.telemetry.ledger", "swiftsnails_tpu_torch.utils.flags",
+    "swiftsnails_tpu_torch.utils.tree"])
+def test_checkpoint_resilience_and_cli_modules_are_held(module):
+    """The modules of the checkpoint, resilience and CLI slice are among the
+    ones imported without JAX above and read for its names below."""
+    assert module in _PORT_MODULES
+
+
+def test_cli_run_loads_no_jax():
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['swiftsnails_tpu_torch', 'models']\n"
+        "try:\n"
+        "    runpy.run_module('swiftsnails_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'swiftsnails_tpu' or m.startswith('swiftsnails_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ffm", "fm", "logreg", "widedeep", "word2vec"]
+
+
 # ``import jax`` / ``from jax``, and the JAX package's name anywhere except
 # in ``swiftsnails_tpu_torch`` and in a file path (``swiftsnails_tpu/...``,
 # as chip_smoke.py names the TPU kernel each kernel replaces).

@@ -31,6 +31,7 @@ from swiftsnails_tpu_torch.data.vocab import Vocab
 from swiftsnails_tpu_torch.framework.trainer import TrainLoop
 from swiftsnails_tpu_torch.models import word2vec
 from swiftsnails_tpu_torch.ops import rowdma
+from swiftsnails_tpu_torch.resilience.resume import resume_mode
 from swiftsnails_tpu_torch.utils.config import Config
 from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
 
@@ -351,9 +352,23 @@ def test_unported_trainer_keys_raise(key, value, extra):
     ("freshness_publish", 1), ("telemetry", 1), ("trace_path", "t.json"),
 ])
 def test_unported_loop_keys_raise(key, value):
+    """The loop keys the port lacked when this test was written. The first
+    four came with the port's checkpoints and resilience layer: for them the
+    test holds that the loop now takes the key and arms its feature
+    (``tests/test_torch_resilience.py`` and ``tests/test_torch_checkpoint.py``
+    hold the features); every other key still raises."""
     words, counts, ids = _corpus(200)
     tr = word2vec.Word2VecTrainer(Config(_conf(**{key: value})), corpus_ids=ids,
                                   vocab=Vocab(words, counts), device="cpu")
+    armed = {
+        "param_backup_period": lambda loop: loop.backup_period == 10,
+        "resume": lambda loop: resume_mode(loop.trainer.config) == "auto",
+        "guardrail": lambda loop: loop.guardrail is not None,
+        "chaos_spec": lambda loop: loop.chaos.pending() == [("nan_grad", 5)],
+    }
+    if key in armed:
+        assert armed[key](TrainLoop(tr))
+        return
     with pytest.raises(NotImplementedError, match=key):
         TrainLoop(tr)
 
