@@ -3,9 +3,14 @@ against its plain PyTorch version, and trains word2vec at full width on one
 NVIDIA GPU through the port's normal entry points, on each of its six
 paths: packed+pool, fused-hogwild (``fused: 1``), fused-grouped
 (``fused: 1, grouped: 1``), and on top of fused-grouped fused-resident
-(``resident: 1``), fused-dedup (``dedup: 1``) and fused-dedup-res (both);
-then the CTR families on the small-row plane with AdaGrad, and Wide & Deep
-at ``examples/widedeep.conf``'s full width; then the bulk-copy completion
+(``resident: 1``), fused-dedup (``dedup: 1``) and fused-dedup-res (both),
+and the per-pair rungs ``packed: 0`` (the 2-D plane) and ``neg_mode:
+per_pair``, all on the native batch producer; then the CTR families on the
+small-row plane with AdaGrad, and Wide & Deep at ``examples/widedeep.conf``'s
+full width, on the small-row plane and at ``packed: 0``, and FFM over 39
+fields (table dim 157, the 2-D plane); then the native producer against the
+numpy one, ``stream: 1``, and the quality probe on every path; then the
+bulk-copy completion
 probes through ``python -m swiftsnails_tpu_torch.tools.sem_probe``'s ``main``;
 then ``python -m swiftsnails_tpu_torch train`` on ``examples/word2vec.conf``
 and ``examples/word2vec_fast.conf``, stopped by a real SIGTERM and resumed,
@@ -53,8 +58,12 @@ Phases:
    two runs; timed and bounded as the fused ones; one launch a substep on
    the card (the profiler's count, held), its time alone put beside the
    grouped kernel's alone from the same call.
+   Then ``gather_rows`` and ``scatter_add_rows`` at the ``neg_mode:
+   per_pair`` out-table shape (98,304 zipf ids, 16,384 contexts and 81,920
+   negatives; the push's ids merged first), f32, the same checks and times.
 4. ``slice_parity``: 4 substeps of a small config of each path with injected
-   negative pools on the card and on the CPU (one kernel block a substep on
+   negative pools (per-pair negatives, ``[b, 5]``, on ``dense`` and
+   ``perpair``) on the card and on the CPU (one kernel block a substep on
    the hogwild fused paths, where the card runs blocks concurrently and the
    CPU in order; 8 on the merged paths, whose blocks run in order on both);
    the tables agree within rtol 1e-5 / atol 1e-6 (reduction order),
@@ -69,7 +78,10 @@ Phases:
    order at the same lr (``HOGWILD_FALL_SHARE``); ``train_resident``,
    ``train_dedup``,
    ``train_dedup_res`` as fused-grouped with their keys, at ``MERGED_LR``
-   (410, 100, 410).
+   (410, 100, 410); ``train_dense`` (``packed: 0``: two ``[1,048,576,
+   200]`` f32 tables, 1.68 GB, no kernel of the port) and ``train_perpair``
+   (``neg_mode: per_pair``: two ``[1,048,576, 2, 128]``, 2.15 GB) as
+   packed+pool, K = 5 independent negatives a pair.
    Every kernel's launch counter
    is set to 0 just before each run and read just after: the path's kernels
    must read 2 (row kernels) or 1 (a fused kernel) per substep, every other
@@ -103,7 +115,29 @@ Phases:
    one ``scatter_adagrad_fused_rows`` a step and nothing else, a finite
    loss whose last 5 steps average below its first 5, examples/sec over
    steps 6–30, and ``eval_auc`` on 20,000 held-out records; then its
-   ``profile`` line.
+   ``profile`` line. ``ctr_parity`` also runs Wide & Deep at ``packed: 0``
+   and FFM at ``factor_dim`` 20 (table dim 161), both on the 2-D plane (no
+   kernel of the port), the accumulator slot compared too.
+   ``train_widedeep_2d`` (the conf at ``packed: 0``: ``[1,048,576, 17]`` and
+   its accumulator) and ``train_ffm_wide`` (FFM, 39 fields, ``factor_dim``
+   4: ``[1,048,576, 157]`` and its accumulator, 1.32 GB, on ``synth_ctr``
+   with 39 fields) the same way, no launch of the port's kernels, their AUC
+   beside the packed phase's; each with its ``profile`` line.
+   ``native_producer``: ``batches()`` alone on the host, the native
+   producer against the numpy one, on the zipf corpus (2,000,000 tokens,
+   window 5, batch 16,384, flat and grouped): words/sec of a whole pass;
+   gate: a second native run of the seed gives the same first 8 batches.
+   Then ``train`` and ``train_grouped`` end to end on each producer, in
+   turns (native, python, python, native): words/sec over steps 6–30.
+   ``stream``: ``stream: 1`` for ``examples/word2vec.conf`` (capacity
+   1,048,576) on a written 300,000-token corpus and for
+   ``examples/widedeep.conf`` on a written file of 98,304 ``synth_ctr``
+   records; gates: the first 8 batches equal the whole-file run's (one
+   chunk), the producer is native, 10 steps train with finite losses.
+   ``quality``: ``framework/quality.probe_top1`` on the card for each path
+   of the JAX package's ``tests/test_path_quality.py`` (the fused ones
+   through their kernels); hard gate at ``MIN_TOP1`` (0.75) on ``dense``,
+   ``packed_perpair`` and ``packed_pool``, the fused scores printed.
 10. ``sem_probe``: the probe tool's ``main`` at ``--dim 200`` (not
     ``--quick``), its three kernels' counters set to 0 just before and read
     just after. Unit: each of the five tags accounts exactly its copy's
@@ -158,8 +192,9 @@ Phases:
     fault, so trust stays 1.0), and the guardrail's own device time a step
     by ``torch.profiler`` (snapshot copy, norm).
 15. ``kernels``: one line for every ported kernel, with its launches in the
-    run of its path (``path``) and its f32 numbers from phases 3, 7 and 10;
-    then ``total``, the script's seconds.
+    run of its path (``path``) and its f32 numbers from phases 3, 7 and 10
+    (``gather_rows`` and ``scatter_add_rows`` also at ``train_perpair``'s
+    shape and launches); then ``total``, the script's seconds.
 """
 
 from __future__ import annotations
@@ -265,6 +300,9 @@ CTR_PARITY = {
     "fm": ("fm", {"factor_dim": 8}),
     "ffm": ("ffm", {"factor_dim": 4}),
     "widedeep": ("widedeep", {"embed_dim": 16, "hidden_dims": "64,32"}),
+    # the 2-D plane: packed: 0, and ffm at factor_dim 20 (table dim 161)
+    "widedeep_2d": ("widedeep", {"embed_dim": 16, "hidden_dims": "64,32", "packed": 0}),
+    "ffm_wide": ("ffm", {"factor_dim": 20}),
 }
 
 
@@ -806,7 +844,12 @@ PATHS = {
     "dedup": ({**_GROUPED, "dedup": 1, "u_cap": U_CAP}, "_substep_grouped"),
     "dedup_res": ({**_GROUPED, "dedup": 1, "u_cap": U_CAP, "resident": 1,
                    "hot_rows": COMPOSED_HOT_ROWS}, "_substep_grouped"),
+    # per-pair negatives ([b, K] word ids injected): the 2-D plane, and the
+    # packed tables through gather_rows / scatter_add_rows
+    "dense": ({"packed": 0}, "_substep_dense"),
+    "perpair": ({"neg_mode": "per_pair"}, "_substep_packed_perpair"),
 }
+PER_PAIR = ("dense", "perpair")
 
 
 def phase_slice_parity(seed: int, path: str) -> None:
@@ -821,7 +864,8 @@ def phase_slice_parity(seed: int, path: str) -> None:
     rng = np.random.default_rng(seed + 1)
     n = batches[0]["centers"].shape[0]
     nb = n // cpu._effective_pc(n) if cpu.grouped else cpu.pool_geometry(n)[1]
-    pools = [rng.integers(0, 4096, (nb, POOL_SIZE)).astype(np.int32) for _ in batches]
+    shape = (n, NEGATIVES) if path in PER_PAIR else (nb, POOL_SIZE)
+    pools = [rng.integers(0, 4096, shape).astype(np.int32) for _ in batches]
 
     def run(tr, device):
         state = convert.w2v_state_from_numpy(*tables, device=device)
@@ -850,16 +894,18 @@ def phase_slice_parity(seed: int, path: str) -> None:
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5, atol=1e-6)
     if l_gpu != l_gpu2:
         raise AssertionError("losses of two runs on the card differ")
-    emit("slice_parity", path=path, substeps=len(batches), batch=n, kernel_blocks=nb,
-         max_abs_err_vs_cpu=worst, losses_cuda=l_gpu, losses_cpu=l_cpu,
+    emit("slice_parity", path=path, substeps=len(batches), batch=n,
+         kernel_blocks=None if path in PER_PAIR else nb,
+         table=list(s_gpu[0].table.shape), max_abs_err_vs_cpu=worst, losses_cuda=l_gpu, losses_cpu=l_cpu,
          repeat_bit_identical=True)
 
 
 def _corpus(seed: int, paired: bool = False):
     """A train phase's corpus: N_TOKENS ids over VOCAB, its vocab, and
-    skip-gram pairs per token (6.00 at window 5) counted on its first 2^20.
-    Zipf ids, or with ``paired`` zipf-distributed pairs (2p, 2p + 1)."""
-    from swiftsnails_tpu_torch.data import sampler
+    skip-gram pairs per token (6.00 at window 5) counted on its first 2^20
+    by the native producer, which makes the phases' batches. Zipf ids, or
+    with ``paired`` zipf-distributed pairs (2p, 2p + 1)."""
+    from swiftsnails_tpu_torch.data import native
     from swiftsnails_tpu_torch.data.vocab import Vocab
 
     rng = np.random.default_rng(seed)
@@ -870,7 +916,7 @@ def _corpus(seed: int, paired: bool = False):
         ids = zipf_ids(N_TOKENS, VOCAB, rng)
     counts = np.maximum(np.bincount(ids, minlength=VOCAB), 1)
     vocab = Vocab([f"w{i}" for i in range(VOCAB)], counts)
-    pairs, _ = sampler.skipgram_pairs(ids[: 1 << 20], WINDOW, np.random.default_rng(seed))
+    pairs, _ = native.skipgram_pairs(ids[: 1 << 20], WINDOW, seed=seed)
     return ids, vocab, len(pairs) / (1 << 20)
 
 
@@ -900,6 +946,12 @@ TRAIN = {
                        "centers_per_block": CENTERS_PER_BLOCK},
                       {"fused_sgns_grouped_step": 1}, True),
 }
+# packed: 0 (two [1,048,576, 200] f32 tables, 1.68 GB) and neg_mode:
+# per_pair (two [1,048,576, 2, 128], 2.15 GB): K = 5 independent negatives
+# a pair, the packed+pool phase's batch, lr and corpus
+TRAIN["train_dense"] = ({"learning_rate": LR, "batch_size": BATCH, "packed": 0}, {}, False)
+TRAIN["train_perpair"] = ({"learning_rate": LR, "batch_size": BATCH, "neg_mode": "per_pair"},
+                          {"gather_rows": 2, "scatter_add_rows": 2}, False)
 _MERGED_TRAIN = {**_FUSED, "grouped": 1, "batch_size": GROUPED_BATCH,
                  "centers_per_block": CENTERS_PER_BLOCK}
 for _phase, _keys, _kernel in (
@@ -911,8 +963,9 @@ for _phase, _keys, _kernel in (
                      {_kernel: 1}, True)
 
 
-def _train_loop(phase: str, seed: int, corpora):
-    """A train phase's trainer and loop, and the list its records go to."""
+def _train_loop(phase: str, seed: int, corpora, **extra):
+    """A train phase's trainer and loop (``extra`` config keys on top), and
+    the list its records go to."""
     from swiftsnails_tpu_torch.framework.trainer import TrainLoop
     from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
     from swiftsnails_tpu_torch.utils.config import Config
@@ -924,7 +977,7 @@ def _train_loop(phase: str, seed: int, corpora):
                   "negatives": str(NEGATIVES), "subsample": "0", "num_iters": "1",
                   "pool_size": str(POOL_SIZE), "pool_block": str(POOL_BLOCK),
                   "table_dtype": "float32", "seed": str(seed),
-                  **{k: str(v) for k, v in over.items()}})
+                  **{k: str(v) for k, v in {**over, **extra}.items()}})
     trainer = Word2VecTrainer(cfg, corpus_ids=ids, vocab=vocab)
     records = []
 
@@ -983,6 +1036,8 @@ def phase_train(phase: str, seed: int, corpora, device_name: str, smi: str):
     # a flat batch counts pairs, a grouped one words (corpus positions)
     words = items if trainer.grouped else items / pairs_per_token
     out = {"steps": len(records), "substeps": substeps,
+           "producer": records[0].get("producer"),
+           "table": list(state.in_table.table.shape),
            "batch": trainer.batch_size, "steps_per_call": trainer.steps_per_call,
            "lr": trainer.lr, "corpus": "paired" if paired else "zipf",
            "launches": launches, "setup_s": setup_s,
@@ -1022,6 +1077,7 @@ def phase_profile(path: str, trainer, state, seed: int, steps: int = 5) -> None:
     it = iter(trainer.batches())
     batches = [{k: torch.from_numpy(v).to(dev) if np.ndim(v) else v
                 for k, v in next(it).items()} for _ in range(steps + 1)]
+    it.close()  # stops the native producer's threads
     trainer.train_step(state, batches[0], step_generator(seed, 0, dev))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1055,14 +1111,15 @@ def _widedeep_config(seed: int):
     return cfg
 
 
-def _ctr_data(seed: int):
-    """synth_ctr records at Wide & Deep's width: ``CTR_STEPS`` batches to
-    train on, then ``CTR_EVAL`` held out (the same planted weights)."""
+def _ctr_data(seed: int, fields: int = 0):
+    """synth_ctr records at Wide & Deep's width (or ``fields`` fields):
+    ``CTR_STEPS`` batches to train on, then ``CTR_EVAL`` held out (the same
+    planted weights)."""
     from swiftsnails_tpu_torch.data.ctr import synth_ctr
 
     cfg = _widedeep_config(seed)
     n = CTR_STEPS * cfg.get_int("batch_size")
-    labels, feats, _ = synth_ctr(n + CTR_EVAL, cfg.get_int("num_fields"),
+    labels, feats, _ = synth_ctr(n + CTR_EVAL, fields or cfg.get_int("num_fields"),
                                  CTR_IDS_PER_FIELD, seed=seed)
     return (labels[:n], feats[:n]), (labels[n:], feats[n:])
 
@@ -1193,12 +1250,14 @@ def _ctr_trainer(case: str, device: str, seed: int):
 
 def _assert_moves_close(start: dict, got: dict, want: dict) -> float:
     """Each array's change on the card within 1e-4 of the largest change of
-    the CPU's (the CPU tests' tolerance); returns the largest gap."""
+    the CPU's (the CPU tests' tolerance); returns the largest gap. A change
+    must be above 1e-4, but a slot's (an AdaGrad accumulator of the 2-D
+    plane adds squares of gradients of order 1e-3) only above 0."""
     worst = 0.0
     for k, w in want.items():
         moved = w - start[k]
         scale = float(np.abs(moved).max())
-        if not scale > 1e-4:
+        if not scale > (0.0 if k.startswith("slot.") else 1e-4):
             raise AssertionError(f"{k} barely moved: {scale}")
         np.testing.assert_allclose(got[k] - start[k], moved, rtol=0, atol=1e-4 * scale,
                                    err_msg=k)
@@ -1233,13 +1292,15 @@ def phase_ctr_parity(seed: int) -> None:
         gpu = _ctr_trainer(case, "cuda", seed)
         init = cpu.init_state()
         table = init.table.table.numpy().copy()
+        slots = {k: v.numpy().copy() for k, v in init.table.slots.items()}
         dense = {k: v.numpy().copy() for k, v in init.dense.items()}
         sums = ({k: v.numpy().copy() for k, v in init.opt["sum_of_squares"].items()}
                 if init.opt else None)
         batches = [b for _, b in zip(range(4), cpu.batches())]
 
         def run(tr, device):
-            state = convert.ctr_state_from_numpy(table, dense, sums, device=device)
+            state = convert.ctr_state_from_numpy(table, dense, sums, device=device,
+                                                 table_slots=slots)
             losses = []
             for b in batches:
                 state, m = tr.train_step(state, {k: torch.from_numpy(v).to(device)
@@ -1250,16 +1311,20 @@ def phase_ctr_parity(seed: int) -> None:
         s_cpu, l_cpu = run(cpu, "cpu")
         (s_gpu, l_gpu), launches = _run_counted(lambda: run(gpu, "cuda"))
         push = ("scatter_adagrad_fused_rows" if sums is not None else "scatter_add_rows")
-        _check_launches(case, launches, {"gather_rows": 4, push: 4})
+        # the 2-D plane is index_select and index_put_: no kernel of the port
+        _check_launches(case, launches, {"gather_rows": 4, push: 4} if cpu.packed else {})
         np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
-        start = {"table": table, **{f"dense.{k}": v for k, v in dense.items()}}
+        start = {"table": table, **{f"slot.{k}": v for k, v in slots.items()},
+                 **{f"dense.{k}": v for k, v in dense.items()}}
 
         def arrays(state):
             return {"table": state.table.table.cpu().numpy(),
+                    **{f"slot.{k}": v.cpu().numpy() for k, v in state.table.slots.items()},
                     **{f"dense.{k}": v.cpu().numpy() for k, v in state.dense.items()}}
 
         worst = _assert_moves_close(start, arrays(s_gpu), arrays(s_cpu))
         emit("ctr_parity", case=case, table=list(table.shape), table_dim=cpu.table_dim,
+             plane="packed_small" if cpu.packed else "2-D",
              steps=len(batches), launches={k: n for k, n in launches.items() if n},
              losses_cuda=l_gpu, losses_cpu=l_cpu, max_abs_diff_vs_cpu=worst)
 
@@ -1323,17 +1388,36 @@ def phase_store_routes(seed: int) -> dict:
     return launches
 
 
-def phase_train_widedeep(seed: int, env: dict):
-    """``examples/widedeep.conf`` at full width through ``get_model`` ->
-    ``TrainLoop.run`` for ``CTR_STEPS`` steps on synth_ctr data, then
-    ``eval_auc`` on the held-out records."""
+# CTR train phases -> (config keys over examples/widedeep.conf, launches a
+# step of each kernel). train_widedeep is the conf as it stands (the
+# small-row plane); train_widedeep_2d the conf at packed: 0, a [1,048,576,
+# 17] table and its accumulator; train_ffm_wide FFM over Criteo's 39 fields
+# (13 integer, 26 categorical) at libffm's Criteo factor_dim 4 (Juan et al.,
+# RecSys 2016): table dim 1 + 39 * 4 = 157, above a 128-lane tile, so the
+# 2-D plane, [1,048,576, 157] and its accumulator. The 2-D plane launches no
+# kernel of the port (index_select, index_put_).
+CTR_TRAIN = {
+    "train_widedeep": ({}, {"gather_rows": 1, "scatter_adagrad_fused_rows": 1}),
+    "train_widedeep_2d": ({"packed": 0}, {}),
+    "train_ffm_wide": ({"model": "ffm", "num_fields": 39, "factor_dim": 4}, {}),
+}
+
+
+def phase_train_widedeep(seed: int, env: dict, phase: str = "train_widedeep",
+                         packed_auc=None):
+    """A ``CTR_TRAIN`` phase through ``get_model`` -> ``TrainLoop.run`` for
+    ``CTR_STEPS`` steps on synth_ctr data, then ``eval_auc`` on the
+    held-out records (beside the packed phase's, ``packed_auc``)."""
     from swiftsnails_tpu_torch.framework.trainer import TrainLoop
     from swiftsnails_tpu_torch.models.registry import get_model
     from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
 
+    over, per_step = CTR_TRAIN[phase]
     t0 = time.monotonic()
     cfg = _widedeep_config(seed)
-    (labels, feats), (eval_labels, eval_feats) = _ctr_data(seed)
+    for k, v in over.items():
+        cfg.set(k, str(v))
+    (labels, feats), (eval_labels, eval_feats) = _ctr_data(seed, cfg.get_int("num_fields"))
     trainer = get_model(cfg.get_str("model"))(cfg, data=(labels, feats))
     records = []
 
@@ -1345,8 +1429,7 @@ def phase_train_widedeep(seed: int, env: dict):
     setup_s = time.monotonic() - t0
     torch.cuda.reset_peak_memory_stats()
     state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=CTR_STEPS))
-    _check_launches("train_widedeep", launches,
-                    {"gather_rows": CTR_STEPS, "scatter_adagrad_fused_rows": CTR_STEPS})
+    _check_launches(phase, launches, {k: n * CTR_STEPS for k, n in per_step.items()})
     losses = [r["loss"] for r in records]
     if len(losses) != CTR_STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses: {losses}")
@@ -1360,10 +1443,14 @@ def phase_train_widedeep(seed: int, env: dict):
     t_eval = time.perf_counter()
     auc = trainer.eval_auc(state, labels=eval_labels, feats=eval_feats)
     eval_s = time.perf_counter() - t_eval
-    out = {"config": WIDEDEEP_CONF, "steps": len(records), "batch": trainer.batch_size,
+    out = {"config": WIDEDEEP_CONF, "over": over, "model": trainer.name,
+           "plane": "packed_small" if trainer.packed else "2-D",
+           "steps": len(records), "batch": trainer.batch_size,
            "num_fields": trainer.num_fields, "capacity": trainer.capacity,
            "table": list(state.table.table.shape), "table_dim": trainer.table_dim,
-           "hidden_dims": trainer.hidden_dims, "lr": trainer.lr,
+           "table_bytes": sum(t.numel() * t.element_size()
+                              for t in (state.table.table, *state.table.slots.values())),
+           "hidden_dims": getattr(trainer, "hidden_dims", None), "lr": trainer.lr,
            "ids_per_field": CTR_IDS_PER_FIELD, "launches": launches, "setup_s": setup_s,
            "first_step_ms": records[0]["seconds"] * 1e3,
            "step_ms_median": statistics.median(step_ms),
@@ -1371,11 +1458,241 @@ def phase_train_widedeep(seed: int, env: dict):
            "loss_first5": losses[:5], "loss_last5": losses[-5:],
            "loss_first5_mean": float(np.mean(losses[:5])),
            "loss_last5_mean": float(np.mean(losses[-5:])),
-           "eval_auc": auc, "eval_records": len(eval_labels), "eval_s": eval_s,
+           "eval_auc": auc, "eval_auc_packed_phase": packed_auc,
+           "eval_records": len(eval_labels), "eval_s": eval_s,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
-    emit("train_widedeep", **out)
+    emit(phase, **out)
     return out, trainer, state
+
+
+# ------------------------------------------ per_pair shapes, producer ---
+
+
+def phase_perpair_kernels(seed: int, rate: float) -> dict:
+    """``gather_rows`` and ``scatter_add_rows`` at the ``neg_mode: per_pair``
+    substep's out-table shape: 16,384 contexts and 81,920 negatives, 98,304
+    zipf ids of 1 KB rows from ``[1,048,576, 2, 128]`` f32 (the in-table pull
+    is the packed+pool phase's 16,384), the push merged first. Returns the
+    numbers for the summary line."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 9)
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    shape = (VOCAB, -(-DIM // 128), 128)
+    table = torch.randn(shape, generator=gen, device=dev)
+    n = PERPAIR_OUT_ROWS
+    sets = [torch.from_numpy(zipf_ids(n, VOCAB, rng)).to(dev) for _ in range(ROW_SETS)]
+    gather = _gather_case(table, sets, rate)
+    emit("kernel", name="gather_rows", dtype="torch.float32", rows=n, path="train_perpair",
+         **gather)
+    scatter_sets, n_valid = [], []
+    for ids in sets:
+        uniq = torch.unique(ids).to(torch.int32)
+        n_valid.append(int(uniq.numel()))
+        pad = torch.full((n - uniq.numel(),), VOCAB, dtype=torch.int32, device=dev)
+        scatter_sets.append(torch.cat([uniq, pad]))
+    deltas = [torch.randn((n, *shape[1:]), generator=gen, device=dev).mul_(1e-3)
+              for _ in range(ROW_SETS)]
+    scatter = _scatter_case(table, scatter_sets, deltas, n_valid, rate)
+    emit("kernel", name="scatter_add_rows", dtype="torch.float32", rows=n,
+         path="train_perpair", **scatter)
+    del table, deltas
+    torch.cuda.empty_cache()
+    return {"gather_rows_perpair": {"shape": [n, *shape[1:]], **gather},
+            "scatter_add_rows_perpair": {"shape": [n, *shape[1:]], **scatter}}
+
+
+PERPAIR_OUT_ROWS = BATCH * (1 + NEGATIVES)  # 98,304
+PRODUCER_BATCHES_HELD = 8
+PRODUCER_TRAIN = ("train", "train_grouped")  # trained on each producer in turns
+
+
+def _producer_trainer(ids, vocab, use_native: int, grouped: bool, **over):
+    from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    keys = {"dim": str(DIM), "window": str(WINDOW), "negatives": str(NEGATIVES),
+            "batch_size": str(BATCH), "subsample": "0", "num_iters": "1",
+            "use_native": str(use_native), **{k: str(v) for k, v in over.items()}}
+    if grouped:
+        keys.update({"fused": "1", "grouped": "1", "centers_per_block": str(CENTERS_PER_BLOCK)})
+    return Word2VecTrainer(Config(keys), corpus_ids=ids, vocab=vocab)
+
+
+def _first_batches(trainer, n: int = PRODUCER_BATCHES_HELD) -> list:
+    it = iter(trainer.batches())
+    out = [b for _, b in zip(range(n), it)]
+    it.close()
+    return out
+
+
+def _same_batches(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        set(x) == set(y) and all(np.array_equal(x[k], y[k]) for k in x) for x, y in zip(a, b))
+
+
+def phase_native_producer(seed: int, corpora, env: dict) -> dict:
+    """``batches()`` alone on the card machine's host, the native producer
+    against the numpy one, over the zipf corpus (2,000,000 tokens, window 5,
+    batch 16,384, flat and grouped): words/sec of one whole pass. Gate: a
+    second native run of the seed gives the same first 8 batches. Then the
+    ``PRODUCER_TRAIN`` phases end to end on each producer, in turns."""
+    ids, vocab, _ = corpora[False]
+    out = {}
+    for path, grouped in (("flat", False), ("grouped", True)):
+        row = {}
+        for producer, use_native in (("native", 1), ("python", 0)):
+            trainer = _producer_trainer(ids, vocab, use_native, grouped)
+            t0 = time.perf_counter()
+            n_batches = sum(1 for _ in trainer.batches())
+            seconds = time.perf_counter() - t0
+            row[producer] = {"batches": n_batches, "seconds": seconds,
+                             "words_per_sec": len(ids) / seconds}
+        again = [_first_batches(_producer_trainer(ids, vocab, 1, grouped)) for _ in range(2)]
+        if not _same_batches(*again):
+            raise AssertionError(f"native_producer {path}: two runs of one seed differ")
+        row["native_over_python"] = (row["native"]["words_per_sec"]
+                                     / row["python"]["words_per_sec"])
+        out[path] = row
+    # end to end: the train phase on each producer, in turns (native,
+    # python, python, native), words/sec over steps 6-30 as phase_train
+    for phase in PRODUCER_TRAIN:
+        runs = {"native": [], "python": []}
+        for producer in ("native", "python", "python", "native"):
+            trainer, loop, records = _train_loop(phase, seed, corpora,
+                                                 use_native=int(producer == "native"))
+            loop.run(seed=seed, max_steps=STEPS)
+            steady = records[5:]
+            items = sum(r["items"] for r in steady)
+            words = items if trainer.grouped else items / corpora[TRAIN[phase][2]][2]
+            runs[producer].append(words / sum(r["seconds"] for r in steady))
+            del trainer, loop
+            torch.cuda.empty_cache()
+        out[f"{phase}_words_per_sec"] = runs
+        out[f"{phase}_native_over_python"] = (statistics.mean(runs["native"])
+                                              / statistics.mean(runs["python"]))
+    emit("native_producer", tokens=len(ids), window=WINDOW, batch=BATCH, subsample=0,
+         repeat_batches_equal=PRODUCER_BATCHES_HELD, **out,
+         host_cpus=os.cpu_count(), device=env["device"], nvidia_smi=env["nvidia_smi"])
+    return out
+
+
+STREAM_STEPS = 10
+STREAM_W2V = {"tokens": 300_000, "ids": 1 << 16}  # cli_resume's corpus
+STREAM_CTR_RECORDS = 12 * 8192
+
+
+def _loop_records(trainer, steps: int, seed: int) -> list:
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+    records = []
+
+    class Recorder(MetricsLogger):
+        def log(self, record):
+            records.append(record)
+
+    state = TrainLoop(trainer, metrics=Recorder(), log_every=1).run(seed=seed,
+                                                                    max_steps=steps)
+    if not _finite(state):
+        raise AssertionError("non-finite state")
+    return records
+
+
+def phase_stream(seed: int, env: dict) -> None:
+    """``stream: 1`` for word2vec (``examples/word2vec.conf`` at capacity
+    1,048,576 on a written zipf corpus) and for Wide & Deep
+    (``examples/widedeep.conf`` on a written ``synth_ctr`` file), both on
+    the native producer: the first 8 batches equal the whole-file run's (one
+    chunk), and the streamed run trains 10 steps on the card."""
+    from swiftsnails_tpu_torch.data.ctr import synth_ctr
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.utils.config import load_config
+
+    tmp = tempfile.mkdtemp(prefix="ssn_stream_")
+    try:
+        corpus = os.path.join(tmp, "corpus.txt")
+        tokens = _write_text_corpus(corpus, STREAM_W2V["tokens"], STREAM_W2V["ids"], False,
+                                    seed)
+        records_path = os.path.join(tmp, "ctr.txt")
+        labels, feats, _ = synth_ctr(STREAM_CTR_RECORDS, 26, CTR_IDS_PER_FIELD, seed=seed)
+        with open(records_path, "w") as f:
+            f.write("\n".join(f"{int(y)} " + " ".join(map(str, row))
+                              for y, row in zip(labels, feats.tolist())) + "\n")
+        cases = (
+            ("word2vec", W2V_CONF, {"data": corpus, "capacity": CLI_CAPACITY, "min_count": 1,
+                                    "num_iters": 1, "param_backup_root": "", "seed": seed}),
+            ("widedeep", WIDEDEEP_CONF, {"data": records_path, "seed": seed}))
+        for model, conf, over in cases:
+            def make(stream: int):
+                cfg = load_config(REPO / conf)
+                for k, v in {**over, "stream": stream}.items():
+                    cfg.set(k, str(v))
+                return get_model(model)(cfg)
+
+            t0 = time.perf_counter()
+            whole = _first_batches(make(0))
+            streamed_trainer = make(1)
+            streamed = _first_batches(streamed_trainer)
+            compare_s = time.perf_counter() - t0
+            if not _same_batches(streamed, whole):
+                raise AssertionError(f"stream {model}: the streamed batches differ from "
+                                     "the whole file's")
+            if streamed_trainer.producer != "native":
+                raise AssertionError(f"stream {model}: producer {streamed_trainer.producer}")
+            records = _loop_records(streamed_trainer, STREAM_STEPS, seed)
+            losses = [r["loss"] for r in records]
+            if len(losses) != STREAM_STEPS or not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"stream {model}: losses {losses}")
+            emit("stream", model=model, config=conf, over={k: str(v) for k, v in over.items()},
+                 data_bytes=os.path.getsize(over["data"]),
+                 tokens=tokens if model == "word2vec" else None,
+                 records=STREAM_CTR_RECORDS if model == "widedeep" else None,
+                 batches_equal_whole_file=len(whole), compare_s=compare_s,
+                 producer=records[0].get("producer"), steps=len(records), losses=losses,
+                 step_ms_median=statistics.median(r["seconds"] * 1e3 for r in records[1:]),
+                 device=env["device"], nvidia_smi=env["nvidia_smi"])
+            del streamed_trainer
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the JAX package's tests/test_path_quality.py PATHS; the first three gated
+QUALITY_PATHS = {
+    "dense": {"packed": "0"},
+    "packed_perpair": {"packed": "1", "neg_mode": "per_pair"},
+    "packed_pool": {"packed": "1", "neg_mode": "pool"},
+    "fused": {"packed": "1", "neg_mode": "pool", "fused": "1"},
+    "fused_grouped": {"packed": "1", "neg_mode": "pool", "fused": "1", "grouped": "1"},
+    "fused_resident": {"packed": "1", "neg_mode": "pool", "fused": "1", "grouped": "1",
+                       "resident": "1"},
+    "fused_dedup": {"packed": "1", "neg_mode": "pool", "fused": "1", "grouped": "1",
+                    "dedup": "1"},
+    "fused_dedup_res": {"packed": "1", "neg_mode": "pool", "fused": "1", "grouped": "1",
+                        "dedup": "1", "resident": "1"},
+}
+QUALITY_GATED = ("dense", "packed_perpair", "packed_pool")
+
+
+def phase_quality(env: dict) -> dict:
+    """``probe_top1`` on the card for each path of the JAX package's quality
+    test, the fused ones through their real kernels: hard gate at
+    ``MIN_TOP1`` on the three gated paths, the fused scores printed."""
+    from swiftsnails_tpu_torch.framework.quality import MIN_TOP1, probe_top1
+
+    scores, seconds = {}, {}
+    for name, over in QUALITY_PATHS.items():
+        t0 = time.perf_counter()
+        scores[name] = probe_top1(over)
+        seconds[name] = time.perf_counter() - t0
+    below = [n for n in QUALITY_GATED if not scores[n] >= MIN_TOP1]
+    emit("quality", min_top1=MIN_TOP1, top1=scores, seconds=seconds, gated=list(QUALITY_GATED),
+         fused_below=[n for n in scores if n not in QUALITY_GATED and scores[n] < MIN_TOP1],
+         device=env["device"], nvidia_smi=env["nvidia_smi"])
+    if below:
+        raise AssertionError(f"quality: {below} below MIN_TOP1 {MIN_TOP1}: {scores}")
+    return scores
 
 
 SEM_PROBE_DIM = 200  # a row of [2, 128] f32: 1,024 B
@@ -1926,19 +2243,24 @@ def main() -> int:
     for path in PATHS:
         phase_slice_parity(args.seed, path)
     corpora = {False: _corpus(args.seed), True: _corpus(args.seed, paired=True)}
+    summary.update(phase_perpair_kernels(args.seed, env["mem_rate_Bps"]))
     launches = {}
     for phase, path in (("train", "packed"), ("train_fused", "fused"),
                         ("train_grouped", "grouped"), ("train_resident", "resident"),
-                        ("train_dedup", "dedup"), ("train_dedup_res", "dedup_res")):
+                        ("train_dedup", "dedup"), ("train_dedup_res", "dedup_res"),
+                        ("train_dense", "dense"), ("train_perpair", "perpair")):
         train, trainer, state = phase_train(phase, args.seed, corpora, env["device"],
                                             env["nvidia_smi"])
-        launches.update({k: n for k, n in train["launches"].items()
+        suffix = "_perpair" if phase == "train_perpair" else ""
+        launches.update({k + suffix: n for k, n in train["launches"].items()
                          if TRAIN[phase][1].get(k)})
         phase_profile(path, trainer, state, args.seed)
         del trainer, state
         torch.cuda.empty_cache()
     summary.update(phase_ctr_kernels(args.seed, env["mem_rate_Bps"]))
     paths = {name: "train" for name in ("gather_rows", "scatter_add_rows")}
+    paths.update({f"{name}_perpair": "train_perpair"
+                  for name in ("gather_rows", "scatter_add_rows")})
     phase_ctr_parity(args.seed)
     for name, n in phase_store_routes(args.seed).items():
         launches[name], paths[name] = n, "ctr_parity store route"
@@ -1950,6 +2272,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["gather_rows_widedeep"] = train["launches"]["gather_rows"]
     paths["gather_rows_widedeep"] = "train_widedeep"
+    for phase, path in (("train_widedeep_2d", "widedeep_2d"), ("train_ffm_wide", "ffm_wide")):
+        _, trainer, state = phase_train_widedeep(args.seed, env, phase,
+                                                 packed_auc=train["eval_auc"])
+        phase_profile(path, trainer, state, args.seed)
+        del trainer, state
+        torch.cuda.empty_cache()
+    phase_native_producer(args.seed, corpora, env)
+    phase_stream(args.seed, env)
+    phase_quality(env)
     probes = phase_sem_probe(env["mem_rate_Bps"])
     for name in CLI:
         phase_cli(name, args.seed, env)
@@ -1959,7 +2290,10 @@ def main() -> int:
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
             ("gather_rows_widedeep", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
-            ("scatter_add_rows", "scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213")):
+            ("gather_rows_perpair", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+            ("scatter_add_rows", "scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213"),
+            ("scatter_add_rows_perpair", "scatter_add_rows",
+             "swiftsnails_tpu/ops/rowdma.py:213")):
         s = summary[key]
         kernels.append({
             "name": name, "route": "cuda",

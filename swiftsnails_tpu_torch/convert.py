@@ -1,7 +1,8 @@
 """Carry word2vec and CTR states from the JAX package into the port.
 
 Both packages keep the packed ``[C, S, 128]`` layout (and the small-row
-``[T, S, 128]`` one), so tables carry over by a plain copy; the dense
+``[T, S, 128]`` one) and the 2-D ``[C, dim]`` one with its row-aligned
+slots, so tables carry over by a plain copy; the dense
 tensors of the CTR models keep the JAX layout (``w{i}`` is ``[d_in,
 d_out]``). The JAX package's arrays arrive as numpy arrays
 (``np.asarray(state.in_table.table)``); nothing here imports JAX.
@@ -22,7 +23,7 @@ import torch
 from swiftsnails_tpu_torch.models.sparse_base import CTRState
 from swiftsnails_tpu_torch.models.word2vec import W2VState
 from swiftsnails_tpu_torch.ops.rowdma import ROW_LANES
-from swiftsnails_tpu_torch.parallel.store import PackedTableState
+from swiftsnails_tpu_torch.parallel.store import PackedTableState, TableState
 from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -44,10 +45,37 @@ def packed_table_from_numpy(table: np.ndarray, *, device: DeviceLike,
     return PackedTableState(table=t.contiguous(), slots={})
 
 
+def table_state_from_numpy(table: np.ndarray,
+                           slots: Optional[Mapping[str, np.ndarray]] = None, *,
+                           device: DeviceLike,
+                           dtype: Optional[torch.dtype] = None) -> TableState:
+    """A 2-D ``[C, dim]`` numpy table and its slots (e.g. AdaGrad's
+    ``{"accum": [C, dim]}``) -> a :class:`TableState`; ``dtype`` casts the
+    table, the slots keep theirs."""
+    if table.ndim != 2:
+        raise ValueError(f"expected a 2-D [C, dim] table, got {table.shape}")
+    dev = resolve_device(device)
+    t = _tensor_from_numpy(table)
+    t = t.to(device=dev, dtype=dtype or t.dtype)
+    carried = {k: _tensor_from_numpy(np.asarray(v)).to(dev).contiguous()
+               for k, v in (slots or {}).items()}
+    return TableState(table=t.contiguous(), slots=carried)
+
+
+def _table_from_numpy(table: np.ndarray, slots, device, dtype):
+    """A packed (3-D, slot-free) or 2-D table state by the array's rank."""
+    if table.ndim == 2:
+        return table_state_from_numpy(table, slots, device=device, dtype=dtype)
+    if slots:
+        raise ValueError("a packed table carries no separate slots here")
+    return packed_table_from_numpy(table, device=device, dtype=dtype)
+
+
 def w2v_state_from_numpy(in_table: np.ndarray, out_table: np.ndarray, *,
                          device: DeviceLike,
                          dtype: Optional[torch.dtype] = None) -> W2VState:
-    """The port's word2vec state holding copies of the two given tables.
+    """The port's word2vec state holding copies of the two given tables:
+    packed ``[C, S, 128]`` ones, or with ``packed: 0`` 2-D ``[C, dim]`` ones.
 
     ``dtype=None`` keeps the arrays' dtype (float32, or bfloat16 from
     ``ml_dtypes``).
@@ -56,22 +84,24 @@ def w2v_state_from_numpy(in_table: np.ndarray, out_table: np.ndarray, *,
         raise ValueError(f"table shapes differ: {in_table.shape} vs "
                          f"{out_table.shape}")
     return W2VState(
-        in_table=packed_table_from_numpy(in_table, device=device, dtype=dtype),
-        out_table=packed_table_from_numpy(out_table, device=device, dtype=dtype),
+        in_table=_table_from_numpy(in_table, None, device, dtype),
+        out_table=_table_from_numpy(out_table, None, device, dtype),
     )
 
 
 def ctr_state_from_numpy(table: np.ndarray, dense: Mapping[str, np.ndarray],
                          opt_sum_of_squares: Optional[Mapping[str, np.ndarray]] = None,
                          *, device: DeviceLike,
-                         dtype: Optional[torch.dtype] = None) -> CTRState:
+                         dtype: Optional[torch.dtype] = None,
+                         table_slots: Optional[Mapping[str, np.ndarray]] = None) -> CTRState:
     """The port's CTR state holding copies of a JAX ``CTRState``'s arrays.
 
-    ``table`` is ``np.asarray(state.table.table)`` (``[T, 2, 128]`` with
-    AdaGrad's accumulator fused in, else ``[T, 1, 128]``; ``dtype`` casts
-    it), ``dense`` the dense dict, and for AdaGrad ``opt_sum_of_squares``
-    the optax state's ``sum_of_squares`` dict; ``None`` gives SGD's empty
-    state.
+    ``table`` is ``np.asarray(state.table.table)``: on the small-row plane
+    ``[T, 2, 128]`` with AdaGrad's accumulator fused in, else ``[T, 1,
+    128]``; on the 2-D plane ``[C, dim]``, its slots (AdaGrad's ``accum``)
+    in ``table_slots``. ``dtype`` casts the table. ``dense`` is the dense
+    dict, and for AdaGrad ``opt_sum_of_squares`` the optax state's
+    ``sum_of_squares`` dict; ``None`` gives SGD's empty state.
     """
     dev = resolve_device(device)
 
@@ -79,7 +109,7 @@ def ctr_state_from_numpy(table: np.ndarray, dense: Mapping[str, np.ndarray],
         return {k: _tensor_from_numpy(np.asarray(v)).to(dev) for k, v in arrays.items()}
 
     opt = {} if opt_sum_of_squares is None else {"sum_of_squares": carry(opt_sum_of_squares)}
-    return CTRState(table=packed_table_from_numpy(table, device=dev, dtype=dtype),
+    return CTRState(table=_table_from_numpy(table, table_slots, dev, dtype),
                     dense=carry(dense), opt=opt)
 
 

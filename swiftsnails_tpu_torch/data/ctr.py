@@ -120,6 +120,32 @@ def read_ctr_stream(
         yield flush()
 
 
+def read_ctr(path: str, num_fields: int,
+             use_native: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """The whole file's records: the native reader with ``use_native`` (it
+    raises if it does not build), else :func:`read_ctr_file`; the same rows
+    either way."""
+    if use_native:
+        from swiftsnails_tpu_torch.data import native
+
+        return native.read_ctr(path, num_fields)
+    return read_ctr_file(path, num_fields)
+
+
+def iter_ctr_chunks(path: str, num_fields: int, rows_per_chunk: int = 1 << 20,
+                    byte_start: int = 0, byte_end: int = 0,
+                    use_native: bool = True) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """``stream: 1``'s chunks: the native streaming reader with
+    ``use_native``, else :func:`read_ctr_stream`; the same chunks either
+    way."""
+    if use_native:
+        from swiftsnails_tpu_torch.data import native
+
+        return native.read_ctr_stream(path, num_fields, rows_per_chunk,
+                                      byte_start, byte_end)
+    return read_ctr_stream(path, num_fields, rows_per_chunk, byte_start, byte_end)
+
+
 def ctr_batches(
     labels: np.ndarray,
     feats: np.ndarray,

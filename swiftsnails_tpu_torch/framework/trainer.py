@@ -53,9 +53,13 @@ class Trainer:
     * :meth:`train_step`  — ``(state, batch, generator) -> (state, metrics)``,
       with the batch's arrays already on the device;
     * :meth:`items_per_batch` — unit count for throughput metrics.
+
+    :attr:`producer` names the batch producer (``native`` or ``python``);
+    the loop puts it on its first metrics line.
     """
 
     name: str = "trainer"
+    producer: Optional[str] = None
 
     def __init__(self, config: Config, device: DeviceLike = None):
         self.config = config
@@ -104,6 +108,7 @@ class _Prefetcher:
     _DONE = object()
 
     def __init__(self, it: Iterator, depth: int = 2):
+        self._it = it
         self._q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         self._err: Optional[BaseException] = None
         self._stop = threading.Event()
@@ -161,6 +166,16 @@ class _Prefetcher:
         except queue.Empty:
             pass
         self._thread.join(timeout=2.0)
+        if not self._thread.is_alive():
+            _close_source(self._it)
+
+
+def _close_source(it) -> None:
+    """Close a batch source that holds producers (a generator's ``finally``
+    closes the native prefetcher's threads)."""
+    close = getattr(it, "close", None)
+    if close is not None:
+        close()
 
 
 def raise_unported(cfg: Config, keys: Dict[str, Any]) -> None:
@@ -178,8 +193,6 @@ def truthy(cfg: Config, key: str) -> bool:
 # Table-plane keys that the JAX package's trainers read and the port does not
 # have yet, read as the JAX trainers read them: key -> "is it asked for".
 UNPORTED_PLANE_KEYS = {
-    "packed": lambda cfg, key: not cfg.get_bool(key, True),
-    "stream": truthy,
     "table_tier": lambda cfg, key: cfg.get_str(key, "device") != "device",
     "comm_dtype": lambda cfg, key: cfg.get_str(key, "float32") not in (
         "float32", "f32", "fp32"),
@@ -317,6 +330,8 @@ class TrainLoop:
         batches = _Prefetcher(src, depth=depth) if depth else src
         chaos = self.chaos
         resilient = self.guardrail is not None or chaos is not None
+        # the first metrics line names the producer, so no run hides its route
+        first_line = {"producer": trainer.producer} if trainer.producer else {}
         it = iter(batches)
         if chaos is not None:
             it = chaos.wrap_stream(it)
@@ -347,7 +362,8 @@ class TrainLoop:
                 self.metrics.count(n_items)
                 if self.log_every and step % self.log_every == 0:
                     host = {k: float(v) for k, v in last_metrics.items()}
-                    self.metrics.flush_window(step=step, **host)
+                    self.metrics.flush_window(step=step, **host, **first_line)
+                    first_line = {}
                 if self.backup_period and self.checkpoint_fn and step % self.backup_period == 0:
                     self.checkpoint_fn(state, step)
                 if max_steps is not None and step >= max_steps:
@@ -355,6 +371,8 @@ class TrainLoop:
         finally:
             if isinstance(batches, _Prefetcher):
                 batches.close()
+            else:
+                _close_source(src)
             self._uninstall_sigterm()
             # an async save must never be orphaned by an exception
             if self.checkpoint_fn is not None:
@@ -372,7 +390,7 @@ class TrainLoop:
                   file=sys.stderr)
         if step % max(self.log_every, 1) != 0 or not self.log_every:
             host = {k: float(v) for k, v in last_metrics.items()}
-            self.metrics.flush_window(step=step, **host)
+            self.metrics.flush_window(step=step, **host, **first_line)
         return state
 
     # -- resilience (guardrail / chaos / preemption) ------------------------

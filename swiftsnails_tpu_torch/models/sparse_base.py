@@ -5,13 +5,22 @@ over one hashed parameter table (the reference's ``SparseTable`` with
 app-specific ``Val``/``Grad`` types, survey §2.7) plus a dict of *dense*
 tensors (the bias; the MLP weights for Wide & Deep) trained by a dense
 optimizer. The sparse side keeps the pull -> gradient with respect to the
-pulled rows -> push contract on the small-row packed plane
-(:func:`~swiftsnails_tpu_torch.parallel.store.pull_packed_small`,
-:func:`~swiftsnails_tpu_torch.parallel.store.push_packed_small`): one
-row-gather launch pulls a step's rows, and one row-kernel launch pushes
-them (``scatter_adagrad_fused_rows`` for AdaGrad, ``scatter_add_rows`` for
-SGD). Padding fields (``PAD = -1``) are masked out of both the forward pass
-and the pushed gradients.
+pulled rows -> push contract, on one of two planes, as in the JAX package:
+
+* ``packed: 1`` (default) with a table dim of at most 128: the small-row
+  packed plane (:func:`~swiftsnails_tpu_torch.parallel.store.pull_packed_small`,
+  :func:`~swiftsnails_tpu_torch.parallel.store.push_packed_small`): one
+  row-gather launch pulls a step's rows, and one row-kernel launch pushes
+  them (``scatter_adagrad_fused_rows`` for AdaGrad, ``scatter_add_rows`` for
+  SGD); duplicate keys merge their gradients before AdaGrad's accumulator
+  adds the square;
+* ``packed: 0``, or a table dim above 128 (FFM with many fields): the 2-D
+  plane (:func:`~swiftsnails_tpu_torch.parallel.store.pull`,
+  :func:`~swiftsnails_tpu_torch.parallel.store.push`), whose AdaGrad adds
+  each sample's square (the per-sample accumulator).
+
+Padding fields (``PAD = -1``) are masked out of both the forward pass and
+the pushed gradients.
 
 The dense optimizers are ``optax.sgd`` and ``optax.adagrad`` written out on
 tensors (:class:`DenseSGD`, :class:`DenseAdaGrad`); ``torch.optim.Adagrad``
@@ -19,12 +28,12 @@ is another rule (see :class:`DenseAdaGrad`).
 
 Config keys: ``num_fields``, ``capacity``, ``learning_rate``, ``optimizer``
 (``sgd`` | ``adagrad``), ``batch_size``, ``num_iters``, ``data``,
-``dense_learning_rate``, ``init_scale``, ``seed``. ``use_native`` and
-``shard_data`` have no effect, as in the JAX package on one process without
-its native reader. Keys that select a path the port does not
-have yet raise ``NotImplementedError`` (see :data:`UNPORTED`), and so does a
-``table_dim`` above 128 (FFM with many fields), which the JAX package serves
-from its 2-D table plane; ``ROADMAP.md`` says when each is ported.
+``dense_learning_rate``, ``init_scale``, ``seed``, ``packed``,
+``use_native`` (the native CTR reader, default on, as in the JAX package),
+``stream`` and ``rows_per_chunk`` (bounded-memory reading of ``data``).
+``shard_data`` changes nothing on one process. Keys that select a path the
+port does not have yet raise ``NotImplementedError`` (see :data:`UNPORTED`);
+``ROADMAP.md`` says when each is ported.
 """
 
 from __future__ import annotations
@@ -34,7 +43,8 @@ from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from swiftsnails_tpu_torch.data.ctr import ctr_batches, read_ctr_file
+from swiftsnails_tpu_torch.data.ctr import ctr_batches, iter_ctr_chunks, read_ctr
+from swiftsnails_tpu_torch.data.text import byte_span
 from swiftsnails_tpu_torch.framework.trainer import (
     UNPORTED_PLANE_KEYS,
     Trainer,
@@ -48,6 +58,9 @@ from swiftsnails_tpu_torch.parallel.access import AdaGradAccess, SgdAccess
 from swiftsnails_tpu_torch.parallel.store import (
     PackedTableState,
     create_packed_small_table,
+    create_table,
+    pull,
+    push,
     pull_packed_small,
     push_packed_small,
     small_group,
@@ -59,7 +72,7 @@ Dense = Dict[str, torch.Tensor]
 
 
 class CTRState(NamedTuple):
-    table: PackedTableState
+    table: PackedTableState  # or TableState on the 2-D plane
     dense: Dense  # dense parameters ({} when the model has none)
     opt: Dict[str, Dense]  # the dense optimizer's state ({} for SGD)
 
@@ -155,8 +168,9 @@ class SparseCTRTrainer(Trainer):
         if mesh is not None:
             _unported("mesh", mesh)
         raise_unported(cfg, UNPORTED)
-        if self.table_dim > ROW_LANES:
-            _unported("table_dim", f"{self.table_dim} (> {ROW_LANES}: the 2-D table plane)")
+        # the small-row packed plane holds rows of at most one 128-lane tile;
+        # wider ones (FFM with many fields) and packed: 0 take the 2-D plane
+        self.packed = cfg.get_bool("packed", True) and self.table_dim <= ROW_LANES
         self.num_fields = cfg.get_int("num_fields")
         self.capacity = cfg.get_int("capacity", 1 << 20)
         self.lr = cfg.get_float("learning_rate", 0.05)
@@ -168,10 +182,25 @@ class SparseCTRTrainer(Trainer):
         self.access = {"sgd": SgdAccess(), "adagrad": AdaGradAccess()}[opt_name]
         self.dense_opt = (DenseAdaGrad(self.dense_lr) if opt_name == "adagrad"
                           else DenseSGD(self.dense_lr))
+        # stream: 1 -> bounded-memory reading: the records are never held
+        # whole; batches() opens a chunked reader each epoch
+        self.stream = cfg.get_bool("stream", False) and data is None
+        self.use_native = cfg.get_bool("use_native", True)
+        self.producer = "python"  # numpy batches of records given or parsed
         if data is not None:
             self.labels, self.feats = data
+            return
+        if self.use_native:
+            from swiftsnails_tpu_torch.data import native
+
+            native.require()
+            self.producer = "native"
+        self._data_path = cfg.get_str("data")
+        if self.stream:
+            self.labels = self.feats = None
         else:
-            self.labels, self.feats = read_ctr_file(cfg.get_str("data"), self.num_fields)
+            self.labels, self.feats = read_ctr(self._data_path, self.num_fields,
+                                               use_native=self.use_native)
 
     # -- subclass API ------------------------------------------------------
 
@@ -189,7 +218,8 @@ class SparseCTRTrainer(Trainer):
     # -- framework ---------------------------------------------------------
 
     def init_state(self) -> CTRState:
-        table = create_packed_small_table(
+        make = create_packed_small_table if self.packed else create_table
+        table = make(
             self.capacity, self.table_dim, self.access, seed=self.seed,
             init_scale=self.config.get_float("init_scale", 1.0), device=self.device)
         gen = torch.Generator(device=self.device)
@@ -201,19 +231,40 @@ class SparseCTRTrainer(Trainer):
         return hash_row(feats.clamp_min(0), self.capacity)
 
     def _pull_rows(self, table: PackedTableState, rows: torch.Tensor) -> torch.Tensor:
-        """[N] row ids -> [N, table_dim] values (one row-gather launch)."""
-        return pull_packed_small(table, rows, self.table_dim)
+        """[N] row ids -> [N, table_dim] values (packed: one row-gather
+        launch; 2-D: ``index_select``)."""
+        if self.packed:
+            return pull_packed_small(table, rows, self.table_dim)
+        return pull(table, rows)
 
     def _push_rows(self, table: PackedTableState, rows: torch.Tensor,
                    grads: torch.Tensor, lr) -> PackedTableState:
-        """Merged push of [N, table_dim] gradients, in place (one row-kernel
-        launch)."""
-        return push_packed_small(table, rows, grads, self.access, lr, self.table_dim)
+        """Push of [N, table_dim] gradients, in place (packed: merged, one
+        row-kernel launch; 2-D: the rule's sort-free ``scatter_update``)."""
+        if self.packed:
+            return push_packed_small(table, rows, grads, self.access, lr, self.table_dim)
+        return push(table, rows, grads, self.access, lr)
 
     def batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        """Shuffled ``{"labels", "feats"}`` batches, as the JAX package makes
+        them: over all records, or with ``stream: 1`` within each chunk of
+        ``rows_per_chunk`` records (a bounded shuffle window), one generator
+        for the run."""
         rng = np.random.default_rng(self.seed)
-        yield from ctr_batches(self.labels, self.feats, self.batch_size, rng,
-                               epochs=self.epochs)
+        if not self.stream:
+            yield from ctr_batches(self.labels, self.feats, self.batch_size, rng,
+                                   epochs=self.epochs)
+            return
+        rows_per_chunk = self.config.get_int("rows_per_chunk", 1 << 20)
+        start, end = byte_span(self._data_path)  # one process: the whole file
+        for _ in range(self.epochs):
+            chunks = iter_ctr_chunks(self._data_path, self.num_fields, rows_per_chunk,
+                                     start, end, use_native=self.use_native)
+            try:
+                for labels, feats in chunks:
+                    yield from ctr_batches(labels, feats, self.batch_size, rng, epochs=1)
+            finally:
+                chunks.close()
 
     def train_step(self, state: CTRState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
@@ -245,7 +296,11 @@ class SparseCTRTrainer(Trainer):
                                                        "accuracy": acc}
 
     def table_geometry(self) -> Dict[str, Dict]:
-        return {"table": {"layout": "packed_small", "group": small_group(self.table_dim),
+        if self.packed:
+            group, layout = small_group(self.table_dim), "packed_small"
+        else:
+            group, layout = 1, "dense"
+        return {"table": {"layout": layout, "group": group,
                           "dim": self.table_dim, "capacity": self.capacity}}
 
     # -- eval --------------------------------------------------------------

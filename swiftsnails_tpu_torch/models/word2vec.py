@@ -4,8 +4,12 @@ The flagship trainer of the parameter server: workers pull embedding rows
 for the words of their batch, compute SGNS gradients with respect to the
 pulled rows, and push them back to the tables (SURVEY §3.3).
 
-The port runs the single-device paths of the JAX trainer. The default,
-``packed+pool``:
+The port runs the single-device paths of the JAX trainer. ``packed: 0``
+(``dense``, the reference-faithful rung) keeps two ``[capacity, dim]``
+tables on the 2-D plane (:class:`~swiftsnails_tpu_torch.parallel.store.TableState`)
+and trains with ``negatives`` independent draws a pair: pull by
+``index_select``, the SGNS loss and its gradient with ``torch.autograd``,
+push by a deterministic scatter-add. The default, ``packed+pool``:
 
 * two packed ``[capacity, S, 128]`` tables (input ``syn0``, output
   ``syn1neg``) held in :class:`~swiftsnails_tpu_torch.parallel.store.PackedTableState`;
@@ -17,7 +21,8 @@ The port runs the single-device paths of the JAX trainer. The default,
 * every ``pool_block`` consecutive pairs share ``pool_size`` negatives drawn
   from the unigram^0.75 alias table; the negative term is weighted by
   ``negatives / pool_size`` so the expected gradient matches ``negatives``
-  independent draws.
+  independent draws. ``neg_mode: per_pair`` draws those independently
+  instead, on the same packed tables and row kernels.
 
 ``fused: 1`` (``fused-hogwild``) replaces the pull, the autograd step and
 the push with one fused kernel a substep
@@ -31,18 +36,23 @@ updates of the head rows (ids below ``hot_rows``), ``dedup: 1``
 (``fused-dedup``) those of each block's first ``u_cap`` distinct context
 rows and switches the batches to shuffled blocks of consecutive windows, and
 both together (``fused-dedup-res``, ``examples/word2vec_fast.conf``) compose
-the two; a substep's kernel blocks then run in order.
+the two; a substep's kernel blocks then run in order. As in the JAX
+package, ``fused`` takes effect only with packed tables and pooled
+negatives.
 
-Batches come from the numpy pipeline, the same code as the JAX package's
-when its C++ batch producer (``data/native``) is unavailable: the port does
-not have that producer yet, so ``use_native`` is read and has no effect.
+Batches come from the native producer (:mod:`swiftsnails_tpu_torch.data.native`)
+with ``use_native: 1``, the default, as in the JAX package: the same seed
+gives the JAX trainer's batches. ``use_native: 0`` takes the numpy path, the
+JAX package's path where its producer is not built. ``stream: 1`` reads the
+corpus in chunks and never holds it whole.
 
 Config keys: ``dim``, ``window``, ``negatives``, ``learning_rate``,
 ``lr_decay``, ``num_iters``, ``batch_size``, ``min_count``, ``max_vocab``,
 ``subsample``, ``hash_keys``, ``capacity``, ``chunk_tokens``, ``seed``,
 ``data``, ``table_dtype``, ``pool_size``, ``pool_block``, ``steps_per_call``,
 ``fused``, ``grouped``, ``centers_per_block``, ``resident``, ``hot_rows``,
-``dedup``, ``u_cap``. Keys that select a path the port does not have yet raise
+``dedup``, ``u_cap``, ``packed``, ``neg_mode``, ``use_native``, ``stream``.
+Keys that select a path the port does not have yet raise
 ``NotImplementedError`` (see :data:`UNPORTED`); ``ROADMAP.md`` says when
 each is ported.
 """
@@ -65,7 +75,8 @@ from swiftsnails_tpu_torch.data.sampler import (
     skipgram_windows,
     subsample_mask,
 )
-from swiftsnails_tpu_torch.data.text import encode_corpus
+from swiftsnails_tpu_torch.data import native
+from swiftsnails_tpu_torch.data.text import byte_span, encode_corpus, encode_corpus_stream
 from swiftsnails_tpu_torch.data.vocab import Vocab
 from swiftsnails_tpu_torch.framework.trainer import (
     UNPORTED_PLANE_KEYS,
@@ -87,8 +98,12 @@ from swiftsnails_tpu_torch.ops.rowdma import unpack_rows
 from swiftsnails_tpu_torch.parallel.access import SgdAccess
 from swiftsnails_tpu_torch.parallel.store import (
     PackedTableState,
+    TableState,
     create_packed_table,
+    create_table,
+    pull,
     pull_packed,
+    push,
     push_packed,
 )
 from swiftsnails_tpu_torch.utils.config import Config
@@ -98,6 +113,7 @@ _TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class W2VState(NamedTuple):
+    # PackedTableState, or TableState with packed: 0
     in_table: PackedTableState  # syn0: center-word embeddings
     out_table: PackedTableState  # syn1neg: context/negative embeddings
 
@@ -113,11 +129,19 @@ def _next_pow2(n: int) -> int:
 # key -> "is it asked for". Each raises NotImplementedError when asked for.
 UNPORTED = {
     **UNPORTED_PLANE_KEYS,
-    "neg_mode": lambda cfg, key: cfg.get_str(key, "pool") != "pool",
     "push_mode": lambda cfg, key: cfg.get_str(key, "gather") != "gather",
     "overlap": lambda cfg, key: cfg.get_str(key, "0").strip().lower() not in (
         "0", "false", "no", "off", ""),
 }
+
+
+def sgns_loss(v: torch.Tensor, u_pos: torch.Tensor, u_neg: torch.Tensor) -> torch.Tensor:
+    """Skip-gram negative-sampling loss in float32: ``v``, ``u_pos``
+    ``[B, D]`` center and context rows, ``u_neg`` ``[B, K, D]`` negatives.
+    Returns the mean over pairs of ``-log σ(v·u_pos) - Σ_k log σ(-v·u_neg_k)``."""
+    pos = torch.einsum("bd,bd->b", v, u_pos)
+    neg = torch.bmm(u_neg, v.unsqueeze(-1)).squeeze(-1)  # [B, K]
+    return -(F.logsigmoid(pos) + F.logsigmoid(-neg).sum(dim=-1)).mean()
 
 
 def sgns_pool_loss(v: torch.Tensor, u_pos: torch.Tensor, pool: torch.Tensor,
@@ -177,37 +201,66 @@ class Word2VecTrainer(Trainer):
         # substeps per train_step call; TrainLoop counts calls, so substeps
         # scale throughput, not the step counter
         self.steps_per_call = max(cfg.get_int("steps_per_call", 1), 1)
-        # fused: 1 -> one hogwild kernel a substep (packed+pool tables, which
-        # the port always has); grouped: 1 -> its center-major form over the
-        # window schema
-        self.fused = cfg.get_bool("fused", False)
-        self.grouped = cfg.get_bool("grouped", False)
-        if self.grouped and not self.fused:
+        # packed: 0 -> the 2-D plane; neg_mode: per_pair -> K independent
+        # negatives a pair (the dense path always trains per pair)
+        self.packed = cfg.get_bool("packed", True)
+        self.neg_mode = cfg.get_str("neg_mode", "pool" if self.packed else "per_pair")
+        if self.neg_mode == "pool" and not self.packed:
+            raise ValueError("neg_mode: pool requires packed tables (packed: 1)")
+        # fused: 1 -> one hogwild kernel a substep, on packed+pool tables
+        # only (elsewhere the key has no effect, as in the JAX package);
+        # grouped: 1 -> its center-major form over the window schema
+        self.fused = (cfg.get_bool("fused", False) and self.packed
+                      and self.neg_mode == "pool")
+        self.grouped = cfg.get_bool("grouped", False) and self.fused
+        if cfg.get_bool("grouped", False) and not cfg.get_bool("fused", False):
             raise ValueError("grouped: 1 requires fused: 1")
         # resident: 1 -> the head rows (ids < hot_rows, frequency-ranked by
         # the vocabulary) get merged updates; dedup: 1 -> so do each kernel
         # block's first u_cap distinct context rows, over block-ordered
         # batches. Both compose (fused_sgns_dedup_resident_step).
         for key in ("resident", "dedup"):
-            if cfg.get_bool(key, False) and not self.grouped:
+            if cfg.get_bool(key, False) and not cfg.get_bool("grouped", False):
                 raise ValueError(f"{key}: 1 requires grouped: 1")
-        self.resident = cfg.get_bool("resident", False)
-        self.dedup = cfg.get_bool("dedup", False)
+        self.resident = cfg.get_bool("resident", False) and self.grouped
+        self.dedup = cfg.get_bool("dedup", False) and self.grouped
         self.hot_rows = cfg.get_int("hot_rows", 1024)
         self.u_cap = cfg.get_int("u_cap", 512)
         # centers per kernel block; the per-substep center count is batch_size
         self.centers_per_block = cfg.get_int("centers_per_block", 256)
+        # use_native: 1 -> the native batch producer, which must build (no
+        # quiet fallback to batches that differ from the JAX package's)
+        self.use_native = cfg.get_bool("use_native", True)
+        if self.use_native:
+            native.require()
+        self.producer = "native" if self.use_native else "python"
+        # stream: 1 -> bounded-memory ingestion: the corpus is never held
+        # whole; batches() opens a chunk stream each epoch
+        self.stream = cfg.get_bool("stream", False)
+        self._chunk_factory = None
+        self._local_total = None  # local tokens an epoch (progress denominator)
         if corpus_ids is None:
-            # one process: the JAX package's shard_token_stream is the
-            # identity here, so shard_data has nothing to do
-            corpus_ids, vocab = encode_corpus(
-                cfg.get_str("data"),
-                min_count=cfg.get_int("min_count", 5),
-                max_vocab=cfg.get_int("max_vocab", 0) or None,
-            )
+            # one process: its byte span is the whole file and the JAX
+            # package's shard_token_stream the identity, so shard_data
+            # changes nothing
+            data_path = cfg.get_str("data")
+            kw = {"min_count": cfg.get_int("min_count", 5),
+                  "max_vocab": cfg.get_int("max_vocab", 0) or None,
+                  "use_native": self.use_native}
+            if self.stream:
+                start, end = byte_span(data_path)
+                vocab, self._chunk_factory = encode_corpus_stream(
+                    data_path, self.chunk_tokens, byte_start=start, byte_end=end, **kw)
+                self._local_total = max(int(vocab.counts.sum()), 1)
+            else:
+                corpus_ids, vocab = encode_corpus(data_path, **kw)
         if vocab is None:
             raise ValueError("vocab required when corpus_ids is given")
-        self.corpus_ids = np.asarray(corpus_ids, dtype=np.int32)
+        if corpus_ids is not None:
+            self.corpus_ids = np.asarray(corpus_ids, dtype=np.int32)
+            self._local_total = len(self.corpus_ids)
+        else:
+            self.corpus_ids = None
         self.vocab = vocab
         cap = cfg.get_int("capacity", 0) or _next_pow2(max(len(vocab), 2))
         self.capacity = cap
@@ -236,11 +289,12 @@ class Word2VecTrainer(Trainer):
     # -- state -------------------------------------------------------------
 
     def init_state(self) -> W2VState:
-        in_table = create_packed_table(
+        make = create_packed_table if self.packed else create_table
+        in_table = make(
             self.capacity, self.dim, self.access, dtype=self.table_dtype,
             seed=self.seed, device=self.device)
         # reference word2vec inits syn1neg to zeros; init_scale=0 keeps that
-        out_table = create_packed_table(
+        out_table = make(
             self.capacity, self.dim, self.access, dtype=self.table_dtype,
             seed=self.seed + 1, init_scale=0.0, device=self.device)
         return W2VState(in_table=in_table, out_table=out_table)
@@ -252,45 +306,85 @@ class Word2VecTrainer(Trainer):
 
     # -- data --------------------------------------------------------------
 
+    def _epoch_chunks(self) -> Iterator[np.ndarray]:
+        """One epoch's token chunks: slices of the corpus, or with
+        ``stream: 1`` a chunk stream opened anew."""
+        if self.corpus_ids is not None:
+            ids = self.corpus_ids
+            for start in range(0, len(ids), self.chunk_tokens):
+                yield ids[start : start + self.chunk_tokens]
+        else:
+            yield from self._chunk_factory()
+
     def batches(self) -> Iterator[Dict[str, np.ndarray]]:
         """Host batches ``{"centers", "contexts", "progress"}``, numpy.
 
-        The JAX package's numpy path, line for line, so one seed gives the
-        same batches in both packages. ``progress`` is the fraction of the
-        corpus consumed (raw tokens x epochs), which drives ``lr_decay``.
-        With ``grouped: 1`` a batch row is one corpus position and its
-        window (``contexts`` [N, 2 * window], ``-1`` pads), and whole
-        windows shuffle together; with ``dedup: 1`` blocks of
-        ``_effective_pc()`` consecutive windows do.
+        The JAX package's ``batches``, line for line, so one seed gives the
+        same batches in both packages: with ``use_native`` each chunk's
+        subsampling, pairs or windows and its shuffled batches come from the
+        native producer, seeded per chunk; else from numpy with one
+        generator. ``progress`` is the fraction of the corpus consumed (raw
+        tokens x epochs; in stream mode over the vocab's token count), which
+        drives ``lr_decay``. With ``grouped: 1`` a batch row is one corpus
+        position and its window (``contexts`` [N, 2 * window], ``-1``
+        pads), and whole windows shuffle together; with ``dedup: 1`` blocks
+        of ``_effective_pc()`` consecutive windows do.
         """
+        use_native = self.use_native
         rng = np.random.default_rng(self.seed)
         counts = self.vocab.counts
-        ids = self.corpus_ids
-        local_total = max(len(ids), 1)
+        local_total = max(self._local_total or 1, 1)
         total_tokens = max(self.epochs * local_total, 1)
         macro = self.batch_size * self.steps_per_call
         for epoch in range(self.epochs):
             consumed = 0  # tokens before this chunk
-            for start in range(0, len(ids), self.chunk_tokens):
-                chunk = ids[start : start + self.chunk_tokens]
+            for chunk in self._epoch_chunks():
+                seed = (self.seed * 1_000_003 + epoch * 7919 + consumed) & 0xFFFFFFFF
                 chunk_base = epoch * local_total + consumed
                 chunk_len = len(chunk)
                 consumed += chunk_len
-                if self.subsample > 0:
+                if use_native:
+                    if self.subsample > 0:
+                        chunk = native.subsample(chunk, counts, self.subsample, seed=seed)
+                elif self.subsample > 0:
                     chunk = chunk[subsample_mask(chunk, counts, self.subsample, rng)]
-                pairs_of = skipgram_windows if self.grouped else skipgram_pairs
-                centers, contexts = pairs_of(chunk, self.window, rng)
-                n_batches = max(len(centers) // macro, 1)
-                # dedup shuffles blocks of consecutive windows, one kernel
-                # block each, so that a block's windows overlap
-                block = self._effective_pc() if self.dedup else 1
-                if block > 1:
-                    stream = batch_stream_blocks(centers, contexts, macro, rng, block=block)
+                if self.grouped:
+                    if use_native:
+                        centers, contexts = native.skipgram_windows(chunk, self.window,
+                                                                    seed=seed)
+                    else:
+                        centers, contexts = skipgram_windows(chunk, self.window, rng)
+                    # dedup shuffles blocks of consecutive windows, one kernel
+                    # block each, so that a block's windows overlap
+                    block = self._effective_pc() if self.dedup else 1
+                    if use_native and len(centers) >= macro:
+                        stream = native.WindowPrefetcher(
+                            centers, contexts, macro, block=block, epochs=1,
+                            capacity=4, seed=seed)
+                    elif block > 1:
+                        stream = batch_stream_blocks(centers, contexts, macro, rng,
+                                                     block=block)
+                    else:
+                        stream = batch_stream(centers, contexts, macro, rng)
                 else:
-                    stream = batch_stream(centers, contexts, macro, rng)
-                for bi, b in enumerate(stream):
-                    p = (chunk_base + (bi / n_batches) * chunk_len) / total_tokens
-                    yield {**b, "progress": np.float32(min(p, 1.0))}
+                    if use_native:
+                        centers, contexts = native.skipgram_pairs(chunk, self.window,
+                                                                  seed=seed)
+                    else:
+                        centers, contexts = skipgram_pairs(chunk, self.window, rng)
+                    if use_native and len(centers) >= macro:
+                        stream = native.PairPrefetcher(centers, contexts, macro,
+                                                       epochs=1, capacity=4, seed=seed)
+                    else:
+                        stream = batch_stream(centers, contexts, macro, rng)
+                n_batches = max(len(centers) // macro, 1)
+                try:
+                    for bi, b in enumerate(stream):
+                        p = (chunk_base + (bi / n_batches) * chunk_len) / total_tokens
+                        yield {**b, "progress": np.float32(min(p, 1.0))}
+                finally:
+                    if hasattr(stream, "close"):
+                        stream.close()
 
     # -- step --------------------------------------------------------------
 
@@ -319,6 +413,53 @@ class Word2VecTrainer(Trainer):
         if negs is not None:
             return negs
         return alias_sample(self.neg_alias, generator, (nb, self.pool_size))
+
+    def _negs(self, generator: torch.Generator, b: int,
+              negs: Optional[torch.Tensor]) -> torch.Tensor:
+        """``[b, negatives]`` word ids a pair: ``negs``, else drawn."""
+        if negs is not None:
+            return negs
+        return alias_sample(self.neg_alias, generator, (b, self.negatives))
+
+    def _substep_dense(self, state: W2VState, centers: torch.Tensor,
+                       contexts: torch.Tensor, generator: torch.Generator,
+                       lr: float, negs: Optional[torch.Tensor] = None):
+        """One reference-faithful substep on the 2-D plane: ``negatives``
+        independent draws a pair (``negs``, ``[b, K]`` word ids, replaces
+        them, as in the JAX package), pull, SGNS loss and its gradient with
+        respect to the pulled rows, push. Updates both tables in place and
+        returns ``(state, loss)``."""
+        b, k = centers.shape[0], self.negatives
+        negs = self._negs(generator, b, negs)
+        in_rows = self._rows(centers)
+        out_rows = self._rows(torch.cat([contexts, negs.reshape(-1)]))
+        v = pull(state.in_table, in_rows).float().requires_grad_()
+        u = pull(state.out_table, out_rows).float().requires_grad_()
+        loss = sgns_loss(v, u[:b], u[b:].reshape(b, k, -1))
+        dv, du = torch.autograd.grad(loss, (v, u))
+        push(state.in_table, in_rows, dv, self.access, lr)
+        push(state.out_table, out_rows, du, self.access, lr)
+        return state, loss.detach()
+
+    def _substep_packed_perpair(self, state: W2VState, centers: torch.Tensor,
+                                contexts: torch.Tensor, generator: torch.Generator,
+                                lr: float, negs: Optional[torch.Tensor] = None):
+        """Packed tables with ``negatives`` independent draws a pair: the
+        pulls and pushes of :meth:`_substep_packed` (two ``gather_rows``,
+        two ``scatter_add_rows``) over ``b`` centers and ``b (1 + K)`` out
+        rows; ``negs`` as in :meth:`_substep_dense`."""
+        b, k = centers.shape[0], self.negatives
+        negs = self._negs(generator, b, negs)
+        in_rows = self._rows(centers)
+        out_rows = self._rows(torch.cat([contexts, negs.reshape(-1)]))
+        v = pull_packed(state.in_table, in_rows).float().requires_grad_()
+        u = pull_packed(state.out_table, out_rows).float().requires_grad_()
+        flat = v.reshape(b, -1)
+        loss = sgns_loss(flat, u[:b].reshape(b, -1), u[b:].reshape(b, k, -1))
+        dv, du = torch.autograd.grad(loss, (v, u))
+        push_packed(state.in_table, in_rows, dv, self.access, lr)
+        push_packed(state.out_table, out_rows, du, self.access, lr)
+        return state, loss.detach()
 
     def _substep_packed(self, state: W2VState, centers: torch.Tensor,
                         contexts: torch.Tensor, generator: torch.Generator,
@@ -442,8 +583,11 @@ class Word2VecTrainer(Trainer):
             substep = self._substep_grouped
         elif self.fused:
             substep = self._substep_fused
+        elif self.packed:
+            substep = (self._substep_packed if self.neg_mode == "pool"
+                       else self._substep_packed_perpair)
         else:
-            substep = self._substep_packed
+            substep = self._substep_dense
         losses = []
         for i in range(t):
             sl = slice(i * b, (i + 1) * b)
@@ -456,8 +600,16 @@ class Word2VecTrainer(Trainer):
     def _all_vocab_rows(self, state: W2VState) -> np.ndarray:
         ids = self._rows(torch.arange(len(self.vocab), dtype=torch.int32,
                                       device=state.in_table.table.device))
-        vals = unpack_rows(state.in_table.table.index_select(0, ids), self.dim)
+        vals = state.in_table.table.index_select(0, ids)
+        if self.packed:
+            vals = unpack_rows(vals, self.dim)
         return vals.float().cpu().numpy()
+
+    def table_geometry(self) -> Dict[str, Dict]:
+        """Each table's layout, as the JAX trainer gives it."""
+        layout = "packed" if self.packed else "dense"
+        geo = {"layout": layout, "group": 1, "dim": self.dim, "capacity": self.capacity}
+        return {"in_table": dict(geo), "out_table": dict(geo)}
 
     def export_text(self, state: W2VState, path: str) -> None:
         rows = self._all_vocab_rows(state).astype(np.float64).tolist()

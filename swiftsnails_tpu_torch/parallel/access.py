@@ -6,8 +6,9 @@ Counterpart of the reference's ``PullAccessMethod`` /
 (the update of a batch of merged, unique rows). Two rules: plain SGD and
 AdaGrad. The stores push each through a row kernel where one fits
 (:mod:`swiftsnails_tpu_torch.parallel.store`), else through gather ->
-``apply_push_value`` -> write. ``scatter_update`` (the 2-D plane's sort-free
-push) is not ported yet (``ROADMAP.md``).
+``apply_push_value`` -> write. On the 2-D plane a rule may also push
+without a sort (:meth:`AccessMethod.scatter_update`): SGD as one scatter-add,
+AdaGrad with a per-sample accumulator.
 """
 
 from __future__ import annotations
@@ -61,6 +62,35 @@ class AccessMethod:
             f"{type(self).__name__} has no apply_push_value, which the "
             "gather -> apply -> scatter_write_rows push needs")
 
+    def scatter_update(self, table: torch.Tensor, slots: Slots, rows: torch.Tensor,
+                       grads: torch.Tensor, lr) -> Optional[Slots]:
+        """The 2-D plane's sort-free push of ``grads`` (``[N, dim]``, rows
+        may repeat) into ``table`` and ``slots``, in place; returns the
+        slots, or ``None`` where only the exact merge-then-apply push is
+        valid (the base rule).
+
+        Rows outside ``[0, C)`` are dropped (the JAX package's
+        ``mode="drop"``). Each scatter is ``index_put_`` with
+        ``accumulate=True``: serial on the CPU and a sort-based kernel on the
+        card, so duplicates add in batch order and two runs give the same
+        bits (``index_add_`` on the card adds with float atomics).
+        """
+        return None
+
+
+def _scatter_add(dst: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
+                 vals: torch.Tensor) -> None:
+    """``dst[rows] += vals`` in place, duplicates in batch order; rows not
+    ``valid`` add -0.0 to row 0, which leaves every value as it was."""
+    vals = vals.to(dst.dtype).masked_fill(~valid[:, None], -0.0)
+    dst.index_put_((rows,), vals, accumulate=True)
+
+
+def _in_range(table: torch.Tensor, rows: torch.Tensor):
+    """``(row ids with the out-of-range ones set to 0, valid mask)``."""
+    valid = (rows >= 0) & (rows < table.shape[0])
+    return rows.long().masked_fill(~valid, 0), valid
+
 
 class SgdAccess(AccessMethod):
     """Plain SGD, ``param -= lr * grad``: the stores apply it as one row
@@ -68,6 +98,12 @@ class SgdAccess(AccessMethod):
 
     def apply_push_value(self, param, slots, grad, lr):
         return param - lr * grad.to(param.dtype), slots
+
+    def scatter_update(self, table, slots, rows, grads, lr):
+        # scatter-add sums duplicate rows itself: the merged push's math
+        idx, valid = _in_range(table, rows)
+        _scatter_add(table, idx, valid, -(lr * grads))
+        return slots
 
 
 class AdaGradAccess(AccessMethod):
@@ -92,3 +128,19 @@ class AdaGradAccess(AccessMethod):
         step, accum = adagrad_step(slots["accum"].float(), grad.float(), lr, self.eps)
         new_param = param - step.to(param.dtype)
         return new_param, {"accum": accum.to(slots["accum"].dtype)}
+
+    def scatter_update(self, table, slots, rows, grads, lr):
+        """The per-sample-accumulator AdaGrad of the JAX package: every
+        sample's ``g²`` is added to its row's accumulator first, then each
+        sample reads its row's accumulator after all of them
+        (``index_put_`` is ordered on one stream), and the steps
+        ``lr * g * rsqrt(accum + eps)`` are scatter-added. A duplicate key
+        adds ``Σ g²``, where the merged rule adds ``(Σ g)²``."""
+        accum = slots["accum"]
+        idx, valid = _in_range(table, rows)
+        g = grads.float()
+        _scatter_add(accum, idx, valid, g * g)
+        acc_rows = accum.index_select(0, idx).float().masked_fill(~valid[:, None], 1.0)
+        step = lr * g * torch.rsqrt(acc_rows + self.eps)
+        _scatter_add(table, idx, valid, -step)
+        return slots

@@ -1,6 +1,17 @@
-"""The packed parameter store on one device — the JAX package's ``parallel/store.py``.
+"""The parameter store on one device — the JAX package's ``parallel/store.py``.
 
-Replaces the reference's parameter layer (SURVEY §2.5): one pre-initialized
+The 2-D plane (:class:`TableState`, :func:`create_table`, :func:`pull`,
+:func:`push`, :func:`apply_rows`, :func:`export_rows`) keeps a ``[capacity,
+dim]`` table and row-aligned slots. The JAX package lowers it through XLA
+gathers and scatters, with no Pallas kernel, so here it is plain torch: the
+pull is ``index_select``, the sort-free push the access rule's
+:meth:`~swiftsnails_tpu_torch.parallel.access.AccessMethod.scatter_update`
+(``index_put_`` with ``accumulate=True``, deterministic on the card), the
+exact push :func:`merge_duplicate_rows` then :func:`apply_rows`. The row
+kernels serve only rows of a multiple of 16 bytes, which a CTR row (dim 17,
+68 bytes) is not.
+
+The packed plane replaces the reference's parameter layer (SURVEY §2.5): one pre-initialized
 dense table of shape ``[capacity, S, 128]`` on the device (the hashing trick
 places keys, :func:`swiftsnails_tpu_torch.ops.hashing.hash_row`), pulled and
 pushed through the row kernels of :mod:`swiftsnails_tpu_torch.ops.rowdma`:
@@ -25,8 +36,7 @@ Tables are updated in place where the JAX package donated the buffer.
 Trainers differentiate with respect to the *pulled rows* and push explicitly,
 so every per-step tensor is batch-sized, as in the reference's wire protocol.
 
-Not ported yet (``ROADMAP.md``): the 2-D ``TableState`` plane, meshes and
-the tiered cache plane.
+Not ported yet (``ROADMAP.md``): meshes and the tiered cache plane.
 """
 
 from __future__ import annotations
@@ -44,6 +54,91 @@ from swiftsnails_tpu_torch.parallel.access import (
     Slots,
 )
 from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+class TableState(NamedTuple):
+    """A 2-D ``[capacity, dim]`` table and its row-aligned slots."""
+
+    table: torch.Tensor
+    slots: Slots
+
+    @property
+    def capacity(self) -> int:
+        return self.table.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.table.shape[1]
+
+
+def create_table(
+    capacity: int,
+    dim: int,
+    access: AccessMethod,
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    init_scale: Optional[float] = None,
+    device: DeviceLike = None,
+) -> TableState:
+    """A fully initialized ``[capacity, dim]`` table on ``device`` (default:
+    the card), values from a ``torch.Generator`` seeded with ``seed``
+    (:mod:`swiftsnails_tpu_torch.convert` carries a JAX table across where
+    equal values are needed)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    param = access.init_param(gen, (capacity, dim), dtype)
+    if init_scale is not None:
+        param = param * init_scale
+    return TableState(table=param.contiguous(),
+                      slots=access.init_slots((capacity, dim), dtype, dev))
+
+
+def pull(state: TableState, rows: torch.Tensor) -> torch.Tensor:
+    """Gather rows -> ``[N, dim]`` (``index_select``; ids must be in range)."""
+    return state.table.index_select(0, rows)
+
+
+def export_rows(state: TableState, rows: torch.Tensor) -> torch.Tensor:
+    """Raw rows for export; ids outside ``[0, C)`` read zeros."""
+    valid = (rows >= 0) & (rows < state.capacity)
+    vals = state.table.index_select(0, rows.long().masked_fill(~valid, 0))
+    return vals.masked_fill(~valid[:, None], 0)
+
+
+def apply_rows(table: torch.Tensor, slots: Slots, uniq: torch.Tensor,
+               merged: torch.Tensor, access: AccessMethod, lr) -> None:
+    """Gather the rows ``uniq`` and their slots, apply
+    ``access.apply_push_value``, write each back, in place. ``uniq`` holds
+    each row at most once, the ids at or past capacity last (as
+    :func:`merge_duplicate_rows` leaves them); those read nothing and are
+    not written."""
+    n = int((uniq < table.shape[0]).sum())  # one host sync: the exact path
+    idx = uniq[:n].long()
+    cur_slots = {k: v.index_select(0, idx) for k, v in slots.items()}
+    new_param, new_slots = access.apply_push_value(
+        table.index_select(0, idx), cur_slots, merged[:n], lr)
+    table.index_copy_(0, idx, new_param.to(table.dtype))
+    for k, v in slots.items():
+        v.index_copy_(0, idx, new_slots[k].to(v.dtype))
+
+
+def push(state: TableState, rows: torch.Tensor, grads: torch.Tensor,
+         access: AccessMethod, lr, exact: bool = False) -> TableState:
+    """Apply ``[N, dim]`` gradients of rows that may repeat, in place.
+
+    The default is the access rule's sort-free ``scatter_update`` (SGD: the
+    merged push's math; AdaGrad: the per-sample accumulator). ``exact=True``,
+    or a rule without one, merges duplicates (:func:`merge_duplicate_rows`)
+    and applies the rule to each unique row once (:func:`apply_rows`).
+    Returns the state, whose tensors were updated in place.
+    """
+    if not exact and access.scatter_update(
+            state.table, state.slots, rows, grads, lr) is not None:
+        return state
+    uniq, merged = merge_duplicate_rows(rows, grads, invalid_row=state.capacity)
+    apply_rows(state.table, state.slots, uniq, merged, access, lr)
+    return state
 
 
 class PackedTableState(NamedTuple):

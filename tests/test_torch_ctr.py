@@ -338,13 +338,24 @@ def test_train_loop_runs_on_the_cpu(case):
     ("packed", "0"), ("stream", "1"), ("table_tier", "host"), ("comm_dtype", "bf16"),
     ("placement", "hybrid"), ("dense_tp", "1"), ("optimizer_sharding", "zero")])
 def test_unported_keys_raise(key, value):
+    """``packed: 0`` and ``stream: 1`` are ported since this test was
+    written: for them it holds that the trainer takes the key (``stream``
+    reads only a ``data`` file, as in the JAX package, so records given in
+    hand keep it off); every other key still raises."""
+    if key in ("packed", "stream"):
+        tr = get_model("widedeep")(Config(_conf(**{key: value})), data=_data(),
+                                   device="cpu")
+        assert (not tr.packed) if key == "packed" else (not tr.stream)
+        return
     with pytest.raises(NotImplementedError, match=key):
         get_model("widedeep")(Config(_conf(**{key: value})), data=_data(), device="cpu")
 
 
 def test_wide_ffm_and_mesh_raise():
-    with pytest.raises(NotImplementedError, match="table_dim"):
-        get_model("ffm")(Config(_conf(factor_dim=40)), data=_data(), device="cpu")
+    """FFM above a table dim of 128 is ported since this test was written:
+    it takes the 2-D plane, as in the JAX package. A mesh still raises."""
+    wide = get_model("ffm")(Config(_conf(factor_dim=40)), data=_data(), device="cpu")
+    assert wide.table_dim > 128 and not wide.packed
     with pytest.raises(NotImplementedError, match="mesh"):
         get_model("logreg")(Config(_conf()), mesh=object(), data=_data(), device="cpu")
 

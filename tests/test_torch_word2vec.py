@@ -323,10 +323,12 @@ def test_packed_pool_loss_decreases():
 
 # (key, value, other keys of the case). ``fused``, ``grouped``, ``resident``
 # and ``dedup`` are ported; their cases ask for a path still to port on top.
+# ``packed``, ``neg_mode`` and ``stream`` are ported too: for them the test
+# holds that the trainer takes the key (see ``_PORTED``).
 _UNPORTED_CASES = [
     ("packed", 0, {}), ("neg_mode", "per_pair", {}),
-    ("fused", 1, {"grouped": 1, "resident": 1, "stream": 1}),
-    ("grouped", 1, {"fused": 1, "dedup": 1, "stream": 1}),
+    ("fused", 1, {"grouped": 1, "resident": 1, "overlap": 1}),
+    ("grouped", 1, {"fused": 1, "dedup": 1, "comm_dtype": "bfloat16"}),
     ("resident", 1, {"fused": 1, "grouped": 1, "table_tier": "host"}),
     ("dedup", 1, {"fused": 1, "grouped": 1, "placement": "hybrid"}),
     ("table_tier", "host", {}),
@@ -336,10 +338,24 @@ _UNPORTED_CASES = [
 ]
 
 
+# key -> "the trainer took it"
+_PORTED = {
+    "packed": lambda tr: not tr.packed and tr.neg_mode == "per_pair",
+    "neg_mode": lambda tr: tr.packed and tr.neg_mode == "per_pair",
+    "stream": lambda tr: tr.stream,
+}
+
+
 @pytest.mark.parametrize("key,value,extra", _UNPORTED_CASES,
                          ids=[f"{k}-{v}" for k, v, _ in _UNPORTED_CASES])
 def test_unported_trainer_keys_raise(key, value, extra):
     words, counts, ids = _corpus(200)
+    if key in _PORTED:
+        tr = word2vec.Word2VecTrainer(Config(_conf(**{key: value}, **extra)),
+                                      corpus_ids=ids, vocab=Vocab(words, counts),
+                                      device="cpu")
+        assert _PORTED[key](tr)
+        return
     with pytest.raises(NotImplementedError, match="|".join([key, *extra])):
         word2vec.Word2VecTrainer(Config(_conf(**{key: value}, **extra)),
                                  corpus_ids=ids, vocab=Vocab(words, counts),
