@@ -148,7 +148,12 @@ Phases:
     (64 blocks of 1,856 ids into ``[100,000, 2, 128]`` f32): per-copy and
     chunked both bit-equal to the plain version and bit-identical across
     two runs; ms a call, µs a block and ns a copy of each, the speedup, and
-    beside them ``index_select``, ``gather_rows`` and the byte bound.
+    beside them ``index_select``, ``gather_rows`` and the byte bound. The
+    launch geometry is printed with them, as the library reports the
+    launches it builds (``chunk_plan``, ``pipe_plan``): the chunk probe's
+    CTAs and issuing lanes; the pipe's cluster of G CTAs a block (G = 2, 128
+    CTAs at this shape), its stages, issuing lanes and consumer warps, and
+    ns a copy a CTA over the K / G copies each CTA takes.
 11. ``cli_resume``: ``examples/word2vec.conf`` as it stands (dim 200,
     window 5, 5 negatives, batch 16,384, ``guardrail: 1``, ``resume:
     auto``) over a zipf text corpus from ``--seed`` (300,000 tokens over
@@ -1742,7 +1747,8 @@ def phase_sem_probe(rate: float) -> dict:
             "max_abs_err": chunk["max_abs_err"],
             "shape": chunk["shape"], "ids": chunk["rows"], "flag": chunk["flag"],
             "issue_to_complete_ns": chunk["ns"],
-            "issue_to_complete_cycles": chunk["cycles"]},
+            "issue_to_complete_cycles": chunk["cycles"], "ctas": chunk["ctas"],
+            "issuing_lanes": chunk["issuing_lanes"]},
         "pipe_probe": {
             "launches": launches["pipe_probe"], "ms": pipe["chunked"]["ms"],
             "per_copy_ms": pipe["per_copy"]["ms"], "speedup": pipe["speedup"],
@@ -1751,7 +1757,11 @@ def phase_sem_probe(rate: float) -> dict:
             "library_ms": pipe["index_select_ms"],
             "gather_rows_ms": pipe["gather_rows_ms"], "max_abs_err": pipe["max_abs_err"],
             "shape": pipe["shape"], "ids": pipe["blocks"] * pipe["copies"],
-            "stages": pipe["stages"]},
+            "stages": pipe["stages"], "cluster": pipe["chunked"]["cluster"],
+            "ctas": pipe["chunked"]["ctas"], "issuing_lanes": pipe["issuing_lanes"],
+            "consumer_warps": pipe["consumer_warps"],
+            "ns_per_copy_per_cta": pipe["chunked"]["ns_per_copy_per_cta"],
+            "per_copy_ns_per_copy_per_cta": pipe["per_copy"]["ns_per_copy_per_cta"]},
     }
     emit("sem_probe", launches={k: launches[k] for k in SEM_PROBES}, **out)
     return out

@@ -123,6 +123,7 @@
 #include <mutex>
 #include <tuple>
 
+#include "cluster_launch.cuh"
 #include "sgns_device.cuh"
 
 namespace cg = cooperative_groups;
@@ -132,7 +133,6 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTile = 32;    // pairs (flat) or centers (grouped) a tile
-constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kDqRows = 8;      // pool rows of a thread's dQ micro-tile (x 4 lanes)
 constexpr int kRowsInFlight = 4;  // rows a warp loads before it stores any
 constexpr int kRingRows = 32;   // grouped: the context rows a tile wants in its ring,
@@ -1007,58 +1007,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_sgns_grouped_kernel(const A
 
 // ------------------------------------------------------------ launch ---
 
-// A launch of nblocks clusters of k CTAs.
-struct ClusterConfig {
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg;
-  ClusterConfig(int k, long long nblocks, size_t bytes, cudaStream_t s) : cfg() {
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = unsigned(k);
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.gridDim = dim3(unsigned(nblocks * k));
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = bytes;
-    cfg.stream = s;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-  }
-  ClusterConfig(const ClusterConfig&) = delete;
-};
-
-struct Launch {
+// A shape's launch: its cluster (cluster_launch.cuh) and its shared memory.
+struct Launch : ClusterPick {
   Shape sh;
-  int cluster, max_active;
-  int active[kMaxCluster + 1];  // clusters of k CTAs the card holds at once
 };
-
-// The cluster size K (see the note) from the clusters the card holds at
-// once at each size. A CTA's time goes as its rounds, ceil(ntiles / K), and
-// the launch's as the waves it takes, ceil(nblocks / clusters held at
-// once): K minimises rounds x waves, the smaller K on a tie.
-template <typename Kernel>
-cudaError_t pick_cluster(Kernel kernel, long long nblocks, int ntiles, size_t bytes,
-                         Launch* l) {
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  long long best = -1;
-  l->active[0] = 0;
-  for (int k = 1; k <= kMaxCluster; ++k) {
-    ClusterConfig c(k, nblocks, bytes, nullptr);
-    int active = 0;
-    err = cudaOccupancyMaxActiveClusters(&active, kernel, &c.cfg);
-    if (err != cudaSuccess) return err;
-    l->active[k] = active;
-    if (active <= 0) continue;
-    const long long cost = (ntiles + k - 1) / k * ((nblocks + active - 1) / active);
-    if (best < 0 || cost < best) {
-      best = cost;
-      l->cluster = k;
-      l->max_active = active;
-    }
-  }
-  return best < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
-}
 
 // The plan of a shape on a card, computed once: the occupancy queries cost
 // more host time than the launch.
@@ -1079,8 +1031,9 @@ cudaError_t launch_plan(bool grouped, long long nblocks, int per_block, int cw, 
   if (!plan(grouped, cw, pool, d, &l.sh) || per_block <= 0) return cudaErrorInvalidValue;
   const int ntiles = (per_block + l.sh.tile - 1) / l.sh.tile;
   cudaError_t err =
-      grouped ? pick_cluster(fused_sgns_grouped_kernel<T>, nblocks, ntiles, l.sh.bytes, &l)
-              : pick_cluster(fused_sgns_kernel<T>, nblocks, ntiles, l.sh.bytes, &l);
+      grouped ? pick_cluster(fused_sgns_grouped_kernel<T>, nblocks, ntiles, kThreads,
+                             l.sh.bytes, &l)
+              : pick_cluster(fused_sgns_kernel<T>, nblocks, ntiles, kThreads, l.sh.bytes, &l);
   if (err != cudaSuccess) return err;
   // The same rounds with every CTA busy in each: the smallest tile that
   // still takes ceil(ntiles / K) rounds (it takes no more shared memory, so
@@ -1100,7 +1053,7 @@ cudaError_t launch(Kernel kernel, const Args<T>& a, const Launch& l, long long n
   // the limit is the kernel's, not the shape's: another shape may have set it
   cudaError_t err = allow_smem(kernel, l.sh.bytes);
   if (err != cudaSuccess) return err;
-  ClusterConfig c(l.cluster, nblocks, l.sh.bytes, s);
+  ClusterConfig c(l.cluster, nblocks, kThreads, l.sh.bytes, s);
   err = cudaLaunchKernelEx(&c.cfg, kernel, a);
   return err != cudaSuccess ? err : cudaGetLastError();
 }

@@ -26,52 +26,94 @@
 //       K row copies per grid step, retired by K per-copy waits or K/64
 //       chunked waits.
 //
-// What bounds them: latency, not bytes. A probe moves a few KB (unit,
-// chunk): its time is the copy's issue-to-complete latency and the polls.
-// The pipe probe moves 64 x 1,856 rows of 1 KB (121.6 MB) and would be bound
-// by device-memory bytes (3.35 TB/s) if enough rows were in flight; each CTA
-// keeps at most three stages of 64 rows in flight, so latency per stage and
-// the waits are what it measures.
+// What bounds them. The unit probe moves a few KB: its time is one copy's
+// issue-to-complete latency and, above all, the 100,000 polls of the
+// over-armed phase, which the JAX tool's semantics fix. The chunk probe (64
+// rows, 64 KB) is bound by latency too: the launch, one load of the ids, the
+// TMA engine's issue of 64 copies and their landing, the copy out. The pipe
+// probe reads 64 x 1,856 rows of 1 KB (121.6 MB, 71 MB of them distinct) and
+// is bound by device-memory bytes (3.35 TB/s) once enough rows are in flight
+// on enough SMs: a CTA with three stages of 64 rows holds 192 KB in flight,
+// so 128 CTAs hold ~25 MB, far above the ~5 MB that HBM's latency asks.
 //
 // Design. A row (S * 128 elements, 1,024 B at dim 200 in f32) moves as one
-// bulk copy that one thread asks of the TMA engine:
+// bulk copy:
 // cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes, whose
 // completion decrements the barrier's transaction count by the bytes it
-// wrote. A barrier is initialised with one arrival; mbarrier.arrive.expect_tx
+// wrote. A barrier is initialised with its arrivals; mbarrier.arrive.expect_tx
 // arms a phase with the bytes it waits for, and the phase completes when the
-// arrival is in and the count is back at 0. The TPU ran a grid in order on
-// one core; here the pipe probe's B blocks are B CTAs on B SMs at once. K
-// rows (1.9 MB) do not fit in shared memory (227 KB a CTA), so each CTA runs
-// a ring of `stages` x 64 rows: thread 0 issues, all threads wait on the
-// stage, XOR-reduce its words (which proves every copy landed), meet at
-// __syncthreads, and thread 0 re-arms the stage after fence.proxy.async.
-// The two variants differ only in the accounting: per-copy, 64 barriers a
-// stage each armed with one row and 64 waits; chunked, one barrier armed
-// with 64 rows and one wait.
+// arrivals are in and the count is back at 0. Copies are issued by a warp:
+// each lane loads its ids in one coalesced load (the stage's 64 ids: two a
+// lane), the warp checks their bounds with one vote, one lane arms the phase
+// (or, per copy, each lane the barriers of its rows) and every lane issues its
+// copies. No id load waits behind another copy's issue.
+//   * chunk probe: one CTA, one barrier armed with the n rows' bytes (plus
+//     arm_extra), armed by lane 0 of warp 0 before the warp loads the ids,
+//     so the time from the arming covers the ids' loads, the copies' issue
+//     and their landing; warp 0 issues, thread 0 alone polls the phase while
+//     the other warps wait at the CTA barrier, then the CTA's threads copy
+//     the rows out.
+//   * pipe probe: the TPU ran a grid in order on one core; here a block of K
+//     ids is one thread-block cluster of G CTAs on neighbouring SMs, and CTA
+//     rank r takes the block's chunks of 64 rows r, r + G, ... G is the
+//     hogwild kernels' rule (cluster_launch.cuh), picked once a shape by
+//     ssn_pipe_probe itself: the least rounds x waves,
+//     ceil(chunks / G) x ceil(blocks / clusters of G the card holds at once);
+//     at the JAX tool's shape (29 chunks, 64 blocks, 66 clusters of 2
+//     resident) G = 2, 128 CTAs in one wave. K rows (1.9 MB) do not fit in
+//     shared memory (227 KB), so each CTA runs a ring of `stages` x 64 rows: a
+//     producer warp and four consumer warps. Each stage has "full" barriers
+//     (chunked: one armed with the stage's bytes; per copy: 64, each armed
+//     with one row's bytes by the lane that issues that row) and an "empty"
+//     barrier that every consumer thread arrives on once it has XOR-reduced
+//     its share of the stage (per copy: a row only after its own barrier's
+//     phase). The producer refills a stage as soon as it is released (after
+//     fence.proxy.async, which orders the consumers' generic reads before the
+//     async-proxy writes), with no CTA-wide barrier in the loop, and loads
+//     the next stage's ids before it waits. At the end the ranks' XORs meet
+//     in rank 0 through distributed shared memory between two cluster
+//     barriers; `first` is chunk 0's first word, which rank 0 holds. XOR is
+//     order-free, so the result is bit-identical run to run.
 //
-// No wait without a deadline: every wait that must complete is a
-// try_wait.parity loop against a clock64 deadline (~100 ms). Past it the
-// kernel writes a code to a status word in mapped host memory (readable by
-// the host after the context is lost) and calls __trap(), so the launch
-// fails with an error instead of hanging, and no CTA exits with a bulk copy
-// still in flight into its shared memory. An id outside [0, C) traps too.
+// No wait without a deadline, apart from the hardware cluster barrier: every
+// wait that must complete is a try_wait.parity loop against a clock64
+// deadline (~100 ms). Past it the kernel writes a code to a status word in
+// mapped host memory (readable by the host after the context is lost) and
+// calls __trap(), so the launch fails with an error instead of hanging, and
+// no CTA exits with a bulk copy still in flight into its shared memory. An id
+// outside [0, C) traps too.
 //
 // Bound by a plain C interface, loaded with ctypes. Each entry point takes
 // the device index and the stream, launches on that stream, does not
 // synchronise, and returns cudaGetLastError() (0 on success), or an error
 // code, launching nothing, for a row or base address that is not a multiple
 // of 16 bytes, a phase above the transaction count's range or a ring that
-// does not fit in shared memory.
+// does not fit in shared memory. ssn_pipe_plan and ssn_chunk_plan report the
+// geometry the probes launch with (cluster, CTAs, threads, issuing lanes).
 
+#include <cooperative_groups.h>
 #include <cstdint>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include <cuda_runtime.h>
 
+#include "cluster_launch.cuh"
+
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr long long kDeadlineCycles = 200000000LL;  // ~100 ms at ~2 GHz
+constexpr int kChunkCtas = 1;
 constexpr int kChunkThreads = 256;
-constexpr int kPipeThreads = 256;
+constexpr int kChunkIssueLanes = 32;  // warp 0: two ids and two copies a lane
+constexpr int kPipeConsumerWarps = 4;
+constexpr int kPipeConsumers = 32 * kPipeConsumerWarps;
+constexpr int kPipeThreads = kPipeConsumers + 32;  // and the producer warp
+constexpr unsigned kWarp = 0xffffffffu;
 constexpr int kMaxTxBytes = (1 << 20) - 1;  // an mbarrier phase's tx-count range
 constexpr int kBarrierBytes = 128;          // room ahead of a row buffer
 constexpr long long kUnitPolls = 100000;     // the JAX tool's poll bound for one copy
@@ -88,6 +130,7 @@ enum : int {
   kChunkWait = 5,
   kPipeWait = 6,
   kBadId = 7,
+  kPipeRelease = 8,  // the producer's wait for a stage its consumers released
 };
 
 // unit probe output fields (int64), in this order
@@ -148,6 +191,11 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       "[%0], [%1], %2, [%3];" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// A consumer's arrival: it is done with the stage (release order).
+__device__ __forceinline__ void arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
 // Has the phase of this parity completed? test_wait never blocks.
@@ -279,41 +327,65 @@ __global__ void unit_probe_kernel(const unsigned char* __restrict__ x, uint32_t 
 
 // ----------------------------------------------------------- chunk probe ---
 
-// One CTA. Thread 0 arms one barrier with n rows' bytes (+ arm_extra) and
-// issues n scattered row copies; it polls the phase, the others wait on it;
-// then all copy the rows out. stats: [flag, polls, cycles, ns], the flag
-// +armed bytes if the phase completed within the poll bound, else -armed.
+// One CTA. Lane 0 of warp 0 initialises one barrier and arms it with n rows'
+// bytes (+ arm_extra); then each of the warp's kChunkIssueLanes lanes loads
+// two ids of each 64 (one coalesced load), the warp checks them with one vote
+// and each lane issues its two rows' copies. Thread 0 polls the phase and,
+// past the poll bound, waits for it to its deadline. The other warps
+// meanwhile wait at the CTA barrier, not on the mbarrier: 224 more threads
+// polling it while the copies land slow their completion by about half. Then
+// every thread passes the completed phase and the CTA copies the rows out.
+// stats: [flag, polls, cycles, ns], the flag +armed bytes if the phase
+// completed within the poll bound, else -armed; cycles and ns from the
+// arming, so they cover the ids' loads, the copies' issue and their landing.
 __global__ void __launch_bounds__(kChunkThreads)
 chunk_probe_kernel(const unsigned char* __restrict__ x, const int32_t* __restrict__ rows,
                    int n, long long capacity, uint32_t row_bytes, uint32_t arm_extra,
                    uint4* __restrict__ out, long long* __restrict__ stats, int* status) {
   extern __shared__ __align__(128) unsigned char shm[];
-  uint64_t* bar_ptr = reinterpret_cast<uint64_t*>(shm);
   unsigned char* buf = shm + kBarrierBytes;
-  const uint32_t bar = smem_addr(bar_ptr);
-  if (threadIdx.x == 0) {
-    barrier_init(bar, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
+  const uint32_t bar = smem_addr(shm);
+  if (threadIdx.x < kChunkIssueLanes) {
+    const int lane = threadIdx.x;
     const uint32_t armed = uint32_t(n) * row_bytes + arm_extra;
-    const long long t0 = clock64();
-    const uint64_t g0 = globaltimer();
-    arm(bar, armed);
-    for (int k = 0; k < n; ++k) {
-      const int32_t r = __ldg(rows + k);
-      if (r < 0 || r >= capacity) fail(status, kBadId);
-      bulk_copy(smem_addr(buf + size_t(k) * row_bytes), x + size_t(r) * row_bytes,
-                row_bytes, bar);
+    long long t0 = 0;
+    uint64_t g0 = 0;
+    if (lane == 0) {
+      barrier_init(bar, 1);
+      fence_barrier_init();
+      t0 = clock64();
+      g0 = globaltimer();
+      arm(bar, armed);
     }
-    const Poll p = poll(bar, kChunkPolls, t0, g0);
-    stats[0] = p.done ? (long long)armed : -(long long)armed;
-    stats[1] = p.polls;
-    stats[2] = p.cycles;
-    stats[3] = p.ns;
+    __syncwarp();
+    // each id loaded once; both of a lane's rows checked before either copy
+    for (int base = 0; base < n; base += 2 * kChunkIssueLanes) {
+      const int k0 = base + lane, k1 = k0 + kChunkIssueLanes;
+      const int32_t r0 = k0 < n ? __ldg(rows + k0) : 0;
+      const int32_t r1 = k1 < n ? __ldg(rows + k1) : 0;
+      if (__any_sync(kWarp, r0 < 0 || r0 >= capacity || r1 < 0 || r1 >= capacity)) {
+        fail(status, kBadId);
+      }
+      if (k0 < n) {
+        bulk_copy(smem_addr(buf + size_t(k0) * row_bytes), x + size_t(r0) * row_bytes,
+                  row_bytes, bar);
+      }
+      if (k1 < n) {
+        bulk_copy(smem_addr(buf + size_t(k1) * row_bytes), x + size_t(r1) * row_bytes,
+                  row_bytes, bar);
+      }
+    }
+    if (lane == 0) {
+      const Poll p = poll(bar, kChunkPolls, t0, g0);
+      stats[0] = p.done ? (long long)armed : -(long long)armed;
+      stats[1] = p.polls;
+      stats[2] = p.cycles;
+      stats[3] = p.ns;
+      if (!p.done) wait_or_trap(bar, 0, status, kChunkWait);
+    }
   }
-  wait_or_trap(bar, 0, status, kChunkWait);
+  __syncthreads();  // thread 0 has seen the phase complete, or trapped
+  wait_or_trap(bar, 0, status, kChunkWait);  // complete: each thread's view of the rows
   const uint4* src = reinterpret_cast<const uint4*>(buf);
   const int words = int(size_t(n) * row_bytes / sizeof(uint4));
   for (int i = threadIdx.x; i < words; i += blockDim.x) out[i] = src[i];
@@ -321,80 +393,126 @@ chunk_probe_kernel(const unsigned char* __restrict__ x, const int32_t* __restric
 
 // ------------------------------------------------------------ pipe probe ---
 
-// Block i handles ids rows[i*k_rows, (i+1)*k_rows) in chunks of kChunkRows
-// rows through a ring of `stages` stages. out[i] = (word 0 of its first row,
-// XOR of every 32-bit word of its k_rows rows).
+// A spin of twice the deadline, trapping nowhere: a test's stand-in for
+// consumers that never release their stage.
+__device__ __noinline__ void hold_stage() {
+  const long long t0 = clock64();
+  while (clock64() - t0 < 2 * kDeadlineCycles) {
+  }
+}
+
+// Block b (a cluster of G CTAs) handles ids rows[b*k_rows, (b+1)*k_rows) in
+// chunks of kChunkRows rows; CTA rank r takes chunks r, r+G, ... through a
+// ring of `stages` stages. out[b] = (word 0 of its first row, XOR of every
+// 32-bit word of its k_rows rows). Shared memory: the full barriers (stages,
+// or stages x kChunkRows per copy), the empty barriers (stages), the ring at
+// buf_offset. hold (a test's fault): the consumers keep their first stage.
 template <bool kChunked>
 __global__ void __launch_bounds__(kPipeThreads)
 pipe_probe_kernel(const unsigned char* __restrict__ x, const int32_t* __restrict__ rows,
                   int k_rows, int stages, long long capacity, uint32_t row_bytes,
-                  uint32_t buf_offset, uint32_t* __restrict__ out, int* status) {
+                  uint32_t buf_offset, int hold, uint32_t* __restrict__ out, int* status) {
   extern __shared__ __align__(128) unsigned char shm[];
-  __shared__ uint32_t warp_xor[kPipeThreads / 32];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(shm);  // stages (x kChunkRows per-copy)
-  unsigned char* buf = shm + buf_offset;
-  const int32_t* ids = rows + size_t(blockIdx.x) * k_rows;
+  __shared__ uint32_t warp_xor[kPipeConsumerWarps];
   constexpr int ch = kChunkRows;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank()), g = int(cluster.num_blocks());
+  const int block = int(blockIdx.x) / g;
   const int nch = k_rows / ch;
+  const int mine = rank < nch ? (nch - rank + g - 1) / g : 0;  // chunks rank + i g
   const uint32_t stage_bytes = uint32_t(ch) * row_bytes;
-  const int n_bars = kChunked ? stages : stages * ch;
+  const int n_full = kChunked ? stages : stages * ch;
+  uint64_t* full = reinterpret_cast<uint64_t*>(shm);
+  uint64_t* empty = full + n_full;
+  unsigned char* buf = shm + buf_offset;
+  const int32_t* ids = rows + size_t(block) * k_rows;
+  const int warp = int(threadIdx.x) / 32, lane = int(threadIdx.x) % 32;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < n_bars; ++i) barrier_init(smem_addr(&bars[i]), 1);
+    for (int i = 0; i < n_full; ++i) barrier_init(smem_addr(&full[i]), 1);
+    for (int s = 0; s < stages; ++s) barrier_init(smem_addr(&empty[s]), kPipeConsumers);
     fence_barrier_init();
   }
   __syncthreads();
 
-  // thread 0: arm stage c % stages and issue chunk c into it
-  auto issue = [&](int c) {
-    const int s = c % stages;
-    unsigned char* dst = buf + size_t(s) * stage_bytes;
-    if (kChunked) arm(smem_addr(&bars[s]), stage_bytes);
-    for (int j = 0; j < ch; ++j) {
-      const int32_t r = __ldg(ids + size_t(c) * ch + j);
-      if (r < 0 || r >= capacity) fail(status, kBadId);
-      const uint32_t bar = smem_addr(&bars[kChunked ? s : s * ch + j]);
-      if (!kChunked) arm(bar, row_bytes);
-      bulk_copy(smem_addr(dst + size_t(j) * row_bytes), x + size_t(r) * row_bytes,
-                row_bytes, bar);
-    }
-  };
-  if (threadIdx.x == 0) {
-    for (int c = 0; c < stages && c < nch; ++c) issue(c);
-  }
-
   uint32_t acc = 0, first = 0;
-  const int words = int(stage_bytes / sizeof(uint4));
-  for (int c = 0; c < nch; ++c) {
-    const int s = c % stages;
-    const uint32_t parity = uint32_t(c / stages) & 1u;
-    if (kChunked) {
-      wait_or_trap(smem_addr(&bars[s]), parity, status, kPipeWait);
-    } else {
-      for (int j = 0; j < ch; ++j) {
-        wait_or_trap(smem_addr(&bars[s * ch + j]), parity, status, kPipeWait);
+  if (warp == kPipeConsumerWarps) {
+    // the producer warp: lane l issues rows l and l + 32 of each chunk
+    for (int i = 0; i < mine; ++i) {
+      const int s = i % stages;
+      const int32_t* cid = ids + size_t(rank + i * g) * ch;
+      const int32_t r0 = __ldg(cid + lane), r1 = __ldg(cid + 32 + lane);
+      if (i >= stages) {
+        wait_or_trap(smem_addr(&empty[s]), uint32_t(i / stages - 1) & 1u, status,
+                     kPipeRelease);
+        fence_proxy_async();
       }
+      if (__any_sync(kWarp, r0 < 0 || r0 >= capacity || r1 < 0 || r1 >= capacity)) {
+        fail(status, kBadId);
+      }
+      uint32_t b0, b1;
+      if (kChunked) {
+        b0 = b1 = smem_addr(&full[s]);
+        if (lane == 0) arm(b0, stage_bytes);
+        __syncwarp();
+      } else {
+        b0 = smem_addr(&full[s * ch + lane]);
+        b1 = smem_addr(&full[s * ch + 32 + lane]);
+        arm(b0, row_bytes);
+        arm(b1, row_bytes);
+      }
+      unsigned char* dst = buf + size_t(s) * stage_bytes;
+      bulk_copy(smem_addr(dst + size_t(lane) * row_bytes), x + size_t(r0) * row_bytes,
+                row_bytes, b0);
+      bulk_copy(smem_addr(dst + size_t(lane + 32) * row_bytes), x + size_t(r1) * row_bytes,
+                row_bytes, b1);
     }
-    const uint4* st = reinterpret_cast<const uint4*>(buf + size_t(s) * stage_bytes);
-    if (c == 0 && threadIdx.x == 0) first = st[0].x;
-    for (int w = threadIdx.x; w < words; w += blockDim.x) {
-      const uint4 v = st[w];
-      acc ^= v.x ^ v.y ^ v.z ^ v.w;
+  } else {
+    // the consumer warps: chunked, thread t XORs words t, t + 128, ... of the
+    // stage; per copy, warp w rows w, w + 4, ..., each after its own barrier
+    const int t = int(threadIdx.x);
+    const int row_words = int(row_bytes / sizeof(uint4));
+    for (int i = 0; i < mine; ++i) {
+      const int s = i % stages;
+      const uint32_t parity = uint32_t(i / stages) & 1u;
+      const uint4* st = reinterpret_cast<const uint4*>(buf + size_t(s) * stage_bytes);
+      if (kChunked) {
+        wait_or_trap(smem_addr(&full[s]), parity, status, kPipeWait);
+#pragma unroll 4
+        for (int w = t; w < ch * row_words; w += kPipeConsumers) {
+          const uint4 v = st[w];
+          acc ^= v.x ^ v.y ^ v.z ^ v.w;
+        }
+      } else {
+        for (int j = warp; j < ch; j += kPipeConsumerWarps) {
+          wait_or_trap(smem_addr(&full[s * ch + j]), parity, status, kPipeWait);
+          for (int w = lane; w < row_words; w += 32) {
+            const uint4 v = st[j * row_words + w];
+            acc ^= v.x ^ v.y ^ v.z ^ v.w;
+          }
+        }
+      }
+      if (i == 0 && t == 0) first = st[0].x;  // rank 0's chunk 0 is the block's first
+      if (hold && i == 0) {
+        hold_stage();
+        continue;
+      }
+      arrive(smem_addr(&empty[s]));
     }
-    __syncthreads();  // every thread is done with stage s
-    if (threadIdx.x == 0 && c + stages < nch) {
-      fence_proxy_async();
-      issue(c + stages);
-    }
+    for (int off = 16; off > 0; off /= 2) acc ^= __shfl_xor_sync(kWarp, acc, off);
+    if (lane == 0) warp_xor[warp] = acc;
   }
 
-  for (int off = 16; off > 0; off /= 2) acc ^= __shfl_xor_sync(0xffffffffu, acc, off);
-  if (threadIdx.x % 32 == 0) warp_xor[threadIdx.x / 32] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kPipeThreads / 32; ++w) acc ^= warp_xor[w];
-    out[2 * blockIdx.x] = first;
-    out[2 * blockIdx.x + 1] = acc;
+  cluster.sync();  // every rank's XOR is in its shared memory
+  if (rank == 0 && threadIdx.x == 0) {
+    uint32_t total = 0;
+    for (int k = 0; k < g; ++k) {
+      const uint32_t* part = cluster.map_shared_rank(warp_xor, k);
+      for (int w = 0; w < kPipeConsumerWarps; ++w) total ^= part[w];
+    }
+    out[2 * block] = first;
+    out[2 * block + 1] = total;
   }
+  cluster.sync();  // no CTA exits while rank 0 reads its shared memory
 }
 
 // ------------------------------------------------------------------ host ---
@@ -426,6 +544,61 @@ template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               int(bytes));
+}
+
+// The pipe's launch of a shape on a card: the cluster (cluster_launch.cuh)
+// and a CTA's shared memory, the full and empty barriers, then the ring at
+// `offset`.
+struct PipePlan : ClusterPick {
+  size_t offset = 0, bytes = 0;
+};
+
+bool pipe_shape_ok(long long blocks, long long k_rows, long long stages, long long row_bytes) {
+  constexpr long long ch = kChunkRows;
+  return blocks >= 1 && stages >= 1 && k_rows >= ch && k_rows % ch == 0 && row_bytes > 0 &&
+         ch * row_bytes <= kMaxTxBytes;
+}
+
+// The plan of a shape on a card, computed once: the occupancy queries cost
+// more host time than the launch. G is picked for blocks of k_rows / 64
+// chunks.
+cudaError_t pipe_plan(long long blocks, long long k_rows, long long stages, long long row_bytes,
+                      bool chunked, int device, PipePlan* out) {
+  static std::mutex mu;
+  static std::map<std::tuple<long long, long long, long long, long long, int, int>, PipePlan>
+      cache;
+  const auto key = std::make_tuple(blocks, k_rows, stages, row_bytes, int(chunked), device);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *out = hit->second;
+    return cudaSuccess;
+  }
+  PipePlan p;
+  const size_t bars = size_t(stages) * ((chunked ? 1 : kChunkRows) + 1);
+  p.offset = (bars * sizeof(uint64_t) + 127) / 128 * 128;
+  p.bytes = p.offset + size_t(stages) * kChunkRows * row_bytes;
+  const int nch = int(k_rows / kChunkRows);
+  const cudaError_t err =
+      chunked ? pick_cluster(pipe_probe_kernel<true>, blocks, nch, kPipeThreads, p.bytes, &p)
+              : pick_cluster(pipe_probe_kernel<false>, blocks, nch, kPipeThreads, p.bytes, &p);
+  if (err != cudaSuccess) return err;
+  cache[key] = p;
+  *out = p;
+  return cudaSuccess;
+}
+
+template <bool kChunked>
+cudaError_t launch_pipe(const PipePlan& p, long long blocks, cudaStream_t s,
+                        const unsigned char* x, const int32_t* ids, int k_rows, int stages,
+                        long long capacity, uint32_t row_bytes, int hold, uint32_t* out,
+                        int* status) {
+  // the limit is the kernel's, not the shape's: another shape may have set it
+  cudaError_t err = set_smem(pipe_probe_kernel<kChunked>, p.bytes);
+  if (err != cudaSuccess) return err;
+  ClusterConfig c(p.cluster, blocks, kPipeThreads, p.bytes, s);
+  return cudaLaunchKernelEx(&c.cfg, pipe_probe_kernel<kChunked>, x, ids, k_rows, stages,
+                            capacity, row_bytes, uint32_t(p.offset), hold, out, status);
 }
 
 }  // namespace
@@ -464,7 +637,7 @@ int ssn_chunk_probe(const void* x, const void* rows, long long n, long long capa
   if ((err = status_word(&status)) != cudaSuccess) return int(err);
   const size_t smem = kBarrierBytes + size_t(n) * row_bytes;
   if ((err = set_smem(chunk_probe_kernel, smem)) != cudaSuccess) return int(err);
-  chunk_probe_kernel<<<1, kChunkThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  chunk_probe_kernel<<<kChunkCtas, kChunkThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(x), static_cast<const int32_t*>(rows), int(n),
       capacity, uint32_t(row_bytes), uint32_t(arm_extra), static_cast<uint4*>(out),
       static_cast<long long*>(stats), status);
@@ -472,39 +645,71 @@ int ssn_chunk_probe(const void* x, const void* rows, long long n, long long capa
 }
 
 // blocks x k_rows ids; out: [blocks, 2] uint32. chunked: 1 for one barrier
-// a stage, 0 for one a copy.
+// a stage, 0 for one a copy; hold: a test's fault, the consumers keep their
+// first stage (0 otherwise). A block is a cluster of G CTAs, G as
+// ssn_pipe_plan gives it.
 int ssn_pipe_probe(const void* x, const void* rows, long long blocks, long long k_rows,
                    long long stages, long long capacity, long long row_bytes, int chunked,
-                   void* out, int device, void* stream) {
-  constexpr long long ch = kChunkRows;
+                   int hold, void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (!aligned(row_bytes, x, nullptr)) return int(cudaErrorMisalignedAddress);
-  if (blocks < 1 || stages < 1 || k_rows < ch || k_rows % ch ||
-      ch * row_bytes > kMaxTxBytes) {
-    return int(cudaErrorInvalidValue);
+  if (!pipe_shape_ok(blocks, k_rows, stages, row_bytes)) return int(cudaErrorInvalidValue);
+  PipePlan p;
+  if ((err = pipe_plan(blocks, k_rows, stages, row_bytes, chunked != 0, device, &p)) !=
+      cudaSuccess) {
+    return int(err);
   }
   int* status;
   if ((err = status_word(&status)) != cudaSuccess) return int(err);
-  const size_t bar_bytes = size_t(stages) * ch * sizeof(uint64_t);
-  const size_t offset = (bar_bytes + 127) / 128 * 128;
-  const size_t smem = offset + size_t(stages) * ch * row_bytes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* xs = static_cast<const unsigned char*>(x);
   const int32_t* ids = static_cast<const int32_t*>(rows);
   uint32_t* o = static_cast<uint32_t*>(out);
-  if (chunked) {
-    if ((err = set_smem(pipe_probe_kernel<true>, smem)) != cudaSuccess) return int(err);
-    pipe_probe_kernel<true><<<unsigned(blocks), kPipeThreads, smem, s>>>(
-        xs, ids, int(k_rows), int(stages), capacity, uint32_t(row_bytes), uint32_t(offset), o,
-        status);
-  } else {
-    if ((err = set_smem(pipe_probe_kernel<false>, smem)) != cudaSuccess) return int(err);
-    pipe_probe_kernel<false><<<unsigned(blocks), kPipeThreads, smem, s>>>(
-        xs, ids, int(k_rows), int(stages), capacity, uint32_t(row_bytes), uint32_t(offset), o,
-        status);
-  }
+  err = chunked ? launch_pipe<true>(p, blocks, s, xs, ids, int(k_rows), int(stages), capacity,
+                                    uint32_t(row_bytes), hold, o, status)
+                : launch_pipe<false>(p, blocks, s, xs, ids, int(k_rows), int(stages), capacity,
+                                     uint32_t(row_bytes), hold, o, status);
+  if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
+}
+
+// How ssn_pipe_probe launches this shape on this card, from the launch
+// configuration it builds: out[0..5] = G (the CTAs of a block's cluster),
+// the CTAs of the grid, the threads a CTA, the lanes that issue the copies
+// (the producer warp), the consumer warps, the clusters of G the card holds
+// at once; out[6..13] = the clusters of 1..8 CTAs it holds at once, from
+// which the rule picked G.
+int ssn_pipe_plan(long long blocks, long long k_rows, long long stages, long long row_bytes,
+                  int chunked, int device, void* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  if (!pipe_shape_ok(blocks, k_rows, stages, row_bytes)) return int(cudaErrorInvalidValue);
+  PipePlan p;
+  if ((err = pipe_plan(blocks, k_rows, stages, row_bytes, chunked != 0, device, &p)) !=
+      cudaSuccess) {
+    return int(err);
+  }
+  const ClusterConfig c(p.cluster, blocks, kPipeThreads, p.bytes, nullptr);
+  const long long v[6] = {p.cluster,
+                          c.cfg.gridDim.x,
+                          c.cfg.blockDim.x,
+                          kPipeThreads - kPipeConsumers,
+                          kPipeConsumerWarps,
+                          p.max_active};
+  long long* o = static_cast<long long*>(out);
+  for (int i = 0; i < 6; ++i) o[i] = v[i];
+  for (int k = 1; k <= kMaxCluster; ++k) o[5 + k] = p.active[k];
+  return 0;
+}
+
+// How ssn_chunk_probe launches: out[0..2] = the CTAs, the threads a CTA and
+// the lanes that issue the copies (warp 0).
+int ssn_chunk_plan(void* out) {
+  const long long v[3] = {kChunkCtas, kChunkThreads, kChunkIssueLanes};
+  long long* o = static_cast<long long*>(out);
+  for (int i = 0; i < 3; ++i) o[i] = v[i];
+  return 0;
 }
 
 // The code of the wait that passed its deadline in the last probe (0: none).

@@ -7,7 +7,7 @@ single-row copies. On Hopper the same question is whether bulk copies
 (``cp.async.bulk``, the TMA engine) onto one ``mbarrier`` are accounted by
 bytes, so that one armed phase retires a chunk of scattered row copies. The
 kernels are CUDA C++ in ``csrc/sem_probe.cu``, built at first use by
-:mod:`._build`; each moves a row as one bulk copy that one thread issues.
+:mod:`._build`; each moves a row as one bulk copy.
 
 Each kernel has, beside it here:
 
@@ -28,16 +28,34 @@ then with 16 bytes more (it must not, within the poll bound, until one more
 16-byte copy drains it), and for an 8-row copy also shows that eight
 single-row copies complete one 8-row phase and seven do not. Its plain
 version gives the PTX ISA's byte accounting: ``unit = rows * S * 128 *
-itemsize``. :func:`chunk_probe` replaces ``chunk_kernel`` (``:129``,
-``pallas_call`` at ``:164``): 64 scattered row copies retired by one wait,
-the rows copied out, and a flag of +armed bytes when the phase completed
-within the poll bound. :func:`pipe_probe` replaces ``pipe_kernel`` (``:200``,
-``pallas_call`` at ``:233``): per block, K row copies through a ring of
-stages of 64 rows, per-copy or chunked barriers, each stage XOR-reduced.
-All three are bound by latency (a few KB a probe, or at most three stages of
-64 rows in flight a CTA), not by bytes. Every wait has a deadline of about
-100 ms; past it the kernel traps, the launch fails, and
-:func:`deadline_status` names the wait.
+itemsize``. Its time is the over-armed phase's 100,000 polls, which the JAX
+tool's semantics fix.
+
+:func:`chunk_probe` replaces ``chunk_kernel`` (``:129``, ``pallas_call`` at
+``:164``): 64 scattered row copies retired by one armed phase, the rows
+copied out, and a flag of +armed bytes when the phase completed within the
+poll bound. It is bound by latency (the launch, one load of the ids, the
+copies' landing): lane 0 arms the phase, then warp 0 loads the ids in one
+coalesced load, checks them with one vote and issues two copies a lane, so
+no id load waits behind a copy's issue, as it did when one thread issued
+all 64. Its time from the arming covers the loads, the issue and the
+landing. :func:`chunk_plan` reports its launch geometry.
+
+:func:`pipe_probe` replaces ``pipe_kernel`` (``:200``, ``pallas_call`` at
+``:233``): per block, K row copies in chunks of 64, retired by one barrier a
+copy or one a chunk, each chunk XOR-reduced. It is bound by device-memory
+bytes once enough rows are in flight on enough SMs. A block is one
+thread-block cluster of G CTAs that deals the block's chunks round-robin;
+the library picks G once a shape by the hogwild kernels' rule
+(``csrc/cluster_launch.cuh``: G = 2, 128 CTAs, at the JAX tool's shape) and
+:func:`pipe_plan` reports it. Each CTA runs a ring of :func:`pipe_stages`
+stages with a producer warp (two ids and two copies a lane), four consumer
+warps, and a full and an empty barrier a stage, so issue, landing and
+reduction overlap with no CTA-wide barrier; the ranks' XORs meet in rank 0
+through distributed shared memory.
+
+Every wait has a deadline of about 100 ms; past it the kernel traps, the
+launch fails, and :func:`deadline_status` names the wait.
 """
 
 from __future__ import annotations
@@ -71,7 +89,8 @@ CHUNK_STATS = ("flag", "polls", "cycles", "ns")
 # which wait passed its deadline (ssn_probe_status)
 DEADLINE_CODES = {1: "unit: exact arming", 2: "unit: over-armed drain",
                   3: "unit: single-row copies", 4: "unit: last-copy drain",
-                  5: "chunk wait", 6: "pipe wait", 7: "an id outside [0, C)"}
+                  5: "chunk wait", 6: "pipe wait", 7: "an id outside [0, C)",
+                  8: "pipe: the producer's wait for a released stage"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,8 +101,12 @@ def _lib() -> ctypes.CDLL:
     lib.ssn_unit_probe.restype = i32
     lib.ssn_chunk_probe.argtypes = [vp, vp, ll, ll, ll, ll, vp, vp, i32, vp]
     lib.ssn_chunk_probe.restype = i32
-    lib.ssn_pipe_probe.argtypes = [vp, vp, ll, ll, ll, ll, ll, i32, vp, i32, vp]
+    lib.ssn_pipe_probe.argtypes = [vp, vp, ll, ll, ll, ll, ll, i32, i32, vp, i32, vp]
     lib.ssn_pipe_probe.restype = i32
+    lib.ssn_pipe_plan.argtypes = [ll, ll, ll, ll, i32, i32, vp]
+    lib.ssn_pipe_plan.restype = i32
+    lib.ssn_chunk_plan.argtypes = [vp]
+    lib.ssn_chunk_plan.restype = i32
     lib.ssn_probe_status.argtypes = []
     lib.ssn_probe_status.restype = i32
     lib.ssn_error_string.argtypes = [i32]
@@ -242,6 +265,20 @@ def chunk_probe(x: torch.Tensor, ids: torch.Tensor, arm_extra: int = 0):
 
 chunk_probe.launches = 0
 
+_CHUNK_PLAN_KEYS = ("ctas", "threads", "issuing_lanes")
+
+
+def chunk_plan(x: torch.Tensor) -> dict:
+    """How :func:`chunk_probe` launches on ``x``'s card, as the library
+    reports it (``ssn_chunk_plan``): ``ctas``, ``threads`` a CTA and
+    ``issuing_lanes``, the lanes that issue the copies. On the CPU, where the
+    plain version runs, each is None."""
+    if x.device.type != "cuda":
+        return dict.fromkeys(_CHUNK_PLAN_KEYS)
+    out = (ctypes.c_longlong * len(_CHUNK_PLAN_KEYS))()
+    _launched("chunk_plan", _lib().ssn_chunk_plan(out))
+    return dict(zip(_CHUNK_PLAN_KEYS, out))
+
 
 # ------------------------------------------------------------ pipe probe ---
 
@@ -267,19 +304,15 @@ def pipe_probe_plain(x: torch.Tensor, ids: torch.Tensor, blocks: int) -> torch.T
 def pipe_stages(row_bytes: int) -> int:
     """Ring stages of :data:`CHUNK_ROWS` rows that fit in shared memory, at
     most :data:`PIPE_STAGES` (and, in :func:`pipe_probe`, at most a block's
-    chunks)."""
+    chunks), beside the per-copy variant's barriers: 64 full ones and one
+    empty one a stage."""
     stage = CHUNK_ROWS * row_bytes
-    barriers = -(-PIPE_STAGES * CHUNK_ROWS * 8 // 128) * 128
+    barriers = -(-PIPE_STAGES * (CHUNK_ROWS + 1) * 8 // 128) * 128
     return min(PIPE_STAGES, (SMEM_BYTES - barriers) // stage)
 
 
-def pipe_probe(x: torch.Tensor, ids: torch.Tensor, blocks: int,
-               chunked: bool) -> torch.Tensor:
-    """One CTA a block of ``K = len(ids) / blocks`` ids; K row copies
-    through a ring of stages of :data:`CHUNK_ROWS` rows, each stage retired by one
-    barrier (``chunked``) or one a copy, then XOR-reduced. Returns
-    :func:`pipe_probe_plain`'s ``[blocks, 2]`` int32."""
-    name = "pipe_probe"
+def _pipe_shape(name: str, x: torch.Tensor, ids: torch.Tensor, blocks: int) -> tuple:
+    """``(row bytes, K, stages)``, or raise for what the kernel does not take."""
     row_bytes = _check_rows_tensor(name, x)
     _check_ids(name, ids, x)
     k = ids.numel() // max(blocks, 1)
@@ -291,13 +324,60 @@ def pipe_probe(x: torch.Tensor, ids: torch.Tensor, blocks: int,
     if stages < 1:
         raise ValueError(f"{name}: a stage of {CHUNK_ROWS} rows of {row_bytes} B does "
                          f"not fit in {SMEM_BYTES} B of shared memory")
+    return row_bytes, k, stages
+
+
+_PIPE_PLAN_KEYS = ("cluster", "ctas", "threads", "issuing_lanes", "consumer_warps",
+                   "max_active_clusters")
+_MAX_CLUSTER = 8  # the library reports the clusters of 1..8 CTAs held at once
+
+
+def pipe_plan(x: torch.Tensor, ids: torch.Tensor, blocks: int, chunked: bool) -> dict:
+    """How :func:`pipe_probe` launches on ``x``'s card, as the library
+    reports it (``ssn_pipe_plan``, which picks the cluster once a shape):
+    ``stages``, ``cluster`` (G, the CTAs a block), ``ctas``, ``threads`` a
+    CTA, ``issuing_lanes`` (the producer warp's), ``consumer_warps``,
+    ``max_active_clusters`` (clusters of G held at once) and
+    ``active_by_cluster`` (the clusters of each size 1..8 the card holds at
+    once, from which G was picked). On the CPU, where the plain version
+    runs, only ``stages``; the rest is None."""
+    row_bytes, k, stages = _pipe_shape("pipe_plan", x, ids, blocks)
+    plan = {"stages": stages, **dict.fromkeys(_PIPE_PLAN_KEYS), "active_by_cluster": None}
+    if x.device.type == "cuda":
+        out = (ctypes.c_longlong * (len(_PIPE_PLAN_KEYS) + _MAX_CLUSTER))()
+        _launched("pipe_plan", _lib().ssn_pipe_plan(blocks, k, stages, row_bytes, int(chunked),
+                                                    x.device.index or 0, out))
+        plan.update(zip(_PIPE_PLAN_KEYS, out))
+        plan["active_by_cluster"] = {g + 1: out[len(_PIPE_PLAN_KEYS) + g]
+                                     for g in range(_MAX_CLUSTER)}
+    return plan
+
+
+def pipe_probe(x: torch.Tensor, ids: torch.Tensor, blocks: int,
+               chunked: bool) -> torch.Tensor:
+    """One cluster of G CTAs (:func:`pipe_plan`) a block of ``K = len(ids) /
+    blocks`` ids; K row copies in chunks of :data:`CHUNK_ROWS` rows through
+    each CTA's ring, each chunk retired by one barrier (``chunked``) or one a
+    copy, then XOR-reduced. Returns :func:`pipe_probe_plain`'s ``[blocks, 2]``
+    int32."""
+    return _pipe_launch(x, ids, blocks, chunked)
+
+
+def _pipe_launch(x: torch.Tensor, ids: torch.Tensor, blocks: int, chunked: bool,
+                 hold_first_stage: bool = False) -> torch.Tensor:
+    """:func:`pipe_probe`; ``hold_first_stage`` is a test's fault: the
+    consumers never release their first stage, so the producer's wait for it
+    passes its deadline (code 8)."""
+    name = "pipe_probe"
+    row_bytes, k, stages = _pipe_shape(name, x, ids, blocks)
     if x.device.type == "cpu":
         return pipe_probe_plain(x, ids, blocks)
     lib = _lib()
     out = torch.empty((blocks, 2), dtype=torch.int32, device=x.device)
     _launched(name, lib.ssn_pipe_probe(
         x.data_ptr(), ids.data_ptr(), blocks, k, stages, x.shape[0], row_bytes,
-        int(chunked), out.data_ptr(), x.device.index or 0, _stream(x)))
+        int(chunked), int(hold_first_stage), out.data_ptr(), x.device.index or 0,
+        _stream(x)))
     pipe_probe.launches += 1
     return out
 

@@ -18,7 +18,11 @@ asks the same of the TPU's DMA semaphores. Experiments, in its order
   3. pipe: ``x[100,000, S, 128]`` f32, 64 blocks of 1,856 ids, per-copy
      against chunked (64 rows) waits; both must equal the plain version and
      repeat bit for bit. Timed beside ``index_select`` and the port's
-     ``gather_rows`` on the same ids.
+     ``gather_rows`` on the same ids. Reports the launch geometry as the
+     library gives it (``pipe_plan``; ``chunk_plan`` for experiment 2): the
+     cluster of G CTAs a block, the CTAs, the ring's stages, the threads a
+     CTA and the lanes that issue, and ns a copy a CTA over the K / G
+     copies each CTA of a block takes.
 
     python -m swiftsnails_tpu_torch.tools.sem_probe [--quick] [--dim 200] [--device cpu]
 
@@ -134,7 +138,7 @@ def experiment_chunk(s: int, rng, dev) -> dict:
            "plain_ms": time_ms(lambda i: sem_probe.chunk_probe_plain(x, ids), device=dev),
            "library_ms": time_ms(lambda i: x.index_select(0, ids), device=dev),
            "bytes": _bytes(x, ids, out.numel() * out.element_size() + stats.numel() * 8),
-           "shape": list(x.shape), "rows": CH}
+           "shape": list(x.shape), "rows": CH, **sem_probe.chunk_plan(x)}
     _emit("chunk", **res)
     return res
 
@@ -146,24 +150,30 @@ def experiment_pipe(s: int, rng, dev) -> dict:
     x = torch.from_numpy(rng.random((vocab, s, 128), dtype=np.float32)).to(dev)
     want = sem_probe.pipe_probe_plain(x, ids, blocks)
     slot0 = x[int(ids[(blocks - 1) * copies]), 0, 0].view(torch.int32)
+    plan = sem_probe.pipe_plan(x, ids, blocks, True)
     res = {"blocks": blocks, "copies": copies, "shape": list(x.shape),
-           "stages": min(sem_probe.pipe_stages(x.stride(0) * x.element_size()),
-                         copies // CH),
+           "stages": plan["stages"], "threads": plan["threads"],
+           "issuing_lanes": plan["issuing_lanes"], "consumer_warps": plan["consumer_warps"],
            "slot0_matches_tpu_output": bool(want[blocks - 1, 0] == slot0)}
     n = blocks * copies
     for chunked, name in ((False, "per_copy"), (True, "chunked")):
+        plan = sem_probe.pipe_plan(x, ids, blocks, chunked)
+        # the plain version runs no cluster: one "CTA" a block
+        g = plan["cluster"] or 1
         got = [sem_probe.pipe_probe(x, ids, blocks, chunked) for _ in range(2)]
         ms = time_ms(lambda i: sem_probe.pipe_probe(x, ids, blocks, chunked), device=dev)
         # over the int32 slots, as int64 so that no difference wraps
         err = int((got[0].long() - want.long()).abs().max())
         res[name] = {"ms": ms, "us_per_block": ms * 1e3 / blocks, "ns_per_copy": ms * 1e6 / n,
-                     "ns_per_copy_per_cta": ms * 1e6 / copies, "max_abs_err": err,
+                     "ns_per_copy_per_cta": ms * 1e6 * g / copies, "max_abs_err": err,
+                     "cluster": plan["cluster"], "ctas": plan["ctas"],
+                     "active_by_cluster": plan["active_by_cluster"],
                      "bit_equal": bool(torch.equal(got[0], want)),
                      "repeatable": bool(torch.equal(got[0], got[1]))}
         print(f"{'chunked' if chunked else 'per-copy'} wait: {ms:.4f} ms/call  "
               f"{ms * 1e3 / blocks:.3f} us/block  {ms * 1e6 / n:.3f} ns/copy  "
-              f"(one CTA a block, all at once: {ms * 1e6 / copies:.1f} ns/copy a CTA)",
-              flush=True)
+              f"(a cluster of {g} CTAs a block, {blocks * g} CTAs, {plan['stages']} "
+              f"stages: {ms * 1e6 * g / copies:.1f} ns/copy a CTA)", flush=True)
     speedup = res["per_copy"]["ms"] / res["chunked"]["ms"]
     print(f"chunked-wait speedup on DMA pipeline: {speedup:.2f}x", flush=True)
     row_bytes = x.stride(0) * x.element_size()

@@ -759,18 +759,46 @@ def test_chunk_probe_bit_equal_to_plain(cuda_device, s):
 
 @pytest.mark.parametrize("chunked", [False, True])
 @pytest.mark.parametrize("s", [1, 2, 4])
-def test_pipe_probe_bit_equal_and_repeatable(cuda_device, chunked, s):
+@pytest.mark.parametrize("chunks,blocks", [(10, 8), (1, 8), (3, 40), (29, 64)])
+def test_pipe_probe_bit_equal_and_repeatable(cuda_device, chunked, s, chunks, blocks):
+    """Blocks of 10, 1, 3 and 29 chunks: one CTA a block, or a cluster whose
+    ranks take unequal shares (29 chunks over G = 2 at the JAX tool's
+    shape, 128 CTAs); the ranks' XORs combine to the plain version's. The
+    library picks G as the hogwild kernels pick theirs."""
     from swiftsnails_tpu_torch.ops import sem_probe
 
     gen = torch.Generator(device=cuda_device).manual_seed(s)
     x = torch.randn(20_000, s, 128, generator=gen, device=cuda_device)
-    ids = torch.randint(0, 20_000, (8 * 640,), generator=gen, device=cuda_device,
-                        dtype=torch.int32)
+    ids = torch.randint(0, 20_000, (blocks * chunks * 64,), generator=gen,
+                        device=cuda_device, dtype=torch.int32)
+    plan = sem_probe.pipe_plan(x, ids, blocks, chunked)
+    # the hogwild kernels' rule: the fewest rounds of chunks a CTA times
+    # waves of clusters, the smaller G on a tie
+    costs = {g: -(-chunks // g) * -(-blocks // active)
+             for g, active in plan["active_by_cluster"].items() if active > 0}
+    assert plan["cluster"] == min(costs, key=lambda g: (costs[g], g)), (plan, costs)
+    assert plan["ctas"] == blocks * plan["cluster"]
+    assert plan["max_active_clusters"] == plan["active_by_cluster"][plan["cluster"]]
+    if (chunks, blocks, s) == (29, 64, 2):
+        assert (plan["cluster"], plan["ctas"], plan["stages"]) == (2, 128, 3)
     n0 = sem_probe.pipe_probe.launches
-    got = [sem_probe.pipe_probe(x, ids, 8, chunked) for _ in range(2)]
+    got = [sem_probe.pipe_probe(x, ids, blocks, chunked) for _ in range(2)]
     assert sem_probe.pipe_probe.launches == n0 + 2
-    assert torch.equal(got[0], sem_probe.pipe_probe_plain(x, ids, 8))
+    assert torch.equal(got[0], sem_probe.pipe_probe_plain(x, ids, blocks)), plan
     assert torch.equal(got[0], got[1])
+
+
+def test_probe_plans_name_the_launch_geometry(cuda_device):
+    """The geometry the library launches the probes with: one CTA of 256
+    threads whose warp 0 issues the chunk's copies; the pipe's CTAs of a
+    producer warp and four consumer warps."""
+    from swiftsnails_tpu_torch.ops import sem_probe
+
+    x = torch.zeros(4096, 2, 128, device=cuda_device)
+    assert sem_probe.chunk_plan(x) == {"ctas": 1, "threads": 256, "issuing_lanes": 32}
+    ids = torch.zeros(64 * 1856, dtype=torch.int32, device=cuda_device)
+    plan = sem_probe.pipe_plan(x, ids, 64, True)
+    assert (plan["threads"], plan["issuing_lanes"], plan["consumer_warps"]) == (160, 32, 4)
 
 
 _DEADLINE = """
@@ -799,6 +827,65 @@ def test_a_wait_past_its_deadline_traps_instead_of_hanging(cuda_device):
     assert "launch failed:" in out.stdout, out.stdout + out.stderr
     assert "status 5" in out.stdout, out.stdout + out.stderr
 
+
+
+_TRAP = """
+import torch
+from swiftsnails_tpu_torch.ops import sem_probe
+x = torch.ones(4096, 2, 128, device="cuda")
+ids = torch.arange(64 * 1856, dtype=torch.int32, device="cuda") % 4096  # the tool's K, B
+{setup}
+try:
+    {call}
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("launch failed:", e)
+print("status", sem_probe.deadline_status())
+"""
+
+
+def _trap_status(setup: str, call: str) -> str:
+    """The probe's call in a subprocess (a trap leaves the CUDA context
+    unusable); returns its output, which must name a failed launch."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _TRAP.format(setup=setup, call=call)],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    assert "launch failed:" in out.stdout, out.stdout + out.stderr
+    return out.stdout
+
+
+@pytest.mark.parametrize("probe", ["chunk", "pipe_per_copy", "pipe_chunked"])
+def test_an_id_outside_the_table_traps_with_its_code(cuda_device, probe):
+    """One id past the table's last row, among the chunk probe's 64 or in
+    chunk 8 of the pipe's last block (rank 0's fifth chunk of a cluster of
+    2, a refill of its three-stage ring): the warp's vote traps with code 7
+    before any copy of it."""
+    from swiftsnails_tpu_torch.ops import sem_probe
+
+    call = {"chunk": "sem_probe.chunk_probe(x, ids[:64])",
+            "pipe_per_copy": "sem_probe.pipe_probe(x, ids, 64, False)",
+            "pipe_chunked": "sem_probe.pipe_probe(x, ids, 64, True)"}[probe]
+    where = 37 if probe == "chunk" else 63 * 1856 + 8 * 64 + 5
+    out = _trap_status(f"ids[{where}] = 4096", call)
+    assert "status 7" in out, out
+    assert sem_probe.DEADLINE_CODES[7] == "an id outside [0, C)"
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_a_stage_never_released_traps_with_the_producers_code(cuda_device, chunked):
+    """The consumers keep their first stage (a test's fault): the producer's
+    wait to refill it passes its deadline, code 8, reported by
+    ``deadline_status``, instead of hanging."""
+    from swiftsnails_tpu_torch.ops import sem_probe
+
+    out = _trap_status("", f"sem_probe._pipe_launch(x, ids, 64, {chunked}, "
+                           "hold_first_stage=True)")
+    assert "status 8" in out, out
+    assert sem_probe.DEADLINE_CODES[8] == "pipe: the producer's wait for a released stage"
 
 # ------------------------------------------ checkpoints and the guardrail ---
 

@@ -296,3 +296,48 @@ def test_plain_versions_do_not_count_launches(monkeypatch):
     _small_pipe(monkeypatch, 2, 64, 500)
     tool.main(["--device", "cpu", "--dim", "64"])
     assert [f.launches for f in counters] == before
+
+
+# ------------------------------------------- the pipe kernel's schedule ---
+
+
+def _dealt_chunks(nch: int, g: int) -> list:
+    """The chunks each CTA rank of a cluster of g takes in
+    ``csrc/sem_probe.cu``'s ``pipe_probe_kernel``, by its own arithmetic:
+    ``mine = rank < nch ? (nch - rank + g - 1) / g : 0`` chunks, the i-th
+    being chunk ``rank + i * g``."""
+    return [[rank + i * g for i in range((nch - rank + g - 1) // g if rank < nch else 0)]
+            for rank in range(g)]
+
+
+@pytest.mark.parametrize("g,chunks", [(4, 3), (2, 7), (2, 29)])
+def test_cluster_schedule_equals_plain(g, chunks):
+    """The kernel's dealing covers each chunk of a block exactly once (a
+    rank with no chunk when G exceeds the chunks, unequal shares otherwise),
+    rank 0's first chunk is chunk 0, whose first word is ``first``, and the
+    ranks' XORs combined equal :func:`pipe_probe_plain`."""
+    dealt = _dealt_chunks(chunks, g)
+    assert sorted(c for mine in dealt for c in mine) == list(range(chunks))
+    assert dealt[0][0] == 0
+    blocks, v = 2, 500
+    rng = np.random.default_rng(10 * g + chunks)
+    x = rng.random((v, 1, 128), dtype=np.float32)
+    ids = rng.integers(0, v, blocks * chunks * CH).astype(np.int32)
+    words = x.view(np.uint32).reshape(v, -1)
+    out = np.zeros((blocks, 2), np.uint32)
+    for b in range(blocks):
+        chunk_ids = ids[b * chunks * CH:(b + 1) * chunks * CH].reshape(chunks, CH)
+        ranks = [np.bitwise_xor.reduce(words[chunk_ids[mine]].ravel(), initial=np.uint32(0))
+                 for mine in dealt]
+        out[b] = words[chunk_ids[dealt[0][0], 0], 0], np.bitwise_xor.reduce(ranks)
+    want = sem_probe.pipe_probe_plain(torch.from_numpy(x), torch.from_numpy(ids), blocks)
+    np.testing.assert_array_equal(out.view(np.int32), want.numpy())
+
+
+def test_pipe_plan_on_the_cpu_names_only_the_stages():
+    """On the CPU the plain versions run: no cluster, CTA or lane to name."""
+    x, ids = torch.zeros(500, 2, 128), torch.zeros(2 * 29 * CH, dtype=torch.int32)
+    plan = sem_probe.pipe_plan(x, ids, 2, True)
+    assert plan["stages"] == 3
+    assert all(v is None for k, v in plan.items() if k != "stages"), plan
+    assert set(sem_probe.chunk_plan(x).values()) == {None}
