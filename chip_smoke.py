@@ -14,7 +14,9 @@ bulk-copy completion
 probes through ``python -m swiftsnails_tpu_torch.tools.sem_probe``'s ``main``;
 then ``python -m swiftsnails_tpu_torch train`` on ``examples/word2vec.conf``
 and ``examples/word2vec_fast.conf``, stopped by a real SIGTERM and resumed,
-the training fault drill, and the guardrail's cost.
+the training fault drill, and the guardrail's cost; last the loop's
+telemetry (run ledger, spans, goodput, the ``torch.profiler`` window,
+resume from the ledger, the drift drill).
 
     python3 chip_smoke.py [--seed N]
 
@@ -196,7 +198,32 @@ Phases:
     overhead in ms and percent, the tables of the two runs bit-equal (no
     fault, so trust stays 1.0), and the guardrail's own device time a step
     by ``torch.profiler`` (snapshot copy, norm).
-15. ``kernels``: one line for every ported kernel, with its launches in the
+15. ``telemetry``: the loop's telemetry at full width on packed+pool (the
+    ``train`` phase's config and zipf corpus) and fused-resident
+    (``train_resident``'s, ``hot_rows`` 2,048, the paired corpus): 30 steps
+    with ``telemetry: 1``, ``trace_path``, ``ledger_path``, ``profile_dir``
+    (``profile_steps: 10,20``), ``profile_cadence: 4``, ``drift_detect: 1``,
+    ``param_backup_period: 10`` and the loss read every step. Gates: the
+    losses equal a telemetry-off run's bit for bit (else within the spread
+    of two telemetry-off runs); the trace has one ``prefetch-wait``,
+    ``h2d``, ``step`` and ``metrics-flush`` span a step; the capture holds
+    steps 10-19 (their ``record_function`` ranges) and the path's hand
+    kernels with device time (``gather_rows_kernel`` and
+    ``scatter_add_rows_kernel``; ``merged_sgns_kernel``); the ledger holds
+    three ``checkpoint`` events, then the ``run`` record, whose goodput
+    names the H100 peak row, carries ``step_cost``'s counts, 0 < ``mfu`` <= 1
+    and 0 < ``vs_roofline`` <= 1, and whose ``step_seconds`` (and the
+    median step span of the captured steps) is at least 0.95 x the
+    capture's kernel time a step; ``env`` names the card and its power
+    limit; a ``resume: auto`` run on the ledger restores a step the ledger
+    knows; ``ledger-report``, ``--failures`` and ``trace-summary`` on the
+    files exit 0. Printed: items/sec with telemetry on and off (the loss
+    read every 5 steps, in turns off, on, on, off), so the step span's
+    synchronization is priced. Then the drift drill on the card (gated:
+    detected, one ``drift`` event, a complete bundle, ``--diff`` naming
+    host_blocked) and ``profiler_overhead`` at packed+pool's full width
+    (printed beside the JAX lane's rule, not gated).
+16. ``kernels``: one line for every ported kernel, with its launches in the
     run of its path (``path``) and its f32 numbers from phases 3, 7 and 10
     (``gather_rows`` and ``scatter_add_rows`` also at ``train_perpair``'s
     shape and launches); then ``total``, the script's seconds.
@@ -2235,6 +2262,230 @@ def phase_guardrail_cost(seed: int, env: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ telemetry ---
+
+# telemetry phase: path -> its train phase (config, corpus) and the hand
+# kernels its profile_dir capture must list
+TELEMETRY_PATHS = {
+    "packed+pool": ("train", ("gather_rows_kernel", "scatter_add_rows_kernel")),
+    "fused-resident": ("train_resident", ("merged_sgns_kernel",)),
+}
+TELEMETRY_WINDOW = (10, 20)  # profile_steps
+TELEMETRY_SPANS = ("prefetch-wait", "h2d", "step", "metrics-flush")
+SPEED_LOG_EVERY = 5  # the speed legs read the loss (a sync) every 5 steps
+OVERHEAD_STEPS = 60  # profiler_overhead: steps a repetition at full width
+
+
+def _tel_config(tmp: str) -> dict:
+    return {"telemetry": 1, "trace_path": os.path.join(tmp, "trace.json"),
+            "ledger_path": os.path.join(tmp, "ledger.jsonl"),
+            "profile_dir": os.path.join(tmp, "prof"),
+            "profile_steps": "{},{}".format(*TELEMETRY_WINDOW), "profile_cadence": 4,
+            "drift_detect": 1, "param_backup_period": 10,
+            "param_backup_root": os.path.join(tmp, "ck"),
+            "blackbox_dir": os.path.join(tmp, "bb"), "incident_dir": os.path.join(tmp, "inc")}
+
+
+def _losses(phase: str, seed: int, corpora, **extra) -> tuple:
+    """A 30-step run of ``phase`` with ``extra`` keys: its per-step losses and
+    its loop."""
+    _, loop, records = _train_loop(phase, seed, corpora, **extra)
+    loop.run(seed=seed, max_steps=STEPS)
+    return [r["loss"] for r in records if "loss" in r], loop
+
+
+def _words_per_sec(phase: str, seed: int, corpora, telemetry: int, tmp: str) -> float:
+    """Items/sec over steps 6-30 with the loss read every ``SPEED_LOG_EVERY``
+    steps, ``telemetry`` on (each step span synchronizes) or off."""
+    _, loop, records = _train_loop(phase, seed, corpora, telemetry=telemetry,
+                                   blackbox_dir=os.path.join(tmp, "bb"))
+    loop.log_every = SPEED_LOG_EVERY
+    loop.run(seed=seed, max_steps=STEPS)
+    windows = [r for r in records if "items_per_sec" in r][1:]
+    return sum(r["items"] for r in windows) / sum(r["seconds"] for r in windows)
+
+
+def _capture(path: str, name: str) -> dict:
+    """Device time by kernel in a ``profile_dir`` capture, and the steps its
+    ``record_function`` ranges (``<name>#<step>``) hold."""
+    events = json.load(open(path))["traceEvents"]
+    steps = sorted({int(e["name"].split("#")[1]) for e in events
+                    if str(e.get("name", "")).startswith(name + "#")})
+    kernels: dict = {}
+    memcpy_us = 0.0
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+        elif e.get("cat") in ("gpu_memcpy", "gpu_memset"):
+            memcpy_us += float(e.get("dur", 0.0))
+    return {"steps": steps, "kernels_us": kernels, "memcpy_us": memcpy_us,
+            "device_ms_per_step": sum(kernels.values()) / 1e3 / max(len(steps), 1)}
+
+
+def _cli_ok(args: list) -> tuple:
+    """``cli.main(args)`` in this process, its output captured."""
+    from swiftsnails_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    if rc != 0:
+        raise AssertionError(f"{' '.join(args[:1])} exited {rc}: {out.getvalue()[-2000:]}")
+    return rc, out.getvalue()
+
+
+def phase_telemetry(seed: int, corpora, env: dict) -> dict:
+    """The loop's telemetry at full width on packed+pool and fused-resident:
+    30 steps with ``telemetry: 1``, ``trace_path``, ``ledger_path``,
+    ``profile_dir`` (``profile_steps: 10,20``), ``profile_cadence: 4``,
+    ``drift_detect: 1``, ``param_backup_period: 10`` and the loss read every
+    step, against the same run with telemetry off; then ``resume: auto`` on
+    the ledger, the reports, the drift drill and the continuous profiler's
+    cost."""
+    from swiftsnails_tpu_torch.telemetry.drift_lane import (
+        OVERHEAD_CEIL_PCT, drift_drill, profiler_overhead)
+    from swiftsnails_tpu_torch.telemetry.ledger import Ledger
+
+    t_phase = time.monotonic()
+    out: dict = {}
+    name = torch.cuda.get_device_name(0)
+    for path, (phase, hand_kernels) in TELEMETRY_PATHS.items():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_tel_")
+        try:
+            t0 = time.monotonic()
+            off, _ = _losses(phase, seed, corpora)
+            on, loop = _losses(phase, seed, corpora, **_tel_config(tmp))
+            spread = None
+            if on != off:
+                # a path whose sums are not bit-reproducible run to run: two
+                # telemetry-off runs set the tolerance
+                off2, _ = _losses(phase, seed, corpora)
+                spread = max(abs(a - b) for a, b in zip(off, off2))
+            led = Ledger(os.path.join(tmp, "ledger.jsonl"))
+            kinds = [r["kind"] for r in led.records()]
+            run = led.latest("run")
+            gp = run["goodput"]
+            doc = json.load(open(os.path.join(tmp, "trace.json")))
+            spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+            per_step = {s: sum(1 for e in spans if e["name"] == s) for s in TELEMETRY_SPANS}
+            cap = _capture(loop.profiler.trace_path, loop.trainer.name)
+            window = [e["dur"] / 1e3 for e in spans if e["name"] == "step"
+                      and e.get("args", {}).get("step") in cap["steps"]]
+            window_step_ms = statistics.median(window) if window else None
+            known = [r["step"] for r in led.records("checkpoint")]
+            reports = {label: len(_cli_ok(args)[1].splitlines()) for label, args in (
+                ("ledger-report", ["ledger-report", led.path]),
+                ("ledger-report --failures", ["ledger-report", led.path, "--failures"]),
+                ("trace-summary", ["trace-summary", os.path.join(tmp, "trace.json")]))}
+            # resume: auto on the same ledger, one step past the run (the
+            # paired corpus holds 30 steps of fused-resident: none is left)
+            _, rloop, _ = _train_loop(phase, seed, corpora, resume="auto",
+                                      **_tel_config(tmp))
+            rloop.run(seed=seed, max_steps=STEPS + 1)
+            speed = {}
+            for tel in (0, 1, 1, 0):  # in turns
+                speed.setdefault(tel, []).append(_words_per_sec(phase, seed, corpora, tel, tmp))
+            wps_off, wps_on = (statistics.mean(speed[0]), statistics.mean(speed[1]))
+            res = {
+                "path": path, "steps": STEPS, "losses_bit_equal": on == off,
+                "loss_spread_off_off": spread,
+                "loss_max_abs_diff": max(abs(a - b) for a, b in zip(on, off)),
+                "ledger_kinds": kinds, "checkpoint_steps": known,
+                "resumed_from": rloop._restored_step,
+                "spans_per_step": {s: n / STEPS for s, n in per_step.items()},
+                "capture": {"steps": cap["steps"],
+                            "device_ms_per_step": cap["device_ms_per_step"],
+                            "memcpy_ms": cap["memcpy_us"] / 1e3,
+                            "hand_kernels_us": {k: sum(us for n, us in cap["kernels_us"].items()
+                                                       if k in n) for k in hand_kernels},
+                            "top": sorted(((n[:80], us) for n, us in cap["kernels_us"].items()),
+                                          key=lambda x: -x[1])[:6]},
+                "window_step_ms_median": window_step_ms,
+                "goodput": {k: gp.get(k) for k in (
+                    "step_seconds", "mfu", "vs_roofline", "flops_per_step",
+                    "hbm_bytes_per_step", "roofline_step_seconds", "items_per_sec", "goodput")},
+                "decomposition": {k: v for k, v in gp["decomposition"].items()
+                                  if k.endswith("_frac") or k in ("wall_s", "steps")},
+                "peaks_source": gp["peaks"]["source"], "env_devices": run["env"]["devices"],
+                "reports_lines": reports,
+                "items_per_sec_telemetry_off": wps_off, "items_per_sec_telemetry_on": wps_on,
+                "telemetry_cost_pct": 100.0 * (wps_off - wps_on) / wps_off,
+                "speed_turns": speed, "speed_log_every": SPEED_LOG_EVERY,
+                "seconds": time.monotonic() - t0,
+                "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+            emit("telemetry", **res)
+            problems = []
+            if not (on == off or (spread is not None and res["loss_max_abs_diff"] <= spread)):
+                problems.append(f"telemetry changed the losses by {res['loss_max_abs_diff']} "
+                                f"(off-off spread {spread})")
+            if any(n != STEPS for n in per_step.values()):
+                problems.append(f"spans a step: {per_step}")
+            if kinds != ["checkpoint"] * 3 + ["run"]:
+                problems.append(f"ledger kinds {kinds}")
+            if cap["steps"] != list(range(*TELEMETRY_WINDOW)):
+                problems.append(f"capture steps {cap['steps']}")
+            if not all(us > 0 for us in res["capture"]["hand_kernels_us"].values()):
+                problems.append(f"capture lacks a hand kernel: {res['capture']}")
+            if "h100" not in gp["peaks"]["source"] or "H100" not in name:
+                problems.append(f"peaks {gp['peaks']['source']} on {name}")
+            if gp["flops_per_step"] is None or gp["hbm_bytes_per_step"] is None:
+                problems.append("no step_cost counts")
+            if not (0 < (gp["mfu"] or 0) <= 1 and 0 < (gp.get("vs_roofline") or 0) <= 1):
+                problems.append(f"mfu {gp['mfu']}, vs_roofline {gp.get('vs_roofline')}")
+            dev_ms = cap["device_ms_per_step"]
+            if not (gp["step_seconds"] * 1e3 >= 0.95 * dev_ms
+                    and window_step_ms is not None and window_step_ms >= 0.95 * dev_ms):
+                problems.append(f"step {gp['step_seconds'] * 1e3} ms (window median "
+                                f"{window_step_ms}) < 0.95 x device {dev_ms} ms")
+            devices = run["env"]["devices"]
+            if devices.get("kind") != name or not devices.get("power_limit"):
+                problems.append(f"env devices {devices}")
+            if rloop._restored_step not in known:
+                problems.append(f"resumed from {rloop._restored_step}, ledger knows {known}")
+            if problems:
+                raise AssertionError(f"telemetry {path}: " + "; ".join(problems))
+            out[path] = res
+            del loop, rloop
+        finally:
+            torch.cuda.empty_cache()
+            shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drift_")
+    try:
+        drill = drift_drill(os.path.join(tmp, "drill"))
+        emit("telemetry_drift_drill", **{k: v for k, v in drill.items() if k != "ledger"},
+             device=env["device"], nvidia_smi=env["nvidia_smi"])
+        if not (drill["detected"] and drill["drift_events"] == 1 and drill["bundle_complete"]
+                and drill["attribution"].get("dominant") == "host_blocked"):
+            raise AssertionError(f"drift drill: {drill}")
+        over_cfg, _, paired = TRAIN["train"]
+        ids, vocab, _ = corpora[paired]
+
+        def make(extra):
+            from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+            from swiftsnails_tpu_torch.utils.config import Config
+
+            keys = {"dim": DIM, "window": WINDOW, "negatives": NEGATIVES, "subsample": 0,
+                    "num_iters": 1, "pool_size": POOL_SIZE, "pool_block": POOL_BLOCK,
+                    "table_dtype": "float32", "seed": seed, **over_cfg, **extra}
+            return Word2VecTrainer(Config({k: str(v) for k, v in keys.items()}),
+                                   corpus_ids=ids, vocab=vocab)
+
+        over = profiler_overhead(os.path.join(tmp, "overhead"), make=make,
+                                 steps=OVERHEAD_STEPS)
+        over["rule"] = (f"fails when overhead_pct > max({OVERHEAD_CEIL_PCT}, noise_pct) "
+                        "(the JAX lane's gate; printed here, not gated)")
+        emit("telemetry_profiler_overhead", path="packed+pool", **over,
+             device=env["device"], nvidia_smi=env["nvidia_smi"])
+        out["profiler_overhead"] = over
+    finally:
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("telemetry_total", seconds=time.monotonic() - t_phase)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2296,6 +2547,7 @@ def main() -> int:
         phase_cli(name, args.seed, env)
     phase_chaos(args.seed, env)
     phase_guardrail_cost(args.seed, env)
+    phase_telemetry(args.seed, corpora, env)
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),

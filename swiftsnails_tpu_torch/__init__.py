@@ -12,8 +12,9 @@ the counterpart of each JAX module is found at the same place:
   (:mod:`swiftsnails_tpu_torch.models.word2vec`), the CTR families, the
   training loop (:mod:`swiftsnails_tpu_torch.framework.trainer`), the
   native batch producer (:mod:`swiftsnails_tpu_torch.data.native`, C++
-  built with ``g++`` at first use) and the quality probe
-  (:mod:`swiftsnails_tpu_torch.framework.quality`).
+  built with ``g++`` at first use), the quality probe
+  (:mod:`swiftsnails_tpu_torch.framework.quality`), checkpoints, resilience
+  and the loop's telemetry (:mod:`swiftsnails_tpu_torch.telemetry`).
 
 Entry points run on the card (``device=None`` means ``cuda``) and raise when
 there is none, unless the caller passes ``device="cpu"``: then every kernel

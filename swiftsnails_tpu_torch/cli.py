@@ -12,6 +12,8 @@ Usage::
     python -m swiftsnails_tpu_torch export -config train.conf -checkpoint ROOT -out vec.txt
     python -m swiftsnails_tpu_torch models
     python -m swiftsnails_tpu_torch worker -config ...   # alias of train (parity)
+    python -m swiftsnails_tpu_torch ledger-report [LEDGER] [--failures | --diff A B | --check-regression PCT]
+    python -m swiftsnails_tpu_torch trace-summary FILE   # a trace_path or metrics JSONL file
 
 Every ``-key value`` flag overrides the config key ``key``. The runs go on
 the card (``cuda``) and fail without one, unless ``-device cpu`` asks for the
@@ -27,10 +29,18 @@ drains with a final save; ``guardrail: 1`` arms the NaN/rollback step
 guardrail; ``chaos_spec`` injects faults. ``export`` writes the text
 vectors of the newest checkpoint, verified.
 
+Telemetry: ``ledger_path`` keeps the run ledger (checkpoint, chaos,
+outage, ``cache_error`` and run records); ``telemetry: 1`` or a
+``trace_path`` arms the span tracer, metric registry, black box and goodput
+block; ``profile_dir`` captures ``profile_steps`` with ``torch.profiler``.
+``ledger-report`` renders a ledger (``--failures``: the failure timeline;
+``--diff A B``: regression attribution between two run records;
+``--check-regression PCT``: the gate) and ``trace-summary`` a trace or
+metrics file.
+
 ``master`` / ``server`` are accepted for parity and explain the collapse.
-``serve``, ``net-serve``, ``trace-summary``, ``ledger-report``,
-``supervisor-status`` and ``ops`` belong to planes the port does not have
-yet (``ROADMAP.md``): they say so and exit 2.
+``serve``, ``net-serve``, ``supervisor-status`` and ``ops`` belong to
+planes the port does not have yet (``ROADMAP.md``): they say so and exit 2.
 """
 
 from __future__ import annotations
@@ -86,6 +96,18 @@ def cmd_export(argv: List[str]) -> int:
     return 0
 
 
+def cmd_ledger_report(argv: List[str]) -> int:
+    from swiftsnails_tpu_torch.telemetry.ledger import main as ledger_main
+
+    return ledger_main(argv)
+
+
+def cmd_trace_summary(argv: List[str]) -> int:
+    from swiftsnails_tpu_torch.telemetry.summary import main as summary_main
+
+    return summary_main(argv)
+
+
 def cmd_models(argv: List[str]) -> int:
     from swiftsnails_tpu_torch.models.registry import available_models
 
@@ -100,8 +122,7 @@ _ROLE_NOTE = (
     "  python -m swiftsnails_tpu_torch train -config <file>"
 )
 
-_UNPORTED = ("serve", "net-serve", "trace-summary", "ledger-report",
-             "supervisor-status", "ops")
+_UNPORTED = ("serve", "net-serve", "supervisor-status", "ops")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -117,6 +138,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             return cmd_export(rest)
         if cmd == "models":
             return cmd_models(rest)
+        if cmd == "ledger-report":
+            return cmd_ledger_report(rest)
+        if cmd == "trace-summary":
+            return cmd_trace_summary(rest)
         if cmd in ("master", "server"):
             print(_ROLE_NOTE.format(role=cmd), file=sys.stderr)
             return 0
@@ -124,7 +149,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"command {cmd!r} is not ported to the PyTorch port yet; "
                   "see ROADMAP.md for when it is", file=sys.stderr)
             return 2
-        print(f"unknown command {cmd!r}; try: train, export, models",
+        print(f"unknown command {cmd!r}; try: train, export, models, "
+              "ledger-report, trace-summary",
               file=sys.stderr)
         return 2
     except ConfigError as e:

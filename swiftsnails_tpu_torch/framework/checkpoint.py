@@ -12,7 +12,9 @@ and no load path. Here, as in the JAX package:
   returns once the tensors' copies to the host are enqueued; a writer
   thread waits for them, computes the CRCs, writes the files and commits
   the manifest. It is joined at the next save and by
-  :func:`wait_for_checkpoints`, which returns its errors.
+  :func:`wait_for_checkpoints`, which returns its errors. With a ``ledger``
+  each commit appends a ``checkpoint`` event (the steps ``resume: auto``
+  prefers) and each write or prune error a ``cache_error`` event.
 * :func:`restore_checkpoint` reads a step back into a template state and
   verifies every tensor's bytes against the manifest before it copies any
   of them (:class:`CheckpointError` on a mismatch: corrupt bytes never
@@ -223,9 +225,14 @@ _ckpt_errors: List[str] = []
 _pinned: Dict[str, torch.Tensor] = {}  # reused host buffers of CUDA tensors, by key
 
 
-def _note_error(msg: str) -> None:
+def _note_error(msg: str, ledger=None) -> None:
     with _lock:
         _ckpt_errors.append(msg)
+    if ledger is not None:
+        try:
+            ledger.append("cache_error", {"source": "checkpoint", "error": msg})
+        except Exception:
+            pass  # record-keeping never blocks the save path
 
 
 def _to_host(state: Any) -> Tuple[List[Tuple[str, torch.Tensor]], Optional[torch.cuda.Event]]:
@@ -287,18 +294,32 @@ def _write_step(entry: Dict) -> None:
         manifest = _manifest(arrays, entry["step"], entry["cursor"], entry["config_hash"])
         atomic_write_json(os.path.join(path, MANIFEST_NAME), manifest)
         t3 = time.perf_counter()
+        ledger = entry["ledger"]
+        if ledger is not None:
+            try:
+                ledger.append("checkpoint", {
+                    "root": os.path.abspath(entry["root"]),
+                    "step": manifest["step"],
+                    "config_hash": manifest.get("config_hash"),
+                    "data_cursor": manifest.get("data_cursor"),
+                })
+            except Exception:
+                pass  # record-keeping never blocks the save path
         nbytes = sum(d.nbytes for _, d in payload)
         print(f"checkpoint: committed step_{entry['step']} ({nbytes} bytes: "
               f"snapshot {entry['snapshot_s']:.4f} s, d2h wait {t1 - t0:.4f} s, "
               f"crc {t2 - t1:.4f} s, write {t3 - t2:.4f} s)", file=sys.stderr)
     except Exception as e:  # a failed save must not take down the training loop
-        _note_error(f"checkpoint save failed for {path}: {type(e).__name__}: {e}")
+        _note_error(f"checkpoint save failed for {path}: {type(e).__name__}: {e}",
+                    entry["ledger"])
         return
     if entry["keep"] > 0:
         try:
-            prune_checkpoints(entry["root"], entry["keep"], protect=entry["protect"])
+            prune_checkpoints(entry["root"], entry["keep"], protect=entry["protect"],
+                              ledger=entry["ledger"])
         except OSError as e:
-            _note_error(f"retention prune failed under {entry['root']}: {e}")
+            _note_error(f"retention prune failed under {entry['root']}: {e}",
+                        entry["ledger"])
 
 
 def _join_writer() -> None:
@@ -319,6 +340,7 @@ def save_checkpoint(
     keep: int = 0,
     protect: Optional[int] = None,
     retry=None,
+    ledger=None,
 ) -> str:
     """Write a checkpoint of ``state`` for ``step`` under ``root``, committed
     by a checksum manifest; returns the step directory.
@@ -330,7 +352,9 @@ def save_checkpoint(
     continues from. ``keep > 0`` applies ``param_backup_keep`` retention
     after the commit; ``protect`` is a step never pruned (the step this run
     restored from). ``retry`` (a :class:`~swiftsnails_tpu_torch.resilience.retry.RetryPolicy`)
-    absorbs transient ``OSError`` of the file writes.
+    absorbs transient ``OSError`` of the file writes. ``ledger`` (a
+    :class:`~swiftsnails_tpu_torch.telemetry.ledger.Ledger`) receives the
+    commit's ``checkpoint`` event and any ``cache_error``.
     """
     global _writer
     _join_writer()  # one save at a time: its buffers are about to be reused
@@ -338,7 +362,8 @@ def save_checkpoint(
     host, event = _to_host(state)
     entry = {"root": root, "path": _step_dir(root, step), "step": int(step),
              "cursor": cursor, "config_hash": config_hash, "keep": keep,
-             "protect": protect, "retry": retry, "host": host, "event": event,
+             "protect": protect, "retry": retry, "ledger": ledger,
+             "host": host, "event": event,
              "snapshot_s": time.perf_counter() - t0}
     writer = threading.Thread(target=_write_step, args=(entry,),
                               name=f"checkpoint-step_{step}")
@@ -406,7 +431,8 @@ def candidate_steps(root: str, preferred: Sequence[int] = ()) -> List[int]:
 # -------------------------------------------------------------- retention ---
 
 
-def prune_checkpoints(root: str, keep: int, protect: Optional[int] = None) -> List[int]:
+def prune_checkpoints(root: str, keep: int, protect: Optional[int] = None,
+                      ledger=None) -> List[int]:
     """``param_backup_keep`` retention: keep the newest ``keep`` *intact*
     steps (plus the newest step of any kind, plus ``protect`` — the step a
     resumed run restored from is never deleted under it). Returns the pruned
@@ -429,7 +455,7 @@ def prune_checkpoints(root: str, keep: int, protect: Optional[int] = None) -> Li
             shutil.rmtree(_step_dir(root, s))
             pruned.append(s)
         except OSError as e:
-            _note_error(f"prune of step_{s} under {root} failed: {e}")
+            _note_error(f"prune of step_{s} under {root} failed: {e}", ledger)
     return pruned
 
 

@@ -12,7 +12,18 @@ Capability parity with the reference's worker framework
   checkpoints (``param_backup_period``, ``param_backup_root``,
   ``param_backup_keep``), resume (``resume: 1`` / ``auto``), the step
   guardrail (``guardrail: 1``), fault injection (``chaos_spec``) and the
-  SIGTERM drain.
+  SIGTERM drain; and the telemetry: the run ledger (``ledger_path``), the
+  span tracer, metric registry, black box, goodput block, continuous
+  profiling and drift sentinel (``telemetry: 1`` / ``trace_path``, with
+  ``telemetry_stdout``, ``blackbox_steps``, ``blackbox_dir``, ``goodput``,
+  ``profile_cadence``, ``profile_window``, ``profile_export``,
+  ``incident_dir``, ``drift_detect`` and ``drift_ewma_alpha`` /
+  ``drift_cusum_k`` / ``drift_cusum_h`` / ``drift_warmup``), and the
+  ``torch.profiler`` window (``profile_dir``, ``profile_steps``).
+
+With telemetry on, the ``step`` span ends after the device's current
+stream has synchronized, so it holds the step's device time; with it off
+the loop never waits for the card inside a step.
 
 The loop features of the JAX package that are not ported yet raise
 ``NotImplementedError`` when their config keys ask for them (see
@@ -21,12 +32,13 @@ The loop features of the JAX package that are not ported yet raise
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import signal
 import sys
 import threading
 import time
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,10 +49,21 @@ from swiftsnails_tpu_torch.resilience.chaos import ChaosPlan
 from swiftsnails_tpu_torch.resilience.guardrail import GuardrailExhausted, StepGuardrail
 from swiftsnails_tpu_torch.resilience.resume import resume_mode, resume_state
 from swiftsnails_tpu_torch.resilience.retry import RetryingIterator, RetryPolicy
-from swiftsnails_tpu_torch.telemetry.ledger import config_hash
+from swiftsnails_tpu_torch.telemetry.blackbox import BlackBox
+from swiftsnails_tpu_torch.telemetry.drift import DriftSentinel, build_incident_bundle
+from swiftsnails_tpu_torch.telemetry.goodput import (
+    goodput_report,
+    peaks_from_config,
+    step_time_decomposition,
+)
+from swiftsnails_tpu_torch.telemetry.ledger import Ledger, config_hash, env_fingerprint
+from swiftsnails_tpu_torch.telemetry.registry import MetricRegistry, StdoutSummarySink
+from swiftsnails_tpu_torch.telemetry.timeseries import TimeSeriesStore
+from swiftsnails_tpu_torch.telemetry.tracer import Tracer
 from swiftsnails_tpu_torch.utils.config import Config
 from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
 from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+from swiftsnails_tpu_torch.utils.profiling import StepProfiler, step_annotation
 
 
 class Trainer:
@@ -91,6 +114,16 @@ class Trainer:
 
     def eval_metrics(self, state: Any) -> Dict[str, float]:
         return {}
+
+    def step_cost(self, batch: Dict[str, np.ndarray]) -> Optional[Dict]:
+        """One step's work on ``batch`` (a host batch), for the goodput
+        block: ``{"cost": {"flops", "bytes_accessed"}, "total_bytes": None,
+        "source": "analytic"}`` — the dict the JAX package's HLO audit gives
+        ``goodput_report``, counted here from the batch: the least bytes (each
+        distinct table row read and written once, the batch read once) and
+        the f32 flops. ``None`` where the trainer defines no count: the
+        report then carries ``None``, never a guess."""
+        return None
 
 
 def _unported(key: str, value) -> None:
@@ -157,6 +190,11 @@ class _Prefetcher:
             raise StopIteration
         return item
 
+    def qsize(self) -> int:
+        """Approximate queued-batch count (telemetry gauge: a persistently
+        empty queue means the host pipeline is the bottleneck)."""
+        return self._q.qsize()
+
     def close(self):
         self._stop.set()
         # drain so the producer's pending put unblocks promptly, then reap it
@@ -204,17 +242,9 @@ def _positive(cfg: Config, key: str) -> bool:
     return cfg.get_int(key, 0) > 0
 
 
-def _non_empty(cfg: Config, key: str) -> bool:
-    return cfg.get_str(key, "").strip() != ""
-
-
 # Loop features of the JAX package not ported yet: key -> "is it asked for"
 # (read as the JAX loop reads it).
 UNPORTED_LOOP_KEYS = {
-    "telemetry": truthy,
-    "trace_path": _non_empty,
-    "ledger_path": _non_empty,
-    "profile_dir": _non_empty,
     "cluster_workers": _positive,
     "freshness_publish": _positive,
 }
@@ -231,11 +261,13 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 
 
 _STREAM_END = object()
+_NO_ANNOTATION = contextlib.nullcontext()
 
 
 class TrainLoop:
     """The training loop: prefetch, device feed, per-step generator, metrics,
-    checkpoints, resume, guardrail, fault injection and the SIGTERM drain."""
+    checkpoints, resume, guardrail, fault injection, the SIGTERM drain and,
+    when asked for, the run ledger and telemetry."""
 
     def __init__(
         self,
@@ -258,6 +290,11 @@ class TrainLoop:
         self.backup_root = cfg.get_str("param_backup_root", "")
         self.backup_keep = cfg.get_int("param_backup_keep", 3)
         self.config_hash = config_hash(cfg.as_dict())
+        # the ledger rides with any ledger_path (resilience events need it
+        # even when the full telemetry stack is off); tracer/registry/black
+        # box stay telemetry-gated below
+        ledger_path = cfg.get_str("ledger_path", "")
+        self.ledger = Ledger(ledger_path) if ledger_path else None
         self._restored_step: Optional[int] = None  # set by resume; never pruned
         self._items_seen = 0
         self.checkpoint_fn = None
@@ -265,27 +302,82 @@ class TrainLoop:
             # async periodic saves: training continues while the writer
             # thread CRCs and writes; the manifest (step, config hash, CRCs,
             # data cursor) commits when the files are down
-            ckpt_retry = RetryPolicy.from_config(cfg)
+            ckpt_retry = RetryPolicy.from_config(cfg, ledger=self.ledger)
 
             def checkpoint_fn(state, step):
                 save_checkpoint(
                     self.backup_root, state, step, wait=False,
                     cursor={"step": step, "items": self._items_seen},
                     config_hash=self.config_hash, keep=self.backup_keep,
-                    protect=self._restored_step, retry=ckpt_retry)
+                    protect=self._restored_step, retry=ckpt_retry, ledger=self.ledger)
 
             self.checkpoint_fn = checkpoint_fn
+        self.profiler = StepProfiler(cfg, self.device)
         # resilience is opt-in per key; off, the step pays flag checks only
         self.guardrail = None
         if cfg.get_bool("guardrail", False):
             self.guardrail = StepGuardrail(
                 max_update_norm=cfg.get_float("guard_max_update_norm", 0.0),
                 max_consecutive=cfg.get_int("guard_max_consecutive", 3))
-        self.chaos = ChaosPlan.from_config(cfg)
+        self.chaos = ChaosPlan.from_config(cfg, ledger=self.ledger)
         self._preempt = threading.Event()
         self._preempt_reason: Optional[str] = None
         self.preempted = False
         self._prev_sigterm = None
+        # telemetry is opt-in (`telemetry: 1` or a `trace_path`); when off,
+        # tracer/registry/black box stay None and run() takes the
+        # uninstrumented branch
+        self.trace_path = cfg.get_str("trace_path", "")
+        self.tracer = self.registry = self.blackbox = None
+        self.timeseries = self.drift = None
+        self._want_cost = False
+        self.profile_cadence = 0
+        self.incident_dir = ""
+        if cfg.get_bool("telemetry", False) or self.trace_path:
+            self._init_telemetry(cfg)
+        self.incidents: List[str] = []
+        self._incident_reasons: set = set()
+        self._profile_event_idx = 0
+        self._profile_pending_loss = None
+        self._step_cost: Optional[Dict] = None
+
+    def _init_telemetry(self, cfg: Config) -> None:
+        """The tracer, registry, black box, continuous profiler and drift
+        sentinel, as the JAX loop builds them from its keys."""
+        trainer = self.trainer
+        context = {"model": trainer.name, "config_hash": self.config_hash}
+        self.tracer = Tracer(path=self.trace_path or None,
+                             nvtx=self.device.type == "cuda")
+        sinks = [self.metrics]
+        if cfg.get_bool("telemetry_stdout", False):
+            sinks.append(StdoutSummarySink())
+        self.registry = MetricRegistry(sinks=sinks)
+        bb_steps = cfg.get_int("blackbox_steps", 32)
+        if bb_steps > 0:
+            self.blackbox = BlackBox(
+                capacity=bb_steps, directory=cfg.get_str("blackbox_dir", "blackbox"),
+                ledger=self.ledger, context=context)
+        # goodput needs the step's FLOP and byte counts (Trainer.step_cost,
+        # taken once from the first batch); gateable on its own
+        self._want_cost = cfg.get_bool("goodput", True)
+        # continuous profiling: a bounded ring of periodic metric samples
+        # (`profile_cadence` steps, 0 = off) — the registry snapshot plus the
+        # per-window goodput decomposition; exportable as JSONL and
+        # summarized into the run record for sparklines
+        self.profile_cadence = cfg.get_int("profile_cadence", 0)
+        if self.profile_cadence > 0:
+            self.timeseries = TimeSeriesStore(window=cfg.get_int("profile_window", 512))
+        # drift sentinel: EWMA/CUSUM detectors over the sampled signals; a
+        # confirmed drift appends one transition-edged `drift` ledger event
+        # and captures an incident bundle under `incident_dir`
+        if cfg.get_bool("drift_detect", False):
+            self.drift = DriftSentinel(
+                alpha=cfg.get_float("drift_ewma_alpha", 0.3),
+                k=cfg.get_float("drift_cusum_k", 1.0),
+                h=cfg.get_float("drift_cusum_h", 6.0),
+                warmup=cfg.get_int("drift_warmup", 8),
+                ledger=self.ledger, context=context)
+        self.incident_dir = cfg.get_str("incident_dir", "incidents")
 
     def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """Arrays go to the device; scalars (e.g. ``progress``) stay on the
@@ -300,7 +392,9 @@ class TrainLoop:
         if mode == "off" or not self.backup_root:
             return state, 0, 0
         t0 = time.perf_counter()
-        restored = resume_state(self.backup_root, state, on_reject=self._on_resume_reject)
+        restored = resume_state(self.backup_root, state, mode=mode, ledger=self.ledger,
+                                config_hash=self.config_hash,
+                                on_reject=self._on_resume_reject)
         seconds = time.perf_counter() - t0
         if restored is None:
             return state, 0, 0
@@ -325,10 +419,16 @@ class TrainLoop:
         trainer = self.trainer
         state, step, skip_batches = self._resume(trainer.init_state())
         last_metrics: Dict[str, Any] = {}
+        total_items = 0
         depth = trainer.config.get_int("prefetch_batches", 2)
         src = iter(trainer.batches())
         batches = _Prefetcher(src, depth=depth) if depth else src
+        tel = self.tracer
+        reg = self.registry
+        bb = self.blackbox
         chaos = self.chaos
+        prof = self.profiler
+        cuda = self.device.type == "cuda"
         resilient = self.guardrail is not None or chaos is not None
         # the first metrics line names the producer, so no run hides its route
         first_line = {"producer": trainer.producer} if trainer.producer else {}
@@ -337,60 +437,175 @@ class TrainLoop:
             it = chaos.wrap_stream(it)
         if resilient:
             # transient OSError (a flaky filesystem, chaos io_error) is
-            # retried under the shared policy before it propagates
-            it = RetryingIterator(it, RetryPolicy.from_config(trainer.config),
-                                  on_error=self._on_stream_error, op="data_stream")
+            # retried under the shared policy before it propagates; an
+            # exhausted budget is a retry_exhausted ledger event
+            it = RetryingIterator(
+                it, RetryPolicy.from_config(trainer.config, ledger=self.ledger),
+                on_error=self._on_stream_error, op="data_stream")
         self._install_sigterm()
+        preempted = self._preempt.is_set
         try:
             for _ in range(skip_batches):
                 if next(it, _STREAM_END) is _STREAM_END:
                     break
-            for batch in it:
-                if self._preempt.is_set():
-                    break
-                n_items = trainer.items_per_batch(batch)
-                if chaos is not None:
-                    chaos.maybe_slow_step(step)  # a host stall before dispatch
-                dev_batch = self._device_batch(batch)
-                gen = step_generator(seed, step, self.device)
-                if resilient:
-                    state, last_metrics = self._resilient_step(state, dev_batch, gen, step)
-                else:
-                    state, last_metrics = trainer.train_step(state, dev_batch, gen)
-                step += 1
-                self._items_seen += n_items
-                self.metrics.count(n_items)
-                if self.log_every and step % self.log_every == 0:
-                    host = {k: float(v) for k, v in last_metrics.items()}
-                    self.metrics.flush_window(step=step, **host, **first_line)
-                    first_line = {}
-                if self.backup_period and self.checkpoint_fn and step % self.backup_period == 0:
-                    self.checkpoint_fn(state, step)
-                if max_steps is not None and step >= max_steps:
-                    break
+            # hot-path contract: with telemetry off each step pays the flag
+            # checks below; the instrumented body never runs
+            if tel is None:
+                for batch in it:
+                    if preempted():
+                        break
+                    n_items = trainer.items_per_batch(batch)
+                    prof.on_step(step)
+                    if chaos is not None:
+                        chaos.maybe_slow_step(step)  # a host stall before dispatch
+                    with (step_annotation(trainer.name, step) if prof.enabled
+                          else _NO_ANNOTATION):
+                        dev_batch = self._device_batch(batch)
+                        gen = step_generator(seed, step, self.device)
+                        if resilient:
+                            state, last_metrics = self._resilient_step(
+                                state, dev_batch, gen, step)
+                        else:
+                            state, last_metrics = trainer.train_step(state, dev_batch, gen)
+                    step += 1
+                    self._items_seen += n_items
+                    self.metrics.count(n_items)
+                    if self.log_every and step % self.log_every == 0:
+                        host = {k: float(v) for k, v in last_metrics.items()}
+                        self.metrics.flush_window(step=step, **host, **first_line)
+                        first_line = {}
+                    if self.backup_period and self.checkpoint_fn and step % self.backup_period == 0:
+                        self.checkpoint_fn(state, step)
+                    if max_steps is not None and step >= max_steps:
+                        break
+            else:
+                while True:
+                    if preempted():
+                        break
+                    t_step0 = time.monotonic()
+                    with tel.span("prefetch-wait"):
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            break
+                    n_items = trainer.items_per_batch(batch)
+                    prof.on_step(step)
+                    if isinstance(batches, _Prefetcher):
+                        q_depth = batches.qsize()
+                        reg.gauge("prefetch_queue_depth").set(q_depth)
+                        tel.counter("prefetch_queue_depth", q_depth)
+                    if chaos is not None and chaos.scheduled("slow_step", step):
+                        # the injected host stall runs OUTSIDE the step span,
+                        # inside its own bucketed span, so the decomposition
+                        # attributes it to host_blocked_s like a real stall
+                        with tel.span("chaos-slow", step=step):
+                            chaos.maybe_slow_step(step)
+                    # step_span opens record_function (and NVTX on the
+                    # card), so a concurrent profile_dir capture lines the
+                    # kernels up with these host spans by step number
+                    with tel.step_span(trainer.name, step):
+                        with tel.span("h2d"):
+                            dev_batch = self._device_batch(batch)
+                        if self._want_cost and self._step_cost is None:
+                            self._step_cost = self._count_step(batch)
+                        with tel.span("step", step=step):
+                            gen = step_generator(seed, step, self.device)
+                            if resilient:
+                                state, last_metrics = self._resilient_step(
+                                    state, dev_batch, gen, step)
+                            else:
+                                state, last_metrics = trainer.train_step(
+                                    state, dev_batch, gen)
+                            if cuda:
+                                # the span holds the step's device time, not
+                                # only its enqueue (the JAX span's "jitted
+                                # dispatch + device sync")
+                                torch.cuda.current_stream(self.device).synchronize()
+                    step += 1
+                    total_items += n_items
+                    self._items_seen += n_items
+                    reg.counter("steps").inc()
+                    reg.counter("items").inc(n_items)
+                    step_ms = (time.monotonic() - t_step0) * 1e3
+                    reg.histogram("step_ms").observe(step_ms)
+                    if bb is not None:
+                        bb.record_step(step, step_ms=step_ms, items=n_items)
+                    if self.timeseries is not None and step % self.profile_cadence == 0:
+                        self._profile_sample(step, step_ms, last_metrics)
+                    self.metrics.count(n_items)
+                    if self.log_every and step % self.log_every == 0:
+                        with tel.span("metrics-flush"):
+                            host = {k: float(v) for k, v in last_metrics.items()}
+                            self.metrics.flush_window(step=step, **host, **first_line)
+                            first_line = {}
+                            reg.flush(step=step)
+                            if bb is not None:
+                                bb.record_metrics(step, host)
+                                if bb.nonfinite(host):
+                                    bb.dump("nan-loss", tracer=tel)
+                                    self._incident("nan-loss")
+                    if self.backup_period and self.checkpoint_fn and step % self.backup_period == 0:
+                        with tel.span("checkpoint", step=step):
+                            self.checkpoint_fn(state, step)
+                    if max_steps is not None and step >= max_steps:
+                        break
+        except BaseException as e:
+            # the flight-recorder moment: a failing run must leave a
+            # post-mortem artifact (ring of recent steps + spans) behind
+            if bb is not None:
+                bb.dump("exception", exc=e, tracer=tel)
+            raise
         finally:
+            # an open capture or trace must be finalized even on error
+            prof.close(step)
             if isinstance(batches, _Prefetcher):
                 batches.close()
             else:
                 _close_source(src)
+            if tel is not None:
+                tel.close()
             self._uninstall_sigterm()
             # an async save must never be orphaned by an exception
             if self.checkpoint_fn is not None:
                 self._join_checkpoints()
-        if self.device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize(self.device)
         if self._preempt.is_set():
-            # the drain: a final save, then a normal return; the next run's
-            # `resume: auto` continues from this state
+            # the drain: a final save and a durable outage record, then a
+            # normal return; the next run's `resume: auto` continues from it
             self.preempted = True
             if self.checkpoint_fn is not None:
-                self.checkpoint_fn(state, step)
+                try:
+                    self.checkpoint_fn(state, step)
+                except Exception as e:
+                    self._ledger_event("cache_error", {
+                        "source": "checkpoint",
+                        "error": f"preemption final save failed: {e}",
+                    })
                 self._join_checkpoints()
+            self._ledger_event("outage", {
+                "probe": "preemption",
+                "reason": self._preempt_reason or "SIGTERM",
+                "step": step,
+                "error": "run preempted; drained with a final checkpoint",
+            })
             print(f"preemption ({self._preempt_reason}): drained at step {step}",
                   file=sys.stderr)
+        host = {}
         if step % max(self.log_every, 1) != 0 or not self.log_every:
             host = {k: float(v) for k, v in last_metrics.items()}
             self.metrics.flush_window(step=step, **host, **first_line)
+        elif bb is not None and last_metrics:
+            host = {k: float(v) for k, v in last_metrics.items()}
+        if bb is not None and host:
+            bb.record_metrics(step, host)
+            if bb.nonfinite(host):
+                bb.dump("nan-loss", tracer=tel)
+                self._incident("nan-loss")
+        if reg is not None:
+            reg.flush(step=step, final=1)
+        if tel is not None:
+            self._finalize_run_record(step, total_items, host)
         return state
 
     # -- resilience (guardrail / chaos / preemption) ------------------------
@@ -414,10 +629,14 @@ class TrainLoop:
         if guard is not None:
             new_state, metrics, tripped, exhausted = guard.commit(snap, new_state, metrics)
             if tripped:
+                if self.registry is not None:
+                    self.registry.counter("guard_trips").inc()
                 print(f"guardrail: step {step} rolled back "
                       f"({guard.last_trip_reason}); trust={guard.trust:.3f}",
                       file=sys.stderr)
             if exhausted:
+                if self.blackbox is not None:
+                    self.blackbox.dump("guardrail-giveup", tracer=self.tracer)
                 raise GuardrailExhausted(
                     f"{guard.consecutive} consecutive unhealthy steps "
                     f"(last: {guard.last_trip_reason}); giving up at step {step}")
@@ -429,17 +648,22 @@ class TrainLoop:
         return new_state, metrics
 
     def request_preemption(self, reason: str = "SIGTERM") -> None:
-        """Ask the loop to drain at the next step boundary: final save, then
-        a normal return with :attr:`preempted` set."""
+        """Ask the loop to drain at the next step boundary: final save,
+        ledger ``outage`` record, then a normal return with
+        :attr:`preempted` set."""
         self._preempt_reason = reason
         self._preempt.set()
 
     def _install_sigterm(self) -> None:
-        """SIGTERM asks for the drain for the duration of the run; main
-        thread only (a signal-module restriction), elsewhere preemption is
-        cooperative (:meth:`request_preemption`)."""
+        """SIGTERM dumps the black box (the ring is most valuable at the
+        moment of death) and asks for the drain, for the duration of the
+        run: the loop's own handler, not the black box's die-after-dump one.
+        Main thread only (a signal-module restriction); elsewhere preemption
+        is cooperative (:meth:`request_preemption`)."""
 
         def _on_term(signum, frame):
+            if self.blackbox is not None:
+                self.blackbox.dump("sigterm", tracer=self.tracer)
             self.request_preemption("SIGTERM")
 
         try:
@@ -452,6 +676,16 @@ class TrainLoop:
             signal.signal(signal.SIGTERM, self._prev_sigterm)
             self._prev_sigterm = None
 
+    def _ledger_event(self, kind: str, record: Dict) -> None:
+        """Best-effort ledger append — resilience bookkeeping never fails
+        the run."""
+        if self.ledger is None:
+            return
+        try:
+            self.ledger.append(kind, record)
+        except Exception as e:
+            print(f"resilience: ledger append failed: {e}", file=sys.stderr)
+
     def _on_resume_reject(self, step: int, err: Exception) -> None:
         print(f"resume: rejected step {step} under {self.backup_root} "
               f"({type(err).__name__}: {err}); walking back", file=sys.stderr)
@@ -462,8 +696,154 @@ class TrainLoop:
             + ("; retrying" if recovered else "; giving up"),
             file=sys.stderr,
         )
+        if self.registry is not None:
+            self.registry.counter("stream_retries").inc()
+        if not recovered:
+            self._ledger_event("outage", {
+                "probe": "data_stream",
+                "error": f"{type(exc).__name__}: {exc}",
+            })
 
     def _join_checkpoints(self) -> None:
-        """Join the background checkpoint write; report its errors."""
+        """Join the background checkpoint write; report its errors (the
+        writer has already recorded each as a ``cache_error`` ledger event)."""
         for err in wait_for_checkpoints():
             print(f"checkpoint: {err}", file=sys.stderr)
+
+    # -- continuous profiling + drift (telemetry-only paths) ----------------
+
+    def _profile_sample(self, step: int, step_ms: float, last_metrics) -> None:
+        """One continuous-profiling sample (every ``profile_cadence`` steps):
+        the registry snapshot plus the goodput decomposition of the spans
+        recorded since the previous sample and the prefetch stall —
+        appended to the bounded ring and fed to the drift sentinel.
+        Best-effort: profiling never fails the run."""
+        try:
+            row: Dict[str, float] = {}
+            for k, v in self.registry.snapshot().items():
+                if isinstance(v, (int, float)):
+                    row[k] = float(v)
+            row["step_ms"] = float(step_ms)
+            # per-window decomposition: only the spans since the last sample,
+            # so the ring shows the run's shape over time, not a cumulative
+            # average that hides late-run drift
+            window = self.tracer.events(self._profile_event_idx)
+            self._profile_event_idx += len(window)
+            dec = step_time_decomposition(window)
+            steps_w = dec.get("steps") or 0
+            for key in ("compute_frac", "h2d_frac", "host_blocked_frac",
+                        "other_frac", "unaccounted_frac"):
+                if key in dec:
+                    row[f"win_{key}"] = dec[key]
+            if steps_w:
+                row["host_blocked_ms"] = dec["host_blocked_s"] / steps_w * 1e3
+                stall_us = sum(
+                    float(e.get("dur_us", 0.0)) for e in window
+                    if e.get("name") == "prefetch-wait")
+                row["prefetch_stall_ms"] = stall_us / 1e3 / steps_w
+            # the loss is read one sampling interval late: converting the
+            # step's own value would wait for the step the JAX loop leaves
+            # in flight; the previous sample's is long since materialized
+            pending = self._profile_pending_loss
+            if last_metrics and "loss" in last_metrics:
+                self._profile_pending_loss = last_metrics["loss"]
+            if pending is not None:
+                row["loss"] = float(pending)
+            self.timeseries.sample(step, row)
+            if self.drift is not None:
+                edges = self.drift.events
+                confirmed = self.drift.observe(step, row)
+                if confirmed and self.drift.events > edges:
+                    print(
+                        f"drift: confirmed at step {step} on "
+                        f"{', '.join(confirmed)}; capturing incident bundle",
+                        file=sys.stderr,
+                    )
+                    self._incident("drift-" + "-".join(confirmed))
+        except Exception as e:
+            print(f"telemetry: profile sample failed: {e}", file=sys.stderr)
+
+    def _incident(self, reason: str) -> Optional[str]:
+        """Capture an atomic incident bundle (blackbox ring + timeseries
+        window + config/env fingerprint + kept spans) under ``incident_dir``,
+        once per reason per run. Armed only when continuous profiling or the
+        drift sentinel is on — a bare-telemetry run leaves no dirs behind."""
+        if self.timeseries is None and self.drift is None:
+            return None
+        if not self.incident_dir or reason in self._incident_reasons:
+            return None
+        self._incident_reasons.add(reason)
+        try:
+            context = {"model": self.trainer.name, "config_hash": self.config_hash}
+            if self.drift is not None:
+                context["drift"] = self.drift.summary()
+            path = build_incident_bundle(
+                self.incident_dir, reason,
+                blackbox=self.blackbox,
+                timeseries=self.timeseries,
+                tracer=self.tracer,
+                context=context,
+            )
+            self.incidents.append(path)
+            print(f"incident bundle: {path}", file=sys.stderr)
+            return path
+        except Exception as e:
+            print(f"telemetry: incident bundle failed: {e}", file=sys.stderr)
+            return None
+
+    # -- goodput + ledger finalization (telemetry-only paths) --------------
+
+    def _count_step(self, batch: Dict[str, np.ndarray]) -> Dict:
+        """:meth:`Trainer.step_cost` of the first batch; any failure costs
+        only the goodput FLOP numbers, never the run."""
+        try:
+            return self.trainer.step_cost(batch) or {"error": "no count for this path"}
+        except Exception as e:
+            return {"error": f"{type(e).__name__}: {e}"}
+
+    def _finalize_run_record(self, steps: int, items: int, final_metrics) -> None:
+        """Emit the goodput block to the metrics sink and, when a
+        ``ledger_path`` is configured, append the durable run record."""
+        try:
+            kind = (torch.cuda.get_device_name(self.device)
+                    if self.device.type == "cuda" else "cpu")
+            cost = self._step_cost
+            if cost is not None and "error" in cost:
+                cost = None
+            report = goodput_report(
+                events=self.tracer.events(),
+                audit=cost,
+                steps=steps,
+                items=items,
+                peaks=peaks_from_config(self.trainer.config, kind),
+                n_chips=1,
+            )
+            self.metrics.log({"goodput": report, "step": steps})
+            if self.timeseries is not None:
+                export = self.trainer.config.get_str("profile_export", "")
+                if export:
+                    self.timeseries.export_jsonl(export)
+            if self.ledger is not None:
+                record = {
+                    "model": self.trainer.name,
+                    "config_hash": self.config_hash,
+                    "steps": steps,
+                    "items": items,
+                    "goodput": report,
+                    "final_metrics": final_metrics or None,
+                }
+                if self.timeseries is not None:
+                    record["timeseries"] = self.timeseries.summary()
+                if self.drift is not None:
+                    record["drift"] = self.drift.summary()
+                if self.incidents:
+                    record["incidents"] = list(self.incidents)
+                if self.guardrail is not None:
+                    record["guardrail"] = self.guardrail.summary()
+                if self.chaos is not None:
+                    record["chaos"] = self.chaos.summary()
+                if self.preempted:
+                    record["preempted"] = True
+                self.ledger.append("run", record, env=env_fingerprint(include_devices=True))
+        except Exception as e:  # observability must never fail the run
+            print(f"telemetry: run-record finalization failed: {e}", file=sys.stderr)

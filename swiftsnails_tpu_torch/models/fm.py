@@ -35,6 +35,10 @@ class FMTrainer(SparseCTRTrainer):
     def init_dense(self, generator):
         return {"bias": torch.zeros((), device=self.device)}
 
+    def forward_flops(self, b, f):
+        # the linear sum, sum_j v_j (F k), sum_j |v_j|^2 (2 F k)
+        return b * f * (1 + 3 * self.k)
+
     def forward(self, pulled, dense, mask):
         w = torch.where(mask, pulled[..., 0], 0.0)  # [B, F]
         v = torch.where(mask[..., None], pulled[..., 1:], 0.0)  # [B, F, k]
@@ -59,6 +63,10 @@ class FFMTrainer(SparseCTRTrainer):
 
     def init_dense(self, generator):
         return {"bias": torch.zeros((), device=self.device)}
+
+    def forward_flops(self, b, f):
+        # the linear sum and the F x F pair products of k
+        return b * f * (1 + 2 * f * self.k)
 
     def forward(self, pulled, dense, mask):
         b, f = mask.shape

@@ -22,6 +22,9 @@ class LogisticRegressionTrainer(SparseCTRTrainer):
     def init_dense(self, generator):
         return {"bias": torch.zeros((), device=self.device)}
 
+    def forward_flops(self, b, f):
+        return b * f  # the masked sum
+
     def forward(self, pulled, dense, mask):
         w = pulled[..., 0]  # [B, F]
         return torch.where(mask, w, 0.0).sum(dim=1) + dense["bias"]

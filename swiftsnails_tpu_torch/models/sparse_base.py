@@ -52,7 +52,7 @@ from swiftsnails_tpu_torch.framework.trainer import (
     raise_unported,
     truthy,
 )
-from swiftsnails_tpu_torch.ops.hashing import hash_row
+from swiftsnails_tpu_torch.ops.hashing import hash_row, hash_row_np
 from swiftsnails_tpu_torch.ops.rowdma import ROW_LANES
 from swiftsnails_tpu_torch.parallel.access import AdaGradAccess, SgdAccess
 from swiftsnails_tpu_torch.parallel.store import (
@@ -215,6 +215,14 @@ class SparseCTRTrainer(Trainer):
     def init_dense(self, generator: torch.Generator) -> Dense:
         return {}
 
+    def forward_flops(self, b: int, f: int) -> int:
+        """f32 flops of :meth:`forward` on ``b`` records of ``f`` fields."""
+        raise NotImplementedError
+
+    def dense_size(self) -> int:
+        """Values in the dense tensors (:meth:`init_dense`): the bias."""
+        return 1
+
     # -- framework ---------------------------------------------------------
 
     def init_state(self) -> CTRState:
@@ -294,6 +302,35 @@ class SparseCTRTrainer(Trainer):
         acc = ((logits > 0) == (labels > 0.5)).float().mean()
         return CTRState(state.table, new_dense, opt), {"loss": loss.detach(),
                                                        "accuracy": acc}
+
+    def step_cost(self, batch: Dict[str, np.ndarray]) -> Dict:
+        """One step's least bytes and f32 flops on ``batch`` (the goodput
+        block's numerators; see :meth:`Trainer.step_cost`):
+
+        * bytes: each distinct row of the batch's real (non-pad) features
+          read once and written once at ``table_dim`` f32 values, with as
+          many accumulator values under AdaGrad; every dense tensor (and
+          its AdaGrad sum) read and written once; ``labels`` and ``feats``
+          read once;
+        * flops: the forward pass (:meth:`forward_flops`), a backward of
+          twice that, and the updates: 2 flops an element for SGD, 5 for
+          AdaGrad (square, add, rsqrt, scale, add), on each distinct row's
+          ``table_dim`` values and on every dense value.
+        """
+        feats = np.asarray(batch["feats"])
+        labels = np.asarray(batch["labels"])
+        b, f = feats.shape
+        distinct = np.unique(hash_row_np(feats[feats >= 0], self.capacity)).size
+        adagrad = isinstance(self.access, AdaGradAccess)
+        planes = 2 if adagrad else 1  # the values, and the accumulator
+        per_value = 5 if adagrad else 2
+        n_dense = self.dense_size()
+        nbytes = (2 * 4 * planes * (distinct * self.table_dim + n_dense)
+                  + feats.nbytes + labels.nbytes)
+        flops = (3 * self.forward_flops(b, f)
+                 + per_value * (distinct * self.table_dim + n_dense))
+        return {"cost": {"flops": float(flops), "bytes_accessed": float(nbytes)},
+                "total_bytes": None, "source": "analytic"}
 
     def table_geometry(self) -> Dict[str, Dict]:
         if self.packed:

@@ -46,7 +46,7 @@ class WideDeepTrainer(SparseCTRTrainer):
     def init_dense(self, generator: torch.Generator) -> Dense:
         """He init, ``N(0, 1) * sqrt(2 / d_in)``, drawn from ``generator``
         (seeded from ``seed + 17``); zero biases."""
-        dims = [self.num_fields * self.k] + self.hidden_dims + [1]
+        dims = self._layer_dims()
         dev = self.device
         params: Dense = {"bias": torch.zeros((), device=dev)}
         for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
@@ -54,6 +54,18 @@ class WideDeepTrainer(SparseCTRTrainer):
             params[f"w{i}"] = w * math.sqrt(2.0 / d_in)
             params[f"b{i}"] = torch.zeros((d_out,), device=dev)
         return params
+
+    def _layer_dims(self) -> List[int]:
+        return [self.num_fields * self.k] + self.hidden_dims + [1]
+
+    def dense_size(self) -> int:
+        dims = self._layer_dims()
+        return 1 + sum(d_in * d_out + d_out for d_in, d_out in zip(dims[:-1], dims[1:]))
+
+    def forward_flops(self, b, f):
+        # the wide sum and the MLP's products (2 flops a multiply-add)
+        dims = self._layer_dims()
+        return b * f + 2 * b * sum(d_in * d_out for d_in, d_out in zip(dims[:-1], dims[1:]))
 
     def _mlp(self, dense: Dense, x: torch.Tensor) -> torch.Tensor:
         n_layers = len(self.hidden_dims) + 1

@@ -93,7 +93,7 @@ from swiftsnails_tpu_torch.ops.fused_sgns import (
     fused_sgns_resident_step,
     fused_sgns_step,
 )
-from swiftsnails_tpu_torch.ops.hashing import hash_row
+from swiftsnails_tpu_torch.ops.hashing import hash_row, hash_row_np
 from swiftsnails_tpu_torch.ops.rowdma import unpack_rows
 from swiftsnails_tpu_torch.parallel.access import SgdAccess
 from swiftsnails_tpu_torch.parallel.store import (
@@ -594,6 +594,56 @@ class Word2VecTrainer(Trainer):
             state, loss = substep(state, centers[sl], contexts[sl], generator, lr)
             losses.append(loss)
         return state, {"loss": torch.stack(losses).mean()}
+
+    def step_cost(self, batch: Dict[str, np.ndarray]) -> Dict:
+        """One step's least bytes and f32 flops on ``batch`` (the goodput
+        block's numerators; see :meth:`Trainer.step_cost`), counted per
+        substep as ``train_step`` slices the batch:
+
+        * bytes: each distinct row a substep touches, read once and written
+          once at the table's logical width (``dim`` elements of the table
+          dtype; in-table rows from the centers, out-table rows from the
+          contexts — a grouped window's pads excluded — plus the negatives
+          drawn inside the step, counted at their number), and the batch's
+          arrays read once;
+        * flops: against a shared pool, scores, dV and dQ are 3 products of
+          ``2 d`` flops for each (row, pool entry), ``6 U PN d`` for the
+          ``U`` rows that meet the pool (a flat substep's pairs, a grouped
+          one's centers), and the positive term, its two gradients and the
+          updates ``8 d`` a real pair; with per-pair negatives (``dense``,
+          ``neg_mode: per_pair``) ``6 b K d + 8 b d``.
+        """
+        centers = np.asarray(batch["centers"])
+        contexts = np.asarray(batch["contexts"])
+        n = centers.shape[0]
+        t = max(n // self.batch_size, 1)
+        b = n // t
+        d = self.dim
+        row_bytes = d * torch.empty((), dtype=self.table_dtype).element_size()
+        rows = ((lambda x: hash_row_np(x, self.capacity)) if self.hash_keys
+                else (lambda x: x))
+        per_pair = not self.fused and not (self.packed and self.neg_mode == "pool")
+        distinct = flops = 0
+        for i in range(t):
+            cs, xs = centers[i * b:(i + 1) * b], contexts[i * b:(i + 1) * b]
+            if self.grouped:
+                ctx = xs[xs >= 0]
+                units, pairs = b, ctx.size
+                drawn = (b // self._effective_pc(b)) * self.pool_size
+            elif per_pair:
+                ctx, units, pairs = xs, b, b
+                drawn = b * self.negatives
+            else:
+                ctx, units, pairs = xs, b, b
+                drawn = self.pool_geometry(b)[1] * self.pool_size
+            distinct += (np.unique(rows(cs)).size + np.unique(rows(ctx)).size + drawn)
+            if per_pair:
+                flops += 6 * b * self.negatives * d + 8 * b * d
+            else:
+                flops += 6 * units * self.pool_size * d + 8 * pairs * d
+        nbytes = 2 * distinct * row_bytes + centers.nbytes + contexts.nbytes
+        return {"cost": {"flops": float(flops), "bytes_accessed": float(nbytes)},
+                "total_bytes": None, "source": "analytic"}
 
     # -- export (ServerTerminate parity: text dump of the table) -----------
 

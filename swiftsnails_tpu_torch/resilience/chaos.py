@@ -31,8 +31,8 @@ a plan that schedules one of the kinds of the serving, tiered, cluster or
 network planes (``serve_*``, ``tier_bitflip``, ``reload_corrupt``,
 ``worker_*``, ``partition``, ``proc_kill``, ``net_*``) raises
 ``NotImplementedError``: those planes are not ported yet (``ROADMAP.md``).
-The port has no run ledger yet, so each injection is kept in
-:attr:`ChaosPlan.events` only.
+Each injection is kept in :attr:`ChaosPlan.events` and, with a ledger, is
+one ``chaos`` ledger event.
 """
 
 from __future__ import annotations
@@ -173,7 +173,7 @@ class _ChaosStream:
 class ChaosPlan:
     """Seeded, scripted fault schedule consulted by the TrainLoop."""
 
-    def __init__(self, faults: List[Tuple[str, int]], seed: int = 0,
+    def __init__(self, faults: List[Tuple[str, int]], seed: int = 0, ledger=None,
                  slow_step_ms: float = 50.0):
         unported = sorted({kind for kind, _ in faults if kind not in TRAINING_KINDS})
         if unported:
@@ -185,16 +185,17 @@ class ChaosPlan:
         }
         self.seed = int(seed)
         self.rng = np.random.default_rng(self.seed)
+        self.ledger = ledger
         self.slow_step_ms = float(slow_step_ms)
         self.events: List[Dict] = []
 
     @classmethod
-    def from_config(cls, cfg) -> Optional["ChaosPlan"]:
+    def from_config(cls, cfg, ledger=None) -> Optional["ChaosPlan"]:
         spec = cfg.get_str("chaos_spec", "")
         if not spec.strip():
             return None
         return cls(parse_chaos_spec(spec), seed=cfg.get_int("chaos_seed", 0),
-                   slow_step_ms=cfg.get_float("chaos_slow_step_ms", 50.0))
+                   ledger=ledger, slow_step_ms=cfg.get_float("chaos_slow_step_ms", 50.0))
 
     # -- bookkeeping --------------------------------------------------------
 
@@ -207,10 +208,22 @@ class ChaosPlan:
         return False
 
     def _log(self, kind: str, step: int, detail: Dict) -> None:
-        self.events.append({"fault": kind, "step": int(step), "seed": self.seed, **detail})
+        event = {"fault": kind, "step": int(step), "seed": self.seed, **detail}
+        self.events.append(event)
+        if self.ledger is not None:
+            try:
+                self.ledger.append("chaos", event)
+            except Exception:
+                pass
 
     def pending(self) -> List[Tuple[str, int]]:
         return sorted(k for k, live in self._pending.items() if live)
+
+    def scheduled(self, kind: str, step: int) -> bool:
+        """True when ``kind`` is still pending at ``step`` (peek — does not
+        consume). Lets the TrainLoop skip span bookkeeping on unaffected
+        steps."""
+        return bool(self._pending.get((kind, step)))
 
     # -- injection hooks (called by TrainLoop._resilient_step) --------------
 

@@ -11,10 +11,11 @@ runs out first.
 
 Everything that can tick or sleep is injectable (``clock`` / ``sleep`` /
 seeded ``rng``) so tests drive the schedule with a fake clock and assert
-exact backoff bounds without real sleeping. The port has no run ledger
-yet (``ROADMAP.md``): an exhausted budget raises :class:`RetryExhausted`
-and records nothing else. In the port the data stream of the resilient
-training path and the checkpoint writes use it.
+exact backoff bounds without real sleeping. Every exhausted budget is a
+structured ``retry_exhausted`` ledger event when a ledger is attached — a
+retry loop that gives up silently is an outage with no black box. In the
+port the data stream of the resilient training path and the checkpoint
+writes use it.
 
 Config keys (all optional):
 
@@ -127,9 +128,10 @@ class RetryPolicy:
     clock: Callable[[], float] = time.monotonic
     sleep: Callable[[float], None] = time.sleep
     rng: random.Random = field(default_factory=lambda: random.Random(0))
+    ledger = None  # duck-typed: needs .append(kind, record)
 
     @classmethod
-    def from_config(cls, cfg, **overrides) -> "RetryPolicy":
+    def from_config(cls, cfg, ledger=None, **overrides) -> "RetryPolicy":
         kw = dict(
             max_attempts=cfg.get_int("retry_max_attempts", 4),
             deadline_ms=cfg.get_float("retry_deadline_ms", 30_000.0),
@@ -137,7 +139,9 @@ class RetryPolicy:
             cap_ms=cfg.get_float("retry_cap_ms", 2_000.0),
         )
         kw.update(overrides)
-        return cls(**kw)
+        pol = cls(**kw)
+        pol.ledger = ledger
+        return pol
 
     def deadline(self) -> Deadline:
         return Deadline.after_ms(self.deadline_ms, clock=self.clock)
@@ -157,11 +161,14 @@ class RetryPolicy:
     # -- the loop -------------------------------------------------------------
 
     def call(self, fn: Callable, *args, op: str = "operation",
-             on_retry: Optional[Callable] = None, **kwargs):
+             on_retry: Optional[Callable] = None,
+             extra: Optional[dict] = None, **kwargs):
         """Run ``fn(*args, **kwargs)`` under this policy. Exceptions matching
         ``retry_on`` are retried with backoff until the attempt budget or the
         deadline runs out; anything else propagates immediately. Exhaustion
-        raises :class:`RetryExhausted` (or :class:`DeadlineExceeded`)."""
+        raises :class:`RetryExhausted` (or :class:`DeadlineExceeded`) and —
+        when a ledger is attached — appends a ``retry_exhausted`` event
+        (``extra`` fields merge into that record)."""
         budget = self.budget()
         deadline = self.deadline()
         started = self.clock()
@@ -175,18 +182,36 @@ class RetryPolicy:
                 last = e
                 elapsed_ms = (self.clock() - started) * 1e3
                 if budget.exhausted:
-                    self._give_up(op, budget.used, elapsed_ms, "attempts", e)
+                    self._give_up(op, budget.used, elapsed_ms, "attempts", e,
+                                  extra)
                 backoff = self.next_backoff_s(backoff)
                 if deadline.remaining() < backoff:
-                    self._give_up(op, budget.used, elapsed_ms, "deadline", e)
+                    self._give_up(op, budget.used, elapsed_ms, "deadline", e,
+                                  extra)
                 if on_retry is not None:
                     on_retry(e, budget.used, backoff)
                 self.sleep(backoff)
 
     def _give_up(self, op: str, attempts: int, elapsed_ms: float,
-                 reason: str, err: BaseException) -> None:
+                 reason: str, err: BaseException,
+                 extra: Optional[dict] = None) -> None:
         exc_cls = DeadlineExceeded if reason == "deadline" else RetryExhausted
-        raise exc_cls(op, attempts, elapsed_ms, reason, err) from err
+        exc = exc_cls(op, attempts, elapsed_ms, reason, err)
+        if self.ledger is not None:
+            try:
+                record = {
+                    "op": op,
+                    "attempts": attempts,
+                    "elapsed_ms": round(elapsed_ms, 3),
+                    "reason": reason,
+                    "error": f"{type(err).__name__}: {err}",
+                }
+                if extra:
+                    record.update(extra)
+                self.ledger.append("retry_exhausted", record)
+            except Exception:
+                pass  # bookkeeping never fails the failure path
+        raise exc from err
 
 
 def retry_call(fn: Callable, *args, policy: Optional[RetryPolicy] = None,
@@ -200,7 +225,7 @@ class RetryingIterator:
     ``_RetryingStream`` hardcoded 3x loop. Each fetch gets a fresh attempt
     budget + deadline; ``StopIteration`` always passes through untouched.
     ``on_error(exc, attempt, recovered)`` keeps the old callback shape so
-    existing counters plug straight in."""
+    existing counters/ledger hooks plug straight in."""
 
     def __init__(self, inner: Iterator, policy: RetryPolicy,
                  on_error: Optional[Callable] = None, op: str = "data_stream"):

@@ -1,11 +1,38 @@
-"""Config hashing and atomic file writes — three functions of the JAX
-package's ``telemetry/ledger.py``.
+"""Durable run ledger: append-only, atomically-written JSONL run records —
+the run-side half of the JAX package's ``telemetry/ledger.py``.
 
-The port takes only what its checkpoints need: :func:`config_hash` (the
-manifest's ``config_hash``), :func:`atomic_write_bytes` and
-:func:`atomic_write_json` (the manifest commit). The run ledger itself
-(``Ledger``, its reports and regression gates) is not ported yet; see
-``ROADMAP.md``.
+Every training run, checkpoint commit, outage, chaos injection, rejected
+checkpoint and black-box dump appends one self-describing record. The
+records keep the JAX schema (:data:`SCHEMA_VERSION`, the record kinds and
+their key names), so a ledger written by either package renders the same
+in both.
+
+Durability contract: every append rewrites the file via write-tmp + fsync +
+rename (+ directory fsync), so the ledger on disk is *always* a complete,
+parseable JSONL file — a crash mid-append leaves the previous version, never
+a torn line; a torn tail left by another writer is healed on the next
+append. Appends are rare (one per run/outage/save), so the O(file) rewrite is
+irrelevant; single-writer per path is assumed.
+
+Record envelope::
+
+    {"schema": 1, "kind": "run"|"outage"|"blackbox"|"chaos"|"checkpoint"
+                          |"cache_error"|"retry_exhausted"|"drift"|...,
+     "ts": "<UTC ISO8601>", "env": {...fingerprint...}, ...kind fields...}
+
+``python -m swiftsnails_tpu_torch ledger-report`` renders the ledger
+(:func:`main`): the report, ``--failures`` (the failure timeline),
+``--diff A B`` (regression attribution between two run records) and
+``--check-regression PCT`` (the bench gate plus the training plane's
+correctness gates: chaos recovery, the drift drill, the continuous
+profiler's and the tracer's own cost).
+
+Not ported yet (``ROADMAP.md``): the regression checks of the scaling,
+placement, quantized-wire, zero, freshness, net, chaos-serve,
+chaos-cluster, serving, fleet and tiered planes, and the bench-cache helpers
+(``validate_bench_payload``, ``load_bench_cache``, ``derive_last_good``,
+hence ``--baseline-file``); each comes with the plane or the port bench
+that writes its records.
 """
 
 from __future__ import annotations
@@ -13,8 +40,90 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import subprocess
+import sys
 import tempfile
-from typing import Dict
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+SCHEMA_VERSION = 1
+
+# default ledger location: the repository root, overridable per call (config
+# `ledger_path`)
+DEFAULT_LEDGER = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "RUN_LEDGER.jsonl",
+)
+
+
+def _utc_now() -> str:
+    return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+
+# ------------------------------------------------------- env fingerprint ---
+
+
+def _git_sha(cwd: Optional[str] = None) -> Optional[str]:
+    try:
+        out = subprocess.run(
+            ["git", "rev-parse", "HEAD"],
+            cwd=cwd or os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=5,
+        )
+        sha = out.stdout.strip()
+        return sha if out.returncode == 0 and sha else None
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+def nvidia_smi_line() -> Optional[str]:
+    """The first card's ``name, power.limit`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints it, or None
+    where the tool is missing, fails or takes over 10 s (best effort)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=10,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else None
+
+
+def env_fingerprint(include_devices: bool = False) -> Dict:
+    """Environment identity of a run: git sha, python, host, the torch and
+    CUDA versions — and with ``include_devices`` the devices:
+    ``{"platform": "gpu", "count", "kind": torch.cuda.get_device_name(0),
+    "process_count": 1, "nvidia_smi", "power_limit"}`` on a card (the last
+    two from ``nvidia-smi``, best effort), ``{"platform": "cpu", "count": 1,
+    "kind": "cpu", "process_count": 1}`` without one."""
+    fp: Dict = {
+        "git_sha": _git_sha(),
+        "python": sys.version.split()[0],
+        "host": os.uname().nodename if hasattr(os, "uname") else None,
+    }
+    try:
+        import torch
+
+        fp["torch"] = torch.__version__
+        fp["cuda"] = torch.version.cuda
+        if include_devices:
+            if torch.cuda.is_available():
+                devices = {"platform": "gpu", "count": torch.cuda.device_count(),
+                           "kind": torch.cuda.get_device_name(0), "process_count": 1}
+                smi = nvidia_smi_line()
+                devices["nvidia_smi"] = smi
+                devices["power_limit"] = (
+                    smi.rsplit(",", 1)[-1].strip() if smi and "," in smi else None)
+            else:
+                devices = {"platform": "cpu", "count": 1, "kind": "cpu",
+                           "process_count": 1}
+            fp["devices"] = devices
+    except Exception as e:  # a broken torch must not kill record-keeping
+        fp["torch_error"] = f"{type(e).__name__}: {e}"
+    return fp
 
 
 def config_hash(conf: Dict) -> str:
@@ -24,6 +133,8 @@ def config_hash(conf: Dict) -> str:
     ).encode("utf-8")
     return hashlib.sha256(blob).hexdigest()[:16]
 
+
+# ---------------------------------------------------------- atomic write ---
 
 def atomic_write_bytes(path: str, data: bytes) -> None:
     """Write ``data`` to ``path`` via tmp + fsync + rename (+ dir fsync):
@@ -56,3 +167,1101 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
 
 def atomic_write_json(path: str, obj) -> None:
     atomic_write_bytes(path, (json.dumps(obj) + "\n").encode("utf-8"))
+
+
+# ----------------------------------------------------------------- ledger ---
+
+
+class Ledger:
+    """Append-only JSONL run ledger with atomic rewrites.
+
+    ``append`` returns the full record written (envelope included) so call
+    sites can echo/forward it. All read paths tolerate a corrupt line
+    (reported, never raised) — a half-written legacy file or a foreign line
+    must not take down the bench.
+    """
+
+    def __init__(self, path: str = DEFAULT_LEDGER):
+        self.path = os.path.abspath(path)
+        # the checkpoint writer thread appends beside the training thread
+        self._lock = threading.Lock()
+
+    # -- write -------------------------------------------------------------
+
+    def append(self, kind: str, record: Dict, env: Optional[Dict] = None) -> Dict:
+        full = {"schema": SCHEMA_VERSION, "kind": kind, "ts": _utc_now()}
+        if env is not None:
+            full["env"] = env
+        full.update(record)
+        line = json.dumps(full) + "\n"
+        with self._lock:
+            try:
+                with open(self.path, "rb") as f:
+                    existing = f.read()
+                if existing and not existing.endswith(b"\n"):
+                    existing += b"\n"  # heal a torn legacy tail
+            except OSError:
+                existing = b""
+            atomic_write_bytes(self.path, existing + line.encode("utf-8"))
+        return full
+
+    # -- read --------------------------------------------------------------
+
+    def replay(self) -> Tuple[List[Dict], List[str]]:
+        """All parseable records plus a list of corrupt-line descriptions."""
+        records: List[Dict] = []
+        bad: List[str] = []
+        try:
+            with open(self.path, "r", encoding="utf-8") as f:
+                lines = f.readlines()
+        except OSError:
+            return records, bad
+        for lineno, line in enumerate(lines, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                bad.append(f"{self.path}:{lineno}: unparseable line skipped")
+                continue
+            if isinstance(rec, dict):
+                records.append(rec)
+            else:
+                bad.append(f"{self.path}:{lineno}: non-object record skipped")
+        return records, bad
+
+    def records(self, kind: Optional[str] = None) -> List[Dict]:
+        recs, _ = self.replay()
+        if kind is None:
+            return recs
+        return [r for r in recs if r.get("kind") == kind]
+
+    def latest(self, kind: str) -> Optional[Dict]:
+        recs = self.records(kind)
+        return recs[-1] if recs else None
+
+
+
+def outage_summary(ledger: Ledger) -> Optional[Dict]:
+    """Structured summary of the most recent outage: the line that used to be
+    hand-written into ``docs/OUTAGE_*.txt``."""
+    outages = ledger.records("outage")
+    if not outages:
+        return None
+    last = outages[-1]
+    return {
+        "at": last.get("ts"),
+        "probe_duration_s": last.get("probe_duration_s"),
+        "rc": last.get("rc"),
+        "error": last.get("error"),
+        "outages_recorded": len(outages),
+    }
+
+
+# -------------------------------------------------------------- reporting ---
+
+
+def _fmt_num(v) -> str:
+    if isinstance(v, float):
+        return f"{v:,.3f}" if abs(v) < 10 else f"{v:,.1f}"
+    return str(v)
+
+
+def render_report(ledger: Ledger) -> str:
+    """Terminal rendering of the ledger: run/bench/outage/black-box history."""
+    records, bad = ledger.replay()
+    if not records and not bad:
+        return f"{ledger.path}: empty or missing ledger"
+    lines = [f"ledger: {ledger.path}  ({len(records)} records)"]
+    counts: Dict[str, int] = {}
+    for r in records:
+        counts[r.get("kind", "?")] = counts.get(r.get("kind", "?"), 0) + 1
+    lines.append(
+        "  " + "  ".join(f"{k}={n}" for k, n in sorted(counts.items()))
+    )
+    for warn in bad:
+        lines.append(f"  WARNING: {warn}")
+
+    bench = ledger.records("bench")
+    if bench:
+        lines.append("")
+        lines.append("bench records (newest last):")
+        for r in bench[-5:]:
+            p = r.get("payload", {}) if isinstance(r.get("payload"), dict) else {}
+            env = r.get("env", {}) or {}
+            flags = []
+            if r.get("cacheable"):
+                flags.append("cacheable")
+            if p.get("cached"):
+                flags.append("cached")
+            if p.get("reconstructed"):
+                flags.append("reconstructed")
+            lines.append(
+                f"  {r.get('ts', '?')}  value={_fmt_num(p.get('value', 0))} "
+                f"{p.get('unit', '')}  path={p.get('path')}  "
+                f"platform={p.get('platform')}  git={str(env.get('git_sha'))[:9]}"
+                f"  config_hash={r.get('config_hash', '?')}"
+                + (f"  [{','.join(flags)}]" if flags else "")
+            )
+
+    runs = ledger.records("run")
+    if runs:
+        lines.append("")
+        lines.append("training runs (newest last):")
+        for r in runs[-5:]:
+            g = r.get("goodput", {}) or {}
+            mfu = g.get("mfu")
+            dec = g.get("decomposition", {}) or {}
+            # active quantization knobs, when the run recorded them: the
+            # wire format and (for tiered runs) the host-master storage dtype
+            dtypes = ""
+            if r.get("comm_dtype"):
+                dtypes += f"  wire={r['comm_dtype']}"
+            t = r.get("tiered")
+            if isinstance(t, dict) and t.get("master_dtype"):
+                dtypes += f"  tier_master={t['master_dtype']}"
+            lines.append(
+                f"  {r.get('ts', '?')}  model={r.get('model')}  "
+                f"steps={r.get('steps')}  items={r.get('items')}  "
+                f"config_hash={r.get('config_hash', '?')}  "
+                f"mfu={'%.3g' % mfu if isinstance(mfu, (int, float)) else 'n/a'}"
+                + dtypes
+            )
+            if dec:
+                lines.append(
+                    "    step-time: "
+                    + "  ".join(
+                        f"{k}={dec[k] * 100:.1f}%"
+                        for k in ("compute_frac", "h2d_frac",
+                                  "host_blocked_frac", "other_frac")
+                        if isinstance(dec.get(k), (int, float))
+                    )
+                )
+            # continuous-profiling sparklines, when the run carried a
+            # timeseries summary (profile_cadence > 0)
+            ts_block = r.get("timeseries")
+            if isinstance(ts_block, dict) and ts_block.get("series"):
+                from swiftsnails_tpu_torch.telemetry.timeseries import (
+                    render_sparklines,
+                )
+
+                names = [n for n in ("step_ms", "loss",
+                                     "win_host_blocked_frac",
+                                     "win_compute_frac", "prefetch_stall_ms",
+                                     "tier_hit_rate")
+                         if n in ts_block["series"]]
+                lines.append(
+                    f"    profile: {ts_block.get('window')} samples, steps "
+                    f"{ts_block.get('first_step')}.."
+                    f"{ts_block.get('last_step')}"
+                )
+                lines.extend(render_sparklines(ts_block, names=names,
+                                               indent="      "))
+            drift = r.get("drift")
+            if isinstance(drift, dict) and (drift.get("drifted")
+                                            or drift.get("events")):
+                tripped = drift.get("tripped") or []
+                lines.append(
+                    f"    drift: {drift.get('events', 0)} event(s) on "
+                    + (", ".join(tripped) if tripped else "-")
+                )
+
+    # tiered parameter store: run records carry a `tiered` summary when
+    # table_tier: host was on; bench records carry the `tiered` lane block
+    tiered_rows = []
+    for r in runs:
+        t = r.get("tiered")
+        if isinstance(t, dict):
+            tiered_rows.append((r.get("ts", "?"), "run  ", t))
+    for r in ledger.records("bench"):
+        p = r.get("payload") if isinstance(r.get("payload"), dict) else {}
+        t = (p or {}).get("tiered")
+        if isinstance(t, dict):
+            tiered_rows.append((r.get("ts", "?"), "bench", t))
+    if tiered_rows:
+        lines.append("")
+        lines.append("tiered parameter store (newest last):")
+        for ts, kind, t in tiered_rows[-5:]:
+            cache = t.get("cache") if isinstance(t.get("cache"), dict) else t
+            lines.append(
+                f"  {ts}  {kind}  hit_rate={cache.get('hit_rate')}  "
+                f"faulted_rows={cache.get('faulted_rows')}  "
+                f"evictions={cache.get('evictions')}  "
+                f"h2d={_fmt_num(cache.get('h2d_bytes', 0))}B  "
+                f"d2h={_fmt_num(cache.get('d2h_bytes', 0))}B"
+            )
+            if kind == "bench":
+                lines.append(
+                    f"    lane: {_fmt_num(t.get('words_per_sec', 0))} words/s "
+                    f"({t.get('tiered_over_resident')}x resident)  "
+                    f"parity={t.get('parity_bit_identical')}  "
+                    f"over_budget_round_trip={t.get('round_trip_ok')}"
+                )
+                q = t.get("quantized")
+                if isinstance(q, dict):
+                    lines.append(
+                        f"    quantized[{q.get('master_dtype')}]: "
+                        f"capacity={q.get('capacity_ratio_vs_f32')}x f32  "
+                        f"rel_err={q.get('master_rel_err_vs_f32')}  "
+                        f"digests_clean={q.get('digests_clean')}  "
+                        f"serve_requant_exact={q.get('serve_requant_exact')}  "
+                        f"ok={q.get('ok')}"
+                    )
+            elif t.get("master_dtype"):
+                lines.append(f"    master_dtype={t['master_dtype']}")
+            bd = t.get("breakdown")
+            if isinstance(bd, dict) and any(
+                    bd.get(k) for k in ("plan_ns", "fault_ns", "flush_ns",
+                                        "remap_ns", "h2d_ns")):
+                lines.append(
+                    "    step-time: "
+                    + "  ".join(
+                        f"{k[:-3]}={bd[k] / 1e6:.1f}ms"
+                        for k in ("plan_ns", "fault_ns", "flush_ns",
+                                  "remap_ns", "h2d_ns", "flush_wait_ns")
+                        if isinstance(bd.get(k), (int, float)) and bd[k]
+                    )
+                    + (f"  flush_q={bd.get('flush_queue_depth', 0)}"
+                       if "flush_queue_depth" in bd else "")
+                )
+
+    # serving fleet: bench records carry the `fleet` lane block (replica
+    # pool QPS at the p99 SLO, per-replica split, hedge + affinity legs)
+    fleet_rows = []
+    for r in ledger.records("bench"):
+        p = r.get("payload") if isinstance(r.get("payload"), dict) else {}
+        fb = (p or {}).get("fleet")
+        if isinstance(fb, dict):
+            fleet_rows.append((r.get("ts", "?"), fb))
+    if fleet_rows:
+        lines.append("")
+        lines.append("serving fleet (newest last):")
+        for ts, fb in fleet_rows[-5:]:
+            single = fb.get("single") or {}
+            lines.append(
+                f"  {ts}  fleet={_fmt_num(fb.get('qps', 0))} qps "
+                f"(single={_fmt_num(single.get('max_qps', 0))}, "
+                f"scaling={fb.get('scaling_x')}x, "
+                f"floor {fb.get('scaling_floor')}x)  "
+                f"p99={fb.get('p99_ms')}ms @ SLO {fb.get('slo_p99_ms')}ms  "
+                f"replicas={fb.get('replicas')}"
+            )
+            per = fb.get("fleet", {}).get("per_replica") \
+                if isinstance(fb.get("fleet"), dict) else None
+            if isinstance(per, dict):
+                for rid, row in sorted(per.items()):
+                    lines.append(
+                        f"    {rid}: {_fmt_num(row.get('qps', 0))} qps  "
+                        f"p99={row.get('p99_ms')}ms  "
+                        f"requests={row.get('requests')}  "
+                        f"cache_hit_rate={row.get('cache_hit_rate')}"
+                    )
+            aff = fb.get("affinity")
+            if isinstance(aff, dict):
+                lines.append(
+                    f"    affinity: hit_rate={aff.get('affinity_hit_rate')} "
+                    f"vs random={aff.get('random_hit_rate')} "
+                    f"@ {_fmt_num(aff.get('offered_qps', 0))} qps"
+                )
+            hg = fb.get("hedge")
+            if isinstance(hg, dict):
+                lines.append(
+                    f"    hedge: p99={hg.get('p99_ms')}ms vs "
+                    f"no-hedge={hg.get('nohedge_p99_ms')}ms  "
+                    f"rate={hg.get('hedge_rate_pct')}% "
+                    f"(budget {hg.get('budget_pct')}%)  "
+                    f"won={hg.get('hedge_won')}/{hg.get('hedged')}"
+                )
+
+    # hybrid placement: run records carry a `placement` decision when the
+    # mode was hybrid/auto (including auto runs that resolved back to
+    # uniform, with the reason); bench records carry the skewed scaling
+    # leg's uniform-vs-hybrid exchange comparison
+    placement_rows = []
+    for r in runs:
+        pl = r.get("placement")
+        if isinstance(pl, dict):
+            if r.get("comm_dtype"):
+                pl = {**pl, "comm_dtype": r["comm_dtype"]}
+            placement_rows.append((r.get("ts", "?"), "run  ", pl, None))
+    for r in ledger.records("bench"):
+        p = r.get("payload") if isinstance(r.get("payload"), dict) else {}
+        scal = (p or {}).get("scaling")
+        sk = scal.get("skewed") if isinstance(scal, dict) else None
+        if isinstance(sk, dict):
+            placement_rows.append(
+                (r.get("ts", "?"), "bench", sk.get("decision") or {}, sk))
+    if placement_rows:
+        lines.append("")
+        lines.append("hybrid placement (newest last):")
+        for ts, kind, pl, sk in placement_rows[-5:]:
+            cov = pl.get("coverage")
+            lines.append(
+                f"  {ts}  {kind}  mode={pl.get('mode', 'hybrid')}  "
+                f"cut={pl.get('cut')}  "
+                f"replicated_rows={pl.get('replicated_rows', pl.get('cut'))}  "
+                f"coverage="
+                + (f"{cov:.3f}" if isinstance(cov, (int, float)) else "n/a")
+                + (f"  wire={pl['comm_dtype']}" if pl.get("comm_dtype")
+                   else "")
+            )
+            if pl.get("reason"):
+                lines.append(f"    reason: {pl['reason']}")
+            pred = pl.get("predicted_exchange_bytes")
+            meas = pl.get("measured_exchange_bytes")
+            if pred is not None or meas is not None:
+                lines.append(
+                    f"    exchange bytes: predicted={_fmt_num(pred or 0)}B  "
+                    f"uniform={_fmt_num(pl.get('predicted_uniform_bytes', 0))}B"
+                    f"  measured={_fmt_num(meas or 0)}B"
+                )
+            if sk is not None and isinstance(sk.get("per_dtype"), dict):
+                for dt, row in sorted(sk["per_dtype"].items()):
+                    red = row.get("exchange_reduction")
+                    lines.append(
+                        f"    skewed[{dt}]: "
+                        f"uniform={_fmt_num(row.get('uniform_exchange_bytes', 0))}B  "
+                        f"hybrid={_fmt_num(row.get('hybrid_exchange_bytes', 0))}B  "
+                        "reduction="
+                        + (f"{red:.2f}x" if isinstance(red, (int, float))
+                           else "n/a")
+                        + f"  loss_delta={row.get('loss_delta')}"
+                    )
+
+    # sharded optimizer state: bench records carrying the zero lane's HBM
+    # census + grad-reduce exchange + parity block
+    zero_rows = [
+        (r.get("ts", "?"), r["payload"]["zero"])
+        for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict)
+        and isinstance(r["payload"].get("zero"), dict)
+        and not r["payload"]["zero"].get("skipped")
+    ]
+    if zero_rows:
+        lines.append("")
+        lines.append("sharded optimizer state (zero; newest last):")
+        for ts, z in zero_rows[-5:]:
+            hbm = z.get("hbm") or {}
+            gr = z.get("grad_reduce") or {}
+            red = hbm.get("reduction")
+            lines.append(
+                f"  {ts}  devices={z.get('n_devices')} "
+                f"(data={(z.get('mesh') or {}).get('data')})  "
+                f"hbm/replica={_fmt_num(hbm.get('replicated_bytes', 0))}B"
+                f"->{_fmt_num(hbm.get('sharded_bytes_per_replica', 0))}B  "
+                "reduction="
+                + (f"{red:.2f}x" if isinstance(red, (int, float)) else "n/a")
+            )
+            lines.append(
+                f"    grad reduce: psum={_fmt_num(gr.get('baseline_bytes', 0))}B"
+                f"  zero={_fmt_num(gr.get('zero_bytes', 0))}B  "
+                f"loss_parity={z.get('loss_parity_f32')}  "
+                f"ckpt_identical={z.get('checkpoint_identical')}"
+            )
+            ov = z.get("overlap")
+            if isinstance(ov, dict):
+                split = ov.get("step_split_est") or {}
+                lines.append(
+                    f"    overlap2: {_fmt_num(ov.get('aggregate_words_per_sec', 0))} words/s "
+                    f"({ov.get('speedup_vs_sequential')}x vs sequential)  "
+                    f"collective_frac={split.get('collective_frac')}"
+                )
+
+    outages = ledger.records("outage")
+    if outages:
+        lines.append("")
+        lines.append(f"outages ({len(outages)} recorded, newest last):")
+        for r in outages[-5:]:
+            lines.append(
+                f"  {r.get('ts', '?')}  probe={_fmt_num(r.get('probe_duration_s', 0))}s"
+                f"  rc={r.get('rc')}  {r.get('error', '')[:90]}"
+            )
+
+    boxes = ledger.records("blackbox")
+    if boxes:
+        lines.append("")
+        lines.append("black-box dumps (newest last):")
+        for r in boxes[-5:]:
+            lines.append(
+                f"  {r.get('ts', '?')}  reason={r.get('reason')}  "
+                f"steps={r.get('first_step')}..{r.get('last_step')}  "
+                f"file={r.get('dump_path')}"
+            )
+    return "\n".join(lines)
+
+
+# failure-timeline view: every kind that marks something going wrong (or a
+# chaos drill making it go wrong on purpose), interleaved with run records
+# for context — `ledger-report --failures`
+FAILURE_KINDS = ("outage", "chaos", "blackbox", "cache_error", "overload",
+                 "retry_exhausted", "breaker", "degraded", "membership",
+                 "hedge", "drain", "freshness_gap", "slo_burn",
+                 "trace_anomaly", "drift", "scale_hint", "transport")
+
+
+def _failure_line(r: Dict) -> str:
+    kind = r.get("kind", "?")
+    ts = r.get("ts", "?")
+    if kind == "outage":
+        what = r.get("error") or r.get("reason") or ""
+        probe = r.get("probe")
+        extra = f" probe={probe}" if probe else ""
+        step = r.get("step")
+        extra += f" step={step}" if step is not None else ""
+        return f"  {ts}  OUTAGE   {extra.strip()}  {str(what)[:90]}"
+    if kind == "chaos":
+        return (
+            f"  {ts}  CHAOS    fault={r.get('fault')} step={r.get('step')}"
+            f" seed={r.get('seed')}"
+            + (f"  {r.get('detail')}" if r.get("detail") else "")
+        )
+    if kind == "blackbox":
+        return (
+            f"  {ts}  BLACKBOX reason={r.get('reason')} "
+            f"steps={r.get('first_step')}..{r.get('last_step')}  "
+            f"{r.get('dump_path')}"
+        )
+    if kind == "cache_error":
+        return (
+            f"  {ts}  CKPT/CACHE-ERROR source={r.get('source', 'bench-cache')}"
+            f"  {str(r.get('error', ''))[:90]}"
+        )
+    if kind == "overload":
+        return (
+            f"  {ts}  OVERLOAD kernel={r.get('kernel')} "
+            f"shed_total={r.get('shed_total')} "
+            f"queue_depth={r.get('queue_depth')}"
+        )
+    if kind == "retry_exhausted":
+        return (
+            f"  {ts}  RETRY-EXHAUSTED op={r.get('op')} "
+            f"attempts={r.get('attempts')} "
+            f"elapsed={_fmt_num(r.get('elapsed_ms', 0))}ms "
+            f"reason={r.get('reason')}  {str(r.get('error', ''))[:70]}"
+        )
+    if kind == "breaker":
+        snap = ""
+        if r.get("to") == "closed" and r.get("last_recovery_latency_ms"):
+            snap = f"  recovered_in={r['last_recovery_latency_ms']}ms"
+        return (
+            f"  {ts}  BREAKER  kernel={r.get('kernel')} "
+            f"{r.get('from')}->{r.get('to')} "
+            f"trips={r.get('trips')}{snap}"
+        )
+    if kind == "degraded":
+        return (
+            f"  {ts}  DEGRADED kernel={r.get('kernel')} "
+            f"reason={r.get('reason')} rows={r.get('rows')} "
+            f"total={r.get('degraded_total')}"
+        )
+    if kind == "hedge":
+        # the fleet router's rate-limited tail-hedge stream (first + every
+        # 100th, like the engine's overload/degraded streams)
+        return (
+            f"  {ts}  HEDGE    kernel={r.get('kernel')} "
+            f"{r.get('primary')}->{r.get('hedge')} "
+            f"budget={_fmt_num(r.get('budget_ms', 0))}ms "
+            f"total={r.get('hedged_total')} "
+            f"rate={r.get('hedge_rate_pct')}%"
+        )
+    if kind == "drain":
+        if r.get("phase") == "complete":
+            return (
+                f"  {ts}  DRAIN    {r.get('replica')} complete "
+                f"waited={_fmt_num(r.get('waited_ms', 0))}ms "
+                f"clean={r.get('clean')} "
+                f"remaining={r.get('remaining_replicas')}"
+            )
+        return (
+            f"  {ts}  DRAIN    {r.get('replica')} start "
+            f"inflight={r.get('inflight')} "
+            f"remaining={r.get('remaining_replicas')}"
+        )
+    if kind == "freshness_gap":
+        # delta-subscriber breakpoints (freshness/subscriber.py): phase
+        # "detect" is the gap/crc/restart trigger; phase "fallback" is the
+        # full-reload recovery that follows it
+        if r.get("phase") == "fallback":
+            return (
+                f"  {ts}  FRESHNESS-FALLBACK reason={r.get('reason')} "
+                f"recovered={r.get('recovered')} "
+                f"version={r.get('version')} "
+                f"reseq={r.get('resubscribed_seq')} "
+                f"floor_step={r.get('floor_step')}"
+            )
+        return (
+            f"  {ts}  DELTA-GAP  source={r.get('source')} "
+            f"reason={r.get('reason')} "
+            f"next_seq={r.get('next_seq')} "
+            f"applied_seq={r.get('applied_seq')} "
+            f"fallbacks={r.get('fallbacks')}"
+            + (f"  {str(r.get('error', ''))[:70]}" if r.get("error") else "")
+        )
+    if kind == "slo_burn":
+        # the SLO tracker's transition-edged burn alerts (telemetry/slo.py):
+        # one line when a kernel ENTERS the alerting state, not per request
+        return (
+            f"  {ts}  SLO-BURN kernel={r.get('kernel')} "
+            f"source={r.get('source')} "
+            f"burn={r.get('burn_short')}/{r.get('burn_long')} "
+            f"(alert>={r.get('alert_burn')}) "
+            f"budget_left={r.get('budget_remaining_pct')}% "
+            f"slo={r.get('slo_latency_ms')}ms@{r.get('slo_availability')}"
+        )
+    if kind == "trace_anomaly":
+        # the request tracer's rate-limited anomaly stream (first + every
+        # 100th kept anomaly trace) — each line names a drillable trace_id
+        kinds = r.get("anomalies")
+        return (
+            f"  {ts}  TRACE-ANOMALY kernel={r.get('kernel')} "
+            f"trace={r.get('trace_id')} "
+            f"kinds={','.join(kinds) if isinstance(kinds, list) else kinds} "
+            f"dur={_fmt_num(r.get('dur_ms', 0))}ms "
+            f"total={r.get('anomalies_total')}"
+        )
+    if kind == "drift":
+        # the drift sentinel's transition-edged confirmations (telemetry/
+        # drift.py): one line per incident, naming every tripped signal
+        sigs = r.get("signals")
+        return (
+            f"  {ts}  DRIFT    step={r.get('step')} "
+            f"signals={','.join(sigs) if isinstance(sigs, list) else sigs} "
+            f"model={r.get('model', '?')}"
+        )
+    if kind == "scale_hint":
+        # the SLO tracker's should_scale() advisory edge (telemetry/slo.py)
+        kerns = r.get("kernels")
+        return (
+            f"  {ts}  SCALE-HINT source={r.get('source')} "
+            f"kernels={','.join(kerns) if isinstance(kerns, list) else kerns}"
+        )
+    if kind == "transport":
+        # the TCP layer's connection timeline (net/rpc.py clients, the
+        # delta stream source, and the replica manager's drain/respawn) —
+        # interleaves with membership/breaker lines so one read shows a
+        # replica die, get declared lost, drained, and rejoin
+        event = r.get("event", "?")
+        who = r.get("replica") or r.get("peer", "?")
+        if event == "conn_lost":
+            return (f"  {ts}  CONN-LOST    {who}  peer={r.get('peer')}  "
+                    f"{str(r.get('error', ''))[:70]}")
+        if event == "reconnect":
+            return (f"  {ts}  RECONNECT    {who}  peer={r.get('peer')}  "
+                    f"reconnects={r.get('reconnects')}")
+        if event == "drained":
+            return (f"  {ts}  DRAINED      {r.get('replica')}  "
+                    f"pid={r.get('pid')}")
+        if event == "respawn":
+            return (f"  {ts}  RESPAWN      {r.get('replica')} -> "
+                    f"{r.get('replacement')}  "
+                    f"incarnation={r.get('incarnation')}  "
+                    f"pid={r.get('pid')}")
+        if event == "proc_kill":
+            return (f"  {ts}  PROC-KILL    {who}  pid={r.get('pid')}")
+        if event == "partition":
+            return (f"  {ts}  PARTITION    {who}  "
+                    f"duration={_fmt_num(r.get('duration_ms', 0))}ms")
+        extra = f"  source={r.get('source')}" if r.get("source") else ""
+        return f"  {ts}  TRANSPORT    {event} {who}{extra}"
+    if kind == "membership":
+        # the cluster supervisor's lifecycle timeline (cluster/supervisor.py)
+        action = r.get("action", "?")
+        w = r.get("worker")
+        if action == "worker-lost":
+            return (f"  {ts}  WORKER-LOST  {w}  {r.get('reason', '')}"
+                    f"  steps={r.get('steps')}")
+        if action == "reassigned":
+            return (f"  {ts}  REASSIGNED   {w} -> {r.get('to')}  "
+                    f"ranges={r.get('ranges')}")
+        if action == "straggler":
+            return (f"  {ts}  STRAGGLER    {w}  "
+                    f"ewma={r.get('ewma_ms')}ms vs median="
+                    f"{r.get('median_ms')}ms  share->{r.get('share')}")
+        if action == "straggler-clear":
+            return (f"  {ts}  STRAGGLER    {w}  cleared "
+                    f"(ewma={r.get('ewma_ms')}ms)")
+        if action == "backup":
+            return (f"  {ts}  BACKUP       {w} duplicates "
+                    f"{r.get('of')} ranges={r.get('ranges')}")
+        if action == "restore":
+            return (f"  {ts}  MEMBERSHIP   restore frontier="
+                    f"{r.get('frontier')} pool={r.get('pool')}")
+        return f"  {ts}  MEMBERSHIP   {action} {w}"
+    return f"  {ts}  {kind}"
+
+
+def render_failures(ledger: Ledger) -> str:
+    """Timeline of failure / chaos / black-box events next to run records —
+    the drill-audit view: what was injected, what broke, what recovered."""
+    records, bad = ledger.replay()
+    lines = [f"failure timeline: {ledger.path}"]
+    for warn in bad:
+        lines.append(f"  WARNING: {warn}")
+    shown = 0
+    for r in records:
+        kind = r.get("kind")
+        if kind in FAILURE_KINDS:
+            lines.append(_failure_line(r))
+            shown += 1
+        elif kind == "run":
+            g = r.get("guardrail") or {}
+            extra = ""
+            if g.get("trips_total"):
+                extra = (f"  guard: {g['trips_total']} trips, "
+                         f"{g['steps_skipped']} skipped")
+            if r.get("preempted"):
+                extra += "  [preempted]"
+            lines.append(
+                f"  {r.get('ts', '?')}  run      model={r.get('model')} "
+                f"steps={r.get('steps')}{extra}"
+            )
+        elif kind == "bench" and isinstance(r.get("payload"), dict) \
+                and isinstance(r["payload"].get("chaos"), dict):
+            c = r["payload"]["chaos"]
+            lines.append(
+                f"  {r.get('ts', '?')}  bench    chaos lane: "
+                f"recovered_all={c.get('recovered_all')} "
+                f"guard_overhead={c.get('guard_overhead_pct')}% "
+                f"loss_parity={c.get('loss_parity')}"
+            )
+        elif kind == "bench" and isinstance(r.get("payload"), dict) \
+                and isinstance(r["payload"].get("chaos_serve"), dict):
+            c = r["payload"]["chaos_serve"]
+            lines.append(
+                f"  {r.get('ts', '?')}  bench    chaos-serve lane: "
+                f"availability={c.get('availability_pct')}% "
+                f"degraded_share={c.get('degraded_share_pct')}% "
+                f"p99_under_fault={c.get('p99_under_fault_ms')}ms"
+            )
+        elif kind == "bench" and isinstance(r.get("payload"), dict) \
+                and isinstance(r["payload"].get("chaos_cluster"), dict):
+            c = r["payload"]["chaos_cluster"]
+            lines.append(
+                f"  {r.get('ts', '?')}  bench    chaos-cluster lane: "
+                f"exact={c.get('accounting_exact')} "
+                f"lost={c.get('lost_count')} dup={c.get('duplicated_count')} "
+                f"reassigned={c.get('reassignments')} "
+                f"loss_parity={c.get('loss_parity')}"
+            )
+        elif kind == "bench" and isinstance(r.get("payload"), dict) \
+                and isinstance(r["payload"].get("freshness"), dict):
+            c = r["payload"]["freshness"]
+            gap = c.get("gap_drill") or {}
+            lines.append(
+                f"  {r.get('ts', '?')}  bench    freshness lane: "
+                f"bit_parity={c.get('bit_parity')} "
+                f"lag_p99={c.get('lag_p99_ms')}ms "
+                f"serve_p99={c.get('serve_p99_ms')}ms "
+                f"gap_recovered={gap.get('recovered')}"
+            )
+        elif kind == "bench" and isinstance(r.get("payload"), dict) \
+                and isinstance(r["payload"].get("net"), dict):
+            c = r["payload"]["net"]
+            pk = c.get("proc_kill") or {}
+            dl = c.get("delta") or {}
+            lines.append(
+                f"  {r.get('ts', '?')}  bench    net lane: "
+                f"availability={c.get('availability_pct')}% "
+                f"tcp_parity={c.get('tcp_parity')} "
+                f"delta_parity={dl.get('parity')} "
+                f"envelope={c.get('envelope_x')}x "
+                f"respawns={c.get('respawns')} "
+                f"kill_recovered={pk.get('recovered')}"
+            )
+    if shown == 0:
+        lines.append("  (no failure events recorded)")
+    return "\n".join(lines)
+
+
+
+
+def check_regression(
+    ledger: Ledger,
+    max_drop_pct: float,
+    baseline: Optional[float] = None,
+) -> Tuple[int, str]:
+    """Bench gate: newest *measured* bench value vs the pinned baseline.
+
+    ``baseline``: explicit pinned words/sec value; default is the best value
+    among all earlier measured (non-cached, non-reconstructed, on-chip —
+    CPU smoke runs never count) bench records. Returns ``(exit_code,
+    message)`` — nonzero when the newest run is more than ``max_drop_pct``
+    percent below the baseline (or nothing to gate on). The training
+    plane's correctness gates (:data:`PLANE_CHECKS`) run in every case, on
+    records of any platform, and their lines follow the headline's.
+    """
+    measured = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict)
+        and not r["payload"].get("cached")
+        and not r["payload"].get("reconstructed")
+        and r["payload"].get("platform") != "cpu"
+        and isinstance(r["payload"].get("value"), (int, float))
+        and r["payload"]["value"] > 0
+    ]
+    if not measured:
+        rc, msg = 2, "check-regression: no measured bench record in ledger"
+    else:
+        newest = measured[-1]["payload"]["value"]
+        earlier = [r["payload"]["value"] for r in measured[:-1]]
+        if baseline is None and not earlier:
+            rc, msg = 0, (
+                f"check-regression: single measured record "
+                f"(value={newest:,.1f}); nothing to compare against"
+            )
+        else:
+            if baseline is None:
+                baseline = max(earlier)
+            floor = baseline * (1.0 - max_drop_pct / 100.0)
+            if newest < floor:
+                rc, msg = 1, (
+                    f"REGRESSION: newest value {newest:,.1f} is "
+                    f"{(1 - newest / baseline) * 100:.1f}% below baseline "
+                    f"{baseline:,.1f} (allowed {max_drop_pct:.1f}%)"
+                )
+            else:
+                rc, msg = 0, (
+                    f"ok: newest value {newest:,.1f} vs baseline {baseline:,.1f} "
+                    f"({(newest / baseline - 1) * 100:+.1f}%, floor {floor:,.1f})"
+                )
+    for check in PLANE_CHECKS:
+        c_rc, c_msg = check(ledger)
+        if c_msg:
+            msg = f"{msg}\n{c_msg}"
+        rc = max(rc, c_rc)
+    return rc, msg
+
+
+def _check_chaos_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:
+    """Gate the chaos lane's *recovery* alongside the perf headline: the
+    newest bench record carrying a ``chaos`` block (any platform — recovery
+    is correctness, so CPU lane runs count) must have recovered every drill
+    and held resume loss parity. No chaos history gates nothing."""
+    with_chaos = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict)
+        and isinstance(r["payload"].get("chaos"), dict)
+    ]
+    if not with_chaos:
+        return 0, None
+    c = with_chaos[-1]["payload"]["chaos"]
+    problems = []
+    if not c.get("recovered_all"):
+        bad = [k for k, v in (c.get("drills") or {}).items()
+               if not v.get("recovered")]
+        problems.append(
+            "unrecovered chaos drill(s): " + (", ".join(bad) or "unknown"))
+    parity = c.get("loss_parity")
+    if isinstance(parity, (int, float)) and parity > 0.05:
+        problems.append(f"resume loss parity {parity:.4f} > 0.05")
+    if problems:
+        return 1, "chaos REGRESSION: " + "; ".join(problems)
+    return 0, (
+        f"chaos ok: all drills recovered, guard overhead "
+        f"{c.get('guard_overhead_pct')}%, resume loss parity {parity}"
+    )
+
+
+
+def _trace_overhead_values(record: Dict) -> Optional[Dict]:
+    """The ``trace_overhead`` block from a bench payload's ``fleet`` block
+    (the fleet lane's tracing on-vs-off ride-along), or None when the leg
+    didn't run in that record."""
+    fb = record.get("payload", {}).get("fleet")
+    if not isinstance(fb, dict):
+        return None
+    to = fb.get("trace_overhead")
+    if not isinstance(to, dict):
+        return None
+    q, p = to.get("overhead_qps_pct"), to.get("overhead_p99_pct")
+    if not (isinstance(q, (int, float)) and isinstance(p, (int, float))):
+        return None
+    return to
+
+
+def _check_trace_overhead_regression(
+    ledger: Ledger,
+) -> Tuple[int, Optional[str]]:
+    """Gate the observability plane's own cost: in the newest bench record
+    carrying the fleet lane's ``trace_overhead`` leg, tracing on (head
+    sampling + tail-keep) vs off at equal offered load must cost no more
+    than the leg's ceiling (3%) of throughput or p99. The p99 comparison
+    carries a noise floor: 1ms, widened to the off leg's own max-min
+    spread across its repetitions (``p99_noise_ms``) when the leg ships
+    one — a delta inside the baseline's self-disagreement is scheduler
+    jitter, not tracing cost. Same-platform comparison is free here (both
+    legs run in the same process); no history gates nothing."""
+    with_to = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict) and _trace_overhead_values(r)
+    ]
+    if not with_to:
+        return 0, None
+    to = _trace_overhead_values(with_to[-1])
+    ceil = float(to.get("overhead_ceil_pct", 3.0) or 3.0)
+    q = float(to["overhead_qps_pct"])
+    p99_off = float(to.get("p99_off_ms") or 0.0)
+    p99_on = float(to.get("p99_on_ms") or 0.0)
+    problems = []
+    if q > ceil:
+        problems.append(
+            f"tracing costs {q:.2f}% of throughput at equal offered load "
+            f"(ceiling {ceil}%)")
+    noise = float(to.get("p99_noise_ms") or 0.0)
+    if (p99_on - p99_off) > max(ceil / 100.0 * p99_off, 1.0, noise):
+        problems.append(
+            f"tracing p99 {p99_on}ms vs {p99_off}ms off exceeds the "
+            f"{ceil}% ceiling (noise floor {max(1.0, noise):.1f}ms)")
+    if problems:
+        return 1, "trace-overhead REGRESSION: " + "; ".join(problems)
+    return 0, (
+        f"trace-overhead ok: qps {q:+.2f}%, p99 {p99_off}->{p99_on}ms "
+        f"at sample rate {to.get('sample_rate')} (ceiling {ceil}%)"
+    )
+
+
+def _drift_block(record: Dict) -> Optional[Dict]:
+    d = record.get("payload", {}).get("drift")
+    return d if isinstance(d, dict) else None
+
+
+def _check_drift_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:
+    """Gate the drift drill: the newest bench record carrying a ``drift``
+    block (the ``--lane drift`` / ``tools/chaos_drill.py --drift`` leg) must
+    show the injected ``slow_step`` chaos *detected* within the configured
+    window, exactly one transition-edged ``drift`` ledger event, a complete
+    incident bundle (timeseries window + blackbox + fingerprint), and the
+    before/after ``--diff`` attribution naming host-blocked as dominant.
+    Correctness, not perf — gated on any platform; no history gates
+    nothing."""
+    with_drift = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict) and _drift_block(r)
+    ]
+    if not with_drift:
+        return 0, None
+    d = _drift_block(with_drift[-1])
+    problems = []
+    if not d.get("detected"):
+        problems.append(
+            "injected slow_step drift was NOT detected within the window")
+    ev = d.get("drift_events")
+    if ev != 1:
+        problems.append(
+            f"expected exactly one transition-edged drift event, got {ev}")
+    if not d.get("bundle_complete"):
+        problems.append(
+            "incident bundle incomplete (needs timeseries + blackbox + "
+            "fingerprint)")
+    dom = (d.get("attribution") or {}).get("dominant")
+    if dom != "host_blocked":
+        problems.append(
+            f"--diff attribution named {dom!r} dominant, expected "
+            "host_blocked")
+    if problems:
+        return 1, "drift REGRESSION: " + "; ".join(problems)
+    return 0, (
+        f"drift ok: detected at step {d.get('detect_step')} "
+        f"(injected at {d.get('inject_step')}), 1 transition-edged event, "
+        "bundle complete, --diff dominant=host_blocked"
+    )
+
+
+def _profile_overhead_block(record: Dict) -> Optional[Dict]:
+    po = record.get("payload", {}).get("profile_overhead")
+    return po if isinstance(po, dict) else None
+
+
+def _check_profiler_overhead_regression(
+    ledger: Ledger,
+) -> Tuple[int, Optional[str]]:
+    """Gate the continuous profiler's own cost, mirroring the fleet lane's
+    trace-overhead leg: in the newest bench record carrying a
+    ``profile_overhead`` block, profiling on (sampler + sentinel at the
+    drill cadence) vs off at equal work must cost no more than the block's
+    ceiling (3%) of words/sec. The comparison carries a noise floor — the
+    off leg's own best-vs-worst spread across repetitions (``noise_pct``)
+    when the block ships one; a delta inside the baseline's
+    self-disagreement is scheduler jitter, not profiler cost. Same-process
+    comparison, so same-platform is free; no history gates nothing."""
+    with_po = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict) and _profile_overhead_block(r)
+    ]
+    if not with_po:
+        return 0, None
+    po = _profile_overhead_block(with_po[-1])
+    ceil = float(po.get("overhead_ceil_pct", 3.0) or 3.0)
+    pct = po.get("overhead_pct")
+    if not isinstance(pct, (int, float)):
+        return 1, ("profiler-overhead REGRESSION: block carries no "
+                   "overhead_pct")
+    noise = float(po.get("noise_pct") or 0.0)
+    if pct > max(ceil, noise):
+        return 1, (
+            f"profiler-overhead REGRESSION: continuous profiling costs "
+            f"{pct:.2f}% of words/sec (ceiling {ceil}%, noise floor "
+            f"{noise:.2f}%)")
+    return 0, (
+        f"profiler-overhead ok: {pct:+.2f}% of words/sec at cadence "
+        f"{po.get('cadence')} (ceiling {ceil}%, noise floor {noise:.2f}%)"
+    )
+
+
+
+# the training plane's sub-checks, in the JAX gate's order
+PLANE_CHECKS = (
+    _check_chaos_regression,
+    _check_trace_overhead_regression,
+    _check_drift_regression,
+    _check_profiler_overhead_regression,
+)
+
+
+def _resolve_diff_record(ledger: Ledger, spec: str) -> Tuple[Dict, str]:
+    """One side of ``--diff``: an integer indexes the ledger's run records
+    (negative from the end, so ``-2 -1`` is before/after the newest pair);
+    anything else is a path to a JSON record/bench-payload file. Raises
+    ``ValueError`` with a usable message on a bad spec."""
+    try:
+        idx = int(spec)
+    except ValueError:
+        if not os.path.exists(spec):
+            raise ValueError(
+                f"--diff: {spec!r} is neither a run-record index nor a file")
+        with open(spec, "r", encoding="utf-8") as f:
+            try:
+                rec = json.load(f)
+            except ValueError:
+                # a one-record-per-line file: take the last parseable line
+                f.seek(0)
+                rec = None
+                for line in f:
+                    line = line.strip()
+                    if line:
+                        try:
+                            rec = json.loads(line)
+                        except ValueError:
+                            continue
+                if rec is None:
+                    raise ValueError(f"--diff: no JSON object in {spec!r}")
+        if not isinstance(rec, dict):
+            raise ValueError(f"--diff: {spec!r} is not a JSON object")
+        return rec, spec
+    runs = ledger.records("run")
+    if not runs:
+        raise ValueError("--diff: ledger has no run records")
+    try:
+        rec = runs[idx]
+    except IndexError:
+        raise ValueError(
+            f"--diff: run index {idx} out of range ({len(runs)} run records)")
+    return rec, f"run[{idx}] {rec.get('ts', '?')} {rec.get('model', '')}"
+
+
+def render_diff(rec_a: Dict, rec_b: Dict,
+                label_a: str = "A", label_b: str = "B") -> str:
+    """``ledger-report --diff A B``: decompose the words/sec delta between
+    two run/bench records into goodput components and per-scope comm bytes,
+    and name the dominant contributor (telemetry/goodput.py does the
+    arithmetic; this renders it)."""
+    from swiftsnails_tpu_torch.telemetry.goodput import throughput_attribution
+
+    att = throughput_attribution(rec_a, rec_b)
+    lines = [f"perf diff: A = {label_a}", f"           B = {label_b}"]
+    ra, rb = att["items_per_sec_a"], att["items_per_sec_b"]
+    dp = att["delta_pct"]
+    lines.append(
+        "items/sec: "
+        f"{_fmt_num(ra) if ra else 'n/a'} -> {_fmt_num(rb) if rb else 'n/a'}"
+        + (f"  ({dp:+.2f}%)" if isinstance(dp, (int, float)) else "")
+    )
+    lines.append("per-step seconds by component (B - A):")
+    for name in ("compute", "h2d", "host_blocked", "other", "unaccounted"):
+        c = att["components"].get(name) or {}
+        a_s, b_s, d_s = c.get("a_s"), c.get("b_s"), c.get("delta_s")
+        if a_s is None and b_s is None:
+            continue
+        fmt = lambda v: f"{v * 1e3:8.3f}ms" if isinstance(v, (int, float)) \
+            else "     n/a"
+        mark = "  <-- dominant" if name == att.get("dominant") else ""
+        lines.append(
+            f"  {name:<12} {fmt(a_s)} -> {fmt(b_s)}  "
+            f"delta={fmt(d_s)}{mark}")
+    if att["comm_bytes"]:
+        lines.append("comm bytes by scope (per audited step, B - A):")
+        for scope, row in sorted(att["comm_bytes"].items()):
+            lines.append(
+                f"  {scope:<24} {_fmt_num(row.get('a_bytes') or 0)}B -> "
+                f"{_fmt_num(row.get('b_bytes') or 0)}B  "
+                f"delta={_fmt_num(row.get('delta_bytes') or 0)}B")
+    dom = att.get("dominant")
+    share = att.get("dominant_share")
+    lines.append(
+        f"dominant contributor: {dom}"
+        + (f" ({share * 100:.0f}% of the per-step delta)"
+           if isinstance(share, (int, float)) else "")
+    )
+    return "\n".join(lines)
+
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="ledger_report",
+        description="Render the run ledger; optionally gate on bench regression.",
+    )
+    p.add_argument(
+        "path", nargs="?", default=DEFAULT_LEDGER,
+        help=f"ledger JSONL (default: {DEFAULT_LEDGER})",
+    )
+    p.add_argument(
+        "--check-regression", type=float, metavar="PCT", default=None,
+        help="exit nonzero if the newest measured bench value is more than "
+             "PCT%% below the pinned baseline (bench gate mode); also "
+             "gates the training plane's correctness lanes on any platform "
+             "— chaos recovery, the drift drill, and the tracer's and the "
+             "continuous profiler's own cost",
+    )
+    p.add_argument(
+        "--baseline", type=float, default=None,
+        help="explicit pinned baseline value for --check-regression "
+             "(default: best earlier measured record in the ledger)",
+    )
+    p.add_argument(
+        "--failures", action="store_true",
+        help="render the failure timeline (outage/chaos/blackbox/"
+             "cache_error/retry_exhausted/drift events next to run records) "
+             "instead of the full report",
+    )
+    p.add_argument(
+        "--diff", nargs=2, metavar=("A", "B"), default=None,
+        help="regression attribution between two records: each side is a "
+             "run-record index into the ledger (negative ok; e.g. -2 -1) "
+             "or a JSON record file; decomposes the words/sec delta into "
+             "goodput components + per-scope comm bytes and names the "
+             "dominant contributor",
+    )
+    args = p.parse_args(argv)
+    ledger = Ledger(args.path)
+    if args.diff:
+        try:
+            rec_a, label_a = _resolve_diff_record(ledger, args.diff[0])
+            rec_b, label_b = _resolve_diff_record(ledger, args.diff[1])
+        except ValueError as e:
+            print(f"ledger_report: {e}")
+            return 2
+        print(render_diff(rec_a, rec_b, label_a, label_b))
+        return 0
+    if args.failures:
+        print(render_failures(ledger))
+        return 0
+    if args.check_regression is not None:
+        rc, msg = check_regression(ledger, args.check_regression, args.baseline)
+        print(msg)
+        return rc
+    print(render_report(ledger))
+    return 0

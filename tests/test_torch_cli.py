@@ -105,8 +105,7 @@ def test_cli_bad_config_is_fatal(tmp_path):
     assert proc.returncode != 0 and "config error" in proc.stderr
 
 
-@pytest.mark.parametrize("cmd", ["serve", "net-serve", "trace-summary", "ledger-report",
-                                 "supervisor-status", "ops", "bogus"])
+@pytest.mark.parametrize("cmd", ["serve", "net-serve", "supervisor-status", "ops", "bogus"])
 def test_cli_unported_commands_exit_2(cmd, capsys):
     assert cli.main([cmd]) == 2
     err = capsys.readouterr().err
@@ -148,3 +147,41 @@ def test_cli_train_without_a_card_names_it(tmp_path, corpus):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not (tmp_path / "ckpt").exists()  # nothing ran on the CPU instead
+
+
+def test_cli_train_with_telemetry_then_ledger_report_and_trace_summary(tmp_path, corpus):
+    """A CLI run with ``-telemetry 1``, ``-trace_path`` and ``-ledger_path``,
+    then ``ledger-report`` (the report, ``--failures``, ``--diff``,
+    ``--check-regression``) and ``trace-summary`` on its files, in
+    subprocesses, as the JAX package's ``tests/test_cli.py`` drives them."""
+    conf = _conf(tmp_path, corpus, log_every=1)
+    ledger, trace = tmp_path / "ledger.jsonl", tmp_path / "trace.json"
+    for _ in range(2):
+        proc = _run_cli(["train", "-config", str(conf), "-device", "cpu", "-telemetry", "1",
+                         "-trace_path", str(trace), "-ledger_path", str(ledger)], cwd=tmp_path)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+    assert '"goodput"' in proc.stdout
+    proc = _run_cli(["ledger-report", str(ledger)], cwd=tmp_path)
+    assert proc.returncode == 0 and "training runs" in proc.stdout
+    assert "model=word2vec" in proc.stdout and "checkpoint=" in proc.stdout
+    proc = _run_cli(["ledger-report", str(ledger), "--failures"], cwd=tmp_path)
+    assert proc.returncode == 0 and "run      model=word2vec" in proc.stdout
+    proc = _run_cli(["ledger-report", str(ledger), "--diff", "-2", "-1"], cwd=tmp_path)
+    assert proc.returncode == 0 and "dominant contributor" in proc.stdout
+    proc = _run_cli(["ledger-report", str(ledger), "--check-regression", "5"], cwd=tmp_path)
+    assert proc.returncode == 2 and "no measured bench record" in proc.stdout
+    proc = _run_cli(["trace-summary", str(trace)], cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    for span in ("prefetch-wait", "h2d", "step", "metrics-flush", "checkpoint"):
+        assert span in proc.stdout
+
+
+@pytest.mark.parametrize("cmd,args,rc", [
+    ("ledger-report", ["--diff", "0", "5"], 2), ("trace-summary", [], 1)])
+def test_cli_ledger_report_and_trace_summary_errors(tmp_path, cmd, args, rc, capsys):
+    """A run index past the ledger's runs exits 2; a file that is neither a
+    trace nor metrics exits 1."""
+    bad = tmp_path / "bad.txt"
+    bad.write_text("not a trace\n")
+    assert cli.main([cmd, str(bad), *args]) == rc
+    assert capsys.readouterr().out.strip()

@@ -947,3 +947,58 @@ def test_async_save_is_not_torn_by_the_next_steps_write(cuda_device, tmp_path):
     got = ckpt.restore_checkpoint(root, {"table": torch.zeros_like(table)})
     assert not torch.equal(got["table"], table)
     assert ckpt.verify_state(got, ckpt.read_manifest(root, 1)) == []
+
+
+def test_step_span_opens_and_closes_nvtx_and_record_function_ranges(cuda_device, monkeypatch):
+    """On the card a step span pushes an NVTX range and opens a
+    ``record_function`` range, ``<name>#<step>``, around the step's work and
+    closes both. (Without an NVTX tool attached ``range_push`` returns no
+    depth, so the calls themselves are recorded.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from swiftsnails_tpu_torch.telemetry.tracer import Tracer
+
+    calls = []
+    push, pop = torch.cuda.nvtx.range_push, torch.cuda.nvtx.range_pop
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push",
+                        lambda msg: calls.append(("push", msg)) or push(msg))
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop",
+                        lambda: calls.append(("pop",)) or pop())
+    tr = Tracer(nvtx=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tr.step_span("toy", 3):
+            calls.append(("work",))
+            torch.ones(1024, device=cuda_device).sum().item()
+    assert calls == [("push", "toy#3"), ("work",), ("pop",)]
+    assert "toy#3" in {e.key for e in prof.key_averages()}
+    assert [e["name"] for e in tr.events()] == ["toy"]
+
+
+def test_profile_dir_capture_lists_the_hand_kernels(cuda_device, tmp_path):
+    """A short packed+pool run with ``profile_dir``: the capture is a Chrome
+    trace of the window's steps that lists ``gather_rows_kernel`` and
+    ``scatter_add_rows_kernel`` with device time."""
+    import json
+
+    from swiftsnails_tpu_torch.data.vocab import Vocab
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 4096, 200_000).astype(np.int32)
+    vocab = Vocab([f"w{i}" for i in range(4096)], np.maximum(np.bincount(ids, minlength=4096), 1))
+    cfg = Config({"dim": "64", "batch_size": "2048", "subsample": "0", "use_native": "0",
+                  "telemetry": "1", "profile_dir": str(tmp_path / "prof"),
+                  "profile_steps": "2,5", "ledger_path": str(tmp_path / "l.jsonl")})
+    loop = TrainLoop(Word2VecTrainer(cfg, corpus_ids=ids, vocab=vocab), log_every=1)
+    loop.run(max_steps=6)
+    events = json.load(open(loop.profiler.trace_path))["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0.0) + e["dur"]
+    for want in ("gather_rows_kernel", "scatter_add_rows_kernel"):
+        assert sum(us for name, us in kernels.items() if want in name) > 0, sorted(kernels)
+    steps = {e["name"] for e in events if str(e.get("name", "")).startswith("word2vec#")}
+    assert steps == {"word2vec#2", "word2vec#3", "word2vec#4"}

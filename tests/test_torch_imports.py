@@ -47,6 +47,19 @@ def test_checkpoint_resilience_and_cli_modules_are_held(module):
     assert module in _PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "swiftsnails_tpu_torch.telemetry", "swiftsnails_tpu_torch.telemetry.blackbox",
+    "swiftsnails_tpu_torch.telemetry.drift", "swiftsnails_tpu_torch.telemetry.drift_lane",
+    "swiftsnails_tpu_torch.telemetry.goodput", "swiftsnails_tpu_torch.telemetry.registry",
+    "swiftsnails_tpu_torch.telemetry.summary", "swiftsnails_tpu_torch.telemetry.timeseries",
+    "swiftsnails_tpu_torch.telemetry.tracer", "swiftsnails_tpu_torch.utils.profiling",
+    "swiftsnails_tpu_torch.resilience.drill"])
+def test_telemetry_modules_are_held(module):
+    """The modules of the telemetry slice are among the ones imported
+    without JAX above and read for its names below."""
+    assert module in _PORT_MODULES
+
+
 def test_cli_run_loads_no_jax():
     code = (
         "import runpy, sys\n"

@@ -369,10 +369,12 @@ def test_unported_trainer_keys_raise(key, value, extra):
 ])
 def test_unported_loop_keys_raise(key, value):
     """The loop keys the port lacked when this test was written. The first
-    four came with the port's checkpoints and resilience layer: for them the
-    test holds that the loop now takes the key and arms its feature
-    (``tests/test_torch_resilience.py`` and ``tests/test_torch_checkpoint.py``
-    hold the features); every other key still raises."""
+    four came with the port's checkpoints and resilience layer, ``telemetry``
+    and ``trace_path`` with its telemetry: for them the test holds that the
+    loop now takes the key and arms its feature
+    (``tests/test_torch_resilience.py``, ``tests/test_torch_checkpoint.py``
+    and ``tests/test_torch_telemetry_loop.py`` hold the features); every
+    other key still raises."""
     words, counts, ids = _corpus(200)
     tr = word2vec.Word2VecTrainer(Config(_conf(**{key: value})), corpus_ids=ids,
                                   vocab=Vocab(words, counts), device="cpu")
@@ -381,6 +383,8 @@ def test_unported_loop_keys_raise(key, value):
         "resume": lambda loop: resume_mode(loop.trainer.config) == "auto",
         "guardrail": lambda loop: loop.guardrail is not None,
         "chaos_spec": lambda loop: loop.chaos.pending() == [("nan_grad", 5)],
+        "telemetry": lambda loop: loop.tracer is not None and loop.tracer.path is None,
+        "trace_path": lambda loop: loop.tracer is not None and loop.tracer.path == "t.json",
     }
     if key in armed:
         assert armed[key](TrainLoop(tr))
