@@ -14,9 +14,12 @@ bulk-copy completion
 probes through ``python -m swiftsnails_tpu_torch.tools.sem_probe``'s ``main``;
 then ``python -m swiftsnails_tpu_torch train`` on ``examples/word2vec.conf``
 and ``examples/word2vec_fast.conf``, stopped by a real SIGTERM and resumed,
-the training fault drill, and the guardrail's cost; last the loop's
+the training fault drill, and the guardrail's cost; then the loop's
 telemetry (run ledger, spans, goodput, the ``torch.profiler`` window,
-resume from the ledger, the drift drill).
+resume from the ledger, the drift drill); last the serving read path
+(``Servant``, ``Fleet`` and ``python -m swiftsnails_tpu_torch serve`` over
+checkpoints of ``examples/word2vec.conf`` at capacity 1,048,576 and of
+``examples/widedeep.conf``).
 
     python3 chip_smoke.py [--seed N]
 
@@ -223,10 +226,45 @@ Phases:
     detected, one ``drift`` event, a complete bundle, ``--diff`` naming
     host_blocked) and ``profiler_overhead`` at packed+pool's full width
     (printed beside the JAX lane's rule, not gated).
-16. ``kernels``: one line for every ported kernel, with its launches in the
-    run of its path (``path``) and its f32 numbers from phases 3, 7 and 10
-    (``gather_rows`` and ``scatter_add_rows`` also at ``train_perpair``'s
-    shape and launches); then ``total``, the script's seconds.
+16. ``serve``: the serving read path at the bench's width. ``train_widedeep``'s
+    state is saved (the trainer's AUC on the first 8,192 held-out records
+    taken first); ``examples/word2vec.conf`` at ``-capacity 1048576`` trains
+    4 steps on the zipf corpus and saves step 4, then the same tables with
+    ``in_table`` doubled (exact) as steps 5 and 6, and step 5 is corrupted.
+    ``Servant.from_checkpoint`` on the card serves step 4 (two normalized
+    ``[1,048,576, 200]`` tables); every launch counter is set to 0, then:
+    2,000 zipf ids pulled in requests of 5, 40 and 70 ids (buckets 8, 64
+    and 64 + 8), each row bit-equal to step 4 restored and normalized on the
+    CPU, ``gather_rows``' launches, the rows and pad rows as the bucket
+    arithmetic over the cache's misses gives them; 8 topk queries (k 10)
+    within 1e-5 of a float64 numpy scan, the ids equal where the scores are
+    1e-5 apart, and the zero query ranking ids 0..9 (JAX's tie order); the
+    W&D checkpoint scoring 8,192 held-out records on the card and on the
+    CPU within rtol 1e-5, its AUC within 1e-4 of the trainer's; one
+    ``apply_rows`` of 4,096 distinct rows (one ``scatter_write_rows``
+    launch, the version bumped, the cached old rows missed, every delta row
+    pulled back bit-equal); ``reload_from_checkpoint`` of step 5 rejected
+    with the live bytes kept, then of the newest step (6) swapped in; a
+    ``Fleet`` of two replicas sharing the planes answering 50 pulls and the
+    8 topk as the servant, and again after ``drain``. The counters are read
+    there: ``gather_rows`` launched, ``scatter_write_rows`` once, every
+    other kernel 0. Then ``python -m swiftsnails_tpu_torch serve`` in a
+    subprocess over step 4 (``pull``, ``topk``, ``stats``, ``health``,
+    ``quit``): exit 0, five JSON lines, the rows as pulled. Printed beside
+    the card's name and power limit: qps and p50/p95/p99 a kernel and
+    bucket (the serve lane's ``_drive``; W&D score on held-out records),
+    ``run_open_loop`` at 400 offered qps for 5 s, and the serve lane's
+    block (``serve_bench``, its own sizes). Last, ``gather_rows`` at the
+    serving pull (8 and 64 zipf ids of the served table) and
+    ``scatter_write_rows`` at one ``apply_rows`` (4,096 distinct rows),
+    bit-equal to plain, timed beside it and ``index_select`` /
+    ``index_copy_`` against the byte bound.
+17. ``kernels``: one line for every ported kernel, with its launches in the
+    run of its path (``path``) and its f32 numbers from phases 3, 7, 10 and
+    16 (``gather_rows`` and ``scatter_add_rows`` also at ``train_perpair``'s
+    shape and launches; ``gather_rows`` and ``scatter_write_rows`` also at
+    the serving shapes with the ``serve`` path's launches); then ``total``,
+    the script's seconds.
 """
 
 from __future__ import annotations
@@ -2486,6 +2524,450 @@ def phase_telemetry(seed: int, corpora, env: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------- serving ---
+
+# The serving read path at the bench's width: examples/word2vec.conf at
+# CLI_CAPACITY (two [1,048,576, 2, 128] f32 tables, 1 GiB each; served as
+# two normalized [1,048,576, 200] tables, 800 MB each) and the Wide & Deep
+# table of train_widedeep (examples/widedeep.conf: [262,144, 2, 128], served
+# as [1,048,576, 17]).
+SERVE_BUCKETS = (8, 64)  # Servant's default serve_batch_buckets
+SERVE_TRAIN_STEPS = 4  # steps of examples/word2vec.conf before the save
+SERVE_PULL_IDS = 2_000  # zipf ids pulled, in requests of SERVE_REQUEST_IDS
+SERVE_REQUEST_IDS = (5, 40, 70)  # in turns: bucket 8, bucket 64, two chunks
+SERVE_TOPK_QUERIES = 8
+SERVE_K = 10
+SERVE_TOPK_TOL = 1e-5  # scores against a float64 numpy scan
+SERVE_SCORE_RECORDS = 8_192  # held-out W&D records scored
+SERVE_SCORE_RTOL = 1e-5
+SERVE_AUC_TOL = 1e-4
+SERVE_DELTA_ROWS = 4_096  # one apply_rows
+SERVE_TIMED_REQUESTS = {"pull": 200, "topk": 40, "score": 200}  # a bucket
+SERVE_OFFERED_QPS = 400.0  # run_open_loop's offered rate over SERVE_LOAD_S
+SERVE_LOAD_S = 5.0
+
+
+def save_widedeep_for_serving(seed: int, trainer, state, root: str) -> dict:
+    """The ``train_widedeep`` state as the serve phase's checkpoint, with
+    the trainer's eval AUC on the first ``SERVE_SCORE_RECORDS`` held-out
+    records (taken before the state changes)."""
+    from swiftsnails_tpu_torch.framework.checkpoint import save_checkpoint
+
+    _, (labels, feats) = _ctr_data(seed)
+    labels, feats = labels[:SERVE_SCORE_RECORDS], feats[:SERVE_SCORE_RECORDS]
+    auc = trainer.eval_auc(state, labels=labels, feats=feats)
+    save_checkpoint(root, state, step=CTR_STEPS)
+    return {"root": root, "auc": auc, "labels": labels, "feats": feats}
+
+
+def _serve_config(device: str):
+    from swiftsnails_tpu_torch.utils.config import load_config
+
+    cfg = load_config(REPO / W2V_CONF)
+    for k, v in {"capacity": CLI_CAPACITY, "resume": 0, "guardrail": 0,
+                 "param_backup_root": "", "device": device}.items():
+        cfg.set(k, str(v))
+    return cfg
+
+
+def _corrupt_step(root: str, step: int) -> str:
+    """Flip one byte in the middle of the step's largest tensor file."""
+    victim = max((p for p in Path(root, f"step_{step}").iterdir()
+                  if p.name != "manifest.json"), key=lambda p: p.stat().st_size)
+    with open(victim, "r+b") as f:
+        f.seek(victim.stat().st_size // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+    return victim.name
+
+
+def _build_serve_checkpoint(seed: int, corpora, root: str, device: str) -> dict:
+    """examples/word2vec.conf trained SERVE_TRAIN_STEPS steps and saved as
+    step 4; the same tables with in_table doubled (exact) as steps 5 and 6,
+    step 5 then corrupted."""
+    from swiftsnails_tpu_torch.framework.checkpoint import save_checkpoint
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+    cfg = _serve_config(device)
+    ids, vocab, _ = corpora[False]
+    t0 = time.perf_counter()
+    trainer = Word2VecTrainer(cfg, corpus_ids=ids, vocab=vocab, device=device)
+    records = []
+
+    class Recorder(MetricsLogger):
+        def log(self, record):
+            records.append(record)
+
+    state = TrainLoop(trainer, metrics=Recorder(), log_every=1).run(
+        seed=seed, max_steps=SERVE_TRAIN_STEPS)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_checkpoint(root, state, step=SERVE_TRAIN_STEPS)
+    state.in_table.table.mul_(2)  # exact: step 6 serves 2x step 4's in_table
+    for step in (5, 6):
+        save_checkpoint(root, state, step=step)
+    save_s = time.perf_counter() - t0
+    corrupted = _corrupt_step(root, 5)
+    return {"cfg": cfg, "losses": [r["loss"] for r in records], "train_s": train_s,
+            "save_s": save_s, "corrupted": f"step_5/{corrupted}",
+            "table": list(state.in_table.table.shape)}
+
+
+def _topk_check(got, q: np.ndarray, ref64: np.ndarray, k: int) -> dict:
+    """``got`` ([(id, score)] from ``Servant.topk``) against a float64 scan
+    of the normalized CPU table ``ref64``: every score within
+    SERVE_TOPK_TOL of the row's float64 score; every row scoring more than
+    SERVE_TOPK_TOL above the (k+1)-th present; and the id at each rank equal
+    wherever its score is SERVE_TOPK_TOL apart from its neighbours'."""
+    qn = q.astype(np.float64)
+    qn = qn / max(np.linalg.norm(qn), 1e-9)
+    scores = ref64 @ qn
+    order = np.argsort(-scores, kind="stable")[: k + 1]
+    ids = np.array([i for i, _ in got])
+    s = np.array([v for _, v in got])
+    err = float(np.abs(s - scores[ids]).max())
+    if len(got) != k or err > SERVE_TOPK_TOL:
+        raise AssertionError(f"topk: {len(got)} rows, score error {err}")
+    kth1 = scores[order[k]]
+    must = set(int(i) for i in order[:k] if scores[i] - kth1 > SERVE_TOPK_TOL)
+    if not must <= set(ids.tolist()):
+        raise AssertionError(f"topk: rows {sorted(must - set(ids.tolist()))} missing")
+    ref_s = scores[order]
+    for j in range(k):
+        apart = all(abs(ref_s[j] - ref_s[n]) > SERVE_TOPK_TOL for n in (j - 1, j + 1)
+                    if 0 <= n <= k)
+        if apart and ids[j] != order[j]:
+            raise AssertionError(f"topk: rank {j} is row {ids[j]}, want {order[j]}")
+    return {"max_abs_err": err, "ids_gated": len(must)}
+
+
+def _drive_score(servant, bucket: int, requests: int, feats: np.ndarray) -> dict:
+    """The serve lane's ``_drive`` for ``score`` at a model's own width:
+    ``requests`` back-to-back requests of ``bucket`` held-out records."""
+    servant.reset_metrics()
+    t0 = time.perf_counter()
+    for n in range(requests):
+        lo = (n * bucket) % (len(feats) - bucket)
+        servant.score(feats[lo:lo + bucket])
+    dt = time.perf_counter() - t0
+    stats = servant.stats()["kernels"]["score"]
+    return {"requests": requests, "bucket": bucket, "qps": requests / dt,
+            **{k: stats[k] for k in ("p50_ms", "p95_ms", "p99_ms")}}
+
+
+def _cli_serve(args: list, script: str, env_extra: dict) -> tuple:
+    """``python -m swiftsnails_tpu_torch serve`` with ``script`` on stdin;
+    returns its exit code, stdout lines and stderr."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH", "")) if p), **env_extra)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "swiftsnails_tpu_torch", "serve", *args],
+                          input=script, capture_output=True, text=True, cwd=str(REPO),
+                          env=env, timeout=600)
+    return proc.returncode, proc.stdout.splitlines(), proc.stderr, time.perf_counter() - t0
+
+
+def phase_serve(seed: int, corpora, env: dict, widedeep: dict, device: str = "cuda") -> dict:
+    """The serving read path through its entry points at full width (see
+    the module docstring, phase 16). Returns the launches of the serve path
+    and the served word2vec table's geometry for the kernel timings."""
+    from swiftsnails_tpu_torch.framework.checkpoint import CheckpointError, load_tables
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.models.sparse_base import auc_score
+    from swiftsnails_tpu_torch.ops import rowdma
+    from swiftsnails_tpu_torch.serving import Fleet, Servant, normalize_table
+    from swiftsnails_tpu_torch.serving.engine import bucket_for
+    from swiftsnails_tpu_torch.serving.cache import HotRowCache
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    t_phase = time.monotonic()
+    card = {"device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+    tmp = tempfile.mkdtemp(prefix="ssn-serve-")
+    try:
+        root = os.path.join(tmp, "ckpt")
+        built = _build_serve_checkpoint(seed, corpora, root, device)
+        cfg = built["cfg"]
+        dim = cfg.get_int("dim")
+        t0 = time.perf_counter()
+        ref_tree, _ = load_tables(root, step=SERVE_TRAIN_STEPS, device="cpu")
+        ref = {name: normalize_table(ref_tree[name]["table"], dim, "packed").numpy()
+               for name in ("in_table", "out_table")}
+        del ref_tree
+        ref_load_s = time.perf_counter() - t0
+        emit("serve_checkpoint", config=W2V_CONF, capacity=CLI_CAPACITY, dim=dim,
+             table=built["table"], steps=SERVE_TRAIN_STEPS, losses=built["losses"],
+             train_s=built["train_s"], save_s=built["save_s"], corrupted=built["corrupted"],
+             cpu_load_normalize_s=ref_load_s, **card)
+
+        t0 = time.perf_counter()
+        sv = Servant.from_checkpoint(root, cfg, step=SERVE_TRAIN_STEPS, device=device)
+        load_s = time.perf_counter() - t0
+        counters = _counters()
+        for f in counters.values():
+            f.launches = 0
+        rng = np.random.default_rng(seed + 12)
+        try:
+            # 1. pulls: zipf ids in requests of 5, 40 and 70 (buckets 8, 64,
+            # and 64 + 8), bit-equal to the CPU copy; launches, rows and pads
+            # as the bucket arithmetic over the cache's misses gives them
+            ids_all = zipf_ids(SERVE_PULL_IDS, CLI_CAPACITY, rng)
+            shadow = HotRowCache(sv.cache.capacity)
+            want = {"chunks": 0, "rows": 0, "pad_rows": 0, "requests": 0}
+            lo = 0
+            while lo < len(ids_all):
+                n = SERVE_REQUEST_IDS[want["requests"] % len(SERVE_REQUEST_IDS)]
+                ids = ids_all[lo:lo + n]
+                lo += n
+                got = sv.pull(ids)
+                if not np.array_equal(got, ref["in_table"][ids]):
+                    raise AssertionError("serve pull differs from the CPU copy")
+                _, missing = shadow.get_many("in_table", 0, ids)
+                if missing:
+                    shadow.put_many("in_table", 0, np.asarray(missing),
+                                    np.zeros((len(missing), 1), np.float32))
+                for c in range(0, len(missing), SERVE_BUCKETS[-1]):
+                    chunk = len(missing[c:c + SERVE_BUCKETS[-1]])
+                    want["chunks"] += 1
+                    want["rows"] += chunk
+                    want["pad_rows"] += bucket_for(chunk, SERVE_BUCKETS) - chunk
+                want["requests"] += 1
+            st = sv.stats()
+            pulled = {"chunks": counters["gather_rows"].launches,
+                      "rows": int(sv.registry.counter("serve.pull.rows").value),
+                      "pad_rows": st["pad_rows"]["pull"], "requests": st["kernels"]["pull"]["count"]}
+            if device == "cpu":
+                pulled["chunks"] = want["chunks"]  # the plain version counts nothing
+            if pulled != want:
+                raise AssertionError(f"serve pull counts {pulled}, want {want}")
+            out_ids = ids_all[:64]
+            if not np.array_equal(sv.pull(out_ids, table="out_table"), ref["out_table"][out_ids]):
+                raise AssertionError("serve pull of out_table differs from the CPU copy")
+            emit("serve_pull", ids=SERVE_PULL_IDS, request_ids=list(SERVE_REQUEST_IDS),
+                 buckets=list(SERVE_BUCKETS), load_normalize_s=load_s, bit_equal=True,
+                 counts=pulled, cache=st["cache"], **card)
+
+            # 2. topk: 8 queries (rows of in_table) against a float64 scan;
+            # the zero query ties every row at 0: ids 0..9, JAX's tie order
+            ref64 = ref["in_table"].astype(np.float64)
+            ref64 /= np.maximum(np.linalg.norm(ref64, axis=1, keepdims=True), 1e-9)
+            q_ids = rng.integers(0, CLI_CAPACITY, SERVE_TOPK_QUERIES)
+            topk_out, checks = [], []
+            for qi in q_ids:
+                got = sv.topk(ref["in_table"][qi], k=SERVE_K)
+                checks.append(_topk_check(got, ref["in_table"][qi], ref64, SERVE_K))
+                topk_out.append(got)
+            del ref64
+            zero = sv.topk(np.zeros(dim, np.float32), k=SERVE_K)
+            if [i for i, _ in zero] != list(range(SERVE_K)) or any(s != 0 for _, s in zero):
+                raise AssertionError(f"zero query: {zero}")
+            emit("serve_topk", queries=SERVE_TOPK_QUERIES, k=SERVE_K, tol=SERVE_TOPK_TOL,
+                 max_abs_err=max(c["max_abs_err"] for c in checks),
+                 ids_gated=sum(c["ids_gated"] for c in checks),
+                 zero_query_ids=[i for i, _ in zero], **card)
+
+            # 3. score: the W&D checkpoint, 8,192 held-out records, on the
+            # card and on the CPU; AUC against the trainer's on the records
+            wd_cfg = _widedeep_config(seed)
+            t0 = time.perf_counter()
+            with Servant.from_checkpoint(widedeep["root"], wd_cfg, device=device) as wsv, \
+                    Servant.from_checkpoint(widedeep["root"], wd_cfg, device="cpu") as wcpu:
+                wd_load_s = time.perf_counter() - t0
+                scores = wsv.score(widedeep["feats"])
+                cpu_scores = wcpu.score(widedeep["feats"])
+                wd_tables = wsv.stats()["tables"]
+                wd_pads = wsv.stats()["pad_rows"]["score"]
+            np.testing.assert_allclose(scores, cpu_scores, rtol=SERVE_SCORE_RTOL, atol=1e-7)
+            auc = auc_score(widedeep["labels"], scores)
+            if not abs(auc - widedeep["auc"]) <= SERVE_AUC_TOL:
+                raise AssertionError(f"served AUC {auc}, trainer's {widedeep['auc']}")
+            emit("serve_score", config=WIDEDEEP_CONF, records=len(scores), tables=wd_tables,
+                 pad_rows=wd_pads, load_normalize_s=wd_load_s,
+                 max_rel_err=float(np.max(np.abs(scores - cpu_scores)
+                                          / np.maximum(np.abs(cpu_scores), 1e-30))),
+                 auc=auc, trainer_auc=widedeep["auc"], **card)
+
+            # 4. apply_rows: 4,096 distinct rows; the next pulls see them, the
+            # version bumps, the cache misses on the old rows
+            delta_ids = rng.choice(CLI_CAPACITY, SERVE_DELTA_ROWS, replace=False)
+            delta = rng.standard_normal((SERVE_DELTA_ROWS, dim)).astype(np.float32)
+            cached = delta_ids[:64]
+            sv.pull(cached)  # in the cache at the old version
+            misses0, writes0, v0 = sv.cache.misses, counters["scatter_write_rows"].launches, sv.version
+            v1 = sv.apply_rows({"in_table": (delta_ids, delta)})
+            writes = counters["scatter_write_rows"].launches - writes0
+            if v1 != v0 + 1 or (device != "cpu" and writes != 1):
+                raise AssertionError(f"apply_rows: version {v0} -> {v1}, {writes} writes")
+            if not np.array_equal(sv.pull(cached), delta[:64]):
+                raise AssertionError("apply_rows: cached rows not replaced")
+            if sv.cache.misses - misses0 != len(cached):
+                raise AssertionError("apply_rows: the old rows' cache entries still hit")
+            for c in range(0, SERVE_DELTA_ROWS, 512):
+                if not np.array_equal(sv.pull(delta_ids[c:c + 512]), delta[c:c + 512]):
+                    raise AssertionError("apply_rows: a pull missed the delta")
+            emit("serve_apply_rows", rows=SERVE_DELTA_ROWS, version=[v0, v1],
+                 scatter_write_rows=writes, bit_equal=True, **card)
+
+            # 5. reload_from_checkpoint: corrupt step 5 rejected, the live
+            # bytes kept; then the newest clean step (6: 2x step 4's in_table)
+            probe = np.concatenate([delta_ids[:32], ids_all[:32]])
+            live = sv.pull(probe)
+            try:
+                sv.reload_from_checkpoint(root, cfg, step=5)
+                raise AssertionError("a corrupt step was swapped in")
+            except CheckpointError as e:
+                rejected = str(e)[:200]
+            if sv.version != v1 or not np.array_equal(sv.pull(probe), live):
+                raise AssertionError("the rejected reload changed the live tables")
+            t0 = time.perf_counter()
+            v2 = sv.reload_from_checkpoint(root, cfg)
+            reload_s = time.perf_counter() - t0
+            if v2 != v1 + 1 or sv.step != 6:
+                raise AssertionError(f"reload: version {v2}, step {sv.step}")
+            if not np.array_equal(sv.pull(probe), 2 * ref["in_table"][probe]):
+                raise AssertionError("reload: step 6's rows not served")
+            emit("serve_reload", rejected=rejected, version=[v1, v2], step=sv.step,
+                 reload_s=reload_s, **card)
+
+            # 6. a fleet of two replicas answers as the servant, and after
+            # drain as well
+            t0 = time.perf_counter()
+            with Fleet.from_checkpoint(root, cfg, device=device, replicas=2) as fleet:
+                fleet_load_s = time.perf_counter() - t0
+                shared = len({r.servant._tables["in_table"].data_ptr()
+                              for r in fleet.replicas()}) == 1
+                reqs = [ids_all[i:i + 8] for i in range(0, 400, 8)]
+
+                def same(tag):
+                    for ids in reqs:
+                        if not np.array_equal(fleet.pull(ids), sv.pull(ids)):
+                            raise AssertionError(f"fleet pull differs ({tag})")
+                    for qi in q_ids:
+                        q = 2 * ref["in_table"][qi]
+                        a, b = fleet.topk(q, k=SERVE_K), sv.topk(q, k=SERVE_K)
+                        if [i for i, _ in a] != [i for i, _ in b] or \
+                                max(abs(x - y) for (_, x), (_, y) in zip(a, b)) > 1e-6:
+                            raise AssertionError(f"fleet topk differs ({tag}): {a} {b}")
+
+                same("two replicas")
+                served = {r.id: r.requests for r in fleet.replicas()}
+                drained = fleet.drain("r0")
+                same("after drain")
+                fleet_health = fleet.health()["status"]
+            if not shared or not all(served.values()):
+                raise AssertionError(f"fleet: shared planes {shared}, served {served}")
+            emit("serve_fleet", replicas=2, served=served, drained=drained,
+                 health=fleet_health, load_normalize_s=fleet_load_s, **card)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            launches = {name: f.launches for name, f in counters.items()}
+            for name, n in launches.items():
+                ok = (n > 0 if name == "gather_rows" else n == 1 if name == "scatter_write_rows"
+                      else n == 0)
+                if device != "cpu" and not ok:
+                    raise AssertionError(f"serve path: {name} launched {n} times")
+
+            # 7. the CLI over step 4 (its own root), a scripted stdin
+            cli_root = os.path.join(tmp, "cli")
+            os.makedirs(cli_root)
+            os.symlink(os.path.join(root, f"step_{SERVE_TRAIN_STEPS}"),
+                       os.path.join(cli_root, f"step_{SERVE_TRAIN_STEPS}"))
+            cli_ids = ids_all[:6]
+            script = (f"pull {' '.join(str(i) for i in cli_ids)}\ntopk {int(q_ids[0])} 5\n"
+                      "stats\nhealth\nquit\n")
+            args = ["-config", str(REPO / W2V_CONF), "-capacity", str(CLI_CAPACITY),
+                    "-checkpoint", cli_root]
+            if device == "cpu":
+                args += ["-device", "cpu"]
+            rc, lines, err, cli_s = _cli_serve(args, script, {})
+            if rc != 0:
+                raise AssertionError(f"serve CLI exited {rc}: {err[-2000:]}")
+            out = [json.loads(line) for line in lines]
+            rows = np.asarray(out[0]["rows"], np.float32)
+            if not np.allclose(rows, ref["in_table"][cli_ids], rtol=0, atol=5e-7):
+                raise AssertionError("serve CLI rows differ from the pulls")
+            if not (len(out[1]["topk"]) == 5 and "kernels" in out[2]
+                    and out[3]["status"] == "ok" and "final_stats" in out[4] and len(out) == 5):
+                raise AssertionError(f"serve CLI lines: {lines}")
+            emit("serve_cli", rc=rc, lines=len(out), seconds=cli_s,
+                 banner=err.strip().splitlines()[-1][:200], **card)
+
+            # 8. timing: qps and p50/p95/p99 a kernel and bucket (the serve
+            # lane's _drive), the serve lane at its own size, and an
+            # open-loop pull load at a fixed offered rate
+            from swiftsnails_tpu_torch.serving.bench_lane import _drive, serve_bench
+            from swiftsnails_tpu_torch.serving.loadgen import run_open_loop
+
+            timing = {"pull": {}, "topk": {}, "score": {}}
+            for b in SERVE_BUCKETS:
+                timing["pull"][f"b{b}"] = _drive(sv, "pull", b, SERVE_TIMED_REQUESTS["pull"],
+                                                 rng, CLI_CAPACITY)
+                timing["topk"][f"b{b}"] = _drive(sv, "topk", b, SERVE_TIMED_REQUESTS["topk"],
+                                                 rng, CLI_CAPACITY)
+            with Servant.from_checkpoint(widedeep["root"], wd_cfg, device=device) as wsv:
+                for b in SERVE_BUCKETS:
+                    timing["score"][f"b{b}"] = _drive_score(
+                        wsv, b, SERVE_TIMED_REQUESTS["score"], widedeep["feats"])
+            emit("serve_timing", legs=timing, **card)
+            sv.reset_metrics()
+            load = run_open_loop(lambda anchor, ids: sv.pull(ids), qps=SERVE_OFFERED_QPS,
+                                 duration_s=SERVE_LOAD_S, seed=seed, id_space=CLI_CAPACITY,
+                                 batch=SERVE_BUCKETS[0])
+            emit("serve_open_loop", **load, servant=sv.stats()["kernels"]["pull"], **card)
+            lane = serve_bench(small=False, workdir=os.path.join(tmp, "lane"), device=device)
+            if lane["shed_count"] or not lane["qps"] > 0:
+                raise AssertionError(f"serve lane: {lane}")
+            emit("serve_bench", serving=lane, **card)
+            table = sv._tables["in_table"]
+            return {"launches": launches, "table": table, "ids": ids_all,
+                    "seconds": time.monotonic() - t_phase}
+        finally:
+            sv.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_serve_kernels(served: dict, seed: int, rate: float) -> dict:
+    """``gather_rows`` at the serving pull (8 and 64 zipf ids from the served
+    ``[1,048,576, 200]`` table) and ``scatter_write_rows`` at one
+    ``apply_rows`` (4,096 distinct rows into a copy of it): bit-equal to the
+    plain version, timed beside it and ``index_select`` / ``index_copy_``,
+    against the byte bound. Not counted: the serve path's launches were read
+    before."""
+    from swiftsnails_tpu_torch.ops import rowdma
+
+    dev = torch.device("cuda")
+    table = served["table"]
+    rng = np.random.default_rng(seed + 13)
+    summary = {}
+    for n in SERVE_BUCKETS:
+        sets = [torch.from_numpy(zipf_ids(n, CLI_CAPACITY, rng)).to(dev)
+                for _ in range(ROW_SETS)]
+        case = _gather_case(table, sets, rate)
+        emit("kernel", name="gather_rows", dtype="torch.float32", path="serve", rows=n, **case)
+        summary[f"gather_rows_serve_b{n}"] = {"shape": [n, table.shape[1]], **case}
+    row_bytes = table.shape[1] * table.element_size()
+    sets = []
+    for _ in range(ROW_SETS):
+        uniq = torch.from_numpy(rng.choice(CLI_CAPACITY, SERVE_DELTA_ROWS, replace=False)
+                                .astype(np.int32)).to(dev)
+        vals = torch.randn((SERVE_DELTA_ROWS, table.shape[1]), device=dev)
+        sets.append((uniq, vals, uniq.long(), SERVE_DELTA_ROWS))
+    buffers = [table.clone()]
+    case = _push_case(
+        lambda b, u, v: (rowdma.scatter_write_rows(b[0], u, v),),
+        lambda b, u, v: (rowdma.scatter_write_rows_plain(b[0], u, v),),
+        buffers, sets, lambda b, st: b[0].index_copy_(0, st[2], st[1]),
+        SERVE_DELTA_ROWS * (2 * row_bytes + 4), SERVE_DELTA_ROWS, rate)
+    emit("kernel", name="scatter_write_rows", dtype="torch.float32", path="serve", **case)
+    summary["scatter_write_rows_serve"] = {"shape": list(table.shape), **case}
+    del buffers, sets
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2526,6 +3008,9 @@ def main() -> int:
     for name, n in phase_store_routes(args.seed).items():
         launches[name], paths[name] = n, "ctr_parity store route"
     train, trainer, state = phase_train_widedeep(args.seed, env)
+    serve_tmp = tempfile.mkdtemp(prefix="ssn-serve-wd-")
+    widedeep = save_widedeep_for_serving(args.seed, trainer, state,
+                                         os.path.join(serve_tmp, "ckpt"))
     launches["scatter_adagrad_fused_rows"] = train["launches"]["scatter_adagrad_fused_rows"]
     paths["scatter_adagrad_fused_rows"] = "train_widedeep"
     phase_profile("widedeep", trainer, state, args.seed)
@@ -2548,6 +3033,15 @@ def main() -> int:
     phase_chaos(args.seed, env)
     phase_guardrail_cost(args.seed, env)
     phase_telemetry(args.seed, corpora, env)
+    try:
+        served = phase_serve(args.seed, corpora, env, widedeep)
+    finally:
+        shutil.rmtree(serve_tmp, ignore_errors=True)
+    summary.update(phase_serve_kernels(served, args.seed, env["mem_rate_Bps"]))
+    emit("serve_total", seconds=served["seconds"], device=env["device"],
+         nvidia_smi=env["nvidia_smi"])
+    serve_launches = served["launches"]
+    del served
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
@@ -2565,6 +3059,27 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s["library_ms"],
             "shape": s["shape"], "dtype": "float32", "path": paths[key]})
+    for key in (f"gather_rows_serve_b{n}" for n in SERVE_BUCKETS):
+        s = summary[key]
+        kernels.append({
+            "name": "gather_rows", "route": "cuda",
+            "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": "swiftsnails_tpu/ops/rowdma.py:114",
+            "launches": serve_launches["gather_rows"],
+            "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": "bytes", "library_ms": s["library_ms"],
+            "shape": s["shape"], "dtype": "float32", "path": "serve"})
+    s = summary["scatter_write_rows_serve"]
+    kernels.append({
+        "name": "scatter_write_rows", "route": "cuda",
+        "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+        "replaces": "swiftsnails_tpu/ops/rowdma.py:289",
+        "launches": serve_launches["scatter_write_rows"],
+        "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+        "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": s["library_ms"],
+        "shape": s["shape"], "ids": s["ids"], "unique_rows": s["unique_rows"],
+        "dtype": "float32", "path": "serve"})
     for name, replaces in (
             ("scatter_write_rows", "swiftsnails_tpu/ops/rowdma.py:289"),
             ("scatter_adagrad_rows", "swiftsnails_tpu/ops/rowdma.py:418"),

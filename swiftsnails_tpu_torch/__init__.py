@@ -14,7 +14,9 @@ the counterpart of each JAX module is found at the same place:
   native batch producer (:mod:`swiftsnails_tpu_torch.data.native`, C++
   built with ``g++`` at first use), the quality probe
   (:mod:`swiftsnails_tpu_torch.framework.quality`), checkpoints, resilience
-  and the loop's telemetry (:mod:`swiftsnails_tpu_torch.telemetry`).
+  and the loop's telemetry (:mod:`swiftsnails_tpu_torch.telemetry`);
+* the serving read path: the servant, its fleet and router over a verified
+  checkpoint (:mod:`swiftsnails_tpu_torch.serving`).
 
 Entry points run on the card (``device=None`` means ``cuda``) and raise when
 there is none, unless the caller passes ``device="cpu"``: then every kernel

@@ -10,10 +10,12 @@ Usage::
 
     python -m swiftsnails_tpu_torch train  -config train.conf [-data corpus.txt]
     python -m swiftsnails_tpu_torch export -config train.conf -checkpoint ROOT -out vec.txt
+    python -m swiftsnails_tpu_torch serve  -config train.conf -checkpoint ROOT [-replicas N]
     python -m swiftsnails_tpu_torch models
     python -m swiftsnails_tpu_torch worker -config ...   # alias of train (parity)
     python -m swiftsnails_tpu_torch ledger-report [LEDGER] [--failures | --diff A B | --check-regression PCT]
     python -m swiftsnails_tpu_torch trace-summary FILE   # a trace_path or metrics JSONL file
+    python -m swiftsnails_tpu_torch ops [LEDGER]         # the one-screen ops dashboard
 
 Every ``-key value`` flag overrides the config key ``key``. The runs go on
 the card (``cuda``) and fail without one, unless ``-device cpu`` asks for the
@@ -38,9 +40,15 @@ block; ``profile_dir`` captures ``profile_steps`` with ``torch.profiler``.
 ``--check-regression PCT``: the gate) and ``trace-summary`` a trace or
 metrics file.
 
+Serving: ``serve`` loads the newest verified checkpoint under
+``-checkpoint`` into a :class:`~swiftsnails_tpu_torch.serving.engine.Servant`
+(or, with ``-replicas N`` > 1, a fleet of N replicas sharing its tables)
+and answers one request a stdin line, one JSON line each (see
+:func:`cmd_serve`). ``ops`` renders the offline ops dashboard of a ledger.
+
 ``master`` / ``server`` are accepted for parity and explain the collapse.
-``serve``, ``net-serve``, ``supervisor-status`` and ``ops`` belong to
-planes the port does not have yet (``ROADMAP.md``): they say so and exit 2.
+``net-serve`` and ``supervisor-status`` belong to planes the port does not
+have yet (``ROADMAP.md``): they say so and exit 2.
 """
 
 from __future__ import annotations
@@ -96,6 +104,121 @@ def cmd_export(argv: List[str]) -> int:
     return 0
 
 
+def cmd_serve(argv: List[str]) -> int:
+    """Query-only REPL over a verified checkpoint, on the card unless
+    ``-device cpu`` is given.
+
+    One request per stdin line, one JSON response per stdout line::
+
+        pull <id> [id...]            row values
+        topk <id> [k]                nearest rows to row <id> (cosine)
+        score <f0> <f1> ...          CTR probability (registry models)
+        stats                        latency/cache/shed snapshot
+        health                       breaker / version state
+        ops                          one-screen dashboard (SLO / traces)
+        add                          (fleet) add a replica to the ring
+        drain <replica>              (fleet) drain + remove a replica
+        quit
+
+    then a ``{"final_stats": ...}`` line. ``-replicas N`` (or config
+    ``serve_replicas``) > 1 serves through a
+    :class:`~swiftsnails_tpu_torch.serving.fleet.Fleet` of N replicas
+    sharing the loaded tables. ``subscribe`` and ``freshness`` (the
+    freshness subscriber) are not ported yet: they answer ``{"error":
+    ...}``.
+    """
+    import json
+
+    from swiftsnails_tpu_torch.serving import Fleet, Overloaded, Servant, Unavailable
+    from swiftsnails_tpu_torch.telemetry.ledger import Ledger
+
+    cfg = parse_role_argv(argv)
+    root = cfg.get_str("checkpoint")
+    device = cfg.get_str("device", "") or None
+    ledger_path = cfg.get_str("ledger_path", "")
+    ledger = Ledger(ledger_path) if ledger_path else None
+    replicas = cfg.get_int("replicas", cfg.get_int("serve_replicas", 1))
+    fleet_mode = replicas > 1
+    if fleet_mode:
+        server_cm = Fleet.from_checkpoint(root, cfg, device=device,
+                                          replicas=replicas, ledger=ledger)
+    else:
+        server_cm = Servant.from_checkpoint(root, cfg, device=device, ledger=ledger)
+    with server_cm as servant:
+        if fleet_mode:
+            banner = (f"serving fleet of {replicas} replicas "
+                      "(one request per line; pull/topk/score/stats/"
+                      "health/ops/add/drain/quit)")
+        else:
+            banner = (f"serving step {servant.step} tables "
+                      f"{servant.stats()['tables']} on {servant.device} (one "
+                      "request per line; pull/topk/score/stats/health/ops/quit)")
+        print(banner, file=sys.stderr)
+        for line in sys.stdin:
+            toks = line.split()
+            if not toks:
+                continue
+            op, args = toks[0], toks[1:]
+            try:
+                if op in ("quit", "exit"):
+                    break
+                elif op == "pull":
+                    rows = servant.pull([int(a) for a in args])
+                    out = {"rows": [[round(float(v), 6) for v in r]
+                                    for r in rows]}
+                elif op == "topk":
+                    row = int(args[0])
+                    k = int(args[1]) if len(args) > 1 else None
+                    query = servant.pull([row])[0]
+                    out = {"topk": servant.topk(query, k=k, exclude=(row,))}
+                elif op == "score":
+                    scores = servant.score([int(a) for a in args])
+                    out = {"scores": [round(float(s), 6) for s in scores]}
+                elif op == "stats":
+                    out = servant.stats()
+                elif op == "health":
+                    out = servant.health()
+                elif op == "ops":
+                    from swiftsnails_tpu_torch.telemetry.ops import render_ops
+
+                    tracer = getattr(servant, "request_tracer", None)
+                    anomalies = ([c.to_dict()
+                                  for c in tracer.anomaly_traces(5)]
+                                 if tracer is not None else None)
+                    text = render_ops(servant.stats(),
+                                      health=servant.health(),
+                                      anomalies=anomalies)
+                    print(text, file=sys.stderr)
+                    out = {"ops": "printed"}
+                elif op == "add" and fleet_mode:
+                    out = {"added": servant.add_replica()}
+                elif op == "drain" and fleet_mode:
+                    out = {"drained": servant.drain(args[0])}
+                elif op in ("subscribe", "freshness"):
+                    out = {"error": f"{op}: the freshness subscriber is not "
+                           "ported yet; see ROADMAP.md, Queue 1 item 5"}
+                else:
+                    out = {"error": f"unknown op {op!r}"}
+            except Overloaded as e:
+                out = {"error": f"overloaded: {e}", "shed": True}
+            except Unavailable as e:
+                out = {"error": f"unavailable: {e}", "shed": True}
+            except Exception as e:  # noqa: BLE001 — a REPL must not die
+                out = {"error": f"{type(e).__name__}: {e}"}
+            print(json.dumps(out), flush=True)
+        print(json.dumps({"final_stats": servant.stats()}), flush=True)
+    return 0
+
+
+def cmd_ops(argv: List[str]) -> int:
+    """One-screen ops dashboard from the run ledger: the newest serving
+    bench blocks, SLO error budget from ``slo_burn`` events, and the recent
+    ``trace_anomaly`` tail with drillable trace ids."""
+    from swiftsnails_tpu_torch.telemetry.ops import main as ops_main
+
+    return ops_main(argv)
+
+
 def cmd_ledger_report(argv: List[str]) -> int:
     from swiftsnails_tpu_torch.telemetry.ledger import main as ledger_main
 
@@ -122,7 +245,7 @@ _ROLE_NOTE = (
     "  python -m swiftsnails_tpu_torch train -config <file>"
 )
 
-_UNPORTED = ("serve", "net-serve", "supervisor-status", "ops")
+_UNPORTED = ("net-serve", "supervisor-status")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -136,6 +259,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             return cmd_train(rest)
         if cmd == "export":
             return cmd_export(rest)
+        if cmd == "serve":
+            return cmd_serve(rest)
+        if cmd == "ops":
+            return cmd_ops(rest)
         if cmd == "models":
             return cmd_models(rest)
         if cmd == "ledger-report":
@@ -149,8 +276,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"command {cmd!r} is not ported to the PyTorch port yet; "
                   "see ROADMAP.md for when it is", file=sys.stderr)
             return 2
-        print(f"unknown command {cmd!r}; try: train, export, models, "
-              "ledger-report, trace-summary",
+        print(f"unknown command {cmd!r}; try: train, export, serve, models, "
+              "ledger-report, trace-summary, ops",
               file=sys.stderr)
         return 2
     except ConfigError as e:

@@ -11,6 +11,11 @@ Checkpoints carry over too: both packages record a tensor under its
 canonical key and CRC its row-major bytes (``framework/checkpoint.py``).
 The keys agree but for the CTR dense optimizer's state, which the JAX
 package keeps in optax's tuple (:func:`port_checkpoint_key`).
+:func:`tree_from_numpy` carries a JAX ``load_tables`` tree (nested dicts
+and sequences of numpy arrays) into the port's (nested dicts of tensors
+under the port's keys), which ``serving`` normalizes and serves: both
+packages' servants then answer from the same tables, dense parameters
+included.
 """
 
 from __future__ import annotations
@@ -134,3 +139,36 @@ def jax_checkpoint_key(port_key: str) -> str:
         if port_key.startswith(port_prefix):
             return jax_prefix + port_key[len(port_prefix):]
     return port_key
+
+
+def _flat_numpy(tree, prefix: str = ""):
+    """``(canonical key, array)`` of every array leaf of nested dicts, lists
+    and tuples (NamedTuples by field name)."""
+    if isinstance(tree, dict):
+        kids = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        kids = list(zip(tree._fields, tree))
+    elif isinstance(tree, (list, tuple)):
+        kids = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [] if tree is None else [(prefix, tree)]
+    out = []
+    for key, child in kids:
+        out.extend(_flat_numpy(child, f"{prefix}/{key}" if prefix else key))
+    return out
+
+
+def tree_from_numpy(tree, *, device: DeviceLike) -> dict:
+    """A JAX state tree of numpy arrays (``load_tables``' nested dicts, or a
+    state's NamedTuples) -> the port's ``load_tables`` tree: nested dicts of
+    tensors on ``device`` under the port's keys (:func:`port_checkpoint_key`).
+    A 0-d array stays 0-d."""
+    dev = resolve_device(device)
+    out: dict = {}
+    for key, arr in _flat_numpy(tree):
+        node = out
+        *parents, leaf = port_checkpoint_key(key).split("/")
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = _tensor_from_numpy(np.asarray(arr)).to(dev)
+    return out

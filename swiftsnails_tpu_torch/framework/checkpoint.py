@@ -19,6 +19,10 @@ and no load path. Here, as in the JAX package:
   verifies every tensor's bytes against the manifest before it copies any
   of them (:class:`CheckpointError` on a mismatch: corrupt bytes never
   train, and a rejected step leaves the template as it was).
+* :func:`load_tables` — the serving plane's template-less restore: every
+  tensor of the newest step that verifies, rebuilt from the manifest's
+  ``shape`` and ``dtype`` and nested by canonical key, on the caller's
+  device (default: the card).
 * :func:`prune_checkpoints` — ``param_backup_keep`` retention, never the
   protected (restored-from) step and never the newest one.
 * :func:`export_table_text` — ``key<TAB>value`` text rows
@@ -42,13 +46,12 @@ tensor into pinned host buffers on the current stream (the next step's
 kernels queue behind it) and records an event that the writer waits on;
 a CPU tensor is cloned. The pinned buffers are reused from save to save.
 
-Not ported: ``load_tables``, the serving plane's template-less loader
-(``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -61,6 +64,7 @@ import numpy as np
 import torch
 
 from swiftsnails_tpu_torch.telemetry.ledger import atomic_write_json
+from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
 from swiftsnails_tpu_torch.utils.tree import tensor_items
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -520,6 +524,104 @@ def restore_checkpoint(
         for t, data in loaded:
             t.copy_(torch.from_numpy(data).view(t.dtype).reshape(t.shape))
     return state_template
+
+
+def _read_step(root: str, step: int) -> Tuple[Dict, List[Tuple[str, np.ndarray, Dict]]]:
+    """``(manifest, [(key, bytes, record), ...])`` of a committed step: every
+    tensor file read whole. Raises :class:`CheckpointError` for a torn save
+    and ``OSError`` for a file that cannot be read."""
+    path = _step_dir(root, step)
+    manifest = read_manifest(root, step)
+    if manifest is None or not isinstance(manifest.get("arrays"), dict) \
+            or not manifest["arrays"]:
+        raise CheckpointError(f"{path}: no committed manifest (a torn save)")
+    files = []
+    for key, meta in manifest["arrays"].items():
+        key = canonical_key(key)
+        data = np.fromfile(os.path.join(path, _array_file(key)), dtype=np.uint8)
+        files.append((key, data, meta))
+    return manifest, files
+
+
+def _tensor_from_bytes(key: str, data: np.ndarray, meta: Dict) -> torch.Tensor:
+    """The tensor a manifest record describes, over ``data`` (its raw
+    bytes). numpy has no bfloat16: the bytes are viewed as torch's."""
+    try:
+        dtype = getattr(torch, str(meta.get("dtype")))
+    except AttributeError:
+        dtype = None
+    if not isinstance(dtype, torch.dtype):
+        raise CheckpointError(f"{key}: unknown dtype {meta.get('dtype')!r}")
+    shape = [int(n) for n in meta.get("shape", [])]
+    want = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    if data.nbytes != want:
+        raise CheckpointError(f"{key}: {data.nbytes} bytes on disk, want {want} "
+                              f"for {meta.get('dtype')}{shape}")
+    return torch.from_numpy(data).view(dtype).reshape(shape)
+
+
+def _nest(items: List[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
+    """``[("table/table", t), ...]`` -> ``{"table": {"table": t}}``."""
+    tree: Dict[str, Any] = {}
+    for key, t in items:
+        node = tree
+        *parents, leaf = key.split("/")
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = t
+    return tree
+
+
+def load_tables(
+    root: str,
+    step: Optional[int] = None,
+    verify: bool = True,
+    retry=None,
+    device: DeviceLike = None,
+) -> Tuple[Dict[str, Any], Dict]:
+    """Query-only restore: ``(state_tree, manifest)`` with no trainer needed.
+
+    :func:`restore_checkpoint` needs a freshly initialized template; a
+    serving process has no trainer, so this rebuilds every tensor from the
+    manifest's ``shape`` and ``dtype`` and nests the tree by canonical key
+    (``in_table/table`` -> ``tree["in_table"]["table"]``; NamedTuple levels
+    become plain dicts, as in the JAX package). A 0-d tensor comes back as
+    ``[1]``, the shape its manifest records. With ``verify`` (default)
+    every tensor's CRC is checked before any tensor is returned. With
+    ``step=None`` the candidates are walked best first
+    (:func:`candidate_steps`) and the newest step that reads and verifies
+    wins; a torn or corrupt step is passed over, and if none survives every
+    rejection is collected into one :class:`CheckpointError`. ``retry`` (a
+    :class:`~swiftsnails_tpu_torch.resilience.retry.RetryPolicy`) absorbs
+    transient storage errors of a step's reads. The tensors go to
+    ``device`` (default: the card).
+    """
+    wait_for_checkpoints()  # never read past an in-flight save
+    dev = resolve_device(device)
+    steps = [int(step)] if step is not None else candidate_steps(root)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {root}")
+    rejections: List[str] = []
+    for s in steps:
+        try:
+            if retry is not None:
+                manifest, files = retry.call(_read_step, root, s,
+                                             op=f"ckpt_load:step_{s}")
+            else:
+                manifest, files = _read_step(root, s)
+            problems = [p for key, data, meta in files
+                        if (p := _crc_problem(key, data, meta))] if verify else []
+            if problems:
+                raise CheckpointError("manifest verification failed: "
+                                      + "; ".join(problems[:4]))
+            tensors = [(key, _tensor_from_bytes(key, data, meta))
+                       for key, data, meta in files]
+        except Exception as e:  # a step that cannot serve: try the next one
+            rejections.append(f"step_{s}: {type(e).__name__}: {e}")
+            continue
+        return _nest([(key, t.to(dev)) for key, t in tensors]), manifest
+    raise CheckpointError(
+        f"no restorable checkpoint under {root}: " + " | ".join(rejections[:4]))
 
 
 def export_table_text(table: torch.Tensor, path_or_file, keys: Optional[np.ndarray] = None,

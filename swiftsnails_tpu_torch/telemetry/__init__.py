@@ -24,11 +24,14 @@
   incident bundles (``drift_detect``), with its drill in
   :mod:`~swiftsnails_tpu_torch.telemetry.drift_lane`;
 * :mod:`~swiftsnails_tpu_torch.telemetry.summary` — the ``trace-summary``
-  reader.
+  reader;
+* the serving plane's request traces
+  (:mod:`~swiftsnails_tpu_torch.telemetry.request_trace`), SLO tracker
+  (:mod:`~swiftsnails_tpu_torch.telemetry.slo`) and ops dashboard
+  (:mod:`~swiftsnails_tpu_torch.telemetry.ops`).
 
-Not ported yet (``ROADMAP.md``): ``audit.py`` (XLA's HLO audit has no
-torch counterpart; ``step_cost`` counts instead), and the serving plane's
-``request_trace.py``, ``slo.py`` and ``ops.py``.
+Not ported (``ROADMAP.md``): ``audit.py`` (XLA's HLO audit has no torch
+counterpart; ``step_cost`` counts instead).
 
 Off by default: the TrainLoop only constructs these when the ``telemetry``
 or ``trace_path`` config keys are set (the ledger with ``ledger_path``), and

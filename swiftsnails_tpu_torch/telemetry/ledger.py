@@ -25,11 +25,12 @@ Record envelope::
 ``--diff A B`` (regression attribution between two run records) and
 ``--check-regression PCT`` (the bench gate plus the training plane's
 correctness gates: chaos recovery, the drift drill, the continuous
-profiler's and the tracer's own cost).
+profiler's and the tracer's own cost; and the serve lane's pull qps and
+p99).
 
 Not ported yet (``ROADMAP.md``): the regression checks of the scaling,
 placement, quantized-wire, zero, freshness, net, chaos-serve,
-chaos-cluster, serving, fleet and tiered planes, and the bench-cache helpers
+chaos-cluster, fleet and tiered planes, and the bench-cache helpers
 (``validate_bench_payload``, ``load_bench_cache``, ``derive_last_good``,
 hence ``--baseline-file``); each comes with the plane or the port bench
 that writes its records.
@@ -37,6 +38,7 @@ that writes its records.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -887,9 +889,10 @@ def check_regression(
     among all earlier measured (non-cached, non-reconstructed, on-chip —
     CPU smoke runs never count) bench records. Returns ``(exit_code,
     message)`` — nonzero when the newest run is more than ``max_drop_pct``
-    percent below the baseline (or nothing to gate on). The training
-    plane's correctness gates (:data:`PLANE_CHECKS`) run in every case, on
-    records of any platform, and their lines follow the headline's.
+    percent below the baseline (or nothing to gate on). The planes' gates
+    (:func:`_plane_checks`: the training plane's correctness and the serve
+    lane's qps and p99 against the same platform's) run in every case, and
+    their lines follow the headline's.
     """
     measured = [
         r for r in ledger.records("bench")
@@ -925,7 +928,7 @@ def check_regression(
                     f"ok: newest value {newest:,.1f} vs baseline {baseline:,.1f} "
                     f"({(newest / baseline - 1) * 100:+.1f}%, floor {floor:,.1f})"
                 )
-    for check in PLANE_CHECKS:
+    for check in _plane_checks(max_drop_pct):
         c_rc, c_msg = check(ledger)
         if c_msg:
             msg = f"{msg}\n{c_msg}"
@@ -1110,13 +1113,82 @@ def _check_profiler_overhead_regression(
 
 
 
-# the training plane's sub-checks, in the JAX gate's order
-PLANE_CHECKS = (
-    _check_chaos_regression,
-    _check_trace_overhead_regression,
-    _check_drift_regression,
-    _check_profiler_overhead_regression,
-)
+def _serving_values(record: Dict) -> Optional[Tuple[float, Optional[float]]]:
+    """(qps, p99_ms) from a bench payload's ``serving`` block, or None when
+    the serve lane didn't run in that record."""
+    s = record.get("payload", {}).get("serving")
+    if not isinstance(s, dict):
+        return None
+    qps = s.get("qps")
+    if not (isinstance(qps, (int, float)) and qps > 0):
+        return None
+    p99 = s.get("p99_ms")
+    p99 = float(p99) if isinstance(p99, (int, float)) and p99 > 0 else None
+    return float(qps), p99
+
+
+def _check_serving_regression(
+    ledger: Ledger, max_drop_pct: float
+) -> Tuple[int, Optional[str]]:
+    """Gate the serve lane's headline (pull qps + p99 latency) alongside the
+    training headline: the newest bench record carrying a ``serving`` block
+    must hold the qps floor AND the p99 ceiling against the best earlier
+    record of the *same platform* (absolute latency is platform-bound, so a
+    CPU record never gates a TPU one — but CPU-vs-CPU CI runs do gate).
+    No serving history (or a single record) gates nothing."""
+    with_serving = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict) and _serving_values(r)
+    ]
+    if not with_serving:
+        return 0, None
+    newest_rec = with_serving[-1]
+    platform = newest_rec["payload"].get("platform")
+    same = [r for r in with_serving
+            if r["payload"].get("platform") == platform]
+    qps, p99 = _serving_values(newest_rec)
+    earlier = [_serving_values(r) for r in same[:-1]]
+    if not earlier:
+        return 0, (
+            f"serving: single {platform or '?'} record (pull {qps:,.1f} qps)"
+            "; nothing to compare against"
+        )
+    base_qps = max(q for q, _ in earlier)
+    qps_floor = base_qps * (1.0 - max_drop_pct / 100.0)
+    problems = []
+    if qps < qps_floor:
+        problems.append(
+            f"pull qps {qps:,.1f} is {(1 - qps / base_qps) * 100:.1f}% below "
+            f"baseline {base_qps:,.1f} (allowed {max_drop_pct:.1f}%)"
+        )
+    earlier_p99 = [p for _, p in earlier if p]
+    if p99 is not None and earlier_p99:
+        base_p99 = min(earlier_p99)
+        p99_ceiling = base_p99 * (1.0 + max_drop_pct / 100.0)
+        if p99 > p99_ceiling:
+            problems.append(
+                f"pull p99 {p99:.2f}ms is {(p99 / base_p99 - 1) * 100:.1f}% "
+                f"above baseline {base_p99:.2f}ms "
+                f"(allowed {max_drop_pct:.1f}%)"
+            )
+    if problems:
+        return 1, "serving REGRESSION: " + "; ".join(problems)
+    return 0, (
+        f"serving ok: pull {qps:,.1f} qps / p99 {p99}ms vs "
+        f"qps baseline {base_qps:,.1f} ({platform or '?'})"
+    )
+
+
+def _plane_checks(max_drop_pct: float):
+    """The planes' sub-checks, in the JAX gate's order, each ``ledger ->
+    (rc, message or None)``."""
+    return (
+        _check_chaos_regression,
+        functools.partial(_check_serving_regression, max_drop_pct=max_drop_pct),
+        _check_trace_overhead_regression,
+        _check_drift_regression,
+        _check_profiler_overhead_regression,
+    )
 
 
 def _resolve_diff_record(ledger: Ledger, spec: str) -> Tuple[Dict, str]:

@@ -105,11 +105,85 @@ def test_cli_bad_config_is_fatal(tmp_path):
     assert proc.returncode != 0 and "config error" in proc.stderr
 
 
-@pytest.mark.parametrize("cmd", ["serve", "net-serve", "supervisor-status", "ops", "bogus"])
+@pytest.mark.parametrize("cmd", ["net-serve", "supervisor-status", "bogus"])
 def test_cli_unported_commands_exit_2(cmd, capsys):
     assert cli.main([cmd]) == 2
     err = capsys.readouterr().err
     assert ("ROADMAP.md" in err) == (cmd != "bogus")
+
+
+def _serve_checkpoint(tmp_path, cap=64, dim=8):
+    """A port checkpoint of a packed word2vec state (2 steps) and its conf."""
+    from swiftsnails_tpu_torch import convert
+    from swiftsnails_tpu_torch.ops import rowdma
+
+    root = tmp_path / "ck"
+    for step in (1, 2):
+        rng = np.random.default_rng(step)
+        shape = rowdma.packed_shape(cap, dim)
+        state = convert.w2v_state_from_numpy(
+            rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32), device="cpu")
+        ckpt.save_checkpoint(str(root), state, step=step)
+    conf = tmp_path / "serve.conf"
+    conf.write_text(f"model: word2vec\ndim: {dim}\ncapacity: {cap}\npacked: 1\n"
+                    "serve_batch_buckets: 4,16\n")
+    return conf, root, rowdma.unpack_rows(state.in_table.table, dim).numpy()
+
+
+def _serve(args, script, cwd):
+    return subprocess.run([sys.executable, "-m", "swiftsnails_tpu_torch", "serve", *args],
+                          input=script, capture_output=True, text=True, env=_env(),
+                          cwd=cwd, timeout=120)
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_cli_serve_repl_on_the_cpu(tmp_path, replicas):
+    import json
+
+    conf, root, rows = _serve_checkpoint(tmp_path)
+    fleet_ops = "add\ndrain r0\npull 5\n" if replicas > 1 else ""
+    script = ("pull 3 5 63\ntopk 3 4\nstats\nhealth\nops\nsubscribe /tmp/x\n"
+              f"freshness\nbogus\n{fleet_ops}\nquit\npull 1\n")
+    proc = _serve(["-config", str(conf), "-checkpoint", str(root), "-device", "cpu",
+                   "-replicas", str(replicas)], script, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = [json.loads(line) for line in proc.stdout.splitlines()]
+    np.testing.assert_allclose(out[0]["rows"], rows[[3, 5, 63]], rtol=0, atol=1e-6)
+    topk = out[1]["topk"]
+    assert len(topk) == 4 and 3 not in [i for i, _ in topk]
+    assert "kernels" in out[2] and out[3]["status"] == "ok"
+    assert out[4] == {"ops": "printed"}
+    assert "Queue 1 item 5" in out[5]["error"] and "Queue 1 item 5" in out[6]["error"]
+    assert "unknown op" in out[7]["error"]
+    if replicas > 1:
+        assert out[8] == {"added": "r2"} and out[9]["drained"]["clean"]
+        np.testing.assert_allclose(out[10]["rows"], rows[[5]], rtol=0, atol=1e-6)
+    assert "final_stats" in out[-1] and len(out) == (12 if replicas > 1 else 9)
+    assert "serving" in proc.stderr
+
+
+def test_cli_serve_without_a_card_names_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the default device is then valid")
+    conf, root, _ = _serve_checkpoint(tmp_path)
+    proc = _serve(["-config", str(conf), "-checkpoint", str(root)], "pull 1\n", tmp_path)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    assert not proc.stdout.strip()  # nothing was served on the CPU instead
+
+
+def test_cli_ops_renders_a_ledger(tmp_path, capsys):
+    from swiftsnails_tpu_torch.telemetry.ledger import Ledger
+
+    assert cli.main(["ops", str(tmp_path / "missing.jsonl")]) == 1
+    led = Ledger(str(tmp_path / "l.jsonl"))
+    led.append("slo_burn", {"source": "serving", "kernel": "pull", "burn_short": 3.0,
+                            "burn_long": 2.5, "alert_burn": 2.0,
+                            "budget_remaining_pct": 10.0, "slo_latency_ms": 5.0,
+                            "slo_availability": 0.999, "window_s": 60.0})
+    capsys.readouterr()
+    assert cli.main(["ops", str(tmp_path / "l.jsonl")]) == 0
+    assert "pull" in capsys.readouterr().out
 
 
 def test_cli_sigterm_drains_with_a_final_checkpoint(tmp_path, corpus):

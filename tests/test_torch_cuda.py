@@ -1002,3 +1002,76 @@ def test_profile_dir_capture_lists_the_hand_kernels(cuda_device, tmp_path):
         assert sum(us for name, us in kernels.items() if want in name) > 0, sorted(kernels)
     steps = {e["name"] for e in events if str(e.get("name", "")).startswith("word2vec#")}
     assert steps == {"word2vec#2", "word2vec#3", "word2vec#4"}
+
+
+# ---------------------------------------------------------------- serving ---
+
+
+@pytest.mark.parametrize("dim,kernel", [(200, True), (16, True), (17, False)])
+def test_serving_pull_on_the_card_against_plain(cuda_device, dim, kernel):
+    """``pull_rows`` launches ``gather_rows`` where a row is whole 16-byte
+    words (and ``index_select`` where not), equal to the plain version."""
+    from swiftsnails_tpu_torch.serving import pull_rows
+
+    gen = torch.Generator(device=cuda_device).manual_seed(dim)
+    table = torch.randn(5000, dim, generator=gen, device=cuda_device)
+    rows = torch.randint(0, 5000, (64,), generator=gen, device=cuda_device,
+                         dtype=torch.int32)
+    n0 = rowdma.gather_rows.launches
+    got = pull_rows(table, rows)
+    assert rowdma.gather_rows.launches == n0 + int(kernel)
+    assert torch.equal(got, rowdma.gather_rows_plain(table, rows))
+    bf = pull_rows(table, rows, comm_dtype="bfloat16")
+    assert torch.equal(bf, table.index_select(0, rows).bfloat16().float())
+
+
+def test_serving_apply_rows_on_the_card_against_plain(cuda_device):
+    """``Servant.apply_rows`` writes the delta with one ``scatter_write_rows``
+    launch, last occurrence winning, bit-equal to the CPU servant's."""
+    from swiftsnails_tpu_torch.serving import Servant
+
+    rng = np.random.default_rng(1)
+    table = rng.standard_normal((4096, 200)).astype(np.float32)
+    ids = np.concatenate([rng.choice(4096, 1000, replace=False), [7, 7]])
+    vals = rng.standard_normal((ids.shape[0], 200)).astype(np.float32)
+    probe = np.arange(4096, dtype=np.int32)
+    with Servant({"t": table}, device="cuda") as card, \
+            Servant({"t": table}, device="cpu") as cpu:
+        n0 = rowdma.scatter_write_rows.launches
+        card.apply_rows({"t": (ids, vals)})
+        assert rowdma.scatter_write_rows.launches == n0 + 1
+        cpu.apply_rows({"t": (ids, vals)})
+        np.testing.assert_array_equal(card.pull(probe), cpu.pull(probe))
+        np.testing.assert_array_equal(card.pull([7]), vals[-1:])
+
+
+def test_serving_topk_and_score_on_the_card_against_the_cpu(cuda_device):
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.serving import Servant, topk_tiled
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(2)
+    table = rng.standard_normal((10_000, 200)).astype(np.float32)
+    table[5000:5100] = 0.0  # tied rows
+    q = rng.standard_normal((8, 200)).astype(np.float32)
+    q[7] = 0.0
+    s_card, i_card = topk_tiled(torch.from_numpy(table).cuda(), torch.from_numpy(q).cuda(),
+                                k=10, tile_rows=4096)
+    s_cpu, i_cpu = topk_tiled(torch.from_numpy(table), torch.from_numpy(q), k=10,
+                              tile_rows=4096)
+    assert torch.equal(i_card.cpu(), i_cpu)
+    torch.testing.assert_close(s_card.cpu(), s_cpu, rtol=1e-5, atol=1e-6)
+    assert i_card[7].tolist() == list(range(10))
+    cfg = Config({"model": "widedeep", "num_fields": "6", "capacity": "4096",
+                  "embed_dim": "4", "hidden_dims": "16,8"})
+    data = (np.zeros(0, np.float32), np.zeros((0, 6), np.int32))
+    feats = rng.integers(0, 1 << 20, (100, 6)).astype(np.int32)
+    dense = {k: v.cpu().numpy() for k, v in
+             get_model("widedeep")(cfg, data=data, device="cpu").init_state().dense.items()}
+    wtable = rng.standard_normal((4096, 5)).astype(np.float32)
+    out = []
+    for dev in ("cuda", "cpu"):
+        scorer = get_model("widedeep")(cfg, data=data, device=dev)
+        with Servant({"table": wtable}, scorer=scorer, dense=dense, device=dev) as sv:
+            out.append(sv.score(feats))
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-5, atol=1e-7)

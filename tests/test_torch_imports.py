@@ -60,6 +60,35 @@ def test_telemetry_modules_are_held(module):
     assert module in _PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "swiftsnails_tpu_torch.serving", "swiftsnails_tpu_torch.serving.bench_lane",
+    "swiftsnails_tpu_torch.serving.breaker", "swiftsnails_tpu_torch.serving.cache",
+    "swiftsnails_tpu_torch.serving.engine", "swiftsnails_tpu_torch.serving.fleet",
+    "swiftsnails_tpu_torch.serving.kernels", "swiftsnails_tpu_torch.serving.loadgen",
+    "swiftsnails_tpu_torch.serving.router", "swiftsnails_tpu_torch.telemetry.ops",
+    "swiftsnails_tpu_torch.telemetry.request_trace", "swiftsnails_tpu_torch.telemetry.slo"])
+def test_serving_modules_are_held(module):
+    """The modules of the serving slice are among the ones imported without
+    JAX above and read for its names below."""
+    assert module in _PORT_MODULES
+
+
+def test_serving_entry_points_default_to_the_card(tmp_path):
+    """``Servant``, ``Fleet.from_checkpoint`` and ``serve_bench`` resolve
+    ``device=None`` to the card and raise without one."""
+    from swiftsnails_tpu_torch.serving import Fleet, Servant
+    from swiftsnails_tpu_torch.serving.bench_lane import serve_bench
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    _no_card()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Servant({"t": np.zeros((4, 4), np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Fleet.from_checkpoint(str(tmp_path), Config({}), replicas=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_bench(small=True, workdir=str(tmp_path))
+
+
 def test_cli_run_loads_no_jax():
     code = (
         "import runpy, sys\n"
