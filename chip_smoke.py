@@ -16,12 +16,13 @@ then ``python -m swiftsnails_tpu_torch train`` on ``examples/word2vec.conf``
 and ``examples/word2vec_fast.conf``, stopped by a real SIGTERM and resumed,
 the training fault drill, and the guardrail's cost; then the loop's
 telemetry (run ledger, spans, goodput, the ``torch.profiler`` window,
-resume from the ledger, the drift drill); last the serving read path
+resume from the ledger, the drift drill); then the serving read path
 (``Servant``, ``Fleet`` and ``python -m swiftsnails_tpu_torch serve`` over
 checkpoints of ``examples/word2vec.conf`` at capacity 1,048,576 and of
-``examples/widedeep.conf``).
+``examples/widedeep.conf``); last the tiered parameter store
+(``table_tier: host``: host masters behind a 64 MB cache on the card).
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only tiered]
 
 Run from the root of the repository on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. The
@@ -259,12 +260,53 @@ Phases:
     ``scatter_write_rows`` at one ``apply_rows`` (4,096 distinct rows),
     bit-equal to plain, timed beside it and ``index_select`` /
     ``index_copy_`` against the byte bound.
-17. ``kernels``: one line for every ported kernel, with its launches in the
-    run of its path (``path``) and its f32 numbers from phases 3, 7, 10 and
-    16 (``gather_rows`` and ``scatter_add_rows`` also at ``train_perpair``'s
-    shape and launches; ``gather_rows`` and ``scatter_write_rows`` also at
-    the serving shapes with the ``serve`` path's launches); then ``total``,
-    the script's seconds.
+17. ``tiered``: the tiered parameter store (``table_tier: host``) at the
+    bench's width, each leg's host arrays freed before the next. (1) The
+    ``train`` phase's packed+pool config, resident, 30 steps: the control's
+    losses, a CPU copy of both tables, and the card's allocated bytes when
+    the loop asks for its batches. (2) The same with a 64 MB cache
+    (``tier_hbm_budget_mb`` 64, ``tier_async_flush`` 1,
+    ``tier_prefetch_depth`` 2; 32,768 slots a table): every loss and both
+    master tables bit-equal to the control; evictions, flushed rows and
+    faults > 0; the card holding at least the two tables' bytes less the
+    caches' fewer bytes after ``adopt`` (>= 1.9 GiB); ``scatter_write_rows``
+    launched once a fault, ``gather_rows`` for the pulls plus one a flush
+    snapshot, ``scatter_add_rows`` 2 a step, nothing else. (3) A 2,048 MB
+    budget: transparent, bit-equal. (5) Leg 2 with ``tier_master_dtype:
+    int8``: each table's largest error within 0.05 of its largest value
+    against the control, ``verify()`` clean, its step-30 checkpoint f32.
+    (6) Leg 2 for 12 steps with ``param_backup_period`` 5,
+    ``tier_verify_period`` 5 and ``chaos_spec: tier_bitflip@7``: one
+    ``cache_error`` event with ``source: "tier"`` at step index 9, rebuilt
+    from step 5, ``verify()`` clean after. (4) ``examples/widedeep.conf``
+    resident and with a 192 MB cache (raised in 32 MB steps, below 256,
+    while a step's distinct tiles exceed it), 30 steps: table, dense
+    parameters, AdaGrad state and eval AUC bit-equal, evictions > 0, the
+    launches as in (2) with ``scatter_adagrad_fused_rows`` one a step.
+    (7) The serve phase's step-4 checkpoint through ``Servant.from_checkpoint``
+    with ``table_tier: host`` at 64 MB: 2,000 zipf ids in requests of 5,
+    40 and 70 bit-equal to the resident servant's, faults > 0; 8 topk
+    (k 10) streamed through the master, the resident ids and scores within
+    1e-6; 4,096 rows through ``apply_rows`` pulled back bit for bit. (8)
+    ``tiered_bench(small=False)``: parity, round trip and int8 leg true.
+    (9) ``tiered_timing``: words/sec and median step ms of legs 1–3,
+    examples/sec of leg 4, the breakdown a step (plan, fault, flush, remap,
+    H2D, flush wait), hit rate, bytes each way, ``adopt`` s, a 1 GiB
+    table's digest s. Then the kernels at the tiered shapes:
+    ``scatter_write_rows`` installing the median faulted rows a step into
+    the ``[32,768, 2, 128]`` cache beside ``index_copy_``, ``gather_rows``
+    snapshotting the median dirty victims an eviction beside
+    ``index_select``, ``scatter_add_rows`` and ``scatter_adagrad_fused_rows``
+    at the cache planes' push shapes; bit-equal to plain, against the byte
+    bound. ``--only tiered`` runs this phase alone (with the build and a
+    serve checkpoint of its own) and prints no result line.
+18. ``kernels``: one line for every ported kernel, with its launches in the
+    run of its path (``path``) and its f32 numbers from phases 3, 7, 10, 16
+    and 17 (``gather_rows`` and ``scatter_add_rows`` also at
+    ``train_perpair``'s shape and launches; ``gather_rows`` and
+    ``scatter_write_rows`` also at the serving shapes with the ``serve``
+    path's launches; all four row kernels of the tiered runs with ``path:
+    "tiered"``); then ``total``, the script's seconds.
 """
 
 from __future__ import annotations
@@ -417,6 +459,7 @@ def phase_env() -> dict:
            "nvidia_smi": smi_line, "torch": torch.__version__,
            "cuda": torch.version.cuda, "mem_rate_Bps": mem_rate(name),
            "f32_rate_flops": f32_rate(name),
+           "host_available_bytes": _host_available(),
            "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
            "tf32_cudnn": torch.backends.cudnn.allow_tf32}
     emit("env", **env)
@@ -2921,12 +2964,15 @@ def phase_serve(seed: int, corpora, env: dict, widedeep: dict, device: str = "cu
                 raise AssertionError(f"serve lane: {lane}")
             emit("serve_bench", serving=lane, **card)
             table = sv._tables["in_table"]
+            # the checkpoint stays for the tiered phase, which removes `tmp`
             return {"launches": launches, "table": table, "ids": ids_all,
-                    "seconds": time.monotonic() - t_phase}
+                    "seconds": time.monotonic() - t_phase, "tmp": tmp, "root": root,
+                    "cfg": cfg}
         finally:
             sv.close()
-    finally:
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
 
 
 def phase_serve_kernels(served: dict, seed: int, rate: float) -> dict:
@@ -2968,9 +3014,547 @@ def phase_serve_kernels(served: dict, seed: int, rate: float) -> dict:
     return summary
 
 
+# ------------------------------------------------------------ tiered store ---
+
+# table_tier: host at the bench's width (phase 17): the packed+pool `train`
+# config over two [1,048,576, 2, 128] f32 tables (1 GiB each) under the key's
+# default budget, 64 MB: 32,768 slots a table, 1/32 of it.
+TIER = {"table_tier": "host", "tier_hbm_budget_mb": 64, "tier_async_flush": 1,
+        "tier_prefetch_depth": 2}
+TIER_TRANSPARENT_MB = 2048  # covers both tables: the pass-through mode
+TIER_WD_BUDGET_MB = 192  # 3/4 of Wide & Deep's 256 MiB small-row table
+TIER_WD_STEP_MB = 32  # raised by this while a step's tiles exceed the budget
+TIER_HEAL_STEPS = 12
+TIER_HEAL = {"param_backup_period": 5, "tier_verify_period": 5,
+             "chaos_spec": "tier_bitflip@7"}
+QUANTIZED_REL_ERR_MAX = 0.05  # the JAX lane's int8-master bound
+TIER_TOPK_ATOL = 1e-6
+TIER_MEM_FLOOR = int(1.9 * (1 << 30))  # bytes the tier must free on the card
+
+
+def _host_available() -> int:
+    """The host's available RAM in bytes (``MemAvailable``), or -1."""
+    try:
+        with open("/proc/meminfo", encoding="utf-8") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return -1
+
+
+def _tier_probe(loop, trainer) -> dict:
+    """Instrument a run from outside the package: device memory when the
+    loop asks for its batches (after ``init_state``, and on the tier after
+    ``adopt``, whose full-size planes are then unreferenced), ``adopt``'s
+    seconds, and each table's install and snapshot sizes (one
+    ``scatter_write_rows`` / ``gather_rows`` a plane each)."""
+    probe = {"mem": [], "adopt_s": None, "installs": [], "evict_snapshots": [],
+             "flush_snapshots": []}
+    batches = trainer.batches
+
+    def counted_batches():
+        torch.cuda.synchronize()
+        probe["mem"].append(torch.cuda.memory_allocated())
+        return batches()
+
+    trainer.batches = counted_batches
+    tier = loop.tier
+    if tier is None:
+        return probe
+    adopt = tier.adopt
+
+    def timed_adopt(state):
+        t0 = time.perf_counter()
+        out = adopt(state)
+        probe["adopt_s"] = time.perf_counter() - t0
+        for tt in tier.tables.values():
+            write, flush = tt._write_state, tt._flush_slots
+
+            def write_state(cache, slots, *a, _w=write):
+                probe["installs"].append(int(np.size(slots)))
+                return _w(cache, slots, *a)
+
+            def flush_slots(cache, slots, sync=False, _f=flush):
+                probe["flush_snapshots" if sync else "evict_snapshots"].append(int(slots.size))
+                return _f(cache, slots, sync=sync)
+
+            tt._write_state, tt._flush_slots = write_state, flush_slots
+        return out
+
+    tier.adopt = timed_adopt
+    return probe
+
+
+def _tier_w2v(seed: int, corpora, steps: int = STEPS, **extra) -> dict:
+    """The ``train`` phase's packed+pool config (``extra`` on top) for
+    ``steps`` steps, counted and probed."""
+    trainer, loop, records = _train_loop("train", seed, corpora, **extra)
+    probe = _tier_probe(loop, trainer)
+    t0 = time.perf_counter()
+    state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=steps))
+    seconds = time.perf_counter() - t0
+    losses = [r["loss"] for r in records]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"tiered: losses {losses}")
+    steady = records[5:]
+    step_ms = [r["seconds"] * 1e3 for r in steady]
+    words = sum(r["items"] for r in steady) / corpora[False][2]
+    return {"trainer": trainer, "loop": loop, "state": state, "launches": launches,
+            "probe": probe, "losses": losses, "seconds": seconds,
+            "words_per_sec": words / sum(r["seconds"] for r in steady),
+            "step_ms_median": statistics.median(step_ms)}
+
+
+def _tier_timing(run: dict, steps: int) -> dict:
+    """The tier's step-time breakdown a step, hit rate, bytes and rates."""
+    s = run["loop"].tier.summary()
+    bd = s["breakdown"]
+    per_step = {k: bd[k] / steps for k in ("plan_ns", "fault_ns", "flush_ns", "remap_ns",
+                                           "h2d_ns", "flush_wait_ns")}
+    return {"words_per_sec": run.get("words_per_sec"), "step_ms_median": run["step_ms_median"],
+            "breakdown_per_step_ns": per_step, "hit_rate": s["hit_rate"],
+            "faults": s["faults"], "faulted_rows": s["faulted_rows"],
+            "evictions": s["evictions"], "flushed_rows": s["flushed_rows"],
+            "h2d_bytes": bd["h2d_bytes"], "d2h_bytes": bd["d2h_bytes"],
+            # bytes over the host time that moved them: the staging copies'
+            # dispatch (h2d_ns), the flush landings (flush_ns: D2H + scatter)
+            "h2d_GBps_over_h2d_ns": bd["h2d_bytes"] / bd["h2d_ns"] if bd["h2d_ns"] else None,
+            "d2h_GBps_over_flush_ns": bd["d2h_bytes"] / bd["flush_ns"] if bd["flush_ns"] else None,
+            "adopt_s": run["probe"]["adopt_s"], "run_s": run["seconds"],
+            "prefetch_depth": s["prefetch_depth"], "transparent": s["transparent"]}
+
+
+def _same_run(what: str, run: dict, control: dict) -> None:
+    """Every step's loss and both final tables bit-equal to the control."""
+    if run["losses"] != control["losses"]:
+        diff = [i for i, (a, b) in enumerate(zip(run["losses"], control["losses"])) if a != b]
+        raise AssertionError(f"{what}: losses differ from the resident run at steps {diff}")
+    for name in ("in_table", "out_table"):
+        got = getattr(run["state"], name).table
+        if got.device.type != "cpu" or not torch.equal(got, control[name]):
+            raise AssertionError(f"{what}: {name} differs from the resident run's")
+
+
+def _wd_tiles(seed: int, trainer) -> list:
+    """Distinct small-row tiles each of the first CTR_STEPS batches touches."""
+    from swiftsnails_tpu_torch.ops.hashing import hash_row_np
+    from swiftsnails_tpu_torch.parallel.store import small_group
+
+    g = small_group(trainer.table_dim)
+    out = []
+    for _, b in zip(range(CTR_STEPS), trainer.batches()):
+        rows = hash_row_np(np.maximum(b["feats"], 0), trainer.capacity)
+        out.append(int(np.unique(rows // g).size))
+    return out
+
+
+def _wd_run(seed: int, budget_mb=None) -> dict:
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+    cfg = _widedeep_config(seed)
+    if budget_mb is not None:
+        cfg.set("table_tier", "host")
+        cfg.set("tier_hbm_budget_mb", str(budget_mb))
+    (labels, feats), (eval_labels, eval_feats) = _ctr_data(seed)
+    trainer = get_model(cfg.get_str("model"))(cfg, data=(labels, feats))
+    records = []
+
+    class Recorder(MetricsLogger):
+        def log(self, record):
+            records.append(record)
+
+    loop = TrainLoop(trainer, metrics=Recorder(), log_every=1)
+    probe = _tier_probe(loop, trainer)
+    t0 = time.perf_counter()
+    state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=CTR_STEPS))
+    seconds = time.perf_counter() - t0
+    steady = records[5:]
+    return {"trainer": trainer, "loop": loop, "state": state, "launches": launches,
+            "probe": probe, "losses": [r["loss"] for r in records], "seconds": seconds,
+            "examples_per_sec": sum(r["items"] for r in steady)
+            / sum(r["seconds"] for r in steady),
+            "step_ms_median": statistics.median(r["seconds"] * 1e3 for r in steady),
+            "auc": trainer.eval_auc(state, labels=eval_labels, feats=eval_feats)}
+
+
+def _tier_launches(what: str, run: dict, pulls: int, pushes: dict) -> None:
+    """On a tiered run: one ``scatter_write_rows`` a fault (the prewarm's
+    included), ``gather_rows`` for the step's pulls plus one a flush
+    snapshot, the push kernels a step, nothing else."""
+    s = run["loop"].tier.summary()
+    p = run["probe"]
+    snaps = len(p["evict_snapshots"]) + len(p["flush_snapshots"])
+    want = {"scatter_write_rows": s["faults"], "gather_rows": pulls + snaps, **pushes}
+    _check_launches(what, run["launches"], want)
+
+
+def phase_tiered(seed: int, corpora, env: dict, serve: dict) -> dict:
+    """The tiered parameter store at full width (see the module docstring,
+    phase 17). Returns the launches and shapes for the kernel timings."""
+    import gc
+
+    from swiftsnails_tpu_torch.framework.checkpoint import load_tables
+    from swiftsnails_tpu_torch.parallel.store import PackedTableState
+    from swiftsnails_tpu_torch.serving import Servant
+    from swiftsnails_tpu_torch.telemetry.ledger import Ledger
+    from swiftsnails_tpu_torch.tiered import HostMaster
+    from swiftsnails_tpu_torch.tiered.bench_lane import tiered_bench
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    t_phase = time.monotonic()
+    card = {"device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+    tmp = tempfile.mkdtemp(prefix="ssn-tiered-")
+    table_bytes = VOCAB * 2 * 128 * 4
+    # the card's allocated bytes are compared across legs: start them from
+    # what the earlier phases left reachable, their garbage collected
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        # 1. the resident control
+        run = _tier_w2v(seed, corpora)
+        control = {"losses": run["losses"], "mem": run["probe"]["mem"][0],
+                   "in_table": run["state"].in_table.table.cpu(),
+                   "out_table": run["state"].out_table.table.cpu()}
+        timing = {"resident": {"words_per_sec": run["words_per_sec"],
+                               "step_ms_median": run["step_ms_median"],
+                               "run_s": run["seconds"]}}
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        master = HostMaster(PackedTableState(table=control["in_table"], slots={}), "packed",
+                            checksums=False)
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        master._init_digests()
+        digest_s = time.perf_counter() - t0  # the digests of one 1 GiB table
+        del master
+
+        # 2. over budget: 64 MB of cache over 2 GiB of masters
+        run = _tier_w2v(seed, corpora, **TIER)
+        _same_run("tiered over budget", run, control)
+        s = run["loop"].tier.summary()
+        if not (s["evictions"] > 0 and s["flushed_rows"] > 0 and s["faults"] > 0):
+            raise AssertionError(f"tiered over budget: {s}")
+        cache_bytes = sum(t["budget_slots"] * t["unit_bytes"] for t in s["tables"].values())
+        freed = control["mem"] - run["probe"]["mem"][0]
+        if freed < 2 * table_bytes - cache_bytes or freed < TIER_MEM_FLOOR:
+            raise AssertionError(f"tiered: the card holds {freed} bytes less than the "
+                                 f"resident run, want >= {2 * table_bytes - cache_bytes}")
+        _tier_launches("tiered over budget", run, 2 * STEPS, {"scatter_add_rows": 2 * STEPS})
+        p = run["probe"]
+        shapes = {"install_rows_median": statistics.median(p["installs"]),
+                  "snapshot_rows_median": statistics.median(p["evict_snapshots"]),
+                  "cache": [s["tables"]["in_table"]["budget_slots"],
+                            *run["state"].in_table.table.shape[1:]]}
+        launches = {k: run["launches"][k] for k in ("scatter_write_rows", "gather_rows",
+                                                    "scatter_add_rows")}
+        timing["over_budget"] = _tier_timing(run, STEPS)
+        emit("tiered_over_budget", steps=STEPS, budget_mb=TIER["tier_hbm_budget_mb"],
+             tables={k: v for k, v in s["tables"].items()}, bit_equal=True,
+             mem_resident=control["mem"], mem_tiered=run["probe"]["mem"][0], freed=freed,
+             freed_floor=2 * table_bytes - cache_bytes, launches=run["launches"],
+             installs=len(p["installs"]), evict_snapshots=len(p["evict_snapshots"]),
+             flush_snapshots=len(p["flush_snapshots"]), **shapes, **card)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. transparent: a budget over both tables
+        run = _tier_w2v(seed, corpora, **{**TIER, "tier_hbm_budget_mb": TIER_TRANSPARENT_MB})
+        _same_run("tiered transparent", run, control)
+        s = run["loop"].tier.summary()
+        if not s["transparent"] or s["faulted_rows"] or s["evictions"]:
+            raise AssertionError(f"tiered transparent: {s}")
+        _check_launches("tiered transparent", run["launches"],
+                        {"gather_rows": 2 * STEPS, "scatter_add_rows": 2 * STEPS})
+        timing["transparent"] = _tier_timing(run, STEPS)
+        emit("tiered_transparent", budget_mb=TIER_TRANSPARENT_MB, bit_equal=True,
+             transparent_steps=s["transparent_steps"], **card)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. int8 masters on leg 2's schedule, one checkpoint at the end
+        q_root = os.path.join(tmp, "q8")
+        run = _tier_w2v(seed, corpora, **TIER, tier_master_dtype="int8",
+                        param_backup_root=q_root, param_backup_period=STEPS)
+        s = run["loop"].tier.summary()
+        rel = {}
+        for name in ("in_table", "out_table"):
+            got, want = getattr(run["state"], name).table, control[name]
+            rel[name] = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+        verify = run["loop"].tier.verify()
+        ck, _ = load_tables(q_root, step=STEPS, device="cpu")
+        dtypes = {name: str(ck[name]["table"].dtype) for name in ck}
+        if (max(rel.values()) > QUANTIZED_REL_ERR_MAX or verify or s["master_dtype"] != "int8"
+                or set(dtypes.values()) != {"torch.float32"}):
+            raise AssertionError(f"tiered int8: rel {rel} verify {verify} ckpt {dtypes}")
+        timing["int8"] = _tier_timing(run, STEPS)
+        emit("tiered_int8", max_rel_err=rel, limit=QUANTIZED_REL_ERR_MAX,
+             verify_clean=True, checkpoint_dtypes=dtypes,
+             host_unit_bytes=s["tables"]["in_table"]["host_unit_bytes"],
+             unit_bytes=s["tables"]["in_table"]["unit_bytes"], **card)
+        del run, ck
+        shutil.rmtree(q_root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6. the heal drill: a bit flipped at step 7, swept at step index 9
+        h_root = os.path.join(tmp, "heal")
+        ledger_path = os.path.join(tmp, "heal.jsonl")
+        run = _tier_w2v(seed, corpora, TIER_HEAL_STEPS, **TIER, **TIER_HEAL,
+                        chaos_seed=seed, param_backup_root=h_root, ledger_path=ledger_path)
+        events = [e for e in Ledger(ledger_path).records("cache_error")
+                  if e.get("source") == "tier"]
+        verify = run["loop"].tier.verify()
+        if (len(events) != 1 or events[0]["step"] != 9
+                or events[0]["rebuilt_from_step"] != 5 or verify):
+            raise AssertionError(f"tiered heal: events {events}, verify {verify}")
+        emit("tiered_heal", steps=TIER_HEAL_STEPS, chaos=TIER_HEAL["chaos_spec"],
+             event=events[0], final_loss=run["losses"][-1], verify_clean=True,
+             run_s=run["seconds"], **card)
+        del run
+        shutil.rmtree(h_root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        del control
+        gc.collect()
+
+        # 4. Wide & Deep on the small-row plane, 3/4 of its table
+        res = _wd_run(seed)
+        wd_control = {"table": res["state"].table.table.cpu(),
+                      "dense": {k: v.clone() for k, v in res["state"].dense.items()},
+                      "opt": {k: v.clone() for k, v in
+                              res["state"].opt["sum_of_squares"].items()},
+                      "auc": res["auc"], "losses": res["losses"]}
+        tiles = _wd_tiles(seed, res["trainer"])
+        wd_timing = {"examples_per_sec": res["examples_per_sec"],
+                     "step_ms_median": res["step_ms_median"]}
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        budget = TIER_WD_BUDGET_MB
+        while max(tiles) > budget * (1 << 20) // 1024 and budget + TIER_WD_STEP_MB < 256:
+            budget += TIER_WD_STEP_MB
+        run = _wd_run(seed, budget)
+        s = run["loop"].tier.summary()
+        st = run["state"]
+        same = (run["losses"] == wd_control["losses"]
+                and torch.equal(st.table.table, wd_control["table"])
+                and all(torch.equal(st.dense[k], v) for k, v in wd_control["dense"].items())
+                and all(torch.equal(st.opt["sum_of_squares"][k], v)
+                        for k, v in wd_control["opt"].items())
+                and run["auc"] == wd_control["auc"])
+        if not same or not s["evictions"] > 0:
+            raise AssertionError(f"tiered widedeep: bit-equal {same}, {s}")
+        _tier_launches("tiered widedeep", run, CTR_STEPS,
+                       {"scatter_adagrad_fused_rows": CTR_STEPS})
+        launches["scatter_adagrad_fused_rows"] = run["launches"]["scatter_adagrad_fused_rows"]
+        shapes["wd_cache"] = [s["tables"]["table"]["budget_slots"], *st.table.table.shape[1:]]
+        shapes["wd_pushed_tiles"] = tiles[0]
+        timing["widedeep"] = {"resident": wd_timing,
+                              "tiered": {"examples_per_sec": run["examples_per_sec"],
+                                         "step_ms_median": run["step_ms_median"],
+                                         **{k: v for k, v in _tier_timing(run, CTR_STEPS).items()
+                                            if k not in ("words_per_sec", "step_ms_median")}}}
+        emit("tiered_widedeep", config=WIDEDEEP_CONF, budget_mb=budget,
+             budget_raised=budget != TIER_WD_BUDGET_MB, max_step_tiles=max(tiles),
+             budget_tiles=s["tables"]["table"]["budget_slots"],
+             master_tiles=s["tables"]["table"]["master_units"], bit_equal=True,
+             eval_auc=run["auc"], launches=run["launches"], **card)
+        del run, wd_control
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 7. tiered serving of the serve phase's checkpoint
+        cfg = serve["cfg"]
+        tcfg = Config({**cfg.as_dict(), "table_tier": "host",
+                       "tier_hbm_budget_mb": str(TIER["tier_hbm_budget_mb"])})
+        rng = np.random.default_rng(seed + 17)
+        with Servant.from_checkpoint(serve["root"], cfg, step=SERVE_TRAIN_STEPS) as res_sv, \
+                Servant.from_checkpoint(serve["root"], tcfg, step=SERVE_TRAIN_STEPS) as tier_sv:
+            if not tier_sv.tier:
+                raise AssertionError("tiered serving: no tier")
+            ids_all = zipf_ids(SERVE_PULL_IDS, CLI_CAPACITY, rng)
+            lo, k = 0, 0
+            counters = _counters()
+            g0 = counters["gather_rows"].launches
+            while lo < len(ids_all):
+                n = SERVE_REQUEST_IDS[k % len(SERVE_REQUEST_IDS)]
+                ids = ids_all[lo:lo + n]
+                lo, k = lo + n, k + 1
+                if not np.array_equal(tier_sv.pull(ids), res_sv.pull(ids)):
+                    raise AssertionError("tiered serving: a pull differs from the resident one")
+            serve_gathers = counters["gather_rows"].launches - g0
+            ts = tier_sv.stats()
+            if not ts["tiered"]["faults"] > 0:
+                raise AssertionError(f"tiered serving: {ts['tiered']}")
+            topk = []
+            for qi in rng.integers(0, CLI_CAPACITY, SERVE_TOPK_QUERIES):
+                q = res_sv.pull([int(qi)])[0]
+                a, b = res_sv.topk(q, k=SERVE_K), tier_sv.topk(q, k=SERVE_K)
+                err = max(abs(x[1] - y[1]) for x, y in zip(a, b))
+                if [x[0] for x in a] != [y[0] for y in b] or err > TIER_TOPK_ATOL:
+                    raise AssertionError(f"tiered topk: {a} vs {b}")
+                topk.append(err)
+            dids = rng.choice(CLI_CAPACITY, SERVE_DELTA_ROWS, replace=False)
+            vals = rng.standard_normal((SERVE_DELTA_ROWS, cfg.get_int("dim"))).astype(np.float32)
+            tier_sv.apply_rows({"in_table": (dids, vals)})
+            for c in range(0, SERVE_DELTA_ROWS, SERVE_BUCKETS[-1]):
+                if not np.array_equal(tier_sv.pull(dids[c:c + SERVE_BUCKETS[-1]]),
+                                      vals[c:c + SERVE_BUCKETS[-1]]):
+                    raise AssertionError("tiered serving: apply_rows not pulled back")
+            emit("tiered_serve", ids=SERVE_PULL_IDS, bit_equal=True,
+                 tiered=ts["tiered"], gather_rows_launches=serve_gathers,
+                 topk_max_abs_err=max(topk), topk_atol=TIER_TOPK_ATOL,
+                 apply_rows=SERVE_DELTA_ROWS,
+                 pull_ms={"tiered": ts["kernels"]["pull"],
+                          "resident": res_sv.stats()["kernels"]["pull"]},
+                 **card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 8. the lane, as the JAX package defines it
+        os.makedirs(os.path.join(tmp, "lane"))
+        lane = tiered_bench(small=False, workdir=os.path.join(tmp, "lane"))
+        if not (lane["parity_bit_identical"] and lane["round_trip_ok"]
+                and lane["quantized_ok"]):
+            raise AssertionError(f"tiered lane: {lane}")
+        emit("tiered_lane", tiered=lane, **card)
+
+        # 9. the timings
+        emit("tiered_timing", legs=timing, digest_build_s=digest_s, master_copy_s=copy_s,
+             host_available_bytes=_host_available(), **card)
+        return {"launches": launches, "shapes": shapes,
+                "seconds": time.monotonic() - t_phase}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_tiered_kernels(tiered: dict, seed: int, rate: float) -> dict:
+    """The kernels of the tiered path at its shapes: ``scatter_write_rows``
+    installing the run's median faulted rows a step into the ``[32,768, 2,
+    128]`` cache (distinct slots), beside ``index_copy_``;
+    ``gather_rows`` snapshotting the median dirty victims an eviction,
+    beside ``index_select``; ``scatter_add_rows`` pushing a step's merged
+    out-table rows into the cache; ``scatter_adagrad_fused_rows`` pushing a
+    Wide & Deep step's tiles into its cache. Bit-equal to the plain
+    versions, timed, against the byte bound. Not counted: the tiered runs'
+    launches were read before."""
+    from swiftsnails_tpu_torch.ops import rowdma
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 19)
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    sh = tiered["shapes"]
+    slots = sh["cache"][0]
+    cache = torch.randn(sh["cache"], generator=gen, device=dev)
+    row_bytes = cache.stride(0) * cache.element_size()
+    summary = {}
+    n = int(sh["install_rows_median"])
+    sets = []
+    for _ in range(ROW_SETS):
+        uniq = torch.from_numpy(rng.choice(slots, n, replace=False).astype(np.int32)).to(dev)
+        sets.append((uniq, torch.randn((n, *sh["cache"][1:]), generator=gen, device=dev),
+                     uniq.long(), n))
+    case = _push_case(
+        lambda b, u, v: (rowdma.scatter_write_rows(b[0], u, v),),
+        lambda b, u, v: (rowdma.scatter_write_rows_plain(b[0], u, v),),
+        [cache.clone()], sets, lambda b, st: b[0].index_copy_(0, st[2], st[1]),
+        n * (2 * row_bytes + 4), n, rate)
+    emit("kernel", name="scatter_write_rows", dtype="torch.float32", path="tiered", **case)
+    summary["scatter_write_rows_tiered"] = {"shape": list(cache.shape), **case}
+    n = int(sh["snapshot_rows_median"])
+    gsets = [torch.from_numpy(rng.choice(slots, n, replace=False).astype(np.int32)).to(dev)
+             for _ in range(ROW_SETS)]
+    case = _gather_case(cache, gsets, rate)
+    emit("kernel", name="gather_rows", dtype="torch.float32", path="tiered", rows=n, **case)
+    summary["gather_rows_tiered"] = {"shape": [n, *sh["cache"][1:]], **case}
+    n = GATHER_ROWS[1]  # a step's out-table push: contexts + pool rows, merged
+    ssets, n_valid = [], []
+    for _ in range(ROW_SETS):
+        uniq = torch.unique(torch.from_numpy(zipf_ids(n, slots, rng)).to(dev))
+        n_valid.append(int(uniq.numel()))
+        pad = torch.full((n - uniq.numel(),), slots, dtype=torch.int32, device=dev)
+        ssets.append(torch.cat([uniq.to(torch.int32), pad]))
+    deltas = [torch.randn((n, *sh["cache"][1:]), generator=gen, device=dev).mul_(1e-3)
+              for _ in range(ROW_SETS)]
+    case = _scatter_case(cache, ssets, deltas, n_valid, rate)
+    emit("kernel", name="scatter_add_rows", dtype="torch.float32", path="tiered", rows=n, **case)
+    summary["scatter_add_rows_tiered"] = {"shape": [n, *sh["cache"][1:]], **case}
+    del cache, deltas, ssets, gsets, sets
+    wd = sh["wd_cache"]
+    lr = _widedeep_config(seed).get_float("learning_rate")
+    fused = torch.cat([torch.randn((wd[0], 1, 128), generator=gen, device=dev).mul_(0.01),
+                       torch.rand((wd[0], 1, 128), generator=gen, device=dev).mul_(0.1)], 1)
+    n = int(sh["wd_pushed_tiles"])
+    sets = []
+    for _ in range(CTR_ROW_SETS):
+        uniq = torch.from_numpy(rng.choice(wd[0], n, replace=False).astype(np.int32)).to(dev)
+        sets.append((uniq, torch.randn((n, 1, 128), generator=gen, device=dev).mul_(0.01),
+                     uniq.long(), n))
+    half = 128 * 4
+    case = _push_case(
+        lambda b, u, v: (rowdma.scatter_adagrad_fused_rows(b[0], u, v, lr),),
+        lambda b, u, v: (rowdma.scatter_adagrad_fused_rows_plain(b[0], u, v, lr),),
+        [fused], sets, None, n * 5 * half + n * 4, n, rate)
+    emit("kernel", name="scatter_adagrad_fused_rows", dtype="torch.float32", path="tiered", **case)
+    summary["scatter_adagrad_fused_rows_tiered"] = {"shape": list(fused.shape), **case}
+    del fused, sets
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _tiered_kernel_entries(summary: dict, tiered: dict) -> list:
+    """The ``kernels`` line's ``path: "tiered"`` entries: each kernel at the
+    tiered path's shapes (``phase_tiered_kernels``) with its launches in the
+    tiered runs (over budget; Wide & Deep for the AdaGrad push)."""
+    out = []
+    for key, name, replaces in (
+            ("scatter_write_rows", "scatter_write_rows", "swiftsnails_tpu/ops/rowdma.py:289"),
+            ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+            ("scatter_add_rows", "scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213"),
+            ("scatter_adagrad_fused_rows", "scatter_adagrad_fused_rows",
+             "swiftsnails_tpu/ops/rowdma.py:552")):
+        s = summary[f"{key}_tiered"]
+        out.append({
+            "name": name, "route": "cuda", "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": replaces, "launches": tiered["launches"][key],
+            "max_abs_err": s["max_abs_err"], "ms": s.get("ms", s.get("kernel_ms")),
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": "bytes",
+            "library_ms": s["library_ms"], "shape": s["shape"], "dtype": "float32",
+            "path": "tiered"})
+    return out
+
+
+def _only_tiered(seed: int, env: dict, t_start: float) -> int:
+    """``--only tiered``: the tiered phase over its own serve checkpoint."""
+    corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
+    tmp = tempfile.mkdtemp(prefix="ssn-serve-")
+    try:
+        root = os.path.join(tmp, "ckpt")
+        built = _build_serve_checkpoint(seed, corpora, root, "cuda")
+        tiered = phase_tiered(seed, corpora, env, {"root": root, "cfg": built["cfg"]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = phase_tiered_kernels(tiered, seed, env["mem_rate_Bps"])
+    emit("kernels", kernels=_tiered_kernel_entries(summary, tiered))
+    emit("total", seconds=time.monotonic() - t_start)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("tiered",),
+                    help="run only this phase (with the build and the inputs it "
+                         "needs) and print no result line: a quicker check while "
+                         "working on it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
@@ -2981,6 +3565,8 @@ def main() -> int:
     t_start = time.monotonic()
     env = phase_env()
     phase_build()
+    if args.only == "tiered":
+        return _only_tiered(args.seed, env, t_start)
     summary = phase_kernels(args.seed, env["mem_rate_Bps"])
     summary.update(phase_fused_kernels(args.seed, env))
     for path in PATHS:
@@ -3037,11 +3623,20 @@ def main() -> int:
         served = phase_serve(args.seed, corpora, env, widedeep)
     finally:
         shutil.rmtree(serve_tmp, ignore_errors=True)
-    summary.update(phase_serve_kernels(served, args.seed, env["mem_rate_Bps"]))
-    emit("serve_total", seconds=served["seconds"], device=env["device"],
-         nvidia_smi=env["nvidia_smi"])
-    serve_launches = served["launches"]
+    try:
+        summary.update(phase_serve_kernels(served, args.seed, env["mem_rate_Bps"]))
+        emit("serve_total", seconds=served["seconds"], device=env["device"],
+             nvidia_smi=env["nvidia_smi"])
+        serve_launches = served["launches"]
+        del served["table"]
+        torch.cuda.empty_cache()
+        tiered = phase_tiered(args.seed, corpora, env, served)
+    finally:
+        shutil.rmtree(served["tmp"], ignore_errors=True)
     del served
+    summary.update(phase_tiered_kernels(tiered, args.seed, env["mem_rate_Bps"]))
+    emit("tiered_total", seconds=tiered["seconds"], device=env["device"],
+         nvidia_smi=env["nvidia_smi"])
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
@@ -3122,6 +3717,7 @@ def main() -> int:
                if k in s},
             "shape": {**shape, "table": [VOCAB, -(-DIM // 128), 128]},
             "dtype": "float32"})
+    kernels.extend(_tiered_kernel_entries(summary, tiered))
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),
                            ("chunk_probe", "tools/sem_probe.py:164"),
                            ("pipe_probe", "tools/sem_probe.py:233")):

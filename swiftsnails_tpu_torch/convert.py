@@ -172,3 +172,43 @@ def tree_from_numpy(tree, *, device: DeviceLike) -> dict:
             node = node.setdefault(name, {})
         node[leaf] = _tensor_from_numpy(np.asarray(arr)).to(dev)
     return out
+
+
+# ------------------------------------------------------------ tiered store ---
+
+# the host-side state of a TieredTable in either package, by attribute name
+TIER_STATE_FIELDS = ("slot_of", "unit_of", "ref", "dirty", "master_ver")
+TIER_STAT_FIELDS = ("lookups", "hits", "faults", "faulted_rows", "evictions",
+                    "flushes", "flushed_rows", "h2d_bytes", "d2h_bytes",
+                    "prewarmed_rows", "transparent_steps")
+
+
+def tier_state_numpy(table) -> dict:
+    """The slot map, CLOCK state and counters of a ``TieredTable`` of
+    either package as numpy arrays and ints (read by attribute, so nothing
+    here imports JAX): ``slot_of``, ``unit_of``, ``ref``, ``dirty``,
+    ``master_ver``, ``hand``, ``used`` and ``stats`` (the counters of
+    :data:`TIER_STAT_FIELDS`; the ``*_ns`` timings are left out)."""
+    out = {f: np.array(getattr(table, f)) for f in TIER_STATE_FIELDS}
+    out["hand"] = int(table.hand)
+    out["used"] = int(table.used)
+    out["stats"] = {f: int(getattr(table.stats, f)) for f in TIER_STAT_FIELDS}
+    return out
+
+
+def host_master_from_numpy(table: np.ndarray,
+                           slots: Optional[Mapping[str, np.ndarray]] = None, *,
+                           layout: str, group: int = 1, checksums: bool = True,
+                           master_dtype: str = "float32"):
+    """The port's :class:`~swiftsnails_tpu_torch.tiered.HostMaster` over
+    numpy planes (a JAX state's ``np.asarray`` leaves): a 2-D table gives a
+    :class:`TableState`, any other a :class:`PackedTableState`. The master
+    copies the planes; the JAX package's ``HostMaster`` takes the same
+    arrays as they are."""
+    from swiftsnails_tpu_torch.tiered.store import HostMaster
+
+    kind = TableState if np.ndim(table) == 2 else PackedTableState
+    state = kind(table=_tensor_from_numpy(table),
+                 slots={k: _tensor_from_numpy(v) for k, v in (slots or {}).items()})
+    return HostMaster(state, layout, group=group, checksums=checksums,
+                      master_dtype=master_dtype)

@@ -345,6 +345,7 @@ def save_checkpoint(
     protect: Optional[int] = None,
     retry=None,
     ledger=None,
+    tier=None,
 ) -> str:
     """Write a checkpoint of ``state`` for ``step`` under ``root``, committed
     by a checksum manifest; returns the step directory.
@@ -359,8 +360,19 @@ def save_checkpoint(
     absorbs transient ``OSError`` of the file writes. ``ledger`` (a
     :class:`~swiftsnails_tpu_torch.telemetry.ledger.Ledger`) receives the
     commit's ``checkpoint`` event and any ``cache_error``.
+
+    ``tier`` (a :class:`~swiftsnails_tpu_torch.tiered.TierManager`) makes the
+    save tier-transparent: the background flush queue is drained and every
+    dirty cache slot flushed host-ward FIRST (flush-before-manifest), the
+    full-size master-backed state is what gets written (on-disk format
+    identical to a resident run's, so restore and serving need no tier
+    awareness), and the save is synchronous — the masters are numpy arrays
+    that later eviction flushes mutate in place.
     """
     global _writer
+    if tier is not None:
+        state = tier.master_state(state)
+        wait = True
     _join_writer()  # one save at a time: its buffers are about to be reused
     t0 = time.perf_counter()
     host, event = _to_host(state)

@@ -18,8 +18,13 @@ Capability parity with the reference's worker framework
   ``telemetry_stdout``, ``blackbox_steps``, ``blackbox_dir``, ``goodput``,
   ``profile_cadence``, ``profile_window``, ``profile_export``,
   ``incident_dir``, ``drift_detect`` and ``drift_ewma_alpha`` /
-  ``drift_cusum_k`` / ``drift_cusum_h`` / ``drift_warmup``), and the
-  ``torch.profiler`` window (``profile_dir``, ``profile_steps``).
+  ``drift_cusum_k`` / ``drift_cusum_h`` / ``drift_warmup``), the
+  ``torch.profiler`` window (``profile_dir``, ``profile_steps``), and the
+  tiered store (``table_tier: host`` with the ``tier_*`` keys of
+  :mod:`swiftsnails_tpu_torch.tiered.manager`): adopt after resume, stage
+  on the prefetch thread, fault + remap before each step, the integrity
+  sweep (``tier_verify_period``), synchronous saves of the masters, and
+  the full-size master state at the end.
 
 With telemetry on, the ``step`` span ends after the device's current
 stream has synchronized, so it holds the step's device time; with it off
@@ -115,6 +120,39 @@ class Trainer:
     def eval_metrics(self, state: Any) -> Dict[str, float]:
         return {}
 
+    # -- tiered-store hooks (table_tier: host; see swiftsnails_tpu_torch/tiered)
+
+    def tier_spec(self) -> Optional[Dict[str, Dict]]:
+        """``{table_name: {"layout": dense|packed|packed_small, "group": G}}``
+        for trainers that support the host tier; ``None`` (default) means
+        ``table_tier: host`` is rejected for this trainer."""
+        return None
+
+    def tier_tables(self, state: Any) -> Dict[str, Any]:
+        """The tierable table states of ``state``, keyed as
+        :meth:`tier_spec`."""
+        raise NotImplementedError
+
+    def tier_with_tables(self, state: Any, tables: Dict[str, Any]) -> Any:
+        """``state`` with (some) table states replaced."""
+        raise NotImplementedError
+
+    def tier_plan(self, batch: Dict[str, np.ndarray], seed: int, step: int):
+        """Host-side plan for one step: ``(ids, aug, remap_keys)`` where
+        ``ids[name]`` is every master row id the step will touch in that
+        table (hashing applied), ``aug`` holds batch keys to add or replace
+        (the hashed ids, and the negatives the step would draw: the draws of
+        :func:`step_generator` ``(seed, step, self.device)`` in the step's
+        order, so the plan is exact, not a guess), and ``remap_keys[name]``
+        lists the batch keys to remap into cache-slot space. Runs on the
+        prefetch producer thread."""
+        raise NotImplementedError
+
+    def tier_warm_rows(self) -> Optional[Dict[str, np.ndarray]]:
+        """Hottest-first master row ids per table for the pre-step-0 cache
+        prewarm (from corpus frequency ranks); ``None`` to skip."""
+        return None
+
     def step_cost(self, batch: Dict[str, np.ndarray]) -> Optional[Dict]:
         """One step's work on ``batch`` (a host batch), for the goodput
         block: ``{"cost": {"flops", "bytes_accessed"}, "total_bytes": None,
@@ -146,6 +184,7 @@ class _Prefetcher:
         self._err: Optional[BaseException] = None
         self._stop = threading.Event()
         self._exhausted = False
+        self.last_wait_ns = 0  # consumer block on the last __next__
 
         def produce():
             try:
@@ -181,7 +220,9 @@ class _Prefetcher:
             if self._err is not None:
                 raise self._err
             raise StopIteration
+        t0 = time.perf_counter_ns()
         item = self._q.get()
+        self.last_wait_ns = time.perf_counter_ns() - t0
         if item is self._DONE:
             self._exhausted = True
             self._thread.join()
@@ -194,6 +235,16 @@ class _Prefetcher:
         """Approximate queued-batch count (telemetry gauge: a persistently
         empty queue means the host pipeline is the bottleneck)."""
         return self._q.qsize()
+
+    def set_depth(self, depth: int) -> None:
+        """Grow (or shrink) the queue bound in place — the adaptive
+        ``tier_prefetch_depth: auto`` control. ``queue.Queue`` guards
+        ``maxsize`` with its own mutex; waking ``not_full`` lets a producer
+        blocked on the old bound use the new headroom at once."""
+        q = self._q
+        with q.mutex:
+            q.maxsize = max(int(depth), 1)
+            q.not_full.notify_all()
 
     def close(self):
         self._stop.set()
@@ -231,7 +282,6 @@ def truthy(cfg: Config, key: str) -> bool:
 # Table-plane keys that the JAX package's trainers read and the port does not
 # have yet, read as the JAX trainers read them: key -> "is it asked for".
 UNPORTED_PLANE_KEYS = {
-    "table_tier": lambda cfg, key: cfg.get_str(key, "device") != "device",
     "comm_dtype": lambda cfg, key: cfg.get_str(key, "float32") not in (
         "float32", "f32", "fp32"),
     "placement": lambda cfg, key: cfg.get_str(key, "uniform") != "uniform",
@@ -309,7 +359,8 @@ class TrainLoop:
                     self.backup_root, state, step, wait=False,
                     cursor={"step": step, "items": self._items_seen},
                     config_hash=self.config_hash, keep=self.backup_keep,
-                    protect=self._restored_step, retry=ckpt_retry, ledger=self.ledger)
+                    protect=self._restored_step, retry=ckpt_retry, ledger=self.ledger,
+                    tier=self.tier)
 
             self.checkpoint_fn = checkpoint_fn
         self.profiler = StepProfiler(cfg, self.device)
@@ -340,6 +391,22 @@ class TrainLoop:
         self._profile_event_idx = 0
         self._profile_pending_loss = None
         self._step_cost: Optional[Dict] = None
+        # table_tier: host -> the tiered parameter store (tiered/): full-size
+        # masters in host RAM, fixed-budget cache planes on the card in the
+        # state, a per-step fault + id remap before the step. `device`
+        # (default) keeps the resident tables and pays nothing.
+        table_tier = cfg.get_str("table_tier", "device")
+        if table_tier not in ("device", "host"):
+            raise ValueError(f"table_tier must be device|host, got {table_tier!r}")
+        self.tier = None
+        if table_tier == "host":
+            from swiftsnails_tpu_torch.tiered import TierManager
+
+            self.tier = TierManager(trainer, registry=self.registry, tracer=self.tracer)
+        # tier integrity sweep cadence (steps; 0 = only at heal requests).
+        # Runs on the resilient path only — like chaos and the guardrail,
+        # arming it costs the plain hot path nothing.
+        self.tier_verify_period = cfg.get_int("tier_verify_period", 0)
 
     def _init_telemetry(self, cfg: Config) -> None:
         """The tracer, registry, black box, continuous profiler and drift
@@ -420,16 +487,34 @@ class TrainLoop:
         state, step, skip_batches = self._resume(trainer.init_state())
         last_metrics: Dict[str, Any] = {}
         total_items = 0
+        tier = self.tier
+        if tier is not None:
+            # full-size device planes -> host masters + cache planes on the
+            # card (prewarmed with the vocab's hottest rows); from here on
+            # `state` carries the small cache planes until master_state() at
+            # the end, and the full-size planes are freed
+            state = tier.adopt(state)
         depth = trainer.config.get_int("prefetch_batches", 2)
         src = iter(trainer.batches())
+        if tier is not None:
+            # stage upcoming steps' plans + missing master rows on the
+            # producer thread so the H2D fault traffic overlaps the step. A
+            # fully transparent tier stages nothing — keep the trainer's own
+            # prefetch setting then
+            src = tier.stage_stream(src, seed)
+            if not tier.all_transparent:
+                depth = tier.prefetch_depth
         batches = _Prefetcher(src, depth=depth) if depth else src
+        if tier is not None and isinstance(batches, _Prefetcher):
+            tier.attach_prefetcher(batches)  # tier_prefetch_depth: auto
         tel = self.tracer
         reg = self.registry
         bb = self.blackbox
         chaos = self.chaos
         prof = self.profiler
         cuda = self.device.type == "cuda"
-        resilient = self.guardrail is not None or chaos is not None
+        resilient = (self.guardrail is not None or chaos is not None
+                     or (tier is not None and self.tier_verify_period > 0))
         # the first metrics line names the producer, so no run hides its route
         first_line = {"producer": trainer.producer} if trainer.producer else {}
         it = iter(batches)
@@ -460,6 +545,12 @@ class TrainLoop:
                         chaos.maybe_slow_step(step)  # a host stall before dispatch
                     with (step_annotation(trainer.name, step) if prof.enabled
                           else _NO_ANNOTATION):
+                        if tier is not None:
+                            # fault the rows this step touches into the cache
+                            # and remap batch ids to slot space; runs BEFORE
+                            # any snapshot/injection so a rollback targets a
+                            # slot-map-consistent state
+                            state, batch = tier.prepare(state, batch, seed, step)
                         dev_batch = self._device_batch(batch)
                         gen = step_generator(seed, step, self.device)
                         if resilient:
@@ -504,6 +595,9 @@ class TrainLoop:
                     # card), so a concurrent profile_dir capture lines the
                     # kernels up with these host spans by step number
                     with tel.step_span(trainer.name, step):
+                        if tier is not None:
+                            with tel.span("tier-fault", step=step):
+                                state, batch = tier.prepare(state, batch, seed, step)
                         with tel.span("h2d"):
                             dev_batch = self._device_batch(batch)
                         if self._want_cost and self._step_cost is None:
@@ -591,6 +685,12 @@ class TrainLoop:
             })
             print(f"preemption ({self._preempt_reason}): drained at step {step}",
                   file=sys.stderr)
+        if tier is not None:
+            # end-of-run write-back: flush every dirty cache slot and hand
+            # the caller the full-size master-backed state (the resident
+            # state's type, shapes and dtypes, on the host: export and eval
+            # route by the tables' device)
+            state = tier.master_state(state)
         host = {}
         if step % max(self.log_every, 1) != 0 or not self.log_every:
             host = {k: float(v) for k, v in last_metrics.items()}
@@ -642,10 +742,44 @@ class TrainLoop:
                     f"(last: {guard.last_trip_reason}); giving up at step {step}")
         if chaos is not None:
             chaos.maybe_corrupt_checkpoint(self.backup_root, step)
+            if self.tier is not None:
+                chaos.maybe_flip_tier(self.tier, step)
             reason = chaos.wants_preempt(step)
             if reason is not None:
                 self.request_preemption(reason)
+        if (self.tier is not None and self.tier_verify_period
+                and (step + 1) % self.tier_verify_period == 0):
+            self._tier_integrity_sweep(new_state, step)
         return new_state, metrics
+
+    def _tier_integrity_sweep(self, state, step: int) -> None:
+        """Recompute the host masters' plane digests; on a mismatch,
+        quarantine-and-rebuild from the newest verified checkpoint (the cache
+        plane — which the corruption cannot reach — is re-asserted on top,
+        so only units evicted since that checkpoint roll back). Failing to
+        find a trustworthy checkpoint raises: silently training on a corrupt
+        master is the one outcome this sweep exists to prevent."""
+        bad = self.tier.verify()
+        if not bad:
+            return
+        print(
+            f"tier integrity: corrupt master plane(s) at step {step}: "
+            + ", ".join(f"{t}[{', '.join(p)}]" for t, p in bad.items())
+            + "; rebuilding from newest verified checkpoint",
+            file=sys.stderr,
+        )
+        policy = RetryPolicy.from_config(self.trainer.config, ledger=self.ledger)
+        ckpt_step, rebuilt = self.tier.heal(
+            state, self.backup_root, corrupt=bad, retry_policy=policy)
+        if self.registry is not None:
+            self.registry.counter("tier_heals").inc()
+        self._ledger_event("cache_error", {
+            "source": "tier",
+            "step": step,
+            "planes": {t: list(p) for t, p in bad.items()},
+            "rebuilt_from_step": ckpt_step,
+            "tables": rebuilt,
+        })
 
     def request_preemption(self, reason: str = "SIGTERM") -> None:
         """Ask the loop to drain at the next step boundary: final save,
@@ -749,6 +883,9 @@ class TrainLoop:
                 self._profile_pending_loss = last_metrics["loss"]
             if pending is not None:
                 row["loss"] = float(pending)
+            if "tier_cache_hit_rate" in row:
+                # the drift sentinel's canonical signal name
+                row["tier_hit_rate"] = row["tier_cache_hit_rate"]
             self.timeseries.sample(step, row)
             if self.drift is not None:
                 edges = self.drift.events
@@ -842,6 +979,8 @@ class TrainLoop:
                     record["guardrail"] = self.guardrail.summary()
                 if self.chaos is not None:
                     record["chaos"] = self.chaos.summary()
+                if self.tier is not None:
+                    record["tiered"] = self.tier.summary()
                 if self.preempted:
                     record["preempted"] = True
                 self.ledger.append("run", record, env=env_fingerprint(include_devices=True))

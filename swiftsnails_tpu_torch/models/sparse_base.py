@@ -30,7 +30,9 @@ Config keys: ``num_fields``, ``capacity``, ``learning_rate``, ``optimizer``
 (``sgd`` | ``adagrad``), ``batch_size``, ``num_iters``, ``data``,
 ``dense_learning_rate``, ``init_scale``, ``seed``, ``packed``,
 ``use_native`` (the native CTR reader, default on, as in the JAX package),
-``stream`` and ``rows_per_chunk`` (bounded-memory reading of ``data``).
+``stream`` and ``rows_per_chunk`` (bounded-memory reading of ``data``),
+``table_tier`` (``host``: the tiered store, :mod:`swiftsnails_tpu_torch.tiered`,
+on either plane).
 ``shard_data`` changes nothing on one process. Keys that select a path the
 port does not have yet raise ``NotImplementedError`` (see :data:`UNPORTED`);
 ``ROADMAP.md`` says when each is ported.
@@ -178,6 +180,9 @@ class SparseCTRTrainer(Trainer):
         self.epochs = cfg.get_int("num_iters", 1)
         self.batch_size = cfg.get_int("batch_size", 1024)
         self.seed = cfg.get_int("seed", 0)
+        # table_tier: host -> the tiered parameter store: the step's rows
+        # are hashed on the host and remapped to cache slots before it
+        self.tiered = cfg.get_str("table_tier", "device") == "host"
         opt_name = cfg.get_str("optimizer", "adagrad")
         self.access = {"sgd": SgdAccess(), "adagrad": AdaGradAccess()}[opt_name]
         self.dense_opt = (DenseAdaGrad(self.dense_lr) if opt_name == "adagrad"
@@ -284,7 +289,14 @@ class SparseCTRTrainer(Trainer):
         feats, labels = batch["feats"], batch["labels"]
         b, f = feats.shape
         mask = feats >= 0
-        rows = self._rows(feats).reshape(-1)
+        # tier mode: rows were hashed on the host and remapped to cache slots
+        # (padding fields hash to hash_row(0) on both paths and push only
+        # mask-zeroed gradients, so parity holds bit for bit); a transparent
+        # tier's batch is raw, as a resident one
+        if "rows" in batch:
+            rows = batch["rows"].reshape(-1)
+        else:
+            rows = self._rows(feats).reshape(-1)
         pulled = self._pull_rows(state.table, rows).reshape(b, f, self.table_dim)
         pulled.requires_grad_()
         dense = {k: v.detach().requires_grad_() for k, v in state.dense.items()}
@@ -340,16 +352,46 @@ class SparseCTRTrainer(Trainer):
         return {"table": {"layout": layout, "group": group,
                           "dim": self.table_dim, "capacity": self.capacity}}
 
+    # -- tiered parameter store (table_tier: host; see tiered/) -------------
+
+    def tier_spec(self):
+        if not self.tiered:
+            return None
+        if self.packed:
+            return {"table": {"layout": "packed_small",
+                              "group": small_group(self.table_dim)}}
+        return {"table": {"layout": "dense", "group": 1}}
+
+    def tier_tables(self, state: CTRState):
+        return {"table": state.table}
+
+    def tier_with_tables(self, state: CTRState, tables):
+        return CTRState(table=tables.get("table", state.table),
+                        dense=state.dense, opt=state.opt)
+
+    def tier_plan(self, batch, seed: int, step: int):
+        """The host twin of the step's ``self._rows(feats)``
+        (``hash_row_np`` equals ``hash_row`` on the clamped, non-negative
+        fields). ``seed`` and ``step`` are unused — the CTR step draws
+        nothing."""
+        feats = np.asarray(batch["feats"])
+        rows = hash_row_np(np.maximum(feats, 0), self.capacity).astype(np.int32)
+        return {"table": rows.ravel()}, {"rows": rows}, {"table": ["rows"]}
+
     # -- eval --------------------------------------------------------------
 
     @torch.no_grad()
     def predict(self, state: CTRState, feats: np.ndarray) -> np.ndarray:
-        feats = torch.from_numpy(np.ascontiguousarray(feats, dtype=np.int32)).to(self.device)
-        mask = feats >= 0
+        """Scores of ``feats``. The rows are pulled where the table lies —
+        on the host for the master state a tiered run returns — and the
+        forward pass runs where the dense tensors lie."""
+        feats = torch.from_numpy(np.ascontiguousarray(feats, dtype=np.int32))
         b, f = feats.shape
-        rows = self._rows(feats).reshape(-1)
+        rows = self._rows(feats.to(state.table.table.device)).reshape(-1)
         pulled = self._pull_rows(state.table, rows).reshape(b, f, self.table_dim)
-        return self.forward(pulled, state.dense, mask).cpu().numpy()
+        dev = next(iter(state.dense.values())).device if state.dense else self.device
+        return self.forward(pulled.to(dev), state.dense,
+                            feats.to(dev) >= 0).cpu().numpy()
 
     def eval_auc(self, state: CTRState, labels=None, feats=None, limit: int = 20000) -> float:
         if labels is None:

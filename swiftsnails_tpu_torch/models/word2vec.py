@@ -51,7 +51,9 @@ Config keys: ``dim``, ``window``, ``negatives``, ``learning_rate``,
 ``subsample``, ``hash_keys``, ``capacity``, ``chunk_tokens``, ``seed``,
 ``data``, ``table_dtype``, ``pool_size``, ``pool_block``, ``steps_per_call``,
 ``fused``, ``grouped``, ``centers_per_block``, ``resident``, ``hot_rows``,
-``dedup``, ``u_cap``, ``packed``, ``neg_mode``, ``use_native``, ``stream``.
+``dedup``, ``u_cap``, ``packed``, ``neg_mode``, ``use_native``, ``stream``,
+``table_tier`` (``host``: the tiered store, :mod:`swiftsnails_tpu_torch.tiered`,
+on the ``dense``, ``packed`` pool and ``per_pair`` paths).
 Keys that select a path the port does not have yet raise
 ``NotImplementedError`` (see :data:`UNPORTED`); ``ROADMAP.md`` says when
 each is ported.
@@ -59,6 +61,7 @@ each is ported.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
@@ -83,6 +86,7 @@ from swiftsnails_tpu_torch.framework.trainer import (
     Trainer,
     _unported,
     raise_unported,
+    step_generator,
 )
 from swiftsnails_tpu_torch.models.registry import register_model
 from swiftsnails_tpu_torch.ops.fused_sgns import (
@@ -228,6 +232,19 @@ class Word2VecTrainer(Trainer):
         self.u_cap = cfg.get_int("u_cap", 512)
         # centers per kernel block; the per-substep center count is batch_size
         self.centers_per_block = cfg.get_int("centers_per_block", 256)
+        # table_tier: host -> the tiered parameter store (tiered/): host-RAM
+        # master tables, a device working-set cache, batch ids remapped to
+        # cache slots before the step. Supported on the dense and packed
+        # (pool/per_pair) substeps — the fused/grouped kernels address whole
+        # tables and have no slot-space meaning. The negatives are drawn on
+        # the host side of the step (tier_plan makes the step's own draws),
+        # so the fault path knows every row before the step.
+        self.tiered = cfg.get_str("table_tier", "device") == "host"
+        if self.tiered and self.fused:
+            raise ValueError(
+                "table_tier: host does not compose with fused/grouped "
+                "kernels (they take whole-table VMEM references); use "
+                "packed: 1 with neg_mode pool/per_pair, or packed: 0")
         # use_native: 1 -> the native batch producer, which must build (no
         # quiet fallback to batches that differ from the JAX package's)
         self.use_native = cfg.get_bool("use_native", True)
@@ -303,6 +320,14 @@ class Word2VecTrainer(Trainer):
         if self.hash_keys:
             return hash_row(keys, self.capacity)
         return keys
+
+    def _step_rows(self, keys: torch.Tensor, planned: bool) -> torch.Tensor:
+        """In-substep id resolution: on the host tier a planned batch (one
+        that carries the plan's ``negs``) arrives hashed AND remapped to
+        cache slots, so it is not hashed again; a transparent tier's batch
+        is raw, as a resident one. Export and eval keep :meth:`_rows`
+        against the full table."""
+        return keys if planned else self._rows(keys)
 
     # -- data --------------------------------------------------------------
 
@@ -430,9 +455,10 @@ class Word2VecTrainer(Trainer):
         respect to the pulled rows, push. Updates both tables in place and
         returns ``(state, loss)``."""
         b, k = centers.shape[0], self.negatives
+        planned = self.tiered and negs is not None
         negs = self._negs(generator, b, negs)
-        in_rows = self._rows(centers)
-        out_rows = self._rows(torch.cat([contexts, negs.reshape(-1)]))
+        in_rows = self._step_rows(centers, planned)
+        out_rows = self._step_rows(torch.cat([contexts, negs.reshape(-1)]), planned)
         v = pull(state.in_table, in_rows).float().requires_grad_()
         u = pull(state.out_table, out_rows).float().requires_grad_()
         loss = sgns_loss(v, u[:b], u[b:].reshape(b, k, -1))
@@ -449,9 +475,10 @@ class Word2VecTrainer(Trainer):
         two ``scatter_add_rows``) over ``b`` centers and ``b (1 + K)`` out
         rows; ``negs`` as in :meth:`_substep_dense`."""
         b, k = centers.shape[0], self.negatives
+        planned = self.tiered and negs is not None
         negs = self._negs(generator, b, negs)
-        in_rows = self._rows(centers)
-        out_rows = self._rows(torch.cat([contexts, negs.reshape(-1)]))
+        in_rows = self._step_rows(centers, planned)
+        out_rows = self._step_rows(torch.cat([contexts, negs.reshape(-1)]), planned)
         v = pull_packed(state.in_table, in_rows).float().requires_grad_()
         u = pull_packed(state.out_table, out_rows).float().requires_grad_()
         flat = v.reshape(b, -1)
@@ -476,9 +503,10 @@ class Word2VecTrainer(Trainer):
         _, nb = self.pool_geometry(b)
         pn = self.pool_size
         lam = self.negatives / pn
+        planned = self.tiered and negs is not None
         pools = self._pools(generator, nb, negs)
-        in_rows = self._rows(centers)
-        out_rows = self._rows(torch.cat([contexts, pools.reshape(-1)]))
+        in_rows = self._step_rows(centers, planned)
+        out_rows = self._step_rows(torch.cat([contexts, pools.reshape(-1)]), planned)
 
         v = pull_packed(state.in_table, in_rows).float().requires_grad_()
         u = pull_packed(state.out_table, out_rows).float()
@@ -588,10 +616,16 @@ class Word2VecTrainer(Trainer):
                        else self._substep_packed_perpair)
         else:
             substep = self._substep_dense
+        # the tier's plan: each substep's negatives, drawn ahead in order and
+        # remapped (rows of [t * r, ...], r a substep's)
+        negs = batch.get("negs")
+        r = negs.shape[0] // t if negs is not None else 0
         losses = []
         for i in range(t):
             sl = slice(i * b, (i + 1) * b)
-            state, loss = substep(state, centers[sl], contexts[sl], generator, lr)
+            planned = {} if negs is None else {"negs": negs[i * r:(i + 1) * r]}
+            state, loss = substep(state, centers[sl], contexts[sl], generator, lr,
+                                  **planned)
             losses.append(loss)
         return state, {"loss": torch.stack(losses).mean()}
 
@@ -654,6 +688,83 @@ class Word2VecTrainer(Trainer):
         if self.packed:
             vals = unpack_rows(vals, self.dim)
         return vals.float().cpu().numpy()
+
+    # -- tiered parameter store (table_tier: host; see tiered/) -------------
+
+    def _plan_rows(self, keys: np.ndarray) -> np.ndarray:
+        """Host-side twin of :meth:`_rows` (``hash_row_np`` equals
+        ``hash_row`` on non-negative keys): the row ids the resident substep
+        would use, as int32."""
+        keys = np.asarray(keys)
+        if self.hash_keys:
+            return hash_row_np(keys, self.capacity).astype(np.int32)
+        return keys.astype(np.int32, copy=False)
+
+    def tier_spec(self):
+        if not self.tiered:
+            return None
+        layout = "packed" if self.packed else "dense"
+        return {"in_table": {"layout": layout, "group": 1},
+                "out_table": {"layout": layout, "group": 1}}
+
+    def tier_tables(self, state: W2VState):
+        return {"in_table": state.in_table, "out_table": state.out_table}
+
+    def tier_with_tables(self, state: W2VState, tables):
+        return W2VState(in_table=tables.get("in_table", state.in_table),
+                        out_table=tables.get("out_table", state.out_table))
+
+    def _plan_stream(self):
+        """The side stream the plan's draws run on, so reading them back
+        waits for the plan alone, not for the steps queued on the card."""
+        if self.device.type != "cuda":
+            return None
+        stream = getattr(self, "_tier_stream", None)
+        if stream is None:
+            stream = self._tier_stream = torch.cuda.Stream(self.device)
+        return stream
+
+    def tier_plan(self, batch, seed: int, step: int):
+        """Host-side step plan: the step's generator
+        (``step_generator(seed, step, device)``, as the loop makes it) and
+        its ``alias_sample`` draws, one a substep in order at the substep's
+        shape — the calls the resident substeps make — then every id
+        hashed. The draws run on the trainer's device, so they equal the
+        resident step's bit for bit.
+
+        Returns ``(ids, aug, remap_keys)``: per-table touched row ids, batch
+        augmentations (hashed centers/contexts + the drawn negatives), and
+        which batch keys each table's remap applies to."""
+        centers = np.asarray(batch["centers"])
+        contexts = np.asarray(batch["contexts"])
+        n = centers.shape[0]
+        t = max(n // self.batch_size, 1)
+        b = n // t
+        if self.packed and self.neg_mode == "pool":
+            shape = (self.pool_geometry(b)[1], self.pool_size)
+        else:
+            shape = (b, self.negatives)
+        stream = self._plan_stream()
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            gen = step_generator(seed, step, self.device)
+            draws = torch.cat([alias_sample(self.neg_alias, gen, shape)
+                               for _ in range(t)])
+            negs = draws.cpu().numpy()
+        c_r = self._plan_rows(centers)
+        x_r = self._plan_rows(contexts)
+        n_r = self._plan_rows(negs)
+        ids = {"in_table": c_r.ravel(),
+               "out_table": np.concatenate([x_r.ravel(), n_r.ravel()])}
+        aug = {"centers": c_r, "contexts": x_r, "negs": n_r}
+        remap = {"in_table": ["centers"], "out_table": ["contexts", "negs"]}
+        return ids, aug, remap
+
+    def tier_warm_rows(self):
+        """Hottest-first row ids for the cache prewarm (vocab frequency
+        order; both tables share the unigram distribution)."""
+        rows = self._plan_rows(self.vocab.hottest_rows().astype(np.int64))
+        return {"in_table": rows, "out_table": rows}
 
     def table_geometry(self) -> Dict[str, Dict]:
         """Each table's layout, as the JAX trainer gives it."""

@@ -36,7 +36,8 @@ Tables are updated in place where the JAX package donated the buffer.
 Trainers differentiate with respect to the *pulled rows* and push explicitly,
 so every per-step tensor is batch-sized, as in the reference's wire protocol.
 
-Not ported yet (``ROADMAP.md``): meshes and the tiered cache plane.
+Not ported yet (``ROADMAP.md``): meshes. The tiered store's cache plane
+(:mod:`swiftsnails_tpu_torch.tiered`) is a smaller table of these layouts.
 """
 
 from __future__ import annotations

@@ -24,13 +24,16 @@ Fault kinds of training, all injected from the host between kernels:
                   the checkpoint writer
 ``preempt``       requests a drain at the step boundary, as SIGTERM does
 ``slow_step``     the host sleeps ``chaos_slow_step_ms`` before the step
+``tier_bitflip``  XORs one seeded bit in a host master plane of the tiered
+                  store (``table_tier: host``), bypassing its write path,
+                  so only the integrity digests can catch it
 ================  ==========================================================
 
 :func:`parse_chaos_spec` accepts every kind the JAX package's parser does;
-a plan that schedules one of the kinds of the serving, tiered, cluster or
-network planes (``serve_*``, ``tier_bitflip``, ``reload_corrupt``,
-``worker_*``, ``partition``, ``proc_kill``, ``net_*``) raises
-``NotImplementedError``: those planes are not ported yet (``ROADMAP.md``).
+a plan that schedules one of the kinds of the serving, cluster or network
+planes (``serve_*``, ``reload_corrupt``, ``worker_*``, ``partition``,
+``proc_kill``, ``net_*``) raises ``NotImplementedError``: those planes are
+not ported yet (``ROADMAP.md``).
 Each injection is kept in :attr:`ChaosPlan.events` and, with a ledger, is
 one ``chaos`` ledger event.
 """
@@ -48,9 +51,9 @@ import torch
 from swiftsnails_tpu_torch.utils.tree import tensor_items
 
 TRAINING_KINDS = ("nan_grad", "inf_grad", "row_poison", "io_error", "ckpt_corrupt",
-                  "preempt", "slow_step")
+                  "preempt", "slow_step", "tier_bitflip")
 FAULT_KINDS = TRAINING_KINDS + (
-    "serve_io_error", "serve_slow", "tier_bitflip", "reload_corrupt",
+    "serve_io_error", "serve_slow", "reload_corrupt",
     "worker_dead", "worker_slow", "partition", "proc_kill", "net_partition", "net_slow",
 )
 
@@ -289,6 +292,37 @@ class ChaosPlan:
         path = corrupt_checkpoint_dir(root, rng=self.rng)
         self._log("ckpt_corrupt", step, {"path": path})
         return path
+
+    def maybe_flip_tier(self, tier, step: int) -> Optional[str]:
+        """``tier_bitflip``: XOR one seeded-random bit directly in a host
+        master plane's memory — deliberately bypassing
+        :meth:`HostMaster.scatter` so only the integrity digests
+        (:meth:`HostMaster.verify`) can catch it. Returns the hit table."""
+        if not self._take("tier_bitflip", step):
+            return None
+        names = sorted(tier.tables)
+        if not names:
+            self._log("tier_bitflip", step, {"detail": "skipped: no tier"})
+            return None
+        name = names[int(self.rng.integers(0, len(names)))]
+        # barrier the async flush queue: a landing that read the row before
+        # the flip would scatter over it and erase the injected corruption
+        # before the integrity sweep ever sees it
+        drain = getattr(tier, "_drain", None)
+        if drain is not None:
+            drain()
+        # any master plane is fair game — including a quantized master's
+        # scale sidebands ("<plane>/scale"), where one flipped bit corrupts
+        # every element of its unit on dequant
+        planes = list(tier.tables[name].master._planes())
+        plane, arr = planes[int(self.rng.integers(0, len(planes)))]
+        flat = arr.view(np.uint8).reshape(-1)  # aliases the live plane
+        off = int(self.rng.integers(0, flat.size))
+        bit = int(self.rng.integers(0, 8))
+        flat[off] ^= np.uint8(1 << bit)
+        self._log("tier_bitflip", step,
+                  {"table": name, "plane": plane, "byte": off, "bit": bit})
+        return name
 
     def summary(self) -> Dict:
         return {

@@ -9,11 +9,12 @@ LRU cache and bounded-queue admission control. Availability hardening:
 per-kernel circuit breakers with degraded-mode (stale-LRU) reads and typed
 :class:`Unavailable` sheds. Horizontal scale: a :class:`Fleet` of replicas
 sharing the loaded planes behind a consistent-hash affinity router with
-bounded spill, tail-latency hedging, and elastic add/drain.
+bounded spill, tail-latency hedging, and elastic add/drain. Tiered tables
+(``table_tier: host``): host-RAM masters behind a fixed-budget cache on the
+card (:mod:`swiftsnails_tpu_torch.tiered`).
 
-Not ported yet (``ROADMAP.md``): tiered tables, the mesh pull, the int8 /
-int4 wire, the freshness subscriber, and the JAX package's fleet and chaos
-bench lanes.
+Not ported yet (``ROADMAP.md``): the mesh pull, the int8 / int4 wire, the
+freshness subscriber, and the JAX package's fleet and chaos bench lanes.
 """
 
 from swiftsnails_tpu_torch.serving.breaker import CircuitBreaker, Unavailable

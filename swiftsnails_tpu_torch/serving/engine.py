@@ -49,10 +49,19 @@ sheds them. ``serve_degraded: 0`` disables the stale fallback.
 atomic version swap: a corrupt newer checkpoint is rejected while the live
 tables keep serving.
 
-Not ported yet (``ROADMAP.md``): tiered tables (``table_tier: host``,
-``tier_hbm_budget_mb``), the freshness subscriber (``attach_freshness``),
-the mesh pull (``mesh=``) and the int8/int4 wire; each raises
-``NotImplementedError`` naming its key.
+**Tiered tables** (``table_tier: host``, ``tier_hbm_budget_mb > 0``): the
+full normalized tables stay in host RAM (:class:`~swiftsnails_tpu_torch.tiered.HostMaster`)
+and the card holds a fixed-budget read cache a table, prewarmed with the
+id head (the zipf head: vocabulary ids are frequency-ranked). A pull
+faults its cold rows in behind the hot-row LRU, remaps ids to cache slots
+and reads the cache through :func:`pull_rows`; ``topk`` streams the host
+master through the card one ``topk_tile_rows`` tile at a time; a delta
+(:meth:`Servant.apply_rows`) lands in the master and makes its resident
+rows refault.
+
+Not ported yet (``ROADMAP.md``): the freshness subscriber
+(``attach_freshness``), the mesh pull (``mesh=``) and the int8/int4 wire;
+each raises ``NotImplementedError`` naming its key.
 """
 
 from __future__ import annotations
@@ -211,7 +220,7 @@ def _scorer_for(config, device: torch.device):
 
 class _Request:
     __slots__ = ("payload", "n", "event", "result", "error", "t0",
-                 "t_dispatch", "kernel_ms", "pad_buckets", "pad_rows")
+                 "t_dispatch", "kernel_ms", "pad_buckets", "pad_rows", "table_version")
 
     def __init__(self, payload: Dict, n: int):
         self.payload = payload
@@ -398,9 +407,6 @@ class Servant:
         if not tables:
             raise ValueError("Servant needs at least one table")
         _no_mesh(mesh)
-        if float(tier_hbm_budget_mb) > 0:
-            _unported(f"tier_hbm_budget_mb: {tier_hbm_budget_mb} (table_tier: host)",
-                      "4 (tiered/)")
         self.mesh = None
         self.device = resolve_device(device)
         # ops plane: a telemetry RequestTracer captures per-request span
@@ -416,7 +422,21 @@ class Servant:
         self.manifest = manifest or {}
         self.step = int(self.manifest.get("step", 0) or 0)
         self.version = 0  # bumped by every reload; keys the hot-row cache
-        self._tables = self._on_device(tables)
+        # table_tier: host (tier_hbm_budget_mb > 0): the full normalized
+        # tables stay in host RAM and the card holds fixed-budget read
+        # caches — cold rows fault in batched behind the hot-row LRU
+        # (serving vocabularies bigger than device memory). 0 = resident.
+        self.tier: Dict[str, Any] = {}
+        self._tier_cache: Dict[str, Any] = {}
+        self._tier_lock = threading.Lock()
+        self.tier_budget_mb = float(tier_hbm_budget_mb)
+        self._tier_stats = None
+        if self.tier_budget_mb > 0:
+            self._tables = {k: as_tensor(v, torch.device("cpu"))
+                            for k, v in tables.items()}
+            self._build_tier()
+        else:
+            self._tables = self._on_device(tables)
         self._dense = self._on_device(dense) if dense is not None else {}
         self.default_table = default_table or (
             "in_table" if "in_table" in self._tables else
@@ -473,6 +493,74 @@ class Servant:
     def _on_device(self, arrays: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: as_tensor(v, self.device) for k, v in arrays.items()}
 
+    # -- tiered read path (table_tier: host; see tiered/) -------------------
+
+    def _build_tier(self) -> None:
+        """Wrap each host table in a read-only :class:`TieredTable` with a
+        prewarmed cache on the card. Vocab ids are frequency-ranked (the
+        training ordering contract), so the id head IS the zipf head —
+        prewarm it. ``_tables`` then holds the masters' own arrays (one host
+        copy a table)."""
+        from swiftsnails_tpu_torch.parallel.store import TableState
+        from swiftsnails_tpu_torch.tiered.store import (
+            HostMaster, TieredTable, TierStats, _to_torch,
+        )
+
+        if self._tier_stats is None:
+            self._tier_stats = TierStats()
+        budget_each = self.tier_budget_mb / max(len(self._tables), 1)
+        self.tier = {}
+        self._tier_cache = {}
+        for name, arr in self._tables.items():
+            master = HostMaster(TableState(table=arr, slots={}), "dense")
+            units = int(budget_each * (1 << 20) // max(master.unit_nbytes, 1))
+            tt = TieredTable(master, units, name=name, stats=self._tier_stats,
+                             read_only=True, device=self.device)
+            cache = tt.make_cache()
+            cache = tt.prewarm(
+                cache, np.arange(min(tt.budget, master.units), dtype=np.int64))
+            self.tier[name] = tt
+            self._tier_cache[name] = cache
+            self._tables[name] = _to_torch(master.table, master.table_dtype)
+
+    def _tier_pull(self, name: str, ids: np.ndarray) -> torch.Tensor:
+        """Cold-row fault: make ``ids`` resident in the cache plane, remap to
+        slots, gather from the cache (:func:`pull_rows`). The lock
+        serializes fault + remap + gather across the batcher threads — a
+        concurrent eviction must never overwrite a slot between the remap
+        and its read."""
+        tt = self.tier[name]
+        ids = np.asarray(ids, np.int32)
+        with self._tier_lock:
+            cache = tt.ensure(self._tier_cache[name], ids)
+            self._tier_cache[name] = cache
+            slots = torch.from_numpy(tt.remap(ids)).to(self.device)
+            return self._pull_fn(cache.table, slots)
+
+    def _topk_master(self, name: str, queries: np.ndarray, k: int,
+                     normalize: bool) -> Tuple[np.ndarray, np.ndarray]:
+        """Over-budget topk: stream the host master through the card one
+        ``topk_tile_rows`` tile at a time with :func:`topk_tiled` — the full
+        table never resides on the card. Scores are per row (cosine or raw
+        dot), so the parts merge exactly; a stable sort over the parts in
+        row order keeps the resident scan's tie order (lower id first)."""
+        master = self._tables[name]
+        tile = max(int(self.topk_tile_rows), 1)
+        q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(self.device)
+        parts_s: List[np.ndarray] = []
+        parts_i: List[np.ndarray] = []
+        for lo in range(0, master.shape[0], tile):
+            chunk = master[lo:lo + tile].to(self.device)
+            s, i = topk_tiled(chunk, q, k=min(k, chunk.shape[0]), tile_rows=tile,
+                              normalize=normalize)
+            parts_s.append(_host(s))
+            parts_i.append(_host(i) + lo)
+        s = np.concatenate(parts_s, axis=1)
+        i = np.concatenate(parts_i, axis=1)
+        order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+        rows = np.arange(s.shape[0])[:, None]
+        return s[rows, order], i[rows, order]
+
     # -- lifecycle ---------------------------------------------------------
 
     @classmethod
@@ -497,10 +585,15 @@ class Servant:
         from swiftsnails_tpu_torch.framework.checkpoint import load_tables
 
         _no_mesh(mesh)
-        if config.get_str("table_tier", "device") == "host":
-            _unported("config key table_tier: host", "4 (tiered/)")
         dev = resolve_device(device)
-        state, manifest = load_tables(root, step=step, device=dev)
+        tiered = config.get_str("table_tier", "device") == "host"
+        if tiered:
+            kwargs.setdefault("tier_hbm_budget_mb",
+                              config.get_float("tier_hbm_budget_mb", 64.0))
+        # a tiered servant's tables stay in host RAM: they never cross to
+        # the card whole
+        state, manifest = load_tables(
+            root, step=step, device=torch.device("cpu") if tiered else dev)
         scorer = None
         if config.get_str("model", "word2vec") != "word2vec":
             scorer = _scorer_for(config, dev)
@@ -543,10 +636,18 @@ class Servant:
         old tables misses (stale rows can never be served). ``version`` is
         the fleet-epoch override: replicas sharing one logical swap all cut
         over to the SAME number instead of bumping independently."""
-        new_tables = self._on_device(tables)
+        tiered = self.tier_budget_mb > 0
+        new_tables = ({k: as_tensor(v, torch.device("cpu")) for k, v in tables.items()}
+                      if tiered else self._on_device(tables))
         new_dense = self._on_device(dense) if dense is not None else None
         with self._lock:
             self._tables = new_tables
+            if tiered:
+                # new masters + fresh caches and slot maps: a stale slot
+                # mapping against the old tables must never serve again (the
+                # version bump below already invalidates the hot-row LRU)
+                with self._tier_lock:
+                    self._build_tier()
             if new_dense is not None:
                 self._dense = new_dense
             if manifest is not None:
@@ -606,10 +707,39 @@ class Servant:
                    version: Optional[int] = None,
                    step: Optional[int] = None) -> int:
         """Apply one delta batch of absolute rows with an atomic version
-        cutover (:meth:`prepare_rows` + :meth:`install_tables`); returns the
-        new version."""
-        return self.install_tables(self.prepare_rows(updates),
-                                   version=version, step=step)
+        cutover; returns the new version. Resident tables go through
+        :meth:`prepare_rows` + :meth:`install_tables`; tiered tables scatter
+        into the host masters (through ``HostMaster.scatter``, so the
+        integrity digests stay true), bump the touched units' write-back
+        generation, and drop their resident cache slots so the next pull
+        refaults the fresh rows. Where an id repeats, its last value wins."""
+        if self.tier_budget_mb <= 0:
+            return self.install_tables(self.prepare_rows(updates),
+                                       version=version, step=step)
+        with self._lock, self._tier_lock:
+            for name, (ids, vals) in updates.items():
+                if name not in self.tier:
+                    continue  # a delta table this servant does not serve
+                tt = self.tier[name]
+                ids = np.asarray(ids, np.int64).reshape(-1)
+                vals = np.asarray(vals, np.float32).reshape(
+                    (ids.shape[0],) + tt.master.table.shape[1:])
+                last = ids.shape[0] - 1 - np.unique(ids[::-1], return_index=True)[1]
+                ids, vals = ids[last], vals[last]
+                # serving masters are dense group-1 f32 planes: unit == row
+                tt.master.scatter(ids, vals.astype(tt.master.table.dtype), {})
+                tt.master_ver[ids] += 1
+                res = ids[tt.slot_of[ids] >= 0]
+                if res.size:
+                    slots = tt.slot_of[res]
+                    tt.unit_of[slots] = -1
+                    tt.ref[slots] = 0
+                    tt.slot_of[res] = -1
+            if step is not None:
+                self.step = max(self.step, int(step))
+            self.version = int(version) if version is not None \
+                else self.version + 1
+            return self.version
 
     def reload_from_checkpoint(self, root: str, config, *,
                                step: Optional[int] = None,
@@ -716,6 +846,10 @@ class Servant:
             if br is not None:
                 br.record_success()
             self._trace_dispatch(ctx, req)
+            if found and req.table_version != version:
+                # the cache's rows are of `version` and the dispatch read a
+                # newer table: answer from one version, starting over
+                return self._pull_traced(name, ids, t0, ctx)
             found.update(
                 (int(i), pulled[n]) for n, i in enumerate(missing)
             )
@@ -849,15 +983,15 @@ class Servant:
         for name, reqs in by_table.items():
             ids = np.concatenate([r.payload["ids"] for r in reqs])
             t_disp = time.perf_counter()
-            rows, buckets, pad_rows = self._pull_padded(name, ids)
+            rows, buckets, pad_rows, table_version = self._pull_version(name, ids)
             kernel_ms = (time.perf_counter() - t_disp) * 1e3
             # split back per request; insert REAL rows into the cache (pad
-            # rows never reach here — _pull_padded slices them off)
-            version = reqs[0].payload["version"]
-            if version == self.version:
-                self.cache.put_many(name, version, ids, rows)
+            # rows never reach here — _pull_padded slices them off), stamped
+            # with the version of the table they were read from
+            self.cache.put_many(name, table_version, ids, rows)
             off = 0
             for req in reqs:
+                req.table_version = table_version
                 req.t_dispatch = t_disp
                 req.kernel_ms = kernel_ms
                 req.pad_buckets = buckets
@@ -866,15 +1000,26 @@ class Servant:
                 off += req.n
                 req.event.set()
 
+    def _pull_version(self, name: str, ids: np.ndarray):
+        """:meth:`_pull_padded` on one version of the table, and that
+        version. A tiered table changes in place (``apply_rows``, ``reload``
+        under the servant lock), so its pull holds the lock."""
+        if name in self.tier:
+            with self._lock:
+                return (*self._pull_padded(name, ids), self.version)
+        with self._lock:
+            table, version = self._tables[name], self.version
+        return (*self._pull_padded(name, ids, table), version)
+
     def _pull_padded(
-        self, name: str, ids: np.ndarray,
+        self, name: str, ids: np.ndarray, table: Optional[torch.Tensor] = None,
     ) -> Tuple[np.ndarray, Tuple[int, ...], int]:
         """Chunk at the largest bucket, pad each chunk to its bucket with
         the sentinel row, pull, slice the pads off. Pad rows are excluded
         from the pulled-rows counter (they count as ``pad_rows``) and are
         never cached. Returns ``(rows, buckets_used, pad_rows)`` so the
         dispatcher can stamp pad attribution onto each request's trace."""
-        table = self._tables[name]
+        table = self._tables[name] if table is None else table
         cap = self.buckets[-1]
         out: List[np.ndarray] = []
         buckets_used: List[int] = []
@@ -886,8 +1031,11 @@ class Servant:
             padded = np.concatenate(
                 [chunk, np.full(pad, PAD_ROW, np.int32)]
             ) if pad else chunk
-            rows = torch.from_numpy(np.ascontiguousarray(padded, np.int32))
-            vals = _host(self._pull_fn(table, rows.to(self.device)))
+            if name in self.tier:
+                vals = _host(self._tier_pull(name, padded))
+            else:
+                rows = torch.from_numpy(np.ascontiguousarray(padded, np.int32))
+                vals = _host(self._pull_fn(table, rows.to(self.device)))
             out.append(vals[: len(chunk)])
             buckets_used.append(b)
             pad_total += pad
@@ -920,12 +1068,18 @@ class Servant:
                 padded = np.concatenate(
                     [chunk, np.zeros((pad, chunk.shape[1]), np.float32)]
                 ) if pad else chunk
-                s, i = topk_tiled(
-                    table, torch.from_numpy(np.ascontiguousarray(padded)).to(self.device),
-                    k=k, tile_rows=self.topk_tile_rows, normalize=normalize,
-                )
-                all_s.append(_host(s)[: len(chunk)])
-                all_i.append(_host(i)[: len(chunk)])
+                if name in self.tier:
+                    # exhaustive scans never fault the cache: stream the host
+                    # master through the card in tiles instead
+                    s, i = self._topk_master(name, padded, k, normalize)
+                else:
+                    s, i = topk_tiled(
+                        table, torch.from_numpy(np.ascontiguousarray(padded)).to(self.device),
+                        k=k, tile_rows=self.topk_tile_rows, normalize=normalize,
+                    )
+                    s, i = _host(s), _host(i)
+                all_s.append(s[: len(chunk)])
+                all_i.append(i[: len(chunk)])
                 buckets_used.append(b)
                 pad_total += pad
                 self.registry.counter("serve.topk.queries").inc(len(chunk))
@@ -953,6 +1107,21 @@ class Servant:
         ).reshape(b, f, self.scorer.table_dim)
         return torch.sigmoid(self.scorer.forward(pulled, dense, mask))
 
+    @torch.no_grad()
+    def _score_tiered(self, feats: np.ndarray) -> np.ndarray:
+        """Score through the cache tier: hash the fields on the host, fault
+        the rows through the shared pull path, then run the forward pass on
+        the gathered rows (padding fields hash like real rows but their
+        values are mask-zeroed by ``forward``)."""
+        from swiftsnails_tpu_torch.ops.hashing import hash_row_np
+
+        b, f = feats.shape
+        rows = hash_row_np(np.maximum(feats, 0), self.scorer.capacity).astype(np.int32)
+        pulled = self._tier_pull(self.default_table, rows.reshape(-1)).reshape(
+            b, f, self.scorer.table_dim)
+        mask = torch.from_numpy(feats >= 0).to(self.device)
+        return _host(torch.sigmoid(self.scorer.forward(pulled, self._dense, mask)))
+
     def _dispatch_score(self, batch: List[_Request]) -> None:
         self._maybe_fault("score")
         table = self._tables[self.default_table]
@@ -970,9 +1139,12 @@ class Servant:
             padded = np.concatenate(
                 [chunk, np.full((pad, chunk.shape[1]), PAD_FIELD, np.int32)]
             ) if pad else chunk
-            scores = _host(self._score_fn(
-                table, dense,
-                torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)))
+            if self.default_table in self.tier:
+                scores = self._score_tiered(padded)
+            else:
+                scores = _host(self._score_fn(
+                    table, dense,
+                    torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)))
             outs.append(scores[: len(chunk)])
             buckets_used.append(b)
             pad_total += pad
@@ -1178,6 +1350,14 @@ class Servant:
                 k: int(reg.counter(f"serve.{k}.unavailable").value)
                 for k in _KERNELS
             },
+            **({"tiered": {
+                **self._tier_stats.as_dict(),
+                "tables": {
+                    name: {"budget_slots": tt.budget,
+                           "master_units": tt.master.units}
+                    for name, tt in self.tier.items()
+                },
+            }} if self.tier else {}),
             **({"trace": self.request_tracer.stats()}
                if self.request_tracer is not None else {}),
             **({"slo": self.slo.snapshot()} if self.slo is not None else {}),
@@ -1191,7 +1371,7 @@ class Servant:
         reg = self.registry
         states = {k: br.state for k, br in self.breakers.items()}
         status = "ok" if all(s == CLOSED for s in states.values()) else "degraded"
-        return {
+        out = {
             "status": status,
             "version": self.version,
             "step": self.step,
@@ -1201,6 +1381,14 @@ class Servant:
             "degraded_hits": int(reg.counter("serve.degraded_hits").value),
             "shed_total": self.shed_count(),
         }
+        if self.tier:
+            out["tier"] = {
+                name: {"budget_slots": tt.budget,
+                       "master_units": tt.master.units,
+                       "resident": int((tt.unit_of >= 0).sum())}
+                for name, tt in self.tier.items()
+            }
+        return out
 
     def attach_freshness(self, subscriber) -> None:
         """The freshness subscriber is not ported yet: raises."""

@@ -288,6 +288,7 @@ class Fleet:
                 comm_dtype=proto.comm_dtype,
                 topk=proto.topk_default,
                 topk_tile_rows=proto.topk_tile_rows,
+                tier_hbm_budget_mb=proto.tier_budget_mb,
                 breaker_threshold=config.get_int(
                     "breaker_threshold", DEFAULT_BREAKER_THRESHOLD),
                 breaker_cooldown_ms=config.get_float(
@@ -421,15 +422,22 @@ class Fleet:
                    step: Optional[int] = None) -> int:
         """Apply one delta batch fleet-wide at a single epoch.
 
-        Replicas share one set of planes, so the post-delta tensors are
-        computed ONCE (``prepare_rows`` on the first replica) and the same
-        tensors install into every replica — no replica ever serves a torn
-        batch, and every cache cuts over to the same version."""
+        Resident replicas share one set of planes, so the post-delta tensors
+        are computed ONCE (``prepare_rows`` on the first replica) and the
+        same tensors install into every replica — no replica ever serves a
+        torn batch, and every cache cuts over to the same version. Tiered
+        replicas own separate host masters and apply individually, still at
+        the shared epoch."""
         epoch = self._next_epoch()
         reps = self.replicas()
         if not reps:
             raise Unavailable("fleet: no active replicas")
-        new_tables = reps[0].servant.prepare_rows(updates)
+        first = reps[0].servant
+        if first.tier_budget_mb > 0:
+            for rep in reps:
+                rep.servant.apply_rows(updates, version=epoch, step=step)
+            return epoch
+        new_tables = first.prepare_rows(updates)
         for rep in reps:
             rep.servant.install_tables(new_tables, version=epoch, step=step)
         return epoch

@@ -25,12 +25,12 @@ Record envelope::
 ``--diff A B`` (regression attribution between two run records) and
 ``--check-regression PCT`` (the bench gate plus the training plane's
 correctness gates: chaos recovery, the drift drill, the continuous
-profiler's and the tracer's own cost; and the serve lane's pull qps and
-p99).
+profiler's and the tracer's own cost; the serve lane's pull qps and p99;
+and the tiered lane's parity, round trip, int8 masters and words/sec).
 
 Not ported yet (``ROADMAP.md``): the regression checks of the scaling,
 placement, quantized-wire, zero, freshness, net, chaos-serve,
-chaos-cluster, fleet and tiered planes, and the bench-cache helpers
+chaos-cluster and fleet planes, and the bench-cache helpers
 (``validate_bench_payload``, ``load_bench_cache``, ``derive_last_good``,
 hence ``--baseline-file``); each comes with the plane or the port bench
 that writes its records.
@@ -1179,12 +1179,100 @@ def _check_serving_regression(
     )
 
 
+def _tiered_values(record: Dict) -> Optional[Tuple[float, bool]]:
+    """(words_per_sec, parity_ok) from a bench payload's ``tiered`` block, or
+    None when the tiered lane didn't run in that record. ``parity_ok``
+    collapses the lane's correctness flags: equal-vocab bit-parity AND the
+    over-budget train->checkpoint->serve round trip."""
+    t = record.get("payload", {}).get("tiered")
+    if not isinstance(t, dict):
+        return None
+    wps = t.get("words_per_sec")
+    if not (isinstance(wps, (int, float)) and wps > 0):
+        return None
+    parity = bool(t.get("parity_bit_identical")) and bool(t.get("round_trip_ok"))
+    return float(wps), parity
+
+
+_TIERED_RESIDENT_FLOOR = 0.95  # equal-vocab leg: tiered words/sec vs resident
+
+
+def _check_tiered_regression(
+    ledger: Ledger, max_drop_pct: float
+) -> Tuple[int, Optional[str]]:
+    """Gate the tiered lane: the newest bench record carrying a ``tiered``
+    block must hold bit-parity + the over-budget round trip (correctness —
+    gated on ANY platform, like chaos recovery), keep the equal-vocab leg at
+    >= ``_TIERED_RESIDENT_FLOOR`` of resident speed (any platform; older
+    records without the ratio are not gated on it), and hold its words/sec
+    floor against the best earlier record of the same platform. No tiered
+    history gates nothing."""
+    with_tiered = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict) and _tiered_values(r)
+    ]
+    if not with_tiered:
+        return 0, None
+    newest_rec = with_tiered[-1]
+    wps, parity = _tiered_values(newest_rec)
+    if not parity:
+        return 1, (
+            "tiered REGRESSION: newest lane record failed bit-parity or the "
+            "over-budget round trip (correctness gate)")
+    # quantized-master (int8) leg: correctness + capacity, any platform.
+    # Older records without the block are not gated on it.
+    q = newest_rec["payload"]["tiered"].get("quantized")
+    if isinstance(q, dict) and not q.get("ok"):
+        bad = [k for k in ("digests_clean", "serve_requant_exact",
+                           "checkpoint_dtype_f32") if not q.get(k)]
+        cap = q.get("capacity_ratio_vs_f32")
+        if not (isinstance(cap, (int, float)) and cap >= 2.0):
+            bad.append(f"capacity_ratio_vs_f32={cap} (floor 2.0x)")
+        err = q.get("master_rel_err_vs_f32")
+        budget = q.get("rel_err_budget", 0.05)
+        if not (isinstance(err, (int, float)) and err <= budget):
+            bad.append(f"master_rel_err_vs_f32={err} (budget {budget})")
+        return 1, (
+            "tiered REGRESSION: quantized-master (int8) leg failed: "
+            + ", ".join(bad or ["ok flag unset"]))
+    ratio = newest_rec["payload"]["tiered"].get("tiered_over_resident")
+    if isinstance(ratio, (int, float)) and ratio < _TIERED_RESIDENT_FLOOR:
+        return 1, (
+            f"tiered REGRESSION: equal-vocab leg ran at {ratio:.4f}x "
+            f"resident speed (floor {_TIERED_RESIDENT_FLOOR:.2f}x) — the "
+            "tier's hot path is paying per-step cost it shouldn't")
+    platform = newest_rec["payload"].get("platform")
+    same = [r for r in with_tiered
+            if r["payload"].get("platform") == platform]
+    earlier = [_tiered_values(r)[0] for r in same[:-1]]
+    if not earlier:
+        return 0, (
+            f"tiered: single {platform or '?'} record ({wps:,.1f} words/s, "
+            "parity ok); nothing to compare against"
+        )
+    base = max(earlier)
+    floor = base * (1.0 - max_drop_pct / 100.0)
+    if wps < floor:
+        return 1, (
+            f"tiered REGRESSION: {wps:,.1f} words/s is "
+            f"{(1 - wps / base) * 100:.1f}% below baseline {base:,.1f} "
+            f"(allowed {max_drop_pct:.1f}%)"
+        )
+    return 0, (
+        f"tiered ok: {wps:,.1f} words/s vs baseline {base:,.1f} "
+        f"({(wps / base - 1) * 100:+.1f}%), parity ok ({platform or '?'})"
+        + (f", int8 masters {q.get('capacity_ratio_vs_f32')}x capacity"
+           if isinstance(q, dict) else "")
+    )
+
+
 def _plane_checks(max_drop_pct: float):
     """The planes' sub-checks, in the JAX gate's order, each ``ledger ->
     (rc, message or None)``."""
     return (
         _check_chaos_regression,
         functools.partial(_check_serving_regression, max_drop_pct=max_drop_pct),
+        functools.partial(_check_tiered_regression, max_drop_pct=max_drop_pct),
         _check_trace_overhead_regression,
         _check_drift_regression,
         _check_profiler_overhead_regression,

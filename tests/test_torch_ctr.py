@@ -338,14 +338,16 @@ def test_train_loop_runs_on_the_cpu(case):
     ("packed", "0"), ("stream", "1"), ("table_tier", "host"), ("comm_dtype", "bf16"),
     ("placement", "hybrid"), ("dense_tp", "1"), ("optimizer_sharding", "zero")])
 def test_unported_keys_raise(key, value):
-    """``packed: 0`` and ``stream: 1`` are ported since this test was
-    written: for them it holds that the trainer takes the key (``stream``
-    reads only a ``data`` file, as in the JAX package, so records given in
-    hand keep it off); every other key still raises."""
-    if key in ("packed", "stream"):
+    """``packed: 0``, ``stream: 1`` and ``table_tier: host`` are ported
+    since this test was written: for them it holds that the trainer takes
+    the key (``stream`` reads only a ``data`` file, as in the JAX package,
+    so records given in hand keep it off); every other key still raises."""
+    if key in ("packed", "stream", "table_tier"):
         tr = get_model("widedeep")(Config(_conf(**{key: value})), data=_data(),
                                    device="cpu")
-        assert (not tr.packed) if key == "packed" else (not tr.stream)
+        took = {"packed": lambda: not tr.packed, "stream": lambda: not tr.stream,
+                "table_tier": lambda: tr.tiered and tr.tier_spec() is not None}
+        assert took[key]()
         return
     with pytest.raises(NotImplementedError, match=key):
         get_model("widedeep")(Config(_conf(**{key: value})), data=_data(), device="cpu")

@@ -1075,3 +1075,142 @@ def test_serving_topk_and_score_on_the_card_against_the_cpu(cuda_device):
         with Servant({"table": wtable}, scorer=scorer, dense=dense, device=dev) as sv:
             out.append(sv.score(feats))
     np.testing.assert_allclose(out[0], out[1], rtol=1e-5, atol=1e-7)
+
+
+# ----------------------------------------------------------- tiered store ---
+
+
+def _tiered_w2v(device, budget_mb=None, **over):
+    from swiftsnails_tpu_torch.data.vocab import Vocab
+    from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(0)
+    w = 1.0 / np.arange(1, 4097) ** 1.05
+    ids = np.searchsorted(np.cumsum(w) / w.sum(), rng.random(60_000)).astype(np.int32)
+    vocab = Vocab([f"w{i}" for i in range(4096)], np.maximum(np.bincount(ids, minlength=4096), 1))
+    cfg = Config({"dim": "200", "window": "2", "negatives": "5", "pool_size": "64",
+                  "pool_block": "512", "batch_size": "1024", "learning_rate": "10",
+                  "subsample": "0", "seed": "0", "num_iters": "1",
+                  **{k: str(v) for k, v in over.items()}})
+    if budget_mb is not None:
+        cfg.set("table_tier", "host")
+        cfg.set("tier_hbm_budget_mb", str(budget_mb))
+    return Word2VecTrainer(cfg, corpus_ids=ids, vocab=vocab, device=device)
+
+
+@pytest.mark.parametrize("async_flush", [0, 1])
+def test_tiered_packed_pool_bit_equal_to_resident_on_the_card(cuda_device, async_flush):
+    """packed+pool at dim 200 over a 4,096-word zipf vocab with a 1,536-slot
+    cache a table (3 MB): every step faults and evicts; losses and tables
+    equal the resident run on the card bit for bit; the installs launch
+    ``scatter_write_rows`` and the flush snapshots ``gather_rows``."""
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+    def run(tr):
+        records = []
+
+        class Recorder(MetricsLogger):
+            def log(self, record):
+                records.append(record)
+
+        state = TrainLoop(tr, metrics=Recorder(), log_every=1).run(seed=0, max_steps=20)
+        return state, [r["loss"] for r in records]
+
+    resident, losses = run(_tiered_w2v(cuda_device))
+    tr = _tiered_w2v(cuda_device, budget_mb=3.0, tier_async_flush=async_flush)
+    w0, g0 = rowdma.scatter_write_rows.launches, rowdma.gather_rows.launches
+    loop_state, tier_losses = run(tr)
+    assert tier_losses == losses
+    assert torch.equal(resident.in_table.table.cpu(), loop_state.in_table.table)
+    assert torch.equal(resident.out_table.table.cpu(), loop_state.out_table.table)
+    assert rowdma.scatter_write_rows.launches > w0
+    assert rowdma.gather_rows.launches > g0 + 2 * 20  # the pulls + the snapshots
+
+
+def test_tiered_install_and_snapshot_against_plain_on_the_card(cuda_device):
+    """A fault install into a ``[64, 2, 128]`` cache writes the master's rows
+    through ``scatter_write_rows`` (one launch a plane), bit-equal to its
+    plain version; the eviction's snapshot lands in the master bit for bit."""
+    from swiftsnails_tpu_torch.parallel.store import PackedTableState
+    from swiftsnails_tpu_torch.tiered import HostMaster, TieredTable
+
+    rng = np.random.default_rng(3)
+    table = rng.standard_normal((512, 2, 128)).astype(np.float32)
+    accum = rng.random((512, 2, 128)).astype(np.float32)
+    master = HostMaster(PackedTableState(table=torch.from_numpy(table),
+                                         slots={"accum": torch.from_numpy(accum)}), "packed")
+    tt = TieredTable(master, 64, device=cuda_device)
+    cache = tt.make_cache()
+    units = rng.choice(512, 64, replace=False)
+    n0 = rowdma.scatter_write_rows.launches
+    cache = tt.ensure(cache, units)
+    assert rowdma.scatter_write_rows.launches == n0 + 2
+    slots = tt.slot_of[units]
+    want = rowdma.scatter_write_rows_plain(
+        torch.zeros(64, 2, 128), torch.from_numpy(slots.astype(np.int32)),
+        torch.from_numpy(table[units]))
+    assert torch.equal(cache.table.cpu(), want)
+    assert torch.equal(cache.slots["accum"].cpu()[slots], torch.from_numpy(accum[units]))
+    cache.table.add_(1.0)  # the step trains every resident row
+    g0 = rowdma.gather_rows.launches
+    cache = tt.ensure(cache, rng.choice(np.setdiff1d(np.arange(512), units), 8,
+                                        replace=False))
+    assert rowdma.gather_rows.launches == g0 + 2  # table + accum snapshot
+    gone = units[tt.slot_of[units] < 0]
+    assert gone.size == 8
+    np.testing.assert_array_equal(master.table[gone], table[gone] + 1.0)
+    assert master.verify() == []
+
+
+def test_tiered_widedeep_bit_equal_to_resident_on_the_card(cuda_device):
+    """Wide & Deep on the small-row plane with a cache of 3/4 of the tiles:
+    table, dense parameters and optimizer state equal the resident run's."""
+    from swiftsnails_tpu_torch.data.ctr import synth_ctr
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    labels, feats, _ = synth_ctr(1024 * 8, 26, 2000, seed=0)
+    conf = {"model": "widedeep", "num_fields": "26", "capacity": str(1 << 17),
+            "embed_dim": "16", "hidden_dims": "64,32", "batch_size": "1024", "num_iters": "1"}
+    states, loops = [], []
+    for tier in (None, 24.0):  # 32,768 tiles of 1 KB: 3/4 of them
+        cfg = Config(conf)
+        if tier:
+            cfg.set("table_tier", "host")
+            cfg.set("tier_hbm_budget_mb", str(tier))
+        loop = TrainLoop(get_model("widedeep")(cfg, data=(labels, feats), device="cuda"),
+                         log_every=0)
+        states.append(loop.run(seed=0, max_steps=8))
+        loops.append(loop)
+    a, b = states
+    assert loops[1].tier.summary()["evictions"] > 0
+    assert torch.equal(a.table.table.cpu(), b.table.table)
+    for k in a.dense:
+        assert torch.equal(a.dense[k], b.dense[k])
+        assert torch.equal(a.opt["sum_of_squares"][k], b.opt["sum_of_squares"][k])
+
+
+def test_tiered_serving_on_the_card_against_the_cpu(cuda_device):
+    """The tiered servant on the card pulls through ``gather_rows`` from its
+    cache and answers as the CPU one; topk streams the master."""
+    from swiftsnails_tpu_torch.serving import Servant
+
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((8192, 200)).astype(np.float32)
+    budget = 1024 * 800 / float(1 << 20)
+    with Servant({"t": table}, cache_rows=0, tier_hbm_budget_mb=budget,
+                 device="cuda") as card, \
+            Servant({"t": table}, cache_rows=0, tier_hbm_budget_mb=budget,
+                    device="cpu") as cpu:
+        g0 = rowdma.gather_rows.launches
+        for _ in range(6):
+            ids = rng.integers(0, 8192, 300)
+            np.testing.assert_array_equal(card.pull(ids), cpu.pull(ids))
+            np.testing.assert_array_equal(card.pull(ids), table[ids])
+        assert rowdma.gather_rows.launches > g0
+        assert card.stats()["tiered"]["evictions"] > 0
+        q = rng.standard_normal(200).astype(np.float32)
+        assert [i for i, _ in card.topk(q, k=10)] == [i for i, _ in cpu.topk(q, k=10)]

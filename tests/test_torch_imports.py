@@ -73,6 +73,33 @@ def test_serving_modules_are_held(module):
     assert module in _PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "swiftsnails_tpu_torch.tiered", "swiftsnails_tpu_torch.tiered.store",
+    "swiftsnails_tpu_torch.tiered.manager", "swiftsnails_tpu_torch.tiered.bench_lane"])
+def test_tiered_modules_are_held(module):
+    """The modules of the tiered slice are among the ones imported without
+    JAX above and read for its names below."""
+    assert module in _PORT_MODULES
+
+
+def test_tiered_entry_points_default_to_the_card(tmp_path):
+    """``TieredTable``, the tiered ``Servant`` and ``tiered_bench`` resolve
+    ``device=None`` to the card and raise without one."""
+    from swiftsnails_tpu_torch.parallel.store import TableState
+    from swiftsnails_tpu_torch.serving import Servant
+    from swiftsnails_tpu_torch.tiered import HostMaster, TieredTable
+    from swiftsnails_tpu_torch.tiered.bench_lane import tiered_bench
+
+    _no_card()
+    master = HostMaster(TableState(table=torch.zeros(8, 4), slots={}), "dense")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TieredTable(master, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Servant({"t": np.zeros((8, 4), np.float32)}, tier_hbm_budget_mb=1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tiered_bench(small=True, workdir=str(tmp_path))
+
+
 def test_serving_entry_points_default_to_the_card(tmp_path):
     """``Servant``, ``Fleet.from_checkpoint`` and ``serve_bench`` resolve
     ``device=None`` to the card and raise without one."""

@@ -492,16 +492,31 @@ def test_from_checkpoint_reads_the_serve_keys(tmp_path):
 @pytest.mark.parametrize("key,value,item", [
     ("table_tier", "host", "item 4"), ("comm_dtype", "int8", "item 6")])
 def test_unported_serving_keys_raise(tmp_path, key, value, item):
+    """``table_tier: host`` (item 4) is ported since this test was written:
+    for it the test holds that the servant serves the checkpoint through a
+    tier; ``comm_dtype: int8`` still raises."""
     root = str(tmp_path / "ck")
     cfg = _w2v_ckpt(root)
     cfg.set(key, value)
+    if key == "table_tier":
+        cfg.set("tier_hbm_budget_mb", str(2 * 16 * 24 * 4 / (1 << 20)))
+        with Servant.from_checkpoint(root, cfg, device=CPU) as sv:
+            assert sorted(sv.tier) == ["in_table", "out_table"]
+            assert sv.tier["in_table"].budget == 16
+            ids = np.arange(40, dtype=np.int32)
+            want = rowdma.unpack_rows(_w2v_state(64, 24, seed=1).in_table.table, 24)
+            np.testing.assert_array_equal(sv.pull(ids[:16]), want.numpy()[:16])
+        return
     with pytest.raises(NotImplementedError, match=item):
         Servant.from_checkpoint(root, cfg, device=CPU)
 
 
 def test_unported_servant_options_raise():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Servant({"t": _table(4, 4)}, tier_hbm_budget_mb=8.0, device=CPU)
+    """``tier_hbm_budget_mb`` is ported since this test was written: the
+    servant then builds a tier (its budget in rows of the table); ``mesh=``
+    and ``attach_freshness`` still raise."""
+    with Servant({"t": _table(4, 4)}, tier_hbm_budget_mb=8.0, device=CPU) as sv:
+        assert sv.tier["t"].budget == 4 and sv.stats()["tiered"]["prewarmed_rows"] == 4
     with pytest.raises(NotImplementedError, match="item 6"):
         Servant({"t": _table(4, 4)}, mesh=object(), device=CPU)
     with Servant({"t": _table(4, 4)}, device=CPU) as sv, \

@@ -323,13 +323,13 @@ def test_packed_pool_loss_decreases():
 
 # (key, value, other keys of the case). ``fused``, ``grouped``, ``resident``
 # and ``dedup`` are ported; their cases ask for a path still to port on top.
-# ``packed``, ``neg_mode`` and ``stream`` are ported too: for them the test
+# ``packed``, ``neg_mode``, ``stream`` and ``table_tier`` are ported too: for them the test
 # holds that the trainer takes the key (see ``_PORTED``).
 _UNPORTED_CASES = [
     ("packed", 0, {}), ("neg_mode", "per_pair", {}),
     ("fused", 1, {"grouped": 1, "resident": 1, "overlap": 1}),
     ("grouped", 1, {"fused": 1, "dedup": 1, "comm_dtype": "bfloat16"}),
-    ("resident", 1, {"fused": 1, "grouped": 1, "table_tier": "host"}),
+    ("resident", 1, {"fused": 1, "grouped": 1, "placement": "hybrid"}),
     ("dedup", 1, {"fused": 1, "grouped": 1, "placement": "hybrid"}),
     ("table_tier", "host", {}),
     ("comm_dtype", "bfloat16", {}), ("placement", "hybrid", {}), ("overlap", 1, {}),
@@ -343,6 +343,7 @@ _PORTED = {
     "packed": lambda tr: not tr.packed and tr.neg_mode == "per_pair",
     "neg_mode": lambda tr: tr.packed and tr.neg_mode == "per_pair",
     "stream": lambda tr: tr.stream,
+    "table_tier": lambda tr: tr.tiered and tr.tier_spec() is not None,
 }
 
 
