@@ -19,10 +19,14 @@ telemetry (run ledger, spans, goodput, the ``torch.profiler`` window,
 resume from the ledger, the drift drill); then the serving read path
 (``Servant``, ``Fleet`` and ``python -m swiftsnails_tpu_torch serve`` over
 checkpoints of ``examples/word2vec.conf`` at capacity 1,048,576 and of
-``examples/widedeep.conf``); last the tiered parameter store
-(``table_tier: host``: host masters behind a 64 MB cache on the card).
+``examples/widedeep.conf``); then the tiered parameter store
+(``table_tier: host``: host masters behind a 64 MB cache on the card); last
+the freshness pipeline and the TCP network plane (hot-row deltas from a
+resumed run to an in-process fleet over the file log, and to two replica
+processes on the card over ``freshness_listen``, with the gap, int8 and
+``proc_kill`` drills).
 
-    python3 chip_smoke.py [--seed N] [--only tiered]
+    python3 chip_smoke.py [--seed N] [--only tiered|freshness]
 
 Run from the root of the repository on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. The
@@ -300,13 +304,45 @@ Phases:
     at the cache planes' push shapes; bit-equal to plain, against the byte
     bound. ``--only tiered`` runs this phase alone (with the build and a
     serve checkpoint of its own) and prints no result line.
-18. ``kernels``: one line for every ported kernel, with its launches in the
-    run of its path (``path``) and its f32 numbers from phases 3, 7, 10, 16
-    and 17 (``gather_rows`` and ``scatter_add_rows`` also at
+18. ``freshness``: the serve phase's step-4 checkpoint of
+    ``examples/word2vec.conf`` (capacity 1,048,576, dim 200, packed+pool)
+    under a fresh root. (a) ``freshness_file``: a 2-replica ``Fleet`` on the
+    card at step 4 and a ``DeltaSubscriber`` poll thread on the file log
+    while the run resumes 4 -> 20 with ``freshness_publish: 1`` (the
+    publisher gathers each step's touched tiles with ``gather_rows``) under
+    an open loop of 8-id pulls; at step 20 the fleet's whole planes equal
+    ``Servant.from_checkpoint`` of step 20 bit for bit (mismatch 0.0), the
+    replicas on one version; publish ms a step split into gather, D2H and
+    write, rows and bytes a batch, lag p50/p99, apply ms a batch, pull
+    p50/p99 under apply, prunes and fallbacks (both 0: ``freshness_log_mb``
+    4096). ``freshness_gap_drill``: five batches of step-20 rows, the third
+    deleted: one fallback reload, the rest re-applied, parity 0.0.
+    ``freshness_int8``: 20 -> 24 with ``freshness_delta_dtype: int8``: the
+    touched rows equal the quantizer's round trip of step 24's, the rest
+    equal step 24's, the relative error within the tiered lane's 0.05. (b)
+    ``freshness_tcp``: two ``python -m swiftsnails_tpu_torch.net.replica_server``
+    processes on the card (step 24) behind a ``NetFleet``: a TCP pull equal
+    to the in-process one; 24 -> 28 with ``freshness_listen: 127.0.0.1:0``
+    and a ``TcpDeltaSource`` applying over RPC under an open loop of pulls;
+    every applied row and 65,536 others pulled from each replica equal
+    step 28's. ``freshness_proc_kill``: one replica SIGKILL'd under load;
+    lease expiry (3 s) drains it and a fresh process rejoins at parity;
+    availability % and respawn s. ``freshness_launches``: ``gather_rows``
+    and ``scatter_write_rows`` in process and in the replicas (their
+    ``stats`` RPC), each > 0. Then both kernels at the freshness shapes:
+    ``gather_rows`` of a step's touched out-table tiles beside
+    ``index_select``, ``scatter_write_rows`` of a batch into a
+    ``[1,048,576, 200]`` plane beside ``index_copy_``. ``--only freshness``
+    runs this phase alone (with the build and a serve checkpoint of its
+    own) and prints no result line.
+19. ``kernels``: one line for every ported kernel, with its launches in the
+    run of its path (``path``) and its f32 numbers from phases 3, 7, 10, 16,
+    17 and 18 (``gather_rows`` and ``scatter_add_rows`` also at
     ``train_perpair``'s shape and launches; ``gather_rows`` and
     ``scatter_write_rows`` also at the serving shapes with the ``serve``
-    path's launches; all four row kernels of the tiered runs with ``path:
-    "tiered"``); then ``total``, the script's seconds.
+    path's launches, and at the freshness shapes with the ``freshness``
+    path's, the replicas' included; all four row kernels of the tiered
+    runs with ``path: "tiered"``); then ``total``, the script's seconds.
 """
 
 from __future__ import annotations
@@ -3532,6 +3568,559 @@ def _tiered_kernel_entries(summary: dict, tiered: dict) -> list:
     return out
 
 
+# ------------------------------------------------------------- freshness ---
+
+# the freshness phase (18): resume examples/word2vec.conf at capacity 2^20
+# from the serve phase's step-4 checkpoint, publishing every step
+FRESH_STEPS = 16  # the file-log leg: steps 4 -> 20
+FRESH_INT8_STEPS = 4  # the int8 wire: 20 -> 24
+FRESH_TCP_STEPS = 4  # freshness_listen to the replica processes: 24 -> 28
+# retention must prune nothing outside the gap drill: 16 batches of ~30 MB
+FRESH_LOG_MB = 4096
+FRESH_LOAD_QPS = 200.0  # open-loop pulls of 8 zipf ids while deltas apply
+FRESH_KILL_LOAD_S = 8.0  # the proc_kill drill's load; the kill lands at 30%
+FRESH_KILL_QPS = 100.0
+FRESH_LEASE_MS = 3_000.0  # the net plane's default lease
+FRESH_PROBE_MS = 1_000.0
+FRESH_SAMPLE_ROWS = 65_536  # untouched rows pulled over TCP beside the applied ones
+FRESH_PULL_CHUNK = 8_192  # ids a parity pull
+FRESH_REPLICA_BUCKETS = "8,64,8192"  # the replicas' serve_batch_buckets
+FRESH_SPAWN_S = 300.0  # a replica's ready line: interpreter, CUDA context, 2 GiB load
+FRESH_WAIT_S = 300.0
+
+
+class _Applied:
+    """A subscriber target forwarding to a fleet: the rows each table got
+    from deltas, and each batch's apply time (the cutover included; on the
+    card synchronized, so the time is the device's too)."""
+
+    def __init__(self, inner, cuda: bool):
+        self._inner = inner
+        self._cuda = cuda
+        self.rows = {}
+        self.apply_ms = []
+
+    @property
+    def step(self) -> int:
+        return self._inner.step
+
+    @property
+    def version(self) -> int:
+        return self._inner.version
+
+    def apply_rows(self, updates, **kw):
+        t0 = time.perf_counter()
+        out = self._inner.apply_rows(updates, **kw)
+        if self._cuda:
+            torch.cuda.synchronize()
+        self.apply_ms.append((time.perf_counter() - t0) * 1e3)
+        for name, (ids, _vals) in updates.items():
+            self.rows.setdefault(name, set()).update(np.asarray(ids).tolist())
+        return out
+
+    def reload_from_checkpoint(self, root, config, **kw):
+        return self._inner.reload_from_checkpoint(root, config, **kw)
+
+
+def _fresh_config(device: str, root: str, **extra):
+    cfg = _serve_config(device)
+    for k, v in {"param_backup_root": root, "resume": "auto", "param_backup_keep": 0,
+                 "freshness_log_mb": FRESH_LOG_MB, **extra}.items():
+        cfg.set(k, str(v))
+    return cfg
+
+
+def _fresh_run(seed: int, corpora, device: str, root: str, start: int, steps: int, **extra):
+    """Resume the serve config from ``root``'s newest step ``start`` for
+    ``steps`` steps, publishing every step and saving at the last; returns
+    the trainer, its loop and the recorded losses (run it with ``.run``)."""
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+    cfg = _fresh_config(device, root, param_backup_period=start + steps,
+                        freshness_publish=1, **extra)
+    ids, vocab, _ = corpora[False]
+    trainer = Word2VecTrainer(cfg, corpus_ids=ids, vocab=vocab, device=device)
+    records = []
+
+    class Recorder(MetricsLogger):
+        def log(self, record):
+            records.append(record)
+
+    return trainer, TrainLoop(trainer, metrics=Recorder(), log_every=1), records
+
+
+def _in_thread(fn):
+    """Run ``fn`` on a thread; returns ``(join, thread)``, where
+    ``join(timeout)`` re-raises the thread's exception."""
+    out, err = [], []
+
+    def body():
+        try:
+            out.append(fn())
+        except BaseException as e:  # re-raised by join
+            err.append(e)
+
+    th = threading.Thread(target=body, daemon=True)
+    th.start()
+
+    def join(timeout: float):
+        th.join(timeout)
+        if th.is_alive():
+            raise AssertionError(f"a run outlived its {timeout} s")
+        if err:
+            raise err[0]
+        return out[0]
+
+    return join, th
+
+
+def _wait_for(cond, timeout_s: float, what: str) -> float:
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"freshness: {what} within {timeout_s} s")
+        time.sleep(0.02)
+    return time.monotonic() - t0
+
+
+def _plane_mismatch(want: dict, got: dict) -> float:
+    """Mismatched-element fraction over whole planes (on their device)."""
+    bad = total = 0
+    for name, w in want.items():
+        bad += int((got[name] != w).sum())
+        total += w.numel()
+    return bad / total
+
+
+def _pull_mismatch(servant, ref: dict, ids: dict) -> float:
+    """Mismatched-element fraction of ``servant.pull`` (a replica over TCP,
+    or in process) against the reference planes on the ids of each table."""
+    bad = total = 0
+    for name, rows in ids.items():
+        for c in range(0, len(rows), FRESH_PULL_CHUNK):
+            r = rows[c:c + FRESH_PULL_CHUNK]
+            got = np.asarray(servant.pull(r, table=name))
+            want = ref[name][torch.from_numpy(r).to(ref[name].device)].cpu().numpy()
+            bad += int((got != want).sum())
+            total += want.size
+    return bad / total
+
+
+def _fresh_ids(applied: dict, rng) -> dict:
+    """Per table: every delta-applied row and FRESH_SAMPLE_ROWS others."""
+    out = {}
+    for name, rows in applied.items():
+        rows = np.fromiter(sorted(rows), np.int64)
+        others = np.setdiff1d(rng.choice(CLI_CAPACITY, FRESH_SAMPLE_ROWS, replace=False), rows)
+        out[name] = np.concatenate([rows, others])
+    return out
+
+
+def _replica_launches(fleet) -> dict:
+    """Each live replica's row-kernel launches, over its ``stats`` RPC."""
+    return {r.id: r.servant.stats().get("launches", {}) for r in fleet.replicas()}
+
+
+def phase_freshness(seed: int, corpora, env: dict, serve: dict, device: str = "cuda") -> dict:
+    """The freshness pipeline and the TCP network plane at full width (see
+    the module docstring, phase 18). Returns the launches and the delta
+    batches' rows for the kernel timings."""
+    import gc
+
+    from swiftsnails_tpu_torch.freshness.log import list_seqs, read_batch, seg_path
+    from swiftsnails_tpu_torch.freshness.publisher import DeltaPublisher
+    from swiftsnails_tpu_torch.freshness.subscriber import DeltaSubscriber
+    from swiftsnails_tpu_torch.net.delta_stream import TcpDeltaSource
+    from swiftsnails_tpu_torch.net.fleet import NetFleet, ReplicaManager, ReplicaSpawner
+    from swiftsnails_tpu_torch.serving import Fleet, Servant
+    from swiftsnails_tpu_torch.serving.loadgen import run_open_loop
+    from swiftsnails_tpu_torch.tiered.store import _np_dequant_unit_rows, _np_quant_unit_rows
+
+    t_phase = time.monotonic()
+    card = {"device": env["device"], "nvidia_smi": env["nvidia_smi"]}
+    cuda = device != "cpu"
+    rng = np.random.default_rng(seed + 23)
+    tmp = tempfile.mkdtemp(prefix="ssn-fresh-")
+    s1 = SERVE_TRAIN_STEPS
+    s2 = s1 + FRESH_STEPS
+    s3 = s2 + FRESH_INT8_STEPS
+    s4 = s3 + FRESH_TCP_STEPS
+    counters = _counters()
+    fleet = netfleet = manager = None
+    procs = [None, None]
+    try:
+        root = os.path.join(tmp, "ckpt")
+        os.makedirs(root)
+        os.symlink(os.path.join(serve["root"], f"step_{s1}"), os.path.join(root, f"step_{s1}"))
+        serve_cfg = _fresh_config(device, root)
+        logs = {k: os.path.join(tmp, k) for k in ("deltas", "gap", "int8", "tcp")}
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        for f in counters.values():
+            f.launches = 0
+
+        # (a) the file log, in process: a 2-replica fleet at step 4 follows
+        # the resumed run's deltas under an open loop of pulls
+        t0 = time.perf_counter()
+        fleet = Fleet.from_checkpoint(root, serve_cfg, device=device, replicas=2)
+        fleet_load_s = time.perf_counter() - t0
+        target = _Applied(fleet, cuda)
+        sub = DeltaSubscriber(target, logs["deltas"], config=serve_cfg, checkpoint_root=root,
+                              max_lag_ms=FRESH_WAIT_S * 1e3)
+        fleet.attach_freshness(sub)
+        trainer, loop, records = _fresh_run(seed, corpora, device, root, s1, FRESH_STEPS,
+                                            freshness_dir=logs["deltas"])
+        t_run = time.perf_counter()
+        join, th = _in_thread(lambda: loop.run(seed=seed, max_steps=s2))
+        _wait_for(lambda: sub.subscribe() or not th.is_alive(), FRESH_WAIT_S,
+                  "the publisher opened no log")
+        if not th.is_alive():
+            join(0)  # the run ended (or failed) before it published
+        sub.start(interval_s=0.02)
+        load = run_open_loop(lambda anchor, ids: fleet.pull(ids), qps=FRESH_LOAD_QPS,
+                             duration_s=3.0, seed=seed, id_space=CLI_CAPACITY,
+                             batch=SERVE_BUCKETS[0])
+        state = join(FRESH_WAIT_S)
+        run_s = time.perf_counter() - t_run
+        _wait_for(lambda: sub.status()["applied_step"] >= s2, FRESH_WAIT_S,
+                  f"the subscriber reached no step {s2}")
+        sub.stop()
+        st = sub.status()
+        pub = loop.freshness.stats()
+        losses = [r["loss"] for r in records]
+        if len(losses) != FRESH_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"freshness: losses {losses}")
+        if pub["published_batches"] != FRESH_STEPS or pub["pruned"] or st["fallbacks"] \
+                or loop.freshness.errors:
+            raise AssertionError(f"freshness: publisher {pub}, subscriber {st}")
+        ref = Servant.from_checkpoint(root, serve_cfg, step=s2, device=device)
+        first = fleet.replicas()[0].servant
+        parity = _plane_mismatch(ref._tables, first._tables)
+        applied = {k: len(v) for k, v in target.rows.items()}
+        versions = {r.id: r.servant.version for r in fleet.replicas()}
+        shared = len({r.servant._tables["in_table"].data_ptr() for r in fleet.replicas()}) == 1
+        if parity != 0.0 or len(set(versions.values())) != 1 or not shared:
+            raise AssertionError(f"freshness: parity {parity}, versions {versions}")
+        health = fleet.health()["freshness"]
+        seqs = list_seqs(logs["deltas"])
+        batches = [read_batch(seg_path(logs["deltas"], s))[1] for s in seqs]
+        n = pub["published_batches"]
+        emit("freshness_file", steps=[s1, s2], losses=losses, run_s=run_s,
+             fleet_load_normalize_s=fleet_load_s, bit_parity=parity, whole_planes=True,
+             applied_rows=applied, replica_versions=versions, shared_planes=shared,
+             publish_ms_per_step={"step_wait": pub["step_wait_ms"] / n,
+                                  "gather": pub["gather_ms"] / n, "d2h": pub["d2h_ms"] / n,
+                                  "write": pub["write_ms"] / n},
+             rows_per_batch=pub["published_rows"] / pub["published_batches"],
+             bytes_per_batch=pub["published_bytes"] / pub["published_batches"],
+             rows_per_batch_by_table={name: statistics.median(len(b[name]["rows"])
+                                                              for b in batches)
+                                      for name in batches[0]},
+             lag_p50_ms=st["lag_p50_ms"], lag_p99_ms=st["lag_p99_ms"],
+             apply_ms_per_batch={"median": statistics.median(target.apply_ms),
+                                 "max": max(target.apply_ms), "batches": len(target.apply_ms)},
+             pull_under_apply={k: load[k] for k in ("p50_ms", "p99_ms", "achieved_qps",
+                                                    "requests", "errors")},
+             pruned=pub["pruned"], fallbacks=st["fallbacks"], health=health,
+             step_ms_median=statistics.median(r["seconds"] * 1e3 for r in records[1:]),
+             **card)
+        timing = {"gather_table": state.out_table.table, "batches": batches}
+        del state, trainer, loop
+
+        # the gap drill: a deleted segment -> a full reload of step 20 ->
+        # the batches past the gap re-apply on it; whole planes equal again
+        gpub = DeltaPublisher(logs["gap"], base_step=s2, log_mb=FRESH_LOG_MB)
+        gsub = DeltaSubscriber(fleet, logs["gap"], config=serve_cfg, checkpoint_root=root)
+        grows = {}
+        for k in range(1, 6):
+            rows = np.sort(rng.choice(CLI_CAPACITY, 512, replace=False))
+            idx = torch.from_numpy(rows).to(ref._tables["in_table"].device)
+            grows[k] = rows
+            gpub.publish({name: (rows, plane[idx].cpu().numpy())
+                          for name, plane in ref._tables.items()}, s2 + k)
+            if k == 2:
+                gsub.subscribe()
+                gsub.poll()
+        os.remove(seg_path(logs["gap"], 3))
+        t0 = time.perf_counter()
+        gsub.poll()  # the gap at seq 3: reload, resubscribe at 4
+        gsub.poll()  # 4 and 5 on the reloaded planes
+        gap_s = time.perf_counter() - t0
+        gst = gsub.status()
+        gparity = _plane_mismatch(ref._tables, fleet.replicas()[0].servant._tables)
+        if not (gst["fallbacks"] == 1 and gst["applied_seq"] == 5 and gparity == 0.0):
+            raise AssertionError(f"freshness gap drill: {gst}, parity {gparity}")
+        emit("freshness_gap_drill", fallbacks=gst["fallbacks"], applied_seq=gst["applied_seq"],
+             skipped_batches=gst["skipped_batches"], bit_parity=gparity,
+             reload_and_reapply_s=gap_s, pruned=gpub.pruned, **card)
+        del ref
+        gc.collect()
+        # back to step 20's watermark (the drill's batches carried later
+        # steps), so the int8 run's batches apply
+        fleet.reload_from_checkpoint(root, serve_cfg, step=s2)
+
+        # the int8 wire: resume 20 -> 24 publishing int8; the fleet's
+        # touched rows equal the quantizer's round trip of step 24's, the
+        # rest equal step 24's
+        t8 = _Applied(fleet, cuda)
+        sub8 = DeltaSubscriber(t8, logs["int8"], config=serve_cfg, checkpoint_root=root)
+        _, loop8, _ = _fresh_run(seed, corpora, device, root, s2, FRESH_INT8_STEPS,
+                                 freshness_dir=logs["int8"], freshness_delta_dtype="int8")
+        loop8.run(seed=seed, max_steps=s3)
+        sub8.poll()
+        pub8 = loop8.freshness.stats()
+        del loop8
+        ref8 = Servant.from_checkpoint(root, serve_cfg, step=s3, device=device)
+        got8 = fleet.replicas()[0].servant._tables
+        rel, exact_elsewhere = {}, True
+        for name, want in ref8._tables.items():
+            rows = np.fromiter(sorted(t8.rows[name]), np.int64)
+            idx = torch.from_numpy(rows).to(want.device)
+            w = want[idx].cpu().numpy()
+            codes, scales = _np_quant_unit_rows(w)
+            if not np.array_equal(got8[name][idx].cpu().numpy(),
+                                  _np_dequant_unit_rows(codes, scales, np.float32)):
+                raise AssertionError(f"int8 wire: {name} rows are not the quantizer's")
+            rel[name] = float((got8[name] - want).abs().max() / want.abs().max())
+            keep = torch.ones(want.shape[0], dtype=torch.bool, device=want.device)
+            keep[idx] = False
+            exact_elsewhere &= bool(torch.equal(got8[name][keep], want[keep]))
+        if max(rel.values()) > QUANTIZED_REL_ERR_MAX or not exact_elsewhere \
+                or sub8.status()["applied_step"] != s3:
+            raise AssertionError(f"int8 wire: rel {rel}, elsewhere {exact_elsewhere}")
+        emit("freshness_int8", steps=[s2, s3], max_rel_err=rel, limit=QUANTIZED_REL_ERR_MAX,
+             quantizer_round_trip_exact=True, exact_elsewhere=exact_elsewhere,
+             bytes_per_batch=pub8["published_bytes"] / pub8["published_batches"],
+             f32_bytes_per_batch=pub["published_bytes"] / pub["published_batches"], **card)
+        del ref8, got8
+        in_process = {name: f.launches for name, f in counters.items()}
+        fleet.close()
+        fleet = None
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (b) TCP: two replica processes on the card behind a NetFleet; they
+        # load the newest checkpoint (step 24)
+        rcfg = _fresh_config(device, root, serve_batch_buckets=FRESH_REPLICA_BUCKETS)
+        spawner = ReplicaSpawner(root, rcfg, device=None if cuda else "cpu",
+                                 startup_timeout_s=FRESH_SPAWN_S)
+        t0 = time.perf_counter()
+        joins = [_in_thread(lambda i=i: procs.__setitem__(i, spawner.spawn()))[0]
+                 for i in (0, 1)]
+        for j in joins:
+            j(FRESH_SPAWN_S + 30)
+        spawn_s = time.perf_counter() - t0
+        netfleet = NetFleet.connect([(p.host, p.port) for p in procs], rcfg,
+                                    checkpoint_root=root)
+        manager = ReplicaManager(netfleet, spawner=spawner, lease_ms=FRESH_LEASE_MS,
+                                 probe_timeout_ms=FRESH_PROBE_MS)
+        for rep, proc in zip(netfleet.replicas(), procs):
+            manager.attach_process(rep.id, proc)
+        local = Servant.from_checkpoint(root, serve_cfg, device=device)
+        ids = zipf_ids(FRESH_PULL_CHUNK, CLI_CAPACITY, rng)
+        for rep in netfleet.replicas():
+            if not np.array_equal(rep.servant.pull(ids), local.pull(ids)):
+                raise AssertionError("freshness: a TCP pull differs from the in-process one")
+        local.close()
+        del local
+
+        # freshness_listen: resume 24 -> 28 streaming to a TcpDeltaSource
+        # that applies to the NetFleet (an apply RPC to each replica)
+        tt = _Applied(netfleet, False)
+        tsub = DeltaSubscriber(tt, logs["tcp"], config=rcfg, checkpoint_root=root)
+        netfleet.attach_freshness(tsub)
+        _, tloop, _ = _fresh_run(seed, corpora, device, root, s3, FRESH_TCP_STEPS,
+                                 freshness_dir=logs["tcp"], freshness_listen="127.0.0.1:0")
+        tjoin, tth = _in_thread(lambda: tloop.run(seed=seed, max_steps=s4))
+        _wait_for(lambda: tloop.freshness.stream_server is not None or not tth.is_alive(),
+                  FRESH_WAIT_S, "no freshness_listen server")
+        if tloop.freshness.stream_server is None:
+            tjoin(0)  # the run ended (or failed) before it listened
+            raise AssertionError("freshness_listen: the run ended before it listened")
+        src = TcpDeltaSource(tsub, *tloop.freshness.stream_server.address, config=rcfg).start()
+        try:
+            tload = run_open_loop(lambda anchor, ids: netfleet.pull(ids), qps=FRESH_LOAD_QPS,
+                                  duration_s=3.0, seed=seed + 1, id_space=CLI_CAPACITY,
+                                  batch=SERVE_BUCKETS[0])
+            tjoin(FRESH_WAIT_S)
+            _wait_for(lambda: tsub.status()["applied_step"] >= s4, FRESH_WAIT_S,
+                      f"the TCP subscriber reached no step {s4}")
+        finally:
+            src.stop()
+        tst = tsub.status()
+        tpub = tloop.freshness.stats()
+        del tloop
+        ref4 = Servant.from_checkpoint(root, serve_cfg, step=s4, device=device)
+        pids = _fresh_ids(tt.rows, rng)
+        tparity = {r.id: _pull_mismatch(r.servant, ref4._tables, pids)
+                   for r in netfleet.replicas()}
+        if any(tparity.values()) or tst["fallbacks"] or src.status()["batches"] < FRESH_TCP_STEPS:
+            raise AssertionError(f"freshness tcp: parity {tparity}, {tst}, {src.status()}")
+        emit("freshness_tcp", replicas=len(procs), spawn_s=spawn_s, steps=[s3, s4],
+             tcp_pull_equals_in_process=True, bit_parity=tparity,
+             rows_compared={k: len(v) for k, v in pids.items()}, source=src.status(),
+             lag_p50_ms=tst["lag_p50_ms"], lag_p99_ms=tst["lag_p99_ms"],
+             apply_ms_per_batch={"median": statistics.median(tt.apply_ms),
+                                 "max": max(tt.apply_ms), "batches": len(tt.apply_ms)},
+             pull_under_apply={k: tload[k] for k in ("p50_ms", "p99_ms", "achieved_qps",
+                                                     "requests", "errors")},
+             fallbacks=tst["fallbacks"], **card)
+
+        # proc_kill: SIGKILL one replica under load; lease expiry drains it
+        # and a fresh process (loading step 28) rejoins at parity
+        victim = netfleet.replicas()[0]
+        vproc = manager.process_of(victim.id)
+        old_inc = victim.servant.incarnation
+        launches_before = _replica_launches(netfleet)
+        manager.start(interval_s=0.2)
+        t_kill = [None]
+
+        def _kill():
+            t_kill[0] = time.monotonic()
+            vproc.kill()
+
+        timer = threading.Timer(FRESH_KILL_LOAD_S * 0.3, _kill)
+        timer.start()
+        kload = run_open_loop(lambda anchor, ids: netfleet.pull(ids), qps=FRESH_KILL_QPS,
+                              duration_s=FRESH_KILL_LOAD_S, seed=seed + 2,
+                              id_space=CLI_CAPACITY, batch=SERVE_BUCKETS[0])
+        timer.join()
+        _wait_for(lambda: manager.respawns >= 1 and len(netfleet.replicas()) == 2
+                  and victim.id not in {r.id for r in netfleet.replicas()},
+                  FRESH_SPAWN_S + 60, "no respawn")
+        respawn_s = time.monotonic() - t_kill[0]
+        manager.stop()
+        reps = netfleet.replicas()
+        incs = {r.id: r.servant.incarnation for r in reps}
+        kparity = {r.id: _pull_mismatch(r.servant, ref4._tables, pids) for r in reps}
+        availability = 100.0 - float(kload["error_rate_pct"])
+        if any(kparity.values()) or old_inc in incs.values():
+            raise AssertionError(f"proc_kill: parity {kparity}, incarnations {incs}")
+        replicas = _replica_launches(netfleet)
+        emit("freshness_proc_kill", killed=victim.id, availability_pct=availability,
+             requests=kload["requests"], errors=kload["errors"], p99_ms=kload["p99_ms"],
+             respawn_s=respawn_s, respawns=manager.respawns, incarnations=incs,
+             bit_parity=kparity, lease_ms=FRESH_LEASE_MS,
+             supervisor_lost=manager.supervisor.status()["workers_lost"], **card)
+        del ref4
+        in_total = {name: f.launches for name, f in counters.items()}
+        replica_sum = {}
+        for per in (launches_before[victim.id], *replicas.values()):
+            for k, v in per.items():
+                replica_sum[k] = replica_sum.get(k, 0) + int(v)
+        # in process: the training steps (gather_rows, scatter_add_rows),
+        # the publisher's gathers, the fleet's pulls and applies
+        launches = {"in_process": {k: in_total[k] for k in ("gather_rows", "scatter_write_rows")},
+                    "file_log_leg": {k: in_process[k] for k in ("gather_rows",
+                                                                "scatter_write_rows")},
+                    "replicas": replica_sum,
+                    "publisher_gathers": 2 * (pub["published_batches"]
+                                              + pub8["published_batches"]
+                                              + tpub["published_batches"])}
+        for k in ("gather_rows", "scatter_write_rows"):
+            if cuda and not (launches["in_process"][k] > 0 and replica_sum.get(k, 0) > 0):
+                raise AssertionError(f"freshness path: {k} launches {launches}")
+        emit("freshness_launches", **launches, replicas_by_id=replicas,
+             all_in_process=in_total, **card)
+        timing["launches"] = launches
+        timing["seconds"] = time.monotonic() - t_phase
+        return timing
+    finally:
+        if manager is not None:
+            manager.close()  # SIGKILLs and reaps every replica process
+        for p in procs:
+            if p is not None:
+                p.close()
+        if netfleet is not None:
+            netfleet.close()
+        if fleet is not None:
+            fleet.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_freshness_kernels(fresh: dict, seed: int, rate: float) -> dict:
+    """The kernels of the freshness path at its shapes: ``gather_rows`` as
+    the publisher runs it (one step's touched out-table rows from the
+    trained ``[1,048,576, 2, 128]`` plane, the phase's own batches in
+    rotation), beside ``index_select``; ``scatter_write_rows`` as one
+    delta apply runs it (one batch's out-table rows into a ``[1,048,576,
+    200]`` serving plane), beside ``index_copy_``. Bit-equal to the plain
+    versions, timed, against the byte bound. Not counted: the path's
+    launches were read before."""
+    from swiftsnails_tpu_torch.ops import rowdma
+
+    dev = torch.device("cuda")
+    table = fresh["gather_table"]
+    batches = fresh["batches"][-ROW_SETS:]
+    sets = [torch.from_numpy(b["out_table"]["rows"].astype(np.int32)).to(dev) for b in batches]
+    summary = {}
+    case = _gather_case(table, sets, rate)
+    n = int(sets[0].numel())  # the shape the bound counts
+    emit("kernel", name="gather_rows", dtype="torch.float32", path="freshness", rows=n, **case)
+    summary["gather_rows_freshness"] = {"shape": [n, *table.shape[1:]], **case}
+    serving = rowdma.unpack_rows(table, DIM).contiguous()
+    del fresh["gather_table"], table
+    row_bytes = serving.stride(0) * serving.element_size()
+    psets = []
+    for b in batches:
+        uniq = torch.from_numpy(b["out_table"]["rows"].astype(np.int32)).to(dev)
+        vals = torch.from_numpy(np.array(b["out_table"]["values"])).to(dev)
+        psets.append((uniq, vals, uniq.long(), int(uniq.numel())))
+    n = int(psets[0][3])
+    case = _push_case(
+        lambda bf, u, v: (rowdma.scatter_write_rows(bf[0], u, v),),
+        lambda bf, u, v: (rowdma.scatter_write_rows_plain(bf[0], u, v),),
+        [serving], psets, lambda bf, st: bf[0].index_copy_(0, st[2], st[1]),
+        n * (2 * row_bytes + 4), n, rate)
+    emit("kernel", name="scatter_write_rows", dtype="torch.float32", path="freshness", **case)
+    summary["scatter_write_rows_freshness"] = {"shape": list(serving.shape), **case}
+    del serving, psets, sets
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _freshness_kernel_entries(summary: dict, fresh: dict) -> list:
+    """The ``kernels`` line's ``path: "freshness"`` entries: each kernel at
+    the freshness path's shape with its launches in the phase (in process,
+    the replica processes' over their ``stats`` RPC added)."""
+    out = []
+    for key, replaces in (("gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+                          ("scatter_write_rows", "swiftsnails_tpu/ops/rowdma.py:289")):
+        s = summary[f"{key}_freshness"]
+        la = fresh["launches"]
+        out.append({
+            "name": key, "route": "cuda", "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": replaces,
+            "launches": la["in_process"][key] + la["replicas"].get(key, 0),
+            "launches_in_process": la["in_process"][key],
+            "launches_replicas": la["replicas"].get(key, 0),
+            "max_abs_err": s["max_abs_err"], "ms": s.get("ms", s.get("kernel_ms")),
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": "bytes",
+            "library_ms": s["library_ms"], "shape": s["shape"], "dtype": "float32",
+            "path": "freshness"})
+    return out
+
+
+def _only_freshness(seed: int, env: dict, t_start: float) -> int:
+    """``--only freshness``: the freshness phase over its own serve checkpoint."""
+    corpora = {False: _corpus(seed)}
+    tmp = tempfile.mkdtemp(prefix="ssn-serve-")
+    try:
+        root = os.path.join(tmp, "ckpt")
+        _build_serve_checkpoint(seed, corpora, root, "cuda")
+        fresh = phase_freshness(seed, corpora, env, {"root": root})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = phase_freshness_kernels(fresh, seed, env["mem_rate_Bps"])
+    emit("kernels", kernels=_freshness_kernel_entries(summary, fresh))
+    emit("total", seconds=time.monotonic() - t_start)
+    return 0
+
+
 def _only_tiered(seed: int, env: dict, t_start: float) -> int:
     """``--only tiered``: the tiered phase over its own serve checkpoint."""
     corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
@@ -3551,7 +4140,7 @@ def _only_tiered(seed: int, env: dict, t_start: float) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("tiered",),
+    ap.add_argument("--only", choices=("tiered", "freshness"),
                     help="run only this phase (with the build and the inputs it "
                          "needs) and print no result line: a quicker check while "
                          "working on it")
@@ -3567,6 +4156,8 @@ def main() -> int:
     phase_build()
     if args.only == "tiered":
         return _only_tiered(args.seed, env, t_start)
+    if args.only == "freshness":
+        return _only_freshness(args.seed, env, t_start)
     summary = phase_kernels(args.seed, env["mem_rate_Bps"])
     summary.update(phase_fused_kernels(args.seed, env))
     for path in PATHS:
@@ -3631,11 +4222,15 @@ def main() -> int:
         del served["table"]
         torch.cuda.empty_cache()
         tiered = phase_tiered(args.seed, corpora, env, served)
+        summary.update(phase_tiered_kernels(tiered, args.seed, env["mem_rate_Bps"]))
+        emit("tiered_total", seconds=tiered["seconds"], device=env["device"],
+             nvidia_smi=env["nvidia_smi"])
+        fresh = phase_freshness(args.seed, corpora, env, served)
     finally:
         shutil.rmtree(served["tmp"], ignore_errors=True)
     del served
-    summary.update(phase_tiered_kernels(tiered, args.seed, env["mem_rate_Bps"]))
-    emit("tiered_total", seconds=tiered["seconds"], device=env["device"],
+    summary.update(phase_freshness_kernels(fresh, args.seed, env["mem_rate_Bps"]))
+    emit("freshness_total", seconds=fresh["seconds"], device=env["device"],
          nvidia_smi=env["nvidia_smi"])
     kernels = []
     for key, name, replaces in (
@@ -3718,6 +4313,7 @@ def main() -> int:
             "shape": {**shape, "table": [VOCAB, -(-DIM // 128), 128]},
             "dtype": "float32"})
     kernels.extend(_tiered_kernel_entries(summary, tiered))
+    kernels.extend(_freshness_kernel_entries(summary, fresh))
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),
                            ("chunk_probe", "tools/sem_probe.py:164"),
                            ("pipe_probe", "tools/sem_probe.py:233")):

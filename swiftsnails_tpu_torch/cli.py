@@ -11,6 +11,13 @@ Usage::
     python -m swiftsnails_tpu_torch train  -config train.conf [-data corpus.txt]
     python -m swiftsnails_tpu_torch export -config train.conf -checkpoint ROOT -out vec.txt
     python -m swiftsnails_tpu_torch serve  -config train.conf -checkpoint ROOT [-replicas N]
+    # in the serve REPL: `subscribe <dir>` follows the trainer's live
+    # hot-row delta log (freshness_publish + freshness_dir on the trainer);
+    # `subscribe tcp://HOST:PORT` streams it over a socket instead (the
+    # trainer side sets `freshness_listen`)
+    python -m swiftsnails_tpu_torch net-serve --root ROOT --listen HOST:PORT [--device cpu]
+    #   one replica process serving pull/topk/score/health over TCP
+    #   (the unit a NetFleet spawns; net.fleet.ReplicaSpawner)
     python -m swiftsnails_tpu_torch models
     python -m swiftsnails_tpu_torch worker -config ...   # alias of train (parity)
     python -m swiftsnails_tpu_torch ledger-report [LEDGER] [--failures | --diff A B | --check-regression PCT]
@@ -45,10 +52,13 @@ Serving: ``serve`` loads the newest verified checkpoint under
 (or, with ``-replicas N`` > 1, a fleet of N replicas sharing its tables)
 and answers one request a stdin line, one JSON line each (see
 :func:`cmd_serve`). ``ops`` renders the offline ops dashboard of a ledger.
+``net-serve`` runs one replica process over TCP
+(:mod:`swiftsnails_tpu_torch.net.replica_server`), on the card unless
+``--device cpu``.
 
 ``master`` / ``server`` are accepted for parity and explain the collapse.
-``net-serve`` and ``supervisor-status`` belong to planes the port does not
-have yet (``ROADMAP.md``): they say so and exit 2.
+``supervisor-status`` belongs to the cluster plane the port does not have
+yet (``ROADMAP.md``): it says so and exits 2.
 """
 
 from __future__ import annotations
@@ -118,14 +128,25 @@ def cmd_serve(argv: List[str]) -> int:
         ops                          one-screen dashboard (SLO / traces)
         add                          (fleet) add a replica to the ring
         drain <replica>              (fleet) drain + remove a replica
+        subscribe <dir|tcp://h:p>    follow a hot-row delta log (freshness)
+        freshness                    applied-seq watermark / lag / fallbacks
         quit
 
     then a ``{"final_stats": ...}`` line. ``-replicas N`` (or config
     ``serve_replicas``) > 1 serves through a
     :class:`~swiftsnails_tpu_torch.serving.fleet.Fleet` of N replicas
-    sharing the loaded tables. ``subscribe`` and ``freshness`` (the
-    freshness subscriber) are not ported yet: they answer ``{"error":
-    ...}``.
+    sharing the loaded tables.
+
+    ``subscribe <dir>`` attaches a background
+    :class:`~swiftsnails_tpu_torch.freshness.subscriber.DeltaSubscriber`
+    polling the trainer's delta log: hot-row batches apply behind the
+    version-keyed cache with atomic cutover, and any gap / publisher
+    restart / CRC mismatch falls back to a full ``reload_from_checkpoint``
+    of this checkpoint root. ``subscribe tcp://HOST:PORT`` feeds the same
+    subscriber from a :class:`~swiftsnails_tpu_torch.net.delta_stream.
+    TcpDeltaSource` instead. ``freshness`` reports the applied-seq
+    watermark, lag, and fallback count (also rolled into ``health``;
+    fleets add per-replica versions).
     """
     import json
 
@@ -144,15 +165,18 @@ def cmd_serve(argv: List[str]) -> int:
                                           replicas=replicas, ledger=ledger)
     else:
         server_cm = Servant.from_checkpoint(root, cfg, device=device, ledger=ledger)
+    subscriber = None
+    delta_source = None
     with server_cm as servant:
         if fleet_mode:
             banner = (f"serving fleet of {replicas} replicas "
                       "(one request per line; pull/topk/score/stats/"
-                      "health/ops/add/drain/quit)")
+                      "health/ops/add/drain/subscribe/freshness/quit)")
         else:
             banner = (f"serving step {servant.step} tables "
                       f"{servant.stats()['tables']} on {servant.device} (one "
-                      "request per line; pull/topk/score/stats/health/ops/quit)")
+                      "request per line; pull/topk/score/stats/health/ops/"
+                      "subscribe/freshness/quit)")
         print(banner, file=sys.stderr)
         for line in sys.stdin:
             toks = line.split()
@@ -194,9 +218,45 @@ def cmd_serve(argv: List[str]) -> int:
                     out = {"added": servant.add_replica()}
                 elif op == "drain" and fleet_mode:
                     out = {"drained": servant.drain(args[0])}
-                elif op in ("subscribe", "freshness"):
-                    out = {"error": f"{op}: the freshness subscriber is not "
-                           "ported yet; see ROADMAP.md, Queue 1 item 5"}
+                elif op == "subscribe":
+                    from swiftsnails_tpu_torch.freshness.subscriber import DeltaSubscriber
+
+                    if subscriber is not None:
+                        subscriber.stop()
+                    if delta_source is not None:
+                        delta_source.stop()
+                        delta_source = None
+                    target = args[0]
+                    tcp = target.startswith("tcp://")
+                    # socket-fed: the TCP source drives apply_batch and the
+                    # subscriber never polls a local directory; base
+                    # adoption, gap detection and the fallback ladder are
+                    # unchanged
+                    subscriber = DeltaSubscriber(
+                        servant, (cfg.get_str("freshness_dir", "") or root + ".deltas")
+                        if tcp else target, config=cfg, checkpoint_root=root,
+                        max_lag_ms=cfg.get_float("freshness_max_lag_ms", 0.0),
+                        ledger=ledger)
+                    if tcp:
+                        from swiftsnails_tpu_torch.net.delta_stream import TcpDeltaSource
+
+                        host, _, port = target[len("tcp://"):].rpartition(":")
+                        delta_source = TcpDeltaSource(
+                            subscriber, host, int(port), config=cfg, ledger=ledger).start()
+                        found = True
+                    else:
+                        found = subscriber.subscribe()
+                        subscriber.start()
+                    servant.attach_freshness(subscriber)
+                    out = {"subscribed": target, "stream_open": found}
+                elif op == "freshness":
+                    if subscriber is None:
+                        out = {"error": "not subscribed (use: subscribe "
+                               "<dir> or subscribe tcp://HOST:PORT)"}
+                    else:
+                        out = subscriber.status()
+                        if delta_source is not None:
+                            out["source"] = delta_source.status()
                 else:
                     out = {"error": f"unknown op {op!r}"}
             except Overloaded as e:
@@ -206,6 +266,10 @@ def cmd_serve(argv: List[str]) -> int:
             except Exception as e:  # noqa: BLE001 — a REPL must not die
                 out = {"error": f"{type(e).__name__}: {e}"}
             print(json.dumps(out), flush=True)
+        if delta_source is not None:
+            delta_source.stop()
+        if subscriber is not None:
+            subscriber.stop()
         print(json.dumps({"final_stats": servant.stats()}), flush=True)
     return 0
 
@@ -217,6 +281,17 @@ def cmd_ops(argv: List[str]) -> int:
     from swiftsnails_tpu_torch.telemetry.ops import main as ops_main
 
     return ops_main(argv)
+
+
+def cmd_net_serve(argv: List[str]) -> int:
+    """One replica process serving a checkpoint over TCP: pull/topk/score/
+    health RPCs behind the SSD1 frame codec, spawnable by hand here or by
+    ``net.fleet.ReplicaSpawner``; prints one JSON ready line (``{"port":
+    ..., "incarnation": ...}``) and serves until killed. On the card unless
+    ``--device cpu``."""
+    from swiftsnails_tpu_torch.net.replica_server import main as replica_main
+
+    return replica_main(argv)
 
 
 def cmd_ledger_report(argv: List[str]) -> int:
@@ -245,7 +320,7 @@ _ROLE_NOTE = (
     "  python -m swiftsnails_tpu_torch train -config <file>"
 )
 
-_UNPORTED = ("net-serve", "supervisor-status")
+_UNPORTED = ("supervisor-status",)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -269,6 +344,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             return cmd_ledger_report(rest)
         if cmd == "trace-summary":
             return cmd_trace_summary(rest)
+        if cmd == "net-serve":
+            return cmd_net_serve(rest)
         if cmd in ("master", "server"):
             print(_ROLE_NOTE.format(role=cmd), file=sys.stderr)
             return 0
@@ -277,7 +354,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                   "see ROADMAP.md for when it is", file=sys.stderr)
             return 2
         print(f"unknown command {cmd!r}; try: train, export, serve, models, "
-              "ledger-report, trace-summary, ops",
+              "ledger-report, trace-summary, ops, net-serve",
               file=sys.stderr)
         return 2
     except ConfigError as e:

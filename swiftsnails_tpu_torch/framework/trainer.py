@@ -24,7 +24,10 @@ Capability parity with the reference's worker framework
   :mod:`swiftsnails_tpu_torch.tiered.manager`): adopt after resume, stage
   on the prefetch thread, fault + remap before each step, the integrity
   sweep (``tier_verify_period``), synchronous saves of the masters, and
-  the full-size master state at the end.
+  the full-size master state at the end; and hot-row delta publishing to
+  serving subscribers (``freshness_publish`` steps + ``freshness_dir``,
+  with ``freshness_delta_dtype``, ``freshness_log_mb`` and
+  ``freshness_listen``; see :mod:`swiftsnails_tpu_torch.freshness`).
 
 With telemetry on, the ``step`` span ends after the device's current
 stream has synchronized, so it holds the step's device time; with it off
@@ -151,6 +154,13 @@ class Trainer:
     def tier_warm_rows(self) -> Optional[Dict[str, np.ndarray]]:
         """Hottest-first master row ids per table for the pre-step-0 cache
         prewarm (from corpus frequency ranks); ``None`` to skip."""
+        return None
+
+    def table_geometry(self) -> Optional[Dict[str, Dict]]:
+        """``{table: {"layout", "group", "dim", "capacity"}}`` for the
+        freshness publisher — :meth:`tier_spec`'s layout map WITHOUT the
+        ``table_tier`` gate (resident runs publish too) plus the logical
+        row geometry. ``None`` (default) disables delta publishing."""
         return None
 
     def step_cost(self, batch: Dict[str, np.ndarray]) -> Optional[Dict]:
@@ -296,7 +306,6 @@ def _positive(cfg: Config, key: str) -> bool:
 # (read as the JAX loop reads it).
 UNPORTED_LOOP_KEYS = {
     "cluster_workers": _positive,
-    "freshness_publish": _positive,
 }
 
 
@@ -407,6 +416,16 @@ class TrainLoop:
         # Runs on the resilient path only — like chaos and the guardrail,
         # arming it costs the plain hot path nothing.
         self.tier_verify_period = cfg.get_int("tier_verify_period", 0)
+        # freshness_publish: N steps + freshness_dir -> hot-row delta
+        # publishing to serving subscribers (freshness/). Off (the default)
+        # => None and the hot path pays one flag check.
+        self.freshness = None
+        if (cfg.get_int("freshness_publish", 0) > 0
+                and cfg.get_str("freshness_dir", "")):
+            from swiftsnails_tpu_torch.freshness.publisher import TrainPublisher
+
+            fresh = TrainPublisher(trainer, tier=self.tier, ledger=self.ledger)
+            self.freshness = fresh if fresh.active else None
 
     def _init_telemetry(self, cfg: Config) -> None:
         """The tracer, registry, black box, continuous profiler and drift
@@ -494,6 +513,12 @@ class TrainLoop:
             # `state` carries the small cache planes until master_state() at
             # the end, and the full-size planes are freed
             state = tier.adopt(state)
+        fresh = self.freshness
+        if fresh is not None:
+            # one publisher incarnation per run, based on the resumed step;
+            # under table_tier: host this also installs the flush tee (so it
+            # must run AFTER tier.adopt built the tables)
+            fresh.open(base_step=step)
         depth = trainer.config.get_int("prefetch_batches", 2)
         src = iter(trainer.batches())
         if tier is not None:
@@ -541,6 +566,10 @@ class TrainLoop:
                         break
                     n_items = trainer.items_per_batch(batch)
                     prof.on_step(step)
+                    if fresh is not None:
+                        # record touched rows BEFORE tier.prepare remaps the
+                        # batch ids to slot space (resident/transparent path)
+                        fresh.on_batch(batch, seed, step)
                     if chaos is not None:
                         chaos.maybe_slow_step(step)  # a host stall before dispatch
                     with (step_annotation(trainer.name, step) if prof.enabled
@@ -567,6 +596,8 @@ class TrainLoop:
                         first_line = {}
                     if self.backup_period and self.checkpoint_fn and step % self.backup_period == 0:
                         self.checkpoint_fn(state, step)
+                    if fresh is not None:
+                        fresh.maybe_publish(state, step)
                     if max_steps is not None and step >= max_steps:
                         break
             else:
@@ -585,6 +616,8 @@ class TrainLoop:
                         q_depth = batches.qsize()
                         reg.gauge("prefetch_queue_depth").set(q_depth)
                         tel.counter("prefetch_queue_depth", q_depth)
+                    if fresh is not None:
+                        fresh.on_batch(batch, seed, step)
                     if chaos is not None and chaos.scheduled("slow_step", step):
                         # the injected host stall runs OUTSIDE the step span,
                         # inside its own bucketed span, so the decomposition
@@ -641,6 +674,8 @@ class TrainLoop:
                     if self.backup_period and self.checkpoint_fn and step % self.backup_period == 0:
                         with tel.span("checkpoint", step=step):
                             self.checkpoint_fn(state, step)
+                    if fresh is not None:
+                        fresh.maybe_publish(state, step)
                     if max_steps is not None and step >= max_steps:
                         break
         except BaseException as e:
@@ -648,6 +683,8 @@ class TrainLoop:
             # post-mortem artifact (ring of recent steps + spans) behind
             if bb is not None:
                 bb.dump("exception", exc=e, tracer=tel)
+            if fresh is not None:
+                fresh.close()  # the TCP stream server must not outlive the run
             raise
         finally:
             # an open capture or trace must be finalized even on error
@@ -685,6 +722,12 @@ class TrainLoop:
             })
             print(f"preemption ({self._preempt_reason}): drained at step {step}",
                   file=sys.stderr)
+        if fresh is not None:
+            # last delta before the caller materializes/abandons the state,
+            # so subscribers reach the final training watermark without
+            # waiting for a full checkpoint cycle
+            fresh.maybe_publish(state, step, force=True)
+            fresh.close()
         if tier is not None:
             # end-of-run write-back: flush every dirty cache slot and hand
             # the caller the full-size master-backed state (the resident

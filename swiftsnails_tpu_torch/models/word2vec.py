@@ -734,7 +734,15 @@ class Word2VecTrainer(Trainer):
 
         Returns ``(ids, aug, remap_keys)``: per-table touched row ids, batch
         augmentations (hashed centers/contexts + the drawn negatives), and
-        which batch keys each table's remap applies to."""
+        which batch keys each table's remap applies to.
+
+        The fused paths have no plan: their pools are drawn inside the step
+        at the kernel's own block geometry, and the tier refuses them. This
+        raises there, so the freshness collector falls back to the batch's
+        own ids."""
+        if self.fused:
+            raise NotImplementedError(
+                "the fused paths draw their pools inside the step: no host plan")
         centers = np.asarray(batch["centers"])
         contexts = np.asarray(batch["contexts"])
         n = centers.shape[0]

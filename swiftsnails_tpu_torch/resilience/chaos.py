@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the training drills — the training kinds
-of the JAX package's ``resilience/chaos.py``.
+"""Deterministic fault injection for the training drills — the training and
+transport kinds of the JAX package's ``resilience/chaos.py``.
 
 A :class:`ChaosPlan` is parsed from two config keys:
 
@@ -29,11 +29,19 @@ Fault kinds of training, all injected from the host between kernels:
                   so only the integrity digests can catch it
 ================  ==========================================================
 
+Transport kinds, consulted by the net drills (``net/bench_lane.py``) through
+:meth:`ChaosPlan.net_fault`, whose "step" is the storm tick:
+
+================  ==========================================================
+``proc_kill``     SIGKILL a replica process mid-load
+``net_partition`` black-hole a replica's socket for a window
+``net_slow``      inject RTT into every reply of a replica
+================  ==========================================================
+
 :func:`parse_chaos_spec` accepts every kind the JAX package's parser does;
-a plan that schedules one of the kinds of the serving, cluster or network
-planes (``serve_*``, ``reload_corrupt``, ``worker_*``, ``partition``,
-``proc_kill``, ``net_*``) raises ``NotImplementedError``: those planes are
-not ported yet (``ROADMAP.md``).
+a plan that schedules one of the kinds of the serving or cluster planes
+(``serve_*``, ``reload_corrupt``, ``worker_*``, ``partition``) raises
+``NotImplementedError``: those drills are not ported yet (``ROADMAP.md``).
 Each injection is kept in :attr:`ChaosPlan.events` and, with a ledger, is
 one ``chaos`` ledger event.
 """
@@ -52,6 +60,8 @@ from swiftsnails_tpu_torch.utils.tree import tensor_items
 
 TRAINING_KINDS = ("nan_grad", "inf_grad", "row_poison", "io_error", "ckpt_corrupt",
                   "preempt", "slow_step", "tier_bitflip")
+NET_KINDS = ("proc_kill", "net_partition", "net_slow")
+PORTED_KINDS = TRAINING_KINDS + NET_KINDS
 FAULT_KINDS = TRAINING_KINDS + (
     "serve_io_error", "serve_slow", "reload_corrupt",
     "worker_dead", "worker_slow", "partition", "proc_kill", "net_partition", "net_slow",
@@ -178,7 +188,7 @@ class ChaosPlan:
 
     def __init__(self, faults: List[Tuple[str, int]], seed: int = 0, ledger=None,
                  slow_step_ms: float = 50.0):
-        unported = sorted({kind for kind, _ in faults if kind not in TRAINING_KINDS})
+        unported = sorted({kind for kind, _ in faults if kind not in PORTED_KINDS})
         if unported:
             raise NotImplementedError(
                 f"chaos kinds {', '.join(unported)} drill planes the PyTorch "
@@ -324,13 +334,22 @@ class ChaosPlan:
                   {"table": name, "plane": plane, "byte": off, "bit": bit})
         return name
 
+    # -- process-level transport faults (consulted by the net drills;
+    # "step" is the storm tick) ----------------------------------------------
+
+    def net_fault(self, tick: int) -> List[str]:
+        """The transport faults scheduled at storm tick ``tick``, in fire
+        order. The caller picks the victim replica/socket and ``_log``s the
+        detail (the plan can't know process identities)."""
+        return [kind for kind in NET_KINDS if self._take(kind, tick)]
+
     def summary(self) -> Dict:
         return {
             "seed": self.seed,
             "injected": len(self.events),
             "by_fault": {
                 k: sum(1 for e in self.events if e["fault"] == k)
-                for k in TRAINING_KINDS
+                for k in PORTED_KINDS
                 if any(e["fault"] == k for e in self.events)
             },
             "unfired": [f"{k}@{s}" for k, s in self.pending()],

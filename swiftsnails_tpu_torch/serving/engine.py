@@ -59,9 +59,13 @@ master through the card one ``topk_tile_rows`` tile at a time; a delta
 (:meth:`Servant.apply_rows`) lands in the master and makes its resident
 rows refault.
 
-Not ported yet (``ROADMAP.md``): the freshness subscriber
-(``attach_freshness``), the mesh pull (``mesh=``) and the int8/int4 wire;
-each raises ``NotImplementedError`` naming its key.
+**Freshness.** :meth:`Servant.attach_freshness` surfaces a
+:class:`~swiftsnails_tpu_torch.freshness.subscriber.DeltaSubscriber`'s
+watermark, lag and fallbacks through :meth:`Servant.health` and stamps the
+watermark on each traced pull.
+
+Not ported yet (``ROADMAP.md``): the mesh pull (``mesh=``) and the
+int8/int4 wire; each raises ``NotImplementedError`` naming its key.
 """
 
 from __future__ import annotations
@@ -102,12 +106,6 @@ _KERNELS = ("pull", "topk", "score")
 
 class Overloaded(RuntimeError):
     """The serve queue is full: the request was shed, not queued."""
-
-
-def _unported(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} selects a serving path the PyTorch port does not have yet; "
-        f"see ROADMAP.md, Queue 1 item {item}")
 
 
 def bucket_for(n: int, buckets: Sequence[int]) -> int:
@@ -414,6 +412,7 @@ class Servant:
         # error budget. Both optional — None costs one attribute check.
         self.request_tracer = request_tracer
         self.slo = slo
+        self._freshness = None  # an attached DeltaSubscriber (health, traces)
         self.comm_dtype = resolve_comm_dtype(comm_dtype)
         self.topk_default = int(topk)
         self.topk_tile_rows = int(topk_tile_rows)
@@ -821,6 +820,7 @@ class Servant:
         if ctx is not None:
             ctx.annotate(table=name, table_version=version,
                          cache_hits=len(found), cache_misses=len(missing))
+            self._annotate_freshness(ctx)
         if missing:
             br = self.breakers.get("pull")
             if br is not None and not br.allow():
@@ -1211,6 +1211,18 @@ class Servant:
         except Exception:
             pass  # tracing never blocks the serve path
 
+    def _annotate_freshness(self, ctx) -> None:
+        """Stamp the freshness the request is served at: the table version
+        plus the delta-subscriber watermark (trainer step / age)."""
+        fr = self._freshness
+        if fr is None:
+            return
+        try:
+            ctx.annotate(watermark_step=fr.applied_step,
+                         watermark_age_ms=round(fr.last_lag_ms, 3))
+        except Exception:
+            pass
+
     # -- metrics -----------------------------------------------------------
 
     def _observe(self, kernel: str, t0: float, units: int, ctx=None) -> None:
@@ -1388,12 +1400,18 @@ class Servant:
                        "resident": int((tt.unit_of >= 0).sum())}
                 for name, tt in self.tier.items()
             }
+        if self._freshness is not None:
+            try:
+                out["freshness"] = self._freshness.status()
+            except Exception:
+                pass  # introspection never blocks the health probe
         return out
 
     def attach_freshness(self, subscriber) -> None:
-        """The freshness subscriber is not ported yet: raises."""
-        _unported("attach_freshness (the freshness subscriber)",
-                  "5 (the process planes: freshness/)")
+        """Surface a :class:`~swiftsnails_tpu_torch.freshness.subscriber.
+        DeltaSubscriber`'s watermark/lag/fallback state through
+        :meth:`health`."""
+        self._freshness = subscriber
 
 
 def _int_list(raw: str, default: Sequence[int]) -> Tuple[int, ...]:

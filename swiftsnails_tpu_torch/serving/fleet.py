@@ -207,6 +207,7 @@ class Fleet:
         # the thread-local context); one SloTracker burns the error budget.
         self.request_tracer = request_tracer
         self.slo = slo
+        self._freshness = None  # an attached DeltaSubscriber (health rollup)
         self.affinity = bool(affinity)
         self.ring_spill = float(ring_spill)
         self.hedge_p95_ms = float(hedge_p95_ms)
@@ -481,11 +482,10 @@ class Fleet:
         return self.reload(tables, manifest=manifest, dense=dense)
 
     def attach_freshness(self, subscriber) -> None:
-        """The freshness subscriber is not ported yet: raises."""
-        raise NotImplementedError(
-            "attach_freshness (the freshness subscriber) selects a serving path "
-            "the PyTorch port does not have yet; see ROADMAP.md, Queue 1 item 5 "
-            "(the process planes: freshness/)")
+        """Roll a :class:`~swiftsnails_tpu_torch.freshness.subscriber.
+        DeltaSubscriber`'s watermark into :meth:`health` (with every
+        replica's version) and into each traced request."""
+        self._freshness = subscriber
 
     def close(self) -> None:
         self._pool.shutdown(wait=False)
@@ -620,6 +620,13 @@ class Fleet:
         candidates, decision = self._route(kernel, key)
         if ctx is not None:
             ctx.annotate(**decision)
+            fr = self._freshness
+            if fr is not None:
+                try:
+                    ctx.annotate(watermark_step=fr.applied_step,
+                                 watermark_age_ms=round(fr.last_lag_ms, 3))
+                except Exception:
+                    pass
         flight = _Flight()
         launched: List[Replica] = []
 
@@ -839,9 +846,18 @@ class Fleet:
             status = "ok"
         else:
             status = "degraded"
-        return {
+        out = {
             "status": status,
             "replicas": statuses,
             "active": len(active),
             "hedge": self._gov.snapshot(),
         }
+        if self._freshness is not None:
+            try:
+                fr = self._freshness.status()
+                fr["replica_versions"] = {
+                    rid: v["version"] for rid, v in statuses.items()}
+                out["freshness"] = fr
+            except Exception:
+                pass  # introspection never blocks the health probe
+        return out

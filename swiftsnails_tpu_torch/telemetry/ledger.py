@@ -26,11 +26,13 @@ Record envelope::
 ``--check-regression PCT`` (the bench gate plus the training plane's
 correctness gates: chaos recovery, the drift drill, the continuous
 profiler's and the tracer's own cost; the serve lane's pull qps and p99;
-and the tiered lane's parity, round trip, int8 masters and words/sec).
+the tiered lane's parity, round trip, int8 masters and words/sec; the
+freshness lane's bit parity, gap drill, lag and serve p99; and the net
+lane's availability, stale-write refusal, parities and TCP envelope).
 
 Not ported yet (``ROADMAP.md``): the regression checks of the scaling,
-placement, quantized-wire, zero, freshness, net, chaos-serve,
-chaos-cluster and fleet planes, and the bench-cache helpers
+placement, quantized-wire, zero, chaos-serve, chaos-cluster and fleet
+planes, and the bench-cache helpers
 (``validate_bench_payload``, ``load_bench_cache``, ``derive_last_good``,
 hence ``--baseline-file``); each comes with the plane or the port bench
 that writes its records.
@@ -1266,6 +1268,116 @@ def _check_tiered_regression(
     )
 
 
+def _check_freshness_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:
+    """Gate the freshness lane: the newest bench record carrying a
+    ``freshness`` block must show bit-identical delta-applied rows vs the
+    same-watermark checkpoint (correctness — any platform gates), a
+    recovered gap drill, delta lag p99 under the lane's ceiling, and serve
+    p99 within the SLO while deltas were applying. No freshness history
+    gates nothing."""
+    with_fresh = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict)
+        and isinstance(r["payload"].get("freshness"), dict)
+    ]
+    if not with_fresh:
+        return 0, None
+    f = with_fresh[-1]["payload"]["freshness"]
+    problems = []
+    parity = f.get("bit_parity")
+    if not (isinstance(parity, (int, float)) and parity == 0.0):
+        problems.append(
+            f"delta-applied rows are not bit-identical to the "
+            f"same-watermark checkpoint (parity={parity})")
+    gap = f.get("gap_drill") or {}
+    if not gap.get("recovered"):
+        problems.append("gap drill did not recover via full reload")
+    gap_parity = gap.get("parity")
+    if isinstance(gap_parity, (int, float)) and gap_parity != 0.0:
+        problems.append(f"post-fallback parity {gap_parity} != 0.0")
+    lag = f.get("lag_p99_ms")
+    ceiling = f.get("lag_ceiling_ms")
+    if (isinstance(lag, (int, float)) and isinstance(ceiling, (int, float))
+            and ceiling > 0 and lag > ceiling):
+        problems.append(
+            f"freshness lag p99 {lag:.1f}ms above the "
+            f"{ceiling:.0f}ms ceiling")
+    p99 = f.get("serve_p99_ms")
+    slo = f.get("slo_p99_ms")
+    if (isinstance(p99, (int, float)) and isinstance(slo, (int, float))
+            and slo > 0 and p99 > slo):
+        problems.append(
+            f"serve p99 {p99:.1f}ms above the {slo:.0f}ms SLO while "
+            f"applying deltas")
+    if problems:
+        return 1, "freshness REGRESSION: " + "; ".join(problems)
+    return 0, (
+        f"freshness ok: bit parity {parity}, lag p99 "
+        f"{_fmt_num(lag)}ms (ceiling {_fmt_num(ceiling)}ms), serve p99 "
+        f"{_fmt_num(p99)}ms (SLO {_fmt_num(slo)}ms), gap drill recovered"
+    )
+
+
+def _check_net_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:
+    """Gate the net lane: the newest bench record carrying a ``net`` block
+    must show availability at/over the floor through a SIGKILL'd replica
+    with the lost -> drain -> respawn -> rejoin arc completing, a refused
+    stale write on partition heal, bit parity 0.0 for both the TCP read
+    path and the post-publisher-kill delta stream (correctness — any
+    platform gates), and TCP serving p99 within the recorded envelope of
+    the same run's in-process p99 (same platform by construction, so it
+    gates anywhere too). No net history gates nothing."""
+    with_net = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict)
+        and isinstance(r["payload"].get("net"), dict)
+    ]
+    if not with_net:
+        return 0, None
+    n = with_net[-1]["payload"]["net"]
+    problems = []
+    avail = n.get("availability_pct")
+    floor = n.get("availability_floor_pct", 99.0)
+    if not (isinstance(avail, (int, float)) and avail >= floor):
+        problems.append(
+            f"availability {avail}% under proc_kill is below the "
+            f"{floor}% floor")
+    pk = n.get("proc_kill") or {}
+    if not pk.get("recovered"):
+        problems.append(
+            "proc_kill drill did not recover (lost -> drain -> respawn "
+            "-> rejoin arc incomplete)")
+    pt = n.get("partition") or {}
+    if not pt.get("stale_write_refused"):
+        problems.append(
+            "partitioned replica ACCEPTED a stale write on heal")
+    tcp_parity = n.get("tcp_parity")
+    if not (isinstance(tcp_parity, (int, float)) and tcp_parity == 0.0):
+        problems.append(
+            f"TCP-pulled rows are not bit-identical to the reference "
+            f"(parity={tcp_parity})")
+    dl = n.get("delta") or {}
+    d_parity = dl.get("parity")
+    if not (isinstance(d_parity, (int, float)) and d_parity == 0.0):
+        problems.append(
+            f"post-publisher-kill delta parity {d_parity} != 0.0")
+    env = n.get("envelope_x")
+    limit = n.get("envelope_limit_x")
+    if (isinstance(env, (int, float)) and isinstance(limit, (int, float))
+            and limit > 0 and env > limit):
+        problems.append(
+            f"TCP serving p99 is {env:.1f}x in-process "
+            f"(envelope {limit:.0f}x)")
+    if problems:
+        return 1, "net REGRESSION: " + "; ".join(problems)
+    return 0, (
+        f"net ok: availability {_fmt_num(avail)}% through proc_kill "
+        f"(floor {_fmt_num(floor)}%), stale write refused on heal, TCP "
+        f"parity {tcp_parity}, delta parity {d_parity}, envelope "
+        f"{_fmt_num(env)}x (limit {_fmt_num(limit)}x)"
+    )
+
+
 def _plane_checks(max_drop_pct: float):
     """The planes' sub-checks, in the JAX gate's order, each ``ledger ->
     (rc, message or None)``."""
@@ -1273,9 +1385,11 @@ def _plane_checks(max_drop_pct: float):
         _check_chaos_regression,
         functools.partial(_check_serving_regression, max_drop_pct=max_drop_pct),
         functools.partial(_check_tiered_regression, max_drop_pct=max_drop_pct),
+        _check_freshness_regression,
         _check_trace_overhead_regression,
         _check_drift_regression,
         _check_profiler_overhead_regression,
+        _check_net_regression,
     )
 
 

@@ -5,9 +5,10 @@ Enabled with ``table_tier: host`` (the default ``device`` keeps the tables
 resident on the card and pays nothing). ``README.md`` ("The tiered store on
 the card") lists the keys.
 
-Not ported yet (``ROADMAP.md``): the tier under a mesh (the sharded cache
-plane, Queue 1 item 6) and the freshness tee (``TieredTable.delta_tap``,
-``TierManager.flush_dirty``, Queue 1 item 5); each raises
+The freshness tee (``TieredTable.delta_tap``, called after each landed
+write-back, and ``TierManager.flush_dirty``, the publish barrier) feeds the
+delta publisher of ``freshness/``. Not ported yet (``ROADMAP.md``): the tier
+under a mesh (the sharded cache plane, Queue 1 item 6), which raises
 ``NotImplementedError``.
 """
 

@@ -317,10 +317,15 @@ class TierManager:
             self.flusher.drain()
 
     def flush_dirty(self, state) -> None:
-        """The freshness publisher's barrier in the JAX package; the
-        publisher is not ported, so this raises."""
-        _unported("freshness_publish (TierManager.flush_dirty, the publish barrier)",
-                  "5 (the process planes: freshness/)")
+        """Freshness-publish barrier: land every queued async flush and
+        write every dirty slot back, leaving the caches mapped. The cheap
+        sibling of :meth:`master_state` — no full-state materialization;
+        after it the masters hold the exact resident-table content (and the
+        flush tee has recorded every landed unit)."""
+        self._drain()
+        tabs = self.trainer.tier_tables(state)
+        for name, tt in self.tables.items():
+            self.retry.call(tt.flush, tabs[name], op=f"tier_flush:{name}")
 
     def master_state(self, state):
         """Flush every dirty slot, then return the full-size master-backed

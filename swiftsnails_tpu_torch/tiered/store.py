@@ -776,19 +776,11 @@ class TieredTable:
         # between stage and install is detected as stale and re-gathered —
         # installing it would silently resurrect the pre-update value
         self.master_ver = np.zeros(master.units, np.uint32)
-
-    # -- the freshness tee (not ported) -------------------------------------
-
-    @property
-    def delta_tap(self):
-        """The freshness tee's subscriber: always ``None`` in the port."""
-        return None
-
-    @delta_tap.setter
-    def delta_tap(self, fn) -> None:
-        if fn is not None:
-            _unported("freshness_publish (TieredTable.delta_tap, the flush tee)",
-                      "5 (the process planes: freshness/)")
+        # freshness tee: fn(name, units) invoked after every landed master
+        # write-back (the dirty-flush stream IS the delta-publish signal),
+        # on whichever thread landed it — the async flush worker included;
+        # None = no subscriber, zero cost
+        self.delta_tap = None
 
     # -- cache plane construction ------------------------------------------
 
@@ -1086,6 +1078,11 @@ class TieredTable:
         self.master_ver[units] += 1
         if self._pending is not None:
             self._pending[units] = 0
+        if self.delta_tap is not None:
+            try:
+                self.delta_tap(self.name, units)
+            except Exception:
+                pass  # the freshness tee never blocks the write-back
         self.stats.d2h_bytes += t_rows.nbytes + sum(
             v.nbytes for v in s_rows.values())
         self.stats.flushes += 1

@@ -290,8 +290,16 @@ def test_from_checkpoint_shares_planes_and_cuts_over_at_one_epoch(tmp_path):
         _w2v_ckpt(root, (3,))
         assert fleet.reload_from_checkpoint(root, cfg) == 2 and fleet.step == 3
         np.testing.assert_array_equal(fleet.pull(ids), _rows(root, 3)[ids])
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fleet.attach_freshness(object())
+        # attach_freshness is ported since this test was written: the
+        # fleet's health rolls the subscriber's status up with every
+        # replica's version
+        class _Sub:
+            def status(self):
+                return {"applied_seq": 7}
+
+        fleet.attach_freshness(_Sub())
+        assert fleet.health()["freshness"] == {
+            "applied_seq": 7, "replica_versions": {r.id: 2 for r in fleet.replicas()}}
 
 
 def _corrupt(root, step):

@@ -82,6 +82,36 @@ def test_tiered_modules_are_held(module):
     assert module in _PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "swiftsnails_tpu_torch.freshness", "swiftsnails_tpu_torch.freshness.log",
+    "swiftsnails_tpu_torch.freshness.publisher", "swiftsnails_tpu_torch.freshness.subscriber",
+    "swiftsnails_tpu_torch.freshness.bench_lane", "swiftsnails_tpu_torch.net",
+    "swiftsnails_tpu_torch.net.wire", "swiftsnails_tpu_torch.net.rpc",
+    "swiftsnails_tpu_torch.net.delta_stream", "swiftsnails_tpu_torch.net.remote",
+    "swiftsnails_tpu_torch.net.replica_server", "swiftsnails_tpu_torch.net.fleet",
+    "swiftsnails_tpu_torch.net.bench_lane", "swiftsnails_tpu_torch.cluster",
+    "swiftsnails_tpu_torch.cluster.accounting", "swiftsnails_tpu_torch.cluster.supervisor"])
+def test_freshness_and_net_modules_are_held(module):
+    """The modules of the freshness and network slice are among the ones
+    imported without JAX above and read for its names below."""
+    assert module in _PORT_MODULES
+
+
+def test_freshness_and_net_entry_points_default_to_the_card(tmp_path):
+    """The freshness and net lanes and the replica process resolve
+    ``device=None`` to the card and raise without one."""
+    from swiftsnails_tpu_torch.freshness.bench_lane import freshness_bench, freshness_chaos_drill
+    from swiftsnails_tpu_torch.net.bench_lane import net_bench, net_chaos_drill
+    from swiftsnails_tpu_torch.net.replica_server import main as replica_main
+
+    _no_card()
+    for lane in (freshness_bench, freshness_chaos_drill, net_bench, net_chaos_drill):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            lane(small=True, workdir=str(tmp_path / lane.__name__))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replica_main(["--root", str(tmp_path)])
+
+
 def test_tiered_entry_points_default_to_the_card(tmp_path):
     """``TieredTable``, the tiered ``Servant`` and ``tiered_bench`` resolve
     ``device=None`` to the card and raise without one."""

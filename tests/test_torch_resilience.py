@@ -149,11 +149,18 @@ def test_parse_chaos_spec_rejects_malformed(bad):
                                   "net_partition", "net_slow"])
 def test_unported_chaos_kinds_raise(kind):
     """``tier_bitflip`` is ported since this test was written (with the
-    tiered store): for it the test holds that the plan schedules it; every
-    other kind still raises."""
+    tiered store), and so are the transport kinds ``proc_kill``,
+    ``net_partition`` and ``net_slow`` (with the network plane): for them
+    the test holds that the plan schedules the kind (the transport ones fire
+    once through ``net_fault``); every other kind still raises."""
     if kind == "tier_bitflip":
         plan = ChaosPlan.from_config(Config({"chaos_spec": f"nan_grad@1,{kind}@3"}))
         assert plan.scheduled("tier_bitflip", 3)
+        return
+    if kind in ("proc_kill", "net_partition", "net_slow"):
+        plan = ChaosPlan.from_config(Config({"chaos_spec": f"nan_grad@1,{kind}@3"}))
+        assert plan.scheduled(kind, 3)
+        assert plan.net_fault(3) == [kind] and plan.net_fault(3) == []
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ChaosPlan.from_config(Config({"chaos_spec": f"nan_grad@1,{kind}@3"}))

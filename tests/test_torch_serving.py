@@ -513,15 +513,20 @@ def test_unported_serving_keys_raise(tmp_path, key, value, item):
 
 def test_unported_servant_options_raise():
     """``tier_hbm_budget_mb`` is ported since this test was written: the
-    servant then builds a tier (its budget in rows of the table); ``mesh=``
-    and ``attach_freshness`` still raise."""
+    servant then builds a tier (its budget in rows of the table); so is
+    ``attach_freshness``: ``health()`` then carries the subscriber's status;
+    ``mesh=`` still raises."""
     with Servant({"t": _table(4, 4)}, tier_hbm_budget_mb=8.0, device=CPU) as sv:
         assert sv.tier["t"].budget == 4 and sv.stats()["tiered"]["prewarmed_rows"] == 4
     with pytest.raises(NotImplementedError, match="item 6"):
         Servant({"t": _table(4, 4)}, mesh=object(), device=CPU)
-    with Servant({"t": _table(4, 4)}, device=CPU) as sv, \
-            pytest.raises(NotImplementedError, match="item 5"):
-        sv.attach_freshness(object())
+    class _Sub:
+        def status(self):
+            return {"applied_seq": 3}
+
+    with Servant({"t": _table(4, 4)}, device=CPU) as sv:
+        sv.attach_freshness(_Sub())
+        assert sv.health()["freshness"] == {"applied_seq": 3}
 
 
 def test_reload_from_checkpoint_rejects_corrupt_then_swaps(tmp_path):

@@ -231,18 +231,24 @@ def test_fused_paths_refuse_the_tier():
 
 
 def test_mesh_and_the_freshness_tee_raise():
-    """The meshed cache plane (Queue 1 item 6) and the freshness tee (item
-    5) are not ported: each raises naming its item."""
+    """The meshed cache plane (Queue 1 item 6) is not ported: it raises
+    naming its item. The freshness tee is ported since this test was
+    written: ``delta_tap`` records every landed write-back's units and
+    ``flush_dirty`` is the barrier that lands them
+    (``tests/test_torch_freshness.py`` holds the tee against JAX's)."""
     master = HostMaster(TableState(table=torch.zeros(8, 4), slots={}), "dense")
     with pytest.raises(NotImplementedError, match="item 6"):
         TieredTable(master, 4, mesh=object(), device=CPU)
     tt = TieredTable(master, 4, device=CPU)
     assert tt.delta_tap is None
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tt.delta_tap = lambda name, units: None
+    tapped = []
+    tt.delta_tap = lambda name, units: tapped.append((name, units.tolist()))
+    cache = tt.ensure(tt.make_cache(), np.array([1, 5]), mark_dirty=True)
+    tt.flush(cache)
+    assert tapped == [("table", [1, 5])]
     loop = TrainLoop(_make(slots=4), log_every=0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        loop.tier.flush_dirty(None)
+    state = loop.tier.adopt(loop.trainer.init_state())
+    loop.tier.flush_dirty(state)  # nothing dirty yet: lands nothing, raises nothing
 
 
 def test_stale_staged_row_is_discarded():

@@ -371,11 +371,13 @@ def test_unported_trainer_keys_raise(key, value, extra):
 def test_unported_loop_keys_raise(key, value):
     """The loop keys the port lacked when this test was written. The first
     four came with the port's checkpoints and resilience layer, ``telemetry``
-    and ``trace_path`` with its telemetry: for them the test holds that the
-    loop now takes the key and arms its feature
-    (``tests/test_torch_resilience.py``, ``tests/test_torch_checkpoint.py``
-    and ``tests/test_torch_telemetry_loop.py`` hold the features); every
-    other key still raises."""
+    and ``trace_path`` with its telemetry, ``freshness_publish`` with its
+    freshness pipeline: for them the test holds that the loop now takes the
+    key and arms its feature (``tests/test_torch_resilience.py``,
+    ``tests/test_torch_checkpoint.py``, ``tests/test_torch_telemetry_loop.py``
+    and ``tests/test_torch_freshness.py`` hold the features;
+    ``freshness_publish`` without ``freshness_dir`` publishes nothing, as in
+    the JAX loop); every other key still raises."""
     words, counts, ids = _corpus(200)
     tr = word2vec.Word2VecTrainer(Config(_conf(**{key: value})), corpus_ids=ids,
                                   vocab=Vocab(words, counts), device="cpu")
@@ -386,6 +388,7 @@ def test_unported_loop_keys_raise(key, value):
         "chaos_spec": lambda loop: loop.chaos.pending() == [("nan_grad", 5)],
         "telemetry": lambda loop: loop.tracer is not None and loop.tracer.path is None,
         "trace_path": lambda loop: loop.tracer is not None and loop.tracer.path == "t.json",
+        "freshness_publish": lambda loop: loop.freshness is None,
     }
     if key in armed:
         assert armed[key](TrainLoop(tr))
