@@ -24,9 +24,13 @@ checkpoints of ``examples/word2vec.conf`` at capacity 1,048,576 and of
 the freshness pipeline and the TCP network plane (hot-row deltas from a
 resumed run to an in-process fleet over the file log, and to two replica
 processes on the card over ``freshness_listen``, with the gap, int8 and
-``proc_kill`` drills).
+``proc_kill`` drills); last the cluster plane and the chaos lanes (the
+simulated 3-worker async-SGD fleet at full width under a kill, a straggler
+and a partition, the cluster drills, the training drill matrix, the
+chaos-serve and fleet lanes, ``supervisor-status`` and the gates of
+``ledger-report --check-regression``).
 
-    python3 chip_smoke.py [--seed N] [--only tiered|freshness]
+    python3 chip_smoke.py [--seed N] [--only tiered|freshness|cluster]
 
 Run from the root of the repository on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. The
@@ -335,14 +339,48 @@ Phases:
     ``[1,048,576, 200]`` plane beside ``index_copy_``. ``--only freshness``
     runs this phase alone (with the build and a serve checkpoint of its
     own) and prints no result line.
-19. ``kernels``: one line for every ported kernel, with its launches in the
+19. ``cluster``: (a) ``cluster_sim``: ``chaos_cluster_bench`` on the
+    ``train`` phase's trainer (packed+pool, vocab 1,048,576, dim 200, batch
+    16,384, lr 100, the zipf corpus from ``--seed``): 96 batches, 3
+    workers, ``STORM_SPEC`` (``worker_dead@10,worker_slow@16-26,
+    partition@30``); the in-order control, the protected leg under the
+    supervisor and the unprotected static-shard leg, one leg's 2.15 GB of
+    tables on the card at a time. Gates: the protected leg's accounting
+    exact (0 lost, 0 duplicated), a worker lost and its range reassigned,
+    finite tables, eval-loss parity with the control within
+    ``LOSS_PARITY_BAR`` (0.05), the unprotected leg losing batches, and
+    ``gather_rows`` and ``scatter_add_rows`` launched 2 times each a batch
+    applied across the legs (every other kernel 0). It prints the fleet's
+    ticks, virtual s, refused stale commits, flagged stragglers, and host
+    ms a batch under the sim beside a plain ``TrainLoop`` step of the same
+    trainer. (b) ``cluster_drills``: ``run_cluster_drills`` (worker_kill,
+    straggler, partition, storm on the drill trainer), each passing its
+    checks. (c) ``cluster_drill_matrix``: ``run_drill_matrix``, every drill
+    recovered. (d) ``cluster_chaos_serve``: ``chaos_serve_bench``
+    (availability >= 99%, the unprotected leg failing hard, the corrupt
+    reload rejected, the ``tier_bitflip`` drill recovered). (e)
+    ``cluster_fleet``: ``fleet_bench`` (``scaling_x`` >= 1.6 at 2
+    replicas, affinity's hit rate above random's, hedging cutting p99) and
+    ``fleet_chaos_drill`` (availability >= 99% through each drill). (f)
+    ``cluster_ledger``: the blocks in one bench record of the phase's
+    ledger; ``supervisor-status`` over it names the lost worker, and
+    ``ledger-report --check-regression`` reports the chaos-cluster,
+    chaos-serve and fleet gates ok, no gate failing (it exits 2, the
+    headline's code when a ledger holds no measured bench value). Then
+    ``kernel_one_row``: one-row calls of ``gather_rows``,
+    ``scatter_add_rows`` and ``scatter_write_rows`` on a ``[1,048,576, 2,
+    128]`` f32 table, bit-equal to plain, timed: the fixed cost of a launch.
+    ``--only cluster`` runs this phase alone (with the build and the
+    kernels' phase 3) and prints no result line.
+20. ``kernels``: one line for every ported kernel, with its launches in the
     run of its path (``path``) and its f32 numbers from phases 3, 7, 10, 16,
     17 and 18 (``gather_rows`` and ``scatter_add_rows`` also at
-    ``train_perpair``'s shape and launches; ``gather_rows`` and
-    ``scatter_write_rows`` also at the serving shapes with the ``serve``
-    path's launches, and at the freshness shapes with the ``freshness``
-    path's, the replicas' included; all four row kernels of the tiered
-    runs with ``path: "tiered"``); then ``total``, the script's seconds.
+    ``train_perpair``'s shape and launches, and with the ``cluster`` path's
+    launches; ``gather_rows`` and ``scatter_write_rows`` also at the serving
+    shapes with the ``serve`` path's launches, and at the freshness shapes
+    with the ``freshness`` path's, the replicas' included; all four row
+    kernels of the tiered runs with ``path: "tiered"``); then ``total``,
+    the script's seconds.
 """
 
 from __future__ import annotations
@@ -4105,6 +4143,247 @@ def _freshness_kernel_entries(summary: dict, fresh: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------- cluster ---
+
+
+CLUSTER_WORKERS = 3
+CLUSTER_BATCHES = 96  # chaos_cluster_bench(small=False)
+CLUSTER_LOOP_STEPS = 96  # the plain TrainLoop timed beside the sim
+ONE_ROW_TABLE = (VOCAB, -(-DIM // 128), 128)
+
+
+def phase_one_row() -> dict:
+    """One-row calls of the three row kernels of the cluster path on a
+    ``[1,048,576, 2, 128]`` f32 table: bit-equal to plain, CUDA-event
+    medians (a sleep kernel ahead hides the host's enqueue): the fixed
+    device cost of one launch, which a byte bound leaves out."""
+    from swiftsnails_tpu_torch.ops import rowdma
+    from swiftsnails_tpu_torch.utils.metrics import time_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    table = torch.randn(ONE_ROW_TABLE, generator=gen, device=dev)
+    row = torch.tensor([12_345], dtype=torch.int32, device=dev)
+    val = torch.randn((1, *ONE_ROW_TABLE[1:]), generator=gen, device=dev)
+    out = {}
+    for name, kernel, plain in (
+            ("gather_rows", lambda t: rowdma.gather_rows(t, row),
+             lambda t: rowdma.gather_rows_plain(t, row)),
+            ("scatter_add_rows", lambda t: rowdma.scatter_add_rows(t, row, val),
+             lambda t: rowdma.scatter_add_rows_plain(t, row, val)),
+            ("scatter_write_rows", lambda t: rowdma.scatter_write_rows(t, row, val),
+             lambda t: rowdma.scatter_write_rows_plain(t, row, val))):
+        got, want = kernel(table.clone()), plain(table.clone())
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: a one-row call differs from its plain version")
+        del got, want
+        out[name] = {"ms": time_ms(lambda i: kernel(table)),
+                     "plain_ms": time_ms(lambda i: plain(table))}
+        emit("kernel_one_row", name=name, dtype="torch.float32",
+             table=list(ONE_ROW_TABLE), **out[name])
+    del table
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cluster_sim(seed: int, corpora, env: dict, tmp: str, ledger) -> tuple:
+    """(a): the three legs at full width, counted; the gates."""
+    from swiftsnails_tpu_torch.cluster import chaos_lane
+    from swiftsnails_tpu_torch.resilience.drill import LOSS_PARITY_BAR
+
+    trainer, _, _ = _train_loop("train", seed, corpora)
+    legs = {}
+    t0 = time.monotonic()
+    block, launches = _run_counted(lambda: chaos_lane.chaos_cluster_bench(
+        small=False, workdir=os.path.join(tmp, "sim"), ledger=ledger,
+        workers=CLUSTER_WORKERS, trainer=trainer, legs=legs))
+    seconds = time.monotonic() - t0
+    applied = {"control": CLUSTER_BATCHES, "protected": len(legs["protected"]["order"]),
+               "unprotected": len(legs["unprotected"]["order"])}
+    total = sum(applied.values())
+    _check_launches("cluster_sim", launches,
+                    {"gather_rows": 2 * total, "scatter_add_rows": 2 * total})
+    checks = {
+        "accounting_exact": block["accounting_exact"] and block["lost_count"] == 0
+        and block["duplicated_count"] == 0,
+        "worker_lost": block["workers_lost"] >= 1,
+        "reassigned": block["reassignments"] >= 1,
+        "finite": block["finite"],
+        "loss_parity": block["loss_parity"] <= LOSS_PARITY_BAR,
+        "unprotected_lost": block["unprotected_lost_count"] > 0,
+    }
+    prot = legs["protected"]
+    sim_ms = prot["wall_s"] * 1e3 / applied["protected"]
+    # the same trainer through a plain TrainLoop (no per-step loss read, one
+    # sync at the end), timed in the same call
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+
+    t1 = time.monotonic()
+    TrainLoop(trainer, log_every=0).run(max_steps=CLUSTER_LOOP_STEPS)
+    torch.cuda.synchronize()
+    loop_ms = (time.monotonic() - t1) * 1e3 / CLUSTER_LOOP_STEPS
+    dead = sorted(w for w, st in prot["workers"].items() if not st["alive"])
+    emit("cluster_sim", checks=checks, block=block, applied=applied, launches=launches,
+         ticks=prot["ticks"], virtual_s=prot["virtual_s"],
+         stale_rejected=prot["stale_rejected"],
+         stragglers_flagged=prot["status"].get("stragglers_flagged"),
+         workers=prot["workers"], dead=dead,
+         leg_wall_s={k: v["wall_s"] for k, v in legs.items()},
+         sim_host_ms_per_batch=sim_ms, loop_host_ms_per_step=loop_ms,
+         sim_over_loop=sim_ms / loop_ms, seconds=seconds,
+         device=env["device"], nvidia_smi=env["nvidia_smi"])
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"cluster_sim: failed {bad}: {block}")
+    del trainer
+    torch.cuda.empty_cache()
+    return block, {k: launches[k] for k in ("gather_rows", "scatter_add_rows")}, dead
+
+
+def phase_cluster(seed: int, corpora, env: dict) -> dict:
+    """Phase 19: the cluster plane and the chaos lanes on the card."""
+    from swiftsnails_tpu_torch import cli
+    from swiftsnails_tpu_torch.cluster import chaos_lane
+    from swiftsnails_tpu_torch.resilience.drill import run_drill_matrix
+    from swiftsnails_tpu_torch.serving.chaos_lane import chaos_serve_bench
+    from swiftsnails_tpu_torch.serving.fleet_lane import (
+        SCALING_FLOOR, fleet_bench, fleet_chaos_drill)
+    from swiftsnails_tpu_torch.telemetry.ledger import Ledger
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="ssn-cluster-")
+    try:
+        path = os.path.join(tmp, "LEDGER.jsonl")
+        ledger = Ledger(path)
+        cluster, launches, dead = _cluster_sim(seed, corpora, env, tmp, ledger)
+
+        t0 = time.monotonic()
+        drills, drill_launches = _run_counted(lambda: chaos_lane.run_cluster_drills(
+            workdir=os.path.join(tmp, "drills"), device="cuda"))
+        emit("cluster_drills", results=drills, launches=drill_launches,
+             seconds=time.monotonic() - t0)
+        bad = [k for k, v in drills.items() if not v["recovered"]]
+        if bad:
+            raise AssertionError(f"cluster_drills: unrecovered {bad}")
+
+        t0 = time.monotonic()
+        matrix, matrix_launches = _run_counted(lambda: run_drill_matrix(
+            workdir=os.path.join(tmp, "matrix"), device="cuda"))
+        emit("cluster_drill_matrix", results=matrix, launches=matrix_launches,
+             seconds=time.monotonic() - t0)
+        bad = [k for k, v in matrix.items() if not v.get("recovered")]
+        if bad:
+            raise AssertionError(f"cluster_drill_matrix: unrecovered {bad}: "
+                                 f"{ {k: matrix[k] for k in bad} }")
+
+        t0 = time.monotonic()
+        serve, serve_launches = _run_counted(lambda: chaos_serve_bench(
+            small=False, workdir=os.path.join(tmp, "serve"), ledger=ledger, device="cuda"))
+        serve_checks = {
+            "availability": serve["availability_pct"] >= serve["floor_pct"],
+            "unprotected_hard_failure": bool(serve["unprotected_hard_failure"]),
+            "reload_corrupt_rejected": bool(serve["reload_corrupt_rejected"]),
+            "tier_bitflip_recovered": bool((serve.get("tier_bitflip") or {}).get("recovered")),
+        }
+        emit("cluster_chaos_serve", checks=serve_checks, block=serve,
+             launches=serve_launches, seconds=time.monotonic() - t0)
+        bad = [k for k, ok in serve_checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"cluster_chaos_serve: failed {bad}")
+
+        t0 = time.monotonic()
+        fleet, fleet_launches = _run_counted(lambda: fleet_bench(
+            small=False, workdir=os.path.join(tmp, "fleet"), ledger=ledger, device="cuda"))
+        fleet_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        fdrill = fleet_chaos_drill(small=True, workdir=os.path.join(tmp, "fleet-drill"),
+                                   ledger=ledger, device="cuda")
+        fleet_checks = {
+            "scaling": fleet["scaling_x"] >= SCALING_FLOOR,
+            "affinity": fleet["affinity"]["affinity_hit_rate"]
+            > fleet["affinity"]["random_hit_rate"],
+            "hedge": fleet["hedge"]["p99_ms"] < fleet["hedge"]["nohedge_p99_ms"],
+            **{f"{k}_availability": v["availability_pct"] >= v["floor_pct"]
+               for k, v in fdrill.items()},
+            **{f"{k}_recovered": bool(v["recovered"]) for k, v in fdrill.items()},
+        }
+        emit("cluster_fleet", checks=fleet_checks,
+             block={k: v for k, v in fleet.items() if k not in ("single", "fleet")},
+             single_max_qps=fleet["single"]["max_qps"],
+             fleet_max_qps=fleet["fleet"]["max_qps"],
+             points=len(fleet["single"]["points"]) + len(fleet["fleet"]["points"]),
+             drill=fdrill, launches=fleet_launches, bench_seconds=fleet_s,
+             drill_seconds=time.monotonic() - t0)
+        bad = [k for k, ok in fleet_checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"cluster_fleet: failed {bad}")
+
+        ledger.append("bench", {"payload": {
+            "metric": "chip_smoke_cluster", "platform": "gpu", "device": env["device"],
+            "chaos_cluster": cluster, "chaos_serve": serve, "fleet": fleet}})
+        status_out = io.StringIO()
+        with contextlib.redirect_stdout(status_out):
+            status_rc = cli.main(["supervisor-status", path])
+        status = status_out.getvalue()
+        lost_lines = [ln for ln in status.splitlines()
+                      if any(ln.strip().startswith(w + " ") for w in dead)]
+        report_out = io.StringIO()
+        with contextlib.redirect_stdout(report_out):
+            report_rc = cli.main(["ledger-report", path, "--check-regression", "5"])
+        report = report_out.getvalue()
+        gates = {name: any(ln.startswith(f"{name} ok") for ln in report.splitlines())
+                 for name in ("chaos-cluster", "chaos-serve", "fleet")}
+        if not gates["fleet"]:
+            gates["fleet"] = any(ln.startswith("fleet: single gpu record")
+                                 for ln in report.splitlines())
+        emit("cluster_ledger", supervisor_status=status.splitlines(), status_rc=status_rc,
+             check_regression=report.splitlines(), check_regression_rc=report_rc,
+             gates=gates)
+        if status_rc != 0 or not dead or not lost_lines or not all(
+                "lost" in ln for ln in lost_lines):
+            raise AssertionError(f"supervisor-status does not name the lost worker {dead}")
+        if "REGRESSION" in report or not all(gates.values()) or report_rc not in (0, 2) \
+                or (report_rc == 2 and "no measured bench record" not in report):
+            raise AssertionError(f"check-regression: {report}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    one_row = phase_one_row()
+    seconds = time.monotonic() - t_phase
+    emit("cluster_total", seconds=seconds, device=env["device"],
+         nvidia_smi=env["nvidia_smi"])
+    return {"launches": launches, "one_row": one_row, "seconds": seconds}
+
+
+def _cluster_kernel_entries(summary: dict, cluster: dict) -> list:
+    """The ``kernels`` line's ``path: "cluster"`` entries: the full-width
+    sim's two row kernels at the packed+pool out-table shape (phase 3's
+    numbers, the same step's shape), with the sim's launches, and each one
+    one-row call's ms."""
+    out = []
+    for key, replaces in (("gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+                          ("scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213")):
+        s = summary[key]
+        out.append({
+            "name": key, "route": "cuda", "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": replaces, "launches": cluster["launches"][key],
+            "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": s["library_ms"],
+            "one_row_ms": cluster["one_row"][key]["ms"],
+            "shape": s["shape"], "dtype": "float32", "path": "cluster"})
+    return out
+
+
+def _only_cluster(seed: int, env: dict, t_start: float) -> int:
+    """``--only cluster``: the kernels' phase 3 (the cluster entries'
+    numbers) and the cluster phase."""
+    summary = phase_kernels(seed, env["mem_rate_Bps"])
+    cluster = phase_cluster(seed, {False: _corpus(seed)}, env)
+    emit("kernels", kernels=_cluster_kernel_entries(summary, cluster))
+    emit("total", seconds=time.monotonic() - t_start)
+    return 0
+
+
 def _only_freshness(seed: int, env: dict, t_start: float) -> int:
     """``--only freshness``: the freshness phase over its own serve checkpoint."""
     corpora = {False: _corpus(seed)}
@@ -4140,7 +4419,7 @@ def _only_tiered(seed: int, env: dict, t_start: float) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("tiered", "freshness"),
+    ap.add_argument("--only", choices=("tiered", "freshness", "cluster"),
                     help="run only this phase (with the build and the inputs it "
                          "needs) and print no result line: a quicker check while "
                          "working on it")
@@ -4158,6 +4437,8 @@ def main() -> int:
         return _only_tiered(args.seed, env, t_start)
     if args.only == "freshness":
         return _only_freshness(args.seed, env, t_start)
+    if args.only == "cluster":
+        return _only_cluster(args.seed, env, t_start)
     summary = phase_kernels(args.seed, env["mem_rate_Bps"])
     summary.update(phase_fused_kernels(args.seed, env))
     for path in PATHS:
@@ -4232,6 +4513,7 @@ def main() -> int:
     summary.update(phase_freshness_kernels(fresh, args.seed, env["mem_rate_Bps"]))
     emit("freshness_total", seconds=fresh["seconds"], device=env["device"],
          nvidia_smi=env["nvidia_smi"])
+    cluster = phase_cluster(args.seed, corpora, env)
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
@@ -4314,6 +4596,7 @@ def main() -> int:
             "dtype": "float32"})
     kernels.extend(_tiered_kernel_entries(summary, tiered))
     kernels.extend(_freshness_kernel_entries(summary, fresh))
+    kernels.extend(_cluster_kernel_entries(summary, cluster))
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),
                            ("chunk_probe", "tools/sem_probe.py:164"),
                            ("pipe_probe", "tools/sem_probe.py:233")):

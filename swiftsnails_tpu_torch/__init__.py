@@ -16,7 +16,11 @@ the counterpart of each JAX module is found at the same place:
   (:mod:`swiftsnails_tpu_torch.framework.quality`), checkpoints, resilience
   and the loop's telemetry (:mod:`swiftsnails_tpu_torch.telemetry`);
 * the serving read path: the servant, its fleet and router over a verified
-  checkpoint (:mod:`swiftsnails_tpu_torch.serving`).
+  checkpoint (:mod:`swiftsnails_tpu_torch.serving`);
+* the cluster plane: leased worker streams with exactly-once batch
+  accounting, the simulated N-worker async-SGD fleet and its drills
+  (:mod:`swiftsnails_tpu_torch.cluster`), and the chaos drill matrix
+  (``python -m swiftsnails_tpu_torch.tools.chaos_drill``).
 
 Entry points run on the card (``device=None`` means ``cuda``) and raise when
 there is none, unless the caller passes ``device="cpu"``: then every kernel

@@ -23,6 +23,7 @@ Usage::
     python -m swiftsnails_tpu_torch ledger-report [LEDGER] [--failures | --diff A B | --check-regression PCT]
     python -m swiftsnails_tpu_torch trace-summary FILE   # a trace_path or metrics JSONL file
     python -m swiftsnails_tpu_torch ops [LEDGER]         # the one-screen ops dashboard
+    python -m swiftsnails_tpu_torch supervisor-status [LEDGER]  # cluster membership view
 
 Every ``-key value`` flag overrides the config key ``key``. The runs go on
 the card (``cuda``) and fail without one, unless ``-device cpu`` asks for the
@@ -56,9 +57,13 @@ and answers one request a stdin line, one JSON line each (see
 (:mod:`swiftsnails_tpu_torch.net.replica_server`), on the card unless
 ``--device cpu``.
 
+Cluster: ``cluster_workers: N`` (or ``TrainLoop(cluster=...)``) trains
+on a range-leased stream with exactly-once batch accounting;
+``supervisor-status`` replays a ledger's ``membership`` events into the
+supervisor's view (who joined, who was lost and why, where each reassigned
+range went, the stragglers) and the newest ``chaos_cluster`` verdict.
+
 ``master`` / ``server`` are accepted for parity and explain the collapse.
-``supervisor-status`` belongs to the cluster plane the port does not have
-yet (``ROADMAP.md``): it says so and exits 2.
 """
 
 from __future__ import annotations
@@ -294,6 +299,24 @@ def cmd_net_serve(argv: List[str]) -> int:
     return replica_main(argv)
 
 
+def cmd_supervisor_status(argv: List[str]) -> int:
+    """Replay a run ledger's membership events into the supervisor's view:
+    per-worker state (alive/lost, joins, straggler flags, where reassigned
+    ranges went) plus the newest exactly-once accounting verdict."""
+    import os
+
+    from swiftsnails_tpu_torch.cluster.status import render_supervisor_status
+    from swiftsnails_tpu_torch.telemetry.ledger import DEFAULT_LEDGER, Ledger
+
+    path = argv[0] if argv else os.environ.get("SSN_LEDGER_PATH", DEFAULT_LEDGER)
+    ledger = Ledger(path)
+    if not os.path.exists(ledger.path):
+        print(f"supervisor-status: no ledger at {ledger.path}", file=sys.stderr)
+        return 1
+    print(render_supervisor_status(ledger))
+    return 0
+
+
 def cmd_ledger_report(argv: List[str]) -> int:
     from swiftsnails_tpu_torch.telemetry.ledger import main as ledger_main
 
@@ -320,8 +343,6 @@ _ROLE_NOTE = (
     "  python -m swiftsnails_tpu_torch train -config <file>"
 )
 
-_UNPORTED = ("supervisor-status",)
-
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -344,17 +365,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             return cmd_ledger_report(rest)
         if cmd == "trace-summary":
             return cmd_trace_summary(rest)
+        if cmd == "supervisor-status":
+            return cmd_supervisor_status(rest)
         if cmd == "net-serve":
             return cmd_net_serve(rest)
         if cmd in ("master", "server"):
             print(_ROLE_NOTE.format(role=cmd), file=sys.stderr)
             return 0
-        if cmd in _UNPORTED:
-            print(f"command {cmd!r} is not ported to the PyTorch port yet; "
-                  "see ROADMAP.md for when it is", file=sys.stderr)
-            return 2
         print(f"unknown command {cmd!r}; try: train, export, serve, models, "
-              "ledger-report, trace-summary, ops, net-serve",
+              "ledger-report, trace-summary, supervisor-status, ops, net-serve",
               file=sys.stderr)
         return 2
     except ConfigError as e:

@@ -1,7 +1,8 @@
 """The cluster supervisor: the reference Master role, reproduced — the JAX
-package's ``cluster/supervisor.py``, kept as the port's own copy. The port
-uses its leases for the replica liveness of ``net/fleet.py``; the cluster
-trainer that uses the rest is not ported yet.
+package's ``cluster/supervisor.py``, kept as the port's own copy. The
+cluster worker (``worker.py``), the loop's ``cluster_workers`` and the
+simulated fleet (``sim.py``) run on it, and ``net/fleet.py`` runs its
+replica liveness on its leases.
 
 Owns three concerns, each auditable from the run ledger (``membership``
 events, rendered by ``ledger-report --failures``):

@@ -27,15 +27,18 @@ Capability parity with the reference's worker framework
   the full-size master state at the end; and hot-row delta publishing to
   serving subscribers (``freshness_publish`` steps + ``freshness_dir``,
   with ``freshness_delta_dtype``, ``freshness_log_mb`` and
-  ``freshness_listen``; see :mod:`swiftsnails_tpu_torch.freshness`).
+  ``freshness_listen``; see :mod:`swiftsnails_tpu_torch.freshness`); and
+  cluster membership (``TrainLoop(cluster=...)`` or ``cluster_workers``:
+  a range-leased batch stream, exactly-once commits at the step boundary
+  and the committed watermarks in the checkpoint cursor; see
+  :mod:`swiftsnails_tpu_torch.cluster`).
 
 With telemetry on, the ``step`` span ends after the device's current
 stream has synchronized, so it holds the step's device time; with it off
 the loop never waits for the card inside a step.
 
-The loop features of the JAX package that are not ported yet raise
-``NotImplementedError`` when their config keys ask for them (see
-:data:`UNPORTED_LOOP_KEYS` and ``ROADMAP.md``); none is silently ignored.
+Every loop key of the JAX package is ported; the table-plane keys that
+are not raise ``NotImplementedError`` (:data:`UNPORTED_PLANE_KEYS`).
 """
 
 from __future__ import annotations
@@ -298,17 +301,6 @@ UNPORTED_PLANE_KEYS = {
 }
 
 
-def _positive(cfg: Config, key: str) -> bool:
-    return cfg.get_int(key, 0) > 0
-
-
-# Loop features of the JAX package not ported yet: key -> "is it asked for"
-# (read as the JAX loop reads it).
-UNPORTED_LOOP_KEYS = {
-    "cluster_workers": _positive,
-}
-
-
 def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
     """The step's random stream: a generator on ``device`` seeded from
     ``(seed, step)`` through the murmur finalizer — the counterpart of the
@@ -334,11 +326,13 @@ class TrainLoop:
         metrics: Optional[MetricsLogger] = None,
         log_every: int = 100,
         device: DeviceLike = None,
+        cluster=None,
     ):
         """``device=None`` feeds the trainer's device (itself the card unless
-        the trainer was asked for the CPU); a device of another type raises."""
+        the trainer was asked for the CPU); a device of another type raises.
+        ``cluster``: a :class:`~swiftsnails_tpu_torch.cluster.WorkerClient`
+        whose leased stream the loop consumes."""
         cfg = trainer.config
-        raise_unported(cfg, UNPORTED_LOOP_KEYS)
         if device is not None and resolve_device(device).type != trainer.device.type:
             raise ValueError(f"TrainLoop on {device}, trainer on {trainer.device}")
         self.trainer = trainer
@@ -356,6 +350,16 @@ class TrainLoop:
         self.ledger = Ledger(ledger_path) if ledger_path else None
         self._restored_step: Optional[int] = None  # set by resume; never pruned
         self._items_seen = 0
+        # cluster membership: an explicit WorkerClient wins (tests, a shared
+        # in-process supervisor); `cluster_workers: N` self-hosts one, so the
+        # run still gets range-leased streams, exactly-once accounting and a
+        # watermark-carrying checkpoint cursor (see cluster/)
+        self.cluster = cluster
+        if self.cluster is None and cfg.get_int("cluster_workers", 0) > 0:
+            from swiftsnails_tpu_torch.cluster import Supervisor, WorkerClient
+
+            sup = Supervisor.from_config(cfg, ledger=self.ledger)
+            self.cluster = WorkerClient(sup, cfg.get_str("cluster_worker_id", "w0"))
         self.checkpoint_fn = None
         if self.backup_root:
             # async periodic saves: training continues while the writer
@@ -364,9 +368,14 @@ class TrainLoop:
             ckpt_retry = RetryPolicy.from_config(cfg, ledger=self.ledger)
 
             def checkpoint_fn(state, step):
+                cursor = {"step": step, "items": self._items_seen}
+                if self.cluster is not None:
+                    # committed watermarks ride the data cursor, so resume
+                    # restores exactly-once accounting across reassignment
+                    cursor["cluster"] = self.cluster.cursor()
                 save_checkpoint(
                     self.backup_root, state, step, wait=False,
-                    cursor={"step": step, "items": self._items_seen},
+                    cursor=cursor,
                     config_hash=self.config_hash, keep=self.backup_keep,
                     protect=self._restored_step, retry=ckpt_retry, ledger=self.ledger,
                     tier=self.tier)
@@ -494,6 +503,13 @@ class TrainLoop:
             # consumed prefix IS the saved cursor
             skip = int(cursor.get("step", step) or 0)
             self._items_seen = int(cursor.get("items", 0) or 0)
+            if self.cluster is not None:
+                # restore the committed watermarks in place of a flat skip:
+                # the leased stream's first-writer-wins claims skip exactly
+                # the committed indices, so a run that adopted a reassigned
+                # (out-of-order) span replays bit-identically
+                self.cluster.restore(cursor.get("cluster") or {})
+                skip = 0
         print(f"resume: restored step {step} from {self.backup_root} in {seconds:.4f} s; "
               f"skipping {skip} batches", file=sys.stderr)
         return state, step, skip
@@ -520,7 +536,13 @@ class TrainLoop:
             # must run AFTER tier.adopt built the tables)
             fresh.open(base_step=step)
         depth = trainer.config.get_int("prefetch_batches", 2)
-        src = iter(trainer.batches())
+        cl = self.cluster
+        if cl is not None:
+            # range-leased stream: indices are claimed (first-writer-wins)
+            # as they are yielded and committed at the step boundary below
+            src = iter(cl.leased_stream(trainer.batches))
+        else:
+            src = iter(trainer.batches())
         if tier is not None:
             # stage upcoming steps' plans + missing master rows on the
             # producer thread so the H2D fault traffic overlaps the step. A
@@ -589,6 +611,11 @@ class TrainLoop:
                             state, last_metrics = trainer.train_step(state, dev_batch, gen)
                     step += 1
                     self._items_seen += n_items
+                    if cl is not None:
+                        # commit the applied batch, renew the membership
+                        # lease, adopt reassigned spans: BEFORE a checkpoint
+                        # below, so the cursor sees this commit
+                        cl.on_step(step)
                     self.metrics.count(n_items)
                     if self.log_every and step % self.log_every == 0:
                         host = {k: float(v) for k, v in last_metrics.items()}
@@ -651,6 +678,8 @@ class TrainLoop:
                     step += 1
                     total_items += n_items
                     self._items_seen += n_items
+                    if cl is not None:
+                        cl.on_step(step)
                     reg.counter("steps").inc()
                     reg.counter("items").inc(n_items)
                     step_ms = (time.monotonic() - t_step0) * 1e3

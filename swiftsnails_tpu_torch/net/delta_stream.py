@@ -70,24 +70,37 @@ class DeltaStreamServer:
         self._conns: List[socket.socket] = []
         self._threads: List[threading.Thread] = []
         self._lock = threading.Lock()
+        self._accept_thread: Optional[threading.Thread] = None
 
     def start(self) -> "DeltaStreamServer":
         t = threading.Thread(target=self._accept_loop,
                              name="ssn-delta-stream-accept", daemon=True)
         t.start()
+        self._accept_thread = t
         return self
 
     def stop(self) -> None:
         """Stop accepting, let every connection send the directory's
-        remaining batches (within ``_DRAIN_S`` in all), then close."""
-        self._stop.set()
+        remaining batches (within ``_DRAIN_S`` in all), then close.
+
+        The flag is set under the lock the accept loop registers under, so
+        every connection is either registered (and drained here) or refused
+        by the loop. ``shutdown`` ends the listener: a bare ``close`` from
+        this thread does not wake an ``accept`` blocked in the loop's, and
+        the kernel would go on accepting (a subscriber's redial after the
+        drain would land on a server that has stopped)."""
+        with self._lock:
+            self._stop.set()
+            threads = list(self._threads)
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._sock.close()
         except OSError:
             pass
         deadline = time.monotonic() + _DRAIN_S
-        with self._lock:
-            threads = list(self._threads)
         for t in threads:
             t.join(max(deadline - time.monotonic(), 0.0))
         with self._lock:
@@ -105,17 +118,27 @@ class DeltaStreamServer:
         self.stop()
 
     def _accept_loop(self) -> None:
-        while not self._stop.is_set():
+        while True:
             try:
                 conn, _addr = self._sock.accept()
             except OSError:
                 return
-            t = threading.Thread(target=self._stream_to, args=(conn,),
-                                 name="ssn-delta-stream-conn", daemon=True)
             with self._lock:
+                if self._stop.is_set():
+                    # accepted in stop()'s window: stop() has taken its
+                    # snapshot, so no stream is started for it
+                    try:
+                        conn.close()
+                    except OSError:
+                        pass
+                    return
+                t = threading.Thread(target=self._stream_to, args=(conn,),
+                                     name="ssn-delta-stream-conn", daemon=True)
                 self._conns.append(conn)
                 self._threads = [x for x in self._threads if x.is_alive()] + [t]
-            t.start()
+                # started under the lock: stop() never joins a thread that
+                # has not started
+                t.start()
 
     def _stream_to(self, conn: socket.socket) -> None:
         """One subscriber: base frame, every available batch, then tail the

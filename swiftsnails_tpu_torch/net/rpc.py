@@ -128,7 +128,14 @@ class RpcServer:
         return self
 
     def stop(self) -> None:
-        self._stop.set()
+        with self._lock:
+            self._stop.set()
+        try:
+            # a bare close does not wake the accept loop's blocked accept,
+            # and the kernel would go on accepting (``delta_stream.py``)
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._sock.close()
         except OSError:
@@ -157,6 +164,9 @@ class RpcServer:
                 return  # listener closed
             conn.settimeout(300.0)  # idle-connection backstop, never infinite
             with self._lock:
+                if self._stop.is_set():
+                    conn.close()  # accepted in stop()'s window
+                    return
                 self._conns.append(conn)
             t = threading.Thread(target=self._serve_conn, args=(conn,),
                                  name=f"ssn-net-{self.name}-conn", daemon=True)

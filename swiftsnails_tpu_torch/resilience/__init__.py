@@ -1,8 +1,10 @@
-"""Resilience of a training run — the JAX package's ``resilience/``, the
-parts the port has:
+"""Resilience of a training run — the JAX package's ``resilience/``:
 
 * :mod:`~swiftsnails_tpu_torch.resilience.chaos` — seeded fault injection
-  of the training kinds (``chaos_spec`` / ``chaos_seed``);
+  of every kind: training, serving, cluster and transport (``chaos_spec``
+  / ``chaos_seed``);
+* :mod:`~swiftsnails_tpu_torch.resilience.drill` — the drill matrix and
+  the ``chaos`` lane (``python -m swiftsnails_tpu_torch.tools.chaos_drill``);
 * :mod:`~swiftsnails_tpu_torch.resilience.guardrail` — the per-step health
   check with rollback, batch skip, trust factor and bounded give-up
   (``guardrail``, ``guard_max_update_norm``, ``guard_max_consecutive``);
@@ -12,9 +14,6 @@ parts the port has:
 * :mod:`~swiftsnails_tpu_torch.resilience.retry` — the deadline + retry
   policy of the data stream and the checkpoint writes
   (``retry_max_attempts``, ``retry_deadline_ms``).
-
-Not ported yet (``ROADMAP.md``): ``drill.py`` and its tool
-``tools/chaos_drill.py``.
 """
 
 from swiftsnails_tpu_torch.resilience.chaos import (

@@ -1,5 +1,6 @@
-"""Deterministic fault injection for the training drills — the training and
-transport kinds of the JAX package's ``resilience/chaos.py``.
+"""Deterministic fault injection: every failure mode the resilience stack
+claims to survive is drillable, on demand, reproducibly — the JAX
+package's ``resilience/chaos.py``, every kind.
 
 A :class:`ChaosPlan` is parsed from two config keys:
 
@@ -29,6 +30,32 @@ Fault kinds of training, all injected from the host between kernels:
                   so only the integrity digests can catch it
 ================  ==========================================================
 
+Serving kinds, consulted by the serve and fleet lanes through a
+``Servant``'s ``fault_hook`` (:meth:`ChaosPlan.serve_fault`, whose "step"
+is the request index) and before a live reload
+(:meth:`ChaosPlan.wants_reload_corrupt`):
+
+==================  ========================================================
+``serve_io_error``  a kernel dispatch raises ``OSError`` (drives the
+                    circuit breakers)
+``serve_slow``      a kernel dispatch stalls past its latency budget
+``reload_corrupt``  the newest checkpoint is corrupted right before a live
+                    reload; the shadow-verify swap must reject it
+==================  ========================================================
+
+Cluster kinds, consulted by the simulated fleet (``cluster/sim.py``)
+through :meth:`ChaosPlan.cluster_fault`, whose "step" is the cluster-wide
+applied-batch tick:
+
+================  ==========================================================
+``worker_dead``   a worker stops heartbeating forever; its lease must expire
+                  and its range re-lease to survivors
+``worker_slow``   a worker's step time inflates while scheduled; the EWMA
+                  straggler policy must flag it
+``partition``     a worker computes on but cannot reach the supervisor; its
+                  stale buffered commits must be refused
+================  ==========================================================
+
 Transport kinds, consulted by the net drills (``net/bench_lane.py``) through
 :meth:`ChaosPlan.net_fault`, whose "step" is the storm tick:
 
@@ -38,10 +65,6 @@ Transport kinds, consulted by the net drills (``net/bench_lane.py``) through
 ``net_slow``      inject RTT into every reply of a replica
 ================  ==========================================================
 
-:func:`parse_chaos_spec` accepts every kind the JAX package's parser does;
-a plan that schedules one of the kinds of the serving or cluster planes
-(``serve_*``, ``reload_corrupt``, ``worker_*``, ``partition``) raises
-``NotImplementedError``: those drills are not ported yet (``ROADMAP.md``).
 Each injection is kept in :attr:`ChaosPlan.events` and, with a ledger, is
 one ``chaos`` ledger event.
 """
@@ -60,12 +83,10 @@ from swiftsnails_tpu_torch.utils.tree import tensor_items
 
 TRAINING_KINDS = ("nan_grad", "inf_grad", "row_poison", "io_error", "ckpt_corrupt",
                   "preempt", "slow_step", "tier_bitflip")
+SERVE_KINDS = ("serve_io_error", "serve_slow", "reload_corrupt")
+CLUSTER_KINDS = ("worker_dead", "worker_slow", "partition")
 NET_KINDS = ("proc_kill", "net_partition", "net_slow")
-PORTED_KINDS = TRAINING_KINDS + NET_KINDS
-FAULT_KINDS = TRAINING_KINDS + (
-    "serve_io_error", "serve_slow", "reload_corrupt",
-    "worker_dead", "worker_slow", "partition", "proc_kill", "net_partition", "net_slow",
-)
+FAULT_KINDS = TRAINING_KINDS + SERVE_KINDS + CLUSTER_KINDS + NET_KINDS
 
 _ENTRY_RE = re.compile(r"^(?P<kind>[a-z_]+)@(?P<first>\d+)(?:-(?P<last>\d+))?$")
 
@@ -110,13 +131,15 @@ def corrupt_checkpoint_dir(
     step: Optional[int] = None,
     rng: Optional[np.random.Generator] = None,
     n_bytes: int = 16,
+    ledger=None,
 ) -> Optional[str]:
     """Flip bytes mid-file in every payload file of the newest (or given)
     ``step_*`` dir under ``root``; returns the largest such file's path.
 
     The files stay readable; only the manifest CRC exposes the rot (the
     case verified restore exists for). Joins the checkpoint writer first.
-    Deterministic under a seeded ``rng``.
+    Deterministic under a seeded ``rng``. With a ``ledger``, one
+    ``ckpt_corrupt`` chaos event.
     """
     from swiftsnails_tpu_torch.framework.checkpoint import (
         MANIFEST_NAME, _step_dir, all_steps, wait_for_checkpoints,
@@ -156,6 +179,14 @@ def corrupt_checkpoint_dir(
             f.write(bytes(chunk))
             f.flush()
             os.fsync(f.fileno())
+    if ledger is not None:
+        try:
+            ledger.append("chaos", {
+                "fault": "ckpt_corrupt", "step": step, "path": path,
+                "offset": off, "bytes": n_bytes,
+            })
+        except Exception:
+            pass
     return path
 
 
@@ -188,11 +219,6 @@ class ChaosPlan:
 
     def __init__(self, faults: List[Tuple[str, int]], seed: int = 0, ledger=None,
                  slow_step_ms: float = 50.0):
-        unported = sorted({kind for kind, _ in faults if kind not in PORTED_KINDS})
-        if unported:
-            raise NotImplementedError(
-                f"chaos kinds {', '.join(unported)} drill planes the PyTorch "
-                "port does not have yet; see ROADMAP.md for when they are ported")
         self._pending: Dict[Tuple[str, int], bool] = {
             (kind, step): True for kind, step in faults
         }
@@ -334,6 +360,36 @@ class ChaosPlan:
                   {"table": name, "plane": plane, "byte": off, "bit": bit})
         return name
 
+    # -- serving-surface faults (consulted by the Servant's fault hook / the
+    # chaos-serve lane; "step" is the request index) -------------------------
+
+    def serve_fault(self, index: int) -> Optional[str]:
+        """The scheduled serving fault for request ``index`` (at most one:
+        ``serve_io_error`` outranks ``serve_slow``), or None."""
+        for kind in ("serve_io_error", "serve_slow"):
+            if self._take(kind, index):
+                self._log(kind, index, {"surface": "serve"})
+                return kind
+        return None
+
+    def wants_reload_corrupt(self, index: int) -> bool:
+        """True when a ``reload_corrupt`` drill is scheduled at ``index`` —
+        the caller corrupts the newest checkpoint *before* asking the live
+        Servant to reload it (the shadow-verify swap must reject it)."""
+        if self._take("reload_corrupt", index):
+            self._log("reload_corrupt", index, {"surface": "serve"})
+            return True
+        return False
+
+    # -- cluster-membership faults (consulted by the cluster simulator;
+    # "step" is the cluster-wide applied-batch tick) --------------------------
+
+    def cluster_fault(self, tick: int) -> List[str]:
+        """The cluster faults scheduled at global tick ``tick``, in fire
+        order. The caller picks the victim and ``_log``s the detail (the
+        plan can't know worker identities)."""
+        return [kind for kind in CLUSTER_KINDS if self._take(kind, tick)]
+
     # -- process-level transport faults (consulted by the net drills;
     # "step" is the storm tick) ----------------------------------------------
 
@@ -349,7 +405,7 @@ class ChaosPlan:
             "injected": len(self.events),
             "by_fault": {
                 k: sum(1 for e in self.events if e["fault"] == k)
-                for k in PORTED_KINDS
+                for k in FAULT_KINDS
                 if any(e["fault"] == k for e in self.events)
             },
             "unfired": [f"{k}@{s}" for k, s in self.pending()],

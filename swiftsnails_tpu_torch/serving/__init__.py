@@ -13,8 +13,11 @@ bounded spill, tail-latency hedging, and elastic add/drain. Tiered tables
 (``table_tier: host``): host-RAM masters behind a fixed-budget cache on the
 card (:mod:`swiftsnails_tpu_torch.tiered`).
 
-Not ported yet (``ROADMAP.md``): the mesh pull, the int8 / int4 wire, the
-freshness subscriber, and the JAX package's fleet and chaos bench lanes.
+The bench lanes: ``bench_lane`` (latency SLOs), ``fleet_lane`` (max QPS at
+the p99 SLO, 1 vs N, affinity, hedging, and the fleet drill) and
+``chaos_lane`` (availability under injected faults). The freshness
+subscriber lives in :mod:`swiftsnails_tpu_torch.freshness`. Not ported yet
+(``ROADMAP.md``): the mesh pull and the int8 / int4 wire.
 """
 
 from swiftsnails_tpu_torch.serving.breaker import CircuitBreaker, Unavailable

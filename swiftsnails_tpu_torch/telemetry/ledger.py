@@ -26,13 +26,16 @@ Record envelope::
 ``--check-regression PCT`` (the bench gate plus the training plane's
 correctness gates: chaos recovery, the drift drill, the continuous
 profiler's and the tracer's own cost; the serve lane's pull qps and p99;
-the tiered lane's parity, round trip, int8 masters and words/sec; the
-freshness lane's bit parity, gap drill, lag and serve p99; and the net
-lane's availability, stale-write refusal, parities and TCP envelope).
+the fleet lane's SLO, scaling, affinity, hedging and qps; the tiered lane's
+parity, round trip, int8 masters and words/sec; the chaos-serve lane's
+availability floor, control and drills; the chaos-cluster lane's
+exactly-once accounting, reassignment and loss parity; the freshness
+lane's bit parity, gap drill, lag and serve p99; and the net lane's
+availability, stale-write refusal, parities and TCP envelope).
 
 Not ported yet (``ROADMAP.md``): the regression checks of the scaling,
-placement, quantized-wire, zero, chaos-serve, chaos-cluster and fleet
-planes, and the bench-cache helpers
+placement, quantized-wire and zero planes (the multi-device planes), and
+the bench-cache helpers
 (``validate_bench_payload``, ``load_bench_cache``, ``derive_last_good``,
 hence ``--baseline-file``); each comes with the plane or the port bench
 that writes its records.
@@ -969,6 +972,193 @@ def _check_chaos_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:
 
 
 
+def _check_chaos_serve_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:
+    """Gate the chaos-serve lane's *availability* alongside the perf
+    headline: the newest bench record carrying a ``chaos_serve`` block (any
+    platform — availability under fault is correctness, so CPU lane runs
+    count) must hold the lane's availability floor, prove the unprotected
+    control actually hard-fails, and reject the corrupt-reload drill. No
+    chaos-serve history gates nothing."""
+    with_cs = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict)
+        and isinstance(r["payload"].get("chaos_serve"), dict)
+    ]
+    if not with_cs:
+        return 0, None
+    c = with_cs[-1]["payload"]["chaos_serve"]
+    avail = c.get("availability_pct")
+    floor = c.get("floor_pct", 99.0)
+    problems = []
+    if not (isinstance(avail, (int, float)) and avail >= floor):
+        problems.append(
+            f"availability {avail}% under fault is below the "
+            f"{floor}% floor")
+    if not c.get("unprotected_hard_failure", True):
+        problems.append(
+            "breakers-off control leg did NOT hard-fail (fault matrix "
+            "is not exercising the serve path)")
+    if not c.get("reload_corrupt_rejected", True):
+        problems.append("corrupt-reload drill was not rejected")
+    if c.get("tier_bitflip") is not None and not (
+            c["tier_bitflip"] or {}).get("recovered"):
+        problems.append("tier_bitflip drill did not recover")
+    if problems:
+        return 1, "chaos-serve REGRESSION: " + "; ".join(problems)
+    return 0, (
+        f"chaos-serve ok: availability {avail:.2f}% (floor {floor}%), "
+        f"degraded share {c.get('degraded_share_pct')}%, "
+        f"p99 under fault {c.get('p99_under_fault_ms')}ms"
+    )
+
+
+def _check_chaos_cluster_regression(
+    ledger: Ledger,
+) -> Tuple[int, Optional[str]]:
+    """Gate the chaos-cluster lane's exactly-once proof alongside the perf
+    headline: the newest bench record carrying a ``chaos_cluster`` block
+    (any platform — batch accounting is correctness, so CPU lane runs
+    count) must show zero lost and zero double-applied batches under the
+    kill/slow/partition storm, a detected + reassigned worker loss, loss
+    parity within the lane's bar, and an unprotected control leg that
+    demonstrably lost its dead worker's range. No chaos-cluster history
+    gates nothing."""
+    with_cc = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict)
+        and isinstance(r["payload"].get("chaos_cluster"), dict)
+    ]
+    if not with_cc:
+        return 0, None
+    c = with_cc[-1]["payload"]["chaos_cluster"]
+    problems = []
+    if c.get("lost_count", 0) or not c.get("accounting_exact", False):
+        problems.append(
+            f"batch accounting is not exact: lost={c.get('lost_count')} "
+            f"({c.get('committed')}/{c.get('total_batches')} committed)")
+    if c.get("duplicated_count", 0):
+        problems.append(
+            f"{c.get('duplicated_count')} batches double-applied "
+            "(first-writer-wins dedup is broken)")
+    if not c.get("workers_lost"):
+        problems.append("no worker loss was detected under the storm")
+    if not c.get("reassignments"):
+        problems.append("the dead worker's range was never reassigned")
+    parity = c.get("loss_parity")
+    bar = c.get("parity_bar", 0.05)
+    if not (isinstance(parity, (int, float)) and parity <= bar):
+        problems.append(
+            f"loss parity {parity} vs the undisturbed control exceeds "
+            f"the {bar} bar")
+    if not c.get("unprotected_hard_failure", True):
+        problems.append(
+            "supervisor-off control leg did NOT lose the dead worker's "
+            "range (the storm is not exercising reassignment)")
+    if problems:
+        return 1, "chaos-cluster REGRESSION: " + "; ".join(problems)
+    return 0, (
+        f"chaos-cluster ok: {c.get('committed')}/{c.get('total_batches')} "
+        f"exactly-once (dup_discarded={c.get('dup_discarded')}, "
+        f"stale_rejected={c.get('stale_rejected')}), "
+        f"{c.get('reassignments')} reassignments, "
+        f"loss parity {parity}"
+    )
+
+
+def _fleet_values(record: Dict) -> Optional[Tuple[float, Optional[float]]]:
+    """(fleet qps, p99_ms) from a bench payload's ``fleet`` block, or None
+    when the fleet lane didn't run in that record."""
+    f = record.get("payload", {}).get("fleet")
+    if not isinstance(f, dict):
+        return None
+    qps = f.get("qps")
+    if not (isinstance(qps, (int, float)) and qps > 0):
+        return None
+    p99 = f.get("p99_ms")
+    p99 = float(p99) if isinstance(p99, (int, float)) and p99 > 0 else None
+    return float(qps), p99
+
+
+def _check_fleet_regression(
+    ledger: Ledger, max_drop_pct: float
+) -> Tuple[int, Optional[str]]:
+    """Gate the fleet lane alongside the perf headline. Four checks on the
+    newest bench record carrying a ``fleet`` block:
+
+    * p99 at the reported max must be inside the lane's SLO and the
+      scaling ratio at/above the lane's floor (1.6x for 2 replicas) — the
+      router's whole job, platform-independent, so CPU lane runs gate;
+    * affinity routing's aggregate LRU hit rate must beat random spray on
+      the same zipf traffic (the warm-cache win the ring exists for);
+    * hedging must not make the stalled-replica leg's p99 worse than its
+      no-hedge control at equal offered load;
+    * fleet qps must hold its floor vs the best earlier record of the
+      *same platform* (absolute qps is machine-bound, like the serve gate).
+
+    No fleet history gates nothing."""
+    with_fleet = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict) and _fleet_values(r)
+    ]
+    if not with_fleet:
+        return 0, None
+    newest_rec = with_fleet[-1]
+    fb = newest_rec["payload"]["fleet"]
+    qps, p99 = _fleet_values(newest_rec)
+    problems = []
+    slo = fb.get("slo_p99_ms")
+    if isinstance(slo, (int, float)) and p99 is not None and p99 > slo:
+        problems.append(
+            f"p99 {p99:.2f}ms at the reported max exceeds the "
+            f"{slo}ms SLO")
+    scaling = fb.get("scaling_x")
+    floor_x = fb.get("scaling_floor", 1.6)
+    if int(fb.get("replicas") or 0) >= 2 and not (
+            isinstance(scaling, (int, float)) and scaling >= floor_x):
+        problems.append(
+            f"scaling {scaling}x for {fb.get('replicas')} replicas is "
+            f"below the {floor_x}x floor")
+    aff = fb.get("affinity")
+    if isinstance(aff, dict):
+        a, rnd = aff.get("affinity_hit_rate"), aff.get("random_hit_rate")
+        if not (isinstance(a, (int, float)) and isinstance(rnd, (int, float))
+                and a > rnd):
+            problems.append(
+                f"affinity hit rate {a} does not beat random routing {rnd}")
+    hg = fb.get("hedge")
+    if isinstance(hg, dict):
+        hp, cp = hg.get("p99_ms"), hg.get("nohedge_p99_ms")
+        if not (isinstance(hp, (int, float)) and isinstance(cp, (int, float))
+                and hp <= cp):
+            problems.append(
+                f"hedged p99 {hp}ms is worse than the no-hedge control "
+                f"{cp}ms")
+    platform = newest_rec["payload"].get("platform")
+    same = [r for r in with_fleet
+            if r["payload"].get("platform") == platform]
+    earlier = [_fleet_values(r)[0] for r in same[:-1]]
+    if earlier:
+        base = max(earlier)
+        qps_floor = base * (1.0 - max_drop_pct / 100.0)
+        if qps < qps_floor:
+            problems.append(
+                f"fleet qps {qps:,.1f} is {(1 - qps / base) * 100:.1f}% "
+                f"below baseline {base:,.1f} (allowed {max_drop_pct:.1f}%)")
+    if problems:
+        return 1, "fleet REGRESSION: " + "; ".join(problems)
+    if not earlier:
+        return 0, (
+            f"fleet: single {platform or '?'} record ({qps:,.1f} qps, "
+            f"scaling {scaling}x, p99 {p99}ms <= SLO {slo}ms); "
+            "qps floor has nothing to compare against"
+        )
+    return 0, (
+        f"fleet ok: {qps:,.1f} qps (scaling {scaling}x >= {floor_x}x, "
+        f"p99 {p99}ms <= SLO {slo}ms) vs qps baseline {max(earlier):,.1f} "
+        f"({platform or '?'})"
+    )
+
+
 def _trace_overhead_values(record: Dict) -> Optional[Dict]:
     """The ``trace_overhead`` block from a bench payload's ``fleet`` block
     (the fleet lane's tracing on-vs-off ride-along), or None when the leg
@@ -1384,7 +1574,10 @@ def _plane_checks(max_drop_pct: float):
     return (
         _check_chaos_regression,
         functools.partial(_check_serving_regression, max_drop_pct=max_drop_pct),
+        functools.partial(_check_fleet_regression, max_drop_pct=max_drop_pct),
         functools.partial(_check_tiered_regression, max_drop_pct=max_drop_pct),
+        _check_chaos_serve_regression,
+        _check_chaos_cluster_regression,
         _check_freshness_regression,
         _check_trace_overhead_regression,
         _check_drift_regression,

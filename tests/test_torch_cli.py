@@ -106,19 +106,26 @@ def test_cli_bad_config_is_fatal(tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["net-serve", "supervisor-status", "bogus"])
-def test_cli_unported_commands_exit_2(cmd, capsys):
-    """``net-serve`` is ported since this test was written: without
-    ``--root`` its replica server's argument parser exits 2 naming the
-    flag; the other commands still exit 2 (the unported one naming
-    ``ROADMAP.md``)."""
+def test_cli_unported_commands_exit_2(cmd, capsys, tmp_path):
+    """``net-serve`` and ``supervisor-status`` are ported since this test
+    was written: without ``--root`` the replica server's argument parser
+    exits 2 naming the flag; ``supervisor-status`` over a missing ledger
+    exits 1 naming it, as the JAX command does
+    (``tests/test_torch_cluster_sim.py`` drives it over a real one); an
+    unknown command still exits 2 and names the commands there are."""
     if cmd == "net-serve":
         with pytest.raises(SystemExit) as ei:
             cli.main([cmd])
         assert ei.value.code == 2 and "--root" in capsys.readouterr().err
         return
+    if cmd == "supervisor-status":
+        missing = str(tmp_path / "nope.jsonl")
+        assert cli.main([cmd, missing]) == 1
+        assert missing in capsys.readouterr().err
+        return
     assert cli.main([cmd]) == 2
     err = capsys.readouterr().err
-    assert ("ROADMAP.md" in err) == (cmd != "bogus")
+    assert "supervisor-status" in err and "ROADMAP.md" not in err
 
 
 def _serve_checkpoint(tmp_path, cap=64, dim=8):

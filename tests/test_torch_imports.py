@@ -97,6 +97,41 @@ def test_freshness_and_net_modules_are_held(module):
     assert module in _PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "swiftsnails_tpu_torch.cluster.worker", "swiftsnails_tpu_torch.cluster.sim",
+    "swiftsnails_tpu_torch.cluster.chaos_lane", "swiftsnails_tpu_torch.cluster.status",
+    "swiftsnails_tpu_torch.serving.chaos_lane", "swiftsnails_tpu_torch.serving.fleet_lane",
+    "swiftsnails_tpu_torch.tools.chaos_drill", "swiftsnails_tpu_torch.utils.shell",
+    "swiftsnails_tpu_torch.utils.timer"])
+def test_cluster_and_chaos_modules_are_held(module):
+    """The modules of the cluster and chaos slice are among the ones
+    imported without JAX above and read for its names below."""
+    assert module in _PORT_MODULES
+
+
+def test_cluster_and_chaos_entry_points_default_to_the_card(tmp_path):
+    """The drills, the cluster, serve and fleet lanes and the drill tool
+    resolve ``device=None`` to the card and raise without one."""
+    from swiftsnails_tpu_torch.cluster.chaos_lane import (
+        chaos_cluster_bench, run_cluster_drills)
+    from swiftsnails_tpu_torch.resilience.drill import chaos_bench, run_drill_matrix
+    from swiftsnails_tpu_torch.serving.chaos_lane import chaos_serve_bench
+    from swiftsnails_tpu_torch.serving.fleet_lane import fleet_bench, fleet_chaos_drill
+    from swiftsnails_tpu_torch.tools.chaos_drill import main as drill_main
+
+    _no_card()
+    for lane in (chaos_cluster_bench, run_cluster_drills, chaos_serve_bench, fleet_bench,
+                 fleet_chaos_drill):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            lane(small=True, workdir=str(tmp_path / lane.__name__))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chaos_bench(workdir=str(tmp_path), small=True)
+    # the matrix records a drill that raises as unrecovered, naming the card
+    res = run_drill_matrix(fast=True, workdir=str(tmp_path / "matrix"))
+    assert all("CUDA" in r["error"] for r in res.values())
+    assert drill_main(["--fast", "--workdir", str(tmp_path / "tool")]) == 1
+
+
 def test_freshness_and_net_entry_points_default_to_the_card(tmp_path):
     """The freshness and net lanes and the replica process resolve
     ``device=None`` to the card and raise without one."""

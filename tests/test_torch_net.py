@@ -15,6 +15,7 @@ asserts a latency.
 import json
 import os
 import socket
+import threading
 import time
 import zlib
 
@@ -596,3 +597,62 @@ def test_stream_server_drains_the_tail_on_stop(tmp_path):
     finally:
         src.stop()
         srv.stop()
+
+
+@pytest.mark.parametrize("server", ["stream", "rpc"])
+def test_stopped_server_refuses_connections(tmp_path, server):
+    """After ``stop()`` the listener is gone. A bare ``close`` of the
+    listening socket does not wake the accept loop's blocked ``accept``, so
+    the kernel went on accepting: a subscriber's redial after the drain
+    landed on the stopped server, whose loop then registered a stream
+    thread that a second ``stop()`` tried to join before it had started."""
+    if server == "stream":
+        srv = DeltaStreamServer(str(tmp_path)).start()
+    else:
+        srv = RpcServer({"echo": _echo}).start()
+    # the window: the accept loop's thread blocked in the kernel's accept
+    wchan = f"/proc/self/task/{srv._accept_thread.native_id}/wchan"
+    assert _wait(lambda: open(wchan).read().strip() == "inet_csk_accept")
+    srv.stop()
+    with pytest.raises(ConnectionRefusedError):
+        socket.create_connection(tuple(srv.address), timeout=WAIT_S).close()
+    srv.stop()  # a second stop is a no-op
+
+
+class _AcceptInStopWindow:
+    """A listening socket whose ``accept`` returns only once ``stop()`` has
+    set the server's flag: a connection accepted between stop()'s snapshot
+    of the stream threads and its close."""
+
+    def __init__(self, real, server):
+        self.real = real
+        self.server = server
+        self.peer = None
+
+    def accept(self):
+        if not self.server._stop.wait(WAIT_S):
+            raise OSError("stop() never came")
+        conn, self.peer = socket.socketpair()
+        return conn, ("127.0.0.1", 0)
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+def test_stream_server_closes_a_connection_accepted_in_stops_window(tmp_path):
+    """The accept race, injected: the connection is closed unserved (its
+    peer reads EOF, no frame) and no stream thread is registered for it,
+    so ``stop()`` neither misses a stream nor joins an unstarted thread."""
+    srv = DeltaStreamServer(str(tmp_path))
+    fake = _AcceptInStopWindow(srv._sock, srv)
+    srv._sock = fake
+    srv.start()
+    srv.stop()
+    assert _wait(lambda: fake.peer is not None)
+    fake.peer.settimeout(WAIT_S)
+    try:
+        assert fake.peer.recv(1) == b""
+    finally:
+        fake.peer.close()
+    assert srv._threads == [] and srv._conns == []
+    srv.stop()

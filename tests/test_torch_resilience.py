@@ -148,22 +148,26 @@ def test_parse_chaos_spec_rejects_malformed(bad):
                                   "worker_dead", "worker_slow", "partition", "proc_kill",
                                   "net_partition", "net_slow"])
 def test_unported_chaos_kinds_raise(kind):
-    """``tier_bitflip`` is ported since this test was written (with the
-    tiered store), and so are the transport kinds ``proc_kill``,
-    ``net_partition`` and ``net_slow`` (with the network plane): for them
-    the test holds that the plan schedules the kind (the transport ones fire
-    once through ``net_fault``); every other kind still raises."""
+    """Every kind is ported since this test was written: ``tier_bitflip``
+    with the tiered store, the transport kinds with the network plane, the
+    serving and cluster kinds with the cluster plane. The test holds that
+    the plan schedules each and fires it once through its consulting hook,
+    as the JAX plan does (``net_fault``, ``serve_fault``,
+    ``wants_reload_corrupt``, ``cluster_fault``)."""
+    plan = ChaosPlan.from_config(Config({"chaos_spec": f"nan_grad@1,{kind}@3"}))
+    jplan = jax_chaos.ChaosPlan(jax_chaos.parse_chaos_spec(f"nan_grad@1,{kind}@3"))
+    assert plan.scheduled(kind, 3)
     if kind == "tier_bitflip":
-        plan = ChaosPlan.from_config(Config({"chaos_spec": f"nan_grad@1,{kind}@3"}))
-        assert plan.scheduled("tier_bitflip", 3)
         return
-    if kind in ("proc_kill", "net_partition", "net_slow"):
-        plan = ChaosPlan.from_config(Config({"chaos_spec": f"nan_grad@1,{kind}@3"}))
-        assert plan.scheduled(kind, 3)
-        assert plan.net_fault(3) == [kind] and plan.net_fault(3) == []
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ChaosPlan.from_config(Config({"chaos_spec": f"nan_grad@1,{kind}@3"}))
+    fire = {"proc_kill": "net_fault", "net_partition": "net_fault", "net_slow": "net_fault",
+            "serve_io_error": "serve_fault", "serve_slow": "serve_fault",
+            "reload_corrupt": "wants_reload_corrupt", "worker_dead": "cluster_fault",
+            "worker_slow": "cluster_fault", "partition": "cluster_fault"}[kind]
+    for tick in (2, 3, 3):
+        assert getattr(plan, fire)(tick) == getattr(jplan, fire)(tick)
+    assert not plan.scheduled(kind, 3)
+    assert [(e["fault"], e["step"]) for e in plan.events] == [
+        (e["fault"], e["step"]) for e in jplan.events]
 
 
 @pytest.mark.parametrize("kind", ["nan_grad", "inf_grad", "row_poison"])

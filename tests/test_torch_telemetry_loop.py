@@ -214,9 +214,10 @@ def test_telemetry_off_builds_nothing(tmp_path):
 
 @pytest.mark.parametrize("key,value", [("cluster_workers", 2), ("freshness_publish", 1)])
 def test_unported_loop_keys_still_raise(key, value, tmp_path):
-    """``freshness_publish`` is ported since this test was written: the loop
-    takes it and, with a ``freshness_dir``, arms its publisher; the other
-    key still raises."""
+    """Both keys are ported since this test was written: the loop takes
+    ``freshness_publish`` and, with a ``freshness_dir``, arms its publisher;
+    it takes ``cluster_workers`` and self-hosts a supervisor and a worker
+    client (``cluster_worker_id``, default ``w0``)."""
     ids, words, counts = _corpus()
     if key == "freshness_publish":
         tr = Word2VecTrainer(Config({"dim": "8", key: str(value),
@@ -226,8 +227,9 @@ def test_unported_loop_keys_still_raise(key, value, tmp_path):
         return
     tr = Word2VecTrainer(Config({"dim": "8", key: str(value)}), corpus_ids=ids,
                          vocab=Vocab(words, counts), device="cpu")
-    with pytest.raises(NotImplementedError, match=key):
-        TrainLoop(tr)
+    loop = TrainLoop(tr)
+    assert loop.cluster.worker_id == "w0"
+    assert "w0" in loop.cluster.supervisor.status()["workers"]
 
 
 def test_blackbox_dumps_on_guardrail_giveup_and_exception(tmp_path):

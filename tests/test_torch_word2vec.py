@@ -377,7 +377,9 @@ def test_unported_loop_keys_raise(key, value):
     ``tests/test_torch_checkpoint.py``, ``tests/test_torch_telemetry_loop.py``
     and ``tests/test_torch_freshness.py`` hold the features;
     ``freshness_publish`` without ``freshness_dir`` publishes nothing, as in
-    the JAX loop); every other key still raises."""
+    the JAX loop; ``cluster_workers`` with the cluster plane: the loop
+    self-hosts a worker client, ``tests/test_torch_cluster_worker.py``
+    holds it); every other key still raises."""
     words, counts, ids = _corpus(200)
     tr = word2vec.Word2VecTrainer(Config(_conf(**{key: value})), corpus_ids=ids,
                                   vocab=Vocab(words, counts), device="cpu")
@@ -389,6 +391,7 @@ def test_unported_loop_keys_raise(key, value):
         "telemetry": lambda loop: loop.tracer is not None and loop.tracer.path is None,
         "trace_path": lambda loop: loop.tracer is not None and loop.tracer.path == "t.json",
         "freshness_publish": lambda loop: loop.freshness is None,
+        "cluster_workers": lambda loop: loop.cluster is not None,
     }
     if key in armed:
         assert armed[key](TrainLoop(tr))
