@@ -28,9 +28,12 @@ processes on the card over ``freshness_listen``, with the gap, int8 and
 simulated 3-worker async-SGD fleet at full width under a kill, a straggler
 and a partition, the cluster drills, the training drill matrix, the
 chaos-serve and fleet lanes, ``supervisor-status`` and the gates of
-``ledger-report --check-regression``).
+``ledger-report --check-regression``); last the sequence model
+(``model: seqlm`` at its full width: card against CPU, four optimizers,
+ring and Ulysses attention under a one-rank NCCL group, the CLI killed
+and resumed).
 
-    python3 chip_smoke.py [--seed N] [--only tiered|freshness|cluster]
+    python3 chip_smoke.py [--seed N] [--only tiered|freshness|cluster|seqlm]
 
 Run from the root of the repository on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. The
@@ -308,9 +311,15 @@ Phases:
     at the cache planes' push shapes; bit-equal to plain, against the byte
     bound. ``--only tiered`` runs this phase alone (with the build and a
     serve checkpoint of its own) and prints no result line.
-18. ``freshness``: the serve phase's step-4 checkpoint of
-    ``examples/word2vec.conf`` (capacity 1,048,576, dim 200, packed+pool)
-    under a fresh root. (a) ``freshness_file``: a 2-replica ``Fleet`` on the
+18. ``freshness``: first ``freshness_fused_resident``: ``train_resident``'s
+    fused-resident config trained 8 steps publishing every step from its
+    start state (``freshness_log_mb`` 4096) to a ``Servant`` of that state;
+    the servant's whole planes equal the trained ones bit for bit after
+    the deltas (the collector's plan holds the pool rows the step draws),
+    and the trained tables equal a run's with publishing off; the fused
+    kernel launched once a substep. Then the serve phase's step-4
+    checkpoint of ``examples/word2vec.conf`` (capacity 1,048,576, dim 200,
+    packed+pool) under a fresh root. (a) ``freshness_file``: a 2-replica ``Fleet`` on the
     card at step 4 and a ``DeltaSubscriber`` poll thread on the file log
     while the run resumes 4 -> 20 with ``freshness_publish: 1`` (the
     publisher gathers each step's touched tiles with ``gather_rows``) under
@@ -372,7 +381,27 @@ Phases:
     128]`` f32 table, bit-equal to plain, timed: the fixed cost of a launch.
     ``--only cluster`` runs this phase alone (with the build and the
     kernels' phase 3) and prints no result line.
-20. ``kernels``: one line for every ported kernel, with its launches in the
+20. ``seqlm``: the sequence model at the JAX trainer's defaults (seq_len
+    256, 2 layers, 4 heads, d_model 128, batch 8) on a paired text corpus
+    over 32,768 words (``_write_text_corpus``) read through ``data``. (a)
+    One step of each optimizer on the card against the same step on the
+    CPU from one state: the loss within rtol 1e-5; sgd's and momentum's
+    parameters, adam's and adamw's moments and their parameters whose
+    gradient is at least 1e-6, within rtol 1e-4 / atol 1e-6 (see
+    ``SEQLM_LOSS_RTOL``). (b) Each optimizer 60 steps under
+    ``TrainLoop`` at the JAX tests' rates (sgd 0.1, momentum 0.05, adam and
+    adamw 0.003): finite losses, the last 5 below the first 5; median step
+    ms and tokens/sec. (c) ``attention: ring`` and ``ulysses`` under a
+    one-rank NCCL group: logits, one step's parameters and its loss within
+    2e-4 of dense, the group's calls counted (Ulysses' all-to-alls > 0).
+    (d) ``python -m swiftsnails_tpu_torch train -config seqlm.conf`` (adam,
+    a save every 8 steps, ``resume: auto``): a control in process, a
+    subprocess stopped by a real SIGTERM mid-period after its first save,
+    the same command again in process; the losses of the steps before the
+    drain and after the resume equal the control's bit for bit. One
+    ``seqlm`` line. ``--only seqlm`` runs this phase alone and prints no
+    result line.
+21. ``kernels``: one line for every ported kernel, with its launches in the
     run of its path (``path``) and its f32 numbers from phases 3, 7, 10, 16,
     17 and 18 (``gather_rows`` and ``scatter_add_rows`` also at
     ``train_perpair``'s shape and launches, and with the ``cluster`` path's
@@ -3611,6 +3640,7 @@ def _tiered_kernel_entries(summary: dict, tiered: dict) -> list:
 # the freshness phase (18): resume examples/word2vec.conf at capacity 2^20
 # from the serve phase's step-4 checkpoint, publishing every step
 FRESH_STEPS = 16  # the file-log leg: steps 4 -> 20
+FRESH_FUSED_STEPS = 8  # the fused-resident leg, from its start state
 FRESH_INT8_STEPS = 4  # the int8 wire: 20 -> 24
 FRESH_TCP_STEPS = 4  # freshness_listen to the replica processes: 24 -> 28
 # retention must prune nothing outside the gap drill: 16 batches of ~30 MB
@@ -3761,6 +3791,62 @@ def _replica_launches(fleet) -> dict:
     return {r.id: r.servant.stats().get("launches", {}) for r in fleet.replicas()}
 
 
+def _fresh_fused_leg(seed: int, corpora, env: dict, device: str, tmp: str) -> dict:
+    """fused-resident (``train_resident``'s config) publishing every step
+    from its start state to a ``Servant`` of that state: after
+    FRESH_FUSED_STEPS steps the servant's whole planes equal the trained
+    ones bit for bit, and the trained tables equal those of a run with
+    publishing off (module docstring, phase 18)."""
+    from swiftsnails_tpu_torch.freshness.subscriber import DeltaSubscriber
+    from swiftsnails_tpu_torch.serving import Servant
+    from swiftsnails_tpu_torch.serving.engine import normalize_table
+
+    t_leg = time.monotonic()
+    names = ("in_table", "out_table")
+    trainer, loop, _ = _train_loop("train_resident", seed, corpora)
+    off = loop.run(seed=seed, max_steps=FRESH_FUSED_STEPS)
+    off = {n: getattr(off, n).table for n in names}
+    del trainer, loop
+    d = os.path.join(tmp, "fused")
+    trainer, loop, records = _train_loop("train_resident", seed, corpora,
+                                         freshness_publish=1, freshness_dir=d,
+                                         freshness_log_mb=FRESH_LOG_MB)
+    start = trainer.init_state()
+    trainer.init_state = lambda: start
+    servant = Servant({n: normalize_table(getattr(start, n).table, DIM, "packed").clone()
+                       for n in names}, device=device)
+    try:
+        before = {n: t.clone() for n, t in servant._tables.items()}
+        on, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=FRESH_FUSED_STEPS))
+        sub = DeltaSubscriber(servant, d)
+        applied = sub.poll()
+        want = {n: normalize_table(getattr(on, n).table, DIM, "packed") for n in names}
+        parity = _plane_mismatch(want, servant._tables)
+        moved = all(not torch.equal(before[n], want[n]) for n in names)
+        same_as_off = all(torch.equal(off[n], getattr(on, n).table) for n in names)
+        pub = loop.freshness.stats()
+        n = pub["published_batches"]
+        out = {"steps": FRESH_FUSED_STEPS, "losses": [r["loss"] for r in records],
+               "batches_applied": applied, "bit_parity": parity, "whole_planes": True,
+               "planes_moved": moved, "tables_equal_publishing_off": same_as_off,
+               "published_batches": n, "rows_per_batch": pub["published_rows"] / n,
+               "publish_ms_per_step": {"step_wait": pub["step_wait_ms"] / n,
+                                       "gather": pub["gather_ms"] / n,
+                                       "d2h": pub["d2h_ms"] / n, "write": pub["write_ms"] / n},
+               "launches": {k: v for k, v in launches.items() if v},
+               "seconds": time.monotonic() - t_leg}
+        emit("freshness_fused_resident", **out, device=env["device"],
+             nvidia_smi=env["nvidia_smi"])
+        substeps = FRESH_FUSED_STEPS * trainer.steps_per_call
+        if (parity != 0.0 or not moved or not same_as_off or n != FRESH_FUSED_STEPS
+                or applied != n or loop.freshness.errors
+                or launches["fused_sgns_resident_step"] != substeps):
+            raise AssertionError(f"freshness fused-resident: {out}")
+        return out
+    finally:
+        servant.close()
+
+
 def phase_freshness(seed: int, corpora, env: dict, serve: dict, device: str = "cuda") -> dict:
     """The freshness pipeline and the TCP network plane at full width (see
     the module docstring, phase 18). Returns the launches and the delta
@@ -3794,6 +3880,7 @@ def phase_freshness(seed: int, corpora, env: dict, serve: dict, device: str = "c
         os.symlink(os.path.join(serve["root"], f"step_{s1}"), os.path.join(root, f"step_{s1}"))
         serve_cfg = _fresh_config(device, root)
         logs = {k: os.path.join(tmp, k) for k in ("deltas", "gap", "int8", "tcp")}
+        fused = _fresh_fused_leg(seed, corpora, env, device, tmp)
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
@@ -4065,6 +4152,7 @@ def phase_freshness(seed: int, corpora, env: dict, serve: dict, device: str = "c
         emit("freshness_launches", **launches, replicas_by_id=replicas,
              all_in_process=in_total, **card)
         timing["launches"] = launches
+        timing["fused_resident"] = fused
         timing["seconds"] = time.monotonic() - t_phase
         return timing
     finally:
@@ -4374,6 +4462,258 @@ def _cluster_kernel_entries(summary: dict, cluster: dict) -> list:
     return out
 
 
+# ------------------------------------------------------------------ seqlm ---
+
+# The sequence model at the JAX trainer's defaults (models/seqlm.py: seq_len
+# 256, 2 layers, 4 heads, d_model 128, batch 8), on a paired text corpus
+# over 32,768 words (2 x 16,384 pair ids) read through `data`; the
+# optimizers at the JAX tests' rates (tests/test_seqlm.py).
+SEQLM_TOKENS = 1_000_000
+SEQLM_IDS = 1 << 14
+SEQLM_STEPS = 60
+SEQLM_RATES = {"sgd": 0.1, "momentum": 0.05, "adam": 0.003, "adamw": 0.003}
+# One step of each optimizer, card against CPU, from one carried state: the
+# loss, and the parameters of sgd and momentum within these tolerances. An
+# adam or adamw first step moves each parameter by lr g / (|g| + 1e-8),
+# which for the many embedding rows that meet a batch only through the tied
+# output's softmax tail (|g| ~ 1e-8) turns the last bits of a gradient
+# summed in another order into ~1e-5 of a parameter: there the moments mu
+# and nu (linear and quadratic in g) are held to the tolerances instead,
+# and so are the parameters whose gradient is at least SEQLM_ADAM_G_FLOOR
+# (100 eps, where |g| and not eps sets the step); the parameters' largest
+# difference over all of them is printed.
+SEQLM_ADAM_G_FLOOR = 1e-6
+SEQLM_LOSS_RTOL = 1e-5
+SEQLM_PARAM_RTOL, SEQLM_PARAM_ATOL = 1e-4, 1e-6
+SEQLM_ATTENTION_TOL = 2e-4  # ring and Ulysses against dense
+SEQLM_CLI_TOKENS = 64 * 8 * 257 + 257  # 64 batches of 8 windows of 257 tokens
+SEQLM_CLI_PERIOD = 8
+
+
+def _seqlm_config(data: str, seed: int, **over):
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    return Config({"model": "seqlm", "data": data, "seed": str(seed), "min_count": "1",
+                   "num_iters": "1", **{k: str(v) for k, v in over.items()}})
+
+
+def _seqlm_cli_args(conf: str, root: str) -> list:
+    return ["train", "-config", conf, "-param_backup_root", root]
+
+
+def _write_seqlm_conf(path: str, data: str, seed: int) -> None:
+    """A ``model: seqlm`` config: the JAX defaults, adam at the JAX tests'
+    rate, a save every SEQLM_CLI_PERIOD steps, ``resume: auto``."""
+    keys = {"model": "seqlm", "data": data, "seed": seed, "min_count": 1, "num_iters": 1,
+            "optimizer": "adam", "learning_rate": SEQLM_RATES["adam"],
+            "param_backup_period": SEQLM_CLI_PERIOD, "resume": "auto", "log_every": 1}
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("# the sequence model at its defaults\n")
+        f.writelines(f"{k}: {v}\n" for k, v in keys.items())
+
+
+def _loss_by_step(text: str) -> dict:
+    return {r["step"]: r["loss"] for r in _metric_records(text)}
+
+
+def phase_seqlm(seed: int, env: dict) -> dict:
+    """``seqlm`` on the card (module docstring, phase 20)."""
+    import torch.distributed as dist
+
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.models.seqlm import SeqLMTrainer, param_leaves
+    from swiftsnails_tpu_torch.parallel import sequence
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+    from swiftsnails_tpu_torch.utils.tree import map_tensors
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="ssn-seqlm-")
+    out = {}
+    try:
+        corpus = os.path.join(tmp, "corpus.txt")
+        n_tokens = _write_text_corpus(corpus, SEQLM_TOKENS, SEQLM_IDS, True, seed)
+
+        # (a) one step on the card against the same step on the CPU, from
+        # the same state (carried over from the card's), each optimizer
+        card = SeqLMTrainer(_seqlm_config(corpus, seed))
+        batch = next(iter(card.batches()))
+        toks = torch.from_numpy(batch["tokens"])
+        parity = {}
+        for name, lr in SEQLM_RATES.items():
+            kw = {"optimizer": name, "learning_rate": lr}
+            tr = SeqLMTrainer(_seqlm_config(corpus, seed, **kw),
+                              corpus_ids=card.corpus_ids, vocab_size=card.vocab_size)
+            host = SeqLMTrainer(_seqlm_config(corpus, seed, **kw), device="cpu",
+                                corpus_ids=card.corpus_ids, vocab_size=card.vocab_size)
+            state = tr.init_state()
+            cpu_state = map_tensors(state, lambda _, t: t.cpu().clone())
+            state, m = tr.train_step(state, {"tokens": toks.cuda()})
+            cpu_state, cm = host.train_step(cpu_state, {"tokens": toks})
+            held = ({"params": state["params"]} if name in ("sgd", "momentum")
+                    else {k: state["opt"][k] for k in ("mu", "nu")})
+            want = ({"params": cpu_state["params"]} if name in ("sgd", "momentum")
+                    else {k: cpu_state["opt"][k] for k in ("mu", "nu")})
+            if name in ("adam", "adamw"):
+                # from a zero mu, one step leaves mu = (1 - b1) g
+                masks = [mu.abs() >= (1 - 0.9) * SEQLM_ADAM_G_FLOOR
+                         for mu in param_leaves(cpu_state["opt"]["mu"])]
+                key = "params (|g| >= floor)"
+                held[key] = [a[m.to(a.device)]
+                             for a, m in zip(param_leaves(state["params"]), masks)]
+                want[key] = [b[m] for b, m in zip(param_leaves(cpu_state["params"]), masks)]
+            errs, counts = {}, {}
+            for key, got in held.items():
+                pairs = (zip(got, want[key]) if isinstance(got, list)
+                         else zip(param_leaves(got), param_leaves(want[key])))
+                for a, b in pairs:
+                    a = a.cpu()
+                    counts[key] = counts.get(key, 0) + a.numel()
+                    if not a.numel():
+                        continue
+                    errs[key] = max(errs.get(key, 0.0), float((a - b).abs().max()))
+                    if not torch.allclose(a, b, rtol=SEQLM_PARAM_RTOL, atol=SEQLM_PARAM_ATOL):
+                        raise AssertionError(f"seqlm {name}: card {key} differ from the "
+                                             f"CPU's by {float((a - b).abs().max())}")
+            errs["params"] = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+                param_leaves(state["params"]), param_leaves(cpu_state["params"])))
+            loss, cpu_loss = float(m["loss"]), float(cm["loss"])
+            if not math.isclose(loss, cpu_loss, rel_tol=SEQLM_LOSS_RTOL):
+                raise AssertionError(f"seqlm {name}: loss {loss} on the card, "
+                                     f"{cpu_loss} on the CPU")
+            parity[name] = {"loss": loss, "cpu_loss": cpu_loss, "held": sorted(held),
+                            "held_elements": counts, "max_abs_err": errs}
+            del tr, host, state, cpu_state
+        out["parity"] = {"vocab": card.vocab_size, "corpus_tokens": n_tokens, **parity}
+
+        # (b) each optimizer 60 steps under TrainLoop: finite, falling
+        runs = {}
+        for name, lr in SEQLM_RATES.items():
+            tr = SeqLMTrainer(_seqlm_config(corpus, seed, optimizer=name, learning_rate=lr),
+                              corpus_ids=card.corpus_ids, vocab_size=card.vocab_size)
+            records = []
+
+            class Recorder(MetricsLogger):
+                def log(self, record):
+                    records.append(record)
+
+            TrainLoop(tr, metrics=Recorder(), log_every=1).run(seed=seed, max_steps=SEQLM_STEPS)
+            losses = [r["loss"] for r in records]
+            if len(losses) != SEQLM_STEPS or not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"seqlm {name}: losses {losses}")
+            if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+                raise AssertionError(f"seqlm {name}: the loss did not fall: {losses}")
+            steady = records[5:]
+            runs[name] = {"lr": lr, "step_ms_median": statistics.median(
+                              r["seconds"] * 1e3 for r in steady),
+                          "tokens_per_sec": sum(r["items"] for r in steady)
+                          / sum(r["seconds"] for r in steady),
+                          "loss_first": losses[0], "loss_last": losses[-1],
+                          "loss_first5": float(np.mean(losses[:5])),
+                          "loss_last5": float(np.mean(losses[-5:]))}
+        out["optimizers"] = runs
+
+        # (c) ring and Ulysses under a one-rank NCCL group against dense
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            group = dist.new_group([0])
+            sequence.reset_calls()
+            toks = torch.from_numpy(batch["tokens"]).cuda()
+            dense = SeqLMTrainer(_seqlm_config(corpus, seed, attention="dense"),
+                                 corpus_ids=card.corpus_ids, vocab_size=card.vocab_size)
+            start = dense.init_state()
+            want = dense.forward(start["params"], toks[:, :-1]).detach()
+            stepped, dm = dense.train_step(map_tensors(start, lambda _, t: t.clone()),
+                                           {"tokens": toks})
+            attn = {}
+            for attention in ("ring", "ulysses"):
+                par = SeqLMTrainer(_seqlm_config(corpus, seed, attention=attention),
+                                   corpus_ids=card.corpus_ids, vocab_size=card.vocab_size,
+                                   seq_group=group)
+                got = par.forward(start["params"], toks[:, :-1]).detach()
+                st, pm = par.train_step(map_tensors(start, lambda _, t: t.clone()),
+                                        {"tokens": toks})
+                errs = {"logits": float((got - want).abs().max()),
+                        "params": max(float((a - b).abs().max()) for a, b in zip(
+                            param_leaves(st["params"]), param_leaves(stepped["params"]))),
+                        "loss": abs(float(pm["loss"]) - float(dm["loss"]))}
+                if max(errs.values()) > SEQLM_ATTENTION_TOL:
+                    raise AssertionError(f"seqlm {attention}: {errs} beyond "
+                                         f"{SEQLM_ATTENTION_TOL} of dense")
+                attn[attention] = errs
+            torch.cuda.synchronize()
+            attn["group"] = {"backend": dist.get_backend(group),
+                             "size": dist.get_world_size(group),
+                             "calls": dict(sequence.CALLS)}
+            if attn["group"]["calls"]["all_to_all"] == 0:
+                raise AssertionError(f"seqlm: Ulysses made no all-to-all: {attn['group']}")
+        finally:
+            dist.destroy_process_group()
+        out["attention"] = attn
+
+        # (d) the CLI: an uninterrupted control in process, a run stopped by
+        # a real SIGTERM after its first periodic save, and the same command
+        # again, which resumes: its losses equal the control's bit for bit
+        from swiftsnails_tpu_torch import cli
+
+        cli_corpus, conf = os.path.join(tmp, "cli.txt"), os.path.join(tmp, "seqlm.conf")
+        _write_text_corpus(cli_corpus, SEQLM_CLI_TOKENS, SEQLM_IDS, True, seed + 1)
+        _write_seqlm_conf(conf, cli_corpus, seed)
+        ctl = io.StringIO()
+        with contextlib.redirect_stdout(ctl), contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(_seqlm_cli_args(conf, os.path.join(tmp, "control")))
+        control = _loss_by_step(ctl.getvalue())
+        if rc != 0 or len(control) < 2 * SEQLM_CLI_PERIOD + 2:
+            raise AssertionError(f"seqlm cli: control exited {rc} after {sorted(control)}")
+        root = os.path.join(tmp, "run")
+        args = _seqlm_cli_args(conf, root)
+        log = os.path.join(tmp, "first.out")
+
+        def sigterm_due() -> bool:
+            # after the first periodic save, mid-period (as phase_cli)
+            last = _last_logged_step(log) if os.path.exists(log) else None
+            return (last is not None and last > SEQLM_CLI_PERIOD
+                    and 0 < last % SEQLM_CLI_PERIOD < SEQLM_CLI_PERIOD - 1)
+
+        rc, out1, err1, first_s = _subprocess_cli(args, tmp, "first", until=sigterm_due)
+        drain = _DRAIN_RE.findall(err1)
+        if rc != 0 or "preempted (SIGTERM)" not in err1 or len(drain) != 1:
+            raise AssertionError(f"seqlm cli: SIGTERM run exited {rc}: {err1[-3000:]}")
+        res = io.StringIO()
+        res_err = io.StringIO()
+        with contextlib.redirect_stdout(res), contextlib.redirect_stderr(res_err):
+            rc = cli.main(args)
+        restored = _RESTORE_RE.findall(res_err.getvalue())
+        first, resumed = _loss_by_step(out1), _loss_by_step(res.getvalue())
+        final = int(drain[0][1])
+        if rc != 0 or not restored or int(restored[0][0]) != final:
+            raise AssertionError(f"seqlm cli: resumed run exited {rc}, restored {restored}")
+        merged = {**{s: v for s, v in first.items() if s <= final}, **resumed}
+        differ = sorted(s for s in control if merged.get(s) != control[s])
+        out["cli"] = {"steps": max(control), "period": SEQLM_CLI_PERIOD, "drained_at": final,
+                      "resumed_steps": [min(resumed), max(resumed)] if resumed else [],
+                      "differing_steps": differ, "first_s": first_s}
+        if differ or min(resumed) != final + 1:
+            raise AssertionError(f"seqlm cli: losses after the resume differ at {differ}")
+        out.update(seconds=time.monotonic() - t_phase, device=env["device"],
+                   nvidia_smi=env["nvidia_smi"],
+                   shape={"seq_len": card.seq_len, "n_layers": card.n_layers,
+                          "n_heads": card.n_heads, "d_model": card.d_model,
+                          "batch_size": card.batch_size, "vocab": card.vocab_size})
+        emit("seqlm", **out)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _only_seqlm(seed: int, env: dict, t_start: float) -> int:
+    """``--only seqlm``: the sequence model's phase."""
+    phase_seqlm(seed, env)
+    emit("total", seconds=time.monotonic() - t_start)
+    return 0
+
+
 def _only_cluster(seed: int, env: dict, t_start: float) -> int:
     """``--only cluster``: the kernels' phase 3 (the cluster entries'
     numbers) and the cluster phase."""
@@ -4386,7 +4726,7 @@ def _only_cluster(seed: int, env: dict, t_start: float) -> int:
 
 def _only_freshness(seed: int, env: dict, t_start: float) -> int:
     """``--only freshness``: the freshness phase over its own serve checkpoint."""
-    corpora = {False: _corpus(seed)}
+    corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
     tmp = tempfile.mkdtemp(prefix="ssn-serve-")
     try:
         root = os.path.join(tmp, "ckpt")
@@ -4419,7 +4759,7 @@ def _only_tiered(seed: int, env: dict, t_start: float) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("tiered", "freshness", "cluster"),
+    ap.add_argument("--only", choices=("tiered", "freshness", "cluster", "seqlm"),
                     help="run only this phase (with the build and the inputs it "
                          "needs) and print no result line: a quicker check while "
                          "working on it")
@@ -4439,6 +4779,8 @@ def main() -> int:
         return _only_freshness(args.seed, env, t_start)
     if args.only == "cluster":
         return _only_cluster(args.seed, env, t_start)
+    if args.only == "seqlm":
+        return _only_seqlm(args.seed, env, t_start)
     summary = phase_kernels(args.seed, env["mem_rate_Bps"])
     summary.update(phase_fused_kernels(args.seed, env))
     for path in PATHS:
@@ -4514,6 +4856,7 @@ def main() -> int:
     emit("freshness_total", seconds=fresh["seconds"], device=env["device"],
          nvidia_smi=env["nvidia_smi"])
     cluster = phase_cluster(args.seed, corpora, env)
+    phase_seqlm(args.seed, env)
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),

@@ -1,4 +1,4 @@
-"""Carry word2vec and CTR states from the JAX package into the port.
+"""Carry word2vec, CTR and ``seqlm`` states from the JAX package into the port.
 
 Both packages keep the packed ``[C, S, 128]`` layout (and the small-row
 ``[T, S, 128]`` one) and the 2-D ``[C, dim]`` one with its row-aligned
@@ -116,6 +116,39 @@ def ctr_state_from_numpy(table: np.ndarray, dense: Mapping[str, np.ndarray],
     opt = {} if opt_sum_of_squares is None else {"sum_of_squares": carry(opt_sum_of_squares)}
     return CTRState(table=_table_from_numpy(table, table_slots, dev, dtype),
                     dense=carry(dense), opt=opt)
+
+
+def seqlm_state_from_numpy(params, opt_slots: Optional[Mapping] = None, *,
+                           device: DeviceLike) -> dict:
+    """The port's ``seqlm`` state holding copies of a JAX ``SeqLMTrainer``
+    state's arrays.
+
+    ``params`` is the JAX parameter tree as numpy arrays: ``{"embed",
+    "pos", "blocks": [{"wqkv", "wo", "w1", "w2"}, ...]}``. ``opt_slots``
+    holds the optax slots, numpy too: for ``adam`` / ``adamw`` the
+    ``ScaleByAdamState`` fields ``{"count", "mu", "nu"}`` (``mu`` and
+    ``nu`` parameter trees), for ``momentum`` the ``TraceState``'s
+    ``{"trace"}``; ``None`` or ``{}`` for ``sgd``, whose state is empty.
+    Returns ``{"params", "opt"}`` as
+    :meth:`~swiftsnails_tpu_torch.models.seqlm.SeqLMTrainer.init_state`
+    lays it out."""
+    dev = resolve_device(device)
+
+    def carry(tree):
+        if isinstance(tree, Mapping):
+            return {str(k): carry(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [carry(v) for v in tree]
+        return _tensor_from_numpy(np.asarray(tree)).to(dev)
+
+    opt = {}
+    for key, value in (opt_slots or {}).items():
+        if key not in ("count", "mu", "nu", "trace"):
+            raise ValueError(f"unknown optimizer slot {key!r}")
+        opt[key] = carry(value)
+    if "count" in opt:
+        opt["count"] = opt["count"].to(torch.int32).reshape(())
+    return {"params": carry(params), "opt": opt}
 
 
 # The JAX CTRState's optax AdaGrad state, ``(ScaleByRssState(sum_of_squares),

@@ -736,19 +736,21 @@ class Word2VecTrainer(Trainer):
         augmentations (hashed centers/contexts + the drawn negatives), and
         which batch keys each table's remap applies to.
 
-        The fused paths have no plan: their pools are drawn inside the step
-        at the kernel's own block geometry, and the tier refuses them. This
-        raises there, so the freshness collector falls back to the batch's
-        own ids."""
-        if self.fused:
-            raise NotImplementedError(
-                "the fused paths draw their pools inside the step: no host plan")
+        The fused paths draw their pools inside the step at their own block
+        geometry (``b // pool_block`` pools a flat substep, ``b //
+        centers_per_block`` a grouped one, which the merged forms share);
+        their plan makes the same draws at that geometry, so ``ids`` holds
+        every row the step reads or writes (the pads of a grouped window
+        left out). The tier refuses the fused paths, so their plan carries
+        no augmentation or remap: only the freshness collector reads it."""
         centers = np.asarray(batch["centers"])
         contexts = np.asarray(batch["contexts"])
         n = centers.shape[0]
         t = max(n // self.batch_size, 1)
         b = n // t
-        if self.packed and self.neg_mode == "pool":
+        if self.grouped:
+            shape = (b // self._effective_pc(b), self.pool_size)
+        elif self.packed and self.neg_mode == "pool":
             shape = (self.pool_geometry(b)[1], self.pool_size)
         else:
             shape = (b, self.negatives)
@@ -760,8 +762,13 @@ class Word2VecTrainer(Trainer):
                                for _ in range(t)])
             negs = draws.cpu().numpy()
         c_r = self._plan_rows(centers)
-        x_r = self._plan_rows(contexts)
         n_r = self._plan_rows(negs)
+        if self.fused:
+            x_r = self._plan_rows(contexts[contexts >= 0])
+            ids = {"in_table": c_r.ravel(),
+                   "out_table": np.concatenate([x_r.ravel(), n_r.ravel()])}
+            return ids, {}, {}
+        x_r = self._plan_rows(contexts)
         ids = {"in_table": c_r.ravel(),
                "out_table": np.concatenate([x_r.ravel(), n_r.ravel()])}
         aug = {"centers": c_r, "contexts": x_r, "negs": n_r}

@@ -35,10 +35,16 @@ from typing import Callable, Dict, Optional
 
 from swiftsnails_tpu_torch.utils.device import DeviceLike
 
-# the drill's fault schedule: slow_step on a late contiguous band, long
-# enough that host-blocked dominates the A->B delta over compile jitter
+# the drill's fault schedule: slow_step on a contiguous band, long enough
+# that host-blocked dominates the A->B delta over compile jitter. Step ``s``
+# is sampled as ``s + 1``, so the band's first sample is INJECT_FIRST + 1 =
+# 12. The sentinel's default warmup of 8 seeds its location and scale from
+# samples 2-9 and scores from sample 10, so two clean samples are scored
+# before the band. No more: one host stall of a few-ms step, scored
+# against a quiet warmup, trips the sentinel, and the longer the scored
+# stretch before the band, the likelier such a stall lands in it first.
 DRILL_STEPS = 48
-INJECT_FIRST = 16
+INJECT_FIRST = 11
 INJECT_LAST = 43
 SLOW_STEP_MS = 80.0
 PROFILE_CADENCE = 4        # the overhead legs' realistic sampling cadence
@@ -53,9 +59,11 @@ def _workdir(workdir: Optional[str]) -> str:
 
 
 def drift_drill(workdir: Optional[str] = None,
-                small: bool = True, device: DeviceLike = None) -> Dict:
-    """Run the before/after drift drill on ``device``; returns the gateable
-    ``drift`` block (detection, event count, bundle, attribution)."""
+                small: bool = True, device: DeviceLike = None,
+                inject_first: int = INJECT_FIRST) -> Dict:
+    """Run the before/after drift drill on ``device``, the slow_step band
+    opening at step ``inject_first``; returns the gateable ``drift`` block
+    (detection, event count, bundle, attribution)."""
     from swiftsnails_tpu_torch.resilience.drill import make_trainer, run_loop
     from swiftsnails_tpu_torch.telemetry.drift import bundle_complete
     from swiftsnails_tpu_torch.telemetry.goodput import throughput_attribution
@@ -89,7 +97,7 @@ def drift_drill(workdir: Optional[str] = None,
         common,
         blackbox_dir=os.path.join(drift_dir, "blackbox"),
         drift_detect=1,
-        chaos_spec=f"slow_step@{INJECT_FIRST}-{INJECT_LAST}",
+        chaos_spec=f"slow_step@{inject_first}-{INJECT_LAST}",
         chaos_slow_step_ms=SLOW_STEP_MS,
     ))
     loop, _state, _steps = run_loop(tr2, max_steps=DRILL_STEPS)
@@ -101,14 +109,14 @@ def drift_drill(workdir: Optional[str] = None,
            if loop.drift is not None else None)
     detect_step = det.drift_step if det is not None else None
     detected = (detect_step is not None
-                and INJECT_FIRST <= detect_step <= INJECT_LAST)
+                and inject_first < detect_step <= INJECT_LAST + 1)
     bundle = loop.incidents[0] if loop.incidents else None
     attribution = (throughput_attribution(runs[-2], runs[-1])
                    if len(runs) >= 2 else {"dominant": "insufficient-data"})
     return {
         "detected": bool(detected),
         "detect_step": detect_step,
-        "inject_step": INJECT_FIRST,
+        "inject_step": inject_first,
         "inject_last": INJECT_LAST,
         "slow_step_ms": SLOW_STEP_MS,
         "window_steps": DRILL_STEPS,

@@ -3,7 +3,7 @@
 real SIGTERM to a training process, which drains with a committed final
 checkpoint, and the run without ``-device`` on a machine without a card,
 which fails and names the missing card. ``models`` lists the families the
-port has; the JAX package's ``seqlm`` is not ported (``ROADMAP.md``).
+port has, the JAX package's six.
 """
 
 import os
@@ -92,7 +92,7 @@ def test_cli_train_export_resume(tmp_path, corpus):
 def test_cli_models_and_role_notes(tmp_path):
     proc = _run_cli(["models"], cwd=tmp_path)
     assert proc.returncode == 0
-    assert proc.stdout.split() == ["ffm", "fm", "logreg", "widedeep", "word2vec"]
+    assert proc.stdout.split() == ["ffm", "fm", "logreg", "seqlm", "widedeep", "word2vec"]
     proc = _run_cli(["master"], cwd=tmp_path)
     assert proc.returncode == 0
     assert "no separate master role" in proc.stderr

@@ -317,7 +317,7 @@ def test_dense_optimizer_matches_optax(name):
 
 
 def test_registry_lists_the_ctr_families():
-    assert available_models() == ["ffm", "fm", "logreg", "widedeep", "word2vec"]
+    assert available_models() == ["ffm", "fm", "logreg", "seqlm", "widedeep", "word2vec"]
 
 
 @pytest.mark.parametrize("case", ["logreg_sgd", "widedeep"])

@@ -2,7 +2,8 @@
 series (the detectors' edges, states and ledger events), incident bundles,
 the TrainLoop's wiring under a ``slow_step`` injection with the loop's
 clock injected (no timed sleeps: the step times are fed in), and the drift
-drill on the CPU with a ``slow_step`` far longer than the step."""
+drill on the CPU with a ``slow_step`` far longer than the step, and
+``tools.drift_rate``'s counts of its verdicts."""
 
 import json
 import os
@@ -19,7 +20,8 @@ from swiftsnails_tpu_torch.framework.trainer import Trainer, TrainLoop
 from swiftsnails_tpu_torch.resilience import chaos as chaos_mod
 from swiftsnails_tpu_torch.telemetry import drift, ledger
 from swiftsnails_tpu_torch.telemetry import tracer as tracer_mod
-from swiftsnails_tpu_torch.telemetry.drift_lane import drift_drill
+from swiftsnails_tpu_torch.telemetry.drift_lane import INJECT_FIRST, INJECT_LAST, drift_drill
+from swiftsnails_tpu_torch.tools import drift_rate
 from swiftsnails_tpu_torch.utils.config import Config
 from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
 
@@ -203,13 +205,38 @@ def test_incident_dir_untouched_without_profiler_or_sentinel(tmp_path, clock):
 def test_drift_drill_on_the_cpu(tmp_path):
     """The drill's 80 ms slow steps against dense dim-16 steps of a few ms:
     detected inside the injected band, one drift event, a complete bundle,
-    and ``--diff`` naming host_blocked; the gate passes on its block."""
-    out = drift_drill(str(tmp_path), device="cpu")
+    and ``--diff`` naming host_blocked; the gate passes on its block. One
+    intra-op thread: on a host shared with other test processes, torch's
+    default thread count makes a few-ms step's jitter as large as the
+    injected stall, which then goes undetected."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = drift_drill(str(tmp_path), device="cpu")
+    finally:
+        torch.set_num_threads(n)
     assert out["detected"], out
-    assert out["inject_step"] <= out["detect_step"] <= out["inject_last"]
+    assert out["inject_step"] < out["detect_step"] <= out["inject_last"] + 1
     assert out["drift_events"] == 1 and out["bundle_complete"]
     assert out["attribution"]["dominant"] == "host_blocked"
     led = ledger.Ledger(str(tmp_path / "gate.jsonl"))
     led.append("bench", {"payload": {"drift": out}})
     rc, msg = ledger.check_regression(led, 10.0)
     assert rc == 2 and "drift ok" in msg  # 2: no measured bench value to gate
+
+
+def test_drift_rate_counts_the_drills_verdicts(capsys):
+    """``tools.drift_rate`` on the CPU with one intra-op thread: a line a
+    run, then the summary, in which every run held the gate."""
+    n = torch.get_num_threads()
+    try:
+        assert drift_rate.main(["--runs", "2", "--device", "cpu", "--threads", "1"]) == 0
+    finally:
+        torch.set_num_threads(n)
+    lines = capsys.readouterr().out.strip().splitlines()
+    runs, summary = [json.loads(line) for line in lines[:-1]], json.loads(lines[-1])
+    assert [r["run"] for r in runs] == [0, 1]
+    assert summary["band"] == [INJECT_FIRST + 1, INJECT_LAST + 1]
+    assert (summary["runs"], summary["held"], summary["early"], summary["missed"]) == \
+        (2, 2, 0, 0)
+    assert summary["threads"] == 1 and summary["device"] == "cpu"

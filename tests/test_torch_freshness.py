@@ -10,7 +10,7 @@ equal rows; the freshness gate gives JAX's verdicts on the same records;
 and the tiered tee publishes the units JAX's does. Then the port alone: the
 subscriber's ordering, gap / restart / CRC fallbacks, the fleet cutover,
 the loop's publisher (bit-exact to the next checkpoint on the resident
-path, training unchanged by it, the fused paths' leaf fallback pinned) and
+path and on each fused path, training unchanged by it) and
 the chaos drill. Inputs are made from numpy seeds; no test reads a clock.
 """
 
@@ -487,8 +487,8 @@ def _w2v_cfg(**over):
     return cfg
 
 
-def _w2v(cfg):
-    ids, vocab = paired_corpus(n_pairs=16, reps=60, seed=0)
+def _w2v(cfg, n_pairs=16):
+    ids, vocab = paired_corpus(n_pairs=n_pairs, reps=60, seed=0)
     return Word2VecTrainer(cfg, corpus_ids=ids, vocab=vocab, device=CPU)
 
 
@@ -532,29 +532,69 @@ def test_publishing_leaves_the_training_bit_identical(tmp_path):
     assert list_seqs(str(tmp_path / "d")) == [1, 2, 3]
 
 
-def test_fused_path_publishes_the_batch_leaves_only(tmp_path):
-    """Reference caveat, pinned: the fused paths have no host plan, so the
-    collector publishes the batch's own ids (centers and contexts) to every
-    table; the pool rows the step draws are not published."""
-    cfg = _w2v_cfg(fused=1, pool_block=16)
-    tr = _w2v(cfg)
-    with pytest.raises(NotImplementedError, match="no host plan"):
-        tr.tier_plan(next(iter(tr.batches())), 0, 0)
-    col = TouchedRowCollector(tr)
-    batches = []
-    for step, b in zip(range(3), tr.batches()):
-        col.observe(b, 0, step)
-        batches.append(b)
-    geo = tr.table_geometry()
-    out = col.drain(geo)
-    leaves = np.unique(np.concatenate([np.concatenate([b["centers"], b["contexts"]])
-                                       for b in batches]))
+FUSED_PATHS = {
+    "fused-hogwild": {"fused": 1, "pool_block": 8},
+    "fused-grouped": {"fused": 1, "grouped": 1, "centers_per_block": 4},
+    "fused-resident": {"fused": 1, "grouped": 1, "centers_per_block": 4, "resident": 1,
+                       "hot_rows": 8},
+    "fused-dedup": {"fused": 1, "grouped": 1, "centers_per_block": 4, "dedup": 1, "u_cap": 8},
+    "fused-dedup-res": {"fused": 1, "grouped": 1, "centers_per_block": 4, "dedup": 1,
+                        "resident": 1, "u_cap": 16, "hot_rows": 8},
+}
+
+
+def _normalized(state):
+    from swiftsnails_tpu_torch.serving.engine import normalize_table
+
+    return {name: normalize_table(getattr(state, name).table, DIM, "packed")
+            for name in ("in_table", "out_table")}
+
+
+@pytest.mark.parametrize("path", sorted(FUSED_PATHS))
+def test_fused_path_publishes_every_row_it_draws(tmp_path, path):
+    """Each fused path publishing every step: a servant of the start state
+    that applies the deltas holds the trained planes bit for bit (the plan's
+    rows are the batch's and the pools the step draws at the path's own
+    geometry), and the tables trained with publishing on equal those
+    trained with it off."""
+    over = dict(FUSED_PATHS[path], steps_per_call=2)
+    # 512 words: the pools draw rows that no batch of the run holds
+    off = TrainLoop(_w2v(_w2v_cfg(**over), 256), log_every=0).run(max_steps=5)
+    d = str(tmp_path / "log")
+    tr = _w2v(_w2v_cfg(**over, freshness_publish=1, freshness_dir=d), 256)
+    start = tr.init_state()
+    tr.init_state = lambda: start
+    sv = Servant({k: v.clone() for k, v in _normalized(start).items()}, device=CPU)
+    before = {k: v.clone() for k, v in sv._tables.items()}
+    loop = TrainLoop(tr, log_every=0)
+    on = loop.run(max_steps=5)
+    st = loop.freshness.stats()
+    assert st["source"] == "collector" and st["published_batches"] == 5
+    assert loop.freshness.errors == 0
+    sub = DeltaSubscriber(sv, d)
+    assert sub.poll() == 5 and sub.applied_step == 5
+    want = _normalized(on)
     for name in ("in_table", "out_table"):
-        np.testing.assert_array_equal(out[name], leaves)
-    loop = TrainLoop(_w2v(_w2v_cfg(fused=1, pool_block=16, freshness_publish=1,
-                                   freshness_dir=str(tmp_path / "d"))), log_every=0)
-    loop.run(max_steps=2)
-    assert loop.freshness.stats()["published_batches"] == 2 and loop.freshness.errors == 0
+        assert torch.equal(off._asdict()[name].table, on._asdict()[name].table), name
+        assert not torch.equal(before[name], want[name]), name
+        assert torch.equal(sv._tables[name], want[name]), name
+    sv.close()
+
+
+def test_fused_plan_draws_the_pools_at_the_path_geometry():
+    """The fused plans' pools are the step's own draws: a flat substep's
+    ``b // pool_block`` pools, a grouped one's ``b // centers_per_block``;
+    a grouped window's pads are left out."""
+    for path, n_pools in (("fused-hogwild", 16 // 8), ("fused-grouped", 16 // 4)):
+        tr = _w2v(_w2v_cfg(**FUSED_PATHS[path]))
+        batch = next(iter(tr.batches()))
+        ids, aug, remap = tr.tier_plan(batch, 0, 0)
+        assert aug == {} and remap == {}
+        np.testing.assert_array_equal(ids["in_table"], batch["centers"])
+        ctx = batch["contexts"]
+        n_ctx = int((ctx >= 0).sum())
+        assert ids["out_table"].size == n_ctx + n_pools * 4, path
+        np.testing.assert_array_equal(ids["out_table"][:n_ctx], ctx[ctx >= 0])
 
 
 @pytest.mark.parametrize("packed", [1, 0], ids=["packed_small", "2d"])

@@ -109,6 +109,28 @@ def test_cluster_and_chaos_modules_are_held(module):
     assert module in _PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "swiftsnails_tpu_torch.models.seqlm", "swiftsnails_tpu_torch.parallel.sequence",
+    "swiftsnails_tpu_torch.parallel.cluster", "swiftsnails_tpu_torch.tools.eval_embeddings",
+    "swiftsnails_tpu_torch.tools.perf_diff", "swiftsnails_tpu_torch.tools.drift_rate"])
+def test_sequence_modules_are_held(module):
+    """The modules of the sequence-model slice are among the ones imported
+    without JAX above and read for its names below."""
+    assert module in _PORT_MODULES
+
+
+def test_seqlm_defaults_to_the_card():
+    """``SeqLMTrainer`` resolves ``device=None`` to the card and raises
+    without one."""
+    from swiftsnails_tpu_torch.models.seqlm import SeqLMTrainer
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    _no_card()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SeqLMTrainer(Config({"seq_len": "8"}), corpus_ids=np.zeros(64, np.int32),
+                     vocab_size=4)
+
+
 def test_cluster_and_chaos_entry_points_default_to_the_card(tmp_path):
     """The drills, the cluster, serve and fleet lanes and the drill tool
     resolve ``device=None`` to the card and raise without one."""
@@ -196,7 +218,7 @@ def test_cli_run_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["ffm", "fm", "logreg", "widedeep", "word2vec"]
+    assert out.stdout.split() == ["ffm", "fm", "logreg", "seqlm", "widedeep", "word2vec"]
 
 
 # ``import jax`` / ``from jax``, and the JAX package's name anywhere except
