@@ -31,9 +31,11 @@ chaos-serve and fleet lanes, ``supervisor-status`` and the gates of
 ``ledger-report --check-regression``); last the sequence model
 (``model: seqlm`` at its full width: card against CPU, four optimizers,
 ring and Ulysses attention under a one-rank NCCL group, the CLI killed
-and resumed).
+and resumed); last word2vec under a ``(data, model)`` mesh (a one-rank
+NCCL mesh at full width against the unmeshed run, and a ``(2, 2)`` gloo
+mesh of four processes against one device).
 
-    python3 chip_smoke.py [--seed N] [--only tiered|freshness|cluster|seqlm]
+    python3 chip_smoke.py [--seed N] [--only tiered|freshness|cluster|seqlm|mesh]
 
 Run from the root of the repository on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. The
@@ -401,11 +403,24 @@ Phases:
     drain and after the resume equal the control's bit for bit. One
     ``seqlm`` line. ``--only seqlm`` runs this phase alone and prints no
     result line.
-21. ``kernels``: one line for every ported kernel, with its launches in the
+21. ``mesh``: word2vec through ``Word2VecTrainer(mesh=...)`` and
+    ``TrainLoop``. (a) A ``(1, 1)`` mesh of a one-rank NCCL group at full
+    width (packed+pool and ``packed: 0``, the ``train`` phases' config,
+    ``MESH_STEPS`` steps) against the unmeshed run of the same steps: the
+    tables bit-equal (the collectives over one rank are identities; the
+    largest difference printed), the row kernels launched as often; step
+    ms, the collectives' calls and result bytes (``parallel.transfer.COMM``).
+    (b) A ``(2, 2)`` gloo mesh of four spawned processes (``MESH_GLOO_*``:
+    dim 200, vocabulary 65,536, batch 2,048, 5 steps, the cuts listed as
+    ``reduced``) on ``MESH_GLOO_DEVICE``, its tables within rtol 1e-5 /
+    atol 1e-6 of the one-device port's, each rank's launches counted. One
+    ``mesh`` line. ``--only mesh`` runs this phase alone (with the build
+    and the kernels' phase 3) and prints no result line.
+22. ``kernels``: one line for every ported kernel, with its launches in the
     run of its path (``path``) and its f32 numbers from phases 3, 7, 10, 16,
     17 and 18 (``gather_rows`` and ``scatter_add_rows`` also at
-    ``train_perpair``'s shape and launches, and with the ``cluster`` path's
-    launches; ``gather_rows`` and ``scatter_write_rows`` also at the serving
+    ``train_perpair``'s shape and launches, and with the ``cluster`` and
+    ``mesh`` paths' launches; ``gather_rows`` and ``scatter_write_rows`` also at the serving
     shapes with the ``serve`` path's launches, and at the freshness shapes
     with the ``freshness`` path's, the replicas' included; all four row
     kernels of the tiered runs with ``path: "tiered"``); then ``total``,
@@ -1179,9 +1194,10 @@ for _phase, _keys, _kernel in (
                      {_kernel: 1}, True)
 
 
-def _train_loop(phase: str, seed: int, corpora, **extra):
-    """A train phase's trainer and loop (``extra`` config keys on top), and
-    the list its records go to."""
+def _train_loop(phase: str, seed: int, corpora, mesh=None, **extra):
+    """A train phase's trainer and loop (``extra`` config keys on top;
+    under ``mesh``, a ``parallel.mesh.Mesh``), and the list its records go
+    to."""
     from swiftsnails_tpu_torch.framework.trainer import TrainLoop
     from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
     from swiftsnails_tpu_torch.utils.config import Config
@@ -1194,7 +1210,7 @@ def _train_loop(phase: str, seed: int, corpora, **extra):
                   "pool_size": str(POOL_SIZE), "pool_block": str(POOL_BLOCK),
                   "table_dtype": "float32", "seed": str(seed),
                   **{k: str(v) for k, v in {**over, **extra}.items()}})
-    trainer = Word2VecTrainer(cfg, corpus_ids=ids, vocab=vocab)
+    trainer = Word2VecTrainer(cfg, mesh=mesh, corpus_ids=ids, vocab=vocab)
     records = []
 
     class Recorder(MetricsLogger):
@@ -4707,6 +4723,250 @@ def phase_seqlm(seed: int, env: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------------- mesh ---
+
+MESH_STEPS = 10  # leg 1: the (1, 1) NCCL mesh at full width
+MESH_PHASES = ("train", "train_dense")  # packed+pool, packed: 0
+MESH_GLOO = {"data": 2, "model": 2}  # leg 2: four spawned gloo ranks
+MESH_GLOO_VOCAB = 1 << 16
+MESH_GLOO_BATCH = 2_048
+MESH_GLOO_STEPS = 5
+MESH_GLOO_TOKENS = 200_000
+MESH_GLOO_TIMEOUT_S = 300
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-6  # tests/test_rowdma.py:188-192
+# where the gloo ranks keep their shards: gloo's all_reduce and list
+# all_gather take CUDA tensors on torch 2.11, so the four ranks share the
+# one card and launch the row kernels there
+MESH_GLOO_DEVICE = "cuda"
+
+
+def _mesh_gloo_trainer(seed: int, device: str, mesh=None):
+    """Leg 2's word2vec: packed+pool at dim 200 (the full row width), the
+    vocabulary, batch and steps cut (``MESH_GLOO_*``), numpy batches."""
+    from swiftsnails_tpu_torch.data.vocab import Vocab
+    from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(seed)
+    ids = zipf_ids(MESH_GLOO_TOKENS, MESH_GLOO_VOCAB, rng)
+    counts = np.maximum(np.bincount(ids, minlength=MESH_GLOO_VOCAB), 1)
+    cfg = Config({"dim": str(DIM), "window": str(WINDOW), "negatives": str(NEGATIVES),
+                  "subsample": "0", "num_iters": "1", "pool_size": str(POOL_SIZE),
+                  "pool_block": str(POOL_BLOCK), "learning_rate": str(LR),
+                  "batch_size": str(MESH_GLOO_BATCH), "seed": str(seed), "use_native": "0"})
+    vocab = Vocab([f"w{i}" for i in range(MESH_GLOO_VOCAB)], counts)
+    return Word2VecTrainer(cfg, mesh=mesh, corpus_ids=ids, vocab=vocab, device=device)
+
+
+def _loss_loop(trainer) -> tuple:
+    """A ``TrainLoop`` logging every step, and the list its losses go to."""
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+    losses = []
+
+    class Recorder(MetricsLogger):
+        def log(self, record):
+            losses.append(record["loss"])
+
+    return TrainLoop(trainer, metrics=Recorder(), log_every=1), losses
+
+
+def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) -> None:
+    """One rank of leg 2 (a spawned process): join the gloo group, make
+    the (2, 2) mesh, train ``MESH_GLOO_STEPS`` steps, save its shards,
+    losses, collective counts and launches."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from swiftsnails_tpu_torch.parallel import transfer
+    from swiftsnails_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    try:
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=size)
+        mesh = make_mesh(MESH_GLOO, device=MESH_GLOO_DEVICE)
+        loop, losses = _loss_loop(_mesh_gloo_trainer(seed, MESH_GLOO_DEVICE, mesh))
+        transfer.reset_comm()
+        state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=MESH_GLOO_STEPS))
+        out = {"coords": mesh.coords, "tables": [t.table.cpu() for t in state],
+               "losses": losses, "comm": dict(transfer.COMM), "launches": launches,
+               "backend": dist.get_backend(mesh.groups["model"])}
+        dist.destroy_process_group()
+    except Exception:
+        out = {"error": traceback.format_exc()}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _mesh_gloo_leg(seed: int, tmp: str) -> dict:
+    """Leg 2: four spawned processes, a (2, 2) gloo mesh, against the
+    one-device port on ``MESH_GLOO_DEVICE``."""
+    import multiprocessing as mp
+
+    size = MESH_GLOO["data"] * MESH_GLOO["model"]
+    ctx = mp.get_context("spawn")
+    t0 = time.monotonic()
+    procs = [ctx.Process(target=_mesh_gloo_rank,
+                         args=(r, size, f"file://{tmp}/gloo-rendezvous", tmp, seed))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, MESH_GLOO_TIMEOUT_S - (time.monotonic() - t0)))
+            if p.is_alive():
+                raise AssertionError(f"mesh gloo: a rank outlived {MESH_GLOO_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    spawn_s = time.monotonic() - t0
+    results = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(size)]
+    for r, res in enumerate(results):
+        if "error" in res:
+            raise AssertionError(f"mesh gloo rank {r}:\n{res['error']}")
+    loop, losses = _loss_loop(_mesh_gloo_trainer(seed, MESH_GLOO_DEVICE))
+    want = loop.run(seed=seed, max_steps=MESH_GLOO_STEPS)
+    by = {(r["coords"]["data"], r["coords"]["model"]): r for r in results}
+    errs = []
+    for k, ts in enumerate(want):
+        w = ts.table.cpu()
+        for i in range(MESH_GLOO["data"]):
+            got = torch.cat([by[(i, j)]["tables"][k] for j in range(MESH_GLOO["model"])])
+            errs.append(float((got - w).abs().max()))
+            if not torch.allclose(got, w, rtol=MESH_RTOL, atol=MESH_ATOL):
+                raise AssertionError(f"mesh gloo: table {k} of data replica {i} is "
+                                     f"{errs[-1]} from the one-device port's")
+    got_losses = by[(0, 0)]["losses"]
+    if not np.allclose(got_losses, losses, rtol=MESH_RTOL, atol=MESH_ATOL):
+        raise AssertionError(f"mesh gloo: losses {got_losses}, one device {losses}")
+    substeps = MESH_GLOO_STEPS
+    want_launches = ({"gather_rows": 2 * substeps, "scatter_add_rows": 2 * substeps}
+                     if MESH_GLOO_DEVICE == "cuda" else {})
+    for r, res in enumerate(results):
+        _check_launches(f"mesh gloo rank {r}", res["launches"], want_launches)
+    return {"device": MESH_GLOO_DEVICE, "backend": results[0]["backend"],
+            "mesh": MESH_GLOO, "ranks": size, "steps": MESH_GLOO_STEPS,
+            "reduced": {"vocab": [MESH_GLOO_VOCAB, VOCAB],
+                        "batch": [MESH_GLOO_BATCH, BATCH],
+                        "steps": [MESH_GLOO_STEPS, MESH_STEPS],
+                        "corpus_tokens": [MESH_GLOO_TOKENS, N_TOKENS]},
+            "max_abs_err": max(errs), "rtol": MESH_RTOL, "atol": MESH_ATOL,
+            "losses": got_losses, "one_device_losses": losses,
+            "comm_by_rank": [r["comm"] for r in results],
+            "launches_by_rank": [{k: r["launches"][k] for k in ("gather_rows",
+                                                                "scatter_add_rows")}
+                                 for r in results],
+            "seconds": time.monotonic() - t0, "spawn_s": spawn_s}
+
+
+def _mesh_nccl_leg(seed: int, corpora, tmp: str) -> dict:
+    """Leg 1: ``Word2VecTrainer(mesh=...)`` under ``TrainLoop`` on a (1, 1)
+    mesh of a one-rank NCCL group, at full width, against the unmeshed
+    run of the same steps: tables bit-equal, launches equal."""
+    import torch.distributed as dist
+
+    from swiftsnails_tpu_torch.parallel import transfer
+    from swiftsnails_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl-rendezvous",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh({"data": 1, "model": 1})
+        for phase in MESH_PHASES:
+            runs = {}
+            for name, m in (("one_device", None), ("mesh", mesh)):
+                trainer, loop, records = _train_loop(phase, seed, corpora, mesh=m)
+                transfer.reset_comm()
+                state, launches = _run_counted(lambda: loop.run(seed=seed,
+                                                                max_steps=MESH_STEPS))
+                runs[name] = {"state": state, "launches": launches,
+                              "comm": dict(transfer.COMM),
+                              "step_ms_median": statistics.median(
+                                  r["seconds"] * 1e3 for r in records[1:]),
+                              "losses": [r["loss"] for r in records]}
+                del trainer, loop
+            diff = max(float((a.table - b.table).abs().max())
+                       for a, b in zip(runs["mesh"]["state"], runs["one_device"]["state"]))
+            equal = all(torch.equal(a.table, b.table)
+                        for a, b in zip(runs["mesh"]["state"], runs["one_device"]["state"]))
+            table = list(runs["mesh"]["state"].in_table.table.shape)
+            finite = all(bool(torch.isfinite(t.table).all()) for t in runs["mesh"]["state"])
+            for r in runs.values():
+                del r["state"]
+            torch.cuda.empty_cache()
+            if not equal or not finite:
+                raise AssertionError(f"mesh {phase}: the (1, 1) mesh's tables are {diff} "
+                                     "from the unmeshed run's (bit-equal expected)")
+            if runs["mesh"]["launches"] != runs["one_device"]["launches"]:
+                raise AssertionError(f"mesh {phase}: launches {runs['mesh']['launches']}, "
+                                     f"unmeshed {runs['one_device']['launches']}")
+            if runs["mesh"]["comm"]["all_reduce_calls"] == 0:
+                raise AssertionError(f"mesh {phase}: no collective made")
+            out[phase] = {
+                "table": table, "steps": MESH_STEPS, "max_abs_diff": diff,
+                "bit_equal": equal, "backend": dist.get_backend(mesh.groups["model"]),
+                "nccl": runs["mesh"]["comm"],
+                "launches": {k: runs["mesh"]["launches"][k]
+                             for k in ("gather_rows", "scatter_add_rows")},
+                "one_device_launches": {k: runs["one_device"]["launches"][k]
+                                        for k in ("gather_rows", "scatter_add_rows")},
+                "step_ms_median": runs["mesh"]["step_ms_median"],
+                "one_device_step_ms_median": runs["one_device"]["step_ms_median"],
+                "losses": runs["mesh"]["losses"]}
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_mesh(seed: int, corpora, env: dict) -> dict:
+    """Phase 21: word2vec under a ``(data, model)`` mesh (module docstring)."""
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="ssn-mesh-")
+    try:
+        nccl = _mesh_nccl_leg(seed, corpora, tmp)
+        gloo = _mesh_gloo_leg(seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.monotonic() - t_phase
+    emit("mesh", nccl=nccl, gloo=gloo, seconds=seconds, device=env["device"],
+         nvidia_smi=env["nvidia_smi"])
+    return {"launches": nccl["train"]["launches"], "seconds": seconds}
+
+
+def _mesh_kernel_entries(summary: dict, mesh: dict) -> list:
+    """The ``kernels`` line's ``path: "mesh"`` entries: the (1, 1) mesh's
+    shard is the whole packed+pool table and its step the main path's, so
+    phase 3's numbers at that shape, with the meshed run's launches."""
+    out = []
+    for key, replaces in (("gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+                          ("scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213")):
+        s = summary[key]
+        out.append({
+            "name": key, "route": "cuda", "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": replaces, "launches": mesh["launches"][key],
+            "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": s["library_ms"],
+            "shape": s["shape"], "dtype": "float32", "path": "mesh"})
+    return out
+
+
+def _only_mesh(seed: int, env: dict, t_start: float) -> int:
+    """``--only mesh``: the kernels' phase 3 (the mesh entries' numbers)
+    and the mesh phase."""
+    summary = phase_kernels(seed, env["mem_rate_Bps"])
+    mesh = phase_mesh(seed, {False: _corpus(seed)}, env)
+    emit("kernels", kernels=_mesh_kernel_entries(summary, mesh))
+    emit("total", seconds=time.monotonic() - t_start)
+    return 0
+
+
 def _only_seqlm(seed: int, env: dict, t_start: float) -> int:
     """``--only seqlm``: the sequence model's phase."""
     phase_seqlm(seed, env)
@@ -4759,7 +5019,7 @@ def _only_tiered(seed: int, env: dict, t_start: float) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("tiered", "freshness", "cluster", "seqlm"),
+    ap.add_argument("--only", choices=("tiered", "freshness", "cluster", "seqlm", "mesh"),
                     help="run only this phase (with the build and the inputs it "
                          "needs) and print no result line: a quicker check while "
                          "working on it")
@@ -4781,6 +5041,8 @@ def main() -> int:
         return _only_cluster(args.seed, env, t_start)
     if args.only == "seqlm":
         return _only_seqlm(args.seed, env, t_start)
+    if args.only == "mesh":
+        return _only_mesh(args.seed, env, t_start)
     summary = phase_kernels(args.seed, env["mem_rate_Bps"])
     summary.update(phase_fused_kernels(args.seed, env))
     for path in PATHS:
@@ -4857,6 +5119,7 @@ def main() -> int:
          nvidia_smi=env["nvidia_smi"])
     cluster = phase_cluster(args.seed, corpora, env)
     phase_seqlm(args.seed, env)
+    mesh = phase_mesh(args.seed, corpora, env)
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
@@ -4940,6 +5203,7 @@ def main() -> int:
     kernels.extend(_tiered_kernel_entries(summary, tiered))
     kernels.extend(_freshness_kernel_entries(summary, fresh))
     kernels.extend(_cluster_kernel_entries(summary, cluster))
+    kernels.extend(_mesh_kernel_entries(summary, mesh))
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),
                            ("chunk_probe", "tools/sem_probe.py:164"),
                            ("pipe_probe", "tools/sem_probe.py:233")):

@@ -3,8 +3,12 @@
 Reference contract (survey §2.7): per-app ``master``/``server``/``worker``
 binaries taking ``-config <file>`` (``src/tools/run_master.sh``) and workers
 additionally ``-data <file>`` (``run_worker.sh``). Here the three roles are
-one ``train`` role on one card: the parameter tables live on the card that
-computes.
+one ``train`` role: the parameter tables live on the cards that compute.
+With ``expected_node_num: N`` > 1 (and ``master_addr``), ``train`` joins an
+N-process ``torch.distributed`` cluster first (``parallel/cluster.py``; the
+rank from ``RANK`` as torchrun sets it), trains word2vec under a ``(data,
+model)`` mesh of the N ranks, and meets the others at the end-of-training
+barrier; ``local_train: 1`` trains each process alone.
 
 Usage::
 
@@ -78,17 +82,39 @@ from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
 
 def _build_trainer(cfg: Config):
     """The ``model`` key's trainer on the ``device`` key's device (default:
-    the card). One card: no mesh."""
-    from swiftsnails_tpu_torch.models.registry import get_model
+    the card). ``local_train: 1`` or a world of one process: no mesh.
+    Otherwise the JAX CLI's mesh: ``model_axis`` ranks on ``model`` (default:
+    the first of 4, 2, 1 that divides the world and is smaller than it), the
+    rest on ``data``."""
+    import inspect
 
-    trainer_cls = get_model(cfg.get_str("model", "word2vec"))
-    return trainer_cls(cfg, device=cfg.get_str("device", "") or None)
+    from swiftsnails_tpu_torch.framework.trainer import _unported_mesh
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.parallel.cluster import process_info
+    from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+
+    name = cfg.get_str("model", "word2vec")
+    trainer_cls = get_model(name)
+    device = cfg.get_str("device", "") or None
+    _, n = process_info()
+    if cfg.get_bool("local_train", False) or n == 1:
+        return trainer_cls(cfg, device=device)
+    if "mesh" not in inspect.signature(trainer_cls).parameters:
+        _unported_mesh(f"model: {name}")
+    model_axis = cfg.get_int("model_axis", 0)
+    if model_axis <= 0:
+        model_axis = next((c for c in (4, 2, 1) if n % c == 0 and n > c), 1)
+    mesh = make_mesh({DATA_AXIS: n // model_axis, MODEL_AXIS: model_axis}, device=device)
+    return trainer_cls(cfg, mesh=mesh, device=device)
 
 
 def cmd_train(argv: List[str]) -> int:
     from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.parallel.cluster import (
+        barrier, initialize_cluster, process_info)
 
     cfg = parse_role_argv(argv)
+    joined = initialize_cluster(cfg)
     trainer = _build_trainer(cfg)
     metrics = MetricsLogger(path=cfg.get_str("metrics_path", "") or None, echo=True)
     loop = TrainLoop(trainer, metrics=metrics, log_every=cfg.get_int("log_every", 100))
@@ -99,10 +125,16 @@ def cmd_train(argv: List[str]) -> int:
             "restart with `resume: auto` to continue this run",
             file=sys.stderr,
         )
+    barrier("end_of_training")  # MasterTerminate parity
     out = cfg.get_str("output", "")
     if out:
-        trainer.export_text(state, out)
-        print(f"exported parameters to {out}", file=sys.stderr)
+        trainer.export_text(state, out)  # under a mesh, rank 0 writes
+        if trainer.mesh is None or process_info()[0] == 0:
+            print(f"exported parameters to {out}", file=sys.stderr)
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

@@ -76,11 +76,34 @@ def _table_from_numpy(table: np.ndarray, slots, device, dtype):
     return packed_table_from_numpy(table, device=device, dtype=dtype)
 
 
+def model_shard(arr: np.ndarray, mesh) -> np.ndarray:
+    """This rank's rows of a table given whole: ``[m * per, (m + 1) * per)``
+    for model shard ``m`` (the JAX ``P(model, None)`` layout), so a meshed
+    JAX state read back with ``np.asarray`` starts every rank of the port's
+    mesh from its own shard."""
+    from swiftsnails_tpu_torch.parallel.mesh import table_sharding
+
+    start, end = table_sharding(mesh, arr.shape[0])
+    return arr[start:end]
+
+
+def table_shard_from_numpy(table: np.ndarray, mesh,
+                           slots: Optional[Mapping[str, np.ndarray]] = None, *,
+                           device: DeviceLike,
+                           dtype: Optional[torch.dtype] = None):
+    """A whole table (packed, slot-free, or 2-D with its slots) -> this
+    rank's shard of it under ``mesh``, as a table state."""
+    shard = {k: model_shard(np.asarray(v), mesh) for k, v in (slots or {}).items()}
+    return _table_from_numpy(model_shard(table, mesh), shard, device, dtype)
+
+
 def w2v_state_from_numpy(in_table: np.ndarray, out_table: np.ndarray, *,
                          device: DeviceLike,
-                         dtype: Optional[torch.dtype] = None) -> W2VState:
+                         dtype: Optional[torch.dtype] = None,
+                         mesh=None) -> W2VState:
     """The port's word2vec state holding copies of the two given tables:
-    packed ``[C, S, 128]`` ones, or with ``packed: 0`` 2-D ``[C, dim]`` ones.
+    packed ``[C, S, 128]`` ones, or with ``packed: 0`` 2-D ``[C, dim]`` ones;
+    with ``mesh``, this rank's shard of each (:func:`model_shard`).
 
     ``dtype=None`` keeps the arrays' dtype (float32, or bfloat16 from
     ``ml_dtypes``).
@@ -88,6 +111,8 @@ def w2v_state_from_numpy(in_table: np.ndarray, out_table: np.ndarray, *,
     if in_table.shape != out_table.shape:
         raise ValueError(f"table shapes differ: {in_table.shape} vs "
                          f"{out_table.shape}")
+    if mesh is not None:
+        in_table, out_table = model_shard(in_table, mesh), model_shard(out_table, mesh)
     return W2VState(
         in_table=_table_from_numpy(in_table, None, device, dtype),
         out_table=_table_from_numpy(out_table, None, device, dtype),

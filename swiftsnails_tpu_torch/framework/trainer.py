@@ -39,6 +39,12 @@ the loop never waits for the card inside a step.
 
 Every loop key of the JAX package is ported; the table-plane keys that
 are not raise ``NotImplementedError`` (:data:`UNPORTED_PLANE_KEYS`).
+
+Under a mesh (a trainer whose :attr:`Trainer.mesh` is set) every rank makes
+the same global batch and feeds its part (:meth:`Trainer.local_batch`, the
+JAX loop's data-sharded ``_device_batch``); checkpoints and resume, the
+guardrail, the tier, freshness and cluster membership raise
+``NotImplementedError`` there (``ROADMAP.md`` Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import torch
 
 from swiftsnails_tpu_torch.framework.checkpoint import save_checkpoint, wait_for_checkpoints
 from swiftsnails_tpu_torch.ops.hashing import murmur_fmix64_int
+from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS
 from swiftsnails_tpu_torch.resilience.chaos import ChaosPlan
 from swiftsnails_tpu_torch.resilience.guardrail import GuardrailExhausted, StepGuardrail
 from swiftsnails_tpu_torch.resilience.resume import resume_mode, resume_state
@@ -94,6 +101,8 @@ class Trainer:
 
     name: str = "trainer"
     producer: Optional[str] = None
+    # a parallel.mesh.Mesh the trainer trains under, or None: one device
+    mesh = None
 
     def __init__(self, config: Config, device: DeviceLike = None):
         self.config = config
@@ -117,6 +126,34 @@ class Trainer:
     def items_per_batch(self, batch: Dict[str, np.ndarray]) -> int:
         first = next(iter(batch.values()))
         return int(first.shape[0])
+
+    def substeps_of(self, batch: Dict[str, np.ndarray]) -> int:
+        """Substeps a ``train_step`` call makes of ``batch`` (1 unless the
+        trainer slices a call into several)."""
+        return 1
+
+    def local_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This rank's part of a host batch under :attr:`mesh` (the JAX
+        loop's ``_device_batch``): every rank makes the same global batch,
+        and an array whose leading dimension splits over the ``data`` axis
+        keeps this rank's contiguous slice of each of the
+        :meth:`substeps_of` substeps, in order (as the JAX step's reshape
+        of a data-sharded batch gives each substep's shard); scalars and
+        arrays that do not split stay whole. The batch itself without a
+        data axis."""
+        data = self.mesh.axis_size(DATA_AXIS) if self.mesh is not None else 1
+        if data == 1:
+            return batch
+        t = self.substeps_of(batch)
+        i = self.mesh.axis_index(DATA_AXIS)
+
+        def part(v):
+            if not np.ndim(v) or np.shape(v)[0] % (t * data):
+                return v
+            v = np.asarray(v)
+            return v.reshape(t, data, -1, *v.shape[1:])[:, i].reshape(-1, *v.shape[1:])
+
+        return {k: part(v) for k, v in batch.items()}
 
     # -- optional hooks ----------------------------------------------------
 
@@ -180,7 +217,12 @@ class Trainer:
 def _unported(key: str, value) -> None:
     raise NotImplementedError(
         f"config key {key}: {value} selects a path the PyTorch port does not "
-        "have yet; see ROADMAP.md for when it is ported")
+        "have yet; see ROADMAP.md Queue 1 item 6 for when it is ported")
+
+
+def _unported_mesh(what: str) -> None:
+    raise NotImplementedError(
+        f"{what} under a mesh is not ported yet: see ROADMAP.md Queue 1 item 6")
 
 
 class _Prefetcher:
@@ -335,6 +377,17 @@ class TrainLoop:
         cfg = trainer.config
         if device is not None and resolve_device(device).type != trainer.device.type:
             raise ValueError(f"TrainLoop on {device}, trainer on {trainer.device}")
+        if trainer.mesh is not None:
+            for what, asked in (
+                    ("param_backup_root (checkpoints)", bool(cfg.get_str("param_backup_root", ""))),
+                    ("resume", resume_mode(cfg) != "off"),
+                    ("guardrail: 1", cfg.get_bool("guardrail", False)),
+                    ("table_tier: host", cfg.get_str("table_tier", "device") == "host"),
+                    ("freshness_publish", cfg.get_int("freshness_publish", 0) > 0),
+                    ("cluster_workers", cluster is not None
+                     or cfg.get_int("cluster_workers", 0) > 0)):
+                if asked:
+                    _unported_mesh(what)
         self.trainer = trainer
         self.metrics = metrics or MetricsLogger(echo=False)
         self.log_every = log_every
@@ -476,7 +529,9 @@ class TrainLoop:
 
     def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """Arrays go to the device; scalars (e.g. ``progress``) stay on the
-        host, where the learning-rate schedule reads them."""
+        host, where the learning-rate schedule reads them. Under a mesh
+        this rank's part goes (:meth:`Trainer.local_batch`)."""
+        batch = self.trainer.local_batch(batch)
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 if np.ndim(v) else v for k, v in batch.items()}
 

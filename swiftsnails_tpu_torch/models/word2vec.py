@@ -4,7 +4,8 @@ The flagship trainer of the parameter server: workers pull embedding rows
 for the words of their batch, compute SGNS gradients with respect to the
 pulled rows, and push them back to the tables (SURVEY §3.3).
 
-The port runs the single-device paths of the JAX trainer. ``packed: 0``
+The port runs the JAX trainer's single-device paths and its flat paths
+under a ``(data, model)`` mesh (below). ``packed: 0``
 (``dense``, the reference-faithful rung) keeps two ``[capacity, dim]``
 tables on the 2-D plane (:class:`~swiftsnails_tpu_torch.parallel.store.TableState`)
 and trains with ``negatives`` independent draws a pair: pull by
@@ -39,6 +40,22 @@ both together (``fused-dedup-res``, ``examples/word2vec_fast.conf``) compose
 the two; a substep's kernel blocks then run in order. As in the JAX
 package, ``fused`` takes effect only with packed tables and pooled
 negatives.
+
+Under ``mesh=`` (a :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh`,
+one rank a device) each rank holds one model shard of both tables and
+trains on its data shard of the batch (``b / D`` pairs of a substep of
+``b``), through the collectives of :mod:`swiftsnails_tpu_torch.parallel.transfer`,
+as the JAX trainer routes them (its ``_ppull`` / ``_ppush``, ``_dpull`` /
+``_dpush``): ``packed: 0`` through the 2-D pull and push, ``packed+pool``
+and ``neg_mode: per_pair`` through the packed ones, and ``fused: 1,
+grouped: 0`` through the packed+pool substep (the JAX trainer's choice: the
+flat fused kernel has no collective plane). Each rank draws the step's
+whole set of negatives from the step's generator and takes its own part, so
+a pool block must not straddle two data shards. The loss is summed locally
+over the global batch size, so a pair's gradient is the one-device one;
+the reported loss is its sum over ``data``, one all-reduce a call.
+``export_text`` gathers the table and writes from rank 0. The grouped mesh
+family and the tier raise under a mesh.
 
 Batches come from the native producer (:mod:`swiftsnails_tpu_torch.data.native`)
 with ``use_native: 1``, the default, as in the JAX package: the same seed
@@ -84,7 +101,7 @@ from swiftsnails_tpu_torch.data.vocab import Vocab
 from swiftsnails_tpu_torch.framework.trainer import (
     UNPORTED_PLANE_KEYS,
     Trainer,
-    _unported,
+    _unported_mesh,
     raise_unported,
     step_generator,
 )
@@ -99,7 +116,9 @@ from swiftsnails_tpu_torch.ops.fused_sgns import (
 )
 from swiftsnails_tpu_torch.ops.hashing import hash_row, hash_row_np
 from swiftsnails_tpu_torch.ops.rowdma import unpack_rows
+from swiftsnails_tpu_torch.parallel import transfer
 from swiftsnails_tpu_torch.parallel.access import SgdAccess
+from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, rows_per_shard
 from swiftsnails_tpu_torch.parallel.store import (
     PackedTableState,
     TableState,
@@ -111,7 +130,7 @@ from swiftsnails_tpu_torch.parallel.store import (
     push_packed,
 )
 from swiftsnails_tpu_torch.utils.config import Config
-from swiftsnails_tpu_torch.utils.device import DeviceLike
+from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -139,31 +158,38 @@ UNPORTED = {
 }
 
 
-def sgns_loss(v: torch.Tensor, u_pos: torch.Tensor, u_neg: torch.Tensor) -> torch.Tensor:
+def sgns_loss(v: torch.Tensor, u_pos: torch.Tensor, u_neg: torch.Tensor,
+              total: Optional[int] = None) -> torch.Tensor:
     """Skip-gram negative-sampling loss in float32: ``v``, ``u_pos``
     ``[B, D]`` center and context rows, ``u_neg`` ``[B, K, D]`` negatives.
-    Returns the mean over pairs of ``-log σ(v·u_pos) - Σ_k log σ(-v·u_neg_k)``."""
+    Returns the mean over pairs of ``-log σ(v·u_pos) - Σ_k log σ(-v·u_neg_k)``;
+    with ``total``, the sum over these pairs divided by ``total`` (a data
+    shard's part of the mean over a batch of ``total`` pairs)."""
     pos = torch.einsum("bd,bd->b", v, u_pos)
     neg = torch.bmm(u_neg, v.unsqueeze(-1)).squeeze(-1)  # [B, K]
-    return -(F.logsigmoid(pos) + F.logsigmoid(-neg).sum(dim=-1)).mean()
+    terms = F.logsigmoid(pos) + F.logsigmoid(-neg).sum(dim=-1)
+    return -(terms.mean() if total is None else terms.sum() / total)
 
 
 def sgns_pool_loss(v: torch.Tensor, u_pos: torch.Tensor, pool: torch.Tensor,
-                   lam: float) -> torch.Tensor:
+                   lam: float, total: Optional[int] = None) -> torch.Tensor:
     """Pooled SGNS loss over packed rows, in float32.
 
     ``v``, ``u_pos``: ``[B, S, 128]`` center and context rows; ``pool``:
     ``[NB, PN, S, 128]`` negatives shared by each block of ``B / NB``
     consecutive pairs. Returns the mean over pairs of
-    ``-log σ(v·u_pos) - lam · Σ_q log σ(-v·pool_q)``.
+    ``-log σ(v·u_pos) - lam · Σ_q log σ(-v·pool_q)``; with ``total``, each
+    term's sum divided by ``total`` instead, as :func:`sgns_loss`.
     """
     nb, pn = pool.shape[:2]
     b = v.shape[0]
-    pos = torch.einsum("bsl,bsl->b", v, u_pos)
+    pos = F.logsigmoid(torch.einsum("bsl,bsl->b", v, u_pos))
     vb = v.reshape(nb, b // nb, -1)
     neg = torch.bmm(vb, pool.reshape(nb, pn, -1).transpose(1, 2))  # [NB, PB, PN]
-    return -(F.logsigmoid(pos).mean()
-             + lam * F.logsigmoid(-neg).sum(dim=-1).mean())
+    negs = F.logsigmoid(-neg)
+    if total is None:
+        return -(pos.mean() + lam * negs.sum(dim=-1).mean())
+    return -(pos.sum() / total + lam * (negs.sum() / total))
 
 
 @register_model("word2vec")
@@ -178,13 +204,19 @@ class Word2VecTrainer(Trainer):
         vocab: Optional[Vocab] = None,
         device: DeviceLike = None,
     ):
-        """``device=None`` means the card; ``device="cpu"`` runs the kernels'
-        plain versions. ``mesh`` exists for the JAX call's shape and must be
-        ``None``: the port runs on one device."""
-        super().__init__(config, device)
-        cfg = config
+        """``device=None`` means the card, or with ``mesh`` the mesh's
+        device; ``device="cpu"`` runs the kernels' plain versions. ``mesh``:
+        a :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh` to train under
+        (module docstring), or ``None`` for one device."""
         if mesh is not None:
-            _unported("mesh", mesh)
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh)}")
+            if device is not None and resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"trainer on {device}, mesh on {mesh.device}")
+            device = mesh.device
+        super().__init__(config, device)
+        self.mesh = mesh
+        cfg = config
         raise_unported(cfg, UNPORTED)
         self.dim = cfg.get_int("dim", 100)
         self.window = cfg.get_int("window", 5)
@@ -228,6 +260,9 @@ class Word2VecTrainer(Trainer):
                 raise ValueError(f"{key}: 1 requires grouped: 1")
         self.resident = cfg.get_bool("resident", False) and self.grouped
         self.dedup = cfg.get_bool("dedup", False) and self.grouped
+        if mesh is not None and self.grouped:
+            _unported_mesh("grouped: 1 (the grouped mesh family: fused-grouped, "
+                           "resident, dedup, dedup-res)")
         self.hot_rows = cfg.get_int("hot_rows", 1024)
         self.u_cap = cfg.get_int("u_cap", 512)
         # centers per kernel block; the per-substep center count is batch_size
@@ -240,6 +275,8 @@ class Word2VecTrainer(Trainer):
         # the host side of the step (tier_plan makes the step's own draws),
         # so the fault path knows every row before the step.
         self.tiered = cfg.get_str("table_tier", "device") == "host"
+        if mesh is not None and self.tiered:
+            _unported_mesh("table_tier: host")
         if self.tiered and self.fused:
             raise ValueError(
                 "table_tier: host does not compose with fused/grouped "
@@ -281,6 +318,11 @@ class Word2VecTrainer(Trainer):
         self.vocab = vocab
         cap = cfg.get_int("capacity", 0) or _next_pow2(max(len(vocab), 2))
         self.capacity = cap
+        if mesh is not None:
+            rows_per_shard(cap, mesh)  # the model axis must divide the tables
+            if self.batch_size % self._data():
+                raise ValueError(f"batch_size {self.batch_size} does not split over "
+                                 f"data axis {self._data()}")
         if not self.hash_keys and len(vocab) > cap:
             raise ValueError(
                 f"vocab {len(vocab)} exceeds capacity {cap}; set hash_keys: 1")
@@ -309,17 +351,62 @@ class Word2VecTrainer(Trainer):
         make = create_packed_table if self.packed else create_table
         in_table = make(
             self.capacity, self.dim, self.access, dtype=self.table_dtype,
-            seed=self.seed, device=self.device)
+            seed=self.seed, device=self.device, mesh=self.mesh)
         # reference word2vec inits syn1neg to zeros; init_scale=0 keeps that
         out_table = make(
             self.capacity, self.dim, self.access, dtype=self.table_dtype,
-            seed=self.seed + 1, init_scale=0.0, device=self.device)
+            seed=self.seed + 1, init_scale=0.0, device=self.device, mesh=self.mesh)
         return W2VState(in_table=in_table, out_table=out_table)
 
     def _rows(self, keys: torch.Tensor) -> torch.Tensor:
         if self.hash_keys:
             return hash_row(keys, self.capacity)
         return keys
+
+    # -- the planes: one device, or the mesh's collectives over the same
+    # shard-local pulls and pushes (the JAX trainer's _ppull / _ppush and
+    # _dpull / _dpush)
+
+    def _ppull(self, table_state, rows):
+        if self.mesh is None:
+            return pull_packed(table_state, rows)
+        return transfer.pull_collective_packed(self.mesh, table_state, rows)
+
+    def _ppush(self, table_state, rows, grads, lr):
+        if self.mesh is None:
+            return push_packed(table_state, rows, grads, self.access, lr)
+        return transfer.push_collective_packed(self.mesh, table_state, rows, grads,
+                                               self.access, lr)
+
+    def _dpull(self, table_state, rows):
+        if self.mesh is None:
+            return pull(table_state, rows)
+        return transfer.pull_collective(self.mesh, table_state, rows)
+
+    def _dpush(self, table_state, rows, grads, lr):
+        if self.mesh is None:
+            return push(table_state, rows, grads, self.access, lr)
+        return transfer.push_collective(self.mesh, table_state, rows, grads,
+                                        self.access, lr)
+
+    def _data(self) -> int:
+        """Data shards: the mesh's data axis, 1 on one device."""
+        return 1 if self.mesh is None else self.mesh.axis_size(DATA_AXIS)
+
+    def _data_part(self, draws: torch.Tensor) -> torch.Tensor:
+        """This data shard's rows of a substep-wide draw (all of it on one
+        device)."""
+        d = self._data()
+        if d == 1:
+            return draws
+        per = draws.shape[0] // d
+        i = self.mesh.axis_index(DATA_AXIS)
+        return draws[i * per:(i + 1) * per]
+
+    def _loss_kw(self, b: int) -> Dict[str, int]:
+        """Under a mesh, the global pair count a data shard of ``b`` pairs
+        sums its loss over (``total``); on one device none, the mean."""
+        return {} if self.mesh is None else {"total": b * self._data()}
 
     def _step_rows(self, keys: torch.Tensor, planned: bool) -> torch.Tensor:
         """In-substep id resolution: on the host tier a planned batch (one
@@ -456,15 +543,15 @@ class Word2VecTrainer(Trainer):
         returns ``(state, loss)``."""
         b, k = centers.shape[0], self.negatives
         planned = self.tiered and negs is not None
-        negs = self._negs(generator, b, negs)
+        negs = self._data_part(self._negs(generator, b * self._data(), negs))
         in_rows = self._step_rows(centers, planned)
         out_rows = self._step_rows(torch.cat([contexts, negs.reshape(-1)]), planned)
-        v = pull(state.in_table, in_rows).float().requires_grad_()
-        u = pull(state.out_table, out_rows).float().requires_grad_()
-        loss = sgns_loss(v, u[:b], u[b:].reshape(b, k, -1))
+        v = self._dpull(state.in_table, in_rows).float().requires_grad_()
+        u = self._dpull(state.out_table, out_rows).float().requires_grad_()
+        loss = sgns_loss(v, u[:b], u[b:].reshape(b, k, -1), **self._loss_kw(b))
         dv, du = torch.autograd.grad(loss, (v, u))
-        push(state.in_table, in_rows, dv, self.access, lr)
-        push(state.out_table, out_rows, du, self.access, lr)
+        self._dpush(state.in_table, in_rows, dv, lr)
+        self._dpush(state.out_table, out_rows, du, lr)
         return state, loss.detach()
 
     def _substep_packed_perpair(self, state: W2VState, centers: torch.Tensor,
@@ -476,16 +563,17 @@ class Word2VecTrainer(Trainer):
         rows; ``negs`` as in :meth:`_substep_dense`."""
         b, k = centers.shape[0], self.negatives
         planned = self.tiered and negs is not None
-        negs = self._negs(generator, b, negs)
+        negs = self._data_part(self._negs(generator, b * self._data(), negs))
         in_rows = self._step_rows(centers, planned)
         out_rows = self._step_rows(torch.cat([contexts, negs.reshape(-1)]), planned)
-        v = pull_packed(state.in_table, in_rows).float().requires_grad_()
-        u = pull_packed(state.out_table, out_rows).float().requires_grad_()
+        v = self._ppull(state.in_table, in_rows).float().requires_grad_()
+        u = self._ppull(state.out_table, out_rows).float().requires_grad_()
         flat = v.reshape(b, -1)
-        loss = sgns_loss(flat, u[:b].reshape(b, -1), u[b:].reshape(b, k, -1))
+        loss = sgns_loss(flat, u[:b].reshape(b, -1), u[b:].reshape(b, k, -1),
+                         **self._loss_kw(b))
         dv, du = torch.autograd.grad(loss, (v, u))
-        push_packed(state.in_table, in_rows, dv, self.access, lr)
-        push_packed(state.out_table, out_rows, du, self.access, lr)
+        self._ppush(state.in_table, in_rows, dv, lr)
+        self._ppush(state.out_table, out_rows, du, lr)
         return state, loss.detach()
 
     def _substep_packed(self, state: W2VState, centers: torch.Tensor,
@@ -498,25 +586,32 @@ class Word2VecTrainer(Trainer):
         Updates both tables in place and returns ``(state, loss)``. The loss
         and its gradient are computed in float32 from the pulled rows
         whatever the table dtype; the pushed deltas are rounded once to it.
+        Under a mesh ``centers`` and ``contexts`` are this data shard's and
+        ``negs`` the substep's whole pool set.
         """
         b = centers.shape[0]
-        _, nb = self.pool_geometry(b)
+        pb, nb = self.pool_geometry(b * self._data())
+        if b % pb:
+            raise ValueError(f"a data shard of {b} pairs splits a pool block of {pb} "
+                             f"(batch_size {self.batch_size} over {self._data()} data "
+                             "shards): make batch_size / data a multiple of pool_block")
+        nb = b // pb
         pn = self.pool_size
         lam = self.negatives / pn
         planned = self.tiered and negs is not None
-        pools = self._pools(generator, nb, negs)
+        pools = self._data_part(self._pools(generator, nb * self._data(), negs))
         in_rows = self._step_rows(centers, planned)
         out_rows = self._step_rows(torch.cat([contexts, pools.reshape(-1)]), planned)
 
-        v = pull_packed(state.in_table, in_rows).float().requires_grad_()
-        u = pull_packed(state.out_table, out_rows).float()
+        v = self._ppull(state.in_table, in_rows).float().requires_grad_()
+        u = self._ppull(state.out_table, out_rows).float()
         u_pos = u[:b].requires_grad_()
         pool = u[b:].reshape(nb, pn, *u.shape[1:]).requires_grad_()
-        loss = sgns_pool_loss(v, u_pos, pool, lam)
+        loss = sgns_pool_loss(v, u_pos, pool, lam, **self._loss_kw(b))
         dv, du_pos, dpool = torch.autograd.grad(loss, (v, u_pos, pool))
         du = torch.cat([du_pos, dpool.reshape(-1, *dpool.shape[2:])])
-        push_packed(state.in_table, in_rows, dv, self.access, lr)
-        push_packed(state.out_table, out_rows, du, self.access, lr)
+        self._ppush(state.in_table, in_rows, dv, lr)
+        self._ppush(state.out_table, out_rows, du, lr)
         return state, loss.detach()
 
     def _substep_fused(self, state: W2VState, centers: torch.Tensor,
@@ -596,19 +691,27 @@ class Word2VecTrainer(Trainer):
         as a Python loop, each drawing its pool from ``generator``. Returns
         ``(state, {"loss": mean substep loss})``, the loss as a device
         tensor (no host sync). Raises ``ValueError`` for a batch of more than
-        one substep whose length is not a multiple of the substeps.
+        one substep whose length is not a multiple of the substeps. Under a
+        mesh the batch is this data shard's (:meth:`local_batch`: its part
+        of each substep, in order) and the loss is summed over ``data``.
         """
         centers, contexts = batch["centers"], batch["contexts"]
-        n = centers.shape[0]
+        d = self._data()
+        n = centers.shape[0] * d
         t = max(n // self.batch_size, 1)
         b = n // t
-        if t > 1 and t * b != n:
+        if (t > 1 and t * b != n) or b % d:
             # the JAX package's reshape to (t, b) refuses such a batch too
             raise ValueError(f"a batch of {n} items does not split into {t} substeps "
-                             f"of {b} (batch_size {self.batch_size})")
+                             f"of {b} over {d} data shards (batch_size {self.batch_size})")
+        b //= d
         lr = self.step_lr(batch)
         if self.grouped:
             substep = self._substep_grouped
+        elif self.fused and self.mesh is not None:
+            # flat fused has no collective plane; under a mesh the pooled
+            # packed substep is its equivalent (the JAX trainer's route)
+            substep = self._substep_packed
         elif self.fused:
             substep = self._substep_fused
         elif self.packed:
@@ -627,7 +730,13 @@ class Word2VecTrainer(Trainer):
             state, loss = substep(state, centers[sl], contexts[sl], generator, lr,
                                   **planned)
             losses.append(loss)
-        return state, {"loss": torch.stack(losses).mean()}
+        loss = torch.stack(losses).mean()
+        if self.mesh is not None:  # each shard's part of the global mean
+            loss = transfer.all_reduce(self.mesh, loss.reshape(1), DATA_AXIS)[0]
+        return state, {"loss": loss}
+
+    def substeps_of(self, batch: Dict) -> int:
+        return max(batch["centers"].shape[0] // self.batch_size, 1)
 
     def step_cost(self, batch: Dict[str, np.ndarray]) -> Dict:
         """One step's least bytes and f32 flops on ``batch`` (the goodput
@@ -645,7 +754,11 @@ class Word2VecTrainer(Trainer):
           ``U`` rows that meet the pool (a flat substep's pairs, a grouped
           one's centers), and the positive term, its two gradients and the
           updates ``8 d`` a real pair; with per-pair negatives (``dense``,
-          ``neg_mode: per_pair``) ``6 b K d + 8 b d``.
+          ``neg_mode: per_pair``) ``6 b K d + 8 b d``;
+        * ``total_bytes``, under a mesh: the result bytes of this rank's
+          collectives in the step (:data:`~swiftsnails_tpu_torch.parallel.transfer.COMM`
+          counts the same): a substep's two pulls and two pushes over its
+          data shard's ids, and the loss's all-reduce; ``None`` on one device.
         """
         centers = np.asarray(batch["centers"])
         contexts = np.asarray(batch["contexts"])
@@ -677,14 +790,39 @@ class Word2VecTrainer(Trainer):
                 flops += 6 * units * self.pool_size * d + 8 * pairs * d
         nbytes = 2 * distinct * row_bytes + centers.nbytes + contexts.nbytes
         return {"cost": {"flops": float(flops), "bytes_accessed": float(nbytes)},
-                "total_bytes": None, "source": "analytic"}
+                "total_bytes": self._collective_bytes(t, b), "source": "analytic"}
+
+    def _collective_bytes(self, t: int, b: int) -> Optional[int]:
+        """Result bytes of a step's collectives on this rank (see
+        :meth:`step_cost`): ``t`` substeps of ``b`` pairs."""
+        if self.mesh is None:
+            return None
+        d = self._data()
+        bl = b // d
+        if self.packed:
+            row = -(-self.dim // 128) * 128
+        else:
+            row = self.dim
+        elem = torch.empty((), dtype=self.table_dtype).element_size()
+        if self.packed and self.neg_mode == "pool":
+            out = bl + (bl // self.pool_geometry(b)[0]) * self.pool_size
+        else:
+            out = bl * (1 + self.negatives)
+        per = sum(transfer.pull_bytes(n, row, elem) + transfer.push_bytes(n, row, d)
+                  for n in (bl, out))
+        return t * per + 4  # the loss's all-reduce
 
     # -- export (ServerTerminate parity: text dump of the table) -----------
 
     def _all_vocab_rows(self, state: W2VState) -> np.ndarray:
+        """The vocabulary's input rows; under a mesh every rank gathers the
+        table from its model shards (a collective: every rank calls it)."""
+        table = state.in_table.table
+        if self.mesh is not None:
+            table = transfer.gather_table(self.mesh, table)
         ids = self._rows(torch.arange(len(self.vocab), dtype=torch.int32,
-                                      device=state.in_table.table.device))
-        vals = state.in_table.table.index_select(0, ids)
+                                      device=table.device))
+        vals = table.index_select(0, ids)
         if self.packed:
             vals = unpack_rows(vals, self.dim)
         return vals.float().cpu().numpy()
@@ -788,7 +926,12 @@ class Word2VecTrainer(Trainer):
         return {"in_table": dict(geo), "out_table": dict(geo)}
 
     def export_text(self, state: W2VState, path: str) -> None:
-        rows = self._all_vocab_rows(state).astype(np.float64).tolist()
+        """The text vectors (``ServerTerminate``); under a mesh every rank
+        gathers the rows and rank 0 alone writes the file."""
+        rows = self._all_vocab_rows(state)
+        if self.mesh is not None and torch.distributed.get_rank() != 0:
+            return
+        rows = rows.astype(np.float64).tolist()
         fmt = " ".join(["%.6f"] * self.dim)  # one format a row: f"{x:.6f}" each
         with open(path, "w", encoding="utf-8") as f:
             f.write(f"{len(self.vocab)} {self.dim}\n")

@@ -36,8 +36,14 @@ Tables are updated in place where the JAX package donated the buffer.
 Trainers differentiate with respect to the *pulled rows* and push explicitly,
 so every per-step tensor is batch-sized, as in the reference's wire protocol.
 
-Not ported yet (``ROADMAP.md``): meshes. The tiered store's cache plane
-(:mod:`swiftsnails_tpu_torch.tiered`) is a smaller table of these layouts.
+With ``mesh=`` (:mod:`swiftsnails_tpu_torch.parallel.mesh`),
+:func:`create_table` and :func:`create_packed_table` return this rank's
+shard: the rows ``[m * per, (m + 1) * per)`` of the table the same call
+makes without a mesh, so every mesh shape starts from one table. The
+collectives over such shards are :mod:`swiftsnails_tpu_torch.parallel.transfer`.
+The small-row plane under a mesh is not ported yet (``ROADMAP.md`` Queue 1
+item 6). The tiered store's cache plane (:mod:`swiftsnails_tpu_torch.tiered`)
+is a smaller table of these layouts.
 """
 
 from __future__ import annotations
@@ -55,6 +61,17 @@ from swiftsnails_tpu_torch.parallel.access import (
     Slots,
 )
 from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def _shard(param: torch.Tensor, capacity: int, mesh) -> torch.Tensor:
+    """This rank's contiguous rows of a whole ``[capacity, ...]`` table:
+    the table itself without a mesh or on a model axis of 1."""
+    if mesh is None:
+        return param
+    from swiftsnails_tpu_torch.parallel.mesh import table_sharding
+
+    start, end = table_sharding(mesh, capacity)
+    return param if (start, end) == (0, capacity) else param[start:end].clone()
 
 
 class TableState(NamedTuple):
@@ -80,19 +97,22 @@ def create_table(
     seed: int = 0,
     init_scale: Optional[float] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> TableState:
     """A fully initialized ``[capacity, dim]`` table on ``device`` (default:
     the card), values from a ``torch.Generator`` seeded with ``seed``
     (:mod:`swiftsnails_tpu_torch.convert` carries a JAX table across where
-    equal values are needed)."""
+    equal values are needed). With ``mesh``, this rank's rows of that table
+    and their slots (the whole table is drawn, then cut)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     param = access.init_param(gen, (capacity, dim), dtype)
     if init_scale is not None:
         param = param * init_scale
+    param = _shard(param, capacity, mesh)
     return TableState(table=param.contiguous(),
-                      slots=access.init_slots((capacity, dim), dtype, dev))
+                      slots=access.init_slots(tuple(param.shape), dtype, dev))
 
 
 def pull(state: TableState, rows: torch.Tensor) -> torch.Tensor:
@@ -165,6 +185,7 @@ def create_packed_table(
     seed: int = 0,
     init_scale: Optional[float] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> PackedTableState:
     """A fully initialized packed table on ``device`` (default: the card).
 
@@ -172,7 +193,8 @@ def create_packed_table(
     padding lanes zero. The values come from a ``torch.Generator`` seeded
     with ``seed`` on the device, so they differ from the JAX package's
     threefry draws; :mod:`swiftsnails_tpu_torch.convert` carries a JAX
-    table across where equal values are needed.
+    table across where equal values are needed. With ``mesh``, this rank's
+    rows of that table and their slots.
     """
     dev = resolve_device(device)
     shape = rowdma.packed_shape(capacity, dim)
@@ -184,8 +206,10 @@ def create_packed_table(
     if init_scale is not None:
         param = param * init_scale
     param[:, dim:] = 0
+    param = _shard(param, capacity, mesh)
+    shape = (param.shape[0], *shape[1:])
     slots = {k: v.reshape(shape) for k, v in access.init_slots(
-        (capacity, s * rowdma.ROW_LANES), dtype, dev).items()}
+        tuple(param.shape), dtype, dev).items()}
     return PackedTableState(table=param.reshape(shape), slots=slots)
 
 

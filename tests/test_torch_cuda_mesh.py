@@ -1,0 +1,85 @@
+"""The mesh's collectives and meshed word2vec on the card, under a
+``(1, 1)`` mesh of a one-rank NCCL group (NCCL puts no two ranks on one
+card; the multi-rank meshes are the gloo tests on the CPU and
+``chip_smoke.py``'s ``mesh`` phase).
+
+Every test here needs an NVIDIA GPU and skips without one. The file imports
+neither JAX nor the JAX package, so on a machine with a card it runs
+without the suite's conftest:
+
+    python -m pytest tests/test_torch_cuda_mesh.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from swiftsnails_tpu_torch import convert
+from swiftsnails_tpu_torch.data.vocab import Vocab
+from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+from swiftsnails_tpu_torch.ops import rowdma
+from swiftsnails_tpu_torch.parallel import store, transfer
+from swiftsnails_tpu_torch.parallel.access import SgdAccess
+from swiftsnails_tpu_torch.utils.config import Config
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from swiftsnails_tpu_torch.parallel.mesh import make_mesh
+
+    init = f"file://{tmp_path_factory.mktemp('nccl')}/rendezvous"
+    dist.init_process_group("nccl", init_method=init, rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield make_mesh({"data": 1, "model": 1})
+    finally:
+        dist.destroy_process_group()
+
+
+def test_packed_collectives_launch_the_row_kernels(nccl_mesh):
+    """Pull and push over the one-rank mesh: bit-equal to the one-device
+    ``pull_packed`` / ``push_packed``, one ``gather_rows`` and one
+    ``scatter_add_rows`` launch each, the collectives counted."""
+    rng = np.random.default_rng(0)
+    whole = np.zeros((4096, 2, 128), np.float32)
+    whole.reshape(4096, -1)[:, :200] = rng.standard_normal((4096, 200))
+    rows = torch.from_numpy(rng.integers(0, 4096, 1024).astype(np.int32)).cuda()
+    grads = torch.zeros((1024, 2, 128), device="cuda")
+    grads.reshape(1024, -1)[:, :200] = torch.randn(1024, 200, device="cuda")
+    meshed = convert.table_shard_from_numpy(whole, nccl_mesh, device="cuda")
+    one = convert.packed_table_from_numpy(whole, device="cuda")
+    transfer.reset_comm()
+    g0, s0 = rowdma.gather_rows.launches, rowdma.scatter_add_rows.launches
+    pulled = transfer.pull_collective_packed(nccl_mesh, meshed, rows)
+    transfer.push_collective_packed(nccl_mesh, meshed, rows, grads, SgdAccess(), 0.1)
+    torch.cuda.synchronize()
+    assert (rowdma.gather_rows.launches - g0, rowdma.scatter_add_rows.launches - s0) == (1, 1)
+    assert torch.equal(pulled, store.pull_packed(one, rows))
+    store.push_packed(one, rows, grads, SgdAccess(), 0.1)
+    assert torch.equal(meshed.table, one.table)
+    assert transfer.COMM["all_reduce_calls"] == 1 and transfer.COMM["all_gather_calls"] == 2
+    assert transfer.comm_bytes() == 1024 * 1024 + 1024 * (4 + 1024)
+
+
+@pytest.mark.parametrize("over", [{}, {"packed": "0"}], ids=["packed", "dense"])
+def test_meshed_word2vec_is_the_unmeshed_run(nccl_mesh, over):
+    """``TrainLoop`` under the one-rank mesh, 4 steps: tables bit-equal to
+    the unmeshed run on the card."""
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 512, 20_000).astype(np.int32)
+    vocab = Vocab([f"w{i}" for i in range(512)],
+                  np.maximum(np.bincount(ids, minlength=512), 1))
+    conf = Config({"dim": "200", "window": "3", "negatives": "4", "learning_rate": "0.5",
+                   "batch_size": "1024", "subsample": "0", "pool_size": "16",
+                   "pool_block": "256", "use_native": "0", **over})
+    states = [TrainLoop(Word2VecTrainer(conf, mesh=m, corpus_ids=ids, vocab=vocab),
+                        log_every=0).run(max_steps=4) for m in (None, nccl_mesh)]
+    for a, b in zip(*states):
+        assert torch.equal(a.table, b.table)

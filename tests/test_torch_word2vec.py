@@ -401,8 +401,18 @@ def test_unported_loop_keys_raise(key, value):
 
 
 def test_mesh_raises():
+    """A mesh trains the flat paths (``tests/test_torch_word2vec_mesh.py``);
+    the grouped mesh family is not ported and raises, and a mesh must be a
+    ``parallel.mesh.Mesh``."""
+    from swiftsnails_tpu_torch.parallel.mesh import Mesh
+
     words, counts, ids = _corpus(200)
+    mesh = Mesh(shape={"data": 1, "model": 1}, coords={"data": 0, "model": 0},
+                groups={}, device=torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="mesh"):
+        word2vec.Word2VecTrainer(Config(_conf(fused="1", grouped="1")), mesh=mesh,
+                                 corpus_ids=ids, vocab=Vocab(words, counts), device="cpu")
+    with pytest.raises(TypeError, match="mesh"):
         word2vec.Word2VecTrainer(Config(_conf()), mesh=object(), corpus_ids=ids,
                                  vocab=Vocab(words, counts), device="cpu")
 
