@@ -32,8 +32,10 @@ chaos-serve and fleet lanes, ``supervisor-status`` and the gates of
 (``model: seqlm`` at its full width: card against CPU, four optimizers,
 ring and Ulysses attention under a one-rank NCCL group, the CLI killed
 and resumed); last word2vec under a ``(data, model)`` mesh (a one-rank
-NCCL mesh at full width against the unmeshed run, and a ``(2, 2)`` gloo
-mesh of four processes against one device).
+NCCL mesh at full width against the unmeshed run, the grouped collective
+plane with its dedup and bucketed collectives and ``overlap`` there, and a
+``(2, 2)`` gloo mesh of four processes against one device and against
+the one-rank mesh).
 
     python3 chip_smoke.py [--seed N] [--only tiered|freshness|cluster|seqlm|mesh]
 
@@ -410,17 +412,39 @@ Phases:
     tables bit-equal (the collectives over one rank are identities; the
     largest difference printed), the row kernels launched as often; step
     ms, the collectives' calls and result bytes (``parallel.transfer.COMM``).
+    Then the grouped collective plane there (``fused: 1, grouped: 1``
+    under the mesh) at ``train_grouped``'s width on the paired corpus, at
+    ``MESH_GROUPED_LR``: the plain plane ``MESH_STEPS`` steps (finite,
+    falling, ``gather_rows`` and ``scatter_add_rows`` 2 a substep, the
+    collectives' bytes equal to ``step_cost``'s), the unmeshed
+    fused-grouped kernel the same steps for its step ms; dedup at
+    ``U_CAP``'s auto cap (its ``dedup_dropped`` printed), dedup at a cap
+    covering a substep's out slots and the bucketed push (slack 2)
+    ``MESH_GROUPED_SHORT`` steps from the same start, each within rtol
+    2e-4 / atol 2e-6 of the plain plane's; ``overlap`` 1 and 2
+    ``MESH_STEPS`` steps (finite, falling, one more pull a step each a
+    depth); the median step ms of each run.
     (b) A ``(2, 2)`` gloo mesh of four spawned processes (``MESH_GLOO_*``:
     dim 200, vocabulary 65,536, batch 2,048, 5 steps, the cuts listed as
     ``reduced``) on ``MESH_GLOO_DEVICE``, its tables within rtol 1e-5 /
-    atol 1e-6 of the one-device port's, each rank's launches counted. One
-    ``mesh`` line. ``--only mesh`` runs this phase alone (with the build
-    and the kernels' phase 3) and prints no result line.
+    atol 1e-6 of the one-device port's, each rank's launches counted; the
+    same ranks then train the grouped plane's plain, dedup (a covering cap)
+    and ``overlap: 1`` routes (2,048 centers, 2 substeps a step), each
+    within rtol 1e-5 / atol 1e-6 of the same route on the (1, 1) NCCL mesh,
+    nothing dropped, each rank's launches counted. One ``mesh`` line. Then
+    ``gather_rows`` and ``scatter_add_rows`` at the grouped plane's shapes
+    (``kernel`` lines, ``path: "mesh_grouped"``): its pulls of 8,192 centers
+    and 83,968 out rows and its pushes of the merged rows, on a step of its
+    batches, bit-equal to plain, timed beside it and ``index_select`` /
+    ``index_add_``, against the byte bound. ``--only mesh`` runs this phase
+    alone (with the build and the kernels' phase 3) and prints no result
+    line.
 22. ``kernels``: one line for every ported kernel, with its launches in the
     run of its path (``path``) and its f32 numbers from phases 3, 7, 10, 16,
     17 and 18 (``gather_rows`` and ``scatter_add_rows`` also at
-    ``train_perpair``'s shape and launches, and with the ``cluster`` and
-    ``mesh`` paths' launches; ``gather_rows`` and ``scatter_write_rows`` also at the serving
+    ``train_perpair``'s shape and launches, with the ``cluster`` and
+    ``mesh`` paths' launches, and at the grouped plane's shapes with its
+    launches, ``path: "mesh_grouped"``; ``gather_rows`` and ``scatter_write_rows`` also at the serving
     shapes with the ``serve`` path's launches, and at the freshness shapes
     with the ``freshness`` path's, the replicas' included; all four row
     kernels of the tiered runs with ``path: "tiered"``); then ``total``,
@@ -829,34 +853,42 @@ def _host_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
-def _kernel_only(fn, id_sets, tables, kw, name: str, calls: int = 5) -> tuple:
+def _kernel_only(fn, id_sets, tables, kw, name: str, calls: int = 5,
+                 windows: int = 3) -> tuple:
     """Device time of the CUDA kernel alone (no prep) a call, by
     torch.profiler, and its launches on the card a call (events named
-    ``name``). The profiler must see every launch the wrapper's counter
-    made, each of which returned success: a window with records lost fails
-    the run, since its time would be short too."""
+    ``name``). The time comes only from a window in which the profiler saw
+    every launch the wrapper's counter made, each of which returned success,
+    since a window with records lost would give a short time too. CUPTI now
+    and then drops one record of a window, so a window that lost one is
+    reported on stderr and taken again, up to ``windows`` times; the run
+    fails if none saw them all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    made = fn.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # ~1 ms of spinning first, so that no measured launch starts at the
-        # window's edge (the profiler now and then lost the first record of
-        # a window that began with one)
-        torch.cuda._sleep(2_000_000)
-        for i in range(calls):
-            fn(*tables, *id_sets[i % len(id_sets)].values(), **kw)
+    for window in range(1, windows + 1):
         torch.cuda.synchronize()
-    made = fn.launches - made
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and name in e.key]
-    seen = sum(e.count for e in events)
-    if seen < made:
-        raise AssertionError(f"the profiler saw {seen} {name} launches of the {made} that "
-                             f"{fn.__name__} made: records lost")
-    us = sum(e.self_device_time_total for e in events)
-    return us / 1e3 / calls, seen / calls
+        made = fn.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # ~1 ms of spinning first, so that no measured launch starts at the
+            # window's edge (the profiler now and then lost the first record of
+            # a window that began with one)
+            torch.cuda._sleep(2_000_000)
+            for i in range(calls):
+                fn(*tables, *id_sets[i % len(id_sets)].values(), **kw)
+            torch.cuda.synchronize()
+        made = fn.launches - made
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and name in e.key]
+        seen = sum(e.count for e in events)
+        if seen >= made:
+            us = sum(e.self_device_time_total for e in events)
+            return us / 1e3 / calls, seen / calls
+        print(f"profiler window {window} of {windows} saw {seen} {name} launches of the "
+              f"{made} that {fn.__name__} made: records lost, window taken again",
+              file=sys.stderr)
+    raise AssertionError(f"the profiler saw {seen} {name} launches of the {made} that "
+                         f"{fn.__name__} made in each of {windows} windows: records lost")
 
 
 def _max_err(got, want) -> float:
@@ -4738,6 +4770,29 @@ MESH_RTOL, MESH_ATOL = 1e-5, 1e-6  # tests/test_rowdma.py:188-192
 # all_gather take CUDA tensors on torch 2.11, so the four ranks share the
 # one card and launch the row kernels there
 MESH_GLOO_DEVICE = "cuda"
+# The grouped collective plane: fused-grouped's shape (train_grouped) under
+# the (1, 1) NCCL mesh. It is the merged update, which sums every update of
+# a row where the hogwild kernels keep about one a substep, so it takes the
+# merged paths' smaller rate: train_sweep.py's mesh_grouped rows on the card
+# (PERF.md, Findings) chose it.
+MESH_GROUPED = "train_grouped"
+MESH_GROUPED_LR = 100.0
+MESH_GROUPED_SHORT = 2  # steps of the dedup and bucketed runs, from one start
+# dedup and bucketed against the plain plane (tests/test_grouped_mesh.py's bound)
+MESH_GROUPED_RTOL, MESH_GROUPED_ATOL = 2e-4, 2e-6
+# a unique list as long as a substep's out slots (8,192 windows of 10 and
+# 32 pools of 64) holds every distinct row: nothing overflows
+MESH_GROUPED_COVER = GROUPED_BATCH * CW + (GROUPED_BATCH // CENTERS_PER_BLOCK) * POOL_SIZE
+MESH_GROUPED_SLACK = 2.0
+# leg 2's grouped routes at its cut size, 2 substeps a step; dedup's cap
+# covers a (1, 1) mesh's substep, so neither mesh overflows
+MESH_GLOO_SPC = 2
+MESH_GLOO_GROUPED = {
+    "grouped": {},
+    "dedup": {"dedup": 1, "mesh_u_cap": MESH_GLOO_BATCH * CW
+              + (MESH_GLOO_BATCH // CENTERS_PER_BLOCK) * POOL_SIZE},
+    "overlap1": {"overlap": 1},
+}
 
 
 def _mesh_gloo_trainer(seed: int, device: str, mesh=None):
@@ -4758,8 +4813,37 @@ def _mesh_gloo_trainer(seed: int, device: str, mesh=None):
     return Word2VecTrainer(cfg, mesh=mesh, corpus_ids=ids, vocab=vocab, device=device)
 
 
-def _loss_loop(trainer) -> tuple:
-    """A ``TrainLoop`` logging every step, and the list its losses go to."""
+def _mesh_gloo_grouped_trainer(seed: int, device: str, mesh, **over):
+    """Leg 2's grouped plane: fused-grouped's keys at dim 200 and 256
+    centers a block, ``MESH_GLOO_BATCH`` centers a substep, ``MESH_GLOO_SPC``
+    substeps a step, over leg 2's corpus."""
+    from swiftsnails_tpu_torch.data.vocab import Vocab
+    from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(seed)
+    ids = zipf_ids(MESH_GLOO_TOKENS, MESH_GLOO_VOCAB, rng)
+    counts = np.maximum(np.bincount(ids, minlength=MESH_GLOO_VOCAB), 1)
+    conf = {"dim": DIM, "window": WINDOW, "negatives": NEGATIVES, "subsample": 0,
+            "num_iters": 1, "pool_size": POOL_SIZE, "fused": 1, "grouped": 1,
+            "centers_per_block": CENTERS_PER_BLOCK, "learning_rate": MESH_GROUPED_LR,
+            "batch_size": MESH_GLOO_BATCH, "steps_per_call": MESH_GLOO_SPC, "seed": seed,
+            "use_native": 0, **over}
+    vocab = Vocab([f"w{i}" for i in range(MESH_GLOO_VOCAB)], counts)
+    return Word2VecTrainer(Config({k: str(v) for k, v in conf.items()}), mesh=mesh,
+                           corpus_ids=ids, vocab=vocab, device=device)
+
+
+def _grouped_launches(steps: int, spc: int, overlap: int = 0) -> dict:
+    """The grouped plane's row-kernel launches in ``steps`` steps: one
+    ``gather_rows`` a pull (two pulls a substep, and ``overlap`` more a
+    step), one ``scatter_add_rows`` a push (two a substep)."""
+    return {"gather_rows": 2 * steps * (spc + overlap), "scatter_add_rows": 2 * steps * spc}
+
+
+def _loss_loop(trainer, records=None) -> tuple:
+    """A ``TrainLoop`` logging every step, and the list its losses go to
+    (its whole records go to ``records`` too, where given)."""
     from swiftsnails_tpu_torch.framework.trainer import TrainLoop
     from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
 
@@ -4768,6 +4852,8 @@ def _loss_loop(trainer) -> tuple:
     class Recorder(MetricsLogger):
         def log(self, record):
             losses.append(record["loss"])
+            if records is not None:
+                records.append(record)
 
     return TrainLoop(trainer, metrics=Recorder(), log_every=1), losses
 
@@ -4794,15 +4880,27 @@ def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) ->
         out = {"coords": mesh.coords, "tables": [t.table.cpu() for t in state],
                "losses": losses, "comm": dict(transfer.COMM), "launches": launches,
                "backend": dist.get_backend(mesh.groups["model"])}
+        del state
+        for route, over in MESH_GLOO_GROUPED.items():
+            records = []
+            loop, losses = _loss_loop(
+                _mesh_gloo_grouped_trainer(seed, MESH_GLOO_DEVICE, mesh, **over), records)
+            state, launches = _run_counted(
+                lambda: loop.run(seed=seed, max_steps=MESH_GLOO_STEPS))
+            out[route] = {"tables": [t.table.cpu() for t in state], "losses": losses,
+                          "launches": launches,
+                          "dropped": [r.get("dedup_dropped") for r in records]}
+            del state
         dist.destroy_process_group()
     except Exception:
         out = {"error": traceback.format_exc()}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def _mesh_gloo_leg(seed: int, tmp: str) -> dict:
-    """Leg 2: four spawned processes, a (2, 2) gloo mesh, against the
-    one-device port on ``MESH_GLOO_DEVICE``."""
+def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
+    """Leg 2: four spawned processes, a (2, 2) gloo mesh, packed+pool
+    against the one-device port on ``MESH_GLOO_DEVICE`` and the grouped
+    plane's routes against the same on ``solo``, the (1, 1) NCCL mesh."""
     import multiprocessing as mp
 
     size = MESH_GLOO["data"] * MESH_GLOO["model"]
@@ -4848,14 +4946,53 @@ def _mesh_gloo_leg(seed: int, tmp: str) -> dict:
                      if MESH_GLOO_DEVICE == "cuda" else {})
     for r, res in enumerate(results):
         _check_launches(f"mesh gloo rank {r}", res["launches"], want_launches)
+    del want
+    grouped = {}
+    for route, over in MESH_GLOO_GROUPED.items():
+        records = []
+        loop, solo_losses = _loss_loop(
+            _mesh_gloo_grouped_trainer(seed, MESH_GLOO_DEVICE, solo, **over), records)
+        ref = loop.run(seed=seed, max_steps=MESH_GLOO_STEPS)
+        route_errs = []
+        for k, ts in enumerate(ref):
+            w = ts.table.cpu()
+            for i in range(MESH_GLOO["data"]):
+                got = torch.cat([by[(i, j)][route]["tables"][k]
+                                 for j in range(MESH_GLOO["model"])])
+                route_errs.append(float((got - w).abs().max()))
+                if not torch.allclose(got, w, rtol=MESH_RTOL, atol=MESH_ATOL):
+                    raise AssertionError(f"mesh gloo {route}: table {k} of data replica {i} "
+                                         f"is {route_errs[-1]} from the (1, 1) mesh's")
+        del ref
+        mine = by[(0, 0)][route]
+        if not np.allclose(mine["losses"], solo_losses, rtol=MESH_RTOL, atol=MESH_ATOL):
+            raise AssertionError(f"mesh gloo {route}: losses {mine['losses']}, "
+                                 f"(1, 1) mesh {solo_losses}")
+        dropped = [r.get("dedup_dropped") for r in records]
+        if any(dropped) or any(mine["dropped"]):
+            raise AssertionError(f"mesh gloo {route}: rows dropped {mine['dropped']} "
+                                 f"/ {dropped} under a covering cap")
+        want_launches = _grouped_launches(MESH_GLOO_STEPS, MESH_GLOO_SPC,
+                                          over.get("overlap", 0))
+        for r, res in enumerate(results):
+            _check_launches(f"mesh gloo {route} rank {r}", res[route]["launches"],
+                            want_launches)
+        grouped[route] = {"max_abs_err": max(route_errs), "losses": mine["losses"],
+                          "solo_losses": solo_losses, "dropped": mine["dropped"],
+                          "launches_by_rank": [{k: r[route]["launches"][k]
+                                                for k in want_launches} for r in results]}
+        torch.cuda.empty_cache()
     return {"device": MESH_GLOO_DEVICE, "backend": results[0]["backend"],
             "mesh": MESH_GLOO, "ranks": size, "steps": MESH_GLOO_STEPS,
             "reduced": {"vocab": [MESH_GLOO_VOCAB, VOCAB],
                         "batch": [MESH_GLOO_BATCH, BATCH],
+                        "grouped_centers": [MESH_GLOO_BATCH, GROUPED_BATCH],
+                        "grouped_steps_per_call": [MESH_GLOO_SPC, FUSED_STEPS_PER_CALL],
                         "steps": [MESH_GLOO_STEPS, MESH_STEPS],
                         "corpus_tokens": [MESH_GLOO_TOKENS, N_TOKENS]},
             "max_abs_err": max(errs), "rtol": MESH_RTOL, "atol": MESH_ATOL,
             "losses": got_losses, "one_device_losses": losses,
+            "grouped": grouped, "grouped_lr": MESH_GROUPED_LR,
             "comm_by_rank": [r["comm"] for r in results],
             "launches_by_rank": [{k: r["launches"][k] for k in ("gather_rows",
                                                                 "scatter_add_rows")}
@@ -4863,65 +5000,173 @@ def _mesh_gloo_leg(seed: int, tmp: str) -> dict:
             "seconds": time.monotonic() - t0, "spawn_s": spawn_s}
 
 
-def _mesh_nccl_leg(seed: int, corpora, tmp: str) -> dict:
+@contextlib.contextmanager
+def _nccl_mesh(tmp: str):
+    """A (1, 1) mesh of a one-rank NCCL group, destroyed on exit."""
+    import torch.distributed as dist
+
+    from swiftsnails_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl-rendezvous",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield make_mesh({"data": 1, "model": 1})
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_nccl_leg(seed: int, corpora, mesh) -> dict:
     """Leg 1: ``Word2VecTrainer(mesh=...)`` under ``TrainLoop`` on a (1, 1)
     mesh of a one-rank NCCL group, at full width, against the unmeshed
     run of the same steps: tables bit-equal, launches equal."""
     import torch.distributed as dist
 
     from swiftsnails_tpu_torch.parallel import transfer
-    from swiftsnails_tpu_torch.parallel.mesh import make_mesh
 
     out = {}
-    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl-rendezvous",
-                            rank=0, world_size=1,
-                            device_id=torch.device("cuda", torch.cuda.current_device()))
-    try:
-        mesh = make_mesh({"data": 1, "model": 1})
-        for phase in MESH_PHASES:
-            runs = {}
-            for name, m in (("one_device", None), ("mesh", mesh)):
-                trainer, loop, records = _train_loop(phase, seed, corpora, mesh=m)
-                transfer.reset_comm()
-                state, launches = _run_counted(lambda: loop.run(seed=seed,
-                                                                max_steps=MESH_STEPS))
-                runs[name] = {"state": state, "launches": launches,
-                              "comm": dict(transfer.COMM),
-                              "step_ms_median": statistics.median(
-                                  r["seconds"] * 1e3 for r in records[1:]),
-                              "losses": [r["loss"] for r in records]}
-                del trainer, loop
-            diff = max(float((a.table - b.table).abs().max())
-                       for a, b in zip(runs["mesh"]["state"], runs["one_device"]["state"]))
-            equal = all(torch.equal(a.table, b.table)
-                        for a, b in zip(runs["mesh"]["state"], runs["one_device"]["state"]))
-            table = list(runs["mesh"]["state"].in_table.table.shape)
-            finite = all(bool(torch.isfinite(t.table).all()) for t in runs["mesh"]["state"])
-            for r in runs.values():
-                del r["state"]
-            torch.cuda.empty_cache()
-            if not equal or not finite:
-                raise AssertionError(f"mesh {phase}: the (1, 1) mesh's tables are {diff} "
-                                     "from the unmeshed run's (bit-equal expected)")
-            if runs["mesh"]["launches"] != runs["one_device"]["launches"]:
-                raise AssertionError(f"mesh {phase}: launches {runs['mesh']['launches']}, "
-                                     f"unmeshed {runs['one_device']['launches']}")
-            if runs["mesh"]["comm"]["all_reduce_calls"] == 0:
-                raise AssertionError(f"mesh {phase}: no collective made")
-            out[phase] = {
-                "table": table, "steps": MESH_STEPS, "max_abs_diff": diff,
-                "bit_equal": equal, "backend": dist.get_backend(mesh.groups["model"]),
-                "nccl": runs["mesh"]["comm"],
-                "launches": {k: runs["mesh"]["launches"][k]
-                             for k in ("gather_rows", "scatter_add_rows")},
-                "one_device_launches": {k: runs["one_device"]["launches"][k]
-                                        for k in ("gather_rows", "scatter_add_rows")},
-                "step_ms_median": runs["mesh"]["step_ms_median"],
-                "one_device_step_ms_median": runs["one_device"]["step_ms_median"],
-                "losses": runs["mesh"]["losses"]}
-        torch.cuda.synchronize()
-    finally:
-        dist.destroy_process_group()
+    for phase in MESH_PHASES:
+        runs = {}
+        for name, m in (("one_device", None), ("mesh", mesh)):
+            trainer, loop, records = _train_loop(phase, seed, corpora, mesh=m)
+            transfer.reset_comm()
+            state, launches = _run_counted(lambda: loop.run(seed=seed,
+                                                            max_steps=MESH_STEPS))
+            runs[name] = {"state": state, "launches": launches,
+                          "comm": dict(transfer.COMM),
+                          "step_ms_median": statistics.median(
+                              r["seconds"] * 1e3 for r in records[1:]),
+                          "losses": [r["loss"] for r in records]}
+            del trainer, loop
+        diff = max(float((a.table - b.table).abs().max())
+                   for a, b in zip(runs["mesh"]["state"], runs["one_device"]["state"]))
+        equal = all(torch.equal(a.table, b.table)
+                    for a, b in zip(runs["mesh"]["state"], runs["one_device"]["state"]))
+        table = list(runs["mesh"]["state"].in_table.table.shape)
+        finite = all(bool(torch.isfinite(t.table).all()) for t in runs["mesh"]["state"])
+        for r in runs.values():
+            del r["state"]
+        torch.cuda.empty_cache()
+        if not equal or not finite:
+            raise AssertionError(f"mesh {phase}: the (1, 1) mesh's tables are {diff} "
+                                 "from the unmeshed run's (bit-equal expected)")
+        if runs["mesh"]["launches"] != runs["one_device"]["launches"]:
+            raise AssertionError(f"mesh {phase}: launches {runs['mesh']['launches']}, "
+                                 f"unmeshed {runs['one_device']['launches']}")
+        if runs["mesh"]["comm"]["all_reduce_calls"] == 0:
+            raise AssertionError(f"mesh {phase}: no collective made")
+        out[phase] = {
+            "table": table, "steps": MESH_STEPS, "max_abs_diff": diff,
+            "bit_equal": equal, "backend": dist.get_backend(mesh.groups["model"]),
+            "nccl": runs["mesh"]["comm"],
+            "launches": {k: runs["mesh"]["launches"][k]
+                         for k in ("gather_rows", "scatter_add_rows")},
+            "one_device_launches": {k: runs["one_device"]["launches"][k]
+                                    for k in ("gather_rows", "scatter_add_rows")},
+            "step_ms_median": runs["mesh"]["step_ms_median"],
+            "one_device_step_ms_median": runs["one_device"]["step_ms_median"],
+            "losses": runs["mesh"]["losses"]}
+    torch.cuda.synchronize()
+    return out
+
+
+def _mesh_grouped_run(seed: int, corpora, mesh, steps: int, keep: bool = False,
+                      **extra) -> dict:
+    """``MESH_GROUPED``'s config at ``MESH_GROUPED_LR`` (and ``extra``)
+    under ``mesh``, the grouped collective plane (unmeshed: the grouped
+    kernel), ``steps`` steps of ``TrainLoop``: losses (finite), the counted
+    launches, the collectives' result bytes against ``step_cost``'s, the
+    median step ms past the first, the dropped counts; the state where
+    ``keep``."""
+    from swiftsnails_tpu_torch.parallel import transfer
+
+    trainer, loop, records = _train_loop(MESH_GROUPED, seed, corpora, mesh=mesh,
+                                         learning_rate=MESH_GROUPED_LR, **extra)
+    transfer.reset_comm()
+    state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=steps))
+    n = trainer.batch_size * trainer.steps_per_call
+    shape = {"centers": np.zeros(n, np.int32), "contexts": np.zeros((n, CW), np.int32)}
+    step_bytes = trainer.step_cost(shape)["total_bytes"]
+    losses = [r["loss"] for r in records]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mesh grouped {extra}: losses {losses}")
+    if not all(bool(torch.isfinite(t.table).all()) for t in state):
+        raise AssertionError(f"mesh grouped {extra}: a table is not finite")
+    out = {"losses": losses, "launches": launches,
+           "comm_bytes": transfer.comm_bytes(),
+           "step_cost_bytes": None if step_bytes is None else steps * step_bytes,
+           "step_ms_median": statistics.median(r["seconds"] * 1e3 for r in records[1:]),
+           "dropped": [r.get("dedup_dropped", r.get("push_dropped")) for r in records]}
+    if mesh is not None and out["comm_bytes"] != out["step_cost_bytes"]:
+        raise AssertionError(f"mesh grouped {extra}: {out['comm_bytes']} collective bytes "
+                             f"counted, step_cost {out['step_cost_bytes']}")
+    if keep:
+        out["state"] = state
+    del trainer, loop, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tables_close(what: str, got, want) -> float:
+    """The largest difference of two states' tables; fails past
+    ``MESH_GROUPED_RTOL`` / ``MESH_GROUPED_ATOL``."""
+    diff = max(float((a.table - b.table).abs().max()) for a, b in zip(got, want))
+    if not all(torch.allclose(a.table, b.table, rtol=MESH_GROUPED_RTOL, atol=MESH_GROUPED_ATOL)
+               for a, b in zip(got, want)):
+        raise AssertionError(f"mesh grouped {what}: tables {diff} from the plain plane's")
+    return diff
+
+
+def _falls(what: str, losses) -> None:
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"mesh grouped {what}: the loss did not fall: {losses}")
+
+
+def _mesh_grouped_leg(seed: int, corpora, mesh) -> dict:
+    """Leg 1's grouped plane on the (1, 1) NCCL mesh at fused-grouped's full
+    width: the plain plane ``MESH_STEPS`` steps (falling, 2 launches of each
+    row kernel a substep, the collective bytes = ``step_cost``'s); dedup at
+    ``U_CAP``'s auto cap (its overflow reported), dedup at a covering cap and
+    the bucketed push ``MESH_GROUPED_SHORT`` steps from the same start,
+    each within ``MESH_GROUPED_RTOL`` / ``MESH_GROUPED_ATOL`` of the plain
+    plane's; ``overlap`` 1 and 2 ``MESH_STEPS`` steps (falling); the median
+    step ms of each beside the unmeshed fused-grouped's."""
+    spc = FUSED_STEPS_PER_CALL
+    out = {"lr": MESH_GROUPED_LR, "steps": MESH_STEPS, "steps_per_call": spc,
+           "table": [VOCAB, -(-DIM // 128), 128], "centers": GROUPED_BATCH}
+    plain = _mesh_grouped_run(seed, corpora, mesh, MESH_STEPS)
+    _check_launches("mesh grouped", plain["launches"], _grouped_launches(MESH_STEPS, spc))
+    _falls("plain", plain["losses"])
+    out["plain"] = plain
+    one = _mesh_grouped_run(seed, corpora, None, MESH_STEPS)
+    _check_launches("unmeshed grouped", one["launches"],
+                    {"fused_sgns_grouped_step": MESH_STEPS * spc})
+    out["unmeshed_grouped_step_ms_median"] = one["step_ms_median"]
+    short = _mesh_grouped_run(seed, corpora, mesh, MESH_GROUPED_SHORT, keep=True)
+    auto = _mesh_grouped_run(seed, corpora, mesh, MESH_GROUPED_SHORT, dedup=1, u_cap=U_CAP)
+    out["dedup_auto_cap"] = {"u_cap": U_CAP, "dropped": auto["dropped"],
+                             "step_ms_median": auto["step_ms_median"]}
+    for name, extra in (("dedup", {"dedup": 1, "u_cap": U_CAP,
+                                   "mesh_u_cap": MESH_GROUPED_COVER}),
+                        ("bucketed", {"push_mode": "bucketed",
+                                      "bucket_slack": MESH_GROUPED_SLACK})):
+        run = _mesh_grouped_run(seed, corpora, mesh, MESH_GROUPED_SHORT, keep=True, **extra)
+        _check_launches(f"mesh grouped {name}", run["launches"],
+                        _grouped_launches(MESH_GROUPED_SHORT, spc))
+        run["max_abs_diff"] = _tables_close(name, run.pop("state"), short["state"])
+        if not np.allclose(run["losses"], short["losses"], rtol=MESH_GROUPED_RTOL,
+                           atol=MESH_GROUPED_ATOL):
+            raise AssertionError(f"mesh grouped {name}: losses {run['losses']}, plain "
+                                 f"{short['losses']}")
+        out[name] = {**run, "keys": extra}
+    del short["state"]
+    for depth in (1, 2):
+        run = _mesh_grouped_run(seed, corpora, mesh, MESH_STEPS, overlap=depth)
+        _check_launches(f"mesh grouped overlap {depth}", run["launches"],
+                        _grouped_launches(MESH_STEPS, spc, depth))
+        _falls(f"overlap {depth}", run["losses"])
+        out[f"overlap{depth}"] = run
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4930,14 +5175,70 @@ def phase_mesh(seed: int, corpora, env: dict) -> dict:
     t_phase = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="ssn-mesh-")
     try:
-        nccl = _mesh_nccl_leg(seed, corpora, tmp)
-        gloo = _mesh_gloo_leg(seed, tmp)
+        with _nccl_mesh(tmp) as mesh:
+            nccl = _mesh_nccl_leg(seed, corpora, mesh)
+            t_grouped = time.monotonic()
+            grouped = _mesh_grouped_leg(seed, corpora, mesh)
+            grouped["seconds"] = time.monotonic() - t_grouped
+            gloo = _mesh_gloo_leg(seed, tmp, mesh)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seconds = time.monotonic() - t_phase
-    emit("mesh", nccl=nccl, gloo=gloo, seconds=seconds, device=env["device"],
-         nvidia_smi=env["nvidia_smi"])
-    return {"launches": nccl["train"]["launches"], "seconds": seconds}
+    emit("mesh", nccl=nccl, grouped=grouped, gloo=gloo, seconds=seconds,
+         device=env["device"], nvidia_smi=env["nvidia_smi"])
+    return {"launches": nccl["train"]["launches"],
+            "grouped_launches": grouped["plain"]["launches"], "seconds": seconds}
+
+
+def phase_mesh_grouped_kernels(seed: int, corpora, rate: float) -> dict:
+    """``gather_rows`` and ``scatter_add_rows`` at the grouped plane's
+    shapes, on the ids of a step of its batches (8 substeps) and pools drawn
+    as it draws them, against a ``[1,048,576, 2, 128]`` f32 table: the
+    in-table pull of 8,192 centers, the out-table pull of 83,968 rows
+    (81,920 window slots, a pad reading row 0 as the shard-local pull does,
+    then 2,048 pool rows), and each push of the merged unique rows (padded
+    with the padding id). Bit-equal to plain, timed beside it and
+    ``index_select`` / ``index_add_``, against the byte bound."""
+    dev = torch.device("cuda")
+    trainer, _, _ = _train_loop(MESH_GROUPED, seed, corpora)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = next(iter(trainer.batches()))
+    centers = torch.from_numpy(batch["centers"]).to(dev).reshape(FUSED_STEPS_PER_CALL, -1)
+    ctxs = torch.from_numpy(batch["contexts"]).to(dev).reshape(FUSED_STEPS_PER_CALL,
+                                                               GROUPED_BATCH, CW)
+    sets = {"gather_in": [], "gather_out": [], "scatter_in": [], "scatter_out": []}
+    valid = {"scatter_in": [], "scatter_out": []}
+    for c, x in zip(centers, ctxs):
+        pools = trainer._grouped_pools(gen, GROUPED_BATCH, None).reshape(-1)
+        sets["gather_in"].append(c.contiguous())
+        sets["gather_out"].append(torch.cat([x.clamp_min(0).reshape(-1), pools]))
+        for key, rows in (("scatter_in", c), ("scatter_out", torch.cat([x[x >= 0], pools]))):
+            uniq = torch.unique(rows).to(torch.int32)
+            valid[key].append(int(uniq.numel()))
+            n = rows.numel() if key == "scatter_in" else x.numel() + pools.numel()
+            pad = torch.full((n - uniq.numel(),), VOCAB, dtype=torch.int32, device=dev)
+            sets[key].append(torch.cat([uniq, pad]))
+    del trainer
+    shape = (VOCAB, -(-DIM // 128), 128)
+    table = torch.randn(shape, generator=gen, device=dev)
+    out = {}
+    for key in ("gather_in", "gather_out"):
+        case = _gather_case(table, sets[key], rate)
+        out[key] = {"shape": [sets[key][0].numel(), *shape[1:]], **case}
+        emit("kernel", name="gather_rows", dtype="torch.float32", path="mesh_grouped",
+             rows=sets[key][0].numel(), **case)
+    for key in ("scatter_in", "scatter_out"):
+        n = sets[key][0].numel()
+        deltas = [torch.randn((n, *shape[1:]), generator=gen, device=dev).mul_(1e-3)
+                  for _ in sets[key]]
+        case = _scatter_case(table, sets[key], deltas, valid[key], rate)
+        out[key] = {"shape": [n, *shape[1:]], **case}
+        emit("kernel", name="scatter_add_rows", dtype="torch.float32", path="mesh_grouped",
+             rows=n, **case)
+        del deltas
+    del table
+    torch.cuda.empty_cache()
+    return out
 
 
 def _mesh_kernel_entries(summary: dict, mesh: dict) -> list:
@@ -4957,12 +5258,34 @@ def _mesh_kernel_entries(summary: dict, mesh: dict) -> list:
     return out
 
 
+def _mesh_grouped_kernel_entries(cases: dict, mesh: dict) -> list:
+    """The ``kernels`` line's ``path: "mesh_grouped"`` entries: the grouped
+    plane's pulls and pushes, with the plain plane's launches in leg 1."""
+    out = []
+    for key, name, replaces in (
+            ("gather_in", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+            ("gather_out", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+            ("scatter_in", "scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213"),
+            ("scatter_out", "scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213")):
+        s = cases[key]
+        out.append({
+            "name": name, "route": "cuda", "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": replaces, "launches": mesh["grouped_launches"][name],
+            "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": s["library_ms"],
+            "shape": s["shape"], "dtype": "float32", "path": "mesh_grouped"})
+    return out
+
+
 def _only_mesh(seed: int, env: dict, t_start: float) -> int:
-    """``--only mesh``: the kernels' phase 3 (the mesh entries' numbers)
-    and the mesh phase."""
+    """``--only mesh``: the kernels' phase 3 (the mesh entries' numbers),
+    the mesh phase and the kernels at the grouped plane's shapes."""
     summary = phase_kernels(seed, env["mem_rate_Bps"])
-    mesh = phase_mesh(seed, {False: _corpus(seed)}, env)
-    emit("kernels", kernels=_mesh_kernel_entries(summary, mesh))
+    corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
+    mesh = phase_mesh(seed, corpora, env)
+    cases = phase_mesh_grouped_kernels(seed, corpora, env["mem_rate_Bps"])
+    emit("kernels", kernels=_mesh_kernel_entries(summary, mesh)
+         + _mesh_grouped_kernel_entries(cases, mesh))
     emit("total", seconds=time.monotonic() - t_start)
     return 0
 
@@ -5120,6 +5443,7 @@ def main() -> int:
     cluster = phase_cluster(args.seed, corpora, env)
     phase_seqlm(args.seed, env)
     mesh = phase_mesh(args.seed, corpora, env)
+    mesh_grouped = phase_mesh_grouped_kernels(args.seed, corpora, env["mem_rate_Bps"])
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
@@ -5204,6 +5528,7 @@ def main() -> int:
     kernels.extend(_freshness_kernel_entries(summary, fresh))
     kernels.extend(_cluster_kernel_entries(summary, cluster))
     kernels.extend(_mesh_kernel_entries(summary, mesh))
+    kernels.extend(_mesh_grouped_kernel_entries(mesh_grouped, mesh))
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),
                            ("chunk_probe", "tools/sem_probe.py:164"),
                            ("pipe_probe", "tools/sem_probe.py:233")):

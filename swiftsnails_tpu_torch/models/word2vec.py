@@ -54,8 +54,22 @@ whole set of negatives from the step's generator and takes its own part, so
 a pool block must not straddle two data shards. The loss is summed locally
 over the global batch size, so a pair's gradient is the one-device one;
 the reported loss is its sum over ``data``, one all-reduce a call.
-``export_text`` gathers the table and writes from rank 0. The grouped mesh
-family and the tier raise under a mesh.
+``export_text`` gathers the table and writes from rank 0. The tier raises
+under a mesh.
+
+``fused: 1, grouped: 1`` under a mesh (with ``resident``, which has no
+meaning there, ``dedup`` or both) is the grouped collective plane
+(:meth:`_substep_grouped_mesh`): each center row pulled once a window, the
+window and the block's pool scored against it, one merged center gradient
+pushed, through the packed collectives; the deterministic merged update,
+not the kernels' hogwild. ``dedup: 1`` there pulls and pushes the out
+table through a unique list a data shard (``mesh_u_cap``, default
+:meth:`_mesh_u_cap`), whose overflow the ``dedup_dropped`` metric counts.
+``push_mode: bucketed`` (``bucket_slack``) pushes through the
+owner-bucketed collective on the packed paths under a mesh, its overflow
+in ``push_dropped``. ``overlap: 1|2`` pipelines the plane's substeps
+(:meth:`_overlap_macro`): substep ``i + depth``'s pull reads the tables
+before substep ``i``'s push.
 
 Batches come from the native producer (:mod:`swiftsnails_tpu_torch.data.native`)
 with ``use_native: 1``, the default, as in the JAX package: the same seed
@@ -69,11 +83,13 @@ Config keys: ``dim``, ``window``, ``negatives``, ``learning_rate``,
 ``data``, ``table_dtype``, ``pool_size``, ``pool_block``, ``steps_per_call``,
 ``fused``, ``grouped``, ``centers_per_block``, ``resident``, ``hot_rows``,
 ``dedup``, ``u_cap``, ``packed``, ``neg_mode``, ``use_native``, ``stream``,
+``push_mode``, ``bucket_slack``, ``overlap``, ``mesh_u_cap``,
 ``table_tier`` (``host``: the tiered store, :mod:`swiftsnails_tpu_torch.tiered`,
 on the ``dense``, ``packed`` pool and ``per_pair`` paths).
 Keys that select a path the port does not have yet raise
-``NotImplementedError`` (see :data:`UNPORTED`); ``ROADMAP.md`` says when
-each is ported.
+``NotImplementedError`` (see
+:data:`~swiftsnails_tpu_torch.framework.trainer.UNPORTED_PLANE_KEYS`);
+``ROADMAP.md`` says when each is ported.
 """
 
 from __future__ import annotations
@@ -118,7 +134,7 @@ from swiftsnails_tpu_torch.ops.hashing import hash_row, hash_row_np
 from swiftsnails_tpu_torch.ops.rowdma import unpack_rows
 from swiftsnails_tpu_torch.parallel import transfer
 from swiftsnails_tpu_torch.parallel.access import SgdAccess
-from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, rows_per_shard
+from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, rows_per_shard
 from swiftsnails_tpu_torch.parallel.store import (
     PackedTableState,
     TableState,
@@ -129,7 +145,7 @@ from swiftsnails_tpu_torch.parallel.store import (
     push,
     push_packed,
 )
-from swiftsnails_tpu_torch.utils.config import Config
+from swiftsnails_tpu_torch.utils.config import Config, ConfigError
 from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -148,14 +164,18 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-# Keys of the JAX trainer that select a path the port does not have yet:
-# key -> "is it asked for". Each raises NotImplementedError when asked for.
-UNPORTED = {
-    **UNPORTED_PLANE_KEYS,
-    "push_mode": lambda cfg, key: cfg.get_str(key, "gather") != "gather",
-    "overlap": lambda cfg, key: cfg.get_str(key, "0").strip().lower() not in (
-        "0", "false", "no", "off", ""),
-}
+class GroupedPull(NamedTuple):
+    """The pull half of a grouped collective substep, which the push half
+    consumes (at once, or ``overlap`` substeps later)."""
+
+    center_rows: torch.Tensor  # [n] in-table rows of this shard's centers
+    out_rows: torch.Tensor  # [n * cw + nb * pn] its window slots, then its pools
+    mask: torch.Tensor  # [n, cw] 1.0 on a real context slot
+    v: torch.Tensor  # [n, S, 128] the centers' pulled rows
+    u: torch.Tensor  # [n * cw + nb * pn, S, 128] the out rows' pulled rows
+    layout: Optional[transfer.DataLayout]  # the out rows' chunks (dedup, bucketed)
+    index: Optional[tuple]  # the dedup pull's unique index
+    dropped: torch.Tensor  # the dedup pull's overflow
 
 
 def sgns_loss(v: torch.Tensor, u_pos: torch.Tensor, u_neg: torch.Tensor,
@@ -217,7 +237,7 @@ class Word2VecTrainer(Trainer):
         super().__init__(config, device)
         self.mesh = mesh
         cfg = config
-        raise_unported(cfg, UNPORTED)
+        raise_unported(cfg, UNPORTED_PLANE_KEYS)
         self.dim = cfg.get_int("dim", 100)
         self.window = cfg.get_int("window", 5)
         self.negatives = cfg.get_int("negatives", 5)
@@ -260,11 +280,35 @@ class Word2VecTrainer(Trainer):
                 raise ValueError(f"{key}: 1 requires grouped: 1")
         self.resident = cfg.get_bool("resident", False) and self.grouped
         self.dedup = cfg.get_bool("dedup", False) and self.grouped
-        if mesh is not None and self.grouped:
-            _unported_mesh("grouped: 1 (the grouped mesh family: fused-grouped, "
-                           "resident, dedup, dedup-res)")
+        # push_mode: bucketed -> the owner-bucketed push (static buckets,
+        # overflow in push_dropped) where a push collective runs: the packed
+        # paths, and the fused ones only under a mesh (one device: the exact
+        # push, push_dropped 0)
+        self.push_mode = cfg.get_str("push_mode", "gather")
+        if self.push_mode not in ("gather", "bucketed"):
+            raise ValueError(f"push_mode must be gather|bucketed, got {self.push_mode}")
+        if self.push_mode == "bucketed" and (not self.packed or (self.fused and mesh is None)):
+            raise ValueError(
+                "push_mode: bucketed requires packed: 1, and fused: 1 only "
+                "with a mesh (single-device fused has no push collective)")
+        self.bucket_slack = cfg.get_float("bucket_slack", 2.0)
+        # overlap: 1|2 -> the grouped collective plane's pipelined macro-step
+        # (stale-by-depth pulls); only under a mesh with steps_per_call > 1
+        try:
+            self.overlap = cfg.get_int("overlap", 0)
+        except ConfigError:  # the bool spellings (overlap: true), which the
+            # JAX trainer means to take but refuses (it catches ValueError)
+            self.overlap = int(cfg.get_bool("overlap", False))
+        if self.overlap not in (0, 1, 2):
+            raise ValueError(f"overlap must be 0, 1 or 2, got {self.overlap}")
+        if self.overlap and not (cfg.get_bool("fused", False)
+                                 and cfg.get_bool("grouped", False)):
+            raise ValueError(
+                "overlap: 1|2 requires fused: 1, grouped: 1 (the grouped "
+                "collective plane is the only overlap-scheduled path)")
         self.hot_rows = cfg.get_int("hot_rows", 1024)
         self.u_cap = cfg.get_int("u_cap", 512)
+        self.mesh_u_cap = cfg.get_int("mesh_u_cap", 0)  # 0: _mesh_u_cap's auto cap
         # centers per kernel block; the per-substep center count is batch_size
         self.centers_per_block = cfg.get_int("centers_per_block", 256)
         # table_tier: host -> the tiered parameter store (tiered/): host-RAM
@@ -344,6 +388,7 @@ class Word2VecTrainer(Trainer):
                     "rows (clipped to capacity, rounded down to a multiple of "
                     "256, or of 8 below 256)", self.hot_rows, eff)
         self.grouped_step = self._grouped_step_fn() if self.grouped else None
+        self._drops = None  # the dropped counts of a train_step call
 
     # -- state -------------------------------------------------------------
 
@@ -373,10 +418,45 @@ class Word2VecTrainer(Trainer):
         return transfer.pull_collective_packed(self.mesh, table_state, rows)
 
     def _ppush(self, table_state, rows, grads, lr):
+        """The packed push; ``push_mode: bucketed`` under a mesh through the
+        owner-bucketed collective, whose overflow :meth:`_dropped` keeps.
+        ``rows`` is this rank's contiguous data slice of the batch's."""
         if self.mesh is None:
             return push_packed(table_state, rows, grads, self.access, lr)
+        if self.push_mode == "bucketed":
+            table_state, dropped = transfer.push_collective_packed_bucketed(
+                self.mesh, table_state, rows, grads, self.access, lr,
+                slack=self.bucket_slack)
+            self._dropped(dropped)
+            return table_state
         return transfer.push_collective_packed(self.mesh, table_state, rows, grads,
                                                self.access, lr)
+
+    def _out_layout(self, ctx_rows, pools):
+        """Under a mesh with dedup or the bucketed push: the out rows as the
+        JAX trainer splits them over ``data`` (every shard's context rows,
+        then the whole pool set's rows; ``pools`` holds all of them), for
+        the ``*_spread`` collectives. ``None`` where no collective needs it."""
+        if self.mesh is None or not (self.dedup or self.push_mode == "bucketed"):
+            return None
+        return transfer.data_layout(self.mesh, ctx_rows, self._rows(pools.reshape(-1)))
+
+    def _push_out(self, table_state, rows, grads, lr, layout):
+        """The out table's push of this rank's ``rows`` (its window or pair
+        slots, then its pools): bucketed over ``layout``, else :meth:`_ppush`."""
+        if layout is not None and self.push_mode == "bucketed":
+            table_state, dropped = transfer.push_collective_packed_bucketed_spread(
+                self.mesh, table_state, layout, grads, self.access, lr,
+                slack=self.bucket_slack)
+            self._dropped(dropped)
+            return table_state
+        return self._ppush(table_state, rows, grads, lr)
+
+    def _dropped(self, count: torch.Tensor) -> None:
+        """Keep a push's or a consumed pull's overflow for the call's metric
+        (:meth:`train_step`); outside a call it is not kept."""
+        if self._drops is not None:
+            self._drops.append(count)
 
     def _dpull(self, table_state, rows):
         if self.mesh is None:
@@ -467,8 +547,10 @@ class Word2VecTrainer(Trainer):
                     else:
                         centers, contexts = skipgram_windows(chunk, self.window, rng)
                     # dedup shuffles blocks of consecutive windows, one kernel
-                    # block each, so that a block's windows overlap
-                    block = self._effective_pc() if self.dedup else 1
+                    # block each, so that a block's windows overlap; under a
+                    # mesh the plane dedups a whole substep, so windows
+                    # shuffle alone
+                    block = self._effective_pc() if self.dedup and self.mesh is None else 1
                     if use_native and len(centers) >= macro:
                         stream = native.WindowPrefetcher(
                             centers, contexts, macro, block=block, epochs=1,
@@ -563,7 +645,8 @@ class Word2VecTrainer(Trainer):
         rows; ``negs`` as in :meth:`_substep_dense`."""
         b, k = centers.shape[0], self.negatives
         planned = self.tiered and negs is not None
-        negs = self._data_part(self._negs(generator, b * self._data(), negs))
+        negs_all = self._negs(generator, b * self._data(), negs)
+        negs = self._data_part(negs_all)
         in_rows = self._step_rows(centers, planned)
         out_rows = self._step_rows(torch.cat([contexts, negs.reshape(-1)]), planned)
         v = self._ppull(state.in_table, in_rows).float().requires_grad_()
@@ -573,7 +656,8 @@ class Word2VecTrainer(Trainer):
                          **self._loss_kw(b))
         dv, du = torch.autograd.grad(loss, (v, u))
         self._ppush(state.in_table, in_rows, dv, lr)
-        self._ppush(state.out_table, out_rows, du, lr)
+        layout = self._out_layout(out_rows[:b], negs_all)
+        self._push_out(state.out_table, out_rows, du, lr, layout)
         return state, loss.detach()
 
     def _substep_packed(self, state: W2VState, centers: torch.Tensor,
@@ -599,7 +683,8 @@ class Word2VecTrainer(Trainer):
         pn = self.pool_size
         lam = self.negatives / pn
         planned = self.tiered and negs is not None
-        pools = self._data_part(self._pools(generator, nb * self._data(), negs))
+        pools_all = self._pools(generator, nb * self._data(), negs)
+        pools = self._data_part(pools_all)
         in_rows = self._step_rows(centers, planned)
         out_rows = self._step_rows(torch.cat([contexts, pools.reshape(-1)]), planned)
 
@@ -611,7 +696,8 @@ class Word2VecTrainer(Trainer):
         dv, du_pos, dpool = torch.autograd.grad(loss, (v, u_pos, pool))
         du = torch.cat([du_pos, dpool.reshape(-1, *dpool.shape[2:])])
         self._ppush(state.in_table, in_rows, dv, lr)
-        self._ppush(state.out_table, out_rows, du, lr)
+        layout = self._out_layout(out_rows[:b], pools_all)
+        self._push_out(state.out_table, out_rows, du, lr, layout)
         return state, loss.detach()
 
     def _substep_fused(self, state: W2VState, centers: torch.Tensor,
@@ -675,6 +761,131 @@ class Word2VecTrainer(Trainer):
             centers_per_block=pc, pool_size=self.pool_size, **extra)
         return state, loss
 
+    # -- the grouped collective plane (a mesh) ------------------------------
+
+    def _mesh_u_cap(self, n: int) -> int:
+        """The dedup plane's unique-list capacity a data shard, for a
+        substep of ``n`` centers: ``u_cap`` a kernel block scaled to the
+        shard's blocks (the plane dedups a substep, not a block), clamped to
+        the shard's slots and rounded up to a multiple of 8 (at least 8).
+        ``mesh_u_cap`` overrides it."""
+        if self.mesh_u_cap:
+            return self.mesh_u_cap
+        d = self._data()
+        pc = self._effective_pc(n)
+        local_slots = (n * 2 * self.window + (n // pc) * self.pool_size) // d
+        blocks = max((n // d) // pc, 1)
+        cap = min(self.u_cap * blocks, local_slots)
+        return max(-(-cap // 8) * 8, 8)
+
+    def _out_u_cap(self, n: int) -> int:
+        """The out table's dedup cap for a substep of ``n`` centers (the
+        JAX trainer's ``_out_u_cap``, whose hybrid cap waits for
+        ``placement``)."""
+        return self._mesh_u_cap(n)
+
+    def _grouped_pools(self, generator: torch.Generator, n: int,
+                       negs: Optional[torch.Tensor]) -> torch.Tensor:
+        """A grouped substep's whole pool set, ``[n // pc, pool_size]`` for
+        ``n`` centers over all data shards: ``negs``, else drawn."""
+        return self._pools(generator, n // self._effective_pc(n), negs)
+
+    def _pull_grouped_mesh(self, state: W2VState, centers: torch.Tensor,
+                           ctxs: torch.Tensor, pools: torch.Tensor) -> GroupedPull:
+        """The pull half of :meth:`_substep_grouped_mesh`: this data shard's
+        centers and windows, ``pools`` the substep's whole set (this shard's
+        blocks take their part). A window slot ``-1`` becomes row
+        ``capacity``, which no shard owns: it pulls zeros and its (masked)
+        gradient is dropped."""
+        n, cw = ctxs.shape
+        pc = self._effective_pc(n * self._data())
+        if n % pc:
+            raise ValueError(
+                f"a data shard of {n} centers splits a pool block of {pc} (batch_size "
+                f"{self.batch_size} over {self._data()} data shards): make "
+                "batch_size / data a multiple of centers_per_block")
+        center_rows = self._rows(centers)
+        ctx_rows = torch.where(ctxs >= 0, self._rows(ctxs.clamp_min(0)),
+                               self.capacity).reshape(-1)
+        out_rows = torch.cat([ctx_rows, self._rows(self._data_part(pools).reshape(-1))])
+        v = self._ppull(state.in_table, center_rows)
+        layout = self._out_layout(ctx_rows, pools)
+        if self.dedup:
+            u, index, dropped = transfer.pull_collective_packed_dedup_spread(
+                self.mesh, state.out_table, layout, self._out_u_cap(n * self._data()))
+        else:
+            u, index = self._ppull(state.out_table, out_rows), None
+            dropped = torch.zeros((), dtype=torch.int32, device=self.device)
+        return GroupedPull(center_rows, out_rows, (ctxs >= 0).float(), v, u, layout,
+                           index, dropped)
+
+    def _push_grouped_mesh(self, state: W2VState, pulled: GroupedPull, lr: float):
+        """The push half: the SGNS loss of the pulled rows and its gradient
+        (autograd), the merged pushes of both tables. The loss is
+        ``-1 / (N (window + 1))`` over the global ``N`` centers times the
+        window terms and the pool terms, each center's weighted by its real
+        slots; this shard's part of it. Returns ``(state, loss)``."""
+        n, cw = pulled.mask.shape
+        d = self._data()
+        pc = self._effective_pc(n * d)
+        nb, pn = n // pc, self.pool_size
+        v = pulled.v.float().requires_grad_()
+        u_all = pulled.u.float().requires_grad_()
+        u = u_all[:n * cw].reshape(n, cw, -1)
+        q = u_all[n * cw:].reshape(nb, pn, -1)
+        pos = torch.bmm(u, v.reshape(n, -1, 1)).squeeze(-1)  # [n, cw]
+        neg = torch.bmm(v.reshape(nb, pc, -1), q.transpose(1, 2))  # [nb, pc, pn]
+        n_real = pulled.mask.sum(dim=1).reshape(nb, pc, 1)
+        lam = self.negatives / pn
+        inv_b = 1.0 / (n * d * (self.window + 1))
+        loss = -inv_b * ((F.logsigmoid(pos) * pulled.mask).sum()
+                         + lam * (F.logsigmoid(-neg) * n_real).sum())
+        dv, du = torch.autograd.grad(loss, (v, u_all))
+        self._ppush(state.in_table, pulled.center_rows, dv, lr)
+        if self.dedup and self.push_mode != "bucketed":
+            # the pull's unique index: no second sort, the overflow counted once
+            transfer.push_collective_packed_dedup_spread(
+                self.mesh, state.out_table, du, self.access, lr, pulled.index)
+        else:
+            self._push_out(state.out_table, pulled.out_rows, du, lr, pulled.layout)
+        self._dropped(pulled.dropped)
+        return state, loss.detach()
+
+    def _substep_grouped_mesh(self, state: W2VState, centers: torch.Tensor,
+                              ctxs: torch.Tensor, generator: torch.Generator,
+                              lr: float, negs: Optional[torch.Tensor] = None):
+        """One substep of the grouped collective plane (the JAX trainer's
+        ``_substep_grouped_mesh``): the center-major traffic cut of the
+        grouped kernels through the collectives, as :meth:`_pull_grouped_mesh`
+        then :meth:`_push_grouped_mesh`. Row movement in a shard is the row
+        kernels' (``gather_rows`` a pull, ``scatter_add_rows`` a push), the
+        collectives one all-reduce over ``model`` a pull and the gathers over
+        ``data`` a push. ``negs`` as in :meth:`_substep_packed`. Updates both
+        tables in place and returns ``(state, loss)``."""
+        pools = self._grouped_pools(generator, centers.shape[0] * self._data(), negs)
+        pulled = self._pull_grouped_mesh(state, centers, ctxs, pools)
+        return self._push_grouped_mesh(state, pulled, lr)
+
+    def _overlap_macro(self, state: W2VState, parts, lr: float):
+        """The pipelined macro-step over the grouped plane's substeps
+        ``parts`` (``(centers, windows, pools)`` each): the ``depth`` =
+        ``min(overlap, t)`` first pulls, then substep ``i + depth``'s pull
+        against the tables before substep ``i``'s push, so substep ``i``
+        reads rows that miss the last ``depth`` substeps' updates
+        (stale-by-depth async SGD, the reference worker's outstanding pulls,
+        ``transfer.h:55-268``). The last ``depth`` pulls wrap around to the
+        first substeps and are discarded; their collectives still run, as
+        the JAX schedule's do. Returns ``(state, losses)``."""
+        t = len(parts)
+        depth = min(self.overlap, t)
+        inflight = [self._pull_grouped_mesh(state, *parts[i]) for i in range(depth)]
+        losses = []
+        for i in range(t):
+            inflight.append(self._pull_grouped_mesh(state, *parts[(i + depth) % t]))
+            state, loss = self._push_grouped_mesh(state, inflight.pop(0), lr)
+            losses.append(loss)
+        return state, losses
+
     def step_lr(self, batch: Dict) -> float:
         """The call's learning rate, in float32 as the JAX step computes it:
         ``lr * max(1 - progress, 1e-4)`` under ``lr_decay``, else ``lr``."""
@@ -694,6 +905,11 @@ class Word2VecTrainer(Trainer):
         one substep whose length is not a multiple of the substeps. Under a
         mesh the batch is this data shard's (:meth:`local_batch`: its part
         of each substep, in order) and the loss is summed over ``data``.
+        With ``push_mode: bucketed`` the metrics carry ``push_dropped``,
+        else under a mesh with ``dedup: 1`` ``dedup_dropped``: the call's
+        overflowed rows, an int32 device scalar, the same on every rank.
+        The grouped plane under a mesh with ``overlap`` and more than one
+        substep runs :meth:`_overlap_macro`.
         """
         centers, contexts = batch["centers"], batch["contexts"]
         d = self._data()
@@ -706,7 +922,10 @@ class Word2VecTrainer(Trainer):
                              f"of {b} over {d} data shards (batch_size {self.batch_size})")
         b //= d
         lr = self.step_lr(batch)
-        if self.grouped:
+        if self.grouped and self.mesh is not None:
+            # the grouped collective plane (resident: 1 has no mesh meaning)
+            substep = self._substep_grouped_mesh
+        elif self.grouped:
             substep = self._substep_grouped
         elif self.fused and self.mesh is not None:
             # flat fused has no collective plane; under a mesh the pooled
@@ -723,17 +942,36 @@ class Word2VecTrainer(Trainer):
         # remapped (rows of [t * r, ...], r a substep's)
         negs = batch.get("negs")
         r = negs.shape[0] // t if negs is not None else 0
-        losses = []
-        for i in range(t):
-            sl = slice(i * b, (i + 1) * b)
-            planned = {} if negs is None else {"negs": negs[i * r:(i + 1) * r]}
-            state, loss = substep(state, centers[sl], contexts[sl], generator, lr,
-                                  **planned)
-            losses.append(loss)
+        given = [None if negs is None else negs[i * r:(i + 1) * r] for i in range(t)]
+        self._drops = []
+        try:
+            if substep == self._substep_grouped_mesh and self.overlap and t > 1:
+                # each substep's pools drawn in order, as the substeps would
+                parts = [(centers[i * b:(i + 1) * b], contexts[i * b:(i + 1) * b],
+                          self._grouped_pools(generator, n // t, given[i]))
+                         for i in range(t)]
+                state, losses = self._overlap_macro(state, parts, lr)
+            else:
+                losses = []
+                for i in range(t):
+                    sl = slice(i * b, (i + 1) * b)
+                    planned = {} if given[i] is None else {"negs": given[i]}
+                    state, loss = substep(state, centers[sl], contexts[sl], generator,
+                                          lr, **planned)
+                    losses.append(loss)
+            drops = self._drops
+        finally:
+            self._drops = None
         loss = torch.stack(losses).mean()
         if self.mesh is not None:  # each shard's part of the global mean
             loss = transfer.all_reduce(self.mesh, loss.reshape(1), DATA_AXIS)[0]
-        return state, {"loss": loss}
+        metrics = {"loss": loss}
+        if self.push_mode == "bucketed" or (self.dedup and self.mesh is not None):
+            dropped = (torch.stack(drops).sum().to(torch.int32) if drops
+                       else torch.zeros((), dtype=torch.int32, device=loss.device))
+            key = "push_dropped" if self.push_mode == "bucketed" else "dedup_dropped"
+            metrics[key] = dropped
+        return state, metrics
 
     def substeps_of(self, batch: Dict) -> int:
         return max(batch["centers"].shape[0] // self.batch_size, 1)
@@ -758,7 +996,10 @@ class Word2VecTrainer(Trainer):
         * ``total_bytes``, under a mesh: the result bytes of this rank's
           collectives in the step (:data:`~swiftsnails_tpu_torch.parallel.transfer.COMM`
           counts the same): a substep's two pulls and two pushes over its
-          data shard's ids, and the loss's all-reduce; ``None`` on one device.
+          data shard's ids, and the loss's all-reduce; the dedup pull's and
+          push's unique lists, the bucketed pushes' buckets and dropped
+          counts, the gather of the out rows' layout, and ``overlap``'s
+          wrapped pulls where those run; ``None`` on one device.
         """
         centers = np.asarray(batch["centers"])
         contexts = np.asarray(batch["contexts"])
@@ -794,22 +1035,51 @@ class Word2VecTrainer(Trainer):
 
     def _collective_bytes(self, t: int, b: int) -> Optional[int]:
         """Result bytes of a step's collectives on this rank (see
-        :meth:`step_cost`): ``t`` substeps of ``b`` pairs."""
+        :meth:`step_cost`): ``t`` substeps of ``b`` items (pairs, or the
+        grouped plane's centers) over all data shards."""
         if self.mesh is None:
             return None
-        d = self._data()
+        d, model = self._data(), self.mesh.axis_size(MODEL_AXIS)
         bl = b // d
-        if self.packed:
-            row = -(-self.dim // 128) * 128
-        else:
-            row = self.dim
+        row = -(-self.dim // 128) * 128 if self.packed else self.dim
         elem = torch.empty((), dtype=self.table_dtype).element_size()
+        ids, f32 = 4, 4
+        bucketed = self.push_mode == "bucketed"
+
+        def push(n):  # a push of this rank's n rows, its data slice
+            if bucketed:  # buckets' ids and gradients gathered; the dropped count
+                cap = transfer.bucket_capacity(n, model, self.bucket_slack)
+                return d * cap * (ids + f32 * row) + 2 * ids
+            return transfer.push_bytes(n, row, d)
+
+        def push_out(n):  # the out push of n slots a rank, over the layout
+            if bucketed:
+                return d * transfer.bucket_capacity(n, model, self.bucket_slack) * f32 * row
+            return transfer.push_bytes(n, row, d)
+
+        if self.grouped:
+            cw = 2 * self.window
+            out = bl * cw + (bl // self._effective_pc(b)) * self.pool_size
+            # the layout's gather of every shard's window slots
+            layout = d * bl * cw * ids if (self.dedup or bucketed) else 0
+            pull = transfer.pull_bytes(bl, row, elem) + layout
+            if self.dedup:
+                cap = self._out_u_cap(b)
+                pull += d * cap * row * elem
+                push_o = push_out(out) if bucketed else d * cap * row * f32
+            else:
+                pull += transfer.pull_bytes(out, row, elem)
+                push_o = push_out(out)
+            # overlap: the first depth pulls and t in the loop
+            pulls = t + (min(self.overlap, t) if self.overlap and t > 1 else 0)
+            return pulls * pull + t * (push(bl) + push_o) + 4  # + the loss's all-reduce
         if self.packed and self.neg_mode == "pool":
             out = bl + (bl // self.pool_geometry(b)[0]) * self.pool_size
         else:
             out = bl * (1 + self.negatives)
-        per = sum(transfer.pull_bytes(n, row, elem) + transfer.push_bytes(n, row, d)
-                  for n in (bl, out))
+        layout = d * bl * ids if bucketed else 0  # the contexts' gather
+        per = (transfer.pull_bytes(bl, row, elem) + transfer.pull_bytes(out, row, elem)
+               + push(bl) + push_out(out) + layout)
         return t * per + 4  # the loss's all-reduce
 
     # -- export (ServerTerminate parity: text dump of the table) -----------

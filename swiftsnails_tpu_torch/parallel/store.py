@@ -229,20 +229,35 @@ def merge_duplicate_rows(
     atomics); on the CPU it is ``index_add_``, which is serial there.
     """
     n = rows.shape[0]
-    order = torch.argsort(rows, stable=True)
-    r = rows[order]
-    g = grads[order]
-    head = torch.ones(n, dtype=torch.bool, device=rows.device)
-    head[1:] = r[1:] != r[:-1]
-    seg = torch.cumsum(head, 0) - 1  # [n] int64, segment id per sorted slot
-    merged = torch.zeros_like(grads)
-    if grads.device.type == "cuda":
-        merged.index_put_((seg,), g, accumulate=True)
-    else:
-        merged.index_add_(0, seg, g)
+    order, r, seg = sort_segments(rows)
+    merged = segment_sum(grads[order], seg, n)
     uniq = torch.full((n,), invalid_row, dtype=rows.dtype, device=rows.device)
     uniq.scatter_(0, seg, r)  # duplicate writes carry equal values
     return uniq, merged
+
+
+def sort_segments(rows: torch.Tensor):
+    """``(order, sorted_rows, seg)``: a stable sort of ``rows``, and the
+    distinct id's rank of each sorted slot (int64, from 0), with no host
+    sync."""
+    order = torch.argsort(rows, stable=True)
+    r = rows[order]
+    head = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    head[1:] = r[1:] != r[:-1]
+    return order, r, torch.cumsum(head, 0) - 1
+
+
+def segment_sum(values: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
+    """``[num, ...]``: the rows of ``values`` summed by segment id ``seg``
+    (each in ``[0, num)``). Deterministic on both devices: ``index_put_`` with
+    ``accumulate=True`` on the card (a sort-based kernel, not atomics),
+    ``index_add_`` on the CPU, which is serial there."""
+    out = values.new_zeros((num, *values.shape[1:]))
+    if values.device.type == "cuda":
+        out.index_put_((seg.long(),), values, accumulate=True)
+    else:
+        out.index_add_(0, seg.long(), values)
+    return out
 
 
 def pull_packed(state: PackedTableState, rows: torch.Tensor) -> torch.Tensor:

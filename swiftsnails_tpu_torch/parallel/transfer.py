@@ -25,6 +25,34 @@ the packed plane's is ``pull_packed`` / ``push_packed``, which launch
 ``gather_rows`` and ``scatter_add_rows`` on the card. A ``comm_dtype``
 other than f32 (the JAX codecs) raises.
 
+The static-capacity planes of the packed tables, as in the JAX package:
+
+* **dedup** (:func:`pull_collective_packed_dedup`,
+  :func:`push_collective_packed_dedup`): a data shard moves each distinct
+  row once, through a sorted unique list of ``u_cap`` entries
+  (:func:`_unique_static`); the push merges into that list before the
+  gather;
+* **owner-bucketed push** (:func:`push_collective_packed_bucketed`): merge
+  locally, keep the rows the model shard owns in a static bucket of
+  :func:`bucket_capacity` entries (:func:`_compact_owned`), gather the
+  buckets over ``data``.
+
+Rows beyond a cap overflow (a zero pull, a dropped gradient for the step);
+the count comes back as a device scalar, summed over the mesh. The merges
+are the deterministic segment sum of :func:`~swiftsnails_tpu_torch.parallel.store.segment_sum`.
+
+Those functions take this rank's part of the JAX package's ``P(data)``
+operand, which is what a data shard holds of an array sharded row-wise.
+The JAX word2vec trainer's out rows are not such an array: it concatenates
+the whole batch's context rows and then the pools (``_id_cat``), and the
+``shard_map`` splits that concatenation into contiguous chunks over
+``data``, so a chunk holds other shards' windows. The ``*_spread``
+variants take the whole array on every rank (:class:`DataLayout`: the
+ids are small) and this rank's slots in it: each rank computes every
+chunk's unique list or buckets from the ids, and adds its own slots'
+gradients into them, which one all-reduce over ``data`` sums. The chunks,
+caps and overflow counts are the JAX package's.
+
 :data:`COMM` counts each collective and the bytes of its result on this
 rank, at the call site: ``Trainer.step_cost`` reports the same count for a
 step as ``total_bytes``.
@@ -32,7 +60,7 @@ step as ``total_bytes``.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -42,10 +70,13 @@ from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from swiftsnails_tpu_torch.parallel.store import (
     PackedTableState,
     TableState,
+    merge_duplicate_rows,
     pull,
     pull_packed,
     push,
     push_packed,
+    segment_sum,
+    sort_segments,
 )
 
 F32_WIRE = ("float32", "f32", "fp32")
@@ -111,15 +142,25 @@ def _owned(mesh: Mesh, rows: torch.Tensor, per: int):
     return local, (local >= 0) & (local < per)
 
 
+def _mask_owned(mesh: Mesh, rows_all: torch.Tensor, grads_all: torch.Tensor, per: int):
+    """Shard-local ids of ``rows_all``, the unowned ones sent past the
+    shard's rows with a zero gradient: each to an id of its own (``per +
+    i``), so that the push's merge, a sort-based segment sum on the card,
+    meets no long run of them (a grouped window's pads are ~40% of its
+    slots). The push skips every id at or past ``per``."""
+    local, owned = _owned(mesh, rows_all, per)
+    spare = per + torch.arange(local.shape[0], dtype=local.dtype, device=local.device)
+    local = torch.where(owned, local, spare)
+    mask = owned.reshape(owned.shape + (1,) * (grads_all.dim() - 1))
+    return local, grads_all.masked_fill(~mask, 0)
+
+
 def _gather_owned(mesh: Mesh, rows: torch.Tensor, grads: torch.Tensor, per: int):
     """The push's exchange: ids and gradients of every data shard, the
     unowned ids sent to the padding row ``per`` with a zero gradient."""
     rows_all = all_gather(mesh, rows, DATA_AXIS)
     grads_all = all_gather(mesh, grads, DATA_AXIS)
-    local, owned = _owned(mesh, rows_all, per)
-    local = torch.where(owned, local, per)
-    mask = owned.reshape(owned.shape + (1,) * (grads_all.dim() - 1))
-    return local, grads_all.masked_fill(~mask, 0)
+    return _mask_owned(mesh, rows_all, grads_all, per)
 
 
 def pull_collective(mesh: Mesh, state: TableState, rows: torch.Tensor,
@@ -168,3 +209,265 @@ def push_collective_packed(mesh: Mesh, state: PackedTableState, rows: torch.Tens
 def gather_table(mesh: Mesh, table: torch.Tensor) -> torch.Tensor:
     """The whole table from its model shards (export and eval)."""
     return all_gather(mesh, table, MODEL_AXIS)
+
+
+# ------------------------------------------- dedup and bucketed planes ---
+
+
+def _invalid_row(mesh: Mesh, state: PackedTableState) -> int:
+    """The padding id: the whole table's capacity, which no shard owns."""
+    return state.capacity * mesh.axis_size(MODEL_AXIS)
+
+
+def _scalar(t: torch.Tensor) -> torch.Tensor:
+    """A count as the metrics carry it: an int32 device scalar."""
+    return t.to(torch.int32).reshape(())
+
+
+def _count_over(mesh: Mesh, count: torch.Tensor, *axes: str) -> torch.Tensor:
+    """``count`` summed over each of ``axes`` in turn (one all-reduce of
+    an int32 each)."""
+    count = count.to(torch.int32).reshape(1)
+    for axis in axes:
+        count = all_reduce(mesh, count, axis)
+    return _scalar(count)
+
+
+def bucket_capacity(local_n: int, model: int, slack: float) -> int:
+    """Static bucket size a sender a model shard for the owner-bucketed push.
+
+    Under hashed (uniform) placement a shard owns about ``local_n / model``
+    of a sender's distinct rows; the cap is ``slack`` times that, rounded up
+    to a multiple of 8 (at least 8) and clamped to ``local_n``, where the
+    bucketed push is the exact gather push. One model shard: ``local_n``."""
+    if model <= 1:
+        return local_n
+    cap = -(-int(slack * local_n) // model)
+    cap = max(-(-cap // 8) * 8, 8)
+    return min(cap, local_n)
+
+
+def _owned_first(uniq: torch.Tensor, m: int, per: int):
+    """``(owned, order)``: which ids of ``uniq`` model shard ``m`` owns, and
+    the positions of ``uniq`` with the owned ones first, each group in its
+    order (a stable sort)."""
+    local = uniq - m * per
+    owned = (local >= 0) & (local < per)
+    order = torch.argsort((~owned).to(torch.uint8), stable=True)
+    return owned, order
+
+
+def _owned_overflow(uniq: torch.Tensor, per: int, model: int, cap: int) -> torch.Tensor:
+    """The distinct rows of ``uniq`` past each model shard's cap, summed
+    over the shards (ids at or past ``per * model`` are padding)."""
+    owner = torch.where(uniq < per * model, uniq // per, model).long()
+    counts = torch.zeros(model + 1, dtype=torch.int64, device=uniq.device)
+    counts.scatter_add_(0, owner, torch.ones_like(owner))
+    return (counts[:model] - cap).clamp(min=0).sum()
+
+
+def _compact_owned(uniq: torch.Tensor, merged: torch.Tensor, m: int, per: int,
+                   cap: int, invalid: int):
+    """The rows of a merged batch (``uniq``, ``merged``) that model shard
+    ``m`` owns, owned first in order, in a static ``[cap]`` bucket padded
+    with ``invalid`` and zero gradients. Returns ``(rows, grads,
+    overflow)``: the owned rows that did not fit are dropped."""
+    owned, order = _owned_first(uniq, m, per)
+    take = order[:cap]
+    ok = owned[take]
+    rows = torch.where(ok, uniq[take], invalid)
+    grads = merged[take].masked_fill(~ok.reshape(-1, *[1] * (merged.dim() - 1)), 0)
+    return rows, grads, (owned.sum() - cap).clamp(min=0)
+
+
+def _unique_static(rows: torch.Tensor, cap: int, invalid: int):
+    """Static-size dedup: ``(uniq [cap], inv [n], overflow)``. ``uniq``
+    holds the distinct ids ascending, ``invalid`` past their count;
+    ``inv[i]`` is the position of ``rows[i]`` in ``uniq``, or ``cap`` where
+    its id did not fit; ``overflow`` counts the distinct ids that did not."""
+    n = rows.shape[0]
+    order, r, grp = sort_segments(rows)
+    slot = grp.clamp(max=cap)
+    uniq = torch.full((cap + 1,), invalid, dtype=rows.dtype, device=rows.device)
+    uniq.scatter_(0, slot, r)  # a group's writes carry equal ids; slot cap is cut
+    inv = torch.empty(n, dtype=torch.int32, device=rows.device)
+    inv[order] = slot.to(torch.int32)
+    return uniq[:cap], inv, (grp[-1] + 1 - cap).clamp(min=0)
+
+
+def _merge_into(grads: torch.Tensor, idx: torch.Tensor, n: int,
+                junk: torch.Tensor) -> torch.Tensor:
+    """``[n, ...]``: the rows of ``grads`` summed by ``idx`` (each in ``[0,
+    n)`` where not ``junk``). A junk slot (an overflowed or dropped one,
+    or a padding id's, whose gradient no shard applies) goes to a discard
+    row of its own, so that no long run of them serializes the card's
+    sort-based segment sum."""
+    pos = torch.arange(idx.shape[0], dtype=torch.int64, device=idx.device)
+    k = torch.where(junk, n + pos, idx.long())
+    return segment_sum(grads, k, n + idx.shape[0])[:n]
+
+
+def _junk(uniq: torch.Tensor, inv: torch.Tensor, invalid: int) -> torch.Tensor:
+    """The slots whose id overflowed its unique list (``inv == len(uniq)``)
+    or is a padding id, which no shard owns."""
+    ext = torch.cat([uniq, uniq.new_full((1,), invalid)])
+    return ext[inv.long()] >= invalid
+
+
+def _expand(vals: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """The rows of ``vals`` at ``inv``; ``inv == len(vals)`` reads zeros."""
+    ext = torch.cat([vals, vals.new_zeros((1, *vals.shape[1:]))])
+    return ext.index_select(0, inv)
+
+
+def pull_collective_packed_dedup(mesh: Mesh, state: PackedTableState, rows: torch.Tensor,
+                                 u_cap: int, comm_dtype: str = "float32"):
+    """Dedup'd sharded packed gather of this data shard's ``rows``: the
+    unique list's owned rows pulled on this shard, summed over ``model``
+    (``u_cap`` rows), expanded back to the slots. Returns ``(vals [N, S,
+    128], (uniq, inv), overflow)``: an overflowed slot reads a zero row;
+    ``overflow`` is summed over ``data``. Pass ``(uniq, inv)`` to
+    :func:`push_collective_packed_dedup` for the same ``rows``."""
+    check_comm_dtype(comm_dtype)
+    uniq, inv, overflow = _unique_static(rows, u_cap, _invalid_row(mesh, state))
+    vals = pull_collective_packed(mesh, state, uniq)
+    return _expand(vals, inv), (uniq, inv), _count_over(mesh, overflow, DATA_AXIS)
+
+
+def push_collective_packed_dedup(mesh: Mesh, state: PackedTableState, rows: torch.Tensor,
+                                 grads: torch.Tensor, access: AccessMethod, lr, u_cap: int,
+                                 index=None, comm_dtype: str = "float32"):
+    """Sender-dedup'd packed push: this data shard's gradients merged into
+    its unique list before the gather over ``data``, then the shard-local
+    push of the owned rows. Returns ``(state, dropped)``.
+
+    ``index``: the ``(uniq, inv)`` of :func:`pull_collective_packed_dedup`
+    over the same ``rows``; the sort is skipped and ``dropped`` is 0, the
+    pull having counted the overflow."""
+    check_comm_dtype(comm_dtype)
+    invalid = _invalid_row(mesh, state)
+    if index is not None:
+        (uniq, inv), dropped = index, torch.zeros((), dtype=torch.int32, device=rows.device)
+    else:
+        uniq, inv, overflow = _unique_static(rows, u_cap, invalid)
+        dropped = _count_over(mesh, overflow, DATA_AXIS)
+    merged = _merge_into(grads, inv, u_cap, _junk(uniq, inv, invalid))
+    local, grads_all = _gather_owned(mesh, uniq, merged, state.capacity)
+    push_packed(state, local, grads_all, access, lr)
+    return state, dropped
+
+
+def push_collective_packed_bucketed(mesh: Mesh, state: PackedTableState, rows: torch.Tensor,
+                                    grads: torch.Tensor, access: AccessMethod, lr,
+                                    slack: float = 2.0, comm_dtype: str = "float32"):
+    """Owner-bucketed packed push of this data shard's ``[N, S, 128]``
+    gradients: merged locally, this model shard's owned rows compacted into
+    a static bucket (:func:`bucket_capacity` of ``N``), the buckets gathered
+    over ``data``, the shard-local push. Returns ``(state, dropped)``, the
+    rows past the caps summed over ``data`` and ``model``."""
+    check_comm_dtype(comm_dtype)
+    model, invalid = mesh.axis_size(MODEL_AXIS), _invalid_row(mesh, state)
+    cap = bucket_capacity(rows.shape[0], model, slack)
+    uniq, merged = merge_duplicate_rows(rows, grads, invalid_row=invalid)
+    b_rows, b_grads, overflow = _compact_owned(
+        uniq, merged, mesh.axis_index(MODEL_AXIS), state.capacity, cap, invalid)
+    local, grads_all = _gather_owned(mesh, b_rows, b_grads, state.capacity)
+    push_packed(state, local, grads_all, access, lr)
+    return state, _count_over(mesh, overflow, DATA_AXIS, MODEL_AXIS)
+
+
+class DataLayout(NamedTuple):
+    """An id array split over ``data`` in contiguous chunks that no rank
+    holds alone: ``rows``, the whole array, the same on every rank;
+    ``mine``, the positions in it of this rank's slots, in the order of the
+    rank's own rows (its pulled values and its gradients)."""
+
+    rows: torch.Tensor
+    mine: torch.Tensor
+
+
+def data_layout(mesh: Mesh, sharded: torch.Tensor, whole: torch.Tensor) -> DataLayout:
+    """The layout of ``cat([S, whole])``, where ``S`` is data-sharded and
+    ``sharded`` is this rank's contiguous slice of it (gathered here, one
+    all-gather of ids over ``data``), and ``whole`` an array every rank
+    holds whole whose contiguous data slices are the ranks' own. This rank's
+    slots: its slice of ``S``, then its slice of ``whole``."""
+    d, i = mesh.axis_size(DATA_AXIS), mesh.axis_index(DATA_AXIS)
+    a, b = sharded.shape[0], whole.shape[0] // d
+    dev = sharded.device
+    rows = torch.cat([all_gather(mesh, sharded, DATA_AXIS), whole.to(sharded.dtype)])
+    mine = torch.cat([torch.arange(i * a, (i + 1) * a, device=dev),
+                      torch.arange(d * a + i * b, d * a + (i + 1) * b, device=dev)])
+    return DataLayout(rows=rows, mine=mine)
+
+
+def pull_collective_packed_dedup_spread(mesh: Mesh, state: PackedTableState,
+                                        layout: DataLayout, u_cap: int):
+    """:func:`pull_collective_packed_dedup` over a :class:`DataLayout`:
+    each chunk's unique list as the JAX package's data shard makes it, all
+    of them pulled on every rank (their owned rows, one all-reduce over
+    ``model`` of ``D * u_cap`` rows), expanded to this rank's slots.
+    Returns ``(vals, index, overflow)``, the overflow of every chunk
+    summed; ``index`` is for :func:`push_collective_packed_dedup_spread`."""
+    d, invalid = mesh.axis_size(DATA_AXIS), _invalid_row(mesh, state)
+    uniqs, invs, overflow = [], [], 0
+    for j, chunk in enumerate(layout.rows.chunk(d)):
+        uniq, inv, over = _unique_static(chunk, u_cap, invalid)
+        uniqs.append(uniq)
+        invs.append(torch.where(inv < u_cap, inv + j * u_cap, d * u_cap))
+        overflow = overflow + over
+    uniq = torch.cat(uniqs)
+    slots = torch.cat(invs)[layout.mine]
+    vals = pull_collective_packed(mesh, state, uniq)
+    return _expand(vals, slots), (uniq, slots), _scalar(overflow)
+
+
+def push_collective_packed_dedup_spread(mesh: Mesh, state: PackedTableState,
+                                        grads: torch.Tensor, access: AccessMethod, lr,
+                                        index) -> PackedTableState:
+    """The push of :func:`pull_collective_packed_dedup_spread`'s slots:
+    this rank's gradients added into every chunk's unique list, summed over
+    ``data`` (one all-reduce: what the JAX package's gather of the merged
+    lists yields), the shard-local push of the owned rows."""
+    uniq, slots = index
+    n = uniq.shape[0]
+    junk = _junk(uniq, slots, _invalid_row(mesh, state))
+    merged = all_reduce(mesh, _merge_into(grads, slots, n, junk), DATA_AXIS)
+    local, merged = _mask_owned(mesh, uniq, merged, state.capacity)
+    return push_packed(state, local, merged, access, lr)
+
+
+def push_collective_packed_bucketed_spread(mesh: Mesh, state: PackedTableState,
+                                           layout: DataLayout, grads: torch.Tensor,
+                                           access: AccessMethod, lr, slack: float = 2.0):
+    """:func:`push_collective_packed_bucketed` over a :class:`DataLayout`:
+    each chunk merged and bucketed for this model shard as the JAX
+    package's data shard does it, this rank's gradients added into the
+    buckets, summed over ``data`` (one all-reduce), the shard-local push.
+    Returns ``(state, dropped)``: every chunk's rows past every model
+    shard's cap, counted from the ids on each rank."""
+    d, model = mesh.axis_size(DATA_AXIS), mesh.axis_size(MODEL_AXIS)
+    m, per, invalid = mesh.axis_index(MODEL_AXIS), state.capacity, _invalid_row(mesh, state)
+    n = layout.rows.shape[0] // d
+    cap = bucket_capacity(n, model, slack)
+    b_rows, b_slots, dropped = [], [], 0
+    for j, chunk in enumerate(layout.rows.chunk(d)):
+        order, r, seg_sorted = sort_segments(chunk)
+        seg = torch.empty_like(seg_sorted)
+        seg[order] = seg_sorted  # each slot's distinct id
+        uniq = torch.full((n,), invalid, dtype=chunk.dtype, device=chunk.device)
+        uniq.scatter_(0, seg_sorted, r)
+        owned, first = _owned_first(uniq, m, per)
+        rank = torch.empty_like(first)
+        rank[first] = torch.arange(n, device=chunk.device)
+        take = owned & (rank < cap)  # the distinct ids in this shard's bucket
+        slot = torch.where(take, rank, cap)[seg]
+        b_slots.append(torch.where(slot < cap, slot + j * cap, d * cap))
+        b_rows.append(torch.where(owned[first[:cap]], uniq[first[:cap]], invalid))
+        dropped = dropped + _owned_overflow(uniq, per, model, cap)
+    slots = torch.cat(b_slots)[layout.mine]
+    grads_all = all_reduce(mesh, _merge_into(grads, slots, d * cap, slots >= d * cap),
+                           DATA_AXIS)
+    local, grads_all = _mask_owned(mesh, torch.cat(b_rows), grads_all, per)
+    push_packed(state, local, grads_all, access, lr)
+    return state, _scalar(dropped)

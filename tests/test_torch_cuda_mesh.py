@@ -1,6 +1,6 @@
-"""The mesh's collectives and meshed word2vec on the card, under a
-``(1, 1)`` mesh of a one-rank NCCL group (NCCL puts no two ranks on one
-card; the multi-rank meshes are the gloo tests on the CPU and
+"""The mesh's collectives, meshed word2vec and its grouped plane on the
+card, under a ``(1, 1)`` mesh of a one-rank NCCL group (NCCL puts no two
+ranks on one card; the multi-rank meshes are the gloo tests on the CPU and
 ``chip_smoke.py``'s ``mesh`` phase).
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
@@ -83,3 +83,35 @@ def test_meshed_word2vec_is_the_unmeshed_run(nccl_mesh, over):
                         log_every=0).run(max_steps=4) for m in (None, nccl_mesh)]
     for a, b in zip(*states):
         assert torch.equal(a.table, b.table)
+
+
+@pytest.mark.parametrize("route", ["grouped", "dedup", "overlap1"])
+def test_grouped_plane_is_the_cpu_port(nccl_mesh, route):
+    """The grouped collective plane (plain, dedup, ``overlap: 1``) on the
+    one-rank NCCL mesh at the CPU tests' size (``torch_mesh_ranks``'s
+    grouped routes: 3 calls from one start, windows with ``-1`` pads, the
+    same pools) against the port on a one-rank gloo mesh on the CPU: tables
+    and losses within rtol 1e-5 / atol 1e-6, the same dropped counts;
+    ``gather_rows`` and ``scatter_add_rows`` launched once a pull and once a
+    push (2 a substep each; ``overlap`` adds one pull a call)."""
+    import torch.distributed as dist
+
+    import torch_mesh_ranks as ranks
+    from swiftsnails_tpu_torch.parallel.mesh import Mesh
+
+    group = dist.new_group([0], backend="gloo")
+    cpu_mesh = Mesh(shape={"data": 1, "model": 1}, coords={"data": 0, "model": 0},
+                    groups={"data": group, "model": group}, device=torch.device("cpu"))
+    want = ranks.grouped_route(cpu_mesh, route)
+    g0, s0 = rowdma.gather_rows.launches, rowdma.scatter_add_rows.launches
+    got = ranks.grouped_route(nccl_mesh, route)
+    torch.cuda.synchronize()
+    t = int(ranks.GROUPED_ROUTES[route].get("steps_per_call", "1"))
+    pulls = ranks.GROUPED_STEPS * (t + int(ranks.GROUPED_ROUTES[route].get("overlap", "0")))
+    assert rowdma.gather_rows.launches - g0 == 2 * pulls
+    assert rowdma.scatter_add_rows.launches - s0 == 2 * ranks.GROUPED_STEPS * t
+    for a, b in zip(got["tables"], want["tables"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5, atol=1e-6)
+    assert got["dropped"] == want["dropped"]
+    assert all(c == p for c, p in got["counted"])

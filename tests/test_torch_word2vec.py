@@ -323,16 +323,18 @@ def test_packed_pool_loss_decreases():
 
 # (key, value, other keys of the case). ``fused``, ``grouped``, ``resident``
 # and ``dedup`` are ported; their cases ask for a path still to port on top.
-# ``packed``, ``neg_mode``, ``stream`` and ``table_tier`` are ported too: for them the test
-# holds that the trainer takes the key (see ``_PORTED``).
+# ``packed``, ``neg_mode``, ``stream``, ``table_tier``, ``overlap`` and
+# ``push_mode`` are ported too: for them the test holds that the trainer
+# takes the key (see ``_PORTED``).
 _UNPORTED_CASES = [
     ("packed", 0, {}), ("neg_mode", "per_pair", {}),
-    ("fused", 1, {"grouped": 1, "resident": 1, "overlap": 1}),
+    ("fused", 1, {"grouped": 1, "resident": 1, "comm_dtype": "int8"}),
     ("grouped", 1, {"fused": 1, "dedup": 1, "comm_dtype": "bfloat16"}),
     ("resident", 1, {"fused": 1, "grouped": 1, "placement": "hybrid"}),
     ("dedup", 1, {"fused": 1, "grouped": 1, "placement": "hybrid"}),
     ("table_tier", "host", {}),
-    ("comm_dtype", "bfloat16", {}), ("placement", "hybrid", {}), ("overlap", 1, {}),
+    ("comm_dtype", "bfloat16", {}), ("placement", "hybrid", {}),
+    ("overlap", 1, {"fused": 1, "grouped": 1}),
     ("push_mode", "bucketed", {}), ("stream", 1, {}),
     ("optimizer_sharding", "zero", {}),
 ]
@@ -344,6 +346,8 @@ _PORTED = {
     "neg_mode": lambda tr: tr.packed and tr.neg_mode == "per_pair",
     "stream": lambda tr: tr.stream,
     "table_tier": lambda tr: tr.tiered and tr.tier_spec() is not None,
+    "overlap": lambda tr: tr.overlap == 1 and tr.grouped,
+    "push_mode": lambda tr: tr.push_mode == "bucketed",
 }
 
 
@@ -401,16 +405,20 @@ def test_unported_loop_keys_raise(key, value):
 
 
 def test_mesh_raises():
-    """A mesh trains the flat paths (``tests/test_torch_word2vec_mesh.py``);
-    the grouped mesh family is not ported and raises, and a mesh must be a
+    """A mesh trains the flat paths (``tests/test_torch_word2vec_mesh.py``)
+    and the grouped family (``tests/test_torch_grouped_mesh.py``); the tier
+    is not ported under a mesh and raises, and a mesh must be a
     ``parallel.mesh.Mesh``."""
     from swiftsnails_tpu_torch.parallel.mesh import Mesh
 
     words, counts, ids = _corpus(200)
     mesh = Mesh(shape={"data": 1, "model": 1}, coords={"data": 0, "model": 0},
                 groups={}, device=torch.device("cpu"))
+    tr = word2vec.Word2VecTrainer(Config(_conf(fused="1", grouped="1")), mesh=mesh,
+                                  corpus_ids=ids, vocab=Vocab(words, counts), device="cpu")
+    assert tr.grouped and tr.mesh is mesh
     with pytest.raises(NotImplementedError, match="mesh"):
-        word2vec.Word2VecTrainer(Config(_conf(fused="1", grouped="1")), mesh=mesh,
+        word2vec.Word2VecTrainer(Config(_conf(table_tier="host")), mesh=mesh,
                                  corpus_ids=ids, vocab=Vocab(words, counts), device="cpu")
     with pytest.raises(TypeError, match="mesh"):
         word2vec.Word2VecTrainer(Config(_conf()), mesh=object(), corpus_ids=ids,

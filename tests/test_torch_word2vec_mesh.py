@@ -14,7 +14,8 @@ the port's flat fused route is held against the one-device packed+pool
 step. Tables and losses within rtol 1e-5 / atol 1e-6. Then ``TrainLoop``
 with two substeps a call against the one-device loop, ``export_text``
 written once, ``step_cost``'s collective bytes against the counted ones,
-and the keys that still raise under a mesh.
+and the keys that still raise under a mesh (the grouped plane, the
+bucketed push and ``overlap``: ``tests/test_torch_grouped_mesh.py``).
 """
 
 import numpy as np
@@ -153,12 +154,8 @@ def _hand_mesh(data=2, model=2):
 
 
 @pytest.mark.parametrize("over", [
-    {"fused": "1", "grouped": "1"},
-    {"fused": "1", "grouped": "1", "resident": "1"},
-    {"fused": "1", "grouped": "1", "dedup": "1"},
-    {"fused": "1", "grouped": "1", "dedup": "1", "resident": "1"},
-    {"push_mode": "bucketed"}, {"overlap": "1"}, {"comm_dtype": "bfloat16"},
-    {"comm_dtype": "int8"}, {"placement": "hybrid"}, {"table_tier": "host"},
+    {"comm_dtype": "bfloat16"}, {"comm_dtype": "int8"}, {"placement": "hybrid"},
+    {"table_tier": "host"},
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_keys_raise_under_a_mesh(over):
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):

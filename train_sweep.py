@@ -12,16 +12,19 @@ the first and of the last 5 steps, and for fused-grouped the same for the
 loss per real pair (its loss is normalized by the expected pair count
 N * (window + 1), so each batch's real pair count moves it by ~1%). The
 ``sequential`` rows run fused-hogwild with its kernel replaced by the plain
-version, whose blocks run in order as the TPU kernel's do. Run from the
-root of the repository on a machine with a card; it is what chose
-``chip_smoke.py``'s ``FUSED_LR``, ``MERGED_LR`` and corpus for the fused
-paths.
+version, whose blocks run in order as the TPU kernel's do. The
+``mesh_grouped`` rows run fused-grouped's config under a ``(1, 1)`` mesh of
+a one-rank NCCL group, which is the grouped collective plane (the merged
+update, no kernel of its own). Run from the root of the repository on a
+machine with a card; it is what chose ``chip_smoke.py``'s ``FUSED_LR``,
+``MERGED_LR``, ``MESH_GROUPED_LR`` and corpus for the fused paths.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 
 import numpy as np
 import torch
@@ -35,7 +38,7 @@ GRID = {
     "grouped": [(lr, spc) for lr in (100.0, 410.0, 1600.0, 4800.0) for spc in (1, 8)],
     "sequential": [(100.0, 1), (410.0, 1)],
     **{path: [(lr, 8) for lr in (100.0, 410.0, 1600.0)]
-       for path in ("resident", "dedup", "dedup_res")},
+       for path in ("resident", "dedup", "dedup_res", "mesh_grouped")},
 }
 _GROUPED = {"fused": 1, "grouped": 1, "batch_size": cs.GROUPED_BATCH,
             "centers_per_block": cs.CENTERS_PER_BLOCK}
@@ -44,11 +47,28 @@ CONFIG = {
     "fused": {"fused": 1, "batch_size": cs.BATCH},
     "sequential": {"fused": 1, "batch_size": cs.BATCH},
     "grouped": _GROUPED,
+    "mesh_grouped": _GROUPED,
     "resident": {**_GROUPED, "resident": 1, "hot_rows": cs.HOT_ROWS},
     "dedup": {**_GROUPED, "dedup": 1, "u_cap": cs.U_CAP},
     "dedup_res": {**_GROUPED, "dedup": 1, "u_cap": cs.U_CAP, "resident": 1,
                   "hot_rows": cs.COMPOSED_HOT_ROWS},
 }
+
+
+_MESH = []  # the (1, 1) NCCL mesh of the mesh_grouped rows, made at first use
+
+
+def _mesh():
+    if not _MESH:
+        import torch.distributed as dist
+
+        from swiftsnails_tpu_torch.parallel.mesh import make_mesh
+
+        init = f"file://{tempfile.mkdtemp(prefix='ssn-sweep-')}/rendezvous"
+        dist.init_process_group("nccl", init_method=init, rank=0, world_size=1,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        _MESH.append(make_mesh({"data": 1, "model": 1}))
+    return _MESH[0]
 
 
 def run(path: str, lr: float, spc: int, corpus, seed: int, steps: int) -> dict:
@@ -65,7 +85,8 @@ def run(path: str, lr: float, spc: int, corpus, seed: int, steps: int) -> dict:
                   "num_iters": "1", "seed": str(seed), "learning_rate": str(lr),
                   "steps_per_call": str(spc),
                   **{k: str(v) for k, v in CONFIG[path].items()}})
-    trainer = word2vec.Word2VecTrainer(cfg, corpus_ids=ids, vocab=vocab)
+    trainer = word2vec.Word2VecTrainer(cfg, mesh=_mesh() if path == "mesh_grouped" else None,
+                                       corpus_ids=ids, vocab=vocab)
     records = []
 
     class Recorder(MetricsLogger):
@@ -113,6 +134,10 @@ def main() -> int:
                                   "lr": lr, "steps_per_call": spc, **res}), flush=True)
                 torch.cuda.empty_cache()
     print(cs.phase_env()["nvidia_smi"])
+    if _MESH:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 
