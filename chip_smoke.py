@@ -4891,6 +4891,16 @@ def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) ->
                           "launches": launches,
                           "dropped": [r.get("dedup_dropped") for r in records]}
             del state
+        wd = _mesh_ctr_run(seed, _mesh_gloo_ctr_data(seed), mesh, MESH_GLOO_CTR_STEPS,
+                           over=MESH_GLOO_CTR_OVER,
+                           param_backup_root=os.path.join(out_dir, "ck-gloo-widedeep"),
+                           param_backup_period=MESH_GLOO_CTR_STEPS)
+        out["widedeep"] = {"state": {k: t.cpu() for k, t in _tensor_items(wd["state"])},
+                           "losses": wd["losses"], "launches": wd["launches"]}
+        del wd
+        seq = make_mesh(MESH_SEQLM, device=MESH_SEQLM_DEVICE)
+        out["seqlm"] = _mesh_seqlm_run(seed, MESH_SEQLM_DEVICE, seq)
+        out["seq_coords"] = seq.coords
         dist.destroy_process_group()
     except Exception:
         out = {"error": traceback.format_exc()}
@@ -4982,14 +4992,24 @@ def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
                           "launches_by_rank": [{k: r[route]["launches"][k]
                                                 for k in want_launches} for r in results]}
         torch.cuda.empty_cache()
+    widedeep = _mesh_gloo_widedeep(seed, by, solo, tmp)
+    seqlm = _mesh_gloo_seqlm(seed, results)
     return {"device": MESH_GLOO_DEVICE, "backend": results[0]["backend"],
             "mesh": MESH_GLOO, "ranks": size, "steps": MESH_GLOO_STEPS,
+            "widedeep": widedeep, "seqlm": seqlm,
             "reduced": {"vocab": [MESH_GLOO_VOCAB, VOCAB],
                         "batch": [MESH_GLOO_BATCH, BATCH],
                         "grouped_centers": [MESH_GLOO_BATCH, GROUPED_BATCH],
                         "grouped_steps_per_call": [MESH_GLOO_SPC, FUSED_STEPS_PER_CALL],
                         "steps": [MESH_GLOO_STEPS, MESH_STEPS],
-                        "corpus_tokens": [MESH_GLOO_TOKENS, N_TOKENS]},
+                        "corpus_tokens": [MESH_GLOO_TOKENS, N_TOKENS],
+                        "widedeep_capacity": [MESH_GLOO_CTR_CAPACITY,
+                                              _widedeep_config(seed).get_int("capacity")],
+                        "widedeep_batch": [MESH_GLOO_BATCH,
+                                           _widedeep_config(seed).get_int("batch_size")],
+                        "widedeep_steps": [MESH_GLOO_CTR_STEPS, MESH_CTR_STEPS],
+                        "seqlm_steps": [MESH_SEQLM_STEPS, SEQLM_STEPS],
+                        "seqlm_corpus_tokens": [MESH_SEQLM_TOKENS, SEQLM_TOKENS]},
             "max_abs_err": max(errs), "rtol": MESH_RTOL, "atol": MESH_ATOL,
             "losses": got_losses, "one_device_losses": losses,
             "grouped": grouped, "grouped_lr": MESH_GROUPED_LR,
@@ -4998,6 +5018,89 @@ def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
                                                                 "scatter_add_rows")}
                                  for r in results],
             "seconds": time.monotonic() - t0, "spawn_s": spawn_s}
+
+
+def _tensor_items(state):
+    from swiftsnails_tpu_torch.utils.tree import tensor_items
+
+    return tensor_items(state)
+
+
+def _mesh_gloo_widedeep(seed: int, by: dict, solo, tmp: str) -> dict:
+    """Leg 2's W&D: the (2, 2) ranks' arrays (tables and slots from the
+    model shards of each data replica, the rest whole) within
+    ``MESH_RTOL`` / ``MESH_ATOL`` of the same trainer on ``solo``, the
+    (1, 1) NCCL mesh, each rank's launches one of each row kernel a step;
+    their checkpoint restored onto one device on the card, bit-equal to the
+    gathered shards."""
+    from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+    from swiftsnails_tpu_torch.models.registry import get_model
+
+    data = _mesh_gloo_ctr_data(seed)
+    ref = _mesh_ctr_run(seed, data, solo, MESH_GLOO_CTR_STEPS, over=MESH_GLOO_CTR_OVER)
+    want = {k: t.cpu() for k, t in _tensor_items(ref["state"])}
+    sharded = ("table/table", "table/slots/accum")
+    errs = []
+    for i in range(MESH_GLOO["data"]):
+        got = {k: (torch.cat([by[(i, j)]["widedeep"]["state"][k]
+                              for j in range(MESH_GLOO["model"])]) if k in sharded else t)
+               for k, t in by[(i, 0)]["widedeep"]["state"].items()}
+        for k, w in want.items():
+            errs.append(float((got[k] - w).abs().max()))
+            if not torch.allclose(got[k], w, rtol=MESH_RTOL, atol=MESH_ATOL):
+                raise AssertionError(f"mesh gloo widedeep: {k} of data replica {i} is "
+                                     f"{errs[-1]} from the (1, 1) mesh's")
+    losses = by[(0, 0)]["widedeep"]["losses"]
+    if not np.allclose(list(losses.values()), list(ref["losses"].values()),
+                       rtol=MESH_RTOL, atol=MESH_ATOL):
+        raise AssertionError(f"mesh gloo widedeep: losses {losses}, (1, 1) {ref['losses']}")
+    per_step = {k: n * MESH_GLOO_CTR_STEPS for k, n in MESH_CTR_LAUNCHES.items()}
+    for key, res in by.items():
+        _check_launches(f"mesh gloo widedeep rank {key}", res["widedeep"]["launches"], per_step)
+    cfg = _widedeep_config(seed)
+    for k, v in MESH_GLOO_CTR_OVER.items():
+        cfg.set(k, str(v))
+    template = get_model("widedeep")(cfg, data=data).init_state()
+    restored = ckpt.restore_checkpoint(os.path.join(tmp, "ck-gloo-widedeep"), template,
+                                       step=MESH_GLOO_CTR_STEPS)
+    gathered = {k: (torch.cat([by[(0, j)]["widedeep"]["state"][k]
+                               for j in range(MESH_GLOO["model"])]) if k in sharded else t)
+                for k, t in by[(0, 0)]["widedeep"]["state"].items()}
+    for k, t in _tensor_items(restored):
+        if not torch.equal(t.cpu(), gathered[k]):
+            raise AssertionError(f"mesh gloo widedeep: {k} restored onto one device is not "
+                                 "the gathered shards")
+    out = {"table": list(want["table/table"].shape), "steps": MESH_GLOO_CTR_STEPS,
+           "max_abs_err": max(errs), "losses": list(losses.values()),
+           "solo_losses": list(ref["losses"].values()),
+           "launches_by_rank": [{k: by[key]["widedeep"]["launches"][k]
+                                 for k in MESH_CTR_LAUNCHES} for key in sorted(by)],
+           "restored_one_device_bit_equal": True}
+    del ref, restored, template
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_gloo_seqlm(seed: int, results: list) -> dict:
+    """Leg 2's seqlm: every rank's parameters and losses after
+    ``MESH_SEQLM_STEPS`` ring steps on the (data 2, seq 2) mesh within
+    ``MESH_SEQLM_TOL`` of one device's dense run on the card."""
+    want = _mesh_seqlm_run(seed, "cuda")
+    errs = []
+    for r in results:
+        got = r["seqlm"]
+        errs.append(max(float((a - b).abs().max())
+                        for a, b in zip(got["params"], want["params"])))
+        close = all(torch.allclose(a, b, rtol=MESH_SEQLM_TOL, atol=MESH_SEQLM_TOL)
+                    for a, b in zip(got["params"], want["params"]))
+        if not close or not np.allclose(got["losses"], want["losses"], rtol=MESH_SEQLM_TOL,
+                                        atol=MESH_SEQLM_TOL):
+            raise AssertionError(f"mesh gloo seqlm: rank {r['seq_coords']} is {errs[-1]} "
+                                 f"from dense, losses {got['losses']} / {want['losses']}")
+    return {"mesh": MESH_SEQLM, "device": MESH_SEQLM_DEVICE, "attention": "ring",
+            "shape": want["shape"], "steps": MESH_SEQLM_STEPS, "max_abs_err": max(errs),
+            "losses": results[0]["seqlm"]["losses"], "dense_losses": want["losses"],
+            "tol": MESH_SEQLM_TOL}
 
 
 @contextlib.contextmanager
@@ -5170,8 +5273,186 @@ def _mesh_grouped_leg(seed: int, corpora, mesh) -> dict:
     return out
 
 
+# Leg 1's CTR on the (1, 1) NCCL mesh: Wide & Deep at examples/widedeep.conf
+# (26 fields, table dim 17, [262,144, 2, 128], batch 8,192, AdaGrad) on the
+# _ctr_data batches, and FFM at 39 fields on the 2-D plane
+MESH_CTR_STEPS = 10
+MESH_CTR_SAVE = 5  # the step leg 1's W&D saves at and resumes from
+MESH_FFM_STEPS = 5
+MESH_CTR_LAUNCHES = {"gather_rows": 1, "scatter_adagrad_fused_rows": 1}  # a W&D step
+# leg 2's Wide & Deep at a cut size on the four gloo ranks
+MESH_GLOO_CTR_CAPACITY = 1 << 16
+MESH_GLOO_CTR_STEPS = 5
+# leg 2's seqlm: the seqlm phase's model (seq_len 256, 2 layers, 4 heads,
+# d_model 128, batch 8) on a (data 2, seq 2) mesh of the same ranks, ring
+# attention, on the CPU: gloo's send and recv, which ring's hops use, take
+# no CUDA tensor; the one-device dense run it is held to is on the card
+MESH_SEQLM = {"data": 2, "seq": 2}
+MESH_SEQLM_STEPS = 3
+MESH_SEQLM_TOKENS = 100_000
+MESH_SEQLM_DEVICE = "cpu"
+MESH_SEQLM_TOL = 2e-4  # tests/test_seqlm.py:92-93
+
+
+def _mesh_ctr_run(seed: int, data, mesh, steps: int, over=None, **keys) -> dict:
+    """A ``widedeep.conf`` trainer (``over``: config keys on top, ``keys``
+    too, the loop's) under ``mesh`` or on one device, ``steps`` of
+    ``TrainLoop`` on ``data``'s batches: the state, the losses by step, the
+    launches, the collectives' result bytes and the median step ms past
+    the first."""
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.parallel import transfer
+
+    cfg = _widedeep_config(seed)
+    for k, v in {**(over or {}), **keys}.items():
+        cfg.set(k, str(v))
+    trainer = get_model(cfg.get_str("model"))(cfg, mesh=mesh, data=data)
+    records = []
+    loop, _ = _loss_loop(trainer, records)
+    transfer.reset_comm()
+    state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=steps))
+    losses = {r["step"]: r["loss"] for r in records}
+    if not all(math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"mesh ctr {over} {keys}: losses {losses}")
+    return {"trainer": trainer, "state": state, "losses": losses, "launches": launches,
+            "comm_bytes": transfer.comm_bytes(),
+            "step_ms_median": statistics.median(r["seconds"] * 1e3 for r in records[1:])}
+
+
+def _ctr_equal(what: str, a, b) -> None:
+    """Two CTR states bit-equal, tensor by tensor (tables, slots, dense
+    tensors, AdaGrad sums)."""
+    from swiftsnails_tpu_torch.utils.tree import tensor_items
+
+    for (key, x), (_, y) in zip(tensor_items(a), tensor_items(b), strict=True):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: {key} differs by {float((x - y).abs().max())} "
+                                 "(bit-equal expected)")
+
+
+def _mesh_ctr_nccl_leg(seed: int, mesh, tmp: str) -> dict:
+    """Leg 1's CTR (module docstring, phase 21 (a)): W&D meshed and unmeshed
+    ``MESH_CTR_STEPS`` steps, bit-equal, one ``gather_rows`` and one
+    ``scatter_adagrad_fused_rows`` a step, the collectives' bytes equal to
+    ``step_cost``'s; saved under the mesh at ``MESH_CTR_SAVE`` and resumed,
+    bit-equal to the straight run, the manifest's CRCs an unmeshed save's;
+    FFM at 39 fields ``MESH_FFM_STEPS`` steps on the 2-D plane, bit-equal."""
+    from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+
+    t0 = time.monotonic()
+    data, _ = _ctr_data(seed)
+    one = _mesh_ctr_run(seed, data, None, MESH_CTR_STEPS)
+    meshed = _mesh_ctr_run(seed, data, mesh, MESH_CTR_STEPS)
+    _ctr_equal("mesh widedeep", meshed["state"], one["state"])
+    if meshed["losses"] != one["losses"]:
+        raise AssertionError(f"mesh widedeep: losses {meshed['losses']}, unmeshed "
+                             f"{one['losses']}")
+    want = {k: n * MESH_CTR_STEPS for k, n in MESH_CTR_LAUNCHES.items()}
+    _check_launches("mesh widedeep", meshed["launches"], want)
+    _check_launches("unmeshed widedeep", one["launches"], want)
+    trainer = meshed["trainer"]
+    batch = next(iter(trainer.batches()))
+    step_bytes = trainer.step_cost(batch)["total_bytes"]
+    if meshed["comm_bytes"] != MESH_CTR_STEPS * step_bytes:
+        raise AssertionError(f"mesh widedeep: {meshed['comm_bytes']} collective bytes "
+                             f"counted, step_cost {MESH_CTR_STEPS} x {step_bytes}")
+    table = list(meshed["state"].table.table.shape)
+    out = {"config": WIDEDEEP_CONF, "table": table, "batch": trainer.batch_size,
+           "steps": MESH_CTR_STEPS, "bit_equal": True, "losses": list(meshed["losses"].values()),
+           "launches": {k: meshed["launches"][k] for k in MESH_CTR_LAUNCHES},
+           "comm_bytes": meshed["comm_bytes"], "step_cost_bytes": step_bytes,
+           "step_ms_median": meshed["step_ms_median"],
+           "one_device_step_ms_median": one["step_ms_median"]}
+    del one
+    roots = {name: os.path.join(tmp, f"ck-{name}") for name in ("mesh", "one")}
+    keys = {"param_backup_root": roots["mesh"], "param_backup_period": MESH_CTR_SAVE}
+    saved = _mesh_ctr_run(seed, data, mesh, MESH_CTR_SAVE, **keys)
+    del saved
+    resumed = _mesh_ctr_run(seed, data, mesh, MESH_CTR_STEPS, resume="auto", **keys)
+    _ctr_equal("mesh widedeep resumed", resumed["state"], meshed["state"])
+    tail = {s: meshed["losses"][s] for s in range(MESH_CTR_SAVE + 1, MESH_CTR_STEPS + 1)}
+    if resumed["losses"] != tail:
+        raise AssertionError(f"mesh widedeep resumed: losses {resumed['losses']}, "
+                             f"straight {tail}")
+    del resumed, meshed
+    unmeshed = _mesh_ctr_run(seed, data, None, MESH_CTR_SAVE, param_backup_root=roots["one"],
+                             param_backup_period=MESH_CTR_SAVE)
+    del unmeshed
+    crcs = {name: _crcs(ckpt.read_manifest(root, MESH_CTR_SAVE))
+            for name, root in roots.items()}
+    if crcs["mesh"] != crcs["one"]:
+        raise AssertionError(f"mesh widedeep: the mesh's step-{MESH_CTR_SAVE} manifest "
+                             f"CRCs {crcs['mesh']}, unmeshed {crcs['one']}")
+    out["checkpoint"] = {"saved_at": MESH_CTR_SAVE, "resumed_to": MESH_CTR_STEPS,
+                         "bit_equal": True, "crcs_equal_unmeshed": True,
+                         "arrays": len(crcs["mesh"]),
+                         "bytes": _dir_bytes(os.path.join(roots["mesh"],
+                                                          f"step_{MESH_CTR_SAVE}"))}
+    torch.cuda.empty_cache()
+    ffm = CTR_TRAIN["train_ffm_wide"][0]
+    (labels, feats), _ = _ctr_data(seed, ffm["num_fields"])
+    runs = {name: _mesh_ctr_run(seed, (labels, feats), m, MESH_FFM_STEPS, over=ffm)
+            for name, m in (("one_device", None), ("mesh", mesh))}
+    if runs["mesh"]["trainer"].packed:
+        raise AssertionError("mesh ffm: table dim 157 took the packed plane")
+    _ctr_equal("mesh ffm", runs["mesh"]["state"], runs["one_device"]["state"])
+    if runs["mesh"]["losses"] != runs["one_device"]["losses"]:
+        raise AssertionError(f"mesh ffm: losses {runs['mesh']['losses']}, unmeshed "
+                             f"{runs['one_device']['losses']}")
+    out["ffm"] = {"over": ffm, "plane": "2-D", "steps": MESH_FFM_STEPS, "bit_equal": True,
+                  "table": list(runs["mesh"]["state"].table.table.shape),
+                  "losses": list(runs["mesh"]["losses"].values()),
+                  "step_ms_median": runs["mesh"]["step_ms_median"],
+                  "one_device_step_ms_median": runs["one_device"]["step_ms_median"]}
+    del runs
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _mesh_gloo_ctr_data(seed: int):
+    """Leg 2's W&D records: synth_ctr at widedeep.conf's 26 fields, one
+    epoch of ``MESH_GLOO_CTR_STEPS`` batches of ``MESH_GLOO_BATCH``."""
+    from swiftsnails_tpu_torch.data.ctr import synth_ctr
+
+    labels, feats, _ = synth_ctr(MESH_GLOO_CTR_STEPS * MESH_GLOO_BATCH,
+                                 _widedeep_config(seed).get_int("num_fields"),
+                                 CTR_IDS_PER_FIELD, seed=seed)
+    return labels, feats
+
+
+MESH_GLOO_CTR_OVER = {"capacity": MESH_GLOO_CTR_CAPACITY, "batch_size": MESH_GLOO_BATCH}
+
+
+def _mesh_seqlm_ids(seed: int) -> np.ndarray:
+    """Leg 2's seqlm corpus: zipf ids over the seqlm phase's vocabulary."""
+    return zipf_ids(MESH_SEQLM_TOKENS, SEQLM_IDS, np.random.default_rng(seed))
+
+
+def _mesh_seqlm_run(seed: int, device: str, mesh=None) -> dict:
+    """``MESH_SEQLM_STEPS`` SGD steps of the seqlm phase's model, under
+    ``mesh`` with ring attention or on one device with dense attention
+    (each rank its part of every global batch): parameters and losses."""
+    from swiftsnails_tpu_torch.models.seqlm import SeqLMTrainer, param_leaves
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    conf = {"seed": str(seed), "learning_rate": str(SEQLM_RATES["sgd"]),
+            "attention": "ring" if mesh is not None else "dense"}
+    tr = SeqLMTrainer(Config(conf), corpus_ids=_mesh_seqlm_ids(seed), vocab_size=SEQLM_IDS,
+                      mesh=mesh, device=None if mesh is not None else device)
+    state, losses = tr.init_state(), []
+    for _, b in zip(range(MESH_SEQLM_STEPS), tr.batches()):
+        batch = {"tokens": torch.from_numpy(tr.local_batch(b)["tokens"]).to(tr.device)}
+        state, met = tr.train_step(state, batch)
+        losses.append(float(met["loss"]))
+    return {"params": [p.detach().cpu() for p in param_leaves(state["params"])],
+            "losses": losses, "shape": {k: getattr(tr, k) for k in (
+                "seq_len", "n_layers", "n_heads", "d_model", "batch_size")}}
+
+
 def phase_mesh(seed: int, corpora, env: dict) -> dict:
-    """Phase 21: word2vec under a ``(data, model)`` mesh (module docstring)."""
+    """Phase 21: word2vec, CTR, checkpoints and ``seqlm`` under a mesh
+    (module docstring)."""
     t_phase = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="ssn-mesh-")
     try:
@@ -5180,14 +5461,17 @@ def phase_mesh(seed: int, corpora, env: dict) -> dict:
             t_grouped = time.monotonic()
             grouped = _mesh_grouped_leg(seed, corpora, mesh)
             grouped["seconds"] = time.monotonic() - t_grouped
+            ctr = _mesh_ctr_nccl_leg(seed, mesh, tmp)
             gloo = _mesh_gloo_leg(seed, tmp, mesh)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seconds = time.monotonic() - t_phase
-    emit("mesh", nccl=nccl, grouped=grouped, gloo=gloo, seconds=seconds,
+    emit("mesh", nccl=nccl, grouped=grouped, ctr=ctr, gloo=gloo, seconds=seconds,
          device=env["device"], nvidia_smi=env["nvidia_smi"])
     return {"launches": nccl["train"]["launches"],
-            "grouped_launches": grouped["plain"]["launches"], "seconds": seconds}
+            "grouped_launches": grouped["plain"]["launches"],
+            "ctr_launches": ctr["launches"],
+            "gloo_ctr_launches": gloo["widedeep"]["launches_by_rank"], "seconds": seconds}
 
 
 def phase_mesh_grouped_kernels(seed: int, corpora, rate: float) -> dict:
@@ -5277,15 +5561,40 @@ def _mesh_grouped_kernel_entries(cases: dict, mesh: dict) -> list:
     return out
 
 
+def _mesh_ctr_kernel_entries(summary: dict, mesh: dict) -> list:
+    """The ``kernels`` line's ``path: "mesh_ctr"`` entries: the (1, 1) mesh's
+    W&D shard is the whole ``[262,144, 2, 128]`` table and its step the
+    unmeshed one's, so the ``ctr_kernels`` numbers at that shape (212,992
+    tile ids), with leg 1's launches and the gloo ranks'."""
+    out = []
+    for key, name, replaces in (
+            ("gather_rows_widedeep", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+            ("scatter_adagrad_fused_rows", "scatter_adagrad_fused_rows",
+             "swiftsnails_tpu/ops/rowdma.py:552")):
+        s = summary[key]
+        out.append({
+            "name": name, "route": "cuda", "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": replaces, "launches": mesh["ctr_launches"][name],
+            "max_abs_err": s["max_abs_err"], "ms": s.get("kernel_ms", s.get("ms")),
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": "bytes",
+            "library_ms": s["library_ms"], "shape": s["shape"], "dtype": "float32",
+            "gloo_launches_by_rank": [r[name] for r in mesh["gloo_ctr_launches"]],
+            "path": "mesh_ctr"})
+    return out
+
+
 def _only_mesh(seed: int, env: dict, t_start: float) -> int:
-    """``--only mesh``: the kernels' phase 3 (the mesh entries' numbers),
-    the mesh phase and the kernels at the grouped plane's shapes."""
+    """``--only mesh``: the kernels' phase 3 and the W&D row kernels'
+    phase (the mesh entries' numbers), the mesh phase and the kernels at
+    the grouped plane's shapes."""
     summary = phase_kernels(seed, env["mem_rate_Bps"])
+    summary.update(phase_ctr_kernels(seed, env["mem_rate_Bps"]))
     corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
     mesh = phase_mesh(seed, corpora, env)
     cases = phase_mesh_grouped_kernels(seed, corpora, env["mem_rate_Bps"])
     emit("kernels", kernels=_mesh_kernel_entries(summary, mesh)
-         + _mesh_grouped_kernel_entries(cases, mesh))
+         + _mesh_grouped_kernel_entries(cases, mesh)
+         + _mesh_ctr_kernel_entries(summary, mesh))
     emit("total", seconds=time.monotonic() - t_start)
     return 0
 
@@ -5529,6 +5838,7 @@ def main() -> int:
     kernels.extend(_cluster_kernel_entries(summary, cluster))
     kernels.extend(_mesh_kernel_entries(summary, mesh))
     kernels.extend(_mesh_grouped_kernel_entries(mesh_grouped, mesh))
+    kernels.extend(_mesh_ctr_kernel_entries(summary, mesh))
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),
                            ("chunk_probe", "tools/sem_probe.py:164"),
                            ("pipe_probe", "tools/sem_probe.py:233")):

@@ -6,9 +6,12 @@ additionally ``-data <file>`` (``run_worker.sh``). Here the three roles are
 one ``train`` role: the parameter tables live on the cards that compute.
 With ``expected_node_num: N`` > 1 (and ``master_addr``), ``train`` joins an
 N-process ``torch.distributed`` cluster first (``parallel/cluster.py``; the
-rank from ``RANK`` as torchrun sets it), trains word2vec under a ``(data,
-model)`` mesh of the N ranks, and meets the others at the end-of-training
-barrier; ``local_train: 1`` trains each process alone.
+rank from ``RANK`` as torchrun sets it), trains the ``model`` family
+(word2vec, a CTR family or ``seqlm``) under a ``(data, model)`` mesh of the
+N ranks, and meets the others at the end-of-training barrier;
+``local_train: 1`` trains each process alone. Checkpoints and resume work
+under the mesh (every rank saves its shards into one checkpoint), and
+``export`` reads such a checkpoint on one process.
 
 Usage::
 
@@ -145,7 +148,7 @@ def cmd_export(argv: List[str]) -> int:
     trainer = _build_trainer(cfg)
     root = cfg.get_str("checkpoint")
     out = cfg.get_str("out")
-    state = restore_checkpoint(root, trainer.init_state())
+    state = restore_checkpoint(root, trainer.init_state(), mesh=trainer.mesh)
     trainer.export_text(state, out)
     print(f"exported {root} -> {out}", file=sys.stderr)
     return 0

@@ -123,7 +123,8 @@ def ctr_state_from_numpy(table: np.ndarray, dense: Mapping[str, np.ndarray],
                          opt_sum_of_squares: Optional[Mapping[str, np.ndarray]] = None,
                          *, device: DeviceLike,
                          dtype: Optional[torch.dtype] = None,
-                         table_slots: Optional[Mapping[str, np.ndarray]] = None) -> CTRState:
+                         table_slots: Optional[Mapping[str, np.ndarray]] = None,
+                         mesh=None) -> CTRState:
     """The port's CTR state holding copies of a JAX ``CTRState``'s arrays.
 
     ``table`` is ``np.asarray(state.table.table)``: on the small-row plane
@@ -131,7 +132,9 @@ def ctr_state_from_numpy(table: np.ndarray, dense: Mapping[str, np.ndarray],
     128]``; on the 2-D plane ``[C, dim]``, its slots (AdaGrad's ``accum``)
     in ``table_slots``. ``dtype`` casts the table. ``dense`` is the dense
     dict, and for AdaGrad ``opt_sum_of_squares`` the optax state's
-    ``sum_of_squares`` dict; ``None`` gives SGD's empty state.
+    ``sum_of_squares`` dict; ``None`` gives SGD's empty state. With
+    ``mesh``, the table and its slots are this rank's shard
+    (:func:`model_shard`: its tiles, or its rows), the dense side whole.
     """
     dev = resolve_device(device)
 
@@ -139,8 +142,11 @@ def ctr_state_from_numpy(table: np.ndarray, dense: Mapping[str, np.ndarray],
         return {k: _tensor_from_numpy(np.asarray(v)).to(dev) for k, v in arrays.items()}
 
     opt = {} if opt_sum_of_squares is None else {"sum_of_squares": carry(opt_sum_of_squares)}
-    return CTRState(table=_table_from_numpy(table, table_slots, dev, dtype),
-                    dense=carry(dense), opt=opt)
+    if mesh is not None:
+        table = table_shard_from_numpy(table, mesh, table_slots, device=dev, dtype=dtype)
+    else:
+        table = _table_from_numpy(table, table_slots, dev, dtype)
+    return CTRState(table=table, dense=carry(dense), opt=opt)
 
 
 def seqlm_state_from_numpy(params, opt_slots: Optional[Mapping] = None, *,

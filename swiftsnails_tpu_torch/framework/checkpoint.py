@@ -46,6 +46,26 @@ tensor into pinned host buffers on the current stream (the next step's
 kernels queue behind it) and records an event that the writer waits on;
 a CPU tensor is cloned. The pinned buffers are reused from save to save.
 
+**Under a mesh** (``mesh=``, a :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh`;
+every rank calls the save and the restore, in the same order) a
+checkpoint holds what one device would write from the same values: the
+tensors of a table state (a ``TableState`` or ``PackedTableState``: its
+table and slots) are sharded over ``model`` by leading rows, every other
+tensor is whole on every rank, and on disk each is one whole array, with
+the whole array's shape and CRC. A save is synchronous: the rank at the
+mesh's origin makes the step directory; each model shard's rows are
+written by its replica at index 0 of every other axis, into the array's
+file at the shard's byte offset, the whole tensors by the origin; after a
+barrier (every part fsync'd) the origin commits the manifest, and a last
+barrier holds every rank until it has. The whole-array CRC is the shards'
+CRCs combined in model order (:func:`crc_combine`, zlib's
+``crc32_combine`` for either algorithm), one small all-gather over
+``model``: no rank reads or holds another's rows. A restore reads each
+rank's row range from the file (its shard where the template holds one,
+else the whole array), so a checkpoint moves between any mesh shape and
+one device; it verifies the whole array's CRC from the shards' CRCs
+combined the same way, and every rank raises if any rank found a
+problem.
 """
 
 from __future__ import annotations
@@ -62,10 +82,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from swiftsnails_tpu_torch.parallel.mesh import MODEL_AXIS
 from swiftsnails_tpu_torch.telemetry.ledger import atomic_write_json
 from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
-from swiftsnails_tpu_torch.utils.tree import tensor_items
+from swiftsnails_tpu_torch.utils.tree import keys_under, tensor_items
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -175,20 +197,72 @@ def read_manifest(root: str, step: int) -> Optional[Dict]:
     return doc if isinstance(doc, dict) else None
 
 
-def _crc_problem(key: str, data: np.ndarray, meta: Dict) -> Optional[str]:
-    """Why ``data`` does not match ``meta``'s CRC, or None."""
-    crc, algo = _crc32c(data)
-    if algo != meta.get("algo"):
-        # manifest written with a different CRC flavor than this host
-        # computes — replay the recorded one via zlib when possible
-        if meta.get("algo") != "crc32":
-            return f"{key}: crc algorithm {meta.get('algo')!r} unavailable"
+def _crc_as(data, algo: Optional[str]) -> Optional[int]:
+    """CRC of ``data`` under the algorithm a manifest recorded, or None where
+    this host cannot compute it (a manifest written with a different CRC
+    flavor than this host computes is replayed via zlib when possible)."""
+    crc, have = _crc32c(data)
+    if have == algo:
+        return crc
+    if algo == "crc32":
         import zlib
 
-        crc = int(zlib.crc32(data))
+        return int(zlib.crc32(data))
+    return None
+
+
+def _crc_problem(key: str, data: np.ndarray, meta: Dict) -> Optional[str]:
+    """Why ``data`` does not match ``meta``'s CRC, or None."""
+    crc = _crc_as(data, meta.get("algo"))
+    if crc is None:
+        return f"{key}: crc algorithm {meta.get('algo')!r} unavailable"
     if int(crc) != int(meta.get("crc", -1)):
         return f"{key}: crc mismatch (corrupt bytes)"
     return None
+
+
+# reflected polynomials of the two CRCs a manifest may record
+_CRC_POLY = {"crc32": 0xEDB88320, "crc32c": 0x82F63B78}
+
+
+def _gf2_times(mat: List[int], vec: int) -> int:
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _gf2_square(mat: List[int]) -> List[int]:
+    return [_gf2_times(mat, row) for row in mat]
+
+
+def crc_combine(crc1: int, crc2: int, len2: int, algo: str) -> int:
+    """The CRC of ``A + B`` from ``crc(A)``, ``crc(B)`` and ``len(B)`` in
+    bytes (zlib's ``crc32_combine``: ``crc1`` advanced over ``len2`` zero
+    bytes by squaring the one-zero-bit operator in GF(2), then xor
+    ``crc2``), for ``crc32`` or ``crc32c``."""
+    if len2 <= 0:
+        return crc1
+    odd = [_CRC_POLY[algo]] + [1 << n for n in range(31)]  # one zero bit
+    even = _gf2_square(odd)  # two zero bits
+    odd = _gf2_square(even)  # four zero bits
+    while True:
+        even = _gf2_square(odd)  # 8 zero bits the first time round: a byte
+        if len2 & 1:
+            crc1 = _gf2_times(even, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+        odd = _gf2_square(even)
+        if len2 & 1:
+            crc1 = _gf2_times(odd, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+    return crc1 ^ crc2
 
 
 def verify_state(state: Any, manifest: Dict) -> List[str]:
@@ -290,33 +364,50 @@ def _write_step(entry: Dict) -> None:
                     f.flush()
                     os.fsync(f.fileno())
 
-        retry = entry["retry"]
-        if retry is not None:
-            retry.call(write_files, op=f"ckpt_save:step_{entry['step']}")
-        else:
-            write_files()
-        manifest = _manifest(arrays, entry["step"], entry["cursor"], entry["config_hash"])
-        atomic_write_json(os.path.join(path, MANIFEST_NAME), manifest)
-        t3 = time.perf_counter()
-        ledger = entry["ledger"]
-        if ledger is not None:
-            try:
-                ledger.append("checkpoint", {
-                    "root": os.path.abspath(entry["root"]),
-                    "step": manifest["step"],
-                    "config_hash": manifest.get("config_hash"),
-                    "data_cursor": manifest.get("data_cursor"),
-                })
-            except Exception:
-                pass  # record-keeping never blocks the save path
-        nbytes = sum(d.nbytes for _, d in payload)
-        print(f"checkpoint: committed step_{entry['step']} ({nbytes} bytes: "
-              f"snapshot {entry['snapshot_s']:.4f} s, d2h wait {t1 - t0:.4f} s, "
-              f"crc {t2 - t1:.4f} s, write {t3 - t2:.4f} s)", file=sys.stderr)
+        _with_retry(entry, write_files)
+        _commit(entry, arrays, sum(d.nbytes for _, d in payload),
+                (entry["snapshot_s"], t1 - t0, t2 - t1, t2))
     except Exception as e:  # a failed save must not take down the training loop
         _note_error(f"checkpoint save failed for {path}: {type(e).__name__}: {e}",
                     entry["ledger"])
         return
+    _retain(entry)
+
+
+def _with_retry(entry: Dict, write) -> None:
+    """``write()``, under the save's retry policy where it has one."""
+    retry = entry["retry"]
+    if retry is not None:
+        retry.call(write, op=f"ckpt_save:step_{entry['step']}")
+    else:
+        write()
+
+
+def _commit(entry: Dict, arrays: Dict, nbytes: int, times: Tuple) -> None:
+    """Commit a written step: its manifest (atomic), its ``checkpoint``
+    ledger event, its line on stderr (``times``: the snapshot, d2h wait
+    and CRC seconds, and the clock when the writes began)."""
+    manifest = _manifest(arrays, entry["step"], entry["cursor"], entry["config_hash"])
+    atomic_write_json(os.path.join(entry["path"], MANIFEST_NAME), manifest)
+    ledger = entry["ledger"]
+    if ledger is not None:
+        try:
+            ledger.append("checkpoint", {
+                "root": os.path.abspath(entry["root"]),
+                "step": manifest["step"],
+                "config_hash": manifest.get("config_hash"),
+                "data_cursor": manifest.get("data_cursor"),
+            })
+        except Exception:
+            pass  # record-keeping never blocks the save path
+    snapshot_s, wait_s, crc_s, t_write = times
+    print(f"checkpoint: committed step_{entry['step']} ({nbytes} bytes: "
+          f"snapshot {snapshot_s:.4f} s, d2h wait {wait_s:.4f} s, "
+          f"crc {crc_s:.4f} s, write {time.perf_counter() - t_write:.4f} s)", file=sys.stderr)
+
+
+def _retain(entry: Dict) -> None:
+    """``param_backup_keep`` retention after a commit."""
     if entry["keep"] > 0:
         try:
             prune_checkpoints(entry["root"], entry["keep"], protect=entry["protect"],
@@ -346,6 +437,7 @@ def save_checkpoint(
     retry=None,
     ledger=None,
     tier=None,
+    mesh=None,
 ) -> str:
     """Write a checkpoint of ``state`` for ``step`` under ``root``, committed
     by a checksum manifest; returns the step directory.
@@ -368,8 +460,18 @@ def save_checkpoint(
     identical to a resident run's, so restore and serving need no tier
     awareness), and the save is synchronous — the masters are numpy arrays
     that later eviction flushes mutate in place.
+
+    ``mesh``: ``state`` is this rank's part of a state sharded over it;
+    every rank calls this, and the save is synchronous (module docstring).
     """
     global _writer
+    if mesh is not None:
+        _join_writer()
+        entry = {"root": root, "path": _step_dir(root, step), "step": int(step),
+                 "cursor": cursor, "config_hash": config_hash, "keep": keep,
+                 "protect": protect, "retry": retry, "ledger": ledger}
+        _save_on_mesh(entry, state, mesh)
+        return entry["path"]
     if tier is not None:
         state = tier.master_state(state)
         wait = True
@@ -483,6 +585,7 @@ def restore_checkpoint(
     state_template: Any,
     step: Optional[int] = None,
     verify: bool = True,
+    mesh=None,
 ) -> Any:
     """Restore ``step`` (default: the newest) into ``state_template`` and
     return it.
@@ -496,6 +599,11 @@ def restore_checkpoint(
     or whose shapes, dtypes or keys differ from the template's, raises
     :class:`CheckpointError` too. Callers that must survive corruption walk
     back via :func:`swiftsnails_tpu_torch.resilience.resume.resume_state`.
+
+    ``mesh``: the template is this rank's part of a state sharded over it
+    (a tensor whose leading dimension is the manifest's over the ``model``
+    axis is this rank's shard of it); every rank calls this, reads its row
+    range, and the CRCs are checked whole (module docstring).
     """
     wait_for_checkpoints()  # never read past an in-flight save
     if step is None:
@@ -512,30 +620,181 @@ def restore_checkpoint(
         raise CheckpointError(
             f"{path}: keys {sorted(canon)} differ from the template's "
             f"{sorted(key for key, _ in items)}")
-    problems, loaded = [], []
+    problems, loaded, parts = [], [], []
     for key, t in items:
         meta = canon[key]
-        if _shape(t) != list(meta.get("shape", [])) or _dtype_name(t) != meta.get("dtype"):
+        nbytes = t.numel() * t.element_size()
+        shard = _shard_of(t, meta, mesh)
+        if shard is None or _dtype_name(t) != meta.get("dtype"):
             raise CheckpointError(
                 f"{path}: {key} is {meta.get('dtype')}{meta.get('shape')} on disk, "
                 f"{_dtype_name(t)}{_shape(t)} in the template")
-        data = np.fromfile(os.path.join(path, _array_file(key)), dtype=np.uint8)
-        if data.nbytes != t.numel() * t.element_size():
-            problems.append(f"{key}: {data.nbytes} bytes on disk, want "
-                            f"{t.numel() * t.element_size()}")
+        file = os.path.join(path, _array_file(key))
+        whole = nbytes * (mesh.axis_size(MODEL_AXIS) if shard else 1)
+        size = os.path.getsize(file) if os.path.exists(file) else -1
+        if size != whole:
+            problems.append(f"{key}: {size} bytes on disk, want {whole}")
+            parts += [(key, meta, None, nbytes)] if shard else []
             continue
-        if verify:
+        offset = nbytes * mesh.axis_index(MODEL_AXIS) if shard else 0
+        data = np.fromfile(file, dtype=np.uint8, count=nbytes, offset=offset)
+        if shard:
+            parts.append((key, meta, data, nbytes))
+        elif verify:
             problem = _crc_problem(key, data, meta)
             if problem:
                 problems.append(problem)
                 continue
         loaded.append((t, data))
+    if mesh is not None:
+        if verify:
+            problems += _whole_crc_problems(mesh, parts)
+        # every rank raises if any rank found a problem
+        if _mesh_sum(mesh, len(problems)) and not problems:
+            problems.append("another rank's part failed verification")
     if problems:
         raise CheckpointError(f"{path}: manifest verification failed: " + "; ".join(problems[:4]))
     with torch.no_grad():
         for t, data in loaded:
             t.copy_(torch.from_numpy(data).view(t.dtype).reshape(t.shape))
     return state_template
+
+
+def _shard_of(t: torch.Tensor, meta: Dict, mesh) -> Optional[bool]:
+    """How the template tensor ``t`` holds the array ``meta`` records:
+    ``False`` whole, ``True`` this rank's model shard of its leading rows,
+    ``None`` neither."""
+    shape = list(meta.get("shape", []))
+    if _shape(t) == shape:
+        return False
+    model = mesh.axis_size(MODEL_AXIS) if mesh is not None else 1
+    if model > 1 and t.dim() >= 1 and shape and [t.shape[0] * model, *t.shape[1:]] == shape:
+        return True
+    return None
+
+
+def _mesh_sum(mesh, value: int = 0) -> int:
+    """``value`` summed over every rank of ``mesh`` (one all-reduce an
+    axis): also a barrier, which holds every rank until the last arrives."""
+    t = torch.tensor([value], dtype=torch.int64, device=mesh.device)
+    for axis in mesh.shape:
+        dist.all_reduce(t, group=mesh.groups[axis])
+    return int(t.item())
+
+
+def _gather_model(mesh, values: List[int]) -> List[List[int]]:
+    """Every model shard's ``values`` (the same count on each), in model
+    order: one all-gather over ``model``."""
+    model = mesh.axis_size(MODEL_AXIS)
+    if model == 1 or not values:
+        return [values]
+    t = torch.tensor(values, dtype=torch.int64, device=mesh.device)
+    out = [torch.empty_like(t) for _ in range(model)]
+    dist.all_gather(out, t, group=mesh.groups[MODEL_AXIS])
+    return [o.tolist() for o in out]
+
+
+def _combine_shards(crcs: List[int], shard_bytes: int, algo: str) -> int:
+    """The whole array's CRC from its model shards' CRCs, in order."""
+    crc = crcs[0]
+    for c in crcs[1:]:
+        crc = crc_combine(crc, c, shard_bytes, algo)
+    return crc
+
+
+def _whole_crc_problems(mesh, parts: List[Tuple]) -> List[str]:
+    """The restore's check of each sharded array (``(key, meta, this
+    rank's bytes or None, shard bytes)``, the same keys on every rank):
+    each shard's CRC under the manifest's algorithm, gathered over
+    ``model`` and combined, against the manifest's whole-array CRC."""
+    mine = [-1 if data is None else _crc_as(data, meta.get("algo")) for _, meta, data, _ in parts]
+    mine = [-1 if c is None else c for c in mine]
+    gathered = _gather_model(mesh, mine)
+    problems = []
+    for i, (key, meta, _, nbytes) in enumerate(parts):
+        crcs = [g[i] for g in gathered]
+        if min(crcs) < 0:
+            problems.append(f"{key}: a shard is unreadable or its crc algorithm "
+                            f"{meta.get('algo')!r} unavailable")
+        elif _combine_shards(crcs, nbytes, meta["algo"]) != int(meta.get("crc", -1)):
+            problems.append(f"{key}: crc mismatch (corrupt bytes)")
+    return problems
+
+
+def _pwrite_all(fd: int, data: np.ndarray, offset: int) -> None:
+    """All of ``data`` at ``offset`` (one ``pwrite`` moves at most about 2
+    GiB)."""
+    view, done = memoryview(data).cast("B"), 0
+    while done < len(view):
+        done += os.pwrite(fd, view[done:done + (1 << 30)], offset + done)
+
+
+def _save_on_mesh(entry: Dict, state: Any, mesh) -> None:
+    """:func:`save_checkpoint` under ``mesh``, synchronous (module
+    docstring). Write failures are recorded as in the writer thread and
+    agreed on by every rank: then nothing commits."""
+    from swiftsnails_tpu_torch.parallel.store import PackedTableState, TableState
+
+    t0 = time.perf_counter()
+    path, model, m = entry["path"], mesh.axis_size(MODEL_AXIS), mesh.axis_index(MODEL_AXIS)
+    origin = not any(mesh.coords.values())
+    writes_shard = not any(v for a, v in mesh.coords.items() if a != MODEL_AXIS)
+    sharded = set(keys_under(state, (TableState, PackedTableState))) if model > 1 else set()
+    host = [(key, t.detach().cpu()) for key, t in tensor_items(state)]
+    t_host = time.perf_counter()
+    arrays, payload, shards, nbytes = {}, [], [], 0
+    for key, t in host:
+        data = _raw_bytes(t)
+        crc, algo = _crc32c(data)
+        arrays[key] = {"crc": crc, "algo": algo, "shape": _shape(t), "dtype": _dtype_name(t)}
+        if key in sharded:
+            shards.append((key, crc, data.nbytes))
+            arrays[key]["shape"] = [t.shape[0] * model, *t.shape[1:]]
+        if writes_shard if key in sharded else origin:
+            payload.append((key, data, m * data.nbytes if key in sharded else 0))
+        nbytes += data.nbytes * (model if key in sharded else 1)
+    gathered = _gather_model(mesh, [crc for _, crc, _ in shards])
+    for i, (key, _, size) in enumerate(shards):
+        arrays[key]["crc"] = _combine_shards([g[i] for g in gathered], size, arrays[key]["algo"])
+    t1 = time.perf_counter()
+    failed = 0
+    if origin:
+        try:
+            if os.path.isdir(path):  # a save of this step again: drop the old one first
+                shutil.rmtree(path)
+            os.makedirs(path)
+        except OSError as e:
+            _note_error(f"checkpoint save failed for {path}: {type(e).__name__}: {e}",
+                        entry["ledger"])
+            failed = 1
+    failed = _mesh_sum(mesh, failed)  # the directory is there for every writer
+
+    def write_parts():
+        for key, data, offset in payload:
+            fd = os.open(os.path.join(path, _array_file(key)), os.O_WRONLY | os.O_CREAT, 0o644)
+            try:
+                _pwrite_all(fd, data, offset)
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+
+    if not failed:
+        try:
+            _with_retry(entry, write_parts)
+        except Exception as e:
+            _note_error(f"checkpoint save failed for {path}: {type(e).__name__}: {e}",
+                        entry["ledger"])
+            failed = 1
+    failed = _mesh_sum(mesh, failed)  # every part is down, or some rank failed
+    if origin and not failed:
+        try:
+            # the host copies are synchronous here: the snapshot holds them
+            _commit(entry, arrays, nbytes, (t_host - t0, 0.0, t1 - t_host, t1))
+            _retain(entry)
+        except Exception as e:
+            _note_error(f"checkpoint save failed for {path}: {type(e).__name__}: {e}",
+                        entry["ledger"])
+    _mesh_sum(mesh)  # no rank runs ahead of the commit
 
 
 def _read_step(root: str, step: int) -> Tuple[Dict, List[Tuple[str, np.ndarray, Dict]]]:

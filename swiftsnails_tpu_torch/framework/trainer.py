@@ -42,9 +42,14 @@ are not raise ``NotImplementedError`` (:data:`UNPORTED_PLANE_KEYS`).
 
 Under a mesh (a trainer whose :attr:`Trainer.mesh` is set) every rank makes
 the same global batch and feeds its part (:meth:`Trainer.local_batch`, the
-JAX loop's data-sharded ``_device_batch``); checkpoints and resume, the
-guardrail, the tier, freshness and cluster membership raise
-``NotImplementedError`` there (``ROADMAP.md`` Queue 1 item 6).
+JAX loop's data-sharded ``_device_batch``), so the data cursor is the same
+on every rank. Checkpoints and resume work there: every rank saves and
+restores its shards together (``framework/checkpoint.py``, synchronous
+under a mesh), and a ``chaos_spec`` ``preempt@N`` drains every rank at
+step N with a final save; a SIGTERM is each process's own, and only the
+ranks it reaches drain. The guardrail, the tier, freshness and cluster
+membership raise ``NotImplementedError`` there (``ROADMAP.md`` Queue 1
+item 6).
 """
 
 from __future__ import annotations
@@ -220,6 +225,19 @@ def _unported(key: str, value) -> None:
         "have yet; see ROADMAP.md Queue 1 item 6 for when it is ported")
 
 
+def mesh_device(mesh, device: DeviceLike = None) -> torch.device:
+    """The device of a trainer under ``mesh``: the mesh's, which ``device``
+    (if given) must match in type. Raises ``TypeError`` for a ``mesh`` that
+    is not a :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh`."""
+    from swiftsnails_tpu_torch.parallel.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh)}")
+    if device is not None and resolve_device(device).type != mesh.device.type:
+        raise ValueError(f"trainer on {device}, mesh on {mesh.device}")
+    return mesh.device
+
+
 def _unported_mesh(what: str) -> None:
     raise NotImplementedError(
         f"{what} under a mesh is not ported yet: see ROADMAP.md Queue 1 item 6")
@@ -379,8 +397,6 @@ class TrainLoop:
             raise ValueError(f"TrainLoop on {device}, trainer on {trainer.device}")
         if trainer.mesh is not None:
             for what, asked in (
-                    ("param_backup_root (checkpoints)", bool(cfg.get_str("param_backup_root", ""))),
-                    ("resume", resume_mode(cfg) != "off"),
                     ("guardrail: 1", cfg.get_bool("guardrail", False)),
                     ("table_tier: host", cfg.get_str("table_tier", "device") == "host"),
                     ("freshness_publish", cfg.get_int("freshness_publish", 0) > 0),
@@ -431,7 +447,7 @@ class TrainLoop:
                     cursor=cursor,
                     config_hash=self.config_hash, keep=self.backup_keep,
                     protect=self._restored_step, retry=ckpt_retry, ledger=self.ledger,
-                    tier=self.tier)
+                    tier=self.tier, mesh=trainer.mesh)
 
             self.checkpoint_fn = checkpoint_fn
         self.profiler = StepProfiler(cfg, self.device)
@@ -544,7 +560,7 @@ class TrainLoop:
         t0 = time.perf_counter()
         restored = resume_state(self.backup_root, state, mode=mode, ledger=self.ledger,
                                 config_hash=self.config_hash,
-                                on_reject=self._on_resume_reject)
+                                on_reject=self._on_resume_reject, mesh=self.trainer.mesh)
         seconds = time.perf_counter() - t0
         if restored is None:
             return state, 0, 0

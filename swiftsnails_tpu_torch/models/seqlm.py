@@ -36,6 +36,16 @@ the update. The parameters start the same on every rank (one seed, drawn
 on the CPU), and every rank of the group reads the same windows: the
 corpus is not sharded under a group, as the JAX trainer, one process,
 does not shard it either. With ``attention: dense`` the group is not used.
+
+Under ``mesh=`` (a :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh`, as
+the JAX trainer takes one) the ``seq`` axis, where the mesh has one, is
+the group above (``ring`` by default), and a ``data`` axis splits the
+batch: each rank trains its
+:meth:`~swiftsnails_tpu_torch.framework.trainer.Trainer.local_batch` of
+the global batch, and the NLL sum and the gradients are summed over
+``data`` as over ``seq``, into one global mean. Any other axis (the CLI's
+``model``) holds replicas: nothing is summed over it. Every rank makes the
+same global batches, so the corpus is not sharded under a mesh either.
 """
 
 from __future__ import annotations
@@ -47,9 +57,11 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from swiftsnails_tpu_torch.framework.trainer import Trainer
+from swiftsnails_tpu_torch.framework.trainer import Trainer, mesh_device
 from swiftsnails_tpu_torch.models.registry import register_model
+from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS
 from swiftsnails_tpu_torch.parallel.sequence import (
+    SEQ_AXIS,
     reference_attention,
     ring_attention,
     ulysses_attention,
@@ -96,11 +108,21 @@ class SeqLMTrainer(Trainer):
     name = "seqlm"
 
     def __init__(self, config: Config, device: DeviceLike = None, corpus_ids=None,
-                 vocab_size: Optional[int] = None, seq_group=None):
-        """``device=None`` means the card. ``seq_group``: a
-        ``torch.distributed`` process group, the ``seq`` axis (gloo for CPU
-        tensors, NCCL for the card's)."""
+                 vocab_size: Optional[int] = None, seq_group=None, mesh=None):
+        """``device=None`` means the card, or with ``mesh`` the mesh's
+        device. ``seq_group``: a ``torch.distributed`` process group, the
+        ``seq`` axis (gloo for CPU tensors, NCCL for the card's). ``mesh``:
+        a :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh` whose ``seq``
+        axis, if any, is that group and whose ``data`` axis splits the batch
+        (module docstring); not both."""
+        if mesh is not None:
+            if seq_group is not None:
+                raise ValueError("give a seq_group or a mesh, not both")
+            device = mesh_device(mesh, device)
+            if SEQ_AXIS in mesh.shape:
+                seq_group = mesh.groups[SEQ_AXIS]
         super().__init__(config, device)
+        self.mesh = mesh
         cfg = config
         self.seq_len = cfg.get_int("seq_len", 256)
         self.n_layers = cfg.get_int("n_layers", 2)
@@ -129,8 +151,9 @@ class SeqLMTrainer(Trainer):
                 use_native=cfg.get_bool("use_native", True))
             vocab_size = len(vocab)
             # a process's contiguous corpus span (stdin-split parity); the
-            # ranks of a seq group share their windows, so no split there
-            if cfg.get_bool("shard_data", True) and seq_group is None:
+            # ranks of a seq group or a mesh share their windows, so no
+            # split there
+            if cfg.get_bool("shard_data", True) and seq_group is None and mesh is None:
                 from swiftsnails_tpu_torch.parallel.cluster import shard_token_stream
 
                 corpus_ids = shard_token_stream(corpus_ids)
@@ -223,14 +246,30 @@ class SeqLMTrainer(Trainer):
         logp = torch.log_softmax(logits.float(), dim=-1)
         return -logp.gather(-1, targets[..., None]).sum()
 
+    def _groups(self) -> list:
+        """The groups a step's sums go over: ``seq`` (the attention's), then
+        a mesh's ``data`` axis where it has more than one rank."""
+        groups = [self.seq_group] if self.seq_group is not None else []
+        if self.mesh is not None and self.mesh.axis_size(DATA_AXIS) > 1:
+            groups.append(self.mesh.groups[DATA_AXIS])
+        return groups
+
+    def _targets(self, tokens: torch.Tensor) -> int:
+        """The global batch's B x L targets (``tokens`` being this data
+        shard's)."""
+        data = self.mesh.axis_size(DATA_AXIS) if self.mesh is not None else 1
+        return data * tokens.shape[0] * (tokens.shape[1] - 1)
+
     def loss_fn(self, params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
         """The mean next-token loss over the batch's B x L targets (over the
-        whole group)."""
+        whole group and the mesh's data shards)."""
         total = self._nll_sum(params, tokens)
-        if self.seq_group is not None:
+        groups = self._groups()
+        if groups:
             total = total.detach().clone()
-            dist.all_reduce(total, group=self.seq_group)
-        return total / (tokens.shape[0] * (tokens.shape[1] - 1))
+            for g in groups:
+                dist.all_reduce(total, group=g)
+        return total / self._targets(tokens)
 
     # -- trainer contract --------------------------------------------------------
 
@@ -248,21 +287,24 @@ class SeqLMTrainer(Trainer):
                 yield {"tokens": toks.astype(np.int32)}
 
     def train_step(self, state, batch, generator: Optional[torch.Generator] = None):
-        """One optimizer step on ``batch["tokens"]`` ``[B, L + 1]``; updates
-        the state's tensors in place and returns ``(state, {"loss"})``, the
-        loss a device tensor (no host sync)."""
+        """One optimizer step on ``batch["tokens"]`` ``[B, L + 1]`` (under a
+        mesh this data shard's rows); updates the state's tensors in place
+        and returns ``(state, {"loss"})``, the loss a device tensor (no host
+        sync)."""
         tokens = batch["tokens"]
-        count = tokens.shape[0] * (tokens.shape[1] - 1)
+        count = self._targets(tokens)
         leaves = param_leaves(state["params"])
         with torch.enable_grad():
             live = [p.detach().requires_grad_() for p in leaves]
             nll = self._nll_sum(params_from_leaves(live), tokens)
             grads = list(torch.autograd.grad(nll / count, live))
         nll = nll.detach()
-        if self.seq_group is not None:
-            # one all-reduce: the NLL sum and every gradient
+        groups = self._groups()
+        if groups:
+            # one all-reduce a group: the NLL sum and every gradient
             flat = torch.cat([nll.reshape(1)] + [g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, group=self.seq_group)
+            for g in groups:
+                dist.all_reduce(flat, group=g)
             nll = flat[0]
             grads = [part.view_as(g) for part, g in
                      zip(flat[1:].split([g.numel() for g in grads]), grads)]

@@ -22,6 +22,25 @@ pulled rows -> push contract, on one of two planes, as in the JAX package:
 Padding fields (``PAD = -1``) are masked out of both the forward pass and
 the pushed gradients.
 
+Under ``mesh=`` (a :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh`, as
+the JAX trainer takes a ``jax.sharding.Mesh``) the table is sharded over
+``model`` and the batch over ``data``: each rank trains its
+:meth:`~swiftsnails_tpu_torch.framework.trainer.Trainer.local_batch` of the
+global batch, and the planes are the collectives of
+:mod:`swiftsnails_tpu_torch.parallel.transfer`. The packed plane stays on
+(:func:`~swiftsnails_tpu_torch.parallel.transfer.pull_collective_packed_small`,
+:func:`~swiftsnails_tpu_torch.parallel.transfer.push_collective_packed_small`:
+the same row kernels, shard-local, tile-granular ownership) unless the
+tile count does not divide the ``model`` axis, where it falls back to the
+2-D collective plane with the JAX trainer's warning. The loss is the global
+mean, as GSPMD computes it in the JAX step: each data shard's mean times
+``1 / data``, summed over ``data`` with the dense gradients in one
+all-reduce (the ``model`` replicas hold the same batch, so nothing is
+summed over ``model``); every rank then applies the dense optimizer to the
+same sum, so the replicas stay equal bit for bit. ``predict``,
+``eval_auc`` and ``export_text`` pull through the collectives too: under a
+mesh every rank calls them, with the same records.
+
 The dense optimizers are ``optax.sgd`` and ``optax.adagrad`` written out on
 tensors (:class:`DenseSGD`, :class:`DenseAdaGrad`); ``torch.optim.Adagrad``
 is another rule (see :class:`DenseAdaGrad`).
@@ -33,13 +52,16 @@ Config keys: ``num_fields``, ``capacity``, ``learning_rate``, ``optimizer``
 ``stream`` and ``rows_per_chunk`` (bounded-memory reading of ``data``),
 ``table_tier`` (``host``: the tiered store, :mod:`swiftsnails_tpu_torch.tiered`,
 on either plane).
-``shard_data`` changes nothing on one process. Keys that select a path the
-port does not have yet raise ``NotImplementedError`` (see :data:`UNPORTED`);
-``ROADMAP.md`` says when each is ported.
+``shard_data`` changes nothing on one process, and under a mesh every rank
+reads the whole data (every rank makes the same global batch). Keys that
+select a path the port does not have yet raise ``NotImplementedError``
+(see :data:`UNPORTED`); ``ROADMAP.md`` says when each is ported.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -50,13 +72,15 @@ from swiftsnails_tpu_torch.data.text import byte_span
 from swiftsnails_tpu_torch.framework.trainer import (
     UNPORTED_PLANE_KEYS,
     Trainer,
-    _unported,
+    mesh_device,
     raise_unported,
     truthy,
 )
 from swiftsnails_tpu_torch.ops.hashing import hash_row, hash_row_np
 from swiftsnails_tpu_torch.ops.rowdma import ROW_LANES
+from swiftsnails_tpu_torch.parallel import transfer
 from swiftsnails_tpu_torch.parallel.access import AdaGradAccess, SgdAccess
+from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, rows_per_shard
 from swiftsnails_tpu_torch.parallel.store import (
     PackedTableState,
     create_packed_small_table,
@@ -162,19 +186,35 @@ class SparseCTRTrainer(Trainer):
         data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         device: DeviceLike = None,
     ):
-        """``device=None`` means the card; ``device="cpu"`` runs the kernels'
-        plain versions. ``mesh`` exists for the JAX call's shape and must be
-        ``None``: the port runs on one device."""
-        super().__init__(config, device)
-        cfg = config
+        """``device=None`` means the card, or with ``mesh`` the mesh's
+        device; ``device="cpu"`` runs the kernels' plain versions. ``mesh``:
+        a :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh` to train under
+        (module docstring), or ``None`` for one device."""
         if mesh is not None:
-            _unported("mesh", mesh)
+            device = mesh_device(mesh, device)
+        super().__init__(config, device)
+        self.mesh = mesh
+        cfg = config
         raise_unported(cfg, UNPORTED)
+        self.num_fields = cfg.get_int("num_fields")
+        self.capacity = cfg.get_int("capacity", 1 << 20)
         # the small-row packed plane holds rows of at most one 128-lane tile;
         # wider ones (FFM with many fields) and packed: 0 take the 2-D plane
         self.packed = cfg.get_bool("packed", True) and self.table_dim <= ROW_LANES
-        self.num_fields = cfg.get_int("num_fields")
-        self.capacity = cfg.get_int("capacity", 1 << 20)
+        if self.packed and mesh is not None:
+            # tile-granular ownership needs the tile count to divide the model
+            # axis; the JAX trainer falls back to the 2-D collective plane
+            g = small_group(self.table_dim)
+            tiles, model = -(-self.capacity // g), mesh.axis_size(MODEL_AXIS)
+            if tiles % model:
+                logging.getLogger(__name__).warning(
+                    "small-row tile count %d (capacity %d, %d rows/tile) not "
+                    "divisible by model axis %d; using the 2-D collective "
+                    "plane (pad capacity to a multiple of %d to stay packed)",
+                    tiles, self.capacity, g, model, g * model)
+                self.packed = False
+        if mesh is not None and not self.packed:
+            rows_per_shard(self.capacity, mesh)  # the model axis must divide the table
         self.lr = cfg.get_float("learning_rate", 0.05)
         self.dense_lr = cfg.get_float("dense_learning_rate", self.lr)
         self.epochs = cfg.get_int("num_iters", 1)
@@ -231,10 +271,13 @@ class SparseCTRTrainer(Trainer):
     # -- framework ---------------------------------------------------------
 
     def init_state(self) -> CTRState:
+        """The table (under a mesh this rank's shard of it), the dense
+        tensors and their optimizer state (whole on every rank)."""
         make = create_packed_small_table if self.packed else create_table
         table = make(
             self.capacity, self.table_dim, self.access, seed=self.seed,
-            init_scale=self.config.get_float("init_scale", 1.0), device=self.device)
+            init_scale=self.config.get_float("init_scale", 1.0), device=self.device,
+            mesh=self.mesh)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + 17)
         dense = self.init_dense(gen)
@@ -243,9 +286,19 @@ class SparseCTRTrainer(Trainer):
     def _rows(self, feats: torch.Tensor) -> torch.Tensor:
         return hash_row(feats.clamp_min(0), self.capacity)
 
+    def _data(self) -> int:
+        """Data shards: the mesh's data axis, 1 on one device."""
+        return 1 if self.mesh is None else self.mesh.axis_size(DATA_AXIS)
+
     def _pull_rows(self, table: PackedTableState, rows: torch.Tensor) -> torch.Tensor:
         """[N] row ids -> [N, table_dim] values (packed: one row-gather
-        launch; 2-D: ``index_select``)."""
+        launch; 2-D: ``index_select``), under a mesh through the plane's
+        pull collective (a collective over ``model``)."""
+        if self.mesh is not None:
+            if self.packed:
+                return transfer.pull_collective_packed_small(self.mesh, table, rows,
+                                                             self.table_dim)
+            return transfer.pull_collective(self.mesh, table, rows)
         if self.packed:
             return pull_packed_small(table, rows, self.table_dim)
         return pull(table, rows)
@@ -253,10 +306,25 @@ class SparseCTRTrainer(Trainer):
     def _push_rows(self, table: PackedTableState, rows: torch.Tensor,
                    grads: torch.Tensor, lr) -> PackedTableState:
         """Push of [N, table_dim] gradients, in place (packed: merged, one
-        row-kernel launch; 2-D: the rule's sort-free ``scatter_update``)."""
+        row-kernel launch; 2-D: the rule's sort-free ``scatter_update``),
+        under a mesh through the plane's push collective."""
+        if self.mesh is not None:
+            if self.packed:
+                return transfer.push_collective_packed_small(
+                    self.mesh, table, rows, grads, self.access, lr, self.table_dim)
+            return transfer.push_collective(self.mesh, table, rows, grads, self.access, lr)
         if self.packed:
             return push_packed_small(table, rows, grads, self.access, lr, self.table_dim)
         return push(table, rows, grads, self.access, lr)
+
+    def _sum_over_data(self, loss: torch.Tensor, acc: torch.Tensor, grads):
+        """The global loss and accuracy (each data shard's part, ``1 /
+        data`` of its mean) and the dense gradients, summed over ``data`` in
+        one all-reduce, so that every rank updates the dense side alike."""
+        flat = torch.cat([loss.reshape(1), acc.reshape(1)] + [g.reshape(-1) for g in grads])
+        transfer.all_reduce(self.mesh, flat, DATA_AXIS)
+        parts = flat[2:].split([g.numel() for g in grads])
+        return flat[0], flat[1], [p.view_as(g) for p, g in zip(parts, grads)]
 
     def batches(self) -> Iterator[Dict[str, np.ndarray]]:
         """Shuffled ``{"labels", "feats"}`` batches, as the JAX package makes
@@ -285,7 +353,17 @@ class SparseCTRTrainer(Trainer):
         dense tensors, push the masked row gradients, update the dense side.
         The table is updated in place; returns ``(state, {"loss",
         "accuracy"})`` as device tensors (no host sync). ``generator`` is
-        unused: the CTR step draws nothing."""
+        unused: the CTR step draws nothing.
+
+        Under a mesh the batch is this data shard's, and the step makes the
+        same collectives in the same order on every rank: the pull's
+        all-reduce over ``model``, the push's two all-gathers over
+        ``data``, then the loss's, accuracy's and dense gradients'
+        all-reduce over ``data``. Each shard's mean is scaled by ``1 /
+        data`` (exact for a power of two, and 1 on a data axis of 1, where
+        the step is the one-device step bit for bit), so its sum over the
+        shards is the global mean and the pulled rows' gradients carry the
+        global ``1 / B``."""
         feats, labels = batch["feats"], batch["labels"]
         b, f = feats.shape
         mask = feats >= 0
@@ -302,18 +380,24 @@ class SparseCTRTrainer(Trainer):
         dense = {k: v.detach().requires_grad_() for k, v in state.dense.items()}
         logits = self.forward(pulled, dense, mask)
         loss = bce_with_logits(logits, labels).mean()
+        data = self._data()
+        if data > 1:
+            loss = loss * (1.0 / data)  # this data shard's part of the global mean
         dp, *dd = torch.autograd.grad(loss, [pulled, *dense.values()])
         dp = dp.masked_fill(~mask[..., None], 0)  # no pushes from padding
         self._push_rows(state.table, rows, dp.reshape(-1, self.table_dim), self.lr)
+        logits, loss = logits.detach(), loss.detach()
+        acc = ((logits > 0) == (labels > 0.5)).float().mean()
+        if self.mesh is not None:
+            if data > 1:
+                acc = acc * (1.0 / data)
+            loss, acc, dd = self._sum_over_data(loss, acc, dd)
         if state.dense:
             new_dense, opt = self.dense_opt.update(dict(zip(dense, dd)), state.opt,
                                                    state.dense)
         else:
             new_dense, opt = state.dense, state.opt
-        logits = logits.detach()
-        acc = ((logits > 0) == (labels > 0.5)).float().mean()
-        return CTRState(state.table, new_dense, opt), {"loss": loss.detach(),
-                                                       "accuracy": acc}
+        return CTRState(state.table, new_dense, opt), {"loss": loss, "accuracy": acc}
 
     def step_cost(self, batch: Dict[str, np.ndarray]) -> Dict:
         """One step's least bytes and f32 flops on ``batch`` (the goodput
@@ -327,7 +411,13 @@ class SparseCTRTrainer(Trainer):
         * flops: the forward pass (:meth:`forward_flops`), a backward of
           twice that, and the updates: 2 flops an element for SGD, 5 for
           AdaGrad (square, add, rsqrt, scale, add), on each distinct row's
-          ``table_dim`` values and on every dense value.
+          ``table_dim`` values and on every dense value;
+        * ``total_bytes``, under a mesh: the result bytes of this rank's
+          collectives in the step (:data:`~swiftsnails_tpu_torch.parallel.transfer.COMM`
+          counts the same): the pull of its data shard's ``B / data x F``
+          rows, their push (ids and f32 gradients gathered over ``data``),
+          and the all-reduce of the loss, the accuracy and the dense
+          gradients; ``None`` on one device.
         """
         feats = np.asarray(batch["feats"])
         labels = np.asarray(batch["labels"])
@@ -341,8 +431,14 @@ class SparseCTRTrainer(Trainer):
                   + feats.nbytes + labels.nbytes)
         flops = (3 * self.forward_flops(b, f)
                  + per_value * (distinct * self.table_dim + n_dense))
+        total = None
+        if self.mesh is not None:
+            d = self._data()
+            n = b // d * f
+            total = (transfer.pull_bytes(n, self.table_dim, 4)
+                     + transfer.push_bytes(n, self.table_dim, d) + 4 * (2 + n_dense))
         return {"cost": {"flops": float(flops), "bytes_accessed": float(nbytes)},
-                "total_bytes": None, "source": "analytic"}
+                "total_bytes": total, "source": "analytic"}
 
     def table_geometry(self) -> Dict[str, Dict]:
         if self.packed:
@@ -384,7 +480,9 @@ class SparseCTRTrainer(Trainer):
     def predict(self, state: CTRState, feats: np.ndarray) -> np.ndarray:
         """Scores of ``feats``. The rows are pulled where the table lies —
         on the host for the master state a tiered run returns — and the
-        forward pass runs where the dense tensors lie."""
+        forward pass runs where the dense tensors lie. Under a mesh the pull
+        is a collective: every rank calls this with the same ``feats``, or
+        the others wait for ever."""
         feats = torch.from_numpy(np.ascontiguousarray(feats, dtype=np.int32))
         b, f = feats.shape
         rows = self._rows(feats.to(state.table.table.device)).reshape(-1)
@@ -394,19 +492,27 @@ class SparseCTRTrainer(Trainer):
                             feats.to(dev) >= 0).cpu().numpy()
 
     def eval_auc(self, state: CTRState, labels=None, feats=None, limit: int = 20000) -> float:
+        """AUC of :meth:`predict` on ``labels`` / ``feats`` (default: the
+        first ``limit`` records); under a mesh every rank calls it with the
+        same records."""
         if labels is None:
             labels, feats = self.labels[:limit], self.feats[:limit]
         return auc_score(labels, self.predict(state, feats))
 
     def export_text(self, state: CTRState, path: str) -> None:
         """Dump the LOGICAL rows (G a stored tile) as ``key<TAB>v0 v1 ...``
-        lines, in chunks, as the JAX package's ``export_table_text`` does."""
+        lines, in chunks, as the JAX package's ``export_table_text`` does.
+        Under a mesh each chunk is pulled through the collective (every rank
+        calls this) and the rank at the mesh's origin writes the file."""
         chunk = 65536
         dev = state.table.table.device
-        with open(path, "w", encoding="utf-8") as f:
+        writes = self.mesh is None or not any(self.mesh.coords.values())
+        with open(path, "w", encoding="utf-8") if writes else contextlib.nullcontext() as f:
             for start in range(0, self.capacity, chunk):
                 stop = min(start + chunk, self.capacity)
                 ids = torch.arange(start, stop, dtype=torch.int32, device=dev)
                 vals = self._pull_rows(state.table, ids).float().cpu().numpy()
+                if not writes:
+                    continue
                 for key, row in zip(range(start, stop), vals):
                     f.write(f"{key}\t{' '.join(f'{x:.6f}' for x in row)}\n")

@@ -118,6 +118,7 @@ from swiftsnails_tpu_torch.framework.trainer import (
     UNPORTED_PLANE_KEYS,
     Trainer,
     _unported_mesh,
+    mesh_device,
     raise_unported,
     step_generator,
 )
@@ -134,7 +135,7 @@ from swiftsnails_tpu_torch.ops.hashing import hash_row, hash_row_np
 from swiftsnails_tpu_torch.ops.rowdma import unpack_rows
 from swiftsnails_tpu_torch.parallel import transfer
 from swiftsnails_tpu_torch.parallel.access import SgdAccess
-from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, rows_per_shard
+from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, rows_per_shard
 from swiftsnails_tpu_torch.parallel.store import (
     PackedTableState,
     TableState,
@@ -146,7 +147,7 @@ from swiftsnails_tpu_torch.parallel.store import (
     push_packed,
 )
 from swiftsnails_tpu_torch.utils.config import Config, ConfigError
-from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
+from swiftsnails_tpu_torch.utils.device import DeviceLike
 
 _TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -229,11 +230,7 @@ class Word2VecTrainer(Trainer):
         a :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh` to train under
         (module docstring), or ``None`` for one device."""
         if mesh is not None:
-            if not isinstance(mesh, Mesh):
-                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh)}")
-            if device is not None and resolve_device(device).type != mesh.device.type:
-                raise ValueError(f"trainer on {device}, mesh on {mesh.device}")
-            device = mesh.device
+            device = mesh_device(mesh, device)
         super().__init__(config, device)
         self.mesh = mesh
         cfg = config

@@ -37,13 +37,14 @@ Trainers differentiate with respect to the *pulled rows* and push explicitly,
 so every per-step tensor is batch-sized, as in the reference's wire protocol.
 
 With ``mesh=`` (:mod:`swiftsnails_tpu_torch.parallel.mesh`),
-:func:`create_table` and :func:`create_packed_table` return this rank's
-shard: the rows ``[m * per, (m + 1) * per)`` of the table the same call
-makes without a mesh, so every mesh shape starts from one table. The
-collectives over such shards are :mod:`swiftsnails_tpu_torch.parallel.transfer`.
-The small-row plane under a mesh is not ported yet (``ROADMAP.md`` Queue 1
-item 6). The tiered store's cache plane (:mod:`swiftsnails_tpu_torch.tiered`)
-is a smaller table of these layouts.
+:func:`create_table`, :func:`create_packed_table` and
+:func:`create_packed_small_table` return this rank's shard: the rows (the
+tiles, on the small-row plane) ``[m * per, (m + 1) * per)`` of the table
+the same call makes without a mesh, so every mesh shape starts from one
+table. The collectives over such shards are
+:mod:`swiftsnails_tpu_torch.parallel.transfer`. The tiered store's cache
+plane (:mod:`swiftsnails_tpu_torch.tiered`) is a smaller table of these
+layouts.
 """
 
 from __future__ import annotations
@@ -341,9 +342,13 @@ def create_packed_small_table(
     seed: int = 0,
     init_scale: Optional[float] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> PackedTableState:
     """A ``[T, S, 128]`` table of ``capacity`` logical ``dim``-rows, G a tile
-    (``T = ceil(capacity / G)``), on ``device`` (default: the card).
+    (``T = ceil(capacity / G)``), on ``device`` (default: the card). With
+    ``mesh``, this rank's tiles of that table (the whole table is drawn,
+    then cut): ``T`` must divide by the ``model`` axis, which owns the
+    tiles in contiguous ranges.
 
     ``S = 2`` with the AdaGrad accumulator fused in (see
     :func:`_fuse_small_slots`), else ``S = 1`` with separate slot tensors.
@@ -364,6 +369,14 @@ def create_packed_small_table(
         param = param * init_scale
     live = (torch.arange(lanes, device=dev) % stride) < dim
     param = param.masked_fill(~live, 0).reshape(t, 1, lanes)
+    if mesh is not None:
+        from swiftsnails_tpu_torch.parallel.mesh import MODEL_AXIS
+
+        model = mesh.axis_size(MODEL_AXIS)
+        if t % model:
+            raise ValueError(f"small-row tile count {t} not divisible by model axis {model}")
+        param = _shard(param, t, mesh)
+        t = param.shape[0]
     if _fuse_small_slots(access, dtype):
         table = torch.cat([param, torch.zeros_like(param)], dim=1)
         return PackedTableState(table=table, slots={})

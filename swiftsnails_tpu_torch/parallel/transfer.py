@@ -22,8 +22,15 @@ per)``) and one data shard of the batch:
 The 2-D plane's shard-local work is :func:`~swiftsnails_tpu_torch.parallel.store.pull`
 / :func:`~swiftsnails_tpu_torch.parallel.store.push` (fast or ``exact``);
 the packed plane's is ``pull_packed`` / ``push_packed``, which launch
-``gather_rows`` and ``scatter_add_rows`` on the card. A ``comm_dtype``
-other than f32 (the JAX codecs) raises.
+``gather_rows`` and ``scatter_add_rows`` on the card; the small-row
+plane's (:func:`pull_collective_packed_small`,
+:func:`push_collective_packed_small`, the CTR tables) is
+``pull_packed_small`` / ``push_packed_small``, which launch
+``gather_rows`` and the AdaGrad or SGD row kernel. There ownership is
+tile-granular: logical row ``r`` lives in tile ``r // G``, which model
+shard ``(r // G) // per_t`` owns, so a shard owns ``per_t * G``
+contiguous logical rows. A ``comm_dtype`` other than f32 (the JAX codecs)
+raises.
 
 The static-capacity planes of the packed tables, as in the JAX package:
 
@@ -32,8 +39,9 @@ The static-capacity planes of the packed tables, as in the JAX package:
   row once, through a sorted unique list of ``u_cap`` entries
   (:func:`_unique_static`); the push merges into that list before the
   gather;
-* **owner-bucketed push** (:func:`push_collective_packed_bucketed`): merge
-  locally, keep the rows the model shard owns in a static bucket of
+* **owner-bucketed push** (:func:`push_collective_packed_bucketed`, and
+  :func:`push_collective_bucketed` on the 2-D plane): merge locally, keep
+  the rows the model shard owns in a static bucket of
   :func:`bucket_capacity` entries (:func:`_compact_owned`), gather the
   buckets over ``data``.
 
@@ -73,9 +81,12 @@ from swiftsnails_tpu_torch.parallel.store import (
     merge_duplicate_rows,
     pull,
     pull_packed,
+    pull_packed_small,
     push,
     push_packed,
+    push_packed_small,
     segment_sum,
+    small_group,
     sort_segments,
 )
 
@@ -142,14 +153,18 @@ def _owned(mesh: Mesh, rows: torch.Tensor, per: int):
     return local, (local >= 0) & (local < per)
 
 
-def _mask_owned(mesh: Mesh, rows_all: torch.Tensor, grads_all: torch.Tensor, per: int):
+def _mask_owned(mesh: Mesh, rows_all: torch.Tensor, grads_all: torch.Tensor, per: int,
+                stride: int = 1):
     """Shard-local ids of ``rows_all``, the unowned ones sent past the
     shard's rows with a zero gradient: each to an id of its own (``per +
-    i``), so that the push's merge, a sort-based segment sum on the card,
-    meets no long run of them (a grouped window's pads are ~40% of its
-    slots). The push skips every id at or past ``per``."""
+    stride * i``), so that the push's merge, a sort-based segment sum on
+    the card, meets no long run of them (a grouped window's pads are ~40%
+    of its slots, and half a ``(2, 2)`` mesh's gathered CTR rows are
+    another shard's). ``stride``: logical rows a tile, so that each spare
+    id has a tile of its own. The push skips every id at or past ``per``."""
     local, owned = _owned(mesh, rows_all, per)
-    spare = per + torch.arange(local.shape[0], dtype=local.dtype, device=local.device)
+    spare = per + stride * torch.arange(local.shape[0], dtype=local.dtype,
+                                        device=local.device)
     local = torch.where(owned, local, spare)
     mask = owned.reshape(owned.shape + (1,) * (grads_all.dim() - 1))
     return local, grads_all.masked_fill(~mask, 0)
@@ -204,6 +219,47 @@ def push_collective_packed(mesh: Mesh, state: PackedTableState, rows: torch.Tens
     check_comm_dtype(comm_dtype)
     local, grads_all = _gather_owned(mesh, rows, grads, state.capacity)
     return push_packed(state, local, grads_all, access, lr)
+
+
+# ------------------------------------------------ the small-row plane ---
+
+
+def small_rows_per_shard(state: PackedTableState, dim: int) -> int:
+    """Logical rows a model shard of a small-row table owns: its tiles
+    (this rank's ``[per_t, S, 128]``) times ``G`` (the JAX
+    ``_tiles_per_shard``; the tile count's divisibility by the model axis
+    is checked where the shard is made,
+    :func:`~swiftsnails_tpu_torch.parallel.store.create_packed_small_table`)."""
+    return state.table.shape[0] * small_group(dim)
+
+
+def pull_collective_packed_small(mesh: Mesh, state: PackedTableState, rows: torch.Tensor,
+                                 dim: int, comm_dtype: str = "float32") -> torch.Tensor:
+    """Sharded small-row gather ``[N, dim]`` of this data shard's logical
+    ``rows``: ``pull_packed_small`` of the owned rows on this shard (one
+    ``gather_rows`` launch), zeros for the rest, summed over ``model``."""
+    check_comm_dtype(comm_dtype)
+    local, owned = _owned(mesh, rows, small_rows_per_shard(state, dim))
+    vals = pull_packed_small(PackedTableState(table=state.table, slots={}),
+                             torch.where(owned, local, 0), dim)
+    return all_reduce(mesh, vals.masked_fill(~owned[:, None], 0), MODEL_AXIS)
+
+
+def push_collective_packed_small(mesh: Mesh, state: PackedTableState, rows: torch.Tensor,
+                                 grads: torch.Tensor, access: AccessMethod, lr, dim: int,
+                                 comm_dtype: str = "float32") -> PackedTableState:
+    """Sharded small-row push of this data shard's ``[N, dim]``
+    gradients: ids and gradients gathered over ``data`` in data-rank
+    order, the unowned ones masked (each to a spare tile of its own, past
+    the shard's, with a zero gradient: no hot padding tile), then
+    ``push_packed_small`` of the rest on this shard (one row-kernel
+    launch), in place."""
+    check_comm_dtype(comm_dtype)
+    rows_all = all_gather(mesh, rows, DATA_AXIS)
+    grads_all = all_gather(mesh, grads, DATA_AXIS)
+    local, grads_all = _mask_owned(mesh, rows_all, grads_all,
+                                   small_rows_per_shard(state, dim), stride=small_group(dim))
+    return push_packed_small(state, local, grads_all, access, lr, dim)
 
 
 def gather_table(mesh: Mesh, table: torch.Tensor) -> torch.Tensor:
@@ -373,6 +429,28 @@ def push_collective_packed_bucketed(mesh: Mesh, state: PackedTableState, rows: t
         uniq, merged, mesh.axis_index(MODEL_AXIS), state.capacity, cap, invalid)
     local, grads_all = _gather_owned(mesh, b_rows, b_grads, state.capacity)
     push_packed(state, local, grads_all, access, lr)
+    return state, _count_over(mesh, overflow, DATA_AXIS, MODEL_AXIS)
+
+
+def push_collective_bucketed(mesh: Mesh, state: TableState, rows: torch.Tensor,
+                             grads: torch.Tensor, access: AccessMethod, lr,
+                             slack: float = 2.0, comm_dtype: str = "float32"):
+    """The 2-D plane's owner-bucketed push of this data shard's ``[N,
+    dim]`` gradients: merged locally, this model shard's owned rows
+    compacted into a static bucket (:func:`bucket_capacity` of ``N``), the
+    buckets gathered over ``data``, merged again and the rule applied to
+    each unique row once (:func:`~swiftsnails_tpu_torch.parallel.store.apply_rows`),
+    in place. Returns ``(state, dropped)``, the rows past the caps summed
+    over ``data`` and ``model``."""
+    check_comm_dtype(comm_dtype)
+    model, per = mesh.axis_size(MODEL_AXIS), state.capacity
+    invalid = per * model
+    cap = bucket_capacity(rows.shape[0], model, slack)
+    uniq, merged = merge_duplicate_rows(rows, grads, invalid_row=invalid)
+    b_rows, b_grads, overflow = _compact_owned(
+        uniq, merged, mesh.axis_index(MODEL_AXIS), per, cap, invalid)
+    local, grads_all = _gather_owned(mesh, b_rows, b_grads, per)
+    push(state, local, grads_all, access, lr, exact=True)
     return state, _count_over(mesh, overflow, DATA_AXIS, MODEL_AXIS)
 
 

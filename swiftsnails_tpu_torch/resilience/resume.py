@@ -58,6 +58,7 @@ def resume_state(
     ledger=None,
     config_hash: Optional[str] = None,
     on_reject: Optional[Callable[[int, Exception], None]] = None,
+    mesh=None,
 ) -> Optional[Tuple[Any, int, Dict]]:
     """Restore the newest intact checkpoint under ``root`` into ``template``.
 
@@ -67,14 +68,17 @@ def resume_state(
     the walk in ``auto`` mode; a corrupt, torn or unreadable one is
     recorded as a ``cache_error`` ledger event, passed to
     ``on_reject(step, error)`` and skipped, so a flipped bit in the newest
-    save costs one backup period, not the run.
+    save costs one backup period, not the run. ``mesh``: ``template`` is
+    this rank's part of a state sharded over it; every rank calls this,
+    and all of them walk back together
+    (:func:`~swiftsnails_tpu_torch.framework.checkpoint.restore_checkpoint`).
     """
     preferred: List[int] = []
     if mode == "auto":
         preferred = _ledger_known_steps(ledger, root, config_hash)
     for step in candidate_steps(root, preferred=preferred):
         try:
-            state = restore_checkpoint(root, template, step=step, verify=True)
+            state = restore_checkpoint(root, template, step=step, verify=True, mesh=mesh)
         except (CheckpointError, OSError) as e:
             if ledger is not None:
                 try:

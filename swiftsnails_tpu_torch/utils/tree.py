@@ -46,6 +46,20 @@ def tensor_items(state: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]
     return out
 
 
+def keys_under(state: Any, types: tuple, prefix: str = "") -> List[str]:
+    """The keys of the tensors of ``state`` that lie inside a node of one of
+    ``types`` (e.g. the table states of a trainer's state)."""
+    if isinstance(state, types):
+        return [key for key, _ in tensor_items(state, prefix)]
+    kids = _children(state)
+    if kids is None:
+        return []
+    out: List[str] = []
+    for key, child in kids:
+        out.extend(keys_under(child, types, _join(prefix, key)))
+    return out
+
+
 def map_tensors(state: Any, fn: Callable[[str, torch.Tensor], torch.Tensor],
                 prefix: str = "") -> Any:
     """A state of the same structure with each tensor replaced by

@@ -7,6 +7,7 @@ port has, the JAX package's six.
 """
 
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -206,6 +207,10 @@ def test_cli_ops_renders_a_ledger(tmp_path, capsys):
 
 
 def test_cli_sigterm_drains_with_a_final_checkpoint(tmp_path, corpus):
+    """A SIGTERM after the first periodic save drains: exit 0, and the
+    drain's own save, committed last, at the step where the loop stopped
+    (which may be a periodic step: the signal can land just after one's
+    save, and the step is then committed twice), its cursor that step."""
     conf = _conf(tmp_path, corpus, num_iters=400, param_backup_period=20)
     root = str(tmp_path / "ckpt")
     proc = subprocess.Popen(
@@ -213,22 +218,27 @@ def test_cli_sigterm_drains_with_a_final_checkpoint(tmp_path, corpus):
          "-device", "cpu"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=_env(), cwd=tmp_path)
     try:
-        deadline = time.monotonic() + 60
+        deadline = time.monotonic() + 180  # a loaded host starts slowly
         while not ckpt.intact_steps(root) and time.monotonic() < deadline:
             assert proc.poll() is None, proc.communicate()[1][-2000:]
             time.sleep(0.05)
         periodic = ckpt.intact_steps(root)
-        assert periodic, "no checkpoint within 60 s"
+        assert periodic, "no checkpoint within 180 s"
         proc.send_signal(signal.SIGTERM)
-        _, err = proc.communicate(timeout=60)
+        _, err = proc.communicate(timeout=180)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
     assert proc.returncode == 0, err[-2000:]
     assert "preempted (SIGTERM): drained with a final checkpoint" in err
+    drained = int(re.search(r"preemption \(SIGTERM\): drained at step (\d+)", err).group(1))
+    commits = [int(s) for s in re.findall(r"checkpoint: committed step_(\d+)", err)]
+    # the periodic saves, each once, then the drain's own save
+    assert commits == list(range(20, drained + 1, 20)) + [drained], commits
+    assert drained >= periodic[0]
     final = ckpt.intact_steps(root)[0]
-    assert final > periodic[0] and final % 20 != 0  # the drain's own save
+    assert final == drained
     man = ckpt.read_manifest(root, final)
     assert man["data_cursor"]["step"] == final
 

@@ -355,10 +355,18 @@ def test_unported_keys_raise(key, value):
 
 def test_wide_ffm_and_mesh_raise():
     """FFM above a table dim of 128 is ported since this test was written:
-    it takes the 2-D plane, as in the JAX package. A mesh still raises."""
+    it takes the 2-D plane, as in the JAX package. A mesh is taken since
+    the meshed CTR plane was ported: the trainer keeps a ``Mesh`` and its
+    device, and anything else raises ``TypeError``, as word2vec's does."""
+    from swiftsnails_tpu_torch.parallel.mesh import Mesh
+
     wide = get_model("ffm")(Config(_conf(factor_dim=40)), data=_data(), device="cpu")
     assert wide.table_dim > 128 and not wide.packed
-    with pytest.raises(NotImplementedError, match="mesh"):
+    m = Mesh(shape={"data": 2, "model": 2}, coords={"data": 0, "model": 0}, groups={},
+             device=torch.device("cpu"))
+    tr = get_model("logreg")(Config(_conf()), mesh=m, data=_data())
+    assert tr.mesh is m and tr.device == torch.device("cpu") and tr.packed
+    with pytest.raises(TypeError, match="Mesh"):
         get_model("logreg")(Config(_conf()), mesh=object(), data=_data(), device="cpu")
 
 

@@ -1,5 +1,6 @@
-"""The mesh's collectives, meshed word2vec and its grouped plane on the
-card, under a ``(1, 1)`` mesh of a one-rank NCCL group (NCCL puts no two
+"""The mesh's collectives, meshed word2vec and its grouped plane, meshed
+Wide & Deep and its checkpoint on the card, under a ``(1, 1)`` mesh of a
+one-rank NCCL group (NCCL puts no two
 ranks on one card; the multi-rank meshes are the gloo tests on the CPU and
 ``chip_smoke.py``'s ``mesh`` phase).
 
@@ -115,3 +116,49 @@ def test_grouped_plane_is_the_cpu_port(nccl_mesh, route):
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5, atol=1e-6)
     assert got["dropped"] == want["dropped"]
     assert all(c == p for c, p in got["counted"])
+
+
+def _cpu_mesh():
+    """A (1, 1) mesh of a one-rank gloo group on the CPU, beside the NCCL
+    one."""
+    import torch.distributed as dist
+
+    from swiftsnails_tpu_torch.parallel.mesh import Mesh
+
+    group = dist.new_group([0], backend="gloo")
+    return Mesh(shape={"data": 1, "model": 1}, coords={"data": 0, "model": 0},
+                groups={"data": group, "model": group}, device=torch.device("cpu"))
+
+
+def test_meshed_widedeep_and_its_checkpoint_are_the_cpu_port(nccl_mesh, tmp_path):
+    """Wide & Deep on the small-row plane (``torch_mesh_ranks``'s case: 3
+    steps from one start, padding fields, AdaGrad) on the one-rank NCCL
+    mesh against the port on a one-rank gloo mesh on the CPU: arrays,
+    losses and predictions within rtol 1e-5 / atol 1e-6; one
+    ``gather_rows`` a pull (3 steps and the prediction) and one
+    ``scatter_adagrad_fused_rows`` a push. Its mesh checkpoint restores onto
+    the NCCL mesh and onto one CPU device bit for bit."""
+    import torch_mesh_ranks as ranks
+    from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+    from swiftsnails_tpu_torch.utils.tree import tensor_items
+
+    want = ranks.ctr_run(_cpu_mesh(), "widedeep")
+    g0, a0 = rowdma.gather_rows.launches, rowdma.scatter_adagrad_fused_rows.launches
+    got = ranks.ctr_run(nccl_mesh, "widedeep", keep=True)
+    torch.cuda.synchronize()
+    assert rowdma.gather_rows.launches - g0 == ranks.CTR_STEPS + 1
+    assert rowdma.scatter_adagrad_fused_rows.launches - a0 == ranks.CTR_STEPS
+    for name, w in want["arrays"].items():
+        np.testing.assert_allclose(got["arrays"][name].numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got["predict"].numpy(), want["predict"].numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert all(c == p for c, p in got["counted"])
+    state, root = got["state"], str(tmp_path / "ck")
+    ckpt.save_checkpoint(root, state, step=ranks.CTR_STEPS, mesh=nccl_mesh)
+    for template, m in ((got["trainer"].init_state(), nccl_mesh),
+                        (ranks.ctr_solo("widedeep").init_state(), None)):
+        restored = dict(tensor_items(ckpt.restore_checkpoint(root, template, mesh=m)))
+        for key, t in tensor_items(state):
+            assert torch.equal(restored[key].cpu(), t.cpu()), key

@@ -163,7 +163,7 @@ def test_unported_keys_raise_under_a_mesh(over):
 
 
 @pytest.mark.parametrize("over", [
-    {"param_backup_root": "ck"}, {"resume": "auto"}, {"guardrail": "1"},
+    {"guardrail": "1"},
     {"freshness_publish": "4", "freshness_dir": "d"}, {"cluster_workers": "1"},
 ], ids=lambda o: next(iter(o)))
 def test_loop_keys_raise_under_a_mesh(over):

@@ -1,5 +1,6 @@
 """Rank-side code of the port's mesh tests (``tests/test_torch_mesh.py``,
-``tests/test_torch_word2vec_mesh.py``, ``tests/test_torch_grouped_mesh.py``):
+``tests/test_torch_word2vec_mesh.py``, ``tests/test_torch_grouped_mesh.py``,
+``tests/test_torch_ctr_mesh.py``):
 what each spawned gloo rank runs.
 It imports no JAX, so that a spawned rank starts quickly; the tests hold
 its results against the JAX package."""
@@ -15,6 +16,7 @@ from swiftsnails_tpu_torch import convert
 from swiftsnails_tpu_torch.parallel import cluster, mesh, transfer
 from swiftsnails_tpu_torch.parallel.access import AdaGradAccess, SgdAccess
 from swiftsnails_tpu_torch.utils.config import Config
+from swiftsnails_tpu_torch.utils.tree import tensor_items
 
 CAP, DIM, PACKED_DIM, N, LR = 64, 16, 200, 16, 0.1
 
@@ -447,6 +449,354 @@ def grouped_worker(rank, size, init, out_dir, shape):
         if rank == 0:
             state, records = grouped_loop(grouped_trainer("grouped", solo, **GROUPED_LOOP))
             out["solo"]["loop"] = {"tables": [t.table for t in state], "records": records}
+        dist.destroy_process_group()
+    except Exception:
+        out = {"error": traceback.format_exc()}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ------------------------------------------------------- CTR on a mesh ---
+
+CTR_STEPS = 3
+CTR_BATCH = 128
+CTR_RECORDS = 1024  # 8 batches an epoch
+# case -> (model, config keys on top of ctr_conf's)
+CTR_CASES = {
+    "widedeep": ("widedeep", {"embed_dim": "16", "hidden_dims": "16,8"}),
+    "logreg": ("logreg", {"optimizer": "sgd", "learning_rate": "0.5"}),
+    "fm": ("fm", {"factor_dim": "8"}),
+    "ffm39": ("ffm", {"num_fields": "39", "factor_dim": "4"}),
+    # 4 rows of dim 17 are one tile, which a model axis of 2 cannot split
+    "widedeep_fallback": ("widedeep", {"embed_dim": "16", "hidden_dims": "16,8",
+                                       "capacity": "4"}),
+}
+# the planes the JAX trainer picks for the cases on a (2, 2) mesh
+CTR_PACKED = {"widedeep": True, "logreg": True, "fm": True, "ffm39": False,
+              "widedeep_fallback": False}
+
+
+def ctr_conf(case, **over):
+    conf = {"num_fields": "6", "capacity": "1024", "learning_rate": "0.2",
+            "optimizer": "adagrad", "batch_size": str(CTR_BATCH), "seed": "0",
+            "num_iters": "4"}
+    conf.update(CTR_CASES[case][1])
+    conf.update({k: str(v) for k, v in over.items()})
+    return conf
+
+
+def ctr_data(case):
+    """synth_ctr records at the case's field count, every fifth record's
+    field 3 a padding field."""
+    from swiftsnails_tpu_torch.data.ctr import PAD, synth_ctr
+
+    labels, feats, _ = synth_ctr(CTR_RECORDS, int(ctr_conf(case)["num_fields"]), 50, seed=3)
+    feats[::5, 3] = PAD
+    return labels, feats
+
+
+def ctr_trainer(case, mesh_=None, **over):
+    from swiftsnails_tpu_torch.models.registry import get_model
+
+    return get_model(CTR_CASES[case][0])(
+        Config(ctr_conf(case, **over)), mesh=mesh_, data=ctr_data(case),
+        device=None if mesh_ is not None else "cpu")
+
+
+def ctr_global_batches(case):
+    """The case's steps' global batches: consecutive records."""
+    labels, feats = ctr_data(case)
+    return [{"labels": labels[i * CTR_BATCH:(i + 1) * CTR_BATCH],
+             "feats": feats[i * CTR_BATCH:(i + 1) * CTR_BATCH]} for i in range(CTR_STEPS)]
+
+
+def ctr_solo(case):
+    """The case's one-device trainer, on the plane the meshed one picks."""
+    return ctr_trainer(case, packed=int(CTR_PACKED[case]))
+
+
+def ctr_start(case):
+    """The case's start state as whole numpy arrays: the one-device port's
+    ``init_state`` (table, slots, dense, AdaGrad sums) on the plane the
+    meshed trainer picks."""
+    state = ctr_solo(case).init_state()
+    return {"table": state.table.table.numpy(),
+            "slots": {k: v.numpy() for k, v in state.table.slots.items()},
+            "dense": {k: v.numpy() for k, v in state.dense.items()},
+            "sums": ({k: v.numpy() for k, v in state.opt["sum_of_squares"].items()}
+                     if state.opt else None)}
+
+
+def ctr_arrays(state):
+    """A CTR state's tensors on the host, by name (``table``, ``slot.*``,
+    ``dense.*``, ``opt.*``)."""
+    out = {"table": state.table.table.cpu()}
+    out.update({f"slot.{k}": v.cpu() for k, v in state.table.slots.items()})
+    out.update({f"dense.{k}": v.cpu() for k, v in state.dense.items()})
+    if state.opt:
+        out.update({f"opt.{k}": v.cpu() for k, v in state.opt["sum_of_squares"].items()})
+    return out
+
+
+def ctr_run(m, case, keep=False):
+    """The case's steps through ``train_step`` under ``m`` from the shared
+    start state (each rank its part of every global batch): its arrays,
+    losses, accuracies, each step's collective bytes against
+    ``step_cost``'s, and the predictions of 256 records; the trainer and
+    the state too where ``keep``."""
+    tr = ctr_trainer(case, m)
+    st = ctr_start(case)
+    state = convert.ctr_state_from_numpy(st["table"], st["dense"], st["sums"],
+                                         device=m.device, table_slots=st["slots"], mesh=m)
+    losses, accs, counted = [], [], []
+    for b in ctr_global_batches(case):
+        batch = {k: torch.from_numpy(v).to(m.device) for k, v in tr.local_batch(b).items()}
+        transfer.reset_comm()
+        state, met = tr.train_step(state, batch)
+        losses.append(float(met["loss"]))
+        accs.append(float(met["accuracy"]))
+        counted.append([transfer.comm_bytes(), tr.step_cost(b)["total_bytes"]])
+    _, feats = ctr_data(case)
+    out = {"packed": tr.packed, "arrays": ctr_arrays(state), "losses": losses,
+           "accuracies": accs, "counted": counted,
+           "predict": torch.from_numpy(tr.predict(state, feats[:256]))}
+    if keep:
+        out.update(trainer=tr, state=state)
+    return out
+
+
+# small-row and 2-D transfer cases: name -> (kind, access, slack)
+CTR_TRANSFER_CASES = {
+    "small_pull": ("small_pull", "adagrad", None),
+    "small_push_adagrad": ("small_push", "adagrad", None),
+    "small_push_sgd": ("small_push", "sgd", None),
+    "bucketed_sgd": ("bucketed", "sgd", 2.0),
+    "bucketed_adagrad_tight": ("bucketed", "adagrad", 0.05),
+}
+SMALL_CAP, SMALL_DIM, CTR_IDS = 1024, 17, 96
+
+
+def ctr_transfer_inputs(access):
+    """A small-row table of 1,024 rows of dim 17 (4 a tile; AdaGrad's
+    accumulator in the tile's sublane 1, positive), a 2-D ``[64, 8]`` table
+    with a positive accumulator, 96 ids with repeats (a run of one id, as a
+    padding field gives) and their gradients."""
+    rng = np.random.default_rng(9)
+    tiles = SMALL_CAP // 4
+    live = (np.arange(128) % 32) < SMALL_DIM
+    small = np.zeros((tiles, 2 if access == "adagrad" else 1, 128), np.float32)
+    small[:, 0] = rng.standard_normal((tiles, 128)) * live
+    if access == "adagrad":
+        small[:, 1] = rng.random((tiles, 128)) * live
+    rows = rng.integers(0, SMALL_CAP, CTR_IDS).astype(np.int32)
+    rows[20:30] = rows[7]
+    return {"small": small, "rows": rows,
+            "small_grads": rng.standard_normal((CTR_IDS, SMALL_DIM)).astype(np.float32),
+            "table": rng.standard_normal((CAP, 8)).astype(np.float32),
+            "accum": rng.random((CAP, 8)).astype(np.float32),
+            "rows2d": rng.integers(0, CAP, CTR_IDS).astype(np.int32),
+            "grads2d": rng.standard_normal((CTR_IDS, 8)).astype(np.float32)}
+
+
+def ctr_transfer_cases(m):
+    """Every small-row and 2-D bucketed transfer case on this rank: the pull
+    (or ``None``), the shard after the push, the dropped count."""
+    out = {}
+    sl = mesh.batch_sharding(m, CTR_IDS)
+    for case, (kind, acc, slack) in CTR_TRANSFER_CASES.items():
+        inp = ctr_transfer_inputs(acc)
+        access = port_access(acc)
+        pulled, count = None, 0
+        if kind == "bucketed":
+            slots = {"accum": inp["accum"]} if acc == "adagrad" else None
+            st = convert.table_shard_from_numpy(inp["table"], m, slots, device="cpu")
+            _, count = transfer.push_collective_bucketed(
+                m, st, torch.from_numpy(inp["rows2d"][sl]),
+                torch.from_numpy(inp["grads2d"][sl]), access, LR, slack=slack)
+        else:
+            st = convert.table_shard_from_numpy(inp["small"], m, device="cpu")
+            rows = torch.from_numpy(inp["rows"][sl])
+            if kind == "small_pull":
+                pulled = transfer.pull_collective_packed_small(m, st, rows, SMALL_DIM)
+            else:
+                transfer.push_collective_packed_small(
+                    m, st, rows, torch.from_numpy(inp["small_grads"][sl]), access, LR,
+                    SMALL_DIM)
+        out[case] = {"pull": pulled, "table": st.table.clone(), "count": int(count),
+                     "slots": {k: v.clone() for k, v in st.slots.items()}}
+    return out
+
+
+# ------------------------------------------------ checkpoints on a mesh ---
+
+CKPT_STEPS, CKPT_SAVE = 4, 2
+
+
+def _records_loop(tr, steps, seed=0):
+    """``TrainLoop.run`` to ``steps`` logging every step; the state and the
+    losses by step."""
+    from swiftsnails_tpu_torch.framework.trainer import TrainLoop
+    from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
+
+    losses = {}
+
+    class Recorder(MetricsLogger):
+        def log(self, record):
+            losses[record["step"]] = record["loss"]
+
+    state = TrainLoop(tr, metrics=Recorder(), log_every=1).run(seed=seed, max_steps=steps)
+    return state, losses
+
+
+def resume_runs(make, root, steps=CKPT_STEPS, save=CKPT_SAVE):
+    """``make(**keys)``'s trainer straight to ``steps``; to ``save`` with
+    a checkpoint there under ``root``; then resumed (``resume: auto``) to
+    ``steps``. Returns ``(straight, saved, resumed)``, each ``(state,
+    losses by step)``."""
+    keys = {"param_backup_root": root, "param_backup_period": save}
+    straight = _records_loop(make(), steps)
+    saved = _records_loop(make(**keys), save)
+    resumed = _records_loop(make(resume="auto", **keys), steps)
+    return straight, saved, resumed
+
+
+def _tensors(state):
+    return {k: t.detach().cpu().clone() for k, t in tensor_items(state)}
+
+
+def checkpoint_cases(m, out_dir):
+    """The checkpoint cases on this rank (every rank calls each save and
+    restore): W&D and the grouped word2vec plane saved at step 2 and
+    resumed to 4 beside the straight run; W&D's export after the resume; a
+    corrupt copy of W&D's step 2, which every rank must reject; and a
+    checkpoint written by one device (rank 0), restored onto the mesh."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+
+    out = {"dir": out_dir}
+    wd_root = os.path.join(out_dir, "ck_widedeep")
+    straight, saved, resumed = resume_runs(
+        lambda **k: ctr_trainer("widedeep", m, **k), wd_root)
+    out["widedeep"] = {"straight": (_tensors(straight[0]), straight[1]),
+                       "saved": (_tensors(saved[0]), saved[1]),
+                       "resumed": (_tensors(resumed[0]), resumed[1])}
+    tr = ctr_trainer("widedeep", m)
+    tr.export_text(resumed[0], os.path.join(out_dir, "widedeep_export.txt"))
+    w2v_root = os.path.join(out_dir, "ck_grouped")
+    straight, saved, resumed = resume_runs(
+        lambda **k: grouped_trainer("grouped", m, **GROUPED_LOOP, **k), w2v_root)
+    out["grouped"] = {"straight": (_tensors(straight[0]), straight[1]),
+                      "saved": (_tensors(saved[0]), saved[1]),
+                      "resumed": (_tensors(resumed[0]), resumed[1])}
+    # a flipped byte in model shard 1's rows of the table: every rank raises
+    bad = os.path.join(out_dir, "ck_bad")
+    if dist.get_rank() == 0:
+        shutil.copytree(os.path.join(wd_root, f"step_{CKPT_SAVE}"),
+                        os.path.join(bad, f"step_{CKPT_SAVE}"))
+        path = os.path.join(bad, f"step_{CKPT_SAVE}", "table.table.bin")
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) * 3 // 4)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+    dist.barrier()
+    try:
+        ckpt.restore_checkpoint(bad, tr.init_state(), mesh=m)
+        out["bad_error"] = None
+    except ckpt.CheckpointError as e:
+        out["bad_error"] = str(e)
+    # one device's checkpoint onto the mesh
+    one_root = os.path.join(out_dir, "ck_one")
+    if dist.get_rank() == 0:
+        one = ctr_trainer("widedeep").init_state()
+        with torch.no_grad():
+            for _, t in tensor_items(one):
+                t.add_(1.0)
+        ckpt.save_checkpoint(one_root, one, step=7)
+        out["one_saved"] = _tensors(one)
+    dist.barrier()
+    out["one_restored"] = _tensors(ckpt.restore_checkpoint(one_root, tr.init_state(), mesh=m))
+    return out
+
+
+# ------------------------------------------------------ seqlm on a mesh ---
+
+SEQLM_STEPS = 3
+SEQLM_VOCAB = 32
+
+
+def seqlm_corpus(n=3000):
+    """The JAX seqlm tests' corpus: x_{t+1} = x_t + 1 mod vocab, with noise."""
+    rng = np.random.default_rng(0)
+    return (np.cumsum(rng.random(n) < 0.95).astype(np.int64) % SEQLM_VOCAB).astype(np.int32)
+
+
+def seqlm_conf(**over):
+    conf = {"seq_len": "32", "n_layers": "1", "n_heads": "2", "d_model": "32",
+            "learning_rate": "0.1", "batch_size": "8", "num_iters": "8"}
+    conf.update({k: str(v) for k, v in over.items()})
+    return conf
+
+
+def seqlm_trainer(mesh_=None, **over):
+    from swiftsnails_tpu_torch.models.seqlm import SeqLMTrainer
+
+    return SeqLMTrainer(Config(seqlm_conf(**over)), corpus_ids=seqlm_corpus(),
+                        vocab_size=SEQLM_VOCAB, mesh=mesh_,
+                        device=None if mesh_ is not None else "cpu")
+
+
+def seqlm_steps(tr):
+    """``SEQLM_STEPS`` SGD steps from the trainer's start state (each rank
+    its part of every global batch): the parameters and the losses."""
+    from swiftsnails_tpu_torch.models.seqlm import param_leaves
+
+    state = tr.init_state()
+    losses = []
+    for _, b in zip(range(SEQLM_STEPS), tr.batches()):
+        batch = {"tokens": torch.from_numpy(tr.local_batch(b)["tokens"])}
+        state, met = tr.train_step(state, batch, None)
+        losses.append(float(met["loss"]))
+    return {"params": [p.detach().clone() for p in param_leaves(state["params"])],
+            "losses": losses}
+
+
+def seqlm_cases(mds, out_dir):
+    """Ring and Ulysses on the (data, seq) mesh, ``SEQLM_STEPS`` SGD steps;
+    adam under ring saved at step 3 and resumed to 6 beside the straight
+    run."""
+    from swiftsnails_tpu_torch.parallel import sequence
+
+    sequence.reset_calls()
+    out = {a: seqlm_steps(seqlm_trainer(mds, attention=a)) for a in ("ring", "ulysses")}
+    out["calls"] = dict(sequence.CALLS)
+    straight, _, resumed = resume_runs(
+        lambda **k: seqlm_trainer(mds, attention="ring", optimizer="adam",
+                                  learning_rate="0.003", **k),
+        os.path.join(out_dir, "ck_seqlm"), steps=6, save=3)
+    out["adam"] = {"straight": straight[1], "resumed": resumed[1]}
+    return out
+
+
+def ctr_mesh_worker(rank, size, init, out_dir):
+    """One rank of ``tests/test_torch_ctr_mesh.py``: a ``(data 2, model 2)``
+    and a ``(data 2, seq 2)`` mesh; every CTR case, the transfer cases,
+    the checkpoint cases and the seqlm cases."""
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        join(rank, size, init)
+        m = mesh.make_mesh({"data": 2, "model": 2}, device="cpu")
+        mds = mesh.make_mesh({"data": 2, "seq": 2}, device="cpu")
+        out["coords"] = dict(m.coords)
+        out["seq_coords"] = dict(mds.coords)
+        out["ctr"] = {case: ctr_run(m, case) for case in CTR_CASES}
+        out["transfer"] = ctr_transfer_cases(m)
+        out["checkpoint"] = checkpoint_cases(m, out_dir)
+        out["seqlm"] = seqlm_cases(mds, out_dir)
         dist.destroy_process_group()
     except Exception:
         out = {"error": traceback.format_exc()}
