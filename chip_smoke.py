@@ -431,7 +431,24 @@ Phases:
     same ranks then train the grouped plane's plain, dedup (a covering cap)
     and ``overlap: 1`` routes (2,048 centers, 2 substeps a step), each
     within rtol 1e-5 / atol 1e-6 of the same route on the (1, 1) NCCL mesh,
-    nothing dropped, each rank's launches counted. One ``mesh`` line. Then
+    nothing dropped, each rank's launches counted; the same ranks then
+    train the grouped plane's dedup and bucketed routes and W&D
+    ``WIRE_GLOO_STEPS`` steps under ``comm_dtype`` int8 and int4 (on the
+    card, or on the CPU where gloo refuses a codec's dtype there: the
+    ``wire`` entry's ``device``), every element within one quantization
+    step a push of the same route on the (1, 1) NCCL mesh. (e) The
+    ``wire`` leg on the (1, 1) NCCL mesh at full width: packed+pool, W&D
+    at ``examples/widedeep.conf`` and the grouped plane, ``WIRE_STEPS``
+    steps under f32, bf16, int8 and int4: the codecs on the card bit-equal
+    to the CPU's on a full-width pull's rows and a push's gradients
+    (deterministic and dithered), each meshed pull the unmeshed pull
+    through ``_wire_cast``, word2vec's losses within ``WIRE_LOSS_BARS`` of
+    f32's and falling (W&D's gap reported: the JAX package sets it no
+    bar), launches as f32's, the counted bytes ``step_cost``'s, the
+    grouped exchange's scoped bytes ``WIRE_BYTE_FLOORS`` below f32's;
+    each path's bytes and ms a step and the codec's launches and device
+    ms a step (a profiled step's non-NCCL kernels beyond f32's). One
+    ``mesh`` line. Then
     ``gather_rows`` and ``scatter_add_rows`` at the grouped plane's shapes
     (``kernel`` lines, ``path: "mesh_grouped"``): its pulls of 8,192 centers
     and 83,968 out rows and its pushes of the merged rows, on a step of its
@@ -4898,6 +4915,10 @@ def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) ->
         out["widedeep"] = {"state": {k: t.cpu() for k, t in _tensor_items(wd["state"])},
                            "losses": wd["losses"], "launches": wd["launches"]}
         del wd
+        wire_dev = _gloo_wire_device(mesh)
+        wire_mesh = mesh if wire_dev == MESH_GLOO_DEVICE else make_mesh(MESH_GLOO, device=wire_dev)
+        out["wire_device"] = wire_dev
+        out["wire"] = _gloo_wire_runs(seed, wire_mesh, wire_dev)
         seq = make_mesh(MESH_SEQLM, device=MESH_SEQLM_DEVICE)
         out["seqlm"] = _mesh_seqlm_run(seed, MESH_SEQLM_DEVICE, seq)
         out["seq_coords"] = seq.coords
@@ -4993,10 +5014,11 @@ def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
                                                 for k in want_launches} for r in results]}
         torch.cuda.empty_cache()
     widedeep = _mesh_gloo_widedeep(seed, by, solo, tmp)
+    wire = _gloo_wire_check(seed, by, solo)
     seqlm = _mesh_gloo_seqlm(seed, results)
     return {"device": MESH_GLOO_DEVICE, "backend": results[0]["backend"],
             "mesh": MESH_GLOO, "ranks": size, "steps": MESH_GLOO_STEPS,
-            "widedeep": widedeep, "seqlm": seqlm,
+            "widedeep": widedeep, "wire": wire, "seqlm": seqlm,
             "reduced": {"vocab": [MESH_GLOO_VOCAB, VOCAB],
                         "batch": [MESH_GLOO_BATCH, BATCH],
                         "grouped_centers": [MESH_GLOO_BATCH, GROUPED_BATCH],
@@ -5450,6 +5472,388 @@ def _mesh_seqlm_run(seed: int, device: str, mesh=None) -> dict:
                 "seq_len", "n_layers", "n_heads", "d_model", "batch_size")}}
 
 
+# The wire leg (phase 21 (e)): comm_dtype on the (1, 1) NCCL mesh at full
+# width, 5 steps of each path under each codec beside an f32 run
+WIRE_STEPS = 5
+WIRE_FORMATS = ("bfloat16", "int8", "int4")
+# the JAX package's loss bars against the f32 wire on its grouped mesh plane
+# (tests/test_comm_dtype.py:239-249, tests/test_int4_wire.py:304-313); it
+# sets none for the CTR plane, whose gap the line reports
+WIRE_LOSS_BARS = {"bfloat16": 0.01, "int8": 0.02, "int4": 0.01}
+# the grouped exchange's scoped bytes at least this far below f32's
+WIRE_BYTE_FLOORS = {"bfloat16": 1.9, "int8": 3.0, "int4": 6.0}
+# leg 2's wire routes: 2 steps each under int8 and int4 on the four gloo ranks
+WIRE_GLOO_STEPS = 2
+WIRE_GLOO_FORMATS = ("int8", "int4")
+WIRE_GLOO_GROUPED = {"dedup": MESH_GLOO_GROUPED["dedup"],
+                     "bucketed": {"push_mode": "bucketed", "bucket_slack": MESH_GROUPED_SLACK}}
+WIRE_STEP_SHARE = {"bfloat16": 2.0 ** -7, "int8": 1 / 127, "int4": 1 / 7}
+
+
+def _kernel_profile(trainer, state, seed: int) -> dict:
+    """One more step of ``trainer`` under ``torch.profiler``: the launches
+    and device ms of its kernels, NCCL's apart."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from swiftsnails_tpu_torch.framework.trainer import step_generator
+
+    dev = torch.device("cuda")
+    it = iter(trainer.batches())
+    batch = {k: torch.from_numpy(v).to(dev) if np.ndim(v) else v for k, v in next(it).items()}
+    it.close()
+    trainer.train_step(state, batch, step_generator(seed, 0, dev))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch, step_generator(seed, 1, dev))
+        torch.cuda.synchronize()
+    out = {"launches": 0, "ms": 0.0, "nccl_launches": 0, "nccl_ms": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        key = "nccl_" if "nccl" in e.key.lower() else ""
+        out[key + "launches"] += e.count
+        out[key + "ms"] += e.self_device_time_total / 1e3
+    return out
+
+
+def _wire_run(path: str, seed: int, corpora, mesh, wire: str, profile: bool = False) -> dict:
+    """``path`` (``packed``: the train phase's packed+pool; ``grouped``:
+    ``MESH_GROUPED`` at ``MESH_GROUPED_LR``; ``widedeep``:
+    ``examples/widedeep.conf``) under ``mesh`` and ``comm_dtype: wire``,
+    ``WIRE_STEPS`` steps of ``TrainLoop``: losses (finite), launches, the
+    wire bytes counted against ``step_cost``'s, bytes by scope, the median
+    step ms past the first; with ``profile``, one more step's kernels."""
+    from swiftsnails_tpu_torch.parallel import comm, transfer
+
+    transfer.reset_comm()
+    if path == "widedeep":
+        data, _ = _ctr_data(seed)
+        run = _mesh_ctr_run(seed, data, mesh, WIRE_STEPS, over={"comm_dtype": wire})
+        trainer, state, launches = run["trainer"], run["state"], run["launches"]
+        losses = list(run["losses"].values())
+        step_ms = run["step_ms_median"]
+        batch = next(iter(trainer.batches()))
+    else:
+        phase, extra = (("train", {}) if path == "packed"
+                        else (MESH_GROUPED, {"learning_rate": MESH_GROUPED_LR}))
+        trainer, loop, records = _train_loop(phase, seed, corpora, mesh=mesh,
+                                             comm_dtype=wire, **extra)
+        state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=WIRE_STEPS))
+        losses = [r["loss"] for r in records]
+        step_ms = statistics.median(r["seconds"] * 1e3 for r in records[1:])
+        n = trainer.batch_size * trainer.steps_per_call
+        batch = {"centers": np.zeros(n, np.int32),
+                 "contexts": np.zeros((n, CW) if path == "grouped" else n, np.int32)}
+    counted, scopes = transfer.comm_bytes(), dict(comm.SCOPES)
+    step_bytes = trainer.step_cost(batch)["total_bytes"]
+    if len(losses) != WIRE_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mesh wire {path} {wire}: losses {losses}")
+    if counted != WIRE_STEPS * step_bytes:
+        raise AssertionError(f"mesh wire {path} {wire}: {counted} bytes counted, step_cost "
+                             f"{WIRE_STEPS} x {step_bytes}")
+    out = {"losses": losses, "launches": launches, "step_bytes": step_bytes,
+           "scoped_step_bytes": sum(scopes.values()) / WIRE_STEPS,
+           "scopes": {k: v // WIRE_STEPS for k, v in scopes.items()}, "step_ms_median": step_ms}
+    if profile:
+        out["profile"] = _kernel_profile(trainer, state, seed)
+    out["trainer"], out["state"] = trainer, state
+    return out
+
+
+def _codec_parity(trainer, state, mesh, seed: int) -> dict:
+    """The codecs on the card against the CPU on a full-width pull's rows
+    (the grouped plane's out rows of a step's first substep, 83,968 x 2 x
+    128) and a push's gradients (captured from one grouped step under int8:
+    the out rows' push, dithered at its place), deterministic and dithered;
+    and each wire's meshed pull equal to the unmeshed pull through
+    ``_wire_cast`` (the owner-exclusive sum's identity), on these rows and
+    on W&D's small rows. Bit for bit, or the run fails."""
+    from swiftsnails_tpu_torch.framework.trainer import step_generator
+    from swiftsnails_tpu_torch.parallel import comm, store, transfer
+    from swiftsnails_tpu_torch.serving.kernels import _wire_cast
+
+    dev = torch.device("cuda")
+    it = iter(trainer.batches())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(it).items() if np.ndim(v)}
+    it.close()
+    ctx = batch["contexts"][:GROUPED_BATCH].clamp_min(0).reshape(-1)
+    pools = trainer._grouped_pools(torch.Generator(device=dev).manual_seed(seed),
+                                   GROUPED_BATCH, None).reshape(-1)
+    rows = torch.cat([ctx, pools]).to(torch.int32)
+    pulled = store.pull_packed(state.out_table, rows)
+    captured = []
+    spy_of = transfer.all_gather_quantized
+
+    def spy(m, x, axis, wire, **kw):
+        captured.append((x.detach().clone(), kw.get("seed"), kw.get("place")))
+        return spy_of(m, x, axis, wire, **kw)
+
+    transfer.all_gather_quantized = spy
+    try:
+        trainer.comm_dtype = "int8"
+        trainer.train_step(state, batch, step_generator(seed, 0, dev))
+    finally:
+        transfer.all_gather_quantized = spy_of
+    grads, g_seed, place = captured[-1]
+    checks = 0
+
+    def same(a, b, what):
+        nonlocal checks
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        if not torch.equal(a, b):
+            raise AssertionError(f"mesh wire: {what} (not bit-equal)")
+        checks += 1
+
+    for name, x, kw in (("pull rows", pulled, {}),
+                        ("push gradients", grads, {"stochastic": True,
+                                                   "seed": comm.salted(g_seed, 0)}),
+                        ("push gradients at their place", grads, {"stochastic": True,
+                                                                  "place": place})):
+        if kw.get("place") is None and "place" in kw:
+            continue
+        cpu_kw = {k: (tuple(t.cpu() for t in v) if k == "place" else
+                      (v.cpu() if isinstance(v, torch.Tensor) else v)) for k, v in kw.items()}
+        for q, args in ((comm.quantize_int8, {}), (comm.quantize_int4, {"block": 32}),
+                        (comm.quantize_int4, {"block": 16})):
+            got = q(x, **kw, **args)
+            want = q(x.cpu(), **cpu_kw, **args)
+            same(got[0], want[0], f"{q.__name__} {args} codes of the {name}, card vs CPU")
+            same(got[1], want[1], f"{q.__name__} {args} scales of the {name}, card vs CPU")
+            deq = (comm.dequantize_int8(*got) if q is comm.quantize_int8
+                   else comm.dequantize_int4(*got, x.shape, **args))
+            deq_cpu = (comm.dequantize_int8(*want) if q is comm.quantize_int8
+                       else comm.dequantize_int4(*want, x.shape, **args))
+            same(deq, deq_cpu, f"{q.__name__} {args} dequantized {name}, card vs CPU")
+    identity = {}
+    plain = store.pull_packed(state.out_table, rows)  # the tables after that step
+    for wire in WIRE_FORMATS + ("int4/16",):
+        meshed = transfer.pull_collective_packed(mesh, state.out_table, rows, comm_dtype=wire)
+        same(meshed, _wire_cast(plain, wire), f"the meshed {wire} pull vs the wire cast")
+        identity[wire] = True
+    return {"rows": list(pulled.shape), "gradients": list(grads.shape),
+            "bit_equal_checks": checks, "pull_is_wire_cast": identity}
+
+
+def _wd_pull_identity(seed: int, mesh) -> dict:
+    """W&D's small-row pull (table dim 17) under each wire on the mesh equal
+    to the unmeshed pull through ``_wire_cast``."""
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.parallel import store, transfer
+    from swiftsnails_tpu_torch.serving.kernels import _wire_cast
+
+    data, _ = _ctr_data(seed)
+    cfg = _widedeep_config(seed)
+    trainer = get_model(cfg.get_str("model"))(cfg, mesh=mesh, data=data)
+    state = trainer.init_state()
+    feats = torch.from_numpy(data[1][:cfg.get_int("batch_size")]).cuda()
+    rows = trainer._rows(feats.reshape(-1))
+    plain = store.pull_packed_small(state.table, rows, trainer.table_dim)
+    for wire in WIRE_FORMATS:
+        got = transfer.pull_collective_packed_small(mesh, state.table, rows, trainer.table_dim,
+                                                    comm_dtype=wire)
+        if not torch.equal(got, _wire_cast(plain, wire)):
+            raise AssertionError(f"mesh wire widedeep: the meshed {wire} pull is not the "
+                                 "wire cast of the unmeshed one")
+    return {"rows": list(plain.shape), "pull_is_wire_cast": list(WIRE_FORMATS)}
+
+
+def _mesh_wire_leg(seed: int, corpora, mesh) -> dict:
+    """Phase 21 (e), on the (1, 1) NCCL mesh at full width: packed+pool,
+    W&D and the grouped plane, ``WIRE_STEPS`` steps under f32 and each
+    codec. Gates: finite losses, word2vec's within ``WIRE_LOSS_BARS`` of
+    f32's and falling, counted bytes equal to ``step_cost``'s, the grouped
+    exchange's scoped bytes past ``WIRE_BYTE_FLOORS``, launches as f32's;
+    the codecs on the card bit-equal to the CPU's and each meshed pull the
+    unmeshed pull's wire cast. Reports each path's step bytes, step ms and
+    the codec's launches and device ms a step (the profiled step's non-NCCL
+    kernels beyond f32's)."""
+    t0 = time.monotonic()
+    out = {"steps": WIRE_STEPS, "formats": list(WIRE_FORMATS), "loss_bars": WIRE_LOSS_BARS,
+           "byte_floors": WIRE_BYTE_FLOORS}
+    for path in ("packed", "widedeep", "grouped"):
+        runs = {}
+        for wire in ("float32",) + WIRE_FORMATS:
+            runs[wire] = _wire_run(path, seed, corpora, mesh, wire, profile=path != "widedeep")
+            if path == "grouped" and wire == "float32":
+                out["codec_parity"] = _codec_parity(runs[wire]["trainer"], runs[wire]["state"],
+                                                    mesh, seed)
+            del runs[wire]["trainer"], runs[wire]["state"]
+            torch.cuda.empty_cache()
+        f32 = runs["float32"]
+        res = {"float32": {k: f32[k] for k in ("step_bytes", "scoped_step_bytes",
+                                               "step_ms_median", "losses")}}
+        for wire in WIRE_FORMATS:
+            r = runs[wire]
+            gap = (r["losses"][-1] - f32["losses"][-1]) / abs(f32["losses"][-1])
+            if path != "widedeep":
+                if abs(gap) >= WIRE_LOSS_BARS[wire]:
+                    raise AssertionError(f"mesh wire {path} {wire}: last loss {gap:+.4%} from "
+                                         f"f32's, bar {WIRE_LOSS_BARS[wire]:.0%}")
+                if not r["losses"][-1] < r["losses"][0]:
+                    raise AssertionError(f"mesh wire {path} {wire}: the loss did not fall: "
+                                         f"{r['losses']}")
+            if r["launches"] != f32["launches"]:
+                raise AssertionError(f"mesh wire {path} {wire}: launches {r['launches']}, "
+                                     f"f32 {f32['launches']}")
+            ratio = f32["scoped_step_bytes"] / r["scoped_step_bytes"]
+            if path == "grouped" and ratio < WIRE_BYTE_FLOORS[wire]:
+                raise AssertionError(f"mesh wire grouped {wire}: scoped bytes {ratio:.3f}x "
+                                     f"below f32's, floor {WIRE_BYTE_FLOORS[wire]}")
+            entry = {"losses": r["losses"], "last_loss_gap_vs_f32": gap,
+                     "step_bytes": r["step_bytes"], "scoped_step_bytes": r["scoped_step_bytes"],
+                     "scoped_bytes_x_below_f32": ratio, "scopes": r["scopes"],
+                     "step_ms_median": r["step_ms_median"]}
+            if "profile" in r:
+                entry["codec_launches_per_step"] = (r["profile"]["launches"]
+                                                    - f32["profile"]["launches"])
+                entry["codec_device_ms_per_step"] = r["profile"]["ms"] - f32["profile"]["ms"]
+                entry["nccl_launches_per_step"] = r["profile"]["nccl_launches"]
+                entry["nccl_ms_per_step"] = r["profile"]["nccl_ms"]
+                res["float32"]["nccl_launches_per_step"] = f32["profile"]["nccl_launches"]
+                res["float32"]["nccl_ms_per_step"] = f32["profile"]["nccl_ms"]
+                res["float32"]["kernels_per_step"] = f32["profile"]["launches"]
+            res[wire] = entry
+        res["launches"] = {k: v for k, v in f32["launches"].items() if v}
+        out[path] = res
+    out["widedeep"]["pull_identity"] = _wd_pull_identity(seed, mesh)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _gloo_wire_device(mesh) -> str:
+    """Where leg 2's wire routes run: ``MESH_GLOO_DEVICE``, unless gloo
+    refuses there a dtype the codecs move (int8 and uint8 sums, int32
+    pairs, byte gathers and all-to-alls), then the CPU. Every rank probes
+    alike."""
+    import torch.distributed as dist
+
+    if MESH_GLOO_DEVICE != "cuda":
+        return MESH_GLOO_DEVICE
+    try:
+        for dtype in (torch.int8, torch.uint8, torch.int32):
+            t = torch.zeros(4, dtype=dtype, device="cuda")
+            dist.all_reduce(t, group=mesh.groups["model"])
+            dist.all_gather([torch.empty_like(t) for _ in range(MESH_GLOO["data"])], t,
+                            group=mesh.groups["data"])
+            dist.all_to_all_single(torch.empty_like(t), t, group=mesh.groups["data"])
+        torch.cuda.synchronize()
+        return "cuda"
+    except Exception:
+        return "cpu"
+
+
+def _gloo_wire_runs(seed: int, mesh, device: str) -> dict:
+    """Leg 2's wire routes on this rank: the grouped plane's dedup and
+    bucketed routes and W&D, ``WIRE_GLOO_STEPS`` steps under each of
+    ``WIRE_GLOO_FORMATS``; tables (W&D: its arrays) and losses."""
+    out = {}
+    for wire in WIRE_GLOO_FORMATS:
+        for route, over in WIRE_GLOO_GROUPED.items():
+            loop, losses = _loss_loop(
+                _mesh_gloo_grouped_trainer(seed, device, mesh, comm_dtype=wire, **over))
+            state = loop.run(seed=seed, max_steps=WIRE_GLOO_STEPS)
+            out[(route, wire)] = {"tables": [t.table.cpu() for t in state], "losses": losses}
+            del state
+        wd = _mesh_ctr_run(seed, _mesh_gloo_ctr_data(seed), mesh, WIRE_GLOO_STEPS,
+                           over={**MESH_GLOO_CTR_OVER, "comm_dtype": wire})
+        out[("widedeep", wire)] = {"tables": [wd["state"].table.table.cpu()],
+                                   "losses": list(wd["losses"].values())}
+        del wd
+    return out
+
+
+def _wd_start_table(seed: int, mesh, wire: str):
+    """Leg 2's W&D table as it starts (the seeded init) on ``mesh``."""
+    from swiftsnails_tpu_torch.models.registry import get_model
+
+    cfg = _widedeep_config(seed)
+    for k, v in {**MESH_GLOO_CTR_OVER, "comm_dtype": wire}.items():
+        cfg.set(k, str(v))
+    trainer = get_model(cfg.get_str("model"))(cfg, mesh=mesh, data=_mesh_gloo_ctr_data(seed))
+    return trainer.init_state().table.table.cpu()
+
+
+def _one_step_bound(route: str, wire: str, pushes: int, want, got, start):
+    """Each element's bound for two runs whose dithered codes differ by one
+    quantization step a push. SGD (word2vec): a code one step off moves an
+    element by ``lr`` times its row's step, ``WIRE_STEP_SHARE`` of the row's
+    largest gradient, which is at most the most an element of the row moved
+    in either run (twice that, for pushes that cancel). AdaGrad (W&D's
+    fused tiles: values in sublane 0, the accumulator in sublane 1): the
+    accumulator adds ``g^2``, so one step off adds at most ``(2 + s) s
+    amax^2`` (``s`` the share) a push, ``amax^2`` at most the most the
+    tile's accumulator grew; a value moves at most ``lr`` a push either
+    way (``|g| / sqrt(acc)`` is at most 1), so two runs differ by ``2 lr``
+    a push at most."""
+    share = WIRE_STEP_SHARE[wire]
+    rows = want.shape[0]
+    if route != "widedeep":
+        moved = torch.maximum((want - start).abs().reshape(rows, -1).amax(dim=1),
+                              (got - start).abs().reshape(rows, -1).amax(dim=1))
+        return (2 * pushes * share * moved[:, None] + MESH_ATOL).expand(rows, want[0].numel())
+    lr = _widedeep_config(0).get_float("learning_rate")
+    grown = torch.maximum(want[:, 1] - start[:, 1], got[:, 1] - start[:, 1]).amax(dim=1)
+    acc = (pushes * (2 + share) * share * grown[:, None] + MESH_ATOL).expand(rows, 128)
+    val = torch.full((rows, 128), 2 * pushes * lr + MESH_ATOL)
+    return torch.stack([val, acc], dim=1)
+
+
+def _gloo_wire_check(seed: int, by: dict, solo) -> dict:
+    """Leg 2's wire routes against the same on ``solo``, the (1, 1) NCCL
+    mesh. The (2, 2) ranks split the pushes' rows into other chunks, so each
+    element's dither differs: every element within one quantization step a
+    push (:func:`_one_step_bound`), the count of differing elements
+    reported."""
+    out = {"device": by[(0, 0)]["wire_device"], "steps": WIRE_GLOO_STEPS}
+    for wire in WIRE_GLOO_FORMATS:
+        for route in tuple(WIRE_GLOO_GROUPED) + ("widedeep",):
+            if route == "widedeep":
+                ref = _mesh_ctr_run(seed, _mesh_gloo_ctr_data(seed), solo, WIRE_GLOO_STEPS,
+                                    over={**MESH_GLOO_CTR_OVER, "comm_dtype": wire})
+                want = [ref["state"].table.table.cpu()]
+                starts = [_wd_start_table(seed, solo, wire)]
+                pushes = WIRE_GLOO_STEPS
+                del ref
+            else:
+                trainer = _mesh_gloo_grouped_trainer(seed, MESH_GLOO_DEVICE, solo,
+                                                     comm_dtype=wire, **WIRE_GLOO_GROUPED[route])
+                starts = [t.table.cpu() for t in trainer.init_state()]
+                loop, _ = _loss_loop(trainer)
+                want = [t.table.cpu() for t in loop.run(seed=seed, max_steps=WIRE_GLOO_STEPS)]
+                pushes = WIRE_GLOO_STEPS * MESH_GLOO_SPC
+                del trainer, loop
+            worst, differ, size, slack = 0.0, 0, 0, 0.0
+            for k, (w, s0) in enumerate(zip(want, starts)):
+                for i in range(MESH_GLOO["data"]):
+                    got = torch.cat([by[(i, j)]["wire"][(route, wire)]["tables"][k]
+                                     for j in range(MESH_GLOO["model"])])
+                    bound = _one_step_bound(route, wire, pushes, w, got, s0)
+                    rows = w.shape[0]
+                    d = (got - w).abs().reshape(rows, -1)
+                    bound = bound.reshape(rows, -1)
+                    excess = float((d - bound).max())
+                    if excess > 0:
+                        raise AssertionError(
+                            f"mesh gloo wire {route} {wire}: table {k} of data replica {i} "
+                            f"is past one quantization step a push of the (1, 1) mesh's "
+                            f"(by {excess})")
+                    worst = max(worst, float(d.max()))
+                    slack = max(slack, float((d / bound).max()))
+                    differ += int((d > MESH_ATOL).sum())
+                    size += d.numel()
+            losses = by[(0, 0)]["wire"][(route, wire)]["losses"]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"mesh gloo wire {route} {wire}: losses {losses}")
+            out[f"{route}_{wire}"] = {"max_abs_err": worst, "worst_share_of_bound": slack,
+                                      "elements_differ": differ, "elements": size,
+                                      "losses": losses}
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_mesh(seed: int, corpora, env: dict) -> dict:
     """Phase 21: word2vec, CTR, checkpoints and ``seqlm`` under a mesh
     (module docstring)."""
@@ -5462,11 +5866,12 @@ def phase_mesh(seed: int, corpora, env: dict) -> dict:
             grouped = _mesh_grouped_leg(seed, corpora, mesh)
             grouped["seconds"] = time.monotonic() - t_grouped
             ctr = _mesh_ctr_nccl_leg(seed, mesh, tmp)
+            wire = _mesh_wire_leg(seed, corpora, mesh)
             gloo = _mesh_gloo_leg(seed, tmp, mesh)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seconds = time.monotonic() - t_phase
-    emit("mesh", nccl=nccl, grouped=grouped, ctr=ctr, gloo=gloo, seconds=seconds,
+    emit("mesh", nccl=nccl, grouped=grouped, ctr=ctr, wire=wire, gloo=gloo, seconds=seconds,
          device=env["device"], nvidia_smi=env["nvidia_smi"])
     return {"launches": nccl["train"]["launches"],
             "grouped_launches": grouped["plain"]["launches"],

@@ -55,6 +55,7 @@ item 6).
 from __future__ import annotations
 
 import contextlib
+import functools
 import queue
 import signal
 import sys
@@ -72,6 +73,7 @@ from swiftsnails_tpu_torch.resilience.chaos import ChaosPlan
 from swiftsnails_tpu_torch.resilience.guardrail import GuardrailExhausted, StepGuardrail
 from swiftsnails_tpu_torch.resilience.resume import resume_mode, resume_state
 from swiftsnails_tpu_torch.resilience.retry import RetryingIterator, RetryPolicy
+from swiftsnails_tpu_torch.telemetry.audit import audit_step
 from swiftsnails_tpu_torch.telemetry.blackbox import BlackBox
 from swiftsnails_tpu_torch.telemetry.drift import DriftSentinel, build_incident_bundle
 from swiftsnails_tpu_torch.telemetry.goodput import (
@@ -355,8 +357,6 @@ def truthy(cfg: Config, key: str) -> bool:
 # Table-plane keys that the JAX package's trainers read and the port does not
 # have yet, read as the JAX trainers read them: key -> "is it asked for".
 UNPORTED_PLANE_KEYS = {
-    "comm_dtype": lambda cfg, key: cfg.get_str(key, "float32") not in (
-        "float32", "f32", "fp32"),
     "placement": lambda cfg, key: cfg.get_str(key, "uniform") != "uniform",
 }
 
@@ -478,6 +478,9 @@ class TrainLoop:
         self._profile_event_idx = 0
         self._profile_pending_loss = None
         self._step_cost: Optional[Dict] = None
+        # under a mesh, the first step's collective bytes by scope (the JAX
+        # loop's audit by_scope), for the run record's comm_by_scope
+        self._comm_by_scope: Optional[Dict[str, int]] = None
         # table_tier: host -> the tiered parameter store (tiered/): full-size
         # masters in host RAM, fixed-budget cache planes on the card in the
         # state, a per-step fault + id remap before the step. `device`
@@ -736,11 +739,17 @@ class TrainLoop:
                         with tel.span("step", step=step):
                             gen = step_generator(seed, step, self.device)
                             if resilient:
-                                state, last_metrics = self._resilient_step(
-                                    state, dev_batch, gen, step)
+                                run = functools.partial(self._resilient_step, state,
+                                                        dev_batch, gen, step)
                             else:
-                                state, last_metrics = trainer.train_step(
-                                    state, dev_batch, gen)
+                                run = functools.partial(trainer.train_step, state,
+                                                        dev_batch, gen)
+                            if trainer.mesh is not None and self._comm_by_scope is None:
+                                report = audit_step(run)
+                                self._comm_by_scope = report["by_scope"]
+                                state, last_metrics = report["result"]
+                            else:
+                                state, last_metrics = run()
                             if cuda:
                                 # the span holds the step's device time, not
                                 # only its enqueue (the JAX span's "jitted
@@ -1112,12 +1121,22 @@ class TrainLoop:
                     "goodput": report,
                     "final_metrics": final_metrics or None,
                 }
+                if self._comm_by_scope:
+                    # the first step's wire bytes by collective scope, so
+                    # `ledger-report --diff` can name the collective a
+                    # byte delta comes from
+                    record["comm_by_scope"] = dict(self._comm_by_scope)
                 if self.timeseries is not None:
                     record["timeseries"] = self.timeseries.summary()
                 if self.drift is not None:
                     record["drift"] = self.drift.summary()
                 if self.incidents:
                     record["incidents"] = list(self.incidents)
+                wire = getattr(self.trainer, "comm_dtype", None)
+                if wire:
+                    # the wire format, so `ledger-report` run lines show what
+                    # a quantized run moved
+                    record["comm_dtype"] = wire
                 if self.guardrail is not None:
                     record["guardrail"] = self.guardrail.summary()
                 if self.chaos is not None:

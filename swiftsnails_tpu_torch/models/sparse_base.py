@@ -51,7 +51,10 @@ Config keys: ``num_fields``, ``capacity``, ``learning_rate``, ``optimizer``
 ``use_native`` (the native CTR reader, default on, as in the JAX package),
 ``stream`` and ``rows_per_chunk`` (bounded-memory reading of ``data``),
 ``table_tier`` (``host``: the tiered store, :mod:`swiftsnails_tpu_torch.tiered`,
-on either plane).
+on either plane), ``comm_dtype`` and ``comm_int4_block`` (the wire of the
+small-row plane's collectives under a mesh, :mod:`swiftsnails_tpu_torch.parallel.comm`;
+the push dithers with seed 0 salted by the data index, the same every
+step, as the JAX trainer's does; the 2-D plane and one device keep f32).
 ``shard_data`` changes nothing on one process, and under a mesh every rank
 reads the whole data (every rank makes the same global batch). Keys that
 select a path the port does not have yet raise ``NotImplementedError``
@@ -79,6 +82,7 @@ from swiftsnails_tpu_torch.framework.trainer import (
 from swiftsnails_tpu_torch.ops.hashing import hash_row, hash_row_np
 from swiftsnails_tpu_torch.ops.rowdma import ROW_LANES
 from swiftsnails_tpu_torch.parallel import transfer
+from swiftsnails_tpu_torch.parallel.comm import apply_int4_block, resolve_comm_dtype
 from swiftsnails_tpu_torch.parallel.access import AdaGradAccess, SgdAccess
 from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, rows_per_shard
 from swiftsnails_tpu_torch.parallel.store import (
@@ -215,6 +219,12 @@ class SparseCTRTrainer(Trainer):
                 self.packed = False
         if mesh is not None and not self.packed:
             rows_per_shard(self.capacity, mesh)  # the model axis must divide the table
+        # comm_dtype: the wire of the mesh collectives, as the JAX trainer
+        # reads it; the 2-D plane's collectives keep f32 (the JAX trainer's
+        # pjit pull and push there take no codec)
+        self.comm_dtype = apply_int4_block(
+            resolve_comm_dtype(cfg.get_str("comm_dtype", "float32")),
+            cfg.get_int("comm_int4_block", 0))
         self.lr = cfg.get_float("learning_rate", 0.05)
         self.dense_lr = cfg.get_float("dense_learning_rate", self.lr)
         self.epochs = cfg.get_int("num_iters", 1)
@@ -297,7 +307,8 @@ class SparseCTRTrainer(Trainer):
         if self.mesh is not None:
             if self.packed:
                 return transfer.pull_collective_packed_small(self.mesh, table, rows,
-                                                             self.table_dim)
+                                                             self.table_dim,
+                                                             comm_dtype=self.comm_dtype)
             return transfer.pull_collective(self.mesh, table, rows)
         if self.packed:
             return pull_packed_small(table, rows, self.table_dim)
@@ -310,8 +321,11 @@ class SparseCTRTrainer(Trainer):
         under a mesh through the plane's push collective."""
         if self.mesh is not None:
             if self.packed:
+                # no seed: the JAX trainer's push dithers with seed 0 salted
+                # by the data index, the same every step
                 return transfer.push_collective_packed_small(
-                    self.mesh, table, rows, grads, self.access, lr, self.table_dim)
+                    self.mesh, table, rows, grads, self.access, lr, self.table_dim,
+                    comm_dtype=self.comm_dtype)
             return transfer.push_collective(self.mesh, table, rows, grads, self.access, lr)
         if self.packed:
             return push_packed_small(table, rows, grads, self.access, lr, self.table_dim)
@@ -412,8 +426,9 @@ class SparseCTRTrainer(Trainer):
           twice that, and the updates: 2 flops an element for SGD, 5 for
           AdaGrad (square, add, rsqrt, scale, add), on each distinct row's
           ``table_dim`` values and on every dense value;
-        * ``total_bytes``, under a mesh: the result bytes of this rank's
-          collectives in the step (:data:`~swiftsnails_tpu_torch.parallel.transfer.COMM`
+        * ``total_bytes``, under a mesh: the wire bytes of this rank's
+          collectives in the step, at ``comm_dtype``'s widths on the
+          small-row plane (:data:`~swiftsnails_tpu_torch.parallel.transfer.COMM`
           counts the same): the pull of its data shard's ``B / data x F``
           rows, their push (ids and f32 gradients gathered over ``data``),
           and the all-reduce of the loss, the accuracy and the dense
@@ -435,8 +450,10 @@ class SparseCTRTrainer(Trainer):
         if self.mesh is not None:
             d = self._data()
             n = b // d * f
-            total = (transfer.pull_bytes(n, self.table_dim, 4)
-                     + transfer.push_bytes(n, self.table_dim, d) + 4 * (2 + n_dense))
+            wire = self.comm_dtype if self.packed else "float32"
+            total = (transfer.pull_bytes(n, self.table_dim, 4, wire)
+                     + transfer.push_bytes(n, self.table_dim, d, comm_dtype=wire)
+                     + 4 * (2 + n_dense))
         return {"cost": {"flops": float(flops), "bytes_accessed": float(nbytes)},
                 "total_bytes": total, "source": "analytic"}
 

@@ -83,7 +83,12 @@ Config keys: ``dim``, ``window``, ``negatives``, ``learning_rate``,
 ``data``, ``table_dtype``, ``pool_size``, ``pool_block``, ``steps_per_call``,
 ``fused``, ``grouped``, ``centers_per_block``, ``resident``, ``hot_rows``,
 ``dedup``, ``u_cap``, ``packed``, ``neg_mode``, ``use_native``, ``stream``,
-``push_mode``, ``bucket_slack``, ``overlap``, ``mesh_u_cap``,
+``push_mode``, ``bucket_slack``, ``overlap``, ``mesh_u_cap``, ``comm_dtype``,
+``comm_int4_block`` (the mesh collectives' wire, :mod:`swiftsnails_tpu_torch.parallel.comm`:
+under a mesh the packed planes quantize their pulls and pushes, the
+pushes dithered with one uint32 a substep from the step's generator, or
+``batch["comm_seeds"]``; the 2-D plane keeps f32, as the JAX trainer's
+does; one device ignores the key),
 ``table_tier`` (``host``: the tiered store, :mod:`swiftsnails_tpu_torch.tiered`,
 on the ``dense``, ``packed`` pool and ``per_pair`` paths).
 Keys that select a path the port does not have yet raise
@@ -134,6 +139,12 @@ from swiftsnails_tpu_torch.ops.fused_sgns import (
 from swiftsnails_tpu_torch.ops.hashing import hash_row, hash_row_np
 from swiftsnails_tpu_torch.ops.rowdma import unpack_rows
 from swiftsnails_tpu_torch.parallel import transfer
+from swiftsnails_tpu_torch.parallel.comm import (
+    apply_int4_block,
+    resolve_comm_dtype,
+    stochastic_wire,
+    wire_bytes,
+)
 from swiftsnails_tpu_torch.parallel.access import SgdAccess
 from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, rows_per_shard
 from swiftsnails_tpu_torch.parallel.store import (
@@ -177,6 +188,8 @@ class GroupedPull(NamedTuple):
     layout: Optional[transfer.DataLayout]  # the out rows' chunks (dedup, bucketed)
     index: Optional[tuple]  # the dedup pull's unique index
     dropped: torch.Tensor  # the dedup pull's overflow
+    pools: torch.Tensor  # the substep's whole pool set
+    seed: Optional[torch.Tensor]  # the pushes' dither seed (a stochastic wire)
 
 
 def sgns_loss(v: torch.Tensor, u_pos: torch.Tensor, u_neg: torch.Tensor,
@@ -289,6 +302,13 @@ class Word2VecTrainer(Trainer):
                 "push_mode: bucketed requires packed: 1, and fused: 1 only "
                 "with a mesh (single-device fused has no push collective)")
         self.bucket_slack = cfg.get_float("bucket_slack", 2.0)
+        # comm_dtype: the wire format of the mesh collectives (f32, bf16,
+        # int8, int4; comm_int4_block sets int4's scale block), as the JAX
+        # trainer reads it; without a mesh there are no collectives and the
+        # key changes nothing (parallel/comm.py)
+        self.comm_dtype = apply_int4_block(
+            resolve_comm_dtype(cfg.get_str("comm_dtype", "float32")),
+            cfg.get_int("comm_int4_block", 0))
         # overlap: 1|2 -> the grouped collective plane's pipelined macro-step
         # (stale-by-depth pulls); only under a mesh with steps_per_call > 1
         try:
@@ -412,22 +432,48 @@ class Word2VecTrainer(Trainer):
     def _ppull(self, table_state, rows):
         if self.mesh is None:
             return pull_packed(table_state, rows)
-        return transfer.pull_collective_packed(self.mesh, table_state, rows)
+        return transfer.pull_collective_packed(self.mesh, table_state, rows,
+                                               comm_dtype=self.comm_dtype)
 
-    def _ppush(self, table_state, rows, grads, lr):
+    def _ppush(self, table_state, rows, grads, lr, seed=None, place=None):
         """The packed push; ``push_mode: bucketed`` under a mesh through the
         owner-bucketed collective, whose overflow :meth:`_dropped` keeps.
-        ``rows`` is this rank's contiguous data slice of the batch's."""
+        ``rows`` is this rank's contiguous data slice of the batch's, or
+        with ``place`` its slots of a layout (:meth:`_out_place`); ``seed``
+        the substep's dither (:meth:`_comm_seed`)."""
         if self.mesh is None:
             return push_packed(table_state, rows, grads, self.access, lr)
         if self.push_mode == "bucketed":
             table_state, dropped = transfer.push_collective_packed_bucketed(
                 self.mesh, table_state, rows, grads, self.access, lr,
-                slack=self.bucket_slack)
+                slack=self.bucket_slack, comm_dtype=self.comm_dtype, seed=seed)
             self._dropped(dropped)
             return table_state
         return transfer.push_collective_packed(self.mesh, table_state, rows, grads,
-                                               self.access, lr)
+                                               self.access, lr, comm_dtype=self.comm_dtype,
+                                               seed=seed, place=place)
+
+    def _comm_seed(self, generator: torch.Generator, seed=None):
+        """A substep's dither seed: ``None`` unless the wire is int8 or int4
+        under a mesh; else ``seed`` where given (tests pass the JAX
+        trainer's), else one uint32 drawn from the step's generator (the
+        JAX trainer takes its key's low word, which torch cannot make), as
+        an int64 device tensor: no host sync."""
+        if self.mesh is None or not stochastic_wire(self.comm_dtype):
+            return None
+        if seed is not None:
+            return torch.as_tensor(seed, dtype=torch.int64, device=self.device)
+        return torch.randint(0, 1 << 32, (), generator=generator, dtype=torch.int64,
+                             device=generator.device).to(self.device)
+
+    def _out_place(self, n_sharded: int, n_whole: int, seed):
+        """Under a stochastic wire on a mesh, where each of this rank's out
+        rows (its ``n_sharded`` own slots, then its part of the ``n_whole``
+        pool or negative slots) lies in the JAX trainer's concatenation
+        split over ``data``, for its dither (:func:`transfer.layout_place`)."""
+        if seed is None:
+            return None
+        return transfer.layout_place(self.mesh, n_sharded, n_whole, seed)
 
     def _out_layout(self, ctx_rows, pools):
         """Under a mesh with dedup or the bucketed push: the out rows as the
@@ -438,16 +484,17 @@ class Word2VecTrainer(Trainer):
             return None
         return transfer.data_layout(self.mesh, ctx_rows, self._rows(pools.reshape(-1)))
 
-    def _push_out(self, table_state, rows, grads, lr, layout):
+    def _push_out(self, table_state, rows, grads, lr, layout, seed=None, place=None):
         """The out table's push of this rank's ``rows`` (its window or pair
-        slots, then its pools): bucketed over ``layout``, else :meth:`_ppush`."""
+        slots, then its pools): bucketed over ``layout``, else :meth:`_ppush`
+        at ``place``."""
         if layout is not None and self.push_mode == "bucketed":
             table_state, dropped = transfer.push_collective_packed_bucketed_spread(
                 self.mesh, table_state, layout, grads, self.access, lr,
-                slack=self.bucket_slack)
+                slack=self.bucket_slack, comm_dtype=self.comm_dtype, seed=seed)
             self._dropped(dropped)
             return table_state
-        return self._ppush(table_state, rows, grads, lr)
+        return self._ppush(table_state, rows, grads, lr, seed=seed, place=place)
 
     def _dropped(self, count: torch.Tensor) -> None:
         """Keep a push's or a consumed pull's overflow for the call's metric
@@ -455,6 +502,9 @@ class Word2VecTrainer(Trainer):
         if self._drops is not None:
             self._drops.append(count)
 
+    # the 2-D plane's collectives keep the f32 wire under any comm_dtype: the
+    # JAX trainer's packed: 0 routes run the pjit store pull and push there,
+    # which take no codec
     def _dpull(self, table_state, rows):
         if self.mesh is None:
             return pull(table_state, rows)
@@ -614,12 +664,13 @@ class Word2VecTrainer(Trainer):
 
     def _substep_dense(self, state: W2VState, centers: torch.Tensor,
                        contexts: torch.Tensor, generator: torch.Generator,
-                       lr: float, negs: Optional[torch.Tensor] = None):
+                       lr: float, negs: Optional[torch.Tensor] = None, seed=None):
         """One reference-faithful substep on the 2-D plane: ``negatives``
         independent draws a pair (``negs``, ``[b, K]`` word ids, replaces
         them, as in the JAX package), pull, SGNS loss and its gradient with
         respect to the pulled rows, push. Updates both tables in place and
-        returns ``(state, loss)``."""
+        returns ``(state, loss)``. ``seed`` is taken and not used: this plane
+        moves f32."""
         b, k = centers.shape[0], self.negatives
         planned = self.tiered and negs is not None
         negs = self._data_part(self._negs(generator, b * self._data(), negs))
@@ -635,11 +686,11 @@ class Word2VecTrainer(Trainer):
 
     def _substep_packed_perpair(self, state: W2VState, centers: torch.Tensor,
                                 contexts: torch.Tensor, generator: torch.Generator,
-                                lr: float, negs: Optional[torch.Tensor] = None):
+                                lr: float, negs: Optional[torch.Tensor] = None, seed=None):
         """Packed tables with ``negatives`` independent draws a pair: the
         pulls and pushes of :meth:`_substep_packed` (two ``gather_rows``,
         two ``scatter_add_rows``) over ``b`` centers and ``b (1 + K)`` out
-        rows; ``negs`` as in :meth:`_substep_dense`."""
+        rows; ``negs`` and ``seed`` as in :meth:`_substep_packed`."""
         b, k = centers.shape[0], self.negatives
         planned = self.tiered and negs is not None
         negs_all = self._negs(generator, b * self._data(), negs)
@@ -652,14 +703,16 @@ class Word2VecTrainer(Trainer):
         loss = sgns_loss(flat, u[:b].reshape(b, -1), u[b:].reshape(b, k, -1),
                          **self._loss_kw(b))
         dv, du = torch.autograd.grad(loss, (v, u))
-        self._ppush(state.in_table, in_rows, dv, lr)
+        seed = self._comm_seed(generator, seed)
+        self._ppush(state.in_table, in_rows, dv, lr, seed=seed)
         layout = self._out_layout(out_rows[:b], negs_all)
-        self._push_out(state.out_table, out_rows, du, lr, layout)
+        self._push_out(state.out_table, out_rows, du, lr, layout, seed,
+                       self._out_place(b, negs_all.numel(), seed))
         return state, loss.detach()
 
     def _substep_packed(self, state: W2VState, centers: torch.Tensor,
                         contexts: torch.Tensor, generator: torch.Generator,
-                        lr: float, negs: Optional[torch.Tensor] = None):
+                        lr: float, negs: Optional[torch.Tensor] = None, seed=None):
         """One substep: pull, pooled SGNS loss and gradient, push.
 
         ``negs`` (``[NB, PN]`` word ids) replaces the pool drawn from
@@ -668,7 +721,8 @@ class Word2VecTrainer(Trainer):
         and its gradient are computed in float32 from the pulled rows
         whatever the table dtype; the pushed deltas are rounded once to it.
         Under a mesh ``centers`` and ``contexts`` are this data shard's and
-        ``negs`` the substep's whole pool set.
+        ``negs`` the substep's whole pool set. ``seed`` replaces the
+        dither seed drawn after the pools (:meth:`_comm_seed`).
         """
         b = centers.shape[0]
         pb, nb = self.pool_geometry(b * self._data())
@@ -692,9 +746,11 @@ class Word2VecTrainer(Trainer):
         loss = sgns_pool_loss(v, u_pos, pool, lam, **self._loss_kw(b))
         dv, du_pos, dpool = torch.autograd.grad(loss, (v, u_pos, pool))
         du = torch.cat([du_pos, dpool.reshape(-1, *dpool.shape[2:])])
-        self._ppush(state.in_table, in_rows, dv, lr)
+        seed = self._comm_seed(generator, seed)
+        self._ppush(state.in_table, in_rows, dv, lr, seed=seed)
         layout = self._out_layout(out_rows[:b], pools_all)
-        self._push_out(state.out_table, out_rows, du, lr, layout)
+        self._push_out(state.out_table, out_rows, du, lr, layout, seed,
+                       self._out_place(b, pools_all.numel(), seed))
         return state, loss.detach()
 
     def _substep_fused(self, state: W2VState, centers: torch.Tensor,
@@ -788,12 +844,13 @@ class Word2VecTrainer(Trainer):
         return self._pools(generator, n // self._effective_pc(n), negs)
 
     def _pull_grouped_mesh(self, state: W2VState, centers: torch.Tensor,
-                           ctxs: torch.Tensor, pools: torch.Tensor) -> GroupedPull:
+                           ctxs: torch.Tensor, pools: torch.Tensor,
+                           seed: Optional[torch.Tensor] = None) -> GroupedPull:
         """The pull half of :meth:`_substep_grouped_mesh`: this data shard's
         centers and windows, ``pools`` the substep's whole set (this shard's
-        blocks take their part). A window slot ``-1`` becomes row
-        ``capacity``, which no shard owns: it pulls zeros and its (masked)
-        gradient is dropped."""
+        blocks take their part), ``seed`` the pushes' dither. A window slot
+        ``-1`` becomes row ``capacity``, which no shard owns: it pulls zeros
+        and its (masked) gradient is dropped."""
         n, cw = ctxs.shape
         pc = self._effective_pc(n * self._data())
         if n % pc:
@@ -809,12 +866,13 @@ class Word2VecTrainer(Trainer):
         layout = self._out_layout(ctx_rows, pools)
         if self.dedup:
             u, index, dropped = transfer.pull_collective_packed_dedup_spread(
-                self.mesh, state.out_table, layout, self._out_u_cap(n * self._data()))
+                self.mesh, state.out_table, layout, self._out_u_cap(n * self._data()),
+                comm_dtype=self.comm_dtype)
         else:
             u, index = self._ppull(state.out_table, out_rows), None
             dropped = torch.zeros((), dtype=torch.int32, device=self.device)
         return GroupedPull(center_rows, out_rows, (ctxs >= 0).float(), v, u, layout,
-                           index, dropped)
+                           index, dropped, pools, seed)
 
     def _push_grouped_mesh(self, state: W2VState, pulled: GroupedPull, lr: float):
         """The push half: the SGNS loss of the pulled rows and its gradient
@@ -838,34 +896,38 @@ class Word2VecTrainer(Trainer):
         loss = -inv_b * ((F.logsigmoid(pos) * pulled.mask).sum()
                          + lam * (F.logsigmoid(-neg) * n_real).sum())
         dv, du = torch.autograd.grad(loss, (v, u_all))
-        self._ppush(state.in_table, pulled.center_rows, dv, lr)
+        seed = pulled.seed
+        self._ppush(state.in_table, pulled.center_rows, dv, lr, seed=seed)
         if self.dedup and self.push_mode != "bucketed":
             # the pull's unique index: no second sort, the overflow counted once
             transfer.push_collective_packed_dedup_spread(
-                self.mesh, state.out_table, du, self.access, lr, pulled.index)
+                self.mesh, state.out_table, du, self.access, lr, pulled.index,
+                comm_dtype=self.comm_dtype, seed=seed)
         else:
-            self._push_out(state.out_table, pulled.out_rows, du, lr, pulled.layout)
+            self._push_out(state.out_table, pulled.out_rows, du, lr, pulled.layout, seed,
+                           self._out_place(n * cw, pulled.pools.numel(), seed))
         self._dropped(pulled.dropped)
         return state, loss.detach()
 
     def _substep_grouped_mesh(self, state: W2VState, centers: torch.Tensor,
                               ctxs: torch.Tensor, generator: torch.Generator,
-                              lr: float, negs: Optional[torch.Tensor] = None):
+                              lr: float, negs: Optional[torch.Tensor] = None, seed=None):
         """One substep of the grouped collective plane (the JAX trainer's
         ``_substep_grouped_mesh``): the center-major traffic cut of the
         grouped kernels through the collectives, as :meth:`_pull_grouped_mesh`
         then :meth:`_push_grouped_mesh`. Row movement in a shard is the row
         kernels' (``gather_rows`` a pull, ``scatter_add_rows`` a push), the
         collectives one all-reduce over ``model`` a pull and the gathers over
-        ``data`` a push. ``negs`` as in :meth:`_substep_packed`. Updates both
-        tables in place and returns ``(state, loss)``."""
+        ``data`` a push. ``negs`` and ``seed`` as in :meth:`_substep_packed`.
+        Updates both tables in place and returns ``(state, loss)``."""
         pools = self._grouped_pools(generator, centers.shape[0] * self._data(), negs)
-        pulled = self._pull_grouped_mesh(state, centers, ctxs, pools)
+        pulled = self._pull_grouped_mesh(state, centers, ctxs, pools,
+                                         self._comm_seed(generator, seed))
         return self._push_grouped_mesh(state, pulled, lr)
 
     def _overlap_macro(self, state: W2VState, parts, lr: float):
         """The pipelined macro-step over the grouped plane's substeps
-        ``parts`` (``(centers, windows, pools)`` each): the ``depth`` =
+        ``parts`` (``(centers, windows, pools, seed)`` each): the ``depth`` =
         ``min(overlap, t)`` first pulls, then substep ``i + depth``'s pull
         against the tables before substep ``i``'s push, so substep ``i``
         reads rows that miss the last ``depth`` substeps' updates
@@ -940,19 +1002,27 @@ class Word2VecTrainer(Trainer):
         negs = batch.get("negs")
         r = negs.shape[0] // t if negs is not None else 0
         given = [None if negs is None else negs[i * r:(i + 1) * r] for i in range(t)]
+        # injected dither seeds, one a substep (tests pass the JAX trainer's)
+        seeds = batch.get("comm_seeds")
+        seeds = [None if seeds is None else seeds[i] for i in range(t)]
         self._drops = []
         try:
             if substep == self._substep_grouped_mesh and self.overlap and t > 1:
-                # each substep's pools drawn in order, as the substeps would
-                parts = [(centers[i * b:(i + 1) * b], contexts[i * b:(i + 1) * b],
-                          self._grouped_pools(generator, n // t, given[i]))
-                         for i in range(t)]
+                # each substep's pools (and dither seed) drawn in order, as
+                # the substeps would
+                parts = []
+                for i in range(t):
+                    pools = self._grouped_pools(generator, n // t, given[i])
+                    parts.append((centers[i * b:(i + 1) * b], contexts[i * b:(i + 1) * b],
+                                  pools, self._comm_seed(generator, seeds[i])))
                 state, losses = self._overlap_macro(state, parts, lr)
             else:
                 losses = []
                 for i in range(t):
                     sl = slice(i * b, (i + 1) * b)
                     planned = {} if given[i] is None else {"negs": given[i]}
+                    if self.mesh is not None:
+                        planned["seed"] = seeds[i]
                     state, loss = substep(state, centers[sl], contexts[sl], generator,
                                           lr, **planned)
                     losses.append(loss)
@@ -990,13 +1060,15 @@ class Word2VecTrainer(Trainer):
           one's centers), and the positive term, its two gradients and the
           updates ``8 d`` a real pair; with per-pair negatives (``dense``,
           ``neg_mode: per_pair``) ``6 b K d + 8 b d``;
-        * ``total_bytes``, under a mesh: the result bytes of this rank's
-          collectives in the step (:data:`~swiftsnails_tpu_torch.parallel.transfer.COMM`
+        * ``total_bytes``, under a mesh: the wire bytes of this rank's
+          collectives in the step at ``comm_dtype``'s widths (the 2-D
+          plane's at f32; :data:`~swiftsnails_tpu_torch.parallel.transfer.COMM`
           counts the same): a substep's two pulls and two pushes over its
           data shard's ids, and the loss's all-reduce; the dedup pull's and
           push's unique lists, the bucketed pushes' buckets and dropped
-          counts, the gather of the out rows' layout, and ``overlap``'s
-          wrapped pulls where those run; ``None`` on one device.
+          counts, the spread pushes' f32 reduce-scatter under a codec, the
+          gather of the out rows' layout, and ``overlap``'s wrapped pulls
+          where those run; ``None`` on one device.
         """
         centers = np.asarray(batch["centers"])
         contexts = np.asarray(batch["contexts"])
@@ -1040,43 +1112,54 @@ class Word2VecTrainer(Trainer):
         bl = b // d
         row = -(-self.dim // 128) * 128 if self.packed else self.dim
         elem = torch.empty((), dtype=self.table_dtype).element_size()
-        ids, f32 = 4, 4
+        wire = self.comm_dtype if self.packed else "float32"  # the 2-D plane's is f32
+        ids = 4
         bucketed = self.push_mode == "bucketed"
+
+        def gathered(n):  # gradients of n rows in all, gathered over data
+            return wire_bytes("gather", n, row, wire)
+
+        def chunk_sums(n):  # the spread pushes' sums of n rows (transfer._chunk_sums)
+            if wire == "float32":
+                return n * row * 4
+            return n * row * 4 + gathered(n)  # the f32 reduce-scatter, the narrow gather
 
         def push(n):  # a push of this rank's n rows, its data slice
             if bucketed:  # buckets' ids and gradients gathered; the dropped count
                 cap = transfer.bucket_capacity(n, model, self.bucket_slack)
-                return d * cap * (ids + f32 * row) + 2 * ids
-            return transfer.push_bytes(n, row, d)
+                return d * cap * ids + gathered(d * cap) + 2 * ids
+            return transfer.push_bytes(n, row, d, comm_dtype=wire)
 
         def push_out(n):  # the out push of n slots a rank, over the layout
             if bucketed:
-                return d * transfer.bucket_capacity(n, model, self.bucket_slack) * f32 * row
-            return transfer.push_bytes(n, row, d)
+                return chunk_sums(d * transfer.bucket_capacity(n, model, self.bucket_slack))
+            return transfer.push_bytes(n, row, d, comm_dtype=wire)
+
+        def pull(n):
+            return transfer.pull_bytes(n, row, elem, wire)
 
         if self.grouped:
             cw = 2 * self.window
             out = bl * cw + (bl // self._effective_pc(b)) * self.pool_size
             # the layout's gather of every shard's window slots
             layout = d * bl * cw * ids if (self.dedup or bucketed) else 0
-            pull = transfer.pull_bytes(bl, row, elem) + layout
+            pull_b = pull(bl) + layout
             if self.dedup:
                 cap = self._out_u_cap(b)
-                pull += d * cap * row * elem
-                push_o = push_out(out) if bucketed else d * cap * row * f32
+                pull_b += pull(d * cap)
+                push_o = push_out(out) if bucketed else chunk_sums(d * cap)
             else:
-                pull += transfer.pull_bytes(out, row, elem)
+                pull_b += pull(out)
                 push_o = push_out(out)
             # overlap: the first depth pulls and t in the loop
             pulls = t + (min(self.overlap, t) if self.overlap and t > 1 else 0)
-            return pulls * pull + t * (push(bl) + push_o) + 4  # + the loss's all-reduce
+            return pulls * pull_b + t * (push(bl) + push_o) + 4  # + the loss's all-reduce
         if self.packed and self.neg_mode == "pool":
             out = bl + (bl // self.pool_geometry(b)[0]) * self.pool_size
         else:
             out = bl * (1 + self.negatives)
         layout = d * bl * ids if bucketed else 0  # the contexts' gather
-        per = (transfer.pull_bytes(bl, row, elem) + transfer.pull_bytes(out, row, elem)
-               + push(bl) + push_out(out) + layout)
+        per = pull(bl) + pull(out) + push(bl) + push_out(out) + layout
         return t * per + 4  # the loss's all-reduce
 
     # -- export (ServerTerminate parity: text dump of the table) -----------

@@ -29,8 +29,14 @@ plane's (:func:`pull_collective_packed_small`,
 ``gather_rows`` and the AdaGrad or SGD row kernel. There ownership is
 tile-granular: logical row ``r`` lives in tile ``r // G``, which model
 shard ``(r // G) // per_t`` owns, so a shard owns ``per_t * G``
-contiguous logical rows. A ``comm_dtype`` other than f32 (the JAX codecs)
-raises.
+contiguous logical rows.
+
+Every collective takes ``comm_dtype`` (:mod:`swiftsnails_tpu_torch.parallel.comm`)
+and the pushes a dither ``seed``, as in the JAX package: the pulls
+quantize deterministically (``psum_quantized``), the pushes' gradients
+dither (``all_gather_quantized(..., stochastic=True)``, the seed salted
+with the sender's data index), the ids move as int32, and ``float32``
+takes the plain collectives.
 
 The static-capacity planes of the packed tables, as in the JAX package:
 
@@ -61,19 +67,43 @@ chunk's unique list or buckets from the ids, and adds its own slots'
 gradients into them, which one all-reduce over ``data`` sums. The chunks,
 caps and overflow counts are the JAX package's.
 
-:data:`COMM` counts each collective and the bytes of its result on this
-rank, at the call site: ``Trainer.step_cost`` reports the same count for a
-step as ``total_bytes``.
+The plain push of rows that are not a ``P(data)`` operand (the out rows
+above) dithers each row as the JAX sender of its chunk does: ``place`` (see
+:func:`layout_place`) gives a row its offset in its chunk and the chunk's
+salted seed. The spread pushes under a codec first reduce-scatter the
+partial sums in f32 (one all-to-all over ``data``, rank ``j`` keeping
+chunk ``j``, under the scope ``ssn_spread_reduce_scatter``), so that rank
+``j`` quantizes chunk ``j``'s whole sum with salt ``j``, as the JAX shard
+does; then the narrow gather.
+
+:data:`COMM` counts each collective and the bytes it moves on the wire on
+this rank (codes, scales and ids), at the call site, and by the JAX
+package's ``ssn_*`` scope names: ``Trainer.step_cost`` reports the same
+count for a step as ``total_bytes``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 
 from swiftsnails_tpu_torch.parallel.access import AccessMethod
+from swiftsnails_tpu_torch.parallel.comm import (  # noqa: F401  (COMM, reset_comm, comm_bytes: this module's API)
+    COMM,
+    all_gather,
+    all_gather_quantized,
+    all_reduce,
+    all_to_all,
+    comm_bytes,
+    ordered_sum,
+    psum_quantized,
+    reset_comm,
+    resolve_comm_dtype,
+    salted,
+    scope,
+    wire_bytes,
+)
 from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from swiftsnails_tpu_torch.parallel.store import (
     PackedTableState,
@@ -90,61 +120,17 @@ from swiftsnails_tpu_torch.parallel.store import (
     sort_segments,
 )
 
-F32_WIRE = ("float32", "f32", "fp32")
 
-# calls and result bytes on this rank, by collective
-COMM: Dict[str, int] = {"all_reduce_calls": 0, "all_reduce_bytes": 0,
-                        "all_gather_calls": 0, "all_gather_bytes": 0}
-
-
-def reset_comm() -> None:
-    for k in COMM:
-        COMM[k] = 0
+def pull_bytes(n: int, row_elems: int, elem_size: int, comm_dtype: str = "float32") -> int:
+    """Wire bytes of a pull of ``n`` ids (the all-reduce of the rows)."""
+    return wire_bytes("sum", n, row_elems, comm_dtype, elem_size)
 
 
-def comm_bytes() -> int:
-    """Result bytes of every collective counted since :func:`reset_comm`."""
-    return COMM["all_reduce_bytes"] + COMM["all_gather_bytes"]
-
-
-def check_comm_dtype(comm_dtype: str) -> None:
-    """Only the f32 wire is ported; the codecs raise."""
-    if comm_dtype not in F32_WIRE:
-        raise NotImplementedError(
-            f"comm_dtype: {comm_dtype} is not ported yet (only float32): "
-            "see ROADMAP.md Queue 1 item 6")
-
-
-def all_reduce(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
-    """In-place ``SUM`` of ``t`` over ``axis``' group, counted."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.groups[axis])
-    COMM["all_reduce_calls"] += 1
-    COMM["all_reduce_bytes"] += t.numel() * t.element_size()
-    return t
-
-
-def all_gather(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
-    """``t`` of every rank of ``axis``' group, concatenated along dim 0 in
-    the axis' order (the list form of ``dist.all_gather``, which every
-    backend has), counted."""
-    t = t.contiguous()
-    parts: List[torch.Tensor] = [torch.empty_like(t) for _ in range(mesh.axis_size(axis))]
-    dist.all_gather(parts, t, group=mesh.groups[axis])
-    out = torch.cat(parts)
-    COMM["all_gather_calls"] += 1
-    COMM["all_gather_bytes"] += out.numel() * out.element_size()
-    return out
-
-
-def pull_bytes(n: int, row_elems: int, elem_size: int) -> int:
-    """Result bytes of a pull of ``n`` ids (one all-reduce of the rows)."""
-    return n * row_elems * elem_size
-
-
-def push_bytes(n: int, row_elems: int, data: int, id_size: int = 4) -> int:
-    """Result bytes of a push of ``n`` ids and f32 gradients (two
+def push_bytes(n: int, row_elems: int, data: int, id_size: int = 4,
+               comm_dtype: str = "float32") -> int:
+    """Wire bytes of a push of ``n`` ids and their gradients (two
     all-gathers over ``data`` ranks)."""
-    return data * n * (id_size + 4 * row_elems)
+    return data * n * id_size + wire_bytes("gather", data * n, row_elems, comm_dtype)
 
 
 def _owned(mesh: Mesh, rows: torch.Tensor, per: int):
@@ -170,32 +156,59 @@ def _mask_owned(mesh: Mesh, rows_all: torch.Tensor, grads_all: torch.Tensor, per
     return local, grads_all.masked_fill(~mask, 0)
 
 
-def _gather_owned(mesh: Mesh, rows: torch.Tensor, grads: torch.Tensor, per: int):
+def _gather_grads(mesh: Mesh, grads: torch.Tensor, comm_dtype: str, seed=None,
+                  place=None) -> torch.Tensor:
+    """A push's gradients of every data shard, in data-rank order, over
+    the wire ``comm_dtype`` (dithered with ``seed``, or at ``place``)."""
+    return all_gather_quantized(mesh, grads, DATA_AXIS, comm_dtype, stochastic=True,
+                                seed=seed, place=place)
+
+
+def _gather_owned(mesh: Mesh, rows: torch.Tensor, grads: torch.Tensor, per: int,
+                  comm_dtype: str = "float32", seed=None, place=None):
     """The push's exchange: ids and gradients of every data shard, the
     unowned ids sent to the padding row ``per`` with a zero gradient."""
     rows_all = all_gather(mesh, rows, DATA_AXIS)
-    grads_all = all_gather(mesh, grads, DATA_AXIS)
+    grads_all = _gather_grads(mesh, grads, comm_dtype, seed, place)
     return _mask_owned(mesh, rows_all, grads_all, per)
+
+
+def layout_place(mesh: Mesh, n_sharded: int, n_whole: int, seed):
+    """``place`` for a push of this rank's slots of ``cat([S, whole])`` (the
+    layout of :func:`data_layout`, ``n_sharded`` rows of ``S`` a rank and
+    ``n_whole`` rows of ``whole`` in all): each slot's offset in its JAX
+    chunk (``D`` contiguous chunks of the concatenation) and that chunk's
+    seed, ``seed`` salted with the chunk's index. Quantizing each row there
+    makes the JAX shard's codes: int8 scales a row and int4's blocks lie in
+    one."""
+    d = mesh.axis_size(DATA_AXIS)
+    pos = _mine(mesh, n_sharded, n_whole, mesh.device)
+    chunk = (d * n_sharded + n_whole) // d
+    return pos % chunk, salted(seed, pos // chunk)
 
 
 def pull_collective(mesh: Mesh, state: TableState, rows: torch.Tensor,
                     comm_dtype: str = "float32") -> torch.Tensor:
     """Sharded 2-D gather ``[N, dim]`` of this data shard's ``rows``
     (global ids): owned rows read, the rest zeros, summed over ``model``."""
-    check_comm_dtype(comm_dtype)
-    local, owned = _owned(mesh, rows, state.capacity)
-    vals = pull(state, torch.where(owned, local, 0))
-    return all_reduce(mesh, vals.masked_fill(~owned[:, None], 0), MODEL_AXIS)
+    comm_dtype = resolve_comm_dtype(comm_dtype)
+    with scope("ssn_pull_collective"):
+        local, owned = _owned(mesh, rows, state.capacity)
+        vals = pull(state, torch.where(owned, local, 0))
+        return psum_quantized(mesh, vals.masked_fill(~owned[:, None], 0), MODEL_AXIS,
+                              comm_dtype)
 
 
 def push_collective(mesh: Mesh, state: TableState, rows: torch.Tensor,
                     grads: torch.Tensor, access: AccessMethod, lr,
-                    exact: bool = False, comm_dtype: str = "float32") -> TableState:
+                    exact: bool = False, comm_dtype: str = "float32",
+                    seed=None) -> TableState:
     """Sharded 2-D push of this data shard's ``[N, dim]`` gradients: the
     data shards' batches gathered, then :func:`store.push` (fast or
     ``exact``) of the owned rows on this shard, in place."""
-    check_comm_dtype(comm_dtype)
-    local, grads_all = _gather_owned(mesh, rows, grads, state.capacity)
+    comm_dtype = resolve_comm_dtype(comm_dtype)
+    with scope("ssn_push_collective"):
+        local, grads_all = _gather_owned(mesh, rows, grads, state.capacity, comm_dtype, seed)
     return push(state, local, grads_all, access, lr, exact=exact)
 
 
@@ -203,21 +216,24 @@ def pull_collective_packed(mesh: Mesh, state: PackedTableState, rows: torch.Tens
                            comm_dtype: str = "float32") -> torch.Tensor:
     """Sharded packed gather ``[N, S, 128]``: ``gather_rows`` of the owned
     rows on this shard, zeros for the rest, summed over ``model``."""
-    check_comm_dtype(comm_dtype)
-    local, owned = _owned(mesh, rows, state.capacity)
-    vals = pull_packed(PackedTableState(table=state.table, slots={}),
-                       torch.where(owned, local, 0))
-    return all_reduce(mesh, vals.masked_fill(~owned[:, None, None], 0), MODEL_AXIS)
+    comm_dtype = resolve_comm_dtype(comm_dtype)
+    with scope("ssn_pull_collective_packed"):
+        return _pull_packed_rows(mesh, state, rows, comm_dtype)
 
 
 def push_collective_packed(mesh: Mesh, state: PackedTableState, rows: torch.Tensor,
                            grads: torch.Tensor, access: AccessMethod, lr,
-                           comm_dtype: str = "float32") -> PackedTableState:
+                           comm_dtype: str = "float32", seed=None,
+                           place=None) -> PackedTableState:
     """Sharded packed push of ``[N, S, 128]`` gradients: the data shards'
     batches gathered, then ``push_packed`` (merge, ``scatter_add_rows``)
-    of the owned rows on this shard, in place."""
-    check_comm_dtype(comm_dtype)
-    local, grads_all = _gather_owned(mesh, rows, grads, state.capacity)
+    of the owned rows on this shard, in place. ``place``
+    (:func:`layout_place`): where each row's dither comes from, for rows
+    that are not this rank's ``P(data)`` slice."""
+    comm_dtype = resolve_comm_dtype(comm_dtype)
+    with scope("ssn_push_collective_packed"):
+        local, grads_all = _gather_owned(mesh, rows, grads, state.capacity, comm_dtype,
+                                         seed, place)
     return push_packed(state, local, grads_all, access, lr)
 
 
@@ -238,25 +254,28 @@ def pull_collective_packed_small(mesh: Mesh, state: PackedTableState, rows: torc
     """Sharded small-row gather ``[N, dim]`` of this data shard's logical
     ``rows``: ``pull_packed_small`` of the owned rows on this shard (one
     ``gather_rows`` launch), zeros for the rest, summed over ``model``."""
-    check_comm_dtype(comm_dtype)
-    local, owned = _owned(mesh, rows, small_rows_per_shard(state, dim))
-    vals = pull_packed_small(PackedTableState(table=state.table, slots={}),
-                             torch.where(owned, local, 0), dim)
-    return all_reduce(mesh, vals.masked_fill(~owned[:, None], 0), MODEL_AXIS)
+    comm_dtype = resolve_comm_dtype(comm_dtype)
+    with scope("ssn_pull_collective_packed_small"):
+        local, owned = _owned(mesh, rows, small_rows_per_shard(state, dim))
+        vals = pull_packed_small(PackedTableState(table=state.table, slots={}),
+                                 torch.where(owned, local, 0), dim)
+        return psum_quantized(mesh, vals.masked_fill(~owned[:, None], 0), MODEL_AXIS,
+                              comm_dtype)
 
 
 def push_collective_packed_small(mesh: Mesh, state: PackedTableState, rows: torch.Tensor,
                                  grads: torch.Tensor, access: AccessMethod, lr, dim: int,
-                                 comm_dtype: str = "float32") -> PackedTableState:
+                                 comm_dtype: str = "float32", seed=None) -> PackedTableState:
     """Sharded small-row push of this data shard's ``[N, dim]``
     gradients: ids and gradients gathered over ``data`` in data-rank
     order, the unowned ones masked (each to a spare tile of its own, past
     the shard's, with a zero gradient: no hot padding tile), then
     ``push_packed_small`` of the rest on this shard (one row-kernel
     launch), in place."""
-    check_comm_dtype(comm_dtype)
-    rows_all = all_gather(mesh, rows, DATA_AXIS)
-    grads_all = all_gather(mesh, grads, DATA_AXIS)
+    comm_dtype = resolve_comm_dtype(comm_dtype)
+    with scope("ssn_push_collective_packed_small"):
+        rows_all = all_gather(mesh, rows, DATA_AXIS)
+        grads_all = _gather_grads(mesh, grads, comm_dtype, seed)
     local, grads_all = _mask_owned(mesh, rows_all, grads_all,
                                    small_rows_per_shard(state, dim), stride=small_group(dim))
     return push_packed_small(state, local, grads_all, access, lr, dim)
@@ -384,15 +403,26 @@ def pull_collective_packed_dedup(mesh: Mesh, state: PackedTableState, rows: torc
     128], (uniq, inv), overflow)``: an overflowed slot reads a zero row;
     ``overflow`` is summed over ``data``. Pass ``(uniq, inv)`` to
     :func:`push_collective_packed_dedup` for the same ``rows``."""
-    check_comm_dtype(comm_dtype)
-    uniq, inv, overflow = _unique_static(rows, u_cap, _invalid_row(mesh, state))
-    vals = pull_collective_packed(mesh, state, uniq)
-    return _expand(vals, inv), (uniq, inv), _count_over(mesh, overflow, DATA_AXIS)
+    comm_dtype = resolve_comm_dtype(comm_dtype)
+    with scope("ssn_pull_collective_packed_dedup"):
+        uniq, inv, overflow = _unique_static(rows, u_cap, _invalid_row(mesh, state))
+        vals = _pull_packed_rows(mesh, state, uniq, comm_dtype)
+        return _expand(vals, inv), (uniq, inv), _count_over(mesh, overflow, DATA_AXIS)
+
+
+def _pull_packed_rows(mesh: Mesh, state: PackedTableState, rows: torch.Tensor,
+                      comm_dtype: str) -> torch.Tensor:
+    """:func:`pull_collective_packed`'s work, billed to the caller's scope."""
+    local, owned = _owned(mesh, rows, state.capacity)
+    vals = pull_packed(PackedTableState(table=state.table, slots={}),
+                       torch.where(owned, local, 0))
+    return psum_quantized(mesh, vals.masked_fill(~owned[:, None, None], 0), MODEL_AXIS,
+                          comm_dtype)
 
 
 def push_collective_packed_dedup(mesh: Mesh, state: PackedTableState, rows: torch.Tensor,
                                  grads: torch.Tensor, access: AccessMethod, lr, u_cap: int,
-                                 index=None, comm_dtype: str = "float32"):
+                                 index=None, comm_dtype: str = "float32", seed=None):
     """Sender-dedup'd packed push: this data shard's gradients merged into
     its unique list before the gather over ``data``, then the shard-local
     push of the owned rows. Returns ``(state, dropped)``.
@@ -400,41 +430,45 @@ def push_collective_packed_dedup(mesh: Mesh, state: PackedTableState, rows: torc
     ``index``: the ``(uniq, inv)`` of :func:`pull_collective_packed_dedup`
     over the same ``rows``; the sort is skipped and ``dropped`` is 0, the
     pull having counted the overflow."""
-    check_comm_dtype(comm_dtype)
+    comm_dtype = resolve_comm_dtype(comm_dtype)
     invalid = _invalid_row(mesh, state)
-    if index is not None:
-        (uniq, inv), dropped = index, torch.zeros((), dtype=torch.int32, device=rows.device)
-    else:
-        uniq, inv, overflow = _unique_static(rows, u_cap, invalid)
-        dropped = _count_over(mesh, overflow, DATA_AXIS)
-    merged = _merge_into(grads, inv, u_cap, _junk(uniq, inv, invalid))
-    local, grads_all = _gather_owned(mesh, uniq, merged, state.capacity)
+    with scope("ssn_push_collective_packed_dedup"):
+        if index is not None:
+            (uniq, inv), dropped = index, torch.zeros((), dtype=torch.int32, device=rows.device)
+        else:
+            uniq, inv, overflow = _unique_static(rows, u_cap, invalid)
+            dropped = _count_over(mesh, overflow, DATA_AXIS)
+        merged = _merge_into(grads, inv, u_cap, _junk(uniq, inv, invalid))
+        local, grads_all = _gather_owned(mesh, uniq, merged, state.capacity, comm_dtype, seed)
     push_packed(state, local, grads_all, access, lr)
     return state, dropped
 
 
 def push_collective_packed_bucketed(mesh: Mesh, state: PackedTableState, rows: torch.Tensor,
                                     grads: torch.Tensor, access: AccessMethod, lr,
-                                    slack: float = 2.0, comm_dtype: str = "float32"):
+                                    slack: float = 2.0, comm_dtype: str = "float32",
+                                    seed=None):
     """Owner-bucketed packed push of this data shard's ``[N, S, 128]``
     gradients: merged locally, this model shard's owned rows compacted into
     a static bucket (:func:`bucket_capacity` of ``N``), the buckets gathered
     over ``data``, the shard-local push. Returns ``(state, dropped)``, the
     rows past the caps summed over ``data`` and ``model``."""
-    check_comm_dtype(comm_dtype)
+    comm_dtype = resolve_comm_dtype(comm_dtype)
     model, invalid = mesh.axis_size(MODEL_AXIS), _invalid_row(mesh, state)
     cap = bucket_capacity(rows.shape[0], model, slack)
-    uniq, merged = merge_duplicate_rows(rows, grads, invalid_row=invalid)
-    b_rows, b_grads, overflow = _compact_owned(
-        uniq, merged, mesh.axis_index(MODEL_AXIS), state.capacity, cap, invalid)
-    local, grads_all = _gather_owned(mesh, b_rows, b_grads, state.capacity)
-    push_packed(state, local, grads_all, access, lr)
-    return state, _count_over(mesh, overflow, DATA_AXIS, MODEL_AXIS)
+    with scope("ssn_push_collective_packed_bucketed"):
+        uniq, merged = merge_duplicate_rows(rows, grads, invalid_row=invalid)
+        b_rows, b_grads, overflow = _compact_owned(
+            uniq, merged, mesh.axis_index(MODEL_AXIS), state.capacity, cap, invalid)
+        local, grads_all = _gather_owned(mesh, b_rows, b_grads, state.capacity, comm_dtype,
+                                         seed)
+        push_packed(state, local, grads_all, access, lr)
+        return state, _count_over(mesh, overflow, DATA_AXIS, MODEL_AXIS)
 
 
 def push_collective_bucketed(mesh: Mesh, state: TableState, rows: torch.Tensor,
                              grads: torch.Tensor, access: AccessMethod, lr,
-                             slack: float = 2.0, comm_dtype: str = "float32"):
+                             slack: float = 2.0, comm_dtype: str = "float32", seed=None):
     """The 2-D plane's owner-bucketed push of this data shard's ``[N,
     dim]`` gradients: merged locally, this model shard's owned rows
     compacted into a static bucket (:func:`bucket_capacity` of ``N``), the
@@ -442,16 +476,17 @@ def push_collective_bucketed(mesh: Mesh, state: TableState, rows: torch.Tensor,
     each unique row once (:func:`~swiftsnails_tpu_torch.parallel.store.apply_rows`),
     in place. Returns ``(state, dropped)``, the rows past the caps summed
     over ``data`` and ``model``."""
-    check_comm_dtype(comm_dtype)
+    comm_dtype = resolve_comm_dtype(comm_dtype)
     model, per = mesh.axis_size(MODEL_AXIS), state.capacity
     invalid = per * model
     cap = bucket_capacity(rows.shape[0], model, slack)
-    uniq, merged = merge_duplicate_rows(rows, grads, invalid_row=invalid)
-    b_rows, b_grads, overflow = _compact_owned(
-        uniq, merged, mesh.axis_index(MODEL_AXIS), per, cap, invalid)
-    local, grads_all = _gather_owned(mesh, b_rows, b_grads, per)
-    push(state, local, grads_all, access, lr, exact=True)
-    return state, _count_over(mesh, overflow, DATA_AXIS, MODEL_AXIS)
+    with scope("ssn_push_collective_bucketed"):
+        uniq, merged = merge_duplicate_rows(rows, grads, invalid_row=invalid)
+        b_rows, b_grads, overflow = _compact_owned(
+            uniq, merged, mesh.axis_index(MODEL_AXIS), per, cap, invalid)
+        local, grads_all = _gather_owned(mesh, b_rows, b_grads, per, comm_dtype, seed)
+        push(state, local, grads_all, access, lr, exact=True)
+        return state, _count_over(mesh, overflow, DATA_AXIS, MODEL_AXIS)
 
 
 class DataLayout(NamedTuple):
@@ -470,23 +505,31 @@ def data_layout(mesh: Mesh, sharded: torch.Tensor, whole: torch.Tensor) -> DataL
     all-gather of ids over ``data``), and ``whole`` an array every rank
     holds whole whose contiguous data slices are the ranks' own. This rank's
     slots: its slice of ``S``, then its slice of ``whole``."""
+    with scope("ssn_out_layout"):
+        rows = torch.cat([all_gather(mesh, sharded, DATA_AXIS), whole.to(sharded.dtype)])
+    return DataLayout(rows=rows, mine=_mine(mesh, sharded.shape[0], whole.shape[0],
+                                            sharded.device))
+
+
+def _mine(mesh: Mesh, a: int, n_whole: int, device) -> torch.Tensor:
+    """This rank's positions in ``cat([S, whole])``: its ``a`` rows of
+    ``S``, then its contiguous data slice of ``whole``'s ``n_whole``."""
     d, i = mesh.axis_size(DATA_AXIS), mesh.axis_index(DATA_AXIS)
-    a, b = sharded.shape[0], whole.shape[0] // d
-    dev = sharded.device
-    rows = torch.cat([all_gather(mesh, sharded, DATA_AXIS), whole.to(sharded.dtype)])
-    mine = torch.cat([torch.arange(i * a, (i + 1) * a, device=dev),
-                      torch.arange(d * a + i * b, d * a + (i + 1) * b, device=dev)])
-    return DataLayout(rows=rows, mine=mine)
+    b = n_whole // d
+    return torch.cat([torch.arange(i * a, (i + 1) * a, device=device),
+                      torch.arange(d * a + i * b, d * a + (i + 1) * b, device=device)])
 
 
 def pull_collective_packed_dedup_spread(mesh: Mesh, state: PackedTableState,
-                                        layout: DataLayout, u_cap: int):
+                                        layout: DataLayout, u_cap: int,
+                                        comm_dtype: str = "float32"):
     """:func:`pull_collective_packed_dedup` over a :class:`DataLayout`:
     each chunk's unique list as the JAX package's data shard makes it, all
     of them pulled on every rank (their owned rows, one all-reduce over
     ``model`` of ``D * u_cap`` rows), expanded to this rank's slots.
     Returns ``(vals, index, overflow)``, the overflow of every chunk
     summed; ``index`` is for :func:`push_collective_packed_dedup_spread`."""
+    comm_dtype = resolve_comm_dtype(comm_dtype)
     d, invalid = mesh.axis_size(DATA_AXIS), _invalid_row(mesh, state)
     uniqs, invs, overflow = [], [], 0
     for j, chunk in enumerate(layout.rows.chunk(d)):
@@ -496,34 +539,56 @@ def pull_collective_packed_dedup_spread(mesh: Mesh, state: PackedTableState,
         overflow = overflow + over
     uniq = torch.cat(uniqs)
     slots = torch.cat(invs)[layout.mine]
-    vals = pull_collective_packed(mesh, state, uniq)
+    with scope("ssn_pull_collective_packed_dedup"):
+        vals = _pull_packed_rows(mesh, state, uniq, comm_dtype)
     return _expand(vals, slots), (uniq, slots), _scalar(overflow)
+
+
+def _chunk_sums(mesh: Mesh, partial: torch.Tensor, comm_dtype: str, seed) -> torch.Tensor:
+    """Every chunk's sum of the ranks' ``partial`` (``D`` contiguous chunks
+    over ``data``), on every rank: f32, one all-reduce; a codec, the
+    partials reduce-scattered in f32 (rank ``j`` adding chunk ``j``'s in
+    rank order), then chunk ``j``'s sum quantized on rank ``j`` (dither
+    salted ``j``) and gathered narrow."""
+    if comm_dtype == "float32":
+        return all_reduce(mesh, partial, DATA_AXIS)
+    d = mesh.axis_size(DATA_AXIS)
+    with scope("ssn_spread_reduce_scatter"):
+        parts = all_to_all(mesh, partial, DATA_AXIS).reshape((d, -1) + tuple(partial.shape[1:]))
+    return _gather_grads(mesh, ordered_sum(parts), comm_dtype, seed)
 
 
 def push_collective_packed_dedup_spread(mesh: Mesh, state: PackedTableState,
                                         grads: torch.Tensor, access: AccessMethod, lr,
-                                        index) -> PackedTableState:
+                                        index, comm_dtype: str = "float32",
+                                        seed=None) -> PackedTableState:
     """The push of :func:`pull_collective_packed_dedup_spread`'s slots:
-    this rank's gradients added into every chunk's unique list, summed over
-    ``data`` (one all-reduce: what the JAX package's gather of the merged
-    lists yields), the shard-local push of the owned rows."""
+    this rank's gradients added into every chunk's unique list, the
+    chunks' sums on every rank (:func:`_chunk_sums`: what the JAX
+    package's gather of the merged lists yields), the shard-local push of
+    the owned rows."""
+    comm_dtype = resolve_comm_dtype(comm_dtype)
     uniq, slots = index
     n = uniq.shape[0]
     junk = _junk(uniq, slots, _invalid_row(mesh, state))
-    merged = all_reduce(mesh, _merge_into(grads, slots, n, junk), DATA_AXIS)
+    with scope("ssn_push_collective_packed_dedup"):
+        merged = _chunk_sums(mesh, _merge_into(grads, slots, n, junk), comm_dtype, seed)
     local, merged = _mask_owned(mesh, uniq, merged, state.capacity)
     return push_packed(state, local, merged, access, lr)
 
 
 def push_collective_packed_bucketed_spread(mesh: Mesh, state: PackedTableState,
                                            layout: DataLayout, grads: torch.Tensor,
-                                           access: AccessMethod, lr, slack: float = 2.0):
+                                           access: AccessMethod, lr, slack: float = 2.0,
+                                           comm_dtype: str = "float32", seed=None):
     """:func:`push_collective_packed_bucketed` over a :class:`DataLayout`:
     each chunk merged and bucketed for this model shard as the JAX
     package's data shard does it, this rank's gradients added into the
-    buckets, summed over ``data`` (one all-reduce), the shard-local push.
+    buckets, every chunk's sums on every rank (:func:`_chunk_sums`), the
+    shard-local push.
     Returns ``(state, dropped)``: every chunk's rows past every model
     shard's cap, counted from the ids on each rank."""
+    comm_dtype = resolve_comm_dtype(comm_dtype)
     d, model = mesh.axis_size(DATA_AXIS), mesh.axis_size(MODEL_AXIS)
     m, per, invalid = mesh.axis_index(MODEL_AXIS), state.capacity, _invalid_row(mesh, state)
     n = layout.rows.shape[0] // d
@@ -544,8 +609,9 @@ def push_collective_packed_bucketed_spread(mesh: Mesh, state: PackedTableState,
         b_rows.append(torch.where(owned[first[:cap]], uniq[first[:cap]], invalid))
         dropped = dropped + _owned_overflow(uniq, per, model, cap)
     slots = torch.cat(b_slots)[layout.mine]
-    grads_all = all_reduce(mesh, _merge_into(grads, slots, d * cap, slots >= d * cap),
-                           DATA_AXIS)
+    with scope("ssn_push_collective_packed_bucketed"):
+        grads_all = _chunk_sums(mesh, _merge_into(grads, slots, d * cap, slots >= d * cap),
+                                comm_dtype, seed)
     local, grads_all = _mask_owned(mesh, torch.cat(b_rows), grads_all, per)
     push_packed(state, local, grads_all, access, lr)
     return state, _scalar(dropped)

@@ -27,42 +27,34 @@ serving pulls bit-identical to the checkpointed rows.
   forward pass over pulled rows (mask semantics identical to training:
   PAD=-1 fields contribute nothing).
 
-Not ported yet (``ROADMAP.md``): the mesh pull (``mesh=``) and the int8 /
-int4 wire codecs (``comm_dtype: int8`` / ``int4``); each raises
+``comm_dtype`` applies the collective wire's precision loss to a pull on
+one device (:func:`_wire_cast`, the codecs of
+:mod:`swiftsnails_tpu_torch.parallel.comm`, deterministic): bf16, int8 and
+int4 answer as the JAX servant does, bit for bit. Not ported yet
+(``ROADMAP.md``): the mesh pull (``mesh=``), which raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from swiftsnails_tpu_torch.ops import rowdma
+from swiftsnails_tpu_torch.parallel.comm import (  # noqa: F401  (resolve_comm_dtype: the servant's)
+    dequantize_int4,
+    dequantize_int8,
+    int4_block,
+    is_int4,
+    quantize_int4,
+    quantize_int8,
+    resolve_comm_dtype,
+)
 
 _WORD_BYTES = 16  # the row kernels' unit of movement
-
-
-def resolve_comm_dtype(name: Optional[str]) -> str:
-    """Canonical ``comm_dtype`` (the JAX ``parallel/comm.py`` names):
-    ``float32`` or ``bfloat16``. ``int8`` and ``int4`` (``int4/N``) raise
-    ``NotImplementedError``: their codecs come with the multi-device
-    planes."""
-    if not name:
-        return "float32"
-    s = str(name).strip().lower()
-    canon = {"float32": "float32", "f32": "float32", "fp32": "float32",
-             "bfloat16": "bfloat16", "bf16": "bfloat16"}.get(s)
-    if canon is not None:
-        return canon
-    if s in ("int8", "s8", "int4", "s4") or s.startswith(("int4/", "s4/")):
-        raise NotImplementedError(
-            f"config key comm_dtype: {name} selects the int8/int4 wire codecs, "
-            "which the PyTorch port does not have yet; see ROADMAP.md, Queue 1 "
-            "item 6 (the multi-device planes)")
-    raise ValueError(f"unknown comm_dtype {name!r}")
 
 
 def _no_mesh(mesh) -> None:
@@ -82,10 +74,19 @@ def whole_words(table: torch.Tensor) -> bool:
 
 def _wire_cast(vals: torch.Tensor, comm_dtype: str) -> torch.Tensor:
     """Single-device twin of the collective wire: the precision loss the
-    psum-over-model applies. f32 is a no-op (bit-identical pulls); bf16
-    rounds to nearest even and back, bit-equal to XLA's round trip."""
+    pull's owner-exclusive sum applies, so that one card answers as a mesh
+    would. f32 is a no-op (bit-identical pulls); bf16 rounds to nearest
+    even and back; int8 and int4 round deterministically (a pull never
+    dithers), bit-equal to the JAX package's round trip."""
     if comm_dtype == "bfloat16":
         return vals.to(torch.bfloat16).to(vals.dtype)
+    if comm_dtype == "int8":
+        q, scale = quantize_int8(vals)
+        return dequantize_int8(q, scale).to(vals.dtype)
+    if is_int4(comm_dtype):
+        blk = int4_block(comm_dtype)
+        packed, scales = quantize_int4(vals, block=blk)
+        return dequantize_int4(packed, scales, vals.shape, block=blk).to(vals.dtype)
     return vals
 
 

@@ -1568,6 +1568,47 @@ def _check_net_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:
     )
 
 
+# the int4 wire must keep its counted exchange-byte win over the f32 wire
+# on the scaling lane, and its short-run loss must stay within 1% of the
+# f32 lane's
+_INT4_PAYLOAD_FLOOR = 6.0
+_INT4_LOSS_PARITY_MAX = 0.01
+
+
+def _check_quantized_wire_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:
+    """Gate the int4 wire on the scaling lane: the newest bench record whose
+    ``scaling.per_dtype`` carries an ``int4`` row must show an exchange-byte
+    reduction against the f32 wire of at least ``_INT4_PAYLOAD_FLOOR`` and
+    a loss parity within ``_INT4_LOSS_PARITY_MAX``. No int4 history gates
+    nothing."""
+    with_int4 = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict)
+        and isinstance(r["payload"].get("scaling"), dict)
+        and isinstance(r["payload"]["scaling"].get("per_dtype"), dict)
+        and isinstance(r["payload"]["scaling"]["per_dtype"].get("int4"), dict)
+    ]
+    if not with_int4:
+        return 0, None
+    row = with_int4[-1]["payload"]["scaling"]["per_dtype"]["int4"]
+    red = row.get("payload_reduction_vs_f32")
+    parity = row.get("loss_parity_vs_f32")
+    problems = []
+    if not (isinstance(red, (int, float)) and red >= _INT4_PAYLOAD_FLOOR):
+        problems.append(
+            f"audited exchange-byte reduction {red} vs f32 is below the "
+            f"{_INT4_PAYLOAD_FLOOR:.1f}x floor")
+    if not (isinstance(parity, (int, float)) and parity <= _INT4_LOSS_PARITY_MAX):
+        problems.append(
+            f"loss parity {parity} vs f32 exceeds the "
+            f"{_INT4_LOSS_PARITY_MAX} bar")
+    if problems:
+        return 1, "int4-wire REGRESSION: " + "; ".join(problems)
+    return 0, (
+        f"int4-wire ok: exchange bytes {red:.2f}x below f32 "
+        f"(floor {_INT4_PAYLOAD_FLOOR:.1f}x), loss parity {parity}")
+
+
 def _plane_checks(max_drop_pct: float):
     """The planes' sub-checks, in the JAX gate's order, each ``ledger ->
     (rc, message or None)``."""
@@ -1578,6 +1619,7 @@ def _plane_checks(max_drop_pct: float):
         functools.partial(_check_tiered_regression, max_drop_pct=max_drop_pct),
         _check_chaos_serve_regression,
         _check_chaos_cluster_regression,
+        _check_quantized_wire_regression,
         _check_freshness_regression,
         _check_trace_overhead_regression,
         _check_drift_regression,

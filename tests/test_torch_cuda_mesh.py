@@ -1,6 +1,6 @@
 """The mesh's collectives, meshed word2vec and its grouped plane, meshed
-Wide & Deep and its checkpoint on the card, under a ``(1, 1)`` mesh of a
-one-rank NCCL group (NCCL puts no two
+Wide & Deep and its checkpoint, and the wire codecs (``comm_dtype``) on
+the card, under a ``(1, 1)`` mesh of a one-rank NCCL group (NCCL puts no two
 ranks on one card; the multi-rank meshes are the gloo tests on the CPU and
 ``chip_smoke.py``'s ``mesh`` phase).
 
@@ -162,3 +162,98 @@ def test_meshed_widedeep_and_its_checkpoint_are_the_cpu_port(nccl_mesh, tmp_path
         restored = dict(tensor_items(ckpt.restore_checkpoint(root, template, mesh=m)))
         for key, t in tensor_items(state):
             assert torch.equal(restored[key].cpu(), t.cpu()), key
+
+
+# ------------------------------------------------------ the wire codecs ---
+
+WIRES = ["bfloat16", "int8", "int4", "int4/16"]
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_codecs_on_the_card_are_the_cpus(wire):
+    """Each codec on the card bit-equal to the CPU's, deterministic and
+    dithered (a seed tensor, and rows at a place), on packed and small
+    rows with a zero row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from swiftsnails_tpu_torch.parallel import comm
+
+    rng = np.random.default_rng(5)
+    for shape in ((2048, 2, 128), (4096, 17)):
+        x = (rng.standard_normal(shape) * np.exp(rng.standard_normal((shape[0],) + (1,) * (len(shape) - 1)))).astype(np.float32)
+        x[7] = 0.0
+        cpu = torch.from_numpy(x)
+        seed = torch.tensor(0xFFFFFFF0, dtype=torch.int64)
+        place = (torch.arange(shape[0]) * 3 % 5000, torch.full((shape[0],), 12345))
+        for kw in ({}, {"stochastic": True, "seed": seed},
+                   {"stochastic": True, "place": place}):
+            card = {k: (tuple(t.cuda() for t in v) if k == "place" else
+                        v.cuda() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+            if wire == "bfloat16":
+                got, want = cpu.cuda().to(torch.bfloat16).cpu(), cpu.to(torch.bfloat16)
+                assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+                continue
+            if wire == "int8":
+                q, s = comm.quantize_int8(cpu.cuda(), **card)
+                wq, ws = comm.quantize_int8(cpu, **kw)
+                deq, wdeq = comm.dequantize_int8(q, s), comm.dequantize_int8(wq, ws)
+            else:
+                blk = comm.int4_block(wire)
+                q, s = comm.quantize_int4(cpu.cuda(), block=blk, **card)
+                wq, ws = comm.quantize_int4(cpu, block=blk, **kw)
+                deq = comm.dequantize_int4(q, s, shape, block=blk)
+                wdeq = comm.dequantize_int4(wq, ws, shape, block=blk)
+                s, ws = s.view(torch.int16), ws.view(torch.int16)
+            assert torch.equal(q.cpu(), wq) and torch.equal(s.cpu(), ws), kw
+            assert torch.equal(deq.cpu(), wdeq)
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_quantized_pulls_are_the_wire_cast(nccl_mesh, wire):
+    """Over one rank the owner-exclusive sum passes the codes through: the
+    meshed pull (packed, and small rows of dim 17) is the unmeshed pull
+    through serving's ``_wire_cast``, bit for bit."""
+    from swiftsnails_tpu_torch.serving.kernels import _wire_cast
+
+    rng = np.random.default_rng(2)
+    whole = np.zeros((4096, 2, 128), np.float32)
+    whole.reshape(4096, -1)[:, :200] = rng.standard_normal((4096, 200))
+    rows = torch.from_numpy(rng.integers(0, 4096, 1024).astype(np.int32)).cuda()
+    meshed = convert.table_shard_from_numpy(whole, nccl_mesh, device="cuda")
+    got = transfer.pull_collective_packed(nccl_mesh, meshed, rows, comm_dtype=wire)
+    want = _wire_cast(store.pull_packed(meshed, rows), wire)
+    assert torch.equal(got, want)
+    live = (np.arange(128) % 32) < 17
+    small = (rng.standard_normal((1024, 1, 128)) * live).astype(np.float32)
+    st = convert.table_shard_from_numpy(small, nccl_mesh, device="cuda")
+    got = transfer.pull_collective_packed_small(nccl_mesh, st, rows, 17, comm_dtype=wire)
+    assert torch.equal(got, _wire_cast(store.pull_packed_small(st, rows, 17), wire))
+
+
+@pytest.mark.parametrize("wire", ["bfloat16", "int8", "int4"])
+def test_grouped_plane_under_a_wire_is_the_cpu_port(nccl_mesh, wire):
+    """The grouped plane under a wire on the one-rank NCCL mesh against
+    the port on a one-rank gloo mesh on the CPU, the same dither seeds:
+    every table element within one quantization step of the most its row
+    moved, summed over the pushes (the card's gradients differ in f32
+    rounding, so a code may round the other way); the counted bytes equal
+    ``step_cost``'s; the row kernels launched as at f32."""
+    import torch_comm_ranks as cr
+    import torch_mesh_ranks as ranks
+
+    seeds = [[1000 + i] for i in range(ranks.GROUPED_STEPS)]
+    want = cr.grouped_wire_route(_cpu_mesh(), "grouped", wire, seeds)
+    g0, s0 = rowdma.gather_rows.launches, rowdma.scatter_add_rows.launches
+    got = cr.grouped_wire_route(nccl_mesh, "grouped", wire, seeds)
+    torch.cuda.synchronize()
+    assert rowdma.gather_rows.launches - g0 == 2 * ranks.GROUPED_STEPS
+    assert rowdma.scatter_add_rows.launches - s0 == 2 * ranks.GROUPED_STEPS
+    starts, _, _ = ranks.grouped_inputs("grouped")
+    share = {"bfloat16": 2.0 ** -7, "int8": 1 / 127, "int4": 1 / 7}[wire]
+    for a, b, s in zip(got["tables"], want["tables"], starts):
+        a, b, s = a.cpu().numpy(), b.numpy(), s
+        moved = np.maximum(np.abs(a - s), np.abs(b - s)).reshape(len(s), -1).max(axis=1)
+        bound = 2 * ranks.GROUPED_STEPS * share * moved[:, None] + 1e-6
+        assert np.all(np.abs(a - b).reshape(len(s), -1) <= bound)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-3)
+    assert all(c == p for c, p in got["counted"])

@@ -158,6 +158,10 @@ GATE_CASES = {
     "trace_ok": [_bench(1000.0), _bench(1000.0, fleet={"trace_overhead": _TRACE})],
     "trace_bad": [_bench(1000.0), _bench(1000.0, fleet={"trace_overhead": {
         **_TRACE, "overhead_qps_pct": 9.0, "p99_on_ms": 30.0}})],
+    "int4_ok": [_bench(1000.0), _bench(1000.0, scaling={"per_dtype": {"int4": {
+        "payload_reduction_vs_f32": 6.0, "loss_parity_vs_f32": 0.0}}})],
+    "int4_bad": [_bench(1000.0), _bench(1000.0, scaling={"per_dtype": {"int4": {
+        "payload_reduction_vs_f32": 5.9, "loss_parity_vs_f32": 0.02}}})],
     "everything": [_bench(1000.0), _bench(700.0, drift=_DRIFT_OK, chaos={
         "recovered_all": True, "loss_parity": 0.0}, profile_overhead={
         "overhead_pct": 0.1, "noise_pct": 1.0})],
@@ -174,6 +178,35 @@ def test_check_regression_matches(tmp_path, case, baseline):
     got = ledger.check_regression(led, 10.0, baseline)
     want = jax_ledger.check_regression(jax_ledger.Ledger(path), 10.0, baseline)
     assert got == want
+
+
+@pytest.mark.parametrize("records,rc,said", [
+    ([], 0, None),
+    ([_bench(1000.0, scaling={"per_dtype": {"int8": {"payload_reduction_vs_f32": 3.5}}})],
+     0, None),
+    ([_bench(scaling={"per_dtype": {"int4": {"payload_reduction_vs_f32": 5.9,
+                                             "loss_parity_vs_f32": 0.0}}})],
+     1, "int4-wire REGRESSION: audited exchange-byte reduction 5.9 vs f32 is below"),
+    ([_bench(scaling={"per_dtype": {"int4": {"payload_reduction_vs_f32": 6.0,
+                                             "loss_parity_vs_f32": 0.004}}})],
+     0, "int4-wire ok: exchange bytes 6.00x below f32"),
+    ([_bench(scaling={"per_dtype": {"int4": {"payload_reduction_vs_f32": 7.1,
+                                             "loss_parity_vs_f32": 0.011}}})],
+     1, "int4-wire REGRESSION: loss parity 0.011 vs f32 exceeds the 0.01 bar"),
+], ids=["empty", "no_int4", "5.9x", "6.0x", "parity"])
+def test_quantized_wire_gate(tmp_path, records, rc, said):
+    """The int4 wire's gate on hand-written bench records: no int4 history
+    gates nothing, 5.9x fails, 6.0x passes, a loss parity past 1% fails;
+    the JAX gate's code and message on each."""
+    path = str(tmp_path / "int4.jsonl")
+    led = ledger.Ledger(path)
+    for kind, rec in records:
+        led.append(kind, rec)
+    got = ledger._check_quantized_wire_regression(led)
+    assert got == jax_ledger._check_quantized_wire_regression(jax_ledger.Ledger(path))
+    assert got[0] == rc
+    assert (got[1] is None) if said is None else got[1].startswith(said)
+    assert ledger._check_quantized_wire_regression in ledger._plane_checks(10.0)
 
 
 @pytest.mark.parametrize("argv", [

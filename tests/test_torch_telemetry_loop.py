@@ -107,9 +107,8 @@ def test_same_run_record_and_goodput_keys(runs):
     _, port_d, jax_d = runs
     port = Ledger(os.path.join(port_d, "ledger.jsonl")).latest("run")
     ref = Ledger(os.path.join(jax_d, "ledger.jsonl")).latest("run")
-    # the JAX trainer names its wire format (the quantized-wire plane,
-    # ROADMAP.md Queue 1 item 6), which the port does not have yet
-    ref.pop("comm_dtype", None)
+    # both trainers name their wire format (comm_dtype)
+    assert port["comm_dtype"] == ref["comm_dtype"] == "float32"
     assert sorted(port) == sorted(ref)
     assert sorted(port["goodput"]) == sorted(ref["goodput"])
     assert sorted(port["goodput"]["decomposition"]) == sorted(ref["goodput"]["decomposition"])

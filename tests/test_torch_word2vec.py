@@ -323,9 +323,10 @@ def test_packed_pool_loss_decreases():
 
 # (key, value, other keys of the case). ``fused``, ``grouped``, ``resident``
 # and ``dedup`` are ported; their cases ask for a path still to port on top.
-# ``packed``, ``neg_mode``, ``stream``, ``table_tier``, ``overlap`` and
-# ``push_mode`` are ported too: for them the test holds that the trainer
-# takes the key (see ``_PORTED``).
+# ``packed``, ``neg_mode``, ``stream``, ``table_tier``, ``overlap``,
+# ``push_mode`` and ``comm_dtype`` are ported too: for them, and for the
+# cases whose other keys are all ported, the test holds that the trainer
+# takes the keys (see ``_PORTED``).
 _UNPORTED_CASES = [
     ("packed", 0, {}), ("neg_mode", "per_pair", {}),
     ("fused", 1, {"grouped": 1, "resident": 1, "comm_dtype": "int8"}),
@@ -348,6 +349,10 @@ _PORTED = {
     "table_tier": lambda tr: tr.tiered and tr.tier_spec() is not None,
     "overlap": lambda tr: tr.overlap == 1 and tr.grouped,
     "push_mode": lambda tr: tr.push_mode == "bucketed",
+    # comm_dtype is ported: these cases' trainers take it with the rest
+    "comm_dtype": lambda tr: tr.comm_dtype == "bfloat16",
+    "fused": lambda tr: tr.fused and tr.resident and tr.comm_dtype == "int8",
+    "grouped": lambda tr: tr.grouped and tr.dedup and tr.comm_dtype == "bfloat16",
 }
 
 
