@@ -447,13 +447,33 @@ Phases:
     bar), launches as f32's, the counted bytes ``step_cost``'s, the
     grouped exchange's scoped bytes ``WIRE_BYTE_FLOORS`` below f32's;
     each path's bytes and ms a step and the codec's launches and device
-    ms a step (a profiled step's non-NCCL kernels beyond f32's). One
-    ``mesh`` line. Then
+    ms a step (a profiled step's non-NCCL kernels beyond f32's). (f)
+    Hybrid placement, ZeRO and ``dense_tp``: on the (1, 1) NCCL mesh the
+    grouped plane with ``MESH_HYBRID`` (a head of ``HOT_ROWS`` rows, the
+    tail at a covering cap) ``MESH_GROUPED_SHORT`` steps from the plain
+    plane's start, within rtol 2e-4 / atol 2e-6 of it, nothing dropped,
+    launches as the plain plane's, the counted bytes ``step_cost``'s;
+    ``placement: auto``'s decision (cut, coverage, predicted against
+    counted bytes); the bytes a step of uniform, hybrid and auto; W&D at
+    ``examples/widedeep.conf`` under ``placement: hybrid``,
+    ``optimizer_sharding: zero`` and ``dense_tp: 1`` (trivial on one rank)
+    against the uniform meshed run (``_ctr_close``: bit equality
+    reported). On the four gloo ranks: the grouped plane hybrid against
+    uniform (within rtol 2e-4 / atol 2e-6) and hybrid with zero bit-equal
+    to it; W&D under zero bit-equal to the replicated run, each rank
+    holding ``1 / data`` of each sharded AdaGrad sum; ``dense_tp: 1``
+    against ``dense_tp: 0`` (``_ctr_close``); a start state saved uniform
+    and through the hybrid split and zero's slices, the same CRCs; a
+    hybrid + zero run saved at ``MESH_GLOO_CTR_SAVE`` and resumed,
+    bit-equal to the straight run. One ``mesh`` line. Then
     ``gather_rows`` and ``scatter_add_rows`` at the grouped plane's shapes
     (``kernel`` lines, ``path: "mesh_grouped"``): its pulls of 8,192 centers
     and 83,968 out rows and its pushes of the merged rows, on a step of its
     batches, bit-equal to plain, timed beside it and ``index_select`` /
-    ``index_add_``, against the byte bound. ``--only mesh`` runs this phase
+    ``index_add_``, against the byte bound; and the hybrid tail's
+    (``path: "mesh_hybrid"``: the tail lists of a step's centers and out
+    rows at ``MESH_HYBRID``'s cap; ``"mesh_hybrid_ctr"``: W&D's tail
+    ``gather_rows`` and ``scatter_adagrad_fused_rows``). ``--only mesh`` runs this phase
     alone (with the build and the kernels' phase 3) and prints no result
     line.
 22. ``kernels``: one line for every ported kernel, with its launches in the
@@ -461,7 +481,10 @@ Phases:
     17 and 18 (``gather_rows`` and ``scatter_add_rows`` also at
     ``train_perpair``'s shape and launches, with the ``cluster`` and
     ``mesh`` paths' launches, and at the grouped plane's shapes with its
-    launches, ``path: "mesh_grouped"``; ``gather_rows`` and ``scatter_write_rows`` also at the serving
+    launches, ``path: "mesh_grouped"``, and at the hybrid tail's shapes
+    with leg 1's hybrid runs' launches, ``path: "mesh_hybrid"`` /
+    ``"mesh_hybrid_ctr"`` with ``scatter_adagrad_fused_rows``;
+    ``gather_rows`` and ``scatter_write_rows`` also at the serving
     shapes with the ``serve`` path's launches, and at the freshness shapes
     with the ``freshness`` path's, the replicas' included; all four row
     kernels of the tiered runs with ``path: "tiered"``); then ``total``,
@@ -4812,6 +4835,17 @@ MESH_GLOO_GROUPED = {
 }
 
 
+# leg 2's hybrid routes on the grouped plane, MESH_GROUPED_SHORT steps from
+# one start: the tail at the dedup route's covering cap (nothing drops)
+MESH_GLOO_HYBRID = {
+    "uniform": {},
+    "hybrid": {"placement": "hybrid", "placement_head_rows": HOT_ROWS,
+               "placement_tail_cap": MESH_GLOO_GROUPED["dedup"]["mesh_u_cap"]},
+}
+MESH_GLOO_HYBRID["hybrid_zero"] = {**MESH_GLOO_HYBRID["hybrid"], "optimizer_sharding": "zero"}
+MESH_GLOO_CTR_SAVE = 2  # the step leg 2's hybrid + zero W&D saves at and resumes from
+
+
 def _mesh_gloo_trainer(seed: int, device: str, mesh=None):
     """Leg 2's word2vec: packed+pool at dim 200 (the full row width), the
     vocabulary, batch and steps cut (``MESH_GLOO_*``), numpy batches."""
@@ -4915,6 +4949,8 @@ def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) ->
         out["widedeep"] = {"state": {k: t.cpu() for k, t in _tensor_items(wd["state"])},
                            "losses": wd["losses"], "launches": wd["launches"]}
         del wd
+        out["hybrid"] = _gloo_hybrid_runs(seed, mesh)
+        out["ctr_layouts"] = _gloo_ctr_layouts(seed, mesh, out_dir)
         wire_dev = _gloo_wire_device(mesh)
         wire_mesh = mesh if wire_dev == MESH_GLOO_DEVICE else make_mesh(MESH_GLOO, device=wire_dev)
         out["wire_device"] = wire_dev
@@ -4926,6 +4962,170 @@ def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) ->
     except Exception:
         out = {"error": traceback.format_exc()}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _gloo_hybrid_runs(seed: int, mesh) -> dict:
+    """Leg 2's grouped plane on this rank under each of ``MESH_GLOO_HYBRID``
+    ``MESH_GROUPED_SHORT`` steps: tables, losses, launches, dropped counts."""
+    out = {}
+    for name, over in MESH_GLOO_HYBRID.items():
+        records = []
+        loop, losses = _loss_loop(
+            _mesh_gloo_grouped_trainer(seed, MESH_GLOO_DEVICE, mesh, **over), records)
+        state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=MESH_GROUPED_SHORT))
+        out[name] = {"tables": [t.table.cpu() for t in state], "losses": losses,
+                     "launches": launches,
+                     "dropped": [r.get("hybrid_dropped") for r in records],
+                     "zero": loop.zero.summary() if loop.zero is not None else None}
+        del state
+    return out
+
+
+def _gloo_ctr_layouts(seed: int, mesh, out_dir: str) -> dict:
+    """Leg 2's W&D on this rank: ``optimizer_sharding: zero`` and ``dense_tp:
+    1`` ``MESH_GLOO_CTR_STEPS`` steps each (the arrays, the planes this
+    rank holds under zero); then ``placement: hybrid`` with zero: one start
+    state saved in the uniform layout and through the split and zero's
+    slices (the manifests' CRCs), and a run saved at ``MESH_GLOO_CTR_SAVE``
+    and resumed beside the straight run."""
+    from swiftsnails_tpu_torch.framework import checkpoint as ckpt
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.parallel.placement import PlacementManager
+    from swiftsnails_tpu_torch.parallel.zero import ZeroManager
+
+    data = _mesh_gloo_ctr_data(seed)
+    out = {}
+    for name in ("zero", "dense_tp"):
+        run = _mesh_ctr_run(seed, data, mesh, MESH_GLOO_CTR_STEPS, over=MESH_GLOO_CTR_OVER,
+                            **MESH_CTR_LAYOUTS[name])
+        out[name] = {"state": {k: t.cpu() for k, t in _tensor_items(run["state"])},
+                     "losses": run["losses"], "launches": run["launches"]}
+        if name == "zero":
+            tr = run["trainer"]
+            zm = ZeroManager(tr, mesh)
+            held = zm.adopt(tr.init_state())
+            out[name]["held"] = {k: list(t.shape) for k, t in _tensor_items(held)
+                                 if k.startswith("opt/")}
+            out[name]["summary"] = zm.summary()
+        del run
+    keys = {"placement": "hybrid", "optimizer_sharding": "zero"}
+    cfg = _widedeep_config(seed)
+    for k, v in {**MESH_GLOO_CTR_OVER, **keys}.items():
+        cfg.set(k, str(v))
+    tr = get_model("widedeep")(cfg, mesh=mesh, data=data)
+    state = tr.init_state()
+    roots = {name: os.path.join(out_dir, f"ck-gloo-layout-{name}") for name in ("uniform",
+                                                                                 "split")}
+    ckpt.save_checkpoint(roots["uniform"], state, 0, mesh=mesh)
+    pm, zm = PlacementManager(tr, mesh), ZeroManager(tr, mesh)
+    split = zm.adopt(pm.adopt(state))
+    ckpt.save_checkpoint(roots["split"], split, 0, mesh=mesh, placement=pm, zero=zm)
+    out["crcs"] = {name: _crcs(ckpt.read_manifest(root, 0)) for name, root in roots.items()}
+    del state, split
+    root = os.path.join(out_dir, "ck-gloo-hybrid-zero")
+    runs = {}
+    for name, steps, extra in (
+            ("straight", MESH_GLOO_CTR_STEPS, {}),
+            ("saved", MESH_GLOO_CTR_SAVE, {"param_backup_root": root,
+                                           "param_backup_period": MESH_GLOO_CTR_SAVE}),
+            ("resumed", MESH_GLOO_CTR_STEPS, {"param_backup_root": root,
+                                              "param_backup_period": 100,
+                                              "resume": "auto"})):
+        run = _mesh_ctr_run(seed, data, mesh, steps, over=MESH_GLOO_CTR_OVER, **keys, **extra)
+        runs[name] = {"state": {k: t.cpu() for k, t in _tensor_items(run["state"])},
+                      "losses": run["losses"], "cut": run["trainer"].placement_cut}
+        del run
+    out["resume"] = runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gloo_hybrid_check(by: dict) -> dict:
+    """Leg 2's hybrid grouped plane against uniform (within
+    ``MESH_GROUPED_RTOL`` / ``MESH_GROUPED_ATOL``, nothing dropped, each
+    rank's launches the plain plane's) and with zero bit-equal to it."""
+    def whole(route, i):
+        return [torch.cat([by[(i, j)]["hybrid"][route]["tables"][k]
+                           for j in range(MESH_GLOO["model"])]) for k in range(2)]
+
+    errs = []
+    for i in range(MESH_GLOO["data"]):
+        got, want = whole("hybrid", i), whole("uniform", i)
+        for a, b in zip(got, want):
+            errs.append(float((a - b).abs().max()))
+            if not torch.allclose(a, b, rtol=MESH_GROUPED_RTOL, atol=MESH_GROUPED_ATOL):
+                raise AssertionError(f"mesh gloo hybrid: data replica {i} is {errs[-1]} "
+                                     "from uniform")
+        if not all(torch.equal(a, b) for a, b in zip(whole("hybrid_zero", i), got)):
+            raise AssertionError(f"mesh gloo hybrid zero: data replica {i} differs from "
+                                 "the replicated head push (bit-equal expected)")
+    want_launches = _grouped_launches(MESH_GROUPED_SHORT, MESH_GLOO_SPC)
+    for key, res in by.items():
+        for route in MESH_GLOO_HYBRID:
+            _check_launches(f"mesh gloo {route} rank {key}", res["hybrid"][route]["launches"],
+                            want_launches)
+        if any(res["hybrid"]["hybrid"]["dropped"]):
+            raise AssertionError(f"mesh gloo hybrid: rows dropped {res['hybrid']['hybrid']}")
+    mine = by[(0, 0)]["hybrid"]
+    return {"steps": MESH_GROUPED_SHORT, "keys": MESH_GLOO_HYBRID["hybrid"],
+            "max_abs_err": max(errs), "losses": mine["hybrid"]["losses"],
+            "uniform_losses": mine["uniform"]["losses"],
+            "zero_bit_equal": True, "zero": mine["hybrid_zero"]["zero"]}
+
+
+def _gloo_ctr_layouts_check(by: dict) -> dict:
+    """Leg 2's W&D: zero bit-equal to the replicated run (``widedeep``),
+    each rank holding ``1 / data`` of each sharded plane; ``dense_tp: 1``
+    against it (:func:`_ctr_close`); the hybrid +
+    zero layouts' CRCs a uniform save's; the resume bit-equal to the
+    straight run."""
+    from swiftsnails_tpu_torch.parallel.zero import zero_plane_spec
+
+    sharded = ("table/table", "table/slots/accum")
+
+    def whole(get, i):
+        first = get(by[(i, 0)])
+        return {k: (torch.cat([get(by[(i, j)])[k] for j in range(MESH_GLOO["model"])])
+                    if k in sharded else t) for k, t in first.items()}
+
+    out = {}
+    for i in range(MESH_GLOO["data"]):
+        want = whole(lambda r: r["widedeep"]["state"], i)
+        zero = whole(lambda r: r["ctr_layouts"]["zero"]["state"], i)
+        for k, w in want.items():
+            if not torch.equal(zero[k], w):
+                raise AssertionError(f"mesh gloo widedeep zero: {k} of data replica {i} "
+                                     "differs from the replicated run (bit-equal expected)")
+        tp = whole(lambda r: r["ctr_layouts"]["dense_tp"]["state"], i)
+        out[f"dense_tp_replica{i}"] = _ctr_close(f"mesh gloo widedeep dense_tp replica {i}",
+                                                 tp, want, MESH_GLOO_CTR_STEPS)
+        straight = whole(lambda r: r["ctr_layouts"]["resume"]["straight"]["state"], i)
+        resumed = whole(lambda r: r["ctr_layouts"]["resume"]["resumed"]["state"], i)
+        for k, t in straight.items():
+            if not torch.equal(resumed[k], t):
+                raise AssertionError(f"mesh gloo widedeep hybrid+zero resumed: {k} differs "
+                                     "from the straight run")
+    for key, res in by.items():
+        lay = res["ctr_layouts"]
+        if lay["crcs"]["split"] != lay["crcs"]["uniform"]:
+            raise AssertionError(f"mesh gloo widedeep rank {key}: the hybrid + zero save's "
+                                 "CRCs differ from the uniform save's")
+        for k, shape in lay["zero"]["held"].items():
+            whole = list(res["widedeep"]["state"][k].shape)
+            if zero_plane_spec(whole, MESH_GLOO["data"]):
+                whole[0] //= MESH_GLOO["data"]
+            if shape != whole:
+                raise AssertionError(f"mesh gloo widedeep zero rank {key}: {k} held {shape}")
+        for name in ("zero", "dense_tp"):
+            per_step = {k: n * MESH_GLOO_CTR_STEPS for k, n in MESH_CTR_LAUNCHES.items()}
+            _check_launches(f"mesh gloo widedeep {name} rank {key}", lay[name]["launches"],
+                            per_step)
+    mine = by[(0, 0)]["ctr_layouts"]
+    return {**out, "zero_bit_equal": True, "zero_summary": mine["zero"]["summary"],
+            "zero_held": mine["zero"]["held"], "crcs_equal_uniform": True,
+            "arrays": len(mine["crcs"]["uniform"]), "resume_bit_equal": True,
+            "saved_at": MESH_GLOO_CTR_SAVE, "cut": mine["resume"]["straight"]["cut"],
+            "losses": {k: list(v["losses"].values()) for k, v in mine["resume"].items()}}
 
 
 def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
@@ -5014,11 +5214,14 @@ def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
                                                 for k in want_launches} for r in results]}
         torch.cuda.empty_cache()
     widedeep = _mesh_gloo_widedeep(seed, by, solo, tmp)
+    hybrid = _gloo_hybrid_check(by)
+    layouts = _gloo_ctr_layouts_check(by)
     wire = _gloo_wire_check(seed, by, solo)
     seqlm = _mesh_gloo_seqlm(seed, results)
     return {"device": MESH_GLOO_DEVICE, "backend": results[0]["backend"],
             "mesh": MESH_GLOO, "ranks": size, "steps": MESH_GLOO_STEPS,
-            "widedeep": widedeep, "wire": wire, "seqlm": seqlm,
+            "widedeep": widedeep, "hybrid": hybrid, "ctr_layouts": layouts, "wire": wire,
+            "seqlm": seqlm,
             "reduced": {"vocab": [MESH_GLOO_VOCAB, VOCAB],
                         "batch": [MESH_GLOO_BATCH, BATCH],
                         "grouped_centers": [MESH_GLOO_BATCH, GROUPED_BATCH],
@@ -5221,7 +5424,9 @@ def _mesh_grouped_run(seed: int, corpora, mesh, steps: int, keep: bool = False,
            "comm_bytes": transfer.comm_bytes(),
            "step_cost_bytes": None if step_bytes is None else steps * step_bytes,
            "step_ms_median": statistics.median(r["seconds"] * 1e3 for r in records[1:]),
-           "dropped": [r.get("dedup_dropped", r.get("push_dropped")) for r in records]}
+           "dropped": [r.get("dedup_dropped", r.get("push_dropped", r.get("hybrid_dropped")))
+                       for r in records],
+           "decision": trainer.placement_decision}
     if mesh is not None and out["comm_bytes"] != out["step_cost_bytes"]:
         raise AssertionError(f"mesh grouped {extra}: {out['comm_bytes']} collective bytes "
                              f"counted, step_cost {out['step_cost_bytes']}")
@@ -5291,6 +5496,123 @@ def _mesh_grouped_leg(seed: int, corpora, mesh) -> dict:
                         _grouped_launches(MESH_STEPS, spc, depth))
         _falls(f"overlap {depth}", run["losses"])
         out[f"overlap{depth}"] = run
+    torch.cuda.empty_cache()
+    return out
+
+
+# Leg 1's hybrid placement: the grouped plane of _mesh_grouped_leg with its
+# head the resident paths' HOT_ROWS, the tail at a covering cap (nothing
+# drops), against the plain plane from the same start; then placement: auto
+MESH_HYBRID = {"placement": "hybrid", "placement_head_rows": HOT_ROWS,
+               "placement_tail_cap": MESH_GROUPED_COVER}
+# W&D's layouts on the (1, 1) mesh (trivial on one rank: each equal to the
+# uniform meshed run) and on leg 2's ranks
+MESH_CTR_LAYOUTS = {"hybrid": {"placement": "hybrid"},
+                    "zero": {"optimizer_sharding": "zero"}, "dense_tp": {"dense_tp": 1}}
+MESH_CTR_LAYOUT_STEPS = 5
+# a layout that changes the sums' order (hybrid's head merge, dense_tp's
+# split products) against the uniform run: tests/test_hybrid_placement.py's bound
+MESH_HYBRID_RTOL, MESH_HYBRID_ATOL = 1e-4, 1e-5
+
+
+def _ctr_close(what: str, got: dict, want: dict, steps: int) -> dict:
+    """Two W&D runs whose sums differ in order (a hybrid head's merge,
+    ``dense_tp``'s split products), array by array: the dense tensors and
+    the AdaGrad sums (the table's sublane 1 too) within
+    ``MESH_HYBRID_RTOL`` / ``MESH_HYBRID_ATOL``; the table's values within
+    ``2 lr`` a step, AdaGrad's bound (``|g| / sqrt(acc)`` is at most 1, so a
+    value moves at most ``lr`` a step either way: a row first touched with a
+    gradient of a few 1e-5, whose rounding differs by a few per cent between
+    the two orders, takes a step of order ``lr`` in each). Returns the
+    largest difference and the count of table values past ``MESH_ATOL``."""
+    lr = _widedeep_config(0).get_float("learning_rate")
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: arrays {sorted(got)}, want {sorted(want)}")
+    worst, differ = 0.0, 0
+    for k, w in want.items():
+        g = got[k]
+        worst = max(worst, float((g - w).abs().max()))
+        if k == "table/table":
+            bound = 2 * lr * steps + MESH_ATOL
+            if float((g[:, 0] - w[:, 0]).abs().max()) > bound:
+                raise AssertionError(f"{what}: table values past AdaGrad's {bound}")
+            differ += int(((g[:, 0] - w[:, 0]).abs() > MESH_ATOL).sum())
+            g, w = g[:, 1:], w[:, 1:]
+        if not torch.allclose(g, w, rtol=MESH_HYBRID_RTOL, atol=MESH_HYBRID_ATOL):
+            raise AssertionError(f"{what}: {k} is {float((g - w).abs().max())} from the "
+                                 "reference run")
+    return {"max_abs_diff": worst, "table_values_differ": differ,
+            "bit_equal": all(torch.equal(got[k], w) for k, w in want.items())}
+
+
+def _mesh_hybrid_leg(seed: int, corpora, mesh) -> dict:
+    """Leg 1's hybrid placement (phase 21 (f)): the grouped plane at
+    fused-grouped's full width with ``MESH_HYBRID`` ``MESH_GROUPED_SHORT``
+    steps from the plain plane's start, its tables within
+    ``MESH_GROUPED_RTOL`` / ``MESH_GROUPED_ATOL`` of the plain plane's,
+    nothing dropped, the row kernels launched as the plain plane's, the
+    counted bytes ``step_cost``'s; ``placement: auto``'s decision (cut,
+    coverage, predicted against counted bytes); the bytes a step of each."""
+    t0 = time.monotonic()
+    spc = FUSED_STEPS_PER_CALL
+    plain = _mesh_grouped_run(seed, corpora, mesh, MESH_GROUPED_SHORT, keep=True)
+    hyb = _mesh_grouped_run(seed, corpora, mesh, MESH_GROUPED_SHORT, keep=True, **MESH_HYBRID)
+    _check_launches("mesh hybrid", hyb["launches"],
+                    _grouped_launches(MESH_GROUPED_SHORT, spc))
+    hyb["max_abs_diff"] = _tables_close("hybrid", hyb.pop("state"), plain.pop("state"))
+    if not np.allclose(hyb["losses"], plain["losses"], rtol=MESH_GROUPED_RTOL,
+                       atol=MESH_GROUPED_ATOL):
+        raise AssertionError(f"mesh hybrid: losses {hyb['losses']}, plain {plain['losses']}")
+    if any(hyb["dropped"]):
+        raise AssertionError(f"mesh hybrid: {hyb['dropped']} rows dropped at a covering cap")
+    auto = _mesh_grouped_run(seed, corpora, mesh, MESH_GROUPED_SHORT, placement="auto")
+    decision = auto["decision"]
+    per_step = {name: run["comm_bytes"] // MESH_GROUPED_SHORT
+                for name, run in (("uniform", plain), ("hybrid", hyb), ("auto", auto))}
+    torch.cuda.empty_cache()
+    return {"steps": MESH_GROUPED_SHORT, "keys": MESH_HYBRID, "hybrid": hyb,
+            "plain_losses": plain["losses"], "plain_step_ms_median": plain["step_ms_median"],
+            "auto": {"decision": decision, "losses": auto["losses"],
+                     "dropped": auto["dropped"], "step_ms_median": auto["step_ms_median"],
+                     "predicted_exchange_bytes_a_substep": decision.get(
+                         "predicted_exchange_bytes"),
+                     "counted_bytes_a_substep": per_step["auto"] / spc},
+            "bytes_a_step": per_step, "seconds": time.monotonic() - t0}
+
+
+def _mesh_ctr_layouts(seed: int, mesh) -> dict:
+    """Leg 1's W&D under each of ``MESH_CTR_LAYOUTS`` (trivial on one rank)
+    ``MESH_CTR_LAYOUT_STEPS`` steps against the uniform meshed run of the
+    same steps (:func:`_ctr_close`; bit equality reported), one ``gather_rows`` and one
+    ``scatter_adagrad_fused_rows`` a step (the hybrid tail's), the counted
+    bytes ``step_cost``'s."""
+    from swiftsnails_tpu_torch.utils.tree import tensor_items
+
+    t0 = time.monotonic()
+    data, _ = _ctr_data(seed)
+    base = _mesh_ctr_run(seed, data, mesh, MESH_CTR_LAYOUT_STEPS)
+    want = dict(tensor_items(base["state"]))
+    out = {"steps": MESH_CTR_LAYOUT_STEPS}
+    for name, keys in MESH_CTR_LAYOUTS.items():
+        run = _mesh_ctr_run(seed, data, mesh, MESH_CTR_LAYOUT_STEPS, **keys)
+        got = dict(tensor_items(run["state"]))
+        close = _ctr_close(f"mesh widedeep {name}", got, want, MESH_CTR_LAYOUT_STEPS)
+        _check_launches(f"mesh widedeep {name}", run["launches"],
+                        {k: n * MESH_CTR_LAYOUT_STEPS for k, n in MESH_CTR_LAUNCHES.items()})
+        tr = run["trainer"]
+        step_bytes = tr.step_cost(next(iter(tr.batches())))["total_bytes"]
+        if run["comm_bytes"] != MESH_CTR_LAYOUT_STEPS * step_bytes:
+            raise AssertionError(f"mesh widedeep {name}: {run['comm_bytes']} bytes counted, "
+                                 f"step_cost {MESH_CTR_LAYOUT_STEPS} x {step_bytes}")
+        out[name] = {"keys": keys, **close,
+                     "launches": {k: run["launches"][k] for k in MESH_CTR_LAUNCHES},
+                     "bytes_a_step": step_bytes, "step_ms_median": run["step_ms_median"],
+                     "placement": tr.placement_decision}
+        del run, got
+    out["uniform_bytes_a_step"] = base["comm_bytes"] // MESH_CTR_LAYOUT_STEPS
+    out["uniform_step_ms_median"] = base["step_ms_median"]
+    out["seconds"] = time.monotonic() - t0
+    del base, want
     torch.cuda.empty_cache()
     return out
 
@@ -5865,18 +6187,25 @@ def phase_mesh(seed: int, corpora, env: dict) -> dict:
             t_grouped = time.monotonic()
             grouped = _mesh_grouped_leg(seed, corpora, mesh)
             grouped["seconds"] = time.monotonic() - t_grouped
+            hybrid = _mesh_hybrid_leg(seed, corpora, mesh)
             ctr = _mesh_ctr_nccl_leg(seed, mesh, tmp)
+            ctr_layouts = _mesh_ctr_layouts(seed, mesh)
             wire = _mesh_wire_leg(seed, corpora, mesh)
             gloo = _mesh_gloo_leg(seed, tmp, mesh)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seconds = time.monotonic() - t_phase
-    emit("mesh", nccl=nccl, grouped=grouped, ctr=ctr, wire=wire, gloo=gloo, seconds=seconds,
-         device=env["device"], nvidia_smi=env["nvidia_smi"])
+    emit("mesh", nccl=nccl, grouped=grouped, hybrid=hybrid, ctr=ctr, ctr_layouts=ctr_layouts,
+         wire=wire, gloo=gloo, seconds=seconds, device=env["device"],
+         nvidia_smi=env["nvidia_smi"])
     return {"launches": nccl["train"]["launches"],
             "grouped_launches": grouped["plain"]["launches"],
             "ctr_launches": ctr["launches"],
-            "gloo_ctr_launches": gloo["widedeep"]["launches_by_rank"], "seconds": seconds}
+            "gloo_ctr_launches": gloo["widedeep"]["launches_by_rank"],
+            "hybrid_launches": {**hybrid["hybrid"]["launches"],
+                                **{f"ctr_{k}": n for k, n
+                                   in ctr_layouts["hybrid"]["launches"].items()}},
+            "seconds": seconds}
 
 
 def phase_mesh_grouped_kernels(seed: int, corpora, rate: float) -> dict:
@@ -5927,6 +6256,133 @@ def phase_mesh_grouped_kernels(seed: int, corpora, rate: float) -> dict:
         del deltas
     del table
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_hybrid_kernels(seed: int, corpora, rate: float) -> dict:
+    """The row kernels at the hybrid tail's shapes (``kernel`` lines, ``path:
+    "mesh_hybrid"``), bit-equal to plain, timed beside it and
+    ``index_select`` / ``index_add_``, against the byte bound: on leg 1's
+    grouped plane (``MESH_HYBRID``: the head ``HOT_ROWS`` rows, the tail
+    ``[VOCAB - HOT_ROWS, 2, 128]`` at a cap of ``MESH_GROUPED_COVER``
+    rows) a step's tail pulls (``gather_rows`` of each table's unique tail
+    list, its padding reading row 0 as the shard-local pull does) and
+    pushes (``scatter_add_rows`` of the listed rows, padded with the padding
+    id); on W&D with ``placement: hybrid`` (the head 1,024 rows, 256
+    tiles) the tail's ``gather_rows`` of a step's tiles and its
+    ``scatter_adagrad_fused_rows`` of them merged."""
+    from swiftsnails_tpu_torch.data.ctr import ctr_batches
+    from swiftsnails_tpu_torch.ops import rowdma
+    from swiftsnails_tpu_torch.ops.hashing import hash_row
+    from swiftsnails_tpu_torch.parallel.store import merge_small_rows, small_group
+
+    dev = torch.device("cuda")
+    cut, cap = HOT_ROWS, MESH_GROUPED_COVER
+    tail_rows = VOCAB - cut
+    trainer, _, _ = _train_loop(MESH_GROUPED, seed, corpora)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = next(iter(trainer.batches()))
+    centers = torch.from_numpy(batch["centers"]).to(dev).reshape(FUSED_STEPS_PER_CALL, -1)
+    ctxs = torch.from_numpy(batch["contexts"]).to(dev).reshape(FUSED_STEPS_PER_CALL,
+                                                               GROUPED_BATCH, CW)
+    sets = {"gather_in": [], "gather_out": [], "scatter_in": [], "scatter_out": []}
+    valid = {"scatter_in": [], "scatter_out": []}
+    for c, x in zip(centers, ctxs):
+        pools = trainer._grouped_pools(gen, GROUPED_BATCH, None).reshape(-1)
+        for side, rows in (("in", c), ("out", torch.cat([x[x >= 0], pools]))):
+            uniq = torch.unique(rows[rows >= cut] - cut).to(torch.int32)
+            pad = cap - uniq.numel()
+            sets[f"gather_{side}"].append(torch.cat([uniq, uniq.new_zeros(pad)]))
+            sets[f"scatter_{side}"].append(torch.cat([uniq, uniq.new_full((pad,), tail_rows)]))
+            valid[f"scatter_{side}"].append(int(uniq.numel()))
+    del trainer
+    shape = (tail_rows, -(-DIM // 128), 128)
+    table = torch.randn(shape, generator=gen, device=dev)
+    out = {}
+    for key in ("gather_in", "gather_out"):
+        case = _gather_case(table, sets[key], rate)
+        out[key] = {"shape": [cap, *shape[1:]], **case}
+        emit("kernel", name="gather_rows", dtype="torch.float32", path="mesh_hybrid",
+             rows=cap, tail_rows=int(valid[key.replace("gather", "scatter")][0]), **case)
+    for key in ("scatter_in", "scatter_out"):
+        deltas = [torch.randn((cap, *shape[1:]), generator=gen, device=dev).mul_(1e-3)
+                  for _ in sets[key]]
+        case = _scatter_case(table, sets[key], deltas, valid[key], rate)
+        out[key] = {"shape": [cap, *shape[1:]], **case}
+        emit("kernel", name="scatter_add_rows", dtype="torch.float32", path="mesh_hybrid",
+             rows=cap, **case)
+        del deltas
+    del table
+    torch.cuda.empty_cache()
+    # W&D's hashed table: its default hybrid head (min(1024, capacity / 2)
+    # rows, a whole number of tiles on one model shard)
+    cfg = _widedeep_config(seed)
+    dim, capacity = 1 + cfg.get_int("embed_dim"), cfg.get_int("capacity")
+    lr, g = cfg.get_float("learning_rate"), small_group(1 + cfg.get_int("embed_dim"))
+    head_tiles = min(1024, capacity // 2) // g
+    tail_tiles = capacity // g - head_tiles
+    (labels, feats), _ = _ctr_data(seed)
+    batches = ctr_batches(labels, feats, cfg.get_int("batch_size"), np.random.default_rng(seed))
+    tile_sets, merged_sets = [], []
+    for _, b in zip(range(CTR_ROW_SETS), batches):
+        rows = hash_row(torch.from_numpy(b["feats"]).to(dev).clamp_min(0), capacity).reshape(-1)
+        tail = rows - head_tiles * g
+        owned = tail >= 0
+        tile_sets.append(torch.where(owned, tail // g, 0))  # the tail pull's tiles
+        grads = torch.randn(rows.shape[0], dim, generator=gen, device=dev).mul_(0.01)
+        t_rows = torch.where(owned, tail, tail_tiles * g)  # head rows: padding
+        uniq, merged = merge_small_rows(t_rows, grads, dim, tail_tiles)
+        n_valid = int((uniq < tail_tiles).sum())
+        merged_sets.append((uniq, merged, uniq[:n_valid].long(), n_valid))
+    live = (torch.arange(128, device=dev) % (128 // g)) < dim
+    fused = torch.cat([torch.randn(tail_tiles, 1, 128, generator=gen, device=dev).mul_(0.01),
+                       torch.rand(tail_tiles, 1, 128, generator=gen, device=dev).mul_(0.1)],
+                      dim=1).mul_(live)
+    pull = _gather_case(fused, tile_sets, rate)
+    out["gather_widedeep"] = {"shape": [int(tile_sets[0].numel()), *fused.shape[1:]], **pull}
+    emit("kernel", name="gather_rows", dtype="torch.float32", path="mesh_hybrid_ctr",
+         rows=int(tile_sets[0].numel()), **pull)
+    n_valid, n_ids = merged_sets[0][3], merged_sets[0][0].numel()
+    # param and accumulator read and written, the gradient read: 5 sublanes
+    # a unique tile; the ids read once
+    nbytes = n_valid * 5 * 128 * 4 + n_ids * 4
+    case = _push_case(
+        lambda b, u, v: (rowdma.scatter_adagrad_fused_rows(b[0], u, v, lr),),
+        lambda b, u, v: (rowdma.scatter_adagrad_fused_rows_plain(b[0], u, v, lr),),
+        [fused], merged_sets, None, nbytes, n_valid, rate)
+    out["scatter_adagrad_fused_rows"] = {"shape": list(fused.shape), **case}
+    emit("kernel", name="scatter_adagrad_fused_rows", dtype="torch.float32",
+         path="mesh_hybrid_ctr", **case)
+    del fused
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_hybrid_kernel_entries(cases: dict, mesh: dict) -> list:
+    """The ``kernels`` line's ``path: "mesh_hybrid"`` entries: the hybrid
+    tail's pulls and pushes on leg 1's grouped plane and W&D, with the
+    launches of leg 1's hybrid runs."""
+    launches = mesh["hybrid_launches"]
+    out = []
+    for key, name, replaces, counted in (
+            ("gather_in", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114", "gather_rows"),
+            ("gather_out", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114", "gather_rows"),
+            ("scatter_in", "scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213",
+             "scatter_add_rows"),
+            ("scatter_out", "scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213",
+             "scatter_add_rows"),
+            ("gather_widedeep", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114",
+             "ctr_gather_rows"),
+            ("scatter_adagrad_fused_rows", "scatter_adagrad_fused_rows",
+             "swiftsnails_tpu/ops/rowdma.py:552", "ctr_scatter_adagrad_fused_rows")):
+        s = cases[key]
+        out.append({
+            "name": name, "route": "cuda", "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": replaces, "launches": launches[counted],
+            "max_abs_err": s["max_abs_err"], "ms": s.get("kernel_ms", s.get("ms")),
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": "bytes",
+            "library_ms": s["library_ms"], "shape": s["shape"], "dtype": "float32",
+            "path": "mesh_hybrid_ctr" if counted.startswith("ctr_") else "mesh_hybrid"})
     return out
 
 
@@ -5997,9 +6453,11 @@ def _only_mesh(seed: int, env: dict, t_start: float) -> int:
     corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
     mesh = phase_mesh(seed, corpora, env)
     cases = phase_mesh_grouped_kernels(seed, corpora, env["mem_rate_Bps"])
+    hybrid = phase_mesh_hybrid_kernels(seed, corpora, env["mem_rate_Bps"])
     emit("kernels", kernels=_mesh_kernel_entries(summary, mesh)
          + _mesh_grouped_kernel_entries(cases, mesh)
-         + _mesh_ctr_kernel_entries(summary, mesh))
+         + _mesh_ctr_kernel_entries(summary, mesh)
+         + _mesh_hybrid_kernel_entries(hybrid, mesh))
     emit("total", seconds=time.monotonic() - t_start)
     return 0
 
@@ -6158,6 +6616,7 @@ def main() -> int:
     phase_seqlm(args.seed, env)
     mesh = phase_mesh(args.seed, corpora, env)
     mesh_grouped = phase_mesh_grouped_kernels(args.seed, corpora, env["mem_rate_Bps"])
+    mesh_hybrid = phase_mesh_hybrid_kernels(args.seed, corpora, env["mem_rate_Bps"])
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
@@ -6244,6 +6703,7 @@ def main() -> int:
     kernels.extend(_mesh_kernel_entries(summary, mesh))
     kernels.extend(_mesh_grouped_kernel_entries(mesh_grouped, mesh))
     kernels.extend(_mesh_ctr_kernel_entries(summary, mesh))
+    kernels.extend(_mesh_hybrid_kernel_entries(mesh_hybrid, mesh))
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),
                            ("chunk_probe", "tools/sem_probe.py:164"),
                            ("pipe_probe", "tools/sem_probe.py:233")):

@@ -438,6 +438,9 @@ def save_checkpoint(
     ledger=None,
     tier=None,
     mesh=None,
+    placement=None,
+    zero=None,
+    dense_tp=None,
 ) -> str:
     """Write a checkpoint of ``state`` for ``step`` under ``root``, committed
     by a checksum manifest; returns the step directory.
@@ -463,8 +466,22 @@ def save_checkpoint(
 
     ``mesh``: ``state`` is this rank's part of a state sharded over it;
     every rank calls this, and the save is synchronous (module docstring).
+
+    ``zero``, ``placement`` and ``dense_tp`` (a
+    :class:`~swiftsnails_tpu_torch.parallel.zero.ZeroManager`, a
+    :class:`~swiftsnails_tpu_torch.parallel.placement.PlacementManager`, the
+    trainer's ``dense_tp_manager()``) undo their layouts first, in that
+    order, into new tensors: the optimizer planes' ``1 / data`` slices
+    gathered whole, the hybrid head and tail merged into the uniform
+    layout, the dense tensors' model slices gathered whole. On disk such a
+    run is an unsharded uniform run, array for array and CRC for CRC, so
+    restore needs none of them (the loop adopts the layouts again after
+    it). Each is a collective: every rank calls this.
     """
     global _writer
+    for layout in (zero, placement, dense_tp):
+        if layout is not None:
+            state = layout.master_state(state)
     if mesh is not None:
         _join_writer()
         entry = {"root": root, "path": _step_dir(root, step), "step": int(step),

@@ -37,8 +37,7 @@ With telemetry on, the ``step`` span ends after the device's current
 stream has synchronized, so it holds the step's device time; with it off
 the loop never waits for the card inside a step.
 
-Every loop key of the JAX package is ported; the table-plane keys that
-are not raise ``NotImplementedError`` (:data:`UNPORTED_PLANE_KEYS`).
+Every loop key and table-plane key of the JAX package is ported.
 
 Under a mesh (a trainer whose :attr:`Trainer.mesh` is set) every rank makes
 the same global batch and feeds its part (:meth:`Trainer.local_batch`, the
@@ -47,9 +46,19 @@ on every rank. Checkpoints and resume work there: every rank saves and
 restores its shards together (``framework/checkpoint.py``, synchronous
 under a mesh), and a ``chaos_spec`` ``preempt@N`` drains every rank at
 step N with a final save; a SIGTERM is each process's own, and only the
-ranks it reaches drain. The guardrail, the tier, freshness and cluster
-membership raise ``NotImplementedError`` there (``ROADMAP.md`` Queue 1
-item 6).
+ranks it reaches drain. Under a mesh the loop adopts three layouts after
+the resume and undoes them (``master_state``) before each save and at the
+end of the run, so checkpoints and the returned state are an unsharded,
+uniform run's: ``dense_tp: 1``'s model slices of the dense tensors
+(:meth:`Trainer.dense_tp_manager`), ``placement: hybrid|auto``'s head/tail
+split (:mod:`swiftsnails_tpu_torch.parallel.placement`) and
+``optimizer_sharding: zero``'s ``1 / data`` slices of the optimizer planes
+(:mod:`swiftsnails_tpu_torch.parallel.zero`); the run record carries the
+``placement`` decision and the ``zero`` summary. The guardrail, the tier,
+freshness and cluster membership raise ``NotImplementedError`` there
+(``ROADMAP.md`` Queue 1 item 6, slices 5 and 6; so do the JAX publisher's
+refusal of a hybrid table and the tier's uniform fallback, which come with
+them).
 """
 
 from __future__ import annotations
@@ -112,11 +121,15 @@ class Trainer:
     mesh = None
 
     def __init__(self, config: Config, device: DeviceLike = None):
+        from swiftsnails_tpu_torch.parallel.zero import resolve_optimizer_sharding
+
         self.config = config
         self.device = resolve_device(device)
-        sharding = config.get_str("optimizer_sharding", "none")
-        if sharding != "none":
-            _unported("optimizer_sharding", sharding)
+        # optimizer_sharding: zero -> the weight update of every plane the
+        # data replicas hold alike, sharded over the data axis
+        # (parallel/zero.py; a mesh's only)
+        self.optimizer_sharding = resolve_optimizer_sharding(
+            config.get_str("optimizer_sharding", "none"))
 
     # -- subclass API ------------------------------------------------------
 
@@ -210,6 +223,36 @@ class Trainer:
         row geometry. ``None`` (default) disables delta publishing."""
         return None
 
+    # -- hybrid placement (placement: hybrid|auto; parallel/hybrid.py) -----
+
+    def placement_spec(self) -> Optional[Dict[str, Dict]]:
+        """``{table_name: {"cut": K, "group": G}}``, the head/tail split of
+        each table (names as :meth:`tier_tables`'); ``None`` or empty:
+        uniform placement, and the loop pays nothing."""
+        return None
+
+    # -- ZeRO (optimizer_sharding: zero; parallel/zero.py) ------------------
+
+    def zero_planes(self, state: Any) -> Any:
+        """The dense optimizer planes of ``state`` (a dict of tensors) whose
+        shardable ones ``ZeroManager`` shards over the data axis; ``None``
+        (default): the trainer has none (a hybrid head's slot planes are
+        found through :meth:`tier_tables`)."""
+        return None
+
+    def zero_with_planes(self, state: Any, planes: Any) -> Any:
+        """``state`` with its optimizer planes replaced."""
+        return state
+
+    # -- the tensor-parallel dense side (dense_tp: 1) ---------------------
+
+    def dense_tp_manager(self):
+        """An object with ``adopt`` / ``master_state`` that cuts the dense
+        tensors into this rank's ``model`` slices after init and restore,
+        and gathers them whole for checkpoints and the end of a run;
+        ``None`` (default): the dense side is whole on every rank."""
+        return None
+
     def step_cost(self, batch: Dict[str, np.ndarray]) -> Optional[Dict]:
         """One step's work on ``batch`` (a host batch), for the goodput
         block: ``{"cost": {"flops", "bytes_accessed"}, "total_bytes": None,
@@ -219,12 +262,6 @@ class Trainer:
         the f32 flops. ``None`` where the trainer defines no count: the
         report then carries ``None``, never a guess."""
         return None
-
-
-def _unported(key: str, value) -> None:
-    raise NotImplementedError(
-        f"config key {key}: {value} selects a path the PyTorch port does not "
-        "have yet; see ROADMAP.md Queue 1 item 6 for when it is ported")
 
 
 def mesh_device(mesh, device: DeviceLike = None) -> torch.device:
@@ -342,25 +379,6 @@ def _close_source(it) -> None:
         close()
 
 
-def raise_unported(cfg: Config, keys: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for the first key of ``keys`` (key ->
-    "is it asked for") that ``cfg`` asks for."""
-    for key, asked in keys.items():
-        if key in cfg and asked(cfg, key):
-            _unported(key, cfg.get_str(key))
-
-
-def truthy(cfg: Config, key: str) -> bool:
-    return cfg.get_bool(key, False)
-
-
-# Table-plane keys that the JAX package's trainers read and the port does not
-# have yet, read as the JAX trainers read them: key -> "is it asked for".
-UNPORTED_PLANE_KEYS = {
-    "placement": lambda cfg, key: cfg.get_str(key, "uniform") != "uniform",
-}
-
-
 def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
     """The step's random stream: a generator on ``device`` seeded from
     ``(seed, step)`` through the murmur finalizer — the counterpart of the
@@ -447,9 +465,25 @@ class TrainLoop:
                     cursor=cursor,
                     config_hash=self.config_hash, keep=self.backup_keep,
                     protect=self._restored_step, retry=ckpt_retry, ledger=self.ledger,
-                    tier=self.tier, mesh=trainer.mesh)
+                    tier=self.tier, mesh=trainer.mesh, placement=self.placement,
+                    zero=self.zero, dense_tp=self.dense_tp)
 
             self.checkpoint_fn = checkpoint_fn
+        # the layouts a meshed state takes between adopt (after resume) and
+        # master_state (saves, the end of the run), each None where
+        # inactive: dense_tp: 1's model slices of the dense tensors;
+        # placement: hybrid|auto's head/tail split (parallel/placement.py:
+        # the zipf head replicated, the tail model-sharded; uniform, no mesh,
+        # or a zero cut -> None); optimizer_sharding: zero's 1/data slices of
+        # the optimizer planes (parallel/zero.py)
+        from swiftsnails_tpu_torch.parallel.placement import PlacementManager
+        from swiftsnails_tpu_torch.parallel.zero import ZeroManager
+
+        self.dense_tp = trainer.dense_tp_manager()
+        pm = PlacementManager(trainer, trainer.mesh)
+        self.placement = pm if pm.active else None
+        zm = ZeroManager(trainer, trainer.mesh)
+        self.zero = zm if zm.active else None
         self.profiler = StepProfiler(cfg, self.device)
         # resilience is opt-in per key; off, the step pays flag checks only
         self.guardrail = None
@@ -481,6 +515,7 @@ class TrainLoop:
         # under a mesh, the first step's collective bytes by scope (the JAX
         # loop's audit by_scope), for the run record's comm_by_scope
         self._comm_by_scope: Optional[Dict[str, int]] = None
+        self._comm_total: Optional[int] = None
         # table_tier: host -> the tiered parameter store (tiered/): full-size
         # masters in host RAM, fixed-budget cache planes on the card in the
         # state, a per-step fault + id remap before the step. `device`
@@ -603,6 +638,17 @@ class TrainLoop:
             # `state` carries the small cache planes until master_state() at
             # the end, and the full-size planes are freed
             state = tier.adopt(state)
+        if self.dense_tp is not None:
+            # whole dense tensors -> this rank's model slices
+            state = self.dense_tp.adopt(state)
+        if self.placement is not None:
+            # uniform layout -> head/tail planes; after the resume, so a
+            # uniform checkpoint restores into a hybrid run
+            state = self.placement.adopt(state)
+        if self.zero is not None:
+            # whole optimizer planes -> this rank's 1/data slices; after the
+            # split, so the head's slot planes exist to shard
+            state = self.zero.adopt(state)
         fresh = self.freshness
         if fresh is not None:
             # one publisher incarnation per run, based on the resumed step;
@@ -747,6 +793,7 @@ class TrainLoop:
                             if trainer.mesh is not None and self._comm_by_scope is None:
                                 report = audit_step(run)
                                 self._comm_by_scope = report["by_scope"]
+                                self._comm_total = report["total_bytes"]
                                 state, last_metrics = report["result"]
                             else:
                                 state, last_metrics = run()
@@ -843,6 +890,11 @@ class TrainLoop:
             # state's type, shapes and dtypes, on the host: export and eval
             # route by the tables' device)
             state = tier.master_state(state)
+        # the layouts undone in reverse: the caller (export, eval, serving)
+        # sees the state an unsharded, uniform run returns
+        for layout in (self.zero, self.placement, self.dense_tp):
+            if layout is not None:
+                state = layout.master_state(state)
         host = {}
         if step % max(self.log_every, 1) != 0 or not self.log_every:
             host = {k: float(v) for k, v in last_metrics.items()}
@@ -1143,6 +1195,18 @@ class TrainLoop:
                     record["chaos"] = self.chaos.summary()
                 if self.tier is not None:
                     record["tiered"] = self.tier.summary()
+                placement_decision = getattr(self.trainer, "placement_decision", None)
+                if placement_decision:
+                    # the cut decision or the uniform fallback's reason, and
+                    # the first step's counted bytes beside the prediction
+                    pl = dict(placement_decision)
+                    if self._comm_total is not None:
+                        pl["measured_exchange_bytes"] = self._comm_total
+                    record["placement"] = pl
+                if self.zero is not None and self.zero.summary():
+                    # planes sharded, replicated against sharded bytes a
+                    # replica, the reduction
+                    record["zero"] = self.zero.summary()
                 if self.preempted:
                     record["preempted"] = True
                 self.ledger.append("run", record, env=env_fingerprint(include_devices=True))

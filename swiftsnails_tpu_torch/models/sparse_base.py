@@ -56,15 +56,28 @@ small-row plane's collectives under a mesh, :mod:`swiftsnails_tpu_torch.parallel
 the push dithers with seed 0 salted by the data index, the same every
 step, as the JAX trainer's does; the 2-D plane and one device keep f32).
 ``shard_data`` changes nothing on one process, and under a mesh every rank
-reads the whole data (every rank makes the same global batch). Keys that
-select a path the port does not have yet raise ``NotImplementedError``
-(see :data:`UNPORTED`); ``ROADMAP.md`` says when each is ported.
+reads the whole data (every rank makes the same global batch).
+
+``placement: hybrid`` under a mesh splits the table at
+``placement_head_rows`` (:meth:`_init_placement`): the head whole on every
+rank (a local pull, a dense reduce over ``data`` a push: the fused
+small-row AdaGrad on the packed plane, the per-sample one on the 2-D
+plane), the tail model-sharded through the plane's collectives
+(:mod:`swiftsnails_tpu_torch.parallel.hybrid`); ``auto`` stays uniform
+(hashed ids carry no frequency order). ``optimizer_sharding: zero`` under
+a mesh keeps a ``1 / data`` slice of each dense tensor's AdaGrad sums (and
+of the head's slot planes) on each rank: the step reduce-scatters those
+tensors' gradients, updates its slice and all-gathers the parameters
+(:meth:`_zero_update`), bit for bit the replicated update on a data axis
+of 2, where the two sums add the same two terms. ``dense_tp`` is Wide &
+Deep's (``models/widedeep.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import math
 from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -73,18 +86,22 @@ import torch
 from swiftsnails_tpu_torch.data.ctr import ctr_batches, iter_ctr_chunks, read_ctr
 from swiftsnails_tpu_torch.data.text import byte_span
 from swiftsnails_tpu_torch.framework.trainer import (
-    UNPORTED_PLANE_KEYS,
     Trainer,
     mesh_device,
-    raise_unported,
-    truthy,
 )
 from swiftsnails_tpu_torch.ops.hashing import hash_row, hash_row_np
 from swiftsnails_tpu_torch.ops.rowdma import ROW_LANES
-from swiftsnails_tpu_torch.parallel import transfer
-from swiftsnails_tpu_torch.parallel.comm import apply_int4_block, resolve_comm_dtype
+from swiftsnails_tpu_torch.parallel import hybrid, transfer
+from swiftsnails_tpu_torch.parallel.comm import (
+    all_gather,
+    apply_int4_block,
+    reduce_scatter_quantized,
+    resolve_comm_dtype,
+    scope,
+)
 from swiftsnails_tpu_torch.parallel.access import AdaGradAccess, SgdAccess
 from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, rows_per_shard
+from swiftsnails_tpu_torch.parallel.zero import zero_plane_spec
 from swiftsnails_tpu_torch.parallel.store import (
     PackedTableState,
     create_packed_small_table,
@@ -173,9 +190,6 @@ class DenseAdaGrad:
         return new_dense, {"sum_of_squares": sums}
 
 
-# Keys of the JAX trainers that select a path the port does not have yet:
-# key -> "is it asked for". Each raises NotImplementedError when asked for.
-UNPORTED = {**UNPORTED_PLANE_KEYS, "dense_tp": truthy}
 
 
 class SparseCTRTrainer(Trainer):
@@ -199,7 +213,6 @@ class SparseCTRTrainer(Trainer):
         super().__init__(config, device)
         self.mesh = mesh
         cfg = config
-        raise_unported(cfg, UNPORTED)
         self.num_fields = cfg.get_int("num_fields")
         self.capacity = cfg.get_int("capacity", 1 << 20)
         # the small-row packed plane holds rows of at most one 128-lane tile;
@@ -225,6 +238,10 @@ class SparseCTRTrainer(Trainer):
         self.comm_dtype = apply_int4_block(
             resolve_comm_dtype(cfg.get_str("comm_dtype", "float32")),
             cfg.get_int("comm_int4_block", 0))
+        # optimizer_sharding: zero -> the dense AdaGrad sums (ZeroManager's
+        # planes) and the hybrid head's slot planes sharded over data; the
+        # step reduce-scatters their gradients (parallel/zero.py)
+        self.zero = self.optimizer_sharding == "zero" and mesh is not None
         self.lr = cfg.get_float("learning_rate", 0.05)
         self.dense_lr = cfg.get_float("dense_learning_rate", self.lr)
         self.epochs = cfg.get_int("num_iters", 1)
@@ -233,6 +250,10 @@ class SparseCTRTrainer(Trainer):
         # table_tier: host -> the tiered parameter store: the step's rows
         # are hashed on the host and remapped to cache slots before it
         self.tiered = cfg.get_str("table_tier", "device") == "host"
+        # placement: uniform|hybrid|auto -> the head/tail split of the
+        # hashed table (parallel/hybrid.py); hashed ids carry no frequency
+        # order, so auto resolves to uniform
+        self._init_placement(cfg)
         opt_name = cfg.get_str("optimizer", "adagrad")
         self.access = {"sgd": SgdAccess(), "adagrad": AdaGradAccess()}[opt_name]
         self.dense_opt = (DenseAdaGrad(self.dense_lr) if opt_name == "adagrad"
@@ -257,6 +278,97 @@ class SparseCTRTrainer(Trainer):
             self.labels, self.feats = read_ctr(self._data_path, self.num_fields,
                                                use_native=self.use_native)
 
+    # -- placement (the hybrid head/tail split; parallel/hybrid.py) ---------
+
+    def _init_placement(self, cfg: Config) -> None:
+        """The JAX trainer's ``_init_placement``: ``placement: hybrid`` under
+        a mesh replicates the first ``placement_head_rows`` hash slots
+        (default ``min(1024, capacity / 2)``), aligned down to a tile a model
+        shard on the small-row plane (to the model axis on the 2-D one), and
+        to the data axis too under zero; no mesh, the tier, ``auto`` and a
+        cut of 0 resolve to uniform with a ``reason``."""
+        from swiftsnails_tpu_torch.parallel.placement import resolve_placement
+
+        mode = resolve_placement(cfg.get_str("placement", "uniform"))
+        self.placement_cut = 0
+        self.placement_decision = None
+        if mode == "uniform":
+            return
+        log = logging.getLogger(__name__)
+
+        def resolve_uniform(reason: str) -> None:
+            log.warning("placement: %s requested but %s; staying uniform", mode, reason)
+            self.placement_decision = {"mode": "uniform", "requested": mode, "cut": 0,
+                                       "replicated_rows": 0, "reason": reason}
+
+        if self.mesh is None:
+            return resolve_uniform("no mesh (single device is already local)")
+        if self.tiered:
+            return resolve_uniform("table_tier: host already caches the hot head")
+        if mode == "auto":
+            return resolve_uniform("hashed row ids carry no frequency order")
+        model = self.mesh.axis_size(MODEL_AXIS)
+        g = small_group(self.table_dim) if self.packed else 1
+        align = g * model  # head tiles on tile-granular model ownership
+        if self.zero:
+            # the ZeRO head push updates a 1/data slice a replica
+            align = math.lcm(align, g * self._data())
+        cut = cfg.get_int("placement_head_rows", 0) or min(1024, self.capacity // 2)
+        cut = min(int(cut), self.capacity // 2)
+        cut -= cut % align
+        if cut <= 0:
+            return resolve_uniform(f"head cut rounds to 0 at alignment {align}")
+        self.placement_cut = cut
+        self.placement_decision = {"mode": "hybrid", "requested": mode, "cut": cut,
+                                   "replicated_rows": cut, "coverage": 0.0}
+        log.info("placement: hybrid head cut=%d (align %d) on hashed table", cut, align)
+
+    def placement_spec(self):
+        """The table's split for ``PlacementManager`` (``None``: uniform)."""
+        if not self.placement_cut:
+            return None
+        g = small_group(self.table_dim) if self.packed else 1
+        return {"table": {"cut": self.placement_cut, "group": g}}
+
+    # -- ZeRO (optimizer_sharding: zero; parallel/zero.py) -------------------
+
+    def zero_planes(self, state: CTRState):
+        return state.opt
+
+    def zero_with_planes(self, state: CTRState, planes):
+        return CTRState(table=state.table, dense=state.dense, opt=planes)
+
+    def _zero_keys(self, state: CTRState):
+        """The dense tensors whose AdaGrad sums this rank holds a ``1 /
+        data`` slice of (``ZeroManager.adopt``): their leading dims differ."""
+        if not self.zero or not state.opt:
+            return []
+        sums = state.opt["sum_of_squares"]
+        return [k for k, p in state.dense.items()
+                if p.dim() and sums[k].shape[0] != p.shape[0]]
+
+    def _zero_update(self, state: CTRState, keys, grads: Dense) -> Tuple[Dense, Dict]:
+        """ZeRO's dense update of ``keys``: their gradients reduce-scattered
+        over ``data`` (each tensor's leading rows, one all-to-all for all of
+        them, added in rank order), this rank's slice of each updated with
+        its slice of the AdaGrad sums, the parameter slices all-gathered
+        (one gather). Returns the new whole tensors and the sums' slices."""
+        d, i = self._data(), self.mesh.axis_index(DATA_AXIS)
+        with scope("ssn_zero_dense_update"):
+            flat = torch.cat([grads[k].reshape(d, -1) for k in keys], dim=1)
+            own = reduce_scatter_quantized(self.mesh, flat, DATA_AXIS, "float32")[0]
+            sizes = [grads[k].numel() // d for k in keys]
+            g = {k: part.reshape((-1,) + tuple(grads[k].shape[1:]))
+                 for k, part in zip(keys, own.split(sizes))}
+            p = {k: state.dense[k].reshape(d, -1)[i].reshape(g[k].shape) for k in keys}
+            sums = {"sum_of_squares": {k: state.opt["sum_of_squares"][k] for k in keys}}
+            new_p, new_sums = self.dense_opt.update(g, sums, p)
+            whole = all_gather(self.mesh, torch.cat([new_p[k].reshape(1, -1) for k in keys],
+                                                    dim=1), DATA_AXIS)
+        out = {k: part.reshape(state.dense[k].shape)
+               for k, part in zip(keys, whole.split(sizes, dim=1))}
+        return out, new_sums["sum_of_squares"]
+
     # -- subclass API ------------------------------------------------------
 
     @property
@@ -277,6 +389,16 @@ class SparseCTRTrainer(Trainer):
     def dense_size(self) -> int:
         """Values in the dense tensors (:meth:`init_dense`): the bias."""
         return 1
+
+    def dense_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Each dense tensor's shape as this rank holds it in a step (under
+        ``dense_tp`` its model slice): the bias."""
+        return {"bias": ()}
+
+    def dense_collective_bytes(self, b: int) -> int:
+        """Wire bytes of the dense side's own collectives in a step of ``b``
+        records on this rank (``dense_tp``'s): none."""
+        return 0
 
     # -- framework ---------------------------------------------------------
 
@@ -305,6 +427,12 @@ class SparseCTRTrainer(Trainer):
         launch; 2-D: ``index_select``), under a mesh through the plane's
         pull collective (a collective over ``model``)."""
         if self.mesh is not None:
+            if hybrid.is_hybrid(table):  # the JAX hybrid twins take the wire
+                if self.packed:
+                    return hybrid.pull_hybrid_packed_small(self.mesh, table, rows,
+                                                           self.table_dim,
+                                                           comm_dtype=self.comm_dtype)
+                return hybrid.pull_hybrid(self.mesh, table, rows, comm_dtype=self.comm_dtype)
             if self.packed:
                 return transfer.pull_collective_packed_small(self.mesh, table, rows,
                                                              self.table_dim,
@@ -320,6 +448,13 @@ class SparseCTRTrainer(Trainer):
         row-kernel launch; 2-D: the rule's sort-free ``scatter_update``),
         under a mesh through the plane's push collective."""
         if self.mesh is not None:
+            if hybrid.is_hybrid(table):
+                if self.packed:
+                    return hybrid.push_hybrid_packed_small(
+                        self.mesh, table, rows, grads, self.access, lr, self.table_dim,
+                        comm_dtype=self.comm_dtype, zero=self.zero)
+                return hybrid.push_hybrid(self.mesh, table, rows, grads, self.access, lr,
+                                          comm_dtype=self.comm_dtype, zero=self.zero)
             if self.packed:
                 # no seed: the JAX trainer's push dithers with seed 0 salted
                 # by the data index, the same every step
@@ -402,13 +537,29 @@ class SparseCTRTrainer(Trainer):
         self._push_rows(state.table, rows, dp.reshape(-1, self.table_dim), self.lr)
         logits, loss = logits.detach(), loss.detach()
         acc = ((logits > 0) == (labels > 0.5)).float().mean()
+        grads = dict(zip(dense, dd))
+        sharded = self._zero_keys(state)
         if self.mesh is not None:
             if data > 1:
                 acc = acc * (1.0 / data)
-            loss, acc, dd = self._sum_over_data(loss, acc, dd)
-        if state.dense:
-            new_dense, opt = self.dense_opt.update(dict(zip(dense, dd)), state.opt,
-                                                   state.dense)
+            # ZeRO's tensors reduce-scatter their gradients (_zero_update);
+            # the rest sum with the loss and the accuracy in one all-reduce
+            rest = [k for k in grads if k not in sharded]
+            loss, acc, summed = self._sum_over_data(loss, acc, [grads[k] for k in rest])
+            grads.update(zip(rest, summed))
+        if sharded:
+            rest = [k for k in grads if k not in sharded]
+            new_dense, sums = self._zero_update(state, sharded, grads)
+            part, opt = self.dense_opt.update(
+                {k: grads[k] for k in rest},
+                {"sum_of_squares": {k: state.opt["sum_of_squares"][k] for k in rest}},
+                {k: state.dense[k] for k in rest})
+            new_dense.update(part)
+            sums.update(opt["sum_of_squares"])
+            new_dense = {k: new_dense[k] for k in state.dense}
+            opt = {"sum_of_squares": {k: sums[k] for k in state.dense}}
+        elif state.dense:
+            new_dense, opt = self.dense_opt.update(grads, state.opt, state.dense)
         else:
             new_dense, opt = state.dense, state.opt
         return CTRState(state.table, new_dense, opt), {"loss": loss, "accuracy": acc}
@@ -450,10 +601,28 @@ class SparseCTRTrainer(Trainer):
         if self.mesh is not None:
             d = self._data()
             n = b // d * f
-            wire = self.comm_dtype if self.packed else "float32"
+            hyb = bool(self.placement_cut)
+            # the 2-D plane's uniform collectives are f32; its hybrid twins
+            # take the wire, as the JAX trainer's do
+            wire = self.comm_dtype if (self.packed or hyb) else "float32"
             total = (transfer.pull_bytes(n, self.table_dim, 4, wire)
                      + transfer.push_bytes(n, self.table_dim, d, comm_dtype=wire)
-                     + 4 * (2 + n_dense))
+                     + self.dense_collective_bytes(b // d))
+            if hyb:  # the head's push
+                g = small_group(self.table_dim) if self.packed else 1
+                row = ROW_LANES if self.packed else self.table_dim
+                fused = self.packed and adagrad  # the tile's sublane 1 its sums
+                per_sample = adagrad and not self.packed
+                total += hybrid.head_push_bytes(
+                    self.placement_cut // g, row, row * (2 if fused else 1), d, wire,
+                    zero=self.zero, reduces=2 if per_sample else 1)
+            # the dense gradients: the ZeRO tensors reduce-scattered and their
+            # parameters gathered, the rest summed with the loss and accuracy
+            shapes = self.dense_shapes()
+            zeroed = {k: int(np.prod(s)) for k, s in shapes.items()
+                      if self.zero and adagrad and d > 1 and zero_plane_spec(s, d)}
+            rest = sum(int(np.prod(s)) for k, s in shapes.items() if k not in zeroed)
+            total += 4 * (2 + rest) + 8 * sum(zeroed.values())
         return {"cost": {"flops": float(flops), "bytes_accessed": float(nbytes)},
                 "total_bytes": total, "source": "analytic"}
 
@@ -502,7 +671,8 @@ class SparseCTRTrainer(Trainer):
         the others wait for ever."""
         feats = torch.from_numpy(np.ascontiguousarray(feats, dtype=np.int32))
         b, f = feats.shape
-        rows = self._rows(feats.to(state.table.table.device)).reshape(-1)
+        table = state.table.head if hybrid.is_hybrid(state.table) else state.table.table
+        rows = self._rows(feats.to(table.device)).reshape(-1)
         pulled = self._pull_rows(state.table, rows).reshape(b, f, self.table_dim)
         dev = next(iter(state.dense.values())).device if state.dense else self.device
         return self.forward(pulled.to(dev), state.dense,

@@ -90,17 +90,30 @@ pushes dithered with one uint32 a substep from the step's generator, or
 ``batch["comm_seeds"]``; the 2-D plane keeps f32, as the JAX trainer's
 does; one device ignores the key),
 ``table_tier`` (``host``: the tiered store, :mod:`swiftsnails_tpu_torch.tiered`,
-on the ``dense``, ``packed`` pool and ``per_pair`` paths).
-Keys that select a path the port does not have yet raise
-``NotImplementedError`` (see
-:data:`~swiftsnails_tpu_torch.framework.trainer.UNPORTED_PLANE_KEYS`);
-``ROADMAP.md`` says when each is ported.
+on the ``dense``, ``packed`` pool and ``per_pair`` paths), ``placement``
+(``uniform``, ``hybrid``, ``auto``) with ``placement_head_rows``,
+``placement_tail_slack``, ``placement_tail_cap`` and
+``placement_calib_bytes``, and ``optimizer_sharding`` (``zero``).
+
+``placement: hybrid|auto`` under a mesh splits both tables at a cut
+(:meth:`_init_placement`; ``auto`` from the vocabulary's CDF): the head
+rows whole on every rank, pulled locally and pushed through one dense
+reduce over ``data``, the tail model-sharded through the dedup collectives
+at :meth:`_hybrid_cap` (:mod:`swiftsnails_tpu_torch.parallel.hybrid`), on
+every plane: the 2-D one (``pull_hybrid``), packed+pool and per-pair, and
+the grouped plane with dedup, bucketed and overlap. Its overflow is the
+``hybrid_dropped`` metric (``dedup_dropped`` / ``push_dropped`` where
+those are on). The loop adopts the split and merges it back
+(``PlacementManager``). ``optimizer_sharding: zero`` makes the head's push
+a reduce-scatter of ``1 / data`` rows a rank and a gather of the updated
+rows (word2vec has no slot planes), bit for bit the replicated update.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import math
 from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -120,11 +133,9 @@ from swiftsnails_tpu_torch.data import native
 from swiftsnails_tpu_torch.data.text import byte_span, encode_corpus, encode_corpus_stream
 from swiftsnails_tpu_torch.data.vocab import Vocab
 from swiftsnails_tpu_torch.framework.trainer import (
-    UNPORTED_PLANE_KEYS,
     Trainer,
     _unported_mesh,
     mesh_device,
-    raise_unported,
     step_generator,
 )
 from swiftsnails_tpu_torch.models.registry import register_model
@@ -138,7 +149,7 @@ from swiftsnails_tpu_torch.ops.fused_sgns import (
 )
 from swiftsnails_tpu_torch.ops.hashing import hash_row, hash_row_np
 from swiftsnails_tpu_torch.ops.rowdma import unpack_rows
-from swiftsnails_tpu_torch.parallel import transfer
+from swiftsnails_tpu_torch.parallel import hybrid, transfer
 from swiftsnails_tpu_torch.parallel.comm import (
     apply_int4_block,
     resolve_comm_dtype,
@@ -247,7 +258,6 @@ class Word2VecTrainer(Trainer):
         super().__init__(config, device)
         self.mesh = mesh
         cfg = config
-        raise_unported(cfg, UNPORTED_PLANE_KEYS)
         self.dim = cfg.get_int("dim", 100)
         self.window = cfg.get_int("window", 5)
         self.negatives = cfg.get_int("negatives", 5)
@@ -404,6 +414,15 @@ class Word2VecTrainer(Trainer):
                     "resident hot_rows=%d rounds to %d effective resident "
                     "rows (clipped to capacity, rounded down to a multiple of "
                     "256, or of 8 below 256)", self.hot_rows, eff)
+        # optimizer_sharding: zero -> word2vec trains SGD (no slot planes),
+        # so zero is a wire change here: the hybrid head's push
+        # reduce-scatters, updates its rows and all-gathers them back (bit
+        # for bit the replicated update at f32)
+        self.zero = self.optimizer_sharding == "zero" and mesh is not None
+        # placement: uniform|hybrid|auto -> the head/tail split of both
+        # tables under a mesh (parallel/hybrid.py); auto picks the cut from
+        # the vocabulary's CDF (parallel/placement.py)
+        self._init_placement(cfg)
         self.grouped_step = self._grouped_step_fn() if self.grouped else None
         self._drops = None  # the dropped counts of a train_step call
 
@@ -425,6 +444,102 @@ class Word2VecTrainer(Trainer):
             return hash_row(keys, self.capacity)
         return keys
 
+    # -- placement (the hybrid head/tail split; parallel/hybrid.py) ---------
+
+    def _init_placement(self, cfg) -> None:
+        """The JAX trainer's ``_init_placement``: ``placement_cut`` (0 for
+        uniform), ``placement_cov`` and the decision the run record carries.
+        Keys: ``placement_head_rows`` (hybrid's cut; default ``min(1024,
+        capacity / 2)``), ``placement_tail_slack``, ``placement_calib_bytes``
+        (auto's measured uniform bytes). The cut is at most half the
+        capacity and aligned down to the model axis (to ``lcm(model,
+        data)`` under zero); no mesh, ``hash_keys`` under auto and a cut
+        of 0 resolve to uniform with a ``reason``."""
+        from swiftsnails_tpu_torch.parallel.placement import choose_cut, resolve_placement
+
+        requested = resolve_placement(cfg.get_str("placement", "uniform"))
+        self.placement = requested
+        self.placement_head_rows = cfg.get_int("placement_head_rows", 0)
+        self.placement_slack = cfg.get_float("placement_tail_slack", 2.0)
+        self.placement_cut = 0
+        self.placement_cov = 0.0
+        self.placement_decision = None
+        if requested == "uniform":
+            return
+        log = logging.getLogger(__name__)
+
+        def resolve_uniform(reason: str) -> None:
+            log.warning("placement: %s requested but %s; running uniform", requested, reason)
+            self.placement = "uniform"
+            self.placement_decision = {"mode": "uniform", "requested": requested, "cut": 0,
+                                       "replicated_rows": 0, "reason": reason}
+
+        if self.mesh is None:
+            return resolve_uniform("no mesh")
+        if self.tiered:
+            return resolve_uniform("table_tier: host already caches the hot head")
+        model, data = self.mesh.axis_size(MODEL_AXIS), self._data()
+        calib = cfg.get_float("placement_calib_bytes", 0.0)
+        decision = {"requested": requested, "measured_uniform_bytes": calib or None}
+        if requested == "auto":
+            if self.hash_keys:
+                return resolve_uniform("hash_keys scrambles frequency ranks (explicit "
+                                       "placement: hybrid still works)")
+            n = self.batch_size
+            if self.packed:
+                pc = self._effective_pc(n)
+                local_slots = max((n * 2 * self.window + (n // pc) * self.pool_size) // data, 1)
+                row_elems = -(-self.dim // 128) * 128
+            else:
+                local_slots = max(n * (1 + self.negatives) // data, 1)
+                row_elems = self.dim
+            decision.update(choose_cut(
+                self.vocab.counts, self.capacity, align=model, local_slots=local_slots,
+                row_elems=row_elems, data=data, slack=self.placement_slack,
+                comm_dtype=self.comm_dtype, measured_uniform_bytes=calib or None))
+            cut = decision["cut"]
+        else:
+            cut = self.placement_head_rows or min(1024, self.capacity // 2)
+        cut = min(int(cut), self.capacity // 2)
+        # under zero the head push updates a 1/data row slice a replica, so
+        # the cut divides by the data axis too
+        align = math.lcm(model, data) if self.zero else model
+        cut -= cut % align
+        if cut <= 0:
+            resolve_uniform("cut resolved to 0 (flat distribution or head smaller than "
+                            "the model axis)")
+            self.placement_decision.update(
+                {k: v for k, v in decision.items() if k != "requested"})
+            return
+        self.placement_cut = cut
+        self.placement_cov = 0.0 if self.hash_keys else self.vocab.coverage_at(cut)
+        decision.update({"mode": "hybrid", "cut": cut,
+                         "replicated_rows": 2 * cut,  # both tables split at the cut
+                         "coverage": self.placement_cov})
+        self.placement_decision = decision
+        log.info("placement: hybrid cut=%d (coverage %.3f, requested %s)",
+                 cut, self.placement_cov, requested)
+
+    def placement_spec(self):
+        """Each table's split for ``PlacementManager`` (``None``: uniform)."""
+        if not self.placement_cut:
+            return None
+        return {"in_table": {"cut": self.placement_cut, "group": 1},
+                "out_table": {"cut": self.placement_cut, "group": 1}}
+
+    def _hybrid_cap(self, n_rows: int) -> int:
+        """The tail's static unique capacity a data shard for a pull or push
+        of ``n_rows`` rows over the whole mesh: ``slack * (1 - coverage)``
+        of the shard's slots (:func:`~swiftsnails_tpu_torch.parallel.placement.tail_cap`),
+        or ``placement_tail_cap``."""
+        from swiftsnails_tpu_torch.parallel.placement import tail_cap
+
+        override = self.config.get_int("placement_tail_cap", 0)
+        if override:
+            return override
+        return tail_cap(max(n_rows // self._data(), 1), self.placement_cov,
+                        self.placement_slack)
+
     # -- the planes: one device, or the mesh's collectives over the same
     # shard-local pulls and pushes (the JAX trainer's _ppull / _ppush and
     # _dpull / _dpush)
@@ -432,6 +547,13 @@ class Word2VecTrainer(Trainer):
     def _ppull(self, table_state, rows):
         if self.mesh is None:
             return pull_packed(table_state, rows)
+        if hybrid.is_hybrid(table_state):
+            # the unique index and overflow go: the push recomputes the same
+            # list and counts the overflow once, as the JAX trainer's does
+            vals, _, _ = hybrid.pull_hybrid_packed(
+                self.mesh, table_state, rows, self._hybrid_cap(rows.shape[0] * self._data()),
+                comm_dtype=self.comm_dtype)
+            return vals
         return transfer.pull_collective_packed(self.mesh, table_state, rows,
                                                comm_dtype=self.comm_dtype)
 
@@ -443,6 +565,19 @@ class Word2VecTrainer(Trainer):
         the substep's dither (:meth:`_comm_seed`)."""
         if self.mesh is None:
             return push_packed(table_state, rows, grads, self.access, lr)
+        if hybrid.is_hybrid(table_state):
+            if self.push_mode == "bucketed":
+                table_state, dropped = hybrid.push_hybrid_packed_bucketed(
+                    self.mesh, table_state, rows, grads, self.access, lr,
+                    slack=self.bucket_slack, comm_dtype=self.comm_dtype, seed=seed,
+                    zero=self.zero)
+            else:
+                table_state, dropped = hybrid.push_hybrid_packed(
+                    self.mesh, table_state, rows, grads, self.access, lr,
+                    self._hybrid_cap(rows.shape[0] * self._data()),
+                    comm_dtype=self.comm_dtype, seed=seed, zero=self.zero)
+            self._dropped(dropped)
+            return table_state
         if self.push_mode == "bucketed":
             table_state, dropped = transfer.push_collective_packed_bucketed(
                 self.mesh, table_state, rows, grads, self.access, lr,
@@ -475,19 +610,44 @@ class Word2VecTrainer(Trainer):
             return None
         return transfer.layout_place(self.mesh, n_sharded, n_whole, seed)
 
-    def _out_layout(self, ctx_rows, pools):
-        """Under a mesh with dedup or the bucketed push: the out rows as the
-        JAX trainer splits them over ``data`` (every shard's context rows,
-        then the whole pool set's rows; ``pools`` holds all of them), for
-        the ``*_spread`` collectives. ``None`` where no collective needs it."""
-        if self.mesh is None or not (self.dedup or self.push_mode == "bucketed"):
+    def _out_layout(self, ctx_rows, pools, out_table=None):
+        """Under a mesh with dedup, the bucketed push or a hybrid
+        ``out_table``: the out rows as the JAX trainer splits them over
+        ``data`` (every shard's context rows, then the whole pool set's
+        rows; ``pools`` holds all of them), for the ``*_spread``
+        collectives. ``None`` where no collective needs it."""
+        if self.mesh is None or not (self.dedup or self.push_mode == "bucketed"
+                                     or hybrid.is_hybrid(out_table)):
             return None
         return transfer.data_layout(self.mesh, ctx_rows, self._rows(pools.reshape(-1)))
 
-    def _push_out(self, table_state, rows, grads, lr, layout, seed=None, place=None):
+    def _pull_out(self, table_state, rows, layout):
+        """The out table's pull of this rank's ``rows``: a hybrid table's
+        over ``layout`` (its tail at :meth:`_hybrid_cap`) -> ``(vals,
+        index, overflow)``, else :meth:`_ppull` -> ``(vals, None, None)``."""
+        if hybrid.is_hybrid(table_state):
+            return hybrid.pull_hybrid_packed_spread(
+                self.mesh, table_state, layout, self._hybrid_cap(layout.rows.shape[0]),
+                comm_dtype=self.comm_dtype)
+        return self._ppull(table_state, rows), None, None
+
+    def _push_out(self, table_state, rows, grads, lr, layout, seed=None, place=None,
+                  index=None):
         """The out table's push of this rank's ``rows`` (its window or pair
         slots, then its pools): bucketed over ``layout``, else :meth:`_ppush`
-        at ``place``."""
+        at ``place``; a hybrid table's tail over ``layout`` too (``index``:
+        its pull's unique lists, where not bucketed)."""
+        if hybrid.is_hybrid(table_state):
+            if self.push_mode == "bucketed":
+                table_state, dropped = hybrid.push_hybrid_packed_bucketed_spread(
+                    self.mesh, table_state, layout, grads, self.access, lr,
+                    slack=self.bucket_slack, comm_dtype=self.comm_dtype, seed=seed,
+                    zero=self.zero)
+                self._dropped(dropped)
+                return table_state
+            return hybrid.push_hybrid_packed_spread(
+                self.mesh, table_state, layout, grads, self.access, lr, index,
+                comm_dtype=self.comm_dtype, seed=seed, zero=self.zero)
         if layout is not None and self.push_mode == "bucketed":
             table_state, dropped = transfer.push_collective_packed_bucketed_spread(
                 self.mesh, table_state, layout, grads, self.access, lr,
@@ -495,6 +655,13 @@ class Word2VecTrainer(Trainer):
             self._dropped(dropped)
             return table_state
         return self._ppush(table_state, rows, grads, lr, seed=seed, place=place)
+
+    def _out_overflow(self, over) -> None:
+        """A hybrid out pull's overflow, counted once, where the JAX
+        trainer's push recounts it; not with the bucketed push, whose own
+        count is the metric."""
+        if over is not None and self.push_mode != "bucketed":
+            self._dropped(over)
 
     def _dropped(self, count: torch.Tensor) -> None:
         """Keep a push's or a consumed pull's overflow for the call's metric
@@ -508,11 +675,16 @@ class Word2VecTrainer(Trainer):
     def _dpull(self, table_state, rows):
         if self.mesh is None:
             return pull(table_state, rows)
+        if hybrid.is_hybrid(table_state):  # the JAX hybrid twin takes the wire
+            return hybrid.pull_hybrid(self.mesh, table_state, rows, comm_dtype=self.comm_dtype)
         return transfer.pull_collective(self.mesh, table_state, rows)
 
-    def _dpush(self, table_state, rows, grads, lr):
+    def _dpush(self, table_state, rows, grads, lr, seed=None):
         if self.mesh is None:
             return push(table_state, rows, grads, self.access, lr)
+        if hybrid.is_hybrid(table_state):
+            return hybrid.push_hybrid(self.mesh, table_state, rows, grads, self.access, lr,
+                                      comm_dtype=self.comm_dtype, seed=seed)
         return transfer.push_collective(self.mesh, table_state, rows, grads,
                                         self.access, lr)
 
@@ -669,8 +841,8 @@ class Word2VecTrainer(Trainer):
         independent draws a pair (``negs``, ``[b, K]`` word ids, replaces
         them, as in the JAX package), pull, SGNS loss and its gradient with
         respect to the pulled rows, push. Updates both tables in place and
-        returns ``(state, loss)``. ``seed`` is taken and not used: this plane
-        moves f32."""
+        returns ``(state, loss)``. This plane moves f32 but for its hybrid
+        twins, which take the wire and ``seed``, as the JAX trainer's do."""
         b, k = centers.shape[0], self.negatives
         planned = self.tiered and negs is not None
         negs = self._data_part(self._negs(generator, b * self._data(), negs))
@@ -680,8 +852,11 @@ class Word2VecTrainer(Trainer):
         u = self._dpull(state.out_table, out_rows).float().requires_grad_()
         loss = sgns_loss(v, u[:b], u[b:].reshape(b, k, -1), **self._loss_kw(b))
         dv, du = torch.autograd.grad(loss, (v, u))
-        self._dpush(state.in_table, in_rows, dv, lr)
-        self._dpush(state.out_table, out_rows, du, lr)
+        # the hybrid twin's wire dithers: its seed, drawn only there
+        seed = (self._comm_seed(generator, seed) if hybrid.is_hybrid(state.in_table)
+                else None)
+        self._dpush(state.in_table, in_rows, dv, lr, seed=seed)
+        self._dpush(state.out_table, out_rows, du, lr, seed=seed)
         return state, loss.detach()
 
     def _substep_packed_perpair(self, state: W2VState, centers: torch.Tensor,
@@ -697,17 +872,19 @@ class Word2VecTrainer(Trainer):
         negs = self._data_part(negs_all)
         in_rows = self._step_rows(centers, planned)
         out_rows = self._step_rows(torch.cat([contexts, negs.reshape(-1)]), planned)
+        layout = self._out_layout(out_rows[:b], negs_all, state.out_table)
         v = self._ppull(state.in_table, in_rows).float().requires_grad_()
-        u = self._ppull(state.out_table, out_rows).float().requires_grad_()
+        u, index, over = self._pull_out(state.out_table, out_rows, layout)
+        u = u.float().requires_grad_()
         flat = v.reshape(b, -1)
         loss = sgns_loss(flat, u[:b].reshape(b, -1), u[b:].reshape(b, k, -1),
                          **self._loss_kw(b))
         dv, du = torch.autograd.grad(loss, (v, u))
         seed = self._comm_seed(generator, seed)
         self._ppush(state.in_table, in_rows, dv, lr, seed=seed)
-        layout = self._out_layout(out_rows[:b], negs_all)
         self._push_out(state.out_table, out_rows, du, lr, layout, seed,
-                       self._out_place(b, negs_all.numel(), seed))
+                       self._out_place(b, negs_all.numel(), seed), index)
+        self._out_overflow(over)
         return state, loss.detach()
 
     def _substep_packed(self, state: W2VState, centers: torch.Tensor,
@@ -739,8 +916,10 @@ class Word2VecTrainer(Trainer):
         in_rows = self._step_rows(centers, planned)
         out_rows = self._step_rows(torch.cat([contexts, pools.reshape(-1)]), planned)
 
+        layout = self._out_layout(out_rows[:b], pools_all, state.out_table)
         v = self._ppull(state.in_table, in_rows).float().requires_grad_()
-        u = self._ppull(state.out_table, out_rows).float()
+        u, index, over = self._pull_out(state.out_table, out_rows, layout)
+        u = u.float()
         u_pos = u[:b].requires_grad_()
         pool = u[b:].reshape(nb, pn, *u.shape[1:]).requires_grad_()
         loss = sgns_pool_loss(v, u_pos, pool, lam, **self._loss_kw(b))
@@ -748,9 +927,9 @@ class Word2VecTrainer(Trainer):
         du = torch.cat([du_pos, dpool.reshape(-1, *dpool.shape[2:])])
         seed = self._comm_seed(generator, seed)
         self._ppush(state.in_table, in_rows, dv, lr, seed=seed)
-        layout = self._out_layout(out_rows[:b], pools_all)
         self._push_out(state.out_table, out_rows, du, lr, layout, seed,
-                       self._out_place(b, pools_all.numel(), seed))
+                       self._out_place(b, pools_all.numel(), seed), index)
+        self._out_overflow(over)
         return state, loss.detach()
 
     def _substep_fused(self, state: W2VState, centers: torch.Tensor,
@@ -831,11 +1010,18 @@ class Word2VecTrainer(Trainer):
         cap = min(self.u_cap * blocks, local_slots)
         return max(-(-cap // 8) * 8, 8)
 
-    def _out_u_cap(self, n: int) -> int:
-        """The out table's dedup cap for a substep of ``n`` centers (the
-        JAX trainer's ``_out_u_cap``, whose hybrid cap waits for
-        ``placement``)."""
-        return self._mesh_u_cap(n)
+    def _out_u_cap(self, n: int, out_rows: int = 0, hybrid_out: bool = False) -> int:
+        """The grouped plane's out-table unique capacity for a substep of
+        ``n`` centers and ``out_rows`` out rows over the mesh (the JAX
+        trainer's ``_out_u_cap``): dedup's slot-scaled cap, the hybrid
+        tail's coverage cap (``hybrid_out``), or the smaller where both
+        hold."""
+        caps = []
+        if self.dedup:
+            caps.append(self._mesh_u_cap(n))
+        if hybrid_out:
+            caps.append(self._hybrid_cap(out_rows))
+        return min(caps)
 
     def _grouped_pools(self, generator: torch.Generator, n: int,
                        negs: Optional[torch.Tensor]) -> torch.Tensor:
@@ -863,10 +1049,19 @@ class Word2VecTrainer(Trainer):
                                self.capacity).reshape(-1)
         out_rows = torch.cat([ctx_rows, self._rows(self._data_part(pools).reshape(-1))])
         v = self._ppull(state.in_table, center_rows)
-        layout = self._out_layout(ctx_rows, pools)
-        if self.dedup:
+        hybrid_out = hybrid.is_hybrid(state.out_table)
+        layout = self._out_layout(ctx_rows, pools, state.out_table)
+        if hybrid_out:
+            # the tail rides the unique-list plane at its coverage cap (with
+            # dedup's where both are on); the index serves the push
+            u, index, dropped = hybrid.pull_hybrid_packed_spread(
+                self.mesh, state.out_table, layout,
+                self._out_u_cap(n * self._data(), layout.rows.shape[0], True),
+                comm_dtype=self.comm_dtype)
+        elif self.dedup:
             u, index, dropped = transfer.pull_collective_packed_dedup_spread(
-                self.mesh, state.out_table, layout, self._out_u_cap(n * self._data()),
+                self.mesh, state.out_table, layout,
+                self._out_u_cap(n * self._data(), layout.rows.shape[0], False),
                 comm_dtype=self.comm_dtype)
         else:
             u, index = self._ppull(state.out_table, out_rows), None
@@ -898,7 +1093,11 @@ class Word2VecTrainer(Trainer):
         dv, du = torch.autograd.grad(loss, (v, u_all))
         seed = pulled.seed
         self._ppush(state.in_table, pulled.center_rows, dv, lr, seed=seed)
-        if self.dedup and self.push_mode != "bucketed":
+        if hybrid.is_hybrid(state.out_table) or self.push_mode == "bucketed":
+            self._push_out(state.out_table, pulled.out_rows, du, lr, pulled.layout, seed,
+                           self._out_place(n * cw, pulled.pools.numel(), seed),
+                           pulled.index)
+        elif self.dedup:
             # the pull's unique index: no second sort, the overflow counted once
             transfer.push_collective_packed_dedup_spread(
                 self.mesh, state.out_table, du, self.access, lr, pulled.index,
@@ -1033,10 +1232,12 @@ class Word2VecTrainer(Trainer):
         if self.mesh is not None:  # each shard's part of the global mean
             loss = transfer.all_reduce(self.mesh, loss.reshape(1), DATA_AXIS)[0]
         metrics = {"loss": loss}
-        if self.push_mode == "bucketed" or (self.dedup and self.mesh is not None):
+        meshed = self.mesh is not None
+        if self.push_mode == "bucketed" or (meshed and (self.dedup or self.placement_cut)):
             dropped = (torch.stack(drops).sum().to(torch.int32) if drops
                        else torch.zeros((), dtype=torch.int32, device=loss.device))
-            key = "push_dropped" if self.push_mode == "bucketed" else "dedup_dropped"
+            key = ("push_dropped" if self.push_mode == "bucketed" else
+                   "dedup_dropped" if self.dedup else "hybrid_dropped")
             metrics[key] = dropped
         return state, metrics
 
@@ -1112,7 +1313,10 @@ class Word2VecTrainer(Trainer):
         bl = b // d
         row = -(-self.dim // 128) * 128 if self.packed else self.dim
         elem = torch.empty((), dtype=self.table_dtype).element_size()
-        wire = self.comm_dtype if self.packed else "float32"  # the 2-D plane's is f32
+        hyb = bool(self.placement_cut)
+        # the 2-D plane's uniform collectives are f32; its hybrid twins
+        # take the wire, as the JAX trainer's do
+        wire = self.comm_dtype if (self.packed or hyb) else "float32"
         ids = 4
         bucketed = self.push_mode == "bucketed"
 
@@ -1124,33 +1328,50 @@ class Word2VecTrainer(Trainer):
                 return n * row * 4
             return n * row * 4 + gathered(n)  # the f32 reduce-scatter, the narrow gather
 
+        def head():  # a hybrid head's push (the 2-D plane's without zero, as in JAX)
+            return hybrid.head_push_bytes(self.placement_cut, row, row, d, wire,
+                                          zero=self.zero and self.packed)
+
         def push(n):  # a push of this rank's n rows, its data slice
             if bucketed:  # buckets' ids and gradients gathered; the dropped count
                 cap = transfer.bucket_capacity(n, model, self.bucket_slack)
-                return d * cap * ids + gathered(d * cap) + 2 * ids
-            return transfer.push_bytes(n, row, d, comm_dtype=wire)
-
-        def push_out(n):  # the out push of n slots a rank, over the layout
-            if bucketed:
-                return chunk_sums(d * transfer.bucket_capacity(n, model, self.bucket_slack))
-            return transfer.push_bytes(n, row, d, comm_dtype=wire)
+                return d * cap * ids + gathered(d * cap) + 2 * ids + (head() if hyb else 0)
+            if hyb and self.packed:  # the tail's unique list: overflow count, ids, rows
+                cap = self._hybrid_cap(n * d)
+                return ids + d * cap * ids + gathered(d * cap) + head()
+            return transfer.push_bytes(n, row, d, comm_dtype=wire) + (head() if hyb else 0)
 
         def pull(n):
             return transfer.pull_bytes(n, row, elem, wire)
+
+        def pull_in(n):  # the in table's pull; a hybrid tail's is a dedup pull
+            if hyb and self.packed:
+                return pull(self._hybrid_cap(n * d)) + ids  # + its overflow count
+            return pull(n)
+
+        def out_bytes(out, cap):  # a hybrid out table's spread pull and push
+            pushed = (chunk_sums(d * transfer.bucket_capacity(out, model, self.bucket_slack))
+                      if bucketed else chunk_sums(d * cap))
+            return pull(d * cap), pushed + head()
 
         if self.grouped:
             cw = 2 * self.window
             out = bl * cw + (bl // self._effective_pc(b)) * self.pool_size
             # the layout's gather of every shard's window slots
-            layout = d * bl * cw * ids if (self.dedup or bucketed) else 0
-            pull_b = pull(bl) + layout
-            if self.dedup:
-                cap = self._out_u_cap(b)
+            layout = d * bl * cw * ids if (self.dedup or bucketed or hyb) else 0
+            pull_b = pull_in(bl) + layout
+            if hyb:
+                pull_o, push_o = out_bytes(out, self._out_u_cap(b, d * out, True))
+                pull_b += pull_o
+            elif self.dedup:
+                cap = self._out_u_cap(b, d * out, False)
                 pull_b += pull(d * cap)
-                push_o = push_out(out) if bucketed else chunk_sums(d * cap)
+                push_o = (chunk_sums(d * transfer.bucket_capacity(out, model, self.bucket_slack))
+                          if bucketed else chunk_sums(d * cap))
             else:
                 pull_b += pull(out)
-                push_o = push_out(out)
+                push_o = (chunk_sums(d * transfer.bucket_capacity(out, model, self.bucket_slack))
+                          if bucketed else transfer.push_bytes(out, row, d, comm_dtype=wire))
             # overlap: the first depth pulls and t in the loop
             pulls = t + (min(self.overlap, t) if self.overlap and t > 1 else 0)
             return pulls * pull_b + t * (push(bl) + push_o) + 4  # + the loss's all-reduce
@@ -1158,8 +1379,16 @@ class Word2VecTrainer(Trainer):
             out = bl + (bl // self.pool_geometry(b)[0]) * self.pool_size
         else:
             out = bl * (1 + self.negatives)
-        layout = d * bl * ids if bucketed else 0  # the contexts' gather
-        per = pull(bl) + pull(out) + push(bl) + push_out(out) + layout
+        if hyb and self.packed:
+            pull_o, push_o = out_bytes(out, self._hybrid_cap(d * out))
+        else:
+            pull_o = pull(out)
+            push_o = (chunk_sums(d * transfer.bucket_capacity(out, model, self.bucket_slack))
+                      if bucketed else transfer.push_bytes(out, row, d, comm_dtype=wire)
+                      + (head() if hyb else 0))
+        # the contexts' gather for the layout
+        layout = d * bl * ids if (bucketed or (hyb and self.packed)) else 0
+        per = pull_in(bl) + pull_o + push(bl) + push_o + layout
         return t * per + 4  # the loss's all-reduce
 
     # -- export (ServerTerminate parity: text dump of the table) -----------

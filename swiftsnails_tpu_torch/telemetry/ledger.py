@@ -30,15 +30,18 @@ the fleet lane's SLO, scaling, affinity, hedging and qps; the tiered lane's
 parity, round trip, int8 masters and words/sec; the chaos-serve lane's
 availability floor, control and drills; the chaos-cluster lane's
 exactly-once accounting, reassignment and loss parity; the freshness
-lane's bit parity, gap drill, lag and serve p99; and the net lane's
-availability, stale-write refusal, parities and TCP envelope).
+lane's bit parity, gap drill, lag and serve p99; the net lane's
+availability, stale-write refusal, parities and TCP envelope; and the
+multi-device planes' placement (the skewed leg's exchange-byte cut),
+quantized-wire (int4 against f32) and zero (HBM, grad-reduce bytes, loss
+parity, identical checkpoints) checks, which read bench records that only
+the port bench's ``scaling`` and ``zero`` lanes will write: without that
+history they gate nothing, as in the JAX package).
 
-Not ported yet (``ROADMAP.md``): the regression checks of the scaling,
-placement, quantized-wire and zero planes (the multi-device planes), and
-the bench-cache helpers
-(``validate_bench_payload``, ``load_bench_cache``, ``derive_last_good``,
-hence ``--baseline-file``); each comes with the plane or the port bench
-that writes its records.
+Not ported yet (``ROADMAP.md``): the scaling plane's regression check, and
+the bench-cache helpers (``validate_bench_payload``, ``load_bench_cache``,
+``derive_last_good``, hence ``--baseline-file``); each comes with the port
+bench that writes its records.
 """
 
 from __future__ import annotations
@@ -1609,6 +1612,99 @@ def _check_quantized_wire_regression(ledger: Ledger) -> Tuple[int, Optional[str]
         f"(floor {_INT4_PAYLOAD_FLOOR:.1f}x), loss parity {parity}")
 
 
+# the skewed scaling leg must keep cutting the exchange bytes by at least
+# this factor (uniform / hybrid) at every comm dtype it ran
+_SKEWED_EXCHANGE_FLOOR = 2.0
+
+
+def _check_placement_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:
+    """Gate the skewed lane's exchange-byte win: the newest bench record
+    whose ``scaling`` block carries a ``skewed`` leg must show an
+    ``exchange_reduction`` of at least ``_SKEWED_EXCHANGE_FLOOR`` at every
+    comm dtype it ran. No skewed history gates nothing."""
+    with_skew = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict)
+        and isinstance(r["payload"].get("scaling"), dict)
+        and isinstance(r["payload"]["scaling"].get("skewed"), dict)
+    ]
+    if not with_skew:
+        return 0, None
+    per = with_skew[-1]["payload"]["scaling"]["skewed"].get("per_dtype")
+    if not isinstance(per, dict) or not per:
+        return 1, ("placement REGRESSION: skewed leg ran but recorded no "
+                   "per-dtype exchange rows")
+    bad = []
+    worst = None
+    for dt, row in sorted(per.items()):
+        red = row.get("exchange_reduction")
+        if not isinstance(red, (int, float)):
+            bad.append(f"{dt}=n/a")
+            continue
+        worst = red if worst is None else min(worst, red)
+        if red < _SKEWED_EXCHANGE_FLOOR:
+            bad.append(f"{dt}={red:.2f}x")
+    if bad:
+        return 1, ("placement REGRESSION: skewed-lane exchange reduction below the "
+                   f"{_SKEWED_EXCHANGE_FLOOR:.1f}x floor: " + ", ".join(bad))
+    return 0, (f"placement ok: skewed-lane exchange reduction >= "
+               f"{_SKEWED_EXCHANGE_FLOOR:.1f}x at every comm dtype (worst {worst:.2f}x)")
+
+
+# the zero lane must keep its replicated-plane HBM win (>= 2x a replica at
+# >= 2 data shards), keep the dense-grad reduce's exchange no larger than
+# the all-reduce baseline, hold f32 loss parity, and its checkpoints must be
+# the unsharded run's (a correctness gate: any platform, a hard fail)
+_ZERO_HBM_FLOOR = 2.0
+_ZERO_LOSS_PARITY_MAX = 0.01
+
+
+def _check_zero_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:
+    """Gate the sharded-optimizer-state lane (``optimizer_sharding: zero``):
+    the newest bench record carrying a ``zero`` block (not ``skipped``)
+    must show the HBM reduction of at least ``_ZERO_HBM_FLOOR`` where it
+    ran on 2 or more data shards, dense-grad reduce bytes no larger than
+    the baseline's, f32 loss parity within ``_ZERO_LOSS_PARITY_MAX``, and
+    ``checkpoint_identical`` true. No zero history gates nothing."""
+    with_zero = [
+        r for r in ledger.records("bench")
+        if isinstance(r.get("payload"), dict)
+        and isinstance(r["payload"].get("zero"), dict)
+        and not r["payload"]["zero"].get("skipped")
+    ]
+    if not with_zero:
+        return 0, None
+    z = with_zero[-1]["payload"]["zero"]
+    problems = []
+    red = (z.get("hbm") or {}).get("reduction")
+    mesh_data = (z.get("mesh") or {}).get("data")
+    if isinstance(mesh_data, int) and mesh_data >= 2:
+        if not (isinstance(red, (int, float)) and red >= _ZERO_HBM_FLOOR):
+            problems.append(
+                f"replicated-plane HBM reduction {red} at data={mesh_data} "
+                f"is below the {_ZERO_HBM_FLOOR:.1f}x floor")
+    gr = z.get("grad_reduce") or {}
+    zb, bb = gr.get("zero_bytes"), gr.get("baseline_bytes")
+    if isinstance(zb, (int, float)) and isinstance(bb, (int, float)) and zb > bb:
+        problems.append(f"dense-grad reduce exchange {zb:,.0f} B exceeds the psum "
+                        f"baseline {bb:,.0f} B")
+    parity = z.get("loss_parity_f32")
+    if not (isinstance(parity, (int, float)) and parity <= _ZERO_LOSS_PARITY_MAX):
+        problems.append(f"f32 loss parity {parity} vs unsharded exceeds the "
+                        f"{_ZERO_LOSS_PARITY_MAX} bar")
+    if z.get("checkpoint_identical") is not True:
+        problems.append("checkpoint is NOT byte-identical to the unsharded run's "
+                        f"(checkpoint_identical={z.get('checkpoint_identical')!r})")
+    if problems:
+        return 1, "zero-sharding REGRESSION: " + "; ".join(problems)
+    wire = (f"grad reduce {zb:,.0f} B <= psum {bb:,.0f} B"
+            if isinstance(zb, (int, float)) and isinstance(bb, (int, float))
+            else "grad reduce bytes n/a")
+    return 0, (f"zero-sharding ok: HBM {red}x/replica at data={mesh_data} "
+               f"(floor {_ZERO_HBM_FLOOR:.1f}x), {wire}, loss parity {parity}, "
+               "checkpoints byte-identical")
+
+
 def _plane_checks(max_drop_pct: float):
     """The planes' sub-checks, in the JAX gate's order, each ``ledger ->
     (rc, message or None)``."""
@@ -1619,11 +1715,13 @@ def _plane_checks(max_drop_pct: float):
         functools.partial(_check_tiered_regression, max_drop_pct=max_drop_pct),
         _check_chaos_serve_regression,
         _check_chaos_cluster_regression,
+        _check_placement_regression,
         _check_quantized_wire_regression,
         _check_freshness_regression,
         _check_trace_overhead_regression,
         _check_drift_regression,
         _check_profiler_overhead_regression,
+        _check_zero_regression,
         _check_net_regression,
     )
 

@@ -338,20 +338,20 @@ def test_train_loop_runs_on_the_cpu(case):
     ("packed", "0"), ("stream", "1"), ("table_tier", "host"), ("comm_dtype", "bf16"),
     ("placement", "hybrid"), ("dense_tp", "1"), ("optimizer_sharding", "zero")])
 def test_unported_keys_raise(key, value):
-    """``packed: 0``, ``stream: 1``, ``table_tier: host`` and ``comm_dtype``
-    are ported since this test was written: for them it holds that the
-    trainer takes the key (``stream`` reads only a ``data`` file, as in the JAX package,
-    so records given in hand keep it off); every other key still raises."""
-    if key in ("packed", "stream", "table_tier", "comm_dtype"):
-        tr = get_model("widedeep")(Config(_conf(**{key: value})), data=_data(),
-                                   device="cpu")
-        took = {"packed": lambda: not tr.packed, "stream": lambda: not tr.stream,
-                "table_tier": lambda: tr.tiered and tr.tier_spec() is not None,
-                "comm_dtype": lambda: tr.comm_dtype == "bfloat16"}
-        assert took[key]()
-        return
-    with pytest.raises(NotImplementedError, match=key):
-        get_model("widedeep")(Config(_conf(**{key: value})), data=_data(), device="cpu")
+    """Every key of this test is ported since it was written: it holds that
+    the trainer takes the key (``stream`` reads only a ``data`` file, as in
+    the JAX package, so records given in hand keep it off; on one device
+    ``placement`` resolves to uniform with its reason, and ``dense_tp`` and
+    ``optimizer_sharding`` change nothing, as in the JAX package)."""
+    tr = get_model("widedeep")(Config(_conf(**{key: value})), data=_data(), device="cpu")
+    took = {"packed": lambda: not tr.packed, "stream": lambda: not tr.stream,
+            "table_tier": lambda: tr.tiered and tr.tier_spec() is not None,
+            "comm_dtype": lambda: tr.comm_dtype == "bfloat16",
+            "placement": lambda: (tr.placement_cut == 0
+                                  and "no mesh" in tr.placement_decision["reason"]),
+            "dense_tp": lambda: tr.dense_tp_manager() is None,
+            "optimizer_sharding": lambda: tr.optimizer_sharding == "zero" and not tr.zero}
+    assert took[key]()
 
 
 def test_wide_ffm_and_mesh_raise():

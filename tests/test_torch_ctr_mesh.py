@@ -497,14 +497,16 @@ def test_indivisible_tiles_fall_back_to_the_2d_plane(caplog):
     {"dense_tp": "1"}, {"placement": "hybrid"}, {"comm_dtype": "int8"},
     {"optimizer_sharding": "zero"}], ids=lambda o: next(iter(o)))
 def test_other_plane_keys_still_raise_on_a_meshed_ctr_trainer(over):
-    """``comm_dtype`` is ported since this test was written: for it the
-    test holds that the meshed trainer takes the wire; the others raise."""
-    if "comm_dtype" in over:
-        tr = ranks.ctr_trainer("widedeep", _hand_mesh(), **over)
-        assert tr.comm_dtype == "int8" and tr.packed and tr.mesh is not None
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ranks.ctr_trainer("widedeep", _hand_mesh(), **over)
+    """Every key of this test is ported since it was written: it holds that
+    the meshed trainer takes each (the wire; the tensor-parallel MLP's
+    layout; the hybrid cut; the sharded optimizer planes)."""
+    tr = ranks.ctr_trainer("widedeep", _hand_mesh(), **over)
+    assert tr.packed and tr.mesh is not None
+    took = {"comm_dtype": lambda: tr.comm_dtype == "int8",
+            "dense_tp": lambda: tr.dense_tp_manager() is not None,
+            "placement": lambda: tr.placement_cut > 0 and tr.placement_spec() is not None,
+            "optimizer_sharding": lambda: tr.zero}
+    assert took[next(iter(over))]()
 
 
 @pytest.mark.parametrize("over", [{"guardrail": "1"}, {"table_tier": "host"},

@@ -257,3 +257,60 @@ def test_grouped_plane_under_a_wire_is_the_cpu_port(nccl_mesh, wire):
         assert np.all(np.abs(a - b).reshape(len(s), -1) <= bound)
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-3)
     assert all(c == p for c, p in got["counted"])
+
+
+# ------------------------------------------- hybrid placement, ZeRO, dense_tp ---
+
+
+@pytest.mark.parametrize("route", ["grouped", "tight", "overlap2"])
+def test_grouped_hybrid_is_the_cpu_port(nccl_mesh, route):
+    """The grouped plane with ``placement: hybrid`` (``torch_placement_ranks``'s
+    routes: a head of 64 rows; ``tight`` a tail cap that overflows) on the
+    one-rank NCCL mesh against the port on a one-rank gloo mesh on the CPU:
+    tables and losses within rtol 1e-5 / atol 1e-6, the same
+    ``hybrid_dropped`` counts, the counted bytes ``step_cost``'s, the tail's
+    row kernels launched as the uniform plane's (the head is plain torch)."""
+    import torch_placement_ranks as pr
+
+    want = pr.grouped_run(_cpu_mesh(), route)
+    g0, s0 = rowdma.gather_rows.launches, rowdma.scatter_add_rows.launches
+    got = pr.grouped_run(nccl_mesh, route)
+    torch.cuda.synchronize()
+    tables, calls, _ = pr.grouped_inputs(route)
+    t = pr.GROUPED_HYBRID[route].get("steps_per_call", "1")
+    pulls = len(calls) * (int(t) + int(pr.GROUPED_HYBRID[route].get("overlap", "0")))
+    assert rowdma.gather_rows.launches - g0 == 2 * pulls
+    assert rowdma.scatter_add_rows.launches - s0 == 2 * len(calls) * int(t)
+    for a, b in zip(got["tables"], want["tables"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5, atol=1e-6)
+    assert got["dropped"] == want["dropped"]
+    assert all(c == p for c, p in got["counted"])
+
+
+@pytest.mark.parametrize("over", [{"packed": "0", "optimizer_sharding": "zero"},
+                                  {"optimizer_sharding": "zero"},
+                                  {"placement": "uniform", "dense_tp": "1"}],
+                         ids=["2d_hybrid_zero", "small_hybrid_zero", "dense_tp"])
+def test_widedeep_layouts_are_the_cpu_port(nccl_mesh, over):
+    """W&D (the JAX zero tests' shape, a hybrid head of 128 rows) through the
+    layouts the loop adopts, 3 steps, on the one-rank NCCL mesh against
+    the one-rank gloo mesh on the CPU: arrays within rtol 1e-5 / atol 1e-6,
+    the counted bytes ``step_cost``'s; on the small-row plane one
+    ``gather_rows`` and one ``scatter_adagrad_fused_rows`` a step (the
+    tail's)."""
+    import torch_placement_ranks as pr
+
+    want = pr.wd_steps(_cpu_mesh(), **over)
+    g0, a0 = rowdma.gather_rows.launches, rowdma.scatter_adagrad_fused_rows.launches
+    got = pr.wd_steps(nccl_mesh, **over)
+    torch.cuda.synchronize()
+    if over.get("packed") != "0":
+        assert rowdma.gather_rows.launches - g0 == 3
+        assert rowdma.scatter_adagrad_fused_rows.launches - a0 == 3
+    assert sorted(got["state"]) == sorted(want["state"])
+    for k, w in want["state"].items():
+        np.testing.assert_allclose(got["state"][k].numpy(), w.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5, atol=1e-6)
+    assert all(c == p for c, p in got["counted"])

@@ -300,11 +300,16 @@ def test_one_device_bucketed_reports_nothing_dropped():
     {"table_tier": "host", "fused": "0", "grouped": "0"}],
     ids=lambda o: next(iter(o)))
 def test_other_plane_keys_still_raise_on_the_grouped_plane(over):
-    """``comm_dtype`` is ported since this test was written: for it the
-    test holds that the grouped plane takes the wire; the others raise."""
-    if "comm_dtype" in over:
+    """``comm_dtype``, ``placement`` and ``optimizer_sharding`` are ported
+    since this test was written: for them the test holds that the grouped
+    plane takes the key; ``table_tier: host`` still raises."""
+    if "table_tier" not in over:
         tr = ranks.grouped_trainer("grouped", _hand_mesh(), **over)
-        assert tr.comm_dtype == "int8" and tr.grouped and tr.mesh is not None
+        assert tr.grouped and tr.mesh is not None
+        took = {"comm_dtype": lambda: tr.comm_dtype == "int8",
+                "placement": lambda: tr.placement_cut > 0,
+                "optimizer_sharding": lambda: tr.zero}
+        assert took[next(iter(over))]()
         return
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         ranks.grouped_trainer("grouped", _hand_mesh(), **over)

@@ -321,12 +321,10 @@ def test_packed_pool_loss_decreases():
     assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
 
 
-# (key, value, other keys of the case). ``fused``, ``grouped``, ``resident``
-# and ``dedup`` are ported; their cases ask for a path still to port on top.
-# ``packed``, ``neg_mode``, ``stream``, ``table_tier``, ``overlap``,
-# ``push_mode`` and ``comm_dtype`` are ported too: for them, and for the
-# cases whose other keys are all ported, the test holds that the trainer
-# takes the keys (see ``_PORTED``).
+# (key, value, other keys of the case). Every key here is ported since this
+# test was written (``placement`` and ``optimizer_sharding`` the last): for
+# each case the test holds that the trainer takes the keys (see
+# ``_PORTED``).
 _UNPORTED_CASES = [
     ("packed", 0, {}), ("neg_mode", "per_pair", {}),
     ("fused", 1, {"grouped": 1, "resident": 1, "comm_dtype": "int8"}),
@@ -351,6 +349,12 @@ _PORTED = {
     "push_mode": lambda tr: tr.push_mode == "bucketed",
     # comm_dtype is ported: these cases' trainers take it with the rest
     "comm_dtype": lambda tr: tr.comm_dtype == "bfloat16",
+    # placement and optimizer_sharding are ported: on one device the first
+    # resolves to uniform with its reason, the second changes nothing
+    "placement": lambda tr: tr.placement_cut == 0 and tr.placement_decision["mode"] == "uniform",
+    "optimizer_sharding": lambda tr: tr.optimizer_sharding == "zero" and not tr.zero,
+    "resident": lambda tr: tr.resident and tr.placement_decision["reason"] == "no mesh",
+    "dedup": lambda tr: tr.dedup and tr.placement_decision["reason"] == "no mesh",
     "fused": lambda tr: tr.fused and tr.resident and tr.comm_dtype == "int8",
     "grouped": lambda tr: tr.grouped and tr.dedup and tr.comm_dtype == "bfloat16",
 }

@@ -158,11 +158,16 @@ def _hand_mesh(data=2, model=2):
     {"table_tier": "host"},
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_keys_raise_under_a_mesh(over):
-    """``comm_dtype`` is ported since this test was written: for it the
-    test holds that the meshed trainer takes the wire; the others raise."""
+    """``comm_dtype`` and ``placement`` are ported since this test was
+    written: for them the test holds that the meshed trainer takes the key;
+    ``table_tier: host`` still raises."""
     if "comm_dtype" in over:
         tr = ranks.w2v_trainer("packed", _hand_mesh(), **over)
         assert tr.comm_dtype == over["comm_dtype"] and tr.mesh is not None
+        return
+    if "placement" in over:
+        tr = ranks.w2v_trainer("packed", _hand_mesh(), **over)
+        assert tr.placement_cut > 0 and tr.placement_spec() is not None
         return
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         ranks.w2v_trainer("packed", _hand_mesh(), **over)
