@@ -465,7 +465,30 @@ Phases:
     against ``dense_tp: 0`` (``_ctr_close``); a start state saved uniform
     and through the hybrid split and zero's slices, the same CRCs; a
     hybrid + zero run saved at ``MESH_GLOO_CTR_SAVE`` and resumed,
-    bit-equal to the straight run. One ``mesh`` line. Then
+    bit-equal to the straight run. (g) The tier and serving under a mesh:
+    on the (1, 1) NCCL mesh packed+pool behind ``TIER``'s 64 MB
+    ``MESH_STEPS`` steps, its tables bit-equal to the unmeshed tier's and
+    to the resident meshed run's, its losses the resident meshed run's,
+    with evictions, the launches of ``gather_rows``, ``scatter_add_rows``
+    and ``scatter_write_rows`` the unmeshed tier's; W&D behind
+    ``TIER_WD_BUDGET_MB`` ``MESH_CTR_STEPS`` steps bit-equal to the
+    unmeshed tier; from the serve phase's step-4 checkpoint a meshed
+    servant, a fleet of ``MESH_TIER_REPLICAS`` and a tiered servant behind
+    64 MB (``serving/mesh_serve.py``'s leader on a mesh of one), each
+    pulling ``SERVE_PULL_IDS`` zipf ids in requests of
+    ``SERVE_REQUEST_IDS`` bit-equal to the unmeshed servant, its
+    ``SERVE_TOPK_QUERIES`` topk the same ids (scores within
+    ``TIER_TOPK_ATOL``), ``SERVE_DELTA_ROWS`` rows through ``apply_rows``
+    pulled back. On the four gloo ranks packed+pool and ``packed: 0``
+    tiered ``MESH_GLOO_TIER_STEPS`` steps (async flush, the budget
+    ``MESH_GLOO_TIER_SLACK`` x a step's distinct units) bit-equal to the
+    resident meshed run on every rank, with evictions, the slot maps and
+    counters the same on every rank; packed+pool tiered saved at
+    ``MESH_GLOO_TIER_SAVE`` and resumed bit-equal; a servant on a
+    ``MESH_GLOO_SERVE`` mesh of the ranks (rank 0 leading, the others
+    following) pulling ``MESH_GLOO_SERVE_IDS`` ids bit-equal to one rank's
+    and its ``MESH_GLOO_SERVE_TOPK`` topk the same ids. One ``mesh``
+    line. Then
     ``gather_rows`` and ``scatter_add_rows`` at the grouped plane's shapes
     (``kernel`` lines, ``path: "mesh_grouped"``): its pulls of 8,192 centers
     and 83,968 out rows and its pushes of the merged rows, on a step of its
@@ -473,9 +496,15 @@ Phases:
     ``index_add_``, against the byte bound; and the hybrid tail's
     (``path: "mesh_hybrid"``: the tail lists of a step's centers and out
     rows at ``MESH_HYBRID``'s cap; ``"mesh_hybrid_ctr"``: W&D's tail
-    ``gather_rows`` and ``scatter_adagrad_fused_rows``). ``--only mesh`` runs this phase
-    alone (with the build and the kernels' phase 3) and prints no result
-    line.
+    ``gather_rows`` and ``scatter_adagrad_fused_rows``); and the tier's
+    under the mesh (``path: "mesh_tier"``: the tiered path's four kernels
+    at the meshed tier's shapes, its median install and evicted-slot read
+    into the ``[32,768, 2, 128]`` cache shard, a step's push into it, a
+    W&D step's tiles into its cache shard) and the meshed pull's owned
+    gather (``path: "mesh_serve"``: 8 and 64 zipf ids of the meshed
+    servant's ``[1,048,576, 200]`` shard). ``--only mesh`` runs this phase
+    alone (with the build, the kernels' phase 3 and a serve checkpoint of
+    its own) and prints no result line.
 22. ``kernels``: one line for every ported kernel, with its launches in the
     run of its path (``path``) and its f32 numbers from phases 3, 7, 10, 16,
     17 and 18 (``gather_rows`` and ``scatter_add_rows`` also at
@@ -487,8 +516,10 @@ Phases:
     ``gather_rows`` and ``scatter_write_rows`` also at the serving
     shapes with the ``serve`` path's launches, and at the freshness shapes
     with the ``freshness`` path's, the replicas' included; all four row
-    kernels of the tiered runs with ``path: "tiered"``); then ``total``,
-    the script's seconds.
+    kernels of the tiered runs with ``path: "tiered"``, and at the meshed
+    tier's shapes with leg 1's launches, ``path: "mesh_tier"``;
+    ``gather_rows`` at the meshed pull with the meshed servant's launches,
+    ``path: "mesh_serve"``); then ``total``, the script's seconds.
 """
 
 from __future__ import annotations
@@ -3278,10 +3309,10 @@ def _tier_probe(loop, trainer) -> dict:
     return probe
 
 
-def _tier_w2v(seed: int, corpora, steps: int = STEPS, **extra) -> dict:
-    """The ``train`` phase's packed+pool config (``extra`` on top) for
-    ``steps`` steps, counted and probed."""
-    trainer, loop, records = _train_loop("train", seed, corpora, **extra)
+def _tier_w2v(seed: int, corpora, steps: int = STEPS, mesh=None, **extra) -> dict:
+    """The ``train`` phase's packed+pool config (``extra`` on top; under
+    ``mesh`` where given) for ``steps`` steps, counted and probed."""
+    trainer, loop, records = _train_loop("train", seed, corpora, mesh=mesh, **extra)
     probe = _tier_probe(loop, trainer)
     t0 = time.perf_counter()
     state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=steps))
@@ -3627,7 +3658,8 @@ def phase_tiered(seed: int, corpora, env: dict, serve: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_tiered_kernels(tiered: dict, seed: int, rate: float) -> dict:
+def phase_tiered_kernels(tiered: dict, seed: int, rate: float,
+                         path: str = "tiered") -> dict:
     """The kernels of the tiered path at its shapes: ``scatter_write_rows``
     installing the run's median faulted rows a step into the ``[32,768, 2,
     128]`` cache (distinct slots), beside ``index_copy_``;
@@ -3636,7 +3668,8 @@ def phase_tiered_kernels(tiered: dict, seed: int, rate: float) -> dict:
     out-table rows into the cache; ``scatter_adagrad_fused_rows`` pushing a
     Wide & Deep step's tiles into its cache. Bit-equal to the plain
     versions, timed, against the byte bound. Not counted: the tiered runs'
-    launches were read before."""
+    launches were read before. ``path`` names the lines and the summary's
+    keys (``mesh_tier``: the meshed tier's shapes)."""
     from swiftsnails_tpu_torch.ops import rowdma
 
     dev = torch.device("cuda")
@@ -3658,14 +3691,14 @@ def phase_tiered_kernels(tiered: dict, seed: int, rate: float) -> dict:
         lambda b, u, v: (rowdma.scatter_write_rows_plain(b[0], u, v),),
         [cache.clone()], sets, lambda b, st: b[0].index_copy_(0, st[2], st[1]),
         n * (2 * row_bytes + 4), n, rate)
-    emit("kernel", name="scatter_write_rows", dtype="torch.float32", path="tiered", **case)
-    summary["scatter_write_rows_tiered"] = {"shape": list(cache.shape), **case}
+    emit("kernel", name="scatter_write_rows", dtype="torch.float32", path=path, **case)
+    summary[f"scatter_write_rows_{path}"] = {"shape": list(cache.shape), **case}
     n = int(sh["snapshot_rows_median"])
     gsets = [torch.from_numpy(rng.choice(slots, n, replace=False).astype(np.int32)).to(dev)
              for _ in range(ROW_SETS)]
     case = _gather_case(cache, gsets, rate)
-    emit("kernel", name="gather_rows", dtype="torch.float32", path="tiered", rows=n, **case)
-    summary["gather_rows_tiered"] = {"shape": [n, *sh["cache"][1:]], **case}
+    emit("kernel", name="gather_rows", dtype="torch.float32", path=path, rows=n, **case)
+    summary[f"gather_rows_{path}"] = {"shape": [n, *sh["cache"][1:]], **case}
     n = GATHER_ROWS[1]  # a step's out-table push: contexts + pool rows, merged
     ssets, n_valid = [], []
     for _ in range(ROW_SETS):
@@ -3676,8 +3709,8 @@ def phase_tiered_kernels(tiered: dict, seed: int, rate: float) -> dict:
     deltas = [torch.randn((n, *sh["cache"][1:]), generator=gen, device=dev).mul_(1e-3)
               for _ in range(ROW_SETS)]
     case = _scatter_case(cache, ssets, deltas, n_valid, rate)
-    emit("kernel", name="scatter_add_rows", dtype="torch.float32", path="tiered", rows=n, **case)
-    summary["scatter_add_rows_tiered"] = {"shape": [n, *sh["cache"][1:]], **case}
+    emit("kernel", name="scatter_add_rows", dtype="torch.float32", path=path, rows=n, **case)
+    summary[f"scatter_add_rows_{path}"] = {"shape": [n, *sh["cache"][1:]], **case}
     del cache, deltas, ssets, gsets, sets
     wd = sh["wd_cache"]
     lr = _widedeep_config(seed).get_float("learning_rate")
@@ -3694,14 +3727,14 @@ def phase_tiered_kernels(tiered: dict, seed: int, rate: float) -> dict:
         lambda b, u, v: (rowdma.scatter_adagrad_fused_rows(b[0], u, v, lr),),
         lambda b, u, v: (rowdma.scatter_adagrad_fused_rows_plain(b[0], u, v, lr),),
         [fused], sets, None, n * 5 * half + n * 4, n, rate)
-    emit("kernel", name="scatter_adagrad_fused_rows", dtype="torch.float32", path="tiered", **case)
-    summary["scatter_adagrad_fused_rows_tiered"] = {"shape": list(fused.shape), **case}
+    emit("kernel", name="scatter_adagrad_fused_rows", dtype="torch.float32", path=path, **case)
+    summary[f"scatter_adagrad_fused_rows_{path}"] = {"shape": list(fused.shape), **case}
     del fused, sets
     torch.cuda.empty_cache()
     return summary
 
 
-def _tiered_kernel_entries(summary: dict, tiered: dict) -> list:
+def _tiered_kernel_entries(summary: dict, tiered: dict, path: str = "tiered") -> list:
     """The ``kernels`` line's ``path: "tiered"`` entries: each kernel at the
     tiered path's shapes (``phase_tiered_kernels``) with its launches in the
     tiered runs (over budget; Wide & Deep for the AdaGrad push)."""
@@ -3712,14 +3745,14 @@ def _tiered_kernel_entries(summary: dict, tiered: dict) -> list:
             ("scatter_add_rows", "scatter_add_rows", "swiftsnails_tpu/ops/rowdma.py:213"),
             ("scatter_adagrad_fused_rows", "scatter_adagrad_fused_rows",
              "swiftsnails_tpu/ops/rowdma.py:552")):
-        s = summary[f"{key}_tiered"]
+        s = summary[f"{key}_{path}"]
         out.append({
             "name": name, "route": "cuda", "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
             "replaces": replaces, "launches": tiered["launches"][key],
             "max_abs_err": s["max_abs_err"], "ms": s.get("ms", s.get("kernel_ms")),
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": "bytes",
             "library_ms": s["library_ms"], "shape": s["shape"], "dtype": "float32",
-            "path": "tiered"})
+            "path": path})
     return out
 
 
@@ -4846,9 +4879,10 @@ MESH_GLOO_HYBRID["hybrid_zero"] = {**MESH_GLOO_HYBRID["hybrid"], "optimizer_shar
 MESH_GLOO_CTR_SAVE = 2  # the step leg 2's hybrid + zero W&D saves at and resumes from
 
 
-def _mesh_gloo_trainer(seed: int, device: str, mesh=None):
+def _mesh_gloo_trainer(seed: int, device: str, mesh=None, **over):
     """Leg 2's word2vec: packed+pool at dim 200 (the full row width), the
-    vocabulary, batch and steps cut (``MESH_GLOO_*``), numpy batches."""
+    vocabulary, batch and steps cut (``MESH_GLOO_*``), numpy batches
+    (``over``: config keys on top)."""
     from swiftsnails_tpu_torch.data.vocab import Vocab
     from swiftsnails_tpu_torch.models.word2vec import Word2VecTrainer
     from swiftsnails_tpu_torch.utils.config import Config
@@ -4859,7 +4893,8 @@ def _mesh_gloo_trainer(seed: int, device: str, mesh=None):
     cfg = Config({"dim": str(DIM), "window": str(WINDOW), "negatives": str(NEGATIVES),
                   "subsample": "0", "num_iters": "1", "pool_size": str(POOL_SIZE),
                   "pool_block": str(POOL_BLOCK), "learning_rate": str(LR),
-                  "batch_size": str(MESH_GLOO_BATCH), "seed": str(seed), "use_native": "0"})
+                  "batch_size": str(MESH_GLOO_BATCH), "seed": str(seed), "use_native": "0",
+                  **{k: str(v) for k, v in over.items()}})
     vocab = Vocab([f"w{i}" for i in range(MESH_GLOO_VOCAB)], counts)
     return Word2VecTrainer(cfg, mesh=mesh, corpus_ids=ids, vocab=vocab, device=device)
 
@@ -4958,6 +4993,8 @@ def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) ->
         seq = make_mesh(MESH_SEQLM, device=MESH_SEQLM_DEVICE)
         out["seqlm"] = _mesh_seqlm_run(seed, MESH_SEQLM_DEVICE, seq)
         out["seq_coords"] = seq.coords
+        out["tier"] = _gloo_tier_runs(seed, mesh, out_dir)
+        out["serve"] = _gloo_serve(seed)
         dist.destroy_process_group()
     except Exception:
         out = {"error": traceback.format_exc()}
@@ -5218,10 +5255,11 @@ def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
     layouts = _gloo_ctr_layouts_check(by)
     wire = _gloo_wire_check(seed, by, solo)
     seqlm = _mesh_gloo_seqlm(seed, results)
+    tier = _gloo_tier_check(results)
     return {"device": MESH_GLOO_DEVICE, "backend": results[0]["backend"],
             "mesh": MESH_GLOO, "ranks": size, "steps": MESH_GLOO_STEPS,
             "widedeep": widedeep, "hybrid": hybrid, "ctr_layouts": layouts, "wire": wire,
-            "seqlm": seqlm,
+            "seqlm": seqlm, "tier": tier,
             "reduced": {"vocab": [MESH_GLOO_VOCAB, VOCAB],
                         "batch": [MESH_GLOO_BATCH, BATCH],
                         "grouped_centers": [MESH_GLOO_BATCH, GROUPED_BATCH],
@@ -5344,10 +5382,12 @@ def _nccl_mesh(tmp: str):
         dist.destroy_process_group()
 
 
-def _mesh_nccl_leg(seed: int, corpora, mesh) -> dict:
+def _mesh_nccl_leg(seed: int, corpora, mesh, keep: dict) -> dict:
     """Leg 1: ``Word2VecTrainer(mesh=...)`` under ``TrainLoop`` on a (1, 1)
     mesh of a one-rank NCCL group, at full width, against the unmeshed
-    run of the same steps: tables bit-equal, launches equal."""
+    run of the same steps: tables bit-equal, launches equal. ``keep``
+    gets the meshed packed+pool run's tables (on the host) and losses,
+    the tier leg's resident meshed run."""
     import torch.distributed as dist
 
     from swiftsnails_tpu_torch.parallel import transfer
@@ -5365,6 +5405,9 @@ def _mesh_nccl_leg(seed: int, corpora, mesh) -> dict:
                           "step_ms_median": statistics.median(
                               r["seconds"] * 1e3 for r in records[1:]),
                           "losses": [r["loss"] for r in records]}
+            if phase == "train" and name == "mesh":
+                keep.update(tables=_table_on_cpu(state), losses=runs[name]["losses"],
+                            step_ms_median=runs[name]["step_ms_median"])
             del trainer, loop
         diff = max(float((a.table - b.table).abs().max())
                    for a, b in zip(runs["mesh"]["state"], runs["one_device"]["state"]))
@@ -5660,6 +5703,8 @@ def _mesh_ctr_run(seed: int, data, mesh, steps: int, over=None, **keys) -> dict:
         raise AssertionError(f"mesh ctr {over} {keys}: losses {losses}")
     return {"trainer": trainer, "state": state, "losses": losses, "launches": launches,
             "comm_bytes": transfer.comm_bytes(),
+            "tier": loop.tier.summary() if loop.tier is not None else None,
+            "tier_checksums": loop.tier.checksums if loop.tier is not None else None,
             "step_ms_median": statistics.median(r["seconds"] * 1e3 for r in records[1:])}
 
 
@@ -6176,14 +6221,372 @@ def _gloo_wire_check(seed: int, by: dict, solo) -> dict:
     return out
 
 
-def phase_mesh(seed: int, corpora, env: dict) -> dict:
-    """Phase 21: word2vec, CTR, checkpoints and ``seqlm`` under a mesh
-    (module docstring)."""
+# ------------------------------------------ the tier and serving under a mesh ---
+
+# leg 1 (the (1, 1) NCCL mesh at full width): packed+pool behind the tiered
+# phase's 64 MB and widedeep.conf behind 192 MB, MESH_STEPS / MESH_CTR_STEPS
+# steps; a meshed servant and fleet from the serve phase's step-4 checkpoint
+MESH_TIER_REPLICAS = 2
+# leg 2 (the four gloo ranks): packed+pool and packed: 0 tiered MESH_GLOO_TIER_STEPS
+# steps on the (2, 2) mesh, the budget MESH_GLOO_TIER_SLACK x a step's distinct
+# units; a (1, 4) servant over a [MESH_GLOO_VOCAB, 200] table
+MESH_GLOO_TIER_STEPS = 4
+MESH_GLOO_TIER_SAVE = 2
+MESH_GLOO_TIER_SLACK = 1.25
+MESH_GLOO_SERVE = {"data": 1, "model": 4}
+MESH_GLOO_SERVE_IDS = 2_000
+MESH_GLOO_SERVE_TOPK = 4
+
+
+def _requests(ids: np.ndarray) -> list:
+    """``ids`` cut into requests of ``SERVE_REQUEST_IDS`` ids in turns."""
+    out, lo = [], 0
+    while lo < len(ids):
+        n = SERVE_REQUEST_IDS[len(out) % len(SERVE_REQUEST_IDS)]
+        out.append(ids[lo:lo + n])
+        lo += n
+    return out
+
+
+def _table_on_cpu(state) -> list:
+    """A word2vec state's two tables on the host (a meshed tier's run
+    returns them on the card, an unmeshed one's on the host)."""
+    return [t.table.cpu() for t in state]
+
+
+def _mesh_tier_w2v(seed: int, corpora, mesh, resident: dict) -> dict:
+    """Leg 1's packed+pool tier: behind ``TIER``'s 64 MB (no digests:
+    ``tier_checksums: 0``), ``MESH_STEPS`` steps on one device and on the
+    (1, 1) mesh, against each other and the leg's resident meshed run
+    (``resident``: :func:`_mesh_nccl_leg`'s): the three bit-equal,
+    evictions on both tiers, the same launches of the row kernels on both
+    tiers (``gather_rows`` for the pulls and the evicted slots' reads,
+    ``scatter_write_rows`` a fault's install, ``scatter_add_rows`` the
+    pushes)."""
+    runs, tables = {"resident": resident}, {"resident": resident["tables"]}
+    for name, m in (("one_device", None), ("mesh", mesh)):
+        run = _tier_w2v(seed, corpora, MESH_STEPS, mesh=m, **TIER, tier_checksums=0)
+        tables[name] = _table_on_cpu(run["state"])
+        runs[name] = run
+        del run["state"]
+        torch.cuda.empty_cache()
+    # the losses of a meshed run are summed over the global batch and
+    # divided (``total``), the unmeshed run's a mean: compared on the mesh
+    for name in ("one_device", "resident"):
+        diff = max(float((a - b).abs().max()) for a, b in zip(tables[name], tables["mesh"]))
+        if not all(torch.equal(a, b) for a, b in zip(tables[name], tables["mesh"])):
+            raise AssertionError(f"mesh tier: the meshed tier's tables are {diff} from the "
+                                 f"{name} run's (bit-equal expected)")
+    if runs["resident"]["losses"] != runs["mesh"]["losses"]:
+        raise AssertionError(f"mesh tier: losses {runs['mesh']['losses']}, resident meshed "
+                             f"{runs['resident']['losses']}")
+    s = {k: runs[k]["loop"].tier.summary() for k in ("one_device", "mesh")}
+    if not (s["mesh"]["evictions"] > 0 and s["mesh"]["flushed_rows"] > 0):
+        raise AssertionError(f"mesh tier: no eviction under the mesh: {s['mesh']}")
+    kernels = ("gather_rows", "scatter_add_rows", "scatter_write_rows")
+    got = {k: runs["mesh"]["launches"][k] for k in kernels}
+    want = {k: runs["one_device"]["launches"][k] for k in kernels}
+    if got != want:
+        raise AssertionError(f"mesh tier: launches {got}, the unmeshed tier's {want}")
+    _tier_launches("mesh tier", runs["mesh"], 2 * MESH_STEPS,
+                   {"scatter_add_rows": 2 * MESH_STEPS})
+    p = runs["mesh"]["probe"]
+    shapes = {"install_rows_median": statistics.median(p["installs"]),
+              "snapshot_rows_median": statistics.median(p["evict_snapshots"]),
+              "cache": [s["mesh"]["tables"]["in_table"]["budget_slots"], -(-DIM // 128), 128]}
+    out = {"steps": MESH_STEPS, "budget_mb": TIER["tier_hbm_budget_mb"], "bit_equal": True,
+           "tables": s["mesh"]["tables"], "evictions": s["mesh"]["evictions"],
+           "flushed_rows": s["mesh"]["flushed_rows"], "faults": s["mesh"]["faults"],
+           "launches": got, "shapes": shapes,
+           "step_ms_median": {k: runs[k]["step_ms_median"] for k in runs},
+           "losses": runs["mesh"]["losses"]}
+    return out
+
+
+def _mesh_tier_widedeep(seed: int, mesh) -> dict:
+    """Leg 1's W&D tier: widedeep.conf behind ``TIER_WD_BUDGET_MB`` (raised
+    while a step's tiles exceed it), ``MESH_CTR_STEPS`` steps on one device
+    and on the (1, 1) mesh: bit-equal (every array, every loss), evictions
+    on the mesh, the launches of the row kernels equal. The tier keeps its
+    defaults, its digests on (``tier_checksums``): leg 1's run of the
+    default meshed tier at full width."""
+    from swiftsnails_tpu_torch.models.registry import get_model
+    from swiftsnails_tpu_torch.utils.tree import tensor_items
+
+    data, _ = _ctr_data(seed)
+    cfg = _widedeep_config(seed)
+    tiles = _wd_tiles(seed, get_model(cfg.get_str("model"))(cfg, data=data))[:MESH_CTR_STEPS]
+    budget = TIER_WD_BUDGET_MB
+    while max(tiles) > budget * (1 << 20) // 1024 and budget + TIER_WD_STEP_MB < 256:
+        budget += TIER_WD_STEP_MB
+    keys = {"table_tier": "host", "tier_hbm_budget_mb": budget}
+    runs = {name: _mesh_ctr_run(seed, data, m, MESH_CTR_STEPS, **keys)
+            for name, m in (("one_device", None), ("mesh", mesh))}
+    for (key, a), (_, b) in zip(tensor_items(runs["mesh"]["state"]),
+                                tensor_items(runs["one_device"]["state"]), strict=True):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"mesh tier widedeep: {key} differs from the unmeshed "
+                                 "tier's (bit-equal expected)")
+    if runs["mesh"]["losses"] != runs["one_device"]["losses"]:
+        raise AssertionError("mesh tier widedeep: losses differ from the unmeshed tier's")
+    summary = runs["mesh"]["tier"]
+    if not summary["evictions"] > 0:
+        raise AssertionError(f"mesh tier widedeep: no eviction: {summary}")
+    kernels = ("gather_rows", "scatter_adagrad_fused_rows", "scatter_write_rows")
+    got = {k: runs["mesh"]["launches"][k] for k in kernels}
+    want = {k: runs["one_device"]["launches"][k] for k in kernels}
+    if got != want:
+        raise AssertionError(f"mesh tier widedeep: launches {got}, unmeshed {want}")
+    if runs["mesh"]["tier_checksums"] is not True:
+        raise AssertionError("mesh tier widedeep: the tier's digests are off (the default is on)")
+    table = summary["tables"]["table"]
+    return {"config": WIDEDEEP_CONF, "budget_mb": budget, "steps": MESH_CTR_STEPS,
+            "bit_equal": True, "checksums": True, "evictions": summary["evictions"],
+            "budget_tiles": table["budget_slots"], "master_tiles": table["master_units"],
+            "launches": got, "wd_cache": [table["budget_slots"], 2, 128],
+            "wd_pushed_tiles": tiles[0],
+            "step_ms_median": {k: r["step_ms_median"] for k, r in runs.items()}}
+
+
+def _mesh_serve_leg(seed: int, mesh, serve: dict, rate: float) -> dict:
+    """Leg 1's serving: a meshed servant and a meshed fleet of
+    ``MESH_TIER_REPLICAS`` from the serve phase's step-4 checkpoint, against
+    the unmeshed servant: ``SERVE_PULL_IDS`` zipf ids in requests of
+    ``SERVE_REQUEST_IDS``, bit-equal; ``SERVE_TOPK_QUERIES`` topk of
+    ``SERVE_K``, the same ids; ``SERVE_DELTA_ROWS`` rows through
+    ``apply_rows`` pulled back; the tiered servant behind 64 MB under the
+    mesh, its pulls bit-equal. Then ``gather_rows`` at the meshed pull's
+    owned gathers (the bucket shapes, on the meshed servant's shard)."""
+    from swiftsnails_tpu_torch.serving import Fleet, Servant, mesh_serve
+    from swiftsnails_tpu_torch.utils.config import Config
+
+    t0 = time.monotonic()
+    cfg, root = serve["cfg"], serve["root"]
+    rng = np.random.default_rng(seed + 23)
+    requests = _requests(zipf_ids(SERVE_PULL_IDS, CLI_CAPACITY, rng))
+    queries = rng.integers(0, CLI_CAPACITY, SERVE_TOPK_QUERIES)
+    dids = rng.choice(CLI_CAPACITY, SERVE_DELTA_ROWS, replace=False)
+    vals = rng.standard_normal((SERVE_DELTA_ROWS, cfg.get_int("dim"))).astype(np.float32)
+    out = {}
+    with Servant.from_checkpoint(root, cfg, step=SERVE_TRAIN_STEPS) as ref:
+        want = [ref.pull(r) for r in requests]
+        want_topk = [ref.topk(ref.pull([int(q)])[0], k=SERVE_K) for q in queries]
+        with mesh_serve.leading(mesh):
+            sv = Servant.from_checkpoint(root, cfg, step=SERVE_TRAIN_STEPS, mesh=mesh)
+            fleet = Fleet.from_checkpoint(root, cfg, step=SERVE_TRAIN_STEPS, mesh=mesh,
+                                          replicas=MESH_TIER_REPLICAS)
+            tcfg = Config({**cfg.as_dict(), "table_tier": "host",
+                           "tier_hbm_budget_mb": str(TIER["tier_hbm_budget_mb"])})
+            tier_sv = Servant.from_checkpoint(root, tcfg, step=SERVE_TRAIN_STEPS, mesh=mesh)
+            try:
+                for name, target in (("servant", sv), ("fleet", fleet), ("tiered", tier_sv)):
+                    got, launches = _run_counted(lambda: [target.pull(r) for r in requests])
+                    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(f"mesh serve {name}: a pull differs from the "
+                                             "unmeshed servant's")
+                    topk = []
+                    for q, w in zip(queries, want_topk):
+                        a = target.topk(target.pull([int(q)])[0], k=SERVE_K)
+                        err = max(abs(x[1] - y[1]) for x, y in zip(a, w))
+                        if [x[0] for x in a] != [y[0] for y in w] or err > TIER_TOPK_ATOL:
+                            raise AssertionError(f"mesh serve {name}: topk {a} vs {w}")
+                        topk.append(err)
+                    out[name] = {"pull_launches": {k: launches[k] for k in
+                                                   ("gather_rows", "scatter_write_rows")},
+                                 "topk_max_abs_err": max(topk)}
+                for name, target in (("servant", sv), ("fleet", fleet), ("tiered", tier_sv)):
+                    target.apply_rows({"in_table": (dids, vals)})
+                    for c in range(0, SERVE_DELTA_ROWS, SERVE_BUCKETS[-1]):
+                        if not np.array_equal(target.pull(dids[c:c + SERVE_BUCKETS[-1]]),
+                                              vals[c:c + SERVE_BUCKETS[-1]]):
+                            raise AssertionError(f"mesh serve {name}: apply_rows not pulled "
+                                                 "back")
+                    out[name]["apply_rows"] = SERVE_DELTA_ROWS
+                out["tiered"]["tiered"] = tier_sv.stats()["tiered"]
+                if not out["tiered"]["tiered"]["faults"] > 0:
+                    raise AssertionError(f"mesh serve tiered: {out['tiered']['tiered']}")
+                shard = sv._tables["in_table"]
+                for n in SERVE_BUCKETS:
+                    sets = [torch.from_numpy(zipf_ids(n, CLI_CAPACITY, rng)).to(shard.device)
+                            for _ in range(ROW_SETS)]
+                    case = _gather_case(shard, sets, rate)
+                    emit("kernel", name="gather_rows", dtype="torch.float32", path="mesh_serve",
+                         rows=n, **case)
+                    out[f"gather_rows_b{n}"] = {"shape": [n, shard.shape[1]], **case}
+            finally:
+                for target in (sv, fleet, tier_sv):
+                    target.close()
+    out.update(replicas=MESH_TIER_REPLICAS, ids=SERVE_PULL_IDS, requests=list(SERVE_REQUEST_IDS),
+               topk=SERVE_TOPK_QUERIES, k=SERVE_K, bit_equal=True,
+               seconds=time.monotonic() - t0)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gloo_tier_budget_mb(trainer, seed: int) -> float:
+    """A budget of ``MESH_GLOO_TIER_SLACK`` x the most distinct units a table
+    of ``trainer`` touches in one of its first ``MESH_GLOO_TIER_STEPS``
+    steps (the tier's own plan of the global batches), both tables."""
+    most = 0
+    for step, batch in zip(range(MESH_GLOO_TIER_STEPS), trainer.batches()):
+        ids, _, _ = trainer.tier_plan(batch, seed, step)
+        most = max(most, *(np.unique(v).size for v in ids.values()))
+    unit = (-(-DIM // 128) * 128 if trainer.packed else DIM) * 4
+    return 2 * math.ceil(MESH_GLOO_TIER_SLACK * most) * unit / float(1 << 20)
+
+
+def _gloo_tier_runs(seed: int, mesh, out_dir: str) -> dict:
+    """Leg 2's tier on this rank: packed+pool and ``packed: 0``
+    ``MESH_GLOO_TIER_STEPS`` steps resident and tiered (async flush), the
+    tables bit-equal (checked here), the tier's counters and slot maps (for
+    the parent's check that every rank holds the same); then packed+pool
+    tiered saved at ``MESH_GLOO_TIER_SAVE`` and resumed, bit-equal to the
+    straight tiered run."""
+    out = {}
+    for plane, over in (("packed", {}), ("dense", {"packed": 0})):
+        loop, losses = _loss_loop(_mesh_gloo_trainer(seed, MESH_GLOO_DEVICE, mesh, **over))
+        resident = _table_on_cpu(loop.run(seed=seed, max_steps=MESH_GLOO_TIER_STEPS))
+        budget = _gloo_tier_budget_mb(loop.trainer, seed)
+        keys = {**over, "table_tier": "host", "tier_hbm_budget_mb": budget,
+                "tier_async_flush": 1}
+        tloop, tlosses = _loss_loop(_mesh_gloo_trainer(seed, MESH_GLOO_DEVICE, mesh, **keys))
+        state, launches = _run_counted(lambda: tloop.run(seed=seed,
+                                                         max_steps=MESH_GLOO_TIER_STEPS))
+        tiered = _table_on_cpu(state)
+        s = tloop.tier.summary()
+        out[plane] = {"bit_equal": all(torch.equal(a, b) for a, b in zip(tiered, resident))
+                      and tlosses == losses,
+                      "budget_mb": budget, "evictions": s["evictions"],
+                      "flushed_rows": s["flushed_rows"], "faults": s["faults"],
+                      "launches": launches, "tables": s["tables"],
+                      "slot_of": {k: torch.from_numpy(t.slot_of.copy())  # torch.load-able
+                                  for k, t in tloop.tier.tables.items()}}
+        if plane == "packed":
+            out["save"] = {"straight": tiered, "losses": tlosses, "keys": keys}
+        del state, loop, tloop
+    keys = out["save"].pop("keys")
+    root = os.path.join(out_dir, "ck-gloo-tier")
+    ck = {"param_backup_root": root, "param_backup_period": MESH_GLOO_TIER_SAVE}
+    loop, _ = _loss_loop(_mesh_gloo_trainer(seed, MESH_GLOO_DEVICE, mesh, **keys, **ck))
+    loop.run(seed=seed, max_steps=MESH_GLOO_TIER_SAVE)
+    loop, losses = _loss_loop(_mesh_gloo_trainer(seed, MESH_GLOO_DEVICE, mesh, **keys, **ck,
+                                                 resume="auto"))
+    resumed = _table_on_cpu(loop.run(seed=seed, max_steps=MESH_GLOO_TIER_STEPS))
+    save = out.pop("save")
+    out["resume"] = {"bit_equal": all(torch.equal(a, b) for a, b in
+                                      zip(resumed, save["straight"]))
+                     and losses == save["losses"][MESH_GLOO_TIER_SAVE:],
+                     "saved_at": MESH_GLOO_TIER_SAVE, "resumed_to": MESH_GLOO_TIER_STEPS}
+    return out
+
+
+def _gloo_serve(seed: int) -> dict:
+    """Leg 2's serving on a ``MESH_GLOO_SERVE`` mesh of the four ranks: a
+    servant over a ``[MESH_GLOO_VOCAB, 200]`` table drawn from ``seed`` on
+    every rank; rank 0 leads and holds its pulls of ``MESH_GLOO_SERVE_IDS``
+    zipf ids (requests of ``SERVE_REQUEST_IDS``) and ``MESH_GLOO_SERVE_TOPK``
+    topk against one rank's unmeshed servant, the others follow."""
+    from swiftsnails_tpu_torch.parallel.mesh import make_mesh
+    from swiftsnails_tpu_torch.serving import Servant, mesh_serve
+
+    m = make_mesh(MESH_GLOO_SERVE, device=MESH_GLOO_DEVICE)
+    rng = np.random.default_rng(seed + 29)
+    tables = {"in_table": torch.from_numpy(
+        rng.standard_normal((MESH_GLOO_VOCAB, DIM)).astype(np.float32))}
+    sv = Servant(tables, mesh=m)
+    if not mesh_serve.channel(m).leader:
+        with sv:
+            mesh_serve.follow(m)
+        return {"followed": True}
+    requests = _requests(zipf_ids(MESH_GLOO_SERVE_IDS, MESH_GLOO_VOCAB, rng))
+    with mesh_serve.leading(m), sv, Servant(tables, device=MESH_GLOO_DEVICE) as ref:
+        want = [ref.pull(r) for r in requests]
+        got, launches = _run_counted(lambda: [sv.pull(r) for r in requests])
+        topk = []
+        for q in rng.integers(0, MESH_GLOO_VOCAB, MESH_GLOO_SERVE_TOPK):
+            a = sv.topk(tables["in_table"][int(q)].numpy(), k=SERVE_K)
+            b = ref.topk(tables["in_table"][int(q)].numpy(), k=SERVE_K)
+            topk.append(([x[0] for x in a] == [y[0] for y in b],
+                         max(abs(x[1] - y[1]) for x, y in zip(a, b))))
+        return {"pulls_equal": all(np.array_equal(a, b) for a, b in zip(got, want)),
+                "topk_ids_equal": all(t[0] for t in topk),
+                "topk_max_abs_err": max(t[1] for t in topk),
+                "launches": {k: launches[k] for k in ("gather_rows",)}, "mesh": MESH_GLOO_SERVE,
+                "ids": MESH_GLOO_SERVE_IDS, "topk": MESH_GLOO_SERVE_TOPK}
+
+
+def _gloo_tier_check(results: list) -> dict:
+    """Leg 2's tier and serving, from the ranks' results: each plane's
+    tiered tables bit-equal to the resident run on every rank, evictions,
+    the slot maps equal on every rank; the resume bit-equal; the (1, 4)
+    servant's pulls bit-equal to one rank's, its topk ids equal."""
+    out = {}
+    for plane in ("packed", "dense"):
+        runs = [r["tier"][plane] for r in results]
+        if not all(run["bit_equal"] for run in runs):
+            raise AssertionError(f"mesh gloo tier {plane}: a rank's tiered tables differ "
+                                 "from the resident run's (bit-equal expected)")
+        if not runs[0]["evictions"] > 0:
+            raise AssertionError(f"mesh gloo tier {plane}: no eviction ({runs[0]})")
+        for r, run in enumerate(runs):
+            same = all(torch.equal(run["slot_of"][k], runs[0]["slot_of"][k])
+                       for k in runs[0]["slot_of"])
+            if not same or run["evictions"] != runs[0]["evictions"]:
+                raise AssertionError(f"mesh gloo tier {plane}: rank {r}'s slot map or "
+                                     "counters differ from rank 0's")
+        out[plane] = {"bit_equal": True, "slot_maps_equal": True,
+                      **{k: runs[0][k] for k in ("budget_mb", "evictions", "flushed_rows",
+                                                 "faults", "tables")},
+                      "launches_by_rank": [{k: run["launches"][k] for k in
+                                            ("gather_rows", "scatter_add_rows",
+                                             "scatter_write_rows")} for run in runs]}
+    if not all(r["tier"]["resume"]["bit_equal"] for r in results):
+        raise AssertionError("mesh gloo tier: the resumed tiered run differs from the "
+                             "straight one")
+    out["resume"] = results[0]["tier"]["resume"]
+    lead = [r["serve"] for r in results if "followed" not in r["serve"]]
+    if len(lead) != 1 or not (lead[0]["pulls_equal"] and lead[0]["topk_ids_equal"]
+                              and lead[0]["topk_max_abs_err"] <= TIER_TOPK_ATOL):
+        raise AssertionError(f"mesh gloo serve: {lead}")
+    out["serve"] = lead[0]
+    return out
+
+
+def _mesh_tier_kernel_entries(summary: dict, mesh: dict) -> list:
+    """The ``kernels`` line's ``path: "mesh_tier"`` entries (the tiered
+    path's kernels at the meshed tier's shapes, with leg 1's launches) and
+    ``"mesh_serve"`` ones (the owned gather of a meshed pull at the bucket
+    shapes, with the meshed servant's launches)."""
+    out = _tiered_kernel_entries(summary, mesh["tier"], path="mesh_tier")
+    for n in SERVE_BUCKETS:
+        s = mesh["serve"][f"gather_rows_b{n}"]
+        out.append({
+            "name": "gather_rows", "route": "cuda",
+            "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": "swiftsnails_tpu/ops/rowdma.py:114",
+            "launches": mesh["serve"]["servant"]["pull_launches"]["gather_rows"],
+            "max_abs_err": s["max_abs_err"], "ms": s["kernel_ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": s["library_ms"],
+            "shape": s["shape"], "dtype": "float32", "path": "mesh_serve"})
+    return out
+
+
+def phase_mesh(seed: int, corpora, env: dict, serve: dict) -> dict:
+    """Phase 21: word2vec, CTR, checkpoints, ``seqlm``, the tier and
+    serving under a mesh (module docstring). ``serve``: the serve phase's
+    checkpoint (``root``, ``cfg``)."""
     t_phase = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="ssn-mesh-")
     try:
         with _nccl_mesh(tmp) as mesh:
-            nccl = _mesh_nccl_leg(seed, corpora, mesh)
+            resident = {}
+            nccl = _mesh_nccl_leg(seed, corpora, mesh, resident)
+            t_tier = time.monotonic()
+            tier_w2v = _mesh_tier_w2v(seed, corpora, mesh, resident)
+            del resident
+            tier_wd = _mesh_tier_widedeep(seed, mesh)
+            tier_s = time.monotonic() - t_tier
+            serve_leg = _mesh_serve_leg(seed, mesh, serve, env["mem_rate_Bps"])
             t_grouped = time.monotonic()
             grouped = _mesh_grouped_leg(seed, corpora, mesh)
             grouped["seconds"] = time.monotonic() - t_grouped
@@ -6195,10 +6598,17 @@ def phase_mesh(seed: int, corpora, env: dict) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seconds = time.monotonic() - t_phase
+    tier = {"w2v": {k: v for k, v in tier_w2v.items() if k != "shapes"},
+            "widedeep": tier_wd, "seconds": tier_s}
     emit("mesh", nccl=nccl, grouped=grouped, hybrid=hybrid, ctr=ctr, ctr_layouts=ctr_layouts,
-         wire=wire, gloo=gloo, seconds=seconds, device=env["device"],
-         nvidia_smi=env["nvidia_smi"])
-    return {"launches": nccl["train"]["launches"],
+         wire=wire, tier=tier, serve=serve_leg, gloo=gloo, seconds=seconds,
+         device=env["device"], nvidia_smi=env["nvidia_smi"])
+    return {"tier": {"launches": {**tier_w2v["launches"], "scatter_adagrad_fused_rows":
+                                  tier_wd["launches"]["scatter_adagrad_fused_rows"]},
+                     "shapes": {**tier_w2v["shapes"], "wd_cache": tier_wd["wd_cache"],
+                                "wd_pushed_tiles": tier_wd["wd_pushed_tiles"]}},
+            "serve": serve_leg,
+            "launches": nccl["train"]["launches"],
             "grouped_launches": grouped["plain"]["launches"],
             "ctr_launches": ctr["launches"],
             "gloo_ctr_launches": gloo["widedeep"]["launches_by_rank"],
@@ -6446,18 +6856,28 @@ def _mesh_ctr_kernel_entries(summary: dict, mesh: dict) -> list:
 
 def _only_mesh(seed: int, env: dict, t_start: float) -> int:
     """``--only mesh``: the kernels' phase 3 and the W&D row kernels'
-    phase (the mesh entries' numbers), the mesh phase and the kernels at
-    the grouped plane's shapes."""
+    phase (the mesh entries' numbers), a serve checkpoint of its own (the
+    meshed servants'), the mesh phase and the kernels at the grouped
+    plane's and the meshed tier's shapes."""
     summary = phase_kernels(seed, env["mem_rate_Bps"])
     summary.update(phase_ctr_kernels(seed, env["mem_rate_Bps"]))
     corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
-    mesh = phase_mesh(seed, corpora, env)
+    tmp = tempfile.mkdtemp(prefix="ssn-serve-")
+    try:
+        root = os.path.join(tmp, "ckpt")
+        built = _build_serve_checkpoint(seed, corpora, root, "cuda")
+        mesh = phase_mesh(seed, corpora, env, {"root": root, "cfg": built["cfg"]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     cases = phase_mesh_grouped_kernels(seed, corpora, env["mem_rate_Bps"])
     hybrid = phase_mesh_hybrid_kernels(seed, corpora, env["mem_rate_Bps"])
+    summary.update(phase_tiered_kernels(mesh["tier"], seed, env["mem_rate_Bps"],
+                                        path="mesh_tier"))
     emit("kernels", kernels=_mesh_kernel_entries(summary, mesh)
          + _mesh_grouped_kernel_entries(cases, mesh)
          + _mesh_ctr_kernel_entries(summary, mesh)
-         + _mesh_hybrid_kernel_entries(hybrid, mesh))
+         + _mesh_hybrid_kernel_entries(hybrid, mesh)
+         + _mesh_tier_kernel_entries(summary, mesh))
     emit("total", seconds=time.monotonic() - t_start)
     return 0
 
@@ -6594,6 +7014,7 @@ def main() -> int:
         served = phase_serve(args.seed, corpora, env, widedeep)
     finally:
         shutil.rmtree(serve_tmp, ignore_errors=True)
+    serve_tmp = served["tmp"]
     try:
         summary.update(phase_serve_kernels(served, args.seed, env["mem_rate_Bps"]))
         emit("serve_total", seconds=served["seconds"], device=env["device"],
@@ -6606,15 +7027,19 @@ def main() -> int:
         emit("tiered_total", seconds=tiered["seconds"], device=env["device"],
              nvidia_smi=env["nvidia_smi"])
         fresh = phase_freshness(args.seed, corpora, env, served)
+        serve_ckpt = {"root": served["root"], "cfg": served["cfg"]}
+        del served
+        summary.update(phase_freshness_kernels(fresh, args.seed, env["mem_rate_Bps"]))
+        emit("freshness_total", seconds=fresh["seconds"], device=env["device"],
+             nvidia_smi=env["nvidia_smi"])
+        cluster = phase_cluster(args.seed, corpora, env)
+        phase_seqlm(args.seed, env)
+        # the mesh phase's servants load the serve phase's step-4 checkpoint
+        mesh = phase_mesh(args.seed, corpora, env, serve_ckpt)
     finally:
-        shutil.rmtree(served["tmp"], ignore_errors=True)
-    del served
-    summary.update(phase_freshness_kernels(fresh, args.seed, env["mem_rate_Bps"]))
-    emit("freshness_total", seconds=fresh["seconds"], device=env["device"],
-         nvidia_smi=env["nvidia_smi"])
-    cluster = phase_cluster(args.seed, corpora, env)
-    phase_seqlm(args.seed, env)
-    mesh = phase_mesh(args.seed, corpora, env)
+        shutil.rmtree(serve_tmp, ignore_errors=True)
+    summary.update(phase_tiered_kernels(mesh["tier"], args.seed, env["mem_rate_Bps"],
+                                        path="mesh_tier"))
     mesh_grouped = phase_mesh_grouped_kernels(args.seed, corpora, env["mem_rate_Bps"])
     mesh_hybrid = phase_mesh_hybrid_kernels(args.seed, corpora, env["mem_rate_Bps"])
     kernels = []
@@ -6704,6 +7129,7 @@ def main() -> int:
     kernels.extend(_mesh_grouped_kernel_entries(mesh_grouped, mesh))
     kernels.extend(_mesh_ctr_kernel_entries(summary, mesh))
     kernels.extend(_mesh_hybrid_kernel_entries(mesh_hybrid, mesh))
+    kernels.extend(_mesh_tier_kernel_entries(summary, mesh))
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),
                            ("chunk_probe", "tools/sem_probe.py:164"),
                            ("pipe_probe", "tools/sem_probe.py:233")):

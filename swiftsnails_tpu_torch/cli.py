@@ -83,31 +83,41 @@ from swiftsnails_tpu_torch.utils.flags import parse_role_argv
 from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
 
 
+def _world_mesh(cfg: Config):
+    """The JAX CLI's mesh over the world (its ``_serve_mesh`` too): ``None``
+    with ``local_train: 1`` or a world of one process, else ``model_axis``
+    ranks on ``model`` (default: the first of 4, 2, 1 that divides the world
+    and is smaller than it), the rest on ``data``, on the ``device`` key's
+    device."""
+    from swiftsnails_tpu_torch.parallel.cluster import process_info
+    from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+
+    _, n = process_info()
+    if cfg.get_bool("local_train", False) or n == 1:
+        return None
+    model_axis = cfg.get_int("model_axis", 0)
+    if model_axis <= 0:
+        model_axis = next((c for c in (4, 2, 1) if n % c == 0 and n > c), 1)
+    return make_mesh({DATA_AXIS: n // model_axis, MODEL_AXIS: model_axis},
+                     device=cfg.get_str("device", "") or None)
+
+
 def _build_trainer(cfg: Config):
     """The ``model`` key's trainer on the ``device`` key's device (default:
-    the card). ``local_train: 1`` or a world of one process: no mesh.
-    Otherwise the JAX CLI's mesh: ``model_axis`` ranks on ``model`` (default:
-    the first of 4, 2, 1 that divides the world and is smaller than it), the
-    rest on ``data``."""
+    the card), under :func:`_world_mesh`'s mesh where there is one."""
     import inspect
 
     from swiftsnails_tpu_torch.framework.trainer import _unported_mesh
     from swiftsnails_tpu_torch.models.registry import get_model
-    from swiftsnails_tpu_torch.parallel.cluster import process_info
-    from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 
     name = cfg.get_str("model", "word2vec")
     trainer_cls = get_model(name)
     device = cfg.get_str("device", "") or None
-    _, n = process_info()
-    if cfg.get_bool("local_train", False) or n == 1:
+    mesh = _world_mesh(cfg)
+    if mesh is None:
         return trainer_cls(cfg, device=device)
     if "mesh" not in inspect.signature(trainer_cls).parameters:
         _unported_mesh(f"model: {name}")
-    model_axis = cfg.get_int("model_axis", 0)
-    if model_axis <= 0:
-        model_axis = next((c for c in (4, 2, 1) if n % c == 0 and n > c), 1)
-    mesh = make_mesh({DATA_AXIS: n // model_axis, MODEL_AXIS: model_axis}, device=device)
     return trainer_cls(cfg, mesh=mesh, device=device)
 
 
@@ -187,10 +197,14 @@ def cmd_serve(argv: List[str]) -> int:
     TcpDeltaSource` instead. ``freshness`` reports the applied-seq
     watermark, lag, and fallback count (also rolled into ``health``;
     fleets add per-replica versions).
-    """
-    import json
 
-    from swiftsnails_tpu_torch.serving import Fleet, Overloaded, Servant, Unavailable
+    With ``expected_node_num`` N > 1 (and ``master_addr``; the rank from
+    ``RANK``) the N processes join a cluster and serve one checkpoint under
+    a training run's mesh (:func:`_world_mesh`): rank 0 reads stdin and
+    answers, the others follow it (:mod:`~swiftsnails_tpu_torch.serving.mesh_serve`)
+    and print nothing; they exit when rank 0 does.
+    """
+    from swiftsnails_tpu_torch.parallel.cluster import initialize_cluster
     from swiftsnails_tpu_torch.telemetry.ledger import Ledger
 
     cfg = parse_role_argv(argv)
@@ -200,14 +214,37 @@ def cmd_serve(argv: List[str]) -> int:
     ledger = Ledger(ledger_path) if ledger_path else None
     replicas = cfg.get_int("replicas", cfg.get_int("serve_replicas", 1))
     fleet_mode = replicas > 1
+    joined = initialize_cluster(cfg)
+    try:
+        return _serve_repl(cfg, root, device, ledger, replicas, fleet_mode, _world_mesh(cfg))
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve_repl(cfg, root, device, ledger, replicas, fleet_mode, mesh) -> int:
+    """:func:`cmd_serve`'s server and REPL (a follower rank: its loop)."""
+    import contextlib
+    import json
+
+    from swiftsnails_tpu_torch.serving import Fleet, Overloaded, Servant, Unavailable, mesh_serve
+
     if fleet_mode:
-        server_cm = Fleet.from_checkpoint(root, cfg, device=device,
+        server_cm = Fleet.from_checkpoint(root, cfg, device=device, mesh=mesh,
                                           replicas=replicas, ledger=ledger)
     else:
-        server_cm = Servant.from_checkpoint(root, cfg, device=device, ledger=ledger)
+        server_cm = Servant.from_checkpoint(root, cfg, device=device, mesh=mesh,
+                                            ledger=ledger)
+    if mesh is not None and not mesh_serve.channel(mesh).leader:
+        with server_cm:
+            mesh_serve.follow(mesh)
+        return 0
     subscriber = None
     delta_source = None
-    with server_cm as servant:
+    with server_cm as servant, (mesh_serve.leading(mesh) if mesh is not None
+                                else contextlib.nullcontext()):
         if fleet_mode:
             banner = (f"serving fleet of {replicas} replicas "
                       "(one request per line; pull/topk/score/stats/"

@@ -466,6 +466,10 @@ def save_checkpoint(
 
     ``mesh``: ``state`` is this rank's part of a state sharded over it;
     every rank calls this, and the save is synchronous (module docstring).
+    With ``tier`` too, the whole masters (``tier.master_state``, every rank
+    flushing its cache shard) are cut to this rank's model rows
+    (``tier.shard_state``) first, so the files and CRCs are a resident
+    meshed save's.
 
     ``zero``, ``placement`` and ``dense_tp`` (a
     :class:`~swiftsnails_tpu_torch.parallel.zero.ZeroManager`, a
@@ -483,6 +487,8 @@ def save_checkpoint(
         if layout is not None:
             state = layout.master_state(state)
     if mesh is not None:
+        if tier is not None:
+            state = tier.shard_state(tier.master_state(state))
         _join_writer()
         entry = {"root": root, "path": _step_dir(root, step), "step": int(step),
                  "cursor": cursor, "config_hash": config_hash, "keep": keep,

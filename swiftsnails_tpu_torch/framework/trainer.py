@@ -46,7 +46,12 @@ on every rank. Checkpoints and resume work there: every rank saves and
 restores its shards together (``framework/checkpoint.py``, synchronous
 under a mesh), and a ``chaos_spec`` ``preempt@N`` drains every rank at
 step N with a final save; a SIGTERM is each process's own, and only the
-ranks it reaches drain. Under a mesh the loop adopts three layouts after
+ranks it reaches drain. ``table_tier: host`` works there too: the tier
+plans, faults and remaps the global batch before the rank's part is cut,
+each rank holds the whole master in its host RAM and its model shard of
+the cache, saves write the masters' rank rows (a resident save, file for
+file), and the run returns this rank's shards of the masters on its
+device (``TierManager.shard_state``). Under a mesh the loop adopts three layouts after
 the resume and undoes them (``master_state``) before each save and at the
 end of the run, so checkpoints and the returned state are an unsharded,
 uniform run's: ``dense_tp: 1``'s model slices of the dense tensors
@@ -54,11 +59,11 @@ uniform run's: ``dense_tp: 1``'s model slices of the dense tensors
 split (:mod:`swiftsnails_tpu_torch.parallel.placement`) and
 ``optimizer_sharding: zero``'s ``1 / data`` slices of the optimizer planes
 (:mod:`swiftsnails_tpu_torch.parallel.zero`); the run record carries the
-``placement`` decision and the ``zero`` summary. The guardrail, the tier,
-freshness and cluster membership raise ``NotImplementedError`` there
-(``ROADMAP.md`` Queue 1 item 6, slices 5 and 6; so do the JAX publisher's
-refusal of a hybrid table and the tier's uniform fallback, which come with
-them).
+``placement`` decision and the ``zero`` summary. The guardrail (and the
+tier's integrity sweep, ``tier_verify_period``), freshness and cluster
+membership raise ``NotImplementedError`` there (``ROADMAP.md`` Queue 1
+item 6, slice 6; so does the JAX publisher's refusal of a hybrid table,
+which comes with it).
 """
 
 from __future__ import annotations
@@ -279,7 +284,7 @@ def mesh_device(mesh, device: DeviceLike = None) -> torch.device:
 
 def _unported_mesh(what: str) -> None:
     raise NotImplementedError(
-        f"{what} under a mesh is not ported yet: see ROADMAP.md Queue 1 item 6")
+        f"{what} under a mesh is not ported yet: see ROADMAP.md Queue 1 item 6, slice 6")
 
 
 class _Prefetcher:
@@ -416,7 +421,8 @@ class TrainLoop:
         if trainer.mesh is not None:
             for what, asked in (
                     ("guardrail: 1", cfg.get_bool("guardrail", False)),
-                    ("table_tier: host", cfg.get_str("table_tier", "device") == "host"),
+                    ("tier_verify_period", cfg.get_str("table_tier", "device") == "host"
+                     and cfg.get_int("tier_verify_period", 0) > 0),
                     ("freshness_publish", cfg.get_int("freshness_publish", 0) > 0),
                     ("cluster_workers", cluster is not None
                      or cfg.get_int("cluster_workers", 0) > 0)):
@@ -888,8 +894,11 @@ class TrainLoop:
             # end-of-run write-back: flush every dirty cache slot and hand
             # the caller the full-size master-backed state (the resident
             # state's type, shapes and dtypes, on the host: export and eval
-            # route by the tables' device)
+            # route by the tables' device); under a mesh this rank's shards
+            # of it on its device, as a resident meshed run holds them
             state = tier.master_state(state)
+            if trainer.mesh is not None:
+                state = tier.shard_state(state, device=trainer.device)
         # the layouts undone in reverse: the caller (export, eval, serving)
         # sees the state an unsharded, uniform run returns
         for layout in (self.zero, self.placement, self.dense_tp):

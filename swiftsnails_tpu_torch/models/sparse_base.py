@@ -51,7 +51,9 @@ Config keys: ``num_fields``, ``capacity``, ``learning_rate``, ``optimizer``
 ``use_native`` (the native CTR reader, default on, as in the JAX package),
 ``stream`` and ``rows_per_chunk`` (bounded-memory reading of ``data``),
 ``table_tier`` (``host``: the tiered store, :mod:`swiftsnails_tpu_torch.tiered`,
-on either plane), ``comm_dtype`` and ``comm_int4_block`` (the wire of the
+on either plane; under a mesh on this rank's shard of the cache plane, its
+tiles or rows, in slot space through the plane's own collectives, and
+``placement`` then resolves uniform), ``comm_dtype`` and ``comm_int4_block`` (the wire of the
 small-row plane's collectives under a mesh, :mod:`swiftsnails_tpu_torch.parallel.comm`;
 the push dithers with seed 0 salted by the data index, the same every
 step, as the JAX trainer's does; the 2-D plane and one device keep f32).

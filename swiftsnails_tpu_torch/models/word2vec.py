@@ -54,8 +54,13 @@ whole set of negatives from the step's generator and takes its own part, so
 a pool block must not straddle two data shards. The loss is summed locally
 over the global batch size, so a pair's gradient is the one-device one;
 the reported loss is its sum over ``data``, one all-reduce a call.
-``export_text`` gathers the table and writes from rank 0. The tier raises
-under a mesh.
+``export_text`` gathers the table and writes from rank 0. ``table_tier:
+host`` under a mesh (``packed: 0``, packed+pool and per-pair) trains on
+this rank's shard of each table's cache plane in slot space, through the
+same pull and push collectives (a shard's rows are the cache's); the loop's
+``TierManager`` plans the global batch and the tier's negatives
+(``negs``) stay whole in :meth:`local_batch`, each data shard taking its
+part in the substep, as the drawn ones do.
 
 ``fused: 1, grouped: 1`` under a mesh (with ``resident``, which has no
 meaning there, ``dedup`` or both) is the grouped collective plane
@@ -134,7 +139,6 @@ from swiftsnails_tpu_torch.data.text import byte_span, encode_corpus, encode_cor
 from swiftsnails_tpu_torch.data.vocab import Vocab
 from swiftsnails_tpu_torch.framework.trainer import (
     Trainer,
-    _unported_mesh,
     mesh_device,
     step_generator,
 )
@@ -346,8 +350,6 @@ class Word2VecTrainer(Trainer):
         # the host side of the step (tier_plan makes the step's own draws),
         # so the fault path knows every row before the step.
         self.tiered = cfg.get_str("table_tier", "device") == "host"
-        if mesh is not None and self.tiered:
-            _unported_mesh("table_tier: host")
         if self.tiered and self.fused:
             raise ValueError(
                 "table_tier: host does not compose with fused/grouped "
@@ -584,9 +586,9 @@ class Word2VecTrainer(Trainer):
                 slack=self.bucket_slack, comm_dtype=self.comm_dtype, seed=seed)
             self._dropped(dropped)
             return table_state
-        return transfer.push_collective_packed(self.mesh, table_state, rows, grads,
-                                               self.access, lr, comm_dtype=self.comm_dtype,
-                                               seed=seed, place=place)
+        return transfer.push_collective_packed(self.mesh, table_state, rows, grads, self.access,
+                                               lr, comm_dtype=self.comm_dtype, seed=seed,
+                                               place=place)
 
     def _comm_seed(self, generator: torch.Generator, seed=None):
         """A substep's dither seed: ``None`` unless the wire is int8 or int4
@@ -685,12 +687,21 @@ class Word2VecTrainer(Trainer):
         if hybrid.is_hybrid(table_state):
             return hybrid.push_hybrid(self.mesh, table_state, rows, grads, self.access, lr,
                                       comm_dtype=self.comm_dtype, seed=seed)
-        return transfer.push_collective(self.mesh, table_state, rows, grads,
-                                        self.access, lr)
+        return transfer.push_collective(self.mesh, table_state, rows, grads, self.access, lr)
 
     def _data(self) -> int:
         """Data shards: the mesh's data axis, 1 on one device."""
         return 1 if self.mesh is None else self.mesh.axis_size(DATA_AXIS)
+
+    def local_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """:meth:`Trainer.local_batch`, the tier's planned negatives
+        (``negs``: every substep's whole draw, which the substeps split
+        with :meth:`_data_part`) kept whole."""
+        if "negs" not in batch:
+            return super().local_batch(batch)
+        out = super().local_batch({k: v for k, v in batch.items() if k != "negs"})
+        out["negs"] = batch["negs"]
+        return out
 
     def _data_part(self, draws: torch.Tensor) -> torch.Tensor:
         """This data shard's rows of a substep-wide draw (all of it on one

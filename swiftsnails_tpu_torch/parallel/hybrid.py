@@ -44,7 +44,6 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Union
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from swiftsnails_tpu_torch.parallel.access import AccessMethod
@@ -57,7 +56,13 @@ from swiftsnails_tpu_torch.parallel.comm import (
     stochastic_wire,
     wire_bytes,
 )
-from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from swiftsnails_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    gather_model,
+    model_rows,
+)
 from swiftsnails_tpu_torch.parallel.store import PackedTableState, TableState, small_group
 from swiftsnails_tpu_torch.parallel.transfer import (
     DataLayout,
@@ -103,27 +108,6 @@ def _model(mesh) -> int:
     return 1 if mesh is None else mesh.axis_size(MODEL_AXIS)
 
 
-def _whole(mesh, t: torch.Tensor) -> torch.Tensor:
-    """The whole table of ``t``'s model shards (one all-gather over
-    ``model``, not counted in ``COMM``: a boundary op, outside the steps)."""
-    if _model(mesh) == 1:
-        return t
-    parts = [torch.empty_like(t) for _ in range(_model(mesh))]
-    dist.all_gather(parts, t.contiguous(), group=mesh.groups[MODEL_AXIS])
-    return torch.cat(parts)
-
-
-def _shard(mesh, whole: torch.Tensor) -> torch.Tensor:
-    """This rank's contiguous model shard of ``whole`` (a copy, so the
-    whole table can go)."""
-    model = _model(mesh)
-    if model == 1:
-        return whole
-    per = whole.shape[0] // model
-    m = mesh.axis_index(MODEL_AXIS)
-    return whole[m * per:(m + 1) * per].clone()
-
-
 def split_table(state, cut: int, mesh=None, group: int = 1) -> HybridTableState:
     """Uniform layout -> hybrid, value-preserving.
 
@@ -139,11 +123,11 @@ def split_table(state, cut: int, mesh=None, group: int = 1) -> HybridTableState:
     model = _model(mesh)
 
     def parts(t):
-        whole = _whole(mesh, t)
+        whole = gather_model(mesh, t)
         if (whole.shape[0] - row_cut) % model:
             raise ValueError(f"tail of {whole.shape[0] - row_cut} rows does not split "
                              f"over model axis {model}")
-        return whole[:row_cut].clone(), _shard(mesh, whole[row_cut:])
+        return whole[:row_cut].clone(), model_rows(mesh, whole[row_cut:])
 
     head, tail_table = parts(state.table)
     head_slots, tail_slots = {}, {}
@@ -160,7 +144,7 @@ def merge_table(hs: HybridTableState, mesh=None):
     axis of 1."""
 
     def cat(head, tail):
-        return _shard(mesh, torch.cat([head, _whole(mesh, tail)]))
+        return model_rows(mesh, torch.cat([head, gather_model(mesh, tail)]))
 
     table = cat(hs.head, hs.tail.table)
     slots = {k: cat(hs.head_slots[k], v) for k, v in hs.tail.slots.items()}

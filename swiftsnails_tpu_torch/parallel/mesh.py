@@ -159,3 +159,27 @@ def batch_sharding(mesh: Mesh, n: int, axis: str = DATA_AXIS) -> slice:
 def replicated(mesh: Mesh) -> slice:
     """A replicated array (the JAX ``P()``): every rank holds all of it."""
     return slice(None)
+
+
+def gather_model(mesh: Optional[Mesh], t: torch.Tensor) -> torch.Tensor:
+    """The whole table of ``t``'s model shards (one all-gather over
+    ``model``, not counted in ``COMM``: a boundary op, outside the steps);
+    ``t`` itself without a mesh or on a model axis of 1."""
+    model = 1 if mesh is None else mesh.axis_size(MODEL_AXIS)
+    if model == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(model)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.groups[MODEL_AXIS])
+    return torch.cat(parts)
+
+
+def model_rows(mesh: Optional[Mesh], whole: torch.Tensor) -> torch.Tensor:
+    """This rank's contiguous model shard of ``whole`` (a copy, so the
+    whole table can go); ``whole`` itself without a mesh or on a model
+    axis of 1."""
+    model = 1 if mesh is None else mesh.axis_size(MODEL_AXIS)
+    if model == 1:
+        return whole
+    per = whole.shape[0] // model
+    m = mesh.axis_index(MODEL_AXIS)
+    return whole[m * per:(m + 1) * per].clone()

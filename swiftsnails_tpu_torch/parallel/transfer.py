@@ -80,6 +80,16 @@ does; then the narrow gather.
 this rank (codes, scales and ids), at the call site, and by the JAX
 package's ``ssn_*`` scope names: ``Trainer.step_cost`` reports the same
 count for a step as ``total_bytes``.
+
+The tiered cache plane (``table_tier: host`` under a mesh, the JAX
+package's slot collectives): the JAX ``pull_collective_slots`` and
+``push_collective_slots`` are the pulls and pushes above run on a cache
+shard in slot space (a shard's rows, and so the padding id, come from
+the cache); :func:`scatter_slots_collective` installs
+faulted rows shard-local with ``scatter_write_rows`` and moves nothing;
+:func:`gather_slots_collective` reads evicted slots whole on every rank
+(an owned gather and an all-reduce over ``model``, billed to
+``ssn_tier_flush_gather``).
 """
 
 from __future__ import annotations
@@ -615,3 +625,54 @@ def push_collective_packed_bucketed_spread(mesh: Mesh, state: PackedTableState,
     local, grads_all = _mask_owned(mesh, torch.cat(b_rows), grads_all, per)
     push_packed(state, local, grads_all, access, lr)
     return state, _scalar(dropped)
+
+
+# ---------------------------------------------------- the tiered cache plane ---
+#
+# The host tier (tiered/): under a mesh the card's working-set cache is a
+# row-sharded plane like any other table. Capacity and the padding id derive
+# from the shard's rows, so the pulls and pushes above already run in
+# cache-slot space, with the cache budget as the padding id. The moves the
+# tier adds are the install of faulted rows and the read of evicted ones.
+
+
+def scatter_slots_collective(mesh: Mesh, plane: torch.Tensor, slot_ids: torch.Tensor,
+                             values: torch.Tensor) -> torch.Tensor:
+    """Install faulted rows into this rank's shard of a row-sharded cache
+    plane, in place; returns ``plane``.
+
+    ``slot_ids`` (unique) and ``values`` are the same on every rank (the
+    fault batch is small beside the plane): rank ``m`` writes ``slot_ids -
+    m * per`` and skips every id outside ``[0, per)``, the JAX shard_map's
+    drop scatter. That skip is ``scatter_write_rows``' own rule for rows
+    outside the table, so the kernel takes the ids as they are where a row
+    is whole 16-byte words; elsewhere the owned ones go to ``index_put_``.
+    No table bytes cross ranks, and no collective is made."""
+    from swiftsnails_tpu_torch.ops import rowdma
+    from swiftsnails_tpu_torch.serving.kernels import whole_words
+
+    local, owned = _owned(mesh, slot_ids, plane.shape[0])
+    values = values.to(plane.dtype)
+    if whole_words(plane):
+        return rowdma.scatter_write_rows(plane, local.to(torch.int32), values.contiguous())
+    return plane.index_put_((local[owned].long(),), values[owned])
+
+
+def gather_slots_collective(mesh: Mesh, plane: torch.Tensor, slot_ids: torch.Tensor
+                            ) -> torch.Tensor:
+    """The rows of cache slots ``slot_ids`` (the same on every rank) of a
+    row-sharded cache plane, whole on every rank: each rank gathers the
+    slots it owns (``gather_rows`` where a row is whole 16-byte words, else
+    ``index_select``), zeros for the rest, and one f32 all-reduce over
+    ``model`` adds them (``x + 0``: exact). The flush's snapshot of evicted
+    slots, made on the loop's thread before a slot is reused."""
+    from swiftsnails_tpu_torch.ops import rowdma
+    from swiftsnails_tpu_torch.serving.kernels import whole_words
+
+    local, owned = _owned(mesh, slot_ids, plane.shape[0])
+    idx = torch.where(owned, local, 0).to(torch.int32)
+    with scope("ssn_tier_flush_gather"):
+        vals = (rowdma.gather_rows(plane, idx) if whole_words(plane)
+                else plane.index_select(0, idx))
+        mask = owned.reshape(owned.shape + (1,) * (plane.dim() - 1))
+        return all_reduce(mesh, vals.masked_fill(~mask, 0), MODEL_AXIS)

@@ -16,8 +16,11 @@ card (:mod:`swiftsnails_tpu_torch.tiered`).
 The bench lanes: ``bench_lane`` (latency SLOs), ``fleet_lane`` (max QPS at
 the p99 SLO, 1 vs N, affinity, hedging, and the fleet drill) and
 ``chaos_lane`` (availability under injected faults). The freshness
-subscriber lives in :mod:`swiftsnails_tpu_torch.freshness`. Not ported yet
-(``ROADMAP.md``): the mesh pull and the int8 / int4 wire.
+subscriber lives in :mod:`swiftsnails_tpu_torch.freshness`. Every wire of
+``comm_dtype`` is ported, and serving under a ``(data, model)`` mesh
+(``mesh=`` on :func:`pull_rows`, :func:`topk_tiled`, :class:`Servant` and
+:class:`Fleet`) with one leader rank and the others following it
+(:mod:`~swiftsnails_tpu_torch.serving.mesh_serve`).
 """
 
 from swiftsnails_tpu_torch.serving.breaker import CircuitBreaker, Unavailable

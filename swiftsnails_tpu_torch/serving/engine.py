@@ -64,12 +64,25 @@ rows refault.
 watermark, lag and fallbacks through :meth:`Servant.health` and stamps the
 watermark on each traced pull.
 
-Not ported yet (``ROADMAP.md``): the mesh pull (``mesh=``) and the
-int8/int4 wire; each raises ``NotImplementedError`` naming its key.
+**The wire.** ``comm_dtype`` (f32, bf16, int8, int4) gives every pull the
+collective wire's precision loss, bit-equal to the JAX servant's.
+
+**Under a mesh** (``mesh=``, a
+:class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh` of one process a rank)
+each rank holds its model rows of every resident table (a tiered table's
+master stays whole in each rank's host RAM, its cache sharded like a
+training tier's); pulls and scores go through the pull over ``model``,
+``topk`` through the sharded scan (:mod:`~swiftsnails_tpu_torch.serving.kernels`),
+``apply_rows`` writes on each rank the rows it owns, and the dense planes
+are written everywhere. The rank at the mesh's origin leads and the others
+follow (:mod:`~swiftsnails_tpu_torch.serving.mesh_serve`): only the leader
+takes requests, and every dispatch it makes is broadcast first so that the
+followers make the same collectives in the same order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -78,10 +91,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from swiftsnails_tpu_torch.parallel.mesh import MODEL_AXIS
+from swiftsnails_tpu_torch.serving import mesh_serve
 from swiftsnails_tpu_torch.serving.breaker import CLOSED, CircuitBreaker, Unavailable
 from swiftsnails_tpu_torch.serving.cache import HotRowCache
 from swiftsnails_tpu_torch.serving.kernels import (
-    _no_mesh,
+    check_mesh,
     pull_rows,
     resolve_comm_dtype,
     topk_tiled,
@@ -166,12 +181,22 @@ def normalize_table(arr, dim: int, layout: str,
     raise ValueError(f"unknown table layout {layout!r}")
 
 
+def own_rows(mesh, table: torch.Tensor) -> torch.Tensor:
+    """This rank's model rows of a whole normalized table; the row count
+    must split over the model axis."""
+    from swiftsnails_tpu_torch.parallel.mesh import model_rows, rows_per_shard
+
+    rows_per_shard(table.shape[0], mesh)
+    return model_rows(mesh, table)
+
+
 def _normalize_state_tables(state, config, scorer, mesh):
     """Checkpoint state tree -> ``(tables, dense, default_table)``: the one
     normalization used by both the cold start (:meth:`Servant.from_checkpoint`)
     and the live shadow reload (:meth:`Servant.reload_from_checkpoint`).
-    ``scorer`` carries the CTR geometry (None for word2vec)."""
-    _no_mesh(mesh)
+    ``scorer`` carries the CTR geometry (None for word2vec). Under ``mesh``
+    each table is then cut to this rank's model rows (:func:`own_rows`)."""
+    check_mesh(mesh)
     model_name = config.get_str("model", "word2vec")
     if model_name == "word2vec":
         dim = config.get_int("dim", 100)
@@ -193,6 +218,8 @@ def _normalize_state_tables(state, config, scorer, mesh):
         }
         dense = state.get("dense") or {}
         default_table = "table"
+    if mesh is not None:
+        tables = {k: own_rows(mesh, v) for k, v in tables.items()}
     return tables, dense, default_table
 
 
@@ -373,6 +400,12 @@ class Servant:
     :class:`~swiftsnails_tpu_torch.telemetry.registry.MetricRegistry` (a
     private one is created when omitted); ``ledger`` receives ``overload``,
     ``degraded``, ``breaker`` and ``cache_error`` events.
+
+    ``mesh`` (module docstring): ``tables`` are whole, and each rank keeps
+    its model rows, or with ``sharded`` they are this rank's rows already
+    (a fleet's replicas share replica 0's). Every rank makes the same
+    servants in the same order; the leader serves, the others run
+    :func:`~swiftsnails_tpu_torch.serving.mesh_serve.follow`.
     """
 
     def __init__(
@@ -401,12 +434,16 @@ class Servant:
         request_tracer=None,
         slo=None,
         device: DeviceLike = None,
+        sharded: bool = False,
     ):
         if not tables:
             raise ValueError("Servant needs at least one table")
-        _no_mesh(mesh)
-        self.mesh = None
+        check_mesh(mesh)
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
+        self._channel = mesh_serve.channel(mesh) if mesh is not None else None
         # ops plane: a telemetry RequestTracer captures per-request span
         # trees (head-sampled + anomaly tail-keep); an SloTracker burns the
         # error budget. Both optional — None costs one attribute check.
@@ -435,7 +472,8 @@ class Servant:
                             for k, v in tables.items()}
             self._build_tier()
         else:
-            self._tables = self._on_device(tables)
+            self._tables = self._on_device(self._own(tables, sharded))
+        self._names = sorted(self._tables)
         self._dense = self._on_device(dense) if dense is not None else {}
         self.default_table = default_table or (
             "in_table" if "in_table" in self._tables else
@@ -476,7 +514,7 @@ class Servant:
 
         # the kernels' seams (tests stall a dispatch by replacing _pull_fn)
         self._pull_fn = lambda table, rows: pull_rows(
-            table, rows, comm_dtype=self.comm_dtype)
+            table, rows, mesh=self.mesh, comm_dtype=self.comm_dtype)
         self._score_fn = self._score_impl if scorer is not None else None
 
         self._batchers = {
@@ -488,9 +526,69 @@ class Servant:
                           ("topk", self._dispatch_topk),
                           ("score", self._dispatch_score))
         }
+        self._mesh_id = (self._channel.register(self) if self._channel is not None
+                         else None)
 
     def _on_device(self, arrays: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: as_tensor(v, self.device) for k, v in arrays.items()}
+
+    def _own(self, tables: Dict[str, Any], sharded: bool) -> Dict[str, Any]:
+        """Under a mesh, this rank's model rows of whole ``tables`` (as
+        given where ``sharded``)."""
+        if self.mesh is None or sharded:
+            return tables
+        return {k: own_rows(self.mesh, as_tensor(v, torch.device("cpu")))
+                for k, v in tables.items()}
+
+    # -- the mesh's leader and followers (serving/mesh_serve.py) -------------
+
+    def _mesh_lock(self):
+        """The process's dispatch lock on a meshed leader (taken before
+        the servant's own locks), else nothing to hold."""
+        ch = self._channel
+        return ch.lock if ch is not None and ch.leader else contextlib.nullcontext()
+
+    def _lead(self, op: int, ints=(), tensors=()) -> None:
+        """On a meshed leader, send the followers ``op`` for this servant
+        (under :meth:`_mesh_lock`, which the caller holds). A servant of a
+        stopped session raises: its followers are gone."""
+        ch = self._channel
+        if ch is None or not ch.leader:
+            return
+        if ch.stopped:
+            raise RuntimeError("this servant's serving session on the mesh has stopped")
+        ch.send(op, self._mesh_id, ints, tensors)
+
+    def _follow(self, op: int, args, ch) -> None:
+        """A follower's side of one op the leader sent (its ``args``, its
+        tensors read from ``ch``): the same call on this rank's shard."""
+        if op in (mesh_serve.PULL, mesh_serve.TIER_PULL):
+            name, n = self._names[args[0]], args[1]
+            ids = ch.recv((n,), torch.int32)
+            if op == mesh_serve.TIER_PULL:
+                self._tier_pull(name, ids.numpy())
+            else:
+                self._pull_fn(self._tables[name], ids.to(self.device))
+        elif op == mesh_serve.TOPK:
+            name, n, k, normalize, dim = self._names[args[0]], *args[1:5]
+            q = ch.recv((n, dim), torch.float32).to(self.device)
+            topk_tiled(self._tables[name], q, k=k, tile_rows=self.topk_tile_rows,
+                       normalize=bool(normalize), mesh=self.mesh)
+        elif op == mesh_serve.SCORE:
+            feats = ch.recv((args[0], args[1]), torch.int32).to(self.device)
+            self._score_fn(self._tables[self.default_table], self._dense, feats)
+        elif op == mesh_serve.APPLY:
+            updates = mesh_serve.recv_updates(ch, args[0], self._names)
+            plan = ch.voted("apply_rows", lambda: self._prepare_apply(updates))
+            self._commit_apply(plan, version=mesh_serve.opt(args[1]),
+                               step=mesh_serve.opt(args[2]))
+        elif op == mesh_serve.RELOAD:
+            root, step, config, retry = mesh_serve.recv_reload(ch, args)
+            tables, manifest, dense = ch.voted(
+                "reload_from_checkpoint", lambda: self._shadow_load(root, config, step, retry))
+            self.reload(tables, manifest=manifest, dense=dense, sharded=True)
+        else:
+            raise ValueError(f"servant: unknown mesh op {op}")
 
     # -- tiered read path (table_tier: host; see tiered/) -------------------
 
@@ -513,8 +611,8 @@ class Servant:
         for name, arr in self._tables.items():
             master = HostMaster(TableState(table=arr, slots={}), "dense")
             units = int(budget_each * (1 << 20) // max(master.unit_nbytes, 1))
-            tt = TieredTable(master, units, name=name, stats=self._tier_stats,
-                             read_only=True, device=self.device)
+            tt = TieredTable(master, units, mesh=self.mesh, name=name,
+                             stats=self._tier_stats, read_only=True, device=self.device)
             cache = tt.make_cache()
             cache = tt.prewarm(
                 cache, np.arange(min(tt.budget, master.units), dtype=np.int64))
@@ -527,10 +625,15 @@ class Servant:
         slots, gather from the cache (:func:`pull_rows`). The lock
         serializes fault + remap + gather across the batcher threads — a
         concurrent eviction must never overwrite a slot between the remap
-        and its read."""
+        and its read. Under a mesh every rank faults the same ids (the
+        leader sends them first), so the slot maps stay equal."""
         tt = self.tier[name]
         ids = np.asarray(ids, np.int32)
-        with self._tier_lock:
+        with self._mesh_lock(), self._tier_lock:
+            if self._channel is not None:
+                tt.check(ids)  # what ensure would refuse fails here, before any rank sees it
+            self._lead(mesh_serve.TIER_PULL, (self._names.index(name), len(ids)),
+                       (torch.from_numpy(ids),))
             cache = tt.ensure(self._tier_cache[name], ids)
             self._tier_cache[name] = cache
             slots = torch.from_numpy(tt.remap(ids)).to(self.device)
@@ -580,24 +683,29 @@ class Servant:
         carries the model family and table geometry the checkpointed tensors
         are laid out with (``model``, ``dim``/``num_fields``, ``packed``,
         ``capacity``), plus the ``serve_*`` and ``breaker_*`` knobs.
+
+        Under ``mesh`` every rank calls this with the same arguments: each
+        loads the checkpoint on the host and keeps its model rows of the
+        resident tables (a tiered servant keeps the whole master).
         """
         from swiftsnails_tpu_torch.framework.checkpoint import load_tables
 
-        _no_mesh(mesh)
-        dev = resolve_device(device)
+        check_mesh(mesh)
+        dev = resolve_device(mesh.device if mesh is not None and device is None else device)
         tiered = config.get_str("table_tier", "device") == "host"
         if tiered:
             kwargs.setdefault("tier_hbm_budget_mb",
                               config.get_float("tier_hbm_budget_mb", 64.0))
         # a tiered servant's tables stay in host RAM: they never cross to
-        # the card whole
+        # the card whole; under a mesh neither do a rank's other rows
         state, manifest = load_tables(
-            root, step=step, device=torch.device("cpu") if tiered else dev)
+            root, step=step,
+            device=torch.device("cpu") if tiered or mesh is not None else dev)
         scorer = None
         if config.get_str("model", "word2vec") != "word2vec":
             scorer = _scorer_for(config, dev)
         tables, dense, default_table = _normalize_state_tables(
-            state, config, scorer, mesh)
+            state, config, scorer, None if tiered else mesh)
         del state  # the packed planes: only the normalized ones are served
         kwargs.setdefault("batch_buckets", _int_list(
             config.get_str("serve_batch_buckets", ""), DEFAULT_BUCKETS))
@@ -624,23 +732,29 @@ class Servant:
 
             kwargs["slo"] = SloTracker.from_config(
                 config, ledger=kwargs.get("ledger"))
-        return cls(
-            tables, manifest=manifest, scorer=scorer, dense=dense,
-            default_table=default_table, device=dev, **kwargs,
+        servant = cls(
+            tables, manifest=manifest, mesh=mesh, scorer=scorer, dense=dense,
+            default_table=default_table, device=dev, sharded=True, **kwargs,
         )
+        return servant
 
     def reload(self, tables: Dict[str, Any], manifest: Optional[Dict] = None,
-               dense=None, *, version: Optional[int] = None) -> int:
+               dense=None, *, version: Optional[int] = None,
+               sharded: bool = False) -> int:
         """Swap in new tables; bumps the version so every cached row of the
         old tables misses (stale rows can never be served). ``version`` is
         the fleet-epoch override: replicas sharing one logical swap all cut
-        over to the SAME number instead of bumping independently."""
+        over to the SAME number instead of bumping independently. Under a
+        mesh ``tables`` and ``sharded`` are as the constructor takes them,
+        and every rank calls this with the same tables (a reload from a
+        checkpoint sends itself to the followers)."""
         tiered = self.tier_budget_mb > 0
         new_tables = ({k: as_tensor(v, torch.device("cpu")) for k, v in tables.items()}
-                      if tiered else self._on_device(tables))
+                      if tiered else self._on_device(self._own(tables, sharded)))
         new_dense = self._on_device(dense) if dense is not None else None
         with self._lock:
             self._tables = new_tables
+            self._names = sorted(new_tables)
             if tiered:
                 # new masters + fresh caches and slot maps: a stale slot
                 # mapping against the old tables must never serve again (the
@@ -667,7 +781,9 @@ class Servant:
         16-byte words). Where an id repeats, its last value wins; ids
         outside ``[0, C)`` are dropped. Split from :meth:`install_tables`
         so a fleet computes the new planes once and installs the SAME
-        tensors into every replica at one shared epoch."""
+        tensors into every replica at one shared epoch. Under a mesh each
+        rank writes the rows its shard owns (every rank calls this with the
+        same delta)."""
         out: Dict[str, torch.Tensor] = {}
         for name, (ids, vals) in updates.items():
             if name not in self._tables:
@@ -675,10 +791,11 @@ class Servant:
             tab = self._tables[name]
             ids = np.asarray(ids, np.int64).reshape(-1)
             vals = np.asarray(vals).reshape((ids.shape[0],) + tuple(tab.shape[1:]))
-            # the last occurrence of each id, in range
+            # the last occurrence of each id, in range (this rank's rows)
+            lo = 0 if self.mesh is None else self.mesh.axis_index(MODEL_AXIS) * tab.shape[0]
             last = ids.shape[0] - 1 - np.unique(ids[::-1], return_index=True)[1]
-            last = last[(ids[last] >= 0) & (ids[last] < tab.shape[0])]
-            rows = torch.from_numpy(ids[last].astype(np.int32)).to(self.device)
+            last = last[(ids[last] >= lo) & (ids[last] < lo + tab.shape[0])]
+            rows = torch.from_numpy((ids[last] - lo).astype(np.int32)).to(self.device)
             values = as_tensor(vals[last], self.device).to(tab.dtype)
             new = tab.clone()
             if rows.numel():
@@ -711,22 +828,60 @@ class Servant:
         into the host masters (through ``HostMaster.scatter``, so the
         integrity digests stay true), bump the touched units' write-back
         generation, and drop their resident cache slots so the next pull
-        refaults the fresh rows. Where an id repeats, its last value wins."""
+        refaults the fresh rows. Where an id repeats, its last value wins.
+
+        Under a mesh the leader sends the delta to the followers first;
+        every rank checks it and builds what it would install, and only when
+        every rank succeeded (:meth:`ServeChannel.voted
+        <swiftsnails_tpu_torch.serving.mesh_serve.ServeChannel.voted>`) does
+        each apply it to what it holds, at the same version; else every rank
+        keeps its tables and the call raises
+        :class:`~swiftsnails_tpu_torch.serving.mesh_serve.Refused`."""
+        if self._channel is None:
+            return self._commit_apply(self._prepare_apply(updates), version=version,
+                                      step=step)
+        names = self._names
+        with self._mesh_lock():
+            updates = mesh_serve.served_updates(updates, names)
+            self._lead(mesh_serve.APPLY,
+                       (len(updates), -1 if version is None else version,
+                        -1 if step is None else step),
+                       mesh_serve.updates_tensors(updates, names))
+            plan = self._channel.voted("apply_rows", lambda: self._prepare_apply(updates))
+            return self._commit_apply(plan, version=version, step=step)
+
+    def _prepare_apply(self, updates: Dict[str, Any]):
+        """The half of :meth:`apply_rows` that may fail, changing nothing:
+        the new resident planes (:meth:`prepare_rows`), or each tiered
+        table's rows, the last of a repeated id, checked against its
+        master."""
         if self.tier_budget_mb <= 0:
-            return self.install_tables(self.prepare_rows(updates),
-                                       version=version, step=step)
+            return self.prepare_rows(updates)
+        out = {}
+        for name, (ids, vals) in updates.items():
+            if name not in self.tier:
+                continue  # a delta table this servant does not serve
+            master = self.tier[name].master
+            ids = np.asarray(ids, np.int64).reshape(-1)
+            vals = np.asarray(vals, np.float32).reshape(
+                (ids.shape[0],) + master.table.shape[1:])
+            last = ids.shape[0] - 1 - np.unique(ids[::-1], return_index=True)[1]
+            ids, vals = ids[last], vals[last]
+            if ids.size and (ids.min() < 0 or ids.max() >= master.units):
+                raise IndexError(f"apply_rows[{name}]: row ids [{ids.min()}, {ids.max()}] "
+                                 f"out of range for {master.units} rows")
+            out[name] = (ids, vals.astype(master.table.dtype))
+        return out
+
+    def _commit_apply(self, plan, *, version: Optional[int], step: Optional[int]) -> int:
+        """Install what :meth:`_prepare_apply` built; returns the version."""
+        if self.tier_budget_mb <= 0:
+            return self.install_tables(plan, version=version, step=step)
         with self._lock, self._tier_lock:
-            for name, (ids, vals) in updates.items():
-                if name not in self.tier:
-                    continue  # a delta table this servant does not serve
+            for name, (ids, vals) in plan.items():
                 tt = self.tier[name]
-                ids = np.asarray(ids, np.int64).reshape(-1)
-                vals = np.asarray(vals, np.float32).reshape(
-                    (ids.shape[0],) + tt.master.table.shape[1:])
-                last = ids.shape[0] - 1 - np.unique(ids[::-1], return_index=True)[1]
-                ids, vals = ids[last], vals[last]
                 # serving masters are dense group-1 f32 planes: unit == row
-                tt.master.scatter(ids, vals.astype(tt.master.table.dtype), {})
+                tt.master.scatter(ids, vals, {})
                 tt.master_ver[ids] += 1
                 res = ids[tt.slot_of[ids] >= 0]
                 if res.size:
@@ -752,29 +907,57 @@ class Servant:
         rejected here (``CheckpointError``) while the live tables keep
         serving the old version untouched. ``retry`` (a
         :class:`~swiftsnails_tpu_torch.resilience.retry.RetryPolicy`) absorbs
-        transient storage errors during the shadow load."""
+        transient storage errors during the shadow load.
+
+        Under a mesh every rank loads the checkpoint itself: the leader
+        sends the root, the step it verified, ``config`` and ``retry``'s
+        knobs to the followers, and no rank swaps unless every rank loaded
+        (:class:`~swiftsnails_tpu_torch.serving.mesh_serve.Refused`
+        otherwise, every rank serving on)."""
+        tables, manifest, dense = self._shadow_load(root, config, step, retry)
+        if self._channel is None:
+            return self.reload(tables, manifest=manifest, dense=dense)
+        with self._mesh_lock():
+            self._lead(mesh_serve.RELOAD, *mesh_serve.reload_payload(
+                root, int(manifest.get("step", step or 0)), config, retry))
+            try:
+                self._channel.voted("reload_from_checkpoint", lambda: None)
+            except mesh_serve.Refused as e:
+                self._reload_rejected(root, step, e)
+                raise
+            return self.reload(tables, manifest=manifest, dense=dense, sharded=True)
+
+    def _shadow_load(self, root: str, config, step: Optional[int], retry):
+        """The checkpoint's verified, normalized ``(tables, manifest,
+        dense)`` (this rank's rows under a mesh), nothing swapped; a
+        failure is counted and logged, then raised."""
         from swiftsnails_tpu_torch.framework.checkpoint import load_tables
 
+        tiered = self.tier_budget_mb > 0
         try:
             state, manifest = load_tables(
-                root, step=step, verify=True, retry=retry, device=self.device)
+                root, step=step, verify=True, retry=retry,
+                device=torch.device("cpu") if self.mesh is not None else self.device)
             tables, dense, _ = _normalize_state_tables(
-                state, config, self.scorer, self.mesh)
+                state, config, self.scorer, None if tiered else self.mesh)
         except Exception as e:
-            self.registry.counter("serve.reload_rejected").inc()
-            if self.ledger is not None:
-                try:
-                    self.ledger.append("cache_error", {
-                        "source": "serve_reload",
-                        "root": root,
-                        "step": step,
-                        "kept_version": self.version,
-                        "error": f"{type(e).__name__}: {e}",
-                    })
-                except Exception:
-                    pass
+            self._reload_rejected(root, step, e)
             raise
-        return self.reload(tables, manifest=manifest, dense=dense)
+        return tables, manifest, dense
+
+    def _reload_rejected(self, root: str, step: Optional[int], err: BaseException) -> None:
+        self.registry.counter("serve.reload_rejected").inc()
+        if self.ledger is not None:
+            try:
+                self.ledger.append("cache_error", {
+                    "source": "serve_reload",
+                    "root": root,
+                    "step": step,
+                    "kept_version": self.version,
+                    "error": f"{type(err).__name__}: {err}",
+                })
+            except Exception:
+                pass
 
     def close(self) -> None:
         for b in self._batchers.values():
@@ -1003,13 +1186,16 @@ class Servant:
     def _pull_version(self, name: str, ids: np.ndarray):
         """:meth:`_pull_padded` on one version of the table, and that
         version. A tiered table changes in place (``apply_rows``, ``reload``
-        under the servant lock), so its pull holds the lock."""
-        if name in self.tier:
+        under the servant lock), so its pull holds the lock. A meshed
+        leader holds its dispatch lock throughout, so that no rank swaps
+        its shard between the version read and the pull."""
+        with self._mesh_lock():
+            if name in self.tier:
+                with self._lock:
+                    return (*self._pull_padded(name, ids), self.version)
             with self._lock:
-                return (*self._pull_padded(name, ids), self.version)
-        with self._lock:
-            table, version = self._tables[name], self.version
-        return (*self._pull_padded(name, ids, table), version)
+                table, version = self._tables[name], self.version
+            return (*self._pull_padded(name, ids, table), version)
 
     def _pull_padded(
         self, name: str, ids: np.ndarray, table: Optional[torch.Tensor] = None,
@@ -1035,6 +1221,7 @@ class Servant:
                 vals = _host(self._tier_pull(name, padded))
             else:
                 rows = torch.from_numpy(np.ascontiguousarray(padded, np.int32))
+                self._lead(mesh_serve.PULL, (self._names.index(name), len(padded)), (rows,))
                 vals = _host(self._pull_fn(table, rows.to(self.device)))
             out.append(vals[: len(chunk)])
             buckets_used.append(b)
@@ -1053,7 +1240,6 @@ class Servant:
                 (p["table"], p["k"], p["normalize"]), []
             ).append(req)
         for (name, k, normalize), reqs in by_key.items():
-            table = self._tables[name]
             queries = np.concatenate([r.payload["queries"] for r in reqs])
             t_disp = time.perf_counter()
             pad_total = 0
@@ -1070,13 +1256,18 @@ class Servant:
                 ) if pad else chunk
                 if name in self.tier:
                     # exhaustive scans never fault the cache: stream the host
-                    # master through the card in tiles instead
+                    # master through the card in tiles instead (every rank
+                    # holds the whole master: no collective, nothing sent)
                     s, i = self._topk_master(name, padded, k, normalize)
                 else:
-                    s, i = topk_tiled(
-                        table, torch.from_numpy(np.ascontiguousarray(padded)).to(self.device),
-                        k=k, tile_rows=self.topk_tile_rows, normalize=normalize,
-                    )
+                    q = torch.from_numpy(np.ascontiguousarray(padded, np.float32))
+                    with self._mesh_lock():
+                        table = self._tables[name]
+                        self._lead(mesh_serve.TOPK, (self._names.index(name), len(padded), k,
+                                                     int(normalize), q.shape[1]), (q,))
+                        s, i = topk_tiled(table, q.to(self.device), k=k,
+                                          tile_rows=self.topk_tile_rows,
+                                          normalize=normalize, mesh=self.mesh)
                     s, i = _host(s), _host(i)
                 all_s.append(s[: len(chunk)])
                 all_i.append(i[: len(chunk)])
@@ -1103,7 +1294,7 @@ class Servant:
         mask = feats >= 0
         rows = self.scorer._rows(feats).reshape(-1)
         pulled = pull_rows(
-            table, rows, comm_dtype=self.comm_dtype
+            table, rows, mesh=self.mesh, comm_dtype=self.comm_dtype
         ).reshape(b, f, self.scorer.table_dim)
         return torch.sigmoid(self.scorer.forward(pulled, dense, mask))
 
@@ -1124,8 +1315,6 @@ class Servant:
 
     def _dispatch_score(self, batch: List[_Request]) -> None:
         self._maybe_fault("score")
-        table = self._tables[self.default_table]
-        dense = self._dense
         feats = np.concatenate([r.payload["feats"] for r in batch])
         t_disp = time.perf_counter()
         pad_total = 0
@@ -1142,9 +1331,11 @@ class Servant:
             if self.default_table in self.tier:
                 scores = self._score_tiered(padded)
             else:
-                scores = _host(self._score_fn(
-                    table, dense,
-                    torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)))
+                fe = torch.from_numpy(np.ascontiguousarray(padded, np.int32))
+                with self._mesh_lock():
+                    table, dense = self._tables[self.default_table], self._dense
+                    self._lead(mesh_serve.SCORE, tuple(fe.shape), (fe,))
+                    scores = _host(self._score_fn(table, dense, fe.to(self.device)))
             outs.append(scores[: len(chunk)])
             buckets_used.append(b)
             pad_total += pad
@@ -1335,7 +1526,7 @@ class Servant:
         return {
             "version": self.version,
             "step": self.step,
-            "tables": {k: list(v.shape) for k, v in self._tables.items()},
+            "tables": self._table_shapes(),
             "kernels": kernels,
             "cache": {
                 "rows": len(self.cache),
@@ -1375,6 +1566,14 @@ class Servant:
             **({"slo": self.slo.snapshot()} if self.slo is not None else {}),
         }
 
+    def _table_shapes(self) -> Dict[str, List[int]]:
+        """Each served table's whole shape (under a mesh, a resident
+        table's shards together)."""
+        model = 1
+        if self.mesh is not None and not self.tier:
+            model = self.mesh.axis_size(MODEL_AXIS)
+        return {k: [v.shape[0] * model, *v.shape[1:]] for k, v in self._tables.items()}
+
     def health(self) -> Dict:
         """One-call liveness/availability report: overall ``status`` is
         ``"ok"`` when every breaker is closed, ``"degraded"`` otherwise —
@@ -1387,7 +1586,7 @@ class Servant:
             "status": status,
             "version": self.version,
             "step": self.step,
-            "tables": {k: list(v.shape) for k, v in self._tables.items()},
+            "tables": self._table_shapes(),
             "breakers": {k: br.snapshot() for k, br in self.breakers.items()},
             "degraded_enabled": self.degraded_enabled,
             "degraded_hits": int(reg.counter("serve.degraded_hits").value),

@@ -44,6 +44,13 @@ edges land in the run ledger as ``drain`` events.
 Per-replica injectable hooks (``Replica.request_hook`` at admission, the
 engine's ``Servant.fault_hook`` at dispatch) are the chaos/bench seam: a
 drill slows or kills exactly one replica through them.
+
+**Under a mesh** (``Fleet.from_checkpoint(mesh=)``) each replica is a
+meshed servant on the same process groups, sharing replica 0's shards.
+The mesh's origin leads (:mod:`~swiftsnails_tpu_torch.serving.mesh_serve`):
+its replicas' dispatches reach the followers' twins, and the fleet's own
+changes (``apply_rows``, ``reload_from_checkpoint``, ``add_replica``,
+``drain``) are sent whole and made on every rank at the same epoch.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from swiftsnails_tpu_torch.serving import mesh_serve
 from swiftsnails_tpu_torch.serving.breaker import OPEN, Unavailable
 from swiftsnails_tpu_torch.serving.engine import (
     DEFAULT_BREAKER_COOLDOWN_MS,
@@ -228,6 +236,11 @@ class Fleet:
         for _ in range(replicas):
             self._add(first)
             first = None
+        # remote replicas (net/) carry no mesh
+        self.mesh = getattr(next(iter(self._replicas.values())).servant, "mesh", None)
+        self._channel = mesh_serve.channel(self.mesh) if self.mesh is not None else None
+        self._mesh_id = (self._channel.register(self) if self._channel is not None
+                         else None)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -254,7 +267,8 @@ class Fleet:
         knobs come from the same typed config: ``serve_replicas``,
         ``serve_hedge_budget_pct``, ``serve_hedge_p95_ms``,
         ``serve_ring_spill``. The planes load on ``device`` (default: the
-        card).
+        card). Under ``mesh`` every rank calls this with the same arguments
+        (module docstring).
         """
         # trace + SLO live at the FLEET level (one trace per request, one
         # budget per fleet); replicas join the active context instead of
@@ -278,6 +292,8 @@ class Fleet:
             return Servant(
                 proto._tables,
                 manifest=proto.manifest,
+                mesh=proto.mesh,
+                sharded=True,
                 device=proto.device,
                 scorer=proto.scorer,
                 dense=proto._dense,
@@ -327,8 +343,13 @@ class Fleet:
 
     def add_replica(self) -> str:
         """Elastic scale-up: a new replica over the shared planes joins the
-        ring; only the keys adjacent to its vnode points move to it."""
-        rep = self._add()
+        ring; only the keys adjacent to its vnode points move to it. Under a
+        mesh every rank adds its twin."""
+        if self._channel is not None:
+            with self._channel.composite(mesh_serve.FLEET_ADD, self._mesh_id):
+                rep = self._add()
+        else:
+            rep = self._add()
         self.registry.counter("fleet.replicas_added").inc()
         return rep.id
 
@@ -367,7 +388,31 @@ class Fleet:
             "remaining_replicas": len(self._ring),
         }
         self._ledger_event("drain", record)
+        if self._channel is not None:  # the followers close their twin
+            self._channel.send(mesh_serve.FLEET_DRAIN, self._mesh_id, (int(replica_id[1:]),))
         return record
+
+    def _follow(self, op: int, args, ch) -> None:
+        """A follower's side of one fleet op the leader sent."""
+        if op == mesh_serve.FLEET_APPLY:
+            updates = mesh_serve.recv_updates(ch, args[0], self._names())
+            plan = ch.voted("fleet apply_rows", lambda: self._prepare_apply(updates))
+            self._commit_apply(plan, mesh_serve.opt(args[1]))
+        elif op == mesh_serve.FLEET_RELOAD:
+            root, step, config, retry = mesh_serve.recv_reload(ch, args)
+            tables, manifest, dense = ch.voted(
+                "fleet reload_from_checkpoint",
+                lambda: self._shadow_load(root, config, step, retry))
+            self.reload(tables, manifest=manifest, dense=dense, sharded=True)
+        elif op == mesh_serve.FLEET_ADD:
+            self._add()
+        elif op == mesh_serve.FLEET_DRAIN:
+            self.drain(f"r{args[0]}")
+        else:
+            raise ValueError(f"fleet: unknown mesh op {op}")
+
+    def _names(self) -> List[str]:
+        return self.replicas()[0].servant._names
 
     def configure(
         self,
@@ -428,28 +473,55 @@ class Fleet:
         same tensors install into every replica — no replica ever serves a
         torn batch, and every cache cuts over to the same version. Tiered
         replicas own separate host masters and apply individually, still at
-        the shared epoch."""
-        epoch = self._next_epoch()
+        the shared epoch. Under a mesh the leader sends the delta; every
+        rank builds what it would install, and no rank installs it unless
+        every rank did (``Servant.apply_rows``)."""
+        if self._channel is None:
+            return self._commit_apply(self._prepare_apply(updates), step)
+        names = self._names()
+        updates = mesh_serve.served_updates(updates, names)
+        with self._channel.composite(mesh_serve.FLEET_APPLY, self._mesh_id,
+                                     (len(updates), -1 if step is None else step),
+                                     mesh_serve.updates_tensors(updates, names)):
+            plan = self._channel.voted("fleet apply_rows", lambda: self._prepare_apply(updates))
+            return self._commit_apply(plan, step)
+
+    def _prepare_apply(self, updates: Dict[str, Any]):
+        """Each replica's servant and what it will install: the planes
+        computed once on the first (resident), each tiered replica's checked
+        rows, or a remote replica's (``net/``) delta as given."""
         reps = self.replicas()
         if not reps:
             raise Unavailable("fleet: no active replicas")
         first = reps[0].servant
         if first.tier_budget_mb > 0:
-            for rep in reps:
-                rep.servant.apply_rows(updates, version=epoch, step=step)
-            return epoch
+            return [(rep.servant, rep.servant._prepare_apply(updates)
+                     if isinstance(rep.servant, Servant) else updates) for rep in reps]
         new_tables = first.prepare_rows(updates)
-        for rep in reps:
-            rep.servant.install_tables(new_tables, version=epoch, step=step)
+        return [(rep.servant, new_tables) for rep in reps]
+
+    def _commit_apply(self, plan, step: Optional[int]) -> int:
+        epoch = self._next_epoch()
+        for servant, part in plan:
+            if isinstance(servant, Servant):
+                servant._commit_apply(part, version=epoch, step=step)
+            else:  # a remote replica applies the delta itself
+                servant.apply_rows(part, version=epoch, step=step)
         return epoch
 
     def reload(self, tables: Dict[str, Any], manifest: Optional[Dict] = None,
-               dense=None) -> int:
-        """Swap new planes into every replica at one shared epoch."""
+               dense=None, sharded: bool = False) -> int:
+        """Swap new planes into every replica at one shared epoch (under a
+        mesh ``tables`` and ``sharded`` as ``Servant.reload`` takes them;
+        every rank calls this)."""
         epoch = self._next_epoch()
+        first = self.replicas()[0].servant if self.mesh is not None else None
+        if first is not None and first.tier_budget_mb <= 0:
+            # cut and placed once: the replicas share the shards
+            tables, sharded = first._on_device(first._own(tables, sharded)), True
         for rep in self.replicas():
             rep.servant.reload(tables, manifest=manifest, dense=dense,
-                               version=epoch)
+                               version=epoch, sharded=sharded)
         return epoch
 
     def reload_from_checkpoint(self, root: str, config, *,
@@ -457,29 +529,57 @@ class Fleet:
                                retry=None) -> int:
         """The fleet twin of the Servant's shadow reload: load + verify the
         checkpoint ONCE off the serving path, then cut every replica over
-        to the same planes at one epoch (mixed versions can never serve)."""
+        to the same planes at one epoch (mixed versions can never serve).
+        Under a mesh every rank loads the step the leader verified (the
+        leader sends the root, the step, ``config`` and ``retry``'s knobs),
+        and no rank cuts over unless every rank loaded it
+        (:class:`~swiftsnails_tpu_torch.serving.mesh_serve.Refused`
+        otherwise)."""
+        tables, manifest, dense = self._shadow_load(root, config, step, retry)
+        if self._channel is None:
+            return self.reload(tables, manifest=manifest, dense=dense)
+        with self._channel.composite(mesh_serve.FLEET_RELOAD, self._mesh_id,
+                                     *mesh_serve.reload_payload(
+                                         root, int(manifest.get("step", step or 0)),
+                                         config, retry)):
+            try:
+                self._channel.voted("fleet reload_from_checkpoint", lambda: None)
+            except mesh_serve.Refused as e:
+                self._reload_rejected(root, step, e)
+                raise
+            return self.reload(tables, manifest=manifest, dense=dense, sharded=True)
+
+    def _shadow_load(self, root: str, config, step: Optional[int], retry):
+        """The checkpoint's verified, normalized ``(tables, manifest,
+        dense)``, nothing swapped; a failure is counted and logged, then
+        raised."""
         from swiftsnails_tpu_torch.framework.checkpoint import load_tables
 
         reps = self.replicas()
         if not reps:
             raise Unavailable("fleet: no active replicas")
         first = reps[0].servant
+        tiered = first.tier_budget_mb > 0
         try:
             state, manifest = load_tables(
-                root, step=step, verify=True, retry=retry, device=first.device)
+                root, step=step, verify=True, retry=retry,
+                device="cpu" if first.mesh is not None else first.device)
             tables, dense, _ = _normalize_state_tables(
-                state, config, first.scorer, first.mesh)
+                state, config, first.scorer, None if tiered else first.mesh)
         except Exception as e:
-            self.registry.counter("fleet.reload_rejected").inc()
-            self._ledger_event("cache_error", {
-                "probe": "fleet_reload",
-                "root": root,
-                "step": step,
-                "kept_version": self.version,
-                "error": f"{type(e).__name__}: {e}",
-            })
+            self._reload_rejected(root, step, e)
             raise
-        return self.reload(tables, manifest=manifest, dense=dense)
+        return tables, manifest, dense
+
+    def _reload_rejected(self, root: str, step: Optional[int], err: BaseException) -> None:
+        self.registry.counter("fleet.reload_rejected").inc()
+        self._ledger_event("cache_error", {
+            "probe": "fleet_reload",
+            "root": root,
+            "step": step,
+            "kept_version": self.version,
+            "error": f"{type(err).__name__}: {err}",
+        })
 
     def attach_freshness(self, subscriber) -> None:
         """Roll a :class:`~swiftsnails_tpu_torch.freshness.subscriber.

@@ -30,9 +30,17 @@ serving pulls bit-identical to the checkpointed rows.
 ``comm_dtype`` applies the collective wire's precision loss to a pull on
 one device (:func:`_wire_cast`, the codecs of
 :mod:`swiftsnails_tpu_torch.parallel.comm`, deterministic): bf16, int8 and
-int4 answer as the JAX servant does, bit for bit. Not ported yet
-(``ROADMAP.md``): the mesh pull (``mesh=``), which raises
-``NotImplementedError``.
+int4 answer as the JAX servant does, bit for bit.
+
+Under ``mesh=`` (a :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh`)
+``table`` is this rank's model shard of the normalized table (its rows
+``[m * per, (m + 1) * per)``) and the ids are the same on every rank:
+:func:`pull_rows` is the JAX servant's pull over ``model`` (the owned rows
+gathered on the shard, zeros for the rest, summed under ``comm_dtype`` by
+``comm.psum_quantized``), and :func:`topk_tiled` scans the shard, offsets
+its ids by ``m * per``, gathers every shard's best ``k`` over ``model`` and
+merges them in the unmeshed scan's order (score descending, id
+ascending). Every rank of the mesh calls them together.
 """
 
 from __future__ import annotations
@@ -57,11 +65,21 @@ from swiftsnails_tpu_torch.parallel.comm import (  # noqa: F401  (resolve_comm_d
 _WORD_BYTES = 16  # the row kernels' unit of movement
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= selects the sharded pull, which the PyTorch port does not "
-            "have yet; see ROADMAP.md, Queue 1 item 6 (the multi-device planes)")
+def check_mesh(mesh) -> None:
+    """Raise ``TypeError`` for a ``mesh`` that is not ``None`` or a
+    :class:`~swiftsnails_tpu_torch.parallel.mesh.Mesh`."""
+    from swiftsnails_tpu_torch.parallel.mesh import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh)}")
+
+
+def _gather(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table``'s rows ``rows``: ``gather_rows`` where a row is whole
+    16-byte words, else ``index_select``."""
+    if whole_words(table):
+        return rowdma.gather_rows(table, rows)
+    return table.index_select(0, rows)
 
 
 def whole_words(table: torch.Tensor) -> bool:
@@ -98,14 +116,21 @@ def pull_rows(
 ) -> torch.Tensor:
     """[N] int32 row ids -> [N, dim] rows of a normalized read-only table:
     ``gather_rows`` where a row is whole 16-byte words, else
-    ``index_select``."""
-    _no_mesh(mesh)
+    ``index_select``. Under ``mesh`` ``table`` is this rank's shard and
+    the rows come from the pull over ``model`` (module docstring)."""
+    check_mesh(mesh)
     comm_dtype = resolve_comm_dtype(comm_dtype)
-    if whole_words(table):
-        vals = rowdma.gather_rows(table, rows)
-    else:
-        vals = table.index_select(0, rows)
-    return _wire_cast(vals, comm_dtype)
+    if mesh is not None:
+        from swiftsnails_tpu_torch.parallel.comm import psum_quantized, scope
+        from swiftsnails_tpu_torch.parallel.mesh import MODEL_AXIS
+
+        local = rows - mesh.axis_index(MODEL_AXIS) * table.shape[0]
+        owned = (local >= 0) & (local < table.shape[0])
+        with scope("ssn_pull_collective"):  # the JAX servant pulls through pull_collective
+            vals = _gather(table, torch.where(owned, local, 0).to(torch.int32))
+            return psum_quantized(mesh, vals.masked_fill(~owned[:, None], 0), MODEL_AXIS,
+                                  comm_dtype)
+    return _wire_cast(_gather(table, rows), comm_dtype)
 
 
 def write_rows(table: torch.Tensor, rows: torch.Tensor,
@@ -130,6 +155,7 @@ def topk_tiled(
     k: int,
     tile_rows: int = 4096,
     normalize: bool = True,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k rows of ``table`` by dot-product score against ``queries``.
 
@@ -149,7 +175,16 @@ def topk_tiled(
     word2vec ``out_table`` starts at zero, and rows no step touched score
     0 alike. The products run in f32 under the caller's TF32 setting,
     which the port leaves off (PyTorch's default).
+
+    Under ``mesh`` ``table`` is this rank's shard: the scan of the shard,
+    its ids offset by ``m * per``, every shard's candidates gathered over
+    ``model`` (in model order, so a stable sort by score keeps ties by id)
+    and merged to ``k = min(k, per * model)``. With ``tile_rows`` dividing
+    ``per`` the shards' tiles are the unmeshed scan's, score for score.
     """
+    check_mesh(mesh)
+    if mesh is not None:
+        return _topk_meshed(table, queries, k, tile_rows, normalize, mesh)
     c, d = table.shape
     b = queries.shape[0]
     k = min(int(k), c)
@@ -177,6 +212,26 @@ def topk_tiled(
         best_s = torch.gather(cat_s, 1, sel)
         best_i = torch.gather(cat_i, 1, sel)
     return best_s, best_i
+
+
+def _topk_meshed(shard: torch.Tensor, queries: torch.Tensor, k: int, tile_rows: int,
+                 normalize: bool, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk_tiled` under ``mesh`` (its docstring)."""
+    from swiftsnails_tpu_torch.parallel.comm import all_gather, scope
+    from swiftsnails_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    per, model = shard.shape[0], mesh.axis_size(MODEL_AXIS)
+    s, i = topk_tiled(shard, queries, k, tile_rows=tile_rows, normalize=normalize)
+    i = torch.where(i >= 0, i + mesh.axis_index(MODEL_AXIS) * per, i)
+    b, kl = s.shape
+    with scope("ssn_serve_topk"):
+        all_s = all_gather(mesh, s, MODEL_AXIS).reshape(model, b, kl)
+        all_i = all_gather(mesh, i, MODEL_AXIS).reshape(model, b, kl)
+    all_s = all_s.permute(1, 0, 2).reshape(b, model * kl)
+    all_i = all_i.permute(1, 0, 2).reshape(b, model * kl)
+    sel = torch.sort(all_s, dim=1, descending=True, stable=True).indices[:, :min(int(k),
+                                                                             per * model)]
+    return torch.gather(all_s, 1, sel), torch.gather(all_i, 1, sel)
 
 
 def ctr_logits(

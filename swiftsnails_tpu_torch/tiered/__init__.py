@@ -7,9 +7,11 @@ the card") lists the keys.
 
 The freshness tee (``TieredTable.delta_tap``, called after each landed
 write-back, and ``TierManager.flush_dirty``, the publish barrier) feeds the
-delta publisher of ``freshness/``. Not ported yet (``ROADMAP.md``): the tier
-under a mesh (the sharded cache plane, Queue 1 item 6), which raises
-``NotImplementedError``.
+delta publisher of ``freshness/``. Under a ``(data, model)`` mesh the cache
+plane is row-sharded over ``model`` and each rank holds the whole master
+(``TieredTable(mesh=)``, ``TierManager`` on a meshed trainer); the
+freshness tee and the integrity sweep under a mesh come with Queue 1 item
+6, slice 6 (``ROADMAP.md``).
 """
 
 from swiftsnails_tpu_torch.tiered.manager import TierManager

@@ -24,6 +24,14 @@ step, device)``, as the loop does) and the trainer's draws from it, in the
 step's order, so the host knows the step's negative rows ahead of time and
 the tiered run stays bit-identical to the resident one.
 
+Under a ``(data, model)`` mesh (the trainer's ``mesh``) the plan, the
+CLOCK and the remap run on the global batch, before the loop's
+``Trainer.local_batch`` slices it, so every rank holds the same slot map;
+each rank stages the same rows to its own device. :meth:`adopt` takes this
+rank's shards and builds the whole master from them
+(``transfer.gather_table``), :meth:`master_state` returns the whole
+master, and :meth:`shard_state` cuts it back to this rank's rows.
+
 Keys (``docs/CONFIG_KEYS.md``): ``tier_hbm_budget_mb`` (64), ``tier_checksums``
 (1), ``tier_verify_period`` (0, read by the loop), ``tier_prefetch_depth`` (2
 or ``auto``), ``tier_async_flush`` (1), ``tier_flush_batch`` (8),
@@ -43,10 +51,11 @@ from swiftsnails_tpu_torch.tiered.store import (
     HostMaster,
     TieredTable,
     TierStats,
+    _fields,
     _FlushQueue,
     _to_torch,
-    _unported,
     resolve_master_dtype,
+    whole_state,
 )
 from swiftsnails_tpu_torch.utils.config import ConfigError
 from swiftsnails_tpu_torch.utils.tree import map_tensors
@@ -66,10 +75,8 @@ class TierManager:
             raise ConfigError(
                 f"table_tier: host is not supported by trainer "
                 f"'{trainer.name}' (no tier_spec)")
-        if getattr(trainer, "mesh", None) is not None:
-            _unported("table_tier: host under a mesh (the sharded cache plane)",
-                      "6 (the multi-device planes)")
         self.trainer = trainer
+        self.mesh = getattr(trainer, "mesh", None)
         self.spec = spec
         self.device = trainer.device
         cfg = trainer.config
@@ -118,7 +125,8 @@ class TierManager:
     # -- lifecycle ----------------------------------------------------------
 
     def adopt(self, state):
-        """Device planes -> host masters + device cache planes (+ prewarm)."""
+        """Device planes -> host masters + device cache planes (+ prewarm).
+        Under a mesh ``state`` holds this rank's shards."""
         self._drain()  # re-adopt: no stragglers from the previous generation
         # of tables may land after the masters rebuild
         tabs = self.trainer.tier_tables(state)
@@ -127,13 +135,13 @@ class TierManager:
         for name, st in tabs.items():
             info = self.spec[name]
             master = HostMaster(
-                st, info["layout"], group=int(info.get("group", 1)),
+                whole_state(self.mesh, st), info["layout"], group=int(info.get("group", 1)),
                 checksums=self.checksums, master_dtype=self.master_dtype)
             # budget math stays in LOGICAL bytes: the cache holds f32 rows
             # regardless of how narrow the host storage is
             units = int(budget_each * (1 << 20) // max(master.unit_nbytes, 1))
             tt = TieredTable(
-                master, units, name=name, stats=self.stats,
+                master, units, mesh=self.mesh, name=name, stats=self.stats,
                 flusher=self.flusher, device=self.device,
                 use_native=self.use_native,
             )
@@ -339,6 +347,27 @@ class TierManager:
             self.retry.call(tt.flush, tabs[name], op=f"tier_flush:{name}")
         masters = {name: tt.master.state() for name, tt in self.tables.items()}
         return self.trainer.tier_with_tables(state, masters)
+
+    def shard_state(self, state, device=None):
+        """This rank's model rows of each table of a :meth:`master_state`
+        (the layout a resident meshed run holds), moved to ``device`` where
+        given; ``state`` itself without a mesh. Row ranges are contiguous
+        leading-dim slices, the units of every layout (rows, packed rows,
+        small-row tiles)."""
+        if self.mesh is None:
+            return state
+        from swiftsnails_tpu_torch.parallel.mesh import model_rows
+
+        def part(t):
+            t = model_rows(self.mesh, t)
+            return t if device is None else t.to(device)
+
+        tabs = self.trainer.tier_tables(state)
+        shards = {}
+        for name, st in tabs.items():
+            tab, slots = _fields(st)
+            shards[name] = type(st)(table=part(tab), slots={k: part(v) for k, v in slots.items()})
+        return self.trainer.tier_with_tables(state, shards)
 
     # -- integrity: verify / quarantine-and-rebuild ---------------------------
 

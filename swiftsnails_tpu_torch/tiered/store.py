@@ -40,10 +40,25 @@ card-side order matters where JAX relied on fresh buffers:
   the install makes the current stream wait for its event first.
 
 No power-of-two padding: the kernels launch on the real row count.
+
+Under a ``(data, model)`` mesh (``TieredTable(mesh=)``, the JAX package's
+sharded cache plane) every rank holds the whole master in its own host RAM
+(one a process, where the JAX package holds one a job) and its model shard
+of the cache: ``budget / model`` slots, the budget rounded up to a multiple
+of ``model``. Every rank makes the same host decisions (the plan runs on
+the global batch), so the slot maps, CLOCK hands, counters and dirty bits
+are the same everywhere. A fault installs the same rows on every rank,
+each keeping its own slots (``transfer.scatter_slots_collective``: no
+collective); an eviction reads the dirty victims whole with
+``transfer.gather_slots_collective`` (an all-reduce over ``model``) on
+the loop's thread, before the slots are reused, and only the D2H and the
+master scatter go to the flusher thread. Neither the flusher nor the
+prefetch producer makes a collective.
 """
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
@@ -56,12 +71,6 @@ import torch
 from swiftsnails_tpu_torch.ops import rowdma
 from swiftsnails_tpu_torch.serving.kernels import whole_words, write_rows
 from swiftsnails_tpu_torch.utils.device import DeviceLike, resolve_device
-
-
-def _unported(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} selects a tiered path the PyTorch port does not have yet; "
-        f"see ROADMAP.md, Queue 1 item {item}")
 
 
 @dataclass
@@ -269,6 +278,19 @@ def _fields(state):
     if isinstance(state, dict):
         return state["table"], state["slots"]
     return state.table, state.slots
+
+
+def whole_state(mesh, state):
+    """A table state (its table and slot planes) whole: under a mesh of
+    ``model`` > 1 its shards gathered over ``model`` (a collective: every
+    rank calls it), else ``state`` itself."""
+    from swiftsnails_tpu_torch.parallel.mesh import gather_model
+
+    tab, slots = _fields(state)
+    whole = gather_model(mesh, tab)
+    if whole is tab:
+        return state
+    return type(state)(table=whole, slots={k: gather_model(mesh, v) for k, v in slots.items()})
 
 
 class HostMaster:
@@ -714,6 +736,10 @@ class TieredTable:
     the remap and the CLOCK sweep through the native library, which must
     build (a failed ``g++`` build raises); off, the numpy and Python paths,
     which give the same slot maps bit for bit.
+
+    ``mesh``: the cache plane is row-sharded over the mesh's ``model``
+    axis (module docstring); the methods that move data take and return
+    this rank's shard.
     """
 
     def __init__(
@@ -729,11 +755,8 @@ class TieredTable:
         device: DeviceLike = None,
         use_native: bool = True,
     ):
-        if mesh is not None:
-            _unported("mesh= (the cache plane sharded over a mesh, "
-                      "scatter_slots_collective)", "6 (the multi-device planes)")
         self.master = master
-        self.mesh = None
+        self.mesh = mesh
         self.device = resolve_device(device)
         self._native = None
         if use_native:
@@ -755,6 +778,17 @@ class TieredTable:
         self.stats = stats if stats is not None else TierStats()
         self.read_only = read_only
         budget = max(int(budget_units), 1)
+        self.model = 1
+        if mesh is not None:
+            from swiftsnails_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh)}")
+            self.model = mesh.axis_size(MODEL_AXIS)
+            if master.units % self.model:
+                raise ValueError(f"tiered[{name or 'table'}]: {master.units} master units "
+                                 f"do not split over model axis {self.model}")
+            budget = -(-budget // self.model) * self.model  # rows-per-shard divisibility
         self.budget = min(budget, master.units)
         self.group = master.group
         # host slot map: unit -> cache slot (and inverse), CLOCK state
@@ -786,13 +820,15 @@ class TieredTable:
 
     def make_cache(self):
         """Zero-filled cache plane of the master's layout on the card (or
-        the table's device). Unassigned slots are never read (pulls only see
-        slots the fault path installed), so zeros are safe."""
+        the table's device); under a mesh this rank's ``budget / model``
+        slots of it. Unassigned slots are never read (pulls only see slots
+        the fault path installed), so zeros are safe."""
         m = self.master
-        table = torch.zeros((self.budget,) + m.table.shape[1:],
+        rows = self.budget // self.model
+        table = torch.zeros((rows,) + m.table.shape[1:],
                             dtype=m.table_dtype, device=self.device)
         slots = {
-            k: torch.zeros((self.budget,) + v.shape[1:],
+            k: torch.zeros((rows,) + v.shape[1:],
                            dtype=m.slot_dtypes[k], device=self.device)
             for k, v in m.slots.items()
         }
@@ -842,6 +878,22 @@ class TieredTable:
 
     # -- fault path ---------------------------------------------------------
 
+    def check(self, units: np.ndarray) -> np.ndarray:
+        """The sorted distinct ``units``, once :meth:`ensure`'s checks
+        pass, with nothing changed: every id in range, and no more distinct
+        units than the cache holds. Raises as :meth:`ensure` does."""
+        uniq = np.unique(np.asarray(units).ravel())
+        if uniq.size and (int(uniq[0]) < 0 or int(uniq[-1]) >= self.master.units):
+            raise ValueError(
+                f"tiered[{self.name}]: unit ids out of range "
+                f"[{uniq[0]}, {uniq[-1]}] for {self.master.units} units")
+        if int(uniq.size) > self.budget:
+            raise RuntimeError(
+                f"tiered[{self.name}]: the step touches {int(uniq.size)} distinct "
+                f"cache units but the HBM budget holds only {self.budget}; "
+                "raise tier_hbm_budget_mb (or shrink the batch)")
+        return uniq
+
     def ensure(self, cache, units: np.ndarray, *, staged=None,
                mark_dirty: Optional[bool] = None):
         """Make every unit resident; returns the (updated) cache state.
@@ -857,11 +909,7 @@ class TieredTable:
         t_ensure0 = time.monotonic_ns()
         if mark_dirty is None:
             mark_dirty = not self.read_only
-        uniq = np.unique(np.asarray(units).ravel())
-        if uniq.size and (int(uniq[0]) < 0 or int(uniq[-1]) >= self.master.units):
-            raise ValueError(
-                f"tiered[{self.name}]: unit ids out of range "
-                f"[{uniq[0]}, {uniq[-1]}] for {self.master.units} units")
+        uniq = self.check(units)
         self.stats.lookups += int(uniq.size)
         slots = self.slot_of[uniq]
         resident = slots >= 0
@@ -872,12 +920,6 @@ class TieredTable:
         ).astype(np.uint8)
         miss = uniq[~resident]
         if miss.size:
-            if int(hit_slots.size) + int(miss.size) > self.budget:
-                raise RuntimeError(
-                    f"tiered[{self.name}]: the step touches "
-                    f"{int(hit_slots.size) + int(miss.size)} distinct cache "
-                    f"units but the HBM budget holds only {self.budget}; "
-                    "raise tier_hbm_budget_mb (or shrink the batch)")
             if self._pending is not None and self._pending[miss].any():
                 # refault of a unit whose eviction flush is still in flight:
                 # the master copy is stale until that entry lands, and the
@@ -1008,13 +1050,31 @@ class TieredTable:
                      s_rows: Dict[str, torch.Tensor]):
         """Overwrite cache slots ``slots`` (unique) with device rows, in
         place: ``scatter_write_rows`` where a row is whole 16-byte words,
-        else ``index_put_``."""
+        else ``index_put_``; under a mesh each rank writes the slots its
+        shard owns (``transfer.scatter_slots_collective``)."""
         tab, cslots = _fields(cache)
         idx = self._idx(slots)
-        write_rows(tab, idx, t_rows.contiguous())
+        if self.mesh is not None:
+            from swiftsnails_tpu_torch.parallel.transfer import scatter_slots_collective
+
+            write = functools.partial(scatter_slots_collective, self.mesh)
+        else:
+            write = write_rows
+        write(tab, idx, t_rows.contiguous())
         for k, plane in cslots.items():
-            write_rows(plane, idx, s_rows[k].contiguous())
+            write(plane, idx, s_rows[k].contiguous())
         return cache
+
+    def _read_slots(self, plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """A new tensor of cache slots ``idx``' rows: :func:`_gather_plane`,
+        or under a mesh the owned gather summed over ``model``
+        (``transfer.gather_slots_collective``), whole on every rank."""
+        if self.mesh is None:
+            return _gather_plane(plane, idx)
+        from swiftsnails_tpu_torch.parallel.transfer import gather_slots_collective
+
+        return gather_slots_collective(self.mesh, plane, idx)
+
 
     # -- write-back ----------------------------------------------------------
 
@@ -1031,8 +1091,8 @@ class TieredTable:
         tab, cslots = _fields(cache)
         n = int(slots.size)
         idx = self._idx(slots)
-        t_dev = _gather_plane(tab, idx)
-        s_dev = {k: _gather_plane(v, idx) for k, v in cslots.items()}
+        t_dev = self._read_slots(tab, idx)
+        s_dev = {k: self._read_slots(v, idx) for k, v in cslots.items()}
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -1107,9 +1167,10 @@ class TieredTable:
             # pass-through mode never marks dirty per step (prepare() skips
             # ensure entirely), and the identity-mapped cache in unit order
             # IS the whole table: replace the master planes wholesale (one
-            # D2H per plane, digests re-seeded)
+            # D2H per plane, digests re-seeded; under a mesh the shards
+            # gathered first)
             t0 = time.monotonic_ns()
-            self.master.reload(cache)
+            self.master.reload(whole_state(self.mesh, cache))
             self.stats.flushes += 1
             self.stats.flushed_rows += self.used
             # what moved D2H is the logical cache plane, not the (possibly
@@ -1141,7 +1202,9 @@ class TieredTable:
         the trainer's device plane IS the cache — install the identity slot
         map over it and return it unchanged. No zero-fill, no master gather,
         no H2D: the fast twin of ``make_cache`` + a full :meth:`prewarm`,
-        and the entry into transparent (pass-through) mode."""
+        and the entry into transparent (pass-through) mode. Under a mesh
+        ``state`` is this rank's shard, which is then its shard of the
+        cache."""
         if self.budget < self.master.units:
             raise ValueError(
                 f"tiered[{self.name}]: adopt_resident needs the budget "

@@ -300,9 +300,16 @@ def test_one_device_bucketed_reports_nothing_dropped():
     {"table_tier": "host", "fused": "0", "grouped": "0"}],
     ids=lambda o: next(iter(o)))
 def test_other_plane_keys_still_raise_on_the_grouped_plane(over):
-    """``comm_dtype``, ``placement`` and ``optimizer_sharding`` are ported
-    since this test was written: for them the test holds that the grouped
-    plane takes the key; ``table_tier: host`` still raises."""
+    """``comm_dtype``, ``placement``, ``optimizer_sharding`` and (on the
+    flat packed plane: the tier refuses the fused ones) ``table_tier: host``
+    are ported since this test was written: for them the test holds that
+    the meshed trainer takes the key."""
+    if "table_tier" in over:
+        tr = ranks.grouped_trainer("grouped", _hand_mesh(), **over)
+        assert tr.tiered and not tr.grouped and tr.mesh is not None
+        assert tr.tier_spec() == {"in_table": {"layout": "packed", "group": 1},
+                                  "out_table": {"layout": "packed", "group": 1}}
+        return
     if "table_tier" not in over:
         tr = ranks.grouped_trainer("grouped", _hand_mesh(), **over)
         assert tr.grouped and tr.mesh is not None

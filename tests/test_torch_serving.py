@@ -140,13 +140,15 @@ def test_bf16_wire_is_bit_equal_to_jax():
 def test_unported_wire_and_mesh_raise(comm, raises):
     """The int8 and int4 wires are ported since this test was written: for
     them it holds that the resolver takes the name as the JAX package's
-    does; an unknown name raises ``ValueError``, and ``mesh=`` still raises."""
+    does; an unknown name raises ``ValueError``. ``mesh=`` is ported too
+    (``tests/test_torch_serving_mesh.py``): it takes a ``parallel.mesh.Mesh``
+    and refuses anything else."""
     if raises is NotImplementedError:
         assert resolve_comm_dtype(comm) == jax_comm.resolve_comm_dtype(comm)
     else:
         with pytest.raises(raises, match="comm_dtype"):
             resolve_comm_dtype(comm)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         pull_rows(torch.zeros((4, 4)), torch.zeros(1, dtype=torch.int32), mesh=object())
 
 
@@ -529,10 +531,11 @@ def test_unported_servant_options_raise():
     """``tier_hbm_budget_mb`` is ported since this test was written: the
     servant then builds a tier (its budget in rows of the table); so is
     ``attach_freshness``: ``health()`` then carries the subscriber's status;
-    ``mesh=`` still raises."""
+    so is ``mesh=`` (``tests/test_torch_serving_mesh.py``), which takes a
+    ``parallel.mesh.Mesh`` and refuses anything else."""
     with Servant({"t": _table(4, 4)}, tier_hbm_budget_mb=8.0, device=CPU) as sv:
         assert sv.tier["t"].budget == 4 and sv.stats()["tiered"]["prewarmed_rows"] == 4
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         Servant({"t": _table(4, 4)}, mesh=object(), device=CPU)
     class _Sub:
         def status(self):

@@ -231,13 +231,21 @@ def test_fused_paths_refuse_the_tier():
 
 
 def test_mesh_and_the_freshness_tee_raise():
-    """The meshed cache plane (Queue 1 item 6) is not ported: it raises
-    naming its item. The freshness tee is ported since this test was
-    written: ``delta_tap`` records every landed write-back's units and
+    """The meshed cache plane is ported since this test was written: the
+    budget rounds up to a multiple of the model axis and the cache is this
+    rank's ``budget / model`` slots (``tests/test_torch_tier_mesh.py``
+    trains it); ``mesh=`` must be a ``parallel.mesh.Mesh``. The freshness
+    tee is ported too: ``delta_tap`` records every landed write-back's units and
     ``flush_dirty`` is the barrier that lands them
     (``tests/test_torch_freshness.py`` holds the tee against JAX's)."""
     master = HostMaster(TableState(table=torch.zeros(8, 4), slots={}), "dense")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    from swiftsnails_tpu_torch.parallel.mesh import Mesh
+
+    hand = Mesh(shape={"data": 1, "model": 2}, coords={"data": 0, "model": 1},
+                groups={}, device=torch.device(CPU))
+    meshed = TieredTable(master, 3, mesh=hand, device=CPU)
+    assert meshed.budget == 4 and meshed.make_cache().table.shape == (2, 4)
+    with pytest.raises(TypeError, match="mesh"):
         TieredTable(master, 4, mesh=object(), device=CPU)
     tt = TieredTable(master, 4, device=CPU)
     assert tt.delta_tap is None

@@ -416,7 +416,8 @@ def test_unported_loop_keys_raise(key, value):
 def test_mesh_raises():
     """A mesh trains the flat paths (``tests/test_torch_word2vec_mesh.py``)
     and the grouped family (``tests/test_torch_grouped_mesh.py``); the tier
-    is not ported under a mesh and raises, and a mesh must be a
+    under a mesh is ported since this test was written (the trainer takes
+    it; ``tests/test_torch_tier_mesh.py`` trains it), and a mesh must be a
     ``parallel.mesh.Mesh``."""
     from swiftsnails_tpu_torch.parallel.mesh import Mesh
 
@@ -426,9 +427,9 @@ def test_mesh_raises():
     tr = word2vec.Word2VecTrainer(Config(_conf(fused="1", grouped="1")), mesh=mesh,
                                   corpus_ids=ids, vocab=Vocab(words, counts), device="cpu")
     assert tr.grouped and tr.mesh is mesh
-    with pytest.raises(NotImplementedError, match="mesh"):
-        word2vec.Word2VecTrainer(Config(_conf(table_tier="host")), mesh=mesh,
-                                 corpus_ids=ids, vocab=Vocab(words, counts), device="cpu")
+    tiered = word2vec.Word2VecTrainer(Config(_conf(table_tier="host")), mesh=mesh,
+                                      corpus_ids=ids, vocab=Vocab(words, counts), device="cpu")
+    assert tiered.tiered and tiered.mesh is mesh
     with pytest.raises(TypeError, match="mesh"):
         word2vec.Word2VecTrainer(Config(_conf()), mesh=object(), corpus_ids=ids,
                                  vocab=Vocab(words, counts), device="cpu")

@@ -158,9 +158,10 @@ def _hand_mesh(data=2, model=2):
     {"table_tier": "host"},
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_keys_raise_under_a_mesh(over):
-    """``comm_dtype`` and ``placement`` are ported since this test was
-    written: for them the test holds that the meshed trainer takes the key;
-    ``table_tier: host`` still raises."""
+    """``comm_dtype``, ``placement`` and ``table_tier: host`` are ported
+    since this test was written: for them the test holds that the meshed
+    trainer takes the key (``tests/test_torch_tier_mesh.py`` trains the
+    tier under a mesh)."""
     if "comm_dtype" in over:
         tr = ranks.w2v_trainer("packed", _hand_mesh(), **over)
         assert tr.comm_dtype == over["comm_dtype"] and tr.mesh is not None
@@ -169,8 +170,8 @@ def test_unported_keys_raise_under_a_mesh(over):
         tr = ranks.w2v_trainer("packed", _hand_mesh(), **over)
         assert tr.placement_cut > 0 and tr.placement_spec() is not None
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ranks.w2v_trainer("packed", _hand_mesh(), **over)
+    tr = ranks.w2v_trainer("packed", _hand_mesh(), **over)
+    assert tr.tiered and tr.mesh is not None and tr.tier_spec() is not None
 
 
 @pytest.mark.parametrize("over", [
@@ -179,7 +180,7 @@ def test_unported_keys_raise_under_a_mesh(over):
 ], ids=lambda o: next(iter(o)))
 def test_loop_keys_raise_under_a_mesh(over):
     tr = ranks.w2v_trainer("packed", _hand_mesh(), **over)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6, slice 6"):
         TrainLoop(tr)
 
 
