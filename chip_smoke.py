@@ -35,7 +35,8 @@ and resumed); last word2vec under a ``(data, model)`` mesh (a one-rank
 NCCL mesh at full width against the unmeshed run, the grouped collective
 plane with its dedup and bucketed collectives and ``overlap`` there, and a
 ``(2, 2)`` gloo mesh of four processes against one device and against
-the one-rank mesh).
+the one-rank mesh), and the loop's guards there (the guardrail, the tier's
+sweep, freshness publishing and cluster leases).
 
     python3 chip_smoke.py [--seed N] [--only tiered|freshness|cluster|seqlm|mesh]
 
@@ -487,8 +488,27 @@ Phases:
     ``MESH_GLOO_TIER_SAVE`` and resumed bit-equal; a servant on a
     ``MESH_GLOO_SERVE`` mesh of the ranks (rank 0 leading, the others
     following) pulling ``MESH_GLOO_SERVE_IDS`` ids bit-equal to one rank's
-    and its ``MESH_GLOO_SERVE_TOPK`` topk the same ids. One ``mesh``
-    line. Then
+    and its ``MESH_GLOO_SERVE_TOPK`` topk the same ids. (h) The loop's
+    guards under the mesh, each agreed by a vote of the ranks: on the
+    (1, 1) NCCL mesh at full width, packed+pool with ``guardrail: 1`` and
+    ``GUARDS_NAN`` meshed and unmeshed ``MESH_STEPS`` steps (one trip at
+    step 4, tables bit-equal, rows 1–2 launched as often; the step ms with
+    the guardrail on and off, a vote's ms alone); the tier's sweep
+    (``TIER``'s 64 MB, ``TIER_HEAL``, ``TIER_HEAL_STEPS`` steps) meshed,
+    healed once from the step-5 save, bit-equal to the unmeshed drill (the
+    tiered phase's, phase 17 (6.); run in the leg under ``--only mesh``);
+    ``freshness_publish`` every ``GUARDS_FRESH_EVERY`` steps under the mesh
+    into a directory a 2-replica ``Fleet`` follows, its planes and its
+    pulls of the published rows bit-equal to the trained tables;
+    ``GUARDS_CLUSTER`` (``cluster_workers: 3``, ``preempt@6``) drained with
+    a final save and resumed, every index committed once, the tables
+    bit-equal to (a)'s resident meshed run; W&D with the guardrail and
+    ``GUARDS_WD_NAN`` meshed and unmeshed, bit-equal. On the four gloo
+    ranks (``MESH_GLOO_GUARDS``): a NaN on rank 2 alone rolls back every
+    rank at that step, a bit flipped in rank 2's master alone heals every
+    rank from the same save, only rank 0 writes delta files, every rank
+    takes the same leased indices. One ``mesh`` line (its ``guards``
+    block). Then
     ``gather_rows`` and ``scatter_add_rows`` at the grouped plane's shapes
     (``kernel`` lines, ``path: "mesh_grouped"``): its pulls of 8,192 centers
     and 83,968 out rows and its pushes of the merged rows, on a step of its
@@ -502,7 +522,11 @@ Phases:
     into the ``[32,768, 2, 128]`` cache shard, a step's push into it, a
     W&D step's tiles into its cache shard) and the meshed pull's owned
     gather (``path: "mesh_serve"``: 8 and 64 zipf ids of the meshed
-    servant's ``[1,048,576, 200]`` shard). ``--only mesh`` runs this phase
+    servant's ``[1,048,576, 200]`` shard); and the guards' (``path:
+    "mesh_guards"``: the meshed publisher's owned ``gather_rows`` of a
+    publish's touched in-table rows from the trained shard, the fleet's
+    ``scatter_write_rows`` of a delta batch's rows into a ``[1,048,576,
+    200]`` serving plane). ``--only mesh`` runs this phase
     alone (with the build, the kernels' phase 3 and a serve checkpoint of
     its own) and prints no result line.
 22. ``kernels``: one line for every ported kernel, with its launches in the
@@ -519,7 +543,10 @@ Phases:
     kernels of the tiered runs with ``path: "tiered"``, and at the meshed
     tier's shapes with leg 1's launches, ``path: "mesh_tier"``;
     ``gather_rows`` at the meshed pull with the meshed servant's launches,
-    ``path: "mesh_serve"``); then ``total``, the script's seconds.
+    ``path: "mesh_serve"``; ``gather_rows`` and ``scatter_write_rows`` at
+    the meshed publisher's and the apply's shapes with the guards
+    freshness run's launches, ``path: "mesh_guards"``); then ``total``, the
+    script's seconds.
 """
 
 from __future__ import annotations
@@ -3540,6 +3567,8 @@ def phase_tiered(seed: int, corpora, env: dict, serve: dict) -> dict:
         emit("tiered_heal", steps=TIER_HEAL_STEPS, chaos=TIER_HEAL["chaos_spec"],
              event=events[0], final_loss=run["losses"][-1], verify_clean=True,
              run_s=run["seconds"], **card)
+        # the unmeshed drill the mesh phase's sweep is held to
+        heal_drill = _sweep_result(run, events, heals=None)
         del run
         shutil.rmtree(h_root, ignore_errors=True)
         gc.collect()
@@ -3652,7 +3681,7 @@ def phase_tiered(seed: int, corpora, env: dict, serve: dict) -> dict:
         # 9. the timings
         emit("tiered_timing", legs=timing, digest_build_s=digest_s, master_copy_s=copy_s,
              host_available_bytes=_host_available(), **card)
-        return {"launches": launches, "shapes": shapes,
+        return {"launches": launches, "shapes": shapes, "heal_drill": heal_drill,
                 "seconds": time.monotonic() - t_phase}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4937,7 +4966,8 @@ def _loss_loop(trainer, records=None) -> tuple:
 
     class Recorder(MetricsLogger):
         def log(self, record):
-            losses.append(record["loss"])
+            # a guardrail trip drops a non-finite loss from its line
+            losses.append(record.get("loss"))
             if records is not None:
                 records.append(record)
 
@@ -4955,11 +4985,19 @@ def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) ->
     from swiftsnails_tpu_torch.parallel import transfer
     from swiftsnails_tpu_torch.parallel.mesh import make_mesh
 
-    out = {}
+    out, sections = {}, {}
+    t0 = time.monotonic()
+
+    def lap(name):
+        nonlocal t0
+        sections[name] = time.monotonic() - t0
+        t0 = time.monotonic()
+
     try:
         torch.set_num_threads(1)
         dist.init_process_group("gloo", init_method=init, rank=rank, world_size=size)
         mesh = make_mesh(MESH_GLOO, device=MESH_GLOO_DEVICE)
+        lap("join")
         loop, losses = _loss_loop(_mesh_gloo_trainer(seed, MESH_GLOO_DEVICE, mesh))
         transfer.reset_comm()
         state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=MESH_GLOO_STEPS))
@@ -4967,6 +5005,7 @@ def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) ->
                "losses": losses, "comm": dict(transfer.COMM), "launches": launches,
                "backend": dist.get_backend(mesh.groups["model"])}
         del state
+        lap("packed")
         for route, over in MESH_GLOO_GROUPED.items():
             records = []
             loop, losses = _loss_loop(
@@ -4977,6 +5016,7 @@ def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) ->
                           "launches": launches,
                           "dropped": [r.get("dedup_dropped") for r in records]}
             del state
+        lap("grouped")
         wd = _mesh_ctr_run(seed, _mesh_gloo_ctr_data(seed), mesh, MESH_GLOO_CTR_STEPS,
                            over=MESH_GLOO_CTR_OVER,
                            param_backup_root=os.path.join(out_dir, "ck-gloo-widedeep"),
@@ -4984,17 +5024,27 @@ def _mesh_gloo_rank(rank: int, size: int, init: str, out_dir: str, seed: int) ->
         out["widedeep"] = {"state": {k: t.cpu() for k, t in _tensor_items(wd["state"])},
                            "losses": wd["losses"], "launches": wd["launches"]}
         del wd
+        lap("widedeep")
         out["hybrid"] = _gloo_hybrid_runs(seed, mesh)
+        lap("hybrid")
         out["ctr_layouts"] = _gloo_ctr_layouts(seed, mesh, out_dir)
+        lap("ctr_layouts")
         wire_dev = _gloo_wire_device(mesh)
         wire_mesh = mesh if wire_dev == MESH_GLOO_DEVICE else make_mesh(MESH_GLOO, device=wire_dev)
         out["wire_device"] = wire_dev
         out["wire"] = _gloo_wire_runs(seed, wire_mesh, wire_dev)
+        lap("wire")
         seq = make_mesh(MESH_SEQLM, device=MESH_SEQLM_DEVICE)
         out["seqlm"] = _mesh_seqlm_run(seed, MESH_SEQLM_DEVICE, seq)
         out["seq_coords"] = seq.coords
+        lap("seqlm")
         out["tier"] = _gloo_tier_runs(seed, mesh, out_dir)
+        lap("tier")
+        out["guards"] = _gloo_guard_runs(seed, mesh, out_dir)
+        lap("guards")
         out["serve"] = _gloo_serve(seed)
+        lap("serve")
+        out["sections_s"] = sections
         dist.destroy_process_group()
     except Exception:
         out = {"error": traceback.format_exc()}
@@ -5256,10 +5306,11 @@ def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
     wire = _gloo_wire_check(seed, by, solo)
     seqlm = _mesh_gloo_seqlm(seed, results)
     tier = _gloo_tier_check(results)
+    guards = _gloo_guards_check(results)
     return {"device": MESH_GLOO_DEVICE, "backend": results[0]["backend"],
             "mesh": MESH_GLOO, "ranks": size, "steps": MESH_GLOO_STEPS,
             "widedeep": widedeep, "hybrid": hybrid, "ctr_layouts": layouts, "wire": wire,
-            "seqlm": seqlm, "tier": tier,
+            "seqlm": seqlm, "tier": tier, "guards": guards,
             "reduced": {"vocab": [MESH_GLOO_VOCAB, VOCAB],
                         "batch": [MESH_GLOO_BATCH, BATCH],
                         "grouped_centers": [MESH_GLOO_BATCH, GROUPED_BATCH],
@@ -5280,7 +5331,8 @@ def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
             "launches_by_rank": [{k: r["launches"][k] for k in ("gather_rows",
                                                                 "scatter_add_rows")}
                                  for r in results],
-            "seconds": time.monotonic() - t0, "spawn_s": spawn_s}
+            "seconds": time.monotonic() - t0, "spawn_s": spawn_s,
+            "rank_sections_s": results[0]["sections_s"]}
 
 
 def _tensor_items(state):
@@ -5698,7 +5750,8 @@ def _mesh_ctr_run(seed: int, data, mesh, steps: int, over=None, **keys) -> dict:
     loop, _ = _loss_loop(trainer, records)
     transfer.reset_comm()
     state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=steps))
-    losses = {r["step"]: r["loss"] for r in records}
+    # a guardrail trip's line carries no loss (the poisoned one is dropped)
+    losses = {r["step"]: r["loss"] for r in records if "loss" in r}
     if not all(math.isfinite(x) for x in losses.values()):
         raise AssertionError(f"mesh ctr {over} {keys}: losses {losses}")
     return {"trainer": trainer, "state": state, "losses": losses, "launches": launches,
@@ -6423,12 +6476,12 @@ def _mesh_serve_leg(seed: int, mesh, serve: dict, rate: float) -> dict:
     return out
 
 
-def _gloo_tier_budget_mb(trainer, seed: int) -> float:
+def _gloo_tier_budget_mb(trainer, seed: int, steps: int = MESH_GLOO_TIER_STEPS) -> float:
     """A budget of ``MESH_GLOO_TIER_SLACK`` x the most distinct units a table
-    of ``trainer`` touches in one of its first ``MESH_GLOO_TIER_STEPS``
-    steps (the tier's own plan of the global batches), both tables."""
+    of ``trainer`` touches in one of its first ``steps`` steps (the tier's
+    own plan of the global batches), both tables."""
     most = 0
-    for step, batch in zip(range(MESH_GLOO_TIER_STEPS), trainer.batches()):
+    for step, batch in zip(range(steps), trainer.batches()):
         ids, _, _ = trainer.tier_plan(batch, seed, step)
         most = max(most, *(np.unique(v).size for v in ids.values()))
     unit = (-(-DIM // 128) * 128 if trainer.packed else DIM) * 4
@@ -6552,6 +6605,420 @@ def _gloo_tier_check(results: list) -> dict:
     return out
 
 
+# The loop's guards under the mesh (phase 21 (h)): leg 1 on the (1, 1) NCCL
+# mesh at full width, each case against the same run unmeshed (or, for the
+# cluster, the resident meshed run of (a)); leg 2 on the four gloo ranks
+GUARDS_NAN = "nan_grad@4"
+GUARDS_VOTES = 100  # votes timed alone (host clock)
+GUARDS_FRESH_EVERY = 5
+GUARDS_CLUSTER = {"cluster_workers": 3, "chaos_spec": "preempt@6"}
+GUARDS_WD_STEPS = 5
+GUARDS_WD_NAN = "nan_grad@2"
+# leg 2's heal drill: TIER_HEAL's at a period of 2 (a save and a sweep every
+# 2 steps, the flip at step 2, the sweep at step index 3 heals from step 2)
+MESH_GLOO_GUARDS = {"steps": 4, "nan": "nan_grad@2", "faulty": 2, "fresh_every": 2,
+                    "heal": {"param_backup_period": 2, "tier_verify_period": 2,
+                             "chaos_spec": "tier_bitflip@2"}, "heal_steps": 4}
+
+
+def _tripped(records) -> list:
+    """The step indices whose metrics line says the guardrail tripped."""
+    return [i for i, r in enumerate(records) if r.get("guard_tripped")]
+
+
+@contextlib.contextmanager
+def _recorded_commits():
+    """The indices the cluster's accountant commits, in order."""
+    from swiftsnails_tpu_torch.cluster.accounting import BatchAccountant
+
+    seen, commit = [], BatchAccountant.commit
+
+    def spy(self, lease_id, index, *a, **k):
+        seen.append(int(index))
+        return commit(self, lease_id, index, *a, **k)
+
+    BatchAccountant.commit = spy
+    try:
+        yield seen
+    finally:
+        BatchAccountant.commit = commit
+
+
+@contextlib.contextmanager
+def _recorded_heals():
+    """Each tier heal's ``(step, tables)``."""
+    from swiftsnails_tpu_torch.tiered.manager import TierManager
+
+    seen, heal = [], TierManager.heal
+
+    def spy(self, *a, **k):
+        seen.append(heal(self, *a, **k))
+        return seen[-1]
+
+    TierManager.heal = spy
+    try:
+        yield seen
+    finally:
+        TierManager.heal = heal
+
+
+def _guards_guardrail(seed: int, corpora, mesh, resident: dict) -> dict:
+    """(h) the guardrail: packed+pool with ``guardrail: 1`` and
+    ``GUARDS_NAN``, meshed and unmeshed ``MESH_STEPS`` steps: one trip at
+    step 4 on both, the tables bit-equal, the row kernels launched as
+    often; the step ms with the guardrail on against the resident meshed
+    run's (off)."""
+    runs = {}
+    for name, m in (("one_device", None), ("mesh", mesh)):
+        trainer, loop, records = _train_loop("train", seed, corpora, mesh=m, guardrail=1,
+                                             chaos_spec=GUARDS_NAN, chaos_seed=seed)
+        state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=MESH_STEPS))
+        runs[name] = {"tables": _table_on_cpu(state), "guard": loop.guardrail.summary(),
+                      "tripped": _tripped(records),
+                      "launches": {k: launches[k] for k in ("gather_rows", "scatter_add_rows")},
+                      "step_ms_median": statistics.median(
+                          r["seconds"] * 1e3 for r in records[1:])}
+        del trainer, loop, state
+        torch.cuda.empty_cache()
+    a, b = runs["mesh"], runs["one_device"]
+    equal = all(torch.equal(x, y) for x, y in zip(a["tables"], b["tables"]))
+    nan_at = int(GUARDS_NAN.split("@")[1])
+    if not equal or a["tripped"] != [nan_at] or b["tripped"] != [nan_at]:
+        raise AssertionError(f"mesh guards guardrail: bit-equal {equal}, trips "
+                             f"{a['tripped']} / {b['tripped']}")
+    if a["launches"] != b["launches"]:
+        raise AssertionError(f"mesh guards guardrail: launches {a['launches']}, unmeshed "
+                             f"{b['launches']}")
+    # the vote alone (its numbers gathered over each axis, then summed)
+    from swiftsnails_tpu_torch.parallel.mesh import vote_sum
+
+    vote_sum(mesh, [1.0, 0.0, 0.0])
+    t0 = time.perf_counter()
+    for _ in range(GUARDS_VOTES):
+        vote_sum(mesh, [1.0, 0.0, 0.0])
+    vote_ms = (time.perf_counter() - t0) * 1e3 / GUARDS_VOTES
+    return {"chaos": GUARDS_NAN, "steps": MESH_STEPS, "bit_equal": True,
+            "tripped": a["tripped"], "trust": a["guard"]["trust"],
+            "update_norm": a["guard"]["last_update_norm"], "launches": a["launches"],
+            "step_ms_median_on": a["step_ms_median"],
+            "step_ms_median_off": resident["step_ms_median"],
+            "one_device_step_ms_median_on": b["step_ms_median"], "vote_ms": vote_ms}
+
+
+def _sweep_result(run: dict, events: list, heals) -> dict:
+    """What the sweep's gates read of a ``_tier_w2v`` heal drill."""
+    return {"tables": _table_on_cpu(run["state"]), "heals": heals, "events": events,
+            "launches": {k: run["launches"][k] for k in
+                         ("gather_rows", "scatter_add_rows", "scatter_write_rows")},
+            "evictions": run["loop"].tier.summary()["evictions"],
+            "step_ms_median": run["step_ms_median"]}
+
+
+def _guards_sweep(seed: int, corpora, mesh, tmp: str, heal_drill=None) -> dict:
+    """(h) the tier's sweep: packed+pool behind ``TIER``'s 64 MB with
+    ``TIER_HEAL`` (saves every 5 steps, the sweep every 5, a bit flipped
+    at step 7), ``TIER_HEAL_STEPS`` steps under the mesh: one heal at step
+    index 9 from the step-5 save, one ledger event, the tables bit-equal
+    to the unmeshed drill's and the row kernels launched as often; the
+    unmeshed drill is ``heal_drill`` (the tiered phase's, same config),
+    else run here."""
+    from swiftsnails_tpu_torch.telemetry.ledger import Ledger
+
+    runs = {"one_device": heal_drill} if heal_drill is not None else {}
+    for name, m in (("one_device", None), ("mesh", mesh)):
+        if name in runs:
+            continue
+        root = os.path.join(tmp, f"guards-heal-{name}")
+        ledger = os.path.join(tmp, f"guards-heal-{name}.jsonl")
+        with _recorded_heals() as heals:
+            run = _tier_w2v(seed, corpora, TIER_HEAL_STEPS, mesh=m, **TIER, **TIER_HEAL,
+                            chaos_seed=seed, param_backup_root=root, ledger_path=ledger)
+        events = [e for e in Ledger(ledger).records("cache_error") if e.get("source") == "tier"]
+        runs[name] = _sweep_result(run, events, list(heals))
+        del run
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    a, b = runs["mesh"], runs["one_device"]
+    for name, r in runs.items():
+        ev = r["events"]
+        if (len(ev) != 1 or ev[0]["step"] != 9 or ev[0]["rebuilt_from_step"] != 5
+                or (r["heals"] is not None and [h[0] for h in r["heals"]] != [5])):
+            raise AssertionError(f"mesh guards sweep {name}: events {ev}, heals {r['heals']}")
+    equal = all(torch.equal(x, y) for x, y in zip(a["tables"], b["tables"]))
+    if not equal or a["launches"] != b["launches"] or a["events"][0]["tables"] != \
+            b["events"][0]["tables"]:
+        raise AssertionError(f"mesh guards sweep: bit-equal {equal}, launches {a['launches']} "
+                             f"/ {b['launches']}, events {a['events']} / {b['events']}")
+    return {"steps": TIER_HEAL_STEPS, "budget_mb": TIER["tier_hbm_budget_mb"],
+            "chaos": TIER_HEAL["chaos_spec"], "bit_equal": True, "heals": a["heals"],
+            "event": {k: a["events"][0][k] for k in ("step", "rebuilt_from_step", "tables")},
+            "unmeshed_from": "the tiered phase" if heal_drill is not None else "this leg",
+            "evictions": a["evictions"], "launches": a["launches"],
+            "step_ms_median": {k: r["step_ms_median"] for k, r in runs.items()}}
+
+
+def _guards_freshness(seed: int, corpora, mesh, tmp: str, rate: float) -> dict:
+    """(h) freshness: packed+pool under the mesh publishing every
+    ``GUARDS_FRESH_EVERY`` steps into a directory, ``MESH_STEPS`` steps,
+    from a start state a 2-replica ``Fleet`` serves; the fleet follows the
+    log (``DeltaSubscriber.poll``): its whole planes and its pulls of every
+    published row (and as many others) equal the trained tables, bit for
+    bit. Then ``gather_rows`` as the meshed publisher runs it (a publish's
+    touched in-table rows from the trained shard, the owned gather) and
+    ``scatter_write_rows`` as the fleet's apply runs it (a batch's rows into
+    a ``[1,048,576, 200]`` serving plane), bit-equal to plain, timed beside
+    ``index_select`` / ``index_copy_``, against the byte bound."""
+    from swiftsnails_tpu_torch.freshness.log import list_seqs, read_batch, seg_path
+    from swiftsnails_tpu_torch.freshness.subscriber import DeltaSubscriber
+    from swiftsnails_tpu_torch.ops import rowdma
+    from swiftsnails_tpu_torch.serving import Fleet, Servant
+    from swiftsnails_tpu_torch.serving.engine import normalize_table
+
+    names = ("in_table", "out_table")
+    d = os.path.join(tmp, "guards-deltas")
+    trainer, loop, records = _train_loop("train", seed, corpora, mesh=mesh,
+                                         freshness_publish=GUARDS_FRESH_EVERY,
+                                         freshness_dir=d, freshness_log_mb=FRESH_LOG_MB)
+    start = trainer.init_state()
+    trainer.init_state = lambda: start
+    planes = {n: normalize_table(getattr(start, n).table, DIM, "packed").clone() for n in names}
+    fleet = Fleet(lambda rid: Servant(planes, device="cuda"), replicas=2)
+    try:
+        state, launches = _run_counted(lambda: loop.run(seed=seed, max_steps=MESH_STEPS))
+        pub = loop.freshness.stats()
+        sub = DeltaSubscriber(fleet, d)
+        applied, apply_launches = _run_counted(sub.poll)
+        want = {n: normalize_table(getattr(state, n).table, DIM, "packed") for n in names}
+        batches = [read_batch(seg_path(d, s))[1] for s in list_seqs(d)]
+        rows = {n: np.unique(np.concatenate([b[n]["rows"] for b in batches])) for n in names}
+        rng = np.random.default_rng(seed + 31)
+        ids = {n: np.concatenate([r, np.setdiff1d(rng.choice(VOCAB, r.size, replace=False), r)])
+               for n, r in rows.items()}
+        planes_diff = _plane_mismatch(want, fleet.replicas()[0].servant._tables)
+        pulls_diff = _pull_mismatch(fleet, want, ids)
+        n_pub = pub["published_batches"]
+        if (planes_diff or pulls_diff or loop.freshness.errors or applied != n_pub
+                or n_pub != MESH_STEPS // GUARDS_FRESH_EVERY):
+            raise AssertionError(f"mesh guards freshness: planes {planes_diff}, pulls "
+                                 f"{pulls_diff}, published {pub}, applied {applied}")
+        publisher_gathers = launches["gather_rows"] - 2 * MESH_STEPS
+        if publisher_gathers != len(names) * n_pub:
+            raise AssertionError(f"mesh guards freshness: {publisher_gathers} publisher "
+                                 f"gathers, want {len(names) * n_pub}")
+        # the kernels at the meshed publisher's and the apply's shapes
+        shard = state.in_table.table
+        dev = shard.device
+        sets = [torch.from_numpy(b["in_table"]["rows"].astype(np.int32)).to(dev)
+                for b in batches]
+        gather = _gather_case(shard, sets, rate)
+        emit("kernel", name="gather_rows", dtype="torch.float32", path="mesh_guards",
+             rows=int(sets[0].numel()), **gather)
+        gather["shape"] = [int(sets[0].numel()), *shard.shape[1:]]
+        serving = want["in_table"].clone()
+        row_bytes = serving.stride(0) * serving.element_size()
+        psets = []
+        for b in batches:
+            uniq = torch.from_numpy(b["in_table"]["rows"].astype(np.int32)).to(dev)
+            vals = torch.from_numpy(np.array(b["in_table"]["values"])).to(dev)
+            psets.append((uniq, vals, uniq.long(), int(uniq.numel())))
+        n = psets[0][3]
+        write = _push_case(
+            lambda bf, u, v: (rowdma.scatter_write_rows(bf[0], u, v),),
+            lambda bf, u, v: (rowdma.scatter_write_rows_plain(bf[0], u, v),),
+            [serving], psets, lambda bf, st: bf[0].index_copy_(0, st[2], st[1]),
+            n * (2 * row_bytes + 4), n, rate)
+        emit("kernel", name="scatter_write_rows", dtype="torch.float32", path="mesh_guards",
+             **write)
+        write["shape"] = list(serving.shape)
+        out = {"every": GUARDS_FRESH_EVERY, "steps": MESH_STEPS, "published_batches": n_pub,
+               "rows": {k: int(v.size) for k, v in rows.items()}, "replicas": 2,
+               "planes_bit_equal": True, "pulls_bit_equal": True,
+               "pulled_ids": {k: int(v.size) for k, v in ids.items()},
+               "publish_ms": {k: pub[k] / n_pub for k in ("step_wait_ms", "gather_ms",
+                                                         "d2h_ms", "write_ms")},
+               "launches": {"gather_rows": launches["gather_rows"],
+                            "publisher_gather_rows": publisher_gathers,
+                            "scatter_write_rows": apply_launches["scatter_write_rows"]},
+               "kernels": {"gather_rows": gather, "scatter_write_rows": write}}
+        del serving, psets, sets, shard, want, state, start, planes
+        return out
+    finally:
+        fleet.close()
+        torch.cuda.empty_cache()
+
+
+def _guards_cluster(seed: int, corpora, mesh, tmp: str, resident: dict) -> dict:
+    """(h) cluster leases: packed+pool under the mesh with
+    ``GUARDS_CLUSTER`` (``cluster_workers: 3``, ``preempt@6``) and a
+    checkpoint root, drained at step 7 with a final save, then resumed
+    (``resume: auto``) to ``MESH_STEPS``: every index committed once, in
+    order, and the tables bit-equal to the resident meshed run of (a)."""
+    root = os.path.join(tmp, "guards-cluster")
+    with _recorded_commits() as commits:
+        _, loop, _ = _train_loop("train", seed, corpora, mesh=mesh, param_backup_root=root,
+                                 **GUARDS_CLUSTER)
+        loop.run(seed=seed, max_steps=MESH_STEPS)
+        preempted, first = loop.preempted, list(commits)
+        del loop
+        _, loop, records = _train_loop("train", seed, corpora, mesh=mesh,
+                                       param_backup_root=root, resume="auto",
+                                       cluster_workers=GUARDS_CLUSTER["cluster_workers"])
+        state = loop.run(seed=seed, max_steps=MESH_STEPS)
+        exact = loop.cluster.supervisor.accountant.verify(MESH_STEPS)
+        cursor = loop.cluster.cursor()
+    tables = _table_on_cpu(state)
+    del state, loop
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    equal = all(torch.equal(a, b) for a, b in zip(tables, resident["tables"]))
+    if not preempted or commits != list(range(MESH_STEPS)) or not equal:
+        raise AssertionError(f"mesh guards cluster: preempted {preempted}, commits {commits}, "
+                             f"bit-equal {equal}")
+    return {"keys": GUARDS_CLUSTER, "steps": MESH_STEPS, "commits_before": first,
+            "commits_after": commits[len(first):], "exactly_once": True,
+            "watermarks": cursor.get("committed"), "bit_equal_uninterrupted": True,
+            "resumed_losses": [r["loss"] for r in records]}
+
+
+def _guards_widedeep(seed: int, mesh) -> dict:
+    """(h) Wide & Deep: ``examples/widedeep.conf`` with ``guardrail: 1``
+    and ``GUARDS_WD_NAN``, ``GUARDS_WD_STEPS`` steps meshed and unmeshed:
+    every array bit-equal, one trip, the same launches of ``gather_rows``
+    and ``scatter_adagrad_fused_rows``."""
+    data, _ = _ctr_data(seed)
+    runs = {name: _mesh_ctr_run(seed, data, m, GUARDS_WD_STEPS, guardrail=1,
+                                chaos_spec=GUARDS_WD_NAN, chaos_seed=seed)
+            for name, m in (("one_device", None), ("mesh", mesh))}
+    _ctr_equal("mesh guards widedeep", runs["mesh"]["state"], runs["one_device"]["state"])
+    kernels = ("gather_rows", "scatter_adagrad_fused_rows")
+    got = {k: runs["mesh"]["launches"][k] for k in kernels}
+    want = {k: runs["one_device"]["launches"][k] for k in kernels}
+    if got != want:
+        raise AssertionError(f"mesh guards widedeep: launches {got}, unmeshed {want}")
+    out = {"chaos": GUARDS_WD_NAN, "steps": GUARDS_WD_STEPS, "bit_equal": True,
+           "launches": got, "step_ms_median": {k: r["step_ms_median"] for k, r in runs.items()}}
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_guards_leg(seed: int, corpora, mesh, resident: dict, tmp: str, rate: float,
+                     heal_drill=None) -> dict:
+    """Leg 1's guards (phase 21 (h)): each case timed."""
+    out = {}
+    for name, fn in (("guardrail", lambda: _guards_guardrail(seed, corpora, mesh, resident)),
+                     ("sweep", lambda: _guards_sweep(seed, corpora, mesh, tmp, heal_drill)),
+                     ("freshness", lambda: _guards_freshness(seed, corpora, mesh, tmp, rate)),
+                     ("cluster", lambda: _guards_cluster(seed, corpora, mesh, tmp, resident)),
+                     ("widedeep", lambda: _guards_widedeep(seed, mesh))):
+        t0 = time.monotonic()
+        out[name] = fn()
+        out[name]["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _gloo_guard_runs(seed: int, mesh, out_dir: str) -> dict:
+    """Leg 2's guards on this rank: packed+pool with the guardrail and
+    ``nan_grad`` on the faulty rank alone; the tier's bitflip drill with
+    the flip on the faulty rank's master alone; freshness into a directory
+    of this rank's own; ``cluster_workers: 1``. The steps each tripped at,
+    the heals, whether this rank wrote deltas, the leased indices."""
+    import torch.distributed as dist
+
+    from swiftsnails_tpu_torch.framework import trainer as tmod
+
+    g = MESH_GLOO_GUARDS
+    faulty = dist.get_rank() == g["faulty"]
+    out = {}
+    records = []
+    loop, _ = _loss_loop(_mesh_gloo_trainer(
+        seed, MESH_GLOO_DEVICE, mesh, guardrail=1, chaos_seed=seed,
+        **({"chaos_spec": g["nan"]} if faulty else {})), records)
+    loop.run(seed=seed, max_steps=g["steps"])
+    out["nan"] = {"tripped": _tripped(records), "trips": loop.guardrail.trips_total}
+    budget = _gloo_tier_budget_mb(loop.trainer, seed, g["heal_steps"])
+    keys = {"table_tier": "host", "tier_hbm_budget_mb": budget,
+            "param_backup_root": os.path.join(out_dir, "gloo-guards-heal"),
+            **{k: v for k, v in g["heal"].items() if k != "chaos_spec"}}
+    if faulty:
+        keys["chaos_spec"] = g["heal"]["chaos_spec"]
+    loop, _ = _loss_loop(_mesh_gloo_trainer(seed, MESH_GLOO_DEVICE, mesh, chaos_seed=seed,
+                                            **keys))
+    with _recorded_heals() as heals:
+        loop.run(seed=seed, max_steps=g["heal_steps"])
+    out["heal"] = {"heals": [(s, list(t)) for s, t in heals], "verify": loop.tier.verify(),
+                   "evictions": loop.tier.summary()["evictions"]}
+    d = os.path.join(out_dir, f"gloo-guards-deltas-{dist.get_rank()}")
+    loop, _ = _loss_loop(_mesh_gloo_trainer(seed, MESH_GLOO_DEVICE, mesh,
+                                            freshness_publish=g["fresh_every"],
+                                            freshness_dir=d))
+    loop.run(seed=seed, max_steps=g["steps"])
+    out["fresh"] = {"files": len(os.listdir(d)) if os.path.isdir(d) else 0,
+                    "errors": loop.freshness.errors}
+    agreed, bcast = [], tmod.broadcast_ints
+
+    def spy(m, values, n):
+        got = bcast(m, values, n)
+        agreed.append(got[0])
+        return got
+
+    tmod.broadcast_ints = spy
+    try:
+        loop, _ = _loss_loop(_mesh_gloo_trainer(seed, MESH_GLOO_DEVICE, mesh,
+                                                cluster_workers=1))
+        loop.run(seed=seed, max_steps=g["steps"])
+    finally:
+        tmod.broadcast_ints = bcast
+    out["cluster"] = {"agreed": agreed[1:]}
+    return out
+
+
+def _gloo_guards_check(results: list) -> dict:
+    """Leg 2's guards, from the ranks' results: every rank tripped at the
+    faulty rank's NaN step, once; every rank healed the same table from
+    the same save, its digests clean; only rank 0 wrote delta files; every
+    rank took the same leased indices, in order."""
+    g = MESH_GLOO_GUARDS
+    runs = [r["guards"] for r in results]
+    nan_at = int(g["nan"].split("@")[1])
+    if any(r["nan"]["tripped"] != [nan_at] or r["nan"]["trips"] != 1 for r in runs):
+        raise AssertionError(f"mesh gloo guards: trips {[r['nan'] for r in runs]}")
+    heals = [r["heal"]["heals"] for r in runs]
+    saved = g["heal"]["param_backup_period"]
+    if any(h != heals[0] for h in heals) or [s for s, _ in heals[0]] != [saved] \
+            or any(r["heal"]["verify"] for r in runs):
+        raise AssertionError(f"mesh gloo guards: heals {heals}")
+    files = [r["fresh"]["files"] for r in runs]
+    if not files[0] or any(files[1:]) or any(r["fresh"]["errors"] for r in runs):
+        raise AssertionError(f"mesh gloo guards: delta files by rank {files}")
+    agreed = [r["cluster"]["agreed"] for r in runs]
+    if any(a != agreed[0] for a in agreed) or agreed[0][:g["steps"]] != list(range(g["steps"])):
+        raise AssertionError(f"mesh gloo guards: leased indices by rank {agreed}")
+    return {"faulty_rank": g["faulty"], "nan": g["nan"], "tripped": runs[0]["nan"]["tripped"],
+            "heals": heals[0], "evictions": runs[0]["heal"]["evictions"],
+            "delta_files_by_rank": files, "leased": agreed[0], "steps": g["steps"],
+            "heal_steps": g["heal_steps"]}
+
+
+def _mesh_guards_kernel_entries(mesh: dict) -> list:
+    """The ``kernels`` line's ``path: "mesh_guards"`` entries: the meshed
+    publisher's owned ``gather_rows`` and the fleet's ``scatter_write_rows``
+    at their shapes, with the guards freshness run's launches."""
+    fresh = mesh["guards"]["freshness"]
+    out = []
+    for key, replaces in (("gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
+                          ("scatter_write_rows", "swiftsnails_tpu/ops/rowdma.py:289")):
+        s = fresh["kernels"][key]
+        out.append({
+            "name": key, "route": "cuda", "source": "swiftsnails_tpu_torch/csrc/rowdma.cu",
+            "replaces": replaces, "launches": fresh["launches"][key],
+            "max_abs_err": s["max_abs_err"], "ms": s.get("ms", s.get("kernel_ms")),
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": "bytes",
+            "library_ms": s["library_ms"], "shape": s["shape"], "dtype": "float32",
+            "path": "mesh_guards"})
+    return out
+
+
 def _mesh_tier_kernel_entries(summary: dict, mesh: dict) -> list:
     """The ``kernels`` line's ``path: "mesh_tier"`` entries (the tiered
     path's kernels at the meshed tier's shapes, with leg 1's launches) and
@@ -6571,10 +7038,12 @@ def _mesh_tier_kernel_entries(summary: dict, mesh: dict) -> list:
     return out
 
 
-def phase_mesh(seed: int, corpora, env: dict, serve: dict) -> dict:
+def phase_mesh(seed: int, corpora, env: dict, serve: dict, heal_drill=None) -> dict:
     """Phase 21: word2vec, CTR, checkpoints, ``seqlm``, the tier and
-    serving under a mesh (module docstring). ``serve``: the serve phase's
-    checkpoint (``root``, ``cfg``)."""
+    serving under a mesh, and the loop's guards there (module docstring).
+    ``serve``: the serve phase's checkpoint (``root``, ``cfg``);
+    ``heal_drill``: the tiered phase's unmeshed heal drill, or None to run
+    it here."""
     t_phase = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="ssn-mesh-")
     try:
@@ -6583,9 +7052,15 @@ def phase_mesh(seed: int, corpora, env: dict, serve: dict) -> dict:
             nccl = _mesh_nccl_leg(seed, corpora, mesh, resident)
             t_tier = time.monotonic()
             tier_w2v = _mesh_tier_w2v(seed, corpora, mesh, resident)
-            del resident
-            tier_wd = _mesh_tier_widedeep(seed, mesh)
             tier_s = time.monotonic() - t_tier
+            t_guards = time.monotonic()
+            guards = _mesh_guards_leg(seed, corpora, mesh, resident, tmp, env["mem_rate_Bps"],
+                                      heal_drill)
+            guards["seconds"] = time.monotonic() - t_guards
+            del resident
+            t_tier = time.monotonic()
+            tier_wd = _mesh_tier_widedeep(seed, mesh)
+            tier_s += time.monotonic() - t_tier
             serve_leg = _mesh_serve_leg(seed, mesh, serve, env["mem_rate_Bps"])
             t_grouped = time.monotonic()
             grouped = _mesh_grouped_leg(seed, corpora, mesh)
@@ -6600,14 +7075,18 @@ def phase_mesh(seed: int, corpora, env: dict, serve: dict) -> dict:
     seconds = time.monotonic() - t_phase
     tier = {"w2v": {k: v for k, v in tier_w2v.items() if k != "shapes"},
             "widedeep": tier_wd, "seconds": tier_s}
+    guards_line = {k: ({kk: vv for kk, vv in v.items() if kk != "kernels"}
+                       if isinstance(v, dict) else v) for k, v in guards.items()}
+    guards_line["gloo"] = gloo.pop("guards")
     emit("mesh", nccl=nccl, grouped=grouped, hybrid=hybrid, ctr=ctr, ctr_layouts=ctr_layouts,
-         wire=wire, tier=tier, serve=serve_leg, gloo=gloo, seconds=seconds,
-         device=env["device"], nvidia_smi=env["nvidia_smi"])
+         wire=wire, tier=tier, serve=serve_leg, guards=guards_line, gloo=gloo,
+         seconds=seconds, device=env["device"], nvidia_smi=env["nvidia_smi"])
     return {"tier": {"launches": {**tier_w2v["launches"], "scatter_adagrad_fused_rows":
                                   tier_wd["launches"]["scatter_adagrad_fused_rows"]},
                      "shapes": {**tier_w2v["shapes"], "wd_cache": tier_wd["wd_cache"],
                                 "wd_pushed_tiles": tier_wd["wd_pushed_tiles"]}},
             "serve": serve_leg,
+            "guards": guards,
             "launches": nccl["train"]["launches"],
             "grouped_launches": grouped["plain"]["launches"],
             "ctr_launches": ctr["launches"],
@@ -6877,7 +7356,8 @@ def _only_mesh(seed: int, env: dict, t_start: float) -> int:
          + _mesh_grouped_kernel_entries(cases, mesh)
          + _mesh_ctr_kernel_entries(summary, mesh)
          + _mesh_hybrid_kernel_entries(hybrid, mesh)
-         + _mesh_tier_kernel_entries(summary, mesh))
+         + _mesh_tier_kernel_entries(summary, mesh)
+         + _mesh_guards_kernel_entries(mesh))
     emit("total", seconds=time.monotonic() - t_start)
     return 0
 
@@ -7034,8 +7514,10 @@ def main() -> int:
              nvidia_smi=env["nvidia_smi"])
         cluster = phase_cluster(args.seed, corpora, env)
         phase_seqlm(args.seed, env)
-        # the mesh phase's servants load the serve phase's step-4 checkpoint
-        mesh = phase_mesh(args.seed, corpora, env, serve_ckpt)
+        # the mesh phase's servants load the serve phase's step-4 checkpoint;
+        # its sweep is held to the tiered phase's unmeshed heal drill
+        mesh = phase_mesh(args.seed, corpora, env, serve_ckpt,
+                          heal_drill=tiered.pop("heal_drill"))
     finally:
         shutil.rmtree(serve_tmp, ignore_errors=True)
     summary.update(phase_tiered_kernels(mesh["tier"], args.seed, env["mem_rate_Bps"],
@@ -7130,6 +7612,7 @@ def main() -> int:
     kernels.extend(_mesh_ctr_kernel_entries(summary, mesh))
     kernels.extend(_mesh_hybrid_kernel_entries(mesh_hybrid, mesh))
     kernels.extend(_mesh_tier_kernel_entries(summary, mesh))
+    kernels.extend(_mesh_guards_kernel_entries(mesh))
     for name, replaces in (("unit_probe", "tools/sem_probe.py:80"),
                            ("chunk_probe", "tools/sem_probe.py:164"),
                            ("pipe_probe", "tools/sem_probe.py:233")):

@@ -11,7 +11,10 @@ rank from ``RANK`` as torchrun sets it), trains the ``model`` family
 N ranks, and meets the others at the end-of-training barrier;
 ``local_train: 1`` trains each process alone. Checkpoints and resume work
 under the mesh (every rank saves its shards into one checkpoint), and
-``export`` reads such a checkpoint on one process.
+``export`` reads such a checkpoint on one process. So do the loop's guards
+(``guardrail``, ``tier_verify_period``, ``freshness_publish``,
+``cluster_workers``): the ranks agree before any acts, and rank 0 writes
+the ledger and the delta log (``framework/trainer.py``).
 
 Usage::
 
@@ -105,9 +108,6 @@ def _world_mesh(cfg: Config):
 def _build_trainer(cfg: Config):
     """The ``model`` key's trainer on the ``device`` key's device (default:
     the card), under :func:`_world_mesh`'s mesh where there is one."""
-    import inspect
-
-    from swiftsnails_tpu_torch.framework.trainer import _unported_mesh
     from swiftsnails_tpu_torch.models.registry import get_model
 
     name = cfg.get_str("model", "word2vec")
@@ -116,8 +116,6 @@ def _build_trainer(cfg: Config):
     mesh = _world_mesh(cfg)
     if mesh is None:
         return trainer_cls(cfg, device=device)
-    if "mesh" not in inspect.signature(trainer_cls).parameters:
-        _unported_mesh(f"model: {name}")
     return trainer_cls(cfg, mesh=mesh, device=device)
 
 

@@ -18,7 +18,7 @@ from swiftsnails_tpu_torch.cluster.supervisor import (
     STRAGGLER_FACTOR, STRAGGLER_SHARE, Supervisor, WorkerLost,
 )
 from swiftsnails_tpu_torch.cluster.worker import (
-    IndexedBatchSource, LeasedStream, WorkerClient,
+    INDEX_KEY, FollowedStream, IndexedBatchSource, LeasedStream, WorkerClient,
 )
 
 __all__ = [
@@ -30,6 +30,8 @@ __all__ = [
     "WorkerLost",
     "STRAGGLER_FACTOR",
     "STRAGGLER_SHARE",
+    "INDEX_KEY",
+    "FollowedStream",
     "IndexedBatchSource",
     "LeasedStream",
     "WorkerClient",

@@ -20,13 +20,23 @@ generator; adopted spans can sit behind the consumer's own frontier). The
 JAX package's ``cluster/worker.py``; in the port a restart (and
 :meth:`IndexedBatchSource.close`) closes the generator it replaces, whose
 ``finally`` stops the native producer's threads and frees their buffers.
+
+Under a ``(data, model)`` mesh one process a rank trains one job, so the
+job is one worker: the leader (the mesh's origin) holds the lease
+(``LeasedStream(tag=True)`` marks each batch with its index under
+:data:`INDEX_KEY`), and every other rank follows with a
+:class:`FollowedStream`, which prefetches the indices the leader would take
+next (ascending, skipping the committed ones) and rebuilds, on the loop's
+thread, a batch whose index the leader's broadcast names otherwise. The
+loop makes that broadcast (``framework/trainer.py``); no collective runs on
+the producer thread.
 """
 
 from __future__ import annotations
 
 import heapq
 from collections import deque
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional
 
 from swiftsnails_tpu_torch.cluster.supervisor import Supervisor, WorkerLost
 
@@ -65,18 +75,25 @@ class IndexedBatchSource:
             close()
 
 
-class LeasedStream:
-    """Iterator over a client's leased spans, claim-gated per index."""
+# the batch key a tagged stream carries its index under (the loop strips it)
+INDEX_KEY = "_cluster_index"
 
-    def __init__(self, client: "WorkerClient", source: IndexedBatchSource):
+
+class LeasedStream:
+    """Iterator over a client's leased spans, claim-gated per index; with
+    ``tag`` each batch carries its index under :data:`INDEX_KEY`."""
+
+    def __init__(self, client: "WorkerClient", source: IndexedBatchSource, tag: bool = False):
         self._client = client
         self._source = source
+        self._tag = tag
 
     def __iter__(self):
         return self
 
     def __next__(self):
-        return self._client._next_batch(self._source)
+        index, batch = self._client._next_indexed(self._source)
+        return {**batch, INDEX_KEY: index} if self._tag else batch
 
     def close(self) -> None:
         self._source.close()
@@ -100,14 +117,19 @@ class WorkerClient:
 
     # -- stream -------------------------------------------------------------
 
-    def leased_stream(self, batch_factory: Callable[[], Iterator]) -> LeasedStream:
-        return LeasedStream(self, IndexedBatchSource(batch_factory))
+    def leased_stream(self, batch_factory: Callable[[], Iterator],
+                      tag: bool = False) -> LeasedStream:
+        return LeasedStream(self, IndexedBatchSource(batch_factory), tag=tag)
 
     def _adopt(self, lease) -> None:
         for i in range(lease.watermark, lease.hi):
             heapq.heappush(self._heap, (i, lease.lease_id))
 
     def _next_batch(self, source: IndexedBatchSource):
+        return self._next_indexed(source)[1]
+
+    def _next_indexed(self, source: IndexedBatchSource):
+        """``(index, batch)`` of the next claimed index."""
         acct = self.supervisor.accountant
         while True:
             if not self._heap:
@@ -131,7 +153,7 @@ class WorkerClient:
                 self._exhausted = True
                 raise
             self._inflight.append((lease_id, index))
-            return batch
+            return index, batch
 
     # -- step boundary -------------------------------------------------------
 
@@ -177,3 +199,36 @@ class WorkerClient:
 
     def restore(self, snap: Dict) -> None:
         self.supervisor.restore(snap)
+
+
+class FollowedStream:
+    """A follower rank's side of the leader's leased stream under a mesh:
+    iterating yields the batches of the indices not in ``committed`` in
+    ascending order, tagged with :data:`INDEX_KEY` (the leader's order while
+    no span is reassigned); :meth:`batch` builds any index's batch on the
+    caller's thread, from a source of its own."""
+
+    def __init__(self, batch_factory: Callable[[], Iterator], committed: Iterable[int] = ()):
+        self._source = IndexedBatchSource(batch_factory)  # the producer thread's
+        self._aux = IndexedBatchSource(batch_factory)     # the loop thread's
+        self._committed = set(int(i) for i in committed)
+        self._next = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        while self._next in self._committed:
+            self._next += 1
+        batch = self._source.get(self._next)  # StopIteration: the stream ended
+        self._next += 1
+        return {**batch, INDEX_KEY: self._next - 1}
+
+    def batch(self, index: int):
+        """The batch at stream position ``index`` (StopIteration past the
+        end)."""
+        return self._aux.get(index)
+
+    def close(self) -> None:
+        self._source.close()
+        self._aux.close()

@@ -683,6 +683,33 @@ def restore_checkpoint(
     return state_template
 
 
+def read_arrays(root: str, step: int, keys: Sequence[str], verify: bool = True
+                ) -> Dict[str, torch.Tensor]:
+    """The whole arrays ``keys`` of committed step ``step`` under ``root``,
+    as CPU tensors, each checked against the manifest's CRC with
+    ``verify``; the other arrays are not read. A meshed save's arrays are
+    whole on disk, so this reads one whole on any rank (the tier's heal,
+    which needs the whole masters on every rank). Raises
+    :class:`CheckpointError` for a torn step, a missing key, a wrong size
+    or a CRC mismatch, and ``OSError`` for a file that cannot be read."""
+    path = _step_dir(root, step)
+    manifest = read_manifest(root, step)
+    if manifest is None or not isinstance(manifest.get("arrays"), dict):
+        raise CheckpointError(f"{path}: no committed manifest (a torn save)")
+    canon = {canonical_key(k): v for k, v in manifest["arrays"].items()}
+    out = {}
+    for key in keys:
+        meta = canon.get(key)
+        if meta is None:
+            raise CheckpointError(f"{path}: no array {key!r} in the manifest")
+        data = np.fromfile(os.path.join(path, _array_file(key)), dtype=np.uint8)
+        problem = _crc_problem(key, data, meta) if verify else None
+        if problem:
+            raise CheckpointError(f"{path}: manifest verification failed: {problem}")
+        out[key] = _tensor_from_bytes(key, data, meta)
+    return out
+
+
 def _shard_of(t: torch.Tensor, meta: Dict, mesh) -> Optional[bool]:
     """How the template tensor ``t`` holds the array ``meta`` records:
     ``False`` whole, ``True`` this rank's model shard of its leading rows,

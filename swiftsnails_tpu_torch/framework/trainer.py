@@ -59,11 +59,24 @@ uniform run's: ``dense_tp: 1``'s model slices of the dense tensors
 split (:mod:`swiftsnails_tpu_torch.parallel.placement`) and
 ``optimizer_sharding: zero``'s ``1 / data`` slices of the optimizer planes
 (:mod:`swiftsnails_tpu_torch.parallel.zero`); the run record carries the
-``placement`` decision and the ``zero`` summary. The guardrail (and the
-tier's integrity sweep, ``tier_verify_period``), freshness and cluster
-membership raise ``NotImplementedError`` there (``ROADMAP.md`` Queue 1
-item 6, slice 6; so does the JAX publisher's refusal of a hybrid table,
-which comes with it).
+``placement`` decision and the ``zero`` summary.
+
+The loop's guards run under a mesh too, and each agrees over the mesh
+before any rank acts (one small vote on the loop's thread,
+:func:`~swiftsnails_tpu_torch.parallel.mesh.vote`; none on the prefetch
+producer or the tier's flusher): the guardrail's trip and trust come from
+the update norm of the global state and the count of non-finite losses,
+voted (``resilience/guardrail.py``), so every rank rolls back, blends or
+gives up at the same step; the tier's integrity sweep votes the corrupt
+planes and every rank heals their union from the same verified save
+(``TierManager.verify`` / ``heal``); freshness publishing gathers the
+touched rows whole from the model shards and only the leader, the mesh's
+origin, writes the delta log (``freshness/publisher.py``); with cluster
+membership the leader holds the lease and broadcasts each step's batch
+index, a follower rebuilding a batch it did not prefetch
+(``cluster/worker.py``; an explicit ``cluster=`` is the leader's). The
+guards' ledger events (chaos, heals, deltas and gaps, membership) are the
+leader's, written once; each rank keeps its own run record.
 """
 
 from __future__ import annotations
@@ -82,7 +95,7 @@ import torch
 
 from swiftsnails_tpu_torch.framework.checkpoint import save_checkpoint, wait_for_checkpoints
 from swiftsnails_tpu_torch.ops.hashing import murmur_fmix64_int
-from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS
+from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS, broadcast_ints, is_leader
 from swiftsnails_tpu_torch.resilience.chaos import ChaosPlan
 from swiftsnails_tpu_torch.resilience.guardrail import GuardrailExhausted, StepGuardrail
 from swiftsnails_tpu_torch.resilience.resume import resume_mode, resume_state
@@ -282,11 +295,6 @@ def mesh_device(mesh, device: DeviceLike = None) -> torch.device:
     return mesh.device
 
 
-def _unported_mesh(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} under a mesh is not ported yet: see ROADMAP.md Queue 1 item 6, slice 6")
-
-
 class _Prefetcher:
     """Bounded background-thread batch prefetch (``queue_with_capacity``
     parity, ``src/utils/queue.h:100-108``): the producer thread runs the
@@ -414,20 +422,17 @@ class TrainLoop:
         """``device=None`` feeds the trainer's device (itself the card unless
         the trainer was asked for the CPU); a device of another type raises.
         ``cluster``: a :class:`~swiftsnails_tpu_torch.cluster.WorkerClient`
-        whose leased stream the loop consumes."""
+        whose leased stream the loop consumes; under a mesh the leader's
+        alone (another rank given one raises ``ValueError``)."""
         cfg = trainer.config
         if device is not None and resolve_device(device).type != trainer.device.type:
             raise ValueError(f"TrainLoop on {device}, trainer on {trainer.device}")
-        if trainer.mesh is not None:
-            for what, asked in (
-                    ("guardrail: 1", cfg.get_bool("guardrail", False)),
-                    ("tier_verify_period", cfg.get_str("table_tier", "device") == "host"
-                     and cfg.get_int("tier_verify_period", 0) > 0),
-                    ("freshness_publish", cfg.get_int("freshness_publish", 0) > 0),
-                    ("cluster_workers", cluster is not None
-                     or cfg.get_int("cluster_workers", 0) > 0)):
-                if asked:
-                    _unported_mesh(what)
+        # under a mesh the origin leads: it writes the ledger and holds the
+        # cluster lease (module docstring); without one the loop leads itself
+        self.leader = is_leader(trainer.mesh)
+        if cluster is not None and not self.leader:
+            raise ValueError("cluster= is the leader's (the mesh's origin): another rank "
+                             "follows the leader's leased stream and takes none")
         self.trainer = trainer
         self.metrics = metrics or MetricsLogger(echo=False)
         self.log_every = log_every
@@ -441,6 +446,11 @@ class TrainLoop:
         # box stay telemetry-gated below
         ledger_path = cfg.get_str("ledger_path", "")
         self.ledger = Ledger(ledger_path) if ledger_path else None
+        # the guards' events (chaos, membership, deltas and gaps, tier
+        # heals) are the mesh's, agreed by every rank: the leader writes
+        # them, once; a rank's own events (its run record, its retries)
+        # stay its own
+        guard_ledger = self.ledger if self.leader else None
         self._restored_step: Optional[int] = None  # set by resume; never pruned
         self._items_seen = 0
         # cluster membership: an explicit WorkerClient wins (tests, a shared
@@ -448,10 +458,12 @@ class TrainLoop:
         # run still gets range-leased streams, exactly-once accounting and a
         # watermark-carrying checkpoint cursor (see cluster/)
         self.cluster = cluster
-        if self.cluster is None and cfg.get_int("cluster_workers", 0) > 0:
+        self._followed = None  # a follower's FollowedStream under a mesh (run())
+        self._committed: List[int] = []  # a follower's restored committed indices
+        if self.cluster is None and self.leader and cfg.get_int("cluster_workers", 0) > 0:
             from swiftsnails_tpu_torch.cluster import Supervisor, WorkerClient
 
-            sup = Supervisor.from_config(cfg, ledger=self.ledger)
+            sup = Supervisor.from_config(cfg, ledger=guard_ledger)
             self.cluster = WorkerClient(sup, cfg.get_str("cluster_worker_id", "w0"))
         self.checkpoint_fn = None
         if self.backup_root:
@@ -490,14 +502,18 @@ class TrainLoop:
         self.placement = pm if pm.active else None
         zm = ZeroManager(trainer, trainer.mesh)
         self.zero = zm if zm.active else None
+        # the layouts that split tensors besides the table states, for the
+        # guardrail's count of the global state under a mesh
+        self._layouts = tuple(lay for lay in (self.zero, self.dense_tp) if lay is not None)
         self.profiler = StepProfiler(cfg, self.device)
         # resilience is opt-in per key; off, the step pays flag checks only
         self.guardrail = None
         if cfg.get_bool("guardrail", False):
             self.guardrail = StepGuardrail(
                 max_update_norm=cfg.get_float("guard_max_update_norm", 0.0),
-                max_consecutive=cfg.get_int("guard_max_consecutive", 3))
-        self.chaos = ChaosPlan.from_config(cfg, ledger=self.ledger)
+                max_consecutive=cfg.get_int("guard_max_consecutive", 3),
+                mesh=trainer.mesh)
+        self.chaos = ChaosPlan.from_config(cfg, ledger=guard_ledger)
         self._preempt = threading.Event()
         self._preempt_reason: Optional[str] = None
         self.preempted = False
@@ -546,7 +562,8 @@ class TrainLoop:
                 and cfg.get_str("freshness_dir", "")):
             from swiftsnails_tpu_torch.freshness.publisher import TrainPublisher
 
-            fresh = TrainPublisher(trainer, tier=self.tier, ledger=self.ledger)
+            fresh = TrainPublisher(trainer, tier=self.tier, placement=self.placement,
+                                   ledger=guard_ledger)
             self.freshness = fresh if fresh.active else None
 
     def _init_telemetry(self, cfg: Config) -> None:
@@ -595,9 +612,10 @@ class TrainLoop:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 if np.ndim(v) else v for k, v in batch.items()}
 
-    def _resume(self, state) -> Tuple[Any, int, int]:
+    def _resume(self, state, clustered: bool = False) -> Tuple[Any, int, int]:
         """``resume: 1`` / ``auto``: the restored state, its step, and the
-        batches to skip (``auto`` only: the manifest's cursor)."""
+        batches to skip (``auto`` only: the manifest's cursor; none for a
+        ``clustered`` run, which restores the committed watermarks)."""
         mode = resume_mode(self.trainer.config)
         if mode == "off" or not self.backup_root:
             return state, 0, 0
@@ -625,6 +643,13 @@ class TrainLoop:
                 # (out-of-order) span replays bit-identically
                 self.cluster.restore(cursor.get("cluster") or {})
                 skip = 0
+            elif clustered:
+                # a follower prefetches past the committed indices, as the
+                # leader's restored lease will take them
+                from swiftsnails_tpu_torch.cluster import expand_ranges
+
+                self._committed = expand_ranges((cursor.get("cluster") or {}).get("committed"))
+                skip = 0
         print(f"resume: restored step {step} from {self.backup_root} in {seconds:.4f} s; "
               f"skipping {skip} batches", file=sys.stderr)
         return state, step, skip
@@ -634,7 +659,13 @@ class TrainLoop:
         so a resumed run stops where the uninterrupted one would) or a
         preemption; returns the state."""
         trainer = self.trainer
-        state, step, skip_batches = self._resume(trainer.init_state())
+        mesh = trainer.mesh
+        clustered = self.cluster is not None
+        if mesh is not None:
+            # the leader's lease (its cluster= or cluster_workers) decides
+            # for every rank whether the stream is leased
+            clustered = bool(broadcast_ints(mesh, [int(clustered)], 1)[0])
+        state, step, skip_batches = self._resume(trainer.init_state(), clustered)
         last_metrics: Dict[str, Any] = {}
         total_items = 0
         tier = self.tier
@@ -665,8 +696,13 @@ class TrainLoop:
         cl = self.cluster
         if cl is not None:
             # range-leased stream: indices are claimed (first-writer-wins)
-            # as they are yielded and committed at the step boundary below
-            src = iter(cl.leased_stream(trainer.batches))
+            # as they are yielded and committed at the step boundary below;
+            # under a mesh each batch carries its index for the followers
+            src = iter(cl.leased_stream(trainer.batches, tag=mesh is not None))
+        elif clustered:
+            from swiftsnails_tpu_torch.cluster import FollowedStream
+
+            self._followed = src = FollowedStream(trainer.batches, self._committed)
         else:
             src = iter(trainer.batches())
         if tier is not None:
@@ -700,6 +736,8 @@ class TrainLoop:
             it = RetryingIterator(
                 it, RetryPolicy.from_config(trainer.config, ledger=self.ledger),
                 on_error=self._on_stream_error, op="data_stream")
+        if mesh is not None and clustered:
+            it = self._agreed(it)
         self._install_sigterm()
         preempted = self._preempt.is_set
         try:
@@ -921,6 +959,30 @@ class TrainLoop:
             self._finalize_run_record(step, total_items, host)
         return state
 
+    def _agreed(self, it: Iterator) -> Iterator:
+        """Under a mesh with cluster membership: each step's batch, its
+        index agreed on the loop's thread. The leader broadcasts the index
+        of the batch its lease gave (-1 when its stream ended); a follower
+        takes its prefetched batch when that is the index, else builds the
+        index's batch itself (a reassigned span)."""
+        from swiftsnails_tpu_torch.cluster import INDEX_KEY
+
+        mesh = self.trainer.mesh
+        while True:
+            if self.leader:
+                batch = next(it, _STREAM_END)
+                index = -1 if batch is _STREAM_END else int(batch[INDEX_KEY])
+                broadcast_ints(mesh, [index], 1)
+            else:
+                index = broadcast_ints(mesh, [0], 1)[0]
+                if index >= 0:
+                    batch = next(it, _STREAM_END)
+                    if batch is _STREAM_END or batch[INDEX_KEY] != index:
+                        batch = self._followed.batch(index)
+            if index < 0:
+                return
+            yield {k: v for k, v in batch.items() if k != INDEX_KEY}
+
     # -- resilience (guardrail / chaos / preemption) ------------------------
 
     def _resilient_step(self, state, dev_batch, gen: torch.Generator, step: int):
@@ -940,7 +1002,8 @@ class TrainLoop:
         if chaos is not None:
             new_state, metrics = chaos.post_step(new_state, metrics, step)
         if guard is not None:
-            new_state, metrics, tripped, exhausted = guard.commit(snap, new_state, metrics)
+            new_state, metrics, tripped, exhausted = guard.commit(
+                snap, new_state, metrics, layouts=self._layouts)
             if tripped:
                 if self.registry is not None:
                     self.registry.counter("guard_trips").inc()
@@ -954,7 +1017,7 @@ class TrainLoop:
                     f"{guard.consecutive} consecutive unhealthy steps "
                     f"(last: {guard.last_trip_reason}); giving up at step {step}")
         if chaos is not None:
-            chaos.maybe_corrupt_checkpoint(self.backup_root, step)
+            chaos.maybe_corrupt_checkpoint(self.backup_root, step, leader=self.leader)
             if self.tier is not None:
                 chaos.maybe_flip_tier(self.tier, step)
             reason = chaos.wants_preempt(step)
@@ -986,13 +1049,14 @@ class TrainLoop:
             state, self.backup_root, corrupt=bad, retry_policy=policy)
         if self.registry is not None:
             self.registry.counter("tier_heals").inc()
-        self._ledger_event("cache_error", {
-            "source": "tier",
-            "step": step,
-            "planes": {t: list(p) for t, p in bad.items()},
-            "rebuilt_from_step": ckpt_step,
-            "tables": rebuilt,
-        })
+        if self.leader:  # every rank healed the same: one event
+            self._ledger_event("cache_error", {
+                "source": "tier",
+                "step": step,
+                "planes": {t: list(p) for t, p in bad.items()},
+                "rebuilt_from_step": ckpt_step,
+                "tables": rebuilt,
+            })
 
     def request_preemption(self, reason: str = "SIGTERM") -> None:
         """Ask the loop to drain at the next step boundary: final save,

@@ -35,6 +35,19 @@ the gather (synchronized), the device-to-host copy and the file write.
 Publishing never blocks or kills training: every cadence publish is
 wrapped, failures land as ``freshness_gap`` ledger events and the stream
 simply misses a beat (subscribers see a late batch, not a torn one).
+
+Under a ``(data, model)`` mesh (the trainer's ``mesh``) the publisher opens
+on every rank and every rank observes the same global batches, but only the
+leader (the mesh's origin) writes the delta log and runs the
+``freshness_listen`` server. A resident table's touched rows are gathered
+from its model shards with the owned gather summed over ``model``
+(``transfer.gather_slots_collective``), so every rank holds them whole; a
+tiered table's dirty slots are flushed on every rank (a collective) and
+the leader publishes from its own whole master. Before the gather's
+collectives the ranks vote that each drained the same rows, and after the
+publish that none failed (:func:`~swiftsnails_tpu_torch.parallel.mesh.vote`):
+a failure on any rank is then a miss on every rank, one ``freshness_gap``
+event on the leader, and every rank trains on.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ import torch
 
 from swiftsnails_tpu_torch.freshness.log import list_seqs, prune, seg_path, write_base, \
     write_batch
+from swiftsnails_tpu_torch.parallel.mesh import is_leader, vote, vote_any
 from swiftsnails_tpu_torch.utils.config import ConfigError
 
 _LEDGER_EVERY = 100  # rate limit: first publish + every 100th
@@ -63,8 +77,7 @@ class HybridFreshnessError(ConfigError):
     wrong id space — and with a socket listener configured, remote
     subscribers would be *silently* starved if publishing were just
     disabled (the local-file case disables with a notice on stderr).
-    The port's trainers refuse ``placement: hybrid`` before a loop exists,
-    so this arises only for a trainer that accepts it."""
+    Raised at ``TrainLoop`` construction, before any step runs."""
 
 
 # ------------------------------------------------- normalized row gathers ---
@@ -79,30 +92,41 @@ def _as_plane(plane) -> torch.Tensor:
 
 
 def gather_normalized(plane, rows: np.ndarray, *, layout: str,
-                      dim: int) -> torch.Tensor:
+                      dim: int, mesh=None) -> torch.Tensor:
     """Gather logical ``rows`` from a table plane in its trainer layout ->
     ``[n, dim]`` f32 on the plane's device, via the exact lane selects of
     the serving engine's ``normalize_table`` (no arithmetic: bit-identical
     rows). ``packed`` / ``packed_small`` gather the touched tiles with
-    ``rowdma.gather_rows``; ``dense`` takes ``index_select``."""
+    ``rowdma.gather_rows``; ``dense`` takes ``index_select``. ``mesh``:
+    ``plane`` is this rank's model shard, and the tiles (rows) come whole
+    on every rank from ``transfer.gather_slots_collective`` (the owned
+    ``gather_rows`` summed over ``model``; every rank calls it)."""
     from swiftsnails_tpu_torch.ops.rowdma import ROW_LANES, gather_rows, unpack_rows
 
     t = _as_plane(plane)
     rows = np.asarray(rows, np.int64)
+
+    def take(units: np.ndarray) -> torch.Tensor:
+        if mesh is None:
+            return gather_rows(t, torch.from_numpy(units.astype(np.int32)).to(t.device))
+        from swiftsnails_tpu_torch.parallel.transfer import gather_slots_collective
+
+        return gather_slots_collective(mesh, t, torch.from_numpy(units).to(t.device))
+
     if layout == "dense":
+        if mesh is not None:
+            return take(rows).to(torch.float32)
         idx = torch.from_numpy(rows).to(t.device)
         return t.index_select(0, idx).to(torch.float32)
     if layout == "packed":
-        idx = torch.from_numpy(rows.astype(np.int32)).to(t.device)
-        tiles = gather_rows(t, idx)  # [n, S, 128], one row a tile
+        tiles = take(rows)  # [n, S, 128], one row a tile
         return unpack_rows(tiles, dim).to(torch.float32).contiguous()
     if layout == "packed_small":
         from swiftsnails_tpu_torch.parallel.store import small_group
 
         g = small_group(dim)
         stride = ROW_LANES // g
-        idx = torch.from_numpy((rows // g).astype(np.int32)).to(t.device)
-        sub0 = gather_rows(t, idx)[:, 0, :]  # [n, 128]: sublane 0 = params
+        sub0 = take(rows // g)[:, 0, :]  # [n, 128]: sublane 0 = params
         lanes = torch.from_numpy(((rows % g) * stride)[:, None]
                                  + np.arange(dim)[None, :]).to(t.device)
         return torch.gather(sub0, 1, lanes).to(torch.float32)
@@ -316,6 +340,10 @@ class TouchedRowCollector:
             if len(chunks) > self._COMPACT_EVERY:
                 self._acc[name] = [np.unique(np.concatenate(chunks))]
 
+    def clear(self) -> None:
+        """Drop every pending id."""
+        self._acc = {}
+
     def drain(self, geometry: Dict[str, Dict]) -> Dict[str, np.ndarray]:
         """Pending ids -> ``{table: unique in-capacity row ids}``; resets."""
         acc, self._acc = self._acc, {}
@@ -362,6 +390,9 @@ class TrainPublisher:
         self.geometry = trainer.table_geometry()
         self.active = bool(self.period > 0 and self.dir and self.geometry)
         self.listen = cfg.get_str("freshness_listen", "")
+        self.mesh = getattr(trainer, "mesh", None)
+        self.leader = is_leader(self.mesh)
+        self.opened = False
         if self.active and placement is not None:
             # hybrid head/tail planes aren't in master row layout mid-run;
             # publishing would ship rows from the wrong id space
@@ -395,11 +426,13 @@ class TrainPublisher:
         transparent pass-through mode is known) with the resume step."""
         if not self.active:
             return
-        self.pub = DeltaPublisher(
-            self.dir, base_step=base_step, dtype=self.dtype,
-            log_mb=self.log_mb, ledger=self.ledger,
-            request_tracer=self.request_tracer)
-        if self.listen:
+        self.opened = True
+        if self.leader:
+            self.pub = DeltaPublisher(
+                self.dir, base_step=base_step, dtype=self.dtype,
+                log_mb=self.log_mb, ledger=self.ledger,
+                request_tracer=self.request_tracer)
+        if self.listen and self.leader:
             # freshness_listen: HOST:PORT — push this log's frames to TCP
             # subscribers (net/delta_stream.py) alongside the file dir
             from swiftsnails_tpu_torch.net.delta_stream import DeltaStreamServer
@@ -431,7 +464,7 @@ class TrainPublisher:
 
     def on_batch(self, batch: Dict, seed: int, step: int) -> None:
         """Observe BEFORE ``tier.prepare`` remaps ids to slot space."""
-        if self.collector is not None and self.pub is not None:
+        if self.collector is not None and self.opened:
             try:
                 self.collector.observe(batch, seed, step)
             except Exception:
@@ -442,33 +475,55 @@ class TrainPublisher:
             self._tap.setdefault(name, []).append(np.asarray(units, np.int64).copy())
 
     def maybe_publish(self, state, step: int, force: bool = False) -> None:
-        if self.pub is None:
+        """Publish at the cadence (or ``force``); a failure is a
+        ``freshness_gap`` ledger event, never an exception. Under a mesh
+        every rank calls this at the same step (module docstring)."""
+        if not self.opened:
             return
         if not force and (self.period <= 0 or step == 0 or step % self.period != 0):
             return
+        err = None
         try:
-            self._publish(state, step)
+            updates = self._gather(state)
+            if self.pub is not None:
+                self.pub.publish(updates, step)
         except Exception as e:  # publishing must never kill training
-            self.errors += 1
-            if self.ledger is not None:
-                try:
-                    self.ledger.append("freshness_gap", {
-                        "source": "publisher",
-                        "reason": "publish_error",
-                        "step": int(step),
-                        "error": f"{type(e).__name__}: {e}",
-                    })
-                except Exception:
-                    pass
+            err = e
+        if vote_any(self.mesh, [err is not None])[0] and err is None:
+            err = RuntimeError("another rank's publish failed")
+        if err is None:
+            return
+        self.errors += 1
+        if self.ledger is not None:
+            try:
+                self.ledger.append("freshness_gap", {
+                    "source": "publisher",
+                    "reason": "publish_error",
+                    "step": int(step),
+                    "error": f"{type(err).__name__}: {err}",
+                })
+            except Exception:
+                pass
 
     # -- the publish itself --------------------------------------------------
 
-    def _publish(self, state, step: int) -> None:
+    def _gather(self, state) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+        """``{table: (row ids, [n, dim] f32 values)}`` of the rows touched
+        since the last publish (on a follower under a tier: empty, the
+        flush made)."""
         updates: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
         t0 = time.perf_counter_ns()
         d2h = 0
         if self.collector is not None:
-            pending = self.collector.drain(self.geometry)
+            pending, err = {}, None
+            try:
+                pending = self.collector.drain(self.geometry)
+            except Exception as e:
+                err = e
+            if self.mesh is not None:
+                self._agree(pending, err)
+            elif err is not None:
+                raise err
             if pending:
                 tabs = self.trainer.tier_tables(state)
                 dev = next(iter(tabs.values())).table.device
@@ -483,12 +538,14 @@ class TrainPublisher:
                 for name, rows in pending.items():
                     g = self.geometry[name]
                     gathered[name] = (rows, gather_normalized(
-                        tabs[name].table, rows, layout=g["layout"], dim=int(g["dim"])))
+                        tabs[name].table, rows, layout=g["layout"], dim=int(g["dim"]),
+                        mesh=self.mesh))
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)  # the gather's own time
                 t1 = time.perf_counter_ns()
-                for name, (rows, vals) in gathered.items():
-                    updates[name] = (rows, vals.cpu().numpy())
+                if self.leader:
+                    for name, (rows, vals) in gathered.items():
+                        updates[name] = (rows, vals.cpu().numpy())
                 d2h = time.perf_counter_ns() - t1
         else:
             # flush first so the masters hold the exact step-`step` rows —
@@ -496,7 +553,7 @@ class TrainPublisher:
             self.tier.flush_dirty(state)
             with self._tap_lock:
                 tapped, self._tap = self._tap, {}
-            for name, chunks in tapped.items():
+            for name, chunks in tapped.items() if self.leader else ():
                 tt = self.tier.tables.get(name)
                 g = self.geometry.get(name)
                 if tt is None or g is None or not chunks:
@@ -512,7 +569,24 @@ class TrainPublisher:
         self.gather_ns += time.perf_counter_ns() - t0 - d2h
         self.d2h_ns += d2h
         self.publishes += 1
-        self.pub.publish(updates, step)
+        return updates
+
+    def _agree(self, pending: Dict[str, np.ndarray], err) -> None:
+        """Under a mesh, before the gather's collectives: every rank drained
+        without error and the same rows (their count and id sum a table,
+        in the geometry's order), or every rank drops its pending rows, as
+        a failed publish on one device does, and raises."""
+        mine = [float(err is not None)]
+        for name in self.geometry:
+            rows = pending.get(name, np.zeros(0, np.int64))
+            mine += [float(rows.size), float(rows.sum())]
+        rows = vote(self.mesh, mine)
+        if rows[:, 0].any() or (rows[1:] != rows[0]).any():
+            self.collector.clear()
+            if err is not None:
+                raise err
+            raise RuntimeError("the ranks drained different touched rows"
+                               if not rows[:, 0].any() else "another rank's drain failed")
 
     def stats(self) -> Dict:
         out = {"active": self.active, "period": self.period, "errors": self.errors}

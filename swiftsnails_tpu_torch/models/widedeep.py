@@ -154,6 +154,16 @@ class DenseTP:
 
         return self._map(state, gather)
 
+    def sharded(self, state: CTRState) -> List[Tuple[torch.Tensor, str]]:
+        """``(tensor, "model")`` for each dense tensor and AdaGrad sum of
+        ``state`` that holds this rank's model slice (the guardrail's count
+        of the global state)."""
+        if not self.trainer._sliced(state.dense):
+            return []
+        out = []
+        self._map(state, lambda t, dim: out.append((t, MODEL_AXIS)) or t)
+        return out
+
 
 @register_model("widedeep")
 class WideDeepTrainer(SparseCTRTrainer):

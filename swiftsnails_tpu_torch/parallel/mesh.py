@@ -15,6 +15,16 @@ The world's ranks are laid out row-major over the axes, as the JAX package
 reshapes its devices, and each axis has one process group a line of the
 mesh: the ranks that differ only on that axis. :class:`Mesh` holds this
 rank's coordinates, its groups and its device.
+
+The JAX package runs one controller, so a decision taken on the host is
+taken once. Here each rank decides for itself, so a decision that must be
+the same everywhere (the loop's guards: a guardrail trip, a corrupt tier
+plane, a failed publish, the step's leased batch) is a vote first:
+:func:`vote` gathers a few numbers from every rank of the mesh, one small
+all-gather an axis on the loop's thread, and every rank reads the same
+rows in rank order; :func:`vote_sum` and :func:`vote_any` reduce them
+there. The rank at the mesh's origin (:func:`is_leader`) is the one that
+writes what must be written once.
 """
 
 from __future__ import annotations
@@ -183,3 +193,61 @@ def model_rows(mesh: Optional[Mesh], whole: torch.Tensor) -> torch.Tensor:
     per = whole.shape[0] // model
     m = mesh.axis_index(MODEL_AXIS)
     return whole[m * per:(m + 1) * per].clone()
+
+
+def is_leader(mesh: Optional[Mesh]) -> bool:
+    """Whether this rank is the mesh's origin (every coordinate 0, world
+    rank 0): the one that writes the ledger, the delta log and the
+    checkpoint manifest, and holds the cluster lease. True without a
+    mesh."""
+    return mesh is None or not any(mesh.coords.values())
+
+
+def _vote_device(mesh: Mesh) -> torch.device:
+    group = next(iter(mesh.groups.values()))
+    return torch.device("cpu") if dist.get_backend(group) == "gloo" else mesh.device
+
+
+def vote(mesh: Mesh, values) -> np.ndarray:
+    """Every rank's ``values`` (a few numbers, the same count on each), as
+    a ``[ranks, n]`` float64 array in the mesh's rank order (row-major over
+    its axes), the same on every rank of ``mesh``: one small all-gather an
+    axis, over the mesh's own groups (a mesh may cover only some of the
+    world's ranks). Every rank must call it at the same point of its
+    sequence of collectives, on the loop's thread."""
+    rows = np.asarray(values, np.float64).reshape(1, -1)
+    axes = [a for a in reversed(list(mesh.shape)) if mesh.axis_size(a) > 1]
+    if not axes:  # a gather over groups of one is the identity
+        return rows
+    x = torch.as_tensor(rows, device=_vote_device(mesh))
+    for axis in axes:
+        parts = [torch.empty_like(x) for _ in range(mesh.axis_size(axis))]
+        dist.all_gather(parts, x.contiguous(), group=mesh.groups[axis])
+        x = torch.cat(parts)
+    return x.cpu().numpy()
+
+
+def vote_sum(mesh: Optional[Mesh], values) -> np.ndarray:
+    """``values`` summed over every rank in rank order (float64), bit-equal
+    on every rank; ``values`` itself without a mesh."""
+    if mesh is None:
+        return np.asarray(values, np.float64).reshape(-1)
+    rows = vote(mesh, values)
+    total = rows[0].copy()
+    for row in rows[1:]:
+        total += row
+    return total
+
+
+def vote_any(mesh: Optional[Mesh], flags) -> np.ndarray:
+    """Each of ``flags`` true on any rank (a bool array, the same on every
+    rank); ``flags`` itself without a mesh."""
+    return vote_sum(mesh, np.asarray(flags, bool).astype(np.float64)) > 0
+
+
+def broadcast_ints(mesh: Mesh, values, n: int) -> List[int]:
+    """The leader's ``n`` integers (``values``; ignored on the other ranks)
+    on every rank of ``mesh``: its row of a :func:`vote` (exact in float64
+    below 2 ** 53)."""
+    mine = np.asarray(values, np.float64).reshape(n) if is_leader(mesh) else np.zeros(n)
+    return [int(v) for v in vote(mesh, mine)[0]] if n else []

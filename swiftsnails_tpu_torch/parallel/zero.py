@@ -31,13 +31,13 @@ checkpoints and resume integrate it the same way.
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from swiftsnails_tpu_torch.parallel.mesh import DATA_AXIS
-from swiftsnails_tpu_torch.utils.tree import map_tensors
+from swiftsnails_tpu_torch.utils.tree import map_tensors, tensor_items
 
 log = logging.getLogger(__name__)
 
@@ -172,6 +172,20 @@ class ZeroManager:
 
             state = self._replace(state, prefix, map_tensors(planes, unshard))
         return state
+
+    def sharded(self, state) -> List[Tuple[torch.Tensor, str]]:
+        """``(tensor, "data")`` for each plane of ``state`` that holds this
+        rank's ``1 / data`` slice (the guardrail's count of the global
+        state)."""
+        if not self.active:
+            return []
+        out = []
+        for prefix, planes in self._planes(state):
+            for key, leaf in tensor_items(planes):
+                whole = self._whole.get(f"{prefix}/{key}")
+                if whole is not None and leaf.shape[0] != whole:
+                    out.append((leaf, DATA_AXIS))
+        return out
 
     def summary(self) -> Dict:
         return dict(self.decision)

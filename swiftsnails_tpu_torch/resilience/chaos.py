@@ -67,6 +67,15 @@ Transport kinds, consulted by the net drills (``net/bench_lane.py``) through
 
 Each injection is kept in :attr:`ChaosPlan.events` and, with a ledger, is
 one ``chaos`` ledger event.
+
+Under a ``(data, model)`` mesh every rank holds its own plan from the same
+``chaos_spec`` and ``chaos_seed``, so each fires at the same step on every
+rank and poisons that rank's own part: ``nan_grad``, ``inf_grad`` and
+``row_poison`` a row of its first float tensor (its shard), ``tier_bitflip``
+a bit of its own whole host master (the same bit everywhere, from the same
+seed). ``ckpt_corrupt`` flips the shared files once, on the leader. The
+loop's guards then agree before any rank acts; a fault on one rank alone is
+a plan given to that rank alone.
 """
 
 from __future__ import annotations
@@ -318,8 +327,16 @@ class ChaosPlan:
             return f"chaos preempt@{step}"
         return None
 
-    def maybe_corrupt_checkpoint(self, root: str, step: int) -> Optional[str]:
+    def maybe_corrupt_checkpoint(self, root: str, step: int,
+                                 leader: bool = True) -> Optional[str]:
+        """``ckpt_corrupt``: flip bytes in the newest checkpoint's files.
+        Under a mesh the files are shared, so only the leader (the mesh's
+        origin) flips them; another rank's plan takes the entry and touches
+        nothing."""
         if not self._take("ckpt_corrupt", step):
+            return None
+        if not leader:
+            self._log("ckpt_corrupt", step, {"detail": "the leader corrupts the shared files"})
             return None
         if not root:
             self._log("ckpt_corrupt", step,

@@ -32,17 +32,34 @@ as the JAX package's un-donated inputs are. The update norm and the blend
 walk each tensor in chunks of rows, so no full-size float32 temporary is
 made. A step costs the snapshot copy, the norm (a read of both copies) and
 one host sync for its result.
+
+**Under a mesh** (``StepGuardrail(mesh=)``) each rank holds its own part of
+the state, and the verdict must be the same on every rank. The norm is the
+update's norm over the *global* state: each rank sums the squares of the
+tensors it counts (:func:`counted_keys`: a tensor split over some mesh axes
+by the ranks at index 0 of every other axis, a whole tensor by the origin
+alone, so every element counts once), and one vote
+(:func:`~swiftsnails_tpu_torch.parallel.mesh.vote_sum`: every rank's
+numbers gathered over the mesh and summed in rank order) adds those sums, the count of ranks
+whose loss is non-finite and the count whose own update (every tensor it
+holds, counted or not: a replica it does not count may part from the
+others) is non-finite. The trip decision reads only the voted
+numbers, which are bit-equal on every rank; so every rank rolls back, or
+blends with the same ``trust``, at the same step, and every rank raises
+:class:`GuardrailExhausted` at the same step. Each rank's snapshot is its
+own part, one copy, as on one device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, FrozenSet, Iterator, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
-from swiftsnails_tpu_torch.utils.tree import map_tensors, tensor_items
+from swiftsnails_tpu_torch.parallel.mesh import MODEL_AXIS, vote_sum
+from swiftsnails_tpu_torch.utils.tree import keys_under, map_tensors, tensor_items
 
 # elements of a tensor handled at a time by the norm and the blend: at most
 # 128 MiB of float32 temporaries for any table
@@ -63,8 +80,40 @@ def _chunks(a: torch.Tensor, b: torch.Tensor) -> Iterator[Tuple[torch.Tensor, to
         yield a[i:i + rows], b[i:i + rows]
 
 
+def shard_axes(state: Any, layouts=()) -> Dict[str, FrozenSet[str]]:
+    """Each tensor's key -> the mesh axes it is split over in this rank's
+    ``state``: a table state's tensors (a ``TableState`` or
+    ``PackedTableState``, a hybrid table's tail, a tier's cache shard) over
+    ``model``, plus whatever each of ``layouts`` reports through its
+    ``sharded(state)`` (``(tensor, axis)`` pairs: ``dense_tp``'s model
+    slices, ZeRO's ``1 / data`` slices). Every other tensor is whole."""
+    from swiftsnails_tpu_torch.parallel.store import PackedTableState, TableState
+
+    tables = set(keys_under(state, (TableState, PackedTableState)))
+    by_id: Dict[int, set] = {}
+    for layout in layouts:
+        for t, axis in layout.sharded(state):
+            by_id.setdefault(id(t), set()).add(axis)
+    return {key: frozenset(by_id.get(id(t), set()) | ({MODEL_AXIS} if key in tables else set()))
+            for key, t in tensor_items(state)}
+
+
+def counted_keys(state: Any, mesh, layouts=()) -> Optional[Set[str]]:
+    """The keys of the tensors this rank counts in the update norm of the
+    global state, so that every element counts once over ``mesh``: a tensor
+    split over some axes (:func:`shard_axes`) by the ranks at index 0 of
+    every other axis (a table shard by data replica 0; a ZeRO slice by
+    model index 0), a whole tensor by the mesh's origin. ``None`` (every
+    key) without a mesh."""
+    if mesh is None:
+        return None
+    return {key for key, axes in shard_axes(state, layouts).items()
+            if all(mesh.coords.get(a, 0) == 0 for a in mesh.shape if a not in axes)}
+
+
 class StepGuardrail:
-    """Snapshot / health-check / rollback state machine."""
+    """Snapshot / health-check / rollback state machine; ``mesh``: the
+    verdict is voted over it (module docstring)."""
 
     def __init__(
         self,
@@ -72,7 +121,9 @@ class StepGuardrail:
         max_consecutive: int = 3,
         min_trust: float = 0.05,
         recovery: float = 2.0,
+        mesh=None,
     ):
+        self.mesh = mesh
         self.max_update_norm = float(max_update_norm)
         self.max_consecutive = max(int(max_consecutive), 1)
         self.min_trust = float(min_trust)
@@ -104,30 +155,35 @@ class StepGuardrail:
             return map_tensors(state, copy)
 
     @staticmethod
-    def _pairs(snap: Any, new_state: Any) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def _pairs(snap: Any, new_state: Any) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
         a, b = tensor_items(snap), tensor_items(new_state)
         if [k for k, _ in a] != [k for k, _ in b]:
             raise ValueError("the step changed the state's structure: "
                              f"{[k for k, _ in a]} -> {[k for k, _ in b]}")
-        return [(x, y) for (_, x), (_, y) in zip(a, b)]
+        return {k: (x, y) for (k, x), (_, y) in zip(a, b)}
 
     @staticmethod
-    def _update_sq(pairs) -> float:
-        """Squared norm of the update over the float tensors, in float32."""
-        total = None
-        for a, b in pairs:
+    def _update_sq(pairs, keys=None) -> Tuple[float, float]:
+        """Squared norm of the update over the float tensors, in float32:
+        ``(over those of keys, over all)``; ``keys`` None counts all."""
+        counted = rest = None
+        for key, (a, b) in pairs.items():
             if not a.is_floating_point():
                 continue
             for ac, bc in _chunks(a, b):
                 part = torch.linalg.vector_norm(bc.float() - ac.float()).square()
-                total = part if total is None else total + part
-        return 0.0 if total is None else float(total)  # the host sync point
+                if keys is None or key in keys:
+                    counted = part if counted is None else counted + part
+                else:
+                    rest = part if rest is None else rest + part
+        mine = 0.0 if counted is None else float(counted)  # the host sync point
+        return mine, mine + (0.0 if rest is None else float(rest))
 
     @staticmethod
     def _blend(pairs, trust: float) -> None:
         """``new = snap + trust * (new - snap)`` in float32 over the float
         tensors, written into ``new``."""
-        for a, b in pairs:
+        for a, b in pairs.values():
             if not a.is_floating_point():
                 continue
             for ac, bc in _chunks(a, b):
@@ -135,7 +191,7 @@ class StepGuardrail:
                 bc.copy_(af + trust * (bc.float() - af))
 
     def commit(
-        self, snap: Any, new_state: Any, metrics: Dict
+        self, snap: Any, new_state: Any, metrics: Dict, layouts=()
     ) -> Tuple[Any, Dict, bool, bool]:
         """Accept or roll back one step's outcome.
 
@@ -143,13 +199,21 @@ class StepGuardrail:
         ``new_state``, blended while trust is below 1 and holding the
         snapshot's values after a trip. ``exhausted`` means the
         consecutive-trip budget is spent — the caller raises
-        :class:`GuardrailExhausted`.
+        :class:`GuardrailExhausted`. ``layouts``: under a mesh, the state's
+        layouts that split tensors besides the table states
+        (:func:`shard_axes`).
         """
         with torch.no_grad():
             pairs = self._pairs(snap, new_state)
-            norm_sq = self._update_sq(pairs)
             loss = metrics.get("loss")
             loss_f = float(loss) if loss is not None else 0.0
+            # under a mesh the one vote: every rank reads the same three
+            # numbers. A replica this rank does not count still votes its
+            # own non-finite update (the replicas would part otherwise)
+            mine, whole = self._update_sq(pairs, counted_keys(new_state, self.mesh, layouts))
+            norm_sq, bad_losses, bad_updates = vote_sum(self.mesh, [
+                mine, float(not math.isfinite(loss_f)), float(not math.isfinite(whole))])
+            norm_sq = float("nan") if bad_updates else float(norm_sq)
             if math.isfinite(norm_sq) and norm_sq >= 0:
                 norm = math.sqrt(norm_sq)
             else:
@@ -157,8 +221,9 @@ class StepGuardrail:
             self.last_update_norm = norm
 
             reason = None
-            if not math.isfinite(loss_f):
-                reason = f"non-finite loss ({loss_f})"
+            if bad_losses:
+                reason = (f"non-finite loss ({loss_f})" if self.mesh is None
+                          else f"non-finite loss on {int(bad_losses)} rank(s)")
             elif not math.isfinite(norm):
                 reason = "non-finite update (NaN/Inf in the new tables)"
             elif self.max_update_norm > 0 and norm > self.max_update_norm:
@@ -177,7 +242,7 @@ class StepGuardrail:
                 return new_state, metrics, False, False
 
             # trip: roll back, skip the batch, shrink trust
-            for a, b in pairs:
+            for a, b in pairs.values():
                 b.copy_(a)
         self.last_trip_reason = reason
         self.consecutive += 1

@@ -32,16 +32,18 @@ availability floor, control and drills; the chaos-cluster lane's
 exactly-once accounting, reassignment and loss parity; the freshness
 lane's bit parity, gap drill, lag and serve p99; the net lane's
 availability, stale-write refusal, parities and TCP envelope; and the
-multi-device planes' placement (the skewed leg's exchange-byte cut),
-quantized-wire (int4 against f32) and zero (HBM, grad-reduce bytes, loss
-parity, identical checkpoints) checks, which read bench records that only
-the port bench's ``scaling`` and ``zero`` lanes will write: without that
-history they gate nothing, as in the JAX package).
+multi-device planes' scaling (the scale-out lane's aggregate words/sec
+beside the headline's comparison), placement (the skewed leg's
+exchange-byte cut), quantized-wire (int4 against f32) and zero (HBM,
+grad-reduce bytes, loss parity, identical checkpoints) checks, which read
+bench records that only the port bench's ``scaling`` and ``zero`` lanes
+will write: without that history they gate nothing, as in the JAX
+package).
 
-Not ported yet (``ROADMAP.md``): the scaling plane's regression check, and
-the bench-cache helpers (``validate_bench_payload``, ``load_bench_cache``,
-``derive_last_good``, hence ``--baseline-file``); each comes with the port
-bench that writes its records.
+Not ported yet (``ROADMAP.md``): the bench-cache helpers
+(``validate_bench_payload``, ``load_bench_cache``, ``derive_last_good``,
+hence ``--baseline-file``); they come with the port bench that writes
+their records.
 """
 
 from __future__ import annotations
@@ -936,12 +938,68 @@ def check_regression(
                     f"ok: newest value {newest:,.1f} vs baseline {baseline:,.1f} "
                     f"({(newest / baseline - 1) * 100:+.1f}%, floor {floor:,.1f})"
                 )
+            # the scale-out lane's aggregate rides the headline's comparison
+            s_rc, s_msg = _check_scaling_regression(measured, max_drop_pct)
+            if s_msg:
+                msg = f"{msg}\n{s_msg}"
+            rc = max(rc, s_rc)
     for check in _plane_checks(max_drop_pct):
         c_rc, c_msg = check(ledger)
         if c_msg:
             msg = f"{msg}\n{c_msg}"
         rc = max(rc, c_rc)
     return rc, msg
+
+
+def _scaling_value(record: Dict) -> Optional[float]:
+    """Gateable number from a bench payload's ``scaling`` block (aggregate
+    f32 words/sec across the mesh), or None when the lane didn't run."""
+    scal = record.get("payload", {}).get("scaling")
+    if not isinstance(scal, dict):
+        return None
+    v = scal.get("aggregate_words_per_sec")
+    return float(v) if isinstance(v, (int, float)) and v > 0 else None
+
+
+def _check_scaling_regression(
+    measured: List[Dict], max_drop_pct: float
+) -> Tuple[int, Optional[str]]:
+    """Gate the scale-out lane's aggregate words/sec alongside the headline.
+
+    Only measured records that carried a populated ``scaling`` block count;
+    a ledger without any (pre-lane history) or with a single one gates
+    nothing — the lane must not be able to fail CI before it has a
+    comparable history.
+    """
+    with_scaling = [
+        (r, _scaling_value(r)) for r in measured if _scaling_value(r)
+    ]
+    if not with_scaling:
+        return 0, None
+    newest_rec, newest = with_scaling[-1]
+    if measured and measured[-1] is not newest_rec:
+        return 0, (
+            "scaling: newest measured record has no scaling block "
+            f"(last seen {newest:,.1f} aggregate words/s)"
+        )
+    earlier = [v for _, v in with_scaling[:-1]]
+    if not earlier:
+        return 0, (
+            f"scaling: single measured record (aggregate {newest:,.1f} "
+            "words/s); nothing to compare against"
+        )
+    baseline = max(earlier)
+    floor = baseline * (1.0 - max_drop_pct / 100.0)
+    if newest < floor:
+        return 1, (
+            f"scaling REGRESSION: aggregate {newest:,.1f} words/s is "
+            f"{(1 - newest / baseline) * 100:.1f}% below baseline "
+            f"{baseline:,.1f} (allowed {max_drop_pct:.1f}%)"
+        )
+    return 0, (
+        f"scaling ok: aggregate {newest:,.1f} vs baseline {baseline:,.1f} "
+        f"words/s ({(newest / baseline - 1) * 100:+.1f}%)"
+    )
 
 
 def _check_chaos_regression(ledger: Ledger) -> Tuple[int, Optional[str]]:

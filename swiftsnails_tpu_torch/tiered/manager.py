@@ -375,14 +375,22 @@ class TierManager:
         """Recompute every master plane digest; returns ``{table: [corrupt
         plane, ...]}`` for the tables that fail (empty dict = all intact).
         Drains the async flush queue first — a digest recomputed mid-scatter
-        would be a false corruption alarm."""
+        would be a false corruption alarm. Under a mesh every rank checks
+        its own whole master and the ``(table, plane)`` flags are voted in
+        sorted order (a vote over the mesh, so every rank calls this together):
+        every rank returns the union."""
+        from swiftsnails_tpu_torch.parallel.mesh import vote_any
+
         self._drain()
-        bad = {}
-        for name, tt in self.tables.items():
-            planes = tt.master.verify()
-            if planes:
-                bad[name] = planes
-        return bad
+        bad = {name: tt.master.verify() for name, tt in self.tables.items()}
+        flags = [(name, plane) for name in sorted(self.tables)
+                 for plane, _ in self.tables[name].master._planes()]
+        voted = vote_any(self.mesh, [plane in bad[name] for name, plane in flags])
+        union: Dict[str, list] = {}
+        for (name, plane), hit in zip(flags, voted):
+            if hit:
+                union.setdefault(name, []).append(plane)
+        return union
 
     def heal(self, state, root: str, corrupt: Optional[Dict[str, list]] = None,
              retry_policy=None):
@@ -392,49 +400,80 @@ class TierManager:
         corrupt (the flip hit host memory), so re-asserting it bounds the
         rollback to units evicted since that checkpoint.
 
+        Only the corrupt tables' arrays are read, whole
+        (:func:`~swiftsnails_tpu_torch.framework.checkpoint.read_arrays`),
+        and checked against the manifest. Under a mesh every rank calls this
+        with the same ``corrupt`` (:meth:`verify`'s union): the leader's
+        candidate steps are broadcast, every rank reads each candidate's
+        whole arrays (a meshed save's arrays are whole on disk) and the
+        ranks vote on it, so all take the same step or all raise; then
+        each rank re-asserts its cache shard, the resident slots read whole
+        over ``model`` on the loop's thread
+        (``transfer.gather_slots_collective``).
+
         Returns ``(step, rebuilt_tables)``; raises
         :class:`~swiftsnails_tpu_torch.framework.checkpoint.CheckpointError`
         when no verified checkpoint survives (training on a silently corrupt
         master would be worse than dying)."""
         from swiftsnails_tpu_torch.framework.checkpoint import (
-            CheckpointError, candidate_steps, restore_checkpoint,
+            CheckpointError, candidate_steps, read_arrays,
         )
+        from swiftsnails_tpu_torch.parallel.mesh import broadcast_ints, is_leader, vote_any
+        from swiftsnails_tpu_torch.utils.tree import tensor_items
 
         self._drain()  # no flush may land while masters are being replaced
         corrupt = self.verify() if corrupt is None else corrupt
         if not corrupt:
             return None, []
-        # a full-size template of fresh tensors: the port's restore writes
-        # into its template, so it must alias neither the masters nor the
-        # live state's other tensors (dense parameters, optimizer state)
+        names = sorted(corrupt)
+        # the keys of the corrupt tables' arrays in the state's structure
         masters = {name: tt.master.state() for name, tt in self.tables.items()}
         shape_of = self.trainer.tier_with_tables(state, masters)
+        want = {id(t) for name in names for _, t in tensor_items(masters[name])}
+        template = {key: t for key, t in tensor_items(shape_of) if id(t) in want}
+        mesh = self.mesh
+
+        def read(step):
+            arrays = read_arrays(root, step, list(template), verify=True)
+            for key, t in template.items():
+                a = arrays[key]
+                if a.shape != t.shape or a.dtype != t.dtype:
+                    raise CheckpointError(
+                        f"step_{step}: {key} is {a.dtype}{list(a.shape)} on disk, "
+                        f"{t.dtype}{list(t.shape)} in the master")
+            return arrays
 
         def _restore_newest_verified():
+            steps = candidate_steps(root) if is_leader(mesh) else []
+            if mesh is not None:  # the leader's list on every rank
+                n = broadcast_ints(mesh, [len(steps)], 1)[0]
+                steps = broadcast_ints(mesh, steps, n)
             rejections = []
-            for s in candidate_steps(root):
-                template = map_tensors(shape_of, lambda _, t: torch.empty_like(t))
+            for s in steps:
                 try:
-                    return s, restore_checkpoint(
-                        root, template, step=s, verify=True)
+                    arrays, err = read(s), None
                 except Exception as e:
+                    arrays, err = None, e
                     rejections.append(f"step_{s}: {type(e).__name__}: {e}")
+                if vote_any(mesh, [err is not None])[0]:  # every rank moves on together
+                    if err is None:
+                        rejections.append(f"step_{s}: another rank's read failed")
+                    continue
+                return s, arrays
             raise CheckpointError(
                 f"tier heal: no verified checkpoint under {root!r}: "
                 + " | ".join(rejections[:4]))
 
         policy = retry_policy if retry_policy is not None else self.retry
-        step, restored = policy.call(
-            _restore_newest_verified, op="tier_heal_restore")
+        step, arrays = policy.call(_restore_newest_verified, op="tier_heal_restore")
+        restored = map_tensors(shape_of, lambda key, t: arrays.get(key, t))
         restored_tabs = self.trainer.tier_tables(restored)
         tabs = self.trainer.tier_tables(state)
-        rebuilt = []
-        for name in corrupt:
+        for name in names:
             tt = self.tables[name]
             tt.master.reload(restored_tabs[name])
             tt.writeback_resident(tabs[name])
-            rebuilt.append(name)
-        return step, rebuilt
+        return step, names
 
     def summary(self) -> Dict:
         out = self.stats.as_dict()

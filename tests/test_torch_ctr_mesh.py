@@ -512,19 +512,20 @@ def test_other_plane_keys_still_raise_on_a_meshed_ctr_trainer(over):
 @pytest.mark.parametrize("over", [{"guardrail": "1"}, {"table_tier": "host"},
                                   {"freshness_publish": "4", "freshness_dir": "d"}],
                          ids=lambda o: next(iter(o)))
-def test_loop_keys_still_raise_under_a_meshed_ctr_trainer(over):
-    """``table_tier: host`` is ported under a mesh since this test was
-    written: for it the test holds that the loop builds the tier on the
-    meshed trainer; the other keys still raise, naming slice 6."""
+def test_loop_keys_build_under_a_meshed_ctr_trainer(over):
+    """Every key of this test is ported under a mesh since it was written:
+    it holds that the loop builds the tier, the guardrail (voting over the
+    mesh) and the publisher on the meshed trainer."""
     from swiftsnails_tpu_torch.framework.trainer import TrainLoop
 
     tr = ranks.ctr_trainer("widedeep", _hand_mesh(), **over)
+    loop = TrainLoop(tr)
     if "table_tier" in over:
-        loop = TrainLoop(tr)
         assert loop.tier is not None and loop.tier.mesh is tr.mesh and tr.tiered
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6, slice 6"):
-        TrainLoop(tr)
+    elif "guardrail" in over:
+        assert loop.guardrail is not None and loop.guardrail.mesh is tr.mesh
+    else:
+        assert loop.freshness is not None and loop.freshness.mesh is tr.mesh
 
 
 def test_seqlm_takes_a_mesh_or_a_group():

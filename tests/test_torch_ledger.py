@@ -209,6 +209,43 @@ def test_quantized_wire_gate(tmp_path, records, rc, said):
     assert ledger._check_quantized_wire_regression in ledger._plane_checks(10.0)
 
 
+def _scaled(value, aggregate):
+    return _bench(value, scaling={"aggregate_words_per_sec": aggregate})
+
+
+SCALING_CASES = {
+    "none": [_bench(1000.0), _bench(1000.0)],
+    "one": [_bench(1000.0), _scaled(1000.0, 4000.0)],
+    "drop": [_scaled(1000.0, 4000.0), _scaled(1000.0, 3000.0)],
+    "hold": [_scaled(1000.0, 4000.0), _scaled(1000.0, 3900.0)],
+    "newest_without": [_scaled(1000.0, 4000.0), _bench(1000.0)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCALING_CASES))
+@pytest.mark.parametrize("baseline", [None, 1200.0])
+def test_scaling_gate_matches(tmp_path, case, baseline):
+    """The scale-out lane's gate (JAX ``_check_scaling_regression``) on the
+    same synthetic records in both packages: no scaling block, one, a drop
+    past the allowance, a hold, a newest record without one; the same code
+    and message from ``check_regression`` and from the gate alone."""
+    path = str(tmp_path / "scaling.jsonl")
+    led = ledger.Ledger(path)
+    for kind, rec in SCALING_CASES[case]:
+        led.append(kind, rec)
+    ref = jax_ledger.Ledger(path)
+    assert ledger.check_regression(led, 10.0, baseline) == jax_ledger.check_regression(
+        ref, 10.0, baseline)
+    measured = [r for r in led.records("bench")]
+    got = ledger._check_scaling_regression(measured, 10.0)
+    assert got == jax_ledger._check_scaling_regression(ref.records("bench"), 10.0)
+    said = {"none": None, "one": "scaling: single measured record",
+            "drop": "scaling REGRESSION", "hold": "scaling ok",
+            "newest_without": "scaling: newest measured record has no scaling block"}[case]
+    assert got[0] == (1 if case == "drop" else 0)
+    assert (got[1] is None) if said is None else got[1].startswith(said)
+
+
 @pytest.mark.parametrize("argv", [
     [], ["--failures"], ["--diff", "-2", "-1"], ["--diff", "0", "7"],
     ["--check-regression", "5"], ["--check-regression", "5", "--baseline", "2000"]])

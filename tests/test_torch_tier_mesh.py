@@ -28,7 +28,8 @@ case. The claims:
 * no rank made a collective off its main thread (the loop's): the tier's
   flusher and the prefetch producer make none;
 * ``placement: auto`` with the tier resolves uniform with JAX's reason, and
-  the loop keys of slice 6 still raise under a mesh.
+  the loop builds each guard of slice 6 beside the tier under a mesh
+  (``tests/test_torch_guards_mesh.py`` runs them).
 """
 
 import fcntl
@@ -333,10 +334,19 @@ def test_auto_placement_with_the_tier_resolves_uniform():
                                   {"freshness_publish": "4", "freshness_dir": "d"},
                                   {"cluster_workers": "1"}, {"tier_verify_period": "5"}],
                          ids=lambda o: next(iter(o)))
-def test_slice_6_keys_still_raise_with_the_tier_under_a_mesh(over):
+def test_slice_6_keys_build_their_guard_with_the_tier_under_a_mesh(over):
+    """The loop's guards are ported under a mesh since this test was
+    written: it holds that ``TrainLoop`` builds each beside the tier on
+    the meshed trainer (``tests/test_torch_guards_mesh.py`` runs them)."""
     tr = tr_ranks.w2v_trainer("packed", _hand_mesh(), 1, **over)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6, slice 6"):
-        TrainLoop(tr)
+    loop = TrainLoop(tr)
+    assert loop.tier is not None and loop.tier.mesh is tr.mesh
+    built = {"guardrail": lambda: loop.guardrail is not None and loop.guardrail.mesh is tr.mesh,
+             "freshness_publish": lambda: loop.freshness is not None
+             and loop.freshness.tier is loop.tier and loop.freshness.mesh is tr.mesh,
+             "cluster_workers": lambda: loop.cluster is not None and loop.leader,
+             "tier_verify_period": lambda: loop.tier_verify_period == 5}
+    assert built[next(iter(over))]()
 
 
 def test_tiered_table_budget_rounds_to_the_model_axis():

@@ -178,10 +178,17 @@ def test_unported_keys_raise_under_a_mesh(over):
     {"guardrail": "1"},
     {"freshness_publish": "4", "freshness_dir": "d"}, {"cluster_workers": "1"},
 ], ids=lambda o: next(iter(o)))
-def test_loop_keys_raise_under_a_mesh(over):
+def test_loop_keys_build_their_guard_under_a_mesh(over):
+    """The loop's guards are ported under a mesh since this test was
+    written: it holds that ``TrainLoop`` builds each on the meshed trainer
+    (``tests/test_torch_guards_mesh.py`` runs them on a ``(2, 2)`` mesh)."""
     tr = ranks.w2v_trainer("packed", _hand_mesh(), **over)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6, slice 6"):
-        TrainLoop(tr)
+    loop = TrainLoop(tr)
+    built = {"guardrail": lambda: loop.guardrail is not None and loop.guardrail.mesh is tr.mesh,
+             "freshness_publish": lambda: loop.freshness is not None
+             and loop.freshness.mesh is tr.mesh,
+             "cluster_workers": lambda: loop.cluster is not None and loop.leader}
+    assert built[next(iter(over))]()
 
 
 def test_a_pool_block_may_not_straddle_data_shards():
