@@ -47,12 +47,26 @@ prints one JSON line; any failure exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a card, or outside the repository,
 it exits non-zero and prints no result.
 
+Time budget. The script must end within 1,200 s, the build included, on a
+slow host as on a fast one: one tree has taken 870–1,206 s as the host
+went. So its ``total`` stays under 900 s. Every line carries ``t_s``, the
+seconds since the script started; every top-level phase prints a
+``phase_seconds`` line when it ends (also when it fails); the ``total`` line
+carries ``phases``, each top-level phase's seconds in the order they ran
+(the ``--only`` modes print the same for theirs). A change that adds to the
+script first finds its own seconds in ``phases``, and takes as many out
+elsewhere if the sum would pass 900 s: fewer full-width runs, a run or a
+save that another phase already made at the same config and seed reused,
+fewer saves and process spawns where a gate needs only one.
+
 Phases:
 
 1. ``env``: the card, its power limit, TF32 off for matmul and cuDNN.
 2. ``build``: compile ``csrc/rowdma.cu``, ``csrc/fused_sgns.cu``,
    ``csrc/fused_sgns_merged.cu`` and ``csrc/sem_probe.cu``, one ``nvcc``
-   each, started together; their ptxas register and spill lines.
+   each, started together; their ptxas register and spill lines. While
+   they compile: the CUDA context, the profiler's first window (CUPTI's
+   set-up) and the two corpora.
 3. ``kernel``: each row kernel at the main path's shapes (f32 and bf16; the
    in-table pull and push of 16,384 rows, the out-table ones of 18,432),
    bit-equal to its plain version, timed beside the plain version, one
@@ -178,19 +192,20 @@ Phases:
     ns a copy a CTA over the K / G copies each CTA takes.
 11. ``cli_resume``: ``examples/word2vec.conf`` as it stands (dim 200,
     window 5, 5 negatives, batch 16,384, ``guardrail: 1``, ``resume:
-    auto``) over a zipf text corpus from ``--seed`` (300,000 tokens over
+    auto``) over a zipf text corpus from ``--seed`` (260,000 tokens over
     65,536 ids), with ``-capacity 1048576`` (two 1 GiB tables),
     ``-num_iters 1``, ``-min_count 1``, ``-param_backup_period 8``,
     ``-param_backup_root``/``-output`` in a temporary directory, ``-log_every
     1`` and ``-seed``, each listed in the phase's line. First an
     uninterrupted control through ``cli.main`` in this process, every launch
     counter set to 0 just before and read just after (``gather_rows`` and
-    ``scatter_add_rows`` 2 a substep, every other kernel 0). Then
-    ``python -m swiftsnails_tpu_torch train`` in a subprocess, sent a real
-    SIGTERM after its second periodic manifest, mid-period: it must exit 0,
-    say it was preempted and leave a final step past the last periodic one.
-    Then the same command again: it must say it restored that step and run
-    to the end of the data. Every step both runs committed must carry the
+    ``scatter_add_rows`` 2 a substep, every other kernel 0). Beside it (the
+    two share only the corpus), ``python -m swiftsnails_tpu_torch train`` in
+    a subprocess, sent a real SIGTERM after its second periodic manifest,
+    mid-period: it must exit 0, say it was preempted and leave a final step
+    past the last periodic one. Then the same command again, through ``cli.main`` in this process (only
+    the SIGTERM needs a process of its own): it must say it restored that
+    step and run to the end of the data. Every step both runs committed must carry the
     control's CRCs and data cursor (bit-equal tables; every kernel of the
     path is bit-identical run to run), and ``vectors.txt`` must be the
     control's byte for byte. The line gives each run's save time split into
@@ -236,7 +251,8 @@ Phases:
     median step span of the captured steps) is at least 0.95 x the
     capture's kernel time a step; ``env`` names the card and its power
     limit; a ``resume: auto`` run on the ledger restores a step the ledger
-    knows; ``ledger-report``, ``--failures`` and ``trace-summary`` on the
+    knows (the telemetry-off run is the path's train phase run, the same
+    config and seed); ``ledger-report``, ``--failures`` and ``trace-summary`` on the
     files exit 0. Printed: items/sec with telemetry on and off (the loss
     read every 5 steps, in turns off, on, on, off), so the step span's
     synchronization is priced. Then the drift drill on the card (gated:
@@ -375,12 +391,20 @@ Phases:
     reload rejected, the ``tier_bitflip`` drill recovered). (e)
     ``cluster_fleet``: ``fleet_bench`` (``scaling_x`` >= 1.6 at 2
     replicas, affinity's hit rate above random's, hedging cutting p99) and
-    ``fleet_chaos_drill`` (availability >= 99% through each drill). (f)
+    ``fleet_chaos_drill`` (availability >= 99% through each drill). The
+    bench runs with the objects of the earlier phases frozen out of the
+    cyclic collector's reach (``_HostPauses``: a full collection over them
+    stalls the process past the SLO's slack); ``bench_host`` gives the
+    collector's pauses during it and the threads alive at its start. (f)
     ``cluster_ledger``: the blocks in one bench record of the phase's
     ledger; ``supervisor-status`` over it names the lost worker, and
     ``ledger-report --check-regression`` reports the chaos-cluster,
     chaos-serve and fleet gates ok, no gate failing (it exits 2, the
-    headline's code when a ledger holds no measured bench value). Then
+    headline's code when a ledger holds no measured bench value).
+    ``cluster_baseline_file``: one cacheable ``bench`` record of the fleet's
+    qps appended, ``derive_last_good`` writes the last-good file from it,
+    and ``ledger-report --check-regression 5 --baseline-file`` exits 0 on
+    that file and 2 on a truncated copy. Then
     ``kernel_one_row``: one-row calls of ``gather_rows``,
     ``scatter_add_rows`` and ``scatter_write_rows`` on a ``[1,048,576, 2,
     128]`` f32 table, bit-equal to plain, timed: the fixed cost of a launch.
@@ -425,7 +449,8 @@ Phases:
     2e-4 / atol 2e-6 of the plain plane's; ``overlap`` 1 and 2
     ``MESH_STEPS`` steps (finite, falling, one more pull a step each a
     depth); the median step ms of each run.
-    (b) A ``(2, 2)`` gloo mesh of four spawned processes (``MESH_GLOO_*``:
+    (b) A ``(2, 2)`` gloo mesh of four processes, spawned when the phase
+    starts and run beside (a) (``MESH_GLOO_*``:
     dim 200, vocabulary 65,536, batch 2,048, 5 steps, the cuts listed as
     ``reduced``) on ``MESH_GLOO_DEVICE``, its tables within rtol 1e-5 /
     atol 1e-6 of the one-device port's, each rank's launches counted; the
@@ -546,7 +571,7 @@ Phases:
     ``path: "mesh_serve"``; ``gather_rows`` and ``scatter_write_rows`` at
     the meshed publisher's and the apply's shapes with the guards
     freshness run's launches, ``path: "mesh_guards"``); then ``total``, the
-    script's seconds.
+    script's seconds, with ``phases``.
 """
 
 from __future__ import annotations
@@ -658,8 +683,28 @@ CTR_PARITY = {
 }
 
 
+T0 = time.monotonic()  # the script's start: every line's ``t_s`` counts from it
+PHASES: dict = {}  # each top-level phase's seconds, in the order they ran
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields, "t_s": time.monotonic() - T0}), flush=True)
+
+
+@contextlib.contextmanager
+def clocked(name: str):
+    """Time one top-level phase: one ``phase_seconds`` line, and its seconds
+    in ``PHASES`` (the ``total`` line's ``phases``), also when it fails."""
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        PHASES[name] = time.monotonic() - t0
+        emit("phase_seconds", name=name, seconds=PHASES[name])
+
+
+def emit_total(t_start: float) -> None:
+    emit("total", seconds=time.monotonic() - t_start, phases=PHASES)
 
 
 def _rate(table, name: str, what: str) -> float:
@@ -706,17 +751,49 @@ def phase_env() -> dict:
     return env
 
 
-def phase_build() -> None:
+def phase_build(seed: int) -> dict:
+    """Compile the kernels, one ``nvcc`` a source, all started together,
+    and meanwhile on this thread make what later phases need that the build
+    does not: the CUDA context, the profiler's first window (CUPTI's set-up,
+    which the first window pays) and the two corpora. Returns the corpora."""
+    from torch.profiler import ProfilerActivity, profile
+
     from swiftsnails_tpu_torch.ops import _build
 
     t0 = time.monotonic()
-    results = _build.build_all(["rowdma", "fused_sgns", "fused_sgns_merged", "sem_probe"])
-    for name, result in results.items():
+    built: dict = {}
+
+    def compile_all():
+        try:
+            built["results"] = _build.build_all(
+                ["rowdma", "fused_sgns", "fused_sgns_merged", "sem_probe"])
+        except BaseException as e:  # raised again on this thread
+            built["error"] = e
+
+    compiler = threading.Thread(target=compile_all, name="nvcc")
+    compiler.start()
+    try:
+        t1 = time.monotonic()
+        torch.zeros(1, device="cuda")
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda._sleep(1_000)
+            torch.cuda.synchronize()
+        profiler_s = time.monotonic() - t1
+        t1 = time.monotonic()
+        corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
+        corpora_s = time.monotonic() - t1
+    finally:
+        compiler.join()
+    if "error" in built:
+        raise built["error"]
+    for name, result in built["results"].items():
         ptxas = [ln.strip() for ln in result["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         emit("build", seconds=result["seconds"], source=f"{name}.cu",
              cached=result["cached"], ptxas=ptxas)
-    emit("build", seconds=time.monotonic() - t0, source="all")
+    emit("build", seconds=time.monotonic() - t0, source="all",
+         meanwhile={"context_and_profiler_s": profiler_s, "corpora_s": corpora_s})
+    return corpora
 
 
 def _gather_case(table, rows_sets, rate):
@@ -1418,6 +1495,7 @@ def phase_train(phase: str, seed: int, corpora, device_name: str, smi: str):
                                  "fall_share": fall / plain_fall if plain_fall else None,
                                  "limit": HOGWILD_FALL_SHARE}
     emit(phase, **out)
+    out["losses"] = losses  # the telemetry phase's telemetry-off run
     if phase in HOGWILD_TRAIN:
         ref = out["plain_in_order"]
         if not ref["fall"] > 0 or ref["fall_share"] < HOGWILD_FALL_SHARE:
@@ -2130,16 +2208,17 @@ REPO = Path(__file__).resolve().parent
 W2V_CONF = "examples/word2vec.conf"  # from the root of the repository
 W2V_FAST_CONF = "examples/word2vec_fast.conf"
 CLI_CAPACITY = 1 << 20  # bench.py's table size: two [1,048,576, 2, 128] f32 tables, 1 GiB each
-# Free space a CLI phase needs under the temporary directory: one root at a
-# time (the control's is deleted before the interrupted run), up to 5 step
-# directories of 2 GiB (3 kept, the protected one, the one being written).
-CLI_DISK_BYTES = 12 << 30
+# Free space a CLI phase needs under the temporary directory: two roots at a
+# time (the control's and the interrupted run's, which run side by side),
+# each up to 5 step directories of 2 GiB (3 kept, the protected one, the one
+# being written).
+CLI_DISK_BYTES = 22 << 30
 # phase -> its config, corpus (tokens, zipf id range, paired), backup period,
 # overrides beyond the common ones, and launches a substep of each kernel.
 # The id ranges keep the vocabularies at ~31k and ~65k words, so that the
 # text export of `output` takes seconds; the tables stay at CLI_CAPACITY.
 CLI = {
-    "cli_resume": {"conf": W2V_CONF, "tokens": 300_000, "ids": 1 << 16, "paired": False,
+    "cli_resume": {"conf": W2V_CONF, "tokens": 260_000, "ids": 1 << 16, "paired": False,
                    "period": 8, "over": {},
                    "per_substep": {"gather_rows": 2, "scatter_add_rows": 2}},
     # word2vec_fast.conf's lr 0.025 moves no loss in 19 steps: the merged
@@ -2312,9 +2391,9 @@ def _subprocess_cli(args: list, workdir: str, tag: str, until=None) -> tuple:
 
 def phase_cli(name: str, seed: int, env: dict) -> dict:
     """``python -m swiftsnails_tpu_torch train`` at full width: an
-    uninterrupted control in this process, then a run in a subprocess
-    stopped by a real SIGTERM after its second periodic manifest, then the
-    same command again, which resumes. The resumed run's periodic
+    uninterrupted control in this process and, beside it, a run in a
+    subprocess stopped by a real SIGTERM after its second periodic manifest;
+    then the same command again, which resumes. The resumed run's periodic
     checkpoints must carry the control's CRCs (bit-equal tables) and its
     ``vectors.txt`` must be the control's, byte for byte."""
     from swiftsnails_tpu_torch.framework import checkpoint as ckpt
@@ -2330,11 +2409,31 @@ def phase_cli(name: str, seed: int, env: dict) -> dict:
         n_tokens = _write_text_corpus(corpus, spec["tokens"], spec["ids"], spec["paired"], seed)
         period = spec["period"]
 
+        # the run a real SIGTERM stops after its second periodic manifest, in
+        # a process of its own beside the control (they share only the corpus)
+        root, vec = os.path.join(tmp, "run"), os.path.join(tmp, "run.txt")
+        args = _cli_args(spec, corpus, root, vec, seed)
+        watch = _ManifestWatch(root)
+        log = os.path.join(tmp, "first.out")
+
+        def sigterm_due() -> bool:
+            # after two periodic manifests, and mid-period: a step logged
+            # at k*P - 1 or k*P means the loop is about to wait, or waits,
+            # for the writer at a periodic save, and would drain there
+            last = _last_logged_step(log)
+            return len(watch.manifests) >= 2 and last is not None and 0 < last % period < period - 1
+
+        join_first, _ = _in_thread(lambda: _subprocess_cli(args, tmp, "first", until=sigterm_due))
+
         # the control, in process: its launches and every manifest it commits
         ctl_root, ctl_out = os.path.join(tmp, "control"), os.path.join(tmp, "control.txt")
-        watch = _ManifestWatch(ctl_root)
-        out, err, launches, ctl_s = _in_process_cli(_cli_args(spec, corpus, ctl_root, ctl_out, seed))
-        control = watch.stop()
+        ctl_watch = _ManifestWatch(ctl_root)
+        try:
+            out, err, launches, ctl_s = _in_process_cli(
+                _cli_args(spec, corpus, ctl_root, ctl_out, seed))
+        finally:  # the first run ends by itself: at its SIGTERM or at the end of the data
+            rc, out1, err1, first_s = join_first(1300)
+        control = ctl_watch.stop()
         records = _metric_records(out)
         steps = records[-1]["step"]
         spc = load_config(REPO / spec["conf"]).get_int("steps_per_call", 1)
@@ -2348,20 +2447,6 @@ def phase_cli(name: str, seed: int, env: dict) -> dict:
             raise AssertionError(f"{name}: control committed {sorted(control)} in {steps} steps")
         shutil.rmtree(ctl_root)
 
-        # the run a real SIGTERM stops after its second periodic manifest
-        root, vec = os.path.join(tmp, "run"), os.path.join(tmp, "run.txt")
-        args = _cli_args(spec, corpus, root, vec, seed)
-        watch = _ManifestWatch(root)
-        log = os.path.join(tmp, "first.out")
-
-        def sigterm_due() -> bool:
-            # after two periodic manifests, and mid-period: a step logged
-            # at k*P - 1 or k*P means the loop is about to wait, or waits,
-            # for the writer at a periodic save, and would drain there
-            last = _last_logged_step(log)
-            return len(watch.manifests) >= 2 and last is not None and 0 < last % period < period - 1
-
-        rc, out1, err1, first_s = _subprocess_cli(args, tmp, "first", until=sigterm_due)
         if rc != 0 or "preempted (SIGTERM)" not in err1:
             raise AssertionError(f"{name}: SIGTERM run exited {rc}: {err1[-3000:]}")
         drain = _DRAIN_RE.findall(err1)
@@ -2372,13 +2457,13 @@ def phase_cli(name: str, seed: int, env: dict) -> dict:
         if ckpt.intact_steps(root)[0] != final or final <= before[-1] or final <= 2 * period:
             raise AssertionError(f"{name}: drained at {final}, intact {ckpt.intact_steps(root)}")
 
-        # the same command again: it resumes from the drain's save
-        rc, out2, err2, resumed_s = _subprocess_cli(args, tmp, "resumed")
+        # the same command again, in this process (only the SIGTERM needs a
+        # process of its own): it resumes from the drain's save
+        out2, err2, resumed_launches, resumed_s = _in_process_cli(args)
         run = watch.stop()
         restored = _RESTORE_RE.findall(err2)
-        if rc != 0 or not restored or int(restored[0][0]) != final or "preempted" in err2:
-            raise AssertionError(f"{name}: resumed run exited {rc}, restored {restored}: "
-                                 f"{err2[-3000:]}")
+        if not restored or int(restored[0][0]) != final or "preempted" in err2:
+            raise AssertionError(f"{name}: resumed run restored {restored}: {err2[-3000:]}")
         after = sorted(s for s in run if s > final and s % period == 0)
         if len(after) < 2 or after[-1] != periodic[-1]:
             raise AssertionError(f"{name}: periodic saves after the resume {after}, "
@@ -2400,7 +2485,8 @@ def phase_cli(name: str, seed: int, env: dict) -> dict:
                "first": {"s": first_s, **_rates(_metric_records(out1), words_per_item),
                          "save": _save_stats(err1)},
                "resumed": {"s": resumed_s, **_rates(_metric_records(out2), words_per_item),
-                           "save": _save_stats(err2), "restore_s": float(restored[0][1])},
+                           "save": _save_stats(err2), "restore_s": float(restored[0][1]),
+                           "launches": resumed_launches},
                "step_dir_bytes": _dir_bytes(os.path.join(root, f"step_{after[-1]}")),
                "disk_free_bytes": free, "device": env["device"], "nvidia_smi": env["nvidia_smi"]}
         emit(name, **out)
@@ -2666,14 +2752,15 @@ def _cli_ok(args: list) -> tuple:
     return rc, out.getvalue()
 
 
-def phase_telemetry(seed: int, corpora, env: dict) -> dict:
+def phase_telemetry(seed: int, corpora, env: dict, off_losses: dict) -> dict:
     """The loop's telemetry at full width on packed+pool and fused-resident:
     30 steps with ``telemetry: 1``, ``trace_path``, ``ledger_path``,
     ``profile_dir`` (``profile_steps: 10,20``), ``profile_cadence: 4``,
     ``drift_detect: 1``, ``param_backup_period: 10`` and the loss read every
-    step, against the same run with telemetry off; then ``resume: auto`` on
-    the ledger, the reports, the drift drill and the continuous profiler's
-    cost."""
+    step, against the same run with telemetry off (``off_losses``: the
+    losses of the train phase's run of the path, the same config and seed);
+    then ``resume: auto`` on the ledger, the reports, the drift drill and the
+    continuous profiler's cost."""
     from swiftsnails_tpu_torch.telemetry.drift_lane import (
         OVERHEAD_CEIL_PCT, drift_drill, profiler_overhead)
     from swiftsnails_tpu_torch.telemetry.ledger import Ledger
@@ -2685,7 +2772,7 @@ def phase_telemetry(seed: int, corpora, env: dict) -> dict:
         tmp = tempfile.mkdtemp(prefix="chip_smoke_tel_")
         try:
             t0 = time.monotonic()
-            off, _ = _losses(phase, seed, corpora)
+            off = off_losses[phase]
             on, loop = _losses(phase, seed, corpora, **_tel_config(tmp))
             spread = None
             if on != off:
@@ -4479,6 +4566,46 @@ def _cluster_sim(seed: int, corpora, env: dict, tmp: str, ledger) -> tuple:
     return block, {k: launches[k] for k in ("gather_rows", "scatter_add_rows")}, dead
 
 
+class _HostPauses:
+    """The fleet lane's process while it times the router. Every object the
+    earlier phases left (~170k with torch and the port imported, more after
+    them) is collected once and frozen out of the cyclic collector's reach
+    (``gc.freeze``): a full collection over them stalls every thread for
+    ~90 ms on a slow host, past the 54 ms the SLO leaves over the 6 ms
+    service floor, and one stall in a probe of the 2-replica leg fails its
+    rung. Records the collector's pauses by generation (``gc.callbacks``)
+    and the threads alive at the start (ROADMAP.md, Queue 3 item 16)."""
+
+    def __init__(self):
+        import gc
+
+        self.threads = sorted(t.name for t in threading.enumerate())
+        gc.collect()
+        self.frozen = len(gc.get_objects())
+        gc.freeze()
+        self.pauses: list = []
+        self._t0 = None
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.pauses.append((info["generation"], (time.perf_counter() - self._t0) * 1e3))
+            self._t0 = None
+
+    def stop(self) -> dict:
+        import gc
+
+        gc.callbacks.remove(self._on_gc)
+        gc.unfreeze()
+        gens = sorted({g for g, _ in self.pauses})
+        return {"threads": self.threads, "gc_frozen_objects": self.frozen,
+                "gc_collections": {g: sum(1 for x, _ in self.pauses if x == g) for g in gens},
+                "gc_max_ms": {g: max(ms for x, ms in self.pauses if x == g) for g in gens},
+                "gc_total_ms": sum(ms for _, ms in self.pauses)}
+
+
 def phase_cluster(seed: int, corpora, env: dict) -> dict:
     """Phase 19: the cluster plane and the chaos lanes on the card."""
     from swiftsnails_tpu_torch import cli
@@ -4531,8 +4658,12 @@ def phase_cluster(seed: int, corpora, env: dict) -> dict:
             raise AssertionError(f"cluster_chaos_serve: failed {bad}")
 
         t0 = time.monotonic()
-        fleet, fleet_launches = _run_counted(lambda: fleet_bench(
-            small=False, workdir=os.path.join(tmp, "fleet"), ledger=ledger, device="cuda"))
+        pauses = _HostPauses()
+        try:
+            fleet, fleet_launches = _run_counted(lambda: fleet_bench(
+                small=False, workdir=os.path.join(tmp, "fleet"), ledger=ledger, device="cuda"))
+        finally:
+            host = pauses.stop()
         fleet_s = time.monotonic() - t0
         t0 = time.monotonic()
         fdrill = fleet_chaos_drill(small=True, workdir=os.path.join(tmp, "fleet-drill"),
@@ -4552,7 +4683,7 @@ def phase_cluster(seed: int, corpora, env: dict) -> dict:
              fleet_max_qps=fleet["fleet"]["max_qps"],
              points=len(fleet["single"]["points"]) + len(fleet["fleet"]["points"]),
              drill=fdrill, launches=fleet_launches, bench_seconds=fleet_s,
-             drill_seconds=time.monotonic() - t0)
+             drill_seconds=time.monotonic() - t0, bench_host=host)
         bad = [k for k, ok in fleet_checks.items() if not ok]
         if bad:
             raise AssertionError(f"cluster_fleet: failed {bad}")
@@ -4584,6 +4715,7 @@ def phase_cluster(seed: int, corpora, env: dict) -> dict:
         if "REGRESSION" in report or not all(gates.values()) or report_rc not in (0, 2) \
                 or (report_rc == 2 and "no measured bench record" not in report):
             raise AssertionError(f"check-regression: {report}")
+        _cluster_baseline_file(ledger, tmp, fleet)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     one_row = phase_one_row()
@@ -4591,6 +4723,39 @@ def phase_cluster(seed: int, corpora, env: dict) -> dict:
     emit("cluster_total", seconds=seconds, device=env["device"],
          nvidia_smi=env["nvidia_smi"])
     return {"launches": launches, "one_row": one_row, "seconds": seconds}
+
+
+def _cluster_baseline_file(ledger, tmp: str, fleet: dict) -> None:
+    """The bench cache: one cacheable ``bench`` record of the fleet's
+    measured qps appended to the phase's ledger, the last-good file derived
+    from it (``derive_last_good``), then ``ledger-report --check-regression
+    5 --baseline-file`` on that file (rc 0) and on a truncated copy (rc 2)."""
+    from swiftsnails_tpu_torch import cli
+    from swiftsnails_tpu_torch.telemetry.ledger import derive_last_good, load_bench_cache
+
+    ledger.append("bench", {"cacheable": True, "payload": {
+        "metric": "fleet_max_qps", "value": fleet["fleet"]["max_qps"], "unit": "qps",
+        "config": {"replicas": fleet["replicas"], "slo_p99_ms": fleet["slo_p99_ms"]},
+        "platform": "gpu", "fleet": fleet}})
+    good = os.path.join(tmp, "BENCH_LAST_GOOD.json")
+    payload, reason = derive_last_good(ledger, good)
+    truncated = os.path.join(tmp, "BENCH_LAST_GOOD.truncated.json")
+    with open(good, "rb") as f, open(truncated, "wb") as g:
+        g.write(f.read()[:40])
+    runs = {}
+    for name, path in (("good", good), ("truncated", truncated)):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["ledger-report", ledger.path, "--check-regression", "5",
+                           "--baseline-file", path])
+        runs[name] = {"rc": rc, "output": out.getvalue().splitlines()}
+    emit("cluster_baseline_file", derive_reason=reason,
+         derived={k: (payload or {}).get(k) for k in ("metric", "value", "unit", "measured_at")},
+         loaded=load_bench_cache(good)[0] == payload, runs=runs)
+    if (reason is not None or payload["value"] != fleet["fleet"]["max_qps"]
+            or runs["good"]["rc"] != 0 or runs["truncated"]["rc"] != 2
+            or not runs["truncated"]["output"][0].startswith("ledger_report: --baseline-file: ")):
+        raise AssertionError(f"--baseline-file: derived {payload} ({reason}), runs {runs}")
 
 
 def _cluster_kernel_entries(summary: dict, cluster: dict) -> list:
@@ -5215,31 +5380,43 @@ def _gloo_ctr_layouts_check(by: dict) -> dict:
             "losses": {k: list(v["losses"].values()) for k, v in mine["resume"].items()}}
 
 
-def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
-    """Leg 2: four spawned processes, a (2, 2) gloo mesh, packed+pool
-    against the one-device port on ``MESH_GLOO_DEVICE`` and the grouped
-    plane's routes against the same on ``solo``, the (1, 1) NCCL mesh."""
+def _mesh_gloo_spawn(seed: int, tmp: str) -> dict:
+    """Start leg 2's four rank processes. They need nothing of leg 1, so
+    they run while it does; :func:`_mesh_gloo_leg` joins them."""
     import multiprocessing as mp
 
     size = MESH_GLOO["data"] * MESH_GLOO["model"]
     ctx = mp.get_context("spawn")
-    t0 = time.monotonic()
     procs = [ctx.Process(target=_mesh_gloo_rank,
                          args=(r, size, f"file://{tmp}/gloo-rendezvous", tmp, seed))
              for r in range(size)]
+    t0 = time.monotonic()
     for p in procs:
         p.start()
-    try:
-        for p in procs:
-            p.join(max(1.0, MESH_GLOO_TIMEOUT_S - (time.monotonic() - t0)))
-            if p.is_alive():
-                raise AssertionError(f"mesh gloo: a rank outlived {MESH_GLOO_TIMEOUT_S} s")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
+    return {"procs": procs, "t0": t0}
+
+
+def _mesh_gloo_stop(ranks: dict) -> None:
+    for p in ranks["procs"]:
+        if p.is_alive():
+            p.kill()
+            p.join()
+
+
+def _mesh_gloo_leg(seed: int, tmp: str, solo, ranks: dict) -> dict:
+    """Leg 2: four spawned processes (``ranks``, from
+    :func:`_mesh_gloo_spawn`), a (2, 2) gloo mesh, packed+pool against the
+    one-device port on ``MESH_GLOO_DEVICE`` and the grouped plane's routes
+    against the same on ``solo``, the (1, 1) NCCL mesh."""
+    size = MESH_GLOO["data"] * MESH_GLOO["model"]
+    procs, t0 = ranks["procs"], ranks["t0"]
+    t_join = time.monotonic()
+    for p in procs:  # the phase kills a rank left alive
+        p.join(max(1.0, MESH_GLOO_TIMEOUT_S - (time.monotonic() - t0)))
+        if p.is_alive():
+            raise AssertionError(f"mesh gloo: a rank outlived {MESH_GLOO_TIMEOUT_S} s")
     spawn_s = time.monotonic() - t0
+    join_wait_s = time.monotonic() - t_join
     results = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(size)]
     for r, res in enumerate(results):
         if "error" in res:
@@ -5331,7 +5508,7 @@ def _mesh_gloo_leg(seed: int, tmp: str, solo) -> dict:
             "launches_by_rank": [{k: r["launches"][k] for k in ("gather_rows",
                                                                 "scatter_add_rows")}
                                  for r in results],
-            "seconds": time.monotonic() - t0, "spawn_s": spawn_s,
+            "seconds": time.monotonic() - t_join, "spawn_s": spawn_s, "join_wait_s": join_wait_s,
             "rank_sections_s": results[0]["sections_s"]}
 
 
@@ -7046,6 +7223,7 @@ def phase_mesh(seed: int, corpora, env: dict, serve: dict, heal_drill=None) -> d
     it here."""
     t_phase = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="ssn-mesh-")
+    ranks = _mesh_gloo_spawn(seed, tmp)  # leg 2 runs beside leg 1
     try:
         with _nccl_mesh(tmp) as mesh:
             resident = {}
@@ -7069,8 +7247,9 @@ def phase_mesh(seed: int, corpora, env: dict, serve: dict, heal_drill=None) -> d
             ctr = _mesh_ctr_nccl_leg(seed, mesh, tmp)
             ctr_layouts = _mesh_ctr_layouts(seed, mesh)
             wire = _mesh_wire_leg(seed, corpora, mesh)
-            gloo = _mesh_gloo_leg(seed, tmp, mesh)
+            gloo = _mesh_gloo_leg(seed, tmp, mesh, ranks)
     finally:
+        _mesh_gloo_stop(ranks)
         shutil.rmtree(tmp, ignore_errors=True)
     seconds = time.monotonic() - t_phase
     tier = {"w2v": {k: v for k, v in tier_w2v.items() if k != "shapes"},
@@ -7333,88 +7512,103 @@ def _mesh_ctr_kernel_entries(summary: dict, mesh: dict) -> list:
     return out
 
 
-def _only_mesh(seed: int, env: dict, t_start: float) -> int:
+def _only_mesh(seed: int, env: dict, corpora: dict, t_start: float) -> int:
     """``--only mesh``: the kernels' phase 3 and the W&D row kernels'
     phase (the mesh entries' numbers), a serve checkpoint of its own (the
     meshed servants'), the mesh phase and the kernels at the grouped
     plane's and the meshed tier's shapes."""
-    summary = phase_kernels(seed, env["mem_rate_Bps"])
-    summary.update(phase_ctr_kernels(seed, env["mem_rate_Bps"]))
-    corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
+    rate = env["mem_rate_Bps"]
+    with clocked("kernels"):
+        summary = phase_kernels(seed, rate)
+    with clocked("ctr_kernels"):
+        summary.update(phase_ctr_kernels(seed, rate))
     tmp = tempfile.mkdtemp(prefix="ssn-serve-")
     try:
         root = os.path.join(tmp, "ckpt")
-        built = _build_serve_checkpoint(seed, corpora, root, "cuda")
-        mesh = phase_mesh(seed, corpora, env, {"root": root, "cfg": built["cfg"]})
+        with clocked("serve_checkpoint"):
+            built = _build_serve_checkpoint(seed, corpora, root, "cuda")
+        with clocked("mesh"):
+            mesh = phase_mesh(seed, corpora, env, {"root": root, "cfg": built["cfg"]})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    cases = phase_mesh_grouped_kernels(seed, corpora, env["mem_rate_Bps"])
-    hybrid = phase_mesh_hybrid_kernels(seed, corpora, env["mem_rate_Bps"])
-    summary.update(phase_tiered_kernels(mesh["tier"], seed, env["mem_rate_Bps"],
-                                        path="mesh_tier"))
+    with clocked("mesh_kernels"):
+        cases = phase_mesh_grouped_kernels(seed, corpora, rate)
+        hybrid = phase_mesh_hybrid_kernels(seed, corpora, rate)
+        summary.update(phase_tiered_kernels(mesh["tier"], seed, rate, path="mesh_tier"))
     emit("kernels", kernels=_mesh_kernel_entries(summary, mesh)
          + _mesh_grouped_kernel_entries(cases, mesh)
          + _mesh_ctr_kernel_entries(summary, mesh)
          + _mesh_hybrid_kernel_entries(hybrid, mesh)
          + _mesh_tier_kernel_entries(summary, mesh)
          + _mesh_guards_kernel_entries(mesh))
-    emit("total", seconds=time.monotonic() - t_start)
+    emit_total(t_start)
     return 0
 
 
-def _only_seqlm(seed: int, env: dict, t_start: float) -> int:
+def _only_seqlm(seed: int, env: dict, corpora: dict, t_start: float) -> int:
     """``--only seqlm``: the sequence model's phase."""
-    phase_seqlm(seed, env)
-    emit("total", seconds=time.monotonic() - t_start)
+    with clocked("seqlm"):
+        phase_seqlm(seed, env)
+    emit_total(t_start)
     return 0
 
 
-def _only_cluster(seed: int, env: dict, t_start: float) -> int:
+def _only_cluster(seed: int, env: dict, corpora: dict, t_start: float) -> int:
     """``--only cluster``: the kernels' phase 3 (the cluster entries'
     numbers) and the cluster phase."""
-    summary = phase_kernels(seed, env["mem_rate_Bps"])
-    cluster = phase_cluster(seed, {False: _corpus(seed)}, env)
+    with clocked("kernels"):
+        summary = phase_kernels(seed, env["mem_rate_Bps"])
+    with clocked("cluster"):
+        cluster = phase_cluster(seed, corpora, env)
     emit("kernels", kernels=_cluster_kernel_entries(summary, cluster))
-    emit("total", seconds=time.monotonic() - t_start)
+    emit_total(t_start)
     return 0
 
 
-def _only_freshness(seed: int, env: dict, t_start: float) -> int:
+def _only_freshness(seed: int, env: dict, corpora: dict, t_start: float) -> int:
     """``--only freshness``: the freshness phase over its own serve checkpoint."""
-    corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
     tmp = tempfile.mkdtemp(prefix="ssn-serve-")
     try:
         root = os.path.join(tmp, "ckpt")
-        _build_serve_checkpoint(seed, corpora, root, "cuda")
-        fresh = phase_freshness(seed, corpora, env, {"root": root})
+        with clocked("serve_checkpoint"):
+            _build_serve_checkpoint(seed, corpora, root, "cuda")
+        with clocked("freshness"):
+            fresh = phase_freshness(seed, corpora, env, {"root": root})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    summary = phase_freshness_kernels(fresh, seed, env["mem_rate_Bps"])
+    with clocked("freshness_kernels"):
+        summary = phase_freshness_kernels(fresh, seed, env["mem_rate_Bps"])
     emit("kernels", kernels=_freshness_kernel_entries(summary, fresh))
-    emit("total", seconds=time.monotonic() - t_start)
+    emit_total(t_start)
     return 0
 
 
-def _only_tiered(seed: int, env: dict, t_start: float) -> int:
+def _only_tiered(seed: int, env: dict, corpora: dict, t_start: float) -> int:
     """``--only tiered``: the tiered phase over its own serve checkpoint."""
-    corpora = {False: _corpus(seed), True: _corpus(seed, paired=True)}
     tmp = tempfile.mkdtemp(prefix="ssn-serve-")
     try:
         root = os.path.join(tmp, "ckpt")
-        built = _build_serve_checkpoint(seed, corpora, root, "cuda")
-        tiered = phase_tiered(seed, corpora, env, {"root": root, "cfg": built["cfg"]})
+        with clocked("serve_checkpoint"):
+            built = _build_serve_checkpoint(seed, corpora, root, "cuda")
+        with clocked("tiered"):
+            tiered = phase_tiered(seed, corpora, env, {"root": root, "cfg": built["cfg"]})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    summary = phase_tiered_kernels(tiered, seed, env["mem_rate_Bps"])
+    with clocked("tiered_kernels"):
+        summary = phase_tiered_kernels(tiered, seed, env["mem_rate_Bps"])
     emit("kernels", kernels=_tiered_kernel_entries(summary, tiered))
-    emit("total", seconds=time.monotonic() - t_start)
+    emit_total(t_start)
     return 0
+
+
+ONLY = {"tiered": _only_tiered, "freshness": _only_freshness, "cluster": _only_cluster,
+        "seqlm": _only_seqlm, "mesh": _only_mesh}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("tiered", "freshness", "cluster", "seqlm", "mesh"),
+    ap.add_argument("--only", choices=tuple(ONLY),
                     help="run only this phase (with the build and the inputs it "
                          "needs) and print no result line: a quicker check while "
                          "working on it")
@@ -7426,104 +7620,130 @@ def main() -> int:
     import swiftsnails_tpu_torch  # noqa: F401  fails outside the repository
 
     t_start = time.monotonic()
-    env = phase_env()
-    phase_build()
-    if args.only == "tiered":
-        return _only_tiered(args.seed, env, t_start)
-    if args.only == "freshness":
-        return _only_freshness(args.seed, env, t_start)
-    if args.only == "cluster":
-        return _only_cluster(args.seed, env, t_start)
-    if args.only == "seqlm":
-        return _only_seqlm(args.seed, env, t_start)
-    if args.only == "mesh":
-        return _only_mesh(args.seed, env, t_start)
-    summary = phase_kernels(args.seed, env["mem_rate_Bps"])
-    summary.update(phase_fused_kernels(args.seed, env))
+    with clocked("env"):
+        env = phase_env()
+    with clocked("build"):
+        corpora = phase_build(args.seed)
+    if args.only:
+        return ONLY[args.only](args.seed, env, corpora, t_start)
+    rate = env["mem_rate_Bps"]
+    with clocked("kernels"):
+        summary = phase_kernels(args.seed, rate)
+    with clocked("fused_kernels"):
+        summary.update(phase_fused_kernels(args.seed, env))
     for path in PATHS:
-        phase_slice_parity(args.seed, path)
-    corpora = {False: _corpus(args.seed), True: _corpus(args.seed, paired=True)}
-    summary.update(phase_perpair_kernels(args.seed, env["mem_rate_Bps"]))
-    launches = {}
+        with clocked(f"slice_parity_{path}"):
+            phase_slice_parity(args.seed, path)
+    with clocked("perpair_kernels"):
+        summary.update(phase_perpair_kernels(args.seed, rate))
+    launches, train_losses = {}, {}
     for phase, path in (("train", "packed"), ("train_fused", "fused"),
                         ("train_grouped", "grouped"), ("train_resident", "resident"),
                         ("train_dedup", "dedup"), ("train_dedup_res", "dedup_res"),
                         ("train_dense", "dense"), ("train_perpair", "perpair")):
-        train, trainer, state = phase_train(phase, args.seed, corpora, env["device"],
-                                            env["nvidia_smi"])
+        with clocked(phase):
+            train, trainer, state = phase_train(phase, args.seed, corpora, env["device"],
+                                                env["nvidia_smi"])
+        train_losses[phase] = train.pop("losses")
         suffix = "_perpair" if phase == "train_perpair" else ""
         launches.update({k + suffix: n for k, n in train["launches"].items()
                          if TRAIN[phase][1].get(k)})
-        phase_profile(path, trainer, state, args.seed)
+        with clocked(f"profile_{path}"):
+            phase_profile(path, trainer, state, args.seed)
         del trainer, state
         torch.cuda.empty_cache()
-    summary.update(phase_ctr_kernels(args.seed, env["mem_rate_Bps"]))
+    with clocked("ctr_kernels"):
+        summary.update(phase_ctr_kernels(args.seed, rate))
     paths = {name: "train" for name in ("gather_rows", "scatter_add_rows")}
     paths.update({f"{name}_perpair": "train_perpair"
                   for name in ("gather_rows", "scatter_add_rows")})
-    phase_ctr_parity(args.seed)
-    for name, n in phase_store_routes(args.seed).items():
-        launches[name], paths[name] = n, "ctr_parity store route"
-    train, trainer, state = phase_train_widedeep(args.seed, env)
+    with clocked("ctr_parity"):
+        phase_ctr_parity(args.seed)
+    with clocked("store_routes"):
+        for name, n in phase_store_routes(args.seed).items():
+            launches[name], paths[name] = n, "ctr_parity store route"
+    with clocked("train_widedeep"):
+        train, trainer, state = phase_train_widedeep(args.seed, env)
     serve_tmp = tempfile.mkdtemp(prefix="ssn-serve-wd-")
-    widedeep = save_widedeep_for_serving(args.seed, trainer, state,
-                                         os.path.join(serve_tmp, "ckpt"))
+    with clocked("save_widedeep"):
+        widedeep = save_widedeep_for_serving(args.seed, trainer, state,
+                                             os.path.join(serve_tmp, "ckpt"))
     launches["scatter_adagrad_fused_rows"] = train["launches"]["scatter_adagrad_fused_rows"]
     paths["scatter_adagrad_fused_rows"] = "train_widedeep"
-    phase_profile("widedeep", trainer, state, args.seed)
+    with clocked("profile_widedeep"):
+        phase_profile("widedeep", trainer, state, args.seed)
     del trainer, state
     torch.cuda.empty_cache()
     launches["gather_rows_widedeep"] = train["launches"]["gather_rows"]
     paths["gather_rows_widedeep"] = "train_widedeep"
     for phase, path in (("train_widedeep_2d", "widedeep_2d"), ("train_ffm_wide", "ffm_wide")):
-        _, trainer, state = phase_train_widedeep(args.seed, env, phase,
-                                                 packed_auc=train["eval_auc"])
-        phase_profile(path, trainer, state, args.seed)
+        with clocked(phase):
+            _, trainer, state = phase_train_widedeep(args.seed, env, phase,
+                                                     packed_auc=train["eval_auc"])
+        with clocked(f"profile_{path}"):
+            phase_profile(path, trainer, state, args.seed)
         del trainer, state
         torch.cuda.empty_cache()
-    phase_native_producer(args.seed, corpora, env)
-    phase_stream(args.seed, env)
-    phase_quality(env)
-    probes = phase_sem_probe(env["mem_rate_Bps"])
+    with clocked("native_producer"):
+        phase_native_producer(args.seed, corpora, env)
+    with clocked("stream"):
+        phase_stream(args.seed, env)
+    with clocked("quality"):
+        phase_quality(env)
+    with clocked("sem_probe"):
+        probes = phase_sem_probe(rate)
     for name in CLI:
-        phase_cli(name, args.seed, env)
-    phase_chaos(args.seed, env)
-    phase_guardrail_cost(args.seed, env)
-    phase_telemetry(args.seed, corpora, env)
+        with clocked(name):
+            phase_cli(name, args.seed, env)
+    with clocked("chaos"):
+        phase_chaos(args.seed, env)
+    with clocked("guardrail_cost"):
+        phase_guardrail_cost(args.seed, env)
+    with clocked("telemetry"):
+        phase_telemetry(args.seed, corpora, env, train_losses)
     try:
-        served = phase_serve(args.seed, corpora, env, widedeep)
+        with clocked("serve"):
+            served = phase_serve(args.seed, corpora, env, widedeep)
     finally:
         shutil.rmtree(serve_tmp, ignore_errors=True)
     serve_tmp = served["tmp"]
     try:
-        summary.update(phase_serve_kernels(served, args.seed, env["mem_rate_Bps"]))
+        with clocked("serve_kernels"):
+            summary.update(phase_serve_kernels(served, args.seed, rate))
         emit("serve_total", seconds=served["seconds"], device=env["device"],
              nvidia_smi=env["nvidia_smi"])
         serve_launches = served["launches"]
         del served["table"]
         torch.cuda.empty_cache()
-        tiered = phase_tiered(args.seed, corpora, env, served)
-        summary.update(phase_tiered_kernels(tiered, args.seed, env["mem_rate_Bps"]))
+        with clocked("tiered"):
+            tiered = phase_tiered(args.seed, corpora, env, served)
+        with clocked("tiered_kernels"):
+            summary.update(phase_tiered_kernels(tiered, args.seed, rate))
         emit("tiered_total", seconds=tiered["seconds"], device=env["device"],
              nvidia_smi=env["nvidia_smi"])
-        fresh = phase_freshness(args.seed, corpora, env, served)
+        with clocked("freshness"):
+            fresh = phase_freshness(args.seed, corpora, env, served)
         serve_ckpt = {"root": served["root"], "cfg": served["cfg"]}
         del served
-        summary.update(phase_freshness_kernels(fresh, args.seed, env["mem_rate_Bps"]))
+        with clocked("freshness_kernels"):
+            summary.update(phase_freshness_kernels(fresh, args.seed, rate))
         emit("freshness_total", seconds=fresh["seconds"], device=env["device"],
              nvidia_smi=env["nvidia_smi"])
-        cluster = phase_cluster(args.seed, corpora, env)
-        phase_seqlm(args.seed, env)
+        with clocked("cluster"):
+            cluster = phase_cluster(args.seed, corpora, env)
+        with clocked("seqlm"):
+            phase_seqlm(args.seed, env)
         # the mesh phase's servants load the serve phase's step-4 checkpoint;
         # its sweep is held to the tiered phase's unmeshed heal drill
-        mesh = phase_mesh(args.seed, corpora, env, serve_ckpt,
-                          heal_drill=tiered.pop("heal_drill"))
+        with clocked("mesh"):
+            mesh = phase_mesh(args.seed, corpora, env, serve_ckpt,
+                              heal_drill=tiered.pop("heal_drill"))
     finally:
         shutil.rmtree(serve_tmp, ignore_errors=True)
-    summary.update(phase_tiered_kernels(mesh["tier"], args.seed, env["mem_rate_Bps"],
-                                        path="mesh_tier"))
-    mesh_grouped = phase_mesh_grouped_kernels(args.seed, corpora, env["mem_rate_Bps"])
-    mesh_hybrid = phase_mesh_hybrid_kernels(args.seed, corpora, env["mem_rate_Bps"])
+    with clocked("mesh_kernels"):
+        summary.update(phase_tiered_kernels(mesh["tier"], args.seed, rate, path="mesh_tier"))
+        mesh_grouped = phase_mesh_grouped_kernels(args.seed, corpora, rate)
+        mesh_hybrid = phase_mesh_hybrid_kernels(args.seed, corpora, rate)
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),
@@ -7621,7 +7841,7 @@ def main() -> int:
                         "replaces": replaces, **probes[name],
                         "dtype": "float32", "path": "sem_probe"})
     emit("kernels", kernels=kernels)
-    emit("total", seconds=time.monotonic() - t_start)
+    emit_total(t_start)
     print(json.dumps({"kernels": kernels}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -79,6 +79,8 @@ def _load():
 
 
 def _bind(lib, c):
+    lib.ssn_murmur64.argtypes = [c.c_void_p, c.c_void_p, c.c_int64]
+    lib.ssn_hash_row.argtypes = [c.c_void_p, c.c_int64, c.c_uint64, c.c_void_p]
     lib.ssn_vocab_build.restype = c.c_void_p
     lib.ssn_vocab_build.argtypes = [c.c_char_p, c.c_int, c.c_int]
     lib.ssn_vocab_size.restype = c.c_int64
@@ -174,6 +176,24 @@ def require():
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def murmur64(x: np.ndarray) -> np.ndarray:
+    """The murmur fmix64 finalizer of each uint64 (``ops.hashing.murmur_fmix64_np``)."""
+    lib = require()
+    x = np.ascontiguousarray(x, dtype=np.uint64)
+    out = np.empty_like(x)
+    lib.ssn_murmur64(_ptr(x), _ptr(out), x.size)
+    return out
+
+
+def hash_row(keys: np.ndarray, capacity: int) -> np.ndarray:
+    """Key -> table row, ``fmix64(key) % capacity`` (``ops.hashing.hash_row_np``)."""
+    lib = require()
+    keys = np.ascontiguousarray(keys, dtype=np.uint32)
+    out = np.empty(keys.size, dtype=np.int64)
+    lib.ssn_hash_row(_ptr(keys), keys.size, capacity, _ptr(out))
+    return out
 
 
 class NativeVocab:

@@ -12,6 +12,9 @@ numpy and inject them into both packages.
 
 from __future__ import annotations
 
+import hashlib
+import threading
+from collections import OrderedDict
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -56,13 +59,33 @@ def build_alias(weights: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return prob, alias
 
 
+# the alias tables of the last few vocabularies, by a digest of their counts:
+# Vose's loop takes ~1.4 s at 2^20 words, and a process often builds several
+# trainers on one vocabulary (a resume, a bench's lanes, a drill's legs)
+_ALIAS_CACHE: "OrderedDict[tuple, Tuple[np.ndarray, np.ndarray]]" = OrderedDict()
+_ALIAS_CACHE_SIZE = 4
+_ALIAS_LOCK = threading.Lock()
+
+
 def build_unigram_alias(counts: np.ndarray, device: torch.device,
                         power: float = 0.75) -> AliasTable:
-    """word2vec negative-sampling distribution freq^0.75, on ``device``."""
-    weights = np.asarray(counts, dtype=np.float64) ** power
-    prob, alias = build_alias(weights)
-    return AliasTable(prob=torch.from_numpy(prob).to(device),
-                      alias=torch.from_numpy(alias).to(device))
+    """word2vec negative-sampling distribution freq^0.75, on ``device``.
+    Built once for a vocabulary's counts and power, then reused."""
+    counts = np.ascontiguousarray(counts)
+    key = (hashlib.blake2b(counts.tobytes(), digest_size=16).digest(), counts.dtype.str,
+           counts.shape, float(power))
+    with _ALIAS_LOCK:
+        tables = _ALIAS_CACHE.get(key)
+        if tables is None:
+            tables = build_alias(np.asarray(counts, dtype=np.float64) ** power)
+            _ALIAS_CACHE[key] = tables
+            while len(_ALIAS_CACHE) > _ALIAS_CACHE_SIZE:
+                _ALIAS_CACHE.popitem(last=False)
+        else:
+            _ALIAS_CACHE.move_to_end(key)
+    prob, alias = tables
+    return AliasTable(prob=torch.tensor(prob, device=device),
+                      alias=torch.tensor(alias, device=device))
 
 
 def alias_sample(table: AliasTable, generator: torch.Generator,

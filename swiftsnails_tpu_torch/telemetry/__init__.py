@@ -51,7 +51,14 @@ from swiftsnails_tpu_torch.telemetry.goodput import (
     step_time_decomposition,
     throughput_attribution,
 )
-from swiftsnails_tpu_torch.telemetry.ledger import Ledger, config_hash, env_fingerprint
+from swiftsnails_tpu_torch.telemetry.ledger import (
+    Ledger,
+    config_hash,
+    derive_last_good,
+    env_fingerprint,
+    load_bench_cache,
+    validate_bench_payload,
+)
 from swiftsnails_tpu_torch.telemetry.registry import (
     Counter,
     Gauge,
@@ -90,9 +97,12 @@ __all__ = [
     "sparkline",
     "throughput_attribution",
     "config_hash",
+    "derive_last_good",
     "env_fingerprint",
     "goodput_report",
+    "load_bench_cache",
     "peaks_for",
     "step_time_decomposition",
     "summarize_file",
+    "validate_bench_payload",
 ]

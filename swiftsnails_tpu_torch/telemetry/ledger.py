@@ -38,12 +38,13 @@ exchange-byte cut), quantized-wire (int4 against f32) and zero (HBM,
 grad-reduce bytes, loss parity, identical checkpoints) checks, which read
 bench records that only the port bench's ``scaling`` and ``zero`` lanes
 will write: without that history they gate nothing, as in the JAX
-package).
+package). ``--baseline-file F`` pins the gate's baseline to the ``value``
+of a bench cache file, as the JAX package's does.
 
-Not ported yet (``ROADMAP.md``): the bench-cache helpers
-(``validate_bench_payload``, ``load_bench_cache``, ``derive_last_good``,
-hence ``--baseline-file``); they come with the port bench that writes
-their records.
+The single-file bench cache (``BENCH_LAST_GOOD.json``) is a **derived
+view** of the ledger: :func:`derive_last_good` regenerates it from the
+newest cacheable ``bench`` record, :func:`load_bench_cache` reads it back
+through :func:`validate_bench_payload`.
 """
 
 from __future__ import annotations
@@ -253,6 +254,73 @@ class Ledger:
         recs = self.records(kind)
         return recs[-1] if recs else None
 
+
+# --------------------------------------------- bench cache (derived view) ---
+
+# minimal self-consistency schema for a bench result payload: what the
+# outage-fallback path needs to emit a trustworthy headline
+_BENCH_REQUIRED = {
+    "metric": str,
+    "value": (int, float),
+    "unit": str,
+    "config": dict,
+}
+
+
+def validate_bench_payload(payload) -> List[str]:
+    """Problems that make a bench payload unusable as a cached headline."""
+    if not isinstance(payload, dict):
+        return [f"payload is {type(payload).__name__}, not an object"]
+    problems = []
+    for key, typ in _BENCH_REQUIRED.items():
+        if key not in payload:
+            problems.append(f"missing required key {key!r}")
+        elif not isinstance(payload[key], typ):
+            problems.append(f"key {key!r} has type {type(payload[key]).__name__}")
+    value = payload.get("value")
+    if isinstance(value, (int, float)) and not value > 0:
+        problems.append(f"non-positive headline value {value!r}")
+    return problems
+
+
+def load_bench_cache(path: str) -> Tuple[Optional[Dict], Optional[str]]:
+    """Read + schema-validate a BENCH_LAST_GOOD-style cache file.
+
+    Returns ``(payload, None)`` on success, ``(None, reason)`` on a missing,
+    partial, or unparseable cache — the caller records the reason as a
+    ledger event instead of crashing (or silently emitting garbage).
+    """
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            payload = json.load(f)
+    except OSError as e:
+        return None, f"cache unreadable: {e}"
+    except ValueError as e:
+        return None, f"cache unparseable (partial write?): {e}"
+    problems = validate_bench_payload(payload)
+    if problems:
+        return None, "cache failed schema validation: " + "; ".join(problems)
+    return payload, None
+
+
+def derive_last_good(ledger: Ledger, out_path: str) -> Tuple[Optional[Dict], Optional[str]]:
+    """Regenerate the BENCH_LAST_GOOD.json **derived view** from the ledger.
+
+    The newest ``bench`` record flagged ``cacheable`` whose payload passes
+    schema validation wins. Returns ``(payload_written, None)`` or
+    ``(None, reason)`` when the ledger holds no cacheable record.
+    """
+    candidates = [r for r in ledger.records("bench")
+                  if r.get("cacheable") and isinstance(r.get("payload"), dict)]
+    for rec in reversed(candidates):
+        payload = rec["payload"]
+        if validate_bench_payload(payload):
+            continue
+        payload = dict(payload)
+        payload.setdefault("measured_at", rec.get("ts"))
+        atomic_write_json(out_path, payload)
+        return payload, None
+    return None, "no cacheable bench record in ledger"
 
 
 def outage_summary(ledger: Ledger) -> Optional[Dict]:
@@ -1897,6 +1965,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
              "(default: best earlier measured record in the ledger)",
     )
     p.add_argument(
+        "--baseline-file", default=None,
+        help="JSON file whose 'value' field is the pinned baseline "
+             "(e.g. a preserved BENCH_LAST_GOOD.json)",
+    )
+    p.add_argument(
         "--failures", action="store_true",
         help="render the failure timeline (outage/chaos/blackbox/"
              "cache_error/retry_exhausted/drift events next to run records) "
@@ -1925,7 +1998,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(render_failures(ledger))
         return 0
     if args.check_regression is not None:
-        rc, msg = check_regression(ledger, args.check_regression, args.baseline)
+        baseline = args.baseline
+        if baseline is None and args.baseline_file:
+            payload, err = load_bench_cache(args.baseline_file)
+            if err:
+                print(f"ledger_report: --baseline-file: {err}")
+                return 2
+            baseline = float(payload["value"])
+        rc, msg = check_regression(ledger, args.check_regression, baseline)
         print(msg)
         return rc
     print(render_report(ledger))

@@ -310,3 +310,144 @@ def test_env_fingerprint_names_the_device():
         assert dev == {"platform": "cpu", "count": 1, "kind": "cpu", "process_count": 1}
     assert "devices" not in ledger.env_fingerprint()
     assert ledger.config_hash({"a": 1, "b": "x"}) == jax_ledger.config_hash({"b": "x", "a": 1})
+
+
+# ------------------------------------------------ the bench cache helpers ---
+
+_GOOD = {"metric": "word2vec_words_per_sec_per_chip", "value": 1234.5,
+         "unit": "words/sec/chip", "config": {"dim": 200}}
+
+PAYLOADS = {
+    "good": _GOOD,
+    "int_value": {**_GOOD, "value": 7},
+    "not_a_dict": [1, 2],
+    "none": None,
+    **{f"missing_{k}": {key: v for key, v in _GOOD.items() if key != k} for k in _GOOD},
+    "metric_int": {**_GOOD, "metric": 3},
+    "value_str": {**_GOOD, "value": "1234.5"},
+    "unit_none": {**_GOOD, "unit": None},
+    "config_list": {**_GOOD, "config": []},
+    "value_bool": {**_GOOD, "value": True},  # isinstance(True, int): passes the type check
+    "value_false": {**_GOOD, "value": False},
+    "value_zero": {**_GOOD, "value": 0},
+    "value_negative": {**_GOOD, "value": -1},
+    "everything_wrong": {"value": -2.0, "unit": 5},
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAYLOADS))
+def test_validate_bench_payload_matches(case):
+    got = ledger.validate_bench_payload(PAYLOADS[case])
+    assert got == jax_ledger.validate_bench_payload(PAYLOADS[case])
+    assert bool(got) == (case not in ("good", "int_value", "value_bool"))
+
+
+def _cache_file(tmp_path, case):
+    path = tmp_path / f"{case}.json"
+    if case == "good":
+        path.write_text(json.dumps(_GOOD))
+    elif case == "truncated":
+        path.write_text(json.dumps(_GOOD)[:25])
+    elif case == "schema":
+        path.write_text(json.dumps({**_GOOD, "value": 0, "unit": 1}))
+    elif case == "not_an_object":
+        path.write_text("[1, 2, 3]")
+    elif case == "directory":
+        path.mkdir()
+    return str(path)
+
+
+@pytest.mark.parametrize("case", ["good", "missing", "truncated", "schema", "not_an_object",
+                                  "directory"])
+def test_load_bench_cache_matches(tmp_path, case):
+    path = _cache_file(tmp_path, case)
+    got = ledger.load_bench_cache(path)
+    want = jax_ledger.load_bench_cache(path)
+    assert got == want
+    payload, reason = got
+    assert (payload == _GOOD) if case == "good" else (payload is None and reason)
+    if case in ("missing", "directory"):
+        assert reason.startswith("cache unreadable: ") and path in reason
+    if case == "truncated":
+        assert reason.startswith("cache unparseable (partial write?): ")
+
+
+def _bench_ledger(mod, path, records):
+    led = mod.Ledger(str(path))
+    for rec in records:
+        led.append("bench", rec)
+    return led
+
+
+LAST_GOOD_CASES = {
+    # cacheable, uncacheable and invalid records: the newest valid cacheable wins
+    "mixed": [{"payload": {**_GOOD, "value": 100.0}, "cacheable": True},
+              {"payload": {**_GOOD, "value": 200.0, "measured_at": "then"},
+               "cacheable": True},
+              {"payload": {**_GOOD, "value": 300.0}, "cacheable": False},
+              {"payload": {**_GOOD, "value": 400.0}},
+              {"payload": {**_GOOD, "value": 0}, "cacheable": True},
+              {"payload": {"metric": "m", "value": 500.0}, "cacheable": True},
+              {"payload": "not a dict", "cacheable": True}],
+    "measured_at_from_ts": [{"payload": dict(_GOOD), "cacheable": True},
+                            {"payload": {**_GOOD, "unit": 3}, "cacheable": True}],
+    "none_cacheable": [{"payload": dict(_GOOD)},
+                       {"payload": {**_GOOD, "value": -1}, "cacheable": True}],
+    "empty": [],
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAST_GOOD_CASES))
+def test_derive_last_good_matches(tmp_path, case):
+    """One ledger, written once, derived by each package into its own file:
+    the same chosen payload and the same file bytes."""
+    path = tmp_path / "bench.jsonl"
+    _bench_ledger(ledger, path, LAST_GOOD_CASES[case])
+    out, jax_out = tmp_path / "port.json", tmp_path / "jax.json"
+    got = ledger.derive_last_good(ledger.Ledger(str(path)), str(out))
+    want = jax_ledger.derive_last_good(jax_ledger.Ledger(str(path)), str(jax_out))
+    assert got == want
+    payload, reason = got
+    if case in ("none_cacheable", "empty"):
+        assert payload is None and reason == "no cacheable bench record in ledger"
+        assert not out.exists() and not jax_out.exists()
+        return
+    assert reason is None and out.read_bytes() == jax_out.read_bytes()
+    assert json.loads(out.read_text()) == payload
+    assert ledger.load_bench_cache(str(out)) == (payload, None)
+    if case == "mixed":
+        assert payload["value"] == 200.0 and payload["measured_at"] == "then"
+    else:
+        ts = ledger.Ledger(str(path)).records("bench")[0]["ts"]
+        assert payload["measured_at"] == ts
+
+
+@pytest.mark.parametrize("cache", ["good", "missing", "truncated", "schema", "low"])
+@pytest.mark.parametrize("explicit", [False, True])
+def test_main_baseline_file_matches(tmp_path, capsys, cache, explicit):
+    """``ledger-report --check-regression 5 --baseline-file F``: the pinned
+    baseline read from a good file gates the newest measured value (a low
+    pin passes it, the good one fails it), a bad file returns 2 with the
+    reason, and ``--baseline`` wins over the file; the JAX ``main``'s code
+    and output on each."""
+    path = tmp_path / "gate.jsonl"
+    _bench_ledger(ledger, path, [_bench(1000.0)[1], _bench(1100.0)[1]])
+    if cache == "low":
+        f = tmp_path / "low.json"
+        f.write_text(json.dumps({**_GOOD, "value": 1000}))
+        f = str(f)
+    else:
+        f = _cache_file(tmp_path, cache)
+    argv = [str(path), "--check-regression", "5", "--baseline-file", f]
+    if explicit:
+        argv += ["--baseline", "1050"]
+    rc = ledger.main(argv)
+    out = capsys.readouterr().out
+    want_rc = jax_ledger.main(argv)
+    assert (rc, out) == (want_rc, capsys.readouterr().out)
+    if explicit:
+        assert rc == 0
+    elif cache in ("missing", "truncated", "schema"):
+        assert rc == 2 and out.startswith("ledger_report: --baseline-file: cache ")
+    else:
+        assert rc == (1 if cache == "good" else 0)

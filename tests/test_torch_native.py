@@ -116,6 +116,26 @@ def test_failed_build_raises_naming_gxx_and_the_escape(monkeypatch):
 # ----------------------------------------- the JAX tests/test_native.py cases
 
 
+def test_murmur_matches_python_and_jax():
+    from swiftsnails_tpu_torch.ops.hashing import murmur_fmix64_np
+
+    xs = np.random.default_rng(0).integers(0, 1 << 64, size=4096, dtype=np.uint64)
+    got = native.murmur64(xs)
+    np.testing.assert_array_equal(got, murmur_fmix64_np(xs))
+    np.testing.assert_array_equal(got, jax_native.murmur64(xs))
+
+
+@pytest.mark.parametrize("capacity", [1 << 20, 1000])
+def test_hash_row_matches_python_and_jax(capacity):
+    from swiftsnails_tpu_torch.ops.hashing import hash_row_np
+
+    keys = np.random.default_rng(1).integers(0, 1 << 32, size=4096, dtype=np.uint32)
+    got = native.hash_row(keys, capacity)
+    assert got.dtype == np.int64 and int(got.min()) >= 0 and int(got.max()) < capacity
+    np.testing.assert_array_equal(got, jax_native.hash_row(keys, capacity))
+    np.testing.assert_array_equal(got, hash_row_np(keys, capacity))
+
+
 def test_vocab_matches_python(tmp_path):
     text = "the cat sat on the mat the cat ran\n" * 7
     p = tmp_path / "c.txt"

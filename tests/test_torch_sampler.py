@@ -32,6 +32,32 @@ def test_alias_tables_equal_numpy(v):
     assert got.prob.dtype == torch.float32 and got.alias.dtype == torch.int32
 
 
+def test_alias_tables_are_built_once_a_vocabulary(monkeypatch):
+    """A second trainer on one vocabulary reuses its alias tables: equal
+    tensors, not Vose's loop again, and not the cached arrays themselves;
+    another vocabulary or power builds anew."""
+    counts = _counts(300, 3)
+    first = sampler.build_unigram_alias(counts, torch.device("cpu"))
+    first.prob.fill_(0.0)  # a caller's tensor: the cache keeps its own copy
+
+    def refuse(weights):
+        raise AssertionError("rebuilt")
+
+    build = sampler.build_alias
+    monkeypatch.setattr(sampler, "build_alias", refuse)
+    again = sampler.build_unigram_alias(counts.copy(), torch.device("cpu"))
+    want = jax_sampler.build_unigram_alias(counts)
+    np.testing.assert_array_equal(again.prob.numpy(), np.asarray(want.prob))
+    np.testing.assert_array_equal(again.alias.numpy(), np.asarray(want.alias))
+    for other in ((_counts(300, 4), 0.75), (counts, 0.5)):
+        with pytest.raises(AssertionError, match="rebuilt"):
+            sampler.build_unigram_alias(other[0], torch.device("cpu"), power=other[1])
+    monkeypatch.setattr(sampler, "build_alias", build)
+    for v in range(sampler._ALIAS_CACHE_SIZE + 1):  # the oldest goes
+        sampler.build_unigram_alias(_counts(10 + v, 5), torch.device("cpu"))
+    assert len(sampler._ALIAS_CACHE) == sampler._ALIAS_CACHE_SIZE
+
+
 def test_alias_sample_matches_unigram_075():
     """Chi-square goodness of fit over 200,000 draws, 63 degrees of freedom.
     The bound 140 is far in the tail (p < 1e-6) for a right sampler."""
