@@ -36,9 +36,10 @@ NCCL mesh at full width against the unmeshed run, the grouped collective
 plane with its dedup and bucketed collectives and ``overlap`` there, and a
 ``(2, 2)`` gloo mesh of four processes against one device and against
 the one-rank mesh), and the loop's guards there (the guardrail, the tier's
-sweep, freshness publishing and cluster leases).
+sweep, freshness publishing and cluster leases); last the multi-host
+launcher, starting two ranks on this host.
 
-    python3 chip_smoke.py [--seed N] [--only tiered|freshness|cluster|seqlm|mesh]
+    python3 chip_smoke.py [--seed N] [--only tiered|freshness|cluster|seqlm|mesh|launch]
 
 Run from the root of the repository on a machine with a CUDA card, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. The
@@ -395,7 +396,9 @@ Phases:
     bench runs with the objects of the earlier phases frozen out of the
     cyclic collector's reach (``_HostPauses``: a full collection over them
     stalls the process past the SLO's slack); ``bench_host`` gives the
-    collector's pauses during it and the threads alive at its start. (f)
+    collector's pauses during it and the threads alive at its start, with
+    the tier flush workers and servant micro-batchers among them counted:
+    the earlier phases close what they open, so both counts must be 0. (f)
     ``cluster_ledger``: the blocks in one bench record of the phase's
     ledger; ``supervisor-status`` over it names the lost worker, and
     ``ledger-report --check-regression`` reports the chaos-cluster,
@@ -554,7 +557,13 @@ Phases:
     200]`` serving plane). ``--only mesh`` runs this phase
     alone (with the build, the kernels' phase 3 and a serve checkpoint of
     its own) and prints no result line.
-22. ``kernels``: one line for every ported kernel, with its launches in the
+22. ``launch``: ``python -m swiftsnails_tpu_torch.tools.launch_pod`` on a
+    hosts file of two ``localhost`` lines starts two ``train`` ranks of leg
+    2's config on gloo at ``-device cpu`` (one card holds no two NCCL
+    ranks; see ``phase_launch``): exit 0, both ranks' ``joined cluster``
+    lines, the same finite loss from both at each step, rank 0's
+    ``-output``. ``--only launch`` runs this phase alone.
+23. ``kernels``: one line for every ported kernel, with its launches in the
     run of its path (``path``) and its f32 numbers from phases 3, 7, 10, 16,
     17 and 18 (``gather_rows`` and ``scatter_add_rows`` also at
     ``train_perpair``'s shape and launches, with the ``cluster`` and
@@ -4218,6 +4227,7 @@ def phase_freshness(seed: int, corpora, env: dict, serve: dict, device: str = "c
         emit("freshness_gap_drill", fallbacks=gst["fallbacks"], applied_seq=gst["applied_seq"],
              skipped_batches=gst["skipped_batches"], bit_parity=gparity,
              reload_and_reapply_s=gap_s, pruned=gpub.pruned, **card)
+        ref.close()  # the reference servants' micro-batchers end with their use
         del ref
         gc.collect()
         # back to step 20's watermark (the drill's batches carried later
@@ -4257,6 +4267,7 @@ def phase_freshness(seed: int, corpora, env: dict, serve: dict, device: str = "c
              quantizer_round_trip_exact=True, exact_elsewhere=exact_elsewhere,
              bytes_per_batch=pub8["published_bytes"] / pub8["published_batches"],
              f32_bytes_per_batch=pub["published_bytes"] / pub["published_batches"], **card)
+        ref8.close()
         del ref8, got8
         in_process = {name: f.launches for name, f in counters.items()}
         fleet.close()
@@ -4368,6 +4379,7 @@ def phase_freshness(seed: int, corpora, env: dict, serve: dict, device: str = "c
              respawn_s=respawn_s, respawns=manager.respawns, incarnations=incs,
              bit_parity=kparity, lease_ms=FRESH_LEASE_MS,
              supervisor_lost=manager.supervisor.status()["workers_lost"], **card)
+        ref4.close()
         del ref4
         in_total = {name: f.launches for name, f in counters.items()}
         replica_sum = {}
@@ -4574,12 +4586,17 @@ class _HostPauses:
     ~90 ms on a slow host, past the 54 ms the SLO leaves over the 6 ms
     service floor, and one stall in a probe of the 2-replica leg fails its
     rung. Records the collector's pauses by generation (``gc.callbacks``)
-    and the threads alive at the start (ROADMAP.md, Queue 3 item 16)."""
+    and the threads alive at the start (ROADMAP.md, Queue 3 item 16), the
+    tier's flush workers and the servants' micro-batchers counted."""
+
+    BATCHERS = ("ssn-serve-pull", "ssn-serve-topk", "ssn-serve-score")
 
     def __init__(self):
         import gc
 
         self.threads = sorted(t.name for t in threading.enumerate())
+        self.flush_workers = self.threads.count("tier-flush-worker")
+        self.batchers = sum(self.threads.count(n) for n in self.BATCHERS)
         gc.collect()
         self.frozen = len(gc.get_objects())
         gc.freeze()
@@ -4600,7 +4617,8 @@ class _HostPauses:
         gc.callbacks.remove(self._on_gc)
         gc.unfreeze()
         gens = sorted({g for g, _ in self.pauses})
-        return {"threads": self.threads, "gc_frozen_objects": self.frozen,
+        return {"threads": self.threads, "tier_flush_workers": self.flush_workers,
+                "servant_batchers": self.batchers, "gc_frozen_objects": self.frozen,
                 "gc_collections": {g: sum(1 for x, _ in self.pauses if x == g) for g in gens},
                 "gc_max_ms": {g: max(ms for x, ms in self.pauses if x == g) for g in gens},
                 "gc_total_ms": sum(ms for _, ms in self.pauses)}
@@ -4687,6 +4705,10 @@ def phase_cluster(seed: int, corpora, env: dict) -> dict:
         bad = [k for k, ok in fleet_checks.items() if not ok]
         if bad:
             raise AssertionError(f"cluster_fleet: failed {bad}")
+        if host["tier_flush_workers"] or host["servant_batchers"]:
+            raise AssertionError(
+                f"cluster_fleet: earlier phases left {host['tier_flush_workers']} tier flush "
+                f"workers and {host['servant_batchers']} servant micro-batchers alive")
 
         ledger.append("bench", {"payload": {
             "metric": "chip_smoke_cluster", "platform": "gpu", "device": env["device"],
@@ -5020,6 +5042,87 @@ def phase_seqlm(seed: int, env: dict) -> dict:
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------------------------------------- launch ---
+
+LAUNCH_HOSTS = ("localhost", "localhost")  # two ranks on this host
+LAUNCH_TOKENS = 1_800  # about MESH_GLOO_STEPS batches of MESH_GLOO_BATCH pairs
+LAUNCH_TIMEOUT_S = 300
+
+
+def phase_launch(seed: int, env: dict) -> dict:
+    """Phase 22: the port's multi-host launcher (``python -m
+    swiftsnails_tpu_torch.tools.launch_pod``) on a hosts file of two
+    ``localhost`` lines, both ranks on gloo at ``-device cpu``. One card
+    cannot hold two NCCL ranks (NCCL refuses two ranks on one device), so
+    this phase checks the launch, not the card: ``RANK`` and ``LOCAL_RANK``
+    a line, the rendezvous at ``-master_addr localhost:PORT``, the exit
+    codes. The config is leg 2's (``_mesh_gloo_trainer``'s keys: dim 200,
+    window 5, negatives 5, pool 64 a 512, lr ``LR``, batch 2,048, numpy
+    batches) over a text corpus of ``LAUNCH_TOKENS`` zipf words
+    (``MESH_GLOO_VOCAB`` ids), about ``MESH_GLOO_STEPS`` steps. Gates: the
+    launcher exits 0; each rank prints its ``joined cluster`` line; both log
+    the same finite loss at each step; rank 0 alone writes ``-output``."""
+    import socket
+
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="ssn-launch-")
+    proc = None
+    try:
+        corpus = os.path.join(tmp, "corpus.txt")
+        _write_text_corpus(corpus, LAUNCH_TOKENS, MESH_GLOO_VOCAB, False, seed)
+        conf = os.path.join(tmp, "launch.conf")
+        with open(conf, "w") as f:
+            f.write("".join(f"{k}: {v}\n" for k, v in {
+                "model": "word2vec", "data": corpus, "dim": DIM, "window": WINDOW,
+                "negatives": NEGATIVES, "subsample": 0, "num_iters": 1, "min_count": 1,
+                "pool_size": POOL_SIZE, "pool_block": POOL_BLOCK, "learning_rate": LR,
+                "batch_size": MESH_GLOO_BATCH, "seed": seed, "use_native": 0,
+                "log_every": 1}.items()))
+        hosts = os.path.join(tmp, "hosts")
+        with open(hosts, "w") as f:
+            f.write("# the launch phase: two ranks on this host\n" + "\n".join(LAUNCH_HOSTS))
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        out = os.path.join(tmp, "vectors.txt")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "swiftsnails_tpu_torch.tools.launch_pod", hosts, conf,
+             "-device", "cpu", "-init_timeout", "120", "-output", out],
+            env={**os.environ, "SNAILS_COORD_PORT": str(port), "OMP_NUM_THREADS": "1"},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+        # the ranks share the launcher's stderr: find each line's text whole
+        joined = re.findall(r"joined cluster: process \d+/\d+ via \S+?:\d+", stderr)
+        by_step: dict = {}
+        for rec in _metric_records(stdout):
+            by_step.setdefault(rec["step"], []).append(rec["loss"])
+        seconds = time.monotonic() - t0
+        header = open(out).readline().split() if os.path.exists(out) else None
+        emit("launch", ranks=len(LAUNCH_HOSTS), exit_code=proc.returncode, joined=joined,
+             steps=len(by_step), losses={s: v[0] for s, v in sorted(by_step.items())},
+             output_header=header, backend="gloo", device="cpu", seconds=seconds)
+        if proc.returncode != 0:
+            raise AssertionError(f"launch: the launcher exited {proc.returncode}: "
+                                 f"{stderr[-2000:]}")
+        if sorted(ln.split("joined cluster: ")[1].split(" via")[0] for ln in joined) \
+                != [f"process {r}/{len(LAUNCH_HOSTS)}" for r in range(len(LAUNCH_HOSTS))] \
+                or any(f"via localhost:{port}" not in ln for ln in joined):
+            raise AssertionError(f"launch: joined lines {joined}")
+        if not by_step or any(len(v) != len(LAUNCH_HOSTS) or len(set(v)) != 1
+                              or not math.isfinite(v[0]) for v in by_step.values()):
+            raise AssertionError(f"launch: the ranks' losses {by_step}")
+        if stderr.count(f"exported parameters to {out}") != 1 or header is None \
+                or header[1] != str(DIM):
+            raise AssertionError(f"launch: the output {header}: {stderr[-2000:]}")
+    finally:
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)  # the launcher and its ranks
+            proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"seconds": seconds}
 
 
 # ------------------------------------------------------------------- mesh ---
@@ -7601,8 +7704,16 @@ def _only_tiered(seed: int, env: dict, corpora: dict, t_start: float) -> int:
     return 0
 
 
+def _only_launch(seed: int, env: dict, corpora: dict, t_start: float) -> int:
+    """``--only launch``: the launcher's phase."""
+    with clocked("launch"):
+        phase_launch(seed, env)
+    emit_total(t_start)
+    return 0
+
+
 ONLY = {"tiered": _only_tiered, "freshness": _only_freshness, "cluster": _only_cluster,
-        "seqlm": _only_seqlm, "mesh": _only_mesh}
+        "seqlm": _only_seqlm, "mesh": _only_mesh, "launch": _only_launch}
 
 
 def main() -> int:
@@ -7744,6 +7855,8 @@ def main() -> int:
         summary.update(phase_tiered_kernels(mesh["tier"], args.seed, rate, path="mesh_tier"))
         mesh_grouped = phase_mesh_grouped_kernels(args.seed, corpora, rate)
         mesh_hybrid = phase_mesh_hybrid_kernels(args.seed, corpora, rate)
+    with clocked("launch"):
+        phase_launch(args.seed, env)
     kernels = []
     for key, name, replaces in (
             ("gather_rows", "gather_rows", "swiftsnails_tpu/ops/rowdma.py:114"),

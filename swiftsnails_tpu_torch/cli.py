@@ -126,6 +126,12 @@ def cmd_train(argv: List[str]) -> int:
 
     cfg = parse_role_argv(argv)
     joined = initialize_cluster(cfg)
+    if joined:
+        rank, world = process_info()
+        # one write: the ranks of one host often share the launcher's stderr
+        sys.stderr.write(f"joined cluster: process {rank}/{world} via "
+                         f"{cfg.get_str('master_addr')}\n")
+        sys.stderr.flush()
     trainer = _build_trainer(cfg)
     metrics = MetricsLogger(path=cfg.get_str("metrics_path", "") or None, echo=True)
     loop = TrainLoop(trainer, metrics=metrics, log_every=cfg.get_int("log_every", 100))

@@ -7,6 +7,12 @@ first use into ``swiftsnails_tpu_torch/build/``, under a name that carries a
 hash of the source and the flags (as :mod:`swiftsnails_tpu_torch.ops._build`
 names the kernels' libraries), and loaded with ``ctypes``: a plain C ABI.
 
+``SSN_NATIVE_SO``, as in the JAX package, names another build to load in
+its place (the sanitized builds of ``tools/native_sanitize.sh``): then
+nothing is built or hashed, and a missing file is the build's error, naming
+the path. The variable is read at each load, so unsetting it gives back the
+default build.
+
 There is no quiet fallback. A trainer with ``use_native: 1`` (the default)
 calls :func:`require`, which raises with ``g++``'s error when the build
 fails; ``use_native: 0`` asks for the numpy producer instead, which yields
@@ -31,9 +37,13 @@ _SRC = Path(__file__).resolve().parent / "libsnails.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
+ENV_SO = "SSN_NATIVE_SO"
+
 _lib = None
 _lib_lock = threading.Lock()
 _build_error: Optional[str] = None
+_UNSET = object()
+_loaded_for = _UNSET  # the SSN_NATIVE_SO value (None: unset) _lib or _build_error is for
 
 
 def library_path() -> Path:
@@ -61,17 +71,25 @@ def _build(lib: Path) -> Optional[str]:
 
 
 def _load():
-    global _lib, _build_error
-    if _lib is not None or _build_error is not None:
+    global _lib, _build_error, _loaded_for
+    want = os.environ.get(ENV_SO) or None
+    if _loaded_for == want and (_lib is not None or _build_error is not None):
         return _lib
     with _lib_lock:
-        if _lib is not None or _build_error is not None:
+        if _loaded_for == want and (_lib is not None or _build_error is not None):
             return _lib
-        path = library_path()
-        err = _build(path)
-        if err is not None:
-            _build_error = err
-            return None
+        _lib, _build_error, _loaded_for = None, None, want
+        if want is not None:
+            path = Path(want)
+            if not path.is_file():
+                _build_error = f"{ENV_SO} not found: {want}"
+                return None
+        else:
+            path = library_path()
+            err = _build(path)
+            if err is not None:
+                _build_error = err
+                return None
         lib = ctypes.CDLL(str(path))
         _bind(lib, ctypes)
         _lib = lib

@@ -657,7 +657,16 @@ class TrainLoop:
     def run(self, seed: int = 0, max_steps: Optional[int] = None) -> Any:
         """Train until the data ends, ``max_steps`` (counted from step 0,
         so a resumed run stops where the uninterrupted one would) or a
-        preemption; returns the state."""
+        preemption; returns the state. On every way out, a normal end, a
+        preemption or an exception, the tier's flush worker is stopped
+        (``TierManager.stop``); the JAX loop leaves it running."""
+        try:
+            return self._run(seed, max_steps)
+        finally:
+            if self.tier is not None:
+                self.tier.stop()
+
+    def _run(self, seed: int, max_steps: Optional[int]) -> Any:
         trainer = self.trainer
         mesh = trainer.mesh
         clustered = self.cluster is not None

@@ -47,6 +47,10 @@ DRILL_STEPS = 48
 INJECT_FIRST = 11
 INJECT_LAST = 43
 SLOW_STEP_MS = 80.0
+# a train step on an injected clock (``drift_drill(clock=)``): 4 ms, 40 us
+# longer and shorter in turn, so the sentinel's warmup sees a spread
+CLOCK_STEP_MS = 4.0
+CLOCK_JITTER_MS = 0.04
 PROFILE_CADENCE = 4        # the overhead legs' realistic sampling cadence
 OVERHEAD_CEIL_PCT = 3.0    # the acceptance bar the gate enforces
 
@@ -58,12 +62,35 @@ def _workdir(workdir: Optional[str]) -> str:
     return tempfile.mkdtemp(prefix="ssn-drift-")
 
 
+def _on_clock(trainer, clock):
+    """``trainer`` whose every step advances ``clock`` by
+    ``CLOCK_STEP_MS`` +- ``CLOCK_JITTER_MS``, in turn."""
+    step = trainer.train_step
+    n = [0]
+
+    def timed(*args, **kwargs):
+        out = step(*args, **kwargs)
+        n[0] += 1
+        clock.sleep((CLOCK_STEP_MS + CLOCK_JITTER_MS * (-1) ** n[0]) / 1e3)
+        return out
+
+    trainer.train_step = timed
+    return trainer
+
+
 def drift_drill(workdir: Optional[str] = None,
                 small: bool = True, device: DeviceLike = None,
-                inject_first: int = INJECT_FIRST) -> Dict:
+                inject_first: int = INJECT_FIRST, clock=None) -> Dict:
     """Run the before/after drift drill on ``device``, the slow_step band
     opening at step ``inject_first``; returns the gateable ``drift`` block
-    (detection, event count, bundle, attribution)."""
+    (detection, event count, bundle, attribution).
+
+    ``clock`` (a test hook): the loop's clock, which the caller has
+    installed as the ``time`` of the trainer, chaos and tracer modules; its
+    ``sleep(s)`` advances it. Each step then takes ``CLOCK_STEP_MS`` on it,
+    and an injected slow step ``SLOW_STEP_MS`` more (the chaos plan sleeps on
+    it), so the step times are the drill's own, not the host's. ``None``:
+    the host's clock, as on the card."""
     from swiftsnails_tpu_torch.resilience.drill import make_trainer, run_loop
     from swiftsnails_tpu_torch.telemetry.drift import bundle_complete
     from swiftsnails_tpu_torch.telemetry.goodput import throughput_attribution
@@ -88,6 +115,8 @@ def drift_drill(workdir: Optional[str] = None,
     os.makedirs(ctrl_dir, exist_ok=True)
     tr = make_trainer(ctrl_dir, device=device, **dict(
         common, blackbox_dir=os.path.join(ctrl_dir, "blackbox")))
+    if clock is not None:
+        tr = _on_clock(tr, clock)
     run_loop(tr, max_steps=DRILL_STEPS)
 
     # after: same work + slow_step@A-B chaos, sentinel armed
@@ -100,6 +129,8 @@ def drift_drill(workdir: Optional[str] = None,
         chaos_spec=f"slow_step@{inject_first}-{INJECT_LAST}",
         chaos_slow_step_ms=SLOW_STEP_MS,
     ))
+    if clock is not None:
+        tr2 = _on_clock(tr2, clock)
     loop, _state, _steps = run_loop(tr2, max_steps=DRILL_STEPS)
 
     ledger = Ledger(ledger_path)

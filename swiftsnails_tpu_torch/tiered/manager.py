@@ -324,6 +324,13 @@ class TierManager:
         else:
             self.flusher.drain()
 
+    def stop(self) -> None:
+        """End of a run: land every queued async flush and stop the flush
+        worker (``TrainLoop.run`` calls it on every way out). A later flush
+        starts a new worker."""
+        if self.flusher is not None:
+            self.flusher.stop()
+
     def flush_dirty(self, state) -> None:
         """Freshness-publish barrier: land every queued async flush and
         write every dirty slot back, leaving the caches mapped. The cheap

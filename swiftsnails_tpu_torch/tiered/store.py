@@ -634,7 +634,7 @@ class _FlushQueue:
     entry has landed. Worker errors re-raise at the next ``drain()`` or
     ``put()``. The worker thread starts lazily on the first ``put`` — a run
     that never evicts (or a serving tier, which is read-only) never spawns
-    it.
+    it — and ``stop()`` ends it; a ``put`` after that starts a new one.
     """
 
     def __init__(self, depth: int = 8, batch: int = 8, registry=None):
@@ -688,6 +688,19 @@ class _FlushQueue:
     def close(self) -> None:
         self._stop.set()
         self._gate.set()
+
+    def stop(self) -> None:
+        """Land every queued entry, then end the worker and join it. A
+        worker error stays pending for the next ``drain()`` or ``put()``."""
+        with self._lock:
+            thread, self._thread = self._thread, None
+            if thread is None:
+                return
+            self._gate.set()
+            self._q.join()
+            self.close()
+            thread.join()
+            self._stop.clear()
 
     def _work(self) -> None:
         while not self._stop.is_set():

@@ -28,7 +28,8 @@ import sys
 import tempfile
 
 
-def main(argv=None) -> int:
+def main(argv=None, clock=None) -> int:
+    """``clock``: passed to each drill (a test hook; see ``drift_drill``)."""
     import torch
 
     from swiftsnails_tpu_torch.telemetry.drift_lane import (
@@ -59,7 +60,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="ssn-drift-rate-") as tmp:
             for i in range(args.runs):
                 out = drift_drill(os.path.join(tmp, str(i)), device=device,
-                                  inject_first=args.inject_first)
+                                  inject_first=args.inject_first, clock=clock)
                 ok = bool(out["detected"] and out["drift_events"] == 1
                           and out["bundle_complete"]
                           and out["attribution"].get("dominant") == "host_blocked")

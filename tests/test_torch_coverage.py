@@ -16,12 +16,23 @@ JAX runtime. Four checks:
   read by the port;
 * **CLI**: every ``cmd == "..."`` command of the JAX ``cli.py`` and every
   ``--flag`` the JAX package declares with ``add_argument`` exists in the
-  port.
+  port;
+* **environment**: every variable the JAX package reads (``os.environ``,
+  ``getenv``) is read by the port, or is in :data:`ENV_NOT_PORTED` with its
+  reason;
+* **the repo's tools**: every file under ``tools/`` has a twin of the same
+  stem under ``swiftsnails_tpu_torch/tools/``, a port CLI command
+  (:data:`TOOLS_AS_COMMANDS`), or a reason (:data:`TOOLS_NOT_PORTED`);
+* **packaging** (``pyproject.toml``, read with ``tomllib``): every source
+  the port builds at run time matches a ``package-data`` glob of the port,
+  and the ``snails-torch`` script names a function the port defines.
 """
 
 from __future__ import annotations
 
 import ast
+import fnmatch
+import tomllib
 from pathlib import Path
 
 import pytest
@@ -29,6 +40,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 JAX = ROOT / "swiftsnails_tpu"
 PORT = ROOT / "swiftsnails_tpu_torch"
+TOOLS = ROOT / "tools"
 
 # JAX modules with no file in the port (ROADMAP.md, Queue 1: "Not to port")
 MODULES_NOT_PORTED = {
@@ -100,6 +112,41 @@ COUNTERPARTS = {
         "compiles a function to sum its HLO collectives' bytes; the port's audit_step "
         "runs the step and reads the counters"),
 }
+
+# environment variables the JAX package reads and the port does not -> why
+ENV_NOT_PORTED = {
+    "JAX_PLATFORMS": "JAX's runtime: picks JAX's backend (utils/platform_pin.py); the port "
+                     "picks its device by argument",
+    "XLA_FLAGS": "JAX's runtime: the XLA compiler's flags (utils/platform_pin.py); the port "
+                 "compiles no XLA",
+    "JAX_THREEFRY_PARTITIONABLE": "JAX's runtime: a user's override of the PRNG lowering "
+                                  "the JAX package sets; torch has no such lowering",
+    "SSN_PREP_IMPL": "the TPU prep's scatter-versus-sort A/B switch, read by get_prep_impl "
+                     "(in COUNTERPARTS); the port has one prep, merged_prep, and no switch",
+}
+
+# files of the repo's tools/ that a port CLI command replaces -> the command
+TOOLS_AS_COMMANDS = {
+    "ledger_report.py": "ledger-report",
+    "trace_summary.py": "trace-summary",
+    "ops_report.py": "ops",
+}
+
+# files of the repo's tools/ with no port twin -> why (ROADMAP.md, Queue 1:
+# "Not to port")
+TOOLS_NOT_PORTED = {
+    "kernel_lab.py": "times Pallas kernel variants on the TPU; chip_smoke.py's kernel, "
+                     "kernels and profile lines take the port's measures on the card",
+    "compile_probe.py": "probes Mosaic's compile of the TPU kernels; the port builds with nvcc",
+    "dedup_profile.py": "profiles the TPU dedup prep; chip_smoke.py's profile lines cover "
+                        "the port's merged paths",
+    "calibrate_baseline.py": "calibrates the TPU bench's baseline; the port has no bench yet",
+    "r5_measure.sh": "drives TPU measurements through this image's TPU plugin",
+    "gen_data.py": "imports only numpy and writes corpora both packages read",
+}
+
+# the sources the port compiles at run time (nvcc, g++), by suffix
+BUILT_SUFFIXES = (".cu", ".cuh", ".cpp", ".c", ".h")
 
 CONFIG_GETTERS = ("get_int", "get_float", "get_str", "get_bool")
 
@@ -178,6 +225,61 @@ def _commands(cli: Path) -> set:
     return out
 
 
+def _str_consts(tree: ast.Module) -> dict:
+    """Module-level ``NAME = "text"`` bindings."""
+    return {t.id: n.value.value for n in tree.body if isinstance(n, ast.Assign)
+            and isinstance(n.value, ast.Constant) and isinstance(n.value.value, str)
+            for t in n.targets if isinstance(t, ast.Name)}
+
+
+def _is_environ(node) -> bool:
+    return isinstance(node, ast.Attribute) and node.attr == "environ"
+
+
+def _env_keys(modules: dict) -> set:
+    """Variables read through ``os.environ.get(K)``, ``os.environ[K]``,
+    ``K in os.environ`` and ``os.getenv(K)``, whatever ``os`` is bound to;
+    ``K`` a string or a module-level string constant."""
+    out = set()
+    for path in modules.values():
+        tree = _tree(path)
+        consts = _str_consts(tree)
+
+        def text(node):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                return node.value
+            if isinstance(node, ast.Name):
+                return consts.get(node.id)
+            return None
+
+        for n in ast.walk(tree):
+            key = None
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute) and n.args:
+                if (n.func.attr == "get" and _is_environ(n.func.value)) or \
+                        n.func.attr == "getenv":
+                    key = text(n.args[0])
+            elif isinstance(n, ast.Subscript) and isinstance(n.ctx, ast.Load) \
+                    and _is_environ(n.value):
+                key = text(n.slice)
+            elif isinstance(n, ast.Compare) and len(n.ops) == 1 \
+                    and isinstance(n.ops[0], (ast.In, ast.NotIn)) \
+                    and _is_environ(n.comparators[0]):
+                key = text(n.left)
+            if key:
+                out.add(key)
+    return out
+
+
+def _tool_files() -> dict:
+    return {p.name: p for p in sorted(TOOLS.iterdir())
+            if p.is_file() and p.suffix in (".py", ".sh")}
+
+
+def _pyproject() -> dict:
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        return tomllib.load(f)
+
+
 def test_the_readers_see_both_packages():
     """The extractors are not vacuous: they find what is known to be there."""
     assert len(JAX_MODULES) >= 100 and len(PORT_MODULES) >= len(JAX_MODULES) - 2
@@ -188,6 +290,11 @@ def test_the_readers_see_both_packages():
     assert len(keys) >= 100 and {"learning_rate", "comm_dtype", "table_tier"} <= keys
     assert {"--baseline-file", "--check-regression"} <= _flags(JAX_MODULES)
     assert {"train", "serve", "ledger-report", "net-serve"} <= _commands(JAX / "cli.py")
+    env = _env_keys(JAX_MODULES)
+    assert {"SSN_NATIVE_SO", "SSN_LEDGER_PATH", "JAX_PLATFORMS",
+            "JAX_THREEFRY_PARTITIONABLE"} <= env  # .get, [..], `not in`, `import os as _os`
+    assert {"RANK", "LOCAL_RANK", "SSN_NATIVE_SO"} <= _env_keys(PORT_MODULES)
+    assert {"launch_pod.sh", "native_sanitize.sh", "gen_data.py"} <= set(_tool_files())
 
 
 @pytest.mark.parametrize("module", sorted(JAX_MODULES))
@@ -235,3 +342,62 @@ def test_every_cli_command_exists_in_the_port():
 def test_every_cli_flag_exists_in_the_port():
     missing = sorted(_flags(JAX_MODULES) - _flags(PORT_MODULES))
     assert not missing, f"flags the port lacks: {missing}"
+
+
+def test_every_environment_variable_is_read_by_the_port():
+    missing = sorted(_env_keys(JAX_MODULES) - _env_keys(PORT_MODULES) - set(ENV_NOT_PORTED))
+    assert not missing, f"environment variables the port never reads: {missing}"
+
+
+@pytest.mark.parametrize("key", sorted(ENV_NOT_PORTED))
+def test_env_table_entry_holds(key):
+    assert key in _env_keys(JAX_MODULES), f"the JAX package reads no {key}"
+    assert key not in _env_keys(PORT_MODULES), f"the port reads {key}: take it out"
+    assert ENV_NOT_PORTED[key].strip()
+    if key == "SSN_PREP_IMPL":
+        assert "ops/fused_sgns.py:get_prep_impl" in COUNTERPARTS
+
+
+@pytest.mark.parametrize("name", sorted(_tool_files()))
+def test_every_repo_tool_has_a_port_counterpart(name):
+    twins = sorted(p.name for p in (PORT / "tools").iterdir()
+                   if p.is_file() and p.stem == Path(name).stem)
+    tabled = [t for t in (TOOLS_AS_COMMANDS, TOOLS_NOT_PORTED) if name in t]
+    if twins:
+        assert not tabled, f"tools/{name} has a port twin {twins}: take it out of the table"
+    elif name in TOOLS_AS_COMMANDS:
+        assert TOOLS_AS_COMMANDS[name] in _commands(PORT / "cli.py"), (
+            f"tools/{name}: the port's CLI has no {TOOLS_AS_COMMANDS[name]!r}")
+    else:
+        assert name in TOOLS_NOT_PORTED, (
+            f"tools/{name} has no twin under swiftsnails_tpu_torch/tools/, no port "
+            "command and no reason")
+        assert TOOLS_NOT_PORTED[name].strip()
+
+
+def test_tool_tables_name_repo_tools():
+    assert set(TOOLS_AS_COMMANDS) | set(TOOLS_NOT_PORTED) <= set(_tool_files())
+    # gen_data.py serves both packages: it imports neither
+    imported = {a.name.split(".")[0] for n in ast.walk(_tree(TOOLS / "gen_data.py"))
+                if isinstance(n, ast.Import) for a in n.names}
+    imported |= {n.module.split(".")[0] for n in ast.walk(_tree(TOOLS / "gen_data.py"))
+                 if isinstance(n, ast.ImportFrom) and n.module}
+    assert not imported & {"jax", "swiftsnails_tpu", "torch", "swiftsnails_tpu_torch"}
+
+
+def test_every_built_source_is_package_data():
+    globs = _pyproject()["tool"]["setuptools"]["package-data"]["swiftsnails_tpu_torch"]
+    sources = sorted(p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
+                     if p.suffix in BUILT_SUFFIXES and "build" not in p.relative_to(PORT).parts)
+    assert {"csrc/rowdma.cu", "csrc/sgns_device.cuh", "data/native/libsnails.cpp"} <= set(sources)
+    missing = [s for s in sources if not any(fnmatch.fnmatchcase(s, g) for g in globs)]
+    assert not missing, f"sources an installed port could not build: {missing}"
+
+
+def test_the_port_script_names_a_port_function():
+    scripts = _pyproject()["project"]["scripts"]
+    assert scripts["snails"] == "swiftsnails_tpu.cli:main"
+    module, func = scripts["snails-torch"].split(":")
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert module.split(".")[0] == "swiftsnails_tpu_torch" and path.is_file()
+    assert func in _defs(path)

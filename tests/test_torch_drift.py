@@ -3,7 +3,7 @@ series (the detectors' edges, states and ledger events), incident bundles,
 the TrainLoop's wiring under a ``slow_step`` injection with the loop's
 clock injected (no timed sleeps: the step times are fed in), and the drift
 drill on the CPU with a ``slow_step`` far longer than the step, and
-``tools.drift_rate``'s counts of its verdicts."""
+``tools.drift_rate``'s counts of its verdicts, both on the injected clock."""
 
 import json
 import os
@@ -202,19 +202,14 @@ def test_incident_dir_untouched_without_profiler_or_sentinel(tmp_path, clock):
     assert len(os.listdir(tmp_path / "bb")) == 1  # the black box still dumps
 
 
-def test_drift_drill_on_the_cpu(tmp_path):
-    """The drill's 80 ms slow steps against dense dim-16 steps of a few ms:
+def test_drift_drill_on_the_cpu(tmp_path, clock):
+    """The drill's 80 ms slow steps against dense dim-16 steps of 4 ms:
     detected inside the injected band, one drift event, a complete bundle,
-    and ``--diff`` naming host_blocked; the gate passes on its block. One
-    intra-op thread: on a host shared with other test processes, torch's
-    default thread count makes a few-ms step's jitter as large as the
-    injected stall, which then goes undetected."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        out = drift_drill(str(tmp_path), device="cpu")
-    finally:
-        torch.set_num_threads(n)
+    and ``--diff`` naming host_blocked; the gate passes on its block. The
+    steps run for real, but their times are the injected clock's
+    (``CLOCK_STEP_MS``, and ``SLOW_STEP_MS`` more in the band): on the host's
+    clock one stall of a shared host tripped the sentinel before the band."""
+    out = drift_drill(str(tmp_path), device="cpu", clock=clock)
     assert out["detected"], out
     assert out["inject_step"] < out["detect_step"] <= out["inject_last"] + 1
     assert out["drift_events"] == 1 and out["bundle_complete"]
@@ -225,12 +220,14 @@ def test_drift_drill_on_the_cpu(tmp_path):
     assert rc == 2 and "drift ok" in msg  # 2: no measured bench value to gate
 
 
-def test_drift_rate_counts_the_drills_verdicts(capsys):
-    """``tools.drift_rate`` on the CPU with one intra-op thread: a line a
-    run, then the summary, in which every run held the gate."""
+def test_drift_rate_counts_the_drills_verdicts(capsys, clock):
+    """``tools.drift_rate`` on the CPU with one intra-op thread, the drills
+    on the injected clock: a line a run, then the summary, in which every
+    run held the gate."""
     n = torch.get_num_threads()
     try:
-        assert drift_rate.main(["--runs", "2", "--device", "cpu", "--threads", "1"]) == 0
+        assert drift_rate.main(["--runs", "2", "--device", "cpu", "--threads", "1"],
+                               clock=clock) == 0
     finally:
         torch.set_num_threads(n)
     lines = capsys.readouterr().out.strip().splitlines()

@@ -219,6 +219,15 @@ def test_tiered_widedeep_mesh_equals_resident_mesh(tier_run):
                                       first["slot_of"]["table"])
 
 
+def test_no_flush_worker_outlives_a_meshed_run(tier_run):
+    """The meshed loop stops the tier's flush worker as the unmeshed one
+    does: after each tiered run, async flush on, no worker is alive."""
+    for r in tier_run:
+        runs = [r["w2v"][(route, 1)] for route in ("dense", "packed")] + [r["wd"][True]]
+        assert all(run["summary"]["async_flush"] for run in runs)
+        assert [run["flush_workers"] for run in runs] == [0, 0, 0]
+
+
 def test_no_collective_off_the_loops_thread(tier_run):
     for r in tier_run:
         assert r["threads"]["main"] > 0

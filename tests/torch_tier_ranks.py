@@ -147,7 +147,7 @@ def w2v_trainer(route, m=None, tier=None, **over):
 def loop_run(tr, steps=STEPS):
     """``TrainLoop.run`` to ``steps``: every array (this rank's shards;
     word2vec's two tables as ``tables``), the losses, and on a tier its
-    summary and slot maps."""
+    summary and slot maps; the tier flush workers it left alive."""
     from swiftsnails_tpu_torch.framework.trainer import TrainLoop
     from swiftsnails_tpu_torch.utils.metrics import MetricsLogger
 
@@ -157,9 +157,14 @@ def loop_run(tr, steps=STEPS):
         def log(self, record):
             losses.append(record["loss"])
 
+    def flush_workers():
+        return {t for t in threading.enumerate() if t.name == "tier-flush-worker"}
+
+    before = flush_workers()  # fed_run's hand-made managers keep theirs
     loop = TrainLoop(tr, metrics=Recorder(), log_every=1)
     state = loop.run(seed=0, max_steps=steps)
-    out = {"arrays": {k: t.clone() for k, t in tensor_items(state)}, "losses": losses}
+    out = {"arrays": {k: t.clone() for k, t in tensor_items(state)}, "losses": losses,
+           "flush_workers": len(flush_workers() - before)}
     if hasattr(state, "in_table"):
         out["tables"] = [t.table.clone() for t in state]
     if loop.tier is not None:
